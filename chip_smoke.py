@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tpu_tree_search_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
+and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
+ends the script with a non-zero exit before the final line:
+
+  1. device: torch's device name and count, and the card's name and power
+     limit as ``nvidia-smi --query-gpu=name,power.limit`` prints them;
+  2. build: every kernel compiled from ``tpu_tree_search_torch/csrc`` (one
+     ``nvcc`` per source, in parallel), with the build seconds;
+  3. kernel 1 (lb1 bounds) against its plain PyTorch version on the card:
+     ta014 tables, seeded random partial permutations, B = 1024 and 49152,
+     int8 and int32 inputs; bit-equal on the open slots;
+  4. kernel 2 (the fused search cycle) against its plain version on the
+     card: M = 1024 and 49152, finite and INF incumbent, a partial and a
+     full chunk; equal state and live pool rows;
+  5. the full ta014 lb1 ub=1 search through the CLI on the fused path at
+     M = 49152 (the default) and M = 1024: tree 2,573,652, sol 2,648,
+     makespan 1377; kernel 2's launches counted from 0 around each run;
+  6. the same search on the unfused path at M = 1024, counting kernel 1;
+  7. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+     replaces, launches on its search path, the largest difference from the
+     plain version, its time, the plain version's time and the bound.
+
+Times are CUDA-event medians on the card; ``bound_ms`` is the larger of the
+bytes the function must move over 3.35 TB/s and its int32 operations over
+67 T/s (the H100 SXM data-sheet rates, a card at its 700 W limit). The last
+line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+package beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+GOLDEN = {"explored_tree": 2573652, "explored_sol": 2648, "optimum": 1377}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
+INF = 2**31 - 1
+# The four kernels of one fused cycle (csrc/cycle_lb1.cu).
+CYCLE_KERNELS = ("cycle_bounds", "cycle_count", "cycle_scan", "cycle_emit")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _profiled_ms(fn, reps: int, names: tuple[str, ...], setup) -> float | None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    found = 0
+    for ev in prof.key_averages():
+        if any(nm in ev.key for nm in names):
+            us = getattr(ev, "device_time_total", None)
+            total_us += ev.cuda_time_total if us is None else us
+            found += ev.count
+    return total_us / reps / 1e3 if found >= reps and total_us > 0 else None
+
+
+def kernel_device_ms(fn, reps: int, names: tuple[str, ...],
+                     setup=None) -> tuple[float, str]:
+    """Device time of one ``fn()`` call spent in the CUDA kernels whose names
+    contain one of ``names``, and how it was taken. ``"profiler"``: the sum
+    of their durations in a ``torch.profiler`` (CUPTI) trace of ``reps``
+    calls, over ``reps`` — host issue time excluded. When the trace holds
+    none of the launches (tried twice), ``"events"``: the mean of CUDA
+    events around each of ``reps`` calls — an upper bound that includes
+    whatever host issue time the device waits for."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        ms = _profiled_ms(fn, reps, names, setup)
+        if ms is not None:
+            return ms, "profiler"
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps, "events"
+
+
+def median_ms(fn, reps: int, setup=None) -> float:
+    """Median wall time of one ``fn()`` call on the stream (CUDA events
+    around each call, host issue time included; ``setup()`` runs before
+    each, outside the timed pair)."""
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def lb1_ops(limit1: np.ndarray, n: int, m: int) -> float:
+    """int32 operations of the lb1 plane: per parent (l1+1)*m*2 for the
+    front scan and (n-l1-1)*m for the remaining work, per child slot 6m."""
+    l1 = limit1.astype(np.int64)
+    return float(np.sum((l1 + 1) * m * 2 + (n - l1 - 1) * m) + limit1.size * n * 6 * m)
+
+
+def random_nodes(rng, n: int, B: int, deep_share: float = 0.25):
+    """Seeded partial permutations; a share one swap from complete so their
+    children are leaves."""
+    prmu = np.argsort(rng.random((B, n)), axis=1).astype(np.int32)
+    limit1 = rng.integers(-1, n - 2, B).astype(np.int32)
+    limit1[rng.random(B) < deep_share] = n - 2
+    return prmu, limit1
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count()}
+    emit("device", torch=torch.__version__, cuda=torch.version.cuda,
+         nvidia_smi=smi, **dev)
+    return dev
+
+
+def phase_build():
+    from tpu_tree_search_torch.ops import _build
+
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    secs = time.perf_counter() - t0
+    ptxas = {}
+    for src in _build.sources():
+        log = _build.log_path(src.stem).read_text(errors="replace")
+        ptxas[src.stem] = [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln][:8]
+    emit("build", seconds=secs, per_source_seconds=per_source, ptxas=ptxas)
+
+
+def phase_kernel1(dev, tables) -> dict:
+    from tpu_tree_search_torch.ops import lb1_kernel
+
+    n, m = tables.jobs, tables.machines
+    rng = np.random.default_rng(0)
+    rows = {}
+    for B in (1024, 49152):
+        prmu, limit1 = random_nodes(rng, n, B)
+        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
+        for dtype in (torch.int8, torch.int32):
+            p = torch.from_numpy(prmu).to(dev).to(dtype)
+            lim = torch.from_numpy(limit1).to(dev).to(dtype)
+            got = lb1_kernel.lb1_bounds_cuda(p, lim, tables)
+            want = lb1_kernel.plain(p, lim, tables)
+            torch.cuda.synchronize()
+            err = int((got[open_].long() - want[open_].long()).abs().max())
+            check(err == 0, f"lb1 kernel differs from plain (B={B}, {dtype})")
+            call = lambda: lb1_kernel.lb1_bounds_cuda(p, lim, tables)  # noqa: E731
+            ms, timing = kernel_device_ms(call, 50, ("lb1_bounds_kernel",))
+            call_ms = median_ms(call, 50)
+            plain_ms = median_ms(lambda: lb1_kernel.plain(p, lim, tables), 5)
+            isz = p.element_size()
+            nbytes = B * n * isz + B * isz + B * n * 4 + (n * m + 2 * m) * 4
+            bms, by = bound_ms(nbytes, lb1_ops(limit1, n, m))
+            rows[(B, str(dtype))] = dict(B=B, dtype=str(dtype), max_abs_err=err,
+                                         ms=ms, timing=timing, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                                         bound_us=bms * 1e3, bound_by=by)
+            emit("kernel1", **rows[(B, str(dtype))])
+    return rows
+
+
+def phase_kernel2(dev, tables) -> dict:
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk
+
+    n, m, K = tables.jobs, tables.machines, 4
+    mterm = 25
+    rng = np.random.default_rng(1)
+    rows = {}
+    for M in (1024, 49152):
+        scratch = C.cycle_scratch(M, n, torch.int8, dev)
+        for chunk in ("partial", "full"):
+            size = M // 2 + 3 if chunk == "partial" else M + 517
+            prmu, limit1 = random_nodes(rng, n, size)
+            leaf = (np.arange(n)[None, :] > limit1[:, None]) & (limit1[:, None] == n - 2)
+            lb = lb1_chunk(torch.from_numpy(prmu).to(dev),
+                           torch.from_numpy(limit1).to(dev), tables).cpu().numpy()
+            for incumbent in ("finite", "inf"):
+                best = int(np.median(lb[leaf])) if incumbent == "finite" else INF
+                cap = size + M * n
+                pv0 = torch.zeros((cap, n), dtype=torch.int8, device=dev)
+                pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
+                pv0[:size] = torch.from_numpy(prmu).to(dev).to(torch.int8)
+                pa0[:size] = torch.from_numpy(limit1).to(dev).to(torch.int8)
+                st0 = C.new_state(size, best, dev)
+                pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
+                C.cycle_lb1_cuda(pv, pa, st, scratch, tables, M, mterm, K)
+                pv2, pa2, st2 = pv0.clone(), pa0.clone(), st0.clone()
+                C.cycle_lb1_plain(pv2, pa2, st2, tables, M, mterm, K)
+                torch.cuda.synchronize()
+                live = int(st2[C.ST_SIZE])
+                err = max(
+                    int((st[:C.ST_BASE + 1] - st2[:C.ST_BASE + 1]).abs().max()),
+                    int((pv[:live].int() - pv2[:live].int()).abs().max()) if live else 0,
+                    int((pa[:live].int() - pa2[:live].int()).abs().max()) if live else 0,
+                )
+                tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
+                check(err == 0 and int(st2[C.ST_CYCLES]) == 1,
+                      f"cycle kernel differs from plain (M={M}, {chunk}, {incumbent})")
+
+                def restore():
+                    pv.copy_(pv0)
+                    pa.copy_(pa0)
+                    st.copy_(st0)
+                    pv2.copy_(pv0)
+                    pa2.copy_(pa0)
+                    st2.copy_(st0)
+
+                def call():
+                    C.cycle_lb1_cuda(pv, pa, st, scratch, tables, M, mterm, K)
+
+                ms, timing = kernel_device_ms(call, 30, CYCLE_KERNELS, restore)
+                call_ms = median_ms(call, 30, restore)
+                plain_ms = median_ms(lambda: C.cycle_lb1_plain(pv2, pa2, st2, tables,
+                                                               M, mterm, K), 3, restore)
+                cnt = min(size, M)
+                nbytes = cnt * (n + 1) + tree * (n + 1) + (n * m + 2 * m) * 4 + 64
+                pop = limit1[size - cnt:]
+                bms, by = bound_ms(nbytes, lb1_ops(pop, n, m))
+                rows[(M, chunk, incumbent)] = dict(
+                    M=M, chunk=chunk, incumbent=incumbent, popped=cnt,
+                    tree_inc=tree, sol_inc=sol, best_in=best,
+                    best_out=int(st2[C.ST_BEST]), max_abs_err=err, ms=ms,
+                    timing=timing, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3,
+                    bound_by=by)
+                emit("kernel2", **rows[(M, chunk, incumbent)])
+    return rows
+
+
+def run_search(argv: list[str]) -> dict:
+    """One search through the CLI (report captured); returns its JSON record."""
+    from tpu_tree_search_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--json"])
+    check(rc == 0, f"cli {argv} returned {rc}")
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    got = {k: rec[k] for k in GOLDEN}
+    check(got == GOLDEN, f"ta014 lb1 ub=1 counts {got} != golden {GOLDEN}")
+    return rec
+
+
+def phase_search(name: str, argv: list[str], counters: dict) -> dict:
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    rec = run_search(["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1",
+                         "--tier", "device"] + argv)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    dev_tree, _, dev_s = rec["phases"][1]
+    out = dict(rec, launches=launches,
+               nodes_per_s=rec["explored_tree"] / rec["elapsed_s"],
+               device_nodes_per_s=dev_tree / dev_s,
+               stall_fallback_ran=rec["stall_fallbacks"] > 0)
+    emit(name, **out)
+    return out
+
+
+def main() -> int:
+    dev_info = phase_device()
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import lb1_kernel
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    phase_build()
+    dev = torch.device("cuda", 0)
+    tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
+    k1 = phase_kernel1(dev, tables)
+    k2 = phase_kernel2(dev, tables)
+    counters = {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
+                "cycle_lb1": C.cycle_lb1_cuda}
+    fused = phase_search("search_fused_M49152", [], counters)
+    check(fused["launches"]["cycle_lb1"] > 0, "kernel 2 not launched on the main path")
+    fused1k = phase_search("search_fused_M1024", ["--M", "1024"], counters)
+    check(fused1k["launches"]["cycle_lb1"] > 0, "kernel 2 not launched at M=1024")
+    unfused = phase_search("search_unfused_M1024", ["--M", "1024", "--unfused"],
+                           counters)
+    check(unfused["launches"]["lb1_bounds"] > 0,
+          "kernel 1 not launched on the unfused path")
+
+    k1_main = k1[(1024, "torch.int8")]
+    k2_main = k2[(49152, "full", "finite")]
+    kernels = [
+        {"name": "lb1_bounds", "route": "cuda",
+         "source": "tpu_tree_search_torch/csrc/lb1_bounds.cu",
+         "replaces": "tpu_tree_search/ops/pallas_kernels.py:535",
+         "launches": unfused["launches"]["lb1_bounds"],
+         "launches_path": "search_unfused_M1024",
+         "shape": "B=1024 int8",
+         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
+         "ms": k1_main["ms"], "timing": k1_main["timing"], "call_ms": k1_main["call_ms"],
+         "plain_ms": k1_main["plain_ms"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+         "library_ms": None},
+        {"name": "cycle_lb1", "route": "cuda",
+         "source": "tpu_tree_search_torch/csrc/cycle_lb1.cu",
+         "replaces": "tpu_tree_search/ops/megakernel.py:570",
+         "launches": fused["launches"]["cycle_lb1"],
+         "launches_path": "search_fused_M49152",
+         "shape": "M=49152 full chunk, finite incumbent",
+         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+         "ms": k2_main["ms"], "timing": k2_main["timing"], "call_ms": k2_main["call_ms"],
+         "plain_ms": k2_main["plain_ms"],
+         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
+         "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": dev_info}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,104 @@
+"""The port's CUDA kernels on the card (``cuda`` marker; skipped without a GPU).
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+with the card and no JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest pins JAX to the CPU.) Each kernel is
+held to its plain PyTorch version on the same inputs with tolerance 0, and
+the search on the card to the counts of the JAX package's sequential tier
+on a reduced instance.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_tree_search_torch.engine.resident import resident_search
+from tpu_tree_search_torch.ops import cycle as C
+from tpu_tree_search_torch.ops import lb1_kernel
+from tpu_tree_search_torch.problems import PFSPProblem
+from tpu_tree_search_torch.problems.pfsp import taillard
+
+INF = 2**31 - 1
+# ta014's 10-job, 5-machine corner under its optimal incumbent 609: tree
+# 2074, sol 90 (the JAX package's sequential_search, as pinned on the CPU by
+# tests/test_torch_resident.py).
+REDUCED = dict(tree=2074, sol=90, best=609)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _nodes(rng, n, B):
+    prmu = np.argsort(rng.random((B, n)), axis=1).astype(np.int32)
+    limit1 = rng.integers(-1, n - 2, B).astype(np.int32)
+    limit1[rng.random(B) < 0.25] = n - 2
+    return prmu, limit1
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("B", [1, 1000])
+def test_lb1_kernel_matches_plain(cuda, dtype, B):
+    t = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(B), 20, B)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = lb1_kernel.lb1_bounds_cuda(p, lim, t)
+    want = lb1_kernel.plain(p, lim, t)
+    torch.cuda.synchronize()
+    op = torch.from_numpy(np.arange(20)[None, :] > limit1[:, None]).to(cuda)
+    assert torch.equal(got[op], want[op])
+
+
+@pytest.mark.parametrize("size,finite", [(40, False), (700, True), (700, False)])
+def test_cycle_kernel_matches_plain(cuda, size, finite):
+    t = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(cuda)
+    n, M, m, K = 20, 256, 25, 4
+    prmu, limit1 = _nodes(np.random.default_rng(size), n, size)
+    best = 1500 if finite else INF
+    cap = size + M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    pv2, pa2 = pv.clone(), pa.clone()
+    st, st2 = C.new_state(size, best, cuda), C.new_state(size, best, cuda)
+    scratch = C.cycle_scratch(M, n, torch.int8, cuda)
+    for _ in range(3):
+        C.cycle_lb1_cuda(pv, pa, st, scratch, t, M, m, K)
+        C.cycle_lb1_plain(pv2, pa2, st2, t, M, m, K)
+        torch.cuda.synchronize()
+        assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+        live = int(st[C.ST_SIZE])
+        assert torch.equal(pv[:live], pv2[:live])
+        assert torch.equal(pa[:live], pa2[:live])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_search_on_card_matches_sequential_counts(cuda, fused):
+    ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+    res = resident_search(PFSPProblem(lb="lb1", ub=0, p_times=ptm), m=8, M=256,
+                          K=64, initial_best=REDUCED["best"], device=cuda,
+                          fused=fused)
+    assert (res.explored_tree, res.explored_sol, res.best) == (
+        REDUCED["tree"], REDUCED["sol"], REDUCED["best"])
+
+
+def test_kernel_wrappers_raise_on_bad_input(cuda):
+    t = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(cuda)
+    with pytest.raises(TypeError):
+        lb1_kernel.lb1_bounds_cuda(torch.zeros((4, 20), dtype=torch.int16, device=cuda),
+                                   torch.zeros(4, dtype=torch.int16, device=cuda), t)
+    with pytest.raises(ValueError):
+        lb1_kernel.lb1_bounds_cuda(torch.zeros((4, 19), dtype=torch.int8, device=cuda),
+                                   torch.zeros(4, dtype=torch.int8, device=cuda), t)

@@ -1,0 +1,129 @@
+"""Package-level guarantees of the PyTorch/CUDA port.
+
+  * No module of ``tpu_tree_search_torch/`` and not ``chip_smoke.py`` imports
+    JAX or anything of the JAX package (an AST scan of every import).
+  * Entry points run on ``cuda`` unless asked for the CPU: on a machine
+    without CUDA they raise instead of falling back.
+  * The CLI refuses what is not ported with the ROADMAP item, and
+    ``chip_smoke.py`` fails (prints no result) without a card.
+"""
+
+from __future__ import annotations
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpu_tree_search_torch import cli
+from tpu_tree_search_torch.engine.resident import resident_search
+from tpu_tree_search_torch.ops import _build
+from tpu_tree_search_torch.ops.backend import resolve_device
+from tpu_tree_search_torch.problems import PFSPProblem
+from tpu_tree_search_torch.problems.pfsp import taillard
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "tpu_tree_search_torch"
+FORBIDDEN = {"jax", "jaxlib", "tpu_tree_search"}
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15 and (ROOT / "chip_smoke.py").exists()
+    bad = {
+        str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
+        for f in files
+    }
+    assert {f: r for f, r in bad.items() if r} == {}
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    prob = PFSPProblem(lb="lb1", ub=0,
+                       p_times=taillard.reduced_instance(14, jobs=6, machines=3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resident_search(prob, m=4, M=64, K=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prob.device_tables("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["pfsp", "--inst", "14"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("argv", [
+    ["pfsp", "--lb", "lb2"],
+    ["pfsp", "--lb", "lb1_d"],
+    ["pfsp", "--tier", "seq"],
+    ["nqueens"],
+])
+def test_cli_refuses_unported_paths(argv, capsys):
+    assert cli.main(argv + ["--device", "cpu"]) == 2
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_cli_report_and_record_on_cpu(capsys):
+    prob = PFSPProblem(lb="lb1", ub=0,
+                       p_times=taillard.reduced_instance(14, jobs=8, machines=4))
+    res = resident_search(prob, m=4, M=64, K=8, device="cpu")
+    args = cli.build_parser().parse_args(["pfsp", "--device", "cpu"])
+    cli.print_results(prob, res)
+    out = capsys.readouterr().out
+    assert f"Size of the explored tree: {res.explored_tree}" in out
+    assert "Device cycle: fused CUDA cycle" in out
+    rec = cli.result_record(args, res, torch.device("cpu"))
+    assert (rec["explored_tree"], rec["explored_sol"], rec["optimum"]) == (
+        res.explored_tree, res.explored_sol, res.best)
+    assert sum(p.tree for p in res.phases) == res.explored_tree
+
+
+def test_kernel_sources_export_the_bound_entries():
+    names = {p.stem for p in _build.sources()}
+    assert names == {"lb1_bounds", "cycle_lb1"}
+    text = {p.stem: p.read_text() for p in _build.sources()}
+    for entry in ("lb1_bounds_i8", "lb1_bounds_i32"):
+        assert f'extern "C" int {entry}(' in text["lb1_bounds"]
+    for entry in ("cycle_lb1_i8", "cycle_lb1_i32"):
+        assert f"TTS_CYCLE_ENTRY({entry}," in text["cycle_lb1"]
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    _no_cuda()
+    runs = [ROOT]
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", alone / "chip_smoke.py")
+    runs.append(alone)
+    for cwd in runs:
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -1,0 +1,150 @@
+"""The port's device-resident engine against the JAX engines.
+
+On reduced instances (ta014's 10-job, 5-machine corner), run on the CPU
+through the plain versions of the kernels:
+
+  * with a fixed incumbent (the optimum) the port's ``resident_search`` —
+    fused and unfused — explores exactly the tree of the JAX
+    ``sequential_search`` (the `tests/test_resident.py` pattern);
+  * with ub=0 (an improving incumbent) it explores exactly the tree of the
+    JAX ``resident_search`` at the same m, M and K;
+  * from one frontier (``pool_from_numpy``), one dispatch of K cycles leaves
+    the same live pool rows, size, best, tree and sol as one step of the JAX
+    resident program;
+  * a frontier past the fan-out headroom takes the capacity-stall fallback
+    and still matches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from tpu_tree_search.engine.resident import _make_program
+from tpu_tree_search.engine.resident import resident_search as jax_resident_search
+from tpu_tree_search.engine.sequential import sequential_search
+from tpu_tree_search.problems import PFSPProblem
+from tpu_tree_search.problems.pfsp import taillard
+from tpu_tree_search_torch.engine import resident as resident_mod
+from tpu_tree_search_torch.engine.device import warmup
+from tpu_tree_search_torch.engine.resident import (
+    PFSPResident,
+    pool_from_numpy,
+    resident_search,
+)
+from tpu_tree_search_torch.pool import SoAPool
+from tpu_tree_search_torch.problems import INF_BOUND, PFSPProblem as TorchPFSP
+from tpu_tree_search_torch.problems.base import index_batch
+
+PTM = taillard.reduced_instance(14, jobs=10, machines=5)
+
+
+@pytest.fixture(scope="module")
+def seq_fixed():
+    """(optimum, sequential result under the fixed optimal incumbent)."""
+    opt = sequential_search(PFSPProblem(lb="lb1", ub=0, p_times=PTM)).best
+    seq = sequential_search(PFSPProblem(lb="lb1", ub=0, p_times=PTM),
+                            initial_best=opt)
+    return opt, seq
+
+
+def _counts(res):
+    return res.explored_tree, res.explored_sol, res.best
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_fixed_incumbent_matches_sequential(seq_fixed, fused):
+    opt, seq = seq_fixed
+    res = resident_search(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m=8, M=256,
+                          K=64, initial_best=opt, device="cpu", fused=fused)
+    assert _counts(res) == _counts(seq)
+    assert res.best == opt and res.fused is fused
+    # The counts tests/test_torch_cuda.py pins for the same search on a card.
+    assert _counts(seq) == (2074, 90, 609)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_improving_incumbent_matches_jax_resident(fused):
+    want = jax_resident_search(PFSPProblem(lb="lb1", ub=0, p_times=PTM),
+                               m=8, M=64, K=16)
+    res = resident_search(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m=8, M=64,
+                          K=16, device="cpu", fused=fused)
+    assert _counts(res) == _counts(want)
+
+
+def _frontier(target):
+    prob = TorchPFSP(lb="lb1", ub=0, p_times=PTM)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, INF_BOUND, target)
+    return pool.as_batch()
+
+
+@pytest.mark.parametrize("cycle", ["fused", "dense", "scatter"])
+@pytest.mark.parametrize("incumbent", ["inf", "opt"])
+def test_one_dispatch_matches_jax_step(seq_fixed, cycle, incumbent):
+    best = INF_BOUND if incumbent == "inf" else seq_fixed[0]
+    m, M, K, capacity = 8, 64, 6, 4096
+    fr = _frontier(200)
+    k = fr["prmu"].shape[0]
+    jprog = _make_program(PFSPProblem(lb="lb1", ub=0, p_times=PTM), m, M, K,
+                          capacity, None)
+    out = jprog.step(jprog.init_state(fr, best))
+    j_vals, j_aux, j_size, j_best = (np.asarray(x) for x in out[:4])
+    j_tree, j_sol, j_cycles = (int(x) for x in out[4:7])
+
+    prog = PFSPResident(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m, M, K,
+                        capacity, "cpu", fused=cycle == "fused")
+    if cycle != "fused":
+        prog.compact = cycle  # the unfused cycle's compaction mode
+    state = pool_from_numpy(fr["prmu"], fr["limit1"], k, best, capacity, "cpu")
+    prog.step(state)
+    tree, sol, cycles, size, best_t = prog.read_scalars(state)
+    assert (tree, sol, cycles, size, best_t) == (
+        j_tree, j_sol, j_cycles, int(j_size), int(j_best))
+    assert cycles == K  # the frontier outlives the dispatch
+    live = int(j_size)
+    assert np.array_equal(state.pool_vals[:live].numpy().astype(np.int32),
+                          j_vals[:live].astype(np.int32))
+    assert np.array_equal(state.pool_aux[:live].numpy().astype(np.int32),
+                          j_aux[:live].astype(np.int32))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_capacity_stall_fallback_keeps_counts(seq_fixed, fused):
+    opt, seq = seq_fixed
+    # A 400-node warm frontier plus one M*n = 320 fan-out exceeds the
+    # 700-row pool.
+    res = resident_search(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m=8, M=32,
+                          K=16, capacity=700, warmup_target=400,
+                          initial_best=opt, device="cpu", fused=fused)
+    assert res.stall_fallbacks >= 1
+    assert res.diagnostics.host_to_device > 1
+    assert _counts(res) == _counts(seq)
+
+
+@pytest.mark.parametrize("mode", ["dense", "scatter"])
+def test_unfused_overflow_branch_matches_jax_resident(monkeypatch, mode):
+    # Under ub=inf a 300-node warm frontier keeps more than the survivor
+    # budget S = 64*n of a 128-parent chunk, which takes the overflow push.
+    calls = []
+    push_big = PFSPResident._push_big
+
+    def spy(self, *args):
+        calls.append(self.compact)
+        return push_big(self, *args)
+
+    monkeypatch.setattr(PFSPResident, "_push_big", spy)
+    monkeypatch.setattr(resident_mod, "resolve_compact_mode", lambda M, n: mode)
+    want = jax_resident_search(PFSPProblem(lb="lb1", ub=0, p_times=PTM), m=8,
+                               M=128, K=16, warmup_target=300)
+    res = resident_search(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m=8, M=128,
+                          K=16, warmup_target=300, device="cpu", fused=False)
+    assert calls and set(calls) == {mode}
+    assert _counts(res) == _counts(want)
+
+
+def test_unported_bounds_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=PTM), 8, 64, 4, 4096, "cpu")
+

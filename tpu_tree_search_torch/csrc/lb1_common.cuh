@@ -1,0 +1,113 @@
+// Shared device code of the lb1 kernels (lb1_bounds.cu, cycle_lb1.cu).
+//
+// The per-parent prologue and the per-child chain of the PFSP one-machine
+// bound lb1 (`c_bound_simple.c:51-158`, forward branching, so the tail
+// schedule is the constant `min_tails` table), in the incremental form of
+// the JAX package's `_lb1_tile_lb` (tpu_tree_search/ops/pallas_kernels.py):
+// the parent front is scanned once, then every child slot takes one
+// add_forward step and the m-long machine chain. Integer gathers from a
+// shared-memory copy of the (n, m) job-major time table replace the TPU
+// kernel's one-hot MXU product.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TTS_INF_BOUND 0x7fffffff
+
+// Parents handled by one block. Threads 0..PB-1 run the O(n*m) parent
+// prologue; then all threads run one child slot each, PB*n slots a block.
+#define TTS_PARENTS_PER_BLOCK 8
+
+extern "C" const char* tts_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" int tts_parents_per_block() { return TTS_PARENTS_PER_BLOCK; }
+
+static inline int tts_threads_for(int slots) {
+  int t = ((slots + 31) / 32) * 32;
+  return t > 1024 ? 1024 : t;
+}
+
+// Dynamic shared memory of a block: ptm (n*m), heads (m), tails (m),
+// front (PB*m), remain (PB*m).
+static inline size_t tts_lb1_smem_bytes(int n, int m) {
+  return sizeof(int) * (static_cast<size_t>(n) * m + 2 * m +
+                        2 * TTS_PARENTS_PER_BLOCK * m);
+}
+
+struct Lb1Smem {
+  int* ptm;
+  int* heads;
+  int* tails;
+  int* front;
+  int* remain;
+};
+
+__device__ __forceinline__ Lb1Smem lb1_smem_layout(int* smem, int n, int m) {
+  Lb1Smem s;
+  s.ptm = smem;
+  s.heads = s.ptm + n * m;
+  s.tails = s.heads + m;
+  s.front = s.tails + m;
+  s.remain = s.front + TTS_PARENTS_PER_BLOCK * m;
+  return s;
+}
+
+__device__ __forceinline__ void lb1_load_tables(const Lb1Smem& s,
+                                                const int* ptm_t,
+                                                const int* heads,
+                                                const int* tails, int n,
+                                                int m) {
+  for (int i = threadIdx.x; i < n * m; i += blockDim.x) s.ptm[i] = ptm_t[i];
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    s.heads[i] = heads[i];
+    s.tails[i] = tails[i];
+  }
+}
+
+// front = schedule_front(row, l1) (min_heads at l1 == -1), remain =
+// sum_unscheduled(row, l1): the per-machine work of positions l1+1..n-1.
+template <typename T>
+__device__ __forceinline__ void lb1_parent_state(const T* row, int l1, int n,
+                                                 int m, const Lb1Smem& s,
+                                                 int* front, int* remain) {
+  for (int j = 0; j < m; ++j) {
+    front[j] = (l1 == -1) ? s.heads[j] : 0;
+    remain[j] = 0;
+  }
+  for (int i = 0; i <= l1 && i < n; ++i) {
+    const int* p = s.ptm + static_cast<int>(row[i]) * m;
+    int f = front[0] + p[0];
+    front[0] = f;
+    for (int j = 1; j < m; ++j) {
+      f = max(f, front[j]) + p[j];
+      front[j] = f;
+    }
+  }
+  for (int i = l1 + 1; i < n; ++i) {
+    const int* p = s.ptm + static_cast<int>(row[i]) * m;
+    for (int j = 0; j < m; ++j) remain[j] += p[j];
+  }
+}
+
+// lb1 of child slot k: append the job at position k (one add_forward step
+// from the parent front), take it out of the remaining work, and run the
+// machine chain of `machine_bound_from_parts` against min_tails.
+template <typename T>
+__device__ __forceinline__ int lb1_child(const T* row, int k, int m,
+                                         const Lb1Smem& s, const int* front,
+                                         const int* remain) {
+  const int* p = s.ptm + static_cast<int>(row[k]) * m;
+  int cf = front[0] + p[0];
+  int tmp0 = cf + (remain[0] - p[0]);
+  int lb = tmp0 + s.tails[0];
+  for (int i = 1; i < m; ++i) {
+    cf = max(cf, front[i]) + p[i];
+    const int tmp1 = max(tmp0, cf + (remain[i] - p[i]));
+    lb = max(lb, tmp1 + s.tails[i]);
+    tmp0 = tmp1;
+  }
+  return lb;
+}

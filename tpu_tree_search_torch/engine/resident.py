@@ -1,0 +1,406 @@
+"""Device-resident search engine — the port of `tpu_tree_search/engine/resident.py`
+for PFSP lb1.
+
+The pool lives in device memory as fixed-capacity SoA tensors (``prmu``
+rows and one ``limit1`` column, int8 for up to 127 jobs), and one dispatch
+advances the search by up to K chunk cycles; the host reads back a few
+scalars per dispatch. Semantics per cycle are exactly the reference's chunk
+cycle:
+
+  * pop the back ``cnt = min(size, M)`` nodes, only while ``size >= m``;
+  * evaluate all ``cnt * jobs`` children in one batch;
+  * a child with depth == jobs is a leaf -> exploredSol++, folds the
+    incumbent with a min; a non-leaf child is pushed iff ``bound < best``
+    strictly, counting exploredTree (`pfsp_chpl.chpl:100-111`);
+  * survivors are pushed in (parent, slot) order.
+
+Two cycles compute this and leave identical live pools:
+
+  * fused (the default): the CUDA cycle of `ops/cycle.py` — the counterpart
+    of the JAX engine's one-kernel cycle. The loop condition is evaluated
+    on the device, so the host enqueues K cycles per dispatch with no
+    synchronisation and reads the state once (the ``lax.while_loop``
+    counterpart; a cycle past termination is an exact no-op);
+  * unfused (``fused=False``): pop, the lb1 bound kernel (`ops/lb1_kernel.py`),
+    torch `compact_ids` and the one-gather push of `resident.py:311-352`,
+    with the overflow branch. It synchronises once per cycle to read the
+    survivor count.
+
+Capacity safety: a cycle runs only while ``size + M*jobs <= capacity``. If
+the pool outgrows that headroom the dispatch stalls (zero cycles) and the
+host runs offload cycles (host pop, the bound kernel, host branch) until the
+frontier fits again — correctness never depends on the capacity heuristic.
+
+Not ported yet (ROADMAP): the adaptive K ladder, speculative pipelining,
+checkpoints, the steady-state guard and the telemetry blocks.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.backend import resolve_device
+from ..ops.compaction import compact_ids, resolve_compact_mode, shift_compact, survivor_ranks
+from ..ops.cycle import (
+    ST_BEST,
+    ST_CYCLES,
+    ST_SIZE,
+    ST_TREE,
+    cycle_lb1,
+    cycle_scratch,
+    new_state,
+)
+from ..ops.pfsp_device import lb1_bounds
+from ..pool.pool import SoAPool
+from ..problems.base import INF_BOUND, Problem, index_batch
+from ..problems.pfsp.problem import PFSPProblem
+from .device import DeviceOffloader, drain, warmup
+from .results import Diagnostics, PhaseStats, SearchResult
+
+
+def pool_dtype(n: int) -> torch.dtype:
+    """Device pool storage type: int8 rows (and limit1) through 127 jobs,
+    int32 beyond (the kernels take those two types)."""
+    return torch.int8 if n <= 127 else torch.int32
+
+
+@dataclass
+class ResidentState:
+    """The device state of one search: the pool and the scalar block
+    (`ops/cycle.py` layout: size, best, tree, sol, cycles, ...)."""
+
+    pool_vals: torch.Tensor  # (C, n)
+    pool_aux: torch.Tensor  # (C,) limit1
+    st: torch.Tensor  # (ST_LEN,) int32
+
+
+def pool_from_numpy(vals, aux, size: int, best: int, capacity: int,
+                    device=None) -> ResidentState:
+    """A resident state holding ``vals[:size]`` (prmu rows) and
+    ``aux[:size]`` (limit1) at the front of a zeroed pool of ``capacity``
+    rows, with incumbent ``best`` and zeroed counters."""
+    dev = resolve_device(device)
+    vals = np.asarray(vals)
+    n = vals.shape[1]
+    if size > capacity:
+        raise ValueError(f"frontier of {size} nodes exceeds capacity {capacity}")
+    dt = pool_dtype(n)
+    pool_vals = torch.zeros((capacity, n), dtype=dt, device=dev)
+    pool_aux = torch.zeros(capacity, dtype=dt, device=dev)
+    if size:
+        pool_vals[:size] = torch.from_numpy(
+            np.ascontiguousarray(vals[:size], dtype=np.int32)).to(dev).to(dt)
+        pool_aux[:size] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(aux)[:size], dtype=np.int32)
+        ).to(dev).to(dt)
+    return ResidentState(pool_vals, pool_aux, new_state(size, best, dev))
+
+
+def _swap_children(vals: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(M, n, n): row (i, k) = parent i with positions depth_i and k swapped
+    (identity when k == depth_i) — `resident.py:_swap_children`."""
+    n = vals.shape[1]
+    iota = torch.arange(n, device=vals.device)[None, None, :]
+    kcol = iota.transpose(1, 2)
+    d = depth.long()[:, None, None]
+    val_at_k = vals[:, :, None]
+    val_at_d = vals.gather(1, depth.long()[:, None])[:, :, None]
+    return torch.where(iota == d, val_at_k,
+                       torch.where(iota == kcol, val_at_d, vals[:, None, :]))
+
+
+class PFSPResident:
+    """The resident program for one (problem, m, M, K, capacity, device)."""
+
+    # Deep PFSP chunks prune heavily; the unfused push's gather budget is
+    # a quarter of the slot grid (the JAX engine's choice).
+    survivor_budget_div = 4
+
+    def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
+                 capacity: int, device, fused: bool = True):
+        if problem.lb != "lb1":
+            raise NotImplementedError(
+                f"device bound {problem.lb!r} is not ported yet (ROADMAP.md "
+                "queue A: lb2, lb1_d) — tpu_tree_search_torch runs lb1")
+        n = problem.jobs
+        self.problem = problem
+        self.m = m
+        self.M = M
+        self.capacity = capacity
+        self.device = resolve_device(device)
+        self.fused = fused
+        # Counter headroom: one dispatch accumulates at most K*M*n into the
+        # int32 tree/sol counters.
+        self.K = max(1, min(K, (2**31 - 1) // max(1, M * n)))
+        self.dtype = pool_dtype(n)
+        self.tables = problem.device_tables(self.device)
+        self.S = min(max(64 * n, M * n // self.survivor_budget_div), M * n)
+        self.compact = None if fused else resolve_compact_mode(M, n)
+        self._scratch = (cycle_scratch(M, n, self.dtype, self.device)
+                         if fused and self.device.type == "cuda" else None)
+
+    def init_state(self, frontier: dict, best: int) -> ResidentState:
+        k = frontier["prmu"].shape[0]
+        return pool_from_numpy(frontier["prmu"], frontier["limit1"], k, best,
+                               self.capacity, self.device)
+
+    def step(self, state: ResidentState) -> None:
+        """One dispatch: up to K cycles, in place on ``state``."""
+        state.st[ST_TREE:ST_CYCLES + 1] = 0  # tree, sol, cycles
+        if self.fused:
+            for _ in range(self.K):
+                cycle_lb1(state.pool_vals, state.pool_aux, state.st,
+                          self._scratch, self.tables, self.M, self.m, self.K)
+        else:
+            self._unfused_step(state)
+
+    def read_scalars(self, state: ResidentState):
+        """The dispatch's one readback: ``(tree, sol, cycles, size, best)``."""
+        size, best, tree, sol, cycles = state.st[:ST_CYCLES + 1].tolist()
+        return tree, sol, cycles, size, best
+
+    def residual(self, state: ResidentState) -> tuple[dict, int, int]:
+        """Downloads the live pool -> (host NodeBatch, size, best)."""
+        size = int(state.st[ST_SIZE])
+        best = int(state.st[ST_BEST])
+        fields = self.problem.node_fields()
+        limit1 = state.pool_aux[:size].cpu().numpy()
+        batch = {
+            "prmu": state.pool_vals[:size].cpu().numpy().astype(
+                fields["prmu"][1]),
+            "limit1": limit1.astype(fields["limit1"][1]),
+            # depth == limit1 + 1 for every node the engine pushes.
+            "depth": (limit1.astype(np.int32) + 1).astype(fields["depth"][1]),
+        }
+        return batch, size, best
+
+    # -- the unfused cycle ---------------------------------------------------
+
+    def _unfused_step(self, state: ResidentState) -> None:
+        """Up to K unfused cycles; synchronises once per cycle."""
+        n, m, M, C, S = self.problem.jobs, self.m, self.M, self.capacity, self.S
+        Mn = M * n
+        dev = self.device
+        pool_vals, pool_aux = state.pool_vals, state.pool_aux
+        size, best = (int(v) for v in state.st[:ST_BEST + 1].tolist())
+        tree = sol = cycles = 0
+        kk = torch.arange(n, dtype=torch.int32, device=dev)
+        while size >= m and size + Mn <= C and cycles < self.K:
+            cnt = min(size, M)
+            start = size - cnt
+            start2 = min(max(start, 0), C - M)
+            idx = start2 + torch.arange(M, device=dev)
+            valid = (idx >= start) & (idx < size)
+            vals_c = pool_vals[start2:start2 + M].clone()
+            aux_c = pool_aux[start2:start2 + M].to(torch.int32)
+            size = start
+            bounds = lb1_bounds(vals_c, aux_c, self.tables)
+            pdepth = aux_c + 1
+            open_ = (kk[None, :] >= pdepth[:, None]) & valid[:, None]
+            leaf = open_ & ((pdepth + 1) == n)[:, None]
+            best_t = torch.clamp(
+                torch.where(leaf, bounds, torch.full_like(bounds, INF_BOUND))
+                .min(), max=best)
+            keep = open_ & ~leaf & (bounds < best_t)
+            ids, tree_inc = compact_ids(keep, S, self.compact)
+            tree_inc, sol_inc, best = torch.stack(
+                [tree_inc, torch.sum(leaf, dtype=torch.int32),
+                 best_t.to(torch.int32)]).tolist()
+            if tree_inc <= S:
+                self._push_small(pool_vals, pool_aux, vals_c, aux_c, ids, size)
+            else:
+                self._push_big(pool_vals, pool_aux, vals_c, aux_c, keep, size)
+            size += tree_inc
+            tree += tree_inc
+            sol += sol_inc
+            cycles += 1
+        state.st[:ST_CYCLES + 1] = torch.tensor(
+            [size, best, tree, sol, cycles], dtype=torch.int32)
+
+    def _push_small(self, pool_vals, pool_aux, vals_c, aux_c, ids, size):
+        """Fused prune+push (`resident.py:311-352`): ONE gather of the
+        survivor budget — parent row and parent limit1 ride the same
+        augmented (S, n+1) gather — and each child row is rebuilt at its
+        destination by selects (a child differs from its parent at exactly
+        the two swapped positions). Rows past tree_inc are garbage past
+        the new size."""
+        n = vals_c.shape[1]
+        pi = (ids // n).long()
+        kj = ids % n
+        aug = torch.cat([vals_c, aux_c.to(vals_c.dtype)[:, None]], dim=1)
+        g = aug[pi]  # (S, n+1): the cycle's one child-value gather
+        rows = g[:, :n]
+        pa = g[:, n].to(torch.int32)
+        iota = torch.arange(n, dtype=torch.int32, device=vals_c.device)[None, :]
+        ohd = iota == (pa + 1)[:, None]
+        ohk = iota == kj[:, None]
+        zero = torch.zeros_like(rows)
+        v_k = torch.where(ohk, rows, zero).sum(1, dtype=torch.int32)
+        v_d = torch.where(ohd, rows, zero).sum(1, dtype=torch.int32)
+        crows = torch.where(ohd, v_k[:, None].to(rows.dtype),
+                            torch.where(ohk, v_d[:, None].to(rows.dtype), rows))
+        S = ids.shape[0]
+        pool_vals[size:size + S] = crows
+        pool_aux[size:size + S] = (pa + 1).to(pool_aux.dtype)
+
+    def _push_big(self, pool_vals, pool_aux, vals_c, aux_c, keep, size):
+        """Overflow branch (a chunk keeps more than S children): build the
+        child cube and place every survivor at once."""
+        M, n = vals_c.shape
+        Mn = M * n
+        child = _swap_children(vals_c, aux_c + 1).reshape(Mn, n)
+        ranks, _ = survivor_ranks(keep)
+        caux = torch.repeat_interleave(aux_c + 1, n).to(pool_aux.dtype)
+        flat = keep.reshape(Mn)
+        if self.compact == "dense":
+            # Scatter-free: shift-compact the child rows themselves, then
+            # one contiguous write of the reserved M*n headroom.
+            flat_idx = torch.arange(Mn, dtype=torch.int32, device=keep.device)
+            dist = torch.where(flat, flat_idx - ranks.reshape(Mn),
+                               torch.zeros_like(flat_idx))
+            rowsc, auxc = shift_compact(dist, (child, caux))
+            pool_vals[size:size + Mn] = rowsc
+            pool_aux[size:size + Mn] = auxc
+            return
+        dest = (size + ranks.reshape(Mn))[flat].long()
+        pool_vals[dest] = child[flat]
+        pool_aux[dest] = caux[flat]
+
+
+def default_capacity(M: int, child_slots: int, node_bytes: int) -> int:
+    """Pool capacity heuristic: at least two full chunk fan-outs of headroom,
+    capped by a ~1 GiB memory budget. Correctness never depends on it
+    (overflow falls back to host offload cycles)."""
+    want = max(2 * M * child_slots, 1 << 21)
+    budget = (1 << 30) // max(1, node_bytes)
+    return max(4 * M, min(want, budget))
+
+
+def resolve_capacity(problem: Problem, M: int, capacity: int | None) -> tuple[int, int]:
+    """Shared (capacity, M) resolution (`resident.py:723-742`): apply the
+    default_capacity heuristic when unset, then clamp M so one chunk
+    fan-out always fits in half the pool."""
+    n = problem.child_slots
+    if capacity is None:
+        fields = problem.node_fields()
+        node_bytes = sum(
+            int(np.prod(shape, dtype=np.int64)) * dt.itemsize + 4
+            for shape, dt in fields.values()
+        )
+        capacity = default_capacity(M, n, node_bytes)
+    M = min(M, max(64, (capacity // 2) // n))
+    # If the 64-chunk floor binds, grow the pool instead of leaving
+    # M*n > capacity/2 — that would make the headroom check unsatisfiable
+    # and run the whole search through the host-offload fallback.
+    if 2 * M * n > capacity:
+        capacity = 2 * M * n
+    return capacity, M
+
+
+def resident_search(
+    problem: PFSPProblem,
+    m: int = 25,
+    M: int = 49152,
+    K: int = 256,
+    capacity: int | None = None,
+    device=None,
+    initial_best: int | None = None,
+    warmup_target: int | None = None,
+    fused: bool = True,
+) -> SearchResult:
+    """3-phase search with a device-resident hot loop: host warm-up to
+    ``warmup_target`` (default m) nodes, then dispatches of up to K device
+    cycles of up to M parents until fewer than m nodes remain, then a host
+    drain. ``device`` defaults to ``cuda`` (raises when absent); pass
+    ``"cpu"`` for the plain PyTorch path. Dispatch is synchronous: one
+    scalar readback per dispatch."""
+    dev = resolve_device(device)
+    best = initial_best if initial_best is not None else problem.initial_ub
+    n = problem.child_slots
+    capacity, M = resolve_capacity(problem, M, capacity)
+    pool = SoAPool(problem.node_fields())
+    diagnostics = Diagnostics()
+    phases: list[PhaseStats] = []
+    t0 = time.perf_counter()
+
+    # -- phase 1: host warm-up ------------------------------------------------
+    pool.push_back(index_batch(problem.root(), 0))
+    target = m if warmup_target is None else warmup_target
+    tree1, sol1, best = warmup(problem, pool, best, target)
+    t1 = time.perf_counter()
+    phases.append(PhaseStats(t1 - t0, tree1, sol1))
+
+    # -- phase 2: device-resident loop ----------------------------------------
+    program = PFSPResident(problem, m, M, K, capacity, dev, fused=fused)
+    state = program.init_state(pool.as_batch(), best)
+    pool.clear()
+    diagnostics.host_to_device += 1
+    tree2 = sol2 = 0
+    dispatches = stalls = 0
+    offloader = None
+    while True:
+        program.step(state)
+        tree_inc, sol_inc, cycles, size, best = program.read_scalars(state)
+        tree2 += tree_inc
+        sol2 += sol_inc
+        dispatches += 1
+        diagnostics.kernel_launches += cycles
+        if size < m:
+            break
+        if cycles == 0:
+            # Capacity stall: pool too full for another device fan-out. Run
+            # offload cycles through a host pool until there is headroom
+            # again (rare; guarantees progress at any capacity).
+            stalls += 1
+            batch, size, best = program.residual(state)
+            diagnostics.device_to_host += 1
+            pool.reset_from(batch)
+            if offloader is None:
+                offloader = DeviceOffloader(problem, dev, program.dtype)
+            chunk_buf = problem.empty_batch(M)
+            while pool.size >= m and pool.size + M * n > capacity:
+                count = pool.pop_back_bulk(m, M, chunk_buf)
+                snapshot = {k: v[:count].copy() for k, v in chunk_buf.items()}
+                bounds = offloader.evaluate(snapshot, count)
+                res = problem.generate_children(snapshot, count, bounds, best)
+                tree2 += res.tree_inc
+                sol2 += res.sol_inc
+                best = res.best
+                pool.push_back_bulk(res.children)
+            state = program.init_state(pool.as_batch(), best)
+            pool.clear()
+            diagnostics.host_to_device += 1
+    batch, size, best = program.residual(state)
+    diagnostics.device_to_host += 1
+    pool.reset_from(batch)
+    if offloader is not None:
+        diagnostics.kernel_launches += offloader.diagnostics.kernel_launches
+        diagnostics.host_to_device += offloader.diagnostics.host_to_device
+        diagnostics.device_to_host += offloader.diagnostics.device_to_host
+    t2 = time.perf_counter()
+    phases.append(PhaseStats(t2 - t1, tree2, sol2))
+
+    # -- phase 3: host drain ----------------------------------------------------
+    tree3, sol3, best = drain(problem, pool, best)
+    t3 = time.perf_counter()
+    phases.append(PhaseStats(t3 - t2, tree3, sol3))
+
+    return SearchResult(
+        explored_tree=tree1 + tree2 + tree3,
+        explored_sol=sol1 + sol2 + sol3,
+        best=best,
+        elapsed=t3 - t0,
+        phases=phases,
+        diagnostics=diagnostics,
+        compact=program.compact,
+        fused=fused,
+        M=M,
+        k_resolved=program.K,
+        dispatches=dispatches,
+        stall_fallbacks=stalls,
+    )
+

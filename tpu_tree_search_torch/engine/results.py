@@ -1,0 +1,56 @@
+"""Search result/report structures (the port's copy of
+`tpu_tree_search/engine/results.py`, cut to the fields this package fills).
+
+Reproduces the reference's self-reported metrics: exploredTree, exploredSol,
+optimum, elapsed time, the 3-phase breakdown of the offload tiers
+(`nqueens_gpu_chpl.chpl:178-245`), and offload diagnostics counters
+(GpuDiagnostics equivalent, `pfsp_gpu_chpl.chpl:454-466`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass
+class PhaseStats:
+    """One phase's deltas (`res1/res2/res3`, `nqueens_gpu_chpl.chpl:178-245`)."""
+
+    seconds: float = 0.0
+    tree: int = 0
+    sol: int = 0
+
+
+@dataclass
+class Diagnostics:
+    """Offload counters (Chapel GpuDiagnostics: kernel_launch /
+    host_to_device / device_to_host, `nqueens_gpu_chpl.chpl:278-283`).
+    """
+
+    kernel_launches: int = 0
+    host_to_device: int = 0
+    device_to_host: int = 0
+
+
+@dataclass
+class SearchResult:
+    explored_tree: int = 0
+    explored_sol: int = 0
+    best: int | None = None  # final incumbent (PFSP optimum)
+    elapsed: float = 0.0
+    phases: list[PhaseStats] = field(default_factory=list)
+    diagnostics: Diagnostics = field(default_factory=Diagnostics)
+    # Resident tier: the survivor-path compaction mode of the unfused
+    # cycle ("dense"/"scatter"); None on the fused cycle, which compacts
+    # inside its kernel.
+    compact: str | None = None
+    # Resident tier: which cycle ran (the fused CUDA cycle or the unfused
+    # bound-kernel + torch compaction cycle), the chunk size M and cycles
+    # per dispatch K it ran with, the K-cycle dispatches it made, and how
+    # often the pool filled past the fan-out headroom and the host
+    # offload fallback ran.
+    fused: bool = True
+    M: int | None = None
+    k_resolved: int | None = None
+    dispatches: int = 0
+    stall_fallbacks: int = 0

@@ -1,0 +1,32 @@
+"""Device selection — the port's counterpart of `tpu_tree_search/ops/backend.py`.
+
+The JAX package resolves a kernel *flavor* per platform from a knob matrix
+(``TTS_KERNEL_BACKEND``). The port has one flavor per device: a CUDA tensor
+goes to the hand-written kernels, a CPU tensor to their plain PyTorch
+versions. What remains to resolve is the device itself: ``cuda`` unless the
+caller asks for ``cpu``, and never a silent fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The ``torch.device`` an entry point runs on.
+
+    ``None`` means ``cuda``. A CUDA device that is not there raises instead
+    of falling back to the CPU; ``"cpu"`` is honoured only when asked for.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch path"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    return dev

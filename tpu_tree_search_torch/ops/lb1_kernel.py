@@ -1,0 +1,73 @@
+"""Kernel 1: the lb1 bound of every child slot, as a CUDA kernel for Hopper.
+
+Replaces the TPU kernel `_lb1_kernel` (`tpu_tree_search/ops/pallas_kernels.py`,
+entry `pfsp_lb1_bounds`); source `csrc/lb1_bounds.cu`, whose header note
+says what bounds it on the card and how the design answers that.
+
+``lb1_bounds_cuda`` launches the kernel on CUDA tensors and raises on
+anything it does not take; ``plain`` is its plain PyTorch version
+(`ops/pfsp_device.lb1_chunk`), which the CPU tests and the on-card
+comparison use. ``lb1_bounds_cuda.launches`` counts the launches.
+
+The kernel reads prmu and limit1 in the pool's storage type, int8 or int32
+(limit1 is cast to prmu's type: B elements), so the resident pool's int8
+rows go in without a widening copy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .pfsp_device import PFSPDeviceTables, lb1_chunk
+
+#: The plain PyTorch version of the kernel.
+plain = lb1_chunk
+
+_ENTRIES = {torch.int8: "lb1_bounds_i8", torch.int32: "lb1_bounds_i32"}
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _entry(dtype: torch.dtype):
+    """The loaded library and its C entry for ``dtype`` (bound once)."""
+    lib = _build.library("lb1_bounds")
+    fn = getattr(lib, _ENTRIES[dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
+                    tables: PFSPDeviceTables) -> torch.Tensor:
+    """(B, n) int32 lb1 child bounds of ``prmu`` (B, n) / ``limit1`` (B,),
+    computed by the CUDA kernel on the current stream."""
+    if not prmu.is_cuda:
+        raise ValueError("lb1_bounds_cuda takes CUDA tensors "
+                         "(pfsp_device.lb1_bounds routes CPU tensors)")
+    if prmu.dtype not in _ENTRIES:
+        raise TypeError(f"prmu must be int8 or int32, got {prmu.dtype}")
+    if prmu.dim() != 2 or limit1.shape != (prmu.shape[0],):
+        raise ValueError("prmu must be (B, n) and limit1 (B,)")
+    B, n = prmu.shape
+    if (n, tables.machines) != tuple(tables.ptm_t.shape):
+        raise ValueError("prmu width does not match the tables' job count")
+    if tables.device != prmu.device or limit1.device != prmu.device:
+        raise ValueError("prmu, limit1 and the tables must share a device")
+    prmu = prmu.contiguous()
+    limit1 = limit1.to(prmu.dtype).contiguous()
+    out = torch.empty((B, n), dtype=torch.int32, device=prmu.device)
+    lib, fn = _entry(prmu.dtype)
+    stream = torch.cuda.current_stream(prmu.device).cuda_stream
+    err = fn(prmu.data_ptr(), limit1.data_ptr(), tables.ptm_t.data_ptr(),
+             tables.min_heads.data_ptr(), tables.min_tails.data_ptr(),
+             out.data_ptr(), B, n, tables.machines, stream)
+    _build.check(lib, err, "lb1_bounds")
+    lb1_bounds_cuda.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+lb1_bounds_cuda.launches = 0  # type: ignore[attr-defined]
