@@ -21,7 +21,23 @@ ends the script with a non-zero exit before the final line:
      M = 49152 (the default) and M = 1024: tree 2,573,652, sol 2,648,
      makespan 1377; kernel 2's launches counted from 0 around each run;
   6. the same search on the unfused path at M = 1024, counting kernel 1;
-  7. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+  7. ``kernel3`` (N-Queens safety labels) against its plain version:
+     N = 15 and 20, B = 1024 and 50000, g = 1 and 4, seeded random boards
+     with depth uniform in 0..N and a share at N; bit-equal on the whole
+     (B, N) plane; and the g = 256 time at least 4x the g = 1 time at
+     B = 50000, N = 15 (a smaller ratio means nvcc folded the rounds);
+  8. ``kernel4`` (the fused N-Queens cycle) against its plain version at
+     N = 15: M = 1024 and 50000, a partial and a full chunk; equal state and
+     live pool rows;
+  9. ``kernel5`` (lb1_d bounds) against its plain version on ta014 tables:
+     B = 1024 and 49152, int8 and int32; bit-equal on the open slots;
+ 10. N-Queens N = 15 through the CLI on the fused path at the default M:
+     tree 171,129,071, sol 2,279,184, counting kernel 4;
+ 11. N-Queens N = 14 through the CLI with ``--unfused``: tree 27,358,552,
+     sol 365,596, counting kernel 3;
+ 12. ta014 lb1_d ub=1 through the CLI at the default M (the unfused cycle):
+     tree 2,573,652, sol 2,648, makespan 1377, counting kernel 5;
+ 13. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
      plain version, its time, the plain version's time and the bound.
 
@@ -45,11 +61,15 @@ import numpy as np
 import torch
 
 GOLDEN = {"explored_tree": 2573652, "explored_sol": 2648, "optimum": 1377}
+NQ_GOLDEN = {15: {"explored_tree": 171129071, "explored_sol": 2279184},
+             14: {"explored_tree": 27358552, "explored_sol": 365596}}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
 INF = 2**31 - 1
 # The four kernels of one fused cycle (csrc/cycle_lb1.cu).
 CYCLE_KERNELS = ("cycle_bounds", "cycle_count", "cycle_scan", "cycle_emit")
+# The three kernels of one fused N-Queens cycle (csrc/cycle_nqueens.cu).
+NQ_CYCLE_KERNELS = ("nq_cycle_labels", "cycle_scan", "nq_cycle_emit")
 
 
 def emit(phase: str, **fields) -> None:
@@ -138,6 +158,29 @@ def lb1_ops(limit1: np.ndarray, n: int, m: int) -> float:
     front scan and (n-l1-1)*m for the remaining work, per child slot 6m."""
     l1 = limit1.astype(np.int64)
     return float(np.sum((l1 + 1) * m * 2 + (n - l1 - 1) * m) + limit1.size * n * 6 * m)
+
+
+def lb1_d_ops(limit1: np.ndarray, n: int, m: int) -> float:
+    """int32 operations of the lb1_d plane: the lb1 parent prologue, then
+    per child slot 5m (two max, three add a machine)."""
+    l1 = limit1.astype(np.int64)
+    return float(np.sum((l1 + 1) * m * 2 + (n - l1 - 1) * m) + limit1.size * n * 5 * m)
+
+
+def nq_ops(depth: np.ndarray, N: int, g: int) -> float:
+    """Integer operations of the labels of these parents: per round, per
+    (placed queen, open slot), two compares and two adds (the diagonals)."""
+    d = depth.astype(np.int64)
+    return float(g * np.sum(d * np.clip(N - d, 0, None)) * 4)
+
+
+def random_boards(rng, N: int, B: int, full_share: float = 0.2):
+    """Seeded random permutation boards; depth uniform in 0..N with a share
+    at N (popped solutions)."""
+    board = np.argsort(rng.random((B, N)), axis=1).astype(np.uint8)
+    depth = rng.integers(0, N + 1, B).astype(np.int32)
+    depth[rng.random(B) < full_share] = N
+    return board, depth
 
 
 def random_nodes(rng, n: int, B: int, deep_share: float = 0.25):
@@ -277,8 +320,141 @@ def phase_kernel2(dev, tables) -> dict:
     return rows
 
 
-def run_search(argv: list[str]) -> dict:
-    """One search through the CLI (report captured); returns its JSON record."""
+def phase_kernel3(dev) -> dict:
+    from tpu_tree_search_torch.ops import nqueens_kernel as NK
+
+    rng = np.random.default_rng(3)
+    rows = {}
+    configs = [(N, B, g) for N in (15, 20) for B in (1024, 50000) for g in (1, 4)]
+    # The unfused N=14 search's shape, and the fold check's g=256 twin.
+    configs += [(14, 50000, 1), (15, 50000, 256)]
+    for N, B, g in configs:
+        board, depth = random_boards(rng, N, B)
+        b = torch.from_numpy(board).to(dev)
+        errs = []
+        for dtype in (torch.int8, torch.int32):
+            d = torch.from_numpy(depth).to(dev).to(dtype)
+            got = NK.nqueens_labels_cuda(b, d, N, g)
+            want = NK.plain(b, d, N, g)
+            torch.cuda.synchronize()
+            errs.append(int((got.int() - want.int()).abs().max()))
+        err = max(errs)
+        check(err == 0, f"labels kernel differs from plain (N={N}, B={B}, g={g})")
+        d = torch.from_numpy(depth).to(dev).to(torch.int8)
+        call = lambda: NK.nqueens_labels_cuda(b, d, N, g)  # noqa: E731
+        ms, timing = kernel_device_ms(call, 30, ("nqueens_labels_kernel",))
+        call_ms = median_ms(call, 30)
+        plain_ms = median_ms(lambda: NK.plain(b, d, N, g), 3)
+        bms, by = bound_ms(2 * B * N + B, nq_ops(depth, N, g))
+        rows[(N, B, g)] = dict(N=N, B=B, g=g, max_abs_err=err, ms=ms,
+                               timing=timing, call_ms=call_ms,
+                               plain_ms=plain_ms, bound_ms=bms,
+                               bound_us=bms * 1e3, bound_by=by)
+        emit("kernel3", **rows[(N, B, g)])
+    ratio = rows[(15, 50000, 256)]["ms"] / rows[(15, 50000, 1)]["ms"]
+    emit("kernel3_rounds", g1_ms=rows[(15, 50000, 1)]["ms"],
+         g256_ms=rows[(15, 50000, 256)]["ms"], ratio=ratio)
+    check(ratio >= 4.0, f"g=256 labels take only {ratio:.2f}x the g=1 time: "
+          "the compiler folded the rounds")
+    return rows
+
+
+def phase_kernel4(dev) -> dict:
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+
+    N, g, K, mterm = 15, 1, 4, 25
+    rng = np.random.default_rng(4)
+    rows = {}
+    for M in (1024, 50000):
+        scratch = CN.nqueens_scratch(M, N, dev)
+        for chunk in ("partial", "full"):
+            size = M // 2 + 3 if chunk == "partial" else M + 517
+            board, depth = random_boards(rng, N, size)
+            cap = size + M * N
+            pv0 = torch.zeros((cap, N), dtype=torch.uint8, device=dev)
+            pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
+            pv0[:size] = torch.from_numpy(board).to(dev)
+            pa0[:size] = torch.from_numpy(depth).to(dev).to(torch.int8)
+            st0 = C.new_state(size, INF, dev)
+            pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
+            CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, g, M, mterm, K)
+            pv2, pa2, st2 = pv0.clone(), pa0.clone(), st0.clone()
+            CN.cycle_nqueens_plain(pv2, pa2, st2, N, g, M, mterm, K)
+            torch.cuda.synchronize()
+            live = int(st2[C.ST_SIZE])
+            err = max(
+                int((st[:C.ST_BASE + 1] - st2[:C.ST_BASE + 1]).abs().max()),
+                int((pv[:live].int() - pv2[:live].int()).abs().max()) if live else 0,
+                int((pa[:live].int() - pa2[:live].int()).abs().max()) if live else 0,
+            )
+            tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
+            check(err == 0 and int(st2[C.ST_CYCLES]) == 1 and tree > 0 and sol > 0,
+                  f"N-Queens cycle kernel differs from plain (M={M}, {chunk})")
+
+            def restore():
+                pv.copy_(pv0)
+                pa.copy_(pa0)
+                st.copy_(st0)
+                pv2.copy_(pv0)
+                pa2.copy_(pa0)
+                st2.copy_(st0)
+
+            def call():
+                CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, g, M, mterm, K)
+
+            ms, timing = kernel_device_ms(call, 30, NQ_CYCLE_KERNELS, restore)
+            call_ms = median_ms(call, 30, restore)
+            plain_ms = median_ms(lambda: CN.cycle_nqueens_plain(
+                pv2, pa2, st2, N, g, M, mterm, K), 3, restore)
+            cnt = min(size, M)
+            pop = depth[size - cnt:]
+            nbytes = cnt * (N + 1) + tree * (N + 1) + 64
+            bms, by = bound_ms(nbytes, nq_ops(pop[pop < N], N, g))
+            rows[(M, chunk)] = dict(
+                M=M, chunk=chunk, popped=cnt, tree_inc=tree, sol_inc=sol,
+                max_abs_err=err, ms=ms, timing=timing, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3,
+                bound_by=by)
+            emit("kernel4", **rows[(M, chunk)])
+    return rows
+
+
+def phase_kernel5(dev, tables) -> dict:
+    from tpu_tree_search_torch.ops import lb1_d_kernel
+
+    n, m = tables.jobs, tables.machines
+    rng = np.random.default_rng(5)
+    rows = {}
+    for B in (1024, 49152):
+        prmu, limit1 = random_nodes(rng, n, B)
+        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
+        for dtype in (torch.int8, torch.int32):
+            p = torch.from_numpy(prmu).to(dev).to(dtype)
+            lim = torch.from_numpy(limit1).to(dev).to(dtype)
+            got = lb1_d_kernel.lb1_d_bounds_cuda(p, lim, tables)
+            want = lb1_d_kernel.plain(p, lim, tables)
+            torch.cuda.synchronize()
+            err = int((got[open_].long() - want[open_].long()).abs().max())
+            check(err == 0, f"lb1_d kernel differs from plain (B={B}, {dtype})")
+            call = lambda: lb1_d_kernel.lb1_d_bounds_cuda(p, lim, tables)  # noqa: E731
+            ms, timing = kernel_device_ms(call, 50, ("lb1_d_bounds_kernel",))
+            call_ms = median_ms(call, 50)
+            plain_ms = median_ms(lambda: lb1_d_kernel.plain(p, lim, tables), 5)
+            isz = p.element_size()
+            nbytes = B * n * isz + B * isz + B * n * 4 + (n * m + 2 * m) * 4
+            bms, by = bound_ms(nbytes, lb1_d_ops(limit1, n, m))
+            rows[(B, str(dtype))] = dict(
+                B=B, dtype=str(dtype), max_abs_err=err, ms=ms, timing=timing,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_us=bms * 1e3, bound_by=by)
+            emit("kernel5", **rows[(B, str(dtype))])
+    return rows
+
+
+def run_search(argv: list[str], golden: dict) -> dict:
+    """One search through the CLI (report captured); returns its JSON
+    record after checking its counts against ``golden``."""
     from tpu_tree_search_torch import cli
 
     buf = io.StringIO()
@@ -286,17 +462,22 @@ def run_search(argv: list[str]) -> dict:
         rc = cli.main(argv + ["--json"])
     check(rc == 0, f"cli {argv} returned {rc}")
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-    got = {k: rec[k] for k in GOLDEN}
-    check(got == GOLDEN, f"ta014 lb1 ub=1 counts {got} != golden {GOLDEN}")
+    got = {k: rec[k] for k in golden}
+    check(got == golden, f"{argv} counts {got} != golden {golden}")
     return rec
 
 
-def phase_search(name: str, argv: list[str], counters: dict) -> dict:
+PFSP_LB1 = ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1", "--tier", "device"]
+
+
+def phase_search(name: str, argv: list[str], counters: dict,
+                 golden: dict = GOLDEN) -> dict:
+    """Drive one search through the CLI with every kernel's launch count
+    set to 0 just before it, and read the counts just after."""
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
-    rec = run_search(["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1",
-                         "--tier", "device"] + argv)
+    rec = run_search(argv, golden)
     launches = {k: fn.launches for k, fn in counters.items()}
     dev_tree, _, dev_s = rec["phases"][1]
     out = dict(rec, launches=launches,
@@ -304,13 +485,14 @@ def phase_search(name: str, argv: list[str], counters: dict) -> dict:
                device_nodes_per_s=dev_tree / dev_s,
                stall_fallback_ran=rec["stall_fallbacks"] > 0)
     emit(name, **out)
-    return out
+    return dict(out, phase=name)
 
 
 def main() -> int:
     dev_info = phase_device()
     from tpu_tree_search_torch.ops import cycle as C
-    from tpu_tree_search_torch.ops import lb1_kernel
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import lb1_d_kernel, lb1_kernel, nqueens_kernel
     from tpu_tree_search_torch.problems import PFSPProblem
 
     phase_build()
@@ -318,16 +500,37 @@ def main() -> int:
     tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
     k1 = phase_kernel1(dev, tables)
     k2 = phase_kernel2(dev, tables)
+    k3 = phase_kernel3(dev)
+    k4 = phase_kernel4(dev)
+    k5 = phase_kernel5(dev, tables)
     counters = {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
-                "cycle_lb1": C.cycle_lb1_cuda}
-    fused = phase_search("search_fused_M49152", [], counters)
+                "cycle_lb1": C.cycle_lb1_cuda,
+                "nqueens_labels": nqueens_kernel.nqueens_labels_cuda,
+                "cycle_nqueens": CN.cycle_nqueens_cuda,
+                "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda}
+    fused = phase_search("search_fused_M49152", PFSP_LB1, counters)
     check(fused["launches"]["cycle_lb1"] > 0, "kernel 2 not launched on the main path")
-    fused1k = phase_search("search_fused_M1024", ["--M", "1024"], counters)
+    fused1k = phase_search("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], counters)
     check(fused1k["launches"]["cycle_lb1"] > 0, "kernel 2 not launched at M=1024")
-    unfused = phase_search("search_unfused_M1024", ["--M", "1024", "--unfused"],
-                           counters)
+    unfused = phase_search("search_unfused_M1024",
+                           PFSP_LB1 + ["--M", "1024", "--unfused"], counters)
     check(unfused["launches"]["lb1_bounds"] > 0,
           "kernel 1 not launched on the unfused path")
+    nq15 = phase_search("search_nqueens_N15_fused",
+                        ["nqueens", "--N", "15", "--tier", "device"], counters,
+                        NQ_GOLDEN[15])
+    check(nq15["fused"] and nq15["launches"]["cycle_nqueens"] > 0,
+          "kernel 4 not launched on the fused N-Queens path")
+    nq14 = phase_search("search_nqueens_N14_unfused",
+                        ["nqueens", "--N", "14", "--tier", "device", "--unfused"],
+                        counters, NQ_GOLDEN[14])
+    check(not nq14["fused"] and nq14["launches"]["nqueens_labels"] > 0,
+          "kernel 3 not launched on the unfused N-Queens path")
+    lb1d = phase_search("search_lb1_d",
+                        ["pfsp", "--inst", "14", "--lb", "lb1_d", "--ub", "1",
+                         "--tier", "device"], counters)
+    check(not lb1d["fused"] and lb1d["launches"]["lb1_d_bounds"] > 0,
+          "kernel 5 not launched on the lb1_d path")
 
     k1_main = k1[(1024, "torch.int8")]
     k2_main = k2[(49152, "full", "finite")]
@@ -355,6 +558,28 @@ def main() -> int:
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": None},
     ]
+    k3_main = k3[(14, 50000, 1)]
+    k4_main = k4[(50000, "full")]
+    k5_main = k5[(49152, "torch.int8")]
+    for name, source, replaces, path, shape, rows, main_row in [
+        ("nqueens_labels", "nqueens_labels.cu", "pallas_kernels.py:361",
+         nq14, "B=50000 N=14 g=1 int8 depth", k3, k3_main),
+        ("cycle_nqueens", "cycle_nqueens.cu", "megakernel.py:553",
+         nq15, "M=50000 N=15 full chunk", k4, k4_main),
+        ("lb1_d_bounds", "lb1_d_bounds.cu", "pallas_kernels.py:611",
+         lb1d, "B=49152 int8", k5, k5_main),
+    ]:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpu_tree_search_torch/csrc/{source}",
+            "replaces": f"tpu_tree_search/ops/{replaces}",
+            "launches": path["launches"][name], "launches_path": path["phase"],
+            "shape": shape,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": main_row["ms"], "timing": main_row["timing"],
+            "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

@@ -16,6 +16,8 @@ import torch
 
 from tpu_tree_search.ops import compaction as jc
 from tpu_tree_search_torch.ops import compaction as tc
+from tpu_tree_search_torch.problems import NQueensProblem
+from tpu_tree_search_torch.problems import PFSPProblem as TorchPFSP
 
 
 def _mask(density, M=48, n=10, seed=0):
@@ -61,7 +63,15 @@ def test_shift_compact_matches_jax_with_payloads():
 
 
 def test_modes_and_policy():
-    assert tc.resolve_compact_mode(1024, 20) == "dense"
-    assert tc.resolve_compact_mode(49152, 20) == "scatter"
+    # The JAX auto policy's gpu row for PFSP, and dense for N-Queens at any M.
+    pfsp = TorchPFSP(inst=14, lb="lb1", ub=1)
+    nq = NQueensProblem(N=15)
+    for prob, M, n in [(pfsp, 1024, 20), (pfsp, 49152, 20), (nq, 1024, 15),
+                       (nq, 50000, 15)]:
+        assert tc.resolve_compact_mode(prob, M, n) == jc._auto_compact(
+            prob, M, n, "gpu")
+    assert tc.resolve_compact_mode(pfsp, 1024, 20) == "dense"
+    assert tc.resolve_compact_mode(pfsp, 49152, 20) == "scatter"
+    assert tc.resolve_compact_mode(nq, 50000, 15) == "dense"
     with pytest.raises(ValueError):
         tc.compact_ids(torch.zeros((2, 3), dtype=torch.bool), 6, "sort")

@@ -7,8 +7,9 @@ with the card and no JAX:
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU.) Each kernel is
 held to its plain PyTorch version on the same inputs with tolerance 0, and
-the search on the card to the counts of the JAX package's sequential tier
-on a reduced instance.
+the searches on the card to the counts of the JAX package's sequential tier
+on a reduced PFSP instance (lb1 and lb1_d) and to the N-Queens N=10
+goldens.
 """
 
 from __future__ import annotations
@@ -19,15 +20,18 @@ import torch
 
 from tpu_tree_search_torch.engine.resident import resident_search
 from tpu_tree_search_torch.ops import cycle as C
-from tpu_tree_search_torch.ops import lb1_kernel
-from tpu_tree_search_torch.problems import PFSPProblem
+from tpu_tree_search_torch.ops import cycle_nqueens as CN
+from tpu_tree_search_torch.ops import lb1_d_kernel, lb1_kernel, nqueens_kernel
+from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 from tpu_tree_search_torch.problems.pfsp import taillard
 
 INF = 2**31 - 1
 # ta014's 10-job, 5-machine corner under its optimal incumbent 609: tree
-# 2074, sol 90 (the JAX package's sequential_search, as pinned on the CPU by
-# tests/test_torch_resident.py).
+# 2074, sol 90 (the JAX package's sequential_search under lb1 and under
+# lb1_d, as pinned on the CPU by tests/test_torch_resident.py).
 REDUCED = dict(tree=2074, sol=90, best=609)
+# N-Queens N=10: the reference's counts (tests/test_torch_resident.py).
+NQ10 = dict(tree=35538, sol=724)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +88,78 @@ def test_cycle_kernel_matches_plain(cuda, size, finite):
         assert torch.equal(pa[:live], pa2[:live])
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("B", [1, 1000])
+def test_lb1_d_kernel_matches_plain(cuda, dtype, B):
+    t = PFSPProblem(inst=14, lb="lb1_d", ub=1).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(B + 7), 20, B)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = lb1_d_kernel.lb1_d_bounds_cuda(p, lim, t)
+    want = lb1_d_kernel.plain(p, lim, t)
+    torch.cuda.synchronize()
+    op = torch.from_numpy(np.arange(20)[None, :] > limit1[:, None]).to(cuda)
+    assert torch.equal(got[op], want[op])
+
+
+def _boards(rng, N, B, full_share=0.2):
+    board = np.argsort(rng.random((B, N)), axis=1).astype(np.uint8)
+    depth = rng.integers(0, N + 1, B).astype(np.int32)
+    depth[rng.random(B) < full_share] = N
+    return board, depth
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("N,g,B", [(8, 1, 1), (15, 3, 1000), (32, 1, 333)])
+def test_nqueens_labels_kernel_matches_plain(cuda, dtype, N, g, B):
+    board, depth = _boards(np.random.default_rng(N + g), N, B)
+    b = torch.from_numpy(board).to(cuda)
+    d = torch.from_numpy(depth).to(cuda).to(dtype)
+    got = nqueens_kernel.nqueens_labels_cuda(b, d, N, g)
+    want = nqueens_kernel.plain(b, d, N, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("size", [40, 700])
+def test_nqueens_cycle_kernel_matches_plain(cuda, size):
+    N, g, M, m, K = 12, 1, 256, 25, 4
+    board, depth = _boards(np.random.default_rng(size), N, size)
+    cap = size + M * N * 3
+    pv = torch.zeros((cap, N), dtype=torch.uint8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(board).to(cuda)
+    pa[:size] = torch.from_numpy(depth).to(cuda).to(torch.int8)
+    pv2, pa2 = pv.clone(), pa.clone()
+    st, st2 = C.new_state(size, INF, cuda), C.new_state(size, INF, cuda)
+    scratch = CN.nqueens_scratch(M, N, cuda)
+    for _ in range(3):
+        CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, g, M, m, K)
+        CN.cycle_nqueens_plain(pv2, pa2, st2, N, g, M, m, K)
+        torch.cuda.synchronize()
+        assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+        live = int(st[C.ST_SIZE])
+        assert torch.equal(pv[:live], pv2[:live])
+        assert torch.equal(pa[:live], pa2[:live])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_nqueens_search_on_card_matches_goldens(cuda, fused):
+    res = resident_search(NQueensProblem(10), m=25, M=1024, K=64, device=cuda,
+                          fused=fused)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert res.fused is fused
+
+
+def test_lb1_d_search_on_card_matches_sequential_counts(cuda):
+    ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+    res = resident_search(PFSPProblem(lb="lb1_d", ub=0, p_times=ptm), m=8,
+                          M=256, K=64, initial_best=REDUCED["best"], device=cuda)
+    assert (res.explored_tree, res.explored_sol, res.best) == (
+        REDUCED["tree"], REDUCED["sol"], REDUCED["best"])
+    assert res.fused is False
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_search_on_card_matches_sequential_counts(cuda, fused):
     ptm = taillard.reduced_instance(14, jobs=10, machines=5)
@@ -102,3 +178,14 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError):
         lb1_kernel.lb1_bounds_cuda(torch.zeros((4, 19), dtype=torch.int8, device=cuda),
                                    torch.zeros(4, dtype=torch.int8, device=cuda), t)
+    with pytest.raises(TypeError):
+        lb1_d_kernel.lb1_d_bounds_cuda(
+            torch.zeros((4, 20), dtype=torch.int16, device=cuda),
+            torch.zeros(4, dtype=torch.int16, device=cuda), t)
+    board = torch.zeros((4, 33), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # N > 32
+        nqueens_kernel.nqueens_labels_cuda(
+            board, torch.zeros(4, dtype=torch.int8, device=cuda), 33)
+    with pytest.raises(TypeError):  # an int16 depth is no pool type
+        nqueens_kernel.nqueens_labels_cuda(
+            board[:, :8].contiguous(), torch.zeros(4, dtype=torch.int16, device=cuda), 8)

@@ -4,13 +4,15 @@
     JAX or anything of the JAX package (an AST scan of every import).
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
-  * The CLI refuses what is not ported with the ROADMAP item, and
-    ``chip_smoke.py`` fails (prints no result) without a card.
+  * The CLI refuses what is not ported with the ROADMAP item, runs
+    N-Queens and PFSP lb1/lb1_d on the device tier, and ``chip_smoke.py``
+    fails (prints no result) without a card.
 """
 
 from __future__ import annotations
 
 import ast
+import json
 import shutil
 import subprocess
 import sys
@@ -81,9 +83,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("argv", [
     ["pfsp", "--lb", "lb2"],
-    ["pfsp", "--lb", "lb1_d"],
+    ["nqueens", "--tier", "seq"],
     ["pfsp", "--tier", "seq"],
-    ["nqueens"],
+    ["nqueens", "--tier", "mesh"],
 ])
 def test_cli_refuses_unported_paths(argv, capsys):
     assert cli.main(argv + ["--device", "cpu"]) == 2
@@ -107,12 +109,63 @@ def test_cli_report_and_record_on_cpu(capsys):
 
 def test_kernel_sources_export_the_bound_entries():
     names = {p.stem for p in _build.sources()}
-    assert names == {"lb1_bounds", "cycle_lb1"}
+    assert names == {"lb1_bounds", "cycle_lb1", "nqueens_labels",
+                     "cycle_nqueens", "lb1_d_bounds"}
     text = {p.stem: p.read_text() for p in _build.sources()}
-    for entry in ("lb1_bounds_i8", "lb1_bounds_i32"):
-        assert f'extern "C" int {entry}(' in text["lb1_bounds"]
+    for src, entries in [("lb1_bounds", ("lb1_bounds_i8", "lb1_bounds_i32")),
+                         ("lb1_d_bounds", ("lb1_d_bounds_i8", "lb1_d_bounds_i32")),
+                         ("nqueens_labels", ("nqueens_labels_i8",
+                                             "nqueens_labels_i32")),
+                         ("cycle_nqueens", ("cycle_nqueens",))]:
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in text[src]
     for entry in ("cycle_lb1_i8", "cycle_lb1_i32"):
         assert f"TTS_CYCLE_ENTRY({entry}," in text["cycle_lb1"]
+    # Each source names the TPU kernel it replaces.
+    for src, tpu in [("lb1_bounds", "_lb1_kernel"), ("cycle_lb1", "_mega_lb1_kernel"),
+                     ("nqueens_labels", "_nqueens_kernel"),
+                     ("cycle_nqueens", "_mega_nqueens_kernel"),
+                     ("lb1_d_bounds", "_lb1_d_kernel")]:
+        assert f"Replaces the TPU kernel `{tpu}`" in text[src]
+
+
+def test_cli_nqueens_report_and_record_on_cpu(capsys):
+    assert cli.main(["nqueens", "--N", "8", "--M", "64", "--K", "16",
+                     "--device", "cpu", "--json"]) == 0
+    out = capsys.readouterr().out
+    assert "Resolution of the 8-Queens instance" in out
+    assert "with 1 safety check(s) per evaluation" in out
+    assert "Optimal makespan" not in out
+    assert "Device cycle: fused CUDA cycle" in out
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"]) == (2056, 92)
+    assert (rec["N"], rec["g"], rec["fused"], rec["M"], rec["K"]) == (8, 1, True, 64, 16)
+    assert rec["dispatches"] >= 1 and rec["device_cycles"] >= 1
+    assert sum(p[0] for p in rec["phases"]) == 2056
+    assert cli.main(["nqueens", "--N", "8", "--M", "64", "--unfused",
+                     "--device", "cpu", "--json"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"], rec["fused"]) == (2056, 92, False)
+
+
+def test_lb1_d_reports_the_unfused_cycle(capsys):
+    prob = PFSPProblem(lb="lb1_d", ub=0,
+                       p_times=taillard.reduced_instance(14, jobs=8, machines=4))
+    res = resident_search(prob, m=4, M=64, K=8, device="cpu")  # fused asked
+    cli.print_results(prob, res)
+    assert "Device cycle: unfused (dense)" in capsys.readouterr().out
+    args = cli.build_parser().parse_args(["pfsp", "--lb", "lb1_d"])
+    rec = cli.result_record(args, res, torch.device("cpu"))
+    assert rec["fused"] is False and rec["lb"] == "lb1_d"
+
+
+def test_default_chunk_size_per_problem():
+    assert cli.default_M("pfsp", "cuda") == 49152
+    assert cli.default_M("pfsp", "cpu") == 50000
+    assert cli.default_M("nqueens", "cuda") == 50000
+    assert cli.default_M("nqueens", "cpu") == 50000
+    args = cli.build_parser().parse_args(["nqueens"])
+    assert (args.N, args.g) == (14, 1)  # the JAX CLI's defaults
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

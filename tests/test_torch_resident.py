@@ -13,27 +13,37 @@ through the plain versions of the kernels:
     resident program;
   * a frontier past the fan-out headroom takes the capacity-stall fallback
     and still matches.
+
+The same holds for PFSP lb1_d (against the JAX sequential tier under lb1_d;
+it always runs the unfused cycle) and for N-Queens (the goldens for N=8 and
+10, the JAX resident engine at the same m, M and K, one dispatch against the
+JAX N-Queens program's step, and the stall fallback).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_tree_search.engine.resident import _make_program
 from tpu_tree_search.engine.resident import resident_search as jax_resident_search
 from tpu_tree_search.engine.sequential import sequential_search
+from tpu_tree_search.problems import NQueensProblem as JaxNQueens
 from tpu_tree_search.problems import PFSPProblem
 from tpu_tree_search.problems.pfsp import taillard
 from tpu_tree_search_torch.engine import resident as resident_mod
 from tpu_tree_search_torch.engine.device import warmup
 from tpu_tree_search_torch.engine.resident import (
+    NQueensResident,
     PFSPResident,
+    make_program,
     pool_from_numpy,
     resident_search,
 )
 from tpu_tree_search_torch.pool import SoAPool
-from tpu_tree_search_torch.problems import INF_BOUND, PFSPProblem as TorchPFSP
+from tpu_tree_search_torch.problems import INF_BOUND, NQueensProblem
+from tpu_tree_search_torch.problems import PFSPProblem as TorchPFSP
 from tpu_tree_search_torch.problems.base import index_batch
 
 PTM = taillard.reduced_instance(14, jobs=10, machines=5)
@@ -135,7 +145,8 @@ def test_unfused_overflow_branch_matches_jax_resident(monkeypatch, mode):
         return push_big(self, *args)
 
     monkeypatch.setattr(PFSPResident, "_push_big", spy)
-    monkeypatch.setattr(resident_mod, "resolve_compact_mode", lambda M, n: mode)
+    monkeypatch.setattr(resident_mod, "resolve_compact_mode",
+                        lambda problem, M, n: mode)
     want = jax_resident_search(PFSPProblem(lb="lb1", ub=0, p_times=PTM), m=8,
                                M=128, K=16, warmup_target=300)
     res = resident_search(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m=8, M=128,
@@ -147,4 +158,126 @@ def test_unfused_overflow_branch_matches_jax_resident(monkeypatch, mode):
 def test_unported_bounds_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=PTM), 8, 64, 4, 4096, "cpu")
+
+
+# -- PFSP lb1_d ----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def seq_lb1_d(seq_fixed):
+    """The JAX sequential tier under lb1_d and the fixed optimal incumbent."""
+    return sequential_search(PFSPProblem(lb="lb1_d", ub=0, p_times=PTM),
+                             initial_best=seq_fixed[0])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_lb1_d_matches_sequential_and_runs_unfused(seq_fixed, seq_lb1_d, fused):
+    opt, _ = seq_fixed
+    res = resident_search(TorchPFSP(lb="lb1_d", ub=0, p_times=PTM), m=8, M=256,
+                          K=64, initial_best=opt, device="cpu", fused=fused)
+    assert _counts(res) == _counts(seq_lb1_d)
+    # lb1_d has no fused cycle (neither has the JAX megakernel), and its
+    # bound equals lb1's on every open slot, so its tree is lb1's.
+    assert res.fused is False and res.compact == "dense"
+    assert _counts(seq_lb1_d) == (2074, 90, 609)
+
+
+def test_lb1_d_capacity_stall_fallback_keeps_counts(seq_fixed, seq_lb1_d):
+    res = resident_search(TorchPFSP(lb="lb1_d", ub=0, p_times=PTM), m=8, M=32,
+                          K=16, capacity=700, warmup_target=400,
+                          initial_best=seq_fixed[0], device="cpu")
+    assert res.stall_fallbacks >= 1
+    assert _counts(res) == _counts(seq_lb1_d)
+
+
+# -- N-Queens ------------------------------------------------------------------
+
+NQ_GOLDEN = {8: (2056, 92), 10: (35538, 724)}
+
+
+def _nq_counts(res):
+    return res.explored_tree, res.explored_sol
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("N", [8, 10])
+def test_nqueens_matches_goldens(N, fused):
+    res = resident_search(NQueensProblem(N), m=8, M=64, K=16, device="cpu",
+                          fused=fused)
+    assert _nq_counts(res) == NQ_GOLDEN[N]
+    assert res.fused is fused
+    assert res.compact == (None if fused else "dense")
+    assert sum(p.tree for p in res.phases) == res.explored_tree
+
+
+@pytest.fixture(scope="module")
+def jax_nqueens_10():
+    return jax_resident_search(JaxNQueens(10), m=8, M=64, K=16)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_nqueens_matches_jax_resident(jax_nqueens_10, fused):
+    res = resident_search(NQueensProblem(10), m=8, M=64, K=16, device="cpu",
+                          fused=fused)
+    assert _nq_counts(res) == _nq_counts(jax_nqueens_10)
+    assert [(p.tree, p.sol) for p in res.phases] == [
+        (p.tree, p.sol) for p in jax_nqueens_10.phases]
+
+
+def _nq_frontier(N, target):
+    prob = NQueensProblem(N)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, INF_BOUND, target)
+    return pool.as_batch()
+
+
+@pytest.mark.parametrize("cycle", ["fused", "dense"])
+def test_nqueens_one_dispatch_matches_jax_step(cycle):
+    N, m, M, K, capacity = 8, 8, 64, 10, 4096
+    fr = _nq_frontier(N, 120)
+    k = fr["board"].shape[0]
+    jprog = _make_program(JaxNQueens(N), m, M, K, capacity, None)
+    out = jprog.step(jprog.init_state(fr, INF_BOUND))
+    j_vals, j_aux, j_size, j_best = (np.asarray(x) for x in out[:4])
+    j_tree, j_sol, j_cycles = (int(x) for x in out[4:7])
+
+    prog = NQueensResident(NQueensProblem(N), m, M, K, capacity, "cpu",
+                           fused=cycle == "fused")
+    state = pool_from_numpy(fr["board"], fr["depth"], k, INF_BOUND, capacity,
+                            "cpu", prog.vals_dtype, prog.aux_dtype)
+    prog.step(state)
+    tree, sol, cycles, size, best = prog.read_scalars(state)
+    assert (tree, sol, cycles, size, best) == (
+        j_tree, j_sol, j_cycles, int(j_size), int(j_best))
+    assert cycles == K and sol > 0  # the frontier outlives the dispatch
+    live = int(j_size)
+    assert np.array_equal(state.pool_vals[:live].numpy(), j_vals[:live])
+    assert np.array_equal(state.pool_aux[:live].numpy().astype(np.int32),
+                          j_aux[:live].astype(np.int32))
+    batch, rsize, _ = prog.residual(state)
+    assert rsize == live and set(batch) == {"board", "depth"}
+    assert batch["depth"].dtype == NQueensProblem(N).node_fields()["depth"][1]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_nqueens_capacity_stall_fallback_keeps_counts(fused):
+    # A 400-node warm frontier plus one M*N = 320 fan-out exceeds the
+    # 700-row pool.
+    res = resident_search(NQueensProblem(10), m=8, M=32, K=16, capacity=700,
+                          warmup_target=400, device="cpu", fused=fused)
+    assert res.stall_fallbacks >= 1
+    assert res.diagnostics.host_to_device > 1
+    assert _nq_counts(res) == NQ_GOLDEN[10]
+
+
+def test_make_program_dispatches_on_the_problem():
+    # Survivor budgets: half the slot grid for N-Queens, a quarter for PFSP.
+    nq = make_program(NQueensProblem(8), 8, 256, 4, 8192, "cpu")
+    assert isinstance(nq, NQueensResident)
+    assert (nq.vals_dtype, nq.aux_dtype, nq.S) == (torch.uint8, torch.int8, 1024)
+    pf = make_program(TorchPFSP(lb="lb1", ub=0, p_times=PTM), 8, 256, 4, 8192, "cpu")
+    assert isinstance(pf, PFSPResident) and pf.S == 256 * 10 // 4
+    with pytest.raises(TypeError):
+        make_program(object(), 8, 64, 4, 4096, "cpu")
 

@@ -1,4 +1,5 @@
-"""``python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --ub 1 --tier device``."""
+"""``python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --ub 1 --tier device``
+or ``python -m tpu_tree_search_torch nqueens --N 15 --tier device``."""
 
 import sys
 

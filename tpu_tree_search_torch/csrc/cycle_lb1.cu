@@ -40,48 +40,8 @@
 // few microseconds each); at M = 49152 the bytes of the pool rows read and
 // survivor rows written (20 B a row at ta014) and the lb plane (4 B a slot,
 // written once and read twice).
+#include "cycle_common.cuh"
 #include "lb1_common.cuh"
-
-enum {
-  ST_SIZE = 0,
-  ST_BEST = 1,
-  ST_TREE = 2,
-  ST_SOL = 3,
-  ST_CYCLES = 4,
-  ST_ACTIVE = 5,
-  ST_CNT = 6,
-  ST_START2 = 7,
-  ST_BASE = 8,
-};
-
-// Exclusive scan of one int per thread over the block (blockDim.x a
-// multiple of 32, at most 1024). Returns the thread's exclusive prefix and
-// the block total in *total. s_warp holds 32 ints of shared memory.
-__device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int excl = (warp ? s_warp[warp - 1] : 0) + x - v;
-  *total = s_warp[nwarps - 1];
-  __syncthreads();
-  return excl;
-}
 
 // Launch 1: loop condition, pop, bounds, leaf fold.
 template <typename T>
@@ -213,35 +173,8 @@ __global__ void cycle_count(const int* st, const T* __restrict__ chunk_aux,
   }
 }
 
-// Launch 3 (one block): block offsets and the cycle's scalar update.
-__global__ void cycle_scan(int* st, const int* __restrict__ blkcnt,
-                           int* __restrict__ blkoff, int nblk) {
-  if (!st[ST_ACTIVE]) return;
-  __shared__ int s_warp[32];
-  const int per = (nblk + blockDim.x - 1) / blockDim.x;
-  const int lo = min(nblk, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(nblk, lo + per);
-  int keeps = 0, leaves = 0;
-  for (int j = lo; j < hi; ++j) {
-    keeps += blkcnt[2 * j];
-    leaves += blkcnt[2 * j + 1];
-  }
-  int tree_inc, sol_inc;
-  int run = block_exclusive_scan(keeps, s_warp, &tree_inc);
-  block_exclusive_scan(leaves, s_warp, &sol_inc);
-  for (int j = lo; j < hi; ++j) {
-    blkoff[j] = run;
-    run += blkcnt[2 * j];
-  }
-  if (threadIdx.x == 0) {
-    const int base = st[ST_SIZE] - st[ST_CNT];
-    st[ST_BASE] = base;
-    st[ST_SIZE] = base + tree_inc;
-    st[ST_TREE] += tree_inc;
-    st[ST_SOL] += sol_inc;
-    st[ST_CYCLES] += 1;
-  }
-}
+// Launch 3 (one block) is `cycle_scan` of cycle_common.cuh: block offsets
+// and the cycle's scalar update.
 
 // Launch 4: rank the block's survivors and write the child rows.
 template <typename T>

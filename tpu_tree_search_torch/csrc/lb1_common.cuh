@@ -1,4 +1,5 @@
-// Shared device code of the lb1 kernels (lb1_bounds.cu, cycle_lb1.cu).
+// Shared device code of the lb1 kernels (lb1_bounds.cu, lb1_d_bounds.cu,
+// cycle_lb1.cu).
 //
 // The per-parent prologue and the per-child chain of the PFSP one-machine
 // bound lb1 (`c_bound_simple.c:51-158`, forward branching, so the tail
@@ -10,25 +11,13 @@
 // kernel's one-hot MXU product.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define TTS_INF_BOUND 0x7fffffff
+#include "tts_common.cuh"
 
 // Parents handled by one block. Threads 0..PB-1 run the O(n*m) parent
 // prologue; then all threads run one child slot each, PB*n slots a block.
 #define TTS_PARENTS_PER_BLOCK 8
 
-extern "C" const char* tts_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 extern "C" int tts_parents_per_block() { return TTS_PARENTS_PER_BLOCK; }
-
-static inline int tts_threads_for(int slots) {
-  int t = ((slots + 31) / 32) * 32;
-  return t > 1024 ? 1024 : t;
-}
 
 // Dynamic shared memory of a block: ptm (n*m), heads (m), tails (m),
 // front (PB*m), remain (PB*m).

@@ -16,37 +16,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.pfsp_device import lb1_bounds
 from ..pool.pool import SoAPool
 from ..problems.base import Problem, batch_length, index_batch
 from .results import Diagnostics
 
 
 class DeviceOffloader:
-    """Evaluates host chunks with the lb1 bound on one device: H2D of the
-    chunk, the bound (the CUDA kernel for a CUDA device), D2H of the bounds.
-    Counts launches/copies like Chapel's GpuDiagnostics
-    (`pfsp_gpu_chpl.chpl:454-466`)."""
+    """Evaluates host chunks on one device through the problem's device
+    evaluator (``problem.device_bounds``: the lb1 or lb1_d bound for PFSP,
+    the safety labels for N-Queens — the CUDA kernel for a CUDA device):
+    H2D of the chunk's two pool columns in the resident pool's storage
+    types, the evaluator, D2H of the result plane. Counts launches/copies
+    like Chapel's GpuDiagnostics (`pfsp_gpu_chpl.chpl:454-466`)."""
 
     def __init__(self, problem: Problem, device: torch.device,
-                 dtype: torch.dtype):
+                 vals_dtype: torch.dtype, aux_dtype: torch.dtype):
         self.problem = problem
         self.device = device
-        self.dtype = dtype  # the resident pool's storage type
-        self.tables = problem.device_tables(device)
+        self.vals_dtype = vals_dtype
+        self.aux_dtype = aux_dtype
         self.diagnostics = Diagnostics()
 
     def evaluate(self, parents: dict, count: int) -> np.ndarray:
-        """(count, n) int32 child bounds of ``parents[:count]``."""
-        prmu = torch.from_numpy(np.ascontiguousarray(parents["prmu"][:count]))
-        limit1 = torch.from_numpy(
-            np.ascontiguousarray(parents["limit1"][:count]))
-        prmu = prmu.to(self.device).to(self.dtype)
-        limit1 = limit1.to(self.device).to(self.dtype)
+        """(count, width) result plane of ``parents[:count]``."""
+        p = self.problem
+
+        def put(name, dtype):
+            col = np.ascontiguousarray(parents[name][:count])
+            return torch.from_numpy(col).to(self.device).to(dtype)
+
+        vals = put(p.vals_field, self.vals_dtype)
+        aux = put(p.aux_field, self.aux_dtype)
         self.diagnostics.host_to_device += 1
-        bounds = lb1_bounds(prmu, limit1, self.tables)
+        out = p.device_bounds(vals, aux)
         self.diagnostics.kernel_launches += 1
-        out = bounds.cpu().numpy()
+        out = out.cpu().numpy()
         self.diagnostics.device_to_host += 1
         return out
 

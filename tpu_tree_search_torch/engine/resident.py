@@ -1,35 +1,40 @@
 """Device-resident search engine — the port of `tpu_tree_search/engine/resident.py`
-for PFSP lb1.
+for PFSP (lb1, lb1_d) and N-Queens.
 
-The pool lives in device memory as fixed-capacity SoA tensors (``prmu``
-rows and one ``limit1`` column, int8 for up to 127 jobs), and one dispatch
-advances the search by up to K chunk cycles; the host reads back a few
-scalars per dispatch. Semantics per cycle are exactly the reference's chunk
-cycle:
+The pool lives in device memory as fixed-capacity SoA tensors — the rows
+(PFSP ``prmu``, N-Queens ``board``) and one scalar column (PFSP ``limit1``,
+N-Queens ``depth``) — and one dispatch advances the search by up to K chunk
+cycles; the host reads back a few scalars per dispatch. Semantics per cycle
+are exactly the reference's chunk cycle:
 
   * pop the back ``cnt = min(size, M)`` nodes, only while ``size >= m``;
-  * evaluate all ``cnt * jobs`` children in one batch;
-  * a child with depth == jobs is a leaf -> exploredSol++, folds the
+  * evaluate all ``cnt * width`` children in one batch;
+  * PFSP: a child with depth == jobs is a leaf -> exploredSol++, folds the
     incumbent with a min; a non-leaf child is pushed iff ``bound < best``
     strictly, counting exploredTree (`pfsp_chpl.chpl:100-111`);
+  * N-Queens: a popped node at depth == N is a solution; every safe slot
+    k >= depth of a node below N is pushed (`nqueens_chpl.chpl:70-89`);
   * survivors are pushed in (parent, slot) order.
 
 Two cycles compute this and leave identical live pools:
 
-  * fused (the default): the CUDA cycle of `ops/cycle.py` — the counterpart
-    of the JAX engine's one-kernel cycle. The loop condition is evaluated
-    on the device, so the host enqueues K cycles per dispatch with no
-    synchronisation and reads the state once (the ``lax.while_loop``
-    counterpart; a cycle past termination is an exact no-op);
-  * unfused (``fused=False``): pop, the lb1 bound kernel (`ops/lb1_kernel.py`),
-    torch `compact_ids` and the one-gather push of `resident.py:311-352`,
-    with the overflow branch. It synchronises once per cycle to read the
-    survivor count.
+  * fused (the default): the CUDA cycle of `ops/cycle.py` (PFSP lb1) or
+    `ops/cycle_nqueens.py` — the counterpart of the JAX engine's one-kernel
+    cycle. The loop condition is evaluated on the device, so the host
+    enqueues K cycles per dispatch with no synchronisation and reads the
+    state once (the ``lax.while_loop`` counterpart; a cycle past termination
+    is an exact no-op). PFSP lb1_d has no fused cycle — the JAX megakernel
+    refuses it too — and always runs unfused;
+  * unfused (``fused=False``): pop, the problem's device evaluator (the
+    lb1, lb1_d or labels kernel), torch `compact_ids` and the one-gather
+    push of `resident.py:311-352`, with the overflow branch. It synchronises
+    once per cycle to read the survivor count.
 
-Capacity safety: a cycle runs only while ``size + M*jobs <= capacity``. If
+Capacity safety: a cycle runs only while ``size + M*width <= capacity``. If
 the pool outgrows that headroom the dispatch stalls (zero cycles) and the
-host runs offload cycles (host pop, the bound kernel, host branch) until the
-frontier fits again — correctness never depends on the capacity heuristic.
+host runs offload cycles (host pop, the device evaluator, host branch) until
+the frontier fits again — correctness never depends on the capacity
+heuristic.
 
 Not ported yet (ROADMAP): the adaptive K ladder, speculative pipelining,
 checkpoints, the steady-state guard and the telemetry blocks.
@@ -54,17 +59,18 @@ from ..ops.cycle import (
     cycle_scratch,
     new_state,
 )
-from ..ops.pfsp_device import lb1_bounds
+from ..ops.cycle_nqueens import cycle_nqueens, nqueens_scratch
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
+from ..problems.nqueens import NQueensProblem
 from ..problems.pfsp.problem import PFSPProblem
 from .device import DeviceOffloader, drain, warmup
 from .results import Diagnostics, PhaseStats, SearchResult
 
 
 def pool_dtype(n: int) -> torch.dtype:
-    """Device pool storage type: int8 rows (and limit1) through 127 jobs,
-    int32 beyond (the kernels take those two types)."""
+    """PFSP device pool storage type: int8 rows (and limit1) through 127
+    jobs, int32 beyond (the kernels take those two types)."""
     return torch.int8 if n <= 127 else torch.int32
 
 
@@ -73,30 +79,33 @@ class ResidentState:
     """The device state of one search: the pool and the scalar block
     (`ops/cycle.py` layout: size, best, tree, sol, cycles, ...)."""
 
-    pool_vals: torch.Tensor  # (C, n)
-    pool_aux: torch.Tensor  # (C,) limit1
+    pool_vals: torch.Tensor  # (C, width)
+    pool_aux: torch.Tensor  # (C,) PFSP limit1 / N-Queens depth
     st: torch.Tensor  # (ST_LEN,) int32
 
 
 def pool_from_numpy(vals, aux, size: int, best: int, capacity: int,
-                    device=None) -> ResidentState:
-    """A resident state holding ``vals[:size]`` (prmu rows) and
-    ``aux[:size]`` (limit1) at the front of a zeroed pool of ``capacity``
-    rows, with incumbent ``best`` and zeroed counters."""
+                    device=None, vals_dtype: torch.dtype | None = None,
+                    aux_dtype: torch.dtype | None = None) -> ResidentState:
+    """A resident state holding ``vals[:size]`` (the rows) and
+    ``aux[:size]`` (the scalar column) at the front of a zeroed pool of
+    ``capacity`` rows, with incumbent ``best`` and zeroed counters. The
+    storage types default to the PFSP pool's (``pool_dtype``)."""
     dev = resolve_device(device)
     vals = np.asarray(vals)
     n = vals.shape[1]
     if size > capacity:
         raise ValueError(f"frontier of {size} nodes exceeds capacity {capacity}")
-    dt = pool_dtype(n)
-    pool_vals = torch.zeros((capacity, n), dtype=dt, device=dev)
-    pool_aux = torch.zeros(capacity, dtype=dt, device=dev)
+    vals_dtype = vals_dtype or pool_dtype(n)
+    aux_dtype = aux_dtype or pool_dtype(n)
+    pool_vals = torch.zeros((capacity, n), dtype=vals_dtype, device=dev)
+    pool_aux = torch.zeros(capacity, dtype=aux_dtype, device=dev)
     if size:
         pool_vals[:size] = torch.from_numpy(
-            np.ascontiguousarray(vals[:size], dtype=np.int32)).to(dev).to(dt)
+            np.ascontiguousarray(vals[:size], dtype=np.int32)).to(dev).to(vals_dtype)
         pool_aux[:size] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(aux)[:size], dtype=np.int32)
-        ).to(dev).to(dt)
+        ).to(dev).to(aux_dtype)
     return ResidentState(pool_vals, pool_aux, new_state(size, best, dev))
 
 
@@ -113,20 +122,22 @@ def _swap_children(vals: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
                        torch.where(iota == kcol, val_at_d, vals[:, None, :]))
 
 
-class PFSPResident:
-    """The resident program for one (problem, m, M, K, capacity, device)."""
+class _ResidentProgram:
+    """The resident program for one (problem, m, M, K, capacity, device).
 
-    # Deep PFSP chunks prune heavily; the unfused push's gather budget is
-    # a quarter of the slot grid (the JAX engine's choice).
-    survivor_budget_div = 4
+    Pool layout (both problems): ``vals`` (C, width) rows of
+    ``vals_dtype`` plus one scalar ``aux`` column (C,) of ``aux_dtype``.
+    Subclasses provide the storage types, the evaluator, the swap position
+    and the fused cycle.
+    """
 
-    def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
+    survivor_budget_div: int
+    vals_dtype: torch.dtype
+    aux_dtype: torch.dtype
+
+    def __init__(self, problem: Problem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True):
-        if problem.lb != "lb1":
-            raise NotImplementedError(
-                f"device bound {problem.lb!r} is not ported yet (ROADMAP.md "
-                "queue A: lb2, lb1_d) — tpu_tree_search_torch runs lb1")
-        n = problem.jobs
+        n = problem.child_slots
         self.problem = problem
         self.m = m
         self.M = M
@@ -136,25 +147,24 @@ class PFSPResident:
         # Counter headroom: one dispatch accumulates at most K*M*n into the
         # int32 tree/sol counters.
         self.K = max(1, min(K, (2**31 - 1) // max(1, M * n)))
-        self.dtype = pool_dtype(n)
-        self.tables = problem.device_tables(self.device)
         self.S = min(max(64 * n, M * n // self.survivor_budget_div), M * n)
-        self.compact = None if fused else resolve_compact_mode(M, n)
-        self._scratch = (cycle_scratch(M, n, self.dtype, self.device)
+        self.compact = None if fused else resolve_compact_mode(problem, M, n)
+        self._scratch = (self._make_scratch()
                          if fused and self.device.type == "cuda" else None)
 
     def init_state(self, frontier: dict, best: int) -> ResidentState:
-        k = frontier["prmu"].shape[0]
-        return pool_from_numpy(frontier["prmu"], frontier["limit1"], k, best,
-                               self.capacity, self.device)
+        p = self.problem
+        k = frontier[p.vals_field].shape[0]
+        return pool_from_numpy(frontier[p.vals_field], frontier[p.aux_field],
+                               k, best, self.capacity, self.device,
+                               self.vals_dtype, self.aux_dtype)
 
     def step(self, state: ResidentState) -> None:
         """One dispatch: up to K cycles, in place on ``state``."""
         state.st[ST_TREE:ST_CYCLES + 1] = 0  # tree, sol, cycles
         if self.fused:
             for _ in range(self.K):
-                cycle_lb1(state.pool_vals, state.pool_aux, state.st,
-                          self._scratch, self.tables, self.M, self.m, self.K)
+                self._fused_cycle(state)
         else:
             self._unfused_step(state)
 
@@ -167,28 +177,48 @@ class PFSPResident:
         """Downloads the live pool -> (host NodeBatch, size, best)."""
         size = int(state.st[ST_SIZE])
         best = int(state.st[ST_BEST])
-        fields = self.problem.node_fields()
-        limit1 = state.pool_aux[:size].cpu().numpy()
+        p = self.problem
+        fields = p.node_fields()
         batch = {
-            "prmu": state.pool_vals[:size].cpu().numpy().astype(
-                fields["prmu"][1]),
-            "limit1": limit1.astype(fields["limit1"][1]),
-            # depth == limit1 + 1 for every node the engine pushes.
-            "depth": (limit1.astype(np.int32) + 1).astype(fields["depth"][1]),
+            p.vals_field: state.pool_vals[:size].cpu().numpy().astype(
+                fields[p.vals_field][1]),
+            p.aux_field: state.pool_aux[:size].cpu().numpy().astype(
+                fields[p.aux_field][1]),
         }
-        return batch, size, best
+        return self.derive_fields(batch), size, best
+
+    def derive_fields(self, batch: dict) -> dict:
+        """The node fields the pool does not store, derived from those it
+        does (none by default)."""
+        return batch
+
+    # -- per problem ---------------------------------------------------------
+
+    def _make_scratch(self):
+        raise NotImplementedError
+
+    def _fused_cycle(self, state: ResidentState) -> None:
+        raise NotImplementedError
+
+    def _swap_pos(self, aux: torch.Tensor) -> torch.Tensor:
+        """The branching swap position of each parent, from its aux."""
+        raise NotImplementedError
+
+    def _evaluate(self, vals_c, aux_c, valid, best: int):
+        """``(keep (M, width) bool, sol_inc, best)`` of a popped chunk
+        (0-d tensors): the `_make_eval` fold of the JAX programs."""
+        raise NotImplementedError
 
     # -- the unfused cycle ---------------------------------------------------
 
     def _unfused_step(self, state: ResidentState) -> None:
         """Up to K unfused cycles; synchronises once per cycle."""
-        n, m, M, C, S = self.problem.jobs, self.m, self.M, self.capacity, self.S
+        n, m, M, C, S = self.problem.child_slots, self.m, self.M, self.capacity, self.S
         Mn = M * n
         dev = self.device
         pool_vals, pool_aux = state.pool_vals, state.pool_aux
         size, best = (int(v) for v in state.st[:ST_BEST + 1].tolist())
         tree = sol = cycles = 0
-        kk = torch.arange(n, dtype=torch.int32, device=dev)
         while size >= m and size + Mn <= C and cycles < self.K:
             cnt = min(size, M)
             start = size - cnt
@@ -198,18 +228,10 @@ class PFSPResident:
             vals_c = pool_vals[start2:start2 + M].clone()
             aux_c = pool_aux[start2:start2 + M].to(torch.int32)
             size = start
-            bounds = lb1_bounds(vals_c, aux_c, self.tables)
-            pdepth = aux_c + 1
-            open_ = (kk[None, :] >= pdepth[:, None]) & valid[:, None]
-            leaf = open_ & ((pdepth + 1) == n)[:, None]
-            best_t = torch.clamp(
-                torch.where(leaf, bounds, torch.full_like(bounds, INF_BOUND))
-                .min(), max=best)
-            keep = open_ & ~leaf & (bounds < best_t)
+            keep, sol_inc, best_t = self._evaluate(vals_c, aux_c, valid, best)
             ids, tree_inc = compact_ids(keep, S, self.compact)
             tree_inc, sol_inc, best = torch.stack(
-                [tree_inc, torch.sum(leaf, dtype=torch.int32),
-                 best_t.to(torch.int32)]).tolist()
+                [tree_inc, sol_inc, best_t.to(torch.int32)]).tolist()
             if tree_inc <= S:
                 self._push_small(pool_vals, pool_aux, vals_c, aux_c, ids, size)
             else:
@@ -223,11 +245,11 @@ class PFSPResident:
 
     def _push_small(self, pool_vals, pool_aux, vals_c, aux_c, ids, size):
         """Fused prune+push (`resident.py:311-352`): ONE gather of the
-        survivor budget — parent row and parent limit1 ride the same
-        augmented (S, n+1) gather — and each child row is rebuilt at its
-        destination by selects (a child differs from its parent at exactly
-        the two swapped positions). Rows past tree_inc are garbage past
-        the new size."""
+        survivor budget — parent row and parent aux ride the same augmented
+        (S, n+1) gather (aux fits the row dtype: limit1 in [-1, n) and depth
+        in [0, N]) — and each child row is rebuilt at its destination by
+        selects (a child differs from its parent at exactly the two swapped
+        positions). Rows past tree_inc are garbage past the new size."""
         n = vals_c.shape[1]
         pi = (ids // n).long()
         kj = ids % n
@@ -236,7 +258,7 @@ class PFSPResident:
         rows = g[:, :n]
         pa = g[:, n].to(torch.int32)
         iota = torch.arange(n, dtype=torch.int32, device=vals_c.device)[None, :]
-        ohd = iota == (pa + 1)[:, None]
+        ohd = iota == self._swap_pos(pa)[:, None]
         ohk = iota == kj[:, None]
         zero = torch.zeros_like(rows)
         v_k = torch.where(ohk, rows, zero).sum(1, dtype=torch.int32)
@@ -252,7 +274,7 @@ class PFSPResident:
         child cube and place every survivor at once."""
         M, n = vals_c.shape
         Mn = M * n
-        child = _swap_children(vals_c, aux_c + 1).reshape(Mn, n)
+        child = _swap_children(vals_c, self._swap_pos(aux_c)).reshape(Mn, n)
         ranks, _ = survivor_ranks(keep)
         caux = torch.repeat_interleave(aux_c + 1, n).to(pool_aux.dtype)
         flat = keep.reshape(Mn)
@@ -269,6 +291,103 @@ class PFSPResident:
         dest = (size + ranks.reshape(Mn))[flat].long()
         pool_vals[dest] = child[flat]
         pool_aux[dest] = caux[flat]
+
+
+class PFSPResident(_ResidentProgram):
+    """PFSP: rows ``prmu`` and aux ``limit1``, both int8 through 127 jobs."""
+
+    # Deep PFSP chunks prune heavily; the unfused push's gather budget is
+    # a quarter of the slot grid (the JAX engine's choice).
+    survivor_budget_div = 4
+
+    def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
+                 capacity: int, device, fused: bool = True):
+        if problem.lb not in ("lb1", "lb1_d"):
+            raise NotImplementedError(
+                f"device bound {problem.lb!r} is not ported yet (ROADMAP.md "
+                "queue A: lb2) — tpu_tree_search_torch runs lb1 and lb1_d")
+        self.vals_dtype = self.aux_dtype = pool_dtype(problem.jobs)
+        # lb1_d has no fused cycle (the JAX megakernel refuses it,
+        # `megakernel.py:351-354`): it runs the unfused cycle with its kernel.
+        super().__init__(problem, m, M, K, capacity, device,
+                         fused=fused and problem.lb == "lb1")
+        self.tables = problem.device_tables(self.device)
+
+    def derive_fields(self, batch: dict) -> dict:
+        # depth == limit1 + 1 for every node the engine pushes.
+        batch["depth"] = (batch["limit1"].astype(np.int32) + 1).astype(
+            self.problem.node_fields()["depth"][1])
+        return batch
+
+    def _make_scratch(self):
+        return cycle_scratch(self.M, self.problem.jobs, self.vals_dtype,
+                             self.device)
+
+    def _fused_cycle(self, state: ResidentState) -> None:
+        cycle_lb1(state.pool_vals, state.pool_aux, state.st, self._scratch,
+                  self.tables, self.M, self.m, self.K)
+
+    def _swap_pos(self, aux):
+        return aux + 1  # parent depth = limit1 + 1
+
+    def _evaluate(self, vals_c, aux_c, valid, best):
+        n = self.problem.jobs
+        bounds = self.problem.device_bounds(vals_c, aux_c)
+        pdepth = aux_c + 1
+        kk = torch.arange(n, dtype=torch.int32, device=vals_c.device)
+        open_ = (kk[None, :] >= pdepth[:, None]) & valid[:, None]
+        leaf = open_ & ((pdepth + 1) == n)[:, None]
+        # Leaf makespans fold into the incumbent before the prune test
+        # (`pfsp_chpl.chpl:100-111`).
+        best_t = torch.clamp(
+            torch.where(leaf, bounds, torch.full_like(bounds, INF_BOUND))
+            .min(), max=best)
+        keep = open_ & ~leaf & (bounds < best_t)
+        return keep, torch.sum(leaf, dtype=torch.int32), best_t
+
+
+class NQueensResident(_ResidentProgram):
+    """N-Queens: rows ``board`` uint8 and aux ``depth`` (int8 through
+    N = 127, int32 beyond; the JAX ``_NQueensResident`` pool)."""
+
+    # No pruning: every safe slot survives, so give the compactor half the
+    # slot grid before it falls back to the overflow branch.
+    survivor_budget_div = 2
+
+    def __init__(self, problem: NQueensProblem, m: int, M: int, K: int,
+                 capacity: int, device, fused: bool = True):
+        self.vals_dtype = torch.uint8
+        self.aux_dtype = torch.int8 if problem.N <= 127 else torch.int32
+        super().__init__(problem, m, M, K, capacity, device, fused=fused)
+
+    def _make_scratch(self):
+        return nqueens_scratch(self.M, self.problem.N, self.device)
+
+    def _fused_cycle(self, state: ResidentState) -> None:
+        cycle_nqueens(state.pool_vals, state.pool_aux, state.st,
+                      self._scratch, self.problem.N, self.problem.g, self.M,
+                      self.m, self.K)
+
+    def _swap_pos(self, aux):
+        return aux  # swap position is the parent depth itself
+
+    def _evaluate(self, vals_c, aux_c, valid, best):
+        N = self.problem.N
+        # A popped node at depth == N is a solution (`nqueens_chpl.chpl:74`).
+        sol_inc = torch.sum(valid & (aux_c == N), dtype=torch.int32)
+        labels = self.problem.device_bounds(vals_c, aux_c).bool()
+        keep = labels & valid[:, None] & (aux_c < N)[:, None]
+        return keep, sol_inc, torch.tensor(best, device=vals_c.device)
+
+
+def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
+                 device, fused: bool = True) -> _ResidentProgram:
+    """The resident program of ``problem`` (`resident.py:674-711`)."""
+    if isinstance(problem, PFSPProblem):
+        return PFSPResident(problem, m, M, K, capacity, device, fused=fused)
+    if isinstance(problem, NQueensProblem):
+        return NQueensResident(problem, m, M, K, capacity, device, fused=fused)
+    raise TypeError(f"no resident program for {type(problem).__name__}")
 
 
 def default_capacity(M: int, child_slots: int, node_bytes: int) -> int:
@@ -302,7 +421,7 @@ def resolve_capacity(problem: Problem, M: int, capacity: int | None) -> tuple[in
 
 
 def resident_search(
-    problem: PFSPProblem,
+    problem: Problem,
     m: int = 25,
     M: int = 49152,
     K: int = 256,
@@ -315,11 +434,13 @@ def resident_search(
     """3-phase search with a device-resident hot loop: host warm-up to
     ``warmup_target`` (default m) nodes, then dispatches of up to K device
     cycles of up to M parents until fewer than m nodes remain, then a host
-    drain. ``device`` defaults to ``cuda`` (raises when absent); pass
-    ``"cpu"`` for the plain PyTorch path. Dispatch is synchronous: one
+    drain. ``problem`` is a `PFSPProblem` (lb1 or lb1_d) or an
+    `NQueensProblem`. ``device`` defaults to ``cuda`` (raises when absent);
+    pass ``"cpu"`` for the plain PyTorch path. Dispatch is synchronous: one
     scalar readback per dispatch."""
     dev = resolve_device(device)
-    best = initial_best if initial_best is not None else problem.initial_ub
+    best = (initial_best if initial_best is not None
+            else getattr(problem, "initial_ub", INF_BOUND))
     n = problem.child_slots
     capacity, M = resolve_capacity(problem, M, capacity)
     pool = SoAPool(problem.node_fields())
@@ -335,7 +456,7 @@ def resident_search(
     phases.append(PhaseStats(t1 - t0, tree1, sol1))
 
     # -- phase 2: device-resident loop ----------------------------------------
-    program = PFSPResident(problem, m, M, K, capacity, dev, fused=fused)
+    program = make_program(problem, m, M, K, capacity, dev, fused=fused)
     state = program.init_state(pool.as_batch(), best)
     pool.clear()
     diagnostics.host_to_device += 1
@@ -360,7 +481,8 @@ def resident_search(
             diagnostics.device_to_host += 1
             pool.reset_from(batch)
             if offloader is None:
-                offloader = DeviceOffloader(problem, dev, program.dtype)
+                offloader = DeviceOffloader(problem, dev, program.vals_dtype,
+                                            program.aux_dtype)
             chunk_buf = problem.empty_batch(M)
             while pool.size >= m and pool.size + M * n > capacity:
                 count = pool.pop_back_bulk(m, M, chunk_buf)
@@ -397,10 +519,9 @@ def resident_search(
         phases=phases,
         diagnostics=diagnostics,
         compact=program.compact,
-        fused=fused,
+        fused=program.fused,
         M=M,
         k_resolved=program.K,
         dispatches=dispatches,
         stall_fallbacks=stalls,
     )
-

@@ -14,9 +14,10 @@ ids:
     bit b of the remaining distance, b ascending, never collides (see
     ``shift_compact``).
 
-``resolve_compact_mode`` keeps the JAX auto table's GPU row: ``dense`` for
-grids of at most 2^16 slots, ``scatter`` above. The fused cycle
-(`ops/cycle.py`) compacts inside its kernel and uses none of this.
+``resolve_compact_mode`` keeps the JAX auto policy's rows that apply here:
+N-Queens always ``dense``; otherwise the GPU row, ``dense`` for grids of at
+most 2^16 slots and ``scatter`` above. The fused cycles (`ops/cycle.py`,
+`ops/cycle_nqueens.py`) compact inside their kernels and use none of this.
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ import torch
 MODES = ("scatter", "dense")
 
 
-def resolve_compact_mode(M: int, n: int) -> str:
+def resolve_compact_mode(problem, M: int, n: int) -> str:
+    """The unfused cycle's compaction mode (`compaction.py` ``_auto_compact``
+    of the JAX package, its N-Queens and gpu rows)."""
+    if getattr(problem, "name", None) == "nqueens":
+        return "dense"
     return "dense" if M * n <= (1 << 16) else "scatter"
 
 

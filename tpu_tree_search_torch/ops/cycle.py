@@ -16,7 +16,8 @@ Plain PyTorch versions beside it: ``cycle_chunk_plain`` computes what the
 JAX ``make_cycle`` returns for one popped chunk (the CPU tests hold it to
 the Pallas kernel in interpret mode), and ``cycle_lb1_plain`` is the whole
 in-pool cycle — the kernel's plain version, used on the CPU and in the
-on-card comparison.
+on-card comparison. The state layout, ``plain_pool_cycle`` and
+``CycleScratch`` are shared with the N-Queens cycle (`ops/cycle_nqueens.py`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..problems.base import INF_BOUND
 from . import _build
 from .pfsp_device import PFSPDeviceTables, lb1_chunk
 
-# Layout of the state tensor (mirrors the enum of csrc/cycle_lb1.cu).
+# Layout of the state tensor (mirrors the enum of csrc/cycle_common.cuh).
 ST_SIZE, ST_BEST, ST_TREE, ST_SOL, ST_CYCLES = 0, 1, 2, 3, 4
 ST_ACTIVE, ST_CNT, ST_START2, ST_BASE = 5, 6, 7, 8
 ST_LEN = 16
@@ -86,12 +87,14 @@ def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
             sol_inc, best)
 
 
-def cycle_lb1_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
-                    st: torch.Tensor, tables: PFSPDeviceTables, M: int,
-                    m: int, K: int) -> None:
-    """The whole cycle on the pool, in place: condition, pop, bounds, prune,
-    compaction and push, and the state update — what one ``cycle_lb1_cuda``
-    call computes (reads the state on the host: plain, not the hot path)."""
+def plain_pool_cycle(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                     st: torch.Tensor, M: int, m: int, K: int,
+                     chunk_cycle) -> None:
+    """One cycle on the pool, in place, around ``chunk_cycle(vals_c, aux_c,
+    valid, best) -> (rows, caux, tree_inc, sol_inc, best)`` (a problem's
+    chunk contract): the loop condition, the pop, the push of the survivors
+    at the pool's size and the state update — what one fused CUDA cycle
+    computes (reads the state on the host: plain, not the hot path)."""
     C, n = pool_vals.shape
     size, _, _, _, cycles = (int(v) for v in st[:ST_ACTIVE].tolist())
     if not (size >= m and size + M * n <= C and cycles < K):
@@ -102,9 +105,9 @@ def cycle_lb1_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     start2 = min(max(start, 0), C - M)
     idx = start2 + torch.arange(M, device=pool_vals.device)
     valid = (idx >= start) & (idx < size)
-    rows, caux, tree_inc, sol_inc, best = cycle_chunk_plain(
+    rows, caux, tree_inc, sol_inc, best = chunk_cycle(
         pool_vals[start2:start2 + M], pool_aux[start2:start2 + M], valid,
-        st[ST_BEST], tables)
+        st[ST_BEST])
     t = int(tree_inc)
     pool_vals[start:start + t] = rows[:t].to(pool_vals.dtype)
     pool_aux[start:start + t] = caux[:t].to(pool_aux.dtype)
@@ -119,29 +122,48 @@ def cycle_lb1_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     st[ST_BASE] = start
 
 
+def cycle_lb1_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                    st: torch.Tensor, tables: PFSPDeviceTables, M: int,
+                    m: int, K: int) -> None:
+    """The whole lb1 cycle on the pool, in place: condition, pop, bounds,
+    prune, compaction and push, and the state update — what one
+    ``cycle_lb1_cuda`` call computes."""
+    plain_pool_cycle(
+        pool_vals, pool_aux, st, M, m, K,
+        lambda v, a, valid, best: cycle_chunk_plain(v, a, valid, best, tables))
+
+
 @dataclass
 class CycleScratch:
-    """Device buffers of one cycle: the popped chunk's stash, the (M*n) lb
-    plane and the per-block survivor counts and offsets."""
+    """Device buffers of one fused cycle: the popped chunk's stash, the
+    (M*n) plane (lb1 bounds, or N-Queens keep flags) and the per-block
+    survivor counts and offsets."""
 
     chunk_vals: torch.Tensor
     chunk_aux: torch.Tensor
-    lb: torch.Tensor
+    plane: torch.Tensor
     blkcnt: torch.Tensor
     blkoff: torch.Tensor
+
+    @classmethod
+    def make(cls, M: int, n: int, vals_dtype: torch.dtype,
+             aux_dtype: torch.dtype, plane_dtype: torch.dtype,
+             parents_per_block: int, device) -> "CycleScratch":
+        nblk = -(-M // parents_per_block)
+        return cls(
+            chunk_vals=torch.empty((M, n), dtype=vals_dtype, device=device),
+            chunk_aux=torch.empty(M, dtype=aux_dtype, device=device),
+            plane=torch.empty(M * n, dtype=plane_dtype, device=device),
+            blkcnt=torch.empty(2 * nblk, dtype=torch.int32, device=device),
+            blkoff=torch.empty(nblk, dtype=torch.int32, device=device),
+        )
 
 
 def cycle_scratch(M: int, n: int, dtype: torch.dtype,
                   device: torch.device) -> CycleScratch:
+    """The lb1 cycle's scratch: pool-dtype stash, int32 lb plane."""
     pb = _build.library("cycle_lb1").tts_parents_per_block()
-    nblk = -(-M // pb)
-    return CycleScratch(
-        chunk_vals=torch.empty((M, n), dtype=dtype, device=device),
-        chunk_aux=torch.empty(M, dtype=dtype, device=device),
-        lb=torch.empty(M * n, dtype=torch.int32, device=device),
-        blkcnt=torch.empty(2 * nblk, dtype=torch.int32, device=device),
-        blkoff=torch.empty(nblk, dtype=torch.int32, device=device),
-    )
+    return CycleScratch.make(M, n, dtype, dtype, torch.int32, pb, device)
 
 
 _ENTRIES = {torch.int8: "cycle_lb1_i8", torch.int32: "cycle_lb1_i32"}
@@ -183,7 +205,7 @@ def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
-             scratch.lb.data_ptr(), scratch.blkcnt.data_ptr(),
+             scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
              scratch.blkoff.data_ptr(), tables.ptm_t.data_ptr(),
              tables.min_heads.data_ptr(), tables.min_tails.data_ptr(),
              n, tables.machines, M, C, m, K, stream)

@@ -1,0 +1,152 @@
+"""Kernel 4: one whole device-resident N-Queens cycle, as CUDA for Hopper.
+
+Replaces the TPU kernel `_mega_nqueens_kernel` (`tpu_tree_search/ops/megakernel.py`,
+with `_compact_push` and the N-Queens branch of `make_cycle`) and the
+engine's pop and write-back around it; source `csrc/cycle_nqueens.cu`,
+whose header note gives the launch sequence and what bounds it on the card.
+
+The pool is ``board`` (C, N) uint8 and ``depth`` (C,) int8 (N <= 32), and
+the loop state is the int32 tensor of `ops/cycle.py` (``new_state``). One
+call of ``cycle_nqueens_cuda`` enqueues one cycle (three launches); when the
+loop condition is false it is an exact no-op, so the engine enqueues K of
+them with no host synchronisation. ``cycle_nqueens_cuda.launches`` counts
+the calls.
+
+Plain PyTorch versions beside it: ``cycle_nqueens_chunk_plain`` computes
+what the JAX ``make_cycle`` returns for one popped chunk (the CPU tests hold
+it to the Pallas kernel in interpret mode), and ``cycle_nqueens_plain`` is
+the whole in-pool cycle — the kernel's plain version, used on the CPU and in
+the on-card comparison.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .cycle import ST_LEN, CycleScratch, plain_pool_cycle
+from .nqueens_device import labels_chunk
+from .nqueens_kernel import MAX_N
+
+
+def cycle_nqueens_chunk_plain(board_c: torch.Tensor, depth_c: torch.Tensor,
+                              valid: torch.Tensor, best: torch.Tensor,
+                              N: int, g: int):
+    """One cycle on a popped chunk — the JAX ``make_cycle`` N-Queens
+    contract.
+
+    board_c (M, N), depth_c (M,), valid (M,) bool, best 0-d int32. Returns
+    ``(rows (M*N, N) int32, caux (M*N,) int32, tree_inc, sol_inc, best)``
+    (0-d int32 tensors): a popped valid parent at depth == N counts one
+    solution; the survivors ``label & valid & depth < N`` in (parent, slot)
+    order, each its parent with positions depth and k swapped, with
+    caux = depth + 1; rows past tree_inc are zero. ``best`` passes through.
+    """
+    M = board_c.shape[0]
+    dev = board_c.device
+    depth = depth_c.to(torch.int32)
+    labels = labels_chunk(board_c, depth, N, g).bool()
+    keep = labels & valid[:, None] & (depth < N)[:, None]
+    sol_inc = torch.sum(valid & (depth == N), dtype=torch.int32)
+    pi, kj = keep.nonzero(as_tuple=True)
+    tree_inc = pi.numel()
+    parent = board_c[pi].to(torch.int32)
+    d = depth[pi].long()
+    ar = torch.arange(tree_inc, device=dev)
+    v_d = parent[ar, d]
+    v_k = parent[ar, kj]
+    child = parent.clone()
+    child[ar, kj] = v_d
+    child[ar, d] = v_k
+    rows = torch.zeros((M * N, N), dtype=torch.int32, device=dev)
+    caux = torch.zeros(M * N, dtype=torch.int32, device=dev)
+    rows[:tree_inc] = child
+    caux[:tree_inc] = depth[pi] + 1
+    return (rows, caux, torch.tensor(tree_inc, dtype=torch.int32, device=dev),
+            sol_inc, best.to(torch.int32))
+
+
+def cycle_nqueens_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                        st: torch.Tensor, N: int, g: int, M: int, m: int,
+                        K: int) -> None:
+    """The whole N-Queens cycle on the pool, in place: condition, pop,
+    labels, solution count, compaction and push, and the state update —
+    what one ``cycle_nqueens_cuda`` call computes."""
+    plain_pool_cycle(
+        pool_vals, pool_aux, st, M, m, K,
+        lambda v, a, valid, best: cycle_nqueens_chunk_plain(v, a, valid, best,
+                                                            N, g))
+
+
+def nqueens_scratch(M: int, N: int, device) -> CycleScratch:
+    """The N-Queens cycle's scratch: uint8 board and int8 depth stash,
+    uint8 keep plane."""
+    pb = _build.library("cycle_nqueens").tts_nq_parents_per_block()
+    return CycleScratch.make(M, N, torch.uint8, torch.int8, torch.uint8, pb,
+                             device)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _entry():
+    """The loaded library and its C entry (bound once)."""
+    lib = _build.library("cycle_nqueens")
+    fn = lib.cycle_nqueens
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                       st: torch.Tensor, scratch: CycleScratch, N: int,
+                       g: int, M: int, m: int, K: int) -> None:
+    """Enqueue one cycle (three launches) on the current stream; updates
+    the pool and ``st`` in place on the device, never synchronises."""
+    if not pool_vals.is_cuda:
+        raise ValueError("cycle_nqueens_cuda takes CUDA tensors")
+    if pool_vals.dtype != torch.uint8 or pool_aux.dtype != torch.int8:
+        raise TypeError("the N-Queens pool is a uint8 board and an int8 depth")
+    C = pool_vals.shape[0]
+    if pool_vals.shape != (C, N) or pool_aux.shape != (C,) \
+            or st.dtype != torch.int32 or st.numel() < ST_LEN:
+        raise ValueError("pool_vals must be (C, N), pool_aux (C,) and st "
+                         "int32 of ST_LEN")
+    if not 1 <= N <= MAX_N or g < 1:
+        raise ValueError(f"the kernel takes 1 <= N <= {MAX_N} and g >= 1 "
+                         f"(got N={N}, g={g})")
+    if not (pool_vals.is_contiguous() and pool_aux.is_contiguous()
+            and st.is_contiguous()):
+        raise ValueError("pool and state tensors must be contiguous")
+    if C < M or scratch.chunk_vals.shape != (M, N) \
+            or scratch.plane.dtype != torch.uint8:
+        raise ValueError("scratch must be nqueens_scratch(M, N), and the "
+                         "pool hold at least M rows")
+    lib, fn = _entry()
+    stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
+    err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
+             scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
+             scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
+             scratch.blkoff.data_ptr(), N, g, M, C, m, K, stream)
+    _build.check(lib, err, "cycle_nqueens")
+    cycle_nqueens_cuda.launches += 1  # type: ignore[attr-defined]
+
+
+cycle_nqueens_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def cycle_nqueens(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                  st: torch.Tensor, scratch: CycleScratch | None, N: int,
+                  g: int, M: int, m: int, K: int) -> None:
+    """One cycle routed by device: the CUDA kernel for a CUDA pool (which
+    launches or raises), the plain version for a CPU pool."""
+    if pool_vals.is_cuda:
+        if scratch is None:
+            raise ValueError("the CUDA cycle needs its nqueens_scratch buffers")
+        cycle_nqueens_cuda(pool_vals, pool_aux, st, scratch, N, g, M, m, K)
+    else:
+        cycle_nqueens_plain(pool_vals, pool_aux, st, N, g, M, m, K)

@@ -11,7 +11,8 @@ comparison use. ``lb1_bounds_cuda.launches`` counts the launches.
 
 The kernel reads prmu and limit1 in the pool's storage type, int8 or int32
 (limit1 is cast to prmu's type: B elements), so the resident pool's int8
-rows go in without a widening copy.
+rows go in without a widening copy. ``launch_lb1_family`` is the launch
+shared with kernel 5 (`ops/lb1_d_kernel.py`), which takes the same operands.
 """
 
 from __future__ import annotations
@@ -32,23 +33,26 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.cache
-def _entry(dtype: torch.dtype):
-    """The loaded library and its C entry for ``dtype`` (bound once)."""
-    lib = _build.library("lb1_bounds")
-    fn = getattr(lib, _ENTRIES[dtype])
+def _entry(source: str, entry: str):
+    """The loaded library of ``csrc/<source>.cu`` and its C ``entry``
+    (bound once)."""
+    lib = _build.library(source)
+    fn = getattr(lib, entry)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
-                    tables: PFSPDeviceTables) -> torch.Tensor:
-    """(B, n) int32 lb1 child bounds of ``prmu`` (B, n) / ``limit1`` (B,),
-    computed by the CUDA kernel on the current stream."""
+def launch_lb1_family(source: str, entries: dict, prmu: torch.Tensor,
+                      limit1: torch.Tensor,
+                      tables: PFSPDeviceTables) -> torch.Tensor:
+    """Check the operands of an lb1-shaped kernel (prmu (B, n), limit1 (B,),
+    the tables) and launch ``entries[prmu.dtype]`` of ``csrc/<source>.cu``
+    on the current stream. Returns the (B, n) int32 plane."""
     if not prmu.is_cuda:
-        raise ValueError("lb1_bounds_cuda takes CUDA tensors "
-                         "(pfsp_device.lb1_bounds routes CPU tensors)")
-    if prmu.dtype not in _ENTRIES:
+        raise ValueError(f"{source} takes CUDA tensors "
+                         "(pfsp_device routes CPU tensors)")
+    if prmu.dtype not in entries:
         raise TypeError(f"prmu must be int8 or int32, got {prmu.dtype}")
     if prmu.dim() != 2 or limit1.shape != (prmu.shape[0],):
         raise ValueError("prmu must be (B, n) and limit1 (B,)")
@@ -60,12 +64,20 @@ def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
     prmu = prmu.contiguous()
     limit1 = limit1.to(prmu.dtype).contiguous()
     out = torch.empty((B, n), dtype=torch.int32, device=prmu.device)
-    lib, fn = _entry(prmu.dtype)
+    lib, fn = _entry(source, entries[prmu.dtype])
     stream = torch.cuda.current_stream(prmu.device).cuda_stream
     err = fn(prmu.data_ptr(), limit1.data_ptr(), tables.ptm_t.data_ptr(),
              tables.min_heads.data_ptr(), tables.min_tails.data_ptr(),
              out.data_ptr(), B, n, tables.machines, stream)
-    _build.check(lib, err, "lb1_bounds")
+    _build.check(lib, err, source)
+    return out
+
+
+def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
+                    tables: PFSPDeviceTables) -> torch.Tensor:
+    """(B, n) int32 lb1 child bounds of ``prmu`` (B, n) / ``limit1`` (B,),
+    computed by the CUDA kernel on the current stream."""
+    out = launch_lb1_family("lb1_bounds", _ENTRIES, prmu, limit1, tables)
     lb1_bounds_cuda.launches += 1  # type: ignore[attr-defined]
     return out
 

@@ -1,5 +1,5 @@
-"""PFSP lb1 on the device: instance tables and the plain PyTorch bound — the
-lb1 half of `tpu_tree_search/ops/pfsp_device.py`.
+"""PFSP lb1 and lb1_d on the device: instance tables and the plain PyTorch
+bounds — the lb1 half of `tpu_tree_search/ops/pfsp_device.py`.
 
 Forward branching fixes ``limit2 == jobs`` (`pfsp_chpl.chpl:23-26`), so the
 tail schedule is always the constant ``min_tails`` table. A child's head
@@ -132,6 +132,26 @@ def lb1_chunk(prmu: torch.Tensor, limit1: torch.Tensor,
                                     child_remain)
 
 
+def lb1_d_chunk(prmu: torch.Tensor, limit1: torch.Tensor,
+                tables: PFSPDeviceTables) -> torch.Tensor:
+    """Plain lb1_d of every child of every parent (`pfsp_device._lb1_d_chunk`:
+    `add_front_and_bound`, `c_bound_simple.c:213-244`; device
+    `evaluate.cu:51-71`): O(m) per child slot from the parent's front and
+    remaining work, one pass for all children. Returns (B, n) int32; slots
+    k <= limit1 are not children and are never read."""
+    front, remain, ptg = parent_state(prmu, limit1, tables)
+    back = tables.min_tails
+    f = front[:, None, :]  # (B, 1, m)
+    r = remain[:, None, :]
+    lb = f[..., 0] + r[..., 0] + back[0]  # (B, 1) -> broadcasts to (B, n)
+    tmp0 = f[..., 0] + ptg[..., 0]  # (B, n)
+    for i in range(1, tables.machines):
+        tmp1 = torch.maximum(tmp0, f[..., i])
+        lb = torch.maximum(lb, tmp1 + r[..., i] + back[i])
+        tmp0 = tmp1 + ptg[..., i]
+    return lb
+
+
 def lb1_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
                tables: PFSPDeviceTables) -> torch.Tensor:
     """lb1 child bounds routed by device: a CUDA tensor goes to the CUDA
@@ -142,3 +162,15 @@ def lb1_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
 
         return lb1_bounds_cuda(prmu, limit1, tables)
     return lb1_chunk(prmu, limit1, tables)
+
+
+def lb1_d_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
+                 tables: PFSPDeviceTables) -> torch.Tensor:
+    """lb1_d child bounds routed like ``lb1_bounds``: the CUDA kernel
+    (`ops/lb1_d_kernel.py`) for a CUDA tensor, ``lb1_d_chunk`` for a CPU
+    tensor."""
+    if prmu.is_cuda:
+        from .lb1_d_kernel import lb1_d_bounds_cuda
+
+        return lb1_d_bounds_cuda(prmu, limit1, tables)
+    return lb1_d_chunk(prmu, limit1, tables)

@@ -59,12 +59,17 @@ class DecomposeResult:
 
 
 class Problem:
-    """Interface; `PFSPProblem` is the port's one instantiation so far."""
+    """Interface; instantiated by `PFSPProblem` and `NQueensProblem`."""
 
     name: str = "problem"
     # Children slots per parent (== branching-factor upper bound): jobs for
-    # PFSP. Device result slot [i*width + j] is child j of parent i.
+    # PFSP, N for N-Queens. Device result slot [i*width + j] is child j of
+    # parent i.
     child_slots: int
+    # The node fields that form the device pool: the (C, width) rows and
+    # the (C,) scalar column (PFSP: prmu/limit1; N-Queens: board/depth).
+    vals_field: str
+    aux_field: str
 
     def field_specs(
         self,
@@ -88,6 +93,12 @@ class Problem:
 
     def decompose(self, node: dict[str, Any], best: int) -> DecomposeResult:
         """Evaluate + branch one node on host (sequential-tier semantics)."""
+        raise NotImplementedError
+
+    def device_bounds(self, vals, aux):
+        """The (B, width) device result plane of a chunk given as its two
+        pool columns (torch tensors): child bounds or labels. Routed by the
+        tensors' device: the CUDA kernel or the plain PyTorch version."""
         raise NotImplementedError
 
     def generate_children(

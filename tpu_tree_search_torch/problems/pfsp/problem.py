@@ -28,6 +28,9 @@ ALLOWED_LOWER_BOUNDS = ("lb1", "lb1_d", "lb2")
 
 class PFSPProblem(Problem):
     name = "pfsp"
+    # The device pool's two columns: the (C, n) rows and the (C,) scalar.
+    vals_field = "prmu"
+    aux_field = "limit1"
 
     def __init__(
         self,
@@ -41,7 +44,7 @@ class PFSPProblem(Problem):
         instances); then ``ub`` must be 0 (no table optimum exists).
         ``lb2_variant`` selects the Johnson machine-pair subset
         (`bounds.LB2_VARIANTS`). The host path serves every bound; the
-        device path of this package serves ``lb1`` only so far.
+        device path of this package serves ``lb1`` and ``lb1_d`` so far.
         """
         if lb not in ALLOWED_LOWER_BOUNDS:
             raise ValueError("Error - Unsupported lower bound")
@@ -178,6 +181,19 @@ class PFSPProblem(Problem):
                 self.lb1_data, device
             )
         return self._device_tables[key]
+
+    def device_bounds(self, prmu, limit1):
+        """(B, n) int32 child bounds of a device chunk under ``self.lb``
+        (lb1 or lb1_d; the CUDA kernel for CUDA tensors, the plain version
+        for CPU tensors)."""
+        from ...ops import pfsp_device as P
+
+        fns = {"lb1": P.lb1_bounds, "lb1_d": P.lb1_d_bounds}
+        if self.lb not in fns:
+            raise NotImplementedError(
+                f"device bound {self.lb!r} is not ported yet (ROADMAP.md "
+                "queue A: lb2) — tpu_tree_search_torch runs lb1 and lb1_d")
+        return fns[self.lb](prmu, limit1, self.device_tables(prmu.device))
 
     def generate_children(
         self, parents: NodeBatch, count: int, results: np.ndarray, best: int
