@@ -37,7 +37,24 @@ ends the script with a non-zero exit before the final line:
      sol 365,596, counting kernel 3;
  12. ta014 lb1_d ub=1 through the CLI at the default M (the unfused cycle):
      tree 2,573,652, sol 2,648, makespan 1377, counting kernel 5;
- 13. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+ 13. ``kernel6`` (lb2 child bounds) against its plain version on ta014,
+     ta021, ta051 and ta081 tables (the last two need more than 48 KB of
+     shared memory a block; ta081 has the 100 jobs the lb2 kernels take at
+     most): B = 1024 and 49152 (ta051, ta081: 1024), int8 and int32;
+     bit-equal on the open slots;
+ 14. ``kernel7`` (the staged self lb2) against its plain version on ta014:
+     R = 1024*20 and 49152*20 rows, n_active at a quarter and at R; bit-equal
+     on the active rows, and the quarter/full time ratio (the blocks past
+     n_active return at once);
+ 15. ``kernel8`` (the fused lb2 cycle) against its plain version, as kernel 2
+     in phase 4;
+ 16. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
+     the fused path at M = 49152 and M = 1024 (counting kernel 8), with
+     ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
+     ``resident_search(..., fused=False, staged=False)`` (kernel 6);
+ 17. the four lb2 searches again under ``torch.profiler``: device time by
+     kernel against the device phase's wall time (the busy share);
+ 18. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
      plain version, its time, the plain version's time and the bound.
 
@@ -61,6 +78,7 @@ import numpy as np
 import torch
 
 GOLDEN = {"explored_tree": 2573652, "explored_sol": 2648, "optimum": 1377}
+GOLDEN_LB2 = {"explored_tree": 144639, "explored_sol": 0, "optimum": 1377}
 NQ_GOLDEN = {15: {"explored_tree": 171129071, "explored_sol": 2279184},
              14: {"explored_tree": 27358552, "explored_sol": 365596}}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
@@ -68,6 +86,9 @@ INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
 INF = 2**31 - 1
 # The four kernels of one fused cycle (csrc/cycle_lb1.cu).
 CYCLE_KERNELS = ("cycle_bounds", "cycle_count", "cycle_scan", "cycle_emit")
+# The four kernels of one fused lb2 cycle (csrc/cycle_lb2.cu).
+LB2_CYCLE_KERNELS = ("lb2_cycle_bounds", "cycle_count", "cycle_scan",
+                     "cycle_emit")
 # The three kernels of one fused N-Queens cycle (csrc/cycle_nqueens.cu).
 NQ_CYCLE_KERNELS = ("nq_cycle_labels", "cycle_scan", "nq_cycle_emit")
 
@@ -167,6 +188,31 @@ def lb1_d_ops(limit1: np.ndarray, n: int, m: int) -> float:
     return float(np.sum((l1 + 1) * m * 2 + (n - l1 - 1) * m) + limit1.size * n * 5 * m)
 
 
+def lb2_ops(limit1: np.ndarray, n: int, m: int, P: int,
+            child: bool = True) -> float:
+    """int32 operations of lb2. Per parent: the front scan, (l1+1)*m*2, and
+    n job positions. Per bound: P*(5n + 4) for the pair loop (a free test
+    and the recurrence tmp0 += p0; tmp1 = max(tmp1, tmp0 + lag) + p1 an
+    ordered slot, then the pair's two tails and maxes). ``child``: one bound
+    per open child slot (k > l1), each after its add_forward step (2m);
+    else (the self bound) one bound per row."""
+    l1 = limit1.astype(np.int64)
+    pro = float(np.sum((l1 + 1) * m * 2 + n))
+    per = P * (5 * n + 4)
+    if child:
+        return pro + float(np.sum(n - l1 - 1)) * (2 * m + per)
+    return pro + l1.size * per
+
+
+def johnson_bytes(tables) -> int:
+    """Bytes of the tables an lb2 kernel reads: ptm_t and min_heads (int32),
+    the packed (P, n, 4) int16 ordered table and the (P, 4) int32 pair
+    rows."""
+    J = tables.johnson
+    return (tables.jobs * tables.machines + tables.machines) * 4 + \
+        J.packed.numel() * 2 + J.pairinfo.numel() * 4
+
+
 def nq_ops(depth: np.ndarray, N: int, g: int) -> float:
     """Integer operations of the labels of these parents: per round, per
     (placed queen, open slot), two compares and two adds (the diagonals)."""
@@ -217,7 +263,8 @@ def phase_build():
     for src in _build.sources():
         log = _build.log_path(src.stem).read_text(errors="replace")
         ptxas[src.stem] = [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln][:8]
+                           if "entry function" in ln or "registers" in ln
+                           or "spill" in ln][:24]
     emit("build", seconds=secs, per_source_seconds=per_source, ptxas=ptxas)
 
 
@@ -252,13 +299,22 @@ def phase_kernel1(dev, tables) -> dict:
     return rows
 
 
-def phase_kernel2(dev, tables) -> dict:
+def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int) -> dict:
+    """A fused PFSP cycle kernel (``lb`` lb1: kernel 2, lb2: kernel 8)
+    against its plain version: M = 1024 and 49152, a partial and a full
+    chunk, finite and INF incumbent; equal state and live pool rows."""
     from tpu_tree_search_torch.ops import cycle as C
-    from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk
+    from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
 
+    if lb == "lb1":
+        cuda_cycle, plain_cycle, bound = C.cycle_lb1_cuda, C.cycle_lb1_plain, lb1_chunk
+        names, table_bytes = CYCLE_KERNELS, (tables.jobs * tables.machines + 2 * tables.machines) * 4
+    else:
+        cuda_cycle, plain_cycle, bound = C.cycle_lb2_cuda, C.cycle_lb2_plain, lb2_chunk
+        names, table_bytes = LB2_CYCLE_KERNELS, johnson_bytes(tables)
     n, m, K = tables.jobs, tables.machines, 4
     mterm = 25
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     rows = {}
     for M in (1024, 49152):
         scratch = C.cycle_scratch(M, n, torch.int8, dev)
@@ -266,10 +322,10 @@ def phase_kernel2(dev, tables) -> dict:
             size = M // 2 + 3 if chunk == "partial" else M + 517
             prmu, limit1 = random_nodes(rng, n, size)
             leaf = (np.arange(n)[None, :] > limit1[:, None]) & (limit1[:, None] == n - 2)
-            lb = lb1_chunk(torch.from_numpy(prmu).to(dev),
-                           torch.from_numpy(limit1).to(dev), tables).cpu().numpy()
+            lbs = bound(torch.from_numpy(prmu).to(dev),
+                        torch.from_numpy(limit1).to(dev), tables).cpu().numpy()
             for incumbent in ("finite", "inf"):
-                best = int(np.median(lb[leaf])) if incumbent == "finite" else INF
+                best = int(np.median(lbs[leaf])) if incumbent == "finite" else INF
                 cap = size + M * n
                 pv0 = torch.zeros((cap, n), dtype=torch.int8, device=dev)
                 pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
@@ -277,9 +333,9 @@ def phase_kernel2(dev, tables) -> dict:
                 pa0[:size] = torch.from_numpy(limit1).to(dev).to(torch.int8)
                 st0 = C.new_state(size, best, dev)
                 pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
-                C.cycle_lb1_cuda(pv, pa, st, scratch, tables, M, mterm, K)
+                cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K)
                 pv2, pa2, st2 = pv0.clone(), pa0.clone(), st0.clone()
-                C.cycle_lb1_plain(pv2, pa2, st2, tables, M, mterm, K)
+                plain_cycle(pv2, pa2, st2, tables, M, mterm, K)
                 torch.cuda.synchronize()
                 live = int(st2[C.ST_SIZE])
                 err = max(
@@ -289,7 +345,7 @@ def phase_kernel2(dev, tables) -> dict:
                 )
                 tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
                 check(err == 0 and int(st2[C.ST_CYCLES]) == 1,
-                      f"cycle kernel differs from plain (M={M}, {chunk}, {incumbent})")
+                      f"{lb} cycle kernel differs from plain (M={M}, {chunk}, {incumbent})")
 
                 def restore():
                     pv.copy_(pv0)
@@ -300,23 +356,100 @@ def phase_kernel2(dev, tables) -> dict:
                     st2.copy_(st0)
 
                 def call():
-                    C.cycle_lb1_cuda(pv, pa, st, scratch, tables, M, mterm, K)
+                    cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K)
 
-                ms, timing = kernel_device_ms(call, 30, CYCLE_KERNELS, restore)
+                ms, timing = kernel_device_ms(call, 30, names, restore)
                 call_ms = median_ms(call, 30, restore)
-                plain_ms = median_ms(lambda: C.cycle_lb1_plain(pv2, pa2, st2, tables,
-                                                               M, mterm, K), 3, restore)
+                plain_ms = median_ms(lambda: plain_cycle(pv2, pa2, st2, tables,
+                                                         M, mterm, K),
+                                     3 if lb == "lb1" or M <= 1024 else 1, restore)
                 cnt = min(size, M)
-                nbytes = cnt * (n + 1) + tree * (n + 1) + (n * m + 2 * m) * 4 + 64
+                nbytes = cnt * (n + 1) + tree * (n + 1) + table_bytes + 64
                 pop = limit1[size - cnt:]
-                bms, by = bound_ms(nbytes, lb1_ops(pop, n, m))
+                ops = (lb1_ops(pop, n, m) if lb == "lb1" else
+                       lb2_ops(pop, n, m, tables.johnson.pair_count))
+                bms, by = bound_ms(nbytes, ops)
                 rows[(M, chunk, incumbent)] = dict(
                     M=M, chunk=chunk, incumbent=incumbent, popped=cnt,
                     tree_inc=tree, sol_inc=sol, best_in=best,
                     best_out=int(st2[C.ST_BEST]), max_abs_err=err, ms=ms,
                     timing=timing, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3,
                     bound_by=by)
-                emit("kernel2", **rows[(M, chunk, incumbent)])
+                emit(phase, **rows[(M, chunk, incumbent)])
+    return rows
+
+
+def phase_kernel6(dev, lb2_tables: dict) -> dict:
+    from tpu_tree_search_torch.ops import lb2_kernel
+
+    rng = np.random.default_rng(6)
+    rows = {}
+    for inst, tables in lb2_tables.items():
+        n, m, P = tables.jobs, tables.machines, tables.johnson.pair_count
+        for B in ((1024, 49152) if n <= 20 else (1024,)):
+            prmu, limit1 = random_nodes(rng, n, B)
+            open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
+            for dtype in (torch.int8, torch.int32):
+                p = torch.from_numpy(prmu).to(dev).to(dtype)
+                lim = torch.from_numpy(limit1).to(dev).to(dtype)
+                got = lb2_kernel.lb2_bounds_cuda(p, lim, tables)
+                want = lb2_kernel.plain(p, lim, tables)
+                torch.cuda.synchronize()
+                err = int((got[open_].long() - want[open_].long()).abs().max())
+                check(err == 0, f"lb2 kernel differs from plain ({inst}, B={B}, {dtype})")
+                call = lambda: lb2_kernel.lb2_bounds_cuda(p, lim, tables)  # noqa: E731
+                ms, timing = kernel_device_ms(call, 30, ("lb2_bounds_kernel",))
+                call_ms = median_ms(call, 30)
+                plain_ms = median_ms(lambda: lb2_kernel.plain(p, lim, tables),
+                                     3 if B <= 1024 else 1)
+                isz = p.element_size()
+                nbytes = B * n * isz + B * isz + B * n * 4 + johnson_bytes(tables)
+                bms, by = bound_ms(nbytes, lb2_ops(limit1, n, m, P))
+                key = (inst, B, str(dtype))
+                rows[key] = dict(inst=inst, n=n, m=m, P=P, B=B, dtype=str(dtype),
+                                 smem_bytes=lb2_kernel.block_smem("lb2_bounds", tables),
+                                 max_abs_err=err, ms=ms, timing=timing,
+                                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_us=bms * 1e3, bound_by=by)
+                emit("kernel6", **rows[key])
+    return rows
+
+
+def phase_kernel7(dev, tables) -> dict:
+    from tpu_tree_search_torch.ops import lb2_self_kernel
+
+    n, m, P = tables.jobs, tables.machines, tables.johnson.pair_count
+    rng = np.random.default_rng(7)
+    rows = {}
+    for B in (1024, 49152):
+        R = B * n
+        prmu, limit1 = random_nodes(rng, n, R)
+        p = torch.from_numpy(prmu).to(dev).to(torch.int8)
+        lim = torch.from_numpy(limit1).to(dev).to(torch.int8)
+        want = lb2_self_kernel.plain(p, lim, R, tables)
+        for nact in (R // 4, R):
+            na = torch.tensor(nact, dtype=torch.int32, device=dev)
+            got = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, tables)
+            torch.cuda.synchronize()
+            err = int((got[:nact].long() - want[:nact].long()).abs().max())
+            check(err == 0, f"lb2 self kernel differs from plain (R={R}, n_active={nact})")
+            call = lambda: lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, tables)  # noqa: E731
+            ms, timing = kernel_device_ms(call, 30, ("lb2_self_bounds_kernel",))
+            call_ms = median_ms(call, 30)
+            plain_ms = median_ms(lambda: lb2_self_kernel.plain(p, lim, na, tables), 3)
+            nbytes = nact * (n + 1 + 4) + johnson_bytes(tables)
+            bms, by = bound_ms(nbytes, lb2_ops(limit1[:nact], n, m, P, child=False))
+            rows[(R, nact)] = dict(R=R, n_active=nact, dtype="torch.int8",
+                                   max_abs_err=err, ms=ms, timing=timing,
+                                   call_ms=call_ms, plain_ms=plain_ms,
+                                   bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+            emit("kernel7", **rows[(R, nact)])
+    R = 49152 * n
+    ratio = rows[(R, R // 4)]["ms"] / rows[(R, R)]["ms"]
+    emit("kernel7_skip", quarter_ms=rows[(R, R // 4)]["ms"], full_ms=rows[(R, R)]["ms"],
+         ratio=ratio)
+    check(ratio < 0.5, f"n_active = R/4 takes {ratio:.2f}x the full time: "
+          "the blocks past n_active are not skipped")
     return rows
 
 
@@ -468,16 +601,35 @@ def run_search(argv: list[str], golden: dict) -> dict:
 
 
 PFSP_LB1 = ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1", "--tier", "device"]
+PFSP_LB2 = ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1", "--tier", "device"]
 
 
 def phase_search(name: str, argv: list[str], counters: dict,
-                 golden: dict = GOLDEN) -> dict:
-    """Drive one search through the CLI with every kernel's launch count
-    set to 0 just before it, and read the counts just after."""
+                 golden: dict = GOLDEN, **library_kwargs) -> dict:
+    """Drive one search with every kernel's launch count set to 0 just
+    before it, and read the counts just after. The search runs through the
+    CLI, or, given ``library_kwargs``, through the library entry
+    ``resident_search`` with the CLI's problem and defaults for ``argv``
+    and those keyword arguments."""
+    from tpu_tree_search_torch import cli
+    from tpu_tree_search_torch.engine.resident import resident_search
+
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
-    rec = run_search(argv, golden)
+    if library_kwargs:
+        args = cli.build_parser().parse_args(argv)
+        dev = torch.device("cuda", 0)
+        res = resident_search(cli.make_problem(args), m=args.m,
+                              M=cli.default_M(args.problem, dev.type), K=args.K,
+                              device=dev, **library_kwargs)
+        rec = dict(cli.result_record(args, res, dev), entry="resident_search",
+                   **library_kwargs)
+        got = {k: rec[k] for k in golden}
+        check(got == golden, f"resident_search {argv} {library_kwargs} counts "
+              f"{got} != golden {golden}")
+    else:
+        rec = run_search(argv, golden)
     launches = {k: fn.launches for k, fn in counters.items()}
     dev_tree, _, dev_s = rec["phases"][1]
     out = dict(rec, launches=launches,
@@ -488,26 +640,68 @@ def phase_search(name: str, argv: list[str], counters: dict,
     return dict(out, phase=name)
 
 
+def phase_profile(name: str, argv: list[str], golden: dict,
+                  **library_kwargs) -> dict:
+    """One search again under ``torch.profiler``: the device time of every
+    kernel and copy in the run, summed by name (the top five are printed),
+    against the wall time of the device phase (phase 2). Their ratio is the
+    device's busy share of that phase; the profiler's host overhead stretches
+    the wall time, so the share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rec = phase_search(f"{name}_profiled", argv, {}, golden, **library_kwargs)
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy_ms = sum(by_name.values())
+    phase2_ms = rec["phases"][1][2] * 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    out = dict(search=name, device_busy_ms=busy_ms, phase2_ms=phase2_ms,
+               busy_share=busy_ms / phase2_ms, top_device_ms=top)
+    emit("profile", **out)
+    return out
+
+
 def main() -> int:
     dev_info = phase_device()
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
-    from tpu_tree_search_torch.ops import lb1_d_kernel, lb1_kernel, nqueens_kernel
+    from tpu_tree_search_torch.ops import (
+        lb1_d_kernel,
+        lb1_kernel,
+        lb2_kernel,
+        lb2_self_kernel,
+        nqueens_kernel,
+    )
     from tpu_tree_search_torch.problems import PFSPProblem
 
     phase_build()
     dev = torch.device("cuda", 0)
     tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
+    lb2_tables = {f"ta{i:03d}": PFSPProblem(inst=i, lb="lb2", ub=1).device_tables(dev)
+                  for i in (14, 21, 51, 81)}
     k1 = phase_kernel1(dev, tables)
-    k2 = phase_kernel2(dev, tables)
+    k2 = phase_pfsp_cycle("kernel2", dev, tables, "lb1", 1)
     k3 = phase_kernel3(dev)
     k4 = phase_kernel4(dev)
     k5 = phase_kernel5(dev, tables)
+    k6 = phase_kernel6(dev, lb2_tables)
+    k7 = phase_kernel7(dev, lb2_tables["ta014"])
+    k8 = phase_pfsp_cycle("kernel8", dev, lb2_tables["ta014"], "lb2", 8)
     counters = {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
                 "cycle_lb1": C.cycle_lb1_cuda,
                 "nqueens_labels": nqueens_kernel.nqueens_labels_cuda,
                 "cycle_nqueens": CN.cycle_nqueens_cuda,
-                "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda}
+                "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda,
+                "lb2_bounds": lb2_kernel.lb2_bounds_cuda,
+                "lb2_self_bounds": lb2_self_kernel.lb2_self_bounds_cuda,
+                "cycle_lb2": C.cycle_lb2_cuda}
     fused = phase_search("search_fused_M49152", PFSP_LB1, counters)
     check(fused["launches"]["cycle_lb1"] > 0, "kernel 2 not launched on the main path")
     fused1k = phase_search("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], counters)
@@ -531,6 +725,29 @@ def main() -> int:
                          "--tier", "device"], counters)
     check(not lb1d["fused"] and lb1d["launches"]["lb1_d_bounds"] > 0,
           "kernel 5 not launched on the lb1_d path")
+    lb2f = phase_search("search_lb2_fused_M49152", PFSP_LB2, counters, GOLDEN_LB2)
+    check(lb2f["fused"] and lb2f["launches"]["cycle_lb2"] > 0,
+          "kernel 8 not launched on the fused lb2 path")
+    lb2f1k = phase_search("search_lb2_fused_M1024", PFSP_LB2 + ["--M", "1024"],
+                          counters, GOLDEN_LB2)
+    check(lb2f1k["launches"]["cycle_lb2"] > 0, "kernel 8 not launched at M=1024")
+    lb2s = phase_search("search_lb2_unfused_staged", PFSP_LB2 + ["--unfused"],
+                        counters, GOLDEN_LB2)
+    check(not lb2s["fused"] and lb2s["staged"]
+          and lb2s["launches"]["lb1_bounds"] > 0
+          and lb2s["launches"]["lb2_self_bounds"] > 0,
+          "kernels 1 and 7 not launched on the staged lb2 path")
+    lb2u = phase_search("search_lb2_unfused_unstaged", PFSP_LB2, counters,
+                        GOLDEN_LB2, fused=False, staged=False)
+    check(not lb2u["fused"] and not lb2u["staged"]
+          and lb2u["launches"]["lb2_bounds"] > 0,
+          "kernel 6 not launched on the unstaged lb2 path")
+    for name, extra, kwargs in [
+            ("search_lb2_fused_M49152", [], {}),
+            ("search_lb2_fused_M1024", ["--M", "1024"], {}),
+            ("search_lb2_unfused_staged", ["--unfused"], {}),
+            ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False))]:
+        phase_profile(name, PFSP_LB2 + extra, GOLDEN_LB2, **kwargs)
 
     k1_main = k1[(1024, "torch.int8")]
     k2_main = k2[(49152, "full", "finite")]
@@ -568,6 +785,14 @@ def main() -> int:
          nq15, "M=50000 N=15 full chunk", k4, k4_main),
         ("lb1_d_bounds", "lb1_d_bounds.cu", "pallas_kernels.py:611",
          lb1d, "B=49152 int8", k5, k5_main),
+        ("lb2_bounds", "lb2_bounds.cu", "pallas_kernels.py:746",
+         lb2u, "ta014 B=49152 int8", k6, k6[("ta014", 49152, "torch.int8")]),
+        ("lb2_self_bounds", "lb2_self_bounds.cu", "pallas_kernels.py:909",
+         lb2s, "ta014 R=49152*20 int8, n_active=R/4", k7,
+         k7[(49152 * 20, 49152 * 20 // 4)]),
+        ("cycle_lb2", "cycle_lb2.cu", "megakernel.py:588",
+         lb2f, "ta014 M=49152 full chunk, finite incumbent", k8,
+         k8[(49152, "full", "finite")]),
     ]:
         kernels.append({
             "name": name, "route": "cuda",

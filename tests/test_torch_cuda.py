@@ -8,8 +8,8 @@ with the card and no JAX:
 (``--noconftest``: the suite's conftest pins JAX to the CPU.) Each kernel is
 held to its plain PyTorch version on the same inputs with tolerance 0, and
 the searches on the card to the counts of the JAX package's sequential tier
-on a reduced PFSP instance (lb1 and lb1_d) and to the N-Queens N=10
-goldens.
+on a reduced PFSP instance (lb1, lb1_d and lb2 in its three forms) and to
+the N-Queens N=10 goldens.
 """
 
 from __future__ import annotations
@@ -21,7 +21,13 @@ import torch
 from tpu_tree_search_torch.engine.resident import resident_search
 from tpu_tree_search_torch.ops import cycle as C
 from tpu_tree_search_torch.ops import cycle_nqueens as CN
-from tpu_tree_search_torch.ops import lb1_d_kernel, lb1_kernel, nqueens_kernel
+from tpu_tree_search_torch.ops import (
+    lb1_d_kernel,
+    lb1_kernel,
+    lb2_kernel,
+    lb2_self_kernel,
+    nqueens_kernel,
+)
 from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 from tpu_tree_search_torch.problems.pfsp import taillard
 
@@ -30,6 +36,8 @@ INF = 2**31 - 1
 # 2074, sol 90 (the JAX package's sequential_search under lb1 and under
 # lb1_d, as pinned on the CPU by tests/test_torch_resident.py).
 REDUCED = dict(tree=2074, sol=90, best=609)
+# The same corner under lb2 (tests/test_torch_resident.py).
+REDUCED_LB2 = dict(tree=326, sol=0, best=609)
 # N-Queens N=10: the reference's counts (tests/test_torch_resident.py).
 NQ10 = dict(tree=35538, sol=724)
 
@@ -189,3 +197,97 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(TypeError):  # an int16 depth is no pool type
         nqueens_kernel.nqueens_labels_cuda(
             board[:, :8].contiguous(), torch.zeros(4, dtype=torch.int16, device=cuda), 8)
+
+
+# -- lb2: kernels 6, 7 and 8 ---------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("inst,B", [(14, 1), (14, 1000), (21, 1000), (51, 64),
+                                    (81, 16)])
+def test_lb2_kernel_matches_plain(cuda, dtype, inst, B):
+    # ta021 has P = 190 pairs of 20 machines; ta051's 50 jobs take the
+    # tables past 48 KB of shared memory a block (the opt-in launch), and
+    # ta081's 100 jobs are the most the lb2 kernels take.
+    t = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(cuda)
+    n = t.jobs
+    prmu, limit1 = _nodes(np.random.default_rng(inst + B), n, B)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = lb2_kernel.lb2_bounds_cuda(p, lim, t)
+    want = lb2_kernel.plain(p, lim, t)
+    torch.cuda.synchronize()
+    op = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(cuda)
+    assert torch.equal(got[op], want[op])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("n_active", [0, 333, 1000])
+def test_lb2_self_kernel_matches_plain(cuda, dtype, n_active):
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(n_active), 20, 1000)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    want = lb2_self_kernel.plain(p, lim, 1000, t)
+    for na in (n_active, torch.tensor(n_active, dtype=torch.int32, device=cuda)):
+        got = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, t)
+        torch.cuda.synchronize()
+        assert got.shape == (1000,) and got.dtype == torch.int32
+        assert torch.equal(got[:n_active], want[:n_active])
+
+
+@pytest.mark.parametrize("size,finite", [(40, False), (700, True), (700, False)])
+def test_lb2_cycle_kernel_matches_plain(cuda, size, finite):
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    n, M, m, K = 20, 256, 25, 4
+    prmu, limit1 = _nodes(np.random.default_rng(size + 1), n, size)
+    best = 1500 if finite else INF
+    cap = size + M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    pv2, pa2 = pv.clone(), pa.clone()
+    st, st2 = C.new_state(size, best, cuda), C.new_state(size, best, cuda)
+    scratch = C.cycle_scratch(M, n, torch.int8, cuda)
+    for _ in range(3):
+        C.cycle_lb2_cuda(pv, pa, st, scratch, t, M, m, K)
+        C.cycle_lb2_plain(pv2, pa2, st2, t, M, m, K)
+        torch.cuda.synchronize()
+        assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+        live = int(st[C.ST_SIZE])
+        assert torch.equal(pv[:live], pv2[:live])
+        assert torch.equal(pa[:live], pa2[:live])
+
+
+@pytest.mark.parametrize("fused,staged", [(True, True), (False, True),
+                                          (False, False)])
+def test_lb2_search_on_card_matches_sequential_counts(cuda, fused, staged):
+    ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+    counters = (C.cycle_lb2_cuda, lb2_self_kernel.lb2_self_bounds_cuda,
+                lb2_kernel.lb2_bounds_cuda)
+    for fn in counters:
+        fn.launches = 0
+    res = resident_search(PFSPProblem(lb="lb2", ub=0, p_times=ptm), m=8,
+                          M=256, K=64, initial_best=REDUCED_LB2["best"],
+                          device=cuda, fused=fused, staged=staged)
+    assert (res.explored_tree, res.explored_sol, res.best) == (
+        REDUCED_LB2["tree"], REDUCED_LB2["sol"], REDUCED_LB2["best"])
+    path = 0 if fused else (1 if staged else 2)
+    assert [fn.launches > 0 for fn in counters] == [i == path for i in range(3)]
+
+
+def test_lb2_kernels_raise_on_what_they_do_not_take(cuda):
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    with pytest.raises(TypeError):
+        lb2_kernel.lb2_bounds_cuda(torch.zeros((4, 20), dtype=torch.int16, device=cuda),
+                                   torch.zeros(4, dtype=torch.int16, device=cuda), t)
+    with pytest.raises(ValueError):
+        lb2_self_kernel.lb2_self_bounds_cuda(
+            torch.zeros((4, 19), dtype=torch.int8, device=cuda),
+            torch.zeros(4, dtype=torch.int8, device=cuda), 4, t)
+    ptm = np.random.default_rng(0).integers(1, 100, (3, lb2_kernel.MAX_JOBS + 1))
+    big = PFSPProblem(lb="lb2", ub=0, p_times=ptm).device_tables(cuda)
+    rows = torch.zeros((4, ptm.shape[1]), dtype=torch.int8, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lb2_kernel.lb2_bounds_cuda(rows, torch.zeros(4, dtype=torch.int8, device=cuda), big)

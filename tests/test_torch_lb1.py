@@ -185,14 +185,13 @@ def test_lb1_d_bounds_routes_cpu_to_plain_in_pool_dtype(dtype):
     assert lb1_d_kernel.plain is tdev.lb1_d_chunk
 
 
-@pytest.mark.parametrize("lb", ["lb1", "lb1_d"])
+@pytest.mark.parametrize("lb", ["lb1", "lb1_d", "lb2"])
 def test_problem_device_bounds_follow_the_bound(lb):
     tprob = TorchPFSP(inst=14, lb=lb, ub=1)
     prmu, limit1 = _nodes(np.random.default_rng(24), 20, 32)
     p, l1 = torch.from_numpy(prmu), torch.from_numpy(limit1)
-    plain = {"lb1": tdev.lb1_chunk, "lb1_d": tdev.lb1_d_chunk}[lb]
+    plain = {"lb1": tdev.lb1_chunk, "lb1_d": tdev.lb1_d_chunk,
+             "lb2": tdev.lb2_chunk}[lb]
     want = plain(p, l1, tprob.device_tables(torch.device("cpu")))
     assert torch.equal(tprob.device_bounds(p, l1), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchPFSP(inst=14, lb="lb2", ub=1).device_bounds(p, l1)
 

@@ -5,7 +5,7 @@
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
   * The CLI refuses what is not ported with the ROADMAP item, runs
-    N-Queens and PFSP lb1/lb1_d on the device tier, and ``chip_smoke.py``
+    N-Queens and PFSP lb1/lb1_d/lb2 on the device tier, and ``chip_smoke.py``
     fails (prints no result) without a card.
 """
 
@@ -82,7 +82,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("argv", [
-    ["pfsp", "--lb", "lb2"],
+    ["pfsp", "--tier", "multi"],
     ["nqueens", "--tier", "seq"],
     ["pfsp", "--tier", "seq"],
     ["nqueens", "--tier", "mesh"],
@@ -110,7 +110,8 @@ def test_cli_report_and_record_on_cpu(capsys):
 def test_kernel_sources_export_the_bound_entries():
     names = {p.stem for p in _build.sources()}
     assert names == {"lb1_bounds", "cycle_lb1", "nqueens_labels",
-                     "cycle_nqueens", "lb1_d_bounds"}
+                     "cycle_nqueens", "lb1_d_bounds", "lb2_bounds",
+                     "lb2_self_bounds", "cycle_lb2"}
     text = {p.stem: p.read_text() for p in _build.sources()}
     for src, entries in [("lb1_bounds", ("lb1_bounds_i8", "lb1_bounds_i32")),
                          ("lb1_d_bounds", ("lb1_d_bounds_i8", "lb1_d_bounds_i32")),
@@ -119,14 +120,61 @@ def test_kernel_sources_export_the_bound_entries():
                          ("cycle_nqueens", ("cycle_nqueens",))]:
         for entry in entries:
             assert f'extern "C" int {entry}(' in text[src]
-    for entry in ("cycle_lb1_i8", "cycle_lb1_i32"):
-        assert f"TTS_CYCLE_ENTRY({entry}," in text["cycle_lb1"]
+    for src, macro, entries in [
+            ("cycle_lb1", "TTS_CYCLE_ENTRY", ("cycle_lb1_i8", "cycle_lb1_i32")),
+            ("lb2_bounds", "TTS_LB2_ENTRY", ("lb2_bounds_i8", "lb2_bounds_i32")),
+            ("lb2_self_bounds", "TTS_LB2_SELF_ENTRY",
+             ("lb2_self_bounds_i8", "lb2_self_bounds_i32")),
+            ("cycle_lb2", "TTS_CYCLE_LB2_ENTRY", ("cycle_lb2_i8", "cycle_lb2_i32"))]:
+        for entry in entries:
+            assert f"{macro}({entry}," in text[src]
+    # The lb2 kernels report their shared memory a block for the wrappers'
+    # shape check.
+    for src in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2"):
+        assert f'extern "C" long long {src}_smem(' in text[src]
     # Each source names the TPU kernel it replaces.
     for src, tpu in [("lb1_bounds", "_lb1_kernel"), ("cycle_lb1", "_mega_lb1_kernel"),
                      ("nqueens_labels", "_nqueens_kernel"),
                      ("cycle_nqueens", "_mega_nqueens_kernel"),
-                     ("lb1_d_bounds", "_lb1_d_kernel")]:
+                     ("lb1_d_bounds", "_lb1_d_kernel"),
+                     ("lb2_bounds", "_lb2_kernel"),
+                     ("lb2_self_bounds", "_lb2_self_kernel"),
+                     ("cycle_lb2", "_mega_lb2_kernel")]:
         assert f"Replaces the TPU kernel `{tpu}`" in text[src]
+
+
+# ta014's 10-job, 5-machine corner under the nabeshima pairs and its optimal
+# incumbent: the JAX sequential tier's counts (pinned against it by
+# tests/test_torch_resident.py).
+NABESHIMA_10x5 = (1294, 0, 609)
+
+
+def test_cli_runs_lb2_on_cpu_and_records_it(monkeypatch, capsys):
+    make = cli.make_problem
+
+    def reduced(args):  # the CLI's problem, cut to the 10-job corner
+        prob = PFSPProblem(lb=args.lb, ub=0, lb2_variant=args.lb2_variant,
+                           p_times=taillard.reduced_instance(14, jobs=10, machines=5))
+        prob.initial_ub = NABESHIMA_10x5[2]
+        return prob
+
+    monkeypatch.setattr(cli, "make_problem", reduced)
+    base = ["pfsp", "--lb", "lb2", "--lb2-variant", "nabeshima", "--M", "64",
+            "--device", "cpu", "--json"]
+    for extra in ([], ["--unfused"]):
+        assert cli.main(base + extra) == 0
+        out = capsys.readouterr().out
+        assert "Lower bound function: lb2" in out
+        assert "lb2 machine-pair subset: nabeshima" in out
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert (rec["explored_tree"], rec["explored_sol"], rec["optimum"]) == NABESHIMA_10x5
+        assert (rec["lb"], rec["lb2_variant"]) == ("lb2", "nabeshima")
+        assert (rec["fused"], rec["staged"]) == (not extra, bool(extra))
+        assert ("staged lb2" in out) == bool(extra)
+    monkeypatch.setattr(cli, "make_problem", make)
+    args = cli.build_parser().parse_args(["pfsp", "--lb", "lb2"])
+    assert args.lb2_variant == "full"
+    assert cli.make_problem(args).lb2_variant == "full"
 
 
 def test_cli_nqueens_report_and_record_on_cpu(capsys):

@@ -15,7 +15,9 @@ through the plain versions of the kernels:
     and still matches.
 
 The same holds for PFSP lb1_d (against the JAX sequential tier under lb1_d;
-it always runs the unfused cycle) and for N-Queens (the goldens for N=8 and
+it always runs the unfused cycle), for PFSP lb2 in its three forms (fused,
+staged unfused, single-pass unfused; the sequential tier under each pair
+variant, the JAX resident engine and its one-dispatch step) and for N-Queens (the goldens for N=8 and
 10, the JAX resident engine at the same m, M and K, one dispatch against the
 JAX N-Queens program's step, and the stall fallback).
 """
@@ -41,6 +43,7 @@ from tpu_tree_search_torch.engine.resident import (
     pool_from_numpy,
     resident_search,
 )
+from tpu_tree_search_torch.ops import lb2_kernel
 from tpu_tree_search_torch.pool import SoAPool
 from tpu_tree_search_torch.problems import INF_BOUND, NQueensProblem
 from tpu_tree_search_torch.problems import PFSPProblem as TorchPFSP
@@ -156,8 +159,130 @@ def test_unfused_overflow_branch_matches_jax_resident(monkeypatch, mode):
 
 
 def test_unported_bounds_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=PTM), 8, 64, 4, 4096, "cpu")
+    # Every bound runs on the device tier now; what the lb2 kernels do not
+    # take (more than 100 jobs) is refused, naming ROADMAP.md, never handed
+    # to the plain version.
+    ptm = np.random.default_rng(0).integers(1, 100, (3, lb2_kernel.MAX_JOBS + 1))
+    prog = PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=ptm), 8, 64, 4,
+                        1 << 16, "cpu")
+    for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lb2_kernel.johnson_operands(source, prog.tables)
+
+
+# -- PFSP lb2 ------------------------------------------------------------------
+
+# The three lb2 forms of the resident engine: the fused cycle, the staged
+# unfused evaluator (the default unfused one) and the single-pass one.
+LB2_FORMS = {"fused": dict(fused=True), "staged": dict(fused=False),
+             "unstaged": dict(fused=False, staged=False)}
+
+
+def test_lb2_runs_fused_by_default_and_staged_unfused():
+    prob = TorchPFSP(lb="lb2", ub=0, p_times=PTM)
+    fused = PFSPResident(prob, 8, 64, 4, 4096, "cpu")
+    assert fused.fused and not fused.staged
+    assert fused.tables.johnson is not None
+    unfused = PFSPResident(prob, 8, 64, 4, 4096, "cpu", fused=False)
+    assert not unfused.fused and unfused.staged
+    single = make_program(prob, 8, 64, 4, 4096, "cpu", fused=False, staged=False)
+    assert not single.fused and not single.staged
+    # staged only concerns the unfused lb2 cycle.
+    lb1 = PFSPResident(TorchPFSP(lb="lb1", ub=0, p_times=PTM), 8, 64, 4, 4096,
+                       "cpu", fused=False)
+    assert not lb1.staged
+
+
+@pytest.fixture(scope="module")
+def seq_lb2(seq_fixed):
+    """The JAX sequential tier under lb2 and the fixed optimal incumbent."""
+    return sequential_search(PFSPProblem(lb="lb2", ub=0, p_times=PTM),
+                             initial_best=seq_fixed[0])
+
+
+@pytest.mark.parametrize("form", LB2_FORMS)
+def test_lb2_fixed_incumbent_matches_sequential(seq_fixed, seq_lb2, form):
+    res = resident_search(TorchPFSP(lb="lb2", ub=0, p_times=PTM), m=8, M=256,
+                          K=64, initial_best=seq_fixed[0], device="cpu",
+                          **LB2_FORMS[form])
+    assert _counts(res) == _counts(seq_lb2)
+    assert (res.fused, res.staged) == (form == "fused", form == "staged")
+    # lb2 prunes more than lb1; tests/test_torch_cuda.py pins these counts
+    # for the same search on a card.
+    assert _counts(seq_lb2) == (326, 0, 609)
+
+
+@pytest.fixture(scope="module")
+def jax_lb2_resident():
+    return jax_resident_search(PFSPProblem(lb="lb2", ub=0, p_times=PTM),
+                               m=8, M=64, K=16)
+
+
+@pytest.mark.parametrize("form", LB2_FORMS)
+def test_lb2_improving_incumbent_matches_jax_resident(seq_fixed, jax_lb2_resident,
+                                                      form):
+    res = resident_search(TorchPFSP(lb="lb2", ub=0, p_times=PTM), m=8, M=64,
+                          K=16, device="cpu", **LB2_FORMS[form])
+    assert _counts(res) == _counts(jax_lb2_resident)
+    assert res.best == seq_fixed[0]
+
+
+@pytest.mark.parametrize("variant", ["nabeshima", "lageweg"])
+def test_lb2_variants_match_sequential(seq_fixed, variant):
+    opt = seq_fixed[0]
+    seq = sequential_search(PFSPProblem(lb="lb2", ub=0, p_times=PTM,
+                                        lb2_variant=variant), initial_best=opt)
+    for form in ("fused", "staged"):
+        res = resident_search(TorchPFSP(lb="lb2", ub=0, p_times=PTM,
+                                        lb2_variant=variant),
+                              m=8, M=256, K=64, initial_best=opt, device="cpu",
+                              **LB2_FORMS[form])
+        assert _counts(res) == _counts(seq)
+    if variant == "nabeshima":  # pinned by tests/test_torch_package.py's CLI run
+        assert _counts(seq) == (1294, 0, 609)
+
+
+@pytest.mark.parametrize("form", ["fused", "staged"])
+def test_lb2_one_dispatch_matches_jax_step(seq_fixed, form):
+    m, M, K, capacity = 8, 64, 6, 4096
+    fr = _frontier(200)
+    k = fr["prmu"].shape[0]
+    jprog = _make_program(PFSPProblem(lb="lb2", ub=0, p_times=PTM), m, M, K,
+                          capacity, None)
+    out = jprog.step(jprog.init_state(fr, seq_fixed[0]))
+    j_vals, j_aux, j_size, j_best = (np.asarray(x) for x in out[:4])
+    j_tree, j_sol, j_cycles = (int(x) for x in out[4:7])
+    prog = PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=PTM), m, M, K,
+                        capacity, "cpu", **LB2_FORMS[form])
+    state = pool_from_numpy(fr["prmu"], fr["limit1"], k, seq_fixed[0], capacity,
+                            "cpu")
+    prog.step(state)
+    assert prog.read_scalars(state) == (j_tree, j_sol, j_cycles, int(j_size),
+                                        int(j_best))
+    live = int(j_size)
+    assert live > 0
+    assert np.array_equal(state.pool_vals[:live].numpy().astype(np.int32),
+                          j_vals[:live].astype(np.int32))
+    assert np.array_equal(state.pool_aux[:live].numpy().astype(np.int32),
+                          j_aux[:live].astype(np.int32))
+
+
+@pytest.mark.parametrize("form", LB2_FORMS)
+def test_lb2_capacity_stall_fallback_keeps_counts(form):
+    # lb2 prunes the 10-job corner to 326 nodes, too few to fill a pool, so
+    # this runs the 12-job corner: a 400-node warm frontier plus one
+    # M*n = 384 fan-out exceeds the 828-row pool.
+    ptm = taillard.reduced_instance(14, jobs=12, machines=5)
+    opt = sequential_search(PFSPProblem(lb="lb2", ub=0, p_times=ptm)).best
+    seq = sequential_search(PFSPProblem(lb="lb2", ub=0, p_times=ptm),
+                            initial_best=opt)
+    res = resident_search(TorchPFSP(lb="lb2", ub=0, p_times=ptm), m=8, M=32,
+                          K=16, capacity=828, warmup_target=400,
+                          initial_best=opt, device="cpu", **LB2_FORMS[form])
+    assert res.stall_fallbacks >= 1
+    assert res.diagnostics.host_to_device > 1
+    assert _counts(res) == _counts(seq)
+    assert _counts(seq) == (12838, 0, 699)
 
 
 # -- PFSP lb1_d ----------------------------------------------------------------

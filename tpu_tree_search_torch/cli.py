@@ -1,13 +1,14 @@
 """Command line of the port: the device-tier subset of `tpu_tree_search/cli.py`.
 
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --ub 1 --tier device [--json]
+    python -m tpu_tree_search_torch pfsp --inst 14 --lb lb2 [--lb2-variant nabeshima] [--unfused]
     python -m tpu_tree_search_torch nqueens --N 15 --tier device [--json]
 
 The banner and the report follow the reference's format (`print_settings` /
 `print_results`). Supported: ``--tier device`` (the device-resident engine)
-for N-Queens and for PFSP with ``--lb lb1`` or ``--lb lb1_d``. The other
-bounds and tiers raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+for N-Queens and for PFSP with ``--lb lb1``, ``lb1_d`` or ``lb2``; under
+lb2, ``--unfused`` runs the staged evaluator. The other tiers exit 2 naming
+the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -17,9 +18,6 @@ import json
 import sys
 
 TIERS = ("seq", "device", "mesh", "multi", "dist", "dist_mesh")
-
-#: Bounds the port's device tier runs.
-DEVICE_BOUNDS = ("lb1", "lb1_d")
 
 
 def default_M(problem: str, device_type: str) -> int:
@@ -47,6 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PFSP: lower bound")
     p.add_argument("--ub", type=int, default=1, choices=(0, 1),
                    help="PFSP: initial upper bound: 1 = known optimum, 0 = inf")
+    p.add_argument("--lb2-variant", default="full",
+                   choices=("full", "nabeshima", "lageweg"),
+                   help="PFSP lb2: Johnson machine-pair subset (the "
+                        "reference's enum lb2_variant): full = all "
+                        "m(m-1)/2 pairs; nabeshima = (i, i+1); lageweg = "
+                        "(i, m-1)")
     p.add_argument("--tier", default="device", choices=TIERS)
     p.add_argument("--m", type=int, default=25,
                    help="minimum pool size for a device cycle (warm-up target)")
@@ -59,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises when absent) or cpu")
     p.add_argument("--unfused", action="store_true",
                    help="run the unfused cycle (evaluator kernel + torch "
-                        "compaction) instead of the fused CUDA cycle")
+                        "compaction; staged under lb2) instead of the fused "
+                        "CUDA cycle")
     p.add_argument("--json", action="store_true",
                    help="print one JSON result line after the report")
     return p
@@ -70,10 +75,6 @@ def check_supported(args) -> None:
         raise NotImplementedError(
             f"tier {args.tier!r} is not ported yet (ROADMAP.md queue A, "
             "item 4); the port runs --tier device")
-    if args.problem == "pfsp" and args.lb not in DEVICE_BOUNDS:
-        raise NotImplementedError(
-            f"bound {args.lb!r} is not ported yet (ROADMAP.md queue A, "
-            "item 4: lb2); the port runs --lb lb1 and --lb lb1_d")
 
 
 def make_problem(args):
@@ -81,7 +82,8 @@ def make_problem(args):
 
     if args.problem == "nqueens":
         return NQueensProblem(N=args.N, g=args.g)
-    return PFSPProblem(inst=args.inst, lb=args.lb, ub=args.ub)
+    return PFSPProblem(inst=args.inst, lb=args.lb, ub=args.ub,
+                       lb2_variant=args.lb2_variant)
 
 
 def print_settings(args, device) -> None:
@@ -99,6 +101,8 @@ def print_settings(args, device) -> None:
         )
         print("Initial upper bound: " + ("opt" if args.ub == 1 else "inf"))
         print(f"Lower bound function: {args.lb}")
+        if args.lb == "lb2" and args.lb2_variant != "full":
+            print(f"lb2 machine-pair subset: {args.lb2_variant}")
         print("Branching rule: fwd")
     print(f"Device: {device}")
     print("=================================================")
@@ -120,6 +124,8 @@ def print_results(problem, res) -> None:
         print(f"Optimal makespan: {res.best}{tag}")
     print(f"Elapsed time: {res.elapsed:.6f} [s]")
     cycle = "fused CUDA cycle" if res.fused else f"unfused ({res.compact})"
+    if res.staged:
+        cycle += ", staged lb2"
     print(f"Device cycle: {cycle}, M={res.M}, K={res.k_resolved}, "
           f"dispatches={res.dispatches}, stall fallbacks={res.stall_fallbacks}")
     d = res.diagnostics
@@ -148,6 +154,8 @@ def result_record(args, res, device) -> dict:
     }
     if args.problem == "pfsp":
         rec.update(inst=args.inst, lb=args.lb, ub=args.ub, optimum=res.best)
+        if args.lb == "lb2":
+            rec.update(lb2_variant=args.lb2_variant, staged=res.staged)
     else:
         rec.update(N=args.N, g=args.g)
     return rec

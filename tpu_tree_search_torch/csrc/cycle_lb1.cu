@@ -40,8 +40,7 @@
 // few microseconds each); at M = 49152 the bytes of the pool rows read and
 // survivor rows written (20 B a row at ta014) and the lb plane (4 B a slot,
 // written once and read twice).
-#include "cycle_common.cuh"
-#include "lb1_common.cuh"
+#include "cycle_pfsp.cuh"
 
 // Launch 1: loop condition, pop, bounds, leaf fold.
 template <typename T>
@@ -53,44 +52,21 @@ __global__ void cycle_bounds(const T* __restrict__ pool_vals,
                              const int* __restrict__ heads,
                              const int* __restrict__ tails, int n, int m,
                              int M, int C, int mterm, int K) {
-  const int size = st[ST_SIZE];
-  const int cycles = st[ST_CYCLES];
-  const bool active = size >= mterm &&
-                      static_cast<long long>(size) +
-                              static_cast<long long>(M) * n <=
-                          C &&
-                      cycles < K;
-  if (!active) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) st[ST_ACTIVE] = 0;
+  int start, size, start2;
+  if (!pfsp_cycle_pop(pool_vals, pool_aux, st, chunk_vals, chunk_aux, n, M,
+                      C, mterm, K, &start, &size, &start2))
     return;
-  }
-  const int cnt = min(size, M);
-  const int start = size - cnt;
-  const int start2 = min(max(start, 0), C - M);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    st[ST_ACTIVE] = 1;
-    st[ST_CNT] = cnt;
-    st[ST_START2] = start2;
-  }
 
   extern __shared__ int smem[];
   __shared__ int s_leafmin;
   const Lb1Smem s = lb1_smem_layout(smem, n, m);
   lb1_load_tables(s, ptm_t, heads, tails, n, m);
   if (threadIdx.x == 0) s_leafmin = TTS_INF_BOUND;
+  __syncthreads();  // the tables are in shared memory
 
   const int PB = TTS_PARENTS_PER_BLOCK;
   const int i0 = blockIdx.x * PB;
   const int rows = min(PB, M - i0);
-  // The pop: stash this block's M-window rows (the emit of launch 4 writes
-  // survivors over the popped region, so it reads parents from the stash).
-  const T* src = pool_vals + static_cast<size_t>(start2 + i0) * n;
-  T* dst = chunk_vals + static_cast<size_t>(i0) * n;
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) dst[e] = src[e];
-  for (int e = threadIdx.x; e < rows; e += blockDim.x)
-    chunk_aux[i0 + e] = pool_aux[start2 + i0 + e];
-  __syncthreads();  // the tables are in shared memory
-
   const int t = threadIdx.x;
   if (t < rows) {
     const int row = start2 + i0 + t;
@@ -116,120 +92,11 @@ __global__ void cycle_bounds(const T* __restrict__ pool_vals,
     }
     lb[static_cast<size_t>(i0) * n + slot] = v;
   }
-  if (leafmin < TTS_INF_BOUND) atomicMin(&s_leafmin, leafmin);
-  __syncthreads();
-  if (threadIdx.x == 0 && s_leafmin < TTS_INF_BOUND)
-    atomicMin(&st[ST_BEST], s_leafmin);
+  pfsp_fold_leaves(leafmin, &s_leafmin, st);
 }
 
-// keep / leaf flags of slot (p, k) of the popped chunk.
-template <typename T>
-__device__ __forceinline__ void slot_flags(const T* chunk_aux, const int* lb,
-                                           int i, int k, int n, int best,
-                                           bool* keep, bool* leaf) {
-  const int l1 = static_cast<int>(chunk_aux[i]);
-  const bool open = k >= l1 + 1;
-  *leaf = open && (l1 + 2 == n);
-  *keep = open && !*leaf && lb[static_cast<size_t>(i) * n + k] < best;
-}
-
-// Launch 2: per-block survivor and leaf counts.
-template <typename T>
-__global__ void cycle_count(const int* st, const T* __restrict__ chunk_aux,
-                            const int* __restrict__ lb,
-                            int* __restrict__ blkcnt, int n, int M) {
-  if (!st[ST_ACTIVE]) return;
-  const int best = st[ST_BEST];
-  const int size = st[ST_SIZE];
-  const int cnt = st[ST_CNT];
-  const int start2 = st[ST_START2];
-  const int start = size - cnt;
-  __shared__ int s_keep, s_leaf;
-  if (threadIdx.x == 0) {
-    s_keep = 0;
-    s_leaf = 0;
-  }
-  __syncthreads();
-  const int PB = TTS_PARENTS_PER_BLOCK;
-  const int i0 = blockIdx.x * PB;
-  const int rows = min(PB, M - i0);
-  int keeps = 0, leaves = 0;
-  for (int slot = threadIdx.x; slot < rows * n; slot += blockDim.x) {
-    const int p = slot / n;
-    const int i = i0 + p;
-    const int row = start2 + i;
-    if (row < start || row >= size) continue;
-    bool keep, leaf;
-    slot_flags(chunk_aux, lb, i, slot - p * n, n, best, &keep, &leaf);
-    keeps += keep;
-    leaves += leaf;
-  }
-  if (keeps) atomicAdd(&s_keep, keeps);
-  if (leaves) atomicAdd(&s_leaf, leaves);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    blkcnt[2 * blockIdx.x] = s_keep;
-    blkcnt[2 * blockIdx.x + 1] = s_leaf;
-  }
-}
-
-// Launch 3 (one block) is `cycle_scan` of cycle_common.cuh: block offsets
-// and the cycle's scalar update.
-
-// Launch 4: rank the block's survivors and write the child rows.
-template <typename T>
-__global__ void cycle_emit(T* __restrict__ pool_vals,
-                           T* __restrict__ pool_aux, const int* st,
-                           const T* __restrict__ chunk_vals,
-                           const T* __restrict__ chunk_aux,
-                           const int* __restrict__ lb,
-                           const int* __restrict__ blkoff, int n, int M) {
-  if (!st[ST_ACTIVE]) return;
-  __shared__ int s_warp[32];
-  const int best = st[ST_BEST];
-  const int cnt = st[ST_CNT];
-  const int start2 = st[ST_START2];
-  const int base = st[ST_BASE];  // == the pre-pop size minus cnt
-  const int PB = TTS_PARENTS_PER_BLOCK;
-  const int i0 = blockIdx.x * PB;
-  const int slots = min(PB, M - i0) * n;
-  // Each thread owns a contiguous run of slots, so the block scan of the
-  // per-thread counts keeps (parent, slot) order.
-  const int per = (slots + blockDim.x - 1) / blockDim.x;
-  const int lo = min(slots, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(slots, lo + per);
-  int keeps = 0;
-  for (int slot = lo; slot < hi; ++slot) {
-    const int p = slot / n;
-    const int row = start2 + i0 + p;
-    if (row < base || row >= base + cnt) continue;
-    bool keep, leaf;
-    slot_flags(chunk_aux, lb, i0 + p, slot - p * n, n, best, &keep, &leaf);
-    keeps += keep;
-  }
-  int total;
-  int dst = base + blkoff[blockIdx.x] +
-            block_exclusive_scan(keeps, s_warp, &total);
-  for (int slot = lo; slot < hi && keeps > 0; ++slot) {
-    const int p = slot / n;
-    const int k = slot - p * n;
-    const int i = i0 + p;
-    const int row = start2 + i;
-    if (row < base || row >= base + cnt) continue;
-    bool keep, leaf;
-    slot_flags(chunk_aux, lb, i, k, n, best, &keep, &leaf);
-    if (!keep) continue;
-    const int d = static_cast<int>(chunk_aux[i]) + 1;
-    const T* parent = chunk_vals + static_cast<size_t>(i) * n;
-    T* child = pool_vals + static_cast<size_t>(dst) * n;
-    for (int j = 0; j < n; ++j) {
-      child[j] = j == d ? parent[k] : (j == k ? parent[d] : parent[j]);
-    }
-    pool_aux[dst] = static_cast<T>(d);
-    ++dst;
-    --keeps;
-  }
-}
+// Launches 2-4 (count, scan, emit) are `launch_pfsp_cycle_tail` of
+// cycle_pfsp.cuh, shared with the lb2 cycle.
 
 template <typename T>
 static int launch_cycle(void* pool_vals, void* pool_aux, void* st,
@@ -242,11 +109,8 @@ static int launch_cycle(void* pool_vals, void* pool_aux, void* st,
   const int nblk = (M + PB - 1) / PB;
   const int threads = tts_threads_for(PB * n);
   const size_t smem = tts_lb1_smem_bytes(n, m);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(cycle_bounds<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
+  int err = tts_smem_optin(cycle_bounds<T>, smem);
+  if (err) return err;
   int* st_i = static_cast<int*>(st);
   cycle_bounds<T><<<nblk, threads, smem, s>>>(
       static_cast<const T*>(pool_vals), static_cast<const T*>(pool_aux), st_i,
@@ -254,22 +118,11 @@ static int launch_cycle(void* pool_vals, void* pool_aux, void* st,
       static_cast<int*>(lb), static_cast<const int*>(ptm_t),
       static_cast<const int*>(heads), static_cast<const int*>(tails), n, m, M,
       C, mterm, K);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  cycle_count<T><<<nblk, threads, 0, s>>>(
-      st_i, static_cast<const T*>(chunk_aux), static_cast<const int*>(lb),
-      static_cast<int*>(blkcnt), n, M);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  cycle_scan<<<1, 1024, 0, s>>>(st_i, static_cast<const int*>(blkcnt),
-                                static_cast<int*>(blkoff), nblk);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  cycle_emit<T><<<nblk, threads, 0, s>>>(
-      static_cast<T*>(pool_vals), static_cast<T*>(pool_aux), st_i,
-      static_cast<const T*>(chunk_vals), static_cast<const T*>(chunk_aux),
-      static_cast<const int*>(lb), static_cast<const int*>(blkoff), n, M);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pfsp_cycle_tail<T>(pool_vals, pool_aux, st_i, chunk_vals,
+                                   chunk_aux, static_cast<const int*>(lb),
+                                   blkcnt, blkoff, n, M, s);
 }
 
 #define TTS_CYCLE_ENTRY(NAME, T)                                             \

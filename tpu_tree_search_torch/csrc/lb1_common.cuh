@@ -1,5 +1,5 @@
 // Shared device code of the lb1 kernels (lb1_bounds.cu, lb1_d_bounds.cu,
-// cycle_lb1.cu).
+// cycle_lb1.cu); the lb2 kernels share its front scan and block size.
 //
 // The per-parent prologue and the per-child chain of the PFSP one-machine
 // bound lb1 (`c_bound_simple.c:51-158`, forward branching, so the tail
@@ -56,25 +56,33 @@ __device__ __forceinline__ void lb1_load_tables(const Lb1Smem& s,
   }
 }
 
+// schedule_front(row, l1) (min_heads at l1 == -1): the completion time of
+// the prefix 0..l1 on machine j goes to front[j * stride] (the serial
+// add_forward scan, `c_bound_simple.c:51-69`). ptm is the (n, m) table.
+template <typename T>
+__device__ __forceinline__ void pfsp_front(const T* row, int l1, int n, int m,
+                                           const int* ptm, const int* heads,
+                                           int* front, int stride) {
+  for (int j = 0; j < m; ++j) front[j * stride] = (l1 == -1) ? heads[j] : 0;
+  for (int i = 0; i <= l1 && i < n; ++i) {
+    const int* p = ptm + static_cast<int>(row[i]) * m;
+    int f = front[0] + p[0];
+    front[0] = f;
+    for (int j = 1; j < m; ++j) {
+      f = max(f, front[j * stride]) + p[j];
+      front[j * stride] = f;
+    }
+  }
+}
+
 // front = schedule_front(row, l1) (min_heads at l1 == -1), remain =
 // sum_unscheduled(row, l1): the per-machine work of positions l1+1..n-1.
 template <typename T>
 __device__ __forceinline__ void lb1_parent_state(const T* row, int l1, int n,
                                                  int m, const Lb1Smem& s,
                                                  int* front, int* remain) {
-  for (int j = 0; j < m; ++j) {
-    front[j] = (l1 == -1) ? s.heads[j] : 0;
-    remain[j] = 0;
-  }
-  for (int i = 0; i <= l1 && i < n; ++i) {
-    const int* p = s.ptm + static_cast<int>(row[i]) * m;
-    int f = front[0] + p[0];
-    front[0] = f;
-    for (int j = 1; j < m; ++j) {
-      f = max(f, front[j]) + p[j];
-      front[j] = f;
-    }
-  }
+  pfsp_front(row, l1, n, m, s.ptm, s.heads, front, 1);
+  for (int j = 0; j < m; ++j) remain[j] = 0;
   for (int i = l1 + 1; i < n; ++i) {
     const int* p = s.ptm + static_cast<int>(row[i]) * m;
     for (int j = 0; j < m; ++j) remain[j] += p[j];

@@ -87,11 +87,8 @@ static int launch_lb1_d_bounds(const void* prmu, const void* limit1,
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const int PB = TTS_PARENTS_PER_BLOCK;
   const size_t smem = tts_lb1_smem_bytes(n, m);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(lb1_d_bounds_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
+  const int err = tts_smem_optin(lb1_d_bounds_kernel<T>, smem);
+  if (err) return err;
   const int blocks = (B + PB - 1) / PB;
   lb1_d_bounds_kernel<T><<<blocks, tts_threads_for(PB * n), smem,
                            static_cast<cudaStream_t>(stream)>>>(

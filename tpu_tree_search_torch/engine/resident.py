@@ -1,5 +1,5 @@
 """Device-resident search engine — the port of `tpu_tree_search/engine/resident.py`
-for PFSP (lb1, lb1_d) and N-Queens.
+for PFSP (lb1, lb1_d, lb2) and N-Queens.
 
 The pool lives in device memory as fixed-capacity SoA tensors — the rows
 (PFSP ``prmu``, N-Queens ``board``) and one scalar column (PFSP ``limit1``,
@@ -18,17 +18,22 @@ are exactly the reference's chunk cycle:
 
 Two cycles compute this and leave identical live pools:
 
-  * fused (the default): the CUDA cycle of `ops/cycle.py` (PFSP lb1) or
-    `ops/cycle_nqueens.py` — the counterpart of the JAX engine's one-kernel
-    cycle. The loop condition is evaluated on the device, so the host
-    enqueues K cycles per dispatch with no synchronisation and reads the
-    state once (the ``lax.while_loop`` counterpart; a cycle past termination
-    is an exact no-op). PFSP lb1_d has no fused cycle — the JAX megakernel
-    refuses it too — and always runs unfused;
+  * fused (the default): the CUDA cycle of `ops/cycle.py` (PFSP lb1 and
+    lb2) or `ops/cycle_nqueens.py` — the counterpart of the JAX engine's
+    one-kernel cycle. The loop condition is evaluated on the device, so the
+    host enqueues K cycles per dispatch with no synchronisation and reads
+    the state once (the ``lax.while_loop`` counterpart; a cycle past
+    termination is an exact no-op). PFSP lb1_d has no fused cycle — the JAX
+    megakernel refuses it too — and always runs unfused;
   * unfused (``fused=False``): pop, the problem's device evaluator (the
-    lb1, lb1_d or labels kernel), torch `compact_ids` and the one-gather
-    push of `resident.py:311-352`, with the overflow branch. It synchronises
-    once per cycle to read the survivor count.
+    lb1, lb1_d, lb2 or labels kernel), torch `compact_ids` and the
+    one-gather push of `resident.py:311-352`, with the overflow branch. It
+    synchronises once per cycle to read the survivor count. Under lb2 the
+    evaluator is staged by default (``staged=True``, `resident.py:598-614`):
+    the lb1 kernel, the leaf fold, the candidates ``open & ~leaf & lb1 <
+    best``, lb2 of the compacted candidates only (the self kernel), and
+    ``keep = cand & lb2 < best`` — exact, since lb2 >= lb1. With
+    ``staged=False`` it is the single-pass lb2 child kernel.
 
 Capacity safety: a cycle runs only while ``size + M*width <= capacity``. If
 the pool outgrows that headroom the dispatch stalls (zero cycles) and the
@@ -56,10 +61,12 @@ from ..ops.cycle import (
     ST_SIZE,
     ST_TREE,
     cycle_lb1,
+    cycle_lb2,
     cycle_scratch,
     new_state,
 )
 from ..ops.cycle_nqueens import cycle_nqueens, nqueens_scratch
+from ..ops.pfsp_device import lb1_bounds, lb2_bounds_staged
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 from ..problems.nqueens import NQueensProblem
@@ -134,6 +141,8 @@ class _ResidentProgram:
     survivor_budget_div: int
     vals_dtype: torch.dtype
     aux_dtype: torch.dtype
+    # Whether the unfused cycle runs a staged evaluator (PFSP lb2 only).
+    staged = False
 
     def __init__(self, problem: Problem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True):
@@ -294,24 +303,27 @@ class _ResidentProgram:
 
 
 class PFSPResident(_ResidentProgram):
-    """PFSP: rows ``prmu`` and aux ``limit1``, both int8 through 127 jobs."""
+    """PFSP: rows ``prmu`` and aux ``limit1``, both int8 through 127 jobs.
+
+    ``staged`` (lb2, unfused cycle only; the counterpart of the JAX
+    ``allow_staged``) picks the staged evaluator over the single-pass lb2
+    kernel. The fused lb2 cycle always folds the unstaged keep, as the JAX
+    megakernel does (`megakernel.py:1007-1012`)."""
 
     # Deep PFSP chunks prune heavily; the unfused push's gather budget is
     # a quarter of the slot grid (the JAX engine's choice).
     survivor_budget_div = 4
 
     def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
-                 capacity: int, device, fused: bool = True):
-        if problem.lb not in ("lb1", "lb1_d"):
-            raise NotImplementedError(
-                f"device bound {problem.lb!r} is not ported yet (ROADMAP.md "
-                "queue A: lb2) — tpu_tree_search_torch runs lb1 and lb1_d")
+                 capacity: int, device, fused: bool = True,
+                 staged: bool = True):
         self.vals_dtype = self.aux_dtype = pool_dtype(problem.jobs)
         # lb1_d has no fused cycle (the JAX megakernel refuses it,
         # `megakernel.py:351-354`): it runs the unfused cycle with its kernel.
         super().__init__(problem, m, M, K, capacity, device,
-                         fused=fused and problem.lb == "lb1")
+                         fused=fused and problem.lb != "lb1_d")
         self.tables = problem.device_tables(self.device)
+        self.staged = staged and problem.lb == "lb2" and not self.fused
 
     def derive_fields(self, batch: dict) -> dict:
         # depth == limit1 + 1 for every node the engine pushes.
@@ -324,15 +336,19 @@ class PFSPResident(_ResidentProgram):
                              self.device)
 
     def _fused_cycle(self, state: ResidentState) -> None:
-        cycle_lb1(state.pool_vals, state.pool_aux, state.st, self._scratch,
-                  self.tables, self.M, self.m, self.K)
+        cycle = cycle_lb2 if self.problem.lb == "lb2" else cycle_lb1
+        cycle(state.pool_vals, state.pool_aux, state.st, self._scratch,
+              self.tables, self.M, self.m, self.K)
 
     def _swap_pos(self, aux):
         return aux + 1  # parent depth = limit1 + 1
 
     def _evaluate(self, vals_c, aux_c, valid, best):
         n = self.problem.jobs
-        bounds = self.problem.device_bounds(vals_c, aux_c)
+        # Staged lb2: the lb1 kernel decides the leaves (at a leaf lb1 and
+        # lb2 are both the makespan) and the candidates.
+        bounds = (lb1_bounds(vals_c, aux_c, self.tables) if self.staged
+                  else self.problem.device_bounds(vals_c, aux_c))
         pdepth = aux_c + 1
         kk = torch.arange(n, dtype=torch.int32, device=vals_c.device)
         open_ = (kk[None, :] >= pdepth[:, None]) & valid[:, None]
@@ -343,6 +359,8 @@ class PFSPResident(_ResidentProgram):
             torch.where(leaf, bounds, torch.full_like(bounds, INF_BOUND))
             .min(), max=best)
         keep = open_ & ~leaf & (bounds < best_t)
+        if self.staged:
+            keep &= lb2_bounds_staged(vals_c, aux_c, keep, self.tables) < best_t
         return keep, torch.sum(leaf, dtype=torch.int32), best_t
 
 
@@ -381,10 +399,13 @@ class NQueensResident(_ResidentProgram):
 
 
 def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
-                 device, fused: bool = True) -> _ResidentProgram:
-    """The resident program of ``problem`` (`resident.py:674-711`)."""
+                 device, fused: bool = True,
+                 staged: bool = True) -> _ResidentProgram:
+    """The resident program of ``problem`` (`resident.py:674-711`);
+    ``staged`` reaches the PFSP lb2 program only."""
     if isinstance(problem, PFSPProblem):
-        return PFSPResident(problem, m, M, K, capacity, device, fused=fused)
+        return PFSPResident(problem, m, M, K, capacity, device, fused=fused,
+                            staged=staged)
     if isinstance(problem, NQueensProblem):
         return NQueensResident(problem, m, M, K, capacity, device, fused=fused)
     raise TypeError(f"no resident program for {type(problem).__name__}")
@@ -430,14 +451,17 @@ def resident_search(
     initial_best: int | None = None,
     warmup_target: int | None = None,
     fused: bool = True,
+    staged: bool = True,
 ) -> SearchResult:
     """3-phase search with a device-resident hot loop: host warm-up to
     ``warmup_target`` (default m) nodes, then dispatches of up to K device
     cycles of up to M parents until fewer than m nodes remain, then a host
-    drain. ``problem`` is a `PFSPProblem` (lb1 or lb1_d) or an
+    drain. ``problem`` is a `PFSPProblem` (lb1, lb1_d or lb2) or an
     `NQueensProblem`. ``device`` defaults to ``cuda`` (raises when absent);
-    pass ``"cpu"`` for the plain PyTorch path. Dispatch is synchronous: one
-    scalar readback per dispatch."""
+    pass ``"cpu"`` for the plain PyTorch path. ``fused=False`` runs the
+    unfused cycle, and under lb2 ``staged=False`` makes its evaluator the
+    single-pass lb2 kernel. Dispatch is synchronous: one scalar readback per
+    dispatch."""
     dev = resolve_device(device)
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
@@ -456,7 +480,8 @@ def resident_search(
     phases.append(PhaseStats(t1 - t0, tree1, sol1))
 
     # -- phase 2: device-resident loop ----------------------------------------
-    program = make_program(problem, m, M, K, capacity, dev, fused=fused)
+    program = make_program(problem, m, M, K, capacity, dev, fused=fused,
+                           staged=staged)
     state = program.init_state(pool.as_batch(), best)
     pool.clear()
     diagnostics.host_to_device += 1
@@ -520,6 +545,7 @@ def resident_search(
         diagnostics=diagnostics,
         compact=program.compact,
         fused=program.fused,
+        staged=program.staged,
         M=M,
         k_resolved=program.K,
         dispatches=dispatches,

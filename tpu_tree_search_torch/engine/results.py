@@ -50,6 +50,9 @@ class SearchResult:
     # often the pool filled past the fan-out headroom and the host
     # offload fallback ran.
     fused: bool = True
+    # Resident tier, PFSP lb2: whether the unfused cycle ran the staged
+    # evaluator (lb1 prefilter, then lb2 of the compacted candidates).
+    staged: bool = False
     M: int | None = None
     k_resolved: int | None = None
     dispatches: int = 0

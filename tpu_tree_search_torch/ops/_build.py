@@ -20,6 +20,7 @@ allocates nothing: its wrapper allocates with ``torch.empty``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -116,6 +117,17 @@ def library(name: str) -> ctypes.CDLL:
         lib.tts_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+@functools.cache
+def entry(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """The loaded library of ``csrc/<name>.cu`` and its C function
+    ``symbol``, with ``argtypes`` and ``restype`` declared (bound once)."""
+    lib = library(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,36 +1,42 @@
-"""Kernel 2: one whole device-resident PFSP lb1 cycle, as CUDA for Hopper.
+"""Kernels 2 and 8: one whole device-resident PFSP cycle (lb1, lb2), as
+CUDA for Hopper.
 
-Replaces the TPU kernel `_mega_lb1_kernel` (`tpu_tree_search/ops/megakernel.py`,
-with `_pfsp_epilogue`, `_compact_push` and the lb1 branch of `make_cycle`)
-and the engine's pop and write-back around it; source `csrc/cycle_lb1.cu`,
-whose header note gives the launch sequence, the state layout and what
-bounds it on the card.
+Kernel 2 replaces the TPU kernel `_mega_lb1_kernel` and kernel 8
+`_mega_lb2_kernel` (`tpu_tree_search/ops/megakernel.py`, with
+`_pfsp_epilogue`, `_compact_push` and the lb1 and lb2 branches of
+`make_cycle`), each with the engine's pop and write-back around it; sources
+`csrc/cycle_lb1.cu` and `csrc/cycle_lb2.cu`, which differ only in the bound
+of their first launch (the rest is `csrc/cycle_pfsp.cuh`). `cycle_lb1.cu`'s
+header note gives the launch sequence, the state layout and what bounds it
+on the card.
 
 The loop state is one int32 tensor ``st`` (``new_state``): size, best, tree,
-sol, cycles, and this cycle's pop. One call of ``cycle_lb1_cuda`` enqueues
-one cycle; when the loop condition is false it is an exact no-op, so the
-engine enqueues K of them with no host synchronisation.
-``cycle_lb1_cuda.launches`` counts the calls (one cycle, four launches).
+sol, cycles, and this cycle's pop. One call of ``cycle_lb1_cuda`` or
+``cycle_lb2_cuda`` enqueues one cycle; when the loop condition is false it
+is an exact no-op, so the engine enqueues K of them with no host
+synchronisation. Each wrapper's ``launches`` counts its calls (one cycle,
+four launches).
 
-Plain PyTorch versions beside it: ``cycle_chunk_plain`` computes what the
-JAX ``make_cycle`` returns for one popped chunk (the CPU tests hold it to
-the Pallas kernel in interpret mode), and ``cycle_lb1_plain`` is the whole
-in-pool cycle — the kernel's plain version, used on the CPU and in the
-on-card comparison. The state layout, ``plain_pool_cycle`` and
-``CycleScratch`` are shared with the N-Queens cycle (`ops/cycle_nqueens.py`).
+Plain PyTorch versions beside them: ``cycle_chunk_plain`` computes what the
+JAX ``make_cycle`` returns for one popped chunk under a given bound (the CPU
+tests hold it to the Pallas kernels in interpret mode), and
+``cycle_lb1_plain``/``cycle_lb2_plain`` are the whole in-pool cycles — the
+kernels' plain versions, used on the CPU and in the on-card comparison. The
+state layout, ``plain_pool_cycle`` and ``CycleScratch`` are shared with the
+N-Queens cycle (`ops/cycle_nqueens.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
 
 from ..problems.base import INF_BOUND
 from . import _build
-from .pfsp_device import PFSPDeviceTables, lb1_chunk
+from .lb2_kernel import johnson_operands
+from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 
 # Layout of the state tensor (mirrors the enum of csrc/cycle_common.cuh).
 ST_SIZE, ST_BEST, ST_TREE, ST_SOL, ST_CYCLES = 0, 1, 2, 3, 4
@@ -47,8 +53,10 @@ def new_state(size: int, best: int, device) -> torch.Tensor:
 
 def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
                       valid: torch.Tensor, best: torch.Tensor,
-                      tables: PFSPDeviceTables):
-    """One cycle on a popped chunk — the JAX ``make_cycle`` lb1 contract.
+                      tables: PFSPDeviceTables, bound=lb1_chunk):
+    """One cycle on a popped chunk — the JAX ``make_cycle`` PFSP contract
+    under ``bound`` (``lb1_chunk`` or ``lb2_chunk``; the keep test is the
+    unstaged one, as in the JAX megakernel).
 
     vals_c (M, n), aux_c (M,) limit1, valid (M,) bool, best 0-d int32.
     Returns ``(rows (M*n, n) int32, caux (M*n,) int32, tree_inc, sol_inc,
@@ -60,7 +68,7 @@ def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
     M, n = vals_c.shape
     dev = vals_c.device
     aux = aux_c.to(torch.int32)
-    lb = lb1_chunk(vals_c, aux, tables)
+    lb = bound(vals_c, aux, tables)
     pdepth = aux + 1
     kk = torch.arange(n, dtype=torch.int32, device=dev)
     open_ = (kk[None, :] >= pdepth[:, None]) & valid[:, None]
@@ -122,15 +130,32 @@ def plain_pool_cycle(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     st[ST_BASE] = start
 
 
+def cycle_pfsp_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                     st: torch.Tensor, tables: PFSPDeviceTables, M: int,
+                     m: int, K: int, bound) -> None:
+    """The whole PFSP cycle under ``bound`` on the pool, in place:
+    condition, pop, bounds, prune, compaction and push, and the state
+    update."""
+    plain_pool_cycle(
+        pool_vals, pool_aux, st, M, m, K,
+        lambda v, a, valid, best: cycle_chunk_plain(v, a, valid, best, tables,
+                                                    bound))
+
+
 def cycle_lb1_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                     st: torch.Tensor, tables: PFSPDeviceTables, M: int,
                     m: int, K: int) -> None:
-    """The whole lb1 cycle on the pool, in place: condition, pop, bounds,
-    prune, compaction and push, and the state update — what one
-    ``cycle_lb1_cuda`` call computes."""
-    plain_pool_cycle(
-        pool_vals, pool_aux, st, M, m, K,
-        lambda v, a, valid, best: cycle_chunk_plain(v, a, valid, best, tables))
+    """What one ``cycle_lb1_cuda`` call computes (kernel 2's plain
+    version)."""
+    cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb1_chunk)
+
+
+def cycle_lb2_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                    st: torch.Tensor, tables: PFSPDeviceTables, M: int,
+                    m: int, K: int) -> None:
+    """What one ``cycle_lb2_cuda`` call computes (kernel 8's plain
+    version)."""
+    cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb2_chunk)
 
 
 @dataclass
@@ -161,33 +186,36 @@ class CycleScratch:
 
 def cycle_scratch(M: int, n: int, dtype: torch.dtype,
                   device: torch.device) -> CycleScratch:
-    """The lb1 cycle's scratch: pool-dtype stash, int32 lb plane."""
+    """The PFSP cycles' scratch (both take the same): pool-dtype stash,
+    int32 bound plane."""
     pb = _build.library("cycle_lb1").tts_parents_per_block()
     return CycleScratch.make(M, n, dtype, dtype, torch.int32, pb, device)
 
 
-_ENTRIES = {torch.int8: "cycle_lb1_i8", torch.int32: "cycle_lb1_i32"}
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ENTRIES = {
+    "cycle_lb1": {torch.int8: "cycle_lb1_i8", torch.int32: "cycle_lb1_i32"},
+    "cycle_lb2": {torch.int8: "cycle_lb2_i8", torch.int32: "cycle_lb2_i32"},
+}
+_ARGTYPES = {
+    "cycle_lb1": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 6
+    + (ctypes.c_void_p,),
+    "cycle_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
+    + (ctypes.c_void_p,),
+}
 
 
-@functools.cache
-def _entry(dtype: torch.dtype):
-    """The loaded library and its C entry for ``dtype`` (bound once)."""
-    lib = _build.library("cycle_lb1")
-    fn = getattr(lib, _ENTRIES[dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
-def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
-                   st: torch.Tensor, scratch: CycleScratch,
-                   tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
-    """Enqueue one cycle (four launches) on the current stream; updates the
-    pool and ``st`` in place on the device, never synchronises."""
+def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
+                       pool_aux: torch.Tensor, st: torch.Tensor,
+                       scratch: CycleScratch, tables: PFSPDeviceTables,
+                       M: int, m: int, K: int, table_args: tuple,
+                       table_sizes: tuple) -> None:
+    """Check the operands of a PFSP cycle and enqueue the entry of
+    ``csrc/<source>.cu``: the pool, state and scratch pointers, then
+    ``table_args`` (tensors) and ``table_sizes`` (ints), then M, C, m, K."""
     if not pool_vals.is_cuda:
-        raise ValueError("cycle_lb1_cuda takes CUDA tensors")
-    if pool_vals.dtype not in _ENTRIES or pool_aux.dtype != pool_vals.dtype:
+        raise ValueError(f"{source} takes CUDA tensors")
+    entries = _ENTRIES[source]
+    if pool_vals.dtype not in entries or pool_aux.dtype != pool_vals.dtype:
         raise TypeError("pool_vals and pool_aux must both be int8 or int32")
     C, n = pool_vals.shape
     if pool_aux.shape != (C,) or st.dtype != torch.int32 or st.numel() < ST_LEN:
@@ -201,29 +229,71 @@ def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
             or scratch.chunk_vals.dtype != pool_vals.dtype:
         raise ValueError("scratch must be cycle_scratch(M, n) of the pool "
                          "dtype, and the pool hold at least M rows")
-    lib, fn = _entry(pool_vals.dtype)
+    lib, fn = _build.entry(source, entries[pool_vals.dtype], _ARGTYPES[source])
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
-             scratch.blkoff.data_ptr(), tables.ptm_t.data_ptr(),
-             tables.min_heads.data_ptr(), tables.min_tails.data_ptr(),
-             n, tables.machines, M, C, m, K, stream)
-    _build.check(lib, err, "cycle_lb1")
+             scratch.blkoff.data_ptr(), *(t.data_ptr() for t in table_args),
+             *table_sizes, M, C, m, K, stream)
+    _build.check(lib, err, source)
+
+
+def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                   st: torch.Tensor, scratch: CycleScratch,
+                   tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
+    """Enqueue one lb1 cycle (four launches) on the current stream; updates
+    the pool and ``st`` in place on the device, never synchronises."""
+    _launch_pfsp_cycle(
+        "cycle_lb1", pool_vals, pool_aux, st, scratch, tables, M, m, K,
+        (tables.ptm_t, tables.min_heads, tables.min_tails),
+        (tables.jobs, tables.machines))
     cycle_lb1_cuda.launches += 1  # type: ignore[attr-defined]
 
 
 cycle_lb1_cuda.launches = 0  # type: ignore[attr-defined]
 
 
-def cycle_lb1(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
-              st: torch.Tensor, scratch: CycleScratch | None,
-              tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
-    """One cycle routed by device: the CUDA kernel for a CUDA pool (which
-    launches or raises), the plain version for a CPU pool."""
+def cycle_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                   st: torch.Tensor, scratch: CycleScratch,
+                   tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
+    """Enqueue one lb2 cycle (four launches) on the current stream; updates
+    the pool and ``st`` in place on the device, never synchronises."""
+    if not pool_vals.is_cuda:
+        raise ValueError("cycle_lb2 takes CUDA tensors")
+    J = johnson_operands("cycle_lb2", tables)
+    _launch_pfsp_cycle(
+        "cycle_lb2", pool_vals, pool_aux, st, scratch, tables, M, m, K,
+        (tables.ptm_t, tables.min_heads, J.pairinfo, J.packed),
+        (tables.jobs, tables.machines, J.pair_count))
+    cycle_lb2_cuda.launches += 1  # type: ignore[attr-defined]
+
+
+cycle_lb2_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, tables,
+           M, m, K) -> None:
     if pool_vals.is_cuda:
         if scratch is None:
             raise ValueError("the CUDA cycle needs its cycle_scratch buffers")
-        cycle_lb1_cuda(pool_vals, pool_aux, st, scratch, tables, M, m, K)
+        cuda_cycle(pool_vals, pool_aux, st, scratch, tables, M, m, K)
     else:
-        cycle_lb1_plain(pool_vals, pool_aux, st, tables, M, m, K)
+        plain_cycle(pool_vals, pool_aux, st, tables, M, m, K)
+
+
+def cycle_lb1(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+              st: torch.Tensor, scratch: CycleScratch | None,
+              tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
+    """One lb1 cycle routed by device: the CUDA kernel for a CUDA pool
+    (which launches or raises), the plain version for a CPU pool."""
+    _route(cycle_lb1_cuda, cycle_lb1_plain, pool_vals, pool_aux, st, scratch,
+           tables, M, m, K)
+
+
+def cycle_lb2(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+              st: torch.Tensor, scratch: CycleScratch | None,
+              tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
+    """One lb2 cycle routed like ``cycle_lb1``."""
+    _route(cycle_lb2_cuda, cycle_lb2_plain, pool_vals, pool_aux, st, scratch,
+           tables, M, m, K)

@@ -22,7 +22,6 @@ the on-card comparison.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -89,17 +88,7 @@ def nqueens_scratch(M: int, N: int, device) -> CycleScratch:
                              device)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _entry():
-    """The loaded library and its C entry (bound once)."""
-    lib = _build.library("cycle_nqueens")
-    fn = lib.cycle_nqueens
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
@@ -126,7 +115,7 @@ def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
             or scratch.plane.dtype != torch.uint8:
         raise ValueError("scratch must be nqueens_scratch(M, N), and the "
                          "pool hold at least M rows")
-    lib, fn = _entry()
+    lib, fn = _build.entry("cycle_nqueens", "cycle_nqueens", _ARGTYPES)
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),

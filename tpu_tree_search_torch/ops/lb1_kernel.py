@@ -18,7 +18,6 @@ shared with kernel 5 (`ops/lb1_d_kernel.py`), which takes the same operands.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -29,18 +28,27 @@ from .pfsp_device import PFSPDeviceTables, lb1_chunk
 plain = lb1_chunk
 
 _ENTRIES = {torch.int8: "lb1_bounds_i8", torch.int32: "lb1_bounds_i32"}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
-@functools.cache
-def _entry(source: str, entry: str):
-    """The loaded library of ``csrc/<source>.cu`` and its C ``entry``
-    (bound once)."""
-    lib = _build.library(source)
-    fn = getattr(lib, entry)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
+def chunk_operands(source: str, entries: dict, prmu: torch.Tensor,
+                   limit1: torch.Tensor, tables: PFSPDeviceTables):
+    """Check the operands of a kernel that bounds PFSP rows (prmu (B, n),
+    limit1 (B,), the tables) and return them contiguous, limit1 cast to
+    prmu's type (B elements: int8 at -1 is -1, as the kernels read it)."""
+    if not prmu.is_cuda:
+        raise ValueError(f"{source} takes CUDA tensors "
+                         "(pfsp_device routes CPU tensors)")
+    if prmu.dtype not in entries:
+        raise TypeError(f"prmu must be int8 or int32, got {prmu.dtype}")
+    if prmu.dim() != 2 or limit1.shape != (prmu.shape[0],):
+        raise ValueError("prmu must be (B, n) and limit1 (B,)")
+    n = prmu.shape[1]
+    if (n, tables.machines) != tuple(tables.ptm_t.shape):
+        raise ValueError("prmu width does not match the tables' job count")
+    if tables.device != prmu.device or limit1.device != prmu.device:
+        raise ValueError("prmu, limit1 and the tables must share a device")
+    return prmu.contiguous(), limit1.to(prmu.dtype).contiguous()
 
 
 def launch_lb1_family(source: str, entries: dict, prmu: torch.Tensor,
@@ -49,22 +57,10 @@ def launch_lb1_family(source: str, entries: dict, prmu: torch.Tensor,
     """Check the operands of an lb1-shaped kernel (prmu (B, n), limit1 (B,),
     the tables) and launch ``entries[prmu.dtype]`` of ``csrc/<source>.cu``
     on the current stream. Returns the (B, n) int32 plane."""
-    if not prmu.is_cuda:
-        raise ValueError(f"{source} takes CUDA tensors "
-                         "(pfsp_device routes CPU tensors)")
-    if prmu.dtype not in entries:
-        raise TypeError(f"prmu must be int8 or int32, got {prmu.dtype}")
-    if prmu.dim() != 2 or limit1.shape != (prmu.shape[0],):
-        raise ValueError("prmu must be (B, n) and limit1 (B,)")
+    prmu, limit1 = chunk_operands(source, entries, prmu, limit1, tables)
     B, n = prmu.shape
-    if (n, tables.machines) != tuple(tables.ptm_t.shape):
-        raise ValueError("prmu width does not match the tables' job count")
-    if tables.device != prmu.device or limit1.device != prmu.device:
-        raise ValueError("prmu, limit1 and the tables must share a device")
-    prmu = prmu.contiguous()
-    limit1 = limit1.to(prmu.dtype).contiguous()
     out = torch.empty((B, n), dtype=torch.int32, device=prmu.device)
-    lib, fn = _entry(source, entries[prmu.dtype])
+    lib, fn = _build.entry(source, entries[prmu.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(prmu.device).cuda_stream
     err = fn(prmu.data_ptr(), limit1.data_ptr(), tables.ptm_t.data_ptr(),
              tables.min_heads.data_ptr(), tables.min_tails.data_ptr(),

@@ -14,7 +14,6 @@ version (`ops/nqueens_device.labels_chunk`).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -28,17 +27,7 @@ plain = labels_chunk
 MAX_N = 32
 
 _ENTRIES = {torch.int8: "nqueens_labels_i8", torch.int32: "nqueens_labels_i32"}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _entry(dtype: torch.dtype):
-    """The loaded library and its C entry for depth ``dtype`` (bound once)."""
-    lib = _build.library("nqueens_labels")
-    fn = getattr(lib, _ENTRIES[dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def nqueens_labels_cuda(board: torch.Tensor, depth: torch.Tensor, N: int,
@@ -60,7 +49,7 @@ def nqueens_labels_cuda(board: torch.Tensor, depth: torch.Tensor, N: int,
     board = board.contiguous()
     depth = depth.contiguous()
     out = torch.empty((B, N), dtype=torch.uint8, device=board.device)
-    lib, fn = _entry(depth.dtype)
+    lib, fn = _build.entry("nqueens_labels", _ENTRIES[depth.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(board.device).cuda_stream
     err = fn(board.data_ptr(), depth.data_ptr(), out.data_ptr(), B, N, g,
              stream)

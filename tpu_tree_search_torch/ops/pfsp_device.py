@@ -1,5 +1,5 @@
-"""PFSP lb1 and lb1_d on the device: instance tables and the plain PyTorch
-bounds — the lb1 half of `tpu_tree_search/ops/pfsp_device.py`.
+"""PFSP lb1, lb1_d and lb2 on the device: instance tables and the plain
+PyTorch bounds — the port of `tpu_tree_search/ops/pfsp_device.py`.
 
 Forward branching fixes ``limit2 == jobs`` (`pfsp_chpl.chpl:23-26`), so the
 tail schedule is always the constant ``min_tails`` table. A child's head
@@ -8,9 +8,19 @@ schedule is one ``add_forward`` step from its parent's
 scanned once, then every child slot takes one O(m) update and the m-long
 machine chain of `machine_bound_from_parts` (`c_bound_simple.c:126-141`).
 
-The gather of processing times is ``ptm_t[prmu]``; the JAX package's one-hot
-matrix product (and its bf16 exactness gate) was a TPU device with no place
-here. All arithmetic is int32 (bounds fit comfortably: makespans < 2^31).
+lb2 (`c_bound_johnson.c:190-254`) takes, per machine pair q, the Johnson
+two-machine makespan of the free jobs in the pair's Johnson order, from the
+child's front: ``tmp0 += p0; tmp1 = max(tmp1, tmp0 + lag) + p1`` over the
+ordered free jobs, then ``max(tmp1 + tails1, tmp0 + tails0)``, maxed over
+the pairs. The plain versions use the JAX module's closed form of that
+max-plus recurrence (prefix and suffix sums along the ordered slots); the
+kernels run the recurrence itself. Both are exact on integers. The C early
+exit is dropped, as in the JAX module, so the planes are equal.
+
+The gathers are integer indexing (``ptm_t[prmu]``, the Johnson order as job
+ids); the JAX package's one-hot matrix products (``jorder``, ``msel*``) and
+their bf16 exactness gate were TPU devices with no place here. All
+arithmetic is int32 (bounds fit comfortably: makespans < 2^31).
 """
 
 from __future__ import annotations
@@ -20,27 +30,87 @@ import torch
 
 from .backend import resolve_device
 
+#: Below any bound: the value of a slot that is not free in the closed form
+#: (the JAX module's ``NEG_INF``).
+NEG = -(2**30)
+
+
+class JohnsonTables:
+    """The lb2 tables of one instance on one device, in Johnson schedule
+    order (`pfsp_device.py:362-390` without the one-hot ``jorder`` and
+    ``msel*``): for the t-th job of pair q's Johnson schedule, ``sched``
+    its job id, ``p0_o``/``p1_o`` its times on the pair's two machines and
+    ``lag_o`` its lag, all (P, n) int32; ``pairs`` (P, 2) the machine
+    indices and ``tails0``/``tails1`` (P,) the ``min_tails`` of those
+    machines. ``host`` holds the same arrays in numpy, for the plain pair
+    loop. The kernels read two packed copies: ``packed`` (P, n, 4) int16
+    rows (p0, p1, lag, job) — exact while every value is below 2^15, else
+    None — and ``pairinfo`` (P, 4) int32 rows (machine 0, machine 1,
+    tails0, tails1)."""
+
+    def __init__(self, ptm_t, min_tails, pairs, lags, johnson_schedules,
+                 device: torch.device):
+        ptm = np.asarray(ptm_t, dtype=np.int64).T  # (m, n)
+        pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        sched = np.asarray(johnson_schedules, dtype=np.int64)
+        lags = np.asarray(lags, dtype=np.int64)
+        tails = np.asarray(min_tails, dtype=np.int64)
+        rows = np.arange(pairs.shape[0])[:, None]
+        host = {
+            "p0_o": ptm[pairs[:, 0][:, None], sched],
+            "p1_o": ptm[pairs[:, 1][:, None], sched],
+            "lag_o": lags[rows, sched],
+            "sched": sched,
+            "pairs": pairs,
+            "tails0": tails[pairs[:, 0]],
+            "tails1": tails[pairs[:, 1]],
+        }
+        self.host = {k: v.astype(np.int32) for k, v in host.items()}
+        for k, v in self.host.items():
+            setattr(self, k, torch.from_numpy(v).to(device).contiguous())
+        self.sched_long = self.sched.long()
+        slots = np.stack([host["p0_o"], host["p1_o"], host["lag_o"], sched], -1)
+        self.packed = (torch.from_numpy(slots.astype(np.int16)).to(device)
+                       .contiguous()
+                       if slots.min() >= 0 and slots.max() < 2**15 else None)
+        self.pairinfo = torch.from_numpy(np.stack(
+            [pairs[:, 0], pairs[:, 1], host["tails0"], host["tails1"]], -1)
+            .astype(np.int32)).to(device).contiguous()
+
+    @property
+    def pair_count(self) -> int:
+        return self.pairs.shape[0]
+
 
 class PFSPDeviceTables:
-    """The lb1 instance tables on one device (`pfsp_gpu_chpl.chpl:362-371`:
-    device-resident lbound1 copies): ``ptm_t`` (n, m) job-major processing
-    times, ``min_heads`` (m,) and ``min_tails`` (m,), all int32 and
-    contiguous — the layout the CUDA kernels read."""
+    """The instance tables on one device (`pfsp_gpu_chpl.chpl:362-371`:
+    device-resident lbound1/lbound2 copies): ``ptm_t`` (n, m) job-major
+    processing times, ``min_heads`` (m,) and ``min_tails`` (m,), all int32
+    and contiguous — the layout the CUDA kernels read — and ``johnson``,
+    the lb2 tables (`JohnsonTables`), or None when the tables were built
+    for lb1 or lb1_d."""
 
     def __init__(self, ptm_t: torch.Tensor, min_heads: torch.Tensor,
-                 min_tails: torch.Tensor):
+                 min_tails: torch.Tensor,
+                 johnson: JohnsonTables | None = None):
         n, m = ptm_t.shape
         if min_heads.shape != (m,) or min_tails.shape != (m,):
             raise ValueError("min_heads/min_tails must have shape (m,)")
         self.ptm_t = ptm_t.to(torch.int32).contiguous()
         self.min_heads = min_heads.to(torch.int32).contiguous()
         self.min_tails = min_tails.to(torch.int32).contiguous()
+        self.johnson = johnson
 
     @classmethod
-    def from_lb1(cls, lb1_data, device) -> "PFSPDeviceTables":
+    def from_lb1(cls, lb1_data, device, lb2_data=None) -> "PFSPDeviceTables":
+        """The tables of one instance; with ``lb2_data`` (`bounds.LB2Data`)
+        the Johnson tables too."""
+        lb2 = {} if lb2_data is None else dict(
+            pairs=lb2_data.pairs, lags=lb2_data.lags,
+            johnson_schedules=lb2_data.johnson_schedules)
         return tables_from_numpy(
             np.ascontiguousarray(lb1_data.p_times.T),
-            lb1_data.min_heads, lb1_data.min_tails, device,
+            lb1_data.min_heads, lb1_data.min_tails, device, **lb2,
         )
 
     @property
@@ -56,15 +126,21 @@ class PFSPDeviceTables:
         return self.ptm_t.shape[1]
 
 
-def tables_from_numpy(ptm_t, min_heads, min_tails, device=None) -> PFSPDeviceTables:
+def tables_from_numpy(ptm_t, min_heads, min_tails, device=None, pairs=None,
+                      lags=None, johnson_schedules=None) -> PFSPDeviceTables:
     """Tables from the arrays of the JAX package's ``PFSPDeviceTables``
-    (``ptm_t`` (n, m), ``min_heads``/``min_tails`` (m,)) given as numpy."""
+    (``ptm_t`` (n, m), ``min_heads``/``min_tails`` (m,)) given as numpy;
+    with its ``pairs`` (P, 2), ``lags`` and ``johnson_schedules`` (P, n)
+    the Johnson tables too."""
     dev = resolve_device(device)
 
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
 
-    return PFSPDeviceTables(put(ptm_t), put(min_heads), put(min_tails))
+    johnson = (None if pairs is None else
+               JohnsonTables(ptm_t, min_tails, pairs, lags, johnson_schedules,
+                             dev))
+    return PFSPDeviceTables(put(ptm_t), put(min_heads), put(min_tails), johnson)
 
 
 def add_forward(front: torch.Tensor, pt_job: torch.Tensor) -> torch.Tensor:
@@ -150,6 +226,140 @@ def lb1_d_chunk(prmu: torch.Tensor, limit1: torch.Tensor,
         lb = torch.maximum(lb, tmp1 + r[..., i] + back[i])
         tmp0 = tmp1 + ptg[..., i]
     return lb
+
+
+def _johnson(tables: PFSPDeviceTables) -> JohnsonTables:
+    if tables.johnson is None:
+        raise ValueError("these tables have no lb2 part: build them for "
+                         "lb='lb2' (PFSPDeviceTables.from_lb1 with lb2_data)")
+    return tables.johnson
+
+
+def _free_by_job(prmu: torch.Tensor, limit1: torch.Tensor) -> torch.Tensor:
+    """(B, n) int32: 1 where job j is unscheduled (its position is past
+    limit1) — `set_flags` (`c_bound_johnson.c:180-188`) inverted."""
+    B, n = prmu.shape
+    pos = torch.arange(n, device=prmu.device)
+    unsched = (pos[None, :] >= (limit1.to(torch.int32) + 1)[:, None])
+    return torch.zeros((B, n), dtype=torch.int32, device=prmu.device).scatter_(
+        1, prmu.long(), unsched.to(torch.int32))
+
+
+def johnson_bound(front: torch.Tensor, free: torch.Tensor,
+                  J: JohnsonTables) -> torch.Tensor:
+    """lb2 over leading axes from a schedule front (..., m) and the free-job
+    flags by job id (..., n): for each pair the closed form of the Johnson
+    recurrence (`pfsp_device._lb2_chunk` pair body), maxed over the pairs
+    from 0. Returns (...) int32."""
+    i32 = torch.int32
+    h = J.host
+    lb = torch.zeros(front.shape[:-1], dtype=i32, device=front.device)
+    for q in range(J.pair_count):
+        ma0, ma1 = (int(v) for v in h["pairs"][q])
+        u_o = free[..., J.sched_long[q]]  # ordered free flags
+        mp0 = u_o * J.p0_o[q]
+        mp1 = u_o * J.p1_o[q]
+        f0 = front[..., ma0]
+        f1 = front[..., ma1]
+        t0 = f0[..., None] + torch.cumsum(mp0, -1, dtype=i32)
+        suf1 = torch.flip(torch.cumsum(torch.flip(mp1, (-1,)), -1, dtype=i32),
+                          (-1,))
+        a = torch.where(u_o > 0, t0 + J.lag_o[q] + suf1, NEG)
+        tmp1 = torch.maximum(f1 + mp1.sum(-1, dtype=i32), a.amax(-1))
+        tmp0 = f0 + mp0.sum(-1, dtype=i32)
+        lb = torch.maximum(lb, torch.maximum(tmp1 + int(h["tails1"][q]),
+                                             tmp0 + int(h["tails0"][q])))
+    return lb
+
+
+def lb2_chunk(prmu: torch.Tensor, limit1: torch.Tensor,
+              tables: PFSPDeviceTables) -> torch.Tensor:
+    """Plain lb2 of every child of every parent (`pfsp_device._lb2_chunk`;
+    device `evaluate.cu:73-91`): child slot (i, k) appends the job at
+    position k to the parent's prefix (one ``add_forward`` step) and frees
+    every other unscheduled job. Returns (B, n) int32; slots k <= limit1
+    are not children and are never read."""
+    J = _johnson(tables)
+    n = prmu.shape[1]
+    front, _, ptg = parent_state(prmu, limit1, tables)
+    child_front = add_forward(front[:, None, :], ptg)  # (B, n, m)
+    onehot = torch.nn.functional.one_hot(prmu.long(), n).to(torch.int32)
+    free = _free_by_job(prmu, limit1)[:, None, :] * (1 - onehot)  # (B, k, job)
+    return johnson_bound(child_front, free, J)
+
+
+def lb2_self_chunk(rows: torch.Tensor, limit1: torch.Tensor, n_active,
+                   tables: PFSPDeviceTables) -> torch.Tensor:
+    """Plain lb2 of each row's own partial schedule
+    (`pfsp_device._lb2_self_chunk`: `lb2_bound` of the node itself).
+    Returns (R,) int32. Only the first ``n_active`` rows are read by the
+    caller; the plain version computes every row."""
+    del n_active
+    front, _, _ = parent_state(rows, limit1, tables)
+    return johnson_bound(front, _free_by_job(rows, limit1), _johnson(tables))
+
+
+def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
+                      cand: torch.Tensor,
+                      tables: PFSPDeviceTables) -> torch.Tensor:
+    """lb2 child bounds of the candidate slots only
+    (`pfsp_device.lb2_bounds_staged`).
+
+    ``cand`` (B, n) marks open, non-leaf children whose lb1 is below the
+    incumbent; lb2 >= lb1 pointwise, so the others are pruned under lb2 too.
+    The candidates' flat indices are compacted to the front of an
+    (R + 1)-row buffer, R = B*n (every other slot writes the spill row R,
+    then dropped), each is materialised as its parent with positions
+    limit1+1 and k swapped, the self bound runs on the first ``count``
+    rows, and the results are gathered back. The count stays a device
+    tensor: the self kernel reads it from device memory, so staging adds no
+    host synchronisation. Returns (B, n) int32; slots outside ``cand`` are
+    garbage."""
+    B, n = prmu.shape
+    R = B * n
+    dev = prmu.device
+    flat = cand.reshape(R)
+    pos = torch.cumsum(flat, 0, dtype=torch.int32) - 1
+    count = flat.sum(dtype=torch.int32)
+    tgt = torch.where(flat, pos, R).long()
+    src = torch.zeros(R + 1, dtype=torch.long, device=dev)
+    src[tgt] = torch.arange(R, device=dev)
+    src = src[:R]
+    b_idx = src // n
+    k_idx = (src % n)[:, None]
+    parent = prmu[b_idx]
+    # The child's limit1; clamped only for the garbage rows past count.
+    d = (limit1[b_idx].long() + 1).clamp(max=n - 1)[:, None]
+    vd = parent.gather(1, d)
+    vk = parent.gather(1, k_idx)
+    child = parent.scatter(1, d, vk).scatter_(1, k_idx, vd)
+    out = lb2_self_bounds(child, d[:, 0].to(prmu.dtype), count, tables)
+    return out[torch.where(flat, pos, 0).long()].reshape(B, n)
+
+
+def lb2_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
+               tables: PFSPDeviceTables) -> torch.Tensor:
+    """lb2 child bounds routed like ``lb1_bounds``: the CUDA kernel
+    (`ops/lb2_kernel.py`) for a CUDA tensor, ``lb2_chunk`` for a CPU
+    tensor."""
+    if prmu.is_cuda:
+        from .lb2_kernel import lb2_bounds_cuda
+
+        return lb2_bounds_cuda(prmu, limit1, tables)
+    return lb2_chunk(prmu, limit1, tables)
+
+
+def lb2_self_bounds(rows: torch.Tensor, limit1: torch.Tensor, n_active,
+                    tables: PFSPDeviceTables) -> torch.Tensor:
+    """Self lb2 of (R, n) rows, of which the first ``n_active`` (an int or
+    a 0-d int32 tensor on the rows' device) are read: the CUDA kernel
+    (`ops/lb2_self_kernel.py`) for a CUDA tensor, ``lb2_self_chunk`` for a
+    CPU tensor."""
+    if rows.is_cuda:
+        from .lb2_self_kernel import lb2_self_bounds_cuda
+
+        return lb2_self_bounds_cuda(rows, limit1, n_active, tables)
+    return lb2_self_chunk(rows, limit1, n_active, tables)
 
 
 def lb1_bounds(prmu: torch.Tensor, limit1: torch.Tensor,

@@ -43,8 +43,8 @@ class PFSPProblem(Problem):
         """``p_times`` overrides the Taillard instance (for reduced test
         instances); then ``ub`` must be 0 (no table optimum exists).
         ``lb2_variant`` selects the Johnson machine-pair subset
-        (`bounds.LB2_VARIANTS`). The host path serves every bound; the
-        device path of this package serves ``lb1`` and ``lb1_d`` so far.
+        (`bounds.LB2_VARIANTS`). The host and device paths serve every
+        bound.
         """
         if lb not in ALLOWED_LOWER_BOUNDS:
             raise ValueError("Error - Unsupported lower bound")
@@ -171,28 +171,28 @@ class PFSPProblem(Problem):
     # -- device path -------------------------------------------------------
 
     def device_tables(self, device):
-        """The lb1 tables on ``device`` (a ``torch.device``), built once per
-        device and shared by every program of this problem."""
+        """The instance tables on ``device`` (a ``torch.device``), built
+        once per device and shared by every program of this problem; under
+        lb2 with the Johnson tables of ``lb2_variant`` (an lb1 or lb1_d
+        problem does not build them)."""
         from ...ops.pfsp_device import PFSPDeviceTables
 
         key = str(device)
         if key not in self._device_tables:
             self._device_tables[key] = PFSPDeviceTables.from_lb1(
-                self.lb1_data, device
+                self.lb1_data, device,
+                self.lb2_data if self.lb == "lb2" else None,
             )
         return self._device_tables[key]
 
     def device_bounds(self, prmu, limit1):
         """(B, n) int32 child bounds of a device chunk under ``self.lb``
-        (lb1 or lb1_d; the CUDA kernel for CUDA tensors, the plain version
-        for CPU tensors)."""
+        (the CUDA kernel for CUDA tensors, the plain version for CPU
+        tensors)."""
         from ...ops import pfsp_device as P
 
-        fns = {"lb1": P.lb1_bounds, "lb1_d": P.lb1_d_bounds}
-        if self.lb not in fns:
-            raise NotImplementedError(
-                f"device bound {self.lb!r} is not ported yet (ROADMAP.md "
-                "queue A: lb2) — tpu_tree_search_torch runs lb1 and lb1_d")
+        fns = {"lb1": P.lb1_bounds, "lb1_d": P.lb1_d_bounds,
+               "lb2": P.lb2_bounds}
         return fns[self.lb](prmu, limit1, self.device_tables(prmu.device))
 
     def generate_children(
