@@ -48,15 +48,29 @@ ends the script with a non-zero exit before the final line:
      n_active return at once);
  15. ``kernel8`` (the fused lb2 cycle) against its plain version, as kernel 2
      in phase 4;
- 16. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
+ 16. ``kernel9``, ``kernel10`` and ``kernel11`` (the streamed lb1, N-Queens
+     and lb2 cycles) against their plain versions, as kernels 2, 4 and 8 at
+     tile widths mt = 16 (M = 1024) and 64 (M = 49152; N-Queens 80 at
+     M = 50000); equal state, live pool rows and (G, 4) per-tile scalars;
+ 17. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
      the fused path at M = 49152 and M = 1024 (counting kernel 8), with
      ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
      ``resident_search(..., fused=False, staged=False)`` (kernel 6);
- 17. the four lb2 searches again under ``torch.profiler``: device time by
-     kernel against the device phase's wall time (the busy share);
- 18. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+ 18. the streamed searches through the CLI with ``--mt``: ta014 lb1 and lb2
+     at M = 49152, mt = 64, ta014 lb1 at M = 1024, mt = 16 (many small
+     cycles) and N-Queens N = 15 at M = 50000, mt = 80, to their goldens,
+     counting kernels 9, 11 and 10 (and none of 2, 8, 4);
+ 19. the eval-only pass through ``streamed_eval_bounds`` (lb1, lb2, N-Queens
+     at full width) and ``megakernel_lb2_bounds``, which launch kernels 1,
+     6 and 3 (counted), checked against the plain planes;
+ 20. the lb2 searches (and the streamed one) again under ``torch.profiler``,
+     then ta014 lb1 and N-Queens N = 15, single-tile and streamed: device
+     time by kernel against the device phase's wall time (the busy share);
+ 21. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
-     plain version, its time, the plain version's time and the bound.
+     plain version, its time, the plain version's time and the bound; the
+     eval-only pass's TPU kernels get rows of their own on kernels 1, 3 and
+     6, with the launches of phase 19.
 
 Times are CUDA-event medians on the card; ``bound_ms`` is the larger of the
 bytes the function must move over 3.35 TB/s and its int32 operations over
@@ -91,6 +105,14 @@ LB2_CYCLE_KERNELS = ("lb2_cycle_bounds", "cycle_count", "cycle_scan",
                      "cycle_emit")
 # The three kernels of one fused N-Queens cycle (csrc/cycle_nqueens.cu).
 NQ_CYCLE_KERNELS = ("nq_cycle_labels", "cycle_scan", "nq_cycle_emit")
+# The kernel of each of the eval-only pass's TPU kernels, by counter.
+EVAL_KERNEL = {"eval_lb1": "lb1_bounds", "eval_nqueens": "nqueens_labels",
+               "eval_lb2": "lb2_bounds"}
+# The two kernels of one streamed cycle (csrc/tiled_lb1.cu, tiled_lb2.cu,
+# tiled_nqueens.cu).
+TILED_KERNELS = {"lb1": ("tiled_lb1_sweep", "tiled_pfsp_emit"),
+                 "lb2": ("tiled_lb2_sweep", "tiled_pfsp_emit"),
+                 "nqueens": ("tiled_nq_sweep", "tiled_nq_emit")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -299,25 +321,50 @@ def phase_kernel1(dev, tables) -> dict:
     return rows
 
 
-def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int) -> dict:
-    """A fused PFSP cycle kernel (``lb`` lb1: kernel 2, lb2: kernel 8)
-    against its plain version: M = 1024 and 49152, a partial and a full
-    chunk, finite and INF incumbent; equal state and live pool rows."""
+def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int):
+    """(run the kernel, run its plain version, kernel names, the per-tile
+    scalars of the last kernel call or None) of one PFSP cycle: single-tile
+    (kernels 2, 8) or streamed in tiles of mt (kernels 9, 11). Each run
+    takes (pool_vals, pool_aux, st) and returns the plain version's (G, 4)
+    per-tile scalars, or None."""
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import tiled as T
+
+    n, K, mterm = tables.jobs, 4, 25
+    if not tiled:
+        scratch = C.cycle_scratch(M, n, torch.int8, dev)
+        cuda_cycle, plain_cycle = ((C.cycle_lb1_cuda, C.cycle_lb1_plain) if lb == "lb1"
+                                   else (C.cycle_lb2_cuda, C.cycle_lb2_plain))
+        return (lambda pv, pa, st: cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K),
+                lambda pv, pa, st: plain_cycle(pv, pa, st, tables, M, mterm, K),
+                CYCLE_KERNELS if lb == "lb1" else LB2_CYCLE_KERNELS, None)
+    scratch = T.tiled_scratch(M, n, mt, torch.int8, dev)
+    cuda_cycle, plain_cycle = ((T.tiled_lb1_cuda, T.tiled_lb1_plain) if lb == "lb1"
+                               else (T.tiled_lb2_cuda, T.tiled_lb2_plain))
+    return (lambda pv, pa, st: cuda_cycle(pv, pa, st, scratch, tables, M, mt, mterm, K),
+            lambda pv, pa, st: plain_cycle(pv, pa, st, tables, M, mt, mterm, K),
+            TILED_KERNELS[lb], scratch.scal)
+
+
+def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
+                     tiled: bool = False) -> dict:
+    """A PFSP cycle kernel (``lb`` lb1: kernel 2, or 9 when ``tiled``; lb2:
+    kernel 8, or 11) against its plain version: M = 1024 (streamed: mt = 16)
+    and 49152 (mt = 64), a partial and a full chunk, finite and INF
+    incumbent; equal state, live pool rows and, streamed, (G, 4) per-tile
+    scalars."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
 
-    if lb == "lb1":
-        cuda_cycle, plain_cycle, bound = C.cycle_lb1_cuda, C.cycle_lb1_plain, lb1_chunk
-        names, table_bytes = CYCLE_KERNELS, (tables.jobs * tables.machines + 2 * tables.machines) * 4
-    else:
-        cuda_cycle, plain_cycle, bound = C.cycle_lb2_cuda, C.cycle_lb2_plain, lb2_chunk
-        names, table_bytes = LB2_CYCLE_KERNELS, johnson_bytes(tables)
-    n, m, K = tables.jobs, tables.machines, 4
-    mterm = 25
+    bound = lb1_chunk if lb == "lb1" else lb2_chunk
+    table_bytes = ((tables.jobs * tables.machines + 2 * tables.machines) * 4
+                   if lb == "lb1" else johnson_bytes(tables))
+    n, m = tables.jobs, tables.machines
     rng = np.random.default_rng(seed)
     rows = {}
-    for M in (1024, 49152):
-        scratch = C.cycle_scratch(M, n, torch.int8, dev)
+    for M, mt in ((1024, 16), (49152, 64)):
+        run_cuda, run_plain, names, scal = _pfsp_cycle_fns(dev, tables, lb, tiled, M, mt)
+        G = M // mt if tiled else 1
         for chunk in ("partial", "full"):
             size = M // 2 + 3 if chunk == "partial" else M + 517
             prmu, limit1 = random_nodes(rng, n, size)
@@ -333,19 +380,20 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int) -> dict:
                 pa0[:size] = torch.from_numpy(limit1).to(dev).to(torch.int8)
                 st0 = C.new_state(size, best, dev)
                 pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
-                cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K)
+                run_cuda(pv, pa, st)
                 pv2, pa2, st2 = pv0.clone(), pa0.clone(), st0.clone()
-                plain_cycle(pv2, pa2, st2, tables, M, mterm, K)
+                scal2 = run_plain(pv2, pa2, st2)
                 torch.cuda.synchronize()
                 live = int(st2[C.ST_SIZE])
                 err = max(
                     int((st[:C.ST_BASE + 1] - st2[:C.ST_BASE + 1]).abs().max()),
                     int((pv[:live].int() - pv2[:live].int()).abs().max()) if live else 0,
                     int((pa[:live].int() - pa2[:live].int()).abs().max()) if live else 0,
+                    int((scal - scal2).abs().max()) if tiled else 0,
                 )
                 tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
                 check(err == 0 and int(st2[C.ST_CYCLES]) == 1,
-                      f"{lb} cycle kernel differs from plain (M={M}, {chunk}, {incumbent})")
+                      f"{phase} ({lb}) kernel differs from plain (M={M}, {chunk}, {incumbent})")
 
                 def restore():
                     pv.copy_(pv0)
@@ -356,21 +404,23 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int) -> dict:
                     st2.copy_(st0)
 
                 def call():
-                    cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K)
+                    run_cuda(pv, pa, st)
 
                 ms, timing = kernel_device_ms(call, 30, names, restore)
                 call_ms = median_ms(call, 30, restore)
-                plain_ms = median_ms(lambda: plain_cycle(pv2, pa2, st2, tables,
-                                                         M, mterm, K),
+                plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2),
                                      3 if lb == "lb1" or M <= 1024 else 1, restore)
                 cnt = min(size, M)
-                nbytes = cnt * (n + 1) + tree * (n + 1) + table_bytes + 64
+                # Rows popped and pushed, the tables, the state and, streamed,
+                # the per-tile scalars and status words.
+                nbytes = cnt * (n + 1) + tree * (n + 1) + table_bytes + 64 + \
+                    (24 * G if tiled else 0)
                 pop = limit1[size - cnt:]
                 ops = (lb1_ops(pop, n, m) if lb == "lb1" else
                        lb2_ops(pop, n, m, tables.johnson.pair_count))
                 bms, by = bound_ms(nbytes, ops)
                 rows[(M, chunk, incumbent)] = dict(
-                    M=M, chunk=chunk, incumbent=incumbent, popped=cnt,
+                    M=M, mt=mt if tiled else M, chunk=chunk, incumbent=incumbent, popped=cnt,
                     tree_inc=tree, sol_inc=sol, best_in=best,
                     best_out=int(st2[C.ST_BEST]), max_abs_err=err, ms=ms,
                     timing=timing, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3,
@@ -492,15 +542,40 @@ def phase_kernel3(dev) -> dict:
     return rows
 
 
-def phase_kernel4(dev) -> dict:
+def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
+    """The N-Queens cycle kernel (kernel 4, or 10 when ``tiled``) against
+    its plain version at N = 15: M = 1024 (streamed: mt = 16) and 50000
+    (mt = 80), a partial and a full chunk; equal state, live pool rows and,
+    streamed, (G, 4) per-tile scalars."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import tiled as T
+    from tpu_tree_search_torch.problems import NQueensProblem
 
     N, g, K, mterm = 15, 1, 4, 25
-    rng = np.random.default_rng(4)
+    prob = NQueensProblem(N, g=g)
+    rng = np.random.default_rng(10 if tiled else 4)
     rows = {}
-    for M in (1024, 50000):
-        scratch = CN.nqueens_scratch(M, N, dev)
+    for M, mt in ((1024, 16), (50000, 80)):
+        if tiled:
+            scratch = T.tiled_nqueens_scratch(M, N, mt, dev)
+            names = TILED_KERNELS["nqueens"]
+
+            def run_cuda(pv, pa, st):
+                T.tiled_nqueens_cuda(pv, pa, st, scratch, prob, M, mt, mterm, K)
+
+            def run_plain(pv, pa, st):
+                return T.tiled_nqueens_plain(pv, pa, st, prob, M, mt, mterm, K)
+        else:
+            scratch = CN.nqueens_scratch(M, N, dev)
+            names = NQ_CYCLE_KERNELS
+
+            def run_cuda(pv, pa, st):
+                CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, g, M, mterm, K)
+
+            def run_plain(pv, pa, st):
+                return CN.cycle_nqueens_plain(pv, pa, st, N, g, M, mterm, K)
+        G = M // mt if tiled else 1
         for chunk in ("partial", "full"):
             size = M // 2 + 3 if chunk == "partial" else M + 517
             board, depth = random_boards(rng, N, size)
@@ -511,19 +586,20 @@ def phase_kernel4(dev) -> dict:
             pa0[:size] = torch.from_numpy(depth).to(dev).to(torch.int8)
             st0 = C.new_state(size, INF, dev)
             pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
-            CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, g, M, mterm, K)
+            run_cuda(pv, pa, st)
             pv2, pa2, st2 = pv0.clone(), pa0.clone(), st0.clone()
-            CN.cycle_nqueens_plain(pv2, pa2, st2, N, g, M, mterm, K)
+            scal2 = run_plain(pv2, pa2, st2)
             torch.cuda.synchronize()
             live = int(st2[C.ST_SIZE])
             err = max(
                 int((st[:C.ST_BASE + 1] - st2[:C.ST_BASE + 1]).abs().max()),
                 int((pv[:live].int() - pv2[:live].int()).abs().max()) if live else 0,
                 int((pa[:live].int() - pa2[:live].int()).abs().max()) if live else 0,
+                int((scratch.scal - scal2).abs().max()) if tiled else 0,
             )
             tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
             check(err == 0 and int(st2[C.ST_CYCLES]) == 1 and tree > 0 and sol > 0,
-                  f"N-Queens cycle kernel differs from plain (M={M}, {chunk})")
+                  f"{phase} N-Queens cycle kernel differs from plain (M={M}, {chunk})")
 
             def restore():
                 pv.copy_(pv0)
@@ -534,22 +610,21 @@ def phase_kernel4(dev) -> dict:
                 st2.copy_(st0)
 
             def call():
-                CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, g, M, mterm, K)
+                run_cuda(pv, pa, st)
 
-            ms, timing = kernel_device_ms(call, 30, NQ_CYCLE_KERNELS, restore)
+            ms, timing = kernel_device_ms(call, 30, names, restore)
             call_ms = median_ms(call, 30, restore)
-            plain_ms = median_ms(lambda: CN.cycle_nqueens_plain(
-                pv2, pa2, st2, N, g, M, mterm, K), 3, restore)
+            plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2), 3, restore)
             cnt = min(size, M)
             pop = depth[size - cnt:]
-            nbytes = cnt * (N + 1) + tree * (N + 1) + 64
+            nbytes = cnt * (N + 1) + tree * (N + 1) + 64 + (24 * G if tiled else 0)
             bms, by = bound_ms(nbytes, nq_ops(pop[pop < N], N, g))
             rows[(M, chunk)] = dict(
-                M=M, chunk=chunk, popped=cnt, tree_inc=tree, sol_inc=sol,
-                max_abs_err=err, ms=ms, timing=timing, call_ms=call_ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3,
-                bound_by=by)
-            emit("kernel4", **rows[(M, chunk)])
+                M=M, mt=mt if tiled else M, chunk=chunk, popped=cnt,
+                tree_inc=tree, sol_inc=sol, max_abs_err=err, ms=ms,
+                timing=timing, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+            emit(phase, **rows[(M, chunk)])
     return rows
 
 
@@ -583,6 +658,74 @@ def phase_kernel5(dev, tables) -> dict:
                 bound_us=bms * 1e3, bound_by=by)
             emit("kernel5", **rows[(B, str(dtype))])
     return rows
+
+
+def _eval_plain(prob, dev):
+    """The plain plane of ``prob``'s eval entry: lb1 or lb2 (open slots
+    compared), or the N-Queens labels (every slot)."""
+    from tpu_tree_search_torch.ops.nqueens_device import labels_chunk
+    from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
+
+    if prob.name == "nqueens":
+        return lambda b, d: labels_chunk(b, d, prob.N, prob.g).to(torch.int32)
+    tables = prob.device_tables(dev)
+    bound = lb1_chunk if prob.lb == "lb1" else lb2_chunk
+    return lambda p, lim: bound(p, lim, tables)
+
+
+def _eval_inputs(rng, prob, dev, B: int, dtype):
+    """Seeded chunk of ``prob`` on the card and its compared-slot mask:
+    PFSP partial permutations (open slots), N-Queens boards (every slot)."""
+    if prob.name == "nqueens":
+        board, depth = random_boards(rng, prob.N, B)
+        mask = torch.ones((B, prob.N), dtype=torch.bool, device=dev)
+        return (torch.from_numpy(board).to(dev),
+                torch.from_numpy(depth).to(dev).to(dtype), depth, mask)
+    n = prob.jobs
+    prmu, limit1 = random_nodes(rng, n, B)
+    mask = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
+    return (torch.from_numpy(prmu).to(dev).to(dtype),
+            torch.from_numpy(limit1).to(dev).to(dtype), limit1, mask)
+
+
+def phase_eval_pass(dev, probs: dict, counters: dict) -> dict:
+    """The eval-only pass through its library entries, as a user calls it:
+    ``streamed_eval_bounds`` on a ta014 lb1 and an lb2 chunk of B = 49152 at
+    mt = 64 and an N-Queens N = 15 chunk of B = 50000 at mt = 80, then
+    ``megakernel_lb2_bounds`` on the lb2 chunk (kernels 1, 3 and 6), with
+    every kernel's launch count set to 0 just before and read just after;
+    each plane is then checked against the plain one."""
+    from tpu_tree_search_torch.ops import tiled as T
+
+    rng = np.random.default_rng(19)
+    inputs = {fam: _eval_inputs(rng, prob, dev, 50000 if fam == "nqueens" else 49152,
+                                torch.int8)
+              for fam, prob in probs.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planes = {fam: T.streamed_eval_bounds(probs[fam], vals, aux,
+                                          80 if fam == "nqueens" else 64)
+              for fam, (vals, aux, _, _) in inputs.items()}
+    vals, aux = inputs["lb2"][:2]
+    planes["megakernel_lb2"] = T.megakernel_lb2_bounds(
+        vals, aux, probs["lb2"].device_tables(dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    err = 0
+    for fam, got in planes.items():
+        vals, aux, _, mask = inputs["lb2" if fam == "megakernel_lb2" else fam]
+        want = _eval_plain(probs["lb2" if fam == "megakernel_lb2" else fam], dev)(vals, aux)
+        check(got.shape == want.shape and got.dtype == torch.int32,
+              f"eval pass {fam}: shape {tuple(got.shape)} {got.dtype}")
+        err = max(err, int((got[mask].long() - want[mask].long()).abs().max()))
+    check(err == 0, "the eval-only pass differs from the plain planes")
+    out = dict(launches=launches, seconds=seconds, max_abs_err=err,
+               rows={f: int(p.shape[0]) for f, p in planes.items()})
+    emit("eval_pass", **out)
+    return dict(out, phase="eval_pass")
 
 
 def run_search(argv: list[str], golden: dict) -> dict:
@@ -679,7 +822,8 @@ def main() -> int:
         lb2_self_kernel,
         nqueens_kernel,
     )
-    from tpu_tree_search_torch.problems import PFSPProblem
+    from tpu_tree_search_torch.ops import tiled as T
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 
     phase_build()
     dev = torch.device("cuda", 0)
@@ -694,6 +838,12 @@ def main() -> int:
     k6 = phase_kernel6(dev, lb2_tables)
     k7 = phase_kernel7(dev, lb2_tables["ta014"])
     k8 = phase_pfsp_cycle("kernel8", dev, lb2_tables["ta014"], "lb2", 8)
+    k9 = phase_pfsp_cycle("kernel9", dev, tables, "lb1", 9, tiled=True)
+    k10 = phase_kernel4(dev, "kernel10", tiled=True)
+    k11 = phase_pfsp_cycle("kernel11", dev, lb2_tables["ta014"], "lb2", 11, tiled=True)
+    eval_probs = {"lb1": PFSPProblem(inst=14, lb="lb1", ub=1),
+                  "lb2": PFSPProblem(inst=14, lb="lb2", ub=1),
+                  "nqueens": NQueensProblem(15)}
     counters = {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
                 "cycle_lb1": C.cycle_lb1_cuda,
                 "nqueens_labels": nqueens_kernel.nqueens_labels_cuda,
@@ -701,7 +851,10 @@ def main() -> int:
                 "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda,
                 "lb2_bounds": lb2_kernel.lb2_bounds_cuda,
                 "lb2_self_bounds": lb2_self_kernel.lb2_self_bounds_cuda,
-                "cycle_lb2": C.cycle_lb2_cuda}
+                "cycle_lb2": C.cycle_lb2_cuda,
+                "tiled_lb1": T.tiled_lb1_cuda,
+                "tiled_nqueens": T.tiled_nqueens_cuda,
+                "tiled_lb2": T.tiled_lb2_cuda}
     fused = phase_search("search_fused_M49152", PFSP_LB1, counters)
     check(fused["launches"]["cycle_lb1"] > 0, "kernel 2 not launched on the main path")
     fused1k = phase_search("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], counters)
@@ -742,12 +895,46 @@ def main() -> int:
     check(not lb2u["fused"] and not lb2u["staged"]
           and lb2u["launches"]["lb2_bounds"] > 0,
           "kernel 6 not launched on the unstaged lb2 path")
+    lb1t = phase_search("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], counters)
+    check(lb1t["megakernel_tiled"] and lb1t["megakernel_mt"] == 64
+          and lb1t["launches"]["tiled_lb1"] > 0 and lb1t["launches"]["cycle_lb1"] == 0,
+          "kernel 9 not launched on the streamed lb1 path")
+    lb1t1k = phase_search("search_lb1_tiled_M1024",
+                          PFSP_LB1 + ["--M", "1024", "--mt", "16"], counters)
+    check(lb1t1k["megakernel_tiled"] and lb1t1k["launches"]["tiled_lb1"] > 0
+          and lb1t1k["launches"]["cycle_lb1"] == 0,
+          "kernel 9 not launched on the streamed lb1 path at M=1024")
+    lb2t = phase_search("search_lb2_tiled_M49152", PFSP_LB2 + ["--mt", "64"], counters,
+                        GOLDEN_LB2)
+    check(lb2t["megakernel_tiled"] and lb2t["launches"]["tiled_lb2"] > 0
+          and lb2t["launches"]["cycle_lb2"] == 0,
+          "kernel 11 not launched on the streamed lb2 path")
+    nqt = phase_search("search_nqueens_N15_tiled",
+                       ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"],
+                       counters, NQ_GOLDEN[15])
+    check(nqt["megakernel_tiled"] and nqt["launches"]["tiled_nqueens"] > 0
+          and nqt["launches"]["cycle_nqueens"] == 0,
+          "kernel 10 not launched on the streamed N-Queens path")
+    evp = phase_eval_pass(dev, eval_probs, counters)
+    check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
+          and evp["launches"]["lb2_bounds"] == 2,
+          "kernels 1, 3 and 6 not launched once a call on the eval-only pass")
     for name, extra, kwargs in [
             ("search_lb2_fused_M49152", [], {}),
             ("search_lb2_fused_M1024", ["--M", "1024"], {}),
             ("search_lb2_unfused_staged", ["--unfused"], {}),
-            ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False))]:
+            ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False)),
+            ("search_lb2_tiled_M49152", ["--mt", "64"], {})]:
         phase_profile(name, PFSP_LB2 + extra, GOLDEN_LB2, **kwargs)
+    # The streamed searches beside the single-tile ones, in the same run.
+    for name, argv, golden in [
+            ("search_fused_M49152", PFSP_LB1, GOLDEN),
+            ("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], GOLDEN),
+            ("search_nqueens_N15_fused", ["nqueens", "--N", "15", "--tier", "device"],
+             NQ_GOLDEN[15]),
+            ("search_nqueens_N15_tiled",
+             ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"], NQ_GOLDEN[15])]:
+        phase_profile(name, argv, golden)
 
     k1_main = k1[(1024, "torch.int8")]
     k2_main = k2[(49152, "full", "finite")]
@@ -793,12 +980,28 @@ def main() -> int:
         ("cycle_lb2", "cycle_lb2.cu", "megakernel.py:588",
          lb2f, "ta014 M=49152 full chunk, finite incumbent", k8,
          k8[(49152, "full", "finite")]),
+        ("tiled_lb1", "tiled_lb1.cu", "megakernel.py:677",
+         lb1t, "ta014 M=49152 mt=64 full chunk, finite incumbent", k9,
+         k9[(49152, "full", "finite")]),
+        ("tiled_nqueens", "tiled_nqueens.cu", "megakernel.py:650",
+         nqt, "M=50000 mt=80 N=15 full chunk", k10, k10[(50000, "full")]),
+        ("tiled_lb2", "tiled_lb2.cu", "megakernel.py:723",
+         lb2t, "ta014 M=49152 mt=64 full chunk, finite incumbent", k11,
+         k11[(49152, "full", "finite")]),
+        # The eval-only pass's TPU kernels, on kernels 1, 3 and 6.
+        ("eval_lb1", "lb1_bounds.cu", "megakernel.py:1115", evp,
+         "ta014 B=49152 int8", dict(k1, eval_pass=evp), k1[(49152, "torch.int8")]),
+        ("eval_nqueens", "nqueens_labels.cu", "megakernel.py:1108", evp,
+         "B=50000 N=15 g=1 int8 depth", dict(k3, eval_pass=evp), k3[(15, 50000, 1)]),
+        ("eval_lb2", "lb2_bounds.cu", "megakernel.py:1123", evp,
+         "ta014 B=49152 int8", dict(k6, eval_pass=evp), k6[("ta014", 49152, "torch.int8")]),
     ]:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpu_tree_search_torch/csrc/{source}",
             "replaces": f"tpu_tree_search/ops/{replaces}",
-            "launches": path["launches"][name], "launches_path": path["phase"],
+            "launches": path["launches"][EVAL_KERNEL.get(name, name)],
+            "launches_path": path["phase"],
             "shape": shape,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": main_row["ms"], "timing": main_row["timing"],

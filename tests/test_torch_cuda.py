@@ -8,8 +8,8 @@ with the card and no JAX:
 (``--noconftest``: the suite's conftest pins JAX to the CPU.) Each kernel is
 held to its plain PyTorch version on the same inputs with tolerance 0, and
 the searches on the card to the counts of the JAX package's sequential tier
-on a reduced PFSP instance (lb1, lb1_d and lb2 in its three forms) and to
-the N-Queens N=10 goldens.
+on a reduced PFSP instance (lb1, lb1_d and lb2 in its three forms, and the
+streamed cycle) and to the N-Queens N=10 goldens.
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ from tpu_tree_search_torch.ops import (
     lb2_self_kernel,
     nqueens_kernel,
 )
+from tpu_tree_search_torch.ops import tiled as T
+from tpu_tree_search_torch.ops.nqueens_device import labels_chunk
+from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
 from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 from tpu_tree_search_torch.problems.pfsp import taillard
 
@@ -291,3 +294,115 @@ def test_lb2_kernels_raise_on_what_they_do_not_take(cuda):
     rows = torch.zeros((4, ptm.shape[1]), dtype=torch.int8, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lb2_kernel.lb2_bounds_cuda(rows, torch.zeros(4, dtype=torch.int8, device=cuda), big)
+
+
+# -- the streamed cycle (kernels 9, 10 and 11) and the eval-only pass ----------
+
+
+def _tiled_check(cuda_cycle, plain_cycle, pv, pa, st, scratch, spec, M, mt,
+                 cycles=2):
+    """``cycles`` streamed cycles on the card and in plain PyTorch from one
+    pool: equal state, live rows and (G, 4) per-tile scalars after each (the
+    second cycle runs on status words and a ticket the first one used)."""
+    m, K = 25, 4
+    pv2, pa2, st2 = pv.clone(), pa.clone(), st.clone()
+    for _ in range(cycles):
+        cuda_cycle(pv, pa, st, scratch, spec, M, mt, m, K)
+        scal = plain_cycle(pv2, pa2, st2, spec, M, mt, m, K)
+        torch.cuda.synchronize()
+        assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+        live = int(st[C.ST_SIZE])
+        assert torch.equal(pv[:live], pv2[:live])
+        assert torch.equal(pa[:live], pa2[:live])
+        assert torch.equal(scratch.scal, scal)
+        assert int(st[C.ST_TREE]) > 0
+
+
+@pytest.mark.parametrize("incumbent", ["finite", "inf"])
+@pytest.mark.parametrize("chunk", ["partial", "full"])
+@pytest.mark.parametrize("M,mt", [(1024, 16), (49152, 64)])
+@pytest.mark.parametrize("lb", ["lb1", "lb2"])
+def test_tiled_pfsp_kernel_matches_plain(cuda, lb, M, mt, chunk, incumbent):
+    t = PFSPProblem(inst=14, lb=lb, ub=1).device_tables(cuda)
+    n = 20
+    size = M // 2 + 3 if chunk == "partial" else M + 517
+    prmu, limit1 = _nodes(np.random.default_rng(M + size), n, size)
+    cap = size + 2 * M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    st = C.new_state(size, 1500 if incumbent == "finite" else INF, cuda)
+    cuda_cycle, plain_cycle = ((T.tiled_lb1_cuda, T.tiled_lb1_plain) if lb == "lb1"
+                               else (T.tiled_lb2_cuda, T.tiled_lb2_plain))
+    _tiled_check(cuda_cycle, plain_cycle, pv, pa, st,
+                 T.tiled_scratch(M, n, mt, torch.int8, cuda), t, M, mt)
+
+
+@pytest.mark.parametrize("chunk", ["partial", "full"])
+@pytest.mark.parametrize("M,mt", [(1024, 16), (50000, 80)])
+def test_tiled_nqueens_kernel_matches_plain(cuda, M, mt, chunk):
+    prob = NQueensProblem(15)
+    N = prob.N
+    size = M // 2 + 3 if chunk == "partial" else M + 517
+    board, depth = _boards(np.random.default_rng(M + size), N, size)
+    cap = size + 2 * M * N
+    pv = torch.zeros((cap, N), dtype=torch.uint8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(board).to(cuda)
+    pa[:size] = torch.from_numpy(depth).to(cuda).to(torch.int8)
+    _tiled_check(T.tiled_nqueens_cuda, T.tiled_nqueens_plain, pv, pa,
+                 C.new_state(size, INF, cuda),
+                 T.tiled_nqueens_scratch(M, N, mt, cuda), prob, M, mt)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("B,mt", [(1024, 16), (49152, 64)])
+@pytest.mark.parametrize("lb", ["lb1", "lb2"])
+def test_streamed_eval_pfsp_matches_plain(cuda, lb, B, mt, dtype):
+    prob = PFSPProblem(inst=14, lb=lb, ub=1)
+    prmu, limit1 = _nodes(np.random.default_rng(B + mt), 20, B)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = T.streamed_eval_bounds(prob, p, lim, mt)
+    want = (lb1_chunk if lb == "lb1" else lb2_chunk)(p, lim, prob.device_tables(cuda))
+    torch.cuda.synchronize()
+    op = torch.from_numpy(np.arange(20)[None, :] > limit1[:, None]).to(cuda)
+    assert torch.equal(got[op], want[op])
+    if lb == "lb2":  # any B
+        got = T.megakernel_lb2_bounds(p[:1000], lim[:1000], prob.device_tables(cuda))
+        assert torch.equal(got[op[:1000]], want[:1000][op[:1000]])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("B,mt", [(1000, 8), (50000, 80)])
+def test_streamed_eval_nqueens_matches_plain(cuda, B, mt, dtype):
+    prob = NQueensProblem(15, g=2)
+    board, depth = _boards(np.random.default_rng(B), 15, B)
+    b = torch.from_numpy(board).to(cuda)
+    d = torch.from_numpy(depth).to(cuda).to(dtype)
+    got = T.streamed_eval_bounds(prob, b, d, mt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, labels_chunk(b, d, 15, 2).to(torch.int32))
+
+
+@pytest.mark.parametrize("lb", ["lb1", "lb2"])
+def test_tiled_search_on_card_matches_sequential_counts(cuda, lb):
+    ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+    want = REDUCED if lb == "lb1" else REDUCED_LB2
+    fn = T.tiled_lb1_cuda if lb == "lb1" else T.tiled_lb2_cuda
+    fn.launches = 0
+    res = resident_search(PFSPProblem(lb=lb, ub=0, p_times=ptm), m=8, M=256,
+                          K=64, initial_best=want["best"], device=cuda, mt=16)
+    assert (res.explored_tree, res.explored_sol, res.best) == (
+        want["tree"], want["sol"], want["best"])
+    assert res.megakernel_mt == 16 and fn.launches > 0
+
+
+def test_tiled_nqueens_search_on_card_matches_goldens(cuda):
+    T.tiled_nqueens_cuda.launches = 0
+    res = resident_search(NQueensProblem(10), m=25, M=1024, K=64, device=cuda,
+                          mt=16)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert res.megakernel_mt == 16 and T.tiled_nqueens_cuda.launches > 0

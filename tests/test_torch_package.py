@@ -4,7 +4,7 @@
     JAX or anything of the JAX package (an AST scan of every import).
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
-  * The CLI refuses what is not ported with the ROADMAP item, runs
+  * The CLI refuses what is not ported with the ROADMAP queue, runs
     N-Queens and PFSP lb1/lb1_d/lb2 on the device tier, and ``chip_smoke.py``
     fails (prints no result) without a card.
 """
@@ -111,13 +111,15 @@ def test_kernel_sources_export_the_bound_entries():
     names = {p.stem for p in _build.sources()}
     assert names == {"lb1_bounds", "cycle_lb1", "nqueens_labels",
                      "cycle_nqueens", "lb1_d_bounds", "lb2_bounds",
-                     "lb2_self_bounds", "cycle_lb2"}
+                     "lb2_self_bounds", "cycle_lb2", "tiled_lb1",
+                     "tiled_nqueens", "tiled_lb2"}
     text = {p.stem: p.read_text() for p in _build.sources()}
     for src, entries in [("lb1_bounds", ("lb1_bounds_i8", "lb1_bounds_i32")),
                          ("lb1_d_bounds", ("lb1_d_bounds_i8", "lb1_d_bounds_i32")),
                          ("nqueens_labels", ("nqueens_labels_i8",
                                              "nqueens_labels_i32")),
-                         ("cycle_nqueens", ("cycle_nqueens",))]:
+                         ("cycle_nqueens", ("cycle_nqueens",)),
+                         ("tiled_nqueens", ("tiled_nqueens",))]:
         for entry in entries:
             assert f'extern "C" int {entry}(' in text[src]
     for src, macro, entries in [
@@ -125,12 +127,14 @@ def test_kernel_sources_export_the_bound_entries():
             ("lb2_bounds", "TTS_LB2_ENTRY", ("lb2_bounds_i8", "lb2_bounds_i32")),
             ("lb2_self_bounds", "TTS_LB2_SELF_ENTRY",
              ("lb2_self_bounds_i8", "lb2_self_bounds_i32")),
-            ("cycle_lb2", "TTS_CYCLE_LB2_ENTRY", ("cycle_lb2_i8", "cycle_lb2_i32"))]:
+            ("cycle_lb2", "TTS_CYCLE_LB2_ENTRY", ("cycle_lb2_i8", "cycle_lb2_i32")),
+            ("tiled_lb1", "TTS_TILED_LB1_ENTRY", ("tiled_lb1_i8", "tiled_lb1_i32")),
+            ("tiled_lb2", "TTS_TILED_LB2_ENTRY", ("tiled_lb2_i8", "tiled_lb2_i32"))]:
         for entry in entries:
             assert f"{macro}({entry}," in text[src]
     # The lb2 kernels report their shared memory a block for the wrappers'
     # shape check.
-    for src in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2"):
+    for src in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2", "tiled_lb2"):
         assert f'extern "C" long long {src}_smem(' in text[src]
     # Each source names the TPU kernel it replaces.
     for src, tpu in [("lb1_bounds", "_lb1_kernel"), ("cycle_lb1", "_mega_lb1_kernel"),
@@ -139,8 +143,19 @@ def test_kernel_sources_export_the_bound_entries():
                      ("lb1_d_bounds", "_lb1_d_kernel"),
                      ("lb2_bounds", "_lb2_kernel"),
                      ("lb2_self_bounds", "_lb2_self_kernel"),
-                     ("cycle_lb2", "_mega_lb2_kernel")]:
+                     ("cycle_lb2", "_mega_lb2_kernel"),
+                     ("tiled_lb1", "_mega_lb1_tiled_kernel"),
+                     ("tiled_nqueens", "_mega_nqueens_tiled_kernel"),
+                     ("tiled_lb2", "_mega_lb2_tiled_kernel")]:
         assert f"Replaces the TPU kernel `{tpu}`" in text[src]
+    # The eval-only pass runs on kernels 1, 3 and 6, whose sources say so.
+    for src, tpu in [("lb1_bounds", "_eval_lb1_kernel"),
+                     ("nqueens_labels", "_eval_nqueens_kernel"),
+                     ("lb2_bounds", "_eval_lb2_kernel")]:
+        assert f"the TPU kernel `{tpu}`" in text[src]
+        assert "ops/tiled.streamed_eval_bounds" in text[src]
+    for src in ("tiled_lb1", "tiled_nqueens", "tiled_lb2"):
+        assert "_eval_" not in text[src]
 
 
 # ta014's 10-job, 5-machine corner under the nabeshima pairs and its optimal

@@ -3,12 +3,15 @@
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --ub 1 --tier device [--json]
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb2 [--lb2-variant nabeshima] [--unfused]
     python -m tpu_tree_search_torch nqueens --N 15 --tier device [--json]
+    python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --mt 64   # streamed cycle
 
 The banner and the report follow the reference's format (`print_settings` /
 `print_results`). Supported: ``--tier device`` (the device-resident engine)
 for N-Queens and for PFSP with ``--lb lb1``, ``lb1_d`` or ``lb2``; under
-lb2, ``--unfused`` runs the staged evaluator. The other tiers exit 2 naming
-the ROADMAP.md item that ports them.
+lb2, ``--unfused`` runs the staged evaluator. ``--mt`` (the JAX
+``TTS_MEGAKERNEL_MT``) streams the fused cycle in tiles of that many parents;
+a width that is not a multiple of 8 dividing M exits 2. The other tiers exit
+2 naming the ROADMAP.md queue that ports them.
 """
 
 from __future__ import annotations
@@ -65,6 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the unfused cycle (evaluator kernel + torch "
                         "compaction; staged under lb2) instead of the fused "
                         "CUDA cycle")
+    p.add_argument("--mt", type=int, default=None,
+                   help="tile width of the fused cycle (the JAX "
+                        "TTS_MEGAKERNEL_MT): below M the chunk is streamed in "
+                        "M/mt tiles; a multiple of 8 that divides M. Inert "
+                        "with --unfused and under lb1_d")
     p.add_argument("--json", action="store_true",
                    help="print one JSON result line after the report")
     return p
@@ -74,7 +82,7 @@ def check_supported(args) -> None:
     if args.tier != "device":
         raise NotImplementedError(
             f"tier {args.tier!r} is not ported yet (ROADMAP.md queue A, "
-            "item 4); the port runs --tier device")
+            "the tiers); the port runs --tier device")
 
 
 def make_problem(args):
@@ -108,6 +116,11 @@ def print_settings(args, device) -> None:
     print("=================================================")
 
 
+def megakernel_tiled(res) -> bool:
+    """Whether the fused cycle streamed its chunk in tiles (Mt < M)."""
+    return res.megakernel_mt is not None and res.megakernel_mt < res.M
+
+
 def print_results(problem, res) -> None:
     labels = ("Initial search on CPU", "Search on device", "Final search on CPU")
     for label, ph in zip(labels, res.phases):
@@ -124,6 +137,9 @@ def print_results(problem, res) -> None:
         print(f"Optimal makespan: {res.best}{tag}")
     print(f"Elapsed time: {res.elapsed:.6f} [s]")
     cycle = "fused CUDA cycle" if res.fused else f"unfused ({res.compact})"
+    if res.megakernel_mt:
+        form = "tiled" if megakernel_tiled(res) else "single-tile"
+        cycle += f", {form} Mt={res.megakernel_mt}"
     if res.staged:
         cycle += ", staged lb2"
     print(f"Device cycle: {cycle}, M={res.M}, K={res.k_resolved}, "
@@ -152,6 +168,11 @@ def result_record(args, res, device) -> dict:
         "device_cycles": res.diagnostics.kernel_launches,
         "stall_fallbacks": res.stall_fallbacks,
     }
+    if res.megakernel_mt:
+        # Which fused form produced the numbers: the single-tile cycle
+        # (Mt == M) or the streamed one (`tpu_tree_search/cli.py:1004-1006`).
+        rec.update(megakernel_mt=res.megakernel_mt,
+                   megakernel_tiled=megakernel_tiled(res))
     if args.problem == "pfsp":
         rec.update(inst=args.inst, lb=args.lb, ub=args.ub, optimum=res.best)
         if args.lb == "lb2":
@@ -170,6 +191,7 @@ def main(argv=None) -> int:
         return 2
     from .engine.resident import resident_search
     from .ops.backend import resolve_device
+    from .ops.tiled import check_tile
 
     device = resolve_device(args.device)
     try:
@@ -178,9 +200,18 @@ def main(argv=None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 2
     M = args.M if args.M is not None else default_M(args.problem, device.type)
+    # The tile width of the fused cycle, checked before the search; lb1_d has
+    # no fused cycle, and there, as under --unfused, --mt is inert.
+    fused = not args.unfused and not (args.problem == "pfsp" and args.lb == "lb1_d")
+    if fused and args.mt is not None:
+        try:
+            check_tile(M, args.mt)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 2
     print_settings(args, device)
     res = resident_search(problem, m=args.m, M=M, K=args.K, device=device,
-                          fused=not args.unfused)
+                          fused=not args.unfused, mt=args.mt)
     print_results(problem, res)
     if args.json:
         print(json.dumps(result_record(args, res, device)))

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel `_lb1_kernel` (tpu_tree_search/ops/pallas_kernels.py,
 // built by `_lb1_family_call`, tile body `_lb1_tile_lb`), entry
-// `pfsp_lb1_bounds`.
+// `pfsp_lb1_bounds`, and the TPU kernel `_eval_lb1_kernel`
+// (tpu_tree_search/ops/megakernel.py, built by `_eval_lb1_call`), the same
+// lb1 plane tile by tile: `ops/tiled.streamed_eval_bounds` launches this
+// kernel for it, since a tile of the eval pass needs nothing of another.
 //
 // In:  prmu (B, n) and limit1 (B,) of one integer type T (int8 or int32, the
 //      resident pool's storage type), ptm_t (n, m), min_heads (m,),

@@ -1,7 +1,11 @@
 // Kernel 6: lb2 bound of every child slot of a chunk of PFSP parents.
 //
 // Replaces the TPU kernel `_lb2_kernel` (tpu_tree_search/ops/pallas_kernels.py,
-// built by `_lb2_call`, tile body `_lb2_tile_lb`), entry `pfsp_lb2_bounds`.
+// built by `_lb2_call`, tile body `_lb2_tile_lb`), entry `pfsp_lb2_bounds`,
+// and the TPU kernel `_eval_lb2_kernel` (tpu_tree_search/ops/megakernel.py,
+// built by `_eval_lb2_call`), the same lb2 plane tile by tile:
+// `ops/tiled.streamed_eval_bounds` and `megakernel_lb2_bounds` launch this
+// kernel for it.
 //
 // In:  prmu (B, n) and limit1 (B,) of one integer type T (int8 or int32, the
 //      resident pool's storage type), ptm_t (n, m) and min_heads (m,) int32,

@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel `_nqueens_kernel` (tpu_tree_search/ops/pallas_kernels.py,
 // built by `_nqueens_call`, tile body `_nqueens_tile_labels`), entry
-// `nqueens_labels`.
+// `nqueens_labels`, and the TPU kernel `_eval_nqueens_kernel`
+// (tpu_tree_search/ops/megakernel.py, built by `_eval_nqueens_call`), the
+// same labels tile by tile: `ops/tiled.streamed_eval_bounds` launches this
+// kernel for it and widens the labels to int32.
 //
 // In:  board (B, N) uint8, depth (B,) of type D (int8 or int32, the device
 //      pool's storage types), N <= 32, g >= 1 rounds.

@@ -23,8 +23,12 @@ Two cycles compute this and leave identical live pools:
     one-kernel cycle. The loop condition is evaluated on the device, so the
     host enqueues K cycles per dispatch with no synchronisation and reads
     the state once (the ``lax.while_loop`` counterpart; a cycle past
-    termination is an exact no-op). PFSP lb1_d has no fused cycle — the JAX
-    megakernel refuses it too — and always runs unfused;
+    termination is an exact no-op). With a tile width ``mt`` below M (the
+    JAX ``TTS_MEGAKERNEL_MT``) the fused cycle is the streamed one of
+    `ops/tiled.py`: the chunk in M // mt tiles, the survivors placed by a
+    carry across tiles, the same pool after the cycle. PFSP lb1_d has no
+    fused cycle — the JAX megakernel refuses it too — and always runs
+    unfused;
   * unfused (``fused=False``): pop, the problem's device evaluator (the
     lb1, lb1_d, lb2 or labels kernel), torch `compact_ids` and the
     one-gather push of `resident.py:311-352`, with the overflow branch. It
@@ -67,6 +71,14 @@ from ..ops.cycle import (
 )
 from ..ops.cycle_nqueens import cycle_nqueens, nqueens_scratch
 from ..ops.pfsp_device import lb1_bounds, lb2_bounds_staged
+from ..ops.tiled import (
+    check_tile,
+    tiled_lb1,
+    tiled_lb2,
+    tiled_nqueens,
+    tiled_nqueens_scratch,
+    tiled_scratch,
+)
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 from ..problems.nqueens import NQueensProblem
@@ -145,7 +157,8 @@ class _ResidentProgram:
     staged = False
 
     def __init__(self, problem: Problem, m: int, M: int, K: int,
-                 capacity: int, device, fused: bool = True):
+                 capacity: int, device, fused: bool = True,
+                 mt: int | None = None):
         n = problem.child_slots
         self.problem = problem
         self.m = m
@@ -153,6 +166,13 @@ class _ResidentProgram:
         self.capacity = capacity
         self.device = resolve_device(device)
         self.fused = fused
+        # The fused cycle's tile width: mt < M streams the chunk in M // mt
+        # tiles (`ops/tiled.py`), None or M keeps the single-tile cycle. Inert
+        # on the unfused cycle, as TTS_MEGAKERNEL_MT is with the kernel off.
+        if fused and mt is not None:
+            check_tile(M, mt)
+        self.mt = (mt or M) if fused else None
+        self.tiled = fused and self.mt < M
         # Counter headroom: one dispatch accumulates at most K*M*n into the
         # int32 tree/sol counters.
         self.K = max(1, min(K, (2**31 - 1) // max(1, M * n)))
@@ -316,12 +336,12 @@ class PFSPResident(_ResidentProgram):
 
     def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
-                 staged: bool = True):
+                 staged: bool = True, mt: int | None = None):
         self.vals_dtype = self.aux_dtype = pool_dtype(problem.jobs)
         # lb1_d has no fused cycle (the JAX megakernel refuses it,
         # `megakernel.py:351-354`): it runs the unfused cycle with its kernel.
         super().__init__(problem, m, M, K, capacity, device,
-                         fused=fused and problem.lb != "lb1_d")
+                         fused=fused and problem.lb != "lb1_d", mt=mt)
         self.tables = problem.device_tables(self.device)
         self.staged = staged and problem.lb == "lb2" and not self.fused
 
@@ -332,13 +352,22 @@ class PFSPResident(_ResidentProgram):
         return batch
 
     def _make_scratch(self):
+        if self.tiled:
+            return tiled_scratch(self.M, self.problem.jobs, self.mt,
+                                 self.vals_dtype, self.device)
         return cycle_scratch(self.M, self.problem.jobs, self.vals_dtype,
                              self.device)
 
     def _fused_cycle(self, state: ResidentState) -> None:
-        cycle = cycle_lb2 if self.problem.lb == "lb2" else cycle_lb1
-        cycle(state.pool_vals, state.pool_aux, state.st, self._scratch,
-              self.tables, self.M, self.m, self.K)
+        lb2 = self.problem.lb == "lb2"
+        if self.tiled:
+            (tiled_lb2 if lb2 else tiled_lb1)(
+                state.pool_vals, state.pool_aux, state.st, self._scratch,
+                self.tables, self.M, self.mt, self.m, self.K)
+            return
+        (cycle_lb2 if lb2 else cycle_lb1)(
+            state.pool_vals, state.pool_aux, state.st, self._scratch,
+            self.tables, self.M, self.m, self.K)
 
     def _swap_pos(self, aux):
         return aux + 1  # parent depth = limit1 + 1
@@ -373,15 +402,25 @@ class NQueensResident(_ResidentProgram):
     survivor_budget_div = 2
 
     def __init__(self, problem: NQueensProblem, m: int, M: int, K: int,
-                 capacity: int, device, fused: bool = True):
+                 capacity: int, device, fused: bool = True,
+                 mt: int | None = None):
         self.vals_dtype = torch.uint8
         self.aux_dtype = torch.int8 if problem.N <= 127 else torch.int32
-        super().__init__(problem, m, M, K, capacity, device, fused=fused)
+        super().__init__(problem, m, M, K, capacity, device, fused=fused,
+                         mt=mt)
 
     def _make_scratch(self):
+        if self.tiled:
+            return tiled_nqueens_scratch(self.M, self.problem.N, self.mt,
+                                         self.device)
         return nqueens_scratch(self.M, self.problem.N, self.device)
 
     def _fused_cycle(self, state: ResidentState) -> None:
+        if self.tiled:
+            tiled_nqueens(state.pool_vals, state.pool_aux, state.st,
+                          self._scratch, self.problem, self.M, self.mt,
+                          self.m, self.K)
+            return
         cycle_nqueens(state.pool_vals, state.pool_aux, state.st,
                       self._scratch, self.problem.N, self.problem.g, self.M,
                       self.m, self.K)
@@ -399,15 +438,16 @@ class NQueensResident(_ResidentProgram):
 
 
 def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
-                 device, fused: bool = True,
-                 staged: bool = True) -> _ResidentProgram:
+                 device, fused: bool = True, staged: bool = True,
+                 mt: int | None = None) -> _ResidentProgram:
     """The resident program of ``problem`` (`resident.py:674-711`);
-    ``staged`` reaches the PFSP lb2 program only."""
+    ``staged`` reaches the PFSP lb2 program only, ``mt`` the fused cycle."""
     if isinstance(problem, PFSPProblem):
         return PFSPResident(problem, m, M, K, capacity, device, fused=fused,
-                            staged=staged)
+                            staged=staged, mt=mt)
     if isinstance(problem, NQueensProblem):
-        return NQueensResident(problem, m, M, K, capacity, device, fused=fused)
+        return NQueensResident(problem, m, M, K, capacity, device, fused=fused,
+                               mt=mt)
     raise TypeError(f"no resident program for {type(problem).__name__}")
 
 
@@ -452,6 +492,7 @@ def resident_search(
     warmup_target: int | None = None,
     fused: bool = True,
     staged: bool = True,
+    mt: int | None = None,
 ) -> SearchResult:
     """3-phase search with a device-resident hot loop: host warm-up to
     ``warmup_target`` (default m) nodes, then dispatches of up to K device
@@ -460,8 +501,10 @@ def resident_search(
     `NQueensProblem`. ``device`` defaults to ``cuda`` (raises when absent);
     pass ``"cpu"`` for the plain PyTorch path. ``fused=False`` runs the
     unfused cycle, and under lb2 ``staged=False`` makes its evaluator the
-    single-pass lb2 kernel. Dispatch is synchronous: one scalar readback per
-    dispatch."""
+    single-pass lb2 kernel. ``mt`` (the JAX ``TTS_MEGAKERNEL_MT``) below M
+    streams the fused cycle in M // mt tiles; it must be a multiple of 8
+    that divides M (``ValueError`` otherwise) and is inert on the unfused
+    cycle. Dispatch is synchronous: one scalar readback per dispatch."""
     dev = resolve_device(device)
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
@@ -481,7 +524,7 @@ def resident_search(
 
     # -- phase 2: device-resident loop ----------------------------------------
     program = make_program(problem, m, M, K, capacity, dev, fused=fused,
-                           staged=staged)
+                           staged=staged, mt=mt)
     state = program.init_state(pool.as_batch(), best)
     pool.clear()
     diagnostics.host_to_device += 1
@@ -546,6 +589,7 @@ def resident_search(
         compact=program.compact,
         fused=program.fused,
         staged=program.staged,
+        megakernel_mt=program.mt,
         M=M,
         k_resolved=program.K,
         dispatches=dispatches,

@@ -53,6 +53,10 @@ class SearchResult:
     # Resident tier, PFSP lb2: whether the unfused cycle ran the staged
     # evaluator (lb1 prefilter, then lb2 of the compacted candidates).
     staged: bool = False
+    # Resident tier, fused cycle: the tile width Mt of the cycle; below M the
+    # chunk was streamed in M // Mt tiles, at M it was the single-tile cycle.
+    # None on the unfused cycle, which has no tiles.
+    megakernel_mt: int | None = None
     M: int | None = None
     k_resolved: int | None = None
     dispatches: int = 0
