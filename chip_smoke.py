@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tpu_tree_search_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15 and three profiles
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -16,7 +17,8 @@ ends the script with a non-zero exit before the final line:
      int8 and int32 inputs; bit-equal on the open slots;
   4. kernel 2 (the fused search cycle) against its plain version on the
      card: M = 1024 and 49152, finite and INF incumbent, a partial and a
-     full chunk; equal state and live pool rows;
+     full chunk; equal state and live pool rows; and on ta051 tables (50
+     jobs: two keep-mask words a parent) with an int32 pool;
   5. the full ta014 lb1 ub=1 search through the CLI on the fused path at
      M = 49152 (the default) and M = 1024: tree 2,573,652, sol 2,648,
      makespan 1377; kernel 2's launches counted from 0 around each run;
@@ -27,8 +29,8 @@ ends the script with a non-zero exit before the final line:
      (B, N) plane; and the g = 256 time at least 4x the g = 1 time at
      B = 50000, N = 15 (a smaller ratio means nvcc folded the rounds);
   8. ``kernel4`` (the fused N-Queens cycle) against its plain version at
-     N = 15: M = 1024 and 50000, a partial and a full chunk; equal state and
-     live pool rows;
+     N = 15: M = 1024 and 50000, a partial and a full chunk, g = 1 and (at
+     M = 50000) g = 4; equal state and live pool rows;
   9. ``kernel5`` (lb1_d bounds) against its plain version on ta014 tables:
      B = 1024 and 49152, int8 and int32; bit-equal on the open slots;
  10. N-Queens N = 15 through the CLI on the fused path at the default M:
@@ -65,7 +67,10 @@ ends the script with a non-zero exit before the final line:
      6 and 3 (counted), checked against the plain planes;
  20. the lb2 searches (and the streamed one) again under ``torch.profiler``,
      then ta014 lb1 and N-Queens N = 15, single-tile and streamed: device
-     time by kernel against the device phase's wall time (the busy share);
+     time by kernel against the device phase's wall time (the busy share),
+     and for the single-tile ta014 lb1 (kernel 2) and N-Queens (kernel 4)
+     searches the launches a cycle from the profiler's kernel counts (3 and
+     2, and no ``cycle_scan`` launch);
  21. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
      plain version, its time, the plain version's time and the bound; the
@@ -98,13 +103,13 @@ NQ_GOLDEN = {15: {"explored_tree": 171129071, "explored_sol": 2279184},
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
 INF = 2**31 - 1
-# The four kernels of one fused cycle (csrc/cycle_lb1.cu).
-CYCLE_KERNELS = ("cycle_bounds", "cycle_count", "cycle_scan", "cycle_emit")
-# The four kernels of one fused lb2 cycle (csrc/cycle_lb2.cu).
-LB2_CYCLE_KERNELS = ("lb2_cycle_bounds", "cycle_count", "cycle_scan",
-                     "cycle_emit")
-# The three kernels of one fused N-Queens cycle (csrc/cycle_nqueens.cu).
-NQ_CYCLE_KERNELS = ("nq_cycle_labels", "cycle_scan", "nq_cycle_emit")
+# The three kernels of one fused cycle (csrc/cycle_lb1.cu; the count
+# launch ends with the last block's offset scan).
+CYCLE_KERNELS = ("cycle_bounds", "cycle_count", "cycle_emit")
+# The three kernels of one fused lb2 cycle (csrc/cycle_lb2.cu).
+LB2_CYCLE_KERNELS = ("lb2_cycle_bounds", "cycle_count", "cycle_emit")
+# The two kernels of one fused N-Queens cycle (csrc/cycle_nqueens.cu).
+NQ_CYCLE_KERNELS = ("nq_cycle_labels", "nq_cycle_emit")
 # The kernel of each of the eval-only pass's TPU kernels, by counter.
 EVAL_KERNEL = {"eval_lb1": "lb1_bounds", "eval_nqueens": "nqueens_labels",
                "eval_lb2": "lb2_bounds"}
@@ -124,6 +129,11 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+# Device ms a call of each launch of the last profiled kernel_device_ms,
+# by launch name (the cycle phases print it beside the total).
+LAST_LAUNCH_MS: dict[str, float] = {}
+
+
 def _profiled_ms(fn, reps: int, names: tuple[str, ...], setup) -> float | None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -135,11 +145,15 @@ def _profiled_ms(fn, reps: int, names: tuple[str, ...], setup) -> float | None:
         torch.cuda.synchronize()
     total_us = 0.0
     found = 0
+    LAST_LAUNCH_MS.clear()
     for ev in prof.key_averages():
         if any(nm in ev.key for nm in names):
             us = getattr(ev, "device_time_total", None)
-            total_us += ev.cuda_time_total if us is None else us
+            us = ev.cuda_time_total if us is None else us
+            total_us += us
             found += ev.count
+            name = next(nm for nm in names if nm in ev.key)
+            LAST_LAUNCH_MS[name] = LAST_LAUNCH_MS.get(name, 0.0) + us / reps / 1e3
     return total_us / reps / 1e3 if found >= reps and total_us > 0 else None
 
 
@@ -321,18 +335,19 @@ def phase_kernel1(dev, tables) -> dict:
     return rows
 
 
-def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int):
+def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int,
+                    dtype=torch.int8):
     """(run the kernel, run its plain version, kernel names, the per-tile
-    scalars of the last kernel call or None) of one PFSP cycle: single-tile
-    (kernels 2, 8) or streamed in tiles of mt (kernels 9, 11). Each run
-    takes (pool_vals, pool_aux, st) and returns the plain version's (G, 4)
-    per-tile scalars, or None."""
+    scalars of the last kernel call or None) of one PFSP cycle on a pool of
+    ``dtype``: single-tile (kernels 2, 8) or streamed in tiles of mt
+    (kernels 9, 11). Each run takes (pool_vals, pool_aux, st) and returns
+    the plain version's (G, 4) per-tile scalars, or None."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import tiled as T
 
     n, K, mterm = tables.jobs, 4, 25
     if not tiled:
-        scratch = C.cycle_scratch(M, n, torch.int8, dev)
+        scratch = C.cycle_scratch(M, n, dtype, dev)
         cuda_cycle, plain_cycle = ((C.cycle_lb1_cuda, C.cycle_lb1_plain) if lb == "lb1"
                                    else (C.cycle_lb2_cuda, C.cycle_lb2_plain))
         return (lambda pv, pa, st: cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K),
@@ -347,12 +362,12 @@ def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int):
 
 
 def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
-                     tiled: bool = False) -> dict:
+                     tiled: bool = False, dtype=torch.int8) -> dict:
     """A PFSP cycle kernel (``lb`` lb1: kernel 2, or 9 when ``tiled``; lb2:
-    kernel 8, or 11) against its plain version: M = 1024 (streamed: mt = 16)
-    and 49152 (mt = 64), a partial and a full chunk, finite and INF
-    incumbent; equal state, live pool rows and, streamed, (G, 4) per-tile
-    scalars."""
+    kernel 8, or 11) against its plain version on a pool of ``dtype``:
+    M = 1024 (streamed: mt = 16) and 49152 (mt = 64), a partial and a full
+    chunk, finite and INF incumbent; equal state, live pool rows and,
+    streamed, (G, 4) per-tile scalars."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
 
@@ -362,8 +377,10 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
     n, m = tables.jobs, tables.machines
     rng = np.random.default_rng(seed)
     rows = {}
+    isz = dtype.itemsize
     for M, mt in ((1024, 16), (49152, 64)):
-        run_cuda, run_plain, names, scal = _pfsp_cycle_fns(dev, tables, lb, tiled, M, mt)
+        run_cuda, run_plain, names, scal = _pfsp_cycle_fns(dev, tables, lb, tiled, M, mt,
+                                                           dtype)
         G = M // mt if tiled else 1
         for chunk in ("partial", "full"):
             size = M // 2 + 3 if chunk == "partial" else M + 517
@@ -374,10 +391,10 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
             for incumbent in ("finite", "inf"):
                 best = int(np.median(lbs[leaf])) if incumbent == "finite" else INF
                 cap = size + M * n
-                pv0 = torch.zeros((cap, n), dtype=torch.int8, device=dev)
-                pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
-                pv0[:size] = torch.from_numpy(prmu).to(dev).to(torch.int8)
-                pa0[:size] = torch.from_numpy(limit1).to(dev).to(torch.int8)
+                pv0 = torch.zeros((cap, n), dtype=dtype, device=dev)
+                pa0 = torch.zeros(cap, dtype=dtype, device=dev)
+                pv0[:size] = torch.from_numpy(prmu).to(dev).to(dtype)
+                pa0[:size] = torch.from_numpy(limit1).to(dev).to(dtype)
                 st0 = C.new_state(size, best, dev)
                 pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
                 run_cuda(pv, pa, st)
@@ -407,24 +424,26 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                     run_cuda(pv, pa, st)
 
                 ms, timing = kernel_device_ms(call, 30, names, restore)
+                launch_ms = dict(LAST_LAUNCH_MS)
                 call_ms = median_ms(call, 30, restore)
                 plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2),
                                      3 if lb == "lb1" or M <= 1024 else 1, restore)
                 cnt = min(size, M)
                 # Rows popped and pushed, the tables, the state and, streamed,
                 # the per-tile scalars and status words.
-                nbytes = cnt * (n + 1) + tree * (n + 1) + table_bytes + 64 + \
+                nbytes = (cnt + tree) * (n + 1) * isz + table_bytes + 64 + \
                     (24 * G if tiled else 0)
                 pop = limit1[size - cnt:]
                 ops = (lb1_ops(pop, n, m) if lb == "lb1" else
                        lb2_ops(pop, n, m, tables.johnson.pair_count))
                 bms, by = bound_ms(nbytes, ops)
                 rows[(M, chunk, incumbent)] = dict(
+                    n=n, dtype=str(dtype),
                     M=M, mt=mt if tiled else M, chunk=chunk, incumbent=incumbent, popped=cnt,
                     tree_inc=tree, sol_inc=sol, best_in=best,
                     best_out=int(st2[C.ST_BEST]), max_abs_err=err, ms=ms,
-                    timing=timing, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3,
-                    bound_by=by)
+                    launch_ms=launch_ms, timing=timing, call_ms=call_ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
                 emit(phase, **rows[(M, chunk, incumbent)])
     return rows
 
@@ -545,18 +564,20 @@ def phase_kernel3(dev) -> dict:
 def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
     """The N-Queens cycle kernel (kernel 4, or 10 when ``tiled``) against
     its plain version at N = 15: M = 1024 (streamed: mt = 16) and 50000
-    (mt = 80), a partial and a full chunk; equal state, live pool rows and,
-    streamed, (G, 4) per-tile scalars."""
+    (mt = 80), a partial and a full chunk, g = 1 and (kernel 4, M = 50000)
+    g = 4; equal state, live pool rows and, streamed, (G, 4) per-tile
+    scalars. Rows are keyed (M, chunk), and (M, chunk, g) past g = 1."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
     from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.problems import NQueensProblem
 
-    N, g, K, mterm = 15, 1, 4, 25
-    prob = NQueensProblem(N, g=g)
+    N, K, mterm = 15, 4, 25
+    prob = NQueensProblem(N, g=1)
     rng = np.random.default_rng(10 if tiled else 4)
     rows = {}
-    for M, mt in ((1024, 16), (50000, 80)):
+    shapes = [(1024, 16, 1), (50000, 80, 1)] + ([] if tiled else [(50000, 80, 4)])
+    for M, mt, g in shapes:
         if tiled:
             scratch = T.tiled_nqueens_scratch(M, N, mt, dev)
             names = TILED_KERNELS["nqueens"]
@@ -599,7 +620,7 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
             )
             tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
             check(err == 0 and int(st2[C.ST_CYCLES]) == 1 and tree > 0 and sol > 0,
-                  f"{phase} N-Queens cycle kernel differs from plain (M={M}, {chunk})")
+                  f"{phase} N-Queens cycle kernel differs from plain (M={M}, {chunk}, g={g})")
 
             def restore():
                 pv.copy_(pv0)
@@ -613,18 +634,20 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
                 run_cuda(pv, pa, st)
 
             ms, timing = kernel_device_ms(call, 30, names, restore)
+            launch_ms = dict(LAST_LAUNCH_MS)
             call_ms = median_ms(call, 30, restore)
             plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2), 3, restore)
             cnt = min(size, M)
             pop = depth[size - cnt:]
             nbytes = cnt * (N + 1) + tree * (N + 1) + 64 + (24 * G if tiled else 0)
             bms, by = bound_ms(nbytes, nq_ops(pop[pop < N], N, g))
-            rows[(M, chunk)] = dict(
-                M=M, mt=mt if tiled else M, chunk=chunk, popped=cnt,
+            key = (M, chunk) if g == 1 else (M, chunk, g)
+            rows[key] = dict(
+                M=M, mt=mt if tiled else M, g=g, chunk=chunk, popped=cnt,
                 tree_inc=tree, sol_inc=sol, max_abs_err=err, ms=ms,
-                timing=timing, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
-            emit(phase, **rows[(M, chunk)])
+                launch_ms=launch_ms, timing=timing, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+            emit(phase, **rows[key])
     return rows
 
 
@@ -784,35 +807,86 @@ def phase_search(name: str, argv: list[str], counters: dict,
 
 
 def phase_profile(name: str, argv: list[str], golden: dict,
-                  **library_kwargs) -> dict:
+                  cycle: tuple | None = None, **library_kwargs) -> dict:
     """One search again under ``torch.profiler``: the device time of every
     kernel and copy in the run, summed by name (the top five are printed),
     against the wall time of the device phase (phase 2). Their ratio is the
     device's busy share of that phase; the profiler's host overhead stretches
-    the wall time, so the share is a lower bound."""
+    the wall time, so the share is a lower bound. ``cycle``, (wrapper,
+    kernel names, launches): the wrapper's calls in the run, the launches
+    of those kernels the profiler counted, and a check that each call made
+    ``launches`` of them and that no ``cycle_scan`` launch ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    counters = {} if cycle is None else {"cycle": cycle[0]}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rec = phase_search(f"{name}_profiled", argv, {}, golden, **library_kwargs)
+        rec = phase_search(f"{name}_profiled", argv, counters, golden, **library_kwargs)
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, counts = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         us = ev.self_cuda_time_total if us is None else us
         if ev.device_type == DeviceType.CUDA and us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
     busy_ms = sum(by_name.values())
     phase2_ms = rec["phases"][1][2] * 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
     out = dict(search=name, device_busy_ms=busy_ms, phase2_ms=phase2_ms,
                busy_share=busy_ms / phase2_ms, top_device_ms=top)
+    if cycle is not None:
+        _, names, per_call = cycle
+        calls = rec["launches"]["cycle"]
+        launches = sum(c for k, c in counts.items() if any(nm in k for nm in names))
+        cycle_ms = {k: v for k, v in by_name.items() if any(nm in k for nm in names)}
+        out.update(cycle_calls=calls, real_cycles=rec["device_cycles"],
+                   cycle_kernel_launches=launches,
+                   launches_per_cycle=launches / max(calls, 1),
+                   cycle_device_ms=cycle_ms,
+                   cycle_ms_per_real_cycle=sum(cycle_ms.values()) / max(rec["device_cycles"], 1))
+        # The trace may drop a few events (its buffers), never add any: more
+        # than per_call - 1 and at most per_call launches a cycle.
+        check(calls > 0 and (per_call - 1) * calls < launches <= per_call * calls,
+              f"{name}: {launches} launches of {names} for {calls} cycles, "
+              f"not {per_call} a cycle")
+        check(not any("cycle_scan" in k for k in counts),
+              f"{name}: a cycle_scan launch ran")
     emit("profile", **out)
     return out
 
 
+def main_cycles(dev, dev_info) -> int:
+    """``--cycles``: only the fused cycles (kernels 2, 4 and 8) against
+    their plain versions, and the ta014 lb1 and N-Queens N = 15 searches
+    under the profiler with their launches a cycle; the last line says
+    which phases ran."""
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
+    phase_pfsp_cycle("kernel2", dev, tables, "lb1", 1)
+    phase_pfsp_cycle("kernel2", dev, PFSPProblem(inst=51, lb="lb1", ub=1).device_tables(dev),
+                     "lb1", 51, dtype=torch.int32)
+    phase_kernel4(dev)
+    phase_pfsp_cycle("kernel8", dev, PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(dev),
+                     "lb2", 8)
+    phase_profile("search_fused_M49152", PFSP_LB1, GOLDEN,
+                  (C.cycle_lb1_cuda, CYCLE_KERNELS, 3))
+    phase_profile("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], GOLDEN,
+                  (C.cycle_lb1_cuda, CYCLE_KERNELS, 3))
+    phase_profile("search_nqueens_N15_fused", ["nqueens", "--N", "15", "--tier", "device"],
+                  NQ_GOLDEN[15], (CN.cycle_nqueens_cuda, NQ_CYCLE_KERNELS, 2))
+    print(json.dumps({"ok": True, "phases": "cycles", "device": dev_info}), flush=True)
+    return 0
+
+
 def main() -> int:
     dev_info = phase_device()
+    if sys.argv[1:] == ["--cycles"]:
+        phase_build()
+        return main_cycles(torch.device("cuda", 0), dev_info)
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
     from tpu_tree_search_torch.ops import (
@@ -832,6 +906,9 @@ def main() -> int:
                   for i in (14, 21, 51, 81)}
     k1 = phase_kernel1(dev, tables)
     k2 = phase_pfsp_cycle("kernel2", dev, tables, "lb1", 1)
+    # ta051 (50 jobs): two keep-mask words a parent, on an int32 pool.
+    ta051 = PFSPProblem(inst=51, lb="lb1", ub=1).device_tables(dev)
+    k2_51 = phase_pfsp_cycle("kernel2", dev, ta051, "lb1", 51, dtype=torch.int32)
     k3 = phase_kernel3(dev)
     k4 = phase_kernel4(dev)
     k5 = phase_kernel5(dev, tables)
@@ -926,15 +1003,18 @@ def main() -> int:
             ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False)),
             ("search_lb2_tiled_M49152", ["--mt", "64"], {})]:
         phase_profile(name, PFSP_LB2 + extra, GOLDEN_LB2, **kwargs)
-    # The streamed searches beside the single-tile ones, in the same run.
-    for name, argv, golden in [
-            ("search_fused_M49152", PFSP_LB1, GOLDEN),
-            ("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], GOLDEN),
+    # The streamed searches beside the single-tile ones, in the same run;
+    # the single-tile ones count kernel 2's and kernel 4's launches a cycle.
+    for name, argv, golden, cycle in [
+            ("search_fused_M49152", PFSP_LB1, GOLDEN,
+             (C.cycle_lb1_cuda, CYCLE_KERNELS, 3)),
+            ("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], GOLDEN, None),
             ("search_nqueens_N15_fused", ["nqueens", "--N", "15", "--tier", "device"],
-             NQ_GOLDEN[15]),
+             NQ_GOLDEN[15], (CN.cycle_nqueens_cuda, NQ_CYCLE_KERNELS, 2)),
             ("search_nqueens_N15_tiled",
-             ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"], NQ_GOLDEN[15])]:
-        phase_profile(name, argv, golden)
+             ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"], NQ_GOLDEN[15],
+             None)]:
+        phase_profile(name, argv, golden, cycle)
 
     k1_main = k1[(1024, "torch.int8")]
     k2_main = k2[(49152, "full", "finite")]
@@ -956,7 +1036,7 @@ def main() -> int:
          "launches": fused["launches"]["cycle_lb1"],
          "launches_path": "search_fused_M49152",
          "shape": "M=49152 full chunk, finite incumbent",
-         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in [*k2.values(), *k2_51.values()]),
          "ms": k2_main["ms"], "timing": k2_main["timing"], "call_ms": k2_main["call_ms"],
          "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

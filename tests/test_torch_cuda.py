@@ -99,6 +99,136 @@ def test_cycle_kernel_matches_plain(cuda, size, finite):
         assert torch.equal(pa[:live], pa2[:live])
 
 
+# -- the fused cycles' edges: kernel 2's two-word masks, the top bit of the
+# N-Queens mask, a last block of fewer parents, no-op cycles past the end ----
+
+
+def _cycles_match(cuda_cycle, plain_cycle, pv, pa, st, cycles, sync=True):
+    """``cycles`` cycles on the card and in plain PyTorch from one pool:
+    equal live rows and st[0:9], and st[9:] still 0 (the cycle keeps no
+    state past its pop), after each cycle (or, with ``sync`` False, after
+    all of them, the card's enqueued back to back before any plain one
+    runs). Returns the plain state."""
+    pv2, pa2, st2 = pv.clone(), pa.clone(), st.clone()
+
+    def same():
+        torch.cuda.synchronize()
+        assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+        assert not st[C.ST_BASE + 1:].any()
+        live = int(st[C.ST_SIZE])
+        assert torch.equal(pv[:live], pv2[:live])
+        assert torch.equal(pa[:live], pa2[:live])
+
+    if sync:
+        for _ in range(cycles):
+            cuda_cycle(pv, pa, st)
+            plain_cycle(pv2, pa2, st2)
+            same()
+        return st2
+    for _ in range(cycles):
+        cuda_cycle(pv, pa, st)
+    for _ in range(cycles):
+        plain_cycle(pv2, pa2, st2)
+    same()
+    return st2
+
+
+@pytest.mark.parametrize("N,g,M", [(4, 1, 1000), (15, 4, 1000), (32, 1, 333)])
+def test_nqueens_cycle_edges_match_plain(cuda, N, g, M):
+    # M = 1000 and 333 leave a last block of fewer than 32 parents; N = 32
+    # uses bit 31 of the mask word.
+    m, K = 25, 8
+    size = M + 77
+    board, depth = _boards(np.random.default_rng(N * g + M), N, size, 0.05)
+    cap = size + 4 * M * N
+    pv = torch.zeros((cap, N), dtype=torch.uint8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(board).to(cuda)
+    pa[:size] = torch.from_numpy(depth).to(cuda).to(torch.int8)
+    scratch = CN.nqueens_scratch(M, N, cuda)
+    st2 = _cycles_match(
+        lambda *a: CN.cycle_nqueens_cuda(*a, scratch, N, g, M, m, K),
+        lambda *a: CN.cycle_nqueens_plain(*a, N, g, M, m, K),
+        pv, pa, C.new_state(size, INF, cuda), 3)
+    assert int(st2[C.ST_TREE]) > 0
+
+
+@pytest.mark.parametrize("inst,dtype,M", [(14, torch.int8, 1000),
+                                          (51, torch.int32, 1000),
+                                          (51, torch.int32, 96)])
+@pytest.mark.parametrize("lb", ["lb1", "lb2"])
+def test_pfsp_cycle_edges_match_plain(cuda, lb, inst, dtype, M):
+    # ta051 has 50 jobs: two mask words a parent, an int32 pool.
+    t = PFSPProblem(inst=inst, lb=lb, ub=1).device_tables(cuda)
+    n, m, K = t.jobs, 25, 8
+    size = M + 61
+    prmu, limit1 = _nodes(np.random.default_rng(inst + M), n, size)
+    cap = size + 4 * M * n
+    pv = torch.zeros((cap, n), dtype=dtype, device=cuda)
+    pa = torch.zeros(cap, dtype=dtype, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(dtype)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(dtype)
+    scratch = C.cycle_scratch(M, n, dtype, cuda)
+    cuda_cycle, plain_cycle = ((C.cycle_lb1_cuda, C.cycle_lb1_plain) if lb == "lb1"
+                               else (C.cycle_lb2_cuda, C.cycle_lb2_plain))
+    st2 = _cycles_match(
+        lambda *a: cuda_cycle(*a, scratch, t, M, m, K),
+        lambda *a: plain_cycle(*a, t, M, m, K),
+        pv, pa, C.new_state(size, INF, cuda), 3)
+    assert int(st2[C.ST_TREE]) > 0
+
+
+@pytest.mark.parametrize("sync", [True, False])
+@pytest.mark.parametrize("problem", ["nqueens", "lb1", "lb2"])
+def test_cycles_past_termination_are_exact_noops(cuda, problem, sync):
+    # From one root: the search ends (size < m) or reaches K cycles well
+    # before the 40 cycles enqueued; the rest must be no-ops that leave the
+    # pool and st as they were.
+    M, m, K, cycles = 64, 1, 30, 40
+    if problem == "nqueens":
+        N = 7
+        pv = torch.zeros((M * N * 8, N), dtype=torch.uint8, device=cuda)
+        pa = torch.zeros(M * N * 8, dtype=torch.int8, device=cuda)
+        pv[0] = torch.arange(N, dtype=torch.uint8)
+        scratch = CN.nqueens_scratch(M, N, cuda)
+        cuda_cycle = lambda *a: CN.cycle_nqueens_cuda(*a, scratch, N, 1, M, m, K)  # noqa: E731
+        plain_cycle = lambda *a: CN.cycle_nqueens_plain(*a, N, 1, M, m, K)  # noqa: E731
+        best = INF
+    else:
+        ptm = taillard.reduced_instance(14, jobs=8, machines=5)
+        t = PFSPProblem(lb=problem, ub=0, p_times=ptm).device_tables(cuda)
+        n = 8
+        pv = torch.zeros((M * n * 8, n), dtype=torch.int8, device=cuda)
+        pa = torch.full((M * n * 8,), -1, dtype=torch.int8, device=cuda)
+        pv[0] = torch.arange(n, dtype=torch.int8)
+        scratch = C.cycle_scratch(M, n, torch.int8, cuda)
+        cuda_fn, plain_fn = ((C.cycle_lb1_cuda, C.cycle_lb1_plain) if problem == "lb1"
+                             else (C.cycle_lb2_cuda, C.cycle_lb2_plain))
+        cuda_cycle = lambda *a: cuda_fn(*a, scratch, t, M, m, K)  # noqa: E731
+        plain_cycle = lambda *a: plain_fn(*a, t, M, m, K)  # noqa: E731
+        best = INF
+    st2 = _cycles_match(cuda_cycle, plain_cycle, pv, pa, C.new_state(1, best, cuda),
+                        cycles, sync=sync)
+    assert int(st2[C.ST_ACTIVE]) == 0 and int(st2[C.ST_CYCLES]) < cycles
+
+
+@pytest.mark.parametrize("chunk", ["partial", "full"])
+def test_lb2_cycle_chunks_match_plain(cuda, chunk):
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    n, M, m, K = 20, 2048, 25, 8
+    size = M // 2 + 3 if chunk == "partial" else M + 517
+    prmu, limit1 = _nodes(np.random.default_rng(size), n, size)
+    cap = size + 4 * M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    scratch = C.cycle_scratch(M, n, torch.int8, cuda)
+    _cycles_match(lambda *a: C.cycle_lb2_cuda(*a, scratch, t, M, m, K),
+                  lambda *a: C.cycle_lb2_plain(*a, t, M, m, K),
+                  pv, pa, C.new_state(size, 1500, cuda), 3)
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
 @pytest.mark.parametrize("B", [1, 1000])
 def test_lb1_d_kernel_matches_plain(cuda, dtype, B):

@@ -159,3 +159,45 @@ def test_cycle_router_takes_plain_on_cpu_and_kernel_refuses_cpu():
     with pytest.raises(ValueError):
         C.cycle_lb1_cuda(pool_vals, pool_aux, st, None, t, 64, 8, 4)
 
+
+
+@pytest.mark.parametrize("n,words", [(1, 1), (20, 1), (31, 1), (32, 1), (33, 2),
+                                     (50, 2), (64, 2), (100, 4)])
+def test_mask_words_hold_one_bit_a_slot(n, words):
+    assert C.mask_words(n) == words
+    assert C.pfsp_plane_words(7, n) == 7 * n + 7 * words
+
+
+@pytest.mark.parametrize("nbytes,want", [(0, 16), (1, 32), (15, 32), (16, 32),
+                                         (17, 48), (640, 656), (480, 496)])
+def test_stash_block_bytes_leave_room_for_any_phase(nbytes, want):
+    # A block's rows start at their pool address's phase mod 16 (0..15)
+    # inside a 16-aligned region.
+    got = C.stash_block_bytes(nbytes)
+    assert got == want and got % 16 == 0 and got >= nbytes + 15
+
+
+@pytest.mark.parametrize("M,n,itemsize", [(1024, 20, 1), (49152, 20, 1),
+                                          (1000, 50, 4), (50000, 15, 1), (333, 32, 1)])
+def test_cycle_scratch_sizes_and_fit(M, n, itemsize):
+    pb = 32
+    nblk = -(-M // pb)
+    words = C.pfsp_plane_words(M, n)
+    sz = C.scratch_sizes(M, n, itemsize, pb, words)
+    assert sz == dict(chunk_vals=nblk * C.stash_block_bytes(pb * n * itemsize),
+                      chunk_aux=M, plane=words, blkcnt=nblk)
+    aux = torch.int8 if itemsize == 1 else torch.int32
+    s = C.CycleScratch.make(M, n, itemsize, aux, words, pb, CPU)
+    assert s.chunk_vals.dtype == torch.uint8 and s.plane.dtype == torch.int32
+    assert s.fits(M, n, itemsize, aux, words, pb)
+    assert s.fits(M, n, itemsize, aux, words, pb)  # the remembered check
+    assert not s.fits(M + pb, n, itemsize, aux, words, pb)
+    assert not s.fits(M, n, itemsize, torch.int16, words, pb)
+    assert not s.fits(M, n + 1, itemsize, aux, C.pfsp_plane_words(M, n + 1), pb)
+
+
+def test_new_state_zeroes_all_but_size_and_best():
+    st = C.new_state(5, 9, CPU)
+    assert st.shape == (C.ST_LEN,) and st.dtype == torch.int32
+    assert (int(st[C.ST_SIZE]), int(st[C.ST_BEST])) == (5, 9)
+    assert not st[C.ST_TREE:].any()

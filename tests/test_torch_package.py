@@ -158,6 +158,46 @@ def test_kernel_sources_export_the_bound_entries():
         assert "_eval_" not in text[src]
 
 
+def test_fused_cycle_sources_mirror_the_python_layout():
+    # The fused cycles have no scan launch, and their block and stash
+    # layout is the one ops/cycle.py sizes the scratch for.
+    from tpu_tree_search_torch.ops import cycle as C
+
+    common = (_build.CSRC / "cycle_common.cuh").read_text()
+    assert "#define TTS_CYCLE_PARENTS 32" in common
+    assert f"ST_BASE = {C.ST_BASE}," in common
+    assert "return (bytes + 15) / 16 * 16 + 16;" in common
+    assert 'extern "C" int tts_cycle_parents_per_block()' in common
+    for src in ("cycle_lb1.cu", "cycle_lb2.cu", "cycle_nqueens.cu",
+                "cycle_pfsp.cuh", "cycle_common.cuh"):
+        assert "cycle_scan" not in (_build.CSRC / src).read_text()
+    nq = (_build.CSRC / "nqueens_common.cuh").read_text()
+    assert "#define TTS_NQ_PARENTS_PER_BLOCK 32" in nq
+
+
+def test_chip_ab_reads_a_chip_smoke_run():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_ab", ROOT / "chip_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    out = "\n".join([
+        "NVIDIA H100 80GB HBM3, 700.00 W",
+        json.dumps({"phase": "kernel4", "M": 50000, "g": 1, "chunk": "full", "ms": 0.02}),
+        json.dumps({"phase": "search_x", "elapsed_s": 0.5, "phases": [[1, 0, 0.1], [2, 0, 0.3]]}),
+        json.dumps({"phase": "profile", "search": "search_x", "device_busy_ms": 3.0,
+                    "phase2_ms": 4.0, "busy_share": 0.75}),
+        json.dumps({"kernels": [{"name": "cycle_nqueens", "ms": 0.02}]}),
+        json.dumps({"ok": True, "device": {}}),
+    ])
+    got = ab.summarize(out)
+    assert got["card"] == "NVIDIA H100 80GB HBM3, 700.00 W" and got["ok"]
+    assert got["kernels"] == {"cycle_nqueens": 0.02}
+    assert got["cycles"] == {"kernel4/50000/1/full": 0.02}
+    assert got["searches"] == {"search_x": [0.5, 0.3]}
+    assert got["profiles"]["search_x"]["busy_share"] == 0.75
+
+
 # ta014's 10-job, 5-machine corner under the nabeshima pairs and its optimal
 # incumbent: the JAX sequential tier's counts (pinned against it by
 # tests/test_torch_resident.py).

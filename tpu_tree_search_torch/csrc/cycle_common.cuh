@@ -1,7 +1,9 @@
-// Shared device code of the fused search cycles (cycle_lb1.cu,
-// cycle_nqueens.cu): the layout of the loop state tensor, the block scan
-// and the one-block launch that turns per-block counts into survivor
-// offsets and updates the state.
+// Shared device code of the fused search cycles (cycle_lb1.cu, cycle_lb2.cu,
+// cycle_nqueens.cu): the layout of the loop state tensor, the block scan,
+// the block size rule, the per-block counts and the emit's survivor offsets
+// summed from them, the copies that keep a byte range's phase mod 16 (so
+// the middle moves as aligned 16-byte words), and the emit of a block's
+// survivors as one contiguous span of the pool.
 #pragma once
 
 #include "tts_common.cuh"
@@ -19,6 +21,46 @@ enum {
   ST_START2 = 7,
   ST_BASE = 8,
 };
+
+// Parents of one block of the counting and emit launches (one warp scans
+// their survivor counts, so at most 32).
+#define TTS_CYCLE_PARENTS 32
+// Threads of a counting or emit block (and of kernel 4's labels block) that
+// loops over its slots, when the grid of one thread a slot does not fit on
+// the card at once.
+#define TTS_CYCLE_LOOP_THREADS 128
+
+// Threads the card holds at once (SMs times threads an SM), read once.
+static inline long long tts_resident_threads() {
+  static long long cap = 0;
+  if (!cap) {
+    int dev = 0, sms = 0, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&per, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+    cap = static_cast<long long>(sms) * per;
+  }
+  return cap;
+}
+
+// Threads of each of nblk blocks of `slots` slots: one a slot when the
+// whole grid fits on the card at once (one wave), else `loop` threads that
+// loop over the slots, so the grid is fewer waves.
+static inline int tts_cycle_threads(int nblk, int slots, int loop) {
+  const int t = tts_threads_for(slots);
+  if (loop >= t || static_cast<long long>(nblk) * t <= tts_resident_threads())
+    return t;
+  return loop;
+}
+
+// Bytes of one block's region of the stash: its rows (`bytes` of them) at
+// the phase mod 16 of their pool address, so the region is 16-aligned and
+// holds up to 15 bytes of head room.
+__host__ __device__ __forceinline__ int tts_stash_block_bytes(int bytes) {
+  return (bytes + 15) / 16 * 16 + 16;
+}
+
+extern "C" int tts_cycle_parents_per_block() { return TTS_CYCLE_PARENTS; }
 
 // Exclusive scan of one int per thread over the block (blockDim.x a
 // multiple of 32, at most 1024). Returns the thread's exclusive prefix and
@@ -49,35 +91,205 @@ __device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
   return excl;
 }
 
-// The scan launch (one block of 1024 threads): blkcnt holds per block
-// (survivors, solutions); writes each block's survivor offset, then
-// size = size - cnt + tree_inc, tree += tree_inc, sol += sol_inc,
-// cycles += 1, and the emit base (the pre-pop size minus cnt).
-__global__ void cycle_scan(int* st, const int* __restrict__ blkcnt,
-                           int* __restrict__ blkoff, int nblk) {
-  if (!st[ST_ACTIVE]) return;
-  __shared__ int s_warp[32];
-  const int per = (nblk + blockDim.x - 1) / blockDim.x;
-  const int lo = min(nblk, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(nblk, lo + per);
-  int keeps = 0, sols = 0;
-  for (int j = lo; j < hi; ++j) {
-    keeps += blkcnt[2 * j];
-    sols += blkcnt[2 * j + 1];
-  }
-  int tree_inc, sol_inc;
-  int run = block_exclusive_scan(keeps, s_warp, &tree_inc);
-  block_exclusive_scan(sols, s_warp, &sol_inc);
-  for (int j = lo; j < hi; ++j) {
-    blkoff[j] = run;
-    run += blkcnt[2 * j];
-  }
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The end of the counting launch, called by every thread of a block with
+// the block's survivors and solutions in keeps and sols (thread 0's are
+// used): the survivor count goes to blkcnt[b] for the emit's offsets, the
+// solutions straight into st[3] (a reduction nothing reads this cycle).
+__device__ __forceinline__ void cycle_publish_counts(int* st, int* blkcnt,
+                                                     int keeps, int sols) {
   if (threadIdx.x == 0) {
-    const int base = st[ST_SIZE] - st[ST_CNT];
-    st[ST_BASE] = base;
-    st[ST_SIZE] = base + tree_inc;
-    st[ST_TREE] += tree_inc;
-    st[ST_SOL] += sol_inc;
-    st[ST_CYCLES] += 1;
+    blkcnt[blockIdx.x] = keeps;
+    if (sols) atomicAdd(&st[ST_SOL], sols);
+  }
+}
+
+// Copy the bytes [src, src + len) of device memory to d1 (device memory)
+// and, unless null, d2 (shared memory), both 16-aligned: the byte at
+// address a lands at offset a - floor16(src), i.e. the copies keep the
+// source's phase mod 16. Aligned 16-byte words in the middle, single bytes
+// at the two ends. All threads of the block take part.
+__device__ __forceinline__ void copy_keep_phase(const uint8_t* src, int len,
+                                                uint8_t* d1, uint8_t* d2) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = a & ~static_cast<uintptr_t>(15);
+  const uintptr_t end = a + len;
+  const uintptr_t up = (a + 15) & ~static_cast<uintptr_t>(15);
+  const uintptr_t a0 = up < end ? up : end;
+  const uintptr_t dn = end & ~static_cast<uintptr_t>(15);
+  const uintptr_t a1 = dn > a0 ? dn : a0;
+  const int head = static_cast<int>(a0 - a);
+  const int tail = static_cast<int>(end - a1);
+  const int words = static_cast<int>((a1 - a0) / 16);
+  const uint4* mid = reinterpret_cast<const uint4*>(a0);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    const uint4 v = mid[w];
+    const size_t off = a0 - lo + 16 * static_cast<size_t>(w);
+    *reinterpret_cast<uint4*>(d1 + off) = v;
+    if (d2) *reinterpret_cast<uint4*>(d2 + off) = v;
+  }
+  for (int e = threadIdx.x; e < head + tail; e += blockDim.x) {
+    const uintptr_t x = e < head ? a + e : a1 + (e - head);
+    const uint8_t v = *reinterpret_cast<const uint8_t*>(x);
+    d1[x - lo] = v;
+    if (d2) d2[x - lo] = v;
+  }
+}
+
+// The inverse: store [dst, dst + len) from the 16-aligned shared buffer s,
+// where the byte for address a sits at s[a - floor16(dst)]. The bytes
+// outside [dst, dst + len) are not written (other blocks own them).
+__device__ __forceinline__ void store_keep_phase(uint8_t* dst, int len,
+                                                 const uint8_t* s) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  const uintptr_t lo = a & ~static_cast<uintptr_t>(15);
+  const uintptr_t end = a + len;
+  const uintptr_t up = (a + 15) & ~static_cast<uintptr_t>(15);
+  const uintptr_t a0 = up < end ? up : end;
+  const uintptr_t dn = end & ~static_cast<uintptr_t>(15);
+  const uintptr_t a1 = dn > a0 ? dn : a0;
+  const int head = static_cast<int>(a0 - a);
+  const int tail = static_cast<int>(end - a1);
+  const int words = static_cast<int>((a1 - a0) / 16);
+  uint4* mid = reinterpret_cast<uint4*>(a0);
+  for (int w = threadIdx.x; w < words; w += blockDim.x)
+    mid[w] = *reinterpret_cast<const uint4*>(s + (a0 - lo) + 16 * w);
+  for (int e = threadIdx.x; e < head + tail; e += blockDim.x) {
+    const uintptr_t x = e < head ? a + e : a1 + (e - head);
+    *reinterpret_cast<uint8_t*>(x) = s[x - lo];
+  }
+}
+
+// Per-parent survivor offsets of a block (one warp: rows <= 32 parents):
+// s_off[p] = survivors of parents before p, from the W keep-mask words of
+// each parent; returns the block's total to every lane of warp 0.
+__device__ __forceinline__ int warp_parent_offsets(const uint32_t* s_mask,
+                                                   int W, int rows,
+                                                   int* s_off) {
+  const int lane = threadIdx.x & 31;
+  int c = 0;
+  if (lane < rows)
+    for (int w = 0; w < W; ++w) c += __popc(s_mask[lane * W + w]);
+  int x = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  s_off[lane] = x - c;
+  return __shfl_sync(0xffffffffu, x, 31);
+}
+
+// The first half of an emit block's offset: each thread's share of the
+// survivor counts of the blocks before this one (blkcnt[0..b), 16 bytes a
+// load, all in flight at once), summed a warp at a time into s_red[warp].
+// The loads go out beside the block's stash loads.
+__device__ __forceinline__ void emit_sum_counts(const int* __restrict__ blkcnt,
+                                                int* s_red) {
+  const int b = blockIdx.x;
+  const int4* v = reinterpret_cast<const int4*>(blkcnt);
+  int pre = 0;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < (b >> 2); j += blockDim.x) {
+    const int4 x = v[j];
+    pre += x.x + x.y + x.z + x.w;
+  }
+  for (int j = ((b >> 2) << 2) + threadIdx.x; j < b; j += blockDim.x)
+    pre += blkcnt[j];
+  pre = warp_sum(pre);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = pre;
+}
+
+// The second half, by warp 0 after a barrier: the per-parent offsets of
+// warp_parent_offsets, the block's total in *s_total and its first pool
+// row in *s_dst0 (base + the survivors of the blocks before it). The last
+// block writes the rest of the cycle's state update: size = base +
+// tree_inc, tree += tree_inc, cycles += 1.
+__device__ __forceinline__ void emit_block_offsets(int* st,
+                                                   const uint32_t* s_mask,
+                                                   int W, int rows,
+                                                   int* s_off,
+                                                   const int* s_red, int base,
+                                                   int* s_dst0,
+                                                   int* s_total) {
+  const int lane = threadIdx.x & 31;
+  const int total = warp_parent_offsets(s_mask, W, rows, s_off);
+  const int pre = warp_sum(lane < static_cast<int>(blockDim.x >> 5)
+                               ? s_red[lane] : 0);
+  if (lane == 0) {
+    *s_total = total;
+    *s_dst0 = base + pre;
+    if (blockIdx.x == gridDim.x - 1) {
+      st[ST_SIZE] = base + pre + total;
+      st[ST_TREE] += pre + total;
+      st[ST_CYCLES] += 1;
+    }
+  }
+}
+
+// The emit of one block: every kept slot (p, k) of its `rows` parents
+// (bit k of parent p's W mask words) becomes a child, the parent row
+// s_par + p*n with positions s_d[p] and k swapped and aux s_caux[p], at
+// pool row dst_row0 + s_off[p] + (kept slots of p before k): the block's
+// `total` survivors are one contiguous span of the pool in (parent, slot)
+// order. The span is built in shared memory (s_span, s_aspan: 16-aligned,
+// room for span_rows rows and their aux plus 16 bytes each) and stored
+// as aligned 16-byte words, in waves of span_rows rows.
+template <typename V, typename A>
+__device__ void emit_block_children(V* __restrict__ pool_vals,
+                                    A* __restrict__ pool_aux, int dst_row0,
+                                    const V* s_par, const int* s_d,
+                                    const int* s_caux, const uint32_t* s_mask,
+                                    int W, const int* s_off, int rows, int n,
+                                    int total, uint8_t* s_span,
+                                    uint8_t* s_aspan, int span_rows) {
+  const int slots = rows * n;
+  // This thread's first slot and the stride between its slots, split once.
+  const int p0 = static_cast<int>(threadIdx.x) / n;
+  const int k0 = static_cast<int>(threadIdx.x) - p0 * n;
+  const int dp = static_cast<int>(blockDim.x) / n;
+  const int dk = static_cast<int>(blockDim.x) - dp * n;
+  for (int r0 = 0; r0 < total; r0 += span_rows) {
+    const int wr = min(span_rows, total - r0);
+    V* dst = pool_vals + static_cast<size_t>(dst_row0 + r0) * n;
+    A* adst = pool_aux + dst_row0 + r0;
+    V* sv = reinterpret_cast<V*>(s_span +
+                                 (reinterpret_cast<uintptr_t>(dst) & 15));
+    A* sa = reinterpret_cast<A*>(s_aspan +
+                                 (reinterpret_cast<uintptr_t>(adst) & 15));
+    int p = p0, k = k0;
+    for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+      const uint32_t* mk = s_mask + p * W;
+      const int w = k >> 5;
+      const uint32_t word = mk[w];
+      if ((word >> (k & 31)) & 1u) {
+        int rank = s_off[p] + __popc(word & ((1u << (k & 31)) - 1u)) - r0;
+        for (int j = 0; j < w; ++j) rank += __popc(mk[j]);
+        if (rank >= 0 && rank < wr) {
+          const V* par = s_par + p * n;
+          const int d = s_d[p];
+          V* ch = sv + static_cast<size_t>(rank) * n;
+          for (int j = 0; j < n; ++j) ch[j] = par[j];
+          ch[d] = par[k];
+          ch[k] = par[d];
+          sa[rank] = static_cast<A>(s_caux[p]);
+        }
+      }
+      p += dp;
+      k += dk;
+      if (k >= n) {
+        k -= n;
+        ++p;
+      }
+    }
+    __syncthreads();
+    store_keep_phase(reinterpret_cast<uint8_t*>(dst),
+                     wr * n * static_cast<int>(sizeof(V)), s_span);
+    store_keep_phase(reinterpret_cast<uint8_t*>(adst),
+                     wr * static_cast<int>(sizeof(A)), s_aspan);
+    __syncthreads();
   }
 }

@@ -10,11 +10,14 @@
 // It is kernel 2 (cycle_lb1.cu, whose header note gives the state layout
 // and the launch sequence) with launch 1 computing lb2 instead of lb1 into
 // the (M*n) int32 plane: the loop condition, the pop and the leaf fold of
-// launch 1, and launches 2-4 (count, scan, emit), are the shared code of
-// cycle_pfsp.cuh. The keep test is the unstaged one, open & ~leaf &
-// lb2 < best, as in the JAX megakernel (`make_cycle`'s note: it equals the
-// staged keep, since lb2 >= lb1). A leaf child has no free job, so its lb2
-// is its makespan, which the fold takes into the incumbent.
+// launch 1, and launches 2-3 (count, emit), are the shared code of
+// cycle_pfsp.cuh. Launch 1 keeps its eight parents a
+// block; its pop writes each row, one element a thread, where the emit's
+// 32-parent blocks read it (`pfsp_stash_row`). The keep test is the
+// unstaged one, open & ~leaf & lb2 < best, as in the JAX megakernel
+// (`make_cycle`'s note: it equals the staged keep, since lb2 >= lb1). A
+// leaf child has no free job, so its lb2 is its makespan, which the fold
+// takes into the incumbent.
 //
 // What bounds it on an H100: the operations of launch 1, the Johnson
 // recurrence over P*n ordered slots for each child slot (kernel 6's loop,
@@ -26,7 +29,7 @@
 template <typename T>
 __global__ void lb2_cycle_bounds(const T* __restrict__ pool_vals,
                                  const T* __restrict__ pool_aux, int* st,
-                                 T* __restrict__ chunk_vals,
+                                 uint8_t* __restrict__ stash,
                                  T* __restrict__ chunk_aux,
                                  int* __restrict__ lb,
                                  const int* __restrict__ ptm_t,
@@ -35,8 +38,7 @@ __global__ void lb2_cycle_bounds(const T* __restrict__ pool_vals,
                                  const short4* __restrict__ tab, int n, int m,
                                  int P, int M, int C, int mterm, int K) {
   int start, size, start2;
-  if (!pfsp_cycle_pop(pool_vals, pool_aux, st, chunk_vals, chunk_aux, n, M,
-                      C, mterm, K, &start, &size, &start2))
+  if (!pfsp_cycle_begin(st, n, M, C, mterm, K, &start, &size, &start2))
     return;
 
   extern __shared__ __align__(16) unsigned char lb2_smem[];
@@ -50,6 +52,7 @@ __global__ void lb2_cycle_bounds(const T* __restrict__ pool_vals,
   const int i0 = blockIdx.x * PB;
   const int rows = min(PB, M - i0);
   const int t = threadIdx.x;
+  pfsp_stash_pop(pool_vals, pool_aux, stash, chunk_aux, start2, i0, rows, n);
   if (t < rows) {
     const int row = start2 + i0 + t;
     if (row >= start && row < size) {
@@ -93,7 +96,7 @@ extern "C" long long cycle_lb2_smem(int n, int m, int P) {
 template <typename T>
 static int launch_cycle_lb2(void* pool_vals, void* pool_aux, void* st,
                             void* chunk_vals, void* chunk_aux, void* lb,
-                            void* blkcnt, void* blkoff, const void* ptm_t,
+                            void* blkcnt, const void* ptm_t,
                             const void* heads, const void* pairinfo,
                             const void* tab, int n, int m, int P, int M,
                             int C, int mterm, int K, void* stream) {
@@ -106,26 +109,26 @@ static int launch_cycle_lb2(void* pool_vals, void* pool_aux, void* st,
   int* st_i = static_cast<int*>(st);
   lb2_cycle_bounds<T><<<nblk, lb2_cycle_threads(n), smem, s>>>(
       static_cast<const T*>(pool_vals), static_cast<const T*>(pool_aux), st_i,
-      static_cast<T*>(chunk_vals), static_cast<T*>(chunk_aux),
+      static_cast<uint8_t*>(chunk_vals), static_cast<T*>(chunk_aux),
       static_cast<int*>(lb), static_cast<const int*>(ptm_t),
       static_cast<const int*>(heads), static_cast<const int4*>(pairinfo),
       static_cast<const short4*>(tab), n, m, P, M, C, mterm, K);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_pfsp_cycle_tail<T>(pool_vals, pool_aux, st_i, chunk_vals,
-                                   chunk_aux, static_cast<const int*>(lb),
-                                   blkcnt, blkoff, n, M, s);
+                                   chunk_aux, static_cast<int*>(lb),
+                                   blkcnt, n, M, s);
 }
 
 #define TTS_CYCLE_LB2_ENTRY(NAME, T)                                          \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,             \
                       void* chunk_vals, void* chunk_aux, void* lb,           \
-                      void* blkcnt, void* blkoff, const void* ptm_t,         \
+                      void* blkcnt, const void* ptm_t,         \
                       const void* heads, const void* pairinfo,               \
                       const void* tab, int n, int m, int P, int M, int C,    \
                       int mterm, int K, void* stream) {                      \
     return launch_cycle_lb2<T>(pool_vals, pool_aux, st, chunk_vals,          \
-                               chunk_aux, lb, blkcnt, blkoff, ptm_t, heads,  \
+                               chunk_aux, lb, blkcnt, ptm_t, heads,  \
                                pairinfo, tab, n, m, P, M, C, mterm, K,       \
                                stream);                                      \
   }

@@ -8,46 +8,70 @@
 // pool. The pool is board (C, N) uint8 and depth (C,) int8 (N <= 32).
 //
 // The loop state is the int32 tensor `st` of cycle_common.cuh, shared with
-// the lb1 cycle (size, best, tree, sol, cycles, active, cnt, start2, base).
-// One cycle is three launches on the caller's stream:
+// the PFSP cycles (size, best, tree, sol, cycles, active, cnt, start2,
+// base). One cycle is two launches on the caller's stream, one block per
+// 32 parents in both:
 //   1. labels: evaluate the loop condition (size >= m, size + M*N <= C,
-//      cycles < K) from st; pop the back cnt = min(size, M) rows
-//      (start2 = clip(size - cnt, 0, C - M)) into a stash; the safety label
-//      of every (parent, slot) with keep = label & valid & depth < N into
-//      an (M*N) uint8 plane; per block the survivor count and the popped
-//      valid parents at depth == N (the solutions, `megakernel.py:563`);
-//   2. scan (one block, cycle_common.cuh): block offsets, then
-//      size = size - cnt + tree_inc, tree += tree_inc, sol += sol_inc,
-//      cycles += 1;
-//   3. emit: each block ranks its keeps with a block scan and writes each
-//      survivor (parent row with positions depth and k swapped, and
-//      depth + 1) at base + block offset + rank: the survivors land at the
-//      pool's size in exact (parent, slot) order, as the dense compaction
-//      of the JAX engine leaves them.
+//      cycles < K) from st; block 0 records cnt = min(size, M), start2 =
+//      clip(size - cnt, 0, C - M) and base = size - cnt; each block copies
+//      its M-window rows (one contiguous byte range) into its region of the
+//      stash and into shared memory as aligned 16-byte words, computes the
+//      safety label of every (parent, slot) with keep = label & valid &
+//      depth < N, packs the keeps of a parent into bit k of one uint32 mask
+//      word, publishes its survivor count and adds its popped valid parents
+//      at depth == N (the solutions, `megakernel.py:563`) to st[3];
+//   2. emit: each block sums the survivor counts of the blocks before it,
+//      reads its stash region and mask words, ranks its survivors with one
+//      warp scan over its parents and popcounts, builds them in shared
+//      memory (parent row with positions depth and k swapped, and
+//      depth + 1) in rank order, and stores the block's span of the pool,
+//      base + the blocks' survivors before it onward, as aligned 16-byte
+//      words: the survivors land at the pool's size in exact (parent, slot)
+//      order, as the dense compaction of the JAX engine leaves them. The
+//      last block writes size = base + tree_inc, tree += tree_inc and
+//      cycles += 1.
 // The incumbent st[1] passes through: N-Queens has none. When the condition
-// is false, launch 1 clears st[5] and every launch returns at once: an
+// is false, launch 1 clears st[5] and both launches return at once: an
 // exact no-op, so the host enqueues K cycles with no synchronisation.
 //
-// Why three launches and not the lb1 cycle's four: the lb1 cycle folds the
-// incumbent over every leaf before any keep test, a cross-block dependency
-// that costs a launch boundary. N-Queens has no incumbent, so the labels
-// and the per-block counts share one launch; only the survivor offsets
-// across blocks remain a boundary (Hopper blocks run in no order).
+// Why two launches and not one: the emit writes over popped rows of blocks
+// that may not have stashed them yet (Hopper blocks run in no order), so
+// it reads parents only from launch 1's stash, and the survivor offsets
+// across blocks need every block's count.
 //
-// What bounds it on an H100: at M = 50,000 and N = 15, the bytes of the
-// popped rows read and the survivor rows written (N + 1 bytes a row) and
-// the keep plane (one byte a slot, written once and read once), about
-// 2-4 MB a cycle, i.e. about a microsecond; in practice the three launch
-// latencies and the label compares (sum depth * (N - depth) * 4 a cycle).
+// What bounds it on an H100: at M = 50,000 and N = 15 a full cycle must
+// move about 0.8 MB of popped rows and 3.1 MB of survivor rows (N + 1
+// bytes a row), about 1.2 us at 3.35 TB/s; the label compares (sum depth *
+// (N - depth) * 4 a cycle) are a tenth of that. It takes about 14x that:
+// each launch pays a few microseconds of fixed cost and each block a chain
+// of dependent loads and barriers. What the design does, against the
+// three-launch version it replaces (measured in PERF.md, section 6):
+//   - no scan launch: the labels launch publishes one count a block, and
+//     each emit block sums its predecessors' counts with 16-byte loads that
+//     go out beside its stash loads (a ticket for a last-block scan,
+//     measured, cost more than the launch it saved);
+//   - one mask word a parent (200 KB a full cycle) in place of a byte a
+//     slot (750 KB) read back through a per-thread run of slots;
+//   - the pop and the survivor span move as aligned 16-byte words, the
+//     span built in shared memory in rank order, in place of single bytes
+//     at a 15-byte stride;
+//   - blocks of 128 threads that loop over their slots when one thread a
+//     slot would not fit on the card at once, so the grid is one wave;
+//   - the labels are as they were: g real rounds per (parent, slot).
 #include "cycle_common.cuh"
 #include "nqueens_common.cuh"
 
-// Launch 1: loop condition, pop, labels, keep plane, per-block counts.
+static_assert(TTS_NQ_PARENTS_PER_BLOCK == TTS_CYCLE_PARENTS,
+              "the N-Queens cycle ranks a block's parents with one warp");
+
+#define NQ_STASH_MAX (TTS_NQ_PARENTS_PER_BLOCK * TTS_NQ_MAX_N + 32)
+
+// Launch 1: loop condition, pop, labels, keep masks, per-block counts.
 __global__ void nq_cycle_labels(const uint8_t* __restrict__ pool_vals,
                                 const int8_t* __restrict__ pool_aux, int* st,
-                                uint8_t* __restrict__ chunk_vals,
+                                uint8_t* __restrict__ stash,
                                 int8_t* __restrict__ chunk_aux,
-                                uint8_t* __restrict__ keep,
+                                uint32_t* __restrict__ mask,
                                 int* __restrict__ blkcnt, int N, int g, int M,
                                 int C, int mterm, int K) {
   const int size = st[ST_SIZE];
@@ -68,131 +92,146 @@ __global__ void nq_cycle_labels(const uint8_t* __restrict__ pool_vals,
     st[ST_ACTIVE] = 1;
     st[ST_CNT] = cnt;
     st[ST_START2] = start2;
+    st[ST_BASE] = start;
   }
 
-  __shared__ uint8_t s_board[TTS_NQ_PARENTS_PER_BLOCK * TTS_NQ_MAX_N];
+  __shared__ __align__(16) uint8_t s_rows[NQ_STASH_MAX];
+  __shared__ uint32_t s_mask[TTS_NQ_PARENTS_PER_BLOCK];
   // Parent depth, or -1 for a row of the M-window outside the popped rows.
   __shared__ int s_depth[TTS_NQ_PARENTS_PER_BLOCK];
-  __shared__ int s_keep, s_sol;
   const int PB = TTS_NQ_PARENTS_PER_BLOCK;
   const int i0 = blockIdx.x * PB;
   const int rows = min(PB, M - i0);
-  // The pop: stash this block's M-window rows (the emit of launch 3 writes
-  // survivors over the popped region, so it reads parents from the stash).
+  const int t = threadIdx.x;
+  // The pop: this block's M-window rows into its stash region (the emit
+  // writes survivors over the popped region, so it reads parents from the
+  // stash) and into shared memory.
   const uint8_t* src = pool_vals + static_cast<size_t>(start2 + i0) * N;
-  uint8_t* stash = chunk_vals + static_cast<size_t>(i0) * N;
-  for (int e = threadIdx.x; e < rows * N; e += blockDim.x) {
-    const uint8_t v = src[e];
-    stash[e] = v;
-    s_board[e] = v;
-  }
-  for (int e = threadIdx.x; e < rows; e += blockDim.x) {
-    const int row = start2 + i0 + e;
+  copy_keep_phase(src, rows * N,
+                  stash + static_cast<size_t>(blockIdx.x) *
+                              tts_stash_block_bytes(PB * N),
+                  s_rows);
+  const uint8_t* s_board = s_rows + (reinterpret_cast<uintptr_t>(src) & 15);
+  if (t < rows) {
+    const int row = start2 + i0 + t;
     const int8_t d = pool_aux[row];
-    chunk_aux[i0 + e] = d;
-    s_depth[e] = (row >= start && row < size) ? static_cast<int>(d) : -1;
+    chunk_aux[i0 + t] = d;
+    s_depth[t] = (row >= start && row < size) ? static_cast<int>(d) : -1;
   }
-  if (threadIdx.x == 0) {
-    s_keep = 0;
-    s_sol = 0;
-  }
+  if (t < PB) s_mask[t] = 0;
   __syncthreads();
 
-  int keeps = 0;
-  for (int slot = threadIdx.x; slot < rows * N; slot += blockDim.x) {
-    const int p = slot / N;
-    const int k = slot - p * N;
-    const int d = s_depth[p];
-    const int kp = (d >= 0 && d < N) ? nq_label(s_board + p * N, d, k, g) : 0;
-    keep[static_cast<size_t>(i0) * N + slot] = static_cast<uint8_t>(kp);
-    keeps += kp;
+  // Every (parent, slot), the split of a thread's first slot and of the
+  // stride into (parent, slot) taken once.
+  {
+    int p = t / N, k = t - (t / N) * N;
+    const int dp = static_cast<int>(blockDim.x) / N;
+    const int dk = static_cast<int>(blockDim.x) - dp * N;
+    for (int s = t; s < rows * N; s += blockDim.x) {
+      const int d = s_depth[p];
+      if (d >= 0 && d < N && nq_label(s_board + p * N, d, k, g))
+        atomicOr(&s_mask[p], 1u << k);
+      p += dp;
+      k += dk;
+      if (k >= N) {
+        k -= N;
+        ++p;
+      }
+    }
   }
-  int sols = 0;
-  for (int p = threadIdx.x; p < rows; p += blockDim.x) sols += s_depth[p] == N;
-  if (keeps) atomicAdd(&s_keep, keeps);
-  if (sols) atomicAdd(&s_sol, sols);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    blkcnt[2 * blockIdx.x] = s_keep;
-    blkcnt[2 * blockIdx.x + 1] = s_sol;
+  int keeps = 0, sols = 0;
+  if (t < 32) {
+    if (t < rows) {
+      const uint32_t w = s_mask[t];
+      mask[i0 + t] = w;
+      keeps = __popc(w);
+      sols = s_depth[t] == N;
+    }
+    keeps = warp_sum(keeps);
+    sols = warp_sum(sols);
   }
+  cycle_publish_counts(st, blkcnt, keeps, sols);
 }
 
-// Launch 3: rank the block's survivors and write the child rows.
+// Launch 2: rank the block's survivors and store them as one span.
 __global__ void nq_cycle_emit(uint8_t* __restrict__ pool_vals,
-                              int8_t* __restrict__ pool_aux, const int* st,
-                              const uint8_t* __restrict__ chunk_vals,
+                              int8_t* __restrict__ pool_aux, int* st,
+                              const uint8_t* __restrict__ stash,
                               const int8_t* __restrict__ chunk_aux,
-                              const uint8_t* __restrict__ keep,
-                              const int* __restrict__ blkoff, int N, int M) {
+                              const uint32_t* __restrict__ mask,
+                              const int* __restrict__ blkcnt, int N, int M) {
   if (!st[ST_ACTIVE]) return;
-  __shared__ int s_warp[32];
-  __shared__ uint8_t s_board[TTS_NQ_PARENTS_PER_BLOCK * TTS_NQ_MAX_N];
-  __shared__ int s_depth[TTS_NQ_PARENTS_PER_BLOCK];
-  const int base = st[ST_BASE];  // == the pre-pop size minus cnt
   const int PB = TTS_NQ_PARENTS_PER_BLOCK;
+  extern __shared__ __align__(16) uint8_t s_nq[];
+  __shared__ uint32_t s_mask[PB];
+  __shared__ int s_d[PB], s_caux[PB], s_off[32], s_red[32], s_total, s_dst0;
+  const int base = st[ST_BASE];  // == the pre-pop size minus cnt
+  const int start2 = st[ST_START2];
   const int i0 = blockIdx.x * PB;
   const int rows = min(PB, M - i0);
-  const int slots = rows * N;
-  const uint8_t* src = chunk_vals + static_cast<size_t>(i0) * N;
-  for (int e = threadIdx.x; e < slots; e += blockDim.x) s_board[e] = src[e];
-  for (int e = threadIdx.x; e < rows; e += blockDim.x)
-    s_depth[e] = static_cast<int>(chunk_aux[i0 + e]);
-  const uint8_t* kp = keep + static_cast<size_t>(i0) * N;
-  // Each thread owns a contiguous run of slots, so the block scan of the
-  // per-thread counts keeps (parent, slot) order. (The keep plane is 0 on
-  // rows outside the popped window and on parents at depth N.)
-  const int per = (slots + blockDim.x - 1) / blockDim.x;
-  const int lo = min(slots, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(slots, lo + per);
-  int keeps = 0;
-  for (int slot = lo; slot < hi; ++slot) keeps += kp[slot];
-  int total;
-  // The scan's barriers also order the shared-memory staging above.
-  int dst = base + blkoff[blockIdx.x] +
-            block_exclusive_scan(keeps, s_warp, &total);
-  for (int slot = lo; slot < hi && keeps > 0; ++slot) {
-    if (!kp[slot]) continue;
-    const int p = slot / N;
-    const int k = slot - p * N;
-    const int d = s_depth[p];
-    const uint8_t* parent = s_board + p * N;
-    uint8_t* child = pool_vals + static_cast<size_t>(dst) * N;
-    for (int j = 0; j < N; ++j) {
-      child[j] = j == d ? parent[k] : (j == k ? parent[d] : parent[j]);
-    }
-    pool_aux[dst] = static_cast<int8_t>(d + 1);
-    ++dst;
-    --keeps;
+  const int t = threadIdx.x;
+  const int SB = tts_stash_block_bytes(PB * N);
+  uint8_t* s_rows = s_nq;
+  uint8_t* s_span = s_rows + SB;
+  uint8_t* s_aspan = s_span + (PB * N * N + 31) / 16 * 16;
+  const uint4* region = reinterpret_cast<const uint4*>(
+      stash + static_cast<size_t>(blockIdx.x) * SB);
+  for (int w = t; w < SB / 16; w += blockDim.x)
+    reinterpret_cast<uint4*>(s_rows)[w] = region[w];
+  const int phase = static_cast<int>(
+      reinterpret_cast<uintptr_t>(pool_vals +
+                                  static_cast<size_t>(start2 + i0) * N) &
+      15);
+  // The mask is 0 on rows outside the popped window and on parents at
+  // depth N, so their depth is never read.
+  if (t < rows) {
+    s_mask[t] = mask[i0 + t];
+    const int d = static_cast<int>(chunk_aux[i0 + t]);
+    s_d[t] = d;
+    s_caux[t] = d + 1;
   }
+  emit_sum_counts(blkcnt, s_red);
+  __syncthreads();
+  if (t < 32)
+    emit_block_offsets(st, s_mask, 1, rows, s_off, s_red, base, &s_dst0,
+                       &s_total);
+  __syncthreads();
+  emit_block_children<uint8_t, int8_t>(
+      pool_vals, pool_aux, s_dst0, s_rows + phase, s_d, s_caux, s_mask, 1,
+      s_off, rows, N, s_total, s_span, s_aspan, PB * N);
+}
+
+// Dynamic shared memory of an emit block: the stash region, the survivor
+// span (every slot kept) and its depths, each with 16 bytes of phase room.
+static inline size_t nq_emit_smem(int N) {
+  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
+  return tts_stash_block_bytes(PB * N) + (PB * N * N + 31) / 16 * 16 +
+         (PB * N + 31) / 16 * 16;
 }
 
 extern "C" int cycle_nqueens(void* pool_vals, void* pool_aux, void* st,
                              void* chunk_vals, void* chunk_aux, void* keep,
-                             void* blkcnt, void* blkoff, int N, int g, int M,
-                             int C, int mterm, int K, void* stream) {
+                             void* blkcnt, int N, int g, int M, int C,
+                             int mterm, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int PB = TTS_NQ_PARENTS_PER_BLOCK;
   const int nblk = (M + PB - 1) / PB;
-  const int threads = tts_threads_for(PB * N);
+  const int threads = tts_cycle_threads(nblk, PB * N, TTS_CYCLE_LOOP_THREADS);
   int* st_i = static_cast<int*>(st);
   nq_cycle_labels<<<nblk, threads, 0, s>>>(
       static_cast<const uint8_t*>(pool_vals),
       static_cast<const int8_t*>(pool_aux), st_i,
       static_cast<uint8_t*>(chunk_vals), static_cast<int8_t*>(chunk_aux),
-      static_cast<uint8_t*>(keep), static_cast<int*>(blkcnt), N, g, M, C,
+      static_cast<uint32_t*>(keep), static_cast<int*>(blkcnt), N, g, M, C,
       mterm, K);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  cycle_scan<<<1, 1024, 0, s>>>(st_i, static_cast<const int*>(blkcnt),
-                                static_cast<int*>(blkoff), nblk);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  nq_cycle_emit<<<nblk, threads, 0, s>>>(
+  nq_cycle_emit<<<nblk, threads, nq_emit_smem(N), s>>>(
       static_cast<uint8_t*>(pool_vals), static_cast<int8_t*>(pool_aux), st_i,
       static_cast<const uint8_t*>(chunk_vals),
       static_cast<const int8_t*>(chunk_aux),
-      static_cast<const uint8_t*>(keep), static_cast<const int*>(blkoff), N,
+      static_cast<const uint32_t*>(keep), static_cast<const int*>(blkcnt), N,
       M);
   return static_cast<int>(cudaGetLastError());
 }

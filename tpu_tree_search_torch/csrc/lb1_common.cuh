@@ -17,8 +17,6 @@
 // prologue; then all threads run one child slot each, PB*n slots a block.
 #define TTS_PARENTS_PER_BLOCK 8
 
-extern "C" int tts_parents_per_block() { return TTS_PARENTS_PER_BLOCK; }
-
 // Dynamic shared memory of a block: ptm (n*m), heads (m), tails (m),
 // front (PB*m), remain (PB*m).
 static inline size_t tts_lb1_smem_bytes(int n, int m) {
@@ -86,6 +84,62 @@ __device__ __forceinline__ void lb1_parent_state(const T* row, int l1, int n,
   for (int i = l1 + 1; i < n; ++i) {
     const int* p = s.ptm + static_cast<int>(row[i]) * m;
     for (int j = 0; j < m; ++j) remain[j] += p[j];
+  }
+}
+
+// The parent state of lb1_parent_state computed by a group of G lanes of
+// one warp (G a power of two, m <= G <= 32; lane j of the group is machine
+// j; gmask names the group's lanes): the front as a wavefront over the
+// machines, lane j taking position i = step - j with its left neighbour's
+// completion time from the step before (a shuffle), l1 + m steps in place
+// of (l1 + 1) * m dependent ones. The row is a permutation of the n jobs,
+// so the work left on machine j is colsum[j] (the machine's total over
+// every job) less what the wavefront scheduled. Every lane of the group
+// calls it.
+template <typename T>
+__device__ __forceinline__ void lb1_parent_state_lanes(
+    const T* row, int l1, int m, const Lb1Smem& s, const int* colsum,
+    int* front, int* remain, int G, unsigned gmask) {
+  const int j = static_cast<int>(threadIdx.x) & (G - 1);
+  const bool mine = j < m;
+  int f = (l1 == -1 && mine) ? s.heads[j] : 0;
+  int done = 0;
+  for (int step = 0; step < l1 + m; ++step) {
+    const int left = __shfl_up_sync(gmask, f, 1, G);
+    const int i = step - j;
+    if (mine && i >= 0 && i <= l1) {
+      const int p = s.ptm[static_cast<int>(row[i]) * m + j];
+      f = (j == 0 ? f : max(f, left)) + p;
+      done += p;
+    }
+  }
+  if (mine) {
+    front[j] = f;
+    remain[j] = colsum[j] - done;
+  }
+}
+
+// The parent state of lb1_parent_state computed by one thread, with the
+// remaining work taken from colsum as in lb1_parent_state_lanes: (l1 + 1)
+// * m dependent steps, no pass over the unscheduled positions.
+template <typename T>
+__device__ __forceinline__ void lb1_parent_state_colsum(
+    const T* row, int l1, int m, const Lb1Smem& s, const int* colsum,
+    int* front, int* remain) {
+  for (int j = 0; j < m; ++j) {
+    front[j] = (l1 == -1) ? s.heads[j] : 0;
+    remain[j] = colsum[j];
+  }
+  for (int i = 0; i <= l1; ++i) {
+    const int* p = s.ptm + static_cast<int>(row[i]) * m;
+    int f = front[0] + p[0];
+    front[0] = f;
+    remain[0] -= p[0];
+    for (int j = 1; j < m; ++j) {
+      f = max(f, front[j]) + p[j];
+      front[j] = f;
+      remain[j] -= p[j];
+    }
   }
 }
 

@@ -13,8 +13,6 @@
 #define TTS_NQ_PARENTS_PER_BLOCK 32
 #define TTS_NQ_MAX_N 32
 
-extern "C" int tts_nq_parents_per_block() { return TTS_NQ_PARENTS_PER_BLOCK; }
-
 // 1 iff the queen of slot k (row[k]), placed at column `depth`, is safe on
 // both diagonals from every placed queen row[i], i < depth; 0 for k < depth.
 // The check runs g real rounds (the reference's workload knob): the empty

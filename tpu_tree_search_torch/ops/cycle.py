@@ -15,7 +15,7 @@ sol, cycles, and this cycle's pop. One call of ``cycle_lb1_cuda`` or
 ``cycle_lb2_cuda`` enqueues one cycle; when the loop condition is false it
 is an exact no-op, so the engine enqueues K of them with no host
 synchronisation. Each wrapper's ``launches`` counts its calls (one cycle,
-four launches).
+three launches: bounds, count, emit).
 
 Plain PyTorch versions beside them: ``cycle_chunk_plain`` computes what the
 JAX ``make_cycle`` returns for one popped chunk under a given bound (the CPU
@@ -29,7 +29,8 @@ N-Queens cycle (`ops/cycle_nqueens.py`).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, field
 
 import torch
 
@@ -158,38 +159,92 @@ def cycle_lb2_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb2_chunk)
 
 
+def mask_words(n: int) -> int:
+    """uint32 keep-mask words of a parent with n child slots (bit k % 32
+    of word k // 32 is slot k)."""
+    return -(-n // 32)
+
+
+def stash_block_bytes(nbytes: int) -> int:
+    """Bytes of one block's stash region holding ``nbytes`` of popped rows
+    at their pool address's phase mod 16 (``tts_stash_block_bytes`` of
+    csrc/cycle_common.cuh): rounded up to 16, plus 16 of head room."""
+    return -(-nbytes // 16) * 16 + 16
+
+
+def scratch_sizes(M: int, n: int, itemsize: int, parents_per_block: int,
+                  plane_words: int) -> dict:
+    """Element counts of a ``CycleScratch`` for chunks of M parents of n
+    elements of ``itemsize`` bytes, in blocks of ``parents_per_block``."""
+    nblk = -(-M // parents_per_block)
+    return dict(
+        chunk_vals=nblk * stash_block_bytes(parents_per_block * n * itemsize),
+        chunk_aux=M, plane=plane_words, blkcnt=nblk)
+
+
+def pfsp_plane_words(M: int, n: int) -> int:
+    """int32 words of the PFSP cycles' plane: the (M*n) bounds, then
+    ``mask_words(n)`` keep-mask words a parent."""
+    return M * n + M * mask_words(n)
+
+
 @dataclass
 class CycleScratch:
-    """Device buffers of one fused cycle: the popped chunk's stash, the
-    (M*n) plane (lb1 bounds, or N-Queens keep flags) and the per-block
-    survivor counts and offsets."""
+    """Device buffers of one fused cycle: the stash of the popped rows (a
+    uint8 region of ``stash_block_bytes`` a block, the rows at the phase
+    mod 16 of their pool address), the popped aux, the int32 plane (PFSP:
+    the bounds and the keep masks, ``pfsp_plane_words``; N-Queens: one
+    keep-mask word a parent) and the per-block survivor counts."""
 
     chunk_vals: torch.Tensor
     chunk_aux: torch.Tensor
     plane: torch.Tensor
     blkcnt: torch.Tensor
-    blkoff: torch.Tensor
+    # The arguments of the last ``fits`` that held (the check runs once).
+    _fits: tuple | None = field(default=None, repr=False, compare=False)
 
     @classmethod
-    def make(cls, M: int, n: int, vals_dtype: torch.dtype,
-             aux_dtype: torch.dtype, plane_dtype: torch.dtype,
-             parents_per_block: int, device) -> "CycleScratch":
-        nblk = -(-M // parents_per_block)
+    def make(cls, M: int, n: int, itemsize: int, aux_dtype: torch.dtype,
+             plane_words: int, parents_per_block: int,
+             device) -> "CycleScratch":
+        sz = scratch_sizes(M, n, itemsize, parents_per_block, plane_words)
         return cls(
-            chunk_vals=torch.empty((M, n), dtype=vals_dtype, device=device),
+            chunk_vals=torch.empty(sz["chunk_vals"], dtype=torch.uint8,
+                                   device=device),
             chunk_aux=torch.empty(M, dtype=aux_dtype, device=device),
-            plane=torch.empty(M * n, dtype=plane_dtype, device=device),
-            blkcnt=torch.empty(2 * nblk, dtype=torch.int32, device=device),
-            blkoff=torch.empty(nblk, dtype=torch.int32, device=device),
+            plane=torch.empty(plane_words, dtype=torch.int32, device=device),
+            blkcnt=torch.empty(sz["blkcnt"], dtype=torch.int32, device=device),
         )
+
+    def fits(self, M: int, n: int, itemsize: int, aux_dtype: torch.dtype,
+             plane_words: int, parents_per_block: int) -> bool:
+        """Whether these buffers are ``make``'s for those arguments, with
+        a 16-aligned stash."""
+        key = (M, n, itemsize, aux_dtype, plane_words, parents_per_block)
+        if self._fits == key:
+            return True
+        want = scratch_sizes(M, n, itemsize, parents_per_block, plane_words)
+        ok = (all(getattr(self, k).numel() == v for k, v in want.items())
+              and self.chunk_aux.dtype == aux_dtype
+              and self.chunk_vals.data_ptr() % 16 == 0)
+        self._fits = key if ok else None
+        return ok
+
+
+@functools.cache
+def parents_per_block(source: str) -> int:
+    """Parents a block of the counting and emit launches of
+    ``csrc/<source>.cu`` holds (its stash and count layout)."""
+    return _build.library(source).tts_cycle_parents_per_block()
 
 
 def cycle_scratch(M: int, n: int, dtype: torch.dtype,
                   device: torch.device) -> CycleScratch:
-    """The PFSP cycles' scratch (both take the same): pool-dtype stash,
-    int32 bound plane."""
-    pb = _build.library("cycle_lb1").tts_parents_per_block()
-    return CycleScratch.make(M, n, dtype, dtype, torch.int32, pb, device)
+    """The PFSP cycles' scratch (both take the same): the stash, pool-dtype
+    limit1, and the int32 bounds and keep masks."""
+    return CycleScratch.make(M, n, dtype.itemsize, dtype,
+                             pfsp_plane_words(M, n),
+                             parents_per_block("cycle_lb1"), device)
 
 
 _ENTRIES = {
@@ -197,9 +252,9 @@ _ENTRIES = {
     "cycle_lb2": {torch.int8: "cycle_lb2_i8", torch.int32: "cycle_lb2_i32"},
 }
 _ARGTYPES = {
-    "cycle_lb1": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 6
+    "cycle_lb1": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
     + (ctypes.c_void_p,),
-    "cycle_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
+    "cycle_lb2": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
     + (ctypes.c_void_p,),
 }
 
@@ -225,16 +280,17 @@ def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
         raise ValueError("pool and state tensors must be contiguous")
     if (n, tables.machines) != tuple(tables.ptm_t.shape):
         raise ValueError("pool width does not match the tables' job count")
-    if C < M or scratch.chunk_vals.shape != (M, n) \
-            or scratch.chunk_vals.dtype != pool_vals.dtype:
+    lib, fn = _build.entry(source, entries[pool_vals.dtype], _ARGTYPES[source])
+    if C < M or not scratch.fits(M, n, pool_vals.element_size(),
+                                 pool_vals.dtype, pfsp_plane_words(M, n),
+                                 parents_per_block(source)):
         raise ValueError("scratch must be cycle_scratch(M, n) of the pool "
                          "dtype, and the pool hold at least M rows")
-    lib, fn = _build.entry(source, entries[pool_vals.dtype], _ARGTYPES[source])
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
-             scratch.blkoff.data_ptr(), *(t.data_ptr() for t in table_args),
+             *(t.data_ptr() for t in table_args),
              *table_sizes, M, C, m, K, stream)
     _build.check(lib, err, source)
 
@@ -242,7 +298,7 @@ def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
 def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                    st: torch.Tensor, scratch: CycleScratch,
                    tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
-    """Enqueue one lb1 cycle (four launches) on the current stream; updates
+    """Enqueue one lb1 cycle (three launches) on the current stream; updates
     the pool and ``st`` in place on the device, never synchronises."""
     _launch_pfsp_cycle(
         "cycle_lb1", pool_vals, pool_aux, st, scratch, tables, M, m, K,
@@ -257,7 +313,7 @@ cycle_lb1_cuda.launches = 0  # type: ignore[attr-defined]
 def cycle_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                    st: torch.Tensor, scratch: CycleScratch,
                    tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
-    """Enqueue one lb2 cycle (four launches) on the current stream; updates
+    """Enqueue one lb2 cycle (three launches) on the current stream; updates
     the pool and ``st`` in place on the device, never synchronises."""
     if not pool_vals.is_cuda:
         raise ValueError("cycle_lb2 takes CUDA tensors")

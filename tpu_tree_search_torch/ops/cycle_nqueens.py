@@ -7,7 +7,7 @@ whose header note gives the launch sequence and what bounds it on the card.
 
 The pool is ``board`` (C, N) uint8 and ``depth`` (C,) int8 (N <= 32), and
 the loop state is the int32 tensor of `ops/cycle.py` (``new_state``). One
-call of ``cycle_nqueens_cuda`` enqueues one cycle (three launches); when the
+call of ``cycle_nqueens_cuda`` enqueues one cycle (two launches); when the
 loop condition is false it is an exact no-op, so the engine enqueues K of
 them with no host synchronisation. ``cycle_nqueens_cuda.launches`` counts
 the calls.
@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from . import _build
-from .cycle import ST_LEN, CycleScratch, plain_pool_cycle
+from .cycle import ST_LEN, CycleScratch, parents_per_block, plain_pool_cycle
 from .nqueens_device import labels_chunk
 from .nqueens_kernel import MAX_N
 
@@ -81,20 +81,19 @@ def cycle_nqueens_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
 
 
 def nqueens_scratch(M: int, N: int, device) -> CycleScratch:
-    """The N-Queens cycle's scratch: uint8 board and int8 depth stash,
-    uint8 keep plane."""
-    pb = _build.library("cycle_nqueens").tts_nq_parents_per_block()
-    return CycleScratch.make(M, N, torch.uint8, torch.int8, torch.uint8, pb,
-                             device)
+    """The N-Queens cycle's scratch: the board stash, int8 depth, and one
+    int32 keep-mask word a parent (bit k is slot k, N <= 32)."""
+    return CycleScratch.make(M, N, 1, torch.int8, M,
+                             parents_per_block("cycle_nqueens"), device)
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                        st: torch.Tensor, scratch: CycleScratch, N: int,
                        g: int, M: int, m: int, K: int) -> None:
-    """Enqueue one cycle (three launches) on the current stream; updates
+    """Enqueue one cycle (two launches) on the current stream; updates
     the pool and ``st`` in place on the device, never synchronises."""
     if not pool_vals.is_cuda:
         raise ValueError("cycle_nqueens_cuda takes CUDA tensors")
@@ -111,16 +110,16 @@ def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     if not (pool_vals.is_contiguous() and pool_aux.is_contiguous()
             and st.is_contiguous()):
         raise ValueError("pool and state tensors must be contiguous")
-    if C < M or scratch.chunk_vals.shape != (M, N) \
-            or scratch.plane.dtype != torch.uint8:
+    lib, fn = _build.entry("cycle_nqueens", "cycle_nqueens", _ARGTYPES)
+    if C < M or not scratch.fits(M, N, 1, torch.int8, M,
+                                 parents_per_block("cycle_nqueens")):
         raise ValueError("scratch must be nqueens_scratch(M, N), and the "
                          "pool hold at least M rows")
-    lib, fn = _build.entry("cycle_nqueens", "cycle_nqueens", _ARGTYPES)
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
-             scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
-             scratch.blkoff.data_ptr(), N, g, M, C, m, K, stream)
+             scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(), N, g, M, C,
+             m, K, stream)
     _build.check(lib, err, "cycle_nqueens")
     cycle_nqueens_cuda.launches += 1  # type: ignore[attr-defined]
 
