@@ -9,8 +9,9 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists),
 B the checkout this script sits in. Each run's output goes to
 ``DIR/<run>_<A|B>.log`` (default ``_checkout/ab``, gitignored). Prints
 one JSON line a run (exit code, the card as ``nvidia-smi`` names it, every
-kernel's time from the ``kernels`` line, the fused cycles' rows, the
-searches' times and the profiled searches' device times), then one line
+kernel's time from the ``kernels`` line, the rows of the fused cycles and
+of kernel 6 with the cycles' device time by launch, the searches' times
+and the profiled searches' device times), then one line
 that sets the four runs side by side. Exits non-zero when a run failed.
 """
 
@@ -24,7 +25,9 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-CYCLE_PHASES = ("kernel2", "kernel4", "kernel8")
+CYCLE_PHASES = ("kernel2", "kernel4", "kernel6", "kernel8")
+# The fields that name a row of those phases (those it has, in this order).
+ROW_FIELDS = ("phase", "inst", "n", "dtype", "M", "B", "g", "chunk", "incumbent")
 
 
 def summarize(stdout: str) -> dict:
@@ -35,13 +38,14 @@ def summarize(stdout: str) -> dict:
         elif card is None and ln.strip() and "," in ln:
             card = ln.strip()
     kernels = next((ln["kernels"] for ln in lines if "kernels" in ln), [])
-    cycles = {}
+    cycles, launch_ms = {}, {}
     for ln in lines:
         if ln.get("phase") in CYCLE_PHASES:
-            key = "/".join(str(ln.get(k)) for k in
-                           ("phase", "n", "dtype", "M", "g", "chunk", "incumbent")
+            key = "/".join(str(ln.get(k)) for k in ROW_FIELDS
                            if ln.get(k) is not None)
             cycles[key] = ln["ms"]
+            if ln.get("launch_ms"):
+                launch_ms[key] = ln["launch_ms"]
     searches = {ln["phase"]: [ln["elapsed_s"], ln["phases"][1][2]]
                 for ln in lines if str(ln.get("phase", "")).startswith("search_")}
     profiles = {ln["search"]: {k: ln.get(k) for k in
@@ -51,7 +55,8 @@ def summarize(stdout: str) -> dict:
                 for ln in lines if ln.get("phase") == "profile"}
     return dict(card=card, ok=any(ln.get("ok") for ln in lines),
                 kernels={k["name"]: k["ms"] for k in kernels},
-                cycles=cycles, searches=searches, profiles=profiles)
+                cycles=cycles, launch_ms=launch_ms, searches=searches,
+                profiles=profiles)
 
 
 def main() -> int:
@@ -73,7 +78,7 @@ def main() -> int:
         runs.append(run)
         print(json.dumps(run), flush=True)
     side = {}
-    for part in ("kernels", "cycles", "searches"):
+    for part in ("kernels", "cycles", "launch_ms", "searches"):
         keys = sorted({k for r in runs for k in r[part]})
         side[part] = {k: [r[part].get(k) for r in runs] for k in keys}
     side["profiles"] = {

@@ -43,13 +43,17 @@ ends the script with a non-zero exit before the final line:
      ta021, ta051 and ta081 tables (the last two need more than 48 KB of
      shared memory a block; ta081 has the 100 jobs the lb2 kernels take at
      most): B = 1024 and 49152 (ta051, ta081: 1024), int8 and int32;
-     bit-equal on the open slots;
+     bit-equal on the open slots; each row with the block shape the kernel
+     chose (``block``: parents and threads a block, shared memory, and
+     whether the whole grid fit on the card at once);
  14. ``kernel7`` (the staged self lb2) against its plain version on ta014:
      R = 1024*20 and 49152*20 rows, n_active at a quarter and at R; bit-equal
      on the active rows, and the quarter/full time ratio (the blocks past
      n_active return at once);
  15. ``kernel8`` (the fused lb2 cycle) against its plain version, as kernel 2
-     in phase 4;
+     in phase 4, on ta014 and on ta021 tables (20 machines, P = 190 pairs,
+     where lb2 costs the most), each row with its bounds launch's block
+     shape;
  16. ``kernel9``, ``kernel10`` and ``kernel11`` (the streamed lb1, N-Queens
      and lb2 cycles) against their plain versions, as kernels 2, 4 and 8 at
      tile widths mt = 16 (M = 1024) and 64 (M = 49152; N-Queens 80 at
@@ -79,7 +83,11 @@ ends the script with a non-zero exit before the final line:
 
 Times are CUDA-event medians on the card; ``bound_ms`` is the larger of the
 bytes the function must move over 3.35 TB/s and its int32 operations over
-67 T/s (the H100 SXM data-sheet rates, a card at its 700 W limit). The last
+67 T/s (the H100 SXM data-sheet rates, a card at its 700 W limit). The lb2
+rows count the operations of the per-parent pair pass (``lb2_scan_ops``)
+and print the per-child recurrence's count beside it as
+``child_loop_bound_ms`` (``lb2_ops``; kernel 7, one bound a row, keeps it
+as its bound). The last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -240,6 +248,28 @@ def lb2_ops(limit1: np.ndarray, n: int, m: int, P: int,
     return pro + l1.size * per
 
 
+# Operations of one free job in one (parent, pair) task of the pair pass
+# (`lb2p_pair`, csrc/lb2_common.cuh): 9 in the forward walk (the two prefix
+# sums, the term, its atomicMax and the prefix maximum) and 9 in the
+# backward walk.
+LB2_SCAN_OPS_PER_JOB = 18
+# Operations of one open child a machine in `lb2p_bounds`: its add_forward
+# step (2), the machine's one-machine term and the maxima (5).
+LB2_CHILD_OPS_PER_MACHINE = 7
+
+
+def lb2_scan_ops(limit1: np.ndarray, n: int, m: int, P: int) -> float:
+    """int32 operations of the lb2 child plane by the per-parent pair pass.
+    Per parent: the front scan, (l1+1)*m*2, its n jobs read, and
+    LB2_CHILD_OPS_PER_MACHINE*m for each of its r = n-l1-1 open children.
+    Per (parent, pair): one free test an ordered slot (n) and
+    LB2_SCAN_OPS_PER_JOB a free job."""
+    l1 = limit1.astype(np.int64)
+    r = n - l1 - 1
+    return float(np.sum((l1 + 1) * m * 2 + n + r * LB2_CHILD_OPS_PER_MACHINE * m
+                        + P * (n + LB2_SCAN_OPS_PER_JOB * r)))
+
+
 def johnson_bytes(tables) -> int:
     """Bytes of the tables an lb2 kernel reads: ptm_t and min_heads (int32),
     the packed (P, n, 4) int16 ordered table and the (P, 4) int32 pair
@@ -362,13 +392,15 @@ def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int,
 
 
 def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
-                     tiled: bool = False, dtype=torch.int8) -> dict:
+                     tiled: bool = False, dtype=torch.int8,
+                     inst: str = "ta014") -> dict:
     """A PFSP cycle kernel (``lb`` lb1: kernel 2, or 9 when ``tiled``; lb2:
-    kernel 8, or 11) against its plain version on a pool of ``dtype``:
-    M = 1024 (streamed: mt = 16) and 49152 (mt = 64), a partial and a full
-    chunk, finite and INF incumbent; equal state, live pool rows and,
-    streamed, (G, 4) per-tile scalars."""
+    kernel 8, or 11) against its plain version on a pool of ``dtype`` on
+    the tables of ``inst``: M = 1024 (streamed: mt = 16) and 49152
+    (mt = 64), a partial and a full chunk, finite and INF incumbent; equal
+    state, live pool rows and, streamed, (G, 4) per-tile scalars."""
     from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import lb2_kernel
     from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
 
     bound = lb1_chunk if lb == "lb1" else lb2_chunk
@@ -426,6 +458,8 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                 ms, timing = kernel_device_ms(call, 30, names, restore)
                 launch_ms = dict(LAST_LAUNCH_MS)
                 call_ms = median_ms(call, 30, restore)
+                block = (lb2_kernel.last_shape("cycle_lb2")
+                         if lb == "lb2" and not tiled else None)
                 plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2),
                                      3 if lb == "lb1" or M <= 1024 else 1, restore)
                 cnt = min(size, M)
@@ -434,16 +468,23 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                 nbytes = (cnt + tree) * (n + 1) * isz + table_bytes + 64 + \
                     (24 * G if tiled else 0)
                 pop = limit1[size - cnt:]
-                ops = (lb1_ops(pop, n, m) if lb == "lb1" else
-                       lb2_ops(pop, n, m, tables.johnson.pair_count))
+                extra = {}
+                if lb == "lb1":
+                    ops = lb1_ops(pop, n, m)
+                else:
+                    P = tables.johnson.pair_count
+                    ops = lb2_scan_ops(pop, n, m, P)
+                    extra["child_loop_bound_ms"] = bound_ms(nbytes, lb2_ops(pop, n, m, P))[0]
+                    if block is not None:
+                        extra["block"] = block
                 bms, by = bound_ms(nbytes, ops)
                 rows[(M, chunk, incumbent)] = dict(
-                    n=n, dtype=str(dtype),
+                    inst=inst, n=n, dtype=str(dtype),
                     M=M, mt=mt if tiled else M, chunk=chunk, incumbent=incumbent, popped=cnt,
                     tree_inc=tree, sol_inc=sol, best_in=best,
                     best_out=int(st2[C.ST_BEST]), max_abs_err=err, ms=ms,
                     launch_ms=launch_ms, timing=timing, call_ms=call_ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+                    bound_ms=bms, bound_us=bms * 1e3, bound_by=by, **extra)
                 emit(phase, **rows[(M, chunk, incumbent)])
     return rows
 
@@ -469,17 +510,20 @@ def phase_kernel6(dev, lb2_tables: dict) -> dict:
                 call = lambda: lb2_kernel.lb2_bounds_cuda(p, lim, tables)  # noqa: E731
                 ms, timing = kernel_device_ms(call, 30, ("lb2_bounds_kernel",))
                 call_ms = median_ms(call, 30)
+                block = lb2_kernel.last_shape("lb2_bounds")
                 plain_ms = median_ms(lambda: lb2_kernel.plain(p, lim, tables),
                                      3 if B <= 1024 else 1)
                 isz = p.element_size()
                 nbytes = B * n * isz + B * isz + B * n * 4 + johnson_bytes(tables)
-                bms, by = bound_ms(nbytes, lb2_ops(limit1, n, m, P))
+                bms, by = bound_ms(nbytes, lb2_scan_ops(limit1, n, m, P))
                 key = (inst, B, str(dtype))
                 rows[key] = dict(inst=inst, n=n, m=m, P=P, B=B, dtype=str(dtype),
                                  smem_bytes=lb2_kernel.block_smem("lb2_bounds", tables),
-                                 max_abs_err=err, ms=ms, timing=timing,
+                                 block=block, max_abs_err=err, ms=ms, timing=timing,
                                  call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
-                                 bound_us=bms * 1e3, bound_by=by)
+                                 bound_us=bms * 1e3, bound_by=by,
+                                 child_loop_bound_ms=bound_ms(
+                                     nbytes, lb2_ops(limit1, n, m, P))[0])
                 emit("kernel6", **rows[key])
     return rows
 
@@ -868,10 +912,12 @@ def main_cycles(dev, dev_info) -> int:
     tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
     phase_pfsp_cycle("kernel2", dev, tables, "lb1", 1)
     phase_pfsp_cycle("kernel2", dev, PFSPProblem(inst=51, lb="lb1", ub=1).device_tables(dev),
-                     "lb1", 51, dtype=torch.int32)
+                     "lb1", 51, dtype=torch.int32, inst="ta051")
     phase_kernel4(dev)
     phase_pfsp_cycle("kernel8", dev, PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(dev),
                      "lb2", 8)
+    phase_pfsp_cycle("kernel8", dev, PFSPProblem(inst=21, lb="lb2", ub=1).device_tables(dev),
+                     "lb2", 21, inst="ta021")
     phase_profile("search_fused_M49152", PFSP_LB1, GOLDEN,
                   (C.cycle_lb1_cuda, CYCLE_KERNELS, 3))
     phase_profile("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], GOLDEN,
@@ -908,13 +954,17 @@ def main() -> int:
     k2 = phase_pfsp_cycle("kernel2", dev, tables, "lb1", 1)
     # ta051 (50 jobs): two keep-mask words a parent, on an int32 pool.
     ta051 = PFSPProblem(inst=51, lb="lb1", ub=1).device_tables(dev)
-    k2_51 = phase_pfsp_cycle("kernel2", dev, ta051, "lb1", 51, dtype=torch.int32)
+    k2_51 = phase_pfsp_cycle("kernel2", dev, ta051, "lb1", 51, dtype=torch.int32,
+                             inst="ta051")
     k3 = phase_kernel3(dev)
     k4 = phase_kernel4(dev)
     k5 = phase_kernel5(dev, tables)
     k6 = phase_kernel6(dev, lb2_tables)
     k7 = phase_kernel7(dev, lb2_tables["ta014"])
     k8 = phase_pfsp_cycle("kernel8", dev, lb2_tables["ta014"], "lb2", 8)
+    # ta021: 20 machines, P = 190 pairs, where lb2 costs the most.
+    k8_21 = phase_pfsp_cycle("kernel8", dev, lb2_tables["ta021"], "lb2", 21,
+                             inst="ta021")
     k9 = phase_pfsp_cycle("kernel9", dev, tables, "lb1", 9, tiled=True)
     k10 = phase_kernel4(dev, "kernel10", tiled=True)
     k11 = phase_pfsp_cycle("kernel11", dev, lb2_tables["ta014"], "lb2", 11, tiled=True)
@@ -1058,7 +1108,8 @@ def main() -> int:
          lb2s, "ta014 R=49152*20 int8, n_active=R/4", k7,
          k7[(49152 * 20, 49152 * 20 // 4)]),
         ("cycle_lb2", "cycle_lb2.cu", "megakernel.py:588",
-         lb2f, "ta014 M=49152 full chunk, finite incumbent", k8,
+         lb2f, "ta014 M=49152 full chunk, finite incumbent",
+         {**k8, **{("ta021",) + k: r for k, r in k8_21.items()}},
          k8[(49152, "full", "finite")]),
         ("tiled_lb1", "tiled_lb1.cu", "megakernel.py:677",
          lb1t, "ta014 M=49152 mt=64 full chunk, finite incumbent", k9,
@@ -1087,7 +1138,10 @@ def main() -> int:
             "ms": main_row["ms"], "timing": main_row["timing"],
             "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            # The lb2 rows: the per-child recurrence's bound, the block shape.
+            **{k: main_row[k] for k in ("child_loop_bound_ms", "block")
+               if k in main_row}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

@@ -426,6 +426,97 @@ def test_lb2_kernels_raise_on_what_they_do_not_take(cuda):
         lb2_kernel.lb2_bounds_cuda(rows, torch.zeros(4, dtype=torch.int8, device=cuda), big)
 
 
+def _depth_nodes(rng, n, B, depth):
+    """Seeded nodes whose limit1 is mixed (``_nodes``), n - 2 for every
+    parent ("leaves": one child, a leaf) or -1 ("roots": n children, every
+    job free)."""
+    prmu, limit1 = _nodes(rng, n, B)
+    if depth != "mixed":
+        limit1[:] = n - 2 if depth == "leaves" else -1
+    return prmu, limit1
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("depth", ["mixed", "leaves", "roots"])
+@pytest.mark.parametrize("B", [1024, 49152])
+def test_lb2_kernel_block_shapes_match_plain(cuda, B, depth, dtype):
+    # Kernel 6's two block shapes: at B = 1024 every block fits on the card
+    # at once (two parents a block, one thread a (parent, pair) task,
+    # wavefront fronts); at B = 49152 it does not (32 parents a block,
+    # threads that loop). Only the open slots are written and compared.
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    n = t.jobs
+    prmu, limit1 = _depth_nodes(np.random.default_rng(B), n, B, depth)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = lb2_kernel.lb2_bounds_cuda(p, lim, t)
+    want = lb2_kernel.plain(p, lim, t)
+    torch.cuda.synchronize()
+    assert lb2_kernel.last_shape("lb2_bounds")["fits"] == (B == 1024)
+    op = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(cuda)
+    assert torch.equal(got[op], want[op])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_lb2_kernel_takes_more_than_32_machines(cuda, dtype):
+    # 40 machines (P = 780 pairs): past one warp of lanes, so the parent
+    # fronts take one thread a parent.
+    ptm = np.random.default_rng(40).integers(1, 100, (40, 12))
+    t = PFSPProblem(lb="lb2", ub=0, p_times=ptm).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(41), 12, 300)
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = lb2_kernel.lb2_bounds_cuda(p, lim, t)
+    want = lb2_kernel.plain(p, lim, t)
+    torch.cuda.synchronize()
+    op = torch.from_numpy(np.arange(12)[None, :] > limit1[:, None]).to(cuda)
+    assert torch.equal(got[op], want[op])
+
+
+@pytest.mark.parametrize("depth", ["mixed", "leaves", "roots"])
+@pytest.mark.parametrize("M", [1024, 49152])
+def test_lb2_cycle_block_shapes_match_plain(cuda, M, depth):
+    # Kernel 8's bounds launch in its two block shapes (as kernel 6), on a
+    # full chunk of mixed, leaf-only and root-only parents: equal state and
+    # live pool rows after each of two cycles.
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    n, m, K = t.jobs, 25, 8
+    size = M + 517
+    prmu, limit1 = _depth_nodes(np.random.default_rng(M + 1), n, size, depth)
+    cap = size + 2 * M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    scratch = C.cycle_scratch(M, n, torch.int8, cuda)
+    _cycles_match(lambda *a: C.cycle_lb2_cuda(*a, scratch, t, M, m, K),
+                  lambda *a: C.cycle_lb2_plain(*a, t, M, m, K),
+                  pv, pa, C.new_state(size, 1500, cuda), 2)
+    assert lb2_kernel.last_shape("cycle_lb2")["fits"] == (M == 1024)
+
+
+@pytest.mark.parametrize("finite", [True, False])
+def test_lb2_cycle_takes_ta081(cuda, finite):
+    # ta081's 100 jobs (P = 190 pairs of 20 machines): the most the lb2
+    # kernels take, four free-mask words a (parent, pair) task and a block
+    # cut to the parents that fit in shared memory.
+    t = PFSPProblem(inst=81, lb="lb2", ub=1).device_tables(cuda)
+    n, M, m, K = t.jobs, 96, 25, 8
+    size = M + 61
+    prmu, limit1 = _nodes(np.random.default_rng(81), n, size)
+    cap = size + 3 * M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    scratch = C.cycle_scratch(M, n, torch.int8, cuda)
+    best = 7000 if finite else INF
+    st2 = _cycles_match(lambda *a: C.cycle_lb2_cuda(*a, scratch, t, M, m, K),
+                        lambda *a: C.cycle_lb2_plain(*a, t, M, m, K),
+                        pv, pa, C.new_state(size, best, cuda), 2)
+    assert int(st2[C.ST_TREE]) > 0
+
+
 # -- the streamed cycle (kernels 9, 10 and 11) and the eval-only pass ----------
 
 

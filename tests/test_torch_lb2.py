@@ -11,9 +11,12 @@ child slots (k > limit1; the others are not children). ``lb2_self_chunk``
 ``pfsp_lb2_self_bounds`` in interpret mode on the first ``n_active`` rows,
 and ``lb2_bounds_staged`` to the JAX staged evaluator on the candidate
 slots. Instances: ta014 (P = 45 pairs) and its 10-job, 5-machine corner
-under the three pair variants. Tolerance 0: everything is int32. The kernels
-themselves are compared with these plain versions on the card in
-`tests/test_torch_cuda.py`.
+under the three pair variants. A numpy model of the per-parent pair pass
+that kernels 6 and 8 run (`csrc/lb2_common.cuh`) is held to ``lb2_chunk``
+and to the JAX evaluator on ta014, ta021, a random 7x5 instance and a pair
+subset, from the root, at the leaves and at mixed depths. Tolerance 0:
+everything is int32. The kernels themselves are compared with these plain
+versions on the card in `tests/test_torch_cuda.py`.
 """
 
 from __future__ import annotations
@@ -256,3 +259,127 @@ def test_device_tables_build_johnson_only_for_lb2(lb):
     t = tprob.device_tables(CPU)
     assert (t.johnson is None) == (lb != "lb2")
     assert tprob.device_tables(CPU) is t  # cached per device
+
+
+# -- the per-parent pair pass of kernels 6 and 8 (csrc/lb2_common.cuh) ---------
+
+
+def _per_parent_pass(prmu, limit1, tables):
+    """A numpy model of the per-parent Johnson pass of kernels 6 and 8
+    (`lb2p_bounds` in csrc/lb2_common.cuh), in the kernels' order. Per
+    parent: its front and its free work S by machine. Per (parent, pair q):
+    a forward walk over the free jobs in q's Johnson order with the
+    inclusive prefix sum of p0, the exclusive one of p1 and the prefix
+    maximum of u = cum0 + lag - cum1 (w = u + S1), then a backward walk with
+    the suffix sums and the suffix maximum of v = lag + suf1 - suf0
+    (w = v + S0); each walk takes its term of job i left out, less the
+    child's front, into A[job][ma0] with a max. Per open child: its front c
+    (one add_forward step) and its bound, max(0, c[j] + A[job][j], and
+    c[j] + S[j] - p[j] + tails[j] for each machine j of a pair). Returns
+    (B, n) int64 with the closed slots at 0."""
+    J = tables.johnson
+    h = J.host
+    ptm_t = tables.ptm_t.numpy().astype(np.int64)
+    heads = tables.min_heads.numpy().astype(np.int64)
+    B, n = prmu.shape
+    m = ptm_t.shape[1]
+    neg = int(tdev.NEG)
+    # The tails of the machines some pair names, NEG for the others.
+    t14 = np.full(m, neg, dtype=np.int64)
+    for q in range(J.pair_count):
+        t14[h["pairs"][q][0]] = h["tails0"][q]
+        t14[h["pairs"][q][1]] = h["tails1"][q]
+    out = np.zeros((B, n), dtype=np.int64)
+    for b in range(B):
+        row, l1 = prmu[b], int(limit1[b])
+        free = np.zeros(n, dtype=bool)
+        free[row[l1 + 1:]] = True
+        front = heads.copy() if l1 == -1 else np.zeros(m, dtype=np.int64)
+        for i in range(l1 + 1):
+            p = ptm_t[row[i]]
+            c = front[0] + p[0]
+            front[0] = c
+            for j in range(1, m):
+                c = max(c, front[j]) + p[j]
+                front[j] = c
+        S = ptm_t[row[l1 + 1:]].sum(0)
+        A = np.full((n, m), neg, dtype=np.int64)
+        for q in range(J.pair_count):
+            ma0, ma1 = (int(v) for v in h["pairs"][q])
+            t1 = int(h["tails1"][q])
+            S0, S1 = int(S[ma0]), int(S[ma1])
+            order = [t for t in range(n) if free[h["sched"][q, t]]]
+            c0 = c1 = 0
+            premax = neg
+            for t in order:
+                p0, p1, lag, job = (int(h[f][q, t]) for f in ("p0_o", "p1_o", "lag_o",
+                                                              "sched"))
+                c0 += p0
+                if premax != neg:
+                    A[job, ma0] = max(A[job, ma0], premax + S1 - p1 + t1)
+                premax = max(premax, c0 + lag - c1)
+                c1 += p1
+            s0 = s1 = 0
+            sufmax = neg
+            for t in reversed(order):
+                p0, p1, lag, job = (int(h[f][q, t]) for f in ("p0_o", "p1_o", "lag_o",
+                                                              "sched"))
+                s1 += p1
+                if sufmax != neg:
+                    A[job, ma0] = max(A[job, ma0], sufmax + S0 - p0 + t1)
+                sufmax = max(sufmax, lag + s1 - s0)
+                s0 += p0
+        for k in range(l1 + 1, n):
+            job = row[k]
+            p = ptm_t[job]
+            lb = c = 0
+            for j in range(m):
+                c = (front[0] if j == 0 else max(c, front[j])) + p[j]
+                lb = max(lb, c + int(A[job, j]), c + int(S[j]) - p[j] + int(t14[j]))
+            out[b, k] = lb
+    return out
+
+
+def _pass_case(name):
+    """(JAX problem, the port's CPU tables) of an instance of the pair-pass
+    test: ta014 (20 jobs, 10 machines, P = 45), ta021 (20 jobs, 20
+    machines, P = 190), a seeded random 7-job, 5-machine instance, or
+    ta014's 10-job, 5-machine corner under the Nabeshima subset (the P = 4
+    pairs of adjacent machines)."""
+    if name == "10x5-nabeshima":
+        jprob, tprob = _problems(name)
+        return jprob, tprob.device_tables(CPU)
+    if name == "7x5-random":
+        ptm = np.random.default_rng(38).integers(1, 100, (5, 7))
+        return PFSPProblem(lb="lb2", ub=0, p_times=ptm), _tables_of(ptm)
+    inst = int(name[2:])
+    return (PFSPProblem(inst=inst, lb="lb2", ub=1),
+            TorchPFSP(inst=inst, lb="lb2", ub=1).device_tables(CPU))
+
+
+@pytest.mark.parametrize("depth", ["root", "leaf", "mixed"])
+@pytest.mark.parametrize("name", ["ta014", "ta021", "7x5-random", "10x5-nabeshima"])
+def test_per_parent_pair_pass_matches_plain_and_jax(name, depth):
+    # The identity kernels 6 and 8 rest on: the lb2 of every open child
+    # from one forward and one backward pass per (parent, pair), held bit
+    # for bit against the plain per-child closed form and the JAX evaluator
+    # on the open slots. "root": limit1 = -1 (r = n free jobs); "leaf":
+    # limit1 = n - 2 (one child, with no free job left: its lb2 is the
+    # front's); "mixed": every depth from -1 to n - 2.
+    jprob, t = _pass_case(name)
+    n = jprob.jobs
+    rng = np.random.default_rng(39)
+    B = 24
+    prmu = np.stack([rng.permutation(n) for _ in range(B)]).astype(np.int32)
+    limit1 = {"root": np.full(B, -1), "leaf": np.full(B, n - 2),
+              "mixed": np.arange(B) % n - 1}[depth].astype(np.int32)
+    got = _per_parent_pass(prmu, limit1, t)
+    plain = tdev.lb2_chunk(torch.from_numpy(prmu), torch.from_numpy(limit1),
+                           t).numpy()
+    jt = _jax_tables(jprob)
+    want = np.asarray(pfsp_device._lb2_chunk(
+        jnp.asarray(prmu), jnp.asarray(limit1), *_jax_args(jt)))
+    op = _open(limit1, n)
+    assert op.sum() == np.sum(n - 1 - limit1)
+    assert np.array_equal(got[op], plain[op].astype(np.int64))
+    assert np.array_equal(got[op], want[op].astype(np.int64))

@@ -184,6 +184,11 @@ def test_chip_ab_reads_a_chip_smoke_run():
     out = "\n".join([
         "NVIDIA H100 80GB HBM3, 700.00 W",
         json.dumps({"phase": "kernel4", "M": 50000, "g": 1, "chunk": "full", "ms": 0.02}),
+        json.dumps({"phase": "kernel6", "inst": "ta021", "n": 20, "B": 1024,
+                    "dtype": "torch.int8", "ms": 0.03}),
+        json.dumps({"phase": "kernel8", "inst": "ta014", "n": 20, "dtype": "torch.int8",
+                    "M": 1024, "chunk": "full", "incumbent": "inf", "ms": 0.02,
+                    "launch_ms": {"lb2_cycle_bounds": 0.013}}),
         json.dumps({"phase": "search_x", "elapsed_s": 0.5, "phases": [[1, 0, 0.1], [2, 0, 0.3]]}),
         json.dumps({"phase": "profile", "search": "search_x", "device_busy_ms": 3.0,
                     "phase2_ms": 4.0, "busy_share": 0.75}),
@@ -193,7 +198,10 @@ def test_chip_ab_reads_a_chip_smoke_run():
     got = ab.summarize(out)
     assert got["card"] == "NVIDIA H100 80GB HBM3, 700.00 W" and got["ok"]
     assert got["kernels"] == {"cycle_nqueens": 0.02}
-    assert got["cycles"] == {"kernel4/50000/1/full": 0.02}
+    k8 = "kernel8/ta014/20/torch.int8/1024/full/inf"
+    assert got["cycles"] == {"kernel4/50000/1/full": 0.02,
+                             "kernel6/ta021/20/torch.int8/1024": 0.03, k8: 0.02}
+    assert got["launch_ms"] == {k8: {"lb2_cycle_bounds": 0.013}}
     assert got["searches"] == {"search_x": [0.5, 0.3]}
     assert got["profiles"]["search_x"]["busy_share"] == 0.75
 
@@ -202,6 +210,23 @@ def test_chip_ab_reads_a_chip_smoke_run():
 # incumbent: the JAX sequential tier's counts (pinned against it by
 # tests/test_torch_resident.py).
 NABESHIMA_10x5 = (1294, 0, 609)
+
+
+def test_chip_sweep_makes_variant_copies(tmp_path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_sweep", ROOT / "chip_sweep.py")
+    sw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sw)
+    dest = tmp_path / "v"
+    sw.make_variant(ROOT, dest, {"lb2_common.cuh": {
+        "#define TTS_LB2_LOOP_PARENTS 32": "#define TTS_LB2_LOOP_PARENTS 16"}})
+    text = (dest / "tpu_tree_search_torch/csrc/lb2_common.cuh").read_text()
+    assert "#define TTS_LB2_LOOP_PARENTS 16" in text
+    assert (dest / "chip_smoke.py").is_file() and (dest / "chip_sweep.py").is_file()
+    assert not (dest / "tpu_tree_search_torch/_build").exists()
+    with pytest.raises(ValueError, match="not found"):
+        sw.make_variant(ROOT, dest, {"lb2_common.cuh": {"no such text": ""}})
 
 
 def test_cli_runs_lb2_on_cpu_and_records_it(monkeypatch, capsys):

@@ -13,20 +13,30 @@
 //      int16 rows (p0, p1, lag, job) of each pair's Johnson order.
 // Out: (B, n) int32; slot k of parent b is the lb2 of the child that
 //      schedules prmu[b, k] next. Slots k <= limit1 are not children; they
-//      hold a value of the same loop and are never read.
+//      are not written and never read.
 //
-// What bounds it on an H100: operations. Each child slot runs the Johnson
-// recurrence over all P*n ordered slots (about 5 integer operations a slot:
-// ta014 has P = 45 pairs of n = 20 slots, so ~4,500 operations a child,
-// against n bytes of input and 4 bytes of output a child). The design keeps
-// every operand of that loop in shared memory: the ordered table (8 bytes a
-// slot, 7.2 KB at ta014, 30 KB at ta021), each parent's front and job
-// positions, and each thread's child front; a warp reads the same table
-// entry in each step (a broadcast).
+// What bounds it on an H100: integer instructions on operands in shared
+// memory. The children of one parent share their Johnson pass but for one
+// job, so the kernel walks each (parent, pair)'s free jobs twice
+// (`lb2p_bounds` in lb2_common.cuh: P*(n + c*r) operations a parent with r
+// free jobs) where a pass per child cost P*n*r, and starts no work for the
+// closed slots. A (parent, pair) task builds its free slots as a bit mask
+// from the pair's inverse order (r steps), then touches shared memory only
+// for its free jobs: one 8-byte table entry and one atomicMax into the
+// parent's (job, ma0) terms a walk step. No child front is kept: a first
+// design that stored each child's front, looked up each ordered slot's
+// position and took all four terms of the closed form in the walks ran
+// slower on the card (PERF.md, section 6). Every operand stays in shared
+// memory: the ordered table
+// (8 bytes a slot, 7.2 KB at ta014, 30 KB at ta021) and its inverse, each
+// parent's row, front, free work and (job, machine) terms.
 //
-// Layout: one block per TTS_PARENTS_PER_BLOCK parents, as kernel 1. Threads
-// 0..PB-1 scan one parent prologue each (front and positions); then every
-// thread runs child slots, so consecutive threads write consecutive bounds.
+// Layout (`tts_lb2p_shape`): when every block fits on the card at once, two
+// parents a block and one thread a (parent, pair) task (the small chunk is
+// latency-bound); else 512 threads that loop over the tasks of up to 32
+// parents (fewer table loads), as many as leave a full wave of blocks.
+// Parents are cut to what fits in shared memory (ta081: 5). The parent
+// fronts are wavefronts over the machines, one lane a machine.
 #include "lb2_common.cuh"
 
 template <typename T>
@@ -37,46 +47,33 @@ __global__ void lb2_bounds_kernel(const T* __restrict__ prmu,
                                   const int4* __restrict__ pairinfo,
                                   const short4* __restrict__ tab,
                                   int* __restrict__ out, int B, int n, int m,
-                                  int P) {
+                                  int P, int PB) {
   extern __shared__ __align__(16) unsigned char lb2_smem[];
-  const int PB = TTS_PARENTS_PER_BLOCK;
-  const Lb2Smem s = lb2_smem_layout(lb2_smem, n, m, P, PB, blockDim.x);
-  lb2_load_tables(s, ptm_t, heads, pairinfo, tab, n, m, P);
-  __syncthreads();
-
+  const Lb2ParSmem s = lb2p_smem_layout(lb2_smem, n, m, P, PB);
+  lb2p_load_tables(s, ptm_t, heads, pairinfo, tab, n, m, P);
   const int b0 = blockIdx.x * PB;
-  const int t = threadIdx.x;
-  if (t < PB && b0 + t < B) {
-    const int b = b0 + t;
-    lb2_parent_state(prmu + static_cast<size_t>(b) * n,
-                     static_cast<int>(limit1[b]), n, m, s, s.front + t * m,
-                     s.pos + t * n);
-  }
+  const int rows = min(PB, B - b0);
+  lb2p_load_rows(s, prmu + static_cast<size_t>(b0) * n, limit1 + b0, rows, 0,
+                 rows, n);
   __syncthreads();
-
-  for (int slot = t; slot < PB * n; slot += blockDim.x) {
-    const int p = slot / n;
-    const int k = slot - p * n;
-    const int b = b0 + p;
-    if (b >= B) break;
-    out[static_cast<size_t>(b) * n + k] =
-        lb2_child(prmu + static_cast<size_t>(b) * n, k,
-                  static_cast<int>(limit1[b]), n, m, P, s, s.front + p * m,
-                  s.pos + p * n);
-  }
+  int* o = out + static_cast<size_t>(b0) * n;
+  lb2p_bounds(s, rows, n, m, P,
+              [&](int p, int k, int lb) { o[p * n + k] = lb; });
 }
 
-static inline int lb2_bounds_threads(int n) {
-  const int t = tts_threads_for(TTS_PARENTS_PER_BLOCK * n);
-  return t < TTS_LB2_THREADS ? t : TTS_LB2_THREADS;
-}
-
-// Dynamic shared memory of one block at this shape (the wrapper refuses a
-// shape above the opt-in limit).
+// Dynamic shared memory of the largest block at this shape (the wrapper
+// refuses a shape above the opt-in limit).
 extern "C" long long lb2_bounds_smem(int n, int m, int P) {
-  return static_cast<long long>(tts_lb2_smem_bytes(
-      n, m, P, TTS_PARENTS_PER_BLOCK, lb2_bounds_threads(n),
-      TTS_PARENTS_PER_BLOCK));
+  return tts_lb2p_smem_max(n, m, P);
+}
+
+// The shape of the last launch: parents, threads, shared memory, fits.
+static Lb2Shape lb2_bounds_last;
+extern "C" void lb2_bounds_last_shape(int* out) {
+  out[0] = lb2_bounds_last.parents;
+  out[1] = lb2_bounds_last.threads;
+  out[2] = lb2_bounds_last.smem;
+  out[3] = lb2_bounds_last.fits;
 }
 
 template <typename T>
@@ -85,17 +82,17 @@ static int launch_lb2_bounds(const void* prmu, const void* limit1,
                              const void* pairinfo, const void* tab, void* out,
                              int B, int n, int m, int P, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  const int PB = TTS_PARENTS_PER_BLOCK;
-  const size_t smem = static_cast<size_t>(lb2_bounds_smem(n, m, P));
-  int err = tts_smem_optin(lb2_bounds_kernel<T>, smem);
+  Lb2Shape sh;
+  int err = tts_lb2p_shape(lb2_bounds_kernel<T>, B, n, m, P, &sh);
   if (err) return err;
-  const int blocks = (B + PB - 1) / PB;
-  lb2_bounds_kernel<T><<<blocks, lb2_bounds_threads(n), smem,
+  lb2_bounds_last = sh;
+  const int blocks = (B + sh.parents - 1) / sh.parents;
+  lb2_bounds_kernel<T><<<blocks, sh.threads, sh.smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(prmu), static_cast<const T*>(limit1),
       static_cast<const int*>(ptm_t), static_cast<const int*>(heads),
       static_cast<const int4*>(pairinfo), static_cast<const short4*>(tab),
-      static_cast<int*>(out), B, n, m, P);
+      static_cast<int*>(out), B, n, m, P, sh.parents);
   return static_cast<int>(cudaGetLastError());
 }
 

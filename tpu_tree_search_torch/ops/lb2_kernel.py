@@ -10,11 +10,13 @@ is its plain PyTorch version (`ops/pfsp_device.lb2_chunk`).
 ``lb2_bounds_cuda.launches`` counts the launches.
 
 The lb2 kernels (6, 7 and 8) hold the instance's Johnson tables in shared
-memory. ``johnson_operands`` refuses, with ``NotImplementedError``, a shape
-they do not take: more than ``MAX_JOBS`` jobs (the JAX lb2 kernels serve
-n <= 100 too, `pfsp_device.py:585`), values past int16 in the packed table,
-or tables past the card's shared-memory opt-in limit. It never hands the
-work to the plain version.
+memory. Kernels 6 and 8 pick their block shape by what the card holds at
+once (`csrc/lb2_common.cuh`, ``tts_lb2p_shape``); ``last_shape`` reads the
+shape of a source's last launch. ``johnson_operands`` refuses, with
+``NotImplementedError``, a shape they do not take: more than ``MAX_JOBS``
+jobs (the JAX lb2 kernels serve n <= 100 too, `pfsp_device.py:585`), values
+past int16 in the packed table, or tables past the card's shared-memory
+opt-in limit. It never hands the work to the plain version.
 """
 
 from __future__ import annotations
@@ -47,6 +49,19 @@ def block_smem(source: str, tables: PFSPDeviceTables) -> int:
     _, smem = _build.entry(source, f"{source}_smem", (ctypes.c_int,) * 3,
                            ctypes.c_longlong)
     return smem(tables.jobs, tables.machines, tables.johnson.pair_count)
+
+
+def last_shape(source: str) -> dict:
+    """The block shape of the last launch of kernel 6 (``lb2_bounds``) or of
+    kernel 8's bounds launch (``cycle_lb2``) in this process: parents and
+    threads a block, its dynamic shared memory, and whether the whole grid
+    was on the card at once (``fits``)."""
+    _, fn = _build.entry(source, f"{source}_last_shape",
+                         (ctypes.POINTER(ctypes.c_int),), None)
+    out = (ctypes.c_int * 4)()
+    fn(out)
+    return {"parents": out[0], "threads": out[1], "smem_bytes": out[2],
+            "fits": bool(out[3])}
 
 
 def johnson_operands(source: str, tables: PFSPDeviceTables) -> JohnsonTables:
