@@ -9,9 +9,9 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists),
 B the checkout this script sits in. Each run's output goes to
 ``DIR/<run>_<A|B>.log`` (default ``_checkout/ab``, gitignored). Prints
 one JSON line a run (exit code, the card as ``nvidia-smi`` names it, every
-kernel's time from the ``kernels`` line, the rows of the fused cycles and
-of kernel 6 with the cycles' device time by launch, the searches' times
-and the profiled searches' device times), then one line
+kernel's time from the ``kernels`` line, the rows of kernels 1 and 5, of
+the fused cycles and of kernel 6 with the cycles' device time by launch,
+the searches' times and the profiled searches' device times), then one line
 that sets the four runs side by side. Exits non-zero when a run failed.
 """
 
@@ -25,7 +25,9 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-CYCLE_PHASES = ("kernel2", "kernel4", "kernel6", "kernel8")
+CYCLE_PHASES = ("kernel1", "kernel2", "kernel4", "kernel5", "kernel6", "kernel8")
+# The kernel 1 and 5 rows of a checkout that names no instance are ta014's.
+DEFAULT_INST = {"kernel1": "ta014", "kernel5": "ta014"}
 # The fields that name a row of those phases (those it has, in this order).
 ROW_FIELDS = ("phase", "inst", "n", "dtype", "M", "B", "g", "chunk", "incumbent")
 
@@ -41,6 +43,8 @@ def summarize(stdout: str) -> dict:
     cycles, launch_ms = {}, {}
     for ln in lines:
         if ln.get("phase") in CYCLE_PHASES:
+            if ln["phase"] in DEFAULT_INST:
+                ln.setdefault("inst", DEFAULT_INST[ln["phase"]])
             key = "/".join(str(ln.get(k)) for k in ROW_FIELDS
                            if ln.get(k) is not None)
             cycles[key] = ln["ms"]
@@ -51,6 +55,7 @@ def summarize(stdout: str) -> dict:
     profiles = {ln["search"]: {k: ln.get(k) for k in
                                ("device_busy_ms", "phase2_ms", "busy_share",
                                 "launches_per_cycle", "cycle_ms_per_real_cycle",
+                                "kernel_device_ms", "kernel_launches",
                                 "top_device_ms")}
                 for ln in lines if ln.get("phase") == "profile"}
     return dict(card=card, ok=any(ln.get("ok") for ln in lines),
@@ -83,7 +88,8 @@ def main() -> int:
         side[part] = {k: [r[part].get(k) for r in runs] for k in keys}
     side["profiles"] = {
         k: [{f: (r["profiles"].get(k) or {}).get(f)
-             for f in ("device_busy_ms", "phase2_ms", "busy_share")} for r in runs]
+             for f in ("device_busy_ms", "phase2_ms", "busy_share", "kernel_device_ms")}
+            for r in runs]
         for k in sorted({k for r in runs for k in r["profiles"]})}
     print(json.dumps({"order": "ABBA", **side}), flush=True)
     return 1 if failed else 0

@@ -14,7 +14,14 @@ ends the script with a non-zero exit before the final line:
      ``nvcc`` per source, in parallel), with the build seconds;
   3. kernel 1 (lb1 bounds) against its plain PyTorch version on the card:
      ta014 tables, seeded random partial permutations, B = 1024 and 49152,
-     int8 and int32 inputs; bit-equal on the open slots;
+     int8 and int32 inputs; ta021 (20 machines) at both B, ta111 (500
+     jobs, int32) at B = 1024, a seeded 40-machine instance (the one-thread
+     prologue) and ta014 rows that are no permutation at B = 49152;
+     bit-equal on the open slots (every slot for the last); each row with
+     the block shape the kernel chose (``block``: parents, threads and
+     blocks, shared memory, whether the grid fit on the card at once, and
+     the parent prologue: a wavefront over ``lanes`` lanes a parent, or
+     warp 0's fronts);
   4. kernel 2 (the fused search cycle) against its plain version on the
      card: M = 1024 and 49152, finite and INF incumbent, a partial and a
      full chunk; equal state and live pool rows; and on ta051 tables (50
@@ -31,8 +38,8 @@ ends the script with a non-zero exit before the final line:
   8. ``kernel4`` (the fused N-Queens cycle) against its plain version at
      N = 15: M = 1024 and 50000, a partial and a full chunk, g = 1 and (at
      M = 50000) g = 4; equal state and live pool rows;
-  9. ``kernel5`` (lb1_d bounds) against its plain version on ta014 tables:
-     B = 1024 and 49152, int8 and int32; bit-equal on the open slots;
+  9. ``kernel5`` (lb1_d bounds) against its plain version on the rows of
+     phase 3, each with its block shape;
  10. N-Queens N = 15 through the CLI on the fused path at the default M:
      tree 171,129,071, sol 2,279,184, counting kernel 4;
  11. N-Queens N = 14 through the CLI with ``--unfused``: tree 27,358,552,
@@ -70,18 +77,23 @@ ends the script with a non-zero exit before the final line:
      at full width) and ``megakernel_lb2_bounds``, which launch kernels 1,
      6 and 3 (counted), checked against the plain planes;
  20. the lb2 searches (and the streamed one) again under ``torch.profiler``,
-     then ta014 lb1 and N-Queens N = 15, single-tile and streamed: device
+     the unfused ta014 lb1 search at M = 1024 and the ta014 lb1_d search
+     (with kernel 1's, resp. kernel 5's, device time a search; the staged
+     lb2 search with kernel 1's), then ta014 lb1 and N-Queens N = 15,
+     single-tile and streamed: device
      time by kernel against the device phase's wall time (the busy share),
      and for the single-tile ta014 lb1 (kernel 2) and N-Queens (kernel 4)
      searches the launches a cycle from the profiler's kernel counts (3 and
      2, and no ``cycle_scan`` launch);
  21. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
-     plain version, its time, the plain version's time and the bound; the
-     eval-only pass's TPU kernels get rows of their own on kernels 1, 3 and
-     6, with the launches of phase 19.
+     plain version, its time, the plain version's time and the bound (the
+     kernel 1, 5, 6 and 8 rows with their block shape); the eval-only
+     pass's TPU kernels get rows of their own on kernels 1, 3 and 6, with
+     the launches of phase 19.
 
-Times are CUDA-event medians on the card; ``bound_ms`` is the larger of the
+Kernel times (``ms``) are the profiler's device time a call (``timing``
+says how it was taken), ``call_ms`` CUDA-event medians on the card; ``bound_ms`` is the larger of the
 bytes the function must move over 3.35 TB/s and its int32 operations over
 67 T/s (the H100 SXM data-sheet rates, a card at its 700 W limit). The lb2
 rows count the operations of the per-parent pair pass (``lb2_scan_ops``)
@@ -142,7 +154,13 @@ def check(cond: bool, what: str) -> None:
 LAST_LAUNCH_MS: dict[str, float] = {}
 
 
-def _profiled_ms(fn, reps: int, names: tuple[str, ...], setup) -> float | None:
+def _profiled_ms(fn, reps: int, names: tuple[str, ...],
+                 setup) -> tuple[float | None, int]:
+    """(device ms of one call, launches the trace held of the name it held
+    least) from a ``torch.profiler`` trace of ``reps`` calls, each of which
+    launches every kernel of ``names`` once: per name, its mean per launch
+    over the launches the trace holds. (None, 0) when the trace holds none
+    of some name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -151,35 +169,43 @@ def _profiled_ms(fn, reps: int, names: tuple[str, ...], setup) -> float | None:
                 setup()
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    found = 0
-    LAST_LAUNCH_MS.clear()
+    per_name: dict[str, list] = {}
     for ev in prof.key_averages():
-        if any(nm in ev.key for nm in names):
-            us = getattr(ev, "device_time_total", None)
-            us = ev.cuda_time_total if us is None else us
-            total_us += us
-            found += ev.count
-            name = next(nm for nm in names if nm in ev.key)
-            LAST_LAUNCH_MS[name] = LAST_LAUNCH_MS.get(name, 0.0) + us / reps / 1e3
-    return total_us / reps / 1e3 if found >= reps and total_us > 0 else None
+        name = next((nm for nm in names if nm in ev.key), None)
+        if name is None:
+            continue
+        us = getattr(ev, "device_time_total", None)
+        us = ev.cuda_time_total if us is None else us
+        acc = per_name.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += ev.count
+    LAST_LAUNCH_MS.clear()
+    if len(per_name) < len(names) or any(c == 0 or us <= 0 for us, c in per_name.values()):
+        return None, 0
+    for name, (us, c) in per_name.items():
+        LAST_LAUNCH_MS[name] = us / c / 1e3
+    return sum(LAST_LAUNCH_MS.values()), min(c for _, c in per_name.values())
 
 
 def kernel_device_ms(fn, reps: int, names: tuple[str, ...],
                      setup=None) -> tuple[float, str]:
     """Device time of one ``fn()`` call spent in the CUDA kernels whose names
-    contain one of ``names``, and how it was taken. ``"profiler"``: the sum
-    of their durations in a ``torch.profiler`` (CUPTI) trace of ``reps``
-    calls, over ``reps`` — host issue time excluded. When the trace holds
-    none of the launches (tried twice), ``"events"``: the mean of CUDA
-    events around each of ``reps`` calls — an upper bound that includes
-    whatever host issue time the device waits for."""
+    contain one of ``names`` (each launched once a call), and how it was
+    taken. ``"profiler"``: the sum over ``names`` of each kernel's mean
+    duration a launch in a ``torch.profiler`` (CUPTI) trace of ``reps``
+    calls — host issue time excluded; ``"profiler (k of reps launches)"``
+    when the trace held only k launches of some name (a trace can drop
+    events; the mean is over those it holds). When the trace holds none of
+    some name (tried twice), ``"events"``: the mean of CUDA events around
+    each of ``reps`` calls — an upper bound that includes whatever host
+    issue time the device waits for."""
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        ms = _profiled_ms(fn, reps, names, setup)
+        ms, held = _profiled_ms(fn, reps, names, setup)
         if ms is not None:
-            return ms, "profiler"
+            return ms, ("profiler" if held >= reps
+                        else f"profiler ({held} of {reps} launches)")
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     total = 0.0
@@ -334,34 +360,83 @@ def phase_build():
     emit("build", seconds=secs, per_source_seconds=per_source, ptxas=ptxas)
 
 
-def phase_kernel1(dev, tables) -> dict:
-    from tpu_tree_search_torch.ops import lb1_kernel
-
-    n, m = tables.jobs, tables.machines
-    rng = np.random.default_rng(0)
-    rows = {}
+def lb1_family_inputs(seed: int):
+    """The (instance, B, dtype, rows) of the kernel 1 and 5 rows: ta014 at
+    B = 1024 and 49152, int8 and int32 (first, in the order of earlier
+    runs, from ``seed``); ta021 (20 machines) at both B, int8; ta111 (500
+    jobs) at B = 1024, int32; a seeded 40-machine, 12-job instance (the
+    one-thread prologue) at B = 49152; and ta014 rows that are no
+    permutation (repeated ids, limit1 from -3 to n + 1) at B = 49152,
+    compared on every slot."""
+    n = 20  # ta014's and ta021's jobs
+    rng = np.random.default_rng(seed)
+    cases = []
     for B in (1024, 49152):
-        prmu, limit1 = random_nodes(rng, n, B)
-        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
-        for dtype in (torch.int8, torch.int32):
-            p = torch.from_numpy(prmu).to(dev).to(dtype)
-            lim = torch.from_numpy(limit1).to(dev).to(dtype)
-            got = lb1_kernel.lb1_bounds_cuda(p, lim, tables)
-            want = lb1_kernel.plain(p, lim, tables)
-            torch.cuda.synchronize()
-            err = int((got[open_].long() - want[open_].long()).abs().max())
-            check(err == 0, f"lb1 kernel differs from plain (B={B}, {dtype})")
-            call = lambda: lb1_kernel.lb1_bounds_cuda(p, lim, tables)  # noqa: E731
-            ms, timing = kernel_device_ms(call, 50, ("lb1_bounds_kernel",))
-            call_ms = median_ms(call, 50)
-            plain_ms = median_ms(lambda: lb1_kernel.plain(p, lim, tables), 5)
-            isz = p.element_size()
-            nbytes = B * n * isz + B * isz + B * n * 4 + (n * m + 2 * m) * 4
-            bms, by = bound_ms(nbytes, lb1_ops(limit1, n, m))
-            rows[(B, str(dtype))] = dict(B=B, dtype=str(dtype), max_abs_err=err,
-                                         ms=ms, timing=timing, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
-                                         bound_us=bms * 1e3, bound_by=by)
-            emit("kernel1", **rows[(B, str(dtype))])
+        rows = random_nodes(rng, n, B)
+        cases += [("ta014", B, dt, rows) for dt in (torch.int8, torch.int32)]
+    rng = np.random.default_rng(seed + 100)
+    cases += [("ta021", B, torch.int8, random_nodes(rng, n, B)) for B in (1024, 49152)]
+    cases.append(("ta111", 1024, torch.int32, random_nodes(rng, 500, 1024)))
+    cases.append(("40x12", 49152, torch.int8, random_nodes(rng, 12, 49152)))
+    wild = (rng.integers(0, n, (49152, n)).astype(np.int32),
+            rng.integers(-3, n + 2, 49152).astype(np.int32))
+    cases.append(("ta014-nonperm", 49152, torch.int8, wild))
+    return cases
+
+
+def lb1_family_tables(dev) -> dict:
+    """The lb1 tables of the kernel 1 and 5 rows, by instance name."""
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    ptm40 = np.random.default_rng(40).integers(1, 100, (40, 12))
+    ta014 = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
+    return {"ta014": ta014, "ta014-nonperm": ta014,
+            "ta021": PFSPProblem(inst=21, lb="lb1", ub=1).device_tables(dev),
+            "ta111": PFSPProblem(inst=111, lb="lb1", ub=1).device_tables(dev),
+            "40x12": PFSPProblem(lb="lb1", ub=0, p_times=ptm40).device_tables(dev)}
+
+
+def phase_lb1_family(phase: str, dev, tables: dict) -> dict:
+    """Kernel 1 (``phase`` "kernel1", lb1) or kernel 5 ("kernel5", lb1_d)
+    against its plain version on the rows of ``lb1_family_inputs``:
+    bit-equal on the open slots (every slot for the rows that are no
+    permutation), each row with its time, the block shape the kernel chose
+    (``block``) and its bound. Rows are keyed (instance, B, dtype)."""
+    from tpu_tree_search_torch.ops import lb1_d_kernel, lb1_kernel
+
+    kernel, plain, source, ops_of = (
+        (lb1_kernel.lb1_bounds_cuda, lb1_kernel.plain, "lb1_bounds", lb1_ops)
+        if phase == "kernel1" else
+        (lb1_d_kernel.lb1_d_bounds_cuda, lb1_d_kernel.plain, "lb1_d_bounds", lb1_d_ops))
+    rows = {}
+    for inst, B, dtype, (prmu, limit1) in lb1_family_inputs(0 if phase == "kernel1" else 5):
+        t = tables[inst]
+        n, m = t.jobs, t.machines
+        nonperm = inst.endswith("nonperm")
+        open_ = torch.from_numpy((np.arange(n)[None, :] > limit1[:, None]) | nonperm).to(dev)
+        p = torch.from_numpy(prmu).to(dev).to(dtype)
+        lim = torch.from_numpy(limit1).to(dev).to(dtype)
+        got = kernel(p, lim, t)
+        want = plain(p, lim, t)
+        torch.cuda.synchronize()
+        err = int((got[open_].long() - want[open_].long()).abs().max())
+        check(err == 0, f"{phase} differs from plain ({inst}, B={B}, {dtype})")
+        block = lb1_kernel.last_shape(source)
+        # The prologue: a wavefront over `lanes` lanes a parent, or warp 0's
+        # fronts (one thread a parent) beside the other warps' remaining work.
+        block["prologue"] = "wavefront" if block["lanes"] else "warp 0 fronts"
+        call = lambda: kernel(p, lim, t)  # noqa: E731
+        ms, timing = kernel_device_ms(call, 50, (f"{source}_kernel",))
+        call_ms = median_ms(call, 50)
+        plain_ms = median_ms(lambda: plain(p, lim, t), 5)
+        isz = p.element_size()
+        nbytes = B * n * isz + B * isz + B * n * 4 + (n * m + 2 * m) * 4
+        bms, by = bound_ms(nbytes, ops_of(np.clip(limit1, -1, n - 1), n, m))
+        rows[(inst, B, str(dtype))] = dict(
+            inst=inst, m=m, B=B, dtype=str(dtype), block=block, max_abs_err=err,
+            ms=ms, timing=timing, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+        emit(phase, **rows[(inst, B, str(dtype))])
     return rows
 
 
@@ -695,38 +770,6 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
     return rows
 
 
-def phase_kernel5(dev, tables) -> dict:
-    from tpu_tree_search_torch.ops import lb1_d_kernel
-
-    n, m = tables.jobs, tables.machines
-    rng = np.random.default_rng(5)
-    rows = {}
-    for B in (1024, 49152):
-        prmu, limit1 = random_nodes(rng, n, B)
-        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
-        for dtype in (torch.int8, torch.int32):
-            p = torch.from_numpy(prmu).to(dev).to(dtype)
-            lim = torch.from_numpy(limit1).to(dev).to(dtype)
-            got = lb1_d_kernel.lb1_d_bounds_cuda(p, lim, tables)
-            want = lb1_d_kernel.plain(p, lim, tables)
-            torch.cuda.synchronize()
-            err = int((got[open_].long() - want[open_].long()).abs().max())
-            check(err == 0, f"lb1_d kernel differs from plain (B={B}, {dtype})")
-            call = lambda: lb1_d_kernel.lb1_d_bounds_cuda(p, lim, tables)  # noqa: E731
-            ms, timing = kernel_device_ms(call, 50, ("lb1_d_bounds_kernel",))
-            call_ms = median_ms(call, 50)
-            plain_ms = median_ms(lambda: lb1_d_kernel.plain(p, lim, tables), 5)
-            isz = p.element_size()
-            nbytes = B * n * isz + B * isz + B * n * 4 + (n * m + 2 * m) * 4
-            bms, by = bound_ms(nbytes, lb1_d_ops(limit1, n, m))
-            rows[(B, str(dtype))] = dict(
-                B=B, dtype=str(dtype), max_abs_err=err, ms=ms, timing=timing,
-                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_us=bms * 1e3, bound_by=by)
-            emit("kernel5", **rows[(B, str(dtype))])
-    return rows
-
-
 def _eval_plain(prob, dev):
     """The plain plane of ``prob``'s eval entry: lb1 or lb2 (open slots
     compared), or the N-Queens labels (every slot)."""
@@ -812,6 +855,7 @@ def run_search(argv: list[str], golden: dict) -> dict:
 
 PFSP_LB1 = ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1", "--tier", "device"]
 PFSP_LB2 = ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1", "--tier", "device"]
+PFSP_LB1D = ["pfsp", "--inst", "14", "--lb", "lb1_d", "--ub", "1", "--tier", "device"]
 
 
 def phase_search(name: str, argv: list[str], counters: dict,
@@ -851,7 +895,8 @@ def phase_search(name: str, argv: list[str], counters: dict,
 
 
 def phase_profile(name: str, argv: list[str], golden: dict,
-                  cycle: tuple | None = None, **library_kwargs) -> dict:
+                  cycle: tuple | None = None, kernel: str | None = None,
+                  host: bool = True, **library_kwargs) -> dict:
     """One search again under ``torch.profiler``: the device time of every
     kernel and copy in the run, summed by name (the top five are printed),
     against the wall time of the device phase (phase 2). Their ratio is the
@@ -859,12 +904,17 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     the wall time, so the share is a lower bound. ``cycle``, (wrapper,
     kernel names, launches): the wrapper's calls in the run, the launches
     of those kernels the profiler counted, and a check that each call made
-    ``launches`` of them and that no ``cycle_scan`` launch ran."""
+    ``launches`` of them and that no ``cycle_scan`` launch ran. ``kernel``,
+    a kernel name: its device time in the run and its launches there.
+    ``host=False`` traces the device alone (the unfused searches' host
+    trace, hundreds of thousands of events, takes minutes to read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     counters = {} if cycle is None else {"cycle": cycle[0]}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    t0 = time.perf_counter()
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         rec = phase_search(f"{name}_profiled", argv, counters, golden, **library_kwargs)
         torch.cuda.synchronize()
     by_name, counts = {}, {}
@@ -877,8 +927,14 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     busy_ms = sum(by_name.values())
     phase2_ms = rec["phases"][1][2] * 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    check(busy_ms > 0, f"{name}: the trace holds no device time")
     out = dict(search=name, device_busy_ms=busy_ms, phase2_ms=phase2_ms,
-               busy_share=busy_ms / phase2_ms, top_device_ms=top)
+               busy_share=busy_ms / phase2_ms, top_device_ms=top, host_traced=host,
+               seconds=time.perf_counter() - t0)
+    if kernel is not None:
+        out.update(kernel=kernel,
+                   kernel_device_ms=sum(v for k, v in by_name.items() if kernel in k),
+                   kernel_launches=sum(c for k, c in counts.items() if kernel in k))
     if cycle is not None:
         _, names, per_call = cycle
         calls = rec["launches"]["cycle"]
@@ -950,7 +1006,8 @@ def main() -> int:
     tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
     lb2_tables = {f"ta{i:03d}": PFSPProblem(inst=i, lb="lb2", ub=1).device_tables(dev)
                   for i in (14, 21, 51, 81)}
-    k1 = phase_kernel1(dev, tables)
+    lb1_tables = lb1_family_tables(dev)
+    k1 = phase_lb1_family("kernel1", dev, lb1_tables)
     k2 = phase_pfsp_cycle("kernel2", dev, tables, "lb1", 1)
     # ta051 (50 jobs): two keep-mask words a parent, on an int32 pool.
     ta051 = PFSPProblem(inst=51, lb="lb1", ub=1).device_tables(dev)
@@ -958,7 +1015,7 @@ def main() -> int:
                              inst="ta051")
     k3 = phase_kernel3(dev)
     k4 = phase_kernel4(dev)
-    k5 = phase_kernel5(dev, tables)
+    k5 = phase_lb1_family("kernel5", dev, lb1_tables)
     k6 = phase_kernel6(dev, lb2_tables)
     k7 = phase_kernel7(dev, lb2_tables["ta014"])
     k8 = phase_pfsp_cycle("kernel8", dev, lb2_tables["ta014"], "lb2", 8)
@@ -1000,9 +1057,7 @@ def main() -> int:
                         counters, NQ_GOLDEN[14])
     check(not nq14["fused"] and nq14["launches"]["nqueens_labels"] > 0,
           "kernel 3 not launched on the unfused N-Queens path")
-    lb1d = phase_search("search_lb1_d",
-                        ["pfsp", "--inst", "14", "--lb", "lb1_d", "--ub", "1",
-                         "--tier", "device"], counters)
+    lb1d = phase_search("search_lb1_d", PFSP_LB1D, counters)
     check(not lb1d["fused"] and lb1d["launches"]["lb1_d_bounds"] > 0,
           "kernel 5 not launched on the lb1_d path")
     lb2f = phase_search("search_lb2_fused_M49152", PFSP_LB2, counters, GOLDEN_LB2)
@@ -1049,10 +1104,15 @@ def main() -> int:
     for name, extra, kwargs in [
             ("search_lb2_fused_M49152", [], {}),
             ("search_lb2_fused_M1024", ["--M", "1024"], {}),
-            ("search_lb2_unfused_staged", ["--unfused"], {}),
+            ("search_lb2_unfused_staged", ["--unfused"], dict(kernel="lb1_bounds_kernel")),
             ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False)),
             ("search_lb2_tiled_M49152", ["--mt", "64"], {})]:
         phase_profile(name, PFSP_LB2 + extra, GOLDEN_LB2, **kwargs)
+    # Kernels 1 and 5 on their search paths: their device time a search
+    # (the unfused search's 2,519 cycles traced on the device alone).
+    phase_profile("search_unfused_M1024", PFSP_LB1 + ["--M", "1024", "--unfused"], GOLDEN,
+                  kernel="lb1_bounds_kernel", host=False)
+    phase_profile("search_lb1_d", PFSP_LB1D, GOLDEN, kernel="lb1_d_bounds_kernel")
     # The streamed searches beside the single-tile ones, in the same run;
     # the single-tile ones count kernel 2's and kernel 4's launches a cycle.
     for name, argv, golden, cycle in [
@@ -1066,7 +1126,7 @@ def main() -> int:
              None)]:
         phase_profile(name, argv, golden, cycle)
 
-    k1_main = k1[(1024, "torch.int8")]
+    k1_main = k1[("ta014", 1024, "torch.int8")]
     k2_main = k2[(49152, "full", "finite")]
     kernels = [
         {"name": "lb1_bounds", "route": "cuda",
@@ -1079,7 +1139,7 @@ def main() -> int:
          "ms": k1_main["ms"], "timing": k1_main["timing"], "call_ms": k1_main["call_ms"],
          "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "block": k1_main["block"]},
         {"name": "cycle_lb1", "route": "cuda",
          "source": "tpu_tree_search_torch/csrc/cycle_lb1.cu",
          "replaces": "tpu_tree_search/ops/megakernel.py:570",
@@ -1094,7 +1154,7 @@ def main() -> int:
     ]
     k3_main = k3[(14, 50000, 1)]
     k4_main = k4[(50000, "full")]
-    k5_main = k5[(49152, "torch.int8")]
+    k5_main = k5[("ta014", 49152, "torch.int8")]
     for name, source, replaces, path, shape, rows, main_row in [
         ("nqueens_labels", "nqueens_labels.cu", "pallas_kernels.py:361",
          nq14, "B=50000 N=14 g=1 int8 depth", k3, k3_main),
@@ -1121,7 +1181,7 @@ def main() -> int:
          k11[(49152, "full", "finite")]),
         # The eval-only pass's TPU kernels, on kernels 1, 3 and 6.
         ("eval_lb1", "lb1_bounds.cu", "megakernel.py:1115", evp,
-         "ta014 B=49152 int8", dict(k1, eval_pass=evp), k1[(49152, "torch.int8")]),
+         "ta014 B=49152 int8", dict(k1, eval_pass=evp), k1[("ta014", 49152, "torch.int8")]),
         ("eval_nqueens", "nqueens_labels.cu", "megakernel.py:1108", evp,
          "B=50000 N=15 g=1 int8 depth", dict(k3, eval_pass=evp), k3[(15, 50000, 1)]),
         ("eval_lb2", "lb2_bounds.cu", "megakernel.py:1123", evp,
@@ -1139,7 +1199,8 @@ def main() -> int:
             "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None,
-            # The lb2 rows: the per-child recurrence's bound, the block shape.
+            # The lb2 rows: the per-child recurrence's bound; the lb1_d and
+            # lb2 rows: the block shape.
             **{k: main_row[k] for k in ("child_loop_bound_ms", "block")
                if k in main_row}})
     print(json.dumps({"kernels": kernels}), flush=True)

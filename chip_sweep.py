@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Time the lb2 kernels 6 and 8 on one card, for this checkout or for
-variants of its CUDA sources.
+"""Time the lb1-family kernels 1 and 5 and the lb2 kernels 6 and 8 on one
+card, for this checkout or for variants of its CUDA sources.
 
-    python3 chip_sweep.py                         # this checkout, once
-    python3 chip_sweep.py VARIANTS.json [--rounds N]
+    python3 chip_sweep.py [--family lb1|lb2]      # this checkout, once
+    python3 chip_sweep.py VARIANTS.json [--rounds N] [--family ...]
+    python3 chip_sweep.py --lb1-steps [--rounds N]
 
-Without arguments: kernel 6 (``lb2_bounds``) on ta014 and ta021 at
-B = 1024 and 49152 and on ta081 at B = 1024, and kernel 8 (``cycle_lb2``)
-on a full chunk of ta014 and ta021 at M = 1024 and 49152, each against its
-plain version (``err`` is the largest difference), then its device time
-from the profiler (kernel 8: the whole cycle and its bounds launch) and
-the block shape it chose. Prints one JSON line.
+``--family lb1``: kernel 1 (``lb1_bounds``) and kernel 5
+(``lb1_d_bounds``) on ta014 at B = 1024 and 49152, int8 and int32, on
+ta021 (20 machines) at B = 49152, on a seeded 40-machine, 12-job instance
+(the one-thread prologue) at B = 49152 and on ta111 (500 jobs, int32) at
+B = 1024. ``--family lb2``: kernel 6 (``lb2_bounds``) on ta014 and ta021
+at B = 1024 and 49152 and on ta081 at B = 1024, and kernel 8
+(``cycle_lb2``) on a full chunk of ta014 and ta021 at M = 1024 and 49152.
+Each kernel is checked against its plain version (``err`` is the largest
+difference on the open slots), then timed by the profiler (kernel 8: the
+whole cycle and its bounds launch), with the block shape it chose. Without
+``--family``, both. Prints one JSON line.
 
 With VARIANTS.json, a list of ``[name, {source: {old: new}}]``: each
 variant is a copy of the package under ``_checkout/sweep/<name>``
 (gitignored) with each ``old`` text of ``tpu_tree_search_torch/csrc/
 <source>`` replaced by ``new``; the copies run in turns, one process each,
 ``--rounds`` times (default 1), each printing its line. A variant that
-changes what a kernel computes shows in its ``err``.
+changes what a kernel computes shows in its ``err``. ``--lb1-steps`` runs
+the built-in variants ``LB1_STEPS`` of kernels 1 and 5 (the design steps
+of their shared body, `csrc/lb1_family.cuh`) the same way.
 """
 
 from __future__ import annotations
@@ -32,6 +40,72 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 PKG = "tpu_tree_search_torch"
+
+# The design steps of kernels 1 and 5 (csrc/lb1_family.cuh), as text
+# substitutions of the committed source: its shape rule (`tts_lb1f_shape`)
+# and prologue against the alternatives, and ablations that take out one
+# part of the body (their planes differ from the plain ones: ``err`` is not
+# 0).
+_LB1F = "lb1_family.cuh"
+_LOOP = ("  if (!sh->fits && sh->threads > TTS_LB1F_LOOP_THREADS)\n"
+         "    sh->threads = TTS_LB1F_LOOP_THREADS;\n")
+_LANES = ("  sh->lanes = m <= 32 && (sh->fits || sh->blocks < TTS_LB1F_FRONT_BLOCKS * sms)\n"
+          "                  ? G : 0;\n")
+_HALVE = ("  while (sh->parents > 1 && (B + sh->parents - 1) / sh->parents < sms)\n"
+          "    sh->parents >>= 1;\n")
+_PIPE = {"    const int next = time_at(step + 1 - j);\n": "",
+         "    if (mine && i >= 0 && i <= last) f = (j == 0 ? f : max(f, left)) + pt;\n"
+         "    pt = next;\n":
+         "    if (mine && i >= 0 && i <= last) f = (j == 0 ? f : max(f, left)) + time_at(i);\n"}
+_SPLIT = {"      const int w0 = blockDim.x > 32 ? 32 : 0;\n":
+          "      const int w0 = blockDim.x;\n",
+          "          lb1f_front_thread(par + p * n, static_cast<int>(lim[p]), n, m, s,\n"
+          "                            s.front + p * ms);\n":
+          "          lb1f_front_thread(par + p * n, static_cast<int>(lim[p]), n, m, s,\n"
+          "                            s.front + p * ms);\n"
+          "      if (t < 32)\n"
+          "        for (int p = t; p < rows; p += 32)\n"
+          "          for (int j = 0; j < m; ++j)\n"
+          "            s.remain[p * ms + j] = lb1f_remain(par + p * n,\n"
+          "                static_cast<int>(lim[p]), n, m, s, j);\n"}
+_CHAIN = ("      o[slot] = Chain::bound(lb1f_job(par[slot], n), m, s, s.front + p * ms,\n"
+          "                             s.remain + p * ms);\n")
+_NO_PROLOGUE = {"      for (int p = t / G; p < rows;": "      for (int p = t / G; p < 0;",
+                "        for (int p = t; p < rows; p += 32)\n          lb1f_front_thread(":
+                "        for (int p = t; p < 0; p += 32)\n          lb1f_front_thread(",
+                "      for (int e = t - w0; e >= 0 && e < rows * m;":
+                "      for (int e = t - w0; e >= 0 && e < 0;"}
+_NO_CHAIN = {_CHAIN: "      o[slot] = lb1f_job(par[slot], n) + s.front[p * ms];\n"}
+LB1_STEPS = [
+    # As committed: 32 parents a block, halved while the grid has fewer
+    # blocks than SMs; one thread a slot when the grid fits on the card at
+    # once, else blocks of 128 threads that loop over their slots; a
+    # wavefront prologue (a lane a machine), or, in a looping grid of 4
+    # blocks an SM or more, warp 0 the fronts and the other warps the
+    # remaining work.
+    ["committed", {}],
+    # Grid form (b): a persistent grid of one wave of one-thread-a-slot
+    # blocks that loop over groups of 32 parents, loading the tables once.
+    ["persistent", {_LB1F: {_LOOP: "  if (!sh->fits) sh->blocks = per_sm * sms;\n"}}],
+    # The prologue by lanes at every size (up to 32 machines), and by warp
+    # 0's fronts at every size.
+    ["lanes_always", {_LB1F: {_LANES: "  sh->lanes = m <= 32 ? G : 0;\n"}}],
+    ["fronts_always", {_LB1F: {_LANES: "  sh->lanes = 0;\n"}}],
+    # Warp 0 the remaining work too, after its fronts (one thread a
+    # parent for both).
+    ["unsplit", {_LB1F: _SPLIT}],
+    # The lanes' loads after the shuffle, not a step ahead.
+    ["unpipelined", {_LB1F: _PIPE}],
+    # 32 parents a block at every size.
+    ["parents32", {_LB1F: {_HALVE: ""}}],
+    # 256 looping threads in place of 128.
+    ["loop256", {_LB1F: {"#define TTS_LB1F_LOOP_THREADS 128":
+                         "#define TTS_LB1F_LOOP_THREADS 256"}}],
+    # Ablations: no parent prologue, no child chain, neither.
+    ["no_prologue", {_LB1F: _NO_PROLOGUE}],
+    ["no_chain", {_LB1F: _NO_CHAIN}],
+    ["no_prologue_no_chain", {_LB1F: {**_NO_PROLOGUE, **_NO_CHAIN}}],
+]
 
 
 def make_variant(root: Path, dest: Path, subs: dict) -> None:
@@ -53,22 +127,57 @@ def make_variant(root: Path, dest: Path, subs: dict) -> None:
         path.write_text(text)
 
 
-def measure() -> dict:
-    """The JSON line of one checkout (see the module docstring)."""
+def measure_lb1(out: dict) -> None:
+    """Kernels 1 and 5 into ``out`` (see the module docstring)."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
-    from tpu_tree_search_torch.ops import _build, lb2_kernel
+    from tpu_tree_search_torch.ops import lb1_d_kernel, lb1_kernel
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    dev = torch.device("cuda", 0)
+    ptm40 = np.random.default_rng(40).integers(1, 100, (40, 12))
+    tabs = {"ta014": PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev),
+            "ta021": PFSPProblem(inst=21, lb="lb1", ub=1).device_tables(dev),
+            "40x12": PFSPProblem(lb="lb1", ub=0, p_times=ptm40).device_tables(dev),
+            "ta111": PFSPProblem(inst=111, lb="lb1", ub=1).device_tables(dev)}
+    kernels = {"k1": (lb1_kernel.lb1_bounds_cuda, lb1_kernel.plain, "lb1_bounds"),
+               "k5": (lb1_d_kernel.lb1_d_bounds_cuda, lb1_d_kernel.plain,
+                      "lb1_d_bounds")}
+    for inst, B, dtype in [("ta014", 1024, torch.int8), ("ta014", 1024, torch.int32),
+                           ("ta014", 49152, torch.int8), ("ta014", 49152, torch.int32),
+                           ("ta021", 49152, torch.int8), ("40x12", 49152, torch.int8),
+                           ("ta111", 1024, torch.int32)]:
+        t = tabs[inst]
+        n = t.jobs
+        prmu, l1 = cs.random_nodes(np.random.default_rng(n + B), n, B)
+        p = torch.from_numpy(prmu).to(dev).to(dtype)
+        lim = torch.from_numpy(l1).to(dev).to(dtype)
+        op = torch.from_numpy(np.arange(n)[None, :] > l1[:, None]).to(dev)
+        key = f"{inst}/B={B}/{str(dtype).split('.')[-1]}"
+        for tag, (kernel, plain, source) in kernels.items():
+            got = kernel(p, lim, t)
+            want = plain(p, lim, t)
+            out["err"] = max(out["err"],
+                             int((got[op].long() - want[op].long()).abs().max()))
+            out.setdefault(tag, {})[key], _ = cs.kernel_device_ms(
+                lambda: kernel(p, lim, t), 50, (f"{source}_kernel",))
+            out["block"][f"{tag}/{key}"] = lb1_kernel.last_shape(source)
+
+
+def measure_lb2(out: dict) -> None:
+    """Kernels 6 and 8 into ``out`` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_tree_search_torch.ops import lb2_kernel
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.problems import PFSPProblem
 
-    t0 = time.perf_counter()
-    _build.library("lb2_bounds")
-    _build.library("cycle_lb2")
     dev = torch.device("cuda", 0)
-    out = {"build_s": time.perf_counter() - t0, "k6": {}, "k8": {},
-           "k8_bounds_launch": {}, "block": {}, "err": 0}
+    out.update(k6={}, k8={}, k8_bounds_launch={})
     tabs = {i: PFSPProblem(inst=i, lb="lb2", ub=1).device_tables(dev)
             for i in (14, 21, 81)}
     for inst, B in [(14, 1024), (14, 49152), (21, 1024), (21, 49152), (81, 1024)]:
@@ -117,7 +226,32 @@ def measure() -> dict:
             cs.LB2_CYCLE_KERNELS, restore)
         out["k8_bounds_launch"][key] = cs.LAST_LAUNCH_MS.get("lb2_cycle_bounds")
         out["block"][f"k8/{key}"] = lb2_kernel.last_shape("cycle_lb2")
+
+
+def measure(family: str) -> dict:
+    """The JSON line of one checkout: the build of the sources it times,
+    then ``family`` ("lb1", "lb2" or "all")."""
+    from tpu_tree_search_torch.ops import _build
+
+    t0 = time.perf_counter()
+    sources = {"lb1": ("lb1_bounds", "lb1_d_bounds"),
+               "lb2": ("lb2_bounds", "cycle_lb2")}
+    for fam, names in sources.items():
+        if family in (fam, "all"):
+            for name in names:
+                _build.library(name)
+    out = {"build_s": time.perf_counter() - t0, "block": {}, "err": 0,
+           "ptxas": {name: [ln.strip() for ln in
+                            _build.log_path(name).read_text(errors="replace").splitlines()
+                            if "registers" in ln or "spill" in ln]
+                     for fam, names in sources.items() if family in (fam, "all")
+                     for name in names}}
+    if family in ("lb1", "all"):
+        measure_lb1(out)
+    if family in ("lb2", "all"):
+        measure_lb2(out)
     return out
+
 
 
 def main() -> int:
@@ -125,18 +259,25 @@ def main() -> int:
     ap.add_argument("variants", nargs="?", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--name", default="this")
+    ap.add_argument("--family", choices=("lb1", "lb2", "all"), default=None)
+    ap.add_argument("--lb1-steps", action="store_true")
     args = ap.parse_args()
-    if args.variants is None:
-        print(json.dumps({"variant": args.name, **measure()}), flush=True)
+    if args.lb1_steps:
+        variants, family = LB1_STEPS, args.family or "lb1"
+    elif args.variants is not None:
+        variants, family = json.loads(args.variants.read_text()), args.family or "all"
+    else:
+        print(json.dumps({"variant": args.name, **measure(args.family or "all")}),
+              flush=True)
         return 0
-    variants = json.loads(args.variants.read_text())
     base = HERE / "_checkout" / "sweep"
     for name, subs in variants:
         make_variant(HERE, base / name, subs)
     failed = False
     for _ in range(args.rounds):
         for name, _subs in variants:
-            p = subprocess.run([sys.executable, "chip_sweep.py", "--name", name],
+            p = subprocess.run([sys.executable, "chip_sweep.py", "--name", name,
+                                "--family", family],
                                cwd=base / name, capture_output=True, text=True,
                                timeout=900)
             failed |= p.returncode != 0

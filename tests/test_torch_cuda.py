@@ -627,3 +627,114 @@ def test_tiled_nqueens_search_on_card_matches_goldens(cuda):
                           mt=16)
     assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
     assert res.megakernel_mt == 16 and T.tiled_nqueens_cuda.launches > 0
+
+
+# -- kernels 1 and 5: the staged body (csrc/lb1_family.cuh) --------------------
+
+_LB1_FAMILY = {"lb1": (lb1_kernel.lb1_bounds_cuda, lb1_kernel.plain, "lb1_bounds"),
+               "lb1_d": (lb1_d_kernel.lb1_d_bounds_cuda, lb1_d_kernel.plain,
+                         "lb1_d_bounds")}
+
+
+def _lb1_family_check(cuda, bound, t, prmu, limit1, dtype, slots="open"):
+    """Kernel 1 or 5 on these rows against its plain version, on the open
+    slots (or, ``slots="all"``, on every slot); returns the block shape."""
+    kernel, plain, source = _LB1_FAMILY[bound]
+    n = t.jobs
+    p = torch.from_numpy(prmu).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    got = kernel(p, lim, t)
+    want = plain(p, lim, t)
+    torch.cuda.synchronize()
+    if slots == "all":
+        assert torch.equal(got, want)
+    else:
+        op = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(cuda)
+        assert torch.equal(got[op], want[op])
+    return lb1_kernel.last_shape(source)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("depth", ["mixed", "leaves", "roots"])
+@pytest.mark.parametrize("B", [1, 1024, 49152])
+@pytest.mark.parametrize("bound", ["lb1", "lb1_d"])
+def test_lb1_family_grid_forms_match_plain(cuda, bound, B, depth, dtype):
+    # Kernels 1 and 5 in both grid forms: at B = 1 and 1024 every block of
+    # one thread a slot is on the card at once (blocks of fewer parents, so
+    # the grid has a block an SM), and the parent prologue is a wavefront
+    # over 16 lanes, one of ta014's 10 machines each; at B = 49152 it is
+    # not, so 32-parent blocks loop over their slots and warp 0 takes the
+    # fronts.
+    t = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(cuda)
+    prmu, limit1 = _depth_nodes(np.random.default_rng(B + 7), t.jobs, B, depth)
+    shape = _lb1_family_check(cuda, bound, t, prmu, limit1, dtype)
+    fits = B < 49152
+    assert shape["fits"] == fits and shape["lanes"] == (16 if fits else 0)
+    assert (shape["parents"], shape["threads"]) == (
+        {1: (1, 32), 1024: (4, 96)}[B] if fits else (32, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("B", [1, 300, 49152])
+@pytest.mark.parametrize("bound", ["lb1", "lb1_d"])
+def test_lb1_family_takes_more_than_32_machines(cuda, bound, B, dtype):
+    # 40 machines: more than a warp has lanes, so warp 0 takes the fronts,
+    # one thread a parent (at B = 1 and 300 in a block of one warp, which
+    # then takes the remaining work too), in both grid forms.
+    ptm = np.random.default_rng(40).integers(1, 100, (40, 12))
+    t = PFSPProblem(lb="lb1", ub=0, p_times=ptm).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(41), 12, B)
+    shape = _lb1_family_check(cuda, bound, t, prmu, limit1, dtype)
+    assert shape["lanes"] == 0
+
+
+@pytest.mark.parametrize("B", [1, 700, 4224])
+@pytest.mark.parametrize("bound", ["lb1", "lb1_d"])
+def test_lb1_family_takes_ta111_int32(cuda, bound, B):
+    # 500 jobs and 20 machines: int32 rows, 32 lanes a parent; at
+    # B = 4224, 32-parent blocks stage 64 KB of rows (past 48 KB of shared
+    # memory).
+    t = PFSPProblem(inst=111, lb="lb1", ub=1).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(111), t.jobs, B)
+    shape = _lb1_family_check(cuda, bound, t, prmu, limit1, torch.int32)
+    assert shape["lanes"] == 32
+    assert (shape["smem_bytes"] > 48 * 1024) == (B == 4224)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("bound", ["lb1", "lb1_d"])
+def test_lb1_family_rows_that_are_no_permutation(cuda, bound, dtype):
+    # Repeated in-range ids and limit1 past both ends equal the plain
+    # version on every slot; ids outside 0..n-1 are read as job 0 and index
+    # nothing past the table (the plain plane of the same rows with those
+    # ids set to 0).
+    t = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(cuda)
+    rng = np.random.default_rng(44)
+    prmu = rng.integers(0, 20, (2000, 20)).astype(np.int32)
+    limit1 = rng.integers(-3, 22, 2000).astype(np.int32)
+    _lb1_family_check(cuda, bound, t, prmu, limit1, dtype, slots="all")
+    wild = rng.integers(-128, 128, (2000, 20)).astype(np.int32)
+    kernel, plain, _ = _LB1_FAMILY[bound]
+    p = torch.from_numpy(wild).to(cuda).to(dtype)
+    lim = torch.from_numpy(limit1).to(cuda).to(dtype)
+    fixed = torch.where((p >= 0) & (p < 20), p, torch.zeros_like(p))
+    got = kernel(p, lim, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(fixed, lim, t))
+
+
+@pytest.mark.parametrize("bound", ["lb1", "lb1_d"])
+def test_lb1_family_reads_an_unaligned_chunk(cuda, bound):
+    # A chunk that starts mid-pool (the unfused cycle's window): its rows
+    # and limit1 sit at any phase mod 16, which the staged copy keeps.
+    t = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(cuda)
+    prmu, limit1 = _nodes(np.random.default_rng(45), 20, 3001)
+    kernel, plain, _ = _LB1_FAMILY[bound]
+    p = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    lim = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    op = torch.from_numpy(np.arange(20)[None, :] > limit1[:, None]).to(cuda)
+    for start in (1, 3, 7, 13):
+        got = kernel(p[start:], lim[start:], t)
+        want = plain(p[start:], lim[start:], t)
+        torch.cuda.synchronize()
+        assert torch.equal(got[op[start:]], want[op[start:]])

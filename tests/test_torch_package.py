@@ -206,6 +206,66 @@ def test_chip_ab_reads_a_chip_smoke_run():
     assert got["profiles"]["search_x"]["busy_share"] == 0.75
 
 
+def test_chip_ab_keys_kernel1_and_kernel5_rows_by_instance():
+    # A checkout whose kernel 1 and 5 rows name no instance ran them on
+    # ta014: their keys match the rows that name it, so an A/B lines them up.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_ab", ROOT / "chip_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    rows = [{"phase": "kernel1", "B": 1024, "dtype": "torch.int8", "ms": 0.0145},
+            {"phase": "kernel5", "inst": "ta014", "B": 1024, "dtype": "torch.int8",
+             "ms": 0.005},
+            {"phase": "kernel5", "inst": "ta111", "B": 1024, "dtype": "torch.int32",
+             "ms": 0.05}]
+    got = ab.summarize("\n".join(json.dumps(r) for r in rows))
+    assert got["cycles"] == {"kernel1/ta014/torch.int8/1024": 0.0145,
+                             "kernel5/ta014/torch.int8/1024": 0.005,
+                             "kernel5/ta111/torch.int32/1024": 0.05}
+
+
+def test_chip_sweep_lb1_steps_apply_to_the_sources(tmp_path):
+    # Every design step of kernels 1 and 5 is a substitution whose text the
+    # committed sources hold (make_variant raises on a text it cannot find).
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_sweep", ROOT / "chip_sweep.py")
+    sw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sw)
+    names = [name for name, _ in sw.LB1_STEPS]
+    assert names[0] == "committed" and len(set(names)) == len(names)
+    for name, subs in sw.LB1_STEPS:
+        sw.make_variant(ROOT, tmp_path / name, subs)
+        text = (tmp_path / name / "tpu_tree_search_torch/csrc/lb1_family.cuh").read_text()
+        assert (text == (_build.CSRC / "lb1_family.cuh").read_text()) == (not subs)
+
+
+def test_chip_smoke_lb1_family_rows():
+    # The kernel 1 and 5 rows of chip_smoke.py: ta014 first, as earlier runs
+    # drew them, then ta021, ta111 (int32), 40 machines and rows that are no
+    # permutation (repeated ids, limit1 past both ends).
+    import importlib.util
+
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cases = cs.lb1_family_inputs(0)
+    keys = [(inst, B, dt) for inst, B, dt, _ in cases]
+    assert keys[:4] == [("ta014", B, dt) for B in (1024, 49152)
+                        for dt in (torch.int8, torch.int32)]
+    assert ("ta111", 1024, torch.int32) in keys and ("40x12", 49152, torch.int8) in keys
+    assert {("ta021", 1024, torch.int8), ("ta021", 49152, torch.int8)} <= set(keys)
+    want = cs.random_nodes(np.random.default_rng(0), 20, 1024)
+    assert all(np.array_equal(a, b) for a, b in zip(cases[0][3], want))
+    prmu, limit1 = cases[-1][3]
+    assert cases[-1][0] == "ta014-nonperm"
+    assert any(len(set(r)) < 20 for r in prmu[:100])
+    assert limit1.min() < -1 and limit1.max() > 19
+
+
 # ta014's 10-job, 5-machine corner under the nabeshima pairs and its optimal
 # incumbent: the JAX sequential tier's counts (pinned against it by
 # tests/test_torch_resident.py).

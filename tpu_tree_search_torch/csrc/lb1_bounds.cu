@@ -14,18 +14,35 @@
 //      schedules prmu[b, k] next. Slots k <= limit1 are not children; they
 //      hold the same formula's value and are never read.
 //
-// What bounds it on an H100: memory and launch latency, not arithmetic.
-// Each parent row is read once (n bytes at int8) and n int32 bounds are
-// written, so at ta014 (n = 20, m = 10) a 1024-parent chunk moves about
-// 100 KB (a few microseconds of launch latency dominate) and a 49152-parent
-// chunk about 4.9 MB (1.5 us at 3.35 TB/s). The arithmetic, n*m steps of the
-// parent prologue plus 2m per child, is small integer work.
+// What bounds it on an H100: latency and issued instructions, not bytes
+// or arithmetic. Each parent row is read once (n bytes at int8) and n
+// int32 bounds are written, so at ta014 (n = 20, m = 10) a 1024-parent
+// chunk moves about 100 KB (0.03 us at 3.35 TB/s) and a 49152-parent
+// chunk about 4.9 MB (1.5 us). Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (`chip_sweep.py --lb1-steps`, PERF.md section 6), the kernel takes
+// about 5 us at B = 1024: about 2.7 us of launch and staging round trip
+// (the time with neither prologue nor child chain) and 2 us of wavefront
+// prologue, the chain hidden; and about 18 us at B = 49152: about 9 us of
+// warp 0's serial fronts, 5 us of child chains (6m operations a slot) and
+// 4 us of launch, staging and writes. The serial design it replaced (8
+// parents a block, one thread a parent over global bytes) took 14.5 and
+// 60 us.
 //
-// Design: one block per TTS_PARENTS_PER_BLOCK parents; the instance table
-// lives in shared memory (20 x 10 int32 at ta014). Threads 0..PB-1 scan one
-// parent prologue each into shared memory, then every thread runs one child
-// slot, so consecutive threads write consecutive bounds (coalesced).
-#include "lb1_common.cuh"
+// Design: `lb1_family.cuh`, shared with kernel 5: rows and limit1 staged
+// with aligned 16-byte loads, the prologue a wavefront over the machines
+// (warp 0's fronts in a looping grid of 4 blocks an SM or more), one
+// thread a child slot, consecutive threads on consecutive bounds.
+#include "lb1_family.cuh"
+
+// The per-child chain of kernel 1: lb1_common.cuh's `lb1_child` on the
+// clamped job id.
+struct Lb1Chain {
+  static __device__ __forceinline__ int bound(int job, int m, const Lb1Smem& s,
+                                              const int* front,
+                                              const int* remain) {
+    return lb1_child(&job, 0, m, s, front, remain);
+  }
+};
 
 template <typename T>
 __global__ void lb1_bounds_kernel(const T* __restrict__ prmu,
@@ -33,65 +50,32 @@ __global__ void lb1_bounds_kernel(const T* __restrict__ prmu,
                                   const int* __restrict__ ptm_t,
                                   const int* __restrict__ heads,
                                   const int* __restrict__ tails,
-                                  int* __restrict__ out, int B, int n, int m) {
-  extern __shared__ int smem[];
-  const Lb1Smem s = lb1_smem_layout(smem, n, m);
-  lb1_load_tables(s, ptm_t, heads, tails, n, m);
-  __syncthreads();
-
-  const int PB = TTS_PARENTS_PER_BLOCK;
-  const int b0 = blockIdx.x * PB;
-  const int t = threadIdx.x;
-  if (t < PB && b0 + t < B) {
-    const int b = b0 + t;
-    lb1_parent_state(prmu + static_cast<size_t>(b) * n,
-                     static_cast<int>(limit1[b]), n, m, s, s.front + t * m,
-                     s.remain + t * m);
-  }
-  __syncthreads();
-
-  for (int slot = t; slot < PB * n; slot += blockDim.x) {
-    const int p = slot / n;
-    const int k = slot - p * n;
-    const int b = b0 + p;
-    if (b >= B) break;
-    out[static_cast<size_t>(b) * n + k] =
-        lb1_child(prmu + static_cast<size_t>(b) * n, k, m, s,
-                  s.front + p * m, s.remain + p * m);
-  }
+                                  int* __restrict__ out, int B, int n, int m,
+                                  int PB, int G) {
+  lb1f_body<T, Lb1Chain>(prmu, limit1, ptm_t, heads, tails, out, B, n, m, PB,
+                         G);
 }
 
-template <typename T>
-static int launch_lb1_bounds(const void* prmu, const void* limit1,
-                             const void* ptm_t, const void* heads,
-                             const void* tails, void* out, int B, int n,
-                             int m, void* stream) {
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  const int PB = TTS_PARENTS_PER_BLOCK;
-  const size_t smem = tts_lb1_smem_bytes(n, m);
-  const int err = tts_smem_optin(lb1_bounds_kernel<T>, smem);
-  if (err) return err;
-  const int blocks = (B + PB - 1) / PB;
-  lb1_bounds_kernel<T><<<blocks, tts_threads_for(PB * n), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(prmu), static_cast<const T*>(limit1),
-      static_cast<const int*>(ptm_t), static_cast<const int*>(heads),
-      static_cast<const int*>(tails), static_cast<int*>(out), B, n, m);
-  return static_cast<int>(cudaGetLastError());
+static Lb1fShape lb1_bounds_last;
+
+extern "C" void lb1_bounds_last_shape(int* out) {
+  tts_lb1f_report(lb1_bounds_last, out);
 }
 
 extern "C" int lb1_bounds_i8(const void* prmu, const void* limit1,
                              const void* ptm_t, const void* heads,
                              const void* tails, void* out, int B, int n,
                              int m, void* stream) {
-  return launch_lb1_bounds<int8_t>(prmu, limit1, ptm_t, heads, tails, out, B,
-                                   n, m, stream);
+  return launch_lb1f<int8_t>(lb1_bounds_kernel<int8_t>, &lb1_bounds_last, prmu,
+                             limit1, ptm_t, heads, tails, out, B, n, m,
+                             stream);
 }
 
 extern "C" int lb1_bounds_i32(const void* prmu, const void* limit1,
                               const void* ptm_t, const void* heads,
                               const void* tails, void* out, int B, int n,
                               int m, void* stream) {
-  return launch_lb1_bounds<int32_t>(prmu, limit1, ptm_t, heads, tails, out,
-                                    B, n, m, stream);
+  return launch_lb1f<int32_t>(lb1_bounds_kernel<int32_t>, &lb1_bounds_last,
+                              prmu, limit1, ptm_t, heads, tails, out, B, n, m,
+                              stream);
 }

@@ -12,7 +12,9 @@ comparison use. ``lb1_bounds_cuda.launches`` counts the launches.
 The kernel reads prmu and limit1 in the pool's storage type, int8 or int32
 (limit1 is cast to prmu's type: B elements), so the resident pool's int8
 rows go in without a widening copy. ``launch_lb1_family`` is the launch
-shared with kernel 5 (`ops/lb1_d_kernel.py`), which takes the same operands.
+shared with kernel 5 (`ops/lb1_d_kernel.py`), which takes the same operands
+and shares the kernel body (`csrc/lb1_family.cuh`); ``last_shape`` reads
+the block shape of either kernel's last launch.
 """
 
 from __future__ import annotations
@@ -67,6 +69,20 @@ def launch_lb1_family(source: str, entries: dict, prmu: torch.Tensor,
              out.data_ptr(), B, n, tables.machines, stream)
     _build.check(lib, err, source)
     return out
+
+
+def last_shape(source: str) -> dict:
+    """The block shape of the last launch of kernel 1 (``lb1_bounds``) or
+    kernel 5 (``lb1_d_bounds``) in this process: parents and threads a
+    block, blocks, its dynamic shared memory, whether the whole grid was on
+    the card at once (``fits``), and the lanes a parent of the prologue's
+    wavefront (``lanes``; each owns ceil(m / lanes) machines)."""
+    _, fn = _build.entry(source, f"{source}_last_shape",
+                         (ctypes.POINTER(ctypes.c_int),), None)
+    out = (ctypes.c_int * 6)()
+    fn(out)
+    return {"parents": out[0], "threads": out[1], "blocks": out[2],
+            "smem_bytes": out[3], "fits": bool(out[4]), "lanes": out[5]}
 
 
 def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
