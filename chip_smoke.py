@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``tpu_tree_search_torch``) on one GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15 and three profiles
+    python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and five profiles
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -62,9 +62,12 @@ ends the script with a non-zero exit before the final line:
      where lb2 costs the most), each row with its bounds launch's block
      shape;
  16. ``kernel9``, ``kernel10`` and ``kernel11`` (the streamed lb1, N-Queens
-     and lb2 cycles) against their plain versions, as kernels 2, 4 and 8 at
-     tile widths mt = 16 (M = 1024) and 64 (M = 49152; N-Queens 80 at
-     M = 50000); equal state, live pool rows and (G, 4) per-tile scalars;
+     and lb2 cycles: rows 9b, 9a and 9c of the PERF.md table) against their
+     plain versions, as kernels 2, 4 and 8 at tile widths mt = 16
+     (M = 1024) and 64 (M = 49152; N-Queens 80 at M = 50000), 9a and 9c
+     also at mt = 8 (the most tiles, four a block of 32 parents), 9c also
+     on ta021; equal state, live pool rows and (G, 4) per-tile scalars;
+     each row with its device time by launch and its launches a cycle;
  17. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
      the fused path at M = 49152 and M = 1024 (counting kernel 8), with
      ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
@@ -72,7 +75,7 @@ ends the script with a non-zero exit before the final line:
  18. the streamed searches through the CLI with ``--mt``: ta014 lb1 and lb2
      at M = 49152, mt = 64, ta014 lb1 at M = 1024, mt = 16 (many small
      cycles) and N-Queens N = 15 at M = 50000, mt = 80, to their goldens,
-     counting kernels 9, 11 and 10 (and none of 2, 8, 4);
+     counting kernels 9b, 9c and 9a (and none of 2, 8, 4);
  19. the eval-only pass through ``streamed_eval_bounds`` (lb1, lb2, N-Queens
      at full width) and ``megakernel_lb2_bounds``, which launch kernels 1,
      6 and 3 (counted), checked against the plain planes;
@@ -83,8 +86,9 @@ ends the script with a non-zero exit before the final line:
      single-tile and streamed: device
      time by kernel against the device phase's wall time (the busy share),
      and for the single-tile ta014 lb1 (kernel 2) and N-Queens (kernel 4)
-     searches the launches a cycle from the profiler's kernel counts (3 and
-     2, and no ``cycle_scan`` launch);
+     searches and the streamed N-Queens (9a) and lb2 (9c) searches the
+     launches a cycle from the profiler's kernel counts (3, 2, 2 and 3, and
+     no ``cycle_scan`` launch);
  21. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
      plain version, its time, the plain version's time and the bound (the
@@ -133,11 +137,13 @@ NQ_CYCLE_KERNELS = ("nq_cycle_labels", "nq_cycle_emit")
 # The kernel of each of the eval-only pass's TPU kernels, by counter.
 EVAL_KERNEL = {"eval_lb1": "lb1_bounds", "eval_nqueens": "nqueens_labels",
                "eval_lb2": "lb2_bounds"}
-# The two kernels of one streamed cycle (csrc/tiled_lb1.cu, tiled_lb2.cu,
-# tiled_nqueens.cu).
+# The kernels of one streamed cycle: kernel 9b's sweep and emit
+# (csrc/tiled_lb1.cu), kernel 9c's bounds, count and emit (csrc/tiled_lb2.cu,
+# kernel 8's bodies) and kernel 9a's labels and emit (csrc/tiled_nqueens.cu,
+# kernel 4's bodies), each under a name of its own.
 TILED_KERNELS = {"lb1": ("tiled_lb1_sweep", "tiled_pfsp_emit"),
-                 "lb2": ("tiled_lb2_sweep", "tiled_pfsp_emit"),
-                 "nqueens": ("tiled_nq_sweep", "tiled_nq_emit")}
+                 "lb2": ("lb2_tiles_bounds", "pfsp_tiles_count", "pfsp_tiles_emit"),
+                 "nqueens": ("nq_tiles_labels", "nq_tiles_emit")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -150,8 +156,10 @@ def check(cond: bool, what: str) -> None:
 
 
 # Device ms a call of each launch of the last profiled kernel_device_ms,
-# by launch name (the cycle phases print it beside the total).
+# by launch name (the cycle phases print it beside the total), and the
+# launches of each name a call that its trace held.
 LAST_LAUNCH_MS: dict[str, float] = {}
+LAST_LAUNCHES: dict[str, float] = {}
 
 
 def _profiled_ms(fn, reps: int, names: tuple[str, ...],
@@ -180,10 +188,12 @@ def _profiled_ms(fn, reps: int, names: tuple[str, ...],
         acc[0] += us
         acc[1] += ev.count
     LAST_LAUNCH_MS.clear()
+    LAST_LAUNCHES.clear()
     if len(per_name) < len(names) or any(c == 0 or us <= 0 for us, c in per_name.values()):
         return None, 0
     for name, (us, c) in per_name.items():
         LAST_LAUNCH_MS[name] = us / c / 1e3
+        LAST_LAUNCHES[name] = c / reps
     return sum(LAST_LAUNCH_MS.values()), min(c for _, c in per_name.values())
 
 
@@ -442,11 +452,12 @@ def phase_lb1_family(phase: str, dev, tables: dict) -> dict:
 
 def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int,
                     dtype=torch.int8):
-    """(run the kernel, run its plain version, kernel names, the per-tile
-    scalars of the last kernel call or None) of one PFSP cycle on a pool of
-    ``dtype``: single-tile (kernels 2, 8) or streamed in tiles of mt
-    (kernels 9, 11). Each run takes (pool_vals, pool_aux, st) and returns
-    the plain version's (G, 4) per-tile scalars, or None."""
+    """(run the kernel, run its plain version, kernel names, the scratch
+    whose ``scal`` holds the last kernel call's per-tile scalars, or None)
+    of one PFSP cycle on a pool of ``dtype``: single-tile (kernels 2, 8) or
+    streamed in tiles of mt (kernels 9b, 9c). Each run takes (pool_vals,
+    pool_aux, st) and returns the plain version's (G, 4) per-tile scalars,
+    or None."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import tiled as T
 
@@ -458,22 +469,33 @@ def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int,
         return (lambda pv, pa, st: cuda_cycle(pv, pa, st, scratch, tables, M, mterm, K),
                 lambda pv, pa, st: plain_cycle(pv, pa, st, tables, M, mterm, K),
                 CYCLE_KERNELS if lb == "lb1" else LB2_CYCLE_KERNELS, None)
-    scratch = T.tiled_scratch(M, n, mt, torch.int8, dev)
-    cuda_cycle, plain_cycle = ((T.tiled_lb1_cuda, T.tiled_lb1_plain) if lb == "lb1"
-                               else (T.tiled_lb2_cuda, T.tiled_lb2_plain))
+    if lb == "lb1":
+        cuda_cycle, plain_cycle = T.tiled_lb1_cuda, T.tiled_lb1_plain
+        scratch = T.tiled_scratch(M, n, mt, dtype, dev)
+    else:
+        cuda_cycle, plain_cycle = T.tiled_lb2_cuda, T.tiled_lb2_plain
+        scratch = T.tiled_lb2_scratch(M, n, mt, dtype, dev)
     return (lambda pv, pa, st: cuda_cycle(pv, pa, st, scratch, tables, M, mt, mterm, K),
             lambda pv, pa, st: plain_cycle(pv, pa, st, tables, M, mt, mterm, K),
-            TILED_KERNELS[lb], scratch.scal)
+            TILED_KERNELS[lb], scratch)
+
+
+# The tile width of the streamed rows keyed (M, chunk, incumbent); rows at
+# another width add it to the key.
+TILE_MT = {1024: 16, 49152: 64}
 
 
 def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                      tiled: bool = False, dtype=torch.int8,
-                     inst: str = "ta014") -> dict:
-    """A PFSP cycle kernel (``lb`` lb1: kernel 2, or 9 when ``tiled``; lb2:
-    kernel 8, or 11) against its plain version on a pool of ``dtype`` on
-    the tables of ``inst``: M = 1024 (streamed: mt = 16) and 49152
-    (mt = 64), a partial and a full chunk, finite and INF incumbent; equal
-    state, live pool rows and, streamed, (G, 4) per-tile scalars."""
+                     inst: str = "ta014",
+                     shapes=((1024, 16), (49152, 64))) -> dict:
+    """A PFSP cycle kernel (``lb`` lb1: kernel 2, or 9b when ``tiled``; lb2:
+    kernel 8, or 9c) against its plain version on a pool of ``dtype`` on
+    the tables of ``inst``: at each (M, mt) of ``shapes`` (mt, the tile
+    width, only streamed), a partial and a full chunk, finite and INF
+    incumbent; equal state, live pool rows and, streamed, (G, 4) per-tile
+    scalars. Each row has the device time by launch and the launches a
+    cycle that the profiler's trace held."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import lb2_kernel
     from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
@@ -485,9 +507,9 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
     rng = np.random.default_rng(seed)
     rows = {}
     isz = dtype.itemsize
-    for M, mt in ((1024, 16), (49152, 64)):
-        run_cuda, run_plain, names, scal = _pfsp_cycle_fns(dev, tables, lb, tiled, M, mt,
-                                                           dtype)
+    for M, mt in shapes:
+        run_cuda, run_plain, names, scratch = _pfsp_cycle_fns(dev, tables, lb, tiled, M,
+                                                              mt, dtype)
         G = M // mt if tiled else 1
         for chunk in ("partial", "full"):
             size = M // 2 + 3 if chunk == "partial" else M + 517
@@ -513,7 +535,7 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                     int((st[:C.ST_BASE + 1] - st2[:C.ST_BASE + 1]).abs().max()),
                     int((pv[:live].int() - pv2[:live].int()).abs().max()) if live else 0,
                     int((pa[:live].int() - pa2[:live].int()).abs().max()) if live else 0,
-                    int((scal - scal2).abs().max()) if tiled else 0,
+                    int((scratch.scal - scal2).abs().max()) if tiled else 0,
                 )
                 tree, sol = int(st2[C.ST_TREE]), int(st2[C.ST_SOL])
                 check(err == 0 and int(st2[C.ST_CYCLES]) == 1,
@@ -532,16 +554,17 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
 
                 ms, timing = kernel_device_ms(call, 30, names, restore)
                 launch_ms = dict(LAST_LAUNCH_MS)
+                launches = sum(LAST_LAUNCHES.values())
                 call_ms = median_ms(call, 30, restore)
-                block = (lb2_kernel.last_shape("cycle_lb2")
-                         if lb == "lb2" and not tiled else None)
+                block = (lb2_kernel.last_shape("tiled_lb2" if tiled else "cycle_lb2")
+                         if lb == "lb2" else None)
                 plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2),
                                      3 if lb == "lb1" or M <= 1024 else 1, restore)
                 cnt = min(size, M)
                 # Rows popped and pushed, the tables, the state and, streamed,
-                # the per-tile scalars and status words.
+                # the (G, 4) int32 per-tile scalars.
                 nbytes = (cnt + tree) * (n + 1) * isz + table_bytes + 64 + \
-                    (24 * G if tiled else 0)
+                    (16 * G if tiled else 0)
                 pop = limit1[size - cnt:]
                 extra = {}
                 if lb == "lb1":
@@ -553,14 +576,17 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                     if block is not None:
                         extra["block"] = block
                 bms, by = bound_ms(nbytes, ops)
-                rows[(M, chunk, incumbent)] = dict(
+                key = ((M, chunk, incumbent) if not tiled or mt == TILE_MT.get(M)
+                       else (M, chunk, incumbent, mt))
+                rows[key] = dict(
                     inst=inst, n=n, dtype=str(dtype),
                     M=M, mt=mt if tiled else M, chunk=chunk, incumbent=incumbent, popped=cnt,
                     tree_inc=tree, sol_inc=sol, best_in=best,
                     best_out=int(st2[C.ST_BEST]), max_abs_err=err, ms=ms,
-                    launch_ms=launch_ms, timing=timing, call_ms=call_ms, plain_ms=plain_ms,
+                    launch_ms=launch_ms, launches_per_cycle=launches, timing=timing,
+                    call_ms=call_ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_us=bms * 1e3, bound_by=by, **extra)
-                emit(phase, **rows[(M, chunk, incumbent)])
+                emit(phase, **rows[key])
     return rows
 
 
@@ -681,11 +707,12 @@ def phase_kernel3(dev) -> dict:
 
 
 def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
-    """The N-Queens cycle kernel (kernel 4, or 10 when ``tiled``) against
+    """The N-Queens cycle kernel (kernel 4, or 9a when ``tiled``) against
     its plain version at N = 15: M = 1024 (streamed: mt = 16) and 50000
-    (mt = 80), a partial and a full chunk, g = 1 and (kernel 4, M = 50000)
-    g = 4; equal state, live pool rows and, streamed, (G, 4) per-tile
-    scalars. Rows are keyed (M, chunk), and (M, chunk, g) past g = 1."""
+    (mt = 80, and streamed also mt = 8), a partial and a full chunk, g = 1
+    and (kernel 4, M = 50000) g = 4; equal state, live pool rows and,
+    streamed, (G, 4) per-tile scalars. Rows are keyed (M, chunk), and
+    (M, chunk, g) past g = 1, or (M, chunk, mt) past mt = 80."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
     from tpu_tree_search_torch.ops import tiled as T
@@ -695,7 +722,8 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
     prob = NQueensProblem(N, g=1)
     rng = np.random.default_rng(10 if tiled else 4)
     rows = {}
-    shapes = [(1024, 16, 1), (50000, 80, 1)] + ([] if tiled else [(50000, 80, 4)])
+    shapes = [(1024, 16, 1), (50000, 80, 1)] + (
+        [(50000, 8, 1)] if tiled else [(50000, 80, 4)])
     for M, mt, g in shapes:
         if tiled:
             scratch = T.tiled_nqueens_scratch(M, N, mt, dev)
@@ -754,17 +782,20 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
 
             ms, timing = kernel_device_ms(call, 30, names, restore)
             launch_ms = dict(LAST_LAUNCH_MS)
+            launches = sum(LAST_LAUNCHES.values())
             call_ms = median_ms(call, 30, restore)
             plain_ms = median_ms(lambda: run_plain(pv2, pa2, st2), 3, restore)
             cnt = min(size, M)
             pop = depth[size - cnt:]
-            nbytes = cnt * (N + 1) + tree * (N + 1) + 64 + (24 * G if tiled else 0)
+            nbytes = cnt * (N + 1) + tree * (N + 1) + 64 + (16 * G if tiled else 0)
             bms, by = bound_ms(nbytes, nq_ops(pop[pop < N], N, g))
-            key = (M, chunk) if g == 1 else (M, chunk, g)
+            key = ((M, chunk, g) if g != 1 else
+                   (M, chunk) if mt in (16, 80) else (M, chunk, mt))
             rows[key] = dict(
                 M=M, mt=mt if tiled else M, g=g, chunk=chunk, popped=cnt,
                 tree_inc=tree, sol_inc=sol, max_abs_err=err, ms=ms,
-                launch_ms=launch_ms, timing=timing, call_ms=call_ms,
+                launch_ms=launch_ms, launches_per_cycle=launches, timing=timing,
+                call_ms=call_ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
             emit(phase, **rows[key])
     return rows
@@ -957,12 +988,14 @@ def phase_profile(name: str, argv: list[str], golden: dict,
 
 
 def main_cycles(dev, dev_info) -> int:
-    """``--cycles``: only the fused cycles (kernels 2, 4 and 8) against
-    their plain versions, and the ta014 lb1 and N-Queens N = 15 searches
-    under the profiler with their launches a cycle; the last line says
-    which phases ran."""
+    """``--cycles``: only the fused cycles (kernels 2, 4 and 8) and the
+    streamed ones (9a, 9b and 9c) against their plain versions, and the
+    ta014 lb1 and N-Queens N = 15 searches and the streamed N-Queens and
+    lb2 searches under the profiler with their launches a cycle; the last
+    line says which phases ran."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.problems import PFSPProblem
 
     tables = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
@@ -972,14 +1005,25 @@ def main_cycles(dev, dev_info) -> int:
     phase_kernel4(dev)
     phase_pfsp_cycle("kernel8", dev, PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(dev),
                      "lb2", 8)
-    phase_pfsp_cycle("kernel8", dev, PFSPProblem(inst=21, lb="lb2", ub=1).device_tables(dev),
-                     "lb2", 21, inst="ta021")
+    ta021 = PFSPProblem(inst=21, lb="lb2", ub=1).device_tables(dev)
+    phase_pfsp_cycle("kernel8", dev, ta021, "lb2", 21, inst="ta021")
+    phase_pfsp_cycle("kernel9", dev, tables, "lb1", 9, tiled=True)
+    phase_kernel4(dev, "kernel10", tiled=True)
+    phase_pfsp_cycle("kernel11", dev, PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(dev),
+                     "lb2", 11, tiled=True, shapes=((1024, 16), (49152, 64), (49152, 8)))
+    phase_pfsp_cycle("kernel11", dev, ta021, "lb2", 111, tiled=True, inst="ta021",
+                     shapes=((49152, 64),))
     phase_profile("search_fused_M49152", PFSP_LB1, GOLDEN,
                   (C.cycle_lb1_cuda, CYCLE_KERNELS, 3))
     phase_profile("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], GOLDEN,
                   (C.cycle_lb1_cuda, CYCLE_KERNELS, 3))
     phase_profile("search_nqueens_N15_fused", ["nqueens", "--N", "15", "--tier", "device"],
                   NQ_GOLDEN[15], (CN.cycle_nqueens_cuda, NQ_CYCLE_KERNELS, 2))
+    phase_profile("search_nqueens_N15_tiled",
+                  ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"], NQ_GOLDEN[15],
+                  (T.tiled_nqueens_cuda, TILED_KERNELS["nqueens"], 2))
+    phase_profile("search_lb2_tiled_M49152", PFSP_LB2 + ["--mt", "64"], GOLDEN_LB2,
+                  (T.tiled_lb2_cuda, TILED_KERNELS["lb2"], 3))
     print(json.dumps({"ok": True, "phases": "cycles", "device": dev_info}), flush=True)
     return 0
 
@@ -1022,9 +1066,15 @@ def main() -> int:
     # ta021: 20 machines, P = 190 pairs, where lb2 costs the most.
     k8_21 = phase_pfsp_cycle("kernel8", dev, lb2_tables["ta021"], "lb2", 21,
                              inst="ta021")
+    # The streamed cycles: table rows 9b (kernel9), 9a (kernel10) and 9c
+    # (kernel11); 9a and 9c also at mt = 8 (four tiles a block of 32
+    # parents), 9c also on ta021.
     k9 = phase_pfsp_cycle("kernel9", dev, tables, "lb1", 9, tiled=True)
     k10 = phase_kernel4(dev, "kernel10", tiled=True)
-    k11 = phase_pfsp_cycle("kernel11", dev, lb2_tables["ta014"], "lb2", 11, tiled=True)
+    k11 = phase_pfsp_cycle("kernel11", dev, lb2_tables["ta014"], "lb2", 11, tiled=True,
+                           shapes=((1024, 16), (49152, 64), (49152, 8)))
+    k11_21 = phase_pfsp_cycle("kernel11", dev, lb2_tables["ta021"], "lb2", 111,
+                              tiled=True, inst="ta021", shapes=((49152, 64),))
     eval_probs = {"lb1": PFSPProblem(inst=14, lb="lb1", ub=1),
                   "lb2": PFSPProblem(inst=14, lb="lb2", ub=1),
                   "nqueens": NQueensProblem(15)}
@@ -1080,23 +1130,23 @@ def main() -> int:
     lb1t = phase_search("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], counters)
     check(lb1t["megakernel_tiled"] and lb1t["megakernel_mt"] == 64
           and lb1t["launches"]["tiled_lb1"] > 0 and lb1t["launches"]["cycle_lb1"] == 0,
-          "kernel 9 not launched on the streamed lb1 path")
+          "kernel 9b not launched on the streamed lb1 path")
     lb1t1k = phase_search("search_lb1_tiled_M1024",
                           PFSP_LB1 + ["--M", "1024", "--mt", "16"], counters)
     check(lb1t1k["megakernel_tiled"] and lb1t1k["launches"]["tiled_lb1"] > 0
           and lb1t1k["launches"]["cycle_lb1"] == 0,
-          "kernel 9 not launched on the streamed lb1 path at M=1024")
+          "kernel 9b not launched on the streamed lb1 path at M=1024")
     lb2t = phase_search("search_lb2_tiled_M49152", PFSP_LB2 + ["--mt", "64"], counters,
                         GOLDEN_LB2)
     check(lb2t["megakernel_tiled"] and lb2t["launches"]["tiled_lb2"] > 0
           and lb2t["launches"]["cycle_lb2"] == 0,
-          "kernel 11 not launched on the streamed lb2 path")
+          "kernel 9c not launched on the streamed lb2 path")
     nqt = phase_search("search_nqueens_N15_tiled",
                        ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"],
                        counters, NQ_GOLDEN[15])
     check(nqt["megakernel_tiled"] and nqt["launches"]["tiled_nqueens"] > 0
           and nqt["launches"]["cycle_nqueens"] == 0,
-          "kernel 10 not launched on the streamed N-Queens path")
+          "kernel 9a not launched on the streamed N-Queens path")
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -1106,7 +1156,8 @@ def main() -> int:
             ("search_lb2_fused_M1024", ["--M", "1024"], {}),
             ("search_lb2_unfused_staged", ["--unfused"], dict(kernel="lb1_bounds_kernel")),
             ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False)),
-            ("search_lb2_tiled_M49152", ["--mt", "64"], {})]:
+            ("search_lb2_tiled_M49152", ["--mt", "64"],
+             dict(cycle=(T.tiled_lb2_cuda, TILED_KERNELS["lb2"], 3)))]:
         phase_profile(name, PFSP_LB2 + extra, GOLDEN_LB2, **kwargs)
     # Kernels 1 and 5 on their search paths: their device time a search
     # (the unfused search's 2,519 cycles traced on the device alone).
@@ -1123,7 +1174,7 @@ def main() -> int:
              NQ_GOLDEN[15], (CN.cycle_nqueens_cuda, NQ_CYCLE_KERNELS, 2)),
             ("search_nqueens_N15_tiled",
              ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"], NQ_GOLDEN[15],
-             None)]:
+             (T.tiled_nqueens_cuda, TILED_KERNELS["nqueens"], 2))]:
         phase_profile(name, argv, golden, cycle)
 
     k1_main = k1[("ta014", 1024, "torch.int8")]
@@ -1177,7 +1228,8 @@ def main() -> int:
         ("tiled_nqueens", "tiled_nqueens.cu", "megakernel.py:650",
          nqt, "M=50000 mt=80 N=15 full chunk", k10, k10[(50000, "full")]),
         ("tiled_lb2", "tiled_lb2.cu", "megakernel.py:723",
-         lb2t, "ta014 M=49152 mt=64 full chunk, finite incumbent", k11,
+         lb2t, "ta014 M=49152 mt=64 full chunk, finite incumbent",
+         {**k11, **{("ta021",) + k: r for k, r in k11_21.items()}},
          k11[(49152, "full", "finite")]),
         # The eval-only pass's TPU kernels, on kernels 1, 3 and 6.
         ("eval_lb1", "lb1_bounds.cu", "megakernel.py:1115", evp,

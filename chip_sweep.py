@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the lb1-family kernels 1 and 5 and the lb2 kernels 6 and 8 on one
-card, for this checkout or for variants of its CUDA sources.
+"""Time the lb1-family kernels 1 and 5, the lb2 kernels 6 and 8 and the
+fused and streamed cycles on one card, for this checkout or for variants of
+its CUDA sources.
 
-    python3 chip_sweep.py [--family lb1|lb2]      # this checkout, once
+    python3 chip_sweep.py [--family lb1|lb2|tiled]   # this checkout, once
     python3 chip_sweep.py VARIANTS.json [--rounds N] [--family ...]
     python3 chip_sweep.py --lb1-steps [--rounds N]
+    python3 chip_sweep.py --tiled-steps [--rounds N]
 
 ``--family lb1``: kernel 1 (``lb1_bounds``) and kernel 5
 (``lb1_d_bounds``) on ta014 at B = 1024 and 49152, int8 and int32, on
@@ -13,10 +15,16 @@ ta021 (20 machines) at B = 49152, on a seeded 40-machine, 12-job instance
 B = 1024. ``--family lb2``: kernel 6 (``lb2_bounds``) on ta014 and ta021
 at B = 1024 and 49152 and on ta081 at B = 1024, and kernel 8
 (``cycle_lb2``) on a full chunk of ta014 and ta021 at M = 1024 and 49152.
-Each kernel is checked against its plain version (``err`` is the largest
-difference on the open slots), then timed by the profiler (kernel 8: the
-whole cycle and its bounds launch), with the block shape it chose. Without
-``--family``, both. Prints one JSON line.
+``--family tiled``: the streamed N-Queens cycle (kernel 9a) on a full chunk
+at N = 15, M = 50000 (mt = 80 and 8) and M = 1024 (mt = 16), and the
+streamed lb2 cycle (kernel 9c) on ta014 at M = 49152 (mt = 64) and M = 1024
+(mt = 16) and on ta021 at M = 49152 (mt = 64), each beside the single-tile
+cycle whose launches it runs (kernels 4 and 8) at its M, and kernel 2 on
+ta014 at M = 49152. Each kernel is checked against its plain version
+(``err`` is the largest difference on the open slots; for a cycle, on the
+state, the live pool rows and the per-tile scalars), then timed by the
+profiler (a cycle: the whole cycle and by launch), with the block shape it
+chose. Without ``--family``, lb1 and lb2. Prints one JSON line.
 
 With VARIANTS.json, a list of ``[name, {source: {old: new}}]``: each
 variant is a copy of the package under ``_checkout/sweep/<name>``
@@ -25,7 +33,9 @@ variant is a copy of the package under ``_checkout/sweep/<name>``
 ``--rounds`` times (default 1), each printing its line. A variant that
 changes what a kernel computes shows in its ``err``. ``--lb1-steps`` runs
 the built-in variants ``LB1_STEPS`` of kernels 1 and 5 (the design steps
-of their shared body, `csrc/lb1_family.cuh`) the same way.
+of their shared body, `csrc/lb1_family.cuh`) the same way, and
+``--tiled-steps`` the variants ``TILED_STEPS`` of the cycles' shared
+bodies (`csrc/cycle_common.cuh`) under ``--family tiled``.
 """
 
 from __future__ import annotations
@@ -105,6 +115,43 @@ LB1_STEPS = [
     ["no_prologue", {_LB1F: _NO_PROLOGUE}],
     ["no_chain", {_LB1F: _NO_CHAIN}],
     ["no_prologue_no_chain", {_LB1F: {**_NO_PROLOGUE, **_NO_CHAIN}}],
+]
+
+
+# The design steps of kernels 9a and 9c (the single-tile cycles' launches
+# with the boundary row, csrc/cycle_common.cuh), as text substitutions:
+# ablations of the boundary row and alternatives of the shared bodies,
+# timed beside kernels 2, 4 and 8, which share them.
+_COMMON = "cycle_common.cuh"
+TILED_STEPS = [
+    # As committed: a (survivors, solutions) pair a block, two blocks a
+    # 16-byte load in the predecessor sum, warp 0 of each emit block writes
+    # the rows of the tile boundaries among its parents.
+    ["committed", {}],
+    # Ablation: no row of a tile start written (the rows' cost; the per-tile
+    # scalars then differ from the plain ones).
+    ["no_tile_rows", {_COMMON: {"  if (lane < rows && i % mt == 0) {":
+                                "  if (lane < rows && i % mt == 0 && mt < 0) {"}}],
+    # The predecessor sum one pair (8 bytes) a load.
+    ["pairs_8_bytes", {_COMMON: {
+        "    for (int j = threadIdx.x; j < (b >> 1); j += blockDim.x) {\n"
+        "      const int4 x = v[j];\n"
+        "      pre += x.x + x.z;\n"
+        "      sol += x.y + x.w;\n"
+        "    }\n"
+        "    if ((b & 1) && threadIdx.x == 0) {\n"
+        "      pre += blkcnt[2 * b - 2];\n"
+        "      sol += blkcnt[2 * b - 1];\n"
+        "    }\n":
+        "    for (int j = threadIdx.x; j < b; j += blockDim.x) {\n"
+        "      const int2 x = reinterpret_cast<const int2*>(blkcnt)[j];\n"
+        "      pre += x.x;\n"
+        "      sol += x.y;\n"
+        "    }\n"}}],
+    # 256 looping threads a counting or emit block in place of 128 (all the
+    # cycles).
+    ["loop256", {_COMMON: {"#define TTS_CYCLE_LOOP_THREADS 128":
+                           "#define TTS_CYCLE_LOOP_THREADS 256"}}],
 ]
 
 
@@ -228,28 +275,138 @@ def measure_lb2(out: dict) -> None:
         out["block"][f"k8/{key}"] = lb2_kernel.last_shape("cycle_lb2")
 
 
+def _cycle_case(run_cuda, run_plain, pv0, pa0, st0, names, scratch=None):
+    """One cycle on a copy of the pool (pv0, pa0, st0) against its plain
+    version, then timed by the profiler: (the largest difference in the
+    state, the live rows and, streamed, the per-tile scalars; device ms a
+    cycle; device ms by launch)."""
+    import torch
+
+    import chip_smoke as cs
+    from tpu_tree_search_torch.ops import cycle as C
+
+    pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
+    run_cuda(pv, pa, st)
+    pv2, pa2, st2 = pv0.clone(), pa0.clone(), st0.clone()
+    scal2 = run_plain(pv2, pa2, st2)
+    torch.cuda.synchronize()
+    live = int(st2[C.ST_SIZE])
+    err = max(int((st[:C.ST_BASE + 1] - st2[:C.ST_BASE + 1]).abs().max()),
+              int((pv[:live].int() - pv2[:live].int()).abs().max()) if live else 0,
+              int((pa[:live].int() - pa2[:live].int()).abs().max()) if live else 0,
+              int((scratch.scal - scal2).abs().max()) if scratch is not None else 0)
+
+    def restore():
+        pv.copy_(pv0)
+        pa.copy_(pa0)
+        st.copy_(st0)
+
+    ms, _ = cs.kernel_device_ms(lambda: run_cuda(pv, pa, st), 30, names, restore)
+    return err, ms, dict(cs.LAST_LAUNCH_MS)
+
+
+def measure_tiled(out: dict) -> None:
+    """Kernels 9a and 9c beside 2, 4 and 8 into ``out`` (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import tiled as T
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+
+    dev = torch.device("cuda", 0)
+    out.update(ms={}, launch_ms={})
+    K, m = 4, 25
+    prob = NQueensProblem(15)
+    N = prob.N
+    for M, mt in [(50000, None), (50000, 80), (50000, 8), (1024, None), (1024, 16)]:
+        size = M + 517
+        board, depth = cs.random_boards(np.random.default_rng(M), N, size)
+        cap = size + M * N
+        pv0 = torch.zeros((cap, N), dtype=torch.uint8, device=dev)
+        pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
+        pv0[:size] = torch.from_numpy(board).to(dev)
+        pa0[:size] = torch.from_numpy(depth).to(dev).to(torch.int8)
+        st0 = C.new_state(size, cs.INF, dev)
+        if mt is None:
+            sc = CN.nqueens_scratch(M, N, dev)
+            case = (lambda pv, pa, st: CN.cycle_nqueens_cuda(pv, pa, st, sc, N, 1, M, m, K),
+                    lambda pv, pa, st: CN.cycle_nqueens_plain(pv, pa, st, N, 1, M, m, K),
+                    cs.NQ_CYCLE_KERNELS, None)
+            key = f"k4/M={M}"
+        else:
+            sc = T.tiled_nqueens_scratch(M, N, mt, dev)
+            case = (lambda pv, pa, st: T.tiled_nqueens_cuda(pv, pa, st, sc, prob, M, mt, m, K),
+                    lambda pv, pa, st: T.tiled_nqueens_plain(pv, pa, st, prob, M, mt, m, K),
+                    cs.TILED_KERNELS["nqueens"], sc)
+            key = f"k9a/M={M}/mt={mt}"
+        err, out["ms"][key], out["launch_ms"][key] = _cycle_case(
+            case[0], case[1], pv0, pa0, st0, case[2], case[3])
+        out["err"] = max(out["err"], err)
+    tabs = {(i, lb): PFSPProblem(inst=i, lb=lb, ub=1).device_tables(dev)
+            for i, lb in ((14, "lb1"), (14, "lb2"), (21, "lb2"))}
+    for inst, lb, M, mt in [(14, "lb1", 49152, None), (14, "lb2", 49152, None),
+                            (14, "lb2", 49152, 64), (14, "lb2", 1024, None),
+                            (14, "lb2", 1024, 16), (21, "lb2", 49152, None),
+                            (21, "lb2", 49152, 64)]:
+        t = tabs[(inst, lb)]
+        n = t.jobs
+        size = M + 517
+        prmu, l1 = cs.random_nodes(np.random.default_rng(inst + M), n, size)
+        cap = size + M * n
+        pv0 = torch.zeros((cap, n), dtype=torch.int8, device=dev)
+        pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
+        pv0[:size] = torch.from_numpy(prmu).to(dev).to(torch.int8)
+        pa0[:size] = torch.from_numpy(l1).to(dev).to(torch.int8)
+        st0 = C.new_state(size, 1500 if inst == 14 else 2300, dev)
+        if mt is None:
+            sc = C.cycle_scratch(M, n, torch.int8, dev)
+            cuda, plain = ((C.cycle_lb1_cuda, C.cycle_lb1_plain) if lb == "lb1"
+                           else (C.cycle_lb2_cuda, C.cycle_lb2_plain))
+            case = (lambda pv, pa, st: cuda(pv, pa, st, sc, t, M, m, K),
+                    lambda pv, pa, st: plain(pv, pa, st, t, M, m, K),
+                    cs.CYCLE_KERNELS if lb == "lb1" else cs.LB2_CYCLE_KERNELS, None)
+            key = f"{'k2' if lb == 'lb1' else 'k8'}/ta{inst:03d}/M={M}"
+        else:
+            sc = T.tiled_lb2_scratch(M, n, mt, torch.int8, dev)
+            case = (lambda pv, pa, st: T.tiled_lb2_cuda(pv, pa, st, sc, t, M, mt, m, K),
+                    lambda pv, pa, st: T.tiled_lb2_plain(pv, pa, st, t, M, mt, m, K),
+                    cs.TILED_KERNELS["lb2"], sc)
+            key = f"k9c/ta{inst:03d}/M={M}/mt={mt}"
+        err, out["ms"][key], out["launch_ms"][key] = _cycle_case(
+            case[0], case[1], pv0, pa0, st0, case[2], case[3])
+        out["err"] = max(out["err"], err)
+
+
 def measure(family: str) -> dict:
     """The JSON line of one checkout: the build of the sources it times,
-    then ``family`` ("lb1", "lb2" or "all")."""
+    then ``family`` ("lb1", "lb2", "all": both, or "tiled")."""
     from tpu_tree_search_torch.ops import _build
 
     t0 = time.perf_counter()
     sources = {"lb1": ("lb1_bounds", "lb1_d_bounds"),
-               "lb2": ("lb2_bounds", "cycle_lb2")}
-    for fam, names in sources.items():
-        if family in (fam, "all"):
-            for name in names:
-                _build.library(name)
+               "lb2": ("lb2_bounds", "cycle_lb2"),
+               "tiled": ("cycle_lb1", "cycle_nqueens", "cycle_lb2", "tiled_nqueens",
+                         "tiled_lb2")}
+    sources = {fam: names for fam, names in sources.items()
+               if family == fam or (family == "all" and fam != "tiled")}
+    for names in sources.values():
+        for name in names:
+            _build.library(name)
     out = {"build_s": time.perf_counter() - t0, "block": {}, "err": 0,
            "ptxas": {name: [ln.strip() for ln in
                             _build.log_path(name).read_text(errors="replace").splitlines()
                             if "registers" in ln or "spill" in ln]
-                     for fam, names in sources.items() if family in (fam, "all")
-                     for name in names}}
+                     for names in sources.values() for name in names}}
     if family in ("lb1", "all"):
         measure_lb1(out)
     if family in ("lb2", "all"):
         measure_lb2(out)
+    if family == "tiled":
+        measure_tiled(out)
     return out
 
 
@@ -259,11 +416,14 @@ def main() -> int:
     ap.add_argument("variants", nargs="?", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--name", default="this")
-    ap.add_argument("--family", choices=("lb1", "lb2", "all"), default=None)
+    ap.add_argument("--family", choices=("lb1", "lb2", "all", "tiled"), default=None)
     ap.add_argument("--lb1-steps", action="store_true")
+    ap.add_argument("--tiled-steps", action="store_true")
     args = ap.parse_args()
     if args.lb1_steps:
         variants, family = LB1_STEPS, args.family or "lb1"
+    elif args.tiled_steps:
+        variants, family = TILED_STEPS, args.family or "tiled"
     elif args.variants is not None:
         variants, family = json.loads(args.variants.read_text()), args.family or "all"
     else:

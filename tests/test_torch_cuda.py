@@ -517,14 +517,15 @@ def test_lb2_cycle_takes_ta081(cuda, finite):
     assert int(st2[C.ST_TREE]) > 0
 
 
-# -- the streamed cycle (kernels 9, 10 and 11) and the eval-only pass ----------
+# -- the streamed cycle (kernels 9a, 9b and 9c) and the eval-only pass ---------
 
 
 def _tiled_check(cuda_cycle, plain_cycle, pv, pa, st, scratch, spec, M, mt,
                  cycles=2):
     """``cycles`` streamed cycles on the card and in plain PyTorch from one
     pool: equal state, live rows and (G, 4) per-tile scalars after each (the
-    second cycle runs on status words and a ticket the first one used)."""
+    second cycle runs on the counts, boundary row, status words and ticket
+    the first one used)."""
     m, K = 25, 4
     pv2, pa2, st2 = pv.clone(), pa.clone(), st.clone()
     for _ in range(cycles):
@@ -539,29 +540,50 @@ def _tiled_check(cuda_cycle, plain_cycle, pv, pa, st, scratch, spec, M, mt,
         assert int(st[C.ST_TREE]) > 0
 
 
+# (lb, Taillard instance, pool dtype, M, mt): mt = 8 (the most tiles, four a
+# block of 32 parents) and M / 2 (two tiles); ta021 (20 machines, P = 190
+# pairs) and ta051 (50 jobs: two keep-mask words a parent, an int32 pool)
+# under lb2.
+_TILED_PFSP = [(lb, 14, torch.int8, M, mt) for lb in ("lb1", "lb2")
+               for M, mt in ((1024, 16), (1024, 512), (49152, 64), (49152, 8))] + [
+    ("lb2", 21, torch.int8, 1024, 16), ("lb2", 21, torch.int8, 49152, 64),
+    ("lb2", 51, torch.int32, 1024, 8), ("lb2", 51, torch.int32, 8192, 4096)]
+
+
 @pytest.mark.parametrize("incumbent", ["finite", "inf"])
 @pytest.mark.parametrize("chunk", ["partial", "full"])
-@pytest.mark.parametrize("M,mt", [(1024, 16), (49152, 64)])
-@pytest.mark.parametrize("lb", ["lb1", "lb2"])
-def test_tiled_pfsp_kernel_matches_plain(cuda, lb, M, mt, chunk, incumbent):
-    t = PFSPProblem(inst=14, lb=lb, ub=1).device_tables(cuda)
-    n = 20
+@pytest.mark.parametrize("lb,inst,dtype,M,mt", _TILED_PFSP)
+def test_tiled_pfsp_kernel_matches_plain(cuda, lb, inst, dtype, M, mt, chunk,
+                                         incumbent):
+    t = PFSPProblem(inst=inst, lb=lb, ub=1).device_tables(cuda)
+    n = t.jobs
     size = M // 2 + 3 if chunk == "partial" else M + 517
-    prmu, limit1 = _nodes(np.random.default_rng(M + size), n, size)
+    prmu, limit1 = _nodes(np.random.default_rng(M + size + inst), n, size)
+    best = INF
+    if incumbent == "finite":  # half the chunk's leaves improve on it
+        bound = lb1_chunk if lb == "lb1" else lb2_chunk
+        lbs = bound(torch.from_numpy(prmu).to(cuda),
+                    torch.from_numpy(limit1).to(cuda), t).cpu().numpy()
+        leaf = (np.arange(n)[None, :] > limit1[:, None]) & (limit1[:, None] == n - 2)
+        best = int(np.median(lbs[leaf]))
     cap = size + 2 * M * n
-    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
-    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
-    pv[:size] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
-    pa[:size] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
-    st = C.new_state(size, 1500 if incumbent == "finite" else INF, cuda)
-    cuda_cycle, plain_cycle = ((T.tiled_lb1_cuda, T.tiled_lb1_plain) if lb == "lb1"
-                               else (T.tiled_lb2_cuda, T.tiled_lb2_plain))
-    _tiled_check(cuda_cycle, plain_cycle, pv, pa, st,
-                 T.tiled_scratch(M, n, mt, torch.int8, cuda), t, M, mt)
+    pv = torch.zeros((cap, n), dtype=dtype, device=cuda)
+    pa = torch.zeros(cap, dtype=dtype, device=cuda)
+    pv[:size] = torch.from_numpy(prmu).to(cuda).to(dtype)
+    pa[:size] = torch.from_numpy(limit1).to(cuda).to(dtype)
+    st = C.new_state(size, best, cuda)
+    if lb == "lb1":
+        cuda_cycle, plain_cycle = T.tiled_lb1_cuda, T.tiled_lb1_plain
+        scratch = T.tiled_scratch(M, n, mt, dtype, cuda)
+    else:
+        cuda_cycle, plain_cycle = T.tiled_lb2_cuda, T.tiled_lb2_plain
+        scratch = T.tiled_lb2_scratch(M, n, mt, dtype, cuda)
+    _tiled_check(cuda_cycle, plain_cycle, pv, pa, st, scratch, t, M, mt)
 
 
 @pytest.mark.parametrize("chunk", ["partial", "full"])
-@pytest.mark.parametrize("M,mt", [(1024, 16), (50000, 80)])
+@pytest.mark.parametrize("M,mt", [(1024, 16), (1024, 512), (50000, 80),
+                                  (50000, 8)])
 def test_tiled_nqueens_kernel_matches_plain(cuda, M, mt, chunk):
     prob = NQueensProblem(15)
     N = prob.N
@@ -575,6 +597,36 @@ def test_tiled_nqueens_kernel_matches_plain(cuda, M, mt, chunk):
     _tiled_check(T.tiled_nqueens_cuda, T.tiled_nqueens_plain, pv, pa,
                  C.new_state(size, INF, cuda),
                  T.tiled_nqueens_scratch(M, N, mt, cuda), prob, M, mt)
+
+
+def test_tiled_lb2_refuses_what_kernel_8_refuses(cuda):
+    # 100 jobs on 22 machines (P = 231 pairs): the tables plus one parent
+    # of kernel 8's bounds launch pass the shared memory a block may hold,
+    # a shape the per-child form of kernel 9c took. It raises before any
+    # launch and nothing falls back to the plain version.
+    ptm = np.random.default_rng(22).integers(1, 100, (22, 100))
+    t = PFSPProblem(lb="lb2", ub=0, p_times=ptm).device_tables(cuda)
+    assert lb2_kernel.block_smem("tiled_lb2", t) > lb2_kernel.SMEM_LIMIT
+    n, M, mt = 100, 64, 16
+    prmu, limit1 = _nodes(np.random.default_rng(23), n, M)
+    cap = M + 2 * M * n
+    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+    pv[:M] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    pa[:M] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    st = C.new_state(M, INF, cuda)
+    before = (pv.clone(), pa.clone(), st.clone())
+    scratch = T.tiled_lb2_scratch(M, n, mt, torch.int8, cuda)
+    T.tiled_lb2_cuda.launches = 0
+    for cycle in (T.tiled_lb2_cuda, T.tiled_lb2):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cycle(pv, pa, st, scratch, t, M, mt, 25, 4)
+    torch.cuda.synchronize()
+    assert T.tiled_lb2_cuda.launches == 0
+    assert all(torch.equal(x, y) for x, y in zip((pv, pa, st), before))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        C.cycle_lb2_cuda(pv, pa, st, C.cycle_scratch(M, n, torch.int8, cuda),
+                         t, M, 25, 4)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])

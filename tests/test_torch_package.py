@@ -241,6 +241,36 @@ def test_chip_sweep_lb1_steps_apply_to_the_sources(tmp_path):
         assert (text == (_build.CSRC / "lb1_family.cuh").read_text()) == (not subs)
 
 
+def test_chip_sweep_tiled_steps_apply_to_the_sources(tmp_path):
+    # Every design step of kernels 9a and 9c is a substitution of the
+    # cycles' shared code that the committed sources hold.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_sweep", ROOT / "chip_sweep.py")
+    sw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sw)
+    names = [name for name, _ in sw.TILED_STEPS]
+    assert names[0] == "committed" and len(set(names)) == len(names)
+    for name, subs in sw.TILED_STEPS:
+        sw.make_variant(ROOT, tmp_path / name, subs)
+        text = (tmp_path / name / "tpu_tree_search_torch/csrc/cycle_common.cuh").read_text()
+        assert (text == (_build.CSRC / "cycle_common.cuh").read_text()) == (not subs)
+
+
+def test_chip_ab_keys_streamed_rows_by_tile_width():
+    # The streamed cycles' rows at two tile widths of one M get two keys.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_ab", ROOT / "chip_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    rows = [{"phase": "kernel10", "M": 50000, "mt": mt, "g": 1, "chunk": "full",
+             "ms": ms} for mt, ms in ((80, 0.02), (8, 0.021))]
+    got = ab.summarize("\n".join(json.dumps(r) for r in rows))
+    assert got["cycles"] == {"kernel10/50000/80/1/full": 0.02,
+                             "kernel10/50000/8/1/full": 0.021}
+
+
 def test_chip_smoke_lb1_family_rows():
     # The kernel 1 and 5 rows of chip_smoke.py: ta014 first, as earlier runs
     # drew them, then ta021, ta111 (int32), 40 machines and rows that are no

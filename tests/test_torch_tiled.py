@@ -19,9 +19,17 @@ On the CPU, at M=64 and tile widths mt in {8, 16}, on the 8-job instance of
     interpret mode (lb1 and lb2 on the open slots, N-Queens on every slot),
     and ``megakernel_lb2_bounds`` the JAX one on the open slots;
   * a tile width that is not a multiple of 8 dividing M raises, and ``mt``
-    is inert on the unfused cycle and under lb1_d.
+    is inert on the unfused cycle and under lb1_d;
+  * the carry of kernels 9a and 9c, as a numpy model in the kernels' block
+    order (``_carry_model``), gives the (G, 4) scalars of
+    ``tiled_chunk_plain`` and of the Pallas tiled kernels (interpret mode),
+    for N-Queens and lb2, at M = 120, 240 and 400 (not multiples of 32, so
+    tile boundaries fall inside blocks of 32 parents) and mt in {8, 16, 40,
+    80}, on full, partial and tail windows (tiles with no popped row);
+    ``TileBoundsScratch.scal`` reads the model's boundary row as the plain
+    scalars; and the sources of 9a and 9c hold no look-back.
 
-Tolerance 0: everything is integer. The CUDA kernels 9-11 are compared with
+Tolerance 0: everything is integer. The CUDA kernels 9a-9c are compared with
 these plain versions on the card in `tests/test_torch_cuda.py`.
 """
 
@@ -44,6 +52,7 @@ from tpu_tree_search_torch.engine.resident import make_program, resident_search
 from tpu_tree_search_torch.ops import cycle as C
 from tpu_tree_search_torch.ops import cycle_nqueens as CN
 from tpu_tree_search_torch.ops import tiled as T
+from tpu_tree_search_torch.ops.nqueens_device import labels_chunk
 from tpu_tree_search_torch.ops.pfsp_device import lb1_chunk, lb2_chunk
 from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 
@@ -91,9 +100,10 @@ def _chunk(rng, family, B, deep=0.25):
 
 
 def _jax_tiled(family, jprob, vals, aux, valid, best, mt):
-    """The JAX tiled megakernel on one chunk, with the operands
-    ``make_cycle`` passes (`megakernel.py:1033-1098`). Returns (rows, caux,
-    the (G, 4) scalar lanes)."""
+    """The JAX tiled megakernel on one chunk of M = len(vals) parents, with
+    the operands ``make_cycle`` passes (`megakernel.py:1033-1098`). Returns
+    (rows, caux, the (G, 4) scalar lanes)."""
+    M = vals.shape[0]
     head = (jnp.asarray(vals.astype(np.int32)), jnp.asarray(aux)[:, None],
             jnp.asarray(valid.astype(np.int32))[:, None],
             jnp.asarray([best], dtype=jnp.int32))
@@ -347,9 +357,159 @@ def test_tiled_cuda_wrappers_refuse_cpu_tensors():
     assert scratch.scal.shape == (4, 4) and scratch.status.dtype == torch.int64
     with pytest.raises(ValueError):
         T.tiled_lb1_cuda(pool_vals, pool_aux, st, scratch, t, M, 16, 4, 4)
+    # Kernel 9c's scratch: kernel 8's, with a (survivors, leaves) pair a
+    # block of 32 parents, and the (G + 1, 3) boundary row read as the
+    # (G, 4) scalars.
+    scratch9c = T.TileBoundsScratch.make(M, JOBS, 16, 1, torch.int8,
+                                         C.pfsp_plane_words(M, JOBS), 32, CPU)
+    assert scratch9c.bounds.shape == (5, 3) and scratch9c.bounds.dtype == torch.int32
+    assert scratch9c.cycle.blkcnt.numel() == 2 * 2 and scratch9c.scal.shape == (4, 4)
     lb2_tables = _problems("lb2")[1].device_tables(CPU)
     with pytest.raises(ValueError, match="CUDA"):  # before any build
-        T.tiled_lb2_cuda(pool_vals, pool_aux, st, scratch, lb2_tables, M, 16,
+        T.tiled_lb2_cuda(pool_vals, pool_aux, st, scratch9c, lb2_tables, M, 16,
                          4, 4)
     T.tiled_lb1(pool_vals, pool_aux, st, None, t, M, 16, 4, 4)  # the plain route
     assert int(st[C.ST_CYCLES]) == 1
+
+
+# -- the carry of kernels 9a and 9c -------------------------------------------
+
+# Parents of a counting and emit block of the single-tile cycles
+# (csrc/cycle_common.cuh TTS_CYCLE_PARENTS).
+CYCLE_PARENTS = 32
+
+
+def _carry_model(keeps, sols, best, mt):
+    """The boundary row that kernels 9a and 9c write, in their block order:
+    blocks of CYCLE_PARENTS parents, each publishing its (survivors,
+    solutions) pair (the labels or count launch); each emit block sums the
+    pairs of the blocks before it, ranks its parents (exclusive prefixes of
+    keeps and sols) and writes row i // mt for each parent i that starts a
+    tile, and the last block row G. ``keeps`` is each parent's survivor
+    count, ``sols`` its solution or leaf flag (0 off the popped window).
+    Every row is written exactly once."""
+    M = len(keeps)
+    G = M // mt
+    nblk = -(-M // CYCLE_PARENTS)
+    pairs = [(int(keeps[b * CYCLE_PARENTS:(b + 1) * CYCLE_PARENTS].sum()),
+              int(sols[b * CYCLE_PARENTS:(b + 1) * CYCLE_PARENTS].sum()))
+             for b in range(nblk)]
+    bnd = np.full((G + 1, 3), -1, dtype=np.int64)
+    writes = np.zeros(G + 1, dtype=np.int64)
+    for b in range(nblk):
+        pre = sum(c for c, _ in pairs[:b])
+        presol = sum(s for _, s in pairs[:b])
+        i0 = b * CYCLE_PARENTS
+        k = keeps[i0:i0 + CYCLE_PARENTS].astype(np.int64)
+        f = sols[i0:i0 + CYCLE_PARENTS].astype(np.int64)
+        s_off = np.cumsum(k) - k
+        sol_before = np.cumsum(f) - f
+        for lane in range(len(k)):
+            if (i0 + lane) % mt == 0:
+                t = (i0 + lane) // mt
+                bnd[t] = (pre + s_off[lane], presol + sol_before[lane], best)
+                writes[t] += 1
+        if b == nblk - 1:
+            bnd[G] = (pre + k.sum(), presol + f.sum(), best)
+            writes[G] += 1
+    assert (writes == 1).all()
+    return bnd.astype(np.int32)
+
+
+def _carry_inputs(family, tprob, vals, aux, valid, best):
+    """Per parent its survivors and its solution (N-Queens: a popped parent
+    at depth N) or leaf flag (PFSP: a popped parent at limit1 = n - 2), and
+    the incumbent the cycle ends with, from the plain bound or labels."""
+    n = vals.shape[1]
+    if family == "nqueens":
+        labels = labels_chunk(torch.from_numpy(vals), torch.from_numpy(aux),
+                              tprob.N, tprob.g).bool().numpy()
+        keep = labels & valid[:, None] & (aux < n)[:, None]
+        return keep.sum(1), valid & (aux == n), best
+    lb = lb2_chunk(torch.from_numpy(vals), torch.from_numpy(aux),
+                   tprob.device_tables(CPU)).numpy()
+    open_ = (np.arange(n)[None, :] > aux[:, None]) & valid[:, None]
+    leaf = open_ & (aux == n - 2)[:, None]
+    best = min(best, int(lb[leaf].min()) if leaf.any() else best)
+    keep = open_ & ~leaf & (lb < best)
+    return keep.sum(1), valid & (aux == n - 2), best
+
+
+def _window(M, window):
+    """The popped rows of a chunk of M: all, a head (a partial chunk), or a
+    tail (the popped rows at the window's end, as a start2 clamped at C - M
+    leaves them); the other tiles hold no popped row."""
+    valid = np.zeros(M, dtype=bool)
+    if window == "full":
+        valid[:] = True
+    elif window == "partial":
+        valid[:M // 2 + 3] = True
+    else:
+        valid[M // 3 + 5:] = True
+    return valid
+
+
+@pytest.mark.parametrize("window", ["full", "partial", "tail"])
+@pytest.mark.parametrize("M,mt", [(240, 8), (240, 16), (240, 40), (240, 80),
+                                  (400, 80), (120, 40)])
+@pytest.mark.parametrize("family", ["nqueens", "lb2"])
+def test_carry_model_matches_plain_and_pallas_tiled_scalars(family, M, mt,
+                                                            window):
+    jprob, tprob = _problems(family)
+    rng = np.random.default_rng(M + mt + len(window) + len(family))
+    vals, aux = _chunk(rng, family, M)
+    valid = _window(M, window)
+    best = (INF if window != "full" else
+            _incumbent(family, tprob, vals, aux, True))
+    keeps, sols, best_out = _carry_inputs(family, tprob, vals, aux, valid,
+                                          best)
+    bnd = _carry_model(keeps, sols, best_out, mt)
+    scal = T.scal_from_bounds(torch.from_numpy(bnd))
+    # The boundary row read as the per-tile scalars by the scratch's
+    # accessor.
+    G = M // mt
+    scratch = T.TileBoundsScratch(
+        cycle=C.CycleScratch.make(M, vals.shape[1], 1, torch.int8, M,
+                                  CYCLE_PARENTS, CPU, counts=2),
+        bounds=torch.from_numpy(bnd))
+    assert scratch.scal.shape == (G, 4) and torch.equal(scratch.scal, scal)
+    tv = torch.from_numpy(vals).to(torch.uint8 if family == "nqueens"
+                                   else torch.int8)
+    _, _, offs, tree, sol, best_t, scal_p = T.tiled_chunk_plain(
+        _spec(family, tprob), tv, torch.from_numpy(aux).to(torch.int8),
+        torch.from_numpy(valid), torch.tensor(best, dtype=torch.int32), mt,
+        lb2_chunk)
+    assert torch.equal(scal, scal_p)
+    assert (int(tree), int(sol), int(best_t)) == tuple(int(v) for v in bnd[G])
+    _, _, scal_j = _jax_tiled(family, jprob, vals, aux, valid, best, mt)
+    assert np.array_equal(scal.numpy(), scal_j)
+    # Tiles with no popped row have no survivor and carry the solutions of
+    # the tiles before them.
+    empty = ~valid.reshape(G, mt).any(1)
+    assert window == "full" or empty.any()
+    assert (scal_p[torch.from_numpy(empty), 1] == 0).all()
+    assert int(tree) > 0 or int(sol) > 0  # (the leaves may prune all)
+
+
+def test_streamed_nqueens_and_lb2_sources_have_no_look_back():
+    # Kernels 9a and 9c run the single-tile cycles' bodies: no ticket, no
+    # status words, no look-back, and no Johnson pass per child.
+    from tpu_tree_search_torch.ops import _build
+
+    def text(name):
+        return (_build.CSRC / name).read_text()
+
+    for src, body in [("tiled_nqueens.cu", "cycle_nqueens.cuh"),
+                      ("tiled_lb2.cu", "cycle_lb2.cuh")]:
+        code = text(src)
+        assert f'#include "{body}"' in code
+        for header in ("tiled_common.cuh", "tiled_pfsp.cuh"):
+            assert header not in code
+    for name in ("tiled_lb2.cu", "cycle_lb2.cuh", "cycle_pfsp.cuh",
+                 "lb2_common.cuh", "cycle_nqueens.cuh", "cycle_common.cuh"):
+        code = text(name)
+        for gone in ("lb2_child", "lb2_parent_state", "tile_lookback",
+                     "tile_ticket", "atomicAdd(ticket"):
+            assert gone not in code, (name, gone)
+    # The look-back stays only for kernel 9b.
+    assert '#include "tiled_pfsp.cuh"' in text("tiled_lb1.cu")

@@ -98,13 +98,23 @@ __device__ __forceinline__ int warp_sum(int v) {
 
 // The end of the counting launch, called by every thread of a block with
 // the block's survivors and solutions in keeps and sols (thread 0's are
-// used): the survivor count goes to blkcnt[b] for the emit's offsets, the
-// solutions straight into st[3] (a reduction nothing reads this cycle).
+// used). The single-tile cycle (TILES false): the survivor count goes to
+// blkcnt[b] for the emit's offsets, the solutions straight into st[3] (a
+// reduction nothing reads this cycle). The streamed cycle (TILES true):
+// the pair (survivors, solutions) goes to blkcnt[2b, 2b + 1], since its
+// emit also places the tile boundaries' solution counts
+// (emit_tile_bounds); its last emit block adds the cycle's solutions to
+// st[3].
+template <bool TILES>
 __device__ __forceinline__ void cycle_publish_counts(int* st, int* blkcnt,
                                                      int keeps, int sols) {
   if (threadIdx.x == 0) {
-    blkcnt[blockIdx.x] = keeps;
-    if (sols) atomicAdd(&st[ST_SOL], sols);
+    if constexpr (TILES) {
+      reinterpret_cast<int2*>(blkcnt)[blockIdx.x] = make_int2(keeps, sols);
+    } else {
+      blkcnt[blockIdx.x] = keeps;
+      if (sols) atomicAdd(&st[ST_SOL], sols);
+    }
   }
 }
 
@@ -186,19 +196,39 @@ __device__ __forceinline__ int warp_parent_offsets(const uint32_t* s_mask,
 // The first half of an emit block's offset: each thread's share of the
 // survivor counts of the blocks before this one (blkcnt[0..b), 16 bytes a
 // load, all in flight at once), summed a warp at a time into s_red[warp].
-// The loads go out beside the block's stash loads.
+// The loads go out beside the block's stash loads. TILES (the streamed
+// cycle's (survivors, solutions) pairs, two blocks a load): the solutions
+// of the blocks before this one go to s_red[32 + warp] (s_red holds 64
+// ints).
+template <bool TILES>
 __device__ __forceinline__ void emit_sum_counts(const int* __restrict__ blkcnt,
                                                 int* s_red) {
   const int b = blockIdx.x;
   const int4* v = reinterpret_cast<const int4*>(blkcnt);
   int pre = 0;
+  if constexpr (TILES) {
+    int sol = 0;
 #pragma unroll 4
-  for (int j = threadIdx.x; j < (b >> 2); j += blockDim.x) {
-    const int4 x = v[j];
-    pre += x.x + x.y + x.z + x.w;
+    for (int j = threadIdx.x; j < (b >> 1); j += blockDim.x) {
+      const int4 x = v[j];
+      pre += x.x + x.z;
+      sol += x.y + x.w;
+    }
+    if ((b & 1) && threadIdx.x == 0) {
+      pre += blkcnt[2 * b - 2];
+      sol += blkcnt[2 * b - 1];
+    }
+    sol = warp_sum(sol);
+    if ((threadIdx.x & 31) == 0) s_red[32 + (threadIdx.x >> 5)] = sol;
+  } else {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < (b >> 2); j += blockDim.x) {
+      const int4 x = v[j];
+      pre += x.x + x.y + x.z + x.w;
+    }
+    for (int j = ((b >> 2) << 2) + threadIdx.x; j < b; j += blockDim.x)
+      pre += blkcnt[j];
   }
-  for (int j = ((b >> 2) << 2) + threadIdx.x; j < b; j += blockDim.x)
-    pre += blkcnt[j];
   pre = warp_sum(pre);
   if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = pre;
 }
@@ -227,6 +257,50 @@ __device__ __forceinline__ void emit_block_offsets(int* st,
       st[ST_TREE] += pre + total;
       st[ST_CYCLES] += 1;
     }
+  }
+}
+
+// The streamed cycle's carry (kernels 9a and 9c), by warp 0 of an emit
+// block after emit_block_offsets and a __syncwarp: the block's rows of the
+// boundary row bnd, G + 1 rows of three ints (G = M / mt tiles). Row b is
+// the chunk's parent b*mt: the survivors of the parents before it, their
+// solutions (N-Queens: popped parents at depth N; PFSP: the leaves, one a
+// popped parent at limit1 = n - 2), and the incumbent `best` the cycle
+// ends with; row G holds the cycle's tree_inc and sol_inc. Every parent
+// index is in one block, so each row is written once: by the block whose
+// parent starts that tile (a tile boundary may fall anywhere in a block of
+// TTS_CYCLE_PARENTS parents, and a block may hold several), and row G by
+// the last block, which also adds sol_inc to st[3]. `pre` and `total` are
+// the survivors of the blocks before this one and of this one, s_off[p]
+// those of parent p's predecessors in the block, s_red[32..] the
+// solutions of the blocks before this one by warp (emit_sum_counts<true>),
+// and `sol` lane p's solution flag. The per-tile scalars (offs, cnt,
+// sol_cum, best) of the TPU kernel are rows t and t + 1 of bnd
+// (`ops/tiled.py` `scal_from_bounds`).
+__device__ __forceinline__ void emit_tile_bounds(int* st, int* __restrict__ bnd,
+                                                 int mt, int rows,
+                                                 const int* s_off,
+                                                 const int* s_red, int pre,
+                                                 int total, bool sol,
+                                                 int best) {
+  const int lane = threadIdx.x & 31;
+  const int presol = warp_sum(
+      lane < static_cast<int>(blockDim.x >> 5) ? s_red[32 + lane] : 0);
+  const unsigned flags = __ballot_sync(0xffffffffu, lane < rows && sol);
+  const int i = blockIdx.x * TTS_CYCLE_PARENTS + lane;
+  if (lane < rows && i % mt == 0) {
+    int* r = bnd + 3 * (i / mt);
+    r[0] = pre + s_off[lane];
+    r[1] = presol + __popc(flags & ((1u << lane) - 1u));
+    r[2] = best;
+  }
+  if (lane == 0 && blockIdx.x == gridDim.x - 1) {
+    const int sols = presol + __popc(flags);
+    int* r = bnd + 3 * ((i + rows) / mt);
+    r[0] = pre + total;
+    r[1] = sols;
+    r[2] = best;
+    st[ST_SOL] += sols;
   }
 }
 

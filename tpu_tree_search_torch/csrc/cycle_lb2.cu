@@ -28,49 +28,11 @@
 // every block fits on the card at once, so two parents a block and one
 // thread a (parent, pair) task keep the chains short; at M = 49152 512
 // threads loop over the tasks of 32 parents a block.
-#include "cycle_pfsp.cuh"
-#include "lb2_common.cuh"
-
-// Launch 1: loop condition, pop, lb2 bounds, leaf fold.
-template <typename T>
-__global__ void lb2_cycle_bounds(const T* __restrict__ pool_vals,
-                                 const T* __restrict__ pool_aux, int* st,
-                                 uint8_t* __restrict__ stash,
-                                 T* __restrict__ chunk_aux,
-                                 int* __restrict__ lb,
-                                 const int* __restrict__ ptm_t,
-                                 const int* __restrict__ heads,
-                                 const int4* __restrict__ pairinfo,
-                                 const short4* __restrict__ tab, int n, int m,
-                                 int P, int M, int C, int mterm, int K,
-                                 int PB) {
-  int start, size, start2;
-  if (!pfsp_cycle_begin(st, n, M, C, mterm, K, &start, &size, &start2))
-    return;
-
-  extern __shared__ __align__(16) unsigned char lb2_smem[];
-  __shared__ int s_leafmin;
-  const Lb2ParSmem s = lb2p_smem_layout(lb2_smem, n, m, P, PB);
-  lb2p_load_tables(s, ptm_t, heads, pairinfo, tab, n, m, P);
-  if (threadIdx.x == 0) s_leafmin = TTS_INF_BOUND;
-
-  const int i0 = blockIdx.x * PB;
-  const int rows = min(PB, M - i0);
-  pfsp_stash_pop(pool_vals, pool_aux, stash, chunk_aux, start2, i0, rows, n);
-  // Rows start2 + i0 + p in [start, size) are the popped parents.
-  const int first = start2 + i0;
-  lb2p_load_rows(s, pool_vals + static_cast<size_t>(first) * n,
-                 pool_aux + first, rows, start - first, size - first, n);
-  __syncthreads();  // the tables and rows are in shared memory
-
-  int leafmin = TTS_INF_BOUND;
-  int* plane = lb + static_cast<size_t>(i0) * n;
-  lb2p_bounds(s, rows, n, m, P, [&](int p, int k, int v) {
-    plane[p * n + k] = v;
-    if (s.l1[p] + 2 == n) leafmin = min(leafmin, v);
-  });
-  pfsp_fold_leaves(leafmin, &s_leafmin, st);
-}
+//
+// The bodies of the three launches live in cycle_lb2.cuh and
+// cycle_pfsp.cuh, which kernel 9c (tiled_lb2.cu, the streamed cycle) runs
+// too, under its own kernel names and with the tile boundaries' row.
+#include "cycle_lb2.cuh"
 
 // Dynamic shared memory of the largest launch-1 block at this shape (the
 // wrapper refuses a shape above the opt-in limit).
@@ -87,33 +49,6 @@ extern "C" void cycle_lb2_last_shape(int* out) {
   out[3] = cycle_lb2_last.fits;
 }
 
-template <typename T>
-static int launch_cycle_lb2(void* pool_vals, void* pool_aux, void* st,
-                            void* chunk_vals, void* chunk_aux, void* lb,
-                            void* blkcnt, const void* ptm_t,
-                            const void* heads, const void* pairinfo,
-                            const void* tab, int n, int m, int P, int M,
-                            int C, int mterm, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Lb2Shape sh;
-  int err = tts_lb2p_shape(lb2_cycle_bounds<T>, M, n, m, P, &sh);
-  if (err) return err;
-  cycle_lb2_last = sh;
-  const int nblk = (M + sh.parents - 1) / sh.parents;
-  int* st_i = static_cast<int*>(st);
-  lb2_cycle_bounds<T><<<nblk, sh.threads, sh.smem, s>>>(
-      static_cast<const T*>(pool_vals), static_cast<const T*>(pool_aux), st_i,
-      static_cast<uint8_t*>(chunk_vals), static_cast<T*>(chunk_aux),
-      static_cast<int*>(lb), static_cast<const int*>(ptm_t),
-      static_cast<const int*>(heads), static_cast<const int4*>(pairinfo),
-      static_cast<const short4*>(tab), n, m, P, M, C, mterm, K, sh.parents);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  return launch_pfsp_cycle_tail<T>(pool_vals, pool_aux, st_i, chunk_vals,
-                                   chunk_aux, static_cast<int*>(lb),
-                                   blkcnt, n, M, s);
-}
-
 #define TTS_CYCLE_LB2_ENTRY(NAME, T)                                          \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,             \
                       void* chunk_vals, void* chunk_aux, void* lb,           \
@@ -121,10 +56,10 @@ static int launch_cycle_lb2(void* pool_vals, void* pool_aux, void* st,
                       const void* heads, const void* pairinfo,               \
                       const void* tab, int n, int m, int P, int M, int C,    \
                       int mterm, int K, void* stream) {                      \
-    return launch_cycle_lb2<T>(pool_vals, pool_aux, st, chunk_vals,          \
-                               chunk_aux, lb, blkcnt, ptm_t, heads,  \
-                               pairinfo, tab, n, m, P, M, C, mterm, K,       \
-                               stream);                                      \
+    return launch_lb2_cycle<T, false>(                                       \
+        pool_vals, pool_aux, st, chunk_vals, chunk_aux, lb, blkcnt, nullptr, \
+        ptm_t, heads, pairinfo, tab, n, m, P, M, M, C, mterm, K, stream,     \
+        &cycle_lb2_last);                                                    \
   }
 
 TTS_CYCLE_LB2_ENTRY(cycle_lb2_i8, int8_t)

@@ -58,15 +58,14 @@
 //   - blocks of 128 threads that loop over their slots when one thread a
 //     slot would not fit on the card at once, so the grid is one wave;
 //   - the labels are as they were: g real rounds per (parent, slot).
-#include "cycle_common.cuh"
-#include "nqueens_common.cuh"
+//
+// The bodies of both launches live in cycle_nqueens.cuh, which kernel 9a
+// (tiled_nqueens.cu, the streamed cycle) runs too, under its own kernel
+// names and with the tile boundaries' row.
+#include "cycle_nqueens.cuh"
 
-static_assert(TTS_NQ_PARENTS_PER_BLOCK == TTS_CYCLE_PARENTS,
-              "the N-Queens cycle ranks a block's parents with one warp");
-
-#define NQ_STASH_MAX (TTS_NQ_PARENTS_PER_BLOCK * TTS_NQ_MAX_N + 32)
-
-// Launch 1: loop condition, pop, labels, keep masks, per-block counts.
+// The single-tile cycle's kernels: the bodies of cycle_nqueens.cuh with no
+// boundary row.
 __global__ void nq_cycle_labels(const uint8_t* __restrict__ pool_vals,
                                 const int8_t* __restrict__ pool_aux, int* st,
                                 uint8_t* __restrict__ stash,
@@ -74,164 +73,27 @@ __global__ void nq_cycle_labels(const uint8_t* __restrict__ pool_vals,
                                 uint32_t* __restrict__ mask,
                                 int* __restrict__ blkcnt, int N, int g, int M,
                                 int C, int mterm, int K) {
-  const int size = st[ST_SIZE];
-  const int cycles = st[ST_CYCLES];
-  const bool active = size >= mterm &&
-                      static_cast<long long>(size) +
-                              static_cast<long long>(M) * N <=
-                          C &&
-                      cycles < K;
-  if (!active) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) st[ST_ACTIVE] = 0;
-    return;
-  }
-  const int cnt = min(size, M);
-  const int start = size - cnt;
-  const int start2 = min(max(start, 0), C - M);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    st[ST_ACTIVE] = 1;
-    st[ST_CNT] = cnt;
-    st[ST_START2] = start2;
-    st[ST_BASE] = start;
-  }
-
-  __shared__ __align__(16) uint8_t s_rows[NQ_STASH_MAX];
-  __shared__ uint32_t s_mask[TTS_NQ_PARENTS_PER_BLOCK];
-  // Parent depth, or -1 for a row of the M-window outside the popped rows.
-  __shared__ int s_depth[TTS_NQ_PARENTS_PER_BLOCK];
-  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
-  const int i0 = blockIdx.x * PB;
-  const int rows = min(PB, M - i0);
-  const int t = threadIdx.x;
-  // The pop: this block's M-window rows into its stash region (the emit
-  // writes survivors over the popped region, so it reads parents from the
-  // stash) and into shared memory.
-  const uint8_t* src = pool_vals + static_cast<size_t>(start2 + i0) * N;
-  copy_keep_phase(src, rows * N,
-                  stash + static_cast<size_t>(blockIdx.x) *
-                              tts_stash_block_bytes(PB * N),
-                  s_rows);
-  const uint8_t* s_board = s_rows + (reinterpret_cast<uintptr_t>(src) & 15);
-  if (t < rows) {
-    const int row = start2 + i0 + t;
-    const int8_t d = pool_aux[row];
-    chunk_aux[i0 + t] = d;
-    s_depth[t] = (row >= start && row < size) ? static_cast<int>(d) : -1;
-  }
-  if (t < PB) s_mask[t] = 0;
-  __syncthreads();
-
-  // Every (parent, slot), the split of a thread's first slot and of the
-  // stride into (parent, slot) taken once.
-  {
-    int p = t / N, k = t - (t / N) * N;
-    const int dp = static_cast<int>(blockDim.x) / N;
-    const int dk = static_cast<int>(blockDim.x) - dp * N;
-    for (int s = t; s < rows * N; s += blockDim.x) {
-      const int d = s_depth[p];
-      if (d >= 0 && d < N && nq_label(s_board + p * N, d, k, g))
-        atomicOr(&s_mask[p], 1u << k);
-      p += dp;
-      k += dk;
-      if (k >= N) {
-        k -= N;
-        ++p;
-      }
-    }
-  }
-  __syncthreads();
-  int keeps = 0, sols = 0;
-  if (t < 32) {
-    if (t < rows) {
-      const uint32_t w = s_mask[t];
-      mask[i0 + t] = w;
-      keeps = __popc(w);
-      sols = s_depth[t] == N;
-    }
-    keeps = warp_sum(keeps);
-    sols = warp_sum(sols);
-  }
-  cycle_publish_counts(st, blkcnt, keeps, sols);
+  nq_labels_body<false>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                        blkcnt, N, g, M, C, mterm, K);
 }
 
-// Launch 2: rank the block's survivors and store them as one span.
 __global__ void nq_cycle_emit(uint8_t* __restrict__ pool_vals,
                               int8_t* __restrict__ pool_aux, int* st,
                               const uint8_t* __restrict__ stash,
                               const int8_t* __restrict__ chunk_aux,
                               const uint32_t* __restrict__ mask,
-                              const int* __restrict__ blkcnt, int N, int M) {
-  if (!st[ST_ACTIVE]) return;
-  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
-  extern __shared__ __align__(16) uint8_t s_nq[];
-  __shared__ uint32_t s_mask[PB];
-  __shared__ int s_d[PB], s_caux[PB], s_off[32], s_red[32], s_total, s_dst0;
-  const int base = st[ST_BASE];  // == the pre-pop size minus cnt
-  const int start2 = st[ST_START2];
-  const int i0 = blockIdx.x * PB;
-  const int rows = min(PB, M - i0);
-  const int t = threadIdx.x;
-  const int SB = tts_stash_block_bytes(PB * N);
-  uint8_t* s_rows = s_nq;
-  uint8_t* s_span = s_rows + SB;
-  uint8_t* s_aspan = s_span + (PB * N * N + 31) / 16 * 16;
-  const uint4* region = reinterpret_cast<const uint4*>(
-      stash + static_cast<size_t>(blockIdx.x) * SB);
-  for (int w = t; w < SB / 16; w += blockDim.x)
-    reinterpret_cast<uint4*>(s_rows)[w] = region[w];
-  const int phase = static_cast<int>(
-      reinterpret_cast<uintptr_t>(pool_vals +
-                                  static_cast<size_t>(start2 + i0) * N) &
-      15);
-  // The mask is 0 on rows outside the popped window and on parents at
-  // depth N, so their depth is never read.
-  if (t < rows) {
-    s_mask[t] = mask[i0 + t];
-    const int d = static_cast<int>(chunk_aux[i0 + t]);
-    s_d[t] = d;
-    s_caux[t] = d + 1;
-  }
-  emit_sum_counts(blkcnt, s_red);
-  __syncthreads();
-  if (t < 32)
-    emit_block_offsets(st, s_mask, 1, rows, s_off, s_red, base, &s_dst0,
-                       &s_total);
-  __syncthreads();
-  emit_block_children<uint8_t, int8_t>(
-      pool_vals, pool_aux, s_dst0, s_rows + phase, s_d, s_caux, s_mask, 1,
-      s_off, rows, N, s_total, s_span, s_aspan, PB * N);
-}
-
-// Dynamic shared memory of an emit block: the stash region, the survivor
-// span (every slot kept) and its depths, each with 16 bytes of phase room.
-static inline size_t nq_emit_smem(int N) {
-  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
-  return tts_stash_block_bytes(PB * N) + (PB * N * N + 31) / 16 * 16 +
-         (PB * N + 31) / 16 * 16;
+                              const int* __restrict__ blkcnt, int N, int M,
+                              int* __restrict__ bnd, int mt) {
+  nq_emit_body<false>(pool_vals, pool_aux, st, stash, chunk_aux, mask, blkcnt,
+                      N, M, bnd, mt);
 }
 
 extern "C" int cycle_nqueens(void* pool_vals, void* pool_aux, void* st,
                              void* chunk_vals, void* chunk_aux, void* keep,
                              void* blkcnt, int N, int g, int M, int C,
                              int mterm, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
-  const int nblk = (M + PB - 1) / PB;
-  const int threads = tts_cycle_threads(nblk, PB * N, TTS_CYCLE_LOOP_THREADS);
-  int* st_i = static_cast<int*>(st);
-  nq_cycle_labels<<<nblk, threads, 0, s>>>(
-      static_cast<const uint8_t*>(pool_vals),
-      static_cast<const int8_t*>(pool_aux), st_i,
-      static_cast<uint8_t*>(chunk_vals), static_cast<int8_t*>(chunk_aux),
-      static_cast<uint32_t*>(keep), static_cast<int*>(blkcnt), N, g, M, C,
-      mterm, K);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  nq_cycle_emit<<<nblk, threads, nq_emit_smem(N), s>>>(
-      static_cast<uint8_t*>(pool_vals), static_cast<int8_t*>(pool_aux), st_i,
-      static_cast<const uint8_t*>(chunk_vals),
-      static_cast<const int8_t*>(chunk_aux),
-      static_cast<const uint32_t*>(keep), static_cast<const int*>(blkcnt), N,
-      M);
-  return static_cast<int>(cudaGetLastError());
+  return launch_nq_cycle(nq_cycle_labels, nq_cycle_emit, pool_vals,
+                                pool_aux, st, chunk_vals, chunk_aux, keep,
+                                blkcnt, nullptr, N, g, M, M, C, mterm, K,
+                                stream);
 }

@@ -1,0 +1,208 @@
+// The bodies of the fused N-Queens cycle's two launches (labels, emit),
+// shared by kernel 4 (cycle_nqueens.cu, the single-tile cycle) and kernel
+// 9a (tiled_nqueens.cu, the streamed cycle), each of which defines its own
+// `__global__` kernels around them, and the host launcher of one cycle.
+// cycle_nqueens.cu's header note gives the launches and the design.
+//
+// The template flag TILES is the streamed cycle's: its labels launch
+// publishes each block's solutions beside its survivors (in place of an
+// atomicAdd to st[3]) and its emit writes the tile boundaries' row
+// (cycle_common.cuh `emit_tile_bounds`). With TILES false the code is the
+// single-tile cycle's, with no boundary row: the choice is made when the
+// kernel is compiled, not in its loops.
+#pragma once
+
+#include "cycle_common.cuh"
+#include "nqueens_common.cuh"
+
+static_assert(TTS_NQ_PARENTS_PER_BLOCK == TTS_CYCLE_PARENTS,
+              "the N-Queens cycle ranks a block's parents with one warp");
+
+#define NQ_STASH_MAX (TTS_NQ_PARENTS_PER_BLOCK * TTS_NQ_MAX_N + 32)
+
+// Launch 1: loop condition, pop, labels, keep masks, per-block counts.
+template <bool TILES>
+__device__ __forceinline__ void nq_labels_body(
+    const uint8_t* __restrict__ pool_vals, const int8_t* __restrict__ pool_aux,
+    int* st, uint8_t* __restrict__ stash, int8_t* __restrict__ chunk_aux,
+    uint32_t* __restrict__ mask, int* __restrict__ blkcnt, int N, int g, int M,
+    int C, int mterm, int K) {
+  const int size = st[ST_SIZE];
+  const int cycles = st[ST_CYCLES];
+  const bool active = size >= mterm &&
+                      static_cast<long long>(size) +
+                              static_cast<long long>(M) * N <=
+                          C &&
+                      cycles < K;
+  if (!active) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) st[ST_ACTIVE] = 0;
+    return;
+  }
+  const int cnt = min(size, M);
+  const int start = size - cnt;
+  const int start2 = min(max(start, 0), C - M);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    st[ST_ACTIVE] = 1;
+    st[ST_CNT] = cnt;
+    st[ST_START2] = start2;
+    st[ST_BASE] = start;
+  }
+
+  __shared__ __align__(16) uint8_t s_rows[NQ_STASH_MAX];
+  __shared__ uint32_t s_mask[TTS_NQ_PARENTS_PER_BLOCK];
+  // Parent depth, or -1 for a row of the M-window outside the popped rows.
+  __shared__ int s_depth[TTS_NQ_PARENTS_PER_BLOCK];
+  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
+  const int i0 = blockIdx.x * PB;
+  const int rows = min(PB, M - i0);
+  const int t = threadIdx.x;
+  // The pop: this block's M-window rows into its stash region (the emit
+  // writes survivors over the popped region, so it reads parents from the
+  // stash) and into shared memory.
+  const uint8_t* src = pool_vals + static_cast<size_t>(start2 + i0) * N;
+  copy_keep_phase(src, rows * N,
+                  stash + static_cast<size_t>(blockIdx.x) *
+                              tts_stash_block_bytes(PB * N),
+                  s_rows);
+  const uint8_t* s_board = s_rows + (reinterpret_cast<uintptr_t>(src) & 15);
+  if (t < rows) {
+    const int row = start2 + i0 + t;
+    const int8_t d = pool_aux[row];
+    chunk_aux[i0 + t] = d;
+    s_depth[t] = (row >= start && row < size) ? static_cast<int>(d) : -1;
+  }
+  if (t < PB) s_mask[t] = 0;
+  __syncthreads();
+
+  // Every (parent, slot), the split of a thread's first slot and of the
+  // stride into (parent, slot) taken once.
+  {
+    int p = t / N, k = t - (t / N) * N;
+    const int dp = static_cast<int>(blockDim.x) / N;
+    const int dk = static_cast<int>(blockDim.x) - dp * N;
+    for (int s = t; s < rows * N; s += blockDim.x) {
+      const int d = s_depth[p];
+      if (d >= 0 && d < N && nq_label(s_board + p * N, d, k, g))
+        atomicOr(&s_mask[p], 1u << k);
+      p += dp;
+      k += dk;
+      if (k >= N) {
+        k -= N;
+        ++p;
+      }
+    }
+  }
+  __syncthreads();
+  int keeps = 0, sols = 0;
+  if (t < 32) {
+    if (t < rows) {
+      const uint32_t w = s_mask[t];
+      mask[i0 + t] = w;
+      keeps = __popc(w);
+      sols = s_depth[t] == N;
+    }
+    keeps = warp_sum(keeps);
+    sols = warp_sum(sols);
+  }
+  cycle_publish_counts<TILES>(st, blkcnt, keeps, sols);
+}
+
+// Launch 2: rank the block's survivors and store them as one span; TILES:
+// and write the block's rows of the boundary row bnd (tiles of mt).
+template <bool TILES>
+__device__ __forceinline__ void nq_emit_body(
+    uint8_t* __restrict__ pool_vals, int8_t* __restrict__ pool_aux, int* st,
+    const uint8_t* __restrict__ stash, const int8_t* __restrict__ chunk_aux,
+    const uint32_t* __restrict__ mask, const int* __restrict__ blkcnt, int N,
+    int M, int* __restrict__ bnd, int mt) {
+  if (!st[ST_ACTIVE]) return;
+  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
+  extern __shared__ __align__(16) uint8_t s_nq[];
+  __shared__ uint32_t s_mask[PB];
+  __shared__ int s_d[PB], s_caux[PB], s_off[32], s_red[TILES ? 64 : 32],
+      s_total, s_dst0;
+  const int base = st[ST_BASE];  // == the pre-pop size minus cnt
+  const int start2 = st[ST_START2];
+  const int i0 = blockIdx.x * PB;
+  const int rows = min(PB, M - i0);
+  const int t = threadIdx.x;
+  const int SB = tts_stash_block_bytes(PB * N);
+  uint8_t* s_rows = s_nq;
+  uint8_t* s_span = s_rows + SB;
+  uint8_t* s_aspan = s_span + (PB * N * N + 31) / 16 * 16;
+  const uint4* region = reinterpret_cast<const uint4*>(
+      stash + static_cast<size_t>(blockIdx.x) * SB);
+  for (int w = t; w < SB / 16; w += blockDim.x)
+    reinterpret_cast<uint4*>(s_rows)[w] = region[w];
+  const int phase = static_cast<int>(
+      reinterpret_cast<uintptr_t>(pool_vals +
+                                  static_cast<size_t>(start2 + i0) * N) &
+      15);
+  // The mask is 0 on rows outside the popped window and on parents at
+  // depth N, so their depth is never read. TILES: a popped parent at depth
+  // N is a solution.
+  bool sol = false;
+  if (t < rows) {
+    s_mask[t] = mask[i0 + t];
+    const int d = static_cast<int>(chunk_aux[i0 + t]);
+    s_d[t] = d;
+    s_caux[t] = d + 1;
+    if constexpr (TILES) {
+      const int row = start2 + i0 + t;
+      sol = row >= base && row < base + st[ST_CNT] && d == N;
+    }
+  }
+  emit_sum_counts<TILES>(blkcnt, s_red);
+  __syncthreads();
+  if (t < 32) {
+    emit_block_offsets(st, s_mask, 1, rows, s_off, s_red, base, &s_dst0,
+                       &s_total);
+    if constexpr (TILES) {
+      __syncwarp();
+      emit_tile_bounds(st, bnd, mt, rows, s_off, s_red, s_dst0 - base,
+                       s_total, sol, st[ST_BEST]);
+    }
+  }
+  __syncthreads();
+  emit_block_children<uint8_t, int8_t>(
+      pool_vals, pool_aux, s_dst0, s_rows + phase, s_d, s_caux, s_mask, 1,
+      s_off, rows, N, s_total, s_span, s_aspan, PB * N);
+}
+
+// Dynamic shared memory of an emit block: the stash region, the survivor
+// span (every slot kept) and its depths, each with 16 bytes of phase room.
+static inline size_t nq_emit_smem(int N) {
+  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
+  return tts_stash_block_bytes(PB * N) + (PB * N * N + 31) / 16 * 16 +
+         (PB * N + 31) / 16 * 16;
+}
+
+// One cycle on the stream: the labels kernel, then the emit kernel (the
+// bodies above, in the caller's `__global__` kernels), which takes the
+// boundary row and the tile width (unused by the single-tile cycle).
+template <typename L, typename E>
+static int launch_nq_cycle(L labels, E emit, void* pool_vals, void* pool_aux,
+                           void* st, void* stash, void* chunk_aux, void* mask,
+                           void* blkcnt, void* bnd, int N, int g, int M,
+                           int mt, int C, int mterm, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int PB = TTS_NQ_PARENTS_PER_BLOCK;
+  const int nblk = (M + PB - 1) / PB;
+  const int threads = tts_cycle_threads(nblk, PB * N, TTS_CYCLE_LOOP_THREADS);
+  int* st_i = static_cast<int*>(st);
+  labels<<<nblk, threads, 0, s>>>(
+      static_cast<const uint8_t*>(pool_vals),
+      static_cast<const int8_t*>(pool_aux), st_i,
+      static_cast<uint8_t*>(stash), static_cast<int8_t*>(chunk_aux),
+      static_cast<uint32_t*>(mask), static_cast<int*>(blkcnt), N, g, M, C,
+      mterm, K);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  emit<<<nblk, threads, nq_emit_smem(N), s>>>(
+      static_cast<uint8_t*>(pool_vals), static_cast<int8_t*>(pool_aux), st_i,
+      static_cast<const uint8_t*>(stash),
+      static_cast<const int8_t*>(chunk_aux),
+      static_cast<const uint32_t*>(mask), static_cast<const int*>(blkcnt), N,
+      M, static_cast<int*>(bnd), mt);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -118,12 +118,11 @@ __device__ __forceinline__ void slot_flags(const T* chunk_aux, const int* lb,
 // TTS_CYCLE_PARENTS parents, read once from the plane and packed into W =
 // ceil(n/32) mask words a parent; the block's survivor count and leaves
 // (a popped parent at limit1 = n-2 has one child, a leaf), published by
-// cycle_publish_counts.
-template <typename T>
-__global__ void cycle_count(int* st, const T* __restrict__ chunk_aux,
-                            const int* __restrict__ lb,
-                            uint32_t* __restrict__ mask,
-                            int* __restrict__ blkcnt, int n, int M) {
+// cycle_publish_counts<TILES> (TILES: the streamed cycle, kernel 9c).
+template <typename T, bool TILES>
+__device__ __forceinline__ void cycle_count_body(
+    int* st, const T* __restrict__ chunk_aux, const int* __restrict__ lb,
+    uint32_t* __restrict__ mask, int* __restrict__ blkcnt, int n, int M) {
   if (!st[ST_ACTIVE]) return;
   extern __shared__ uint32_t s_cmask[];  // PB * W words
   __shared__ int s_l1[TTS_CYCLE_PARENTS];
@@ -180,24 +179,42 @@ __global__ void cycle_count(int* st, const T* __restrict__ chunk_aux,
     if (leaves) atomicAdd(&s_leaf, leaves);
   }
   __syncthreads();
-  cycle_publish_counts(st, blkcnt, s_keep, s_leaf);
+  cycle_publish_counts<TILES>(st, blkcnt, s_keep, s_leaf);
+}
+
+template <typename T>
+__global__ void cycle_count(int* st, const T* __restrict__ chunk_aux,
+                            const int* __restrict__ lb,
+                            uint32_t* __restrict__ mask,
+                            int* __restrict__ blkcnt, int n, int M) {
+  cycle_count_body<T, false>(st, chunk_aux, lb, mask, blkcnt, n, M);
+}
+
+// The streamed cycle's count launch (kernel 9c).
+template <typename T>
+__global__ void pfsp_tiles_count(int* st, const T* __restrict__ chunk_aux,
+                                 const int* __restrict__ lb,
+                                 uint32_t* __restrict__ mask,
+                                 int* __restrict__ blkcnt, int n, int M) {
+  cycle_count_body<T, true>(st, chunk_aux, lb, mask, blkcnt, n, M);
 }
 
 // Launch 3: the block's offset from the counts before it, its survivors
 // ranked from its mask words and stored as one span (emit_block_children),
 // the parents read from the stash; the last block updates the state.
-template <typename T>
-__global__ void cycle_emit(T* __restrict__ pool_vals,
-                           T* __restrict__ pool_aux, int* st,
-                           const uint8_t* __restrict__ stash,
-                           const T* __restrict__ chunk_aux,
-                           const uint32_t* __restrict__ mask,
-                           const int* __restrict__ blkcnt, int n, int M,
-                           int span_rows) {
+// TILES (the streamed cycle, kernel 9c): and the block's rows of the
+// boundary row bnd (tiles of mt parents, cycle_common.cuh
+// `emit_tile_bounds`), whose solution counts are the leaves.
+template <typename T, bool TILES>
+__device__ __forceinline__ void cycle_emit_body(
+    T* __restrict__ pool_vals, T* __restrict__ pool_aux, int* st,
+    const uint8_t* __restrict__ stash, const T* __restrict__ chunk_aux,
+    const uint32_t* __restrict__ mask, const int* __restrict__ blkcnt, int n,
+    int M, int span_rows, int* __restrict__ bnd, int mt) {
   if (!st[ST_ACTIVE]) return;
   extern __shared__ __align__(16) uint8_t s_emit[];
-  __shared__ int s_d[TTS_CYCLE_PARENTS], s_off[32], s_red[32], s_total,
-      s_dst0;
+  __shared__ int s_d[TTS_CYCLE_PARENTS], s_off[32], s_red[TILES ? 64 : 32],
+      s_total, s_dst0;
   const int base = st[ST_BASE];  // == the pre-pop size minus cnt
   const int start2 = st[ST_START2];
   const int PB = TTS_CYCLE_PARENTS;
@@ -221,13 +238,27 @@ __global__ void cycle_emit(T* __restrict__ pool_vals,
   for (int w = t; w < rows * W; w += blockDim.x)
     s_mask[w] = mask[static_cast<size_t>(i0) * W + w];
   // A parent's mask is 0 outside the popped window, so its limit1 is never
-  // read there.
-  if (t < rows) s_d[t] = static_cast<int>(chunk_aux[i0 + t]) + 1;
-  emit_sum_counts(blkcnt, s_red);
+  // read there. TILES: a popped parent at limit1 = n - 2 is a leaf.
+  bool leaf = false;
+  if (t < rows) {
+    const int l1 = static_cast<int>(chunk_aux[i0 + t]);
+    s_d[t] = l1 + 1;
+    if constexpr (TILES) {
+      const int row = start2 + i0 + t;
+      leaf = row >= base && row < base + st[ST_CNT] && l1 == n - 2;
+    }
+  }
+  emit_sum_counts<TILES>(blkcnt, s_red);
   __syncthreads();
-  if (t < 32)
+  if (t < 32) {
     emit_block_offsets(st, s_mask, W, rows, s_off, s_red, base, &s_dst0,
                        &s_total);
+    if constexpr (TILES) {
+      __syncwarp();
+      emit_tile_bounds(st, bnd, mt, rows, s_off, s_red, s_dst0 - base,
+                       s_total, leaf, st[ST_BEST]);
+    }
+  }
   __syncthreads();
   const int phase = static_cast<int>(
       reinterpret_cast<uintptr_t>(pool_vals +
@@ -237,6 +268,33 @@ __global__ void cycle_emit(T* __restrict__ pool_vals,
                             reinterpret_cast<const T*>(s_rows + phase), s_d,
                             s_d, s_mask, W, s_off, rows, n, s_total, s_span,
                             s_aspan, span_rows);
+}
+
+// The single-tile cycles' emit launch (kernels 2 and 8; bnd and mt unused).
+template <typename T>
+__global__ void cycle_emit(T* __restrict__ pool_vals,
+                           T* __restrict__ pool_aux, int* st,
+                           const uint8_t* __restrict__ stash,
+                           const T* __restrict__ chunk_aux,
+                           const uint32_t* __restrict__ mask,
+                           const int* __restrict__ blkcnt, int n, int M,
+                           int span_rows, int* __restrict__ bnd, int mt) {
+  cycle_emit_body<T, false>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                            blkcnt, n, M, span_rows, bnd, mt);
+}
+
+// The streamed cycle's emit launch (kernel 9c).
+template <typename T>
+__global__ void pfsp_tiles_emit(T* __restrict__ pool_vals,
+                                T* __restrict__ pool_aux, int* st,
+                                const uint8_t* __restrict__ stash,
+                                const T* __restrict__ chunk_aux,
+                                const uint32_t* __restrict__ mask,
+                                const int* __restrict__ blkcnt, int n, int M,
+                                int span_rows, int* __restrict__ bnd,
+                                int mt) {
+  cycle_emit_body<T, true>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                           blkcnt, n, M, span_rows, bnd, mt);
 }
 
 // Rows of one emit wave: all of a block's slots when their rows fit
@@ -250,12 +308,15 @@ static inline int pfsp_span_rows(int n) {
 }
 
 // Launches 2-3 on the stream, after a launch 1 that filled the plane `lb`
-// ((M*n) int32, followed by the M*W mask words) and the stash.
-template <typename T>
+// ((M*n) int32, followed by the M*W mask words) and the stash. TILES: the
+// streamed cycle's kernels, which also write the boundary row bnd of tiles
+// of mt parents (blkcnt then holds a pair a block).
+template <typename T, bool TILES = false>
 static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
                                   const void* stash, const void* chunk_aux,
                                   int* lb, void* blkcnt, int n, int M,
-                                  cudaStream_t s) {
+                                  cudaStream_t s, int* bnd = nullptr,
+                                  int mt = 0) {
   const int PB = TTS_CYCLE_PARENTS;
   const int nblk = (M + PB - 1) / PB;
   const int threads = tts_cycle_threads(nblk, PB * n, TTS_CYCLE_LOOP_THREADS);
@@ -263,9 +324,17 @@ static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
   uint32_t* mask =
       reinterpret_cast<uint32_t*>(lb + static_cast<size_t>(M) * n);
   const size_t count_smem = sizeof(uint32_t) * PB * W;
-  int err = tts_smem_optin(cycle_count<T>, count_smem);
+  auto count = [] {
+    if constexpr (TILES) return pfsp_tiles_count<T>;
+    else return cycle_count<T>;
+  }();
+  auto emit = [] {
+    if constexpr (TILES) return pfsp_tiles_emit<T>;
+    else return cycle_emit<T>;
+  }();
+  int err = tts_smem_optin(count, count_smem);
   if (err) return err;
-  cycle_count<T><<<nblk, threads, count_smem, s>>>(
+  count<<<nblk, threads, count_smem, s>>>(
       st, static_cast<const T*>(chunk_aux), lb, mask,
       static_cast<int*>(blkcnt), n, M);
   err = static_cast<int>(cudaGetLastError());
@@ -275,11 +344,11 @@ static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
       pfsp_stash_block_bytes<T>(n) +
       (span_rows * n * sizeof(T) + 31) / 16 * 16 +
       (span_rows * sizeof(T) + 31) / 16 * 16 + sizeof(uint32_t) * PB * W;
-  err = tts_smem_optin(cycle_emit<T>, emit_smem);
+  err = tts_smem_optin(emit, emit_smem);
   if (err) return err;
-  cycle_emit<T><<<nblk, threads, emit_smem, s>>>(
+  emit<<<nblk, threads, emit_smem, s>>>(
       static_cast<T*>(pool_vals), static_cast<T*>(pool_aux), st,
       static_cast<const uint8_t*>(stash), static_cast<const T*>(chunk_aux),
-      mask, static_cast<const int*>(blkcnt), n, M, span_rows);
+      mask, static_cast<const int*>(blkcnt), n, M, span_rows, bnd, mt);
   return static_cast<int>(cudaGetLastError());
 }

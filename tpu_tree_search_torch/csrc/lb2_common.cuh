@@ -1,7 +1,8 @@
 // Shared device code of the lb2 kernels (lb2_bounds.cu, lb2_self_bounds.cu,
-// cycle_lb2.cu, tiled_lb2.cu): the shared-memory tables, the per-parent
-// state and the two-machine Johnson bound lb2 (`c_bound_johnson.c:190-254`,
-// forward branching, so the tails are the constant `min_tails` table).
+// and through cycle_lb2.cuh cycle_lb2.cu and tiled_lb2.cu): the
+// shared-memory tables, the per-parent state and the two-machine Johnson
+// bound lb2 (`c_bound_johnson.c:190-254`, forward branching, so the tails
+// are the constant `min_tails` table).
 //
 // For machine pair q = (ma0, ma1) and a schedule front f, lb2 runs the
 // Johnson recurrence of `c_bound_johnson.c:190-209` over the free jobs in
@@ -15,10 +16,9 @@
 // Two ways to evaluate it live here:
 //   - `lb2_johnson` runs the recurrence for one front over all P*n ordered
 //     slots. Kernel 7 (one bound a row, no children to share a pass with)
-//     and the streamed cycle's sweep (tiled_lb2.cu) run it, through
-//     `lb2_row` and `lb2_child`.
+//     runs it, through `lb2_row`.
 //   - `lb2p_bounds` evaluates every open child of a parent at once
-//     (kernels 6 and 8). The children of one parent share the pair pass
+//     (kernels 6, 8 and 9c). The children of one parent share the pair pass
 //     but for one job. With w[t] = cum0[t] + lag[t] + suf1[t] over the
 //     parent's free jobs in pair q's Johnson order, S0, S1 their total
 //     times on ma0, ma1, f the child's front and an empty max -2^30
@@ -41,17 +41,13 @@
 // one-hot (P, n, n) matrix product and picked the pair's machines with
 // one-hot selectors; here the ordered table holds the job id of each slot,
 // and "job j is free" is a shared-memory lookup of j's position in the row
-// (pos[j] > limit1, and j is not the job the child appends). All values are
+// (pos[j] > limit1). All values are
 // int32; the ordered table is packed as int16 (p0, p1, lag, job) — exact for
 // every Taillard instance (times <= 99, lags <= 18 * 99), checked by the
 // wrapper — so one 8-byte shared-memory load feeds each step.
 #pragma once
 
 #include "lb1_common.cuh"
-
-// Most threads of an lb2 child-bound block: each keeps an m-long child front
-// in shared memory, so the cap bounds that buffer at large n.
-#define TTS_LB2_THREADS 256
 
 // Rows of a self-bound block (one thread a row).
 #define TTS_LB2_SELF_THREADS 128
@@ -62,31 +58,28 @@ struct Lb2Smem {
   int* ptm;             // n*m job-major processing times
   int* heads;           // m: min_heads
   int* front;           // `fronts` fronts of m ints
-  int* cf;              // child fronts, machine j of thread t at j*T + t
   unsigned char* pos;   // `rows` arrays of n job positions
 };
 
-// Bytes of an Lb2Smem holding `fronts` fronts, `cfs` child fronts and `rows`
-// position arrays.
+// Bytes of an Lb2Smem holding `fronts` fronts and `rows` position arrays.
 static inline size_t tts_lb2_smem_bytes(int n, int m, int P, int fronts,
-                                        int cfs, int rows) {
+                                        int rows) {
   return 16 * static_cast<size_t>(P) + 8 * static_cast<size_t>(P) * n +
          4 * (static_cast<size_t>(n) * m + m +
-              static_cast<size_t>(fronts + cfs) * m) +
+              static_cast<size_t>(fronts) * m) +
          static_cast<size_t>(rows) * n;
 }
 
 __device__ __forceinline__ Lb2Smem lb2_smem_layout(unsigned char* smem,
                                                    int n, int m, int P,
-                                                   int fronts, int cfs) {
+                                                   int fronts) {
   Lb2Smem s;
   s.pair = reinterpret_cast<int4*>(smem);
   s.tab = reinterpret_cast<short4*>(s.pair + P);
   s.ptm = reinterpret_cast<int*>(s.tab + P * n);
   s.heads = s.ptm + n * m;
   s.front = s.heads + m;
-  s.cf = s.front + fronts * m;
-  s.pos = reinterpret_cast<unsigned char*>(s.cf + cfs * m);
+  s.pos = reinterpret_cast<unsigned char*>(s.front + fronts * m);
   return s;
 }
 
@@ -126,38 +119,6 @@ __device__ __forceinline__ int lb2_johnson(const Lb2Smem& s, const int* f,
   return lb;
 }
 
-// Per parent: its front (`pfsp_front`) and the position of each job.
-template <typename T>
-__device__ __forceinline__ void lb2_parent_state(const T* row, int l1, int n,
-                                                 int m, const Lb2Smem& s,
-                                                 int* front,
-                                                 unsigned char* pos) {
-  pfsp_front(row, l1, n, m, s.ptm, s.heads, front, 1);
-  for (int i = 0; i < n; ++i)
-    pos[static_cast<int>(row[i])] = static_cast<unsigned char>(i);
-}
-
-// lb2 of child slot k: append the job at position k (one add_forward step
-// from the parent front, into this thread's column of s.cf), then the
-// Johnson bound over the parent's free jobs but that one.
-template <typename T>
-__device__ __forceinline__ int lb2_child(const T* row, int k, int l1, int n,
-                                         int m, int P, const Lb2Smem& s,
-                                         const int* front,
-                                         const unsigned char* pos) {
-  const int job = static_cast<int>(row[k]);
-  const int* p = s.ptm + job * m;
-  const int stride = blockDim.x;
-  int* cf = s.cf + threadIdx.x;
-  int c = front[0] + p[0];
-  cf[0] = c;
-  for (int j = 1; j < m; ++j) {
-    c = max(c, front[j]) + p[j];
-    cf[j * stride] = c;
-  }
-  return lb2_johnson(s, cf, stride, pos, 1, l1, job, n, P);
-}
-
 // lb2 of the row itself (the staged self bound): its own front and job
 // positions in this thread's columns of s.front and s.pos.
 template <typename T>
@@ -172,7 +133,7 @@ __device__ __forceinline__ int lb2_row(const T* row, int l1, int n, int m,
   return lb2_johnson(s, f, stride, pos, stride, l1, -1, n, P);
 }
 
-// -- The per-parent pair pass of kernels 6 and 8 ------------------------------
+// -- The per-parent pair pass of kernels 6, 8 and 9c --------------------------
 
 // The empty max of the pair pass.
 #define TTS_LB2_NEG (-(1 << 30))
@@ -188,7 +149,7 @@ __device__ __forceinline__ int lb2_row(const T* row, int l1, int n, int m,
 // Most free-mask words a (parent, pair) task holds: n <= 128 jobs.
 #define TTS_LB2_MASK_WORDS 4
 
-// Shared memory of a block of kernels 6 and 8. Per parent, machine j at
+// Shared memory of a block of kernels 6, 8 and 9c. Per parent, machine j at
 // stride ms = m | 1 (odd: parents, and the jobs of one parent, fall on
 // different banks); the ordered table of pair q at stride ns = n | 1
 // entries and its inverse at 4 * nw bytes, nw = ((n + 3) / 4) | 1 words

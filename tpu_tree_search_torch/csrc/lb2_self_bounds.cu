@@ -36,7 +36,7 @@ __global__ void lb2_self_bounds_kernel(const T* __restrict__ rows,
   const int r0 = blockIdx.x * blockDim.x;
   if (r0 >= nact) return;
   extern __shared__ __align__(16) unsigned char lb2_smem[];
-  const Lb2Smem s = lb2_smem_layout(lb2_smem, n, m, P, blockDim.x, 0);
+  const Lb2Smem s = lb2_smem_layout(lb2_smem, n, m, P, blockDim.x);
   lb2_load_tables(s, ptm_t, heads, pairinfo, tab, n, m, P);
   __syncthreads();
   const int r = r0 + threadIdx.x;
@@ -47,7 +47,7 @@ __global__ void lb2_self_bounds_kernel(const T* __restrict__ rows,
 
 extern "C" long long lb2_self_bounds_smem(int n, int m, int P) {
   const int T = TTS_LB2_SELF_THREADS;
-  return static_cast<long long>(tts_lb2_smem_bytes(n, m, P, T, 0, T));
+  return static_cast<long long>(tts_lb2_smem_bytes(n, m, P, T, T));
 }
 
 template <typename T>

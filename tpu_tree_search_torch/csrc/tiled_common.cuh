@@ -1,7 +1,10 @@
-// Shared code of the streamed (tiled) cycles (tiled_lb1.cu, tiled_lb2.cu,
-// tiled_nqueens.cu): the pop of a sweep launch, and the cross-tile carry of
-// the emit launch, which is the Hopper form of the TPU kernels' SMEM
-// `carry_ref` (tpu_tree_search/ops/megakernel.py, `_mega_*_tiled_kernel`).
+// Code of the streamed (tiled) lb1 cycle, kernel 9b (tiled_lb1.cu, through
+// tiled_pfsp.cuh): the pop of its sweep launch, and the cross-tile carry of
+// its emit launch, which is the Hopper form of the TPU kernel's SMEM
+// `carry_ref` (tpu_tree_search/ops/megakernel.py, `_mega_lb1_tiled_kernel`).
+// Kernels 9a and 9c run the single-tile cycles' launches and need no carry
+// across blocks (cycle_common.cuh `emit_tile_bounds`); once 9b does the
+// same, this file goes.
 //
 // On the TPU the G pool tiles of Mt parents ran as a sequential grid, and a
 // scalar carry in SMEM handed each tile the survivor offset and the

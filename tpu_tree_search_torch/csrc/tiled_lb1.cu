@@ -1,5 +1,5 @@
-// Kernel 9: one streamed (tiled) device-resident PFSP lb1 search cycle on
-// the pool.
+// Kernel 9b (`chip_smoke.py` phase `kernel9`): one streamed (tiled)
+// device-resident PFSP lb1 search cycle on the pool.
 //
 // Replaces the TPU kernel `_mega_lb1_tiled_kernel`
 // (tpu_tree_search/ops/megakernel.py, built by `_lb1_tiled_call`, grid

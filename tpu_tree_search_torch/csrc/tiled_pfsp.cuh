@@ -1,6 +1,6 @@
-// Shared code of the streamed PFSP cycles (tiled_lb1.cu, tiled_lb2.cu),
-// which differ only in the bound their sweep launch writes into the (M*n)
-// stash: the emit launch, launch 2 of both.
+// The emit launch (launch 2) of kernel 9b, the streamed lb1 cycle
+// (tiled_lb1.cu). Kernel 9c, the streamed lb2 cycle, runs kernel 8's
+// launches instead (cycle_lb2.cuh).
 #pragma once
 
 #include "cycle_pfsp.cuh"

@@ -75,6 +75,7 @@ from ..ops.tiled import (
     check_tile,
     tiled_lb1,
     tiled_lb2,
+    tiled_lb2_scratch,
     tiled_nqueens,
     tiled_nqueens_scratch,
     tiled_scratch,
@@ -353,8 +354,10 @@ class PFSPResident(_ResidentProgram):
 
     def _make_scratch(self):
         if self.tiled:
-            return tiled_scratch(self.M, self.problem.jobs, self.mt,
-                                 self.vals_dtype, self.device)
+            make = (tiled_lb2_scratch if self.problem.lb == "lb2"
+                    else tiled_scratch)
+            return make(self.M, self.problem.jobs, self.mt, self.vals_dtype,
+                        self.device)
         return cycle_scratch(self.M, self.problem.jobs, self.vals_dtype,
                              self.device)
 

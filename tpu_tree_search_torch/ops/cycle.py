@@ -173,13 +173,14 @@ def stash_block_bytes(nbytes: int) -> int:
 
 
 def scratch_sizes(M: int, n: int, itemsize: int, parents_per_block: int,
-                  plane_words: int) -> dict:
+                  plane_words: int, counts: int = 1) -> dict:
     """Element counts of a ``CycleScratch`` for chunks of M parents of n
-    elements of ``itemsize`` bytes, in blocks of ``parents_per_block``."""
+    elements of ``itemsize`` bytes, in blocks of ``parents_per_block``, with
+    ``counts`` ints a block in ``blkcnt``."""
     nblk = -(-M // parents_per_block)
     return dict(
         chunk_vals=nblk * stash_block_bytes(parents_per_block * n * itemsize),
-        chunk_aux=M, plane=plane_words, blkcnt=nblk)
+        chunk_aux=M, plane=plane_words, blkcnt=counts * nblk)
 
 
 def pfsp_plane_words(M: int, n: int) -> int:
@@ -194,7 +195,9 @@ class CycleScratch:
     uint8 region of ``stash_block_bytes`` a block, the rows at the phase
     mod 16 of their pool address), the popped aux, the int32 plane (PFSP:
     the bounds and the keep masks, ``pfsp_plane_words``; N-Queens: one
-    keep-mask word a parent) and the per-block survivor counts."""
+    keep-mask word a parent) and the per-block survivor counts (the
+    streamed cycles of `ops/tiled.py`: a (survivors, solutions) pair a
+    block, ``counts`` = 2)."""
 
     chunk_vals: torch.Tensor
     chunk_aux: torch.Tensor
@@ -205,9 +208,10 @@ class CycleScratch:
 
     @classmethod
     def make(cls, M: int, n: int, itemsize: int, aux_dtype: torch.dtype,
-             plane_words: int, parents_per_block: int,
-             device) -> "CycleScratch":
-        sz = scratch_sizes(M, n, itemsize, parents_per_block, plane_words)
+             plane_words: int, parents_per_block: int, device,
+             counts: int = 1) -> "CycleScratch":
+        sz = scratch_sizes(M, n, itemsize, parents_per_block, plane_words,
+                           counts)
         return cls(
             chunk_vals=torch.empty(sz["chunk_vals"], dtype=torch.uint8,
                                    device=device),
@@ -217,13 +221,16 @@ class CycleScratch:
         )
 
     def fits(self, M: int, n: int, itemsize: int, aux_dtype: torch.dtype,
-             plane_words: int, parents_per_block: int) -> bool:
+             plane_words: int, parents_per_block: int,
+             counts: int = 1) -> bool:
         """Whether these buffers are ``make``'s for those arguments, with
         a 16-aligned stash."""
-        key = (M, n, itemsize, aux_dtype, plane_words, parents_per_block)
+        key = (M, n, itemsize, aux_dtype, plane_words, parents_per_block,
+               counts)
         if self._fits == key:
             return True
-        want = scratch_sizes(M, n, itemsize, parents_per_block, plane_words)
+        want = scratch_sizes(M, n, itemsize, parents_per_block, plane_words,
+                             counts)
         ok = (all(getattr(self, k).numel() == v for k, v in want.items())
               and self.chunk_aux.dtype == aux_dtype
               and self.chunk_vals.data_ptr() % 16 == 0)

@@ -53,7 +53,8 @@ def block_smem(source: str, tables: PFSPDeviceTables) -> int:
 
 def last_shape(source: str) -> dict:
     """The block shape of the last launch of kernel 6 (``lb2_bounds``) or of
-    kernel 8's bounds launch (``cycle_lb2``) in this process: parents and
+    kernel 8's or 9c's bounds launch (``cycle_lb2``, ``tiled_lb2``) in this
+    process: parents and
     threads a block, its dynamic shared memory, and whether the whole grid
     was on the card at once (``fits``)."""
     _, fn = _build.entry(source, f"{source}_last_shape",

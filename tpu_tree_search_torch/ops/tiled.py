@@ -1,13 +1,17 @@
-"""Kernels 9, 10 and 11: the streamed (tiled) resident cycle, as CUDA for
+"""Kernels 9a, 9b and 9c: the streamed (tiled) resident cycle, as CUDA for
 Hopper, and the streamed eval-only bound pass.
 
-Kernel 9 replaces the TPU kernel `_mega_lb1_tiled_kernel`, kernel 10
-`_mega_nqueens_tiled_kernel`, kernel 11 `_mega_lb2_tiled_kernel`
+Kernel 9a replaces the TPU kernel `_mega_nqueens_tiled_kernel`, kernel 9b
+`_mega_lb1_tiled_kernel`, kernel 9c `_mega_lb2_tiled_kernel`
 (`tpu_tree_search/ops/megakernel.py`, with the tiled branch of `make_cycle`
-and the stitch of `engine/resident.py`); sources `csrc/tiled_lb1.cu`,
-`csrc/tiled_nqueens.cu` and `csrc/tiled_lb2.cu`, which share the cross-tile
-carry of `csrc/tiled_common.cuh`. `tiled_lb1.cu`'s header note gives the two
-launches a cycle and what bounds them on the card.
+and the stitch of `engine/resident.py`); sources `csrc/tiled_nqueens.cu`,
+`csrc/tiled_lb1.cu` and `csrc/tiled_lb2.cu`, whose header notes give the
+launches of a cycle and what bounds them on the card. Kernels 9a and 9c run
+the single-tile cycles' launches (kernels 4 and 8: `csrc/cycle_nqueens.cuh`,
+`csrc/cycle_lb2.cuh`) and write beside them a boundary row, from which
+``scal_from_bounds`` derives the per-tile scalars; kernel 9b runs a sweep
+and an emit of its own, one block a tile, carried across tiles by the
+look-back of `csrc/tiled_common.cuh`.
 
 The streamed cycle computes what the single-tile cycle of `ops/cycle.py` and
 `ops/cycle_nqueens.py` computes, with the popped chunk of M parents cut into
@@ -21,10 +25,10 @@ JAX rule (a multiple of 8 that divides M) and raises where the JAX resolver
 records a refusal.
 
 One call of ``tiled_lb1_cuda``, ``tiled_lb2_cuda`` or ``tiled_nqueens_cuda``
-enqueues one cycle (two launches) on the loop state of `ops/cycle.py`; when
-the loop condition is false it is an exact no-op, so the engine enqueues K
-of them with no host synchronisation. Each wrapper's ``launches`` counts its
-calls.
+enqueues one cycle (two launches; three for lb2) on the loop state of
+`ops/cycle.py`; when the loop condition is false it is an exact no-op, so
+the engine enqueues K of them with no host synchronisation. Each wrapper's
+``launches`` counts its calls.
 
 The eval-only pass (``streamed_eval_bounds``, ``megakernel_lb2_bounds``;
 the TPU kernels `_eval_lb1_kernel`, `_eval_nqueens_kernel` and
@@ -49,7 +53,14 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from .cycle import ST_LEN, cycle_chunk_plain, plain_pool_cycle
+from .cycle import (
+    ST_LEN,
+    CycleScratch,
+    cycle_chunk_plain,
+    parents_per_block,
+    pfsp_plane_words,
+    plain_pool_cycle,
+)
 from .cycle_nqueens import cycle_nqueens_chunk_plain
 from .lb1_kernel import lb1_bounds_cuda
 from .lb2_kernel import johnson_operands, lb2_bounds_cuda
@@ -70,10 +81,10 @@ def check_tile(M: int, mt: int) -> int:
 
 @dataclass
 class TiledScratch:
-    """Device buffers of one streamed cycle: the popped chunk's stash, the
-    (M*n) plane (the PFSP bound stash, or the N-Queens keep plane), the
-    (G, 4) per-tile scalars (offs, cnt, sol_cum, best), the per-tile
-    look-back status words and the tile ticket."""
+    """Device buffers of kernel 9b's streamed cycle: the popped chunk's
+    stash, the (M*n) int32 bound stash, the (G, 4) per-tile scalars (offs,
+    cnt, sol_cum, best), the per-tile look-back status words and the tile
+    ticket."""
 
     chunk_vals: torch.Tensor
     chunk_aux: torch.Tensor
@@ -82,22 +93,8 @@ class TiledScratch:
     status: torch.Tensor
     ticket: torch.Tensor
 
-    @classmethod
-    def make(cls, M: int, n: int, mt: int, vals_dtype: torch.dtype,
-             aux_dtype: torch.dtype, plane_dtype: torch.dtype,
-             device) -> "TiledScratch":
-        G = check_tile(M, mt)
-        return cls(
-            chunk_vals=torch.empty((M, n), dtype=vals_dtype, device=device),
-            chunk_aux=torch.empty(M, dtype=aux_dtype, device=device),
-            plane=torch.empty(M * n, dtype=plane_dtype, device=device),
-            scal=torch.zeros((G, 4), dtype=torch.int32, device=device),
-            status=torch.zeros(G, dtype=torch.int64, device=device),
-            ticket=torch.zeros(1, dtype=torch.int32, device=device),
-        )
-
     def pointers(self) -> tuple[int, ...]:
-        """The scratch operands in the C entries' order."""
+        """The scratch operands in the C entry's order."""
         return (self.chunk_vals.data_ptr(), self.chunk_aux.data_ptr(),
                 self.plane.data_ptr(), self.status.data_ptr(),
                 self.ticket.data_ptr(), self.scal.data_ptr())
@@ -105,16 +102,82 @@ class TiledScratch:
 
 def tiled_scratch(M: int, n: int, mt: int, dtype: torch.dtype,
                   device) -> TiledScratch:
-    """The streamed PFSP cycles' scratch: pool-dtype stash, int32 bound
-    stash."""
-    return TiledScratch.make(M, n, mt, dtype, dtype, torch.int32, device)
+    """Kernel 9b's (the streamed lb1 cycle's) scratch: pool-dtype stash,
+    int32 bound stash."""
+    G = check_tile(M, mt)
+    return TiledScratch(
+        chunk_vals=torch.empty((M, n), dtype=dtype, device=device),
+        chunk_aux=torch.empty(M, dtype=dtype, device=device),
+        plane=torch.empty(M * n, dtype=torch.int32, device=device),
+        scal=torch.zeros((G, 4), dtype=torch.int32, device=device),
+        status=torch.zeros(G, dtype=torch.int64, device=device),
+        ticket=torch.zeros(1, dtype=torch.int32, device=device),
+    )
 
 
-def tiled_nqueens_scratch(M: int, N: int, mt: int, device) -> TiledScratch:
-    """The streamed N-Queens cycle's scratch: uint8 board and int8 depth
-    stash, uint8 keep plane."""
-    return TiledScratch.make(M, N, mt, torch.uint8, torch.int8, torch.uint8,
-                             device)
+def scal_from_bounds(bounds: torch.Tensor) -> torch.Tensor:
+    """The (G, 4) per-tile scalars (offs, cnt, sol_cum, best) of the TPU
+    kernels (`_tile_scalar_lanes`) from a (G + 1, 3) boundary row: row b
+    holds, at the chunk's parent b*mt, the survivors and the solutions (or
+    leaves) of the parents before it, and the incumbent; row G the cycle's
+    tree_inc and sol_inc."""
+    S, sol, best = bounds[:, 0], bounds[:, 1], bounds[:, 2]
+    return torch.stack([S[:-1], S[1:] - S[:-1], sol[1:], best[1:]], 1)
+
+
+@dataclass
+class TileBoundsScratch:
+    """Device buffers of kernels 9a and 9c: the single-tile cycle's scratch
+    (``CycleScratch`` of `ops/cycle.py`, with a (survivors, solutions) pair
+    a block in ``blkcnt``) and the boundary row ``bounds`` (G + 1, 3) int32
+    that their emit writes (``scal_from_bounds``).
+
+    ``scal`` derives the (G, 4) per-tile scalars from the boundary row when
+    it is read. A tile's count needs the rows of both its boundaries, which
+    two blocks may write; derived on read it needs no atomics and no second
+    pass on the card, and no search reads the scalars (the single-tile
+    cycle's offsets place the survivors)."""
+
+    cycle: CycleScratch
+    bounds: torch.Tensor
+
+    @property
+    def scal(self) -> torch.Tensor:
+        return scal_from_bounds(self.bounds)
+
+    @classmethod
+    def make(cls, M: int, n: int, mt: int, itemsize: int,
+             aux_dtype: torch.dtype, plane_words: int, parents_per_block: int,
+             device) -> "TileBoundsScratch":
+        G = check_tile(M, mt)
+        return cls(
+            cycle=CycleScratch.make(M, n, itemsize, aux_dtype, plane_words,
+                                    parents_per_block, device, counts=2),
+            bounds=torch.zeros((G + 1, 3), dtype=torch.int32, device=device))
+
+    def pointers(self) -> tuple[int, ...]:
+        """The scratch operands in the C entries' order."""
+        c = self.cycle
+        return (c.chunk_vals.data_ptr(), c.chunk_aux.data_ptr(),
+                c.plane.data_ptr(), c.blkcnt.data_ptr(),
+                self.bounds.data_ptr())
+
+
+def tiled_lb2_scratch(M: int, n: int, mt: int, dtype: torch.dtype,
+                      device) -> TileBoundsScratch:
+    """Kernel 9c's (the streamed lb2 cycle's) scratch: kernel 8's
+    (``cycle_scratch``) and the boundary row."""
+    return TileBoundsScratch.make(M, n, mt, dtype.itemsize, dtype,
+                                  pfsp_plane_words(M, n),
+                                  parents_per_block("tiled_lb2"), device)
+
+
+def tiled_nqueens_scratch(M: int, N: int, mt: int,
+                          device) -> TileBoundsScratch:
+    """Kernel 9a's (the streamed N-Queens cycle's) scratch: kernel 4's
+    (``nqueens_scratch``) and the boundary row."""
+    return TileBoundsScratch.make(M, N, mt, 1, torch.int8, M,
+                                  parents_per_block("tiled_nqueens"), device)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -190,7 +253,7 @@ def tiled_cycle_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
 
 def tiled_lb1_plain(pool_vals, pool_aux, st, tables: PFSPDeviceTables,
                     M: int, mt: int, m: int, K: int):
-    """What one ``tiled_lb1_cuda`` call computes (kernel 9's plain
+    """What one ``tiled_lb1_cuda`` call computes (kernel 9b's plain
     version); returns the (G, 4) per-tile scalars or None."""
     return tiled_cycle_plain(pool_vals, pool_aux, st, tables, M, mt, m, K,
                              lb1_chunk)
@@ -198,7 +261,7 @@ def tiled_lb1_plain(pool_vals, pool_aux, st, tables: PFSPDeviceTables,
 
 def tiled_lb2_plain(pool_vals, pool_aux, st, tables: PFSPDeviceTables,
                     M: int, mt: int, m: int, K: int):
-    """What one ``tiled_lb2_cuda`` call computes (kernel 11's plain
+    """What one ``tiled_lb2_cuda`` call computes (kernel 9c's plain
     version)."""
     return tiled_cycle_plain(pool_vals, pool_aux, st, tables, M, mt, m, K,
                              lb2_chunk)
@@ -206,7 +269,7 @@ def tiled_lb2_plain(pool_vals, pool_aux, st, tables: PFSPDeviceTables,
 
 def tiled_nqueens_plain(pool_vals, pool_aux, st, problem, M: int, mt: int,
                         m: int, K: int):
-    """What one ``tiled_nqueens_cuda`` call computes (kernel 10's plain
+    """What one ``tiled_nqueens_cuda`` call computes (kernel 9a's plain
     version); ``problem`` is the ``NQueensProblem`` (N and g)."""
     return tiled_cycle_plain(pool_vals, pool_aux, st, problem, M, mt, m, K)
 
@@ -221,27 +284,30 @@ _ENTRIES = {
 _ARGTYPES = {
     "tiled_lb1": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
     + (ctypes.c_void_p,),
-    "tiled_lb2": (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 8
+    "tiled_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
     + (ctypes.c_void_p,),
-    "tiled_nqueens": (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
+    "tiled_nqueens": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
     + (ctypes.c_void_p,),
 }
 
 
 def _launch_tiled(source: str, pool_vals: torch.Tensor,
-                  pool_aux: torch.Tensor, st: torch.Tensor,
-                  scratch: TiledScratch, n: int, M: int, mt: int, m: int,
-                  K: int, operands) -> None:
+                  pool_aux: torch.Tensor, st: torch.Tensor, scratch, n: int,
+                  M: int, mt: int, m: int, K: int, operands,
+                  scratch_fits) -> None:
     """Check the operands of a streamed cycle and enqueue the entry of
     ``csrc/<source>.cu``: the pool, state and scratch pointers, then the
     table tensors and the sizes (ints: the width and the tables' sizes) that
-    ``operands()`` returns once the pool is checked, then M, mt, C, m, K."""
+    ``operands()`` returns once the pool is checked, then M, mt, C, m, K.
+    ``scratch_fits()``, called once the library is loaded, says whether
+    ``scratch`` is the one the entry takes."""
     if not pool_vals.is_cuda:
         raise ValueError(f"{source} takes CUDA tensors")
-    G = check_tile(M, mt)
+    check_tile(M, mt)
     entries = _ENTRIES[source]
     C = pool_vals.shape[0]
-    if pool_vals.dtype not in entries or pool_aux.dtype != scratch.chunk_aux.dtype:
+    aux_dtype = torch.int8 if source == "tiled_nqueens" else pool_vals.dtype
+    if pool_vals.dtype not in entries or pool_aux.dtype != aux_dtype:
         raise TypeError(f"{source}: the pool's types are not the kernel's")
     if pool_vals.shape != (C, n) or pool_aux.shape != (C,) \
             or st.dtype != torch.int32 or st.numel() < ST_LEN:
@@ -250,21 +316,27 @@ def _launch_tiled(source: str, pool_vals: torch.Tensor,
     if not (pool_vals.is_contiguous() and pool_aux.is_contiguous()
             and st.is_contiguous()):
         raise ValueError("pool and state tensors must be contiguous")
-    if C < M or scratch.chunk_vals.shape != (M, n) \
-            or scratch.chunk_vals.dtype != pool_vals.dtype \
-            or scratch.scal.shape != (G, 4):
-        raise ValueError(f"scratch must be the {source} scratch of (M, mt), "
-                         "and the pool hold at least M rows")
-    if M * n >= 2**31:
-        raise ValueError("M * width must stay below 2**31 (the look-back "
-                         "status words hold 31-bit counts)")
     table_args, sizes = operands()
     lib, fn = _build.entry(source, entries[pool_vals.dtype], _ARGTYPES[source])
+    if C < M or not scratch_fits():
+        raise ValueError(f"scratch must be the {source} scratch of (M, mt), "
+                         "and the pool hold at least M rows")
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              *scratch.pointers(), *(t.data_ptr() for t in table_args),
              *sizes, M, mt, C, m, K, stream)
     _build.check(lib, err, source)
+
+
+def _bounds_fits(source: str, scratch, M: int, n: int, mt: int,
+                 itemsize: int, aux_dtype: torch.dtype,
+                 plane_words: int) -> bool:
+    """Whether ``scratch`` is kernel 9a's or 9c's for these sizes."""
+    return (isinstance(scratch, TileBoundsScratch)
+            and scratch.bounds.shape == (M // mt + 1, 3)
+            and scratch.bounds.dtype == torch.int32
+            and scratch.cycle.fits(M, n, itemsize, aux_dtype, plane_words,
+                                   parents_per_block(source), counts=2))
 
 
 def tiled_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
@@ -274,10 +346,18 @@ def tiled_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     """Enqueue one streamed lb1 cycle (two launches) on the current stream;
     updates the pool, ``st`` and ``scratch.scal`` in place on the device,
     never synchronises."""
-    _launch_tiled("tiled_lb1", pool_vals, pool_aux, st, scratch, tables.jobs,
-                  M, mt, m, K,
-                  lambda: ((tables.ptm_t, tables.min_heads, tables.min_tails),
-                           (tables.jobs, tables.machines)))
+    n = tables.jobs
+    if M * n >= 2**31:
+        raise ValueError("M * width must stay below 2**31 (the look-back "
+                         "status words hold 31-bit counts)")
+    _launch_tiled(
+        "tiled_lb1", pool_vals, pool_aux, st, scratch, n, M, mt, m, K,
+        lambda: ((tables.ptm_t, tables.min_heads, tables.min_tails),
+                 (tables.jobs, tables.machines)),
+        lambda: (isinstance(scratch, TiledScratch)
+                 and scratch.chunk_vals.shape == (M, n)
+                 and scratch.chunk_vals.dtype == pool_vals.dtype
+                 and scratch.scal.shape == (M // mt, 4)))
     tiled_lb1_cuda.launches += 1  # type: ignore[attr-defined]
 
 
@@ -285,18 +365,26 @@ tiled_lb1_cuda.launches = 0  # type: ignore[attr-defined]
 
 
 def tiled_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
-                   st: torch.Tensor, scratch: TiledScratch,
+                   st: torch.Tensor, scratch: TileBoundsScratch,
                    tables: PFSPDeviceTables, M: int, mt: int, m: int,
                    K: int) -> None:
-    """Enqueue one streamed lb2 cycle (two launches) on the current stream;
-    as ``tiled_lb1_cuda``."""
+    """Enqueue one streamed lb2 cycle (kernel 8's three launches, with the
+    boundary row) on the current stream; updates the pool, ``st`` and
+    ``scratch.bounds`` in place on the device, never synchronises. Raises
+    ``NotImplementedError`` on an instance kernel 8 does not take."""
+    n = tables.jobs
+
     def operands():
         J = johnson_operands("tiled_lb2", tables)
         return ((tables.ptm_t, tables.min_heads, J.pairinfo, J.packed),
                 (tables.jobs, tables.machines, J.pair_count))
 
-    _launch_tiled("tiled_lb2", pool_vals, pool_aux, st, scratch, tables.jobs,
-                  M, mt, m, K, operands)
+    _launch_tiled(
+        "tiled_lb2", pool_vals, pool_aux, st, scratch, n, M, mt, m, K,
+        operands,
+        lambda: _bounds_fits("tiled_lb2", scratch, M, n, mt,
+                             pool_vals.element_size(), pool_vals.dtype,
+                             pfsp_plane_words(M, n)))
     tiled_lb2_cuda.launches += 1  # type: ignore[attr-defined]
 
 
@@ -304,16 +392,20 @@ tiled_lb2_cuda.launches = 0  # type: ignore[attr-defined]
 
 
 def tiled_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
-                       st: torch.Tensor, scratch: TiledScratch, problem,
+                       st: torch.Tensor, scratch: TileBoundsScratch, problem,
                        M: int, mt: int, m: int, K: int) -> None:
-    """Enqueue one streamed N-Queens cycle (two launches) on the current
-    stream; ``problem`` gives N (<= 32) and g."""
+    """Enqueue one streamed N-Queens cycle (kernel 4's two launches, with
+    the boundary row) on the current stream; ``problem`` gives N (<= 32)
+    and g."""
     N, g = problem.N, problem.g
     if not 1 <= N <= MAX_N or g < 1:
         raise ValueError(f"the kernel takes 1 <= N <= {MAX_N} and g >= 1 "
                          f"(got N={N}, g={g})")
-    _launch_tiled("tiled_nqueens", pool_vals, pool_aux, st, scratch, N, M, mt,
-                  m, K, lambda: ((), (N, g)))
+    _launch_tiled(
+        "tiled_nqueens", pool_vals, pool_aux, st, scratch, N, M, mt, m, K,
+        lambda: ((), (N, g)),
+        lambda: _bounds_fits("tiled_nqueens", scratch, M, N, mt, 1,
+                             torch.int8, M))
     tiled_nqueens_cuda.launches += 1  # type: ignore[attr-defined]
 
 
@@ -338,14 +430,14 @@ def tiled_lb1(pool_vals, pool_aux, st, scratch: TiledScratch | None,
            tables, M, mt, m, K)
 
 
-def tiled_lb2(pool_vals, pool_aux, st, scratch: TiledScratch | None,
+def tiled_lb2(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,
               tables: PFSPDeviceTables, M: int, mt: int, m: int, K: int):
     """One streamed lb2 cycle routed like ``tiled_lb1``."""
     _route(tiled_lb2_cuda, tiled_lb2_plain, pool_vals, pool_aux, st, scratch,
            tables, M, mt, m, K)
 
 
-def tiled_nqueens(pool_vals, pool_aux, st, scratch: TiledScratch | None,
+def tiled_nqueens(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,
                   problem, M: int, mt: int, m: int, K: int):
     """One streamed N-Queens cycle routed like ``tiled_lb1``."""
     _route(tiled_nqueens_cuda, tiled_nqueens_plain, pool_vals, pool_aux, st,
