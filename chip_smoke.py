@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``tpu_tree_search_torch``) on one GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and five profiles
+    python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and six profiles
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -31,10 +31,13 @@ ends the script with a non-zero exit before the final line:
      makespan 1377; kernel 2's launches counted from 0 around each run;
   6. the same search on the unfused path at M = 1024, counting kernel 1;
   7. ``kernel3`` (N-Queens safety labels) against its plain version:
-     N = 15 and 20, B = 1024 and 50000, g = 1 and 4, seeded random boards
-     with depth uniform in 0..N and a share at N; bit-equal on the whole
-     (B, N) plane; and the g = 256 time at least 4x the g = 1 time at
-     B = 50000, N = 15 (a smaller ratio means nvcc folded the rounds);
+     N = 15 and 20, B = 1024 and 50000, g = 1 and 4, and B = 50000 at
+     N = 14 and 32, g = 1, seeded random boards with depth uniform in 0..N
+     and a share at N; bit-equal on the whole (B, N) plane; each row with
+     the block shape of the launch (``block``: parents a tile, blocks,
+     tiles, packed words a parent, blocks an SM); and the g = 256 time at
+     least 4x the g = 1 time at B = 50000, N = 15 (a smaller ratio means
+     nvcc folded the rounds);
   8. ``kernel4`` (the fused N-Queens cycle) against its plain version at
      N = 15: M = 1024 and 50000, a partial and a full chunk, g = 1 and (at
      M = 50000) g = 4; equal state and live pool rows;
@@ -67,7 +70,8 @@ ends the script with a non-zero exit before the final line:
      (M = 1024) and 64 (M = 49152; N-Queens 80 at M = 50000), 9a and 9c
      also at mt = 8 (the most tiles, four a block of 32 parents), 9c also
      on ta021; equal state, live pool rows and (G, 4) per-tile scalars;
-     each row with its device time by launch and its launches a cycle;
+     each row with its device time by launch (``launch_ms``) and its
+     launches a cycle (``launches_per_cycle``);
  17. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
      the fused path at M = 49152 and M = 1024 (counting kernel 8), with
      ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
@@ -80,19 +84,19 @@ ends the script with a non-zero exit before the final line:
      at full width) and ``megakernel_lb2_bounds``, which launch kernels 1,
      6 and 3 (counted), checked against the plain planes;
  20. the lb2 searches (and the streamed one) again under ``torch.profiler``,
-     the unfused ta014 lb1 search at M = 1024 and the ta014 lb1_d search
-     (with kernel 1's, resp. kernel 5's, device time a search; the staged
-     lb2 search with kernel 1's), then ta014 lb1 and N-Queens N = 15,
-     single-tile and streamed: device
-     time by kernel against the device phase's wall time (the busy share),
+     the unfused ta014 lb1 search at M = 1024, the ta014 lb1_d search and
+     the unfused N-Queens N = 14 search (with kernel 1's, 5's, resp. 3's,
+     device time a search; the staged lb2 search with kernel 1's), then
+     ta014 lb1 and N-Queens N = 15, single-tile and streamed: device time
+     by kernel against the device phase's wall time (the busy share),
      and for the single-tile ta014 lb1 (kernel 2) and N-Queens (kernel 4)
-     searches and the streamed N-Queens (9a) and lb2 (9c) searches the
-     launches a cycle from the profiler's kernel counts (3, 2, 2 and 3, and
-     no ``cycle_scan`` launch);
+     searches and the streamed lb1 (9b), N-Queens (9a) and lb2 (9c)
+     searches the launches a cycle from the profiler's kernel counts (3, 2,
+     3, 2 and 3, and no ``cycle_scan`` launch);
  21. the ``kernels`` line: per kernel its route, source, the TPU kernel it
      replaces, launches on its search path, the largest difference from the
      plain version, its time, the plain version's time and the bound (the
-     kernel 1, 5, 6 and 8 rows with their block shape); the eval-only
+     kernel 1, 3, 5, 6 and 8 rows with their block shape); the eval-only
      pass's TPU kernels get rows of their own on kernels 1, 3 and 6, with
      the launches of phase 19.
 
@@ -137,11 +141,11 @@ NQ_CYCLE_KERNELS = ("nq_cycle_labels", "nq_cycle_emit")
 # The kernel of each of the eval-only pass's TPU kernels, by counter.
 EVAL_KERNEL = {"eval_lb1": "lb1_bounds", "eval_nqueens": "nqueens_labels",
                "eval_lb2": "lb2_bounds"}
-# The kernels of one streamed cycle: kernel 9b's sweep and emit
-# (csrc/tiled_lb1.cu), kernel 9c's bounds, count and emit (csrc/tiled_lb2.cu,
+# The kernels of one streamed cycle: kernel 9b's bounds, count and emit
+# (csrc/tiled_lb1.cu, kernel 2's bodies), kernel 9c's (csrc/tiled_lb2.cu,
 # kernel 8's bodies) and kernel 9a's labels and emit (csrc/tiled_nqueens.cu,
 # kernel 4's bodies), each under a name of its own.
-TILED_KERNELS = {"lb1": ("tiled_lb1_sweep", "tiled_pfsp_emit"),
+TILED_KERNELS = {"lb1": ("lb1_tiles_bounds", "pfsp_tiles_count", "pfsp_tiles_emit"),
                  "lb2": ("lb2_tiles_bounds", "pfsp_tiles_count", "pfsp_tiles_emit"),
                  "nqueens": ("nq_tiles_labels", "nq_tiles_emit")}
 
@@ -471,7 +475,7 @@ def _pfsp_cycle_fns(dev, tables, lb: str, tiled: bool, M: int, mt: int,
                 CYCLE_KERNELS if lb == "lb1" else LB2_CYCLE_KERNELS, None)
     if lb == "lb1":
         cuda_cycle, plain_cycle = T.tiled_lb1_cuda, T.tiled_lb1_plain
-        scratch = T.tiled_scratch(M, n, mt, dtype, dev)
+        scratch = T.tiled_lb1_scratch(M, n, mt, dtype, dev)
     else:
         cuda_cycle, plain_cycle = T.tiled_lb2_cuda, T.tiled_lb2_plain
         scratch = T.tiled_lb2_scratch(M, n, mt, dtype, dev)
@@ -673,8 +677,9 @@ def phase_kernel3(dev) -> dict:
     rng = np.random.default_rng(3)
     rows = {}
     configs = [(N, B, g) for N in (15, 20) for B in (1024, 50000) for g in (1, 4)]
-    # The unfused N=14 search's shape, and the fold check's g=256 twin.
-    configs += [(14, 50000, 1), (15, 50000, 256)]
+    # The unfused N=14 search's shape, the fold check's g=256 twin, and the
+    # widest board (eight packed words a parent).
+    configs += [(14, 50000, 1), (15, 50000, 256), (32, 50000, 1)]
     for N, B, g in configs:
         board, depth = random_boards(rng, N, B)
         b = torch.from_numpy(board).to(dev)
@@ -689,11 +694,13 @@ def phase_kernel3(dev) -> dict:
         check(err == 0, f"labels kernel differs from plain (N={N}, B={B}, g={g})")
         d = torch.from_numpy(depth).to(dev).to(torch.int8)
         call = lambda: NK.nqueens_labels_cuda(b, d, N, g)  # noqa: E731
+        call()
+        block = NK.last_shape()
         ms, timing = kernel_device_ms(call, 30, ("nqueens_labels_kernel",))
         call_ms = median_ms(call, 30)
         plain_ms = median_ms(lambda: NK.plain(b, d, N, g), 3)
         bms, by = bound_ms(2 * B * N + B, nq_ops(depth, N, g))
-        rows[(N, B, g)] = dict(N=N, B=B, g=g, max_abs_err=err, ms=ms,
+        rows[(N, B, g)] = dict(N=N, B=B, g=g, block=block, max_abs_err=err, ms=ms,
                                timing=timing, call_ms=call_ms,
                                plain_ms=plain_ms, bound_ms=bms,
                                bound_us=bms * 1e3, bound_by=by)
@@ -990,9 +997,9 @@ def phase_profile(name: str, argv: list[str], golden: dict,
 def main_cycles(dev, dev_info) -> int:
     """``--cycles``: only the fused cycles (kernels 2, 4 and 8) and the
     streamed ones (9a, 9b and 9c) against their plain versions, and the
-    ta014 lb1 and N-Queens N = 15 searches and the streamed N-Queens and
-    lb2 searches under the profiler with their launches a cycle; the last
-    line says which phases ran."""
+    ta014 lb1 and N-Queens N = 15 searches and the streamed N-Queens, lb2
+    and lb1 searches under the profiler with their launches a cycle; the
+    last line says which phases ran."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
     from tpu_tree_search_torch.ops import tiled as T
@@ -1024,6 +1031,8 @@ def main_cycles(dev, dev_info) -> int:
                   (T.tiled_nqueens_cuda, TILED_KERNELS["nqueens"], 2))
     phase_profile("search_lb2_tiled_M49152", PFSP_LB2 + ["--mt", "64"], GOLDEN_LB2,
                   (T.tiled_lb2_cuda, TILED_KERNELS["lb2"], 3))
+    phase_profile("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], GOLDEN,
+                  (T.tiled_lb1_cuda, TILED_KERNELS["lb1"], 3))
     print(json.dumps({"ok": True, "phases": "cycles", "device": dev_info}), flush=True)
     return 0
 
@@ -1164,12 +1173,18 @@ def main() -> int:
     phase_profile("search_unfused_M1024", PFSP_LB1 + ["--M", "1024", "--unfused"], GOLDEN,
                   kernel="lb1_bounds_kernel", host=False)
     phase_profile("search_lb1_d", PFSP_LB1D, GOLDEN, kernel="lb1_d_bounds_kernel")
+    # Kernel 3 on its search path: its device time over the unfused N=14
+    # search's 555 cycles (the device alone, as the unfused lb1 search).
+    phase_profile("search_nqueens_N14_unfused",
+                  ["nqueens", "--N", "14", "--tier", "device", "--unfused"], NQ_GOLDEN[14],
+                  kernel="nqueens_labels_kernel", host=False)
     # The streamed searches beside the single-tile ones, in the same run;
     # the single-tile ones count kernel 2's and kernel 4's launches a cycle.
     for name, argv, golden, cycle in [
             ("search_fused_M49152", PFSP_LB1, GOLDEN,
              (C.cycle_lb1_cuda, CYCLE_KERNELS, 3)),
-            ("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], GOLDEN, None),
+            ("search_lb1_tiled_M49152", PFSP_LB1 + ["--mt", "64"], GOLDEN,
+             (T.tiled_lb1_cuda, TILED_KERNELS["lb1"], 3)),
             ("search_nqueens_N15_fused", ["nqueens", "--N", "15", "--tier", "device"],
              NQ_GOLDEN[15], (CN.cycle_nqueens_cuda, NQ_CYCLE_KERNELS, 2)),
             ("search_nqueens_N15_tiled",
@@ -1201,7 +1216,8 @@ def main() -> int:
          "ms": k2_main["ms"], "timing": k2_main["timing"], "call_ms": k2_main["call_ms"],
          "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "launch_ms": k2_main["launch_ms"],
+         "launches_per_cycle": k2_main["launches_per_cycle"]},
     ]
     k3_main = k3[(14, 50000, 1)]
     k4_main = k4[(50000, "full")]
@@ -1251,9 +1267,11 @@ def main() -> int:
             "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None,
-            # The lb2 rows: the per-child recurrence's bound; the lb1_d and
-            # lb2 rows: the block shape.
-            **{k: main_row[k] for k in ("child_loop_bound_ms", "block")
+            # The lb2 rows: the per-child recurrence's bound; the lb1_d, lb2
+            # and labels rows: the block shape; the cycles' rows: the device
+            # time by launch and the launches a cycle.
+            **{k: main_row[k] for k in ("child_loop_bound_ms", "block", "launch_ms",
+                                        "launches_per_cycle")
                if k in main_row}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)

@@ -16,11 +16,14 @@ B = 1024. ``--family lb2``: kernel 6 (``lb2_bounds``) on ta014 and ta021
 at B = 1024 and 49152 and on ta081 at B = 1024, and kernel 8
 (``cycle_lb2``) on a full chunk of ta014 and ta021 at M = 1024 and 49152.
 ``--family tiled``: the streamed N-Queens cycle (kernel 9a) on a full chunk
-at N = 15, M = 50000 (mt = 80 and 8) and M = 1024 (mt = 16), and the
-streamed lb2 cycle (kernel 9c) on ta014 at M = 49152 (mt = 64) and M = 1024
-(mt = 16) and on ta021 at M = 49152 (mt = 64), each beside the single-tile
-cycle whose launches it runs (kernels 4 and 8) at its M, and kernel 2 on
-ta014 at M = 49152. Each kernel is checked against its plain version
+at N = 15, M = 50000 (mt = 80 and 8) and M = 1024 (mt = 16), the streamed
+lb1 cycle (kernel 9b) on ta014 at M = 49152 (mt = 64) and M = 1024
+(mt = 16), and the streamed lb2 cycle (kernel 9c) on ta014 at M = 49152
+(mt = 64) and M = 1024 (mt = 16) and on ta021 at M = 49152 (mt = 64),
+each beside the single-tile cycle whose launches it runs (kernels 4, 2 and
+8) at its M; and the N-Queens labels (kernel 3) at B = 50000, N = 14 and
+15, g = 1, and N = 15, g = 256, and at B = 1024, N = 15 and 20, g = 1.
+Each kernel is checked against its plain version
 (``err`` is the largest difference on the open slots; for a cycle, on the
 state, the live pool rows and the per-tile scalars), then timed by the
 profiler (a cycle: the whole cycle and by launch), with the block shape it
@@ -118,11 +121,13 @@ LB1_STEPS = [
 ]
 
 
-# The design steps of kernels 9a and 9c (the single-tile cycles' launches
-# with the boundary row, csrc/cycle_common.cuh), as text substitutions:
-# ablations of the boundary row and alternatives of the shared bodies,
-# timed beside kernels 2, 4 and 8, which share them.
+# The design steps of kernels 9a, 9b and 9c (the single-tile cycles'
+# launches with the boundary row, csrc/cycle_common.cuh), as text
+# substitutions: ablations of the boundary row and alternatives of the
+# shared bodies, timed beside kernels 2, 4 and 8, which share them; and of
+# kernel 3 (csrc/nqueens_labels.cu).
 _COMMON = "cycle_common.cuh"
+_NQL = "nqueens_labels.cu"
 TILED_STEPS = [
     # As committed: a (survivors, solutions) pair a block, two blocks a
     # 16-byte load in the predecessor sum, warp 0 of each emit block writes
@@ -152,6 +157,12 @@ TILED_STEPS = [
     # cycles).
     ["loop256", {_COMMON: {"#define TTS_CYCLE_LOOP_THREADS 128":
                            "#define TTS_CYCLE_LOOP_THREADS 256"}}],
+    # Kernel 3: every parent on the scalar check (the packed compare's
+    # gain), and tiles of 64 and 256 parents in place of 128.
+    ["nql_scalar", {_NQL: {"s_wide[p] ? nq_label(": "true ? nq_label("}}],
+    ["nql_parents64", {_NQL: {"#define TTS_NQL_PARENTS 128": "#define TTS_NQL_PARENTS 64"}}],
+    ["nql_parents256", {_NQL: {"#define TTS_NQL_PARENTS 128":
+                               "#define TTS_NQL_PARENTS 256"}}],
 ]
 
 
@@ -306,19 +317,32 @@ def _cycle_case(run_cuda, run_plain, pv0, pa0, st0, names, scratch=None):
 
 
 def measure_tiled(out: dict) -> None:
-    """Kernels 9a and 9c beside 2, 4 and 8 into ``out`` (see the module
-    docstring)."""
+    """Kernels 9a, 9b and 9c beside 2, 4 and 8, and kernel 3, into ``out``
+    (see the module docstring)."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import nqueens_kernel as NK
     from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 
     dev = torch.device("cuda", 0)
     out.update(ms={}, launch_ms={})
+    for N, B, g in [(14, 50000, 1), (15, 50000, 1), (15, 50000, 256), (15, 1024, 1),
+                    (20, 1024, 1)]:
+        board, depth = cs.random_boards(np.random.default_rng(N + g), N, B)
+        b = torch.from_numpy(board).to(dev)
+        d = torch.from_numpy(depth).to(dev).to(torch.int8)
+        got = NK.nqueens_labels_cuda(b, d, N, g)
+        out["err"] = max(out["err"], int((got.int() - NK.plain(b, d, N, g).int())
+                                         .abs().max()))
+        key = f"k3/B={B}/N={N}/g={g}"
+        out["block"][key] = NK.last_shape()
+        out["ms"][key], _ = cs.kernel_device_ms(
+            lambda: NK.nqueens_labels_cuda(b, d, N, g), 30, ("nqueens_labels_kernel",))
     K, m = 4, 25
     prob = NQueensProblem(15)
     N = prob.N
@@ -348,7 +372,9 @@ def measure_tiled(out: dict) -> None:
         out["err"] = max(out["err"], err)
     tabs = {(i, lb): PFSPProblem(inst=i, lb=lb, ub=1).device_tables(dev)
             for i, lb in ((14, "lb1"), (14, "lb2"), (21, "lb2"))}
-    for inst, lb, M, mt in [(14, "lb1", 49152, None), (14, "lb2", 49152, None),
+    for inst, lb, M, mt in [(14, "lb1", 49152, None), (14, "lb1", 49152, 64),
+                            (14, "lb1", 1024, None), (14, "lb1", 1024, 16),
+                            (14, "lb2", 49152, None),
                             (14, "lb2", 49152, 64), (14, "lb2", 1024, None),
                             (14, "lb2", 1024, 16), (21, "lb2", 49152, None),
                             (21, "lb2", 49152, 64)]:
@@ -371,11 +397,14 @@ def measure_tiled(out: dict) -> None:
                     cs.CYCLE_KERNELS if lb == "lb1" else cs.LB2_CYCLE_KERNELS, None)
             key = f"{'k2' if lb == 'lb1' else 'k8'}/ta{inst:03d}/M={M}"
         else:
-            sc = T.tiled_lb2_scratch(M, n, mt, torch.int8, dev)
-            case = (lambda pv, pa, st: T.tiled_lb2_cuda(pv, pa, st, sc, t, M, mt, m, K),
-                    lambda pv, pa, st: T.tiled_lb2_plain(pv, pa, st, t, M, mt, m, K),
-                    cs.TILED_KERNELS["lb2"], sc)
-            key = f"k9c/ta{inst:03d}/M={M}/mt={mt}"
+            make, cuda, plain = ((T.tiled_lb1_scratch, T.tiled_lb1_cuda, T.tiled_lb1_plain)
+                                 if lb == "lb1" else
+                                 (T.tiled_lb2_scratch, T.tiled_lb2_cuda, T.tiled_lb2_plain))
+            sc = make(M, n, mt, torch.int8, dev)
+            case = (lambda pv, pa, st: cuda(pv, pa, st, sc, t, M, mt, m, K),
+                    lambda pv, pa, st: plain(pv, pa, st, t, M, mt, m, K),
+                    cs.TILED_KERNELS[lb], sc)
+            key = f"{'k9b' if lb == 'lb1' else 'k9c'}/ta{inst:03d}/M={M}/mt={mt}"
         err, out["ms"][key], out["launch_ms"][key] = _cycle_case(
             case[0], case[1], pv0, pa0, st0, case[2], case[3])
         out["err"] = max(out["err"], err)
@@ -390,7 +419,7 @@ def measure(family: str) -> dict:
     sources = {"lb1": ("lb1_bounds", "lb1_d_bounds"),
                "lb2": ("lb2_bounds", "cycle_lb2"),
                "tiled": ("cycle_lb1", "cycle_nqueens", "cycle_lb2", "tiled_nqueens",
-                         "tiled_lb2")}
+                         "tiled_lb2", "tiled_lb1", "nqueens_labels")}
     sources = {fam: names for fam, names in sources.items()
                if family == fam or (family == "all" and fam != "tiled")}
     for names in sources.values():

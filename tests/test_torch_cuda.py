@@ -250,16 +250,56 @@ def _boards(rng, N, B, full_share=0.2):
     return board, depth
 
 
+# (N, g, B): every packed width (N <= 8, 16, 24, 32 take 2, 4, 6, 8 words a
+# parent), g in {1, 2, 256} (the round loop), and B = 300,000, past the
+# 128-parent tiles of one wave on 132 SMs at 16 blocks an SM (the looping
+# grid).
+_LABELS = [(8, 1, 1), (15, 3, 1000), (32, 1, 333), (4, 2, 1000),
+           (13, 1, 300000), (16, 256, 3000), (17, 2, 1000), (32, 256, 1500),
+           (32, 1, 300000)]
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
-@pytest.mark.parametrize("N,g,B", [(8, 1, 1), (15, 3, 1000), (32, 1, 333)])
+@pytest.mark.parametrize("N,g,B", _LABELS)
 def test_nqueens_labels_kernel_matches_plain(cuda, dtype, N, g, B):
     board, depth = _boards(np.random.default_rng(N + g), N, B)
+    depth[:min(B, N + 1)] = np.arange(N + 1)[:B]  # depth 0 to N
     b = torch.from_numpy(board).to(cuda)
     d = torch.from_numpy(depth).to(cuda).to(dtype)
     got = nqueens_kernel.nqueens_labels_cuda(b, d, N, g)
+    shape = nqueens_kernel.last_shape()
     want = nqueens_kernel.plain(b, d, N, g)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert shape["parents"] in (4, 8, 16, 32, 64, 128)
+    assert shape["tiles"] == -(-B // shape["parents"])
+    assert shape["words"] * 4 >= N and shape["blocks"] <= shape["tiles"]
+    if B == 300000:
+        assert shape["tiles"] > shape["blocks"]  # the blocks loop over tiles
+
+
+@pytest.mark.parametrize("B", [600, 5000])
+@pytest.mark.parametrize("N", [13, 15, 32])
+def test_nqueens_labels_kernel_reads_an_unaligned_view(cuda, N, B):
+    # Rows 1: of a larger board (data_ptr not 16-aligned for N % 16 != 0),
+    # a share of rows with bytes of 32 or more (the scalar check), and
+    # depths below 0 and past N; B = 600 takes tiles of 8 or 4 parents (one
+    # thread a slot), B = 5000 tiles of 32 (the item map).
+    rng = np.random.default_rng(N + B)
+    board, depth = _boards(rng, N, B + 1)
+    wild = rng.random(B + 1) < 0.1
+    board[wild] = rng.integers(0, 256, (int(wild.sum()), N))
+    depth[rng.random(B + 1) < 0.05] = -2
+    depth[rng.random(B + 1) < 0.05] = N + 3
+    full = torch.from_numpy(board).to(cuda)
+    b = full[1:]
+    assert b.is_contiguous() and (b.data_ptr() % 16 != 0) == (N % 16 != 0)
+    d = torch.from_numpy(depth[1:]).to(cuda).to(torch.int8)
+    for g in (1, 2):
+        got = nqueens_kernel.nqueens_labels_cuda(b, d, N, g)
+        want = nqueens_kernel.plain(b, d, N, g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("size", [40, 700])
@@ -524,8 +564,7 @@ def _tiled_check(cuda_cycle, plain_cycle, pv, pa, st, scratch, spec, M, mt,
                  cycles=2):
     """``cycles`` streamed cycles on the card and in plain PyTorch from one
     pool: equal state, live rows and (G, 4) per-tile scalars after each (the
-    second cycle runs on the counts, boundary row, status words and ticket
-    the first one used)."""
+    second cycle runs on the counts and boundary row the first one used)."""
     m, K = 25, 4
     pv2, pa2, st2 = pv.clone(), pa.clone(), st.clone()
     for _ in range(cycles):
@@ -574,7 +613,7 @@ def test_tiled_pfsp_kernel_matches_plain(cuda, lb, inst, dtype, M, mt, chunk,
     st = C.new_state(size, best, cuda)
     if lb == "lb1":
         cuda_cycle, plain_cycle = T.tiled_lb1_cuda, T.tiled_lb1_plain
-        scratch = T.tiled_scratch(M, n, mt, dtype, cuda)
+        scratch = T.tiled_lb1_scratch(M, n, mt, dtype, cuda)
     else:
         cuda_cycle, plain_cycle = T.tiled_lb2_cuda, T.tiled_lb2_plain
         scratch = T.tiled_lb2_scratch(M, n, mt, dtype, cuda)

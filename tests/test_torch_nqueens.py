@@ -8,7 +8,9 @@ plane (both packages write 0 on the slots k < depth). The port's
 ``generate_children`` on random nodes. Tolerance 0: everything is integer.
 Inputs are made with numpy from a seed and handed to both packages. The
 kernel itself is compared with ``labels_chunk`` on the card in
-`tests/test_torch_cuda.py`.
+`tests/test_torch_cuda.py`; here a numpy model of its packed compare
+(``_packed_labels_model``, in the kernel's order and word arithmetic) is
+held to ``labels_chunk`` and to the Pallas kernel in interpret mode.
 """
 
 from __future__ import annotations
@@ -70,6 +72,133 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         nqueens_kernel.nqueens_labels_cuda(torch.zeros((4, 8), dtype=torch.uint8),
                                            torch.zeros(4, dtype=torch.int8), 8)
+
+
+# The kernel's tile (csrc/nqueens_labels.cu TTS_NQL_PARENTS) and 32-bit
+# word arithmetic.
+NQL_PARENTS = 128
+M32 = 0xFFFFFFFF
+
+
+def _nql_words(N):
+    """Packed words of queens a parent (the kernel's NW template)."""
+    return 2 if N <= 8 else 4 if N <= 16 else 6 if N <= 24 else 8
+
+
+def _scalar_label(row, d, k, g):
+    """`nq_label` of csrc/nqueens_common.cuh (the wide parents' check)."""
+    safe = 1
+    for _ in range(g):
+        v = int(row[k])
+        safe &= all(int(row[i]) not in (v - (d - i), v + (d - i))
+                    for i in range(d))
+    return safe
+
+
+def _packed_labels_model(board, depth, N, g, phase=0, fill=0xAB):
+    """Kernel 3 in numpy, step by step: each tile of NQL_PARENTS rows staged
+    at ``phase`` (the board view's address mod 16) in a buffer of ``fill``
+    bytes; each parent's words read as two aligned 32-bit words and a
+    funnel shift, its u and w bytes packed (0x7F for unplaced queens and
+    the bytes past N), its open slots k >= depth labelled by the XOR and
+    zero-byte test (or the scalar check when a byte of the row is 32 or
+    more); the other slots 0."""
+    B = board.shape[0]
+    NW = _nql_words(N)
+    out = np.zeros((B, N), dtype=np.uint8)
+    for b0 in range(0, B, NQL_PARENTS):
+        rows = min(NQL_PARENTS, B - b0)
+        stage = np.full(NQL_PARENTS * 4 * NW + 32, fill, dtype=np.uint8)
+        stage[phase:phase + rows * N] = board[b0:b0 + rows].ravel()
+        w32 = stage.view("<u4")
+        for t in range(rows):
+            off = phase + t * N
+            a, sh = off // 4, (off % 4) * 8
+            d = int(depth[b0 + t])
+            dd = min(max(d, 0), N)
+            x, seen, words = int(w32[a]), 0, []
+            for j in range(NW):
+                y = int(w32[a + j + 1])
+                bw = ((y << 32 | x) >> sh) & M32
+                x = y
+                in_row = min(max(N - 4 * j, 0), 4)
+                placed = min(max(dd - 4 * j, 0), 4)
+                pm = (1 << 8 * placed) - 1
+                seen |= bw & ((1 << 8 * in_row) - 1)
+                dist = ((dd - 4 * j) * 0x01010101 - 0x03020100) & M32
+                none = 0x7F7F7F7F & ~pm & M32
+                words.append(((((bw + dist) & M32) & pm) | none,
+                              (((bw + 0x40404040 - dist) & M32) & pm) | none))
+            wide = (seen & 0xE0E0E0E0) != 0
+            row = board[b0 + t]
+            for k in range(max(d, 0), N):
+                if wide:
+                    out[b0 + t, k] = _scalar_label(row, d, k, g)
+                    continue
+                safe = 1
+                for _ in range(g):
+                    V = int(row[k]) * 0x01010101
+                    V2 = V ^ 0x40404040
+                    acc = M32
+                    for u, w in words:
+                        acc &= (((u ^ V) + 0x7F7F7F7F) & M32) & \
+                            (((w ^ V2) + 0x7F7F7F7F) & M32)
+                    safe &= (acc & 0x80808080) == 0x80808080
+                out[b0 + t, k] = safe
+    return out
+
+
+def test_unplaced_byte_matches_no_candidate():
+    # 0x7F, the byte of an unplaced queen, equals no candidate v in [0, 32)
+    # nor v + 64, and every XOR stays below 0x80 (the zero-byte test's
+    # condition), as do those of placed queens' u in [1, 63], w in [32, 95].
+    for v in range(32):
+        assert 0 < 0x7F ^ v < 0x80 and 0 < 0x7F ^ (v + 64) < 0x80
+        assert all(u ^ v < 0x80 for u in range(1, 64))
+        assert all(w ^ (v + 64) < 0x80 for w in range(32, 96))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("N", [4, 13, 16, 17, 32])
+def test_packed_label_model_matches_plain_and_pallas(N, g):
+    # Two tiles and a partial one, every depth from 0 to N (a share at 0
+    # and at N), each phase of the board view mod 16 over the cases.
+    rng = np.random.default_rng(N * 7 + g)
+    B = 2 * NQL_PARENTS + 37
+    board, depth = _nodes(rng, N, B)
+    depth[rng.random(B) < 0.1] = 0
+    depth[:N + 1] = np.arange(N + 1)
+    want = tnq.labels_chunk(torch.from_numpy(board), torch.from_numpy(depth),
+                            N, g).numpy()
+    for phase in (0, 3, 9, 15)[:2 if N > 16 else 4]:
+        got = _packed_labels_model(board, depth, N, g, phase)
+        assert np.array_equal(got, want), phase
+    jax_want = np.asarray(pallas_kernels.nqueens_labels(
+        jnp.asarray(board), jnp.asarray(depth), N, g, interpret=True))
+    assert np.array_equal(want, jax_want)
+    assert want.any() and (want == 0).any()
+
+
+def test_packed_label_model_takes_any_byte():
+    # Rows with bytes of 32 or more (no board of the search) take the scalar
+    # check; depths below 0 and past N label every slot, resp. none. The
+    # staging fill differs from any row byte, so no byte past N is read as
+    # a queen.
+    rng = np.random.default_rng(33)
+    N, B = 15, NQL_PARENTS + 5
+    board = rng.integers(0, 256, (B, N)).astype(np.uint8)
+    board[::2] = np.stack([rng.permutation(N) for _ in range(B)])[::2]
+    depth = rng.integers(-3, N + 3, B).astype(np.int32)
+    want = tnq.labels_chunk(torch.from_numpy(board), torch.from_numpy(depth),
+                            N, 2).numpy()
+    for fill in (0x00, 0x7F, 0xFF):
+        assert np.array_equal(_packed_labels_model(board, depth, N, 2, 5, fill),
+                              want)
+    inside = (depth >= 0) & (depth <= N)
+    jax_want = np.asarray(pallas_kernels.nqueens_labels(
+        jnp.asarray(board[inside]), jnp.asarray(depth[inside]), N, 2,
+        interpret=True))
+    assert np.array_equal(want[inside], jax_want)
 
 
 def test_problem_fields_and_root_match_jax():

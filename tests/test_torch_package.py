@@ -242,8 +242,9 @@ def test_chip_sweep_lb1_steps_apply_to_the_sources(tmp_path):
 
 
 def test_chip_sweep_tiled_steps_apply_to_the_sources(tmp_path):
-    # Every design step of kernels 9a and 9c is a substitution of the
-    # cycles' shared code that the committed sources hold.
+    # Every design step of kernels 9a, 9b and 9c is a substitution of the
+    # cycles' shared code, and every step of kernel 3 one of its source,
+    # that the committed sources hold.
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_sweep", ROOT / "chip_sweep.py")
@@ -251,10 +252,14 @@ def test_chip_sweep_tiled_steps_apply_to_the_sources(tmp_path):
     spec.loader.exec_module(sw)
     names = [name for name, _ in sw.TILED_STEPS]
     assert names[0] == "committed" and len(set(names)) == len(names)
+    sources = ("cycle_common.cuh", "nqueens_labels.cu")
     for name, subs in sw.TILED_STEPS:
+        assert set(subs) <= set(sources)
         sw.make_variant(ROOT, tmp_path / name, subs)
-        text = (tmp_path / name / "tpu_tree_search_torch/csrc/cycle_common.cuh").read_text()
-        assert (text == (_build.CSRC / "cycle_common.cuh").read_text()) == (not subs)
+        for source in sources:
+            text = (tmp_path / name / "tpu_tree_search_torch/csrc" / source).read_text()
+            assert (text == (_build.CSRC / source).read_text()) == (source not in subs)
+    assert any("nqueens_labels.cu" in subs for _, subs in sw.TILED_STEPS)
 
 
 def test_chip_ab_keys_streamed_rows_by_tile_width():

@@ -20,14 +20,14 @@ On the CPU, at M=64 and tile widths mt in {8, 16}, on the 8-job instance of
     and ``megakernel_lb2_bounds`` the JAX one on the open slots;
   * a tile width that is not a multiple of 8 dividing M raises, and ``mt``
     is inert on the unfused cycle and under lb1_d;
-  * the carry of kernels 9a and 9c, as a numpy model in the kernels' block
-    order (``_carry_model``), gives the (G, 4) scalars of
+  * the carry of kernels 9a, 9b and 9c, as a numpy model in the kernels'
+    block order (``_carry_model``), gives the (G, 4) scalars of
     ``tiled_chunk_plain`` and of the Pallas tiled kernels (interpret mode),
-    for N-Queens and lb2, at M = 120, 240 and 400 (not multiples of 32, so
+    for N-Queens, lb1 and lb2, at M = 120, 240 and 400 (not multiples of 32, so
     tile boundaries fall inside blocks of 32 parents) and mt in {8, 16, 40,
     80}, on full, partial and tail windows (tiles with no popped row);
     ``TileBoundsScratch.scal`` reads the model's boundary row as the plain
-    scalars; and the sources of 9a and 9c hold no look-back.
+    scalars; and the sources of 9a, 9b and 9c hold no look-back.
 
 Tolerance 0: everything is integer. The CUDA kernels 9a-9c are compared with
 these plain versions on the card in `tests/test_torch_cuda.py`.
@@ -348,31 +348,35 @@ def test_cli_mt_records_the_tile_and_refuses_a_bad_width(capsys):
     assert "multiple of 8 that divides M=64" in capsys.readouterr().err
 
 
-def test_tiled_cuda_wrappers_refuse_cpu_tensors():
+def test_tiled_cuda_wrappers_refuse_cpu_tensors(monkeypatch):
     _, tprob = _problems("lb1")
     t = tprob.device_tables(CPU)
     pool_vals, pool_aux = _pool(np.random.default_rng(1), "lb1", 50, 50 + M * JOBS)
     st = C.new_state(50, INF, CPU)
-    scratch = T.tiled_scratch(M, JOBS, 16, torch.int8, CPU)
-    assert scratch.scal.shape == (4, 4) and scratch.status.dtype == torch.int64
-    with pytest.raises(ValueError):
-        T.tiled_lb1_cuda(pool_vals, pool_aux, st, scratch, t, M, 16, 4, 4)
-    # Kernel 9c's scratch: kernel 8's, with a (survivors, leaves) pair a
-    # block of 32 parents, and the (G + 1, 3) boundary row read as the
-    # (G, 4) scalars.
-    scratch9c = T.TileBoundsScratch.make(M, JOBS, 16, 1, torch.int8,
-                                         C.pfsp_plane_words(M, JOBS), 32, CPU)
-    assert scratch9c.bounds.shape == (5, 3) and scratch9c.bounds.dtype == torch.int32
-    assert scratch9c.cycle.blkcnt.numel() == 2 * 2 and scratch9c.scal.shape == (4, 4)
+    # The libraries report their blocks' parents (CYCLE_PARENTS, pinned
+    # against the source by tests/test_torch_package.py); none is built here.
+    monkeypatch.setattr(T, "parents_per_block", lambda source: CYCLE_PARENTS)
+    # Kernels 9b's and 9c's scratch: kernel 2's and 8's, with a (survivors,
+    # leaves) pair a block of 32 parents, and the (G + 1, 3) boundary row
+    # read as the (G, 4) scalars.
+    scratch9b = T.tiled_lb1_scratch(M, JOBS, 16, torch.int8, CPU)
+    scratch9c = T.tiled_lb2_scratch(M, JOBS, 16, torch.int8, CPU)
+    for scratch in (scratch9b, scratch9c):
+        assert scratch.bounds.shape == (5, 3) and scratch.bounds.dtype == torch.int32
+        assert scratch.cycle.blkcnt.numel() == 2 * 2 and scratch.scal.shape == (4, 4)
+        assert scratch.cycle.plane.numel() == C.pfsp_plane_words(M, JOBS)
+        assert scratch.cycle.chunk_aux.dtype == torch.int8
     lb2_tables = _problems("lb2")[1].device_tables(CPU)
     with pytest.raises(ValueError, match="CUDA"):  # before any build
+        T.tiled_lb1_cuda(pool_vals, pool_aux, st, scratch9b, t, M, 16, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
         T.tiled_lb2_cuda(pool_vals, pool_aux, st, scratch9c, lb2_tables, M, 16,
                          4, 4)
     T.tiled_lb1(pool_vals, pool_aux, st, None, t, M, 16, 4, 4)  # the plain route
     assert int(st[C.ST_CYCLES]) == 1
 
 
-# -- the carry of kernels 9a and 9c -------------------------------------------
+# -- the carry of kernels 9a, 9b and 9c ---------------------------------------
 
 # Parents of a counting and emit block of the single-tile cycles
 # (csrc/cycle_common.cuh TTS_CYCLE_PARENTS).
@@ -380,7 +384,7 @@ CYCLE_PARENTS = 32
 
 
 def _carry_model(keeps, sols, best, mt):
-    """The boundary row that kernels 9a and 9c write, in their block order:
+    """The boundary row that kernels 9a, 9b and 9c write, in their block order:
     blocks of CYCLE_PARENTS parents, each publishing its (survivors,
     solutions) pair (the labels or count launch); each emit block sums the
     pairs of the blocks before it, ranks its parents (exclusive prefixes of
@@ -426,8 +430,8 @@ def _carry_inputs(family, tprob, vals, aux, valid, best):
                               tprob.N, tprob.g).bool().numpy()
         keep = labels & valid[:, None] & (aux < n)[:, None]
         return keep.sum(1), valid & (aux == n), best
-    lb = lb2_chunk(torch.from_numpy(vals), torch.from_numpy(aux),
-                   tprob.device_tables(CPU)).numpy()
+    lb = BOUNDS[family](torch.from_numpy(vals), torch.from_numpy(aux),
+                        tprob.device_tables(CPU)).numpy()
     open_ = (np.arange(n)[None, :] > aux[:, None]) & valid[:, None]
     leaf = open_ & (aux == n - 2)[:, None]
     best = min(best, int(lb[leaf].min()) if leaf.any() else best)
@@ -452,7 +456,7 @@ def _window(M, window):
 @pytest.mark.parametrize("window", ["full", "partial", "tail"])
 @pytest.mark.parametrize("M,mt", [(240, 8), (240, 16), (240, 40), (240, 80),
                                   (400, 80), (120, 40)])
-@pytest.mark.parametrize("family", ["nqueens", "lb2"])
+@pytest.mark.parametrize("family", ["nqueens", "lb1", "lb2"])
 def test_carry_model_matches_plain_and_pallas_tiled_scalars(family, M, mt,
                                                             window):
     jprob, tprob = _problems(family)
@@ -478,7 +482,7 @@ def test_carry_model_matches_plain_and_pallas_tiled_scalars(family, M, mt,
     _, _, offs, tree, sol, best_t, scal_p = T.tiled_chunk_plain(
         _spec(family, tprob), tv, torch.from_numpy(aux).to(torch.int8),
         torch.from_numpy(valid), torch.tensor(best, dtype=torch.int32), mt,
-        lb2_chunk)
+        BOUNDS.get(family, lb2_chunk))
     assert torch.equal(scal, scal_p)
     assert (int(tree), int(sol), int(best_t)) == tuple(int(v) for v in bnd[G])
     _, _, scal_j = _jax_tiled(family, jprob, vals, aux, valid, best, mt)
@@ -492,24 +496,35 @@ def test_carry_model_matches_plain_and_pallas_tiled_scalars(family, M, mt,
 
 
 def test_streamed_nqueens_and_lb2_sources_have_no_look_back():
-    # Kernels 9a and 9c run the single-tile cycles' bodies: no ticket, no
-    # status words, no look-back, and no Johnson pass per child.
+    # Kernels 9a, 9b and 9c run the single-tile cycles' bodies: no ticket,
+    # no status words, no look-back, and no Johnson pass per child; the
+    # look-back's headers are gone.
     from tpu_tree_search_torch.ops import _build
 
     def text(name):
         return (_build.CSRC / name).read_text()
 
     for src, body in [("tiled_nqueens.cu", "cycle_nqueens.cuh"),
+                      ("tiled_lb1.cu", "cycle_lb1.cuh"),
                       ("tiled_lb2.cu", "cycle_lb2.cuh")]:
         code = text(src)
         assert f'#include "{body}"' in code
         for header in ("tiled_common.cuh", "tiled_pfsp.cuh"):
             assert header not in code
-    for name in ("tiled_lb2.cu", "cycle_lb2.cuh", "cycle_pfsp.cuh",
-                 "lb2_common.cuh", "cycle_nqueens.cuh", "cycle_common.cuh"):
+    for header in ("tiled_common.cuh", "tiled_pfsp.cuh"):
+        assert not (_build.CSRC / header).exists()
+    for name in ("tiled_lb1.cu", "cycle_lb1.cuh", "cycle_lb1.cu",
+                 "tiled_lb2.cu", "cycle_lb2.cuh", "cycle_pfsp.cuh",
+                 "lb1_common.cuh", "lb2_common.cuh", "cycle_nqueens.cuh",
+                 "cycle_common.cuh"):
         code = text(name)
         for gone in ("lb2_child", "lb2_parent_state", "tile_lookback",
-                     "tile_ticket", "atomicAdd(ticket"):
+                     "tile_ticket", "atomicAdd(ticket", "__nanosleep",
+                     "TTS_PARENTS_PER_BLOCK", "lb1_smem_layout"):
             assert gone not in code, (name, gone)
-    # The look-back stays only for kernel 9b.
-    assert '#include "tiled_pfsp.cuh"' in text("tiled_lb1.cu")
+    # Kernel 9b's bounds launch is kernel 2's body under its own name.
+    lb1 = text("cycle_lb1.cuh")
+    for kernel in ("cycle_bounds", "lb1_tiles_bounds"):
+        assert f"__global__ void {kernel}(TTS_LB1_BOUNDS_PARAMS)" in lb1
+    assert "launch_lb1_cycle<T, true>" in text("tiled_lb1.cu")
+    assert "launch_lb1_cycle<T, false>" in text("cycle_lb1.cu")

@@ -1,9 +1,10 @@
 // Shared device code of the fused search cycles (cycle_lb1.cu, cycle_lb2.cu,
-// cycle_nqueens.cu): the layout of the loop state tensor, the block scan,
-// the block size rule, the per-block counts and the emit's survivor offsets
-// summed from them, the copies that keep a byte range's phase mod 16 (so
-// the middle moves as aligned 16-byte words), and the emit of a block's
-// survivors as one contiguous span of the pool.
+// cycle_nqueens.cu, and the streamed ones through their headers; kernel 3,
+// nqueens_labels.cu, takes its phase-keeping copies): the layout of the
+// loop state tensor, the block size rule, the per-block counts and the
+// emit's survivor offsets summed from them, the copies that keep a byte
+// range's phase mod 16 (so the middle moves as aligned 16-byte words), and
+// the emit of a block's survivors as one contiguous span of the pool.
 #pragma once
 
 #include "tts_common.cuh"
@@ -61,35 +62,6 @@ __host__ __device__ __forceinline__ int tts_stash_block_bytes(int bytes) {
 }
 
 extern "C" int tts_cycle_parents_per_block() { return TTS_CYCLE_PARENTS; }
-
-// Exclusive scan of one int per thread over the block (blockDim.x a
-// multiple of 32, at most 1024). Returns the thread's exclusive prefix and
-// the block total in *total. s_warp holds 32 ints of shared memory.
-__device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int excl = (warp ? s_warp[warp - 1] : 0) + x - v;
-  *total = s_warp[nwarps - 1];
-  __syncthreads();
-  return excl;
-}
 
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -260,7 +232,7 @@ __device__ __forceinline__ void emit_block_offsets(int* st,
   }
 }
 
-// The streamed cycle's carry (kernels 9a and 9c), by warp 0 of an emit
+// The streamed cycles' carry (kernels 9a, 9b and 9c), by warp 0 of an emit
 // block after emit_block_offsets and a __syncwarp: the block's rows of the
 // boundary row bnd, G + 1 rows of three ints (G = M / mt tiles). Row b is
 // the chunk's parent b*mt: the survivors of the parents before it, their

@@ -70,160 +70,22 @@
 //   - blocks of 128 threads that loop over their slots when one thread a
 //     slot would not fit on the card at once, so the grid is one or two
 //     waves, not four.
-#include "cycle_pfsp.cuh"
-
-// Threads of a bounds block (32 parents) that loops over its slots, when
-// one thread a slot does not fit on the card at once.
-#define TTS_LB1_LOOP_THREADS 128
-
-// Launch 1: loop condition, pop, bounds, leaf fold.
-template <typename T>
-__global__ void cycle_bounds(const T* __restrict__ pool_vals,
-                             const T* __restrict__ pool_aux, int* st,
-                             uint8_t* __restrict__ stash,
-                             T* __restrict__ chunk_aux, int* __restrict__ lb,
-                             const int* __restrict__ ptm_t,
-                             const int* __restrict__ heads,
-                             const int* __restrict__ tails, int n, int m,
-                             int M, int C, int mterm, int K,
-                             bool lane_prologue) {
-  int start, size, start2;
-  if (!pfsp_cycle_begin(st, n, M, C, mterm, K, &start, &size, &start2))
-    return;
-
-  const int PB = TTS_CYCLE_PARENTS;
-  const int SB = pfsp_stash_block_bytes<T>(n);
-  // A parent's front and remain at an odd stride: 32 parents on 32 banks.
-  const int ms = m | 1;
-  extern __shared__ __align__(16) uint8_t s_b[];
-  __shared__ int s_l1[TTS_CYCLE_PARENTS];
-  __shared__ int s_leafmin;
-  uint8_t* s_rows = s_b;
-  Lb1Smem s;
-  s.ptm = reinterpret_cast<int*>(s_b + SB);
-  s.heads = s.ptm + n * m;
-  s.tails = s.heads + m;
-  s.front = s.tails + m;
-  s.remain = s.front + PB * ms;
-  int* s_colsum = s.remain + PB * ms;
-  lb1_load_tables(s, ptm_t, heads, tails, n, m);
-
-  const int i0 = blockIdx.x * PB;
-  const int rows = min(PB, M - i0);
-  const int t = threadIdx.x;
-  const T* src = pool_vals + static_cast<size_t>(start2 + i0) * n;
-  copy_keep_phase(reinterpret_cast<const uint8_t*>(src),
-                  rows * n * static_cast<int>(sizeof(T)),
-                  stash + static_cast<size_t>(blockIdx.x) * SB, s_rows);
-  const T* s_par = reinterpret_cast<const T*>(
-      s_rows + (reinterpret_cast<uintptr_t>(src) & 15));
-  if (t < rows) {
-    const int row = start2 + i0 + t;
-    const T l1 = pool_aux[row];
-    chunk_aux[i0 + t] = l1;
-    // -2 marks a row of the M-window outside the popped rows.
-    s_l1[t] = (row >= start && row < size) ? static_cast<int>(l1) : -2;
-  }
-  if (t == 0) s_leafmin = TTS_INF_BOUND;
-  for (int j = t; j < m; j += blockDim.x) {  // machine j's work, all jobs
-    int c = 0;
-    for (int i = 0; i < n; ++i) c += ptm_t[i * m + j];
-    s_colsum[j] = c;
-  }
-  __syncthreads();  // the tables, rows and limit1 are in shared memory
-
-  // The parents' fronts and remaining work: one thread a parent when the
-  // grid is more than the card holds at once (the fewest instructions), a
-  // wavefront of one lane a machine when it is not (the shortest chain).
-  if (lane_prologue || m > 32) {
-    for (int p = t; p < rows; p += blockDim.x) {
-      if (s_l1[p] != -2)
-        lb1_parent_state_colsum(s_par + p * n, s_l1[p], m, s, s_colsum,
-                                s.front + p * ms, s.remain + p * ms);
-    }
-  } else {
-    int G = 1;
-    while (G < m) G <<= 1;
-    const int groups = static_cast<int>(blockDim.x) / G;
-    const unsigned gmask =
-        G == 32 ? 0xffffffffu
-                : ((1u << G) - 1u) << ((t & 31) & ~(G - 1));
-    for (int p = t / G; p < rows; p += groups) {
-      const int l1 = s_l1[p];
-      if (l1 != -2)
-        lb1_parent_state_lanes(s_par + p * n, l1, m, s, s_colsum,
-                               s.front + p * ms, s.remain + p * ms, G, gmask);
-    }
-  }
-  __syncthreads();
-
-  int leafmin = TTS_INF_BOUND;
-  int* plane = lb + static_cast<size_t>(i0) * n;
-  int p = t / n, k = t - (t / n) * n;
-  const int dp = static_cast<int>(blockDim.x) / n;
-  const int dk = static_cast<int>(blockDim.x) - dp * n;
-  for (int slot = t; slot < rows * n; slot += blockDim.x) {
-    const int l1 = s_l1[p];
-    int v = TTS_INF_BOUND;
-    if (l1 != -2) {
-      v = lb1_child(s_par + p * n, k, m, s, s.front + p * ms,
-                    s.remain + p * ms);
-      if (k >= l1 + 1 && l1 + 2 == n) leafmin = min(leafmin, v);
-    }
-    plane[slot] = v;
-    p += dp;
-    k += dk;
-    if (k >= n) {
-      k -= n;
-      ++p;
-    }
-  }
-  pfsp_fold_leaves(leafmin, &s_leafmin, st);
-}
-
-// Launches 2-3 (count, emit) are `launch_pfsp_cycle_tail` of
-// cycle_pfsp.cuh, shared with the lb2 cycle.
-
-template <typename T>
-static int launch_cycle(void* pool_vals, void* pool_aux, void* st,
-                        void* chunk_vals, void* chunk_aux, void* lb,
-                        void* blkcnt, const void* ptm_t,
-                        const void* heads, const void* tails, int n, int m,
-                        int M, int C, int mterm, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int PB = TTS_CYCLE_PARENTS;
-  const int nblk = (M + PB - 1) / PB;
-  const int threads = tts_cycle_threads(nblk, PB * n, TTS_LB1_LOOP_THREADS);
-  // The stash region, then ptm (n*m), heads and tails (m), front and
-  // remain (PB at an odd stride m | 1), and the column sums (m).
-  const size_t smem = pfsp_stash_block_bytes<T>(n) +
-                      sizeof(int) * (static_cast<size_t>(n) * m + 2 * m +
-                                     2 * PB * (m | 1) + m);
-  int err = tts_smem_optin(cycle_bounds<T>, smem);
-  if (err) return err;
-  int* st_i = static_cast<int*>(st);
-  cycle_bounds<T><<<nblk, threads, smem, s>>>(
-      static_cast<const T*>(pool_vals), static_cast<const T*>(pool_aux), st_i,
-      static_cast<uint8_t*>(chunk_vals), static_cast<T*>(chunk_aux),
-      static_cast<int*>(lb), static_cast<const int*>(ptm_t),
-      static_cast<const int*>(heads), static_cast<const int*>(tails), n, m, M,
-      C, mterm, K, threads < tts_threads_for(PB * n));
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  return launch_pfsp_cycle_tail<T>(pool_vals, pool_aux, st_i, chunk_vals,
-                                   chunk_aux, static_cast<int*>(lb), blkcnt, n,
-                                   M, s);
-}
+//
+// The bodies of the three launches live in cycle_lb1.cuh and
+// cycle_pfsp.cuh, which kernel 9b (tiled_lb1.cu, the streamed cycle) runs
+// too, under its own kernel names and with the tile boundaries' row.
+#include "cycle_lb1.cuh"
 
 #define TTS_CYCLE_ENTRY(NAME, T)                                             \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,            \
                       void* chunk_vals, void* chunk_aux, void* lb,          \
-                      void* blkcnt, const void* ptm_t,        \
+                      void* blkcnt, const void* ptm_t,                      \
                       const void* heads, const void* tails, int n, int m,   \
                       int M, int C, int mterm, int K, void* stream) {       \
-    return launch_cycle<T>(pool_vals, pool_aux, st, chunk_vals, chunk_aux,  \
-                           lb, blkcnt, ptm_t, heads, tails, n, m, M, \
-                           C, mterm, K, stream);                            \
+    return launch_lb1_cycle<T, false>(pool_vals, pool_aux, st, chunk_vals,  \
+                                      chunk_aux, lb, blkcnt, nullptr, ptm_t, \
+                                      heads, tails, n, m, M, M, C, mterm, K, \
+                                      stream);                               \
   }
 
 TTS_CYCLE_ENTRY(cycle_lb1_i8, int8_t)

@@ -1,7 +1,9 @@
-// Shared code of the fused PFSP cycles (cycle_lb1.cu, cycle_lb2.cu), which
-// differ only in the bound that launch 1 writes into the (M*n) plane.
+// Shared code of the fused PFSP cycles (cycle_lb1.cu, cycle_lb2.cu, and the
+// streamed tiled_lb1.cu, tiled_lb2.cu through cycle_lb1.cuh and
+// cycle_lb2.cuh), which differ only in the bound that launch 1 writes into
+// the (M*n) plane and, streamed, in the tile boundaries' row.
 //
-// Launch 1 of both starts with `pfsp_cycle_begin` (the loop condition) and
+// Launch 1 of each starts with `pfsp_cycle_begin` (the loop condition) and
 // a pop into the stash, and ends with `pfsp_fold_leaves` (the incumbent
 // folded over the chunk's leaves); launches 2-3 (count, emit) read only the
 // plane, the mask words and the stash, and are `launch_pfsp_cycle_tail`.
@@ -102,23 +104,12 @@ __device__ __forceinline__ void pfsp_fold_leaves(int leafmin, int* s_leafmin,
     atomicMin(&st[ST_BEST], *s_leafmin);
 }
 
-// keep / leaf flags of slot (p, k) of the popped chunk (the streamed
-// cycles' emit, tiled_pfsp.cuh).
-template <typename T>
-__device__ __forceinline__ void slot_flags(const T* chunk_aux, const int* lb,
-                                           int i, int k, int n, int best,
-                                           bool* keep, bool* leaf) {
-  const int l1 = static_cast<int>(chunk_aux[i]);
-  const bool open = k >= l1 + 1;
-  *leaf = open && (l1 + 2 == n);
-  *keep = open && !*leaf && lb[static_cast<size_t>(i) * n + k] < best;
-}
-
 // Launch 2: keep = open & ~leaf & lb < best of every slot of the block's
 // TTS_CYCLE_PARENTS parents, read once from the plane and packed into W =
 // ceil(n/32) mask words a parent; the block's survivor count and leaves
 // (a popped parent at limit1 = n-2 has one child, a leaf), published by
-// cycle_publish_counts<TILES> (TILES: the streamed cycle, kernel 9c).
+// cycle_publish_counts<TILES> (TILES: the streamed cycles, kernels 9b and
+// 9c).
 template <typename T, bool TILES>
 __device__ __forceinline__ void cycle_count_body(
     int* st, const T* __restrict__ chunk_aux, const int* __restrict__ lb,
@@ -190,7 +181,7 @@ __global__ void cycle_count(int* st, const T* __restrict__ chunk_aux,
   cycle_count_body<T, false>(st, chunk_aux, lb, mask, blkcnt, n, M);
 }
 
-// The streamed cycle's count launch (kernel 9c).
+// The streamed cycles' count launch (kernels 9b and 9c).
 template <typename T>
 __global__ void pfsp_tiles_count(int* st, const T* __restrict__ chunk_aux,
                                  const int* __restrict__ lb,
@@ -202,7 +193,7 @@ __global__ void pfsp_tiles_count(int* st, const T* __restrict__ chunk_aux,
 // Launch 3: the block's offset from the counts before it, its survivors
 // ranked from its mask words and stored as one span (emit_block_children),
 // the parents read from the stash; the last block updates the state.
-// TILES (the streamed cycle, kernel 9c): and the block's rows of the
+// TILES (the streamed cycles, kernels 9b and 9c): and the block's rows of the
 // boundary row bnd (tiles of mt parents, cycle_common.cuh
 // `emit_tile_bounds`), whose solution counts are the leaves.
 template <typename T, bool TILES>
@@ -283,7 +274,7 @@ __global__ void cycle_emit(T* __restrict__ pool_vals,
                             blkcnt, n, M, span_rows, bnd, mt);
 }
 
-// The streamed cycle's emit launch (kernel 9c).
+// The streamed cycles' emit launch (kernels 9b and 9c).
 template <typename T>
 __global__ void pfsp_tiles_emit(T* __restrict__ pool_vals,
                                 T* __restrict__ pool_aux, int* st,

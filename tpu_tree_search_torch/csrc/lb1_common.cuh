@@ -1,5 +1,5 @@
 // Shared device code of the lb1 kernels (lb1_bounds.cu, lb1_d_bounds.cu,
-// cycle_lb1.cu); the lb2 kernels share its front scan and block size.
+// cycle_lb1.cuh); the lb2 kernels share its front scan and parent state.
 //
 // The per-parent prologue and the per-child chain of the PFSP one-machine
 // bound lb1 (`c_bound_simple.c:51-158`, forward branching, so the tail
@@ -13,17 +13,6 @@
 
 #include "tts_common.cuh"
 
-// Parents handled by one block. Threads 0..PB-1 run the O(n*m) parent
-// prologue; then all threads run one child slot each, PB*n slots a block.
-#define TTS_PARENTS_PER_BLOCK 8
-
-// Dynamic shared memory of a block: ptm (n*m), heads (m), tails (m),
-// front (PB*m), remain (PB*m).
-static inline size_t tts_lb1_smem_bytes(int n, int m) {
-  return sizeof(int) * (static_cast<size_t>(n) * m + 2 * m +
-                        2 * TTS_PARENTS_PER_BLOCK * m);
-}
-
 struct Lb1Smem {
   int* ptm;
   int* heads;
@@ -31,16 +20,6 @@ struct Lb1Smem {
   int* front;
   int* remain;
 };
-
-__device__ __forceinline__ Lb1Smem lb1_smem_layout(int* smem, int n, int m) {
-  Lb1Smem s;
-  s.ptm = smem;
-  s.heads = s.ptm + n * m;
-  s.tails = s.heads + m;
-  s.front = s.tails + m;
-  s.remain = s.front + TTS_PARENTS_PER_BLOCK * m;
-  return s;
-}
 
 __device__ __forceinline__ void lb1_load_tables(const Lb1Smem& s,
                                                 const int* ptm_t,

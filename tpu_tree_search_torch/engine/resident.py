@@ -74,11 +74,11 @@ from ..ops.pfsp_device import lb1_bounds, lb2_bounds_staged
 from ..ops.tiled import (
     check_tile,
     tiled_lb1,
+    tiled_lb1_scratch,
     tiled_lb2,
     tiled_lb2_scratch,
     tiled_nqueens,
     tiled_nqueens_scratch,
-    tiled_scratch,
 )
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
@@ -355,7 +355,7 @@ class PFSPResident(_ResidentProgram):
     def _make_scratch(self):
         if self.tiled:
             make = (tiled_lb2_scratch if self.problem.lb == "lb2"
-                    else tiled_scratch)
+                    else tiled_lb1_scratch)
             return make(self.M, self.problem.jobs, self.mt, self.vals_dtype,
                         self.device)
         return cycle_scratch(self.M, self.problem.jobs, self.vals_dtype,

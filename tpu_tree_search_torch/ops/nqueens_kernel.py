@@ -8,7 +8,8 @@ says what bounds it on the card and how the design answers that.
 anything it does not take: board uint8 (B, N) with N <= 32, depth (B,) int8
 or int32 (the device pool's storage types). ``plain`` is its plain PyTorch
 version (`ops/nqueens_device.labels_chunk`).
-``nqueens_labels_cuda.launches`` counts the launches.
+``nqueens_labels_cuda.launches`` counts the launches; ``last_shape`` reads
+the block shape of the last one.
 """
 
 from __future__ import annotations
@@ -28,6 +29,18 @@ MAX_N = 32
 
 _ENTRIES = {torch.int8: "nqueens_labels_i8", torch.int32: "nqueens_labels_i32"}
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+
+
+def last_shape() -> dict:
+    """The block shape of kernel 3's last launch in this process: parents
+    a tile (the threads of a block), blocks, tiles, packed words of queens
+    a parent, and the blocks an SM holds at once."""
+    _, fn = _build.entry("nqueens_labels", "nqueens_labels_last_shape",
+                         (ctypes.POINTER(ctypes.c_int),), None)
+    out = (ctypes.c_int * 5)()
+    fn(out)
+    return {"parents": out[0], "blocks": out[1], "tiles": out[2],
+            "words": out[3], "blocks_per_sm": out[4]}
 
 
 def nqueens_labels_cuda(board: torch.Tensor, depth: torch.Tensor, N: int,

@@ -6,12 +6,10 @@ Kernel 9a replaces the TPU kernel `_mega_nqueens_tiled_kernel`, kernel 9b
 (`tpu_tree_search/ops/megakernel.py`, with the tiled branch of `make_cycle`
 and the stitch of `engine/resident.py`); sources `csrc/tiled_nqueens.cu`,
 `csrc/tiled_lb1.cu` and `csrc/tiled_lb2.cu`, whose header notes give the
-launches of a cycle and what bounds them on the card. Kernels 9a and 9c run
-the single-tile cycles' launches (kernels 4 and 8: `csrc/cycle_nqueens.cuh`,
-`csrc/cycle_lb2.cuh`) and write beside them a boundary row, from which
-``scal_from_bounds`` derives the per-tile scalars; kernel 9b runs a sweep
-and an emit of its own, one block a tile, carried across tiles by the
-look-back of `csrc/tiled_common.cuh`.
+launches of a cycle and what bounds them on the card. Each runs the
+single-tile cycle's launches (kernels 4, 2 and 8: `csrc/cycle_nqueens.cuh`,
+`csrc/cycle_lb1.cuh`, `csrc/cycle_lb2.cuh`) and writes beside them a
+boundary row, from which ``scal_from_bounds`` derives the per-tile scalars.
 
 The streamed cycle computes what the single-tile cycle of `ops/cycle.py` and
 `ops/cycle_nqueens.py` computes, with the popped chunk of M parents cut into
@@ -25,7 +23,7 @@ JAX rule (a multiple of 8 that divides M) and raises where the JAX resolver
 records a refusal.
 
 One call of ``tiled_lb1_cuda``, ``tiled_lb2_cuda`` or ``tiled_nqueens_cuda``
-enqueues one cycle (two launches; three for lb2) on the loop state of
+enqueues one cycle (three launches; two for N-Queens) on the loop state of
 `ops/cycle.py`; when the loop condition is false it is an exact no-op, so
 the engine enqueues K of them with no host synchronisation. Each wrapper's
 ``launches`` counts its calls.
@@ -79,42 +77,6 @@ def check_tile(M: int, mt: int) -> int:
     return M // mt
 
 
-@dataclass
-class TiledScratch:
-    """Device buffers of kernel 9b's streamed cycle: the popped chunk's
-    stash, the (M*n) int32 bound stash, the (G, 4) per-tile scalars (offs,
-    cnt, sol_cum, best), the per-tile look-back status words and the tile
-    ticket."""
-
-    chunk_vals: torch.Tensor
-    chunk_aux: torch.Tensor
-    plane: torch.Tensor
-    scal: torch.Tensor
-    status: torch.Tensor
-    ticket: torch.Tensor
-
-    def pointers(self) -> tuple[int, ...]:
-        """The scratch operands in the C entry's order."""
-        return (self.chunk_vals.data_ptr(), self.chunk_aux.data_ptr(),
-                self.plane.data_ptr(), self.status.data_ptr(),
-                self.ticket.data_ptr(), self.scal.data_ptr())
-
-
-def tiled_scratch(M: int, n: int, mt: int, dtype: torch.dtype,
-                  device) -> TiledScratch:
-    """Kernel 9b's (the streamed lb1 cycle's) scratch: pool-dtype stash,
-    int32 bound stash."""
-    G = check_tile(M, mt)
-    return TiledScratch(
-        chunk_vals=torch.empty((M, n), dtype=dtype, device=device),
-        chunk_aux=torch.empty(M, dtype=dtype, device=device),
-        plane=torch.empty(M * n, dtype=torch.int32, device=device),
-        scal=torch.zeros((G, 4), dtype=torch.int32, device=device),
-        status=torch.zeros(G, dtype=torch.int64, device=device),
-        ticket=torch.zeros(1, dtype=torch.int32, device=device),
-    )
-
-
 def scal_from_bounds(bounds: torch.Tensor) -> torch.Tensor:
     """The (G, 4) per-tile scalars (offs, cnt, sol_cum, best) of the TPU
     kernels (`_tile_scalar_lanes`) from a (G + 1, 3) boundary row: row b
@@ -127,7 +89,7 @@ def scal_from_bounds(bounds: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class TileBoundsScratch:
-    """Device buffers of kernels 9a and 9c: the single-tile cycle's scratch
+    """Device buffers of kernels 9a, 9b and 9c: the single-tile cycle's scratch
     (``CycleScratch`` of `ops/cycle.py`, with a (survivors, solutions) pair
     a block in ``blkcnt``) and the boundary row ``bounds`` (G + 1, 3) int32
     that their emit writes (``scal_from_bounds``).
@@ -161,6 +123,15 @@ class TileBoundsScratch:
         return (c.chunk_vals.data_ptr(), c.chunk_aux.data_ptr(),
                 c.plane.data_ptr(), c.blkcnt.data_ptr(),
                 self.bounds.data_ptr())
+
+
+def tiled_lb1_scratch(M: int, n: int, mt: int, dtype: torch.dtype,
+                      device) -> TileBoundsScratch:
+    """Kernel 9b's (the streamed lb1 cycle's) scratch: kernel 2's
+    (``cycle_scratch``) and the boundary row."""
+    return TileBoundsScratch.make(M, n, mt, dtype.itemsize, dtype,
+                                  pfsp_plane_words(M, n),
+                                  parents_per_block("tiled_lb1"), device)
 
 
 def tiled_lb2_scratch(M: int, n: int, mt: int, dtype: torch.dtype,
@@ -282,7 +253,7 @@ _ENTRIES = {
     "tiled_nqueens": {torch.uint8: "tiled_nqueens"},
 }
 _ARGTYPES = {
-    "tiled_lb1": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
+    "tiled_lb1": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
     + (ctypes.c_void_p,),
     "tiled_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
     + (ctypes.c_void_p,),
@@ -331,7 +302,7 @@ def _launch_tiled(source: str, pool_vals: torch.Tensor,
 def _bounds_fits(source: str, scratch, M: int, n: int, mt: int,
                  itemsize: int, aux_dtype: torch.dtype,
                  plane_words: int) -> bool:
-    """Whether ``scratch`` is kernel 9a's or 9c's for these sizes."""
+    """Whether ``scratch`` is kernel 9a's, 9b's or 9c's for these sizes."""
     return (isinstance(scratch, TileBoundsScratch)
             and scratch.bounds.shape == (M // mt + 1, 3)
             and scratch.bounds.dtype == torch.int32
@@ -340,24 +311,20 @@ def _bounds_fits(source: str, scratch, M: int, n: int, mt: int,
 
 
 def tiled_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
-                   st: torch.Tensor, scratch: TiledScratch,
+                   st: torch.Tensor, scratch: TileBoundsScratch,
                    tables: PFSPDeviceTables, M: int, mt: int, m: int,
                    K: int) -> None:
-    """Enqueue one streamed lb1 cycle (two launches) on the current stream;
-    updates the pool, ``st`` and ``scratch.scal`` in place on the device,
-    never synchronises."""
+    """Enqueue one streamed lb1 cycle (kernel 2's three launches, with the
+    boundary row) on the current stream; updates the pool, ``st`` and
+    ``scratch.bounds`` in place on the device, never synchronises."""
     n = tables.jobs
-    if M * n >= 2**31:
-        raise ValueError("M * width must stay below 2**31 (the look-back "
-                         "status words hold 31-bit counts)")
     _launch_tiled(
         "tiled_lb1", pool_vals, pool_aux, st, scratch, n, M, mt, m, K,
         lambda: ((tables.ptm_t, tables.min_heads, tables.min_tails),
                  (tables.jobs, tables.machines)),
-        lambda: (isinstance(scratch, TiledScratch)
-                 and scratch.chunk_vals.shape == (M, n)
-                 and scratch.chunk_vals.dtype == pool_vals.dtype
-                 and scratch.scal.shape == (M // mt, 4)))
+        lambda: _bounds_fits("tiled_lb1", scratch, M, n, mt,
+                             pool_vals.element_size(), pool_vals.dtype,
+                             pfsp_plane_words(M, n)))
     tiled_lb1_cuda.launches += 1  # type: ignore[attr-defined]
 
 
@@ -422,7 +389,7 @@ def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, spec,
         plain_cycle(pool_vals, pool_aux, st, spec, M, mt, m, K)
 
 
-def tiled_lb1(pool_vals, pool_aux, st, scratch: TiledScratch | None,
+def tiled_lb1(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,
               tables: PFSPDeviceTables, M: int, mt: int, m: int, K: int):
     """One streamed lb1 cycle routed by device: the CUDA kernel for a CUDA
     pool (which launches or raises), the plain version for a CPU pool."""
