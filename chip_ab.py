@@ -10,8 +10,9 @@ B the checkout this script sits in. Each run's output goes to
 ``DIR/<run>_<A|B>.log`` (default ``_checkout/ab``, gitignored). Prints
 one JSON line a run (exit code, the card as ``nvidia-smi`` names it, every
 kernel's time from the ``kernels`` line, the rows of kernels 1, 3 and 5,
-of the fused and streamed cycles (kernels 2, 4, 8 and 9a-9c) and of kernel
-6 with the cycles' device time by launch,
+of the fused and streamed cycles (kernels 2, 4, 8 and 9a-9c), of kernel 6
+and of kernel 7 (keyed by R and n_active) with the cycles' device time by
+launch,
 the searches' times and the profiled searches' device times), then one line
 that sets the four runs side by side. Exits non-zero when a run failed.
 """
@@ -27,12 +28,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 CYCLE_PHASES = ("kernel1", "kernel2", "kernel3", "kernel4", "kernel5", "kernel6",
-                "kernel8", "kernel9", "kernel10", "kernel11")
+                "kernel7", "kernel8", "kernel9", "kernel10", "kernel11")
 # The kernel 1 and 5 rows of a checkout that names no instance are ta014's.
 DEFAULT_INST = {"kernel1": "ta014", "kernel5": "ta014"}
 # The fields that name a row of those phases (those it has, in this order).
 ROW_FIELDS = ("phase", "inst", "n", "N", "dtype", "M", "mt", "B", "g", "chunk",
-              "incumbent")
+              "incumbent", "R", "n_active")
 
 
 def summarize(stdout: str) -> dict:

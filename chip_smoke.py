@@ -57,9 +57,12 @@ ends the script with a non-zero exit before the final line:
      chose (``block``: parents and threads a block, shared memory, and
      whether the whole grid fit on the card at once);
  14. ``kernel7`` (the staged self lb2) against its plain version on ta014:
-     R = 1024*20 and 49152*20 rows, n_active at a quarter and at R; bit-equal
-     on the active rows, and the quarter/full time ratio (the blocks past
-     n_active return at once);
+     R = 1024*20 and 49152*20 rows, n_active at a quarter and at R, and
+     the rows of the staged ta014 lb2 search's launches 1, 5 and 9 (R =
+     49152*20; n_active 185, 9,372 and 74,171), copied from a run of that
+     search; bit-equal on the active rows, each row with its grid and the
+     work split its launch took, and the quarter/full time ratio (the
+     blocks past n_active return at once);
  15. ``kernel8`` (the fused lb2 cycle) against its plain version, as kernel 2
      in phase 4, on ta014 and on ta021 tables (20 machines, P = 190 pairs,
      where lb2 costs the most), each row with its bounds launch's block
@@ -86,7 +89,7 @@ ends the script with a non-zero exit before the final line:
  20. the lb2 searches (and the streamed one) again under ``torch.profiler``,
      the unfused ta014 lb1 search at M = 1024, the ta014 lb1_d search and
      the unfused N-Queens N = 14 search (with kernel 1's, 5's, resp. 3's,
-     device time a search; the staged lb2 search with kernel 1's), then
+     device time a search; the staged lb2 search with kernels 1 and 7's), then
      ta014 lb1 and N-Queens N = 15, single-tile and streamed: device time
      by kernel against the device phase's wall time (the busy share),
      and for the single-tile ta014 lb1 (kernel 2) and N-Queens (kernel 4)
@@ -106,8 +109,9 @@ bytes the function must move over 3.35 TB/s and its int32 operations over
 67 T/s (the H100 SXM data-sheet rates, a card at its 700 W limit). The lb2
 rows count the operations of the per-parent pair pass (``lb2_scan_ops``)
 and print the per-child recurrence's count beside it as
-``child_loop_bound_ms`` (``lb2_ops``; kernel 7, one bound a row, keeps it
-as its bound). The last
+``child_loop_bound_ms`` (``lb2_ops``); kernel 7 (one bound a row) counts
+its walks by free job (``lb2_self_ops``) and prints the all-slots count
+beside it as ``all_slots_bound_ms``. The last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -288,6 +292,16 @@ def lb2_ops(limit1: np.ndarray, n: int, m: int, P: int,
     return pro + l1.size * per
 
 
+def lb2_self_ops(limit1: np.ndarray, n: int, m: int, P: int) -> float:
+    """int32 operations of the self lb2 by free jobs (kernel 7's walks):
+    per row the front scan, (l1+1)*m*2, n for its free-job mask, and per
+    pair 5 a free job (the recurrence and the walk's step) and 4 for the
+    pair's tails and maxes: P*(5r + 4) with r = n-l1-1."""
+    l1 = limit1.astype(np.int64)
+    r = n - l1 - 1
+    return float(np.sum((l1 + 1) * m * 2 + n + P * (5 * r + 4)))
+
+
 # Operations of one free job in one (parent, pair) task of the pair pass
 # (`lb2p_pair`, csrc/lb2_common.cuh): 9 in the forward walk (the two prefix
 # sums, the term, its atomicMax and the prefix maximum) and 9 in the
@@ -342,6 +356,43 @@ def random_nodes(rng, n: int, B: int, deep_share: float = 0.25):
     limit1 = rng.integers(-1, n - 2, B).astype(np.int32)
     limit1[rng.random(B) < deep_share] = n - 2
     return prmu, limit1
+
+
+# Kernel 7's launches on the staged ta014 lb2 search (seventeen, each of
+# R = 49152*20 rows) that phase kernel7 times: launches 1, 5 and 9 by
+# their index, with the counts they have there.
+K7_SEARCH_LAUNCHES = {0: 185, 4: 9372, 8: 74171}
+
+
+def capture_self_launches(run, keep=None) -> list[dict]:
+    """Kernel 7's inputs as a search hands them over: ``run()`` runs a
+    staged lb2 search with ``pfsp_device.lb2_self_bounds`` wrapped so that
+    each call's rows and limit1 are copied before the call (the calls whose
+    index is in ``keep``; every call when it is None). One dict a call:
+    ``index``, ``n_active`` (read after the search), ``rows`` and
+    ``limit1`` (the copies, or None)."""
+    from tpu_tree_search_torch.ops import pfsp_device
+
+    real = pfsp_device.lb2_self_bounds
+    calls = []
+
+    def hook(rows, limit1, n_active, tables):
+        mine = keep is None or len(calls) in keep
+        calls.append(dict(index=len(calls),
+                          n_active=(n_active.clone() if isinstance(n_active, torch.Tensor)
+                                    else n_active),
+                          rows=rows.clone() if mine else None,
+                          limit1=limit1.clone() if mine else None))
+        return real(rows, limit1, n_active, tables)
+
+    pfsp_device.lb2_self_bounds = hook
+    try:
+        run()
+    finally:
+        pfsp_device.lb2_self_bounds = real
+    for c in calls:
+        c["n_active"] = int(c["n_active"])
+    return calls
 
 
 def phase_device() -> dict:
@@ -634,33 +685,65 @@ def phase_kernel6(dev, lb2_tables: dict) -> dict:
 
 
 def phase_kernel7(dev, tables) -> dict:
+    """Kernel 7 against its plain version on ta014: R = 1024*20 and
+    49152*20 ``random_nodes`` rows at n_active a quarter of R and R, and
+    the rows of the staged ta014 lb2 search's own launches
+    (``K7_SEARCH_LAUNCHES``, copied from a run of that search by
+    ``capture_self_launches``); bit-equal on the active rows. Each row with
+    its grid (``block``: threads, the most rows a thread, blocks, shared
+    memory, blocks an SM, the table's stride), the lanes a row and rows a
+    thread that the launch took from n_active as its block 0 wrote them
+    (``split``, checked against the mirror ``lb2_self_kernel.split``), and
+    two bounds: the free-job count (``lb2_self_ops``) and the all-slots
+    count (``all_slots_bound_ms``, ``lb2_ops``)."""
     from tpu_tree_search_torch.ops import lb2_self_kernel
 
     n, m, P = tables.jobs, tables.machines, tables.johnson.pair_count
     rng = np.random.default_rng(7)
     rows = {}
+    cases = []
     for B in (1024, 49152):
         R = B * n
         prmu, limit1 = random_nodes(rng, n, R)
-        p = torch.from_numpy(prmu).to(dev).to(torch.int8)
-        lim = torch.from_numpy(limit1).to(dev).to(torch.int8)
-        want = lb2_self_kernel.plain(p, lim, R, tables)
-        for nact in (R // 4, R):
+        cases += [(torch.from_numpy(prmu).to(dev).to(torch.int8),
+                   torch.from_numpy(limit1).to(dev).to(torch.int8), (R // 4, R), None)]
+    launches = capture_self_launches(
+        lambda: run_search(PFSP_LB2 + ["--unfused"], GOLDEN_LB2), keep=K7_SEARCH_LAUNCHES)
+    emit("kernel7_search_launches", n_active=[c["n_active"] for c in launches])
+    for i, want_count in K7_SEARCH_LAUNCHES.items():
+        c = launches[i]
+        check(c["n_active"] == want_count, f"the staged search's kernel 7 launch {i + 1} "
+              f"has {c['n_active']} rows, not {want_count}")
+        cases += [(c["rows"], c["limit1"], (c["n_active"],), i + 1)]
+    for p, lim, counts, launch in cases:
+        R = p.shape[0]
+        limit1 = lim.cpu().numpy().astype(np.int32)
+        for nact in counts:
+            want = lb2_self_kernel.plain(p[:nact], lim[:nact], nact, tables)
             na = torch.tensor(nact, dtype=torch.int32, device=dev)
             got = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, tables)
             torch.cuda.synchronize()
-            err = int((got[:nact].long() - want[:nact].long()).abs().max())
+            err = int((got[:nact].long() - want.long()).abs().max())
             check(err == 0, f"lb2 self kernel differs from plain (R={R}, n_active={nact})")
+            block = lb2_self_kernel.last_shape()
+            split = lb2_self_kernel.last_split()
+            check(split == lb2_self_kernel.split(nact, block["blocks"], block["threads"],
+                                                 block["rows"], P, m),
+                  f"lb2 self kernel took the split {split} at n_active={nact}, "
+                  "not the mirror's")
             call = lambda: lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, tables)  # noqa: E731
             ms, timing = kernel_device_ms(call, 30, ("lb2_self_bounds_kernel",))
             call_ms = median_ms(call, 30)
             plain_ms = median_ms(lambda: lb2_self_kernel.plain(p, lim, na, tables), 3)
             nbytes = nact * (n + 1 + 4) + johnson_bytes(tables)
-            bms, by = bound_ms(nbytes, lb2_ops(limit1[:nact], n, m, P, child=False))
-            rows[(R, nact)] = dict(R=R, n_active=nact, dtype="torch.int8",
-                                   max_abs_err=err, ms=ms, timing=timing,
-                                   call_ms=call_ms, plain_ms=plain_ms,
-                                   bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+            bms, by = bound_ms(nbytes, lb2_self_ops(limit1[:nact], n, m, P))
+            rows[(R, nact)] = dict(
+                R=R, n_active=nact, dtype=str(p.dtype), search_launch=launch,
+                mean_limit1=float(limit1[:nact].mean()), block=block, split=split,
+                max_abs_err=err, ms=ms, timing=timing, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
+                all_slots_bound_ms=bound_ms(
+                    nbytes, lb2_ops(limit1[:nact], n, m, P, child=False))[0])
             emit("kernel7", **rows[(R, nact)])
     R = 49152 * n
     ratio = rows[(R, R // 4)]["ms"] / rows[(R, R)]["ms"]
@@ -933,7 +1016,7 @@ def phase_search(name: str, argv: list[str], counters: dict,
 
 
 def phase_profile(name: str, argv: list[str], golden: dict,
-                  cycle: tuple | None = None, kernel: str | None = None,
+                  cycle: tuple | None = None, kernels: tuple[str, ...] = (),
                   host: bool = True, **library_kwargs) -> dict:
     """One search again under ``torch.profiler``: the device time of every
     kernel and copy in the run, summed by name (the top five are printed),
@@ -942,8 +1025,9 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     the wall time, so the share is a lower bound. ``cycle``, (wrapper,
     kernel names, launches): the wrapper's calls in the run, the launches
     of those kernels the profiler counted, and a check that each call made
-    ``launches`` of them and that no ``cycle_scan`` launch ran. ``kernel``,
-    a kernel name: its device time in the run and its launches there.
+    ``launches`` of them and that no ``cycle_scan`` launch ran. ``kernels``,
+    kernel names: each one's device time in the run and its launches there
+    (``kernel_device_ms``, ``kernel_launches``, by name).
     ``host=False`` traces the device alone (the unfused searches' host
     trace, hundreds of thousands of events, takes minutes to read)."""
     from torch.autograd import DeviceType
@@ -969,10 +1053,11 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     out = dict(search=name, device_busy_ms=busy_ms, phase2_ms=phase2_ms,
                busy_share=busy_ms / phase2_ms, top_device_ms=top, host_traced=host,
                seconds=time.perf_counter() - t0)
-    if kernel is not None:
-        out.update(kernel=kernel,
-                   kernel_device_ms=sum(v for k, v in by_name.items() if kernel in k),
-                   kernel_launches=sum(c for k, c in counts.items() if kernel in k))
+    if kernels:
+        out.update(kernel_device_ms={kn: sum(v for k, v in by_name.items() if kn in k)
+                                     for kn in kernels},
+                   kernel_launches={kn: sum(c for k, c in counts.items() if kn in k)
+                                    for kn in kernels})
     if cycle is not None:
         _, names, per_call = cycle
         calls = rec["launches"]["cycle"]
@@ -1163,7 +1248,7 @@ def main() -> int:
     for name, extra, kwargs in [
             ("search_lb2_fused_M49152", [], {}),
             ("search_lb2_fused_M1024", ["--M", "1024"], {}),
-            ("search_lb2_unfused_staged", ["--unfused"], dict(kernel="lb1_bounds_kernel")),
+            ("search_lb2_unfused_staged", ["--unfused"], dict(kernels=("lb1_bounds_kernel", "lb2_self_bounds_kernel"))),
             ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False)),
             ("search_lb2_tiled_M49152", ["--mt", "64"],
              dict(cycle=(T.tiled_lb2_cuda, TILED_KERNELS["lb2"], 3)))]:
@@ -1171,13 +1256,13 @@ def main() -> int:
     # Kernels 1 and 5 on their search paths: their device time a search
     # (the unfused search's 2,519 cycles traced on the device alone).
     phase_profile("search_unfused_M1024", PFSP_LB1 + ["--M", "1024", "--unfused"], GOLDEN,
-                  kernel="lb1_bounds_kernel", host=False)
-    phase_profile("search_lb1_d", PFSP_LB1D, GOLDEN, kernel="lb1_d_bounds_kernel")
+                  kernels=("lb1_bounds_kernel",), host=False)
+    phase_profile("search_lb1_d", PFSP_LB1D, GOLDEN, kernels=("lb1_d_bounds_kernel",))
     # Kernel 3 on its search path: its device time over the unfused N=14
     # search's 555 cycles (the device alone, as the unfused lb1 search).
     phase_profile("search_nqueens_N14_unfused",
                   ["nqueens", "--N", "14", "--tier", "device", "--unfused"], NQ_GOLDEN[14],
-                  kernel="nqueens_labels_kernel", host=False)
+                  kernels=("nqueens_labels_kernel",), host=False)
     # The streamed searches beside the single-tile ones, in the same run;
     # the single-tile ones count kernel 2's and kernel 4's launches a cycle.
     for name, argv, golden, cycle in [
@@ -1232,7 +1317,7 @@ def main() -> int:
         ("lb2_bounds", "lb2_bounds.cu", "pallas_kernels.py:746",
          lb2u, "ta014 B=49152 int8", k6, k6[("ta014", 49152, "torch.int8")]),
         ("lb2_self_bounds", "lb2_self_bounds.cu", "pallas_kernels.py:909",
-         lb2s, "ta014 R=49152*20 int8, n_active=R/4", k7,
+         lb2s, "ta014 R=49152*20 int8, n_active=R/4 (random_nodes rows)", k7,
          k7[(49152 * 20, 49152 * 20 // 4)]),
         ("cycle_lb2", "cycle_lb2.cu", "megakernel.py:588",
          lb2f, "ta014 M=49152 full chunk, finite incumbent",
@@ -1267,10 +1352,12 @@ def main() -> int:
             "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None,
-            # The lb2 rows: the per-child recurrence's bound; the lb1_d, lb2
-            # and labels rows: the block shape; the cycles' rows: the device
-            # time by launch and the launches a cycle.
-            **{k: main_row[k] for k in ("child_loop_bound_ms", "block", "launch_ms",
+            # The lb2 rows: the per-child recurrence's bound (kernel 7: the
+            # all-slots count, and its work split); the lb1_d, lb2 and
+            # labels rows: the block shape; the cycles' rows: the device time
+            # by launch and the launches a cycle.
+            **{k: main_row[k] for k in ("child_loop_bound_ms", "all_slots_bound_ms",
+                                        "split", "block", "launch_ms",
                                         "launches_per_cycle")
                if k in main_row}})
     print(json.dumps({"kernels": kernels}), flush=True)

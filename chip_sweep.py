@@ -7,6 +7,8 @@ its CUDA sources.
     python3 chip_sweep.py VARIANTS.json [--rounds N] [--family ...]
     python3 chip_sweep.py --lb1-steps [--rounds N]
     python3 chip_sweep.py --tiled-steps [--rounds N]
+    python3 chip_sweep.py --lb2self-steps [--rounds N] [--parent DIR]
+    python3 chip_sweep.py --optin-steps [--rounds N] [--parent DIR]
 
 ``--family lb1``: kernel 1 (``lb1_bounds``) and kernel 5
 (``lb1_d_bounds``) on ta014 at B = 1024 and 49152, int8 and int32, on
@@ -23,6 +25,16 @@ lb1 cycle (kernel 9b) on ta014 at M = 49152 (mt = 64) and M = 1024
 each beside the single-tile cycle whose launches it runs (kernels 4, 2 and
 8) at its M; and the N-Queens labels (kernel 3) at B = 50000, N = 14 and
 15, g = 1, and N = 15, g = 256, and at B = 1024, N = 15 and 20, g = 1.
+``--family lb2self``: kernel 7 (``lb2_self_bounds``) on the rows of the
+staged ta014 lb2 search's launches 1, 5 and 9 (R = 49152*20; n_active
+185, 9,372 and 74,171; copied from a run of that search,
+``capture_self_launches`` and ``K7_SEARCH_LAUNCHES`` of `chip_smoke.py`),
+at a quarter and all of R ``random_nodes`` rows, and on ta021 at 9,372
+``random_nodes`` rows, with the lanes a row and rows a thread each launch
+took; then its device time and launches over the staged ta014 lb2 search
+(``search_k7_ms``, ``search_k7_launches``). ``--family kernel6``: kernel
+6's rows of `chip_smoke.py` (its phase ``kernel6``, in its order: ta014,
+ta021, ta051, ta081).
 Each kernel is checked against its plain version
 (``err`` is the largest difference on the open slots; for a cycle, on the
 state, the live pool rows and the per-tile scalars), then timed by the
@@ -38,12 +50,21 @@ changes what a kernel computes shows in its ``err``. ``--lb1-steps`` runs
 the built-in variants ``LB1_STEPS`` of kernels 1 and 5 (the design steps
 of their shared body, `csrc/lb1_family.cuh`) the same way, and
 ``--tiled-steps`` the variants ``TILED_STEPS`` of the cycles' shared
-bodies (`csrc/cycle_common.cuh`) under ``--family tiled``.
+bodies (`csrc/cycle_common.cuh`) under ``--family tiled``, and
+``--lb2self-steps`` the variants ``LB2SELF_STEPS`` of kernel 7 (the kernel
+before its redesign first) under ``--family lb2self``, and
+``--optin-steps`` ``OPTIN_STEPS`` (the shared-memory opt-in before and
+after it learned to cache) under ``--family kernel6``. A variant may take
+a source whole from a checkout of the commit before kernel 7's redesign
+(``PARENT``): ``--parent DIR``, default ``_checkout/parent``, made by
+``git archive <commit> | tar -x -C _checkout/parent``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import shutil
 import subprocess
@@ -166,9 +187,120 @@ TILED_STEPS = [
 ]
 
 
-def make_variant(root: Path, dest: Path, subs: dict) -> None:
+# A source taken whole from the parent checkout (``--parent``).
+PARENT = "@parent"
+
+# The design steps of kernel 7 (csrc/lb2_self_bounds.cu), as text
+# substitutions: first the kernel as it was before its redesign (its source
+# and the helpers it had in lb2_common.cuh, from the parent checkout), then
+# the committed design and its steps one at a time: the walk over the free
+# slots only (each row's free jobs through the pair's inverse table into a
+# slot mask, its bits walked in order with __ffs; step 3's other walk), the
+# grid sized by R (step 1 off), fixed lanes a row (step 2), at most 2 or 1
+# rows a thread (the walk's shared slot loads), the recurrence's max by
+# Hopper's DPX instruction (max(a + b, c) in one), the slot loop not
+# unrolled, rows read from global memory (step 4, int8 rows only), and 256
+# threads a block.
+_K7 = "lb2_self_bounds.cu"
+_K7_WALK = """    const short4* e = s.tab + q * ns;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const short4 v = e[k];
+      const uint32_t bit = 1u << (v.w & 31);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        uint32_t word = fm[i][0];
+#pragma unroll
+        for (int w = 1; w < W; ++w)
+          if ((v.w >> 5) == w) word = fm[i][w];
+        if (word & bit) {
+          tmp0[i] += v.x;
+          tmp1[i] = max(tmp1[i], tmp0[i] + v.z) + v.y;
+        }
+      }
+    }
+"""
+_K7_FREE_SLOTS = {
+    "  int* front;      // their fronts\n};":
+    "  int* front;      // their fronts\n  uint8_t* inv;    // P*n: the slot of job j in pair q's order\n};",
+    "         4 * static_cast<size_t>(U) * (1 + (m | 1));\n":
+    "         4 * static_cast<size_t>(U) * (1 + (m | 1)) + static_cast<size_t>(P) * n;\n",
+    "  s.front = s.l1 + U;\n":
+    "  s.front = s.l1 + U;\n  s.inv = reinterpret_cast<uint8_t*>(s.front + U * (m | 1));\n",
+    "    s.tab[q * ns + i - q * n] = tab[i];\n":
+    "    const short4 v = tab[i];\n    s.tab[q * ns + i - q * n] = v;\n"
+    "    s.inv[q * n + v.w] = static_cast<uint8_t>(i - q * n);\n",
+    _K7_WALK: """    const short4* e = s.tab + q * ns;
+    const uint8_t* iv = s.inv + q * n;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      uint32_t sm[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) sm[w] = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        uint32_t jb = fm[i][w];
+        while (jb) {
+          const int t = iv[32 * w + __ffs(jb) - 1];
+          jb &= jb - 1;
+#pragma unroll
+          for (int u = 0; u < W; ++u)
+            if ((t >> 5) == u) sm[u] |= 1u << (t & 31);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        uint32_t bits = sm[w];
+        while (bits) {
+          const short4 v = e[32 * w + __ffs(bits) - 1];
+          bits &= bits - 1;
+          tmp0[i] += v.x;
+          tmp1[i] = max(tmp1[i], tmp0[i] + v.z) + v.y;
+        }
+      }
+    }
+"""}
+_K7_G = "  const int G = split.x, RT = split.y;\n"
+LB2SELF_STEPS = [
+    ["parent", {_K7: PARENT, "lb2_common.cuh": PARENT}],
+    ["committed", {}],
+    ["free_slots", {_K7: _K7_FREE_SLOTS}],
+    ["grid_by_rows", {_K7: {
+        "  sh.blocks = static_cast<int>(need < wave ? need : wave);\n":
+        "  sh.blocks = static_cast<int>((R + sh.threads - 1) / sh.threads);\n"}}],
+    ["lanes1", {_K7: {_K7_G: "  const int G = 1, RT = split.y;\n"}}],
+    ["lanes4", {_K7: {_K7_G: "  const int G = 4, RT = 1;\n"}}],
+    ["lanes32", {_K7: {_K7_G: "  const int G = 32, RT = 1;\n"}}],
+    ["rows2", {_K7: {"#define TTS_LB2S_ROWS 4": "#define TTS_LB2S_ROWS 2"}}],
+    ["rows1", {_K7: {"#define TTS_LB2S_ROWS 4": "#define TTS_LB2S_ROWS 1"}}],
+    ["dpx", {_K7: {"max(tmp1[i], tmp0[i] + v.z)": "__viaddmax_s32(tmp0[i], v.z, tmp1[i])"}}],
+    ["no_unroll", {_K7: {"#pragma unroll 4\n    for (int k = 0; k < n; ++k) {":
+                         "#pragma unroll 1\n    for (int k = 0; k < n; ++k) {"}}],
+    ["no_stage", {_K7: {
+        "    const uint8_t* staged =\n"
+        "        lb2s_stage(s, rows + static_cast<size_t>(r0) * n, limit1 + r0,\n"
+        "                   rows_here, n);\n":
+        "    for (int p = threadIdx.x; p < rows_here; p += blockDim.x)\n"
+        "      s.l1[p] = min(max(static_cast<int>(limit1[r0 + p]), -1), n - 1);\n"
+        "    __syncthreads();\n"
+        "    const uint8_t* staged = reinterpret_cast<const uint8_t*>(\n"
+        "        rows + static_cast<size_t>(r0) * n);\n"}}],
+    ["threads256", {_K7: {"#define TTS_LB2S_THREADS 128": "#define TTS_LB2S_THREADS 256"}}],
+]
+
+# The shared-memory opt-in (csrc/tts_common.cuh) before it learned to
+# cache (one cudaFuncSetAttribute a launch above 48 KB) and as committed,
+# under kernel 6's rows.
+OPTIN_STEPS = [
+    ["parent_optin", {"tts_common.cuh": PARENT}],
+    ["committed", {}],
+]
+
+
+def make_variant(root: Path, dest: Path, subs: dict, parent: Path | None = None) -> None:
     """Copy ``root``'s package and this script to ``dest`` and apply
-    ``subs`` ({source under csrc: {old: new}}); each ``old`` must occur."""
+    ``subs`` ({source under csrc: {old: new}, or ``PARENT``: the source as
+    the checkout ``parent`` has it}); each ``old`` must occur."""
     if dest.exists():
         shutil.rmtree(dest)
     shutil.copytree(root / PKG, dest / PKG,
@@ -177,6 +309,12 @@ def make_variant(root: Path, dest: Path, subs: dict) -> None:
         shutil.copy(root / name, dest / name)
     for source, pairs in subs.items():
         path = dest / PKG / "csrc" / source
+        if pairs == PARENT:
+            if parent is None or not (parent / PKG / "csrc" / source).is_file():
+                raise SystemExit(f"chip_sweep: no {source} in the parent checkout "
+                                 f"{parent}: git archive <commit> | tar -x -C DIR")
+            shutil.copy(parent / PKG / "csrc" / source, path)
+            continue
         text = path.read_text()
         for old, new in pairs.items():
             if old not in text:
@@ -284,6 +422,74 @@ def measure_lb2(out: dict) -> None:
             cs.LB2_CYCLE_KERNELS, restore)
         out["k8_bounds_launch"][key] = cs.LAST_LAUNCH_MS.get("lb2_cycle_bounds")
         out["block"][f"k8/{key}"] = lb2_kernel.last_shape("cycle_lb2")
+
+
+def measure_lb2self(out: dict) -> None:
+    """Kernel 7 into ``out`` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_tree_search_torch.ops import lb2_self_kernel as K
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    dev = torch.device("cuda", 0)
+    out.update(k7={}, lanes={})
+    with contextlib.redirect_stdout(io.StringIO()):
+        launches = cs.capture_self_launches(
+            lambda: cs.run_search(cs.PFSP_LB2 + ["--unfused"], cs.GOLDEN_LB2),
+            keep=cs.K7_SEARCH_LAUNCHES)
+    cases = {14: [(launches[i]["rows"], launches[i]["limit1"], (launches[i]["n_active"],))
+                  for i in cs.K7_SEARCH_LAUNCHES], 21: []}
+    R = 49152 * 20  # ta014 and ta021 have 20 jobs
+    for inst, counts in ((14, (R // 4, R)), (21, (9372,))):
+        prmu, limit1 = cs.random_nodes(np.random.default_rng(inst), 20, R)
+        cases[inst].append((torch.from_numpy(prmu).to(dev).to(torch.int8),
+                            torch.from_numpy(limit1).to(dev).to(torch.int8), counts))
+    for inst, rows in cases.items():
+        t = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(dev)
+        for p, lim, counts in rows:
+            R = p.shape[0]
+            for k in counts:
+                na = torch.tensor(k, dtype=torch.int32, device=dev)
+                got = K.lb2_self_bounds_cuda(p, lim, na, t)
+                want = K.plain(p[:k], lim[:k], k, t)
+                out["err"] = max(out["err"], int((got[:k].long() - want.long()).abs().max()))
+                key = f"ta{inst:03d}/R={R}/n_active={k}"
+                try:  # the kernel before its redesign reports no shape
+                    out["lanes"][key] = K.last_split()
+                    out["block"][key] = K.last_shape()
+                except AttributeError:
+                    pass
+                out["k7"][key], _ = cs.kernel_device_ms(
+                    lambda: K.lb2_self_bounds_cuda(p, lim, na, t), 50,
+                    ("lb2_self_bounds_kernel",))
+    # Kernel 7 on its search path: its device time and launches over the
+    # staged ta014 lb2 search (goldens checked), traced on the device alone.
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof = cs.phase_profile("search_lb2_unfused_staged", cs.PFSP_LB2 + ["--unfused"],
+                                cs.GOLDEN_LB2, kernels=("lb2_self_bounds_kernel",),
+                                host=False)
+    out["search_k7_ms"] = prof["kernel_device_ms"]["lb2_self_bounds_kernel"]
+    out["search_k7_launches"] = prof["kernel_launches"]["lb2_self_bounds_kernel"]
+
+
+def measure_kernel6(out: dict) -> None:
+    """Kernel 6's rows of `chip_smoke.py` into ``out`` (its phase
+    ``kernel6``, in its order), and their sum."""
+    import torch
+
+    import chip_smoke as cs
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    dev = torch.device("cuda", 0)
+    tables = {f"ta{i:03d}": PFSPProblem(inst=i, lb="lb2", ub=1).device_tables(dev)
+              for i in (14, 21, 51, 81)}
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = cs.phase_kernel6(dev, tables)
+    out["k6"] = {f"{inst}/B={B}/{dtype.split('.')[-1]}": r["ms"]
+                 for (inst, B, dtype), r in rows.items()}
+    out["k6_sum"] = sum(out["k6"].values())
 
 
 def _cycle_case(run_cuda, run_plain, pv0, pa0, st0, names, scratch=None):
@@ -418,10 +624,12 @@ def measure(family: str) -> dict:
     t0 = time.perf_counter()
     sources = {"lb1": ("lb1_bounds", "lb1_d_bounds"),
                "lb2": ("lb2_bounds", "cycle_lb2"),
+               "lb2self": ("lb2_self_bounds",),
+               "kernel6": ("lb2_bounds",),
                "tiled": ("cycle_lb1", "cycle_nqueens", "cycle_lb2", "tiled_nqueens",
                          "tiled_lb2", "tiled_lb1", "nqueens_labels")}
     sources = {fam: names for fam, names in sources.items()
-               if family == fam or (family == "all" and fam != "tiled")}
+               if family == fam or (family == "all" and fam in ("lb1", "lb2"))}
     for names in sources.values():
         for name in names:
             _build.library(name)
@@ -436,6 +644,10 @@ def measure(family: str) -> dict:
         measure_lb2(out)
     if family == "tiled":
         measure_tiled(out)
+    if family == "lb2self":
+        measure_lb2self(out)
+    if family == "kernel6":
+        measure_kernel6(out)
     return out
 
 
@@ -445,12 +657,20 @@ def main() -> int:
     ap.add_argument("variants", nargs="?", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--name", default="this")
-    ap.add_argument("--family", choices=("lb1", "lb2", "all", "tiled"), default=None)
+    ap.add_argument("--family", choices=("lb1", "lb2", "all", "tiled", "lb2self",
+                                         "kernel6"), default=None)
     ap.add_argument("--lb1-steps", action="store_true")
     ap.add_argument("--tiled-steps", action="store_true")
+    ap.add_argument("--lb2self-steps", action="store_true")
+    ap.add_argument("--optin-steps", action="store_true")
+    ap.add_argument("--parent", type=Path, default=HERE / "_checkout" / "parent")
     args = ap.parse_args()
     if args.lb1_steps:
         variants, family = LB1_STEPS, args.family or "lb1"
+    elif args.lb2self_steps:
+        variants, family = LB2SELF_STEPS, args.family or "lb2self"
+    elif args.optin_steps:
+        variants, family = OPTIN_STEPS, args.family or "kernel6"
     elif args.tiled_steps:
         variants, family = TILED_STEPS, args.family or "tiled"
     elif args.variants is not None:
@@ -461,7 +681,7 @@ def main() -> int:
         return 0
     base = HERE / "_checkout" / "sweep"
     for name, subs in variants:
-        make_variant(HERE, base / name, subs)
+        make_variant(HERE, base / name, subs, args.parent)
     failed = False
     for _ in range(args.rounds):
         for name, _subs in variants:

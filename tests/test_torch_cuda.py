@@ -394,19 +394,104 @@ def test_lb2_kernel_matches_plain(cuda, dtype, inst, B):
     assert torch.equal(got[op], want[op])
 
 
+# Kernel 7's cases: (instance, R, n_active). ta014 at n_active 0 to past R
+# (one row, a part of a warp, a warp and one, the staged search's first
+# launch, all), ta014 at the staged search's R with a small n_active, and
+# ta021 (P = 190), ta051 and ta081 (the largest tables, 100 jobs).
+LB2_SELF_CASES = [(14, 1000, k) for k in (0, 1, 31, 33, 185, 333, 1000, 1500)] + [
+    (14, 49152 * 20, 185), (21, 1000, 185), (21, 1000, 1000), (51, 200, 33),
+    (51, 200, 200), (81, 64, 31), (81, 64, 64)]
+
+
+@pytest.mark.parametrize("depth", ["mixed", "roots", "leaves"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
-@pytest.mark.parametrize("n_active", [0, 333, 1000])
-def test_lb2_self_kernel_matches_plain(cuda, dtype, n_active):
-    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
-    prmu, limit1 = _nodes(np.random.default_rng(n_active), 20, 1000)
+@pytest.mark.parametrize("inst,R,n_active", LB2_SELF_CASES)
+def test_lb2_self_kernel_matches_plain(cuda, dtype, inst, R, n_active, depth):
+    # Rows with limit1 mixed, -1 ("roots": every job free) or n - 2
+    # ("leaves": one free job); n_active as an int and as a device tensor;
+    # the rows at or past n_active are not written.
+    t = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(cuda)
+    n = t.jobs
+    prmu, limit1 = _depth_nodes(np.random.default_rng(n_active + inst), n, R, depth)
     p = torch.from_numpy(prmu).to(cuda).to(dtype)
     lim = torch.from_numpy(limit1).to(cuda).to(dtype)
-    want = lb2_self_kernel.plain(p, lim, 1000, t)
+    k = min(n_active, R)
+    want = lb2_self_kernel.plain(p[:k], lim[:k], k, t)
     for na in (n_active, torch.tensor(n_active, dtype=torch.int32, device=cuda)):
         got = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, t)
         torch.cuda.synchronize()
-        assert got.shape == (1000,) and got.dtype == torch.int32
-        assert torch.equal(got[:n_active], want[:n_active])
+        assert got.shape == (R,) and got.dtype == torch.int32
+        assert torch.equal(got[:k], want)
+
+
+def test_lb2_self_kernel_takes_rows_that_are_no_permutation(cuda):
+    # Rows within n_active whose job ids lie outside [0, n) (and limit1 past
+    # both ends) launch without a CUDA error, and the valid rows beside them
+    # still equal the plain version.
+    for inst in (14, 81):
+        t = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(cuda)
+        n = t.jobs
+        R = 3000
+        prmu, limit1 = _nodes(np.random.default_rng(inst), n, R)
+        wild, wlim = prmu.copy(), limit1.copy()
+        bad = np.zeros(R, dtype=bool)
+        bad[::3] = bad[1::7] = True
+        wild[::3, 1] = 120
+        wild[1::7, n - 1] = -5
+        wlim[::3] = np.where(np.arange(R)[::3] % 2, -4, n + 3)
+        for dtype in (torch.int8, torch.int32):
+            p = torch.from_numpy(wild).to(cuda).to(dtype)
+            lim = torch.from_numpy(wlim).to(cuda).to(dtype)
+            got = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, R, t)
+            torch.cuda.synchronize()
+            ok = torch.from_numpy(~bad).to(cuda)
+            want = lb2_self_kernel.plain(torch.from_numpy(prmu).to(cuda),
+                                         torch.from_numpy(limit1).to(cuda), R, t)
+            assert torch.equal(got[ok], want[ok])
+
+
+def test_lb2_self_kernel_shape_and_no_host_wait(cuda):
+    # The block's threads and shared memory are the Python mirror's; the
+    # grid is one wave; with n_active on the device the wrapper makes no
+    # synchronising call (torch's sync debug mode raises on one).
+    for inst in (14, 21, 51, 81):
+        t = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(cuda)
+        n, m, P = t.jobs, t.machines, t.johnson.pair_count
+        shape = lb2_self_kernel.block_shape(n, m, P)
+        assert lb2_kernel.block_smem("lb2_self_bounds", t) == shape["smem_bytes"]
+        p = torch.zeros((4096, n), dtype=torch.int8, device=cuda)
+        p[:] = torch.arange(n, dtype=torch.int8, device=cuda)
+        lim = torch.zeros(4096, dtype=torch.int8, device=cuda)
+        na = torch.tensor(4096, dtype=torch.int32, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, t)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sh = lb2_self_kernel.last_shape()
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert {k: sh[k] for k in shape} == shape
+        assert sh["blocks"] == min(sh["per_sm"] * sms, -(-32 * 4096 // sh["threads"]))
+
+
+@pytest.mark.parametrize("nact", [0, 185, 9372, 74171, 49152 * 20 // 4, 49152 * 20])
+def test_lb2_self_kernel_takes_the_mirrors_split(cuda, nact):
+    # The lanes a row and rows a thread that a launch took, as its block 0
+    # wrote them, are the Python mirror's: at the staged ta014 search's
+    # counts, a quarter of R and R; (0, 0) when there are no rows.
+    t = PFSPProblem(inst=14, lb="lb2", ub=1).device_tables(cuda)
+    n, m, P = t.jobs, t.machines, t.johnson.pair_count
+    R = 49152 * n
+    p = torch.zeros((R, n), dtype=torch.int8, device=cuda)
+    p[:] = torch.arange(n, dtype=torch.int8, device=cuda)
+    lim = torch.zeros(R, dtype=torch.int8, device=cuda)
+    na = torch.tensor(nact, dtype=torch.int32, device=cuda)
+    lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, t)
+    sh = lb2_self_kernel.last_shape()
+    want = (lb2_self_kernel.split(nact, sh["blocks"], sh["threads"], sh["rows"], P, m)
+            if nact else (0, 0))
+    assert lb2_self_kernel.last_split() == want
 
 
 @pytest.mark.parametrize("size,finite", [(40, False), (700, True), (700, False)])

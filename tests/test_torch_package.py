@@ -189,6 +189,8 @@ def test_chip_ab_reads_a_chip_smoke_run():
         json.dumps({"phase": "kernel8", "inst": "ta014", "n": 20, "dtype": "torch.int8",
                     "M": 1024, "chunk": "full", "incumbent": "inf", "ms": 0.02,
                     "launch_ms": {"lb2_cycle_bounds": 0.013}}),
+        json.dumps({"phase": "kernel7", "R": 983040, "n_active": 185,
+                    "dtype": "torch.int8", "ms": 0.004}),
         json.dumps({"phase": "search_x", "elapsed_s": 0.5, "phases": [[1, 0, 0.1], [2, 0, 0.3]]}),
         json.dumps({"phase": "profile", "search": "search_x", "device_busy_ms": 3.0,
                     "phase2_ms": 4.0, "busy_share": 0.75}),
@@ -200,7 +202,8 @@ def test_chip_ab_reads_a_chip_smoke_run():
     assert got["kernels"] == {"cycle_nqueens": 0.02}
     k8 = "kernel8/ta014/20/torch.int8/1024/full/inf"
     assert got["cycles"] == {"kernel4/50000/1/full": 0.02,
-                             "kernel6/ta021/20/torch.int8/1024": 0.03, k8: 0.02}
+                             "kernel6/ta021/20/torch.int8/1024": 0.03, k8: 0.02,
+                             "kernel7/torch.int8/983040/185": 0.004}
     assert got["launch_ms"] == {k8: {"lb2_cycle_bounds": 0.013}}
     assert got["searches"] == {"search_x": [0.5, 0.3]}
     assert got["profiles"]["search_x"]["busy_share"] == 0.75
@@ -403,3 +406,80 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_chip_sweep_lb2self_steps_apply_to_the_sources(tmp_path):
+    # Every design step of kernel 7, and the opt-in's steps, is a
+    # substitution of the committed sources or a source taken whole from
+    # the parent checkout; the first kernel 7 step is the kernel before its
+    # redesign, from that checkout.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_sweep", ROOT / "chip_sweep.py")
+    sw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sw)
+    parent = tmp_path / "parent"
+    (parent / "tpu_tree_search_torch/csrc").mkdir(parents=True)
+    for name in ("lb2_self_bounds.cu", "lb2_common.cuh", "tts_common.cuh"):
+        (parent / "tpu_tree_search_torch/csrc" / name).write_text(f"// parent {name}\n")
+    names = [name for name, _ in sw.LB2SELF_STEPS]
+    assert names[:3] == ["parent", "committed", "free_slots"]
+    assert len(set(names)) == len(names)
+    assert [name for name, _ in sw.OPTIN_STEPS] == ["parent_optin", "committed"]
+    for name, subs in sw.LB2SELF_STEPS + sw.OPTIN_STEPS:
+        assert set(subs) <= {"lb2_self_bounds.cu", "lb2_common.cuh", "tts_common.cuh"}
+        sw.make_variant(ROOT, tmp_path / "v" / name, subs, parent)
+        for source in ("lb2_self_bounds.cu", "lb2_common.cuh", "tts_common.cuh"):
+            text = (tmp_path / "v" / name / "tpu_tree_search_torch/csrc" / source).read_text()
+            if subs.get(source) == sw.PARENT:
+                assert text == f"// parent {source}\n"
+            else:
+                assert (text == (_build.CSRC / source).read_text()) == (source not in subs)
+    assert sw.LB2SELF_STEPS[0][1] == {"lb2_self_bounds.cu": sw.PARENT,
+                                      "lb2_common.cuh": sw.PARENT}
+    with pytest.raises(SystemExit):
+        sw.make_variant(ROOT, tmp_path / "none", sw.LB2SELF_STEPS[0][1], tmp_path / "no")
+
+
+def test_chip_smoke_kernel7_search_rows():
+    # Kernel 7's rows at the staged search's launches are copied from a run
+    # of the search: each call's count, rows and limit1 as the search
+    # hands them over (the kept calls only), and the search's result is
+    # unchanged. Here a staged lb2 search on a reduced ta014 on the CPU.
+    import importlib.util
+
+    import numpy as np
+
+    from tpu_tree_search_torch.engine.resident import resident_search
+    from tpu_tree_search_torch.ops import pfsp_device
+    from tpu_tree_search_torch.problems import PFSPProblem
+    from tpu_tree_search_torch.problems.pfsp import taillard as T
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.K7_SEARCH_LAUNCHES == {0: 185, 4: 9372, 8: 74171}
+    prob = PFSPProblem(lb="lb2", ub=0, p_times=T.reduced_instance(14, jobs=10, machines=5))
+    res = []
+    calls = cs.capture_self_launches(
+        lambda: res.append(resident_search(prob, m=8, M=256, K=64, initial_best=609,
+                                           device="cpu", fused=False, staged=True)),
+        keep={0, 2})
+    assert pfsp_device.lb2_self_bounds.__name__ == "lb2_self_bounds"
+    assert (res[0].explored_tree, res[0].explored_sol, res[0].best) == (326, 0, 609)
+    assert len(calls) > 2 and [c["index"] for c in calls] == list(range(len(calls)))
+    for c in calls:
+        assert (c["rows"] is None) == (c["index"] not in (0, 2))
+        assert 0 < c["n_active"] <= 256 * 10
+    for c in (calls[0], calls[2]):
+        rows = c["rows"][:c["n_active"]].numpy()
+        lim = c["limit1"][:c["n_active"]].numpy()
+        assert c["rows"].shape == (256 * 10, 10)
+        assert (np.sort(rows, axis=1) == np.arange(10)).all()
+        assert lim.min() >= 0 and lim.max() <= 8
+    # The free-job count of the self bound: per row the front, the mask
+    # and P * (5r + 4); at most the all-slots count.
+    l1 = np.array([-1, 5, 18])
+    assert cs.lb2_self_ops(l1, 20, 10, 45) == sum(
+        (x + 1) * 20 + 20 + 45 * (5 * (19 - x) + 4) for x in l1)
+    assert cs.lb2_self_ops(l1, 20, 10, 45) < cs.lb2_ops(l1, 20, 10, 45, child=False)

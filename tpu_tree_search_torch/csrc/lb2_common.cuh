@@ -13,10 +13,11 @@
 // triangular matrix products (`_lb2_tile_lb`), so on integers the planes are
 // bit-identical. The C early exit is dropped, as in the JAX package.
 //
-// Two ways to evaluate it live here:
-//   - `lb2_johnson` runs the recurrence for one front over all P*n ordered
-//     slots. Kernel 7 (one bound a row, no children to share a pass with)
-//     runs it, through `lb2_row`.
+// Two ways to evaluate it:
+//   - kernel 7 (lb2_self_bounds.cu: one bound a row, no children to share
+//     a pass with) runs the recurrence itself: each pair's n ordered slots
+//     tested against the row's free-job mask, on its own shared-memory
+//     layout (`Lb2sSmem` in lb2_self_bounds.cu);
 //   - `lb2p_bounds` evaluates every open child of a parent at once
 //     (kernels 6, 8 and 9c). The children of one parent share the pair pass
 //     but for one job. With w[t] = cum0[t] + lag[t] + suf1[t] over the
@@ -40,98 +41,14 @@
 // The TPU kernel reordered the free-job flags into Johnson order with a
 // one-hot (P, n, n) matrix product and picked the pair's machines with
 // one-hot selectors; here the ordered table holds the job id of each slot,
-// and "job j is free" is a shared-memory lookup of j's position in the row
-// (pos[j] > limit1). All values are
-// int32; the ordered table is packed as int16 (p0, p1, lag, job) — exact for
-// every Taillard instance (times <= 99, lags <= 18 * 99), checked by the
-// wrapper — so one 8-byte shared-memory load feeds each step.
+// its inverse the slot of each job, and a walk finds the free slots as bit
+// masks. All values are int32; the ordered table is packed as int16 (p0,
+// p1, lag, job) — exact for every Taillard instance (times <= 99, lags <=
+// 18 * 99), checked by the wrapper — so one 8-byte shared-memory load
+// feeds each step.
 #pragma once
 
 #include "lb1_common.cuh"
-
-// Rows of a self-bound block (one thread a row).
-#define TTS_LB2_SELF_THREADS 128
-
-struct Lb2Smem {
-  int4* pair;           // P: (ma0, ma1, tails0, tails1)
-  short4* tab;          // P*n: slot t of pair q = (p0, p1, lag, job)
-  int* ptm;             // n*m job-major processing times
-  int* heads;           // m: min_heads
-  int* front;           // `fronts` fronts of m ints
-  unsigned char* pos;   // `rows` arrays of n job positions
-};
-
-// Bytes of an Lb2Smem holding `fronts` fronts and `rows` position arrays.
-static inline size_t tts_lb2_smem_bytes(int n, int m, int P, int fronts,
-                                        int rows) {
-  return 16 * static_cast<size_t>(P) + 8 * static_cast<size_t>(P) * n +
-         4 * (static_cast<size_t>(n) * m + m +
-              static_cast<size_t>(fronts) * m) +
-         static_cast<size_t>(rows) * n;
-}
-
-__device__ __forceinline__ Lb2Smem lb2_smem_layout(unsigned char* smem,
-                                                   int n, int m, int P,
-                                                   int fronts) {
-  Lb2Smem s;
-  s.pair = reinterpret_cast<int4*>(smem);
-  s.tab = reinterpret_cast<short4*>(s.pair + P);
-  s.ptm = reinterpret_cast<int*>(s.tab + P * n);
-  s.heads = s.ptm + n * m;
-  s.front = s.heads + m;
-  s.pos = reinterpret_cast<unsigned char*>(s.front + fronts * m);
-  return s;
-}
-
-__device__ __forceinline__ void lb2_load_tables(const Lb2Smem& s,
-                                                const int* ptm_t,
-                                                const int* heads,
-                                                const int4* pairinfo,
-                                                const short4* tab, int n,
-                                                int m, int P) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) s.pair[i] = pairinfo[i];
-  for (int i = threadIdx.x; i < P * n; i += blockDim.x) s.tab[i] = tab[i];
-  for (int i = threadIdx.x; i < n * m; i += blockDim.x) s.ptm[i] = ptm_t[i];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) s.heads[i] = heads[i];
-}
-
-// lb2 from the front f (machine j at f[j * fs]) over the jobs j with
-// pos[j * ps] > l1 and j != skip.
-__device__ __forceinline__ int lb2_johnson(const Lb2Smem& s, const int* f,
-                                           int fs, const unsigned char* pos,
-                                           int ps, int l1, int skip, int n,
-                                           int P) {
-  int lb = 0;
-  for (int q = 0; q < P; ++q) {
-    const int4 pr = s.pair[q];
-    int tmp0 = f[pr.x * fs];
-    int tmp1 = f[pr.y * fs];
-    const short4* e = s.tab + q * n;
-    for (int t = 0; t < n; ++t) {
-      const short4 v = e[t];
-      if (static_cast<int>(pos[v.w * ps]) > l1 && v.w != skip) {
-        tmp0 += v.x;
-        tmp1 = max(tmp1, tmp0 + v.z) + v.y;
-      }
-    }
-    lb = max(lb, max(tmp1 + pr.w, tmp0 + pr.z));
-  }
-  return lb;
-}
-
-// lb2 of the row itself (the staged self bound): its own front and job
-// positions in this thread's columns of s.front and s.pos.
-template <typename T>
-__device__ __forceinline__ int lb2_row(const T* row, int l1, int n, int m,
-                                       int P, const Lb2Smem& s) {
-  const int stride = blockDim.x;
-  int* f = s.front + threadIdx.x;
-  unsigned char* pos = s.pos + threadIdx.x;
-  pfsp_front(row, l1, n, m, s.ptm, s.heads, f, stride);
-  for (int i = 0; i < n; ++i)
-    pos[static_cast<int>(row[i]) * stride] = static_cast<unsigned char>(i);
-  return lb2_johnson(s, f, stride, pos, stride, l1, -1, n, P);
-}
 
 // -- The per-parent pair pass of kernels 6, 8 and 9c --------------------------
 
