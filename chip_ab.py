@@ -2,6 +2,7 @@
 """Compare two checkouts of the PyTorch/CUDA port on one card.
 
     python3 chip_ab.py OTHER_ROOT [--out DIR]
+    python3 chip_ab.py OTHER_ROOT --rows   # the kernel rows only
 
 Runs each checkout's own ``chip_smoke.py`` from its root, one process a
 run, in turns A, B, B, A: A is OTHER_ROOT (for example a parent commit
@@ -13,8 +14,18 @@ kernel's time from the ``kernels`` line, the rows of kernels 1, 3 and 5,
 of the fused and streamed cycles (kernels 2, 4, 8 and 9a-9c), of kernel 6
 and of kernel 7 (keyed by R and n_active) with the cycles' device time by
 launch,
-the searches' times and the profiled searches' device times), then one line
-that sets the four runs side by side. Exits non-zero when a run failed.
+the searches' times and the profiled searches' device times, dispatches and
+graph build seconds, the graph dispatches' device time by CUDA events, the
+dispatch-pipeline runs and the graph dispatch's rows), then one line that
+sets the four runs side by side. Exits non-zero when a run failed.
+
+``--rows`` runs, in the same turns, only the kernel rows that both
+checkouts' ``chip_smoke.py`` time: kernels 2, 4, 8 (ta014 and ta021), 9a,
+9b, 9c, 3, 6 (ta014, ta021, ta051, ta081) and 7, each run in a process
+that imports that checkout's own ``chip_smoke.py`` and calls its phases
+(``--rows-of ROOT``, one JSON line ``{row: ms}``), then one line that sets
+the four runs side by side, with ``outside``: the rows whose two B times
+both fall outside the two A times, and B's mean over A's less one.
 """
 
 from __future__ import annotations
@@ -58,23 +69,80 @@ def summarize(stdout: str) -> dict:
                 for ln in lines if str(ln.get("phase", "")).startswith("search_")}
     profiles = {ln["search"]: {k: ln.get(k) for k in
                                ("device_busy_ms", "phase2_ms", "busy_share",
-                                "launches_per_cycle", "cycle_ms_per_real_cycle",
+                                "launches_per_cycle", "cycle_ms_per_traced_cycle",
                                 "kernel_device_ms", "kernel_launches",
-                                "top_device_ms")}
+                                "top_device_ms", "dispatches", "graph_build_s",
+                                "cond_ms_per_cycle", "dispatch_device_ms",
+                                "event_busy_share", "trace_complete")}
                 for ln in lines if ln.get("phase") == "profile"}
+    pipeline = {ln["run"]: {k: ln.get(k) for k in
+                            ("dispatches", "K", "graph_build_s", "phase2_s",
+                             "phase2_less_build_s", "dispatch_device_ms",
+                             "profiled_device_ms", "busy_share")}
+                for ln in lines if ln.get("phase") == "pipeline"}
+    graph = {ln["search"]: {k: ln.get(k) for k in
+                            ("dispatch_ms", "plain_ms", "graph_build_s")}
+             for ln in lines if ln.get("phase") == "graph_dispatch"}
     return dict(card=card, ok=any(ln.get("ok") for ln in lines),
                 kernels={k["name"]: k["ms"] for k in kernels},
                 cycles=cycles, launch_ms=launch_ms, searches=searches,
-                profiles=profiles)
+                profiles=profiles, pipeline=pipeline, graph=graph)
+
+
+def rows_of(root: Path) -> dict:
+    """The kernel rows of the checkout at ``root`` (the current directory),
+    through its own chip_smoke.py: ``{phase/key: ms}``."""
+    import contextlib
+    import importlib.util
+    import io
+
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cs.phase_build()
+        dev = torch.device("cuda", 0)
+        tables = {f"ta{i:03d}": PFSPProblem(inst=i, lb="lb2", ub=1).device_tables(dev)
+                  for i in (14, 21, 51, 81)}
+        lb1 = PFSPProblem(inst=14, lb="lb1", ub=1).device_tables(dev)
+        got = {"kernel2": cs.phase_pfsp_cycle("kernel2", dev, lb1, "lb1", 1),
+               "kernel4": cs.phase_kernel4(dev),
+               "kernel8": cs.phase_pfsp_cycle("kernel8", dev, tables["ta014"], "lb2", 8),
+               "kernel8/ta021": cs.phase_pfsp_cycle("kernel8", dev, tables["ta021"],
+                                                    "lb2", 21, inst="ta021"),
+               "kernel9": cs.phase_pfsp_cycle("kernel9", dev, lb1, "lb1", 9, tiled=True),
+               "kernel10": cs.phase_kernel4(dev, "kernel10", tiled=True),
+               "kernel11": cs.phase_pfsp_cycle(
+                   "kernel11", dev, tables["ta014"], "lb2", 11, tiled=True,
+                   shapes=((1024, 16), (49152, 64), (49152, 8))),
+               "kernel3": cs.phase_kernel3(dev),
+               "kernel6": cs.phase_kernel6(dev, tables),
+               "kernel7": cs.phase_kernel7(dev, tables["ta014"])}
+    return {f"{ph}/" + "/".join(map(str, key)): row["ms"]
+            for ph, rows in got.items() for key, row in rows.items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("other", type=Path)
+    ap.add_argument("other", type=Path, nargs="?")
     ap.add_argument("--out", type=Path, default=HERE / "_checkout" / "ab")
+    ap.add_argument("--rows", action="store_true",
+                    help="kernels 6, 4 and 9a only, through each checkout's phases")
+    ap.add_argument("--rows-of", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rows_of is not None:
+        print(json.dumps({"root": str(args.rows_of), "rows": rows_of(args.rows_of)}))
+        return 0
+    if args.other is None:
+        ap.error("OTHER_ROOT is required")
     args.out.mkdir(parents=True, exist_ok=True)
     roots = {"A": args.other.resolve(), "B": HERE}
+    if args.rows:
+        return main_rows(roots, args.out)
     runs, failed = [], False
     for i, tag in enumerate("ABBA"):
         t0 = time.perf_counter()
@@ -87,16 +155,49 @@ def main() -> int:
         runs.append(run)
         print(json.dumps(run), flush=True)
     side = {}
-    for part in ("kernels", "cycles", "launch_ms", "searches"):
+    for part in ("kernels", "cycles", "launch_ms", "searches", "pipeline", "graph"):
         keys = sorted({k for r in runs for k in r[part]})
         side[part] = {k: [r[part].get(k) for r in runs] for k in keys}
     side["profiles"] = {
         k: [{f: (r["profiles"].get(k) or {}).get(f)
-             for f in ("device_busy_ms", "phase2_ms", "busy_share", "kernel_device_ms")}
+             for f in ("device_busy_ms", "phase2_ms", "busy_share", "kernel_device_ms",
+                      "dispatches")}
             for r in runs]
         for k in sorted({k for r in runs for k in r["profiles"]})}
     print(json.dumps({"order": "ABBA", **side}), flush=True)
     return 1 if failed else 0
+
+
+def main_rows(roots: dict, out: Path) -> int:
+    """``--rows``: A B B A of the kernel rows, one process a run."""
+    runs = []
+    for i, tag in enumerate("ABBA"):
+        p = subprocess.run([sys.executable, str(HERE / "chip_ab.py"), "--rows-of",
+                            str(roots[tag])], cwd=roots[tag], capture_output=True,
+                           text=True, timeout=1100)
+        (out / f"rows_{i}_{tag}.log").write_text(p.stdout + "\n--- stderr\n" + p.stderr)
+        if p.returncode != 0:
+            print(json.dumps({"run": i, "tree": tag, "rc": p.returncode}), flush=True)
+            return 1
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1])["rows"])
+        print(json.dumps({"run": i, "tree": tag, "rc": 0, "rows": runs[-1]}), flush=True)
+    keys = sorted({k for r in runs for k in r})
+    rows = {k: [r.get(k) for r in runs] for k in keys}
+    print(json.dumps({"order": "ABBA", "rows": rows, "outside": outside(rows)}), flush=True)
+    return 0
+
+
+def outside(rows: dict) -> dict:
+    """The rows (A, B, B, A times) whose two B times both fall outside the
+    two A times, on one side: B's mean over A's, less one."""
+    out = {}
+    for k, (a0, b0, b1, a1) in rows.items():
+        if None in (a0, b0, b1, a1):
+            continue
+        lo, hi = min(a0, a1), max(a0, a1)
+        if (b0 > hi and b1 > hi) or (b0 < lo and b1 < lo):
+            out[k] = (b0 + b1) / (a0 + a1) - 1
+    return out
 
 
 if __name__ == "__main__":

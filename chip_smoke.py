@@ -32,7 +32,8 @@ ends the script with a non-zero exit before the final line:
   6. the same search on the unfused path at M = 1024, counting kernel 1;
   7. ``kernel3`` (N-Queens safety labels) against its plain version:
      N = 15 and 20, B = 1024 and 50000, g = 1 and 4, and B = 50000 at
-     N = 14 and 32, g = 1, seeded random boards with depth uniform in 0..N
+     N = 14, 32 and 48 (past 32: the per-slot path), g = 1, seeded random
+     boards with depth uniform in 0..N
      and a share at N; bit-equal on the whole (B, N) plane; each row with
      the block shape of the launch (``block``: parents a tile, blocks,
      tiles, packed words a parent, blocks an SM); and the g = 256 time at
@@ -75,6 +76,16 @@ ends the script with a non-zero exit before the final line:
      on ta021; equal state, live pool rows and (G, 4) per-tile scalars;
      each row with its device time by launch (``launch_ms``) and its
      launches a cycle (``launches_per_cycle``);
+ 16b. past the old limits: kernels 6 and 7 on ta101 and ta111 (200 and
+     500 jobs, int32 rows, the global table route), kernels 8 and 9c on
+     both at M = 256 (``kernel8``, ``kernel11`` rows with ``inst``), and
+     kernels 4 and 9a at N = 48 (two keep-mask words a parent), each row
+     with its route (``tables``) or ``mask_words``, time, plain time and
+     bound;
+ 16c. ``graph_dispatch``: one graph dispatch of K = 4 cycles (the program's
+     CUDA graph, csrc/dispatch_graph.cu) against 4 plain cycles on a ta014
+     lb1 frontier at M = 49152 and an N-Queens N = 15 one at M = 50000:
+     equal counts, state and live rows, with the graph's build seconds;
  17. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
      the fused path at M = 49152 and M = 1024 (counting kernel 8), with
      ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
@@ -83,6 +94,13 @@ ends the script with a non-zero exit before the final line:
      at M = 49152, mt = 64, ta014 lb1 at M = 1024, mt = 16 (many small
      cycles) and N-Queens N = 15 at M = 50000, mt = 80, to their goldens,
      counting kernels 9b, 9c and 9a (and none of 2, 8, 4);
+ 18b. ``pipeline``: ta014 lb1, N-Queens N = 15 and ta014 lb2 (fused) at
+     ``TTS_PIPELINE`` 1 and 2 and at ``--K auto``, each to its goldens,
+     with its dispatches, K, graph build seconds, phase 2 wall time and
+     the dispatches' device time by CUDA events around each graph launch
+     (``dispatch_device_ms``, and over phase 2 the busy share), then under
+     the profiler (its device time, a lower bound, and the trace check of
+     phase 20);
  19. the eval-only pass through ``streamed_eval_bounds`` (lb1, lb2, N-Queens
      at full width) and ``megakernel_lb2_bounds``, which launch kernels 1,
      6 and 3 (counted), checked against the plain planes;
@@ -95,13 +113,28 @@ ends the script with a non-zero exit before the final line:
      and for the single-tile ta014 lb1 (kernel 2) and N-Queens (kernel 4)
      searches and the streamed lb1 (9b), N-Queens (9a) and lb2 (9c)
      searches the launches a cycle from the profiler's kernel counts (3, 2,
-     3, 2 and 3, and no ``cycle_scan`` launch);
+     3, 2 and 3 a cycle, and no ``cycle_scan`` launch). Under the graph
+     dispatch the wrapper is called once a K rung, at capture
+     (``captures``), and its ``launches`` are the graph bodies' runs that
+     the device counted (``st[ST_RUNS]``, read after each dispatch), which
+     must equal the real cycles: no cycle launched past termination. The
+     trace may lose events of a graph body, never gain one: it is held to
+     at most that many launches, exactly that many when it holds every
+     ``dispatch_init`` and ``dispatch_cond`` that ran (``trace_complete``,
+     ``trace_lost``); the graphed searches' device time is also taken by
+     CUDA events around each graph launch (``dispatch_device_ms``,
+     ``event_busy_share``);
  21. the ``kernels`` line: per kernel its route, source, the TPU kernel it
-     replaces, launches on its search path, the largest difference from the
+     replaces, launches on its search path (the fused and streamed cycles:
+     the cycles their graphs ran, with the graph's ``captures`` beside),
+     the largest difference from the
      plain version, its time, the plain version's time and the bound (the
      kernel 1, 3, 5, 6 and 8 rows with their block shape); the eval-only
      pass's TPU kernels get rows of their own on kernels 1, 3 and 6, with
-     the launches of phase 19.
+     the launches of phase 19; the lb2 and N-Queens rows carry ``wide``
+     (phase 16b), and ``dispatch_graph`` (the graph dispatch, the host
+     loop's counterpart of the JAX ``lax.while_loop``) its phase 16c time,
+     its condition kernel's time a cycle and the pipeline runs.
 
 Kernel times (``ms``) are the profiler's device time a call (``timing``
 says how it was taken), ``call_ms`` CUDA-event medians on the card; ``bound_ms`` is the larger of the
@@ -324,13 +357,17 @@ def lb2_scan_ops(limit1: np.ndarray, n: int, m: int, P: int) -> float:
                         + P * (n + LB2_SCAN_OPS_PER_JOB * r)))
 
 
-def johnson_bytes(tables) -> int:
-    """Bytes of the tables an lb2 kernel reads: ptm_t and min_heads (int32),
-    the packed (P, n, 4) int16 ordered table and the (P, 4) int32 pair
-    rows."""
-    J = tables.johnson
+def johnson_bytes(tables, source: str = "lb2_bounds") -> int:
+    """Bytes of the tables an lb2 kernel reads on its route: ptm_t and
+    min_heads (int32), the (P, 4) int32 pair rows, and the (P, n, 4) ordered
+    table, int16 on the shared-memory route, int32 with its (P, n) int16
+    inverse on the global one."""
+    from tpu_tree_search_torch.ops import lb2_kernel
+
+    J = lb2_kernel.johnson_operands(source, tables)
     return (tables.jobs * tables.machines + tables.machines) * 4 + \
-        J.packed.numel() * 2 + J.pairinfo.numel() * 4
+        J.tab.numel() * J.tab.element_size() + J.pairinfo.numel() * 4 + \
+        (J.inv.numel() * 2 if J.tables == "global" else 0)
 
 
 def nq_ops(depth: np.ndarray, N: int, g: int) -> float:
@@ -543,7 +580,9 @@ TILE_MT = {1024: 16, 49152: 64}
 def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
                      tiled: bool = False, dtype=torch.int8,
                      inst: str = "ta014",
-                     shapes=((1024, 16), (49152, 64))) -> dict:
+                     shapes=((1024, 16), (49152, 64)),
+                     chunks=("partial", "full"),
+                     incumbents=("finite", "inf")) -> dict:
     """A PFSP cycle kernel (``lb`` lb1: kernel 2, or 9b when ``tiled``; lb2:
     kernel 8, or 9c) against its plain version on a pool of ``dtype`` on
     the tables of ``inst``: at each (M, mt) of ``shapes`` (mt, the tile
@@ -566,13 +605,13 @@ def phase_pfsp_cycle(phase: str, dev, tables, lb: str, seed: int,
         run_cuda, run_plain, names, scratch = _pfsp_cycle_fns(dev, tables, lb, tiled, M,
                                                               mt, dtype)
         G = M // mt if tiled else 1
-        for chunk in ("partial", "full"):
+        for chunk in chunks:
             size = M // 2 + 3 if chunk == "partial" else M + 517
             prmu, limit1 = random_nodes(rng, n, size)
             leaf = (np.arange(n)[None, :] > limit1[:, None]) & (limit1[:, None] == n - 2)
             lbs = bound(torch.from_numpy(prmu).to(dev),
                         torch.from_numpy(limit1).to(dev), tables).cpu().numpy()
-            for incumbent in ("finite", "inf"):
+            for incumbent in incumbents:
                 best = int(np.median(lbs[leaf])) if incumbent == "finite" else INF
                 cap = size + M * n
                 pv0 = torch.zeros((cap, n), dtype=dtype, device=dev)
@@ -760,9 +799,10 @@ def phase_kernel3(dev) -> dict:
     rng = np.random.default_rng(3)
     rows = {}
     configs = [(N, B, g) for N in (15, 20) for B in (1024, 50000) for g in (1, 4)]
-    # The unfused N=14 search's shape, the fold check's g=256 twin, and the
-    # widest board (eight packed words a parent).
-    configs += [(14, 50000, 1), (15, 50000, 256), (32, 50000, 1)]
+    # The unfused N=14 search's shape, the fold check's g=256 twin, the
+    # widest packed board (eight packed words a parent), and a board past 32
+    # (the per-slot path, ``block`` words 0).
+    configs += [(14, 50000, 1), (15, 50000, 256), (32, 50000, 1), (48, 50000, 1)]
     for N, B, g in configs:
         board, depth = random_boards(rng, N, B)
         b = torch.from_numpy(board).to(dev)
@@ -796,24 +836,29 @@ def phase_kernel3(dev) -> dict:
     return rows
 
 
-def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
+def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False,
+                  N: int = 15, shapes=None) -> dict:
     """The N-Queens cycle kernel (kernel 4, or 9a when ``tiled``) against
     its plain version at N = 15: M = 1024 (streamed: mt = 16) and 50000
     (mt = 80, and streamed also mt = 8), a partial and a full chunk, g = 1
     and (kernel 4, M = 50000) g = 4; equal state, live pool rows and,
     streamed, (G, 4) per-tile scalars. Rows are keyed (M, chunk), and
-    (M, chunk, g) past g = 1, or (M, chunk, mt) past mt = 80."""
+    (M, chunk, g) past g = 1, or (M, chunk, mt) past mt = 80. Another ``N``
+    (a board past 32: ``mask_words`` keep-mask words a parent) takes
+    ``shapes`` ((M, mt, g) triples) and is keyed (N, M, chunk)."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
     from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.problems import NQueensProblem
 
-    N, K, mterm = 15, 4, 25
+    K, mterm = 4, 25
     prob = NQueensProblem(N, g=1)
-    rng = np.random.default_rng(10 if tiled else 4)
+    rng = np.random.default_rng((10 if tiled else 4) + N - 15)
     rows = {}
-    shapes = [(1024, 16, 1), (50000, 80, 1)] + (
-        [(50000, 8, 1)] if tiled else [(50000, 80, 4)])
+    ddt = CN.depth_dtype(N)
+    if shapes is None:
+        shapes = [(1024, 16, 1), (50000, 80, 1)] + (
+            [(50000, 8, 1)] if tiled else [(50000, 80, 4)])
     for M, mt, g in shapes:
         if tiled:
             scratch = T.tiled_nqueens_scratch(M, N, mt, dev)
@@ -839,9 +884,9 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
             board, depth = random_boards(rng, N, size)
             cap = size + M * N
             pv0 = torch.zeros((cap, N), dtype=torch.uint8, device=dev)
-            pa0 = torch.zeros(cap, dtype=torch.int8, device=dev)
+            pa0 = torch.zeros(cap, dtype=ddt, device=dev)
             pv0[:size] = torch.from_numpy(board).to(dev)
-            pa0[:size] = torch.from_numpy(depth).to(dev).to(torch.int8)
+            pa0[:size] = torch.from_numpy(depth).to(dev).to(ddt)
             st0 = C.new_state(size, INF, dev)
             pv, pa, st = pv0.clone(), pa0.clone(), st0.clone()
             run_cuda(pv, pa, st)
@@ -879,9 +924,10 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
             pop = depth[size - cnt:]
             nbytes = cnt * (N + 1) + tree * (N + 1) + 64 + (16 * G if tiled else 0)
             bms, by = bound_ms(nbytes, nq_ops(pop[pop < N], N, g))
-            key = ((M, chunk, g) if g != 1 else
+            key = ((N, M, chunk) if N != 15 else (M, chunk, g) if g != 1 else
                    (M, chunk) if mt in (16, 80) else (M, chunk, mt))
             rows[key] = dict(
+                **({"N": N, "mask_words": CN.nq_mask_words(N)} if N != 15 else {}),
                 M=M, mt=mt if tiled else M, g=g, chunk=chunk, popped=cnt,
                 tree_inc=tree, sol_inc=sol, max_abs_err=err, ms=ms,
                 launch_ms=launch_ms, launches_per_cycle=launches, timing=timing,
@@ -889,6 +935,206 @@ def phase_kernel4(dev, phase: str = "kernel4", tiled: bool = False) -> dict:
                 plain_ms=plain_ms, bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
             emit(phase, **rows[key])
     return rows
+
+
+def phase_lb2_wide(dev) -> dict:
+    """Kernels 6 and 7 past 100 jobs, against their plain versions on
+    int32 rows (the resident pool's type past 127 jobs): ta101 (200 jobs, 20
+    machines) and ta111 (500 jobs), both on the global table route, at B =
+    1024 and 256 parents (kernel 7: n_active = R = 4096 rows). Each row with
+    its route (``tables``), block shape and bound (kernel 6: the pair pass,
+    ``lb2_scan_ops``; kernel 7: its walks by free job)."""
+    from tpu_tree_search_torch.ops import lb2_kernel, lb2_self_kernel
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    rng = np.random.default_rng(111)
+    rows = {}
+    for inst, B in (("ta101", 1024), ("ta111", 256)):
+        tables = PFSPProblem(inst=int(inst[2:]), lb="lb2", ub=1).device_tables(dev)
+        n, m, P = tables.jobs, tables.machines, tables.johnson.pair_count
+        prmu, limit1 = random_nodes(rng, n, B)
+        p = torch.from_numpy(prmu).to(dev)
+        lim = torch.from_numpy(limit1).to(dev)
+        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
+        got = lb2_kernel.lb2_bounds_cuda(p, lim, tables)
+        want = lb2_kernel.plain(p, lim, tables)
+        torch.cuda.synchronize()
+        err = int((got[open_].long() - want[open_].long()).abs().max())
+        check(err == 0, f"lb2 kernel differs from plain ({inst}, B={B})")
+        call = lambda: lb2_kernel.lb2_bounds_cuda(p, lim, tables)  # noqa: E731
+        ms, timing = kernel_device_ms(call, 20, ("lb2_bounds_kernel",))
+        block = lb2_kernel.last_shape("lb2_bounds")
+        plain_ms = median_ms(lambda: lb2_kernel.plain(p, lim, tables), 1)
+        nbytes = B * n * 4 + B * 4 + B * n * 4 + johnson_bytes(tables)
+        bms, by = bound_ms(nbytes, lb2_scan_ops(limit1, n, m, P))
+        rows[("kernel6", inst)] = dict(
+            inst=inst, n=n, m=m, P=P, B=B, dtype="torch.int32", tables=block["tables"],
+            block=block, max_abs_err=err, ms=ms, timing=timing,
+            call_ms=median_ms(call, 20), plain_ms=plain_ms, bound_ms=bms,
+            bound_us=bms * 1e3, bound_by=by,
+            child_loop_bound_ms=bound_ms(nbytes, lb2_ops(limit1, n, m, P))[0])
+        emit("kernel6", **rows[("kernel6", inst)])
+        R = 4096
+        sp, sl = random_nodes(rng, n, R)
+        sp_t, sl_t = torch.from_numpy(sp).to(dev), torch.from_numpy(sl).to(dev)
+        na = torch.tensor(R, dtype=torch.int32, device=dev)
+        got = lb2_self_kernel.lb2_self_bounds_cuda(sp_t, sl_t, na, tables)
+        want = lb2_self_kernel.plain(sp_t, sl_t, R, tables)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"lb2 self kernel differs from plain ({inst}, R={R})")
+        call = lambda: lb2_self_kernel.lb2_self_bounds_cuda(sp_t, sl_t, na, tables)  # noqa: E731
+        ms, timing = kernel_device_ms(call, 20, ("lb2_self_bounds_kernel",))
+        block = lb2_self_kernel.last_shape()
+        nbytes = R * (n * 4 + 4 + 4) + johnson_bytes(tables, "lb2_self_bounds")
+        bms, by = bound_ms(nbytes, lb2_self_ops(sl, n, m, P))
+        rows[("kernel7", inst)] = dict(
+            inst=inst, n=n, R=R, n_active=R, dtype="torch.int32", tables=block["tables"],
+            block=block, split=lb2_self_kernel.last_split(), max_abs_err=err, ms=ms,
+            timing=timing, call_ms=median_ms(call, 20),
+            plain_ms=median_ms(lambda: lb2_self_kernel.plain(sp_t, sl_t, R, tables), 1),
+            bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
+            all_slots_bound_ms=bound_ms(nbytes, lb2_ops(sl, n, m, P, child=False))[0])
+        emit("kernel7", **rows[("kernel7", inst)])
+        for phase, tiled in (("kernel8", False), ("kernel11", True)):
+            got = phase_pfsp_cycle(phase, dev, tables, "lb2", 11 + int(tiled), tiled=tiled,
+                                   dtype=torch.int32, inst=inst, shapes=((256, 16),),
+                                   chunks=("full",), incumbents=("finite",))
+            for key, row in got.items():
+                rows[(phase, inst) + key] = dict(row, tables=row["block"]["tables"])
+        for (phase, i, *_), row in rows.items():
+            source = {"kernel6": "lb2_bounds", "kernel7": "lb2_self_bounds",
+                      "kernel8": "cycle_lb2", "kernel11": "tiled_lb2"}[phase]
+            check(i != inst or row["tables"]
+                  == lb2_kernel.johnson_operands(source, tables).tables,
+                  f"{source} on {inst}: launched on {row['tables']}, not the "
+                  "route johnson_operands picks")
+    return rows
+
+
+def phase_graph_dispatch(dev) -> dict:
+    """The graph dispatch (csrc/dispatch_graph.cu) against K plain cycles
+    on a seeded ta014 lb1 frontier at M = 49152 and an N-Queens N = 15 one
+    at M = 50000: one dispatch of K = 4 cycles through the program's graph,
+    the same K cycles through the plain versions; equal counts, state and
+    live rows. The graph's build seconds and its dispatch's CUDA-event
+    time beside the K plain cycles' time."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.pool import SoAPool
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    rows = {}
+    K = 4
+    for name, prob, M in (("ta014_lb1", PFSPProblem(inst=14, lb="lb1", ub=1), 49152),
+                          ("nqueens_N15", NQueensProblem(15), 50000)):
+        best = getattr(prob, "initial_ub", INF)
+        pool = SoAPool(prob.node_fields())
+        pool.push_back(index_batch(prob.root(), 0))
+        warmup(prob, pool, best, M + 517)
+        fr = pool.as_batch()
+        n = prob.child_slots
+        prog = make_program(prob, 25, M, K, 2 * fr[prob.vals_field].shape[0] + 2 * M * n,
+                            dev)
+        prog.host_slots(1)
+        state = prog.init_state(fr, best)
+        ref = prog.init_state(fr, best)
+        got = prog.enqueue(state)()
+        ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+        if name.startswith("nq"):
+            def plain():
+                CN.cycle_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, 15, 1, M, 25, K)
+        else:
+            def plain():
+                C.cycle_lb1_plain(ref.pool_vals, ref.pool_aux, ref.st, prog.tables, M, 25, K)
+        popped = 0
+        t0 = time.perf_counter()
+        for _ in range(K):
+            popped += min(int(ref.st[C.ST_SIZE]), M)
+            plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        size, bst, tree, sol, cycles = ref.st[:C.ST_CYCLES + 1].tolist()
+        err = max(abs(a - b) for a, b in zip(got, (tree, sol, cycles, size, bst)))
+        err = max(err, int((state.pool_vals[:size].int() - ref.pool_vals[:size].int())
+                           .abs().max()),
+                  int((state.pool_aux[:size].int() - ref.pool_aux[:size].int()).abs().max()))
+        check(err == 0 and cycles == K, f"graph dispatch differs from {K} plain cycles ({name})")
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(5):
+            st0 = state.st.clone()
+            a.record()
+            prog.step(state)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            state.st.copy_(st0)
+        prog.close()
+        # The bytes the K cycles must move: each popped row read and each
+        # survivor row written once (rows and their scalar), the state.
+        isz = state.pool_vals.element_size()
+        bms, by = bound_ms((popped + tree) * (n + 1) * isz + 64, 0.0)
+        rows[name] = dict(search=name, M=M, K=K, cycles=cycles, popped=popped,
+                          tree_inc=tree, max_abs_err=err,
+                          graph_build_s=prog.graph_build_s,
+                          dispatch_ms=float(np.median(times)), plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by)
+        emit("graph_dispatch", **rows[name])
+    return rows
+
+
+# The dispatch-pipeline runs: each search at TTS_PIPELINE 1 and 2 (the
+# default) and at --K auto (the default depth).
+PIPELINE_RUNS = (("1", []), ("2", []), (None, ["--K", "auto"]))
+
+
+def phase_pipeline(name: str, argv: list[str], golden: dict, counters: dict,
+                   kernel: str, names: tuple[str, ...], per_call: int) -> list[dict]:
+    """One search at each of ``PIPELINE_RUNS``: a run through the CLI (its
+    goldens, dispatches, K, graph build seconds, phase 2 wall time and the
+    dispatches' device time by CUDA events, with every kernel's launch
+    count set to 0 just before and read just after, ``kernel``'s checked),
+    then the same under the profiler (device time, busy share, and the
+    trace's ``per_call`` launches of ``names`` a cycle run)."""
+    import os
+
+    out = []
+    for depth, extra in PIPELINE_RUNS:
+        tag = f"{name}_depth{depth}" if depth else f"{name}_Kauto"
+        old = os.environ.get("TTS_PIPELINE")
+        if depth:
+            os.environ["TTS_PIPELINE"] = depth
+        try:
+            rec = phase_search(f"search_{tag}", argv + extra, counters, golden)
+            check(rec["launches"][kernel] > 0 and rec["captures"][kernel] > 0
+                  and rec["launches"]["dispatch_graph"] == rec["dispatches"],
+                  f"{tag}: {kernel} not launched through the graph dispatch")
+            prof = phase_profile(tag, argv + extra, golden,
+                                 (counters[kernel], names, per_call))
+        finally:
+            if old is None:
+                os.environ.pop("TTS_PIPELINE", None)
+            else:
+                os.environ["TTS_PIPELINE"] = old
+        row = dict(run=tag, launches=rec["launches"],
+                   pipeline_depth=rec["pipeline_depth"], K=rec["K"],
+                   k_auto=rec.get("k_auto", False), dispatches=rec["dispatches"],
+                   device_cycles=rec["device_cycles"], graph_build_s=rec["graph_build_s"],
+                   phase2_s=rec["phases"][1][2],
+                   phase2_less_build_s=rec["phases"][1][2] - rec["graph_build_s"],
+                   dispatch_device_ms=rec["dispatch_device_s"] * 1e3,
+                   busy_share=rec["dispatch_device_s"] / rec["phases"][1][2],
+                   profiled_device_ms=prof["device_busy_ms"],
+                   profiled_phase2_ms=prof["phase2_ms"],
+                   profiled_busy_share=prof["busy_share"],
+                   trace_complete=prof.get("trace_complete"))
+        emit("pipeline", **row)
+        out.append(row)
+    return out
 
 
 def _eval_plain(prob, dev):
@@ -991,13 +1237,15 @@ def phase_search(name: str, argv: list[str], counters: dict,
 
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "captures"):
+            fn.captures = 0
     torch.cuda.synchronize()
     if library_kwargs:
         args = cli.build_parser().parse_args(argv)
         dev = torch.device("cuda", 0)
         res = resident_search(cli.make_problem(args), m=args.m,
-                              M=cli.default_M(args.problem, dev.type), K=args.K,
-                              device=dev, **library_kwargs)
+                              M=cli.default_M(args.problem, dev.type),
+                              K=cli.parse_k(args.K), device=dev, **library_kwargs)
         rec = dict(cli.result_record(args, res, dev), entry="resident_search",
                    **library_kwargs)
         got = {k: rec[k] for k in golden}
@@ -1006,8 +1254,18 @@ def phase_search(name: str, argv: list[str], counters: dict,
     else:
         rec = run_search(argv, golden)
     launches = {k: fn.launches for k, fn in counters.items()}
+    captures = {k: fn.captures for k, fn in counters.items() if hasattr(fn, "captures")}
+    if rec["fused"] and captures:
+        # The cycle wrappers' launches are the graph bodies' runs, read from
+        # the device after each dispatch: each run is one real cycle, so
+        # they equal the device cycles (plus none past termination). A
+        # stall fallback adds its offload cycles to device_cycles.
+        runs = sum(launches[k] for k in captures)
+        check(runs == rec["device_cycles"] if rec["stall_fallbacks"] == 0
+              else runs <= rec["device_cycles"],
+              f"{name}: {runs} cycle launches for {rec['device_cycles']} device cycles")
     dev_tree, _, dev_s = rec["phases"][1]
-    out = dict(rec, launches=launches,
+    out = dict(rec, launches=launches, captures=captures,
                nodes_per_s=rec["explored_tree"] / rec["elapsed_s"],
                device_nodes_per_s=dev_tree / dev_s,
                stall_fallback_ran=rec["stall_fallbacks"] > 0)
@@ -1058,21 +1316,50 @@ def phase_profile(name: str, argv: list[str], golden: dict,
                                      for kn in kernels},
                    kernel_launches={kn: sum(c for k, c in counts.items() if kn in k)
                                     for kn in kernels})
+    # The graph dispatch's own kernels (csrc/dispatch_graph.cu): one
+    # dispatch_init a dispatch, one dispatch_cond a cycle run. Their device
+    # time by the CUDA events around each graph launch (``dispatch_device_s``,
+    # complete where the trace may not be, §3 of PERF.md) beside the trace's.
+    graph = {g: (sum(v for k, v in by_name.items() if g in k),
+                 sum(c for k, c in counts.items() if g in k))
+             for g in ("dispatch_init", "dispatch_cond")}
+    real = rec["device_cycles"]
+    event_ms = (rec["dispatch_device_s"] * 1e3
+                if rec.get("dispatch_device_s") is not None else None)
+    out.update(dispatches=rec["dispatches"], K=rec["K"],
+               graph_build_s=rec["graph_build_s"], dispatch_device_ms=event_ms,
+               event_busy_share=None if event_ms is None else event_ms / phase2_ms,
+               graph_kernel_ms={g: ms for g, (ms, _) in graph.items()},
+               graph_kernel_launches={g: c for g, (_, c) in graph.items()},
+               cond_ms_per_cycle=graph["dispatch_cond"][0]
+               / max(graph["dispatch_cond"][1], 1))
     if cycle is not None:
         _, names, per_call = cycle
+        # The wrapper's launches: the graph bodies' runs, equal to the real
+        # cycles (phase_search checks it), so none past termination.
         calls = rec["launches"]["cycle"]
         launches = sum(c for k, c in counts.items() if any(nm in k for nm in names))
         cycle_ms = {k: v for k, v in by_name.items() if any(nm in k for nm in names)}
-        out.update(cycle_calls=calls, real_cycles=rec["device_cycles"],
-                   cycle_kernel_launches=launches,
+        # The trace may drop events of a graph body, never add any. It is
+        # complete when it holds every dispatch_init and dispatch_cond that
+        # ran; then it must hold per_call launches a cycle run, exactly.
+        lost = {"cycle": per_call * calls - launches,
+                "dispatch_cond": calls - graph["dispatch_cond"][1],
+                "dispatch_init": rec["dispatches"] - graph["dispatch_init"][1]}
+        complete = lost["dispatch_cond"] == 0 and lost["dispatch_init"] == 0
+        out.update(cycle_calls=calls, cycle_captures=rec["captures"]["cycle"],
+                   real_cycles=real, cycle_kernel_launches=launches,
                    launches_per_cycle=launches / max(calls, 1),
+                   trace_complete=complete, trace_lost=lost,
                    cycle_device_ms=cycle_ms,
-                   cycle_ms_per_real_cycle=sum(cycle_ms.values()) / max(rec["device_cycles"], 1))
-        # The trace may drop a few events (its buffers), never add any: more
-        # than per_call - 1 and at most per_call launches a cycle.
-        check(calls > 0 and (per_call - 1) * calls < launches <= per_call * calls,
-              f"{name}: {launches} launches of {names} for {calls} cycles, "
-              f"not {per_call} a cycle")
+                   cycle_ms_per_traced_cycle=sum(cycle_ms.values())
+                   / max(launches / per_call, 1))
+        check(calls > 0 and rec["captures"]["cycle"] > 0,
+              f"{name}: the cycle was not launched through the graph")
+        check(min(lost.values()) >= 0 and (lost["cycle"] == 0 or not complete),
+              f"{name}: the trace holds {launches} launches of {names}, "
+              f"{graph} graph kernels, for {calls} cycle runs and "
+              f"{rec['dispatches']} dispatches")
         check(not any("cycle_scan" in k for k in counts),
               f"{name}: a cycle_scan launch ran")
     emit("profile", **out)
@@ -1137,6 +1424,7 @@ def main() -> int:
         nqueens_kernel,
     )
     from tpu_tree_search_torch.ops import tiled as T
+    from tpu_tree_search_torch.ops.dispatch import DispatchGraph
     from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 
     phase_build()
@@ -1169,6 +1457,13 @@ def main() -> int:
                            shapes=((1024, 16), (49152, 64), (49152, 8)))
     k11_21 = phase_pfsp_cycle("kernel11", dev, lb2_tables["ta021"], "lb2", 111,
                               tiled=True, inst="ta021", shapes=((49152, 64),))
+    # Past the old limits: kernels 6, 7, 8 and 9c on ta101 and ta111 (the
+    # global table route), kernels 4 and 9a at N = 48 (two mask words a
+    # parent; kernel 3's row is in phase kernel3).
+    wide = phase_lb2_wide(dev)
+    k4_48 = phase_kernel4(dev, N=48, shapes=[(50000, 80, 1)])
+    k10_48 = phase_kernel4(dev, "kernel10", tiled=True, N=48, shapes=[(50000, 80, 1)])
+    gd = phase_graph_dispatch(dev)
     eval_probs = {"lb1": PFSPProblem(inst=14, lb="lb1", ub=1),
                   "lb2": PFSPProblem(inst=14, lb="lb2", ub=1),
                   "nqueens": NQueensProblem(15)}
@@ -1182,7 +1477,8 @@ def main() -> int:
                 "cycle_lb2": C.cycle_lb2_cuda,
                 "tiled_lb1": T.tiled_lb1_cuda,
                 "tiled_nqueens": T.tiled_nqueens_cuda,
-                "tiled_lb2": T.tiled_lb2_cuda}
+                "tiled_lb2": T.tiled_lb2_cuda,
+                "dispatch_graph": DispatchGraph}
     fused = phase_search("search_fused_M49152", PFSP_LB1, counters)
     check(fused["launches"]["cycle_lb1"] > 0, "kernel 2 not launched on the main path")
     fused1k = phase_search("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], counters)
@@ -1241,18 +1537,31 @@ def main() -> int:
     check(nqt["megakernel_tiled"] and nqt["launches"]["tiled_nqueens"] > 0
           and nqt["launches"]["cycle_nqueens"] == 0,
           "kernel 9a not launched on the streamed N-Queens path")
+    # The dispatch pipeline: ta014 lb1, N-Queens N = 15 and ta014 lb2 (fused)
+    # at TTS_PIPELINE 1 and 2 and at --K auto.
+    pipe = {}
+    for name, argv, golden, kernel, names, per_call in [
+            ("ta014_lb1", PFSP_LB1, GOLDEN, "cycle_lb1", CYCLE_KERNELS, 3),
+            ("nqueens_N15", ["nqueens", "--N", "15", "--tier", "device"], NQ_GOLDEN[15],
+             "cycle_nqueens", NQ_CYCLE_KERNELS, 2),
+            ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, "cycle_lb2", LB2_CYCLE_KERNELS, 3)]:
+        pipe[name] = phase_pipeline(name, argv, golden, counters, kernel, names,
+                                    per_call)
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
           "kernels 1, 3 and 6 not launched once a call on the eval-only pass")
     for name, extra, kwargs in [
-            ("search_lb2_fused_M49152", [], {}),
-            ("search_lb2_fused_M1024", ["--M", "1024"], {}),
+            ("search_lb2_fused_M49152", [],
+             dict(cycle=(C.cycle_lb2_cuda, LB2_CYCLE_KERNELS, 3))),
+            ("search_lb2_fused_M1024", ["--M", "1024"],
+             dict(cycle=(C.cycle_lb2_cuda, LB2_CYCLE_KERNELS, 3))),
             ("search_lb2_unfused_staged", ["--unfused"], dict(kernels=("lb1_bounds_kernel", "lb2_self_bounds_kernel"))),
             ("search_lb2_unfused_unstaged", [], dict(fused=False, staged=False)),
             ("search_lb2_tiled_M49152", ["--mt", "64"],
              dict(cycle=(T.tiled_lb2_cuda, TILED_KERNELS["lb2"], 3)))]:
         phase_profile(name, PFSP_LB2 + extra, GOLDEN_LB2, **kwargs)
+    profs = {}
     # Kernels 1 and 5 on their search paths: their device time a search
     # (the unfused search's 2,519 cycles traced on the device alone).
     phase_profile("search_unfused_M1024", PFSP_LB1 + ["--M", "1024", "--unfused"], GOLDEN,
@@ -1275,7 +1584,7 @@ def main() -> int:
             ("search_nqueens_N15_tiled",
              ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"], NQ_GOLDEN[15],
              (T.tiled_nqueens_cuda, TILED_KERNELS["nqueens"], 2))]:
-        phase_profile(name, argv, golden, cycle)
+        profs[name] = phase_profile(name, argv, golden, cycle)
 
     k1_main = k1[("ta014", 1024, "torch.int8")]
     k2_main = k2[(49152, "full", "finite")]
@@ -1295,6 +1604,7 @@ def main() -> int:
          "source": "tpu_tree_search_torch/csrc/cycle_lb1.cu",
          "replaces": "tpu_tree_search/ops/megakernel.py:570",
          "launches": fused["launches"]["cycle_lb1"],
+         "captures": fused["captures"]["cycle_lb1"],
          "launches_path": "search_fused_M49152",
          "shape": "M=49152 full chunk, finite incumbent",
          "max_abs_err": max(r["max_abs_err"] for r in [*k2.values(), *k2_51.values()]),
@@ -1345,6 +1655,9 @@ def main() -> int:
             "source": f"tpu_tree_search_torch/csrc/{source}",
             "replaces": f"tpu_tree_search/ops/{replaces}",
             "launches": path["launches"][EVAL_KERNEL.get(name, name)],
+            # The cycles' rows: the graph captures beside the launches.
+            **({"captures": path["captures"][name]}
+               if name in path.get("captures", {}) else {}),
             "launches_path": path["phase"],
             "shape": shape,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
@@ -1360,6 +1673,41 @@ def main() -> int:
                                         "split", "block", "launch_ms",
                                         "launches_per_cycle")
                if k in main_row}})
+    # The rows past the old limits (lb2 past 100 jobs on the global table
+    # route; N-Queens past 32 queens), by kernel: time, plain time, bound.
+    def brief(row):
+        return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                    "tables", "mask_words", "block") if k in row}
+
+    wide_rows = {"lb2_bounds": {k[1]: brief(r) for k, r in wide.items() if k[0] == "kernel6"},
+                 "lb2_self_bounds": {k[1]: brief(r) for k, r in wide.items()
+                                     if k[0] == "kernel7"},
+                 "cycle_lb2": {k[1]: brief(r) for k, r in wide.items() if k[0] == "kernel8"},
+                 "tiled_lb2": {k[1]: brief(r) for k, r in wide.items() if k[0] == "kernel11"},
+                 "nqueens_labels": {"N48": brief(k3[(48, 50000, 1)])},
+                 "cycle_nqueens": {f"N48/{k[2]}": brief(r) for k, r in k4_48.items()},
+                 "tiled_nqueens": {f"N48/{k[2]}": brief(r) for k, r in k10_48.items()}}
+    for k in kernels:
+        if k["name"] in wide_rows:
+            k["wide"] = wide_rows[k["name"]]
+    # The graph dispatch (not a TPU kernel: the host loop's counterpart of the
+    # JAX engine's lax.while_loop): one K = 4 dispatch against 4 plain cycles
+    # at ta014 lb1 M = 49152, and its condition kernel's time a cycle on the
+    # fused ta014 lb1 search.
+    g_main = gd["ta014_lb1"]
+    kernels.append({
+        "name": "dispatch_graph", "route": "cuda",
+        "source": "tpu_tree_search_torch/csrc/dispatch_graph.cu",
+        "replaces": "tpu_tree_search/engine/resident.py:445",
+        "launches": fused["launches"]["dispatch_graph"],
+        "launches_path": "search_fused_M49152",
+        "shape": "ta014 lb1 M=49152, one dispatch of K=4 cycles",
+        "max_abs_err": max(r["max_abs_err"] for r in gd.values()),
+        "ms": g_main["dispatch_ms"], "timing": "events", "plain_ms": g_main["plain_ms"],
+        "bound_ms": g_main["bound_ms"], "bound_by": g_main["bound_by"], "library_ms": None,
+        "graph_build_s": g_main["graph_build_s"],
+        "cond_ms_per_cycle": {n: profs[n]["cond_ms_per_cycle"] for n in profs},
+        "pipeline": pipe})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

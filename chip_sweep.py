@@ -202,10 +202,10 @@ PARENT = "@parent"
 # unrolled, rows read from global memory (step 4, int8 rows only), and 256
 # threads a block.
 _K7 = "lb2_self_bounds.cu"
-_K7_WALK = """    const short4* e = s.tab + q * ns;
+_K7_WALK = """    const typename Lb2Types<GT>::Tab* e = s.tab + q * ns;
 #pragma unroll 4
     for (int k = 0; k < n; ++k) {
-      const short4 v = e[k];
+      const typename Lb2Types<GT>::Tab v = e[k];
       const uint32_t bit = 1u << (v.w & 31);
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
@@ -227,10 +227,10 @@ _K7_FREE_SLOTS = {
     "         4 * static_cast<size_t>(U) * (1 + (m | 1)) + static_cast<size_t>(P) * n;\n",
     "  s.front = s.l1 + U;\n":
     "  s.front = s.l1 + U;\n  s.inv = reinterpret_cast<uint8_t*>(s.front + U * (m | 1));\n",
-    "    s.tab[q * ns + i - q * n] = tab[i];\n":
-    "    const short4 v = tab[i];\n    s.tab[q * ns + i - q * n] = v;\n"
-    "    s.inv[q * n + v.w] = static_cast<uint8_t>(i - q * n);\n",
-    _K7_WALK: """    const short4* e = s.tab + q * ns;
+    "      s.tab[q * ns + i - q * n] = tab[i];\n":
+    "      const short4 v = tab[i];\n      s.tab[q * ns + i - q * n] = v;\n"
+    "      s.inv[q * n + v.w] = static_cast<uint8_t>(i - q * n);\n",
+    _K7_WALK: """    const typename Lb2Types<GT>::Tab* e = s.tab + q * ns;
     const uint8_t* iv = s.inv + q * n;
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
@@ -252,7 +252,7 @@ _K7_FREE_SLOTS = {
       for (int w = 0; w < W; ++w) {
         uint32_t bits = sm[w];
         while (bits) {
-          const short4 v = e[32 * w + __ffs(bits) - 1];
+          const typename Lb2Types<GT>::Tab v = e[32 * w + __ffs(bits) - 1];
           bits &= bits - 1;
           tmp0[i] += v.x;
           tmp1[i] = max(tmp1[i], tmp0[i] + v.z) + v.y;
@@ -277,14 +277,15 @@ LB2SELF_STEPS = [
     ["no_unroll", {_K7: {"#pragma unroll 4\n    for (int k = 0; k < n; ++k) {":
                          "#pragma unroll 1\n    for (int k = 0; k < n; ++k) {"}}],
     ["no_stage", {_K7: {
-        "    const uint8_t* staged =\n"
-        "        lb2s_stage(s, rows + static_cast<size_t>(r0) * n, limit1 + r0,\n"
-        "                   rows_here, n);\n":
+        "    const typename Lb2Types<GT>::Job* staged =\n"
+        "        lb2s_stage<GT>(s, rows + static_cast<size_t>(r0) * n, limit1 + r0,\n"
+        "                       rows_here, n);\n":
         "    for (int p = threadIdx.x; p < rows_here; p += blockDim.x)\n"
         "      s.l1[p] = min(max(static_cast<int>(limit1[r0 + p]), -1), n - 1);\n"
         "    __syncthreads();\n"
-        "    const uint8_t* staged = reinterpret_cast<const uint8_t*>(\n"
-        "        rows + static_cast<size_t>(r0) * n);\n"}}],
+        "    const typename Lb2Types<GT>::Job* staged =\n"
+        "        reinterpret_cast<const typename Lb2Types<GT>::Job*>(\n"
+        "            rows + static_cast<size_t>(r0) * n);\n"}}],
     ["threads256", {_K7: {"#define TTS_LB2S_THREADS 128": "#define TTS_LB2S_THREADS 256"}}],
 ]
 

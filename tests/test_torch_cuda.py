@@ -363,10 +363,15 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
         lb1_d_kernel.lb1_d_bounds_cuda(
             torch.zeros((4, 20), dtype=torch.int16, device=cuda),
             torch.zeros(4, dtype=torch.int16, device=cuda), t)
+    # N = 33 is taken (the wide boards' per-slot check); past what a uint8
+    # board holds (N > 256) is not.
     board = torch.zeros((4, 33), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError):  # N > 32
+    d = torch.zeros(4, dtype=torch.int8, device=cuda)
+    assert torch.equal(nqueens_kernel.nqueens_labels_cuda(board, d, 33),
+                       nqueens_kernel.plain(board, d, 33))
+    with pytest.raises(ValueError):  # N > 256
         nqueens_kernel.nqueens_labels_cuda(
-            board, torch.zeros(4, dtype=torch.int8, device=cuda), 33)
+            torch.zeros((4, 257), dtype=torch.uint8, device=cuda), d, 257)
     with pytest.raises(TypeError):  # an int16 depth is no pool type
         nqueens_kernel.nqueens_labels_cuda(
             board[:, :8].contiguous(), torch.zeros(4, dtype=torch.int16, device=cuda), 8)
@@ -544,11 +549,23 @@ def test_lb2_kernels_raise_on_what_they_do_not_take(cuda):
         lb2_self_kernel.lb2_self_bounds_cuda(
             torch.zeros((4, 19), dtype=torch.int8, device=cuda),
             torch.zeros(4, dtype=torch.int8, device=cuda), 4, t)
-    ptm = np.random.default_rng(0).integers(1, 100, (3, lb2_kernel.MAX_JOBS + 1))
+    # 101 jobs (once refused) are taken and equal the plain
+    # version; past MAX_JOBS jobs is refused.
+    rng = np.random.default_rng(0)
+    ptm = rng.integers(1, 100, (3, 101))
+    mid = PFSPProblem(lb="lb2", ub=0, p_times=ptm).device_tables(cuda)
+    prmu, limit1 = _nodes(rng, 101, 64)
+    p = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+    lim = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+    op = torch.from_numpy(np.arange(101)[None, :] > limit1[:, None]).to(cuda)
+    got = lb2_kernel.lb2_bounds_cuda(p, lim, mid)
+    assert torch.equal(got[op], lb2_kernel.plain(p, lim, mid)[op])
+    assert lb2_kernel.last_shape("lb2_bounds")["tables"] == "smem"
+    ptm = rng.integers(1, 100, (3, lb2_kernel.MAX_JOBS + 1))
     big = PFSPProblem(lb="lb2", ub=0, p_times=ptm).device_tables(cuda)
-    rows = torch.zeros((4, ptm.shape[1]), dtype=torch.int8, device=cuda)
+    rows = torch.zeros((4, ptm.shape[1]), dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lb2_kernel.lb2_bounds_cuda(rows, torch.zeros(4, dtype=torch.int8, device=cuda), big)
+        lb2_kernel.lb2_bounds_cuda(rows, torch.zeros(4, dtype=torch.int32, device=cuda), big)
 
 
 def _depth_nodes(rng, n, B, depth):
@@ -723,34 +740,34 @@ def test_tiled_nqueens_kernel_matches_plain(cuda, M, mt, chunk):
                  T.tiled_nqueens_scratch(M, N, mt, cuda), prob, M, mt)
 
 
-def test_tiled_lb2_refuses_what_kernel_8_refuses(cuda):
+def test_tiled_lb2_takes_what_kernel_8_takes(cuda):
     # 100 jobs on 22 machines (P = 231 pairs): the tables plus one parent
-    # of kernel 8's bounds launch pass the shared memory a block may hold,
-    # a shape the per-child form of kernel 9c took. It raises before any
-    # launch and nothing falls back to the plain version.
+    # pass the shared memory a block may hold, so kernels 8 and 9c take the
+    # global table route (once refused), and equal their plain
+    # versions over three cycles.
     ptm = np.random.default_rng(22).integers(1, 100, (22, 100))
     t = PFSPProblem(lb="lb2", ub=0, p_times=ptm).device_tables(cuda)
     assert lb2_kernel.block_smem("tiled_lb2", t) > lb2_kernel.SMEM_LIMIT
+    assert lb2_kernel.johnson_operands("tiled_lb2", t).tables == "global"
     n, M, mt = 100, 64, 16
-    prmu, limit1 = _nodes(np.random.default_rng(23), n, M)
-    cap = M + 2 * M * n
-    pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
-    pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
-    pv[:M] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
-    pa[:M] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
-    st = C.new_state(M, INF, cuda)
-    before = (pv.clone(), pa.clone(), st.clone())
-    scratch = T.tiled_lb2_scratch(M, n, mt, torch.int8, cuda)
-    T.tiled_lb2_cuda.launches = 0
-    for cycle in (T.tiled_lb2_cuda, T.tiled_lb2):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cycle(pv, pa, st, scratch, t, M, mt, 25, 4)
-    torch.cuda.synchronize()
-    assert T.tiled_lb2_cuda.launches == 0
-    assert all(torch.equal(x, y) for x, y in zip((pv, pa, st), before))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.cycle_lb2_cuda(pv, pa, st, C.cycle_scratch(M, n, torch.int8, cuda),
-                         t, M, 25, 4)
+    prmu, limit1 = _nodes(np.random.default_rng(23), n, 3 * M)
+    cap = 3 * M + 2 * M * n
+    for tiled in (False, True):
+        pv = torch.zeros((cap, n), dtype=torch.int8, device=cuda)
+        pa = torch.zeros(cap, dtype=torch.int8, device=cuda)
+        pv[:3 * M] = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+        pa[:3 * M] = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+        if tiled:
+            _tiled_check(T.tiled_lb2_cuda, T.tiled_lb2_plain, pv, pa,
+                         C.new_state(3 * M, INF, cuda),
+                         T.tiled_lb2_scratch(M, n, mt, torch.int8, cuda), t, M,
+                         mt)
+            assert lb2_kernel.last_shape("tiled_lb2")["tables"] == "global"
+        else:
+            _cycle_check(C.cycle_lb2_cuda, C.cycle_lb2_plain, pv, pa,
+                         C.new_state(3 * M, INF, cuda),
+                         C.cycle_scratch(M, n, torch.int8, cuda), t, M)
+            assert lb2_kernel.last_shape("cycle_lb2")["tables"] == "global"
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
@@ -914,3 +931,236 @@ def test_lb1_family_reads_an_unaligned_chunk(cuda, bound):
         want = plain(p[start:], lim[start:], t)
         torch.cuda.synchronize()
         assert torch.equal(got[op[start:]], want[op[start:]])
+
+
+# -- the graph dispatch (ops/dispatch.py) ---------------------------------------
+
+_GRAPH_CASES = [("lb1", None), ("lb2", None), ("nqueens", None),
+                ("lb1", 32), ("lb2", 32), ("nqueens", 32)]
+
+
+def _graph_program(cuda, kind, mt, K=7, M=256):
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    prob = (NQueensProblem(12) if kind == "nqueens"
+            else PFSPProblem(inst=14, lb=kind, ub=1))
+    best = INF if kind == "nqueens" else prob.initial_ub
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, best, 600)
+    prog = make_program(prob, 25, M, K, 1 << 16, cuda, mt=mt)
+    return prog, pool.as_batch(), best
+
+
+def _graph_wrapper(kind, mt):
+    """The cycle wrapper the graph of (kind, mt) captures, its counts
+    zeroed."""
+    fn = {("lb1", False): C.cycle_lb1_cuda, ("lb2", False): C.cycle_lb2_cuda,
+          ("nqueens", False): CN.cycle_nqueens_cuda,
+          ("lb1", True): T.tiled_lb1_cuda, ("lb2", True): T.tiled_lb2_cuda,
+          ("nqueens", True): T.tiled_nqueens_cuda}[kind, mt is not None]
+    fn.launches = fn.captures = 0
+    return fn
+
+
+@pytest.mark.parametrize("kind,mt", _GRAPH_CASES)
+def test_graph_dispatch_matches_k_plain_cycles(cuda, kind, mt):
+    K, M = 7, 256
+    prog, fr, best = _graph_program(cuda, kind, mt, K, M)
+    assert prog.graphed
+    state = prog.init_state(fr, best)
+    ref = prog.init_state(fr, best)
+    prog.host_slots(1)
+    wrapper = _graph_wrapper(kind, mt)
+    got = prog.enqueue(state)()
+    # One capture; the cycle's launches are the body's K runs, counted when
+    # the dispatch is read, and timed with events.
+    assert (wrapper.captures, wrapper.launches) == (1, K)
+    assert int(state.st[C.ST_RUNS]) == K and prog.dispatch_device_s > 0
+    ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+    for _ in range(K):
+        if kind == "nqueens":
+            CN.cycle_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, 12, 1,
+                                   M, 25, K)
+        else:
+            (C.cycle_lb1_plain if kind == "lb1" else C.cycle_lb2_plain)(
+                ref.pool_vals, ref.pool_aux, ref.st, prog.tables, M, 25, K)
+    torch.cuda.synchronize()
+    size, bst, tree, sol, cycles = ref.st[:C.ST_CYCLES + 1].tolist()
+    assert got == (tree, sol, cycles, size, bst)
+    assert cycles == K and prog.graph_build_s > 0
+    assert torch.equal(state.st[:C.ST_CYCLES + 1], ref.st[:C.ST_CYCLES + 1])
+    assert torch.equal(state.pool_vals[:size], ref.pool_vals[:size])
+    assert torch.equal(state.pool_aux[:size], ref.pool_aux[:size])
+    prog.close()
+
+
+def test_graph_dispatch_stops_at_termination(cuda):
+    # A frontier below m: the dispatch runs no cycle and changes nothing
+    # but the zeroed counters; a graph per K rung, on the same state.
+    prog, fr, best = _graph_program(cuda, "lb1", None)
+    state = prog.init_state({k: v[:10] for k, v in fr.items()}, best)
+    before = state.pool_vals.clone()
+    prog.host_slots(2)
+    wrapper = _graph_wrapper("lb1", None)
+    assert prog.enqueue(state)() == (0, 0, 0, 10, best)
+    prog.use_k(4)
+    assert prog.enqueue(state)() == (0, 0, 0, 10, best)
+    assert len(prog._graphs) == 2
+    # Two captures, no cycle launched.
+    assert (wrapper.captures, wrapper.launches) == (2, 0)
+    assert int(state.st[C.ST_RUNS]) == 0
+    assert torch.equal(state.pool_vals, before)
+    prog.close()
+
+
+def test_graph_step_does_not_synchronise(cuda):
+    prog, fr, best = _graph_program(cuda, "nqueens", None, K=3)
+    state = prog.init_state(fr, best)
+    prog.host_slots(2)
+    prog.enqueue(state)()  # builds the graph (capture is set-up)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reads = [prog.enqueue(state), prog.enqueue(state)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [r()[2] for r in reads] == [3, 3]
+    prog.close()
+
+
+@pytest.mark.parametrize("kind", ["nqueens", "lb1"])
+def test_graph_search_stalls_and_hits_goldens(cuda, kind):
+    if kind == "nqueens":
+        res = resident_search(NQueensProblem(10), m=8, M=32, K=16,
+                              capacity=700, warmup_target=400, device=cuda)
+        assert (res.explored_tree, res.explored_sol) == (NQ10["tree"],
+                                                         NQ10["sol"])
+    else:
+        ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+        res = resident_search(PFSPProblem(lb="lb1", ub=0, p_times=ptm), m=8,
+                              M=32, K=16, capacity=700, warmup_target=400,
+                              initial_best=REDUCED["best"], device=cuda)
+        assert (res.explored_tree, res.explored_sol, res.best) == (
+            REDUCED["tree"], REDUCED["sol"], REDUCED["best"])
+    assert res.stall_fallbacks >= 1 and res.fused
+
+
+@pytest.mark.parametrize("depth", ["1", "3"])
+def test_graph_search_k_auto_hits_goldens(cuda, monkeypatch, depth):
+    monkeypatch.setenv("TTS_PIPELINE", depth)
+    res = resident_search(NQueensProblem(10), m=25, M=1024, K="auto",
+                          device=cuda)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert res.k_auto and res.pipeline_depth == int(depth)
+    assert res.graph_build_s > 0 and res.dispatch_device_s > 0
+
+
+# -- N-Queens past 32 queens (kernels 3, 4 and 9a) --------------------------------
+
+
+@pytest.mark.parametrize("N", [33, 48, 64, 127, 200])
+def test_nqueens_wide_kernels_match_plain(cuda, N):
+    # Kernel 3's per-slot path, and kernels 4 and 9a at W = 2, 4 or 8 mask
+    # words a parent (int8 depth through N = 127, int32 beyond), against
+    # their plain versions, over three cycles of a seeded pool.
+    ddt = CN.depth_dtype(N)
+    rng = np.random.default_rng(N)
+    board, depth = _boards(rng, N, 700)
+    depth = np.minimum(depth, rng.integers(0, 8, 700))  # many open slots
+    b = torch.from_numpy(board).to(cuda)
+    d = torch.from_numpy(depth).to(cuda).to(ddt)
+    for g in (1, 2):
+        assert torch.equal(nqueens_kernel.nqueens_labels_cuda(b, d, N, g),
+                           nqueens_kernel.plain(b, d, N, g))
+    assert nqueens_kernel.last_shape()["words"] == 0
+    prob = NQueensProblem(N)
+    M, m, K, size = 256, 25, 4, 700
+    for mt in (None, 32):
+        cap = size + 3 * M * N
+        pv = torch.zeros((cap, N), dtype=torch.uint8, device=cuda)
+        pa = torch.zeros(cap, dtype=ddt, device=cuda)
+        pv[:size], pa[:size] = b, d
+        pv2, pa2 = pv.clone(), pa.clone()
+        st, st2 = C.new_state(size, INF, cuda), C.new_state(size, INF, cuda)
+        if mt is None:
+            scratch = CN.nqueens_scratch(M, N, cuda)
+        else:
+            scratch = T.tiled_nqueens_scratch(M, N, mt, cuda)
+        for _ in range(3):
+            if mt is None:
+                CN.cycle_nqueens_cuda(pv, pa, st, scratch, N, 1, M, m, K)
+                CN.cycle_nqueens_plain(pv2, pa2, st2, N, 1, M, m, K)
+            else:
+                T.tiled_nqueens_cuda(pv, pa, st, scratch, prob, M, mt, m, K)
+                T.tiled_nqueens_plain(pv2, pa2, st2, prob, M, mt, m, K)
+            torch.cuda.synchronize()
+            assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+            live = int(st[C.ST_SIZE])
+            assert torch.equal(pv[:live], pv2[:live])
+            assert torch.equal(pa[:live], pa2[:live])
+        assert int(st[C.ST_TREE]) > 0
+
+
+
+# -- lb2 past 100 jobs (kernels 6, 7, 8 and 9c) ----------------------------------
+
+
+def _cycle_check(cuda_cycle, plain_cycle, pv, pa, st, scratch, t, M, K=4):
+    """Three cycles of a single-tile PFSP cycle kernel against its plain
+    version on a copy of the pool: the same state and live rows."""
+    pv2, pa2, st2 = pv.clone(), pa.clone(), st.clone()
+    for _ in range(3):
+        cuda_cycle(pv, pa, st, scratch, t, M, 25, K)
+        plain_cycle(pv2, pa2, st2, t, M, 25, K)
+        torch.cuda.synchronize()
+        assert torch.equal(st[:C.ST_BASE + 1], st2[:C.ST_BASE + 1])
+        live = int(st[C.ST_SIZE])
+        assert torch.equal(pv[:live], pv2[:live])
+        assert torch.equal(pa[:live], pa2[:live])
+    assert int(st[C.ST_TREE]) > 0
+
+
+@pytest.mark.parametrize("inst", [91, 101, 111])
+def test_lb2_kernels_past_100_jobs_match_plain(cuda, inst):
+    # ta091 (200 x 10, the shared-memory route), ta101 (200 x 20) and ta111
+    # (500 x 20, the global route), int32 pools: kernels 6, 7, 8 and 9c
+    # against their plain versions, max difference 0, each launch on the
+    # route that `johnson_operands` picks.
+    t = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(cuda)
+    n = t.jobs
+    want_route = "smem" if inst <= 100 else "global"
+    for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2", "tiled_lb2"):
+        J = lb2_kernel.johnson_operands(source, t)
+        assert J.tables == want_route
+    rng = np.random.default_rng(inst)
+    prmu, limit1 = _nodes(rng, n, 96)
+    p = torch.from_numpy(prmu).to(cuda)
+    lim = torch.from_numpy(limit1).to(cuda)
+    op = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(cuda)
+    got = lb2_kernel.lb2_bounds_cuda(p, lim, t)
+    assert torch.equal(got[op], lb2_kernel.plain(p, lim, t)[op])
+    assert lb2_kernel.last_shape("lb2_bounds")["tables"] == want_route
+    got = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, 96, t)
+    assert torch.equal(got, lb2_self_kernel.plain(p, lim, 96, t))
+    assert lb2_self_kernel.last_shape()["tables"] == want_route
+    M, mt = 64, 16
+    rows, lim3 = _nodes(rng, n, 3 * M)
+    cap = 3 * M + 2 * M * n
+    for tiled in (False, True):
+        pv = torch.zeros((cap, n), dtype=torch.int32, device=cuda)
+        pa = torch.zeros(cap, dtype=torch.int32, device=cuda)
+        pv[:3 * M] = torch.from_numpy(rows).to(cuda)
+        pa[:3 * M] = torch.from_numpy(lim3).to(cuda)
+        st = C.new_state(3 * M, INF, cuda)
+        if tiled:
+            _tiled_check(T.tiled_lb2_cuda, T.tiled_lb2_plain, pv, pa, st,
+                         T.tiled_lb2_scratch(M, n, mt, torch.int32, cuda), t,
+                         M, mt)
+            assert lb2_kernel.last_shape("tiled_lb2")["tables"] == want_route
+        else:
+            _cycle_check(C.cycle_lb2_cuda, C.cycle_lb2_plain, pv, pa, st,
+                         C.cycle_scratch(M, n, torch.int32, cuda), t, M)
+            assert lb2_kernel.last_shape("cycle_lb2")["tables"] == want_route

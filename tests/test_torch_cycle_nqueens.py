@@ -125,3 +125,91 @@ def test_cycle_router_takes_plain_on_cpu_and_kernel_refuses_cpu():
     assert int(st[C.ST_CYCLES]) == 1
     with pytest.raises(ValueError):
         CN.cycle_nqueens_cuda(pool_vals, pool_aux, st, None, 10, 1, 64, 8, 4)
+
+
+def _mask_words_model(labels, valid, depth, N):
+    """Kernel 4's labels launch on the W-word keep mask: bit k % 32 of word
+    k // 32 of a parent is slot k kept (label, valid, depth < N)."""
+    W = CN.nq_mask_words(N)
+    M = labels.shape[0]
+    mask = np.zeros((M, W), dtype=np.uint64)
+    for p in range(M):
+        if not valid[p] or depth[p] >= N:
+            continue
+        for k in range(N):
+            if labels[p, k]:
+                mask[p, k >> 5] |= np.uint64(1) << np.uint64(k & 31)
+    return mask
+
+
+def _emit_model(board, depth, mask, N):
+    """Kernel 4's emit from the W-word masks: the offset of a parent is the
+    popcount of its predecessors' words, the rank of slot k its parent's
+    offset plus the set bits below k in word k // 32 and every bit of the
+    words before it (cycle_common.cuh `emit_block_children`)."""
+    pop = [sum(bin(int(w)).count("1") for w in mask[p]) for p in range(len(mask))]
+    off = np.concatenate([[0], np.cumsum(pop)]).astype(int)
+    rows = np.zeros((off[-1], N), dtype=np.int32)
+    caux = np.zeros(off[-1], dtype=np.int32)
+    for p in range(len(mask)):
+        for k in range(N):
+            w, bit = k >> 5, k & 31
+            if not (int(mask[p, w]) >> bit) & 1:
+                continue
+            rank = off[p] + bin(int(mask[p, w]) & ((1 << bit) - 1)).count("1")
+            rank += sum(bin(int(mask[p, j])).count("1") for j in range(w))
+            d = int(depth[p])
+            child = board[p].astype(np.int32).copy()
+            child[d], child[k] = board[p, k], board[p, d]
+            rows[rank] = child
+            caux[rank] = d + 1
+    return rows, caux
+
+
+@pytest.mark.parametrize("N", [33, 40, 64])
+def test_wide_chunk_cycle_matches_jax_and_mask_model(N):
+    # Past 32 queens the kernel keeps W = 2 mask words a parent; the plain
+    # chunk cycle equals the JAX resident program's one-cycle step, and a
+    # numpy model of the W-word keep mask and its emit equals both.
+    from tpu_tree_search.engine.resident import _make_program
+    from tpu_tree_search.problems import NQueensProblem as JaxNQueens
+    from tpu_tree_search_torch.engine.resident import (NQueensResident,
+                                                       pool_from_numpy)
+    from tpu_tree_search_torch.ops.nqueens_device import labels_chunk
+    from tpu_tree_search_torch.problems import NQueensProblem
+
+    M = 32
+    rng = np.random.default_rng(N)
+    board, depth = _chunk(rng, N, M)
+    depth = np.minimum(depth, 6)  # shallow parents keep many slots
+    depth[::7] = N
+    valid = np.ones(M, dtype=bool)
+    valid[:5] = False
+    rows, caux, tree, sol, best = CN.cycle_nqueens_chunk_plain(
+        torch.from_numpy(board), torch.from_numpy(depth),
+        torch.from_numpy(valid), torch.tensor(INF, dtype=torch.int32), N, 1)
+    labels = labels_chunk(torch.from_numpy(board), torch.from_numpy(depth),
+                          N, 1).numpy()
+    mask = _mask_words_model(labels, valid, depth, N)
+    assert CN.nq_mask_words(N) == (2 if N <= 64 else 4) and (mask[:, 1] > 0).any()
+    m_rows, m_caux = _emit_model(board, depth, mask, N)
+    t = int(tree)
+    assert t == len(m_rows) and int(sol) == int((valid & (depth == N)).sum())
+    assert np.array_equal(rows[:t].numpy(), m_rows)
+    assert np.array_equal(caux[:t].numpy(), m_caux)
+
+    # The whole cycle in a pool: one dispatch of one cycle against JAX's.
+    capacity = 4 * M * N
+    jprog = _make_program(JaxNQueens(N), 1, M, 1, capacity, None)
+    fr = {"board": board[valid], "depth": depth[valid].astype(np.int16)}
+    out = jprog.step(jprog.init_state(fr, INF))
+    j_vals, j_aux, j_size = (np.asarray(x) for x in out[:3])
+    prog = NQueensResident(NQueensProblem(N), 1, M, 1, capacity, "cpu")
+    state = pool_from_numpy(fr["board"], fr["depth"], int(valid.sum()), INF,
+                            capacity, "cpu", prog.vals_dtype, prog.aux_dtype)
+    prog.step(state)
+    size = int(j_size)
+    assert prog.read_scalars(state)[:4] == (int(out[4]), int(out[5]), 1, size)
+    assert np.array_equal(state.pool_vals[:size].numpy(), j_vals[:size])
+    assert np.array_equal(state.pool_aux[:size].numpy().astype(np.int32),
+                          j_aux[:size].astype(np.int32))

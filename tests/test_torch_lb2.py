@@ -239,18 +239,28 @@ def _tables_of(ptm):
         pairs=d2.pairs, lags=d2.lags, johnson_schedules=d2.johnson_schedules)
 
 
-@pytest.mark.parametrize("why", ["jobs", "int16"])
+@pytest.mark.parametrize("why", ["jobs", "int16", "past"])
 def test_lb2_kernels_refuse_shapes_they_do_not_take(why):
+    # 101 jobs (once refused) take the shared-memory route, a lag
+    # past int16 the global one; past MAX_JOBS jobs is still refused.
     rng = np.random.default_rng(37)
-    if why == "jobs":  # n = 101 > MAX_JOBS
-        ptm = rng.integers(1, 100, (3, lb2_kernel.MAX_JOBS + 1))
-    else:  # a lag past int16
+    if why == "jobs":  # n = 101
+        ptm = rng.integers(1, 100, (3, 101))
+    elif why == "int16":  # a lag past int16
         ptm = rng.integers(1, 100, (4, 10))
         ptm[1:3] = 20000
+    else:
+        ptm = rng.integers(1, 100, (2, lb2_kernel.MAX_JOBS + 1))
     t = _tables_of(ptm)
-    for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lb2_kernel.johnson_operands(source, t)
+    for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2", "tiled_lb2"):
+        if why == "past":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                lb2_kernel.johnson_operands(source, t)
+            continue
+        J = lb2_kernel.johnson_operands(source, t)
+        assert J.tables == {"jobs": "smem", "int16": "global"}[why]
+        want = t.johnson.packed if J.route == 0 else t.johnson.packed32
+        assert J.tab is want and J.pair_count == t.johnson.pair_count
 
 
 @pytest.mark.parametrize("lb", ["lb1", "lb2"])
@@ -264,7 +274,7 @@ def test_device_tables_build_johnson_only_for_lb2(lb):
 # -- the per-parent pair pass of kernels 6 and 8 (csrc/lb2_common.cuh) ---------
 
 
-def _per_parent_pass(prmu, limit1, tables):
+def _per_parent_pass(prmu, limit1, tables, glob=False):
     """A numpy model of the per-parent Johnson pass of kernels 6 and 8
     (`lb2p_bounds` in csrc/lb2_common.cuh), in the kernels' order. Per
     parent: its front and its free work S by machine. Per (parent, pair q):
@@ -276,9 +286,19 @@ def _per_parent_pass(prmu, limit1, tables):
     child's front, into A[job][ma0] with a max. Per open child: its front c
     (one add_forward step) and its bound, max(0, c[j] + A[job][j], and
     c[j] + S[j] - p[j] + tails[j] for each machine j of a pair). Returns
-    (B, n) int64 with the closed slots at 0."""
+    (B, n) int64 with the closed slots at 0. ``glob``: the global table
+    route's reads: the (p0, p1, lag, job) entries from the int32 table
+    ``packed32``, and each pair's free slots as W mask words from the
+    16-bit inverse ``inv`` (bit inv[q, job] of each free job), walked
+    lowest bit first forward and highest first backward."""
     J = tables.johnson
-    h = J.host
+    h = dict(J.host)
+    if glob:
+        p32 = J.packed32.numpy()
+        h.update(p0_o=p32[..., 0], p1_o=p32[..., 1], lag_o=p32[..., 2],
+                 sched=p32[..., 3])
+        inv = J.inv.numpy().astype(np.int64)
+        W = -(-prmu.shape[1] // 32)
     ptm_t = tables.ptm_t.numpy().astype(np.int64)
     heads = tables.min_heads.numpy().astype(np.int64)
     B, n = prmu.shape
@@ -308,7 +328,15 @@ def _per_parent_pass(prmu, limit1, tables):
             ma0, ma1 = (int(v) for v in h["pairs"][q])
             t1 = int(h["tails1"][q])
             S0, S1 = int(S[ma0]), int(S[ma1])
-            order = [t for t in range(n) if free[h["sched"][q, t]]]
+            if glob:
+                words = [0] * W
+                for job in row[l1 + 1:]:
+                    t = int(inv[q, job])
+                    words[t >> 5] |= 1 << (t & 31)
+                order = [32 * w + b for w in range(W) for b in range(32)
+                         if (words[w] >> b) & 1]
+            else:
+                order = [t for t in range(n) if free[h["sched"][q, t]]]
             c0 = c1 = 0
             premax = neg
             for t in order:
@@ -392,7 +420,7 @@ _UNWRITTEN = -7
 
 
 def _self_kernel_model(prmu, limit1, n_active, tables, blocks, threads,
-                       rows=1, G=None, RT=None):
+                       rows=1, G=None, RT=None, glob=False):
     """A numpy model of kernel 7 in the kernel's order, on a grid of
     ``blocks`` blocks of ``threads`` threads taking up to ``rows`` rows a
     thread. G lanes a row and RT rows a thread (``split``'s rule from
@@ -407,9 +435,14 @@ def _self_kernel_model(prmu, limit1, n_active, tables, blocks, threads,
     pairs q = l, l + G, ... and walks each pair's n ordered slots, a slot
     counted where its job's mask bit is set. The lanes' maxima (from 0)
     reduce with a max butterfly and lane 0 writes. Returns (R,) int64,
-    ``_UNWRITTEN`` where no lane wrote."""
+    ``_UNWRITTEN`` where no lane wrote. ``glob``: the global table route,
+    its entries read from the int32 table ``packed32``."""
     J = tables.johnson
-    h = J.host
+    h = dict(J.host)
+    if glob:
+        p32 = J.packed32.numpy()
+        h.update(p0_o=p32[..., 0], p1_o=p32[..., 1], lag_o=p32[..., 2],
+                 sched=p32[..., 3])
     ptm_t = tables.ptm_t.numpy().astype(np.int64)
     heads = tables.min_heads.numpy().astype(np.int64)
     R, n = prmu.shape
@@ -584,3 +617,99 @@ def test_self_kernel_block_fits_wherever_the_per_row_kernel_did():
                 if per_row(n, m, P) <= lb2_kernel.SMEM_LIMIT:
                     sh = lb2_self_kernel.block_shape(n, m, P)
                     assert sh["smem_bytes"] <= lb2_kernel.SMEM_LIMIT, (n, m, P)
+
+
+# -- past 100 jobs: ta101 and ta111 (200 and 500 jobs, 20 machines) --------------
+
+
+def _wide_case(inst):
+    """(JAX problem, the port's CPU tables, prmu, limit1) of an instance past
+    100 jobs: a few int32 rows (the resident pool's type past 127 jobs),
+    limit1 mixed from the root to the last open slot."""
+    jprob = PFSPProblem(inst=inst, lb="lb2", ub=1)
+    t = TorchPFSP(inst=inst, lb="lb2", ub=1).device_tables(CPU)
+    n = t.jobs
+    rng = np.random.default_rng(inst)
+    prmu = np.stack([rng.permutation(n) for _ in range(4)]).astype(np.int32)
+    limit1 = np.array([-1, n // 3, n - 3, n - 2], dtype=np.int32)
+    return jprob, t, prmu, limit1
+
+
+@pytest.mark.parametrize("inst", [101, 111])
+def test_plain_lb2_past_100_jobs_matches_jax_oracle_and_global_walk(inst):
+    # The plain lb2_chunk (kernels 6, 8 and 9c's plain version) on ta101 and
+    # ta111 equals the JAX jnp evaluator on the open slots, the numpy
+    # oracle on sampled children, and a numpy model of the global-route
+    # pair pass (the int32 table and the W-word inverse masks, in the
+    # kernels' order). Both instances take the global route.
+    jprob, t, prmu, limit1 = _wide_case(inst)
+    n = t.jobs
+    for source in ("lb2_bounds", "cycle_lb2", "tiled_lb2", "lb2_self_bounds"):
+        assert lb2_kernel.johnson_operands(source, t).tables == "global"
+    jt = _jax_tables(jprob)
+    plain = tdev.lb2_chunk(torch.from_numpy(prmu), torch.from_numpy(limit1),
+                           t).numpy()
+    want = np.asarray(pfsp_device._lb2_chunk(
+        jnp.asarray(prmu), jnp.asarray(limit1), *_jax_args(jt), pairblock=1))
+    op = _open(limit1, n)
+    assert np.array_equal(plain[op], want[op])
+    model = _per_parent_pass(prmu[1:], limit1[1:], t, glob=True)
+    assert np.array_equal(model[op[1:]], plain[1:][op[1:]].astype(np.int64))
+    rng = np.random.default_rng(inst + 1)
+    for b in range(len(prmu)):
+        l1 = int(limit1[b])
+        for k in rng.choice(np.arange(l1 + 1, n), min(3, n - 1 - l1),
+                            replace=False):
+            child = prmu[b].copy()
+            child[l1 + 1], child[k] = child[k], child[l1 + 1]
+            assert plain[b, k] == jbounds.lb2_bound(
+                jprob.lb1_data, jprob.lb2_data, child, l1 + 1, n, 2**62)
+
+
+@pytest.mark.parametrize("inst", [101, 111])
+def test_plain_lb2_self_past_100_jobs_matches_jax_oracle_and_model(inst):
+    # lb2_self_chunk (kernel 7's plain version) on ta101 and ta111 rows
+    # equals the JAX jnp evaluator, the numpy oracle and kernel 7's model on
+    # the global route (one row a thread, the int32 table).
+    jprob, t, prmu, limit1 = _wide_case(inst)
+    n = t.jobs
+    jt = _jax_tables(jprob)
+    plain = tdev.lb2_self_chunk(torch.from_numpy(prmu), torch.from_numpy(limit1),
+                                len(prmu), t).numpy().astype(np.int64)
+    want = np.asarray(pfsp_device._lb2_self_chunk(
+        jnp.asarray(prmu), jnp.asarray(limit1), *_jax_args(jt)))
+    assert np.array_equal(plain, want)
+    for b in range(len(prmu)):
+        assert plain[b] == jbounds.lb2_bound(jprob.lb1_data, jprob.lb2_data,
+                                             prmu[b], int(limit1[b]), n, 2**62)
+    for G in (1, 32):
+        got = _self_kernel_model(prmu, limit1, len(prmu), t, 2, 32, G=G, RT=1,
+                                 glob=True)
+        assert np.array_equal(got, plain), G
+    sh = lb2_self_kernel.block_shape(n, t.machines, t.johnson.pair_count, True)
+    assert sh["rows"] == 1 and sh["ns"] == n
+    assert sh["smem_bytes"] <= lb2_kernel.SMEM_LIMIT
+
+
+def test_lb2_routes_of_every_taillard_instance():
+    # johnson_operands takes every Taillard instance under all pairs
+    # (ta001-ta100 and the 10-machine ta091-ta100 on the shared-memory
+    # route, ta101-ta120 on the global one) and the (100, 22, 231) shape
+    # whose tables pass shared memory (global). `route` owns the rule: the
+    # C entries take its route and check only their block's shared memory
+    # (tests/test_torch_cuda.py holds each launch's `tables` to it).
+    from tpu_tree_search_torch.problems.pfsp import taillard as tt
+
+    for inst in range(1, 121):
+        n, m = tt.nb_jobs(inst), tt.nb_machines(inst)
+        P = m * (m - 1) // 2
+        want = 0 if inst <= 100 else 1
+        assert lb2_kernel.route("lb2_bounds", n, m, P, True) == want, inst
+        assert lb2_kernel.route("lb2_self_bounds", n, m, P, True) == want, inst
+    assert lb2_kernel.route("lb2_bounds", 100, 22, 231, True) == 1
+    assert lb2_kernel.route("lb2_self_bounds", 100, 22, 231, True) == 0
+    assert lb2_kernel.route("lb2_bounds", 20, 5, 10, False) == 1
+    assert lb2_kernel.route("lb2_bounds", 1025, 5, 10, True) == -1
+    ptm = np.random.default_rng(22).integers(1, 100, (22, 100))
+    J = lb2_kernel.johnson_operands("tiled_lb2", _tables_of(ptm))
+    assert J.tables == "global"

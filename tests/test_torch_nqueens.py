@@ -248,3 +248,35 @@ def test_generate_children_matches_jax(N):
     assert got.tree_inc > 0 and got.sol_inc > 0
     for k in want.children:
         assert np.array_equal(got.children[k], want.children[k])
+
+
+@pytest.mark.parametrize("N", [33, 40, 64])
+def test_plain_labels_match_jax_on_wide_boards(N):
+    # Past 32 queens: the kernel's per-slot scalar check (its wide path) has
+    # the plain version as its oracle; both JAX forms agree with it.
+    board, depth = _nodes(np.random.default_rng(N), N, 64)
+    got = tnq.labels_chunk(torch.from_numpy(board), torch.from_numpy(depth),
+                           N, 1).numpy()
+    want = np.asarray(jnq.make_core(N, 1)(jnp.asarray(board),
+                                          jnp.asarray(depth)))
+    assert np.array_equal(got, want)
+    pallas = np.asarray(pallas_kernels.nqueens_labels(
+        jnp.asarray(board), jnp.asarray(depth), N, 1, interpret=True))
+    assert np.array_equal(got, pallas)
+    assert got.any() and (got == 0).any()
+    # The scalar check of csrc/nqueens_common.cuh `nq_label`, slot by slot.
+    model = np.zeros_like(got)
+    for b in range(board.shape[0]):
+        d = int(depth[b])
+        for k in range(d, N):
+            v = int(board[b, k])
+            model[b, k] = all(int(board[b, i]) not in (v - (d - i), v + (d - i))
+                              for i in range(d))
+    assert np.array_equal(model, got)
+
+
+def test_problem_refuses_boards_past_uint8():
+    assert NQueensProblem(256).N == 256
+    with pytest.raises(ValueError, match="uint8"):
+        NQueensProblem(257)
+    assert nqueens_kernel.MAX_N == 256

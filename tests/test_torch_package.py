@@ -112,14 +112,18 @@ def test_kernel_sources_export_the_bound_entries():
     assert names == {"lb1_bounds", "cycle_lb1", "nqueens_labels",
                      "cycle_nqueens", "lb1_d_bounds", "lb2_bounds",
                      "lb2_self_bounds", "cycle_lb2", "tiled_lb1",
-                     "tiled_nqueens", "tiled_lb2"}
+                     "tiled_nqueens", "tiled_lb2", "dispatch_graph"}
     text = {p.stem: p.read_text() for p in _build.sources()}
+    # The graph dispatch's source (not a TPU kernel: the host loop's half).
+    for entry in ("dispatch_graph_create", "dispatch_graph_begin_body",
+                  "dispatch_graph_end_body", "dispatch_graph_instantiate",
+                  "dispatch_graph_launch", "dispatch_graph_destroy"):
+        assert f'extern "C" int {entry}(' in text["dispatch_graph"]
+    assert "cudaGraphCondTypeWhile" in text["dispatch_graph"]
     for src, entries in [("lb1_bounds", ("lb1_bounds_i8", "lb1_bounds_i32")),
                          ("lb1_d_bounds", ("lb1_d_bounds_i8", "lb1_d_bounds_i32")),
                          ("nqueens_labels", ("nqueens_labels_i8",
-                                             "nqueens_labels_i32")),
-                         ("cycle_nqueens", ("cycle_nqueens",)),
-                         ("tiled_nqueens", ("tiled_nqueens",))]:
+                                             "nqueens_labels_i32"))]:
         for entry in entries:
             assert f'extern "C" int {entry}(' in text[src]
     for src, macro, entries in [
@@ -129,7 +133,12 @@ def test_kernel_sources_export_the_bound_entries():
              ("lb2_self_bounds_i8", "lb2_self_bounds_i32")),
             ("cycle_lb2", "TTS_CYCLE_LB2_ENTRY", ("cycle_lb2_i8", "cycle_lb2_i32")),
             ("tiled_lb1", "TTS_TILED_LB1_ENTRY", ("tiled_lb1_i8", "tiled_lb1_i32")),
-            ("tiled_lb2", "TTS_TILED_LB2_ENTRY", ("tiled_lb2_i8", "tiled_lb2_i32"))]:
+            ("tiled_lb2", "TTS_TILED_LB2_ENTRY", ("tiled_lb2_i8", "tiled_lb2_i32")),
+            # The N-Queens cycles: an int8 depth through N = 127, int32 beyond.
+            ("cycle_nqueens", "TTS_NQ_CYCLE_ENTRY",
+             ("cycle_nqueens", "cycle_nqueens_i32")),
+            ("tiled_nqueens", "TTS_NQ_TILED_ENTRY",
+             ("tiled_nqueens", "tiled_nqueens_i32"))]:
         for entry in entries:
             assert f"{macro}({entry}," in text[src]
     # The lb2 kernels report their shared memory a block for the wrappers'
@@ -193,7 +202,16 @@ def test_chip_ab_reads_a_chip_smoke_run():
                     "dtype": "torch.int8", "ms": 0.004}),
         json.dumps({"phase": "search_x", "elapsed_s": 0.5, "phases": [[1, 0, 0.1], [2, 0, 0.3]]}),
         json.dumps({"phase": "profile", "search": "search_x", "device_busy_ms": 3.0,
-                    "phase2_ms": 4.0, "busy_share": 0.75}),
+                    "phase2_ms": 4.0, "busy_share": 0.75, "dispatches": 1,
+                    "graph_build_s": 0.004, "cond_ms_per_cycle": 0.0013,
+                    "dispatch_device_ms": 3.2, "event_busy_share": 0.8,
+                    "trace_complete": False}),
+        json.dumps({"phase": "pipeline", "run": "ta014_lb1_Kauto", "dispatches": 6,
+                    "K": 64, "graph_build_s": 0.003, "phase2_s": 0.008,
+                    "phase2_less_build_s": 0.005, "dispatch_device_ms": 2.4,
+                    "profiled_device_ms": 2.1, "busy_share": 0.3}),
+        json.dumps({"phase": "graph_dispatch", "search": "ta014_lb1", "dispatch_ms": 0.2,
+                    "plain_ms": 40.0, "graph_build_s": 0.004}),
         json.dumps({"kernels": [{"name": "cycle_nqueens", "ms": 0.02}]}),
         json.dumps({"ok": True, "device": {}}),
     ])
@@ -207,6 +225,28 @@ def test_chip_ab_reads_a_chip_smoke_run():
     assert got["launch_ms"] == {k8: {"lb2_cycle_bounds": 0.013}}
     assert got["searches"] == {"search_x": [0.5, 0.3]}
     assert got["profiles"]["search_x"]["busy_share"] == 0.75
+    assert got["profiles"]["search_x"]["dispatches"] == 1
+    assert got["profiles"]["search_x"]["dispatch_device_ms"] == 3.2
+    assert got["profiles"]["search_x"]["trace_complete"] is False
+    assert got["pipeline"]["ta014_lb1_Kauto"]["K"] == 64
+    assert got["pipeline"]["ta014_lb1_Kauto"]["dispatch_device_ms"] == 2.4
+    assert got["graph"] == {"ta014_lb1": {"dispatch_ms": 0.2, "plain_ms": 40.0,
+                                          "graph_build_s": 0.004}}
+
+
+def test_chip_ab_rows_outside_the_parents_spread():
+    # --rows: a row is outside when both B times fall past both A times on
+    # one side; a row that one checkout lacks is not compared.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_ab", ROOT / "chip_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    got = ab.outside({"slow": [1.0, 1.2, 1.3, 1.1], "fast": [2.0, 1.0, 1.0, 2.0],
+                      "within": [1.0, 1.05, 0.99, 1.1], "mixed": [1.0, 1.2, 0.9, 1.1],
+                      "new": [None, 1.0, 1.0, None]})
+    assert set(got) == {"slow", "fast"}
+    assert abs(got["slow"] - 0.19047619) < 1e-6 and got["fast"] == -0.5
 
 
 def test_chip_ab_keys_kernel1_and_kernel5_rows_by_instance():

@@ -159,15 +159,21 @@ def test_unfused_overflow_branch_matches_jax_resident(monkeypatch, mode):
 
 
 def test_unported_bounds_raise():
-    # Every bound runs on the device tier now; what the lb2 kernels do not
-    # take (more than 100 jobs) is refused, naming ROADMAP.md, never handed
-    # to the plain version.
-    ptm = np.random.default_rng(0).integers(1, 100, (3, lb2_kernel.MAX_JOBS + 1))
-    prog = PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=ptm), 8, 64, 4,
-                        1 << 16, "cpu")
-    for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lb2_kernel.johnson_operands(source, prog.tables)
+    # Every bound runs on the device tier now. The lb2 kernels take 101 jobs
+    # (once refused); what they do not take (more than MAX_JOBS
+    # jobs) is refused, naming ROADMAP.md, never handed to the plain
+    # version.
+    rng = np.random.default_rng(0)
+    for n, taken in ((101, True), (lb2_kernel.MAX_JOBS + 1, False)):
+        ptm = rng.integers(1, 100, (2, n))
+        prog = PFSPResident(TorchPFSP(lb="lb2", ub=0, p_times=ptm), 8, 64, 4,
+                            1 << 16, "cpu")
+        for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2"):
+            if taken:
+                assert lb2_kernel.johnson_operands(source, prog.tables).route == 0
+                continue
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                lb2_kernel.johnson_operands(source, prog.tables)
 
 
 # -- PFSP lb2 ------------------------------------------------------------------

@@ -6,12 +6,14 @@
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --mt 64   # streamed cycle
 
 The banner and the report follow the reference's format (`print_settings` /
-`print_results`). Supported: ``--tier device`` (the device-resident engine)
+`print_results`). Dispatch is pipelined (``TTS_PIPELINE``) and ``--K auto``
+adapts K (`engine/pipeline.py`). Supported: ``--tier device`` (the device-resident engine)
 for N-Queens and for PFSP with ``--lb lb1``, ``lb1_d`` or ``lb2``; under
 lb2, ``--unfused`` runs the staged evaluator. ``--mt`` (the JAX
 ``TTS_MEGAKERNEL_MT``) streams the fused cycle in tiles of that many parents;
 a width that is not a multiple of 8 dividing M exits 2. The other tiers exit
-2 naming the ROADMAP.md queue that ports them.
+2 naming the ROADMAP.md queue that ports them, and so does any shape or
+option the port refuses (``Error: ...`` on stderr, no traceback).
 """
 
 from __future__ import annotations
@@ -60,8 +62,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--M", type=int, default=None,
                    help="maximum parents per device cycle (default: 49152 for "
                         "PFSP on cuda, else 50000)")
-    p.add_argument("--K", type=int, default=256,
-                   help="device cycles per dispatch")
+    p.add_argument("--K", type=str, default=None,
+                   help="device cycles per dispatch: a positive integer or "
+                        "'auto', which resizes K along a geometric ladder "
+                        "toward a target host period (also TTS_K=auto; "
+                        "engine/pipeline.py); default 4096, clamped to the "
+                        "int32 counters' headroom")
     p.add_argument("--device", default=None,
                    help="cuda (default; raises when absent) or cpu")
     p.add_argument("--unfused", action="store_true",
@@ -83,6 +89,23 @@ def check_supported(args) -> None:
         raise NotImplementedError(
             f"tier {args.tier!r} is not ported yet (ROADMAP.md queue A, "
             "the tiers); the port runs --tier device")
+
+
+def parse_k(knob: str | None) -> int | str:
+    """``--K``: None (the default, 4096), a positive integer or ``auto``
+    (`tpu_tree_search/cli.py:444-450`); ``ValueError`` otherwise."""
+    if knob is None:
+        return 4096
+    if knob == "auto":
+        return knob
+    try:
+        k = int(knob)
+    except ValueError:
+        raise ValueError(f"--K must be 'auto' or a positive integer, got "
+                         f"{knob!r}") from None
+    if k < 1:
+        raise ValueError(f"--K must be >= 1 (or 'auto'), got {k}")
+    return k
 
 
 def make_problem(args):
@@ -144,6 +167,9 @@ def print_results(problem, res) -> None:
         cycle += ", staged lb2"
     print(f"Device cycle: {cycle}, M={res.M}, K={res.k_resolved}, "
           f"dispatches={res.dispatches}, stall fallbacks={res.stall_fallbacks}")
+    tag = " (auto)" if res.k_auto else ""
+    print(f"Dispatch pipeline: depth={res.pipeline_depth}, "
+          f"K={res.k_resolved}{tag}")
     d = res.diagnostics
     print(f"Device diagnostics: cycles={d.kernel_launches} "
           f"host_to_device={d.host_to_device} device_to_host={d.device_to_host}")
@@ -167,7 +193,16 @@ def result_record(args, res, device) -> dict:
         "dispatches": res.dispatches,
         "device_cycles": res.diagnostics.kernel_launches,
         "stall_fallbacks": res.stall_fallbacks,
+        # The dispatch regime that produced the numbers (JAX `cli.py:976-980`)
+        # and the time its CUDA graphs took to build, inside phase 2.
+        "pipeline_depth": res.pipeline_depth,
+        "graph_build_s": res.graph_build_s,
     }
+    if res.dispatch_device_s is not None:
+        # The graph dispatches' device time (CUDA events around each launch).
+        rec["dispatch_device_s"] = res.dispatch_device_s
+    if res.k_auto:
+        rec["k_auto"] = True
     if res.megakernel_mt:
         # Which fused form produced the numbers: the single-tile cycle
         # (Mt == M) or the streamed one (`tpu_tree_search/cli.py:1004-1006`).
@@ -185,37 +220,55 @@ def result_record(args, res, device) -> dict:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        check_supported(args)
-    except NotImplementedError as e:
+        K, device, problem, M = prepare(args)
+    except (NotImplementedError, ValueError, TypeError) as e:
+        # A shape or option the port refuses: exit 2, as an unported tier.
         print(f"Error: {e}", file=sys.stderr)
         return 2
     from .engine.resident import resident_search
-    from .ops.backend import resolve_device
-    from .ops.tiled import check_tile
 
-    device = resolve_device(args.device)
-    try:
-        problem = make_problem(args)
-    except ValueError as e:
-        print(f"Error: {e}", file=sys.stderr)
-        return 2
-    M = args.M if args.M is not None else default_M(args.problem, device.type)
-    # The tile width of the fused cycle, checked before the search; lb1_d has
-    # no fused cycle, and there, as under --unfused, --mt is inert.
-    fused = not args.unfused and not (args.problem == "pfsp" and args.lb == "lb1_d")
-    if fused and args.mt is not None:
-        try:
-            check_tile(M, args.mt)
-        except ValueError as e:
-            print(f"Error: {e}", file=sys.stderr)
-            return 2
     print_settings(args, device)
-    res = resident_search(problem, m=args.m, M=M, K=args.K, device=device,
+    res = resident_search(problem, m=args.m, M=M, K=K, device=device,
                           fused=not args.unfused, mt=args.mt)
     print_results(problem, res)
     if args.json:
         print(json.dumps(result_record(args, res, device)))
     return 0
+
+
+def prepare(args):
+    """``(K, device, problem, M)`` of the search of ``args``, after every
+    check of what the port refuses, before the search starts: the tier,
+    ``--K``, ``TTS_K``, ``TTS_PIPELINE`` and ``TTS_COSTMODEL``, the
+    problem's shape, the tile width and, under lb2 on the card, the lb2
+    kernels' table routes. Raises ``NotImplementedError``, ``ValueError``
+    or ``TypeError`` on a refusal; errors inside the search are not
+    refusals and propagate from ``main``."""
+    check_supported(args)
+    from .engine.pipeline import (RESIDENT_TARGET, resolve_k,
+                                  resolve_pipeline_depth, resolve_target_band)
+    from .ops.backend import resolve_device
+    from .ops.lb2_kernel import johnson_operands
+    from .ops.tiled import check_tile
+
+    K = parse_k(args.K)
+    resolve_k(K, default_max=4096)
+    resolve_pipeline_depth()
+    device = resolve_device(args.device)
+    problem = make_problem(args)
+    resolve_target_band("resident", RESIDENT_TARGET, problem,
+                        topology="device-D1")
+    M = args.M if args.M is not None else default_M(args.problem, device.type)
+    # The tile width of the fused cycle; lb1_d has no fused cycle, and
+    # there, as under --unfused, --mt is inert.
+    fused = not args.unfused and not (args.problem == "pfsp" and args.lb == "lb1_d")
+    if fused and args.mt is not None:
+        check_tile(M, args.mt)
+    if device.type == "cuda" and args.problem == "pfsp" and args.lb == "lb2":
+        tables = problem.device_tables(device)
+        for source in ("lb2_bounds", "lb2_self_bounds", "cycle_lb2", "tiled_lb2"):
+            johnson_operands(source, tables)
+    return K, device, problem, M
 
 
 if __name__ == "__main__":

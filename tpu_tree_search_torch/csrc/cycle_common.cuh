@@ -21,6 +21,7 @@ enum {
   ST_CNT = 6,
   ST_START2 = 7,
   ST_BASE = 8,
+  ST_RUNS = 9,  // the dispatch graph's body runs (dispatch_graph.cu)
 };
 
 // Parents of one block of the counting and emit launches (one warp scans

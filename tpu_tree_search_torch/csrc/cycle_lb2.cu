@@ -34,32 +34,34 @@
 // too, under its own kernel names and with the tile boundaries' row.
 #include "cycle_lb2.cuh"
 
-// Dynamic shared memory of the largest launch-1 block at this shape (the
-// wrapper refuses a shape above the opt-in limit).
-extern "C" long long cycle_lb2_smem(int n, int m, int P) {
-  return tts_lb2p_smem_max(n, m, P);
+// The dynamic shared memory of the largest launch-1 block on a route
+// (lb2_bounds.cu's entry of the same name).
+extern "C" long long cycle_lb2_smem(int n, int m, int P, int global) {
+  return tts_lb2p_smem_max(global != 0, n, m, P);
 }
 
-// Launch 1's shape in the last cycle: parents, threads, shared memory, fits.
+// Launch 1's shape in the last cycle: parents, threads, shared memory,
+// fits, route.
 static Lb2Shape cycle_lb2_last;
 extern "C" void cycle_lb2_last_shape(int* out) {
   out[0] = cycle_lb2_last.parents;
   out[1] = cycle_lb2_last.threads;
   out[2] = cycle_lb2_last.smem;
   out[3] = cycle_lb2_last.fits;
+  out[4] = cycle_lb2_last.global;
 }
 
 #define TTS_CYCLE_LB2_ENTRY(NAME, T)                                          \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,             \
                       void* chunk_vals, void* chunk_aux, void* lb,           \
-                      void* blkcnt, const void* ptm_t,         \
-                      const void* heads, const void* pairinfo,               \
-                      const void* tab, int n, int m, int P, int M, int C,    \
+                      void* blkcnt, const void* ptm_t, const void* heads,    \
+                      const void* pairinfo, const void* tab, const void* inv, \
+                      int n, int m, int P, int route, int M, int C,          \
                       int mterm, int K, void* stream) {                      \
     return launch_lb2_cycle<T, false>(                                       \
         pool_vals, pool_aux, st, chunk_vals, chunk_aux, lb, blkcnt, nullptr, \
-        ptm_t, heads, pairinfo, tab, n, m, P, M, M, C, mterm, K, stream,     \
-        &cycle_lb2_last);                                                    \
+        ptm_t, heads, pairinfo, tab, inv, n, m, P, route, M, M, C, mterm, K, \
+        stream, &cycle_lb2_last);                                            \
   }
 
 TTS_CYCLE_LB2_ENTRY(cycle_lb2_i8, int8_t)

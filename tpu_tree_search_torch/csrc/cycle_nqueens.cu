@@ -5,7 +5,8 @@
 // `_compact_push`; wired by the N-Queens branch of `make_cycle`), together
 // with the engine steps around it in `engine/resident.py` `loop_fns`: the
 // loop condition, the pop, and the write of the survivors back into the
-// pool. The pool is board (C, N) uint8 and depth (C,) int8 (N <= 32).
+// pool. The pool is board (C, N) uint8 and depth (C,) int8 through
+// N = 127, int32 beyond (N <= 256, what a uint8 board holds).
 //
 // The loop state is the int32 tensor `st` of cycle_common.cuh, shared with
 // the PFSP cycles (size, best, tree, sol, cycles, active, cnt, start2,
@@ -17,8 +18,9 @@
 //      its M-window rows (one contiguous byte range) into its region of the
 //      stash and into shared memory as aligned 16-byte words, computes the
 //      safety label of every (parent, slot) with keep = label & valid &
-//      depth < N, packs the keeps of a parent into bit k of one uint32 mask
-//      word, publishes its survivor count and adds its popped valid parents
+//      depth < N, packs the keeps of a parent into bit k % 32 of its mask
+//      word k / 32 (W = 1 through N = 32, up to 8 words at N = 256),
+//      publishes its survivor count and adds its popped valid parents
 //      at depth == N (the solutions, `megakernel.py:563`) to st[3];
 //   2. emit: each block sums the survivor counts of the blocks before it,
 //      reads its stash region and mask words, ranks its survivors with one
@@ -50,7 +52,7 @@
 //     each emit block sums its predecessors' counts with 16-byte loads that
 //     go out beside its stash loads (a ticket for a last-block scan,
 //     measured, cost more than the launch it saved);
-//   - one mask word a parent (200 KB a full cycle) in place of a byte a
+//   - one mask word a parent at N <= 32 (200 KB a full cycle) in place of a byte a
 //     slot (750 KB) read back through a per-thread run of slots;
 //   - the pop and the survivor span move as aligned 16-byte words, the
 //     span built in shared memory in rank order, in place of single bytes
@@ -65,35 +67,44 @@
 #include "cycle_nqueens.cuh"
 
 // The single-tile cycle's kernels: the bodies of cycle_nqueens.cuh with no
-// boundary row.
+// boundary row, at W keep-mask words a parent and depth type A.
+template <int W, typename A>
 __global__ void nq_cycle_labels(const uint8_t* __restrict__ pool_vals,
-                                const int8_t* __restrict__ pool_aux, int* st,
+                                const A* __restrict__ pool_aux, int* st,
                                 uint8_t* __restrict__ stash,
-                                int8_t* __restrict__ chunk_aux,
+                                A* __restrict__ chunk_aux,
                                 uint32_t* __restrict__ mask,
                                 int* __restrict__ blkcnt, int N, int g, int M,
                                 int C, int mterm, int K) {
-  nq_labels_body<false>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
-                        blkcnt, N, g, M, C, mterm, K);
+  nq_labels_body<false, W, A>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                               blkcnt, N, g, M, C, mterm, K);
 }
 
+template <int W, typename A>
 __global__ void nq_cycle_emit(uint8_t* __restrict__ pool_vals,
-                              int8_t* __restrict__ pool_aux, int* st,
+                              A* __restrict__ pool_aux, int* st,
                               const uint8_t* __restrict__ stash,
-                              const int8_t* __restrict__ chunk_aux,
+                              const A* __restrict__ chunk_aux,
                               const uint32_t* __restrict__ mask,
                               const int* __restrict__ blkcnt, int N, int M,
                               int* __restrict__ bnd, int mt) {
-  nq_emit_body<false>(pool_vals, pool_aux, st, stash, chunk_aux, mask, blkcnt,
-                      N, M, bnd, mt);
+  nq_emit_body<false, W, A>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                             blkcnt, N, M, bnd, mt);
 }
 
-extern "C" int cycle_nqueens(void* pool_vals, void* pool_aux, void* st,
-                             void* chunk_vals, void* chunk_aux, void* keep,
-                             void* blkcnt, int N, int g, int M, int C,
-                             int mterm, int K, void* stream) {
-  return launch_nq_cycle(nq_cycle_labels, nq_cycle_emit, pool_vals,
-                                pool_aux, st, chunk_vals, chunk_aux, keep,
-                                blkcnt, nullptr, N, g, M, M, C, mterm, K,
-                                stream);
-}
+// The entries: `cycle_nqueens` takes an int8 depth (N <= 127),
+// `cycle_nqueens_i32` an int32 one (N > 127).
+#define TTS_NQ_CYCLE_LAUNCH(W, A)                                          \
+  launch_nq_cycle<W, A>(nq_cycle_labels<W, A>, nq_cycle_emit<W, A>, pool_vals,     \
+                        pool_aux, st, chunk_vals, chunk_aux, keep, blkcnt, \
+                        nullptr, N, g, M, M, C, mterm, K, stream)
+#define TTS_NQ_CYCLE_ENTRY(NAME, AUX32)                                    \
+  extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,          \
+                      void* chunk_vals, void* chunk_aux, void* keep,      \
+                      void* blkcnt, int N, int g, int M, int C, int mterm, \
+                      int K, void* stream) {                              \
+    TTS_NQ_DISPATCH(N, AUX32, TTS_NQ_CYCLE_LAUNCH);                        \
+  }
+
+TTS_NQ_CYCLE_ENTRY(cycle_nqueens, false)
+TTS_NQ_CYCLE_ENTRY(cycle_nqueens_i32, true)

@@ -10,7 +10,10 @@
 // In:  prmu (B, n) and limit1 (B,) of one integer type T (int8 or int32, the
 //      resident pool's storage type), ptm_t (n, m) and min_heads (m,) int32,
 //      pairinfo (P, 4) int32 rows (ma0, ma1, tails0, tails1) and tab (P, n, 4)
-//      int16 rows (p0, p1, lag, job) of each pair's Johnson order.
+//      rows (p0, p1, lag, job) of each pair's Johnson order: int16 on the
+//      SMEM route, int32 on the GLOBAL route, which also reads inv (P, n)
+//      int16, the slot of each job (lb2_common.cuh; the route is
+//      `ops/lb2_kernel.py`'s `route`).
 // Out: (B, n) int32; slot k of parent b is the lb2 of the child that
 //      schedules prmu[b, k] next. Slots k <= limit1 are not children; they
 //      are not written and never read.
@@ -36,73 +39,108 @@
 // latency-bound); else 512 threads that loop over the tasks of up to 32
 // parents (fewer table loads), as many as leave a full wave of blocks.
 // Parents are cut to what fits in shared memory (ta081: 5). The parent
-// fronts are wavefronts over the machines, one lane a machine.
+// fronts are wavefronts over the machines, one lane a machine. On the
+// GLOBAL route (ta101-ta120, n > 256, values past int16, or tables past
+// shared memory) the same code reads the tables through L2 and keeps only
+// the parents in shared memory (ta111: about 42 KB a parent).
 #include "lb2_common.cuh"
 
-template <typename T>
+template <typename T, bool GT, bool WIDE>
 __global__ void lb2_bounds_kernel(const T* __restrict__ prmu,
                                   const T* __restrict__ limit1,
                                   const int* __restrict__ ptm_t,
                                   const int* __restrict__ heads,
                                   const int4* __restrict__ pairinfo,
-                                  const short4* __restrict__ tab,
+                                  const typename Lb2Types<GT>::Tab* __restrict__ tab,
+                                  const typename Lb2Types<GT>::Job* __restrict__ inv,
                                   int* __restrict__ out, int B, int n, int m,
                                   int P, int PB) {
   extern __shared__ __align__(16) unsigned char lb2_smem[];
-  const Lb2ParSmem s = lb2p_smem_layout(lb2_smem, n, m, P, PB);
-  lb2p_load_tables(s, ptm_t, heads, pairinfo, tab, n, m, P);
+  const Lb2ParSmem<GT> s =
+      lb2p_smem_layout<GT>(lb2_smem, n, m, P, PB, ptm_t, heads, pairinfo, tab, inv);
+  lb2p_load_tables<GT>(s, ptm_t, heads, pairinfo,
+                       reinterpret_cast<const short4*>(tab), n, m, P);
   const int b0 = blockIdx.x * PB;
   const int rows = min(PB, B - b0);
-  lb2p_load_rows(s, prmu + static_cast<size_t>(b0) * n, limit1 + b0, rows, 0,
-                 rows, n);
+  lb2p_load_rows<GT>(s, prmu + static_cast<size_t>(b0) * n, limit1 + b0, rows,
+                     0, rows, n);
   __syncthreads();
   int* o = out + static_cast<size_t>(b0) * n;
-  lb2p_bounds(s, rows, n, m, P,
-              [&](int p, int k, int lb) { o[p * n + k] = lb; });
+  lb2p_bounds<GT, WIDE>(s, rows, n, m, P,
+                        [&](int p, int k, int lb) { o[p * n + k] = lb; });
 }
 
-// Dynamic shared memory of the largest block at this shape (the wrapper
-// refuses a shape above the opt-in limit).
-extern "C" long long lb2_bounds_smem(int n, int m, int P) {
-  return tts_lb2p_smem_max(n, m, P);
+// The dynamic shared memory of the largest block on a route (`global` 0
+// or 1).
+extern "C" long long lb2_bounds_smem(int n, int m, int P, int global) {
+  return tts_lb2p_smem_max(global != 0, n, m, P);
 }
 
-// The shape of the last launch: parents, threads, shared memory, fits.
+// The shape of the last launch: parents, threads, shared memory, fits,
+// route.
 static Lb2Shape lb2_bounds_last;
 extern "C" void lb2_bounds_last_shape(int* out) {
   out[0] = lb2_bounds_last.parents;
   out[1] = lb2_bounds_last.threads;
   out[2] = lb2_bounds_last.smem;
   out[3] = lb2_bounds_last.fits;
+  out[4] = lb2_bounds_last.global;
 }
 
-template <typename T>
-static int launch_lb2_bounds(const void* prmu, const void* limit1,
-                             const void* ptm_t, const void* heads,
-                             const void* pairinfo, const void* tab, void* out,
-                             int B, int n, int m, int P, void* stream) {
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
+template <typename T, bool GT, bool WIDE>
+static int launch_lb2_bounds_w(const void* prmu, const void* limit1,
+                               const void* ptm_t, const void* heads,
+                               const void* pairinfo, const void* tab,
+                               const void* inv, void* out, int B, int n,
+                               int m, int P, void* stream) {
   Lb2Shape sh;
-  int err = tts_lb2p_shape(lb2_bounds_kernel<T>, B, n, m, P, &sh);
+  int err = tts_lb2p_shape<GT>(lb2_bounds_kernel<T, GT, WIDE>, B, n, m, P,
+                               &sh);
   if (err) return err;
   lb2_bounds_last = sh;
   const int blocks = (B + sh.parents - 1) / sh.parents;
-  lb2_bounds_kernel<T><<<blocks, sh.threads, sh.smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  lb2_bounds_kernel<T, GT, WIDE><<<blocks, sh.threads, sh.smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(prmu), static_cast<const T*>(limit1),
       static_cast<const int*>(ptm_t), static_cast<const int*>(heads),
-      static_cast<const int4*>(pairinfo), static_cast<const short4*>(tab),
+      static_cast<const int4*>(pairinfo),
+      static_cast<const typename Lb2Types<GT>::Tab*>(tab),
+      static_cast<const typename Lb2Types<GT>::Job*>(inv),
       static_cast<int*>(out), B, n, m, P, sh.parents);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool GT>
+static int launch_lb2_bounds(const void* prmu, const void* limit1,
+                             const void* ptm_t, const void* heads,
+                             const void* pairinfo, const void* tab,
+                             const void* inv, void* out, int B, int n, int m,
+                             int P, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  if (tts_lb2p_wide(n))
+    return launch_lb2_bounds_w<T, GT, true>(prmu, limit1, ptm_t, heads,
+                                            pairinfo, tab, inv, out, B, n, m,
+                                            P, stream);
+  return launch_lb2_bounds_w<T, GT, false>(prmu, limit1, ptm_t, heads,
+                                           pairinfo, tab, inv, out, B, n, m,
+                                           P, stream);
+}
+
+// `route` 0: tab is the int16 table (inv unused); 1: tab the int32 table
+// and inv the 16-bit inverse.
 #define TTS_LB2_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const void* prmu, const void* limit1,                 \
                       const void* ptm_t, const void* heads,                 \
-                      const void* pairinfo, const void* tab, void* out,     \
-                      int B, int n, int m, int P, void* stream) {           \
-    return launch_lb2_bounds<T>(prmu, limit1, ptm_t, heads, pairinfo, tab,  \
-                                out, B, n, m, P, stream);                   \
+                      const void* pairinfo, const void* tab,                \
+                      const void* inv, void* out, int B, int n, int m,      \
+                      int P, int route, void* stream) {                     \
+    if (route == 1)                                                         \
+      return launch_lb2_bounds<T, true>(prmu, limit1, ptm_t, heads,         \
+                                        pairinfo, tab, inv, out, B, n, m,   \
+                                        P, stream);                         \
+    return launch_lb2_bounds<T, false>(prmu, limit1, ptm_t, heads,          \
+                                       pairinfo, tab, inv, out, B, n, m, P, \
+                                       stream);                             \
   }
 
 TTS_LB2_ENTRY(lb2_bounds_i8, int8_t)

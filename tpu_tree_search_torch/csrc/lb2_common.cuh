@@ -42,10 +42,25 @@
 // one-hot (P, n, n) matrix product and picked the pair's machines with
 // one-hot selectors; here the ordered table holds the job id of each slot,
 // its inverse the slot of each job, and a walk finds the free slots as bit
-// masks. All values are int32; the ordered table is packed as int16 (p0,
-// p1, lag, job) — exact for every Taillard instance (times <= 99, lags <=
-// 18 * 99), checked by the wrapper — so one 8-byte shared-memory load
-// feeds each step.
+// masks. All values are int32. Two table routes, chosen from the shape
+// before the launch by `ops/lb2_kernel.py` (`route`), which passes it to
+// each entry; a launch refuses a route whose shared memory the block
+// cannot hold:
+//   - SMEM: the ordered table packed as int16 (p0, p1, lag, job), so one
+//     8-byte shared-memory load feeds each step, byte job ids and slots
+//     (n <= 256), and every table in shared memory. It takes every
+//     instance whose values are below 2^15 and whose tables and one parent
+//     fit the 227 KB a block may hold: ta001-ta100 (n <= 100) and the
+//     200-job, 10-machine ta091-ta100;
+//   - GLOBAL: the ordered table as int32 (16 bytes an entry), its inverse
+//     as 16-bit slots and ptm read from device memory through L2, where
+//     every block finds them after the first; only the per-parent state
+//     (rows as 16-bit job ids, fronts, free work, the (job, ma0) terms) is
+//     in shared memory. It takes the rest up to TTS_LB2_MAX_JOBS jobs:
+//     ta101-ta120 (200 and 500 jobs on 20 machines: the int16 table alone
+//     would be 0.3 and 0.76 MB), the n <= 100 shapes with more than 20
+//     machines whose tables pass shared memory, e.g. (100, 22, 231), and a
+//     lag or time past int16.
 #pragma once
 
 #include "lb1_common.cuh"
@@ -63,57 +78,94 @@
 // Dynamic shared memory a block may ask for on sm_90 (232,448 B) less room
 // for static variables; `SMEM_LIMIT` of ops/lb2_kernel.py.
 #define TTS_LB2_SMEM_MAX (232448 - 1024)
-// Most free-mask words a (parent, pair) task holds: n <= 128 jobs.
-#define TTS_LB2_MASK_WORDS 4
+// The most jobs of the GLOBAL route (32 free-mask words a task), and of
+// the SMEM route (byte job ids and slots).
+#define TTS_LB2_MAX_JOBS 1024
+#define TTS_LB2_SMEM_JOBS 256
 
-// Shared memory of a block of kernels 6, 8 and 9c. Per parent, machine j at
-// stride ms = m | 1 (odd: parents, and the jobs of one parent, fall on
-// different banks); the ordered table of pair q at stride ns = n | 1
-// entries and its inverse at 4 * nw bytes, nw = ((n + 3) / 4) | 1 words
-// (lanes on consecutive pairs read different banks).
-struct Lb2ParSmem {
-  int4* pair;           // P: (ma0, ma1, tails0, tails1)
-  short4* tab;          // P*ns: slot t of pair q = (p0, p1, lag, job)
-  unsigned char* inv;   // P*4*nw: the slot of job j in pair q's order
-  int* ptm;             // n*m job-major processing times
-  int* heads;           // m: min_heads
-  int* tails;           // m: min_tails of the machines a pair names, else NEG
-  int* l1;              // PB: limit1, n - 1 for a row outside the chunk
-  int* front;           // PB*ms: the parent front
-  int* remain;          // PB*ms: the parent's free work by machine
-  int* A;               // PB*n*ms: the pair walks' terms by (job, ma0)
-  unsigned char* jobs;  // PB*n: the parent rows
+// The two routes' types: the ordered table's entry and a job id or slot.
+template <bool GT>
+struct Lb2Types {
+  using Tab = short4;
+  using Job = uint8_t;
+};
+template <>
+struct Lb2Types<true> {
+  using Tab = int4;
+  using Job = uint16_t;
 };
 
-static inline size_t tts_lb2p_smem_bytes(int n, int m, int P, int PB) {
+// The tables and per-parent state of a block of kernels 6, 8 and 9c. Per
+// parent, machine j at stride ms = m | 1 (odd: parents, and the jobs of one
+// parent, fall on different banks). SMEM (GT false): every table in shared
+// memory, the ordered table of pair q at stride ns = n | 1 entries and its
+// inverse at 4 * nw bytes, nw = ((n + 3) / 4) | 1 words (lanes on
+// consecutive pairs read different banks). GLOBAL (GT true): pair, tab,
+// inv, ptm and heads point into device memory (strides n), the rest is in
+// shared memory.
+template <bool GT>
+struct Lb2ParSmem {
+  using Tab = typename Lb2Types<GT>::Tab;
+  using Job = typename Lb2Types<GT>::Job;
+  int4* pair;    // P: (ma0, ma1, tails0, tails1)
+  Tab* tab;      // P*ns: slot t of pair q = (p0, p1, lag, job)
+  Job* inv;      // P*is: the slot of job j in pair q's order
+  int* ptm;      // n*m job-major processing times
+  int* heads;    // m: min_heads
+  int* tails;    // m: min_tails of the machines a pair names, else NEG
+  int* l1;       // PB: limit1, n - 1 for a row outside the chunk
+  int* front;    // PB*ms: the parent front
+  int* remain;   // PB*ms: the parent's free work by machine
+  int* A;        // PB*n*ms: the pair walks' terms by (job, ma0)
+  Job* jobs;     // PB*n: the parent rows
+};
+
+// The ordered table's stride (entries) and its inverse's (Job entries).
+template <bool GT>
+__host__ __device__ __forceinline__ int lb2p_ns(int n) {
+  return GT ? n : (n | 1);
+}
+template <bool GT>
+__host__ __device__ __forceinline__ int lb2p_is(int n) {
+  return GT ? n : 4 * (((n + 3) / 4) | 1);
+}
+
+static inline size_t tts_lb2p_smem_bytes(bool gt, int n, int m, int P,
+                                         int PB) {
   const size_t ms = m | 1, ns = n | 1, nw = ((n + 3) / 4) | 1;
+  const size_t per = static_cast<size_t>(PB) *
+                     (4 + 8 * ms + 4 * n * ms + (gt ? 2 : 1) * n);
+  if (gt) return 4 * static_cast<size_t>(m) + per;
   return 16 * static_cast<size_t>(P) + 8 * static_cast<size_t>(P) * ns +
          4 * static_cast<size_t>(P) * nw +
-         4 * (static_cast<size_t>(n) * m + 2 * m) +
-         static_cast<size_t>(PB) * (4 + 8 * ms + 4 * n * ms + n);
+         4 * (static_cast<size_t>(n) * m + 2 * m) + per;
 }
 
 // The most parents, up to `want`, whose block fits TTS_LB2_SMEM_MAX (1 when
-// none does: the wrapper then refuses the shape).
-static inline int tts_lb2p_parents(int n, int m, int P, int want) {
+// none does: the route then refuses the shape).
+static inline int tts_lb2p_parents(bool gt, int n, int m, int P, int want) {
   int pb = want;
-  while (pb > 1 && tts_lb2p_smem_bytes(n, m, P, pb) > TTS_LB2_SMEM_MAX) --pb;
+  while (pb > 1 && tts_lb2p_smem_bytes(gt, n, m, P, pb) > TTS_LB2_SMEM_MAX)
+    --pb;
   return pb;
 }
 
-// Shared memory of the largest block kernels 6 and 8 launch at this shape.
-static inline long long tts_lb2p_smem_max(int n, int m, int P) {
+// Shared memory of the largest block kernels 6 and 8 launch at this shape
+// and route.
+static inline long long tts_lb2p_smem_max(bool gt, int n, int m, int P) {
   return static_cast<long long>(tts_lb2p_smem_bytes(
-      n, m, P, tts_lb2p_parents(n, m, P, TTS_LB2_LOOP_PARENTS)));
+      gt, n, m, P, tts_lb2p_parents(gt, n, m, P, TTS_LB2_LOOP_PARENTS)));
 }
 
 // A block shape of kernels 6 and 8: parents and threads a block, its shared
-// memory, and whether the whole grid is on the card at once.
+// memory, whether the whole grid is on the card at once, and the route
+// (`global`: 1 for GLOBAL).
 struct Lb2Shape {
   int parents;
   int threads;
   int smem;
   int fits;
+  int global;
 };
 
 static inline int tts_sm_count() {
@@ -132,15 +184,16 @@ static inline int tts_sm_count() {
 // the most parents, up to TTS_LB2_LOOP_PARENTS, that leave a full wave of
 // blocks; the parents cut to what fits in shared memory. The
 // last shape is kept, so a run of launches at one shape asks once. Opts
-// `kernel` in to the block's shared memory. Refuses more jobs than the
-// free masks hold.
-template <typename K>
+// `kernel` in to the block's shared memory. Refuses a shape its route does
+// not take.
+template <bool GT, typename K>
 static inline int tts_lb2p_shape(K kernel, int rows, int n, int m, int P,
                                  Lb2Shape* sh) {
   static const void* key_fn = nullptr;
   static int key[4] = {-1, -1, -1, -1};
   static Lb2Shape last;
-  if (n > 32 * TTS_LB2_MASK_WORDS)
+  if (n > (GT ? TTS_LB2_MAX_JOBS : TTS_LB2_SMEM_JOBS) ||
+      tts_lb2p_smem_bytes(GT, n, m, P, 1) > TTS_LB2_SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = reinterpret_cast<const void*>(kernel);
   if (key_fn == fn && key[0] == rows && key[1] == n && key[2] == m &&
@@ -149,11 +202,12 @@ static inline int tts_lb2p_shape(K kernel, int rows, int n, int m, int P,
     return 0;
   }
   int err = tts_smem_optin(kernel,
-                           static_cast<size_t>(tts_lb2p_smem_max(n, m, P)));
+                           static_cast<size_t>(tts_lb2p_smem_max(GT, n, m, P)));
   if (err) return err;
-  sh->parents = tts_lb2p_parents(n, m, P, TTS_LB2_FIT_PARENTS);
+  sh->global = GT;
+  sh->parents = tts_lb2p_parents(GT, n, m, P, TTS_LB2_FIT_PARENTS);
   sh->threads = tts_threads_for(sh->parents * P);
-  sh->smem = static_cast<int>(tts_lb2p_smem_bytes(n, m, P, sh->parents));
+  sh->smem = static_cast<int>(tts_lb2p_smem_bytes(GT, n, m, P, sh->parents));
   int per_sm = 0;
   err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, sh->threads, sh->smem));
@@ -163,9 +217,9 @@ static inline int tts_lb2p_shape(K kernel, int rows, int n, int m, int P,
   // Else the most parents a block, halving from TTS_LB2_LOOP_PARENTS,
   // that still leaves at least a full wave of blocks.
   for (int want = TTS_LB2_LOOP_PARENTS; !sh->fits; want /= 2) {
-    sh->parents = tts_lb2p_parents(n, m, P, want);
+    sh->parents = tts_lb2p_parents(GT, n, m, P, want);
     sh->threads = TTS_LB2_LOOP_THREADS;
-    sh->smem = static_cast<int>(tts_lb2p_smem_bytes(n, m, P, sh->parents));
+    sh->smem = static_cast<int>(tts_lb2p_smem_bytes(GT, n, m, P, sh->parents));
     if (want <= TTS_LB2_FIT_PARENTS) break;
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, kernel, sh->threads, sh->smem));
@@ -183,47 +237,68 @@ static inline int tts_lb2p_shape(K kernel, int rows, int n, int m, int P,
   return 0;
 }
 
-__device__ __forceinline__ Lb2ParSmem lb2p_smem_layout(unsigned char* smem,
-                                                       int n, int m, int P,
-                                                       int PB) {
-  const int ms = m | 1, ns = n | 1, nw = ((n + 3) / 4) | 1;
-  Lb2ParSmem s;
-  s.pair = reinterpret_cast<int4*>(smem);
-  s.tab = reinterpret_cast<short4*>(s.pair + P);
-  s.inv = reinterpret_cast<unsigned char*>(s.tab + P * ns);
-  s.ptm = reinterpret_cast<int*>(s.inv + 4 * P * nw);
-  s.heads = s.ptm + n * m;
-  s.tails = s.heads + m;
-  s.l1 = s.tails + m;
+// The block's layout. SMEM: every table in the block's shared memory (the
+// tables are loaded by lb2p_load_tables). GLOBAL: the tables are the
+// device-memory ones (`tab` int4 (P, n), `inv` 16-bit (P, n), ptm_t,
+// heads), and shared memory holds the tails and the parents.
+template <bool GT>
+__device__ __forceinline__ Lb2ParSmem<GT> lb2p_smem_layout(
+    unsigned char* smem, int n, int m, int P, int PB, const int* ptm_t,
+    const int* heads, const int4* pairinfo,
+    const typename Lb2Types<GT>::Tab* tab,
+    const typename Lb2Types<GT>::Job* inv) {
+  using Job = typename Lb2Types<GT>::Job;
+  const int ms = m | 1;
+  Lb2ParSmem<GT> s;
+  int* rest;
+  if constexpr (GT) {
+    s.pair = const_cast<int4*>(pairinfo);
+    s.tab = const_cast<int4*>(tab);
+    s.inv = const_cast<Job*>(inv);
+    s.ptm = const_cast<int*>(ptm_t);
+    s.heads = const_cast<int*>(heads);
+    s.tails = reinterpret_cast<int*>(smem);
+    rest = s.tails + m;
+  } else {
+    s.pair = reinterpret_cast<int4*>(smem);
+    s.tab = reinterpret_cast<short4*>(s.pair + P);
+    s.inv = reinterpret_cast<unsigned char*>(s.tab + P * lb2p_ns<GT>(n));
+    s.ptm = reinterpret_cast<int*>(s.inv + P * lb2p_is<GT>(n));
+    s.heads = s.ptm + n * m;
+    s.tails = s.heads + m;
+    rest = s.tails + m;
+  }
+  s.l1 = rest;
   s.front = s.l1 + PB;
   s.remain = s.front + PB * ms;
   s.A = s.remain + PB * ms;
-  s.jobs = reinterpret_cast<unsigned char*>(s.A + PB * n * ms);
+  s.jobs = reinterpret_cast<Job*>(s.A + PB * n * ms);
   return s;
 }
 
-// The tables into shared memory, and the pair tails set to NEG
+// SMEM: the tables into shared memory; both: the pair tails set to NEG
 // (lb2p_bounds sets those of the pairs' machines).
-__device__ __forceinline__ void lb2p_load_tables(const Lb2ParSmem& s,
+template <bool GT>
+__device__ __forceinline__ void lb2p_load_tables(const Lb2ParSmem<GT>& s,
                                                  const int* ptm_t,
                                                  const int* heads,
                                                  const int4* pairinfo,
                                                  const short4* tab, int n,
                                                  int m, int P) {
-  const int ns = n | 1, nw = ((n + 3) / 4) | 1;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) s.pair[i] = pairinfo[i];
-  for (int i = threadIdx.x; i < P * n; i += blockDim.x) {
-    const int q = i / n;
-    const int t = i - q * n;
-    const short4 v = tab[i];
-    s.tab[q * ns + t] = v;
-    s.inv[4 * nw * q + v.w] = static_cast<unsigned char>(t);
+  if constexpr (!GT) {
+    const int ns = lb2p_ns<GT>(n), is = lb2p_is<GT>(n);
+    for (int i = threadIdx.x; i < P; i += blockDim.x) s.pair[i] = pairinfo[i];
+    for (int i = threadIdx.x; i < P * n; i += blockDim.x) {
+      const int q = i / n;
+      const int t = i - q * n;
+      const short4 v = tab[i];
+      s.tab[q * ns + t] = v;
+      s.inv[is * q + v.w] = static_cast<unsigned char>(t);
+    }
+    for (int i = threadIdx.x; i < n * m; i += blockDim.x) s.ptm[i] = ptm_t[i];
+    for (int j = threadIdx.x; j < m; j += blockDim.x) s.heads[j] = heads[j];
   }
-  for (int i = threadIdx.x; i < n * m; i += blockDim.x) s.ptm[i] = ptm_t[i];
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    s.heads[j] = heads[j];
-    s.tails[j] = TTS_LB2_NEG;
-  }
+  for (int j = threadIdx.x; j < m; j += blockDim.x) s.tails[j] = TTS_LB2_NEG;
 }
 
 // Parents p in [0, rows) of the block: row p (n jobs at rows_base + p*n)
@@ -232,16 +307,17 @@ __device__ __forceinline__ void lb2p_load_tables(const Lb2ParSmem& s,
 // job, no open slot). A job id outside [0, n) (a row that is no
 // permutation, outside the caller's valid rows) is read as job 0, so no
 // index leaves the block's tables.
-template <typename T>
-__device__ __forceinline__ void lb2p_load_rows(const Lb2ParSmem& s,
+template <bool GT, typename T>
+__device__ __forceinline__ void lb2p_load_rows(const Lb2ParSmem<GT>& s,
                                                const T* rows_base,
                                                const T* l1_base, int rows,
                                                int lo, int hi, int n) {
+  using Job = typename Lb2Types<GT>::Job;
   for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
     const int p = e / n;
     if (p >= lo && p < hi) {
       const int job = static_cast<int>(rows_base[e]);
-      s.jobs[e] = static_cast<unsigned char>(
+      s.jobs[e] = static_cast<Job>(
           static_cast<unsigned>(job) < static_cast<unsigned>(n) ? job : 0);
     }
   }
@@ -256,14 +332,16 @@ __device__ __forceinline__ void lb2p_load_rows(const Lb2ParSmem& s,
 // others depend on one machine only and are taken per child (lb2p_bounds).
 // The free slots are found once, as W bit masks over the ordered slots:
 // bit inv[job] of each free job (r steps, not one a slot).
-template <int W>
-__device__ __forceinline__ void lb2p_pair(const Lb2ParSmem& s, int p, int q,
-                                          int l1, int n, int m) {
-  const int ms = m | 1, ns = n | 1, nw = ((n + 3) / 4) | 1;
+template <bool GT, int W>
+__device__ __forceinline__ void lb2p_pair(const Lb2ParSmem<GT>& s, int p,
+                                          int q, int l1, int n, int m) {
+  using Tab = typename Lb2Types<GT>::Tab;
+  using Job = typename Lb2Types<GT>::Job;
+  const int ms = m | 1;
   const int4 pr = s.pair[q];
-  const short4* e = s.tab + q * ns;
-  const unsigned char* inv = s.inv + 4 * nw * q;
-  const unsigned char* row = s.jobs + p * n;
+  const Tab* e = s.tab + q * lb2p_ns<GT>(n);
+  const Job* inv = s.inv + lb2p_is<GT>(n) * q;
+  const Job* row = s.jobs + p * n;
   int* A = s.A + p * n * ms + pr.x;
   const int S0 = s.remain[p * ms + pr.x];
   const int S1 = s.remain[p * ms + pr.y];
@@ -283,7 +361,7 @@ __device__ __forceinline__ void lb2p_pair(const Lb2ParSmem& s, int p, int q,
   for (int w = 0; w < W; ++w) {
     uint32_t bits = mask[w];
     while (bits) {
-      const short4 v = e[32 * w + __ffs(bits) - 1];
+      const Tab v = e[32 * w + __ffs(bits) - 1];
       bits &= bits - 1;
       c0 += v.x;
       if (premax != TTS_LB2_NEG)
@@ -301,7 +379,7 @@ __device__ __forceinline__ void lb2p_pair(const Lb2ParSmem& s, int p, int q,
     while (bits) {
       const int b = 31 - __clz(bits);
       bits ^= 1u << b;
-      const short4 v = e[32 * w + b];
+      const Tab v = e[32 * w + b];
       s1 += v.y;
       if (sufmax != TTS_LB2_NEG)
         atomicMax(A + v.w * ms, sufmax + S0 - v.x + pr.w);
@@ -317,11 +395,12 @@ __device__ __forceinline__ void lb2p_pair(const Lb2ParSmem& s, int p, int q,
 // (kernel 2's `lb1_parent_state_lanes`, l1 + m steps in place of
 // (l1 + 1) * m dependent ones), the free work as lane j's sum over the
 // free positions. Every lane of the group calls it.
-__device__ __forceinline__ void lb2p_parent_lanes(const Lb2ParSmem& s, int p,
-                                                  int l1, int n, int m,
+template <bool GT>
+__device__ __forceinline__ void lb2p_parent_lanes(const Lb2ParSmem<GT>& s,
+                                                  int p, int l1, int n, int m,
                                                   int G, unsigned gmask) {
   const int ms = m | 1;
-  const unsigned char* row = s.jobs + p * n;
+  const typename Lb2Types<GT>::Job* row = s.jobs + p * n;
   const int j = static_cast<int>(threadIdx.x) & (G - 1);
   const bool mine = j < m;
   int f = (l1 == -1 && mine) ? s.heads[j] : 0;
@@ -339,6 +418,35 @@ __device__ __forceinline__ void lb2p_parent_lanes(const Lb2ParSmem& s, int p,
   }
 }
 
+// The pair tasks of the block at W free-mask words: 1, 2 or 4 by n through
+// n = 128 (the kernels' narrow instantiation, WIDE false), 8, 16 or 32
+// past it (WIDE true, a kernel of its own: the wide walks' registers and
+// code stay out of the narrow kernels).
+template <bool GT, bool WIDE>
+__device__ __forceinline__ void lb2p_pairs(const Lb2ParSmem<GT>& s, int p,
+                                           int q, int l1, int n, int m) {
+  if constexpr (!WIDE) {
+    if (n <= 32)
+      lb2p_pair<GT, 1>(s, p, q, l1, n, m);
+    else if (n <= 64)
+      lb2p_pair<GT, 2>(s, p, q, l1, n, m);
+    else
+      lb2p_pair<GT, 4>(s, p, q, l1, n, m);
+  } else if constexpr (!GT) {
+    lb2p_pair<GT, 8>(s, p, q, l1, n, m);
+  } else {
+    if (n <= 256)
+      lb2p_pair<GT, 8>(s, p, q, l1, n, m);
+    else if (n <= 512)
+      lb2p_pair<GT, 16>(s, p, q, l1, n, m);
+    else
+      lb2p_pair<GT, 32>(s, p, q, l1, n, m);
+  }
+}
+
+// Whether n takes the kernels' WIDE instantiation (more than 128 jobs).
+static inline bool tts_lb2p_wide(int n) { return n > 128; }
+
 // lb2 of every open slot (k > limit1) of the block's `rows` parents, after
 // lb2p_load_tables and lb2p_load_rows and a barrier: `emit(p, k, lb)` is
 // called once for each. First the parent fronts and free work, as
@@ -351,8 +459,8 @@ __device__ __forceinline__ void lb2p_parent_lanes(const Lb2ParSmem& s, int p,
 //   max(0, max_j c[j] + A[job][j], max_j c[j] + S[j] - p[j] + tails[j]),
 // the second over the machines some pair names (T1 and T4 of the closed
 // form depend on one machine).
-template <typename F>
-__device__ __forceinline__ void lb2p_bounds(const Lb2ParSmem& s, int rows,
+template <bool GT, bool WIDE, typename F>
+__device__ __forceinline__ void lb2p_bounds(const Lb2ParSmem<GT>& s, int rows,
                                             int n, int m, int P, F emit) {
   const int ms = m | 1;
   const int t = threadIdx.x;
@@ -392,13 +500,7 @@ __device__ __forceinline__ void lb2p_bounds(const Lb2ParSmem& s, int rows,
     const int p = task / P;
     const int l1 = s.l1[p];
     if (l1 >= n - 1) continue;
-    const int q = task - p * P;
-    if (n <= 32)
-      lb2p_pair<1>(s, p, q, l1, n, m);
-    else if (n <= 64)
-      lb2p_pair<2>(s, p, q, l1, n, m);
-    else
-      lb2p_pair<TTS_LB2_MASK_WORDS>(s, p, q, l1, n, m);
+    lb2p_pairs<GT, WIDE>(s, p, task - p * P, l1, n, m);
   }
   __syncthreads();
   for (int e = t; e < rows * n; e += blockDim.x) {

@@ -51,6 +51,12 @@
 //      coalesced words, narrowed), every job id outside [0, n) read as job
 //      0 and limit1 clamped to [-1, n - 1], so no index leaves the tables.
 //   5. The shared-memory opt-in and the occupancy once a shape.
+// Two table routes, as kernels 6 and 8 (lb2_common.cuh), chosen from the
+// shape before the launch (`ops/lb2_kernel.py` `route`): SMEM, the design
+// above, where the int16 tables and a block of at least one warp fit in
+// shared memory and n <= 256; GLOBAL past that (ta101-ta120, values past
+// int16): the pair rows, the int32 ordered table and ptm read through L2,
+// the staged rows as 16-bit job ids, one row a thread at most.
 #include "cycle_common.cuh"
 #include "lb2_common.cuh"
 
@@ -64,57 +70,77 @@
 // stride ns (n | 1, odd: lanes on consecutive pairs read different banks;
 // n where only that fits), ptm and min_heads; then, 16-aligned, the staged
 // rows (16 bytes of head room), their limit1 and their fronts at the odd
-// stride m | 1.
+// stride m | 1. GT (the GLOBAL route): the tables are the device-memory
+// ones and the block holds only the rows (16-bit job ids) and their state.
+template <bool GT>
 struct Lb2sSmem {
+  using Tab = typename Lb2Types<GT>::Tab;
+  using Job = typename Lb2Types<GT>::Job;
   int4* pair;      // P: (ma0, ma1, tails0, tails1)
-  short4* tab;     // P*ns: slot t of pair q = (p0, p1, lag, job)
+  Tab* tab;        // P*ns: slot t of pair q = (p0, p1, lag, job)
   int* ptm;        // n*m job-major processing times
   int* heads;      // m: min_heads
-  uint8_t* rows;   // the staged rows, job ids in [0, n)
+  Job* rows;       // the staged rows, job ids in [0, n)
   int* l1;         // their limit1, in [-1, n - 1]
   int* front;      // their fronts
 };
 
 // Bytes of a block of `threads` threads taking up to `rows` rows a thread,
 // the ordered table at stride ns. `ops/lb2_self_kernel.py` mirrors it.
-static inline size_t tts_lb2s_smem_bytes(int n, int m, int P, int ns,
+static inline size_t tts_lb2s_smem_bytes(bool gt, int n, int m, int P, int ns,
                                          int threads, int rows) {
   const int U = threads * rows;
-  const size_t tables = 16 * static_cast<size_t>(P) +
+  const size_t tables = gt ? 0 : 16 * static_cast<size_t>(P) +
                         8 * static_cast<size_t>(P) * ns +
                         4 * (static_cast<size_t>(n) * m + m);
-  return (tables + 15) / 16 * 16 + tts_stash_block_bytes(U * n) +
+  return (tables + 15) / 16 * 16 + tts_stash_block_bytes(U * n * (gt ? 2 : 1)) +
          4 * static_cast<size_t>(U) * (1 + (m | 1));
 }
 
-__device__ __forceinline__ Lb2sSmem lb2s_smem_layout(unsigned char* smem, int n,
-                                                     int m, int P, int ns,
-                                                     int U) {
-  Lb2sSmem s;
-  s.pair = reinterpret_cast<int4*>(smem);
-  s.tab = reinterpret_cast<short4*>(s.pair + P);
-  s.ptm = reinterpret_cast<int*>(s.tab + P * ns);
-  s.heads = s.ptm + n * m;
-  s.rows = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(s.heads + m) + 15) & ~static_cast<uintptr_t>(15));
-  s.l1 = reinterpret_cast<int*>(s.rows + tts_stash_block_bytes(U * n));
+template <bool GT>
+__device__ __forceinline__ Lb2sSmem<GT> lb2s_smem_layout(
+    unsigned char* smem, int n, int m, int P, int ns, int U,
+    const int* ptm_t, const int* heads, const int4* pairinfo,
+    const typename Lb2Types<GT>::Tab* tab) {
+  using Job = typename Lb2Types<GT>::Job;
+  Lb2sSmem<GT> s;
+  uintptr_t end;
+  if constexpr (GT) {
+    s.pair = const_cast<int4*>(pairinfo);
+    s.tab = const_cast<int4*>(tab);
+    s.ptm = const_cast<int*>(ptm_t);
+    s.heads = const_cast<int*>(heads);
+    end = reinterpret_cast<uintptr_t>(smem);
+  } else {
+    s.pair = reinterpret_cast<int4*>(smem);
+    s.tab = reinterpret_cast<short4*>(s.pair + P);
+    s.ptm = reinterpret_cast<int*>(s.tab + P * ns);
+    s.heads = s.ptm + n * m;
+    end = reinterpret_cast<uintptr_t>(s.heads + m);
+  }
+  s.rows = reinterpret_cast<Job*>((end + 15) & ~static_cast<uintptr_t>(15));
+  s.l1 = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(s.rows) +
+                                tts_stash_block_bytes(U * n * sizeof(Job)));
   s.front = s.l1 + U;
   return s;
 }
 
-__device__ __forceinline__ void lb2s_load_tables(const Lb2sSmem& s,
+template <bool GT>
+__device__ __forceinline__ void lb2s_load_tables(const Lb2sSmem<GT>& s,
                                                  const int* ptm_t,
                                                  const int* heads,
                                                  const int4* pairinfo,
                                                  const short4* tab, int n,
                                                  int m, int P, int ns) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) s.pair[i] = pairinfo[i];
-  for (int i = threadIdx.x; i < P * n; i += blockDim.x) {
-    const int q = i / n;
-    s.tab[q * ns + i - q * n] = tab[i];
+  if constexpr (!GT) {
+    for (int i = threadIdx.x; i < P; i += blockDim.x) s.pair[i] = pairinfo[i];
+    for (int i = threadIdx.x; i < P * n; i += blockDim.x) {
+      const int q = i / n;
+      s.tab[q * ns + i - q * n] = tab[i];
+    }
+    for (int i = threadIdx.x; i < n * m; i += blockDim.x) s.ptm[i] = ptm_t[i];
+    for (int i = threadIdx.x; i < m; i += blockDim.x) s.heads[i] = heads[i];
   }
-  for (int i = threadIdx.x; i < n * m; i += blockDim.x) s.ptm[i] = ptm_t[i];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) s.heads[i] = heads[i];
 }
 
 // Lanes a row G and rows a thread RT of a launch: G the smallest power of
@@ -131,21 +157,20 @@ __device__ __forceinline__ int2 lb2s_split(int nact, int P, int m, int rows) {
   return make_int2(G, G > 1 ? 1 : static_cast<int>(need < rows ? need : rows));
 }
 
-// The rows r0.. of the block's pass into s.rows as bytes, job ids outside
-// [0, n) as 0, and their limit1 into s.l1 clamped to [-1, n - 1]; returns
-// the first staged row. int8 rows by 16-byte words (the copy keeps the
-// source's phase mod 16), then narrowed in place; int32 rows by coalesced
-// words. Ends with a barrier.
-template <typename T>
-__device__ __forceinline__ const uint8_t* lb2s_stage(const Lb2sSmem& s,
-                                                     const T* src,
-                                                     const T* lim, int rows,
-                                                     int n) {
+// The rows r0.. of the block's pass into s.rows as bytes (GT: 16-bit ids),
+// job ids outside [0, n) as 0, and their limit1 into s.l1 clamped to
+// [-1, n - 1]; returns the first staged row. int8 rows by 16-byte words
+// (the copy keeps the source's phase mod 16), then narrowed in place;
+// int32 rows (and every GT row) by coalesced words. Ends with a barrier.
+template <bool GT, typename T>
+__device__ __forceinline__ const typename Lb2Types<GT>::Job* lb2s_stage(
+    const Lb2sSmem<GT>& s, const T* src, const T* lim, int rows, int n) {
+  using Job = typename Lb2Types<GT>::Job;
   const int len = rows * n;
-  uint8_t* row = s.rows;
+  Job* row = s.rows;
   for (int p = threadIdx.x; p < rows; p += blockDim.x)
     s.l1[p] = min(max(static_cast<int>(lim[p]), -1), n - 1);
-  if constexpr (sizeof(T) == 1) {
+  if constexpr (sizeof(T) == 1 && !GT) {
     copy_keep_phase(reinterpret_cast<const uint8_t*>(src), len, s.rows,
                     nullptr);
     row = s.rows + (reinterpret_cast<uintptr_t>(src) & 15);
@@ -157,7 +182,7 @@ __device__ __forceinline__ const uint8_t* lb2s_stage(const Lb2sSmem& s,
   } else {
     for (int e = threadIdx.x; e < len; e += blockDim.x) {
       const int j = static_cast<int>(src[e]);
-      row[e] = static_cast<uint8_t>(
+      row[e] = static_cast<Job>(
           static_cast<unsigned>(j) < static_cast<unsigned>(n) ? j : 0);
     }
   }
@@ -170,8 +195,9 @@ __device__ __forceinline__ const uint8_t* lb2s_stage(const Lb2sSmem& s,
 // i = step - j with its left neighbour's time from the step before, the
 // time of its next position loaded a step ahead. Every lane of the group
 // calls it.
-__device__ __forceinline__ void lb2s_front_lanes(const Lb2sSmem& s,
-                                                 const uint8_t* row, int l1,
+template <bool GT>
+__device__ __forceinline__ void lb2s_front_lanes(const Lb2sSmem<GT>& s,
+                                                 const typename Lb2Types<GT>::Job* row, int l1,
                                                  int m, int* f, int lane,
                                                  int G, unsigned gmask) {
   const bool mine = lane < m;
@@ -194,9 +220,9 @@ __device__ __forceinline__ void lb2s_front_lanes(const Lb2sSmem& s,
 // RT rows a thread (RT > 1 only at G = 1). The thread's rows are
 // p_i = t / G + i * (threads / G); a row past rows_here is computed from
 // row 0's front and no free job, and not written.
-template <int W, int RT>
-__device__ __forceinline__ void lb2s_pass(const Lb2sSmem& s,
-                                          const uint8_t* staged, int* out,
+template <bool GT, int W, int RT>
+__device__ __forceinline__ void lb2s_pass(const Lb2sSmem<GT>& s,
+                                          const typename Lb2Types<GT>::Job* staged, int* out,
                                           int rows_here, int n, int m, int P,
                                           int ns, int G) {
   const int t = threadIdx.x;
@@ -212,7 +238,7 @@ __device__ __forceinline__ void lb2s_pass(const Lb2sSmem& s,
     prow[i] = t / G + i * per;
     ok[i] = prow[i] < rows_here;
     if (!ok[i]) continue;  // a group's rows are the same: no shuffle splits
-    const uint8_t* row = staged + prow[i] * n;
+    const typename Lb2Types<GT>::Job* row = staged + prow[i] * n;
     const int l1 = s.l1[prow[i]];
     int* f = s.front + prow[i] * ms;
     if (m <= G)
@@ -228,7 +254,7 @@ __device__ __forceinline__ void lb2s_pass(const Lb2sSmem& s,
 #pragma unroll
     for (int w = 0; w < W; ++w) fm[i][w] = 0;
     if (ok[i]) {
-      const uint8_t* row = staged + prow[i] * n;
+      const typename Lb2Types<GT>::Job* row = staged + prow[i] * n;
       for (int k = s.l1[prow[i]] + 1 + lane; k < n; k += G) {
         const int job = row[k];
 #pragma unroll
@@ -256,10 +282,10 @@ __device__ __forceinline__ void lb2s_pass(const Lb2sSmem& s,
     }
     // Every ordered slot of pair q, counted for a row when its job is in
     // the row's free-job mask: one load and unpack a slot for the RT rows.
-    const short4* e = s.tab + q * ns;
+    const typename Lb2Types<GT>::Tab* e = s.tab + q * ns;
 #pragma unroll 4
     for (int k = 0; k < n; ++k) {
-      const short4 v = e[k];
+      const typename Lb2Types<GT>::Tab v = e[k];
       const uint32_t bit = 1u << (v.w & 31);
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
@@ -289,14 +315,14 @@ __device__ __forceinline__ void lb2s_pass(const Lb2sSmem& s,
 // it had no rows); `lb2_self_bounds_last_split` reads it.
 __device__ int2 lb2s_taken;
 
-template <typename T, int W>
+template <typename T, int W, bool GT>
 __global__ void lb2_self_bounds_kernel(const T* __restrict__ rows,
                                        const T* __restrict__ limit1,
                                        const int* __restrict__ n_active,
                                        const int* __restrict__ ptm_t,
                                        const int* __restrict__ heads,
                                        const int4* __restrict__ pairinfo,
-                                       const short4* __restrict__ tab,
+                                       const typename Lb2Types<GT>::Tab* __restrict__ tab,
                                        int* __restrict__ out, int R, int n,
                                        int m, int P, int ns, int max_rows) {
   const int nact = min(*n_active, R);
@@ -311,31 +337,33 @@ __global__ void lb2_self_bounds_kernel(const T* __restrict__ rows,
   const int U = static_cast<int>(blockDim.x) / G * RT;  // rows a pass
   if (static_cast<int>(blockIdx.x) * U >= nact) return;
   extern __shared__ __align__(16) unsigned char lb2_smem[];
-  const Lb2sSmem s = lb2s_smem_layout(lb2_smem, n, m, P, ns,
-                                      static_cast<int>(blockDim.x) * max_rows);
-  lb2s_load_tables(s, ptm_t, heads, pairinfo, tab, n, m, P, ns);
+  const Lb2sSmem<GT> s = lb2s_smem_layout<GT>(
+      lb2_smem, n, m, P, ns, static_cast<int>(blockDim.x) * max_rows, ptm_t,
+      heads, pairinfo, tab);
+  lb2s_load_tables<GT>(s, ptm_t, heads, pairinfo,
+                       reinterpret_cast<const short4*>(tab), n, m, P, ns);
   for (int r0 = blockIdx.x * U; r0 < nact; r0 += gridDim.x * U) {
     if (r0 != static_cast<int>(blockIdx.x) * U)
       __syncthreads();  // the last pass is done with the staged rows
     const int rows_here = min(U, nact - r0);
-    const uint8_t* staged =
-        lb2s_stage(s, rows + static_cast<size_t>(r0) * n, limit1 + r0,
-                   rows_here, n);
-    if (RT == 1)
-      lb2s_pass<W, 1>(s, staged, out + r0, rows_here, n, m, P, ns, G);
+    const typename Lb2Types<GT>::Job* staged =
+        lb2s_stage<GT>(s, rows + static_cast<size_t>(r0) * n, limit1 + r0,
+                       rows_here, n);
+    if (GT || RT == 1)  // GLOBAL: one row a thread at most (max_rows 1)
+      lb2s_pass<GT, W, 1>(s, staged, out + r0, rows_here, n, m, P, ns, G);
     else if (RT == 2)
-      lb2s_pass<W, 2>(s, staged, out + r0, rows_here, n, m, P, ns, G);
+      lb2s_pass<GT, W, 2>(s, staged, out + r0, rows_here, n, m, P, ns, G);
     else if (RT == 3)
-      lb2s_pass<W, 3>(s, staged, out + r0, rows_here, n, m, P, ns, G);
+      lb2s_pass<GT, W, 3>(s, staged, out + r0, rows_here, n, m, P, ns, G);
     else
-      lb2s_pass<W, 4>(s, staged, out + r0, rows_here, n, m, P, ns, G);
+      lb2s_pass<GT, W, 4>(s, staged, out + r0, rows_here, n, m, P, ns, G);
   }
 }
 
 // A block shape: threads and rows a thread at most (halved while the
 // block's shared memory does not fit, threads first down to one warp, the
 // table's stride n | 1 before n), blocks, shared memory, blocks an SM by
-// the occupancy, and the table's stride.
+// the occupancy, the table's stride, and the route (1 GLOBAL).
 struct Lb2sShape {
   int threads;
   int rows;
@@ -343,6 +371,7 @@ struct Lb2sShape {
   int smem;
   int per_sm;
   int ns;
+  int global;
 };
 static Lb2sShape lb2_self_bounds_last;
 
@@ -355,6 +384,7 @@ extern "C" void lb2_self_bounds_last_shape(int* out) {
   out[3] = lb2_self_bounds_last.smem;
   out[4] = lb2_self_bounds_last.per_sm;
   out[5] = lb2_self_bounds_last.ns;
+  out[6] = lb2_self_bounds_last.global;
 }
 
 // The lanes a row and rows a thread the last launch took (read on the
@@ -367,36 +397,37 @@ extern "C" int lb2_self_bounds_last_split(int* out) {
   return static_cast<int>(err);
 }
 
-static inline void tts_lb2s_block(int n, int m, int P, Lb2sShape* sh) {
-  for (sh->ns = n | 1;; sh->ns = n) {
+static inline void tts_lb2s_block(bool gt, int n, int m, int P,
+                                  Lb2sShape* sh) {
+  sh->global = gt;
+  for (sh->ns = gt ? n : n | 1;; sh->ns = n) {
     sh->threads = TTS_LB2S_THREADS;
-    while (sh->threads > 32 && tts_lb2s_smem_bytes(n, m, P, sh->ns, sh->threads,
-                                                   1) > TTS_LB2_SMEM_MAX)
+    while (sh->threads > 32 && tts_lb2s_smem_bytes(gt, n, m, P, sh->ns,
+                                                   sh->threads, 1) > TTS_LB2_SMEM_MAX)
       sh->threads >>= 1;
-    if (sh->ns == n ||
-        tts_lb2s_smem_bytes(n, m, P, sh->ns, sh->threads, 1) <= TTS_LB2_SMEM_MAX)
+    if (sh->ns == n || tts_lb2s_smem_bytes(gt, n, m, P, sh->ns, sh->threads,
+                                           1) <= TTS_LB2_SMEM_MAX)
       break;
   }
-  sh->rows = TTS_LB2S_ROWS;
-  while (sh->rows > 1 && tts_lb2s_smem_bytes(n, m, P, sh->ns, sh->threads,
+  sh->rows = gt ? 1 : TTS_LB2S_ROWS;
+  while (sh->rows > 1 && tts_lb2s_smem_bytes(gt, n, m, P, sh->ns, sh->threads,
                                              sh->rows) > TTS_LB2_SMEM_MAX)
     sh->rows >>= 1;
   sh->smem = static_cast<int>(
-      tts_lb2s_smem_bytes(n, m, P, sh->ns, sh->threads, sh->rows));
+      tts_lb2s_smem_bytes(gt, n, m, P, sh->ns, sh->threads, sh->rows));
 }
 
-// Dynamic shared memory of a block at this shape (the wrapper refuses a
-// shape above the opt-in limit).
-extern "C" long long lb2_self_bounds_smem(int n, int m, int P) {
+// Dynamic shared memory of a block at this shape on a route.
+extern "C" long long lb2_self_bounds_smem(int n, int m, int P, int global) {
   Lb2sShape sh;
-  tts_lb2s_block(n, m, P, &sh);
+  tts_lb2s_block(global != 0, n, m, P, &sh);
   return sh.smem;
 }
 
 // The block shape and blocks an SM of `kernel` at (n, m, P), kept for the
 // last shape (a run of launches asks the occupancy once); opts the kernel
 // in to its shared memory.
-template <typename K>
+template <bool GT, typename K>
 static int tts_lb2s_shape(K kernel, int n, int m, int P, Lb2sShape* sh) {
   static const void* key_fn = nullptr;
   static int key[3] = {-1, -1, -1};
@@ -406,7 +437,9 @@ static int tts_lb2s_shape(K kernel, int n, int m, int P, Lb2sShape* sh) {
     *sh = last;
     return 0;
   }
-  tts_lb2s_block(n, m, P, sh);
+  tts_lb2s_block(GT, n, m, P, sh);
+  if (sh->smem > TTS_LB2_SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = tts_smem_optin(kernel, static_cast<size_t>(sh->smem));
   if (err) return err;
   err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -420,7 +453,7 @@ static int tts_lb2s_shape(K kernel, int n, int m, int P, Lb2sShape* sh) {
   return 0;
 }
 
-template <typename T, int W>
+template <typename T, int W, bool GT>
 static int launch_lb2_self_bounds(const void* rows, const void* limit1,
                                   const void* n_active, const void* ptm_t,
                                   const void* heads, const void* pairinfo,
@@ -428,49 +461,58 @@ static int launch_lb2_self_bounds(const void* rows, const void* limit1,
                                   int m, int P, void* stream) {
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   Lb2sShape sh;
-  int err = tts_lb2s_shape(lb2_self_bounds_kernel<T, W>, n, m, P, &sh);
+  int err = tts_lb2s_shape<GT>(lb2_self_bounds_kernel<T, W, GT>, n, m, P, &sh);
   if (err) return err;
   // One wave, and no more blocks than R rows at 32 lanes a row fill.
   const long long need = (32LL * R + sh.threads - 1) / sh.threads;
   const long long wave = static_cast<long long>(sh.per_sm) * tts_sm_count();
   sh.blocks = static_cast<int>(need < wave ? need : wave);
   lb2_self_bounds_last = sh;
-  lb2_self_bounds_kernel<T, W><<<sh.blocks, sh.threads, sh.smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  lb2_self_bounds_kernel<T, W, GT><<<sh.blocks, sh.threads, sh.smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rows), static_cast<const T*>(limit1),
       static_cast<const int*>(n_active), static_cast<const int*>(ptm_t),
       static_cast<const int*>(heads), static_cast<const int4*>(pairinfo),
-      static_cast<const short4*>(tab), static_cast<int*>(out), R, n, m, P,
-      sh.ns, sh.rows);
+      static_cast<const typename Lb2Types<GT>::Tab*>(tab),
+      static_cast<int*>(out), R, n, m, P, sh.ns, sh.rows);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch at n's free-mask words: SMEM 1, 2, 4 or 8 (n <= 256), GLOBAL
+// 4, 8, 16 or 32 (n <= 1024).
 template <typename T>
 static int launch_lb2_self_words(const void* rows, const void* limit1,
                                  const void* n_active, const void* ptm_t,
                                  const void* heads, const void* pairinfo,
                                  const void* tab, void* out, int R, int n,
-                                 int m, int P, void* stream) {
-  if (n > 32 * TTS_LB2_MASK_WORDS) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 32)
-    return launch_lb2_self_bounds<T, 1>(rows, limit1, n_active, ptm_t, heads,
-                                        pairinfo, tab, out, R, n, m, P, stream);
-  if (n <= 64)
-    return launch_lb2_self_bounds<T, 2>(rows, limit1, n_active, ptm_t, heads,
-                                        pairinfo, tab, out, R, n, m, P, stream);
-  return launch_lb2_self_bounds<T, TTS_LB2_MASK_WORDS>(
-      rows, limit1, n_active, ptm_t, heads, pairinfo, tab, out, R, n, m, P,
-      stream);
+                                 int m, int P, int route, void* stream) {
+#define TTS_LB2S_LAUNCH(W, GT)                                              \
+  launch_lb2_self_bounds<T, W, GT>(rows, limit1, n_active, ptm_t, heads,    \
+                                   pairinfo, tab, out, R, n, m, P, stream)
+  if (route == 1) {
+    if (n > TTS_LB2_MAX_JOBS) return static_cast<int>(cudaErrorInvalidValue);
+    if (n <= 128) return TTS_LB2S_LAUNCH(4, true);
+    if (n <= 256) return TTS_LB2S_LAUNCH(8, true);
+    if (n <= 512) return TTS_LB2S_LAUNCH(16, true);
+    return TTS_LB2S_LAUNCH(32, true);
+  }
+  if (n > TTS_LB2_SMEM_JOBS) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 32) return TTS_LB2S_LAUNCH(1, false);
+  if (n <= 64) return TTS_LB2S_LAUNCH(2, false);
+  if (n <= 128) return TTS_LB2S_LAUNCH(4, false);
+  return TTS_LB2S_LAUNCH(8, false);
+#undef TTS_LB2S_LAUNCH
 }
 
+// `route` 0: tab is the int16 table; 1: the int32 table (lb2_common.cuh).
 #define TTS_LB2_SELF_ENTRY(NAME, T)                                          \
   extern "C" int NAME(const void* rows, const void* limit1,                 \
                       const void* n_active, const void* ptm_t,              \
                       const void* heads, const void* pairinfo,              \
                       const void* tab, void* out, int R, int n, int m,      \
-                      int P, void* stream) {                                \
+                      int P, int route, void* stream) {                     \
     return launch_lb2_self_words<T>(rows, limit1, n_active, ptm_t, heads,   \
-                                    pairinfo, tab, out, R, n, m, P,         \
+                                    pairinfo, tab, out, R, n, m, P, route,  \
                                     stream);                                \
   }
 

@@ -8,10 +8,12 @@
 #include "tts_common.cuh"
 
 // Parents a block handles. Their board rows (N <= TTS_NQ_MAX_N bytes each)
-// are staged once in shared memory; then one thread runs each (parent,
-// slot), at most 32 * 32 = 1024 threads.
+// are staged once in shared memory; then the block's threads run each
+// (parent, slot). A uint8 board holds rows 0..255, so N <= 256; a parent's
+// keeps are W = 1, 2, 4 or 8 uint32 mask words (TTS_NQ_WORDS: N <= 32 W).
 #define TTS_NQ_PARENTS_PER_BLOCK 32
-#define TTS_NQ_MAX_N 32
+#define TTS_NQ_MAX_N 256
+#define TTS_NQ_WORDS(N) ((N) <= 32 ? 1 : (N) <= 64 ? 2 : (N) <= 128 ? 4 : 8)
 
 // 1 iff the queen of slot k (row[k]), placed at column `depth`, is safe on
 // both diagonals from every placed queen row[i], i < depth; 0 for k < depth.

@@ -9,7 +9,8 @@
 // kernel for it and widens the labels to int32.
 //
 // In:  board (B, N) uint8, depth (B,) of type D (int8 or int32, the device
-//      pool's storage types), N <= 32, g >= 1 rounds.
+//      pool's storage types), N <= 256 (what a uint8 board holds), g >= 1
+//      rounds.
 // Out: (B, N) uint8; slot k of parent b is 1 iff the queen board[b, k],
 //      placed at column depth_b, clashes with no placed queen board[b, i]
 //      (i < depth_b) on either diagonal; 0 for k < depth_b.
@@ -58,6 +59,12 @@
 // exact for any input. The g rounds stay real work: the reference uses g
 // as a workload knob, and the JAX package keeps them with a fori_loop for
 // the same reason.
+//
+// Boards wider than 32 (N up to 256) take neither the packed words nor the
+// tiles: `nqueens_labels_wide_kernel` runs the scalar check (`nq_label`)
+// one thread a (parent, slot), reading the row from device memory through
+// the caches. The packed compare is for the boards the search times
+// (N <= 32); the wide boards only need to be right.
 #include "cycle_common.cuh"
 #include "nqueens_common.cuh"
 
@@ -224,8 +231,27 @@ __global__ void __launch_bounds__(TTS_NQL_PARENTS, 8)
   }
 }
 
+// Boards past 32: the scalar check of every (parent, slot), a grid-stride
+// loop of one thread a slot.
+template <typename D>
+__global__ void nqueens_labels_wide_kernel(const uint8_t* __restrict__ board,
+                                           const D* __restrict__ depth,
+                                           uint8_t* __restrict__ out, int B,
+                                           int N, int g) {
+  const long long total = static_cast<long long>(B) * N;
+  for (long long s = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       s < total; s += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int b = static_cast<int>(s / N);
+    const int k = static_cast<int>(s - static_cast<long long>(b) * N);
+    out[s] = static_cast<uint8_t>(
+        nq_label(board + static_cast<size_t>(b) * N, static_cast<int>(depth[b]),
+                 k, g));
+  }
+}
+
 // The shape of the last launch: parents a tile, blocks, tiles, packed
-// words a parent, blocks an SM.
+// words a parent (0: the wide kernel), blocks an SM.
 static int nql_last[5];
 extern "C" void nqueens_labels_last_shape(int* out) {
   for (int i = 0; i < 5; ++i) out[i] = nql_last[i];
@@ -260,11 +286,36 @@ static int launch_nql(const void* board, const void* depth, void* out, int B,
 }
 
 template <typename D>
+static int launch_nql_wide(const void* board, const void* depth, void* out,
+                           int B, int N, int g, cudaStream_t stream) {
+  static int per_sm = 0;
+  if (!per_sm) {
+    const int err =
+        static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, nqueens_labels_wide_kernel<D>, 256, 0));
+    if (err) return err;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long need = (static_cast<long long>(B) * N + 255) / 256;
+  const long long wave = static_cast<long long>(max(per_sm, 1)) * sms;
+  const int blocks = static_cast<int>(need < wave ? need : wave);
+  nqueens_labels_wide_kernel<D><<<blocks, 256, 0, stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<const D*>(depth),
+      static_cast<uint8_t*>(out), B, N, g);
+  const int last[5] = {0, blocks, 0, 0, per_sm};
+  for (int i = 0; i < 5; ++i) nql_last[i] = last[i];
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename D>
 static int launch_nqueens_labels(const void* board, const void* depth,
                                  void* out, int B, int N, int g,
                                  void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > 32) return launch_nql_wide<D>(board, depth, out, B, N, g, s);
   if (N <= 8) return launch_nql<2, D>(board, depth, out, B, N, g, s);
   if (N <= 16) return launch_nql<4, D>(board, depth, out, B, N, g, s);
   if (N <= 24) return launch_nql<6, D>(board, depth, out, B, N, g, s);

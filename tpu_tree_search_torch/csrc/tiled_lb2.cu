@@ -42,37 +42,40 @@
 // ordered slots for every child (P*n*r a parent), each parent's front on
 // one thread, loaded the tables once a tile, and carried the tiles with a
 // decoupled look-back serial in one thread a block; this form has none of
-// those. It takes kernel 8's shape limits: n <= 100 and the tables plus one
-// parent within the shared memory a block may hold (`ops/lb2_kernel.py`
-// `johnson_operands` refuses other shapes with NotImplementedError).
+// those. It takes kernel 8's table routes (lb2_common.cuh: SMEM, or GLOBAL
+// past n = 256, int16 values or shared memory), chosen from the shape by
+// `ops/lb2_kernel.py` `johnson_operands`.
 #include "cycle_lb2.cuh"
 
-// Dynamic shared memory of the largest launch-1 block at this shape (the
-// wrapper refuses a shape above the opt-in limit).
-extern "C" long long tiled_lb2_smem(int n, int m, int P) {
-  return tts_lb2p_smem_max(n, m, P);
+// The dynamic shared memory of the largest launch-1 block on a route.
+extern "C" long long tiled_lb2_smem(int n, int m, int P, int global) {
+  return tts_lb2p_smem_max(global != 0, n, m, P);
 }
 
-// Launch 1's shape in the last cycle: parents, threads, shared memory, fits.
+// Launch 1's shape in the last cycle: parents, threads, shared memory,
+// fits, route.
 static Lb2Shape tiled_lb2_last;
 extern "C" void tiled_lb2_last_shape(int* out) {
   out[0] = tiled_lb2_last.parents;
   out[1] = tiled_lb2_last.threads;
   out[2] = tiled_lb2_last.smem;
   out[3] = tiled_lb2_last.fits;
+  out[4] = tiled_lb2_last.global;
 }
 
 #define TTS_TILED_LB2_ENTRY(NAME, T)                                        \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,           \
                       void* stash, void* chunk_aux, void* lb, void* blkcnt, \
                       void* bnd, const void* ptm_t, const void* heads,     \
-                      const void* pairinfo, const void* tab, int n, int m, \
-                      int P, int M, int mt, int C, int mterm, int K,       \
+                      const void* pairinfo, const void* tab,               \
+                      const void* inv, int n, int m, int P, int route,     \
+                      int M, int mt, int C, int mterm, int K,              \
                       void* stream) {                                      \
     return launch_lb2_cycle<T, true>(pool_vals, pool_aux, st, stash,       \
                                      chunk_aux, lb, blkcnt, bnd, ptm_t,    \
-                                     heads, pairinfo, tab, n, m, P, M, mt, \
-                                     C, mterm, K, stream, &tiled_lb2_last); \
+                                     heads, pairinfo, tab, inv, n, m, P,   \
+                                     route, M, mt, C, mterm, K, stream,    \
+                                     &tiled_lb2_last);                     \
   }
 
 TTS_TILED_LB2_ENTRY(tiled_lb2_i8, int8_t)

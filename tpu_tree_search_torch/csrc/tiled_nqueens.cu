@@ -5,7 +5,8 @@
 // (tpu_tree_search/ops/megakernel.py, built by `_nqueens_tiled_call`, grid
 // (G,) over G = M / Mt pool tiles with an SMEM carry; wired by the tiled
 // N-Queens branch of `make_cycle` and the stitch of `engine/resident.py`).
-// The pool is board (C, N) uint8 and depth (C,) int8 (N <= 32).
+// The pool is board (C, N) uint8 and depth (C,) int8 through N = 127,
+// int32 beyond (N <= 256, what a uint8 board holds).
 //
 // On the TPU a tile exists because VMEM cannot hold the chunk
 // (`megakernel.py:406-420`); the pool and state after a streamed cycle are
@@ -17,7 +18,7 @@
 // (cycle_nqueens.cuh, TILES = true) and writes the tile prefixes beside
 // them:
 //   1. labels (kernel 4's): the loop condition, the 16-byte pop into the
-//      stash, the g real label rounds, one keep-mask word a parent; each
+//      stash, the g real label rounds, W keep-mask words a parent; each
 //      block of 32 parents publishes its survivors and its solutions (its
 //      popped parents at depth N, `megakernel.py:666`) as one pair;
 //   2. emit (kernel 4's): each block sums the pairs of the blocks before it
@@ -46,33 +47,43 @@
 // the predecessor sum reads one pair a block, not a tile, whatever mt is.
 #include "cycle_nqueens.cuh"
 
+template <int W, typename A>
 __global__ void nq_tiles_labels(const uint8_t* __restrict__ pool_vals,
-                                const int8_t* __restrict__ pool_aux, int* st,
+                                const A* __restrict__ pool_aux, int* st,
                                 uint8_t* __restrict__ stash,
-                                int8_t* __restrict__ chunk_aux,
+                                A* __restrict__ chunk_aux,
                                 uint32_t* __restrict__ mask,
                                 int* __restrict__ blkcnt, int N, int g, int M,
                                 int C, int mterm, int K) {
-  nq_labels_body<true>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
-                       blkcnt, N, g, M, C, mterm, K);
+  nq_labels_body<true, W, A>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                              blkcnt, N, g, M, C, mterm, K);
 }
 
+template <int W, typename A>
 __global__ void nq_tiles_emit(uint8_t* __restrict__ pool_vals,
-                              int8_t* __restrict__ pool_aux, int* st,
+                              A* __restrict__ pool_aux, int* st,
                               const uint8_t* __restrict__ stash,
-                              const int8_t* __restrict__ chunk_aux,
+                              const A* __restrict__ chunk_aux,
                               const uint32_t* __restrict__ mask,
                               const int* __restrict__ blkcnt, int N, int M,
                               int* __restrict__ bnd, int mt) {
-  nq_emit_body<true>(pool_vals, pool_aux, st, stash, chunk_aux, mask, blkcnt,
-                     N, M, bnd, mt);
+  nq_emit_body<true, W, A>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
+                             blkcnt, N, M, bnd, mt);
 }
 
-extern "C" int tiled_nqueens(void* pool_vals, void* pool_aux, void* st,
-                             void* stash, void* chunk_aux, void* mask,
-                             void* blkcnt, void* bnd, int N, int g, int M,
-                             int mt, int C, int mterm, int K, void* stream) {
-  return launch_nq_cycle(nq_tiles_labels, nq_tiles_emit, pool_vals,
-                               pool_aux, st, stash, chunk_aux, mask, blkcnt,
-                               bnd, N, g, M, mt, C, mterm, K, stream);
-}
+// The entries: `tiled_nqueens` takes an int8 depth (N <= 127),
+// `tiled_nqueens_i32` an int32 one (N > 127).
+#define TTS_NQ_TILED_LAUNCH(W, A)                                         \
+  launch_nq_cycle<W, A>(nq_tiles_labels<W, A>, nq_tiles_emit<W, A>, pool_vals,    \
+                        pool_aux, st, stash, chunk_aux, mask, blkcnt, bnd, \
+                        N, g, M, mt, C, mterm, K, stream)
+#define TTS_NQ_TILED_ENTRY(NAME, AUX32)                                    \
+  extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,          \
+                      void* stash, void* chunk_aux, void* mask,           \
+                      void* blkcnt, void* bnd, int N, int g, int M, int mt, \
+                      int C, int mterm, int K, void* stream) {            \
+    TTS_NQ_DISPATCH(N, AUX32, TTS_NQ_TILED_LAUNCH);                        \
+  }
+
+TTS_NQ_TILED_ENTRY(tiled_nqueens, false)
+TTS_NQ_TILED_ENTRY(tiled_nqueens_i32, true)

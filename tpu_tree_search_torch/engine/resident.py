@@ -20,10 +20,11 @@ Two cycles compute this and leave identical live pools:
 
   * fused (the default): the CUDA cycle of `ops/cycle.py` (PFSP lb1 and
     lb2) or `ops/cycle_nqueens.py` — the counterpart of the JAX engine's
-    one-kernel cycle. The loop condition is evaluated on the device, so the
-    host enqueues K cycles per dispatch with no synchronisation and reads
-    the state once (the ``lax.while_loop`` counterpart; a cycle past
-    termination is an exact no-op). With a tile width ``mt`` below M (the
+    one-kernel cycle. The loop condition is evaluated on the device: one
+    dispatch is one CUDA graph whose ``while`` node runs the cycle until
+    the condition is false (`ops/dispatch.py`, the ``lax.while_loop``
+    counterpart), so no cycle is launched past termination and the host
+    reads the state once a dispatch. With a tile width ``mt`` below M (the
     JAX ``TTS_MEGAKERNEL_MT``) the fused cycle is the streamed one of
     `ops/tiled.py`: the chunk in M // mt tiles, the survivors placed by a
     carry across tiles, the same pool after the cycle. PFSP lb1_d has no
@@ -45,8 +46,15 @@ host runs offload cycles (host pop, the device evaluator, host branch) until
 the frontier fits again — correctness never depends on the capacity
 heuristic.
 
-Not ported yet (ROADMAP): the adaptive K ladder, speculative pipelining,
-checkpoints, the steady-state guard and the telemetry blocks.
+Dispatch is pipelined (`engine/pipeline.py`, ``TTS_PIPELINE``): up to
+``depth`` dispatches are in flight while the host reads the lagged scalars
+of the oldest, each copied into its queue slot's own pinned host buffer
+behind a CUDA event. It is exact, because a dispatch on a terminated or
+stalled pool runs zero cycles. ``K="auto"`` (or ``TTS_K=auto``) moves K
+along the geometric ladder of ``AdaptiveK``, one graph a rung.
+
+Not ported yet (ROADMAP): checkpoints, the steady-state guard and the
+telemetry blocks.
 """
 
 from __future__ import annotations
@@ -60,8 +68,10 @@ import torch
 from ..ops.backend import resolve_device
 from ..ops.compaction import compact_ids, resolve_compact_mode, shift_compact, survivor_ranks
 from ..ops.cycle import (
+    ST_ACTIVE,
     ST_BEST,
     ST_CYCLES,
+    ST_RUNS,
     ST_SIZE,
     ST_TREE,
     cycle_lb1,
@@ -69,7 +79,7 @@ from ..ops.cycle import (
     cycle_scratch,
     new_state,
 )
-from ..ops.cycle_nqueens import cycle_nqueens, nqueens_scratch
+from ..ops.cycle_nqueens import cycle_nqueens, depth_dtype, nqueens_scratch
 from ..ops.pfsp_device import lb1_bounds, lb2_bounds_staged
 from ..ops.tiled import (
     check_tile,
@@ -84,7 +94,16 @@ from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 from ..problems.nqueens import NQueensProblem
 from ..problems.pfsp.problem import PFSPProblem
+from ..ops.dispatch import DispatchGraph
 from .device import DeviceOffloader, drain, warmup
+from .pipeline import (
+    RESIDENT_TARGET,
+    AdaptiveK,
+    DispatchQueue,
+    resolve_k,
+    resolve_pipeline_depth,
+    resolve_target_band,
+)
 from .results import Diagnostics, PhaseStats, SearchResult
 
 
@@ -174,13 +193,29 @@ class _ResidentProgram:
             check_tile(M, mt)
         self.mt = (mt or M) if fused else None
         self.tiled = fused and self.mt < M
-        # Counter headroom: one dispatch accumulates at most K*M*n into the
-        # int32 tree/sol counters.
-        self.K = max(1, min(K, (2**31 - 1) // max(1, M * n)))
+        self.use_k(K)
         self.S = min(max(64 * n, M * n // self.survivor_budget_div), M * n)
         self.compact = None if fused else resolve_compact_mode(problem, M, n)
-        self._scratch = (self._make_scratch()
-                         if fused and self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        self._scratch = self._make_scratch() if fused and cuda else None
+        # The fused cycle on the card dispatches through CUDA graphs, one a
+        # K rung, keyed on the state tensors' addresses that they bake in.
+        self.graphed = fused and cuda
+        self._graphs: dict[tuple, DispatchGraph] = {}
+        self.graph_build_s = 0.0
+        # The graph dispatches' device time: CUDA events around each graph
+        # launch, summed when the dispatch is read (None off the graph).
+        self.dispatch_device_s = 0.0 if self.graphed else None
+        # Pinned host buffers and events (start, end of the graph, the copy
+        # done) of the in-flight dispatches' scalars (``host_slots``).
+        self._slots: list[tuple] = []
+        self._next_slot = 0
+
+    def use_k(self, K: int) -> None:
+        """Cycles a dispatch: K, clamped so that one dispatch accumulates at
+        most 2**31 - 1 (K*M*n) into the int32 tree and sol counters."""
+        n = self.problem.child_slots
+        self.K = max(1, min(K, (2**31 - 1) // max(1, self.M * n)))
 
     def init_state(self, frontier: dict, best: int) -> ResidentState:
         p = self.problem
@@ -189,19 +224,104 @@ class _ResidentProgram:
                                k, best, self.capacity, self.device,
                                self.vals_dtype, self.aux_dtype)
 
+    def load_state(self, state: ResidentState, frontier: dict,
+                   best: int) -> None:
+        """Copy ``frontier`` and ``best`` into ``state``'s existing tensors
+        (the stall fallback's re-upload): the graphs keep the addresses
+        they were built on."""
+        p = self.problem
+        k = frontier[p.vals_field].shape[0]
+        if k > self.capacity:
+            raise ValueError(f"frontier of {k} nodes exceeds capacity "
+                             f"{self.capacity}")
+        for dst, field in ((state.pool_vals, p.vals_field),
+                           (state.pool_aux, p.aux_field)):
+            src = np.ascontiguousarray(frontier[field], dtype=np.int32)
+            dst[:k].copy_(torch.from_numpy(src).to(dst.dtype))
+        state.st.copy_(new_state(k, best, self.device))
+
+    def host_slots(self, depth: int) -> None:
+        """One pinned scalar buffer and its events for each of ``depth``
+        dispatches in flight (the graph dispatch's lagged reads)."""
+        if self.graphed:
+            self._slots = [
+                (torch.empty(ST_RUNS + 1, dtype=torch.int32, pin_memory=True),
+                 torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True), torch.cuda.Event())
+                for _ in range(max(1, depth))]
+            self._next_slot = 0
+
     def step(self, state: ResidentState) -> None:
-        """One dispatch: up to K cycles, in place on ``state``."""
+        """One dispatch: up to K cycles, in place on ``state``. On the card
+        the fused cycle's dispatch is one graph launch; on the CPU the plain
+        cycles run until the loop condition is false."""
+        if self.graphed:
+            self._graph(state).launch()
+            return
         state.st[ST_TREE:ST_CYCLES + 1] = 0  # tree, sol, cycles
         if self.fused:
             for _ in range(self.K):
                 self._fused_cycle(state)
+                if not int(state.st[ST_ACTIVE]):
+                    break
         else:
             self._unfused_step(state)
+
+    def enqueue(self, state: ResidentState):
+        """``step``, and a function that returns its scalars ``(tree, sol,
+        cycles, size, best)``. On the card's fused cycle the graph launch
+        sits between two timing events, the scalars are copied without
+        blocking into the next pinned slot behind a third, and the function
+        waits for that event, adds the dispatch's device time and counts
+        the body's runs as the cycle's launches (``DispatchGraph.count``);
+        elsewhere the step has run on the host's clock and the function
+        returns what it read."""
+        if not self.graphed:
+            self.step(state)
+            scalars = self.read_scalars(state)
+            return lambda: scalars
+        buf, start, end, done = self._slots[self._next_slot]
+        self._next_slot = (self._next_slot + 1) % len(self._slots)
+        g = self._graph(state)
+        start.record()
+        g.launch()
+        end.record()
+        buf.copy_(state.st[:ST_RUNS + 1], non_blocking=True)
+        done.record()
+
+        def read():
+            done.synchronize()
+            self.dispatch_device_s += start.elapsed_time(end) / 1e3
+            scalars = buf.tolist()
+            size, best, tree, sol, cycles = scalars[:ST_CYCLES + 1]
+            g.count(scalars[ST_RUNS])
+            return tree, sol, cycles, size, best
+        return read
 
     def read_scalars(self, state: ResidentState):
         """The dispatch's one readback: ``(tree, sol, cycles, size, best)``."""
         size, best, tree, sol, cycles = state.st[:ST_CYCLES + 1].tolist()
         return tree, sol, cycles, size, best
+
+    def _graph(self, state: ResidentState) -> DispatchGraph:
+        """The dispatch graph of the current K over ``state``'s tensors,
+        built at first use."""
+        key = (self.K, state.st.data_ptr(), state.pool_vals.data_ptr(),
+               state.pool_aux.data_ptr())
+        g = self._graphs.get(key)
+        if g is None:
+            g = DispatchGraph(lambda: self._fused_cycle(state), state.st,
+                              self.m, self.M * self.problem.child_slots,
+                              self.capacity, self.K)
+            self.graph_build_s += g.build_s
+            self._graphs[key] = g
+        return g
+
+    def close(self) -> None:
+        """Free the dispatch graphs (after their work has finished)."""
+        for g in self._graphs.values():
+            g.close()
+        self._graphs.clear()
 
     def residual(self, state: ResidentState) -> tuple[dict, int, int]:
         """Downloads the live pool -> (host NodeBatch, size, best)."""
@@ -408,7 +528,7 @@ class NQueensResident(_ResidentProgram):
                  capacity: int, device, fused: bool = True,
                  mt: int | None = None):
         self.vals_dtype = torch.uint8
-        self.aux_dtype = torch.int8 if problem.N <= 127 else torch.int32
+        self.aux_dtype = depth_dtype(problem.N)
         super().__init__(problem, m, M, K, capacity, device, fused=fused,
                          mt=mt)
 
@@ -487,8 +607,8 @@ def resolve_capacity(problem: Problem, M: int, capacity: int | None) -> tuple[in
 def resident_search(
     problem: Problem,
     m: int = 25,
-    M: int = 49152,
-    K: int = 256,
+    M: int = 65536,
+    K: int | str = 4096,
     capacity: int | None = None,
     device=None,
     initial_best: int | None = None,
@@ -507,12 +627,24 @@ def resident_search(
     single-pass lb2 kernel. ``mt`` (the JAX ``TTS_MEGAKERNEL_MT``) below M
     streams the fused cycle in M // mt tiles; it must be a multiple of 8
     that divides M (``ValueError`` otherwise) and is inert on the unfused
-    cycle. Dispatch is synchronous: one scalar readback per dispatch."""
+    cycle.
+
+    Dispatch is pipelined (``TTS_PIPELINE``, `engine/pipeline.py`): up to
+    depth dispatches ride the stream while the host reads the lagged
+    scalars of the oldest; exact, because a dispatch on a terminated or
+    stalled pool runs zero cycles. ``K="auto"`` (or ``TTS_K=auto``)
+    enables the adaptive geometric-ladder K controller; an integer pins K
+    (clamped to the int32 counters' headroom)."""
     dev = resolve_device(device)
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
     n = problem.child_slots
     capacity, M = resolve_capacity(problem, M, capacity)
+    k_auto, k_value = resolve_k(K, default_max=4096)
+    band, _ = resolve_target_band("resident", RESIDENT_TARGET, problem,
+                                  topology="device-D1")
+    depth = resolve_pipeline_depth()
+    ctl = AdaptiveK(k_value, target=band) if k_auto else None
     pool = SoAPool(problem.node_fields())
     diagnostics = Diagnostics()
     phases: list[PhaseStats] = []
@@ -526,48 +658,96 @@ def resident_search(
     phases.append(PhaseStats(t1 - t0, tree1, sol1))
 
     # -- phase 2: device-resident loop ----------------------------------------
-    program = make_program(problem, m, M, K, capacity, dev, fused=fused,
-                           staged=staged, mt=mt)
+    program = make_program(problem, m, M, ctl.K if ctl else k_value,
+                           capacity, dev, fused=fused, staged=staged, mt=mt)
+    program.host_slots(depth)
     state = program.init_state(pool.as_batch(), best)
     pool.clear()
     diagnostics.host_to_device += 1
     tree2 = sol2 = 0
     dispatches = stalls = 0
+    size = m
     offloader = None
-    while True:
-        program.step(state)
-        tree_inc, sol_inc, cycles, size, best = program.read_scalars(state)
+    queue = DispatchQueue(depth)
+
+    def enqueue() -> None:
+        # Speculative dispatch: the state chains on the device from one
+        # dispatch into the next, so up to `depth` K-cycle blocks ride the
+        # stream while the host reads lagged scalars.
+        queue.push(program.enqueue(state), time.perf_counter())
+
+    def consume(read) -> int:
+        nonlocal tree2, sol2, size, best, dispatches
+        tree_inc, sol_inc, cycles, size, best = read()
         tree2 += tree_inc
         sol2 += sol_inc
         dispatches += 1
         diagnostics.kernel_launches += cycles
-        if size < m:
-            break
-        if cycles == 0:
-            # Capacity stall: pool too full for another device fan-out. Run
-            # offload cycles through a host pool until there is headroom
-            # again (rare; guarantees progress at any capacity).
-            stalls += 1
-            batch, size, best = program.residual(state)
-            diagnostics.device_to_host += 1
-            pool.reset_from(batch)
-            if offloader is None:
-                offloader = DeviceOffloader(problem, dev, program.vals_dtype,
-                                            program.aux_dtype)
-            chunk_buf = problem.empty_batch(M)
-            while pool.size >= m and pool.size + M * n > capacity:
-                count = pool.pop_back_bulk(m, M, chunk_buf)
-                snapshot = {k: v[:count].copy() for k, v in chunk_buf.items()}
-                bounds = offloader.evaluate(snapshot, count)
-                res = problem.generate_children(snapshot, count, bounds, best)
-                tree2 += res.tree_inc
-                sol2 += res.sol_inc
-                best = res.best
-                pool.push_back_bulk(res.children)
-            state = program.init_state(pool.as_batch(), best)
-            pool.clear()
-            diagnostics.host_to_device += 1
-    batch, size, best = program.residual(state)
+        return cycles
+
+    def drain_queue() -> None:
+        # Read every in-flight dispatch before any action that needs
+        # coherent totals or the final state (termination, K resizes, the
+        # capacity-stall fallback): zeros for speculative no-ops.
+        for read, _ in queue.drain():
+            consume(read)
+
+    try:
+        last_ready = time.monotonic()
+        while True:
+            while not queue.full:
+                enqueue()
+            read, _ = queue.pop()
+            cycles = consume(read)
+            now = time.monotonic()
+            period, last_ready = now - last_ready, now
+            if size < m:
+                drain_queue()  # speculative no-ops: zero counts, state intact
+                break
+            if ctl is not None and cycles > 0 and ctl.observe(period, cycles):
+                # Geometric-ladder K resize: drain, then switch to the
+                # rung's graph (built once a rung, on the same state).
+                drain_queue()
+                program.use_k(ctl.K)
+                last_ready = time.monotonic()
+                if size < m:
+                    break  # the drained dispatches finished the search
+                continue
+            if cycles == 0:
+                # Capacity stall: pool too full for another device fan-out.
+                # Run offload cycles through a host pool until there is
+                # headroom again (rare; guarantees progress at any
+                # capacity).
+                drain_queue()  # stalled speculative dispatches are no-ops
+                stalls += 1
+                batch, size, best = program.residual(state)
+                diagnostics.device_to_host += 1
+                pool.reset_from(batch)
+                if offloader is None:
+                    offloader = DeviceOffloader(problem, dev,
+                                                program.vals_dtype,
+                                                program.aux_dtype)
+                chunk_buf = problem.empty_batch(M)
+                while pool.size >= m and pool.size + M * n > capacity:
+                    count = pool.pop_back_bulk(m, M, chunk_buf)
+                    snapshot = {k: v[:count].copy()
+                                for k, v in chunk_buf.items()}
+                    bounds = offloader.evaluate(snapshot, count)
+                    res = problem.generate_children(snapshot, count, bounds,
+                                                    best)
+                    tree2 += res.tree_inc
+                    sol2 += res.sol_inc
+                    best = res.best
+                    pool.push_back_bulk(res.children)
+                program.load_state(state, pool.as_batch(), best)
+                pool.clear()
+                diagnostics.host_to_device += 1
+                last_ready = time.monotonic()
+        batch, size, best = program.residual(state)
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        program.close()
     diagnostics.device_to_host += 1
     pool.reset_from(batch)
     if offloader is not None:
@@ -597,4 +777,8 @@ def resident_search(
         k_resolved=program.K,
         dispatches=dispatches,
         stall_fallbacks=stalls,
+        pipeline_depth=depth,
+        k_auto=k_auto,
+        graph_build_s=program.graph_build_s,
+        dispatch_device_s=program.dispatch_device_s,
     )

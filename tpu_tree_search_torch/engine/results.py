@@ -61,3 +61,16 @@ class SearchResult:
     k_resolved: int | None = None
     dispatches: int = 0
     stall_fallbacks: int = 0
+    # Resident tier: the dispatch-pipeline depth the host loop ran with
+    # (TTS_PIPELINE: 1 = synchronous, >= 2 = speculative), and whether
+    # TTS_K=auto (or K="auto") resolved K, which then is the K the loop
+    # ended on (`tpu_tree_search/engine/results.py:106-108`).
+    pipeline_depth: int = 1
+    k_auto: bool = False
+    # Resident tier, fused cycle on the card: seconds spent building the
+    # dispatch graphs (one a K rung, `ops/dispatch.py`), inside phase 2.
+    graph_build_s: float = 0.0
+    # Resident tier, fused cycle on the card: the dispatches' device time,
+    # CUDA events around each graph launch (the graph's nodes and the
+    # latency between them), summed; None off the graph.
+    dispatch_device_s: float | None = None

@@ -34,6 +34,10 @@ BUILD = PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
+# Flags of one source beyond FLAGS: the dispatch graph's condition kernels
+# call cudaGraphSetConditional, a device runtime function (relocatable
+# device code, linked with the device runtime).
+EXTRA_FLAGS = {"dispatch_graph": ("-rdc=true", "-lcudadevrt")}
 
 # Loaded libraries by source stem: loaded once per process, never mutated.
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -58,7 +62,7 @@ def _target(src: Path) -> Path:
     for dep in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(dep.name.encode())
         h.update(dep.read_bytes())
-    h.update(" ".join(ARCH + FLAGS).encode())
+    h.update(" ".join(ARCH + FLAGS + EXTRA_FLAGS.get(src.stem, ())).encode())
     return BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -85,7 +89,8 @@ def build_all() -> dict[str, float]:
             continue
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.Popen(
-            [nvcc, *ARCH, *FLAGS, "-o", str(tmp), str(src)],
+            [nvcc, *ARCH, *FLAGS, *EXTRA_FLAGS.get(src.stem, ()), "-o",
+             str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )
         jobs.append((src, so, tmp, proc))

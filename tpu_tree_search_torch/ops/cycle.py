@@ -13,9 +13,11 @@ on the card.
 The loop state is one int32 tensor ``st`` (``new_state``): size, best, tree,
 sol, cycles, and this cycle's pop. One call of ``cycle_lb1_cuda`` or
 ``cycle_lb2_cuda`` enqueues one cycle; when the loop condition is false it
-is an exact no-op, so the engine enqueues K of them with no host
-synchronisation. Each wrapper's ``launches`` counts its calls (one cycle,
-three launches: bounds, count, emit).
+is an exact no-op. The engine captures one call into the body of its
+dispatch graph (`ops/dispatch.py`). Each wrapper's ``launches`` counts the
+cycles it launched (three launches each: bounds, count, emit): one a call,
+or under the graph the body's runs (``count_launch``); ``captures`` counts
+its captures.
 
 Plain PyTorch versions beside them: ``cycle_chunk_plain`` computes what the
 JAX ``make_cycle`` returns for one popped chunk under a given bound (the CPU
@@ -36,12 +38,14 @@ import torch
 
 from ..problems.base import INF_BOUND
 from . import _build
+from .dispatch import count_launch
 from .lb2_kernel import johnson_operands
 from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 
 # Layout of the state tensor (mirrors the enum of csrc/cycle_common.cuh).
 ST_SIZE, ST_BEST, ST_TREE, ST_SOL, ST_CYCLES = 0, 1, 2, 3, 4
 ST_ACTIVE, ST_CNT, ST_START2, ST_BASE = 5, 6, 7, 8
+ST_RUNS = 9  # the dispatch graph's body runs (`ops/dispatch.py`)
 ST_LEN = 16
 
 
@@ -261,7 +265,7 @@ _ENTRIES = {
 _ARGTYPES = {
     "cycle_lb1": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
     + (ctypes.c_void_p,),
-    "cycle_lb2": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
+    "cycle_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
     + (ctypes.c_void_p,),
 }
 
@@ -311,10 +315,11 @@ def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
         "cycle_lb1", pool_vals, pool_aux, st, scratch, tables, M, m, K,
         (tables.ptm_t, tables.min_heads, tables.min_tails),
         (tables.jobs, tables.machines))
-    cycle_lb1_cuda.launches += 1  # type: ignore[attr-defined]
+    count_launch(cycle_lb1_cuda)
 
 
 cycle_lb1_cuda.launches = 0  # type: ignore[attr-defined]
+cycle_lb1_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def cycle_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
@@ -327,12 +332,13 @@ def cycle_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     J = johnson_operands("cycle_lb2", tables)
     _launch_pfsp_cycle(
         "cycle_lb2", pool_vals, pool_aux, st, scratch, tables, M, m, K,
-        (tables.ptm_t, tables.min_heads, J.pairinfo, J.packed),
-        (tables.jobs, tables.machines, J.pair_count))
-    cycle_lb2_cuda.launches += 1  # type: ignore[attr-defined]
+        (tables.ptm_t, tables.min_heads, J.pairinfo, J.tab, J.inv),
+        (tables.jobs, tables.machines, J.pair_count, J.route))
+    count_launch(cycle_lb2_cuda)
 
 
 cycle_lb2_cuda.launches = 0  # type: ignore[attr-defined]
+cycle_lb2_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, tables,

@@ -5,12 +5,15 @@ with `_compact_push` and the N-Queens branch of `make_cycle`) and the
 engine's pop and write-back around it; source `csrc/cycle_nqueens.cu`,
 whose header note gives the launch sequence and what bounds it on the card.
 
-The pool is ``board`` (C, N) uint8 and ``depth`` (C,) int8 (N <= 32), and
-the loop state is the int32 tensor of `ops/cycle.py` (``new_state``). One
+The pool is ``board`` (C, N) uint8 and ``depth`` (C,) int8 through N = 127,
+int32 beyond (``depth_dtype``; N <= 256), and the loop state is the int32
+tensor of `ops/cycle.py` (``new_state``); a parent's keeps are
+``nq_mask_words(N)`` uint32 words (1 through N = 32, up to 8). One
 call of ``cycle_nqueens_cuda`` enqueues one cycle (two launches); when the
-loop condition is false it is an exact no-op, so the engine enqueues K of
-them with no host synchronisation. ``cycle_nqueens_cuda.launches`` counts
-the calls.
+loop condition is false it is an exact no-op. The engine captures one
+call into its dispatch graph (`ops/dispatch.py`);
+``cycle_nqueens_cuda.launches`` counts the cycles launched, as
+`ops/cycle.py`'s wrappers do (``count_launch``).
 
 Plain PyTorch versions beside it: ``cycle_nqueens_chunk_plain`` computes
 what the JAX ``make_cycle`` returns for one popped chunk (the CPU tests hold
@@ -27,6 +30,7 @@ import torch
 
 from . import _build
 from .cycle import ST_LEN, CycleScratch, parents_per_block, plain_pool_cycle
+from .dispatch import count_launch
 from .nqueens_device import labels_chunk
 from .nqueens_kernel import MAX_N
 
@@ -80,11 +84,49 @@ def cycle_nqueens_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                                                             N, g))
 
 
+def depth_dtype(N: int) -> torch.dtype:
+    """The N-Queens pool's depth type: int8 through N = 127, int32 beyond
+    (the JAX ``_NQueensResident`` pool)."""
+    return torch.int8 if N <= 127 else torch.int32
+
+
+def nq_mask_words(N: int) -> int:
+    """uint32 keep-mask words a parent of the N-Queens cycles
+    (``TTS_NQ_WORDS`` of csrc/nqueens_common.cuh): bit k % 32 of word k // 32
+    is slot k; 1, 2, 4 or 8."""
+    return 1 if N <= 32 else 2 if N <= 64 else 4 if N <= 128 else 8
+
+
 def nqueens_scratch(M: int, N: int, device) -> CycleScratch:
-    """The N-Queens cycle's scratch: the board stash, int8 depth, and one
-    int32 keep-mask word a parent (bit k is slot k, N <= 32)."""
-    return CycleScratch.make(M, N, 1, torch.int8, M,
+    """The N-Queens cycle's scratch: the board stash, the pool's depth
+    type, and ``nq_mask_words(N)`` int32 keep-mask words a parent."""
+    return CycleScratch.make(M, N, 1, depth_dtype(N), M * nq_mask_words(N),
                              parents_per_block("cycle_nqueens"), device)
+
+
+def check_nqueens_pool(source: str, pool_vals: torch.Tensor,
+                       pool_aux: torch.Tensor, st: torch.Tensor, N: int,
+                       g: int) -> str:
+    """Check an N-Queens pool for the cycle entries of ``csrc/<source>.cu``
+    and return the entry of its depth type (``source`` or
+    ``<source>_i32``)."""
+    if not pool_vals.is_cuda:
+        raise ValueError(f"{source} takes CUDA tensors")
+    if not 1 <= N <= MAX_N or g < 1:
+        raise ValueError(f"the kernel takes 1 <= N <= {MAX_N} and g >= 1 "
+                         f"(got N={N}, g={g})")
+    if pool_vals.dtype != torch.uint8 or pool_aux.dtype != depth_dtype(N):
+        raise TypeError(f"the N-Queens pool is a uint8 board and an "
+                        f"{depth_dtype(N)} depth at N = {N}")
+    C = pool_vals.shape[0]
+    if pool_vals.shape != (C, N) or pool_aux.shape != (C,) \
+            or st.dtype != torch.int32 or st.numel() < ST_LEN:
+        raise ValueError("pool_vals must be (C, N), pool_aux (C,) and st "
+                         "int32 of ST_LEN")
+    if not (pool_vals.is_contiguous() and pool_aux.is_contiguous()
+            and st.is_contiguous()):
+        raise ValueError("pool and state tensors must be contiguous")
+    return source if N <= 127 else f"{source}_i32"
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
@@ -95,23 +137,11 @@ def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                        g: int, M: int, m: int, K: int) -> None:
     """Enqueue one cycle (two launches) on the current stream; updates
     the pool and ``st`` in place on the device, never synchronises."""
-    if not pool_vals.is_cuda:
-        raise ValueError("cycle_nqueens_cuda takes CUDA tensors")
-    if pool_vals.dtype != torch.uint8 or pool_aux.dtype != torch.int8:
-        raise TypeError("the N-Queens pool is a uint8 board and an int8 depth")
+    entry = check_nqueens_pool("cycle_nqueens", pool_vals, pool_aux, st, N, g)
     C = pool_vals.shape[0]
-    if pool_vals.shape != (C, N) or pool_aux.shape != (C,) \
-            or st.dtype != torch.int32 or st.numel() < ST_LEN:
-        raise ValueError("pool_vals must be (C, N), pool_aux (C,) and st "
-                         "int32 of ST_LEN")
-    if not 1 <= N <= MAX_N or g < 1:
-        raise ValueError(f"the kernel takes 1 <= N <= {MAX_N} and g >= 1 "
-                         f"(got N={N}, g={g})")
-    if not (pool_vals.is_contiguous() and pool_aux.is_contiguous()
-            and st.is_contiguous()):
-        raise ValueError("pool and state tensors must be contiguous")
-    lib, fn = _build.entry("cycle_nqueens", "cycle_nqueens", _ARGTYPES)
-    if C < M or not scratch.fits(M, N, 1, torch.int8, M,
+    lib, fn = _build.entry("cycle_nqueens", entry, _ARGTYPES)
+    if C < M or not scratch.fits(M, N, 1, depth_dtype(N),
+                                 M * nq_mask_words(N),
                                  parents_per_block("cycle_nqueens")):
         raise ValueError("scratch must be nqueens_scratch(M, N), and the "
                          "pool hold at least M rows")
@@ -121,10 +151,11 @@ def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(), N, g, M, C,
              m, K, stream)
     _build.check(lib, err, "cycle_nqueens")
-    cycle_nqueens_cuda.launches += 1  # type: ignore[attr-defined]
+    count_launch(cycle_nqueens_cuda)
 
 
 cycle_nqueens_cuda.launches = 0  # type: ignore[attr-defined]
+cycle_nqueens_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def cycle_nqueens(pool_vals: torch.Tensor, pool_aux: torch.Tensor,

@@ -18,7 +18,8 @@ and rows past it are not written. ``lb2_self_bounds_cuda.launches`` counts
 the launches.
 
 The block shape mirrors the source: ``block_shape`` and ``block_bytes``
-(the table's stride, threads, rows a thread and dynamic shared memory,
+(the table's stride, threads, rows a thread and dynamic shared memory, on
+the shared-memory or the global table route of `ops/lb2_kernel.py`;
 `tts_lb2s_block`, `tts_lb2s_smem_bytes`), ``split`` (the lanes a row and
 rows a thread the kernel picks from ``n_active``, `lb2s_split`);
 ``last_shape`` reads the shape of the last launch in this process, and
@@ -33,7 +34,7 @@ import torch
 
 from . import _build
 from .lb1_kernel import chunk_operands
-from .lb2_kernel import SMEM_LIMIT, johnson_operands
+from .lb2_kernel import ROUTES, SMEM_LIMIT, johnson_operands
 from .pfsp_device import PFSPDeviceTables, lb2_self_chunk
 
 #: The plain PyTorch version of the kernel.
@@ -47,37 +48,40 @@ ROWS = 4
 
 _ENTRIES = {torch.int8: "lb2_self_bounds_i8",
             torch.int32: "lb2_self_bounds_i32"}
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
 def block_bytes(n: int, m: int, P: int, ns: int, threads: int,
-                rows: int = 1) -> int:
+                rows: int = 1, glob: bool = False) -> int:
     """Dynamic shared memory of a block of ``threads`` threads taking up to
     ``rows`` rows a thread: the pair rows, the ordered table at the stride
-    ``ns``, ptm and min_heads (16-aligned), then for U = threads * rows
-    rows the staged bytes with 16 bytes of head room, their limit1 and
-    their fronts at the odd stride m | 1."""
+    ``ns``, ptm and min_heads (16-aligned; none on the global route), then
+    for U = threads * rows rows the staged rows (bytes; 16-bit ids on the
+    global route) with 16 bytes of head room, their limit1 and their fronts
+    at the odd stride m | 1."""
     U = threads * rows
-    tables = 16 * P + 8 * P * ns + 4 * (n * m + m)
-    stash = (U * n + 15) // 16 * 16 + 16
+    tables = 0 if glob else 16 * P + 8 * P * ns + 4 * (n * m + m)
+    stash = (U * n * (2 if glob else 1) + 15) // 16 * 16 + 16
     return (tables + 15) // 16 * 16 + stash + 4 * U * (1 + (m | 1))
 
 
-def block_shape(n: int, m: int, P: int) -> dict:
+def block_shape(n: int, m: int, P: int, glob: bool = False) -> dict:
     """A block at this shape: the ordered table's stride (n | 1, odd, or n
-    where only that fits), threads, the most rows a thread, and its dynamic
-    shared memory."""
-    for ns in (n | 1, n):
+    where only that fits; n on the global route), threads, the most rows a
+    thread (one on the global route), and its dynamic shared memory."""
+    for ns in ((n,) if glob else (n | 1, n)):
         threads = THREADS
-        while threads > 32 and block_bytes(n, m, P, ns, threads) > SMEM_LIMIT:
+        while threads > 32 and block_bytes(n, m, P, ns, threads, 1,
+                                           glob) > SMEM_LIMIT:
             threads //= 2
-        if block_bytes(n, m, P, ns, threads) <= SMEM_LIMIT:
+        if block_bytes(n, m, P, ns, threads, 1, glob) <= SMEM_LIMIT:
             break
-    rows = ROWS
-    while rows > 1 and block_bytes(n, m, P, ns, threads, rows) > SMEM_LIMIT:
+    rows = 1 if glob else ROWS
+    while rows > 1 and block_bytes(n, m, P, ns, threads, rows,
+                                   glob) > SMEM_LIMIT:
         rows //= 2
     return {"ns": ns, "threads": threads, "rows": rows,
-            "smem_bytes": block_bytes(n, m, P, ns, threads, rows)}
+            "smem_bytes": block_bytes(n, m, P, ns, threads, rows, glob)}
 
 
 def split(n_active: int, blocks: int, threads: int, rows: int, P: int,
@@ -99,13 +103,14 @@ def split(n_active: int, blocks: int, threads: int, rows: int, P: int,
 def last_shape() -> dict:
     """The block shape of the last launch in this process: threads, the
     most rows a thread, blocks, dynamic shared memory, blocks an SM by the
-    occupancy, and the ordered table's stride."""
+    occupancy, the ordered table's stride, and the table route."""
     _, fn = _build.entry("lb2_self_bounds", "lb2_self_bounds_last_shape",
                          (ctypes.POINTER(ctypes.c_int),), None)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     fn(out)
     return {"threads": out[0], "rows": out[1], "blocks": out[2],
-            "smem_bytes": out[3], "per_sm": out[4], "ns": out[5]}
+            "smem_bytes": out[3], "per_sm": out[4], "ns": out[5],
+            "tables": ROUTES[out[6]]}
 
 
 def last_split() -> tuple[int, int]:
@@ -136,8 +141,8 @@ def lb2_self_bounds_cuda(rows: torch.Tensor, limit1: torch.Tensor, n_active,
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = fn(rows.data_ptr(), limit1.data_ptr(), n_active.data_ptr(),
              tables.ptm_t.data_ptr(), tables.min_heads.data_ptr(),
-             J.pairinfo.data_ptr(), J.packed.data_ptr(), out.data_ptr(), R, n,
-             tables.machines, J.pair_count, stream)
+             J.pairinfo.data_ptr(), J.tab.data_ptr(), out.data_ptr(), R, n,
+             tables.machines, J.pair_count, J.route, stream)
     _build.check(lib, err, "lb2_self_bounds")
     lb2_self_bounds_cuda.launches += 1  # type: ignore[attr-defined]
     return out

@@ -5,8 +5,9 @@ entry `nqueens_labels`); source `csrc/nqueens_labels.cu`, whose header note
 says what bounds it on the card and how the design answers that.
 
 ``nqueens_labels_cuda`` launches the kernel on CUDA tensors and raises on
-anything it does not take: board uint8 (B, N) with N <= 32, depth (B,) int8
-or int32 (the device pool's storage types). ``plain`` is its plain PyTorch
+anything it does not take: board uint8 (B, N) with N <= 256 (what a uint8
+board holds; past 32 the kernel runs its scalar per-slot check), depth (B,)
+int8 or int32 (the device pool's storage types). ``plain`` is its plain PyTorch
 version (`ops/nqueens_device.labels_chunk`).
 ``nqueens_labels_cuda.launches`` counts the launches; ``last_shape`` reads
 the block shape of the last one.
@@ -24,8 +25,9 @@ from .nqueens_device import labels_chunk
 #: The plain PyTorch version of the kernel.
 plain = labels_chunk
 
-#: Widest board the N-Queens kernels take (csrc/nqueens_common.cuh).
-MAX_N = 32
+#: Widest board the N-Queens kernels take (csrc/nqueens_common.cuh): a
+#: uint8 board holds the rows 0..255.
+MAX_N = 256
 
 _ENTRIES = {torch.int8: "nqueens_labels_i8", torch.int32: "nqueens_labels_i32"}
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
@@ -34,7 +36,8 @@ _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 def last_shape() -> dict:
     """The block shape of kernel 3's last launch in this process: parents
     a tile (the threads of a block), blocks, tiles, packed words of queens
-    a parent, and the blocks an SM holds at once."""
+    a parent, and the blocks an SM holds at once (parents, tiles and words
+    0: the wide boards' per-slot kernel)."""
     _, fn = _build.entry("nqueens_labels", "nqueens_labels_last_shape",
                          (ctypes.POINTER(ctypes.c_int),), None)
     out = (ctypes.c_int * 5)()

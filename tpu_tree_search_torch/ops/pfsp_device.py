@@ -43,10 +43,12 @@ class JohnsonTables:
     ``lag_o`` its lag, all (P, n) int32; ``pairs`` (P, 2) the machine
     indices and ``tails0``/``tails1`` (P,) the ``min_tails`` of those
     machines. ``host`` holds the same arrays in numpy, for the plain pair
-    loop. The kernels read two packed copies: ``packed`` (P, n, 4) int16
-    rows (p0, p1, lag, job) — exact while every value is below 2^15, else
-    None — and ``pairinfo`` (P, 4) int32 rows (machine 0, machine 1,
-    tails0, tails1)."""
+    loop. The kernels read packed copies: ``packed`` (P, n, 4) int16 rows
+    (p0, p1, lag, job) — exact while every value is below 2^15, else None —
+    for their shared-memory route, ``packed32`` (P, n, 4) int32 rows and
+    ``inv`` (P, n) int16, the slot of each job in the pair's order, for
+    their global-memory route, and ``pairinfo`` (P, 4) int32 rows (machine
+    0, machine 1, tails0, tails1)."""
 
     def __init__(self, ptm_t, min_tails, pairs, lags, johnson_schedules,
                  device: torch.device):
@@ -73,6 +75,12 @@ class JohnsonTables:
         self.packed = (torch.from_numpy(slots.astype(np.int16)).to(device)
                        .contiguous()
                        if slots.min() >= 0 and slots.max() < 2**15 else None)
+        self.packed32 = torch.from_numpy(
+            slots.astype(np.int32)).to(device).contiguous()
+        inv = np.zeros(sched.shape, dtype=np.int16)
+        np.put_along_axis(inv, sched, np.arange(sched.shape[1], dtype=np.int16)
+                          [None, :].repeat(sched.shape[0], 0), axis=1)
+        self.inv = torch.from_numpy(inv).to(device).contiguous()
         self.pairinfo = torch.from_numpy(np.stack(
             [pairs[:, 0], pairs[:, 1], host["tails0"], host["tails1"]], -1)
             .astype(np.int32)).to(device).contiguous()

@@ -24,9 +24,10 @@ records a refusal.
 
 One call of ``tiled_lb1_cuda``, ``tiled_lb2_cuda`` or ``tiled_nqueens_cuda``
 enqueues one cycle (three launches; two for N-Queens) on the loop state of
-`ops/cycle.py`; when the loop condition is false it is an exact no-op, so
-the engine enqueues K of them with no host synchronisation. Each wrapper's
-``launches`` counts its calls.
+`ops/cycle.py`; when the loop condition is false it is an exact no-op. The
+engine captures one call into its dispatch graph (`ops/dispatch.py`); each
+wrapper's ``launches`` counts the cycles launched, as `ops/cycle.py`'s
+wrappers do (``count_launch``).
 
 The eval-only pass (``streamed_eval_bounds``, ``megakernel_lb2_bounds``;
 the TPU kernels `_eval_lb1_kernel`, `_eval_nqueens_kernel` and
@@ -59,11 +60,17 @@ from .cycle import (
     pfsp_plane_words,
     plain_pool_cycle,
 )
-from .cycle_nqueens import cycle_nqueens_chunk_plain
+from .cycle_nqueens import (
+    check_nqueens_pool,
+    cycle_nqueens_chunk_plain,
+    depth_dtype,
+    nq_mask_words,
+)
+from .dispatch import count_launch
 from .lb1_kernel import lb1_bounds_cuda
 from .lb2_kernel import johnson_operands, lb2_bounds_cuda
 from .nqueens_device import labels_chunk
-from .nqueens_kernel import MAX_N, nqueens_labels_cuda
+from .nqueens_kernel import nqueens_labels_cuda
 from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 
 
@@ -147,7 +154,8 @@ def tiled_nqueens_scratch(M: int, N: int, mt: int,
                           device) -> TileBoundsScratch:
     """Kernel 9a's (the streamed N-Queens cycle's) scratch: kernel 4's
     (``nqueens_scratch``) and the boundary row."""
-    return TileBoundsScratch.make(M, N, mt, 1, torch.int8, M,
+    return TileBoundsScratch.make(M, N, mt, 1, depth_dtype(N),
+                                  M * nq_mask_words(N),
                                   parents_per_block("tiled_nqueens"), device)
 
 
@@ -250,12 +258,13 @@ def tiled_nqueens_plain(pool_vals, pool_aux, st, problem, M: int, mt: int,
 _ENTRIES = {
     "tiled_lb1": {torch.int8: "tiled_lb1_i8", torch.int32: "tiled_lb1_i32"},
     "tiled_lb2": {torch.int8: "tiled_lb2_i8", torch.int32: "tiled_lb2_i32"},
-    "tiled_nqueens": {torch.uint8: "tiled_nqueens"},
+    "tiled_nqueens": {torch.int8: "tiled_nqueens",
+                      torch.int32: "tiled_nqueens_i32"},
 }
 _ARGTYPES = {
     "tiled_lb1": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
     + (ctypes.c_void_p,),
-    "tiled_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
+    "tiled_lb2": (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9
     + (ctypes.c_void_p,),
     "tiled_nqueens": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
     + (ctypes.c_void_p,),
@@ -277,8 +286,10 @@ def _launch_tiled(source: str, pool_vals: torch.Tensor,
     check_tile(M, mt)
     entries = _ENTRIES[source]
     C = pool_vals.shape[0]
-    aux_dtype = torch.int8 if source == "tiled_nqueens" else pool_vals.dtype
-    if pool_vals.dtype not in entries or pool_aux.dtype != aux_dtype:
+    # The PFSP entries are by the pool's one type; N-Queens (a uint8 board,
+    # checked by check_nqueens_pool) by its depth's.
+    key = pool_aux.dtype if source == "tiled_nqueens" else pool_vals.dtype
+    if key not in entries or pool_aux.dtype != key:
         raise TypeError(f"{source}: the pool's types are not the kernel's")
     if pool_vals.shape != (C, n) or pool_aux.shape != (C,) \
             or st.dtype != torch.int32 or st.numel() < ST_LEN:
@@ -288,7 +299,7 @@ def _launch_tiled(source: str, pool_vals: torch.Tensor,
             and st.is_contiguous()):
         raise ValueError("pool and state tensors must be contiguous")
     table_args, sizes = operands()
-    lib, fn = _build.entry(source, entries[pool_vals.dtype], _ARGTYPES[source])
+    lib, fn = _build.entry(source, entries[key], _ARGTYPES[source])
     if C < M or not scratch_fits():
         raise ValueError(f"scratch must be the {source} scratch of (M, mt), "
                          "and the pool hold at least M rows")
@@ -325,10 +336,11 @@ def tiled_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
         lambda: _bounds_fits("tiled_lb1", scratch, M, n, mt,
                              pool_vals.element_size(), pool_vals.dtype,
                              pfsp_plane_words(M, n)))
-    tiled_lb1_cuda.launches += 1  # type: ignore[attr-defined]
+    count_launch(tiled_lb1_cuda)
 
 
 tiled_lb1_cuda.launches = 0  # type: ignore[attr-defined]
+tiled_lb1_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def tiled_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
@@ -343,8 +355,8 @@ def tiled_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
 
     def operands():
         J = johnson_operands("tiled_lb2", tables)
-        return ((tables.ptm_t, tables.min_heads, J.pairinfo, J.packed),
-                (tables.jobs, tables.machines, J.pair_count))
+        return ((tables.ptm_t, tables.min_heads, J.pairinfo, J.tab, J.inv),
+                (tables.jobs, tables.machines, J.pair_count, J.route))
 
     _launch_tiled(
         "tiled_lb2", pool_vals, pool_aux, st, scratch, n, M, mt, m, K,
@@ -352,31 +364,31 @@ def tiled_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
         lambda: _bounds_fits("tiled_lb2", scratch, M, n, mt,
                              pool_vals.element_size(), pool_vals.dtype,
                              pfsp_plane_words(M, n)))
-    tiled_lb2_cuda.launches += 1  # type: ignore[attr-defined]
+    count_launch(tiled_lb2_cuda)
 
 
 tiled_lb2_cuda.launches = 0  # type: ignore[attr-defined]
+tiled_lb2_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def tiled_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                        st: torch.Tensor, scratch: TileBoundsScratch, problem,
                        M: int, mt: int, m: int, K: int) -> None:
     """Enqueue one streamed N-Queens cycle (kernel 4's two launches, with
-    the boundary row) on the current stream; ``problem`` gives N (<= 32)
+    the boundary row) on the current stream; ``problem`` gives N (<= 256)
     and g."""
     N, g = problem.N, problem.g
-    if not 1 <= N <= MAX_N or g < 1:
-        raise ValueError(f"the kernel takes 1 <= N <= {MAX_N} and g >= 1 "
-                         f"(got N={N}, g={g})")
+    check_nqueens_pool("tiled_nqueens", pool_vals, pool_aux, st, N, g)
     _launch_tiled(
         "tiled_nqueens", pool_vals, pool_aux, st, scratch, N, M, mt, m, K,
         lambda: ((), (N, g)),
         lambda: _bounds_fits("tiled_nqueens", scratch, M, N, mt, 1,
-                             torch.int8, M))
-    tiled_nqueens_cuda.launches += 1  # type: ignore[attr-defined]
+                             depth_dtype(N), M * nq_mask_words(N)))
+    count_launch(tiled_nqueens_cuda)
 
 
 tiled_nqueens_cuda.launches = 0  # type: ignore[attr-defined]
+tiled_nqueens_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, spec,

@@ -24,6 +24,9 @@ import numpy as np
 
 from .base import DecomposeResult, NodeBatch, Problem
 
+#: The widest board: a uint8 board holds the rows 0..255.
+MAX_N = 256
+
 
 class NQueensProblem(Problem):
     name = "nqueens"
@@ -34,6 +37,8 @@ class NQueensProblem(Problem):
     def __init__(self, N: int = 14, g: int = 1):
         if N <= 0 or g <= 0:
             raise ValueError("All parameters must be positive integers.")
+        if N > MAX_N:
+            raise ValueError(f"N = {N}: the board is uint8, so N <= {MAX_N}")
         self.N = int(N)
         self.g = int(g)
         self.child_slots = self.N
