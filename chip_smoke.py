@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and six profiles
+    python3 chip_smoke.py --host     # phases 1, 2 and 18c (offload cold and warm, profiled)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -10,8 +11,9 @@ ends the script with a non-zero exit before the final line:
 
   1. device: torch's device name and count, and the card's name and power
      limit as ``nvidia-smi --query-gpu=name,power.limit`` prints them;
-  2. build: every kernel compiled from ``tpu_tree_search_torch/csrc`` (one
-     ``nvcc`` per source, in parallel), with the build seconds;
+  2. build: the native host runtime (``g++``, its seconds), then every
+     kernel compiled from ``tpu_tree_search_torch/csrc`` (one ``nvcc`` per
+     source, in parallel), with the build seconds;
   3. kernel 1 (lb1 bounds) against its plain PyTorch version on the card:
      ta014 tables, seeded random partial permutations, B = 1024 and 49152,
      int8 and int32 inputs; ta021 (20 machines) at both B, ta111 (500
@@ -101,6 +103,22 @@ ends the script with a non-zero exit before the final line:
      (``dispatch_device_ms``, and over phase 2 the busy share), then under
      the profiler (its device time, a lower bound, and the trace check of
      phase 20);
+ 18c. the single-device tiers beside the resident engine: ``seq``, the
+     sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
+     and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
+     launched, nodes/s beside BASELINE.md's C anchors and the host CPU
+     named; ``offload_*``, the offload engine (``--engine offload``) on
+     ta014 lb1, lb1_d and lb2 (staged: kernels 1 and 7) and N = 14, and
+     ``device_search(staged=False)`` on lb2 (kernel 6), to their goldens,
+     each bound wrapper launched once a chunk and no other kernel, with
+     the chunks, copies, ``double_buffered`` and phase 2 seconds;
+     ``checkpoint_*``, cut (``--K 4 --max-steps 2 --checkpoint``) and
+     resume (``--resume``) of ta014 lb1 and lb2 fused and N = 15 ``--mt
+     80`` to the goldens, ta014 lb1 with ``--checkpoint-interval 0``, and
+     the JAX package's committed v1 cut of N = 9, with each save's and
+     load's seconds and the file's bytes; ``host_phases``, phases 1 and 3
+     of ta014 lb1 and lb2 and N = 15 fused with the native runtime and
+     with ``TTS_NATIVE=0``, in turns A B B A;
  19. the eval-only pass through ``streamed_eval_bounds`` (lb1, lb2, N-Queens
      at full width) and ``megakernel_lb2_bounds``, which launch kernels 1,
      6 and 3 (counted), checked against the plain planes;
@@ -134,8 +152,10 @@ ends the script with a non-zero exit before the final line:
      the launches of phase 19; the lb2 and N-Queens rows carry ``wide``
      (phase 16b), and ``dispatch_graph`` (the graph dispatch, the host
      loop's counterpart of the JAX ``lax.while_loop``) its phase 16c time,
-     its condition kernel's time a cycle and the pipeline runs.
+     its condition kernel's time a cycle and the pipeline runs; rows 1, 3,
+     5, 6 and 7 carry the offload runs' launches (``offload_launches``).
 
+Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
 says how it was taken), ``call_ms`` CUDA-event medians on the card; ``bound_ms`` is the larger of the
 bytes the function must move over 3.35 TB/s and its int32 operations over
@@ -187,8 +207,13 @@ TILED_KERNELS = {"lb1": ("lb1_tiles_bounds", "pfsp_tiles_count", "pfsp_tiles_emi
                  "nqueens": ("nq_tiles_labels", "nq_tiles_emit")}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the script's seconds so far (``t_s``)."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 3),
+                      **fields}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -443,13 +468,40 @@ def phase_device() -> dict:
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
-         nvidia_smi=smi, **dev)
+         nvidia_smi=smi, host_cpu=host_cpu(), **dev)
     return dev
 
 
+def host_cpu() -> str:
+    """The host CPU (the host phases and the sequential tier run there):
+    its model as /proc/cpuinfo names it, vendor, family, model number and
+    clock, and the cores this process sees."""
+    import os
+    import platform
+
+    info = {}
+    try:
+        for ln in open("/proc/cpuinfo").read().splitlines():
+            key, _, value = ln.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    parts = [info.get("model name") or platform.processor() or platform.machine()]
+    parts += [f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "cpu MHz")
+              if info.get(k)]
+    return f"{', '.join(parts)}; {os.cpu_count()} cores"
+
+
 def phase_build():
+    from tpu_tree_search_torch import native
     from tpu_tree_search_torch.ops import _build
 
+    # The host runtime first (g++, seconds), so that no search's phases
+    # include its build.
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native.load()
+    native_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     per_source = _build.build_all()
     secs = time.perf_counter() - t0
@@ -459,7 +511,8 @@ def phase_build():
         ptxas[src.stem] = [ln.strip() for ln in log.splitlines()
                            if "entry function" in ln or "registers" in ln
                            or "spill" in ln][:24]
-    emit("build", seconds=secs, per_source_seconds=per_source, ptxas=ptxas)
+    emit("build", seconds=secs, per_source_seconds=per_source, ptxas=ptxas,
+         native_gxx_seconds=native_s, native_library=native_lib.name)
 
 
 def lb1_family_inputs(seed: int):
@@ -1205,9 +1258,14 @@ def phase_eval_pass(dev, probs: dict, counters: dict) -> dict:
     return dict(out, phase="eval_pass")
 
 
-def run_search(argv: list[str], golden: dict) -> dict:
+PFSP_LB1 = ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1", "--tier", "device"]
+PFSP_LB2 = ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1", "--tier", "device"]
+PFSP_LB1D = ["pfsp", "--inst", "14", "--lb", "lb1_d", "--ub", "1", "--tier", "device"]
+
+
+def run_search(argv: list[str], golden: dict | None) -> dict:
     """One search through the CLI (report captured); returns its JSON
-    record after checking its counts against ``golden``."""
+    record after checking its counts against ``golden`` (a cut: None)."""
     from tpu_tree_search_torch import cli
 
     buf = io.StringIO()
@@ -1215,14 +1273,272 @@ def run_search(argv: list[str], golden: dict) -> dict:
         rc = cli.main(argv + ["--json"])
     check(rc == 0, f"cli {argv} returned {rc}")
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-    got = {k: rec[k] for k in golden}
-    check(got == golden, f"{argv} counts {got} != golden {golden}")
+    if golden is not None:
+        got = {k: rec[k] for k in golden}
+        check(got == golden, f"{argv} counts {got} != golden {golden}")
     return rec
 
 
-PFSP_LB1 = ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1", "--tier", "device"]
-PFSP_LB2 = ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1", "--tier", "device"]
-PFSP_LB1D = ["pfsp", "--inst", "14", "--lb", "lb1_d", "--ub", "1", "--tier", "device"]
+def zero_counts(counters: dict) -> None:
+    """Every kernel wrapper's launch count (and graph captures) to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "captures"):
+            fn.captures = 0
+    torch.cuda.synchronize()
+
+
+# The reference C sequential programs' nodes/s on one core of an Intel Xeon
+# @ 2.10 GHz (BASELINE.md); N-Queens' anchor is N = 15's.
+C_ANCHORS = {"ta014_lb1": 927909, "ta014_lb2": 65391, "nqueens_N15": 9942907}
+PFSP_SEQ = ["pfsp", "--inst", "14", "--ub", "1", "--tier", "seq"]
+# The sequential runs: (name, argv, golden, C anchor).
+SEQ_RUNS = [
+    ("ta014_lb1", PFSP_SEQ + ["--lb", "lb1"], GOLDEN, "ta014_lb1"),
+    ("ta014_lb2", PFSP_SEQ + ["--lb", "lb2"], GOLDEN_LB2, "ta014_lb2"),
+    ("nqueens_N14", ["nqueens", "--N", "14", "--tier", "seq"], NQ_GOLDEN[14],
+     "nqueens_N15"),
+]
+
+
+def phase_seq(counters: dict) -> dict:
+    """The sequential tier through the CLI (``--tier seq``, the native
+    runtime on the host CPU) on ta014 lb1 and lb2 ub=1 and N-Queens N = 14,
+    each to its goldens, with no kernel launched; nodes/s beside the C
+    anchors."""
+    rows = {}
+    for name, argv, golden, anchor in SEQ_RUNS:
+        zero_counts(counters)
+        rec = run_search(argv, golden)
+        launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        check(rec["native"] and not launched,
+              f"seq {name}: native {rec['native']}, kernels launched {launched}")
+        nps = rec["explored_tree"] / rec["elapsed_s"]
+        rows[name] = dict(elapsed_s=rec["elapsed_s"], nodes_per_s=nps,
+                          c_anchor=anchor, c_anchor_nodes_per_s=C_ANCHORS[anchor],
+                          over_c_anchor=nps / C_ANCHORS[anchor])
+    emit("seq", host_cpu=host_cpu(), native=True, rows=rows)
+    return rows
+
+
+# The offload runs: (name, argv, golden, the bound wrappers a chunk launches
+# once each, device_search keywords: a library run).
+OFFLOAD_RUNS = [
+    ("ta014_lb1", PFSP_LB1, GOLDEN, ("lb1_bounds",), {}),
+    ("ta014_lb1_d", PFSP_LB1D, GOLDEN, ("lb1_d_bounds",), {}),
+    ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, ("lb1_bounds", "lb2_self_bounds"), {}),
+    ("ta014_lb2_single_pass", PFSP_LB2, GOLDEN_LB2, ("lb2_bounds",),
+     {"staged": False}),
+    ("nqueens_N14", ["nqueens", "--N", "14", "--tier", "device"], NQ_GOLDEN[14],
+     ("nqueens_labels",), {}),
+]
+
+
+def phase_offload(counters: dict, run: str = "main") -> dict:
+    """The offload tier (``--engine offload``, the per-chunk host round
+    trip) to the goldens, through the CLI or, for lb2's single-pass
+    evaluator, through ``device_search(staged=False)``. Every kernel's
+    launch count is set to 0 just before each search and read just after:
+    each bound wrapper of the path launched once a chunk, every other
+    kernel never. ``run`` names the pass in each line."""
+    from tpu_tree_search_torch import cli
+    from tpu_tree_search_torch.engine.device import device_search
+
+    rows = {}
+    for name, argv, golden, launched, kwargs in OFFLOAD_RUNS:
+        argv = argv + ["--engine", "offload"]
+        zero_counts(counters)
+        if kwargs:
+            args = cli.build_parser().parse_args(argv)
+            dev = torch.device("cuda", 0)
+            res = device_search(cli.make_problem(args), m=args.m,
+                                M=cli.default_M(args.problem, dev.type, args.tier,
+                                                args.engine),
+                                device=dev, **kwargs)
+            rec = dict(cli.result_record(args, res, dev), entry="device_search",
+                       **kwargs)
+            got = {k: rec[k] for k in golden}
+            check(got == golden, f"device_search {name} counts {got} != {golden}")
+        else:
+            rec = run_search(argv, golden)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        chunks = rec["chunks"]
+        check(launches == {k: chunks if k in launched else 0 for k in launches},
+              f"offload {name}: launches {launches} for {chunks} chunks of {launched}")
+        check(rec["host_to_device"] == rec["device_to_host"] == chunks > 0,
+              f"offload {name}: copies {rec['host_to_device']}, "
+              f"{rec['device_to_host']} for {chunks} chunks")
+        phase2_s = rec["phases"][1][2]
+        rows[name] = dict(
+            chunks=chunks, launches={k: launches[k] for k in launched},
+            launches_per_chunk={k: 1 for k in launched},
+            host_to_device=rec["host_to_device"], device_to_host=rec["device_to_host"],
+            double_buffered=rec["double_buffered"], staged=rec.get("staged"),
+            M=rec["M"], phases=rec["phases"], phase2_s=phase2_s,
+            phase2_ms_per_chunk=1e3 * phase2_s / chunks, elapsed_s=rec["elapsed_s"],
+            nodes_per_s=rec["explored_tree"] / rec["elapsed_s"],
+            entry=rec.get("entry", "cli"), run=run)
+        emit(f"offload_{name}", **rows[name])
+    return rows
+
+
+def phase_offload_profile() -> dict:
+    """The staged ta014 lb2 offload once more under ``torch.profiler``: the
+    device time by kernel and copy (top five) against phase 2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rec = run_search(PFSP_LB2 + ["--engine", "offload"], GOLDEN_LB2)
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy_ms = sum(by_name.values())
+    check(busy_ms > 0, "offload profile: the trace holds no device time")
+    out = dict(search="offload_ta014_lb2", device_busy_ms=busy_ms,
+               phase2_ms=rec["phases"][1][2] * 1e3, chunks=rec["chunks"],
+               top_device_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5]))
+    emit("offload_profile", **out)
+    return out
+
+
+# The cut-and-resume runs: (name, argv, golden, the cycle wrapper).
+CKPT_RUNS = [
+    ("ta014_lb1", PFSP_LB1, GOLDEN, "cycle_lb1"),
+    ("nqueens_N15_mt80", ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"],
+     NQ_GOLDEN[15], "tiled_nqueens"),
+    ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, "cycle_lb2"),
+]
+# The JAX package's committed cut of N-Queens N = 9 (a v1 file).
+V1_FIXTURE = "tests/data/nqueens_n9_v1.ckpt.npz"
+NQ9_GOLDEN = {"explored_tree": 8393, "explored_sol": 352}
+
+
+def phase_checkpoint(counters: dict) -> dict:
+    """Cut and resume on the resident engine through the CLI: each of
+    ``CKPT_RUNS`` cut with ``--K 4 --max-steps 2 --checkpoint f``, then
+    resumed with ``--resume f`` to the goldens (the cut's counts are the
+    resumed run's phase 1); ta014 lb1 with ``--K 4 --checkpoint-interval
+    0`` (a save after every dispatch) to the goldens; and the JAX
+    package's committed v1 cut of N = 9 resumed on the card. Each save and
+    load is timed, with the file's bytes."""
+    import tempfile
+    from pathlib import Path
+
+    from tpu_tree_search_torch.engine import checkpoint as ckpt
+
+    timing = {"save": [], "load": []}
+    real = {"save": ckpt.save, "load": ckpt.load}
+
+    def timed(kind):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real[kind](*args, **kwargs)
+            timing[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    root = Path(__file__).resolve().parent
+    scratch = root / "tpu_tree_search_torch" / "_build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    rows = {}
+    ckpt.save, ckpt.load = timed("save"), timed("load")
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            for name, argv, golden, kernel in CKPT_RUNS:
+                path = str(Path(tmp) / f"{name}.npz")
+                for v in timing.values():
+                    v.clear()
+                zero_counts(counters)
+                cut = run_search(argv + ["--K", "4", "--max-steps", "2",
+                                         "--checkpoint", path], None)
+                check(cut.get("complete") is False and cut["steps"] == 2
+                      and counters[kernel].launches > 0,
+                      f"cut {name}: {cut.get('complete')}, {cut['steps']} steps, "
+                      f"{counters[kernel].launches} {kernel} launches")
+                saves = list(timing["save"])
+                cut_launches = counters[kernel].launches
+                timing["load"].clear()
+                zero_counts(counters)
+                done = run_search(argv + ["--resume", path], golden)
+                check(done["phases"][0][:2] == [cut["explored_tree"], cut["explored_sol"]]
+                      and counters[kernel].launches > 0,
+                      f"resume {name}: phase 1 {done['phases'][0]} against the "
+                      f"cut's {cut['explored_tree']}, {cut['explored_sol']}")
+                rows[name] = dict(
+                    cut_tree=cut["explored_tree"], cut_sol=cut["explored_sol"],
+                    cut_dispatches=cut["dispatches"], cut_launches=cut_launches,
+                    resumed_launches=counters[kernel].launches,
+                    resumed_tree=done["explored_tree"], resumed_sol=done["explored_sol"],
+                    save_s=saves, load_s=list(timing["load"]),
+                    file_bytes=Path(path).stat().st_size,
+                    frontier=done["phases"][1][0] + done["phases"][2][0])
+                emit(f"checkpoint_{name}", **rows[name])
+            path = str(Path(tmp) / "every.npz")
+            timing["save"].clear()
+            rec = run_search(PFSP_LB1 + ["--K", "4", "--checkpoint", path,
+                                         "--checkpoint-interval", "0"], GOLDEN)
+            check(len(timing["save"]) == rec["steps"] > 1,
+                  f"interval 0: {len(timing['save'])} saves in {rec['steps']} steps")
+            rows["ta014_lb1_interval0"] = dict(
+                steps=rec["steps"], saves=len(timing["save"]),
+                save_s_total=sum(timing["save"]), save_s_max=max(timing["save"]),
+                phase2_s=rec["phases"][1][2], file_bytes=Path(path).stat().st_size)
+            emit("checkpoint_ta014_lb1_interval0", **rows["ta014_lb1_interval0"])
+        timing["load"].clear()
+        zero_counts(counters)
+        rec = run_search(["nqueens", "--N", "9", "--m", "8", "--M", "64", "--K", "2",
+                          "--resume", str(root / V1_FIXTURE)], NQ9_GOLDEN)
+        check(rec["phases"][0][0] == 734 and counters["cycle_nqueens"].launches > 0,
+              f"v1 fixture: phase 1 {rec['phases'][0]}")
+        rows["jax_v1_fixture"] = dict(fixture=V1_FIXTURE, load_s=list(timing["load"]),
+                                      launches=counters["cycle_nqueens"].launches,
+                                      phases=rec["phases"])
+        emit("checkpoint_jax_v1_fixture", **rows["jax_v1_fixture"])
+    finally:
+        ckpt.save, ckpt.load = real["save"], real["load"]
+    return rows
+
+
+# The searches whose host phases are timed: (name, argv, golden).
+HOST_PHASE_RUNS = [
+    ("ta014_lb1", PFSP_LB1, GOLDEN), ("ta014_lb2", PFSP_LB2, GOLDEN_LB2),
+    ("nqueens_N15", ["nqueens", "--N", "15", "--tier", "device"], NQ_GOLDEN[15]),
+]
+
+
+def phase_host_phases() -> dict:
+    """Phases 1 (the host warm-up) and 3 (the host drain) of ta014 lb1 and
+    lb2 fused and N-Queens N = 15 fused, on the native runtime (A) and with
+    ``TTS_NATIVE=0`` (B), in turns A B B A, each to its goldens."""
+    import os
+
+    rows = {}
+    old = os.environ.get("TTS_NATIVE")
+    try:
+        for name, argv, golden in HOST_PHASE_RUNS:
+            runs = []
+            for native_on in (True, False, False, True):
+                os.environ["TTS_NATIVE"] = "1" if native_on else "0"
+                rec = run_search(argv, golden)
+                check(rec["native"] is native_on, f"{name}: native {rec['native']}")
+                (t1, _, s1), (_, _, s2), (t3, _, s3) = rec["phases"]
+                runs.append(dict(native=native_on, phase1_s=s1, phase1_tree=t1,
+                                 phase2_s=s2, phase3_s=s3, phase3_tree=t3,
+                                 elapsed_s=rec["elapsed_s"]))
+            rows[name] = runs
+    finally:
+        if old is None:
+            os.environ.pop("TTS_NATIVE", None)
+        else:
+            os.environ["TTS_NATIVE"] = old
+    emit("host_phases", host_cpu=host_cpu(), order="A B B A (A native, B TTS_NATIVE=0)",
+         rows=rows)
+    return rows
 
 
 def phase_search(name: str, argv: list[str], counters: dict,
@@ -1409,11 +1725,9 @@ def main_cycles(dev, dev_info) -> int:
     return 0
 
 
-def main() -> int:
-    dev_info = phase_device()
-    if sys.argv[1:] == ["--cycles"]:
-        phase_build()
-        return main_cycles(torch.device("cuda", 0), dev_info)
+def kernel_counters() -> dict:
+    """Every kernel wrapper (and the graph dispatch) by name: each counts
+    its launches in ``launches``."""
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
     from tpu_tree_search_torch.ops import (
@@ -1425,6 +1739,49 @@ def main() -> int:
     )
     from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.ops.dispatch import DispatchGraph
+
+    return {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
+            "cycle_lb1": C.cycle_lb1_cuda,
+            "nqueens_labels": nqueens_kernel.nqueens_labels_cuda,
+            "cycle_nqueens": CN.cycle_nqueens_cuda,
+            "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda,
+            "lb2_bounds": lb2_kernel.lb2_bounds_cuda,
+            "lb2_self_bounds": lb2_self_kernel.lb2_self_bounds_cuda,
+            "cycle_lb2": C.cycle_lb2_cuda,
+            "tiled_lb1": T.tiled_lb1_cuda,
+            "tiled_nqueens": T.tiled_nqueens_cuda,
+            "tiled_lb2": T.tiled_lb2_cuda,
+            "dispatch_graph": DispatchGraph}
+
+
+def main_host(dev_info) -> int:
+    """``--host``: only the single-device tiers beside the resident engine
+    (phase 18c), in a process whose kernels have not run yet: the offload
+    runs twice, first use (``run`` "cold") then again ("warm"), then once
+    more under ``torch.profiler`` (staged ta014 lb2: device time against
+    phase 2), then the sequential tier, the cuts and the host phases; the
+    last line says which phases ran."""
+    counters = kernel_counters()
+    phase_offload(counters, "cold")
+    phase_offload(counters, "warm")
+    phase_offload_profile()
+    phase_seq(counters)
+    phase_checkpoint(counters)
+    phase_host_phases()
+    print(json.dumps({"ok": True, "phases": "host", "device": dev_info}), flush=True)
+    return 0
+
+
+def main() -> int:
+    dev_info = phase_device()
+    if sys.argv[1:] in (["--cycles"], ["--host"]):
+        phase_build()
+        if sys.argv[1] == "--host":
+            return main_host(dev_info)
+        return main_cycles(torch.device("cuda", 0), dev_info)
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
 
     phase_build()
@@ -1467,18 +1824,7 @@ def main() -> int:
     eval_probs = {"lb1": PFSPProblem(inst=14, lb="lb1", ub=1),
                   "lb2": PFSPProblem(inst=14, lb="lb2", ub=1),
                   "nqueens": NQueensProblem(15)}
-    counters = {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
-                "cycle_lb1": C.cycle_lb1_cuda,
-                "nqueens_labels": nqueens_kernel.nqueens_labels_cuda,
-                "cycle_nqueens": CN.cycle_nqueens_cuda,
-                "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda,
-                "lb2_bounds": lb2_kernel.lb2_bounds_cuda,
-                "lb2_self_bounds": lb2_self_kernel.lb2_self_bounds_cuda,
-                "cycle_lb2": C.cycle_lb2_cuda,
-                "tiled_lb1": T.tiled_lb1_cuda,
-                "tiled_nqueens": T.tiled_nqueens_cuda,
-                "tiled_lb2": T.tiled_lb2_cuda,
-                "dispatch_graph": DispatchGraph}
+    counters = kernel_counters()
     fused = phase_search("search_fused_M49152", PFSP_LB1, counters)
     check(fused["launches"]["cycle_lb1"] > 0, "kernel 2 not launched on the main path")
     fused1k = phase_search("search_fused_M1024", PFSP_LB1 + ["--M", "1024"], counters)
@@ -1551,6 +1897,13 @@ def main() -> int:
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
           "kernels 1, 3 and 6 not launched once a call on the eval-only pass")
+    # The single-device tiers beside the resident engine: the host's
+    # sequential search, the offload engine, cut and resume, and the host
+    # phases with and without the native runtime.
+    phase_seq(counters)
+    offload = phase_offload(counters)
+    phase_checkpoint(counters)
+    phase_host_phases()
     for name, extra, kwargs in [
             ("search_lb2_fused_M49152", [],
              dict(cycle=(C.cycle_lb2_cuda, LB2_CYCLE_KERNELS, 3))),
@@ -1690,6 +2043,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] in wide_rows:
             k["wide"] = wide_rows[k["name"]]
+    # The offload engine's launches of the bound kernels (one a chunk), by
+    # search, beside each row's main-path launches.
+    for k in kernels:
+        runs = {name: row["launches"][k["name"]] for name, row in offload.items()
+                if k["name"] in row["launches"]}
+        if runs:
+            k["offload_launches"] = runs
     # The graph dispatch (not a TPU kernel: the host loop's counterpart of the
     # JAX engine's lax.while_loop): one K = 4 dispatch against 4 plain cycles
     # at ta014 lb1 M = 49152, and its condition kernel's time a cycle on the

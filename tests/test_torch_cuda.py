@@ -1164,3 +1164,65 @@ def test_lb2_kernels_past_100_jobs_match_plain(cuda, inst):
             _cycle_check(C.cycle_lb2_cuda, C.cycle_lb2_plain, pv, pa, st,
                          C.cycle_scratch(M, n, torch.int32, cuda), t, M)
             assert lb2_kernel.last_shape("cycle_lb2")["tables"] == want_route
+
+
+# -- the offload tier and checkpoints on the card ------------------------------
+
+# The full goldens (bench.py:57-60).
+TA014 = {"lb1": (2573652, 2648, 1377), "lb2": (144639, 0, 1377)}
+NQ12 = (856188, 14200)
+# The bound wrappers the offload tier may launch, by name.
+_BOUND_WRAPPERS = {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
+                   "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda,
+                   "lb2_bounds": lb2_kernel.lb2_bounds_cuda,
+                   "lb2_self_bounds": lb2_self_kernel.lb2_self_bounds_cuda,
+                   "nqueens_labels": nqueens_kernel.nqueens_labels_cuda,
+                   "cycle_lb1": C.cycle_lb1_cuda, "cycle_lb2": C.cycle_lb2_cuda,
+                   "cycle_nqueens": CN.cycle_nqueens_cuda}
+
+
+@pytest.mark.parametrize("case,launched", [
+    ("lb1", ("lb1_bounds",)),
+    ("lb2", ("lb1_bounds", "lb2_self_bounds")),
+    ("lb2_single_pass", ("lb2_bounds",)),
+    ("nqueens12", ("nqueens_labels",)),
+])
+def test_offload_tier_hits_goldens_one_launch_a_chunk(cuda, case, launched):
+    from tpu_tree_search_torch.engine.device import device_search
+
+    for w in _BOUND_WRAPPERS.values():
+        w.launches = 0
+    if case == "nqueens12":
+        res = device_search(NQueensProblem(12), device=cuda)
+        assert (res.explored_tree, res.explored_sol) == NQ12
+    else:
+        lb = case[:3]
+        res = device_search(PFSPProblem(inst=14, lb=lb, ub=1), device=cuda,
+                            staged=case != "lb2_single_pass")
+        assert (res.explored_tree, res.explored_sol, res.best) == TA014[lb]
+    d = res.diagnostics
+    assert d.kernel_launches == d.host_to_device == d.device_to_host > 0
+    assert {k: w.launches for k, w in _BOUND_WRAPPERS.items()} == {
+        k: d.kernel_launches if k in launched else 0 for k in _BOUND_WRAPPERS}
+
+
+def test_resident_cut_and_resume_on_the_graph(cuda, tmp_path):
+    path = str(tmp_path / "ta014.npz")
+    part = resident_search(PFSPProblem(inst=14, lb="lb1", ub=1), M=1024, K=4,
+                           device=cuda, max_steps=3, checkpoint_path=path)
+    assert not part.complete and part.steps == 3 and part.fused
+    assert part.graph_build_s > 0
+    done = resident_search(PFSPProblem(inst=14, lb="lb1", ub=1), M=1024, K=4,
+                           device=cuda, resume_from=path)
+    assert done.complete and done.phases[0].tree == part.explored_tree
+    assert (done.explored_tree, done.explored_sol, done.best) == TA014["lb1"]
+
+
+def test_committed_v1_fixture_resumes_on_the_card(cuda):
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "data" / "nqueens_n9_v1.ckpt.npz"
+    done = resident_search(NQueensProblem(9), m=8, M=64, K=2, device=cuda,
+                           resume_from=str(path))
+    assert done.complete and done.phases[0].tree == 734
+    assert (done.explored_tree, done.explored_sol) == (8393, 352)

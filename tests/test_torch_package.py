@@ -5,8 +5,9 @@
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
   * The CLI refuses what is not ported with the ROADMAP queue, runs
-    N-Queens and PFSP lb1/lb1_d/lb2 on the device tier, and ``chip_smoke.py``
-    fails (prints no result) without a card.
+    N-Queens and PFSP lb1/lb1_d/lb2 on the device tier (resident and
+    offload engines) and the sequential tier, and ``chip_smoke.py`` fails
+    (prints no result) without a card.
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("argv", [
     ["pfsp", "--tier", "multi"],
-    ["nqueens", "--tier", "seq"],
-    ["pfsp", "--tier", "seq"],
+    ["nqueens", "--tier", "dist"],
+    ["pfsp", "--tier", "dist_mesh"],
     ["nqueens", "--tier", "mesh"],
 ])
 def test_cli_refuses_unported_paths(argv, capsys):
@@ -430,8 +431,48 @@ def test_default_chunk_size_per_problem():
     assert cli.default_M("pfsp", "cpu") == 50000
     assert cli.default_M("nqueens", "cuda") == 50000
     assert cli.default_M("nqueens", "cpu") == 50000
+    # The offload engine keeps the reference's 50000 on every device (the
+    # JAX `resolve_chunk_size`).
+    assert cli.default_M("pfsp", "cuda", "device", "offload") == 50000
+    assert cli.default_M("pfsp", "cuda", "seq") == 50000
     args = cli.build_parser().parse_args(["nqueens"])
     assert (args.N, args.g) == (14, 1)  # the JAX CLI's defaults
+
+
+def test_cli_sequential_tier(capsys):
+    assert cli.main(["nqueens", "--N", "8", "--tier", "seq", "--json"]) == 0
+    out = capsys.readouterr().out
+    assert "Sequential tree search (host CPU)" in out
+    assert "Search on device" not in out and "Exploration terminated." in out
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"]) == (2056, 92)
+    assert rec["tier"] == "seq" and rec["native"] is True
+    assert len(rec["phases"]) == 1 and "device" not in rec
+    assert cli.main(["pfsp", "--inst", "14", "--lb", "lb2", "--tier", "seq",
+                     "--json"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"], rec["optimum"]) == (
+        144639, 0, 1377)
+
+
+def test_cli_offload_engine(capsys, monkeypatch):
+    assert cli.main(["nqueens", "--N", "10", "--engine", "offload", "--device",
+                     "cpu", "--M", "1024", "--json"]) == 0
+    out = capsys.readouterr().out
+    assert "Offload: M=1024, chunks=" in out and "double_buffered=" in out
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"]) == (35538, 724)
+    assert rec["engine"] == "offload" and rec["M"] == 1024
+    assert rec["chunks"] == rec["host_to_device"] == rec["device_to_host"] > 1
+    assert 0 < rec["double_buffered"] < rec["chunks"]
+    assert sum(p[0] for p in rec["phases"]) == 35538
+    # The Python host path gives the same search.
+    monkeypatch.setenv("TTS_NATIVE", "0")
+    assert cli.main(["nqueens", "--N", "8", "--engine", "offload", "--device",
+                     "cpu", "--M", "64", "--json"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"]) == (2056, 92)
+    assert rec["native"] is False
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -53,8 +53,15 @@ behind a CUDA event. It is exact, because a dispatch on a terminated or
 stalled pool runs zero cycles. ``K="auto"`` (or ``TTS_K=auto``) moves K
 along the geometric ladder of ``AdaptiveK``, one graph a rung.
 
-Not ported yet (ROADMAP): checkpoints, the steady-state guard and the
-telemetry blocks.
+Checkpoints (`engine/checkpoint.py`, absent from the reference): with
+``checkpoint_path`` the live frontier and counters are saved every
+``checkpoint_interval_s`` and at a ``max_steps`` (or ``yield_fn``) cut,
+which drains the in-flight dispatches, saves and returns ``complete=False``
+without phase 3; ``resume_from`` replaces phase 1 by the saved frontier and
+keeps counting. The file format is the JAX package's, so a cut taken by
+either package resumes in the other.
+
+Not ported yet (ROADMAP): the steady-state guard and the telemetry blocks.
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ from ..ops.cycle import (
     cycle_scratch,
     new_state,
 )
-from ..ops.cycle_nqueens import cycle_nqueens, depth_dtype, nqueens_scratch
+from ..ops.cycle_nqueens import cycle_nqueens, nqueens_scratch
 from ..ops.pfsp_device import lb1_bounds, lb2_bounds_staged
 from ..ops.tiled import (
     check_tile,
@@ -95,7 +102,8 @@ from ..problems.base import INF_BOUND, Problem, index_batch
 from ..problems.nqueens import NQueensProblem
 from ..problems.pfsp.problem import PFSPProblem
 from ..ops.dispatch import DispatchGraph
-from .device import DeviceOffloader, drain, warmup
+from . import checkpoint as ckpt
+from .device import DeviceOffloader, drain, pool_dtype, pool_dtypes, warmup
 from .pipeline import (
     RESIDENT_TARGET,
     AdaptiveK,
@@ -105,12 +113,6 @@ from .pipeline import (
     resolve_target_band,
 )
 from .results import Diagnostics, PhaseStats, SearchResult
-
-
-def pool_dtype(n: int) -> torch.dtype:
-    """PFSP device pool storage type: int8 rows (and limit1) through 127
-    jobs, int32 beyond (the kernels take those two types)."""
-    return torch.int8 if n <= 127 else torch.int32
 
 
 @dataclass
@@ -324,7 +326,11 @@ class _ResidentProgram:
         self._graphs.clear()
 
     def residual(self, state: ResidentState) -> tuple[dict, int, int]:
-        """Downloads the live pool -> (host NodeBatch, size, best)."""
+        """Downloads the live pool -> (host NodeBatch, size, best). The
+        reads are ordered on the current stream after every dispatch
+        enqueued there, graph launches included, so they see the state
+        those dispatches leave (the checkpoint snapshot and the stall
+        fallback read it after draining the queue)."""
         size = int(state.st[ST_SIZE])
         best = int(state.st[ST_BEST])
         p = self.problem
@@ -458,7 +464,7 @@ class PFSPResident(_ResidentProgram):
     def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
                  staged: bool = True, mt: int | None = None):
-        self.vals_dtype = self.aux_dtype = pool_dtype(problem.jobs)
+        self.vals_dtype, self.aux_dtype = pool_dtypes(problem)
         # lb1_d has no fused cycle (the JAX megakernel refuses it,
         # `megakernel.py:351-354`): it runs the unfused cycle with its kernel.
         super().__init__(problem, m, M, K, capacity, device,
@@ -527,8 +533,7 @@ class NQueensResident(_ResidentProgram):
     def __init__(self, problem: NQueensProblem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
                  mt: int | None = None):
-        self.vals_dtype = torch.uint8
-        self.aux_dtype = depth_dtype(problem.N)
+        self.vals_dtype, self.aux_dtype = pool_dtypes(problem)
         super().__init__(problem, m, M, K, capacity, device, fused=fused,
                          mt=mt)
 
@@ -616,6 +621,11 @@ def resident_search(
     fused: bool = True,
     staged: bool = True,
     mt: int | None = None,
+    max_steps: int | None = None,
+    checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 60.0,
+    resume_from: str | None = None,
+    yield_fn=None,
 ) -> SearchResult:
     """3-phase search with a device-resident hot loop: host warm-up to
     ``warmup_target`` (default m) nodes, then dispatches of up to K device
@@ -634,7 +644,19 @@ def resident_search(
     scalars of the oldest; exact, because a dispatch on a terminated or
     stalled pool runs zero cycles. ``K="auto"`` (or ``TTS_K=auto``)
     enables the adaptive geometric-ladder K controller; an integer pins K
-    (clamped to the int32 counters' headroom)."""
+    (clamped to the int32 counters' headroom).
+
+    Checkpoints (`engine/checkpoint.py`, the JAX engine's semantics): with
+    ``checkpoint_path`` the frontier and counters are saved every
+    ``checkpoint_interval_s`` seconds and at a cut; ``max_steps`` cuts
+    after that many consumed dispatches, and ``yield_fn`` (checked at every
+    dispatch boundary) cuts when it returns True. A cut drains the
+    in-flight dispatches (their counts join the totals and the saved
+    counters), saves, and returns ``complete=False`` with the counts so far
+    and no phase 3. ``resume_from`` loads a saved file in place of phase 1:
+    its counters are phase 1's, the incumbent is the lower of ``best`` and
+    the saved one, and the pool grows to hold the frontier and one
+    fan-out."""
     dev = resolve_device(device)
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
@@ -647,13 +669,22 @@ def resident_search(
     ctl = AdaptiveK(k_value, target=band) if k_auto else None
     pool = SoAPool(problem.node_fields())
     diagnostics = Diagnostics()
+    problem._native()  # a first call builds it: outside the timed phases
     phases: list[PhaseStats] = []
     t0 = time.perf_counter()
 
-    # -- phase 1: host warm-up ------------------------------------------------
-    pool.push_back(index_batch(problem.root(), 0))
-    target = m if warmup_target is None else warmup_target
-    tree1, sol1, best = warmup(problem, pool, best, target)
+    # -- phase 1: host warm-up (or checkpoint restore) -------------------------
+    if resume_from is not None:
+        saved = ckpt.load(resume_from, problem)
+        pool.push_back_bulk(saved.batch)
+        tree1, sol1 = saved.tree, saved.sol
+        # Keep the tighter incumbent (a ub=1 run may resume a ub=0 cut).
+        best = min(best, saved.best)
+        capacity = max(capacity, pool.size + 2 * M * n)
+    else:
+        pool.push_back(index_batch(problem.root(), 0))
+        target = m if warmup_target is None else warmup_target
+        tree1, sol1, best = warmup(problem, pool, best, target)
     t1 = time.perf_counter()
     phases.append(PhaseStats(t1 - t0, tree1, sol1))
 
@@ -685,12 +716,25 @@ def resident_search(
         diagnostics.kernel_launches += cycles
         return cycles
 
-    def drain_queue() -> None:
+    def drain_queue() -> tuple[int, int]:
         # Read every in-flight dispatch before any action that needs
-        # coherent totals or the final state (termination, K resizes, the
-        # capacity-stall fallback): zeros for speculative no-ops.
+        # coherent totals or the final state (termination, checkpoint cuts,
+        # K resizes, the capacity-stall fallback): zeros for speculative
+        # no-ops. Returns the (tree, sol) the drained dispatches added.
+        tree0, sol0 = tree2, sol2
         for read, _ in queue.drain():
             consume(read)
+        return tree2 - tree0, sol2 - sol0
+
+    def snapshot_fn():
+        batch, _, bst = program.residual(state)
+        diagnostics.device_to_host += 1
+        return batch, bst
+
+    controller = ckpt.RunController(
+        problem, checkpoint_path, checkpoint_interval_s, max_steps,
+        snapshot_fn, drain_fn=drain_queue, yield_fn=yield_fn)
+    complete = True
 
     try:
         last_ready = time.monotonic()
@@ -703,6 +747,10 @@ def resident_search(
             period, last_ready = now - last_ready, now
             if size < m:
                 drain_queue()  # speculative no-ops: zero counts, state intact
+                break
+            if controller.after_step(tree1 + tree2, sol1 + sol2):
+                drain_queue()  # a no-op when the cut's save drained it
+                complete = False
                 break
             if ctl is not None and cycles > 0 and ctl.observe(period, cycles):
                 # Geometric-ladder K resize: drain, then switch to the
@@ -724,16 +772,13 @@ def resident_search(
                 diagnostics.device_to_host += 1
                 pool.reset_from(batch)
                 if offloader is None:
-                    offloader = DeviceOffloader(problem, dev,
-                                                program.vals_dtype,
-                                                program.aux_dtype)
+                    offloader = DeviceOffloader(problem, dev)
                 chunk_buf = problem.empty_batch(M)
                 while pool.size >= m and pool.size + M * n > capacity:
                     count = pool.pop_back_bulk(m, M, chunk_buf)
-                    snapshot = {k: v[:count].copy()
-                                for k, v in chunk_buf.items()}
-                    bounds = offloader.evaluate(snapshot, count)
-                    res = problem.generate_children(snapshot, count, bounds,
+                    parents, bounds = offloader.evaluate(chunk_buf, count,
+                                                         best)
+                    res = problem.generate_children(parents, count, bounds,
                                                     best)
                     tree2 += res.tree_inc
                     sol2 += res.sol_inc
@@ -743,13 +788,13 @@ def resident_search(
                 pool.clear()
                 diagnostics.host_to_device += 1
                 last_ready = time.monotonic()
-        batch, size, best = program.residual(state)
+        if complete:
+            batch, size, best = program.residual(state)
+            diagnostics.device_to_host += 1
     finally:
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         program.close()
-    diagnostics.device_to_host += 1
-    pool.reset_from(batch)
     if offloader is not None:
         diagnostics.kernel_launches += offloader.diagnostics.kernel_launches
         diagnostics.host_to_device += offloader.diagnostics.host_to_device
@@ -757,18 +802,23 @@ def resident_search(
     t2 = time.perf_counter()
     phases.append(PhaseStats(t2 - t1, tree2, sol2))
 
-    # -- phase 3: host drain ----------------------------------------------------
-    tree3, sol3, best = drain(problem, pool, best)
-    t3 = time.perf_counter()
-    phases.append(PhaseStats(t3 - t2, tree3, sol3))
+    # -- phase 3: host drain (none after a cut) --------------------------------
+    tree3 = sol3 = 0
+    if complete:
+        pool.reset_from(batch)
+        tree3, sol3, best = drain(problem, pool, best)
+        phases.append(PhaseStats(time.perf_counter() - t2, tree3, sol3))
 
     return SearchResult(
         explored_tree=tree1 + tree2 + tree3,
         explored_sol=sol1 + sol2 + sol3,
         best=best,
-        elapsed=t3 - t0,
+        elapsed=time.perf_counter() - t0,
         phases=phases,
         diagnostics=diagnostics,
+        complete=complete,
+        steps=controller.steps,
+        engine="resident",
         compact=program.compact,
         fused=program.fused,
         staged=program.staged,

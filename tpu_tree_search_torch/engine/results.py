@@ -30,6 +30,10 @@ class Diagnostics:
     kernel_launches: int = 0
     host_to_device: int = 0
     device_to_host: int = 0
+    # Offload: dispatches made while another was still in flight (their
+    # H2D and evaluation overlapped the host's branching of the previous
+    # chunk; `tpu_tree_search/engine/results.py:35`).
+    double_buffered: int = 0
 
 
 @dataclass
@@ -40,6 +44,15 @@ class SearchResult:
     elapsed: float = 0.0
     phases: list[PhaseStats] = field(default_factory=list)
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
+    # False when a max_steps cutoff or a yield_fn ended the run early
+    # (engine/checkpoint.py); the counts are then those up to the cut.
+    complete: bool = True
+    # Resident tier: dispatches the run controller counted (the unit of
+    # max_steps).
+    steps: int = 0
+    # The device tier's engine: "resident" or "offload" (device_search);
+    # None on the sequential tier.
+    engine: str | None = None
     # Resident tier: the survivor-path compaction mode of the unfused
     # cycle ("dense"/"scatter"); None on the fused cycle, which compacts
     # inside its kernel.

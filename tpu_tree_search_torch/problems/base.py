@@ -13,8 +13,9 @@ A problem supplies:
 Node batches are plain dicts ``{field: np.ndarray[batch, ...]}`` (SoA). A
 single node is the same dict with unbatched arrays.
 
-Unlike the JAX package there are no ``native_*`` hooks: the C++ host runtime
-is not ported yet, so the host phases always take the Python path.
+The ``native_*`` hooks serve the host phases from the C++ runtime
+(`native/`); each returns None under ``TTS_NATIVE=0``, and the caller then
+takes the Python path, which stays the semantic oracle.
 """
 
 from __future__ import annotations
@@ -106,6 +107,34 @@ class Problem:
     ) -> DecomposeResult:
         """Vectorized host-side prune/branch from device results."""
         raise NotImplementedError
+
+    # -- native host runtime (csrc/tts_native.cpp) -------------------------
+
+    def _make_native(self, lib):
+        """This problem's native runtime over the loaded library."""
+        return None
+
+    def _native(self):
+        """The native runtime, or None under ``TTS_NATIVE=0``. Built at the
+        first call; a failed build raises (`native.build`)."""
+        if not hasattr(self, "_native_rt"):
+            from .. import native
+
+            lib = native.load()
+            self._native_rt = self._make_native(lib) if lib is not None else None
+        return self._native_rt
+
+    def native_sequential(self, best: int):
+        """Full sequential search -> (tree, sol, best) or None."""
+        return None
+
+    def native_warmup(self, batch: NodeBatch, best: int, target: int):
+        """BFS warm-up -> (frontier_batch, tree, sol, best) or None."""
+        return None
+
+    def native_drain(self, batch: NodeBatch, best: int):
+        """DFS a frontier to completion -> (tree, sol, best) or None."""
+        return None
 
     def empty_batch(self, capacity: int) -> NodeBatch:
         return {

@@ -92,6 +92,34 @@ class NQueensProblem(Problem):
         }
         return DecomposeResult(children, len(kept), 0, best)
 
+    # -- native host runtime -----------------------------------------------
+
+    def _make_native(self, lib):
+        from ..native import NativeNQueens
+
+        return NativeNQueens(lib, self.N, self.g)
+
+    def native_sequential(self, best: int):
+        nat = self._native()
+        if nat is None:
+            return None
+        tree, sol = nat.sequential()
+        return tree, sol, best
+
+    def native_warmup(self, batch: NodeBatch, best: int, target: int):
+        nat = self._native()
+        if nat is None:
+            return None
+        frontier, tree, sol = nat.warmup(batch, target)
+        return frontier, tree, sol, best
+
+    def native_drain(self, batch: NodeBatch, best: int):
+        nat = self._native()
+        if nat is None:
+            return None
+        tree, sol = nat.drain(batch)
+        return tree, sol, best
+
     # -- device path -------------------------------------------------------
 
     def device_bounds(self, board, depth):
@@ -105,6 +133,11 @@ class NQueensProblem(Problem):
         self, parents: NodeBatch, count: int, results: np.ndarray, best: int
     ) -> DecomposeResult:
         """Vectorized equivalent of `nqueens_gpu_chpl.chpl:126-149`."""
+        nat = self._native()
+        if nat is not None:
+            children, tree_inc, sol_inc = nat.generate_children(
+                parents, count, np.asarray(results))
+            return DecomposeResult(children, tree_inc, sol_inc, best)
         N = self.N
         depth = parents["depth"][:count].astype(np.int64)
         board = parents["board"][:count]

@@ -168,6 +168,25 @@ class PFSPProblem(Problem):
             ),
         }
 
+    # -- native host runtime -----------------------------------------------
+
+    def _make_native(self, lib):
+        from ...native import NativePFSP
+
+        return NativePFSP(lib, self.lb1_data, self.lb2_data, self.lb)
+
+    def native_sequential(self, best: int):
+        nat = self._native()
+        return None if nat is None else nat.sequential(best)
+
+    def native_warmup(self, batch: NodeBatch, best: int, target: int):
+        nat = self._native()
+        return None if nat is None else nat.warmup(batch, best, target)
+
+    def native_drain(self, batch: NodeBatch, best: int):
+        nat = self._native()
+        return None if nat is None else nat.drain(batch, best)
+
     # -- device path -------------------------------------------------------
 
     def device_tables(self, device):
@@ -205,6 +224,11 @@ class PFSPProblem(Problem):
         chunk's leaf makespans — identical to the reference's sequential
         in-chunk updates whenever ub=1 (the incumbent never improves).
         """
+        nat = self._native()
+        if nat is not None:
+            children, tree_inc, sol_inc, best = nat.generate_children(
+                parents, count, np.asarray(results), best)
+            return DecomposeResult(children, tree_inc, sol_inc, best)
         jobs = self.jobs
         depth = parents["depth"][:count].astype(np.int64)
         limit1 = parents["limit1"][:count].astype(np.int64)
