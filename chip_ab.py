@@ -2,7 +2,8 @@
 """Compare two checkouts of the PyTorch/CUDA port on one card.
 
     python3 chip_ab.py OTHER_ROOT [--out DIR]
-    python3 chip_ab.py OTHER_ROOT --rows   # the kernel rows only
+    python3 chip_ab.py OTHER_ROOT --rows       # the kernel rows only
+    python3 chip_ab.py OTHER_ROOT --searches   # the fused searches' phase 2 only
 
 Runs each checkout's own ``chip_smoke.py`` from its root, one process a
 run, in turns A, B, B, A: A is OTHER_ROOT (for example a parent commit
@@ -26,6 +27,14 @@ that imports that checkout's own ``chip_smoke.py`` and calls its phases
 (``--rows-of ROOT``, one JSON line ``{row: ms}``), then one line that sets
 the four runs side by side, with ``outside``: the rows whose two B times
 both fall outside the two A times, and B's mean over A's less one.
+
+``--searches`` runs, in the same turns, the fused ta014 lb1, N-Queens N=15
+and ta014 lb2 searches through each checkout's own ``resident_search`` at
+the CLI's defaults, one process a run, each search once to build its
+kernels and graphs and then ``SEARCH_REPS`` times (``--searches-of ROOT``,
+one JSON line: per search the phase 2 seconds and the dispatches' device
+ms by CUDA events of each timed run), then the medians side by side with
+``outside`` as above. Telemetry off in both (the knobs unset).
 """
 
 from __future__ import annotations
@@ -126,6 +135,48 @@ def rows_of(root: Path) -> dict:
             for ph, rows in got.items() for key, row in rows.items()}
 
 
+# The --searches runs: (name, CLI argv), and the timed runs of each.
+SEARCHES = (("ta014_lb1", ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1"]),
+            ("nqueens_N15", ["nqueens", "--N", "15"]),
+            ("ta014_lb2", ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1"]))
+SEARCH_REPS = 5
+
+
+def searches_of(root: Path) -> dict:
+    """The fused searches of ``SEARCHES`` through the checkout at ``root``
+    (the current directory): ``{name: [[phase2_s, device_ms], ...]}``."""
+    import contextlib
+    import io
+    import os
+
+    for k in ("TTS_OBS", "TTS_PHASEPROF", "TTS_PIPELINE", "TTS_K"):
+        os.environ.pop(k, None)
+    sys.path.insert(0, str(root))
+    import torch
+    from tpu_tree_search_torch import cli, native
+    from tpu_tree_search_torch.engine.resident import resident_search
+    from tpu_tree_search_torch.ops import _build
+
+    native.build()
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, argv in SEARCHES:
+        args = cli.build_parser().parse_args(argv)
+        prob = cli.make_problem(args)
+        runs = []
+        for rep in range(SEARCH_REPS + 1):
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = resident_search(prob, m=args.m,
+                                      M=cli.default_M(args.problem, "cuda"),
+                                      K=4096, device=dev)
+            if rep:
+                runs.append([res.phases[1].seconds, res.dispatch_device_s * 1e3,
+                             res.explored_tree])
+        out[name] = runs
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=Path, nargs="?")
@@ -133,9 +184,16 @@ def main() -> int:
     ap.add_argument("--rows", action="store_true",
                     help="kernels 6, 4 and 9a only, through each checkout's phases")
     ap.add_argument("--rows-of", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--searches", action="store_true",
+                    help="the fused searches' phase 2 only")
+    ap.add_argument("--searches-of", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rows_of is not None:
         print(json.dumps({"root": str(args.rows_of), "rows": rows_of(args.rows_of)}))
+        return 0
+    if args.searches_of is not None:
+        print(json.dumps({"root": str(args.searches_of),
+                          "searches": searches_of(args.searches_of)}))
         return 0
     if args.other is None:
         ap.error("OTHER_ROOT is required")
@@ -143,6 +201,8 @@ def main() -> int:
     roots = {"A": args.other.resolve(), "B": HERE}
     if args.rows:
         return main_rows(roots, args.out)
+    if args.searches:
+        return main_searches(roots, args.out)
     runs, failed = [], False
     for i, tag in enumerate("ABBA"):
         t0 = time.perf_counter()
@@ -184,6 +244,31 @@ def main_rows(roots: dict, out: Path) -> int:
     keys = sorted({k for r in runs for k in r})
     rows = {k: [r.get(k) for r in runs] for k in keys}
     print(json.dumps({"order": "ABBA", "rows": rows, "outside": outside(rows)}), flush=True)
+    return 0
+
+
+def main_searches(roots: dict, out: Path) -> int:
+    """``--searches``: A B B A of the fused searches, one process a run."""
+    import statistics
+
+    runs = []
+    for i, tag in enumerate("ABBA"):
+        p = subprocess.run([sys.executable, str(HERE / "chip_ab.py"), "--searches-of",
+                            str(roots[tag])], cwd=roots[tag], capture_output=True,
+                           text=True, timeout=900)
+        (out / f"searches_{i}_{tag}.log").write_text(p.stdout + "\n--- stderr\n" + p.stderr)
+        if p.returncode != 0:
+            print(json.dumps({"run": i, "tree": tag, "rc": p.returncode}), flush=True)
+            return 1
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1])["searches"])
+        print(json.dumps({"run": i, "tree": tag, "rc": 0, "searches": runs[-1]}), flush=True)
+    rows = {}
+    for name, _ in SEARCHES:
+        for j, field in enumerate(("phase2_s", "device_ms")):
+            rows[f"{name}/{field}"] = [statistics.median(r[j] for r in run[name])
+                                       for run in runs]
+    print(json.dumps({"order": "ABBA", "median": rows, "outside": outside(rows)}),
+          flush=True)
     return 0
 
 

@@ -88,6 +88,13 @@ ends the script with a non-zero exit before the final line:
      CUDA graph, csrc/dispatch_graph.cu) against 4 plain cycles on a ta014
      lb1 frontier at M = 49152 and an N-Queens N = 15 one at M = 50000:
      equal counts, state and live rows, with the graph's build seconds;
+     then the same dispatch with telemetry off, with the counter block
+     (``TTS_OBS=1``) and with the phase clock (``TTS_PHASEPROF=1``):
+     the body's kernels (off: the cycle's launches and ``dispatch_cond``;
+     armed: ``dispatch_cond_obs`` in its place; the clock: a
+     ``phase_mark`` before and after each launch), and the counter block
+     against ``dispatch_cond_obs_plain`` after the same plain cycles,
+     slot for slot (``graph_variants``);
  17. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
      the fused path at M = 49152 and M = 1024 (counting kernel 8), with
      ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
@@ -103,6 +110,21 @@ ends the script with a non-zero exit before the final line:
      (``dispatch_device_ms``, and over phase 2 the busy share), then under
      the profiler (its device time, a lower bound, and the trace check of
      phase 20);
+ 18d. ``obs`` (telemetry, obs/): the ``%globaltimer`` step; ``phase_mark``
+     against its plain arithmetic replayed on the card's own readings;
+     ``graph_variants`` of the fused ta014 lb2 and the streamed N = 15
+     (``--mt 80``) graphs; then ta014 lb1, N = 15, ta014 lb2 (fused),
+     N = 15 ``--mt 80``, N = 14 ``--unfused`` and staged lb2 ``--unfused``
+     through the CLI in the turns off, ``TTS_OBS=1``, ``TTS_PHASEPROF=1``,
+     off, each to its goldens, with phase 2's wall and event ms; armed,
+     the counters equal phase 2's tree and sol, every slot >= 0, on the
+     fused cycles ``overflow`` 0, ``push_rows`` = cycles*M*n and one
+     ``dispatch_cond_obs`` a cycle; with the clock, the telescoped total
+     exact, the decomposition and the roofline table printed and no
+     roofline row above 100%; the two kernels' device time under the
+     profiler (N = 15 phase-profiled); and a ``--trace`` run of ta014 lb1
+     whose ``report`` exits 0 and whose ``explored`` samples sum to its
+     counts;
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -153,7 +175,9 @@ ends the script with a non-zero exit before the final line:
      (phase 16b), and ``dispatch_graph`` (the graph dispatch, the host
      loop's counterpart of the JAX ``lax.while_loop``) its phase 16c time,
      its condition kernel's time a cycle and the pipeline runs; rows 1, 3,
-     5, 6 and 7 carry the offload runs' launches (``offload_launches``).
+     5, 6 and 7 carry the offload runs' launches (``offload_launches``);
+     ``dispatch_cond_obs`` (the counter node) and ``phase_mark`` (the
+     clock) carry the launches of the armed ta014 lb1 runs of phase 18d.
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -1071,7 +1095,10 @@ def phase_graph_dispatch(dev) -> dict:
     at M = 50000: one dispatch of K = 4 cycles through the program's graph,
     the same K cycles through the plain versions; equal counts, state and
     live rows. The graph's build seconds and its dispatch's CUDA-event
-    time beside the K plain cycles' time."""
+    time beside the K plain cycles' time. Then the same dispatch in each
+    telemetry variant (``graph_variants``): the body's kernels, and armed,
+    the counter block against the plain update over the same K plain
+    cycles, slot for slot."""
     from tpu_tree_search_torch.engine.device import warmup
     from tpu_tree_search_torch.engine.resident import make_program
     from tpu_tree_search_torch.ops import cycle as C
@@ -1131,11 +1158,16 @@ def phase_graph_dispatch(dev) -> dict:
         # survivor row written once (rows and their scalar), the state.
         isz = state.pool_vals.element_size()
         bms, by = bound_ms((popped + tree) * (n + 1) * isz + 64, 0.0)
+        variants = graph_variants(dev, name, prob, M, None,
+                                  "cycle_nqueens" if name.startswith("nq") else "cycle_lb1", K)
         rows[name] = dict(search=name, M=M, K=K, cycles=cycles, popped=popped,
                           tree_inc=tree, max_abs_err=err,
                           graph_build_s=prog.graph_build_s,
                           dispatch_ms=float(np.median(times)), plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by)
+                          bound_ms=bms, bound_by=by,
+                          counters_max_abs_err=max(v.get("counters_max_abs_err", 0)
+                                                   for v in variants.values()),
+                          variants=variants)
         emit("graph_dispatch", **rows[name])
     return rows
 
@@ -1682,6 +1714,299 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     return out
 
 
+# -- telemetry: the counter block and the phase clock (obs/) -------------------
+
+# The telemetry variants, by the knobs each sets.
+OBS_VARIANTS = {"off": {}, "obs": {"TTS_OBS": "1"}, "phaseprof": {"TTS_PHASEPROF": "1"}}
+# The body's launches a cycle, by graph (the off body ends with
+# dispatch_cond, the armed ones with dispatch_cond_obs; with the clock a
+# phase_mark opens the cycle and follows each launch).
+GRAPH_BODY = {"cycle_lb1": CYCLE_KERNELS, "cycle_lb2": LB2_CYCLE_KERNELS,
+              "cycle_nqueens": NQ_CYCLE_KERNELS,
+              "tiled_nqueens": TILED_KERNELS["nqueens"]}
+
+
+@contextlib.contextmanager
+def telemetry(variant: str):
+    """The knobs of one telemetry variant, restored after the block."""
+    import os
+
+    keys = ("TTS_OBS", "TTS_PHASEPROF")
+    prev = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(OBS_VARIANTS[variant])
+    try:
+        yield
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+            if prev[k] is not None:
+                os.environ[k] = prev[k]
+
+
+def body_names(graph) -> list[str]:
+    """The graph body's kernels by short name, in graph order."""
+    shorts = {k for v in GRAPH_BODY.values() for k in v} | {
+        "dispatch_cond_obs", "dispatch_cond", "phase_mark"}
+    out = []
+    for mangled in graph.kernels():
+        hits = [k for k in shorts if k in mangled]
+        out.append(max(hits, key=len) if hits else mangled)
+    return out
+
+
+def want_body(source: str, variant: str) -> list[str]:
+    cycle = list(GRAPH_BODY[source])
+    if variant == "off":
+        return cycle + ["dispatch_cond"]
+    if variant == "obs":
+        return cycle + ["dispatch_cond_obs"]
+    body = ["phase_mark"]
+    for launch in cycle:
+        body += [launch, "phase_mark"]
+    return body + ["dispatch_cond_obs"]
+
+
+def graph_variants(dev, name: str, prob, M: int, mt, source: str, K: int = 4,
+                   target: int | None = None) -> dict:
+    """One K-cycle graph dispatch of each telemetry variant on one warm
+    frontier (``target`` nodes, default M + 517): the body's kernels
+    against ``want_body`` (off: the untelemetered body, node for node),
+    and, armed, the counter block against ``dispatch_cond_obs_plain`` after
+    the same plain cycles, slot for slot, and the phase block
+    telescoped."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.obs import phases as OP
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import dispatch as D
+    from tpu_tree_search_torch.ops import tiled as T
+    from tpu_tree_search_torch.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    best = getattr(prob, "initial_ub", INF)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, best, M + 517 if target is None else target)
+    fr = pool.as_batch()
+    n = prob.child_slots
+    out = {}
+    for variant in OBS_VARIANTS:
+        with telemetry(variant):
+            prog = make_program(prob, 25, M, K, 2 * fr[prob.vals_field].shape[0] + 2 * M * n,
+                                dev, mt=mt)
+        prog.host_slots(1)
+        state = prog.init_state(fr, best)
+        ref = prog.init_state(fr, best)
+        got = prog.enqueue(state)(full=True)
+        g = next(iter(prog._graphs.values()))
+        names = body_names(g)
+        outer = g.kernels(body=False)
+        check(names == want_body(source, variant),
+              f"{name} {variant}: body {names} != {want_body(source, variant)}")
+        check(len(outer) == (3 if variant == "phaseprof" else 2),
+              f"{name} {variant}: graph nodes {outer}")
+        row = dict(body_nodes=len(names), graph_nodes=len(outer), cycles=got.cycles,
+                   event_ms=got.device_ms)
+        if variant != "off":
+            ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+            for _ in range(K):
+                if source == "cycle_nqueens":
+                    CN.cycle_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, prob.N,
+                                           prob.g, M, 25, K)
+                elif source == "tiled_nqueens":
+                    T.tiled_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, prob, M, mt,
+                                          25, K)
+                else:
+                    (C.cycle_lb1_plain if source == "cycle_lb1" else C.cycle_lb2_plain)(
+                        ref.pool_vals, ref.pool_aux, ref.st, prog.tables, M, 25, K)
+                if not int(ref.st[C.ST_ACTIVE]):
+                    break
+                D.dispatch_cond_obs_plain(ref.st, n, 25, M * n, prog.capacity, K)
+            want = ref.st[C.ST_CTR:C.ST_CTR + 8].tolist()
+            err = max(abs(a - b) for a, b in zip(got.ctr, want))
+            check(err == 0 and got.cycles == int(ref.st[C.ST_CYCLES]) > 0,
+                  f"{name} {variant}: counter block {got.ctr} != plain {want}")
+            row.update(counters=got.ctr, counters_max_abs_err=err)
+        if variant == "phaseprof":
+            ph = got.ph
+            tele = sum(ph[OP.IDX[s]] for s in OP.CYCLE_SLOTS) - ph[OP.IDX["total"]]
+            check(tele == 0 and min(ph[:OP.NSLOTS]) >= 0,
+                  f"{name}: phase block {ph} does not telescope")
+            row.update(phases=OP.as_args(ph))
+        prog.close()
+        out[variant] = row
+    emit("graph_variants", search=name, M=M, mt=mt, K=K, **out)
+    return out
+
+
+def phase_mark_replay(dev, marks: int = 64) -> dict:
+    """``phase_mark`` against its plain arithmetic (``phase_mark_at``) on the
+    same readings: a sequence of marks on the card (a seed, then cycles of
+    loop, eval, compact, push), each reading copied out after its mark;
+    the plain arithmetic replayed on those readings must give the card's
+    block exactly."""
+    from tpu_tree_search_torch.obs import phases as OP
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    clk = D.new_clock(dev)
+    log = torch.zeros(marks + 1, dtype=torch.int64, device=dev)
+    seq = [(0, OP.SEED)]
+    cycle = [(OP.IDX["loop"], OP.OPEN), (OP.IDX["eval"], 0), (OP.IDX["compact"], 0),
+             (OP.IDX["push"], OP.CLOSE)]
+    while len(seq) < marks + 1:
+        seq += cycle
+    seq = seq[:1 + (marks // 4) * 4]
+    for i, (slot, flags) in enumerate(seq):
+        D.phase_mark_cuda(clk, slot, flags)
+        log[i].copy_(clk[OP.TPREV])
+    torch.cuda.synchronize()
+    reads = log.tolist()
+    v = [0] * OP.BLOCK_LEN
+    for (slot, flags), now in zip(seq, reads):
+        v = D.phase_mark_at(v, slot, flags, now)
+    err = max(abs(a - b) for a, b in zip(clk.tolist(), v))
+    check(err == 0, f"phase_mark differs from its plain arithmetic by {err}")
+    return dict(marks=len(seq), max_abs_err=err)
+
+
+def phase_obs(dev, counters: dict) -> dict:
+    """The telemetry phase (obs/): every search of ``OBS_RUNS`` at full
+    width in the turns off, obs, phaseprof, off, to its golden, with the
+    launches of the counter kernel and the marks counted from 0; the
+    counter invariants (pushed and leaves = phase 2's tree and sol; on the
+    fused cycles overflow 0 and push_rows = cycles*M*n), the telescoped
+    phase total, no roofline row above 100%; the body graphs of the fused
+    ta014 lb2 and the streamed N-Queens; ``phase_mark`` against its plain
+    arithmetic; the %globaltimer step; the two kernels' device time under
+    the profiler; and a CLI ``--trace`` run whose ``report`` exits 0 and
+    whose ``explored`` samples sum to its counts."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tree_search_torch import cli
+    from tpu_tree_search_torch.obs import export as OE
+    from tpu_tree_search_torch.obs import phases as OP
+    from tpu_tree_search_torch.obs import report as OR
+    from tpu_tree_search_torch.obs import roofline as ORL
+    from tpu_tree_search_torch.ops import dispatch as D
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+
+    timer = D.globaltimer_step_ns(dev)
+    emit("globaltimer", **timer)
+    replay = phase_mark_replay(dev)
+    # (ta014 lb2's warm-up frontier never reaches M nodes.)
+    graphs = {"ta014_lb2": graph_variants(dev, "ta014_lb2", PFSPProblem(inst=14, lb="lb2", ub=1),
+                                          49152, None, "cycle_lb2", target=2000),
+              "nqueens_N15_mt80": graph_variants(dev, "nqueens_N15_mt80", NQueensProblem(15),
+                                                 50000, 80, "tiled_nqueens")}
+    runs, launches = {}, {}
+    for name, argv, golden, fused in OBS_RUNS:
+        for turn, variant in enumerate(("off", "obs", "phaseprof", "off")):
+            zero_counts(counters)
+            with telemetry(variant):
+                rec = run_search(argv, golden)
+            launches[(name, variant, turn)] = {
+                "dispatch_cond_obs": counters["dispatch_cond_obs"].launches,
+                "phase_mark": counters["phase_mark"].launches}
+            p2_tree, p2_sol, p2_s = rec["phases"][1]
+            row = dict(search=name, variant=variant, turn=turn, phase2_s=p2_s,
+                       event_ms=(rec["dispatch_device_s"] * 1e3
+                                 if rec.get("dispatch_device_s") is not None else None),
+                       dispatches=rec["dispatches"], device_cycles=rec["device_cycles"],
+                       launches=launches[(name, variant, turn)])
+            check(("obs" in rec) is (variant != "off"), f"{name} {variant}: obs record")
+            if variant != "off":
+                c = rec["obs"]["device_counters"]
+                if rec["stall_fallbacks"] == 0:
+                    check(c["pushed"] == p2_tree and c["leaves"] == p2_sol,
+                          f"{name} {variant}: counters {c} != phase 2 ({p2_tree}, {p2_sol})")
+                check(min(c.values()) >= 0, f"{name} {variant}: a negative slot")
+                if fused:
+                    n = 20 if name.startswith("ta") else 15
+                    Mn = rec["M"] * n
+                    check(c["overflow"] == 0 and c["push_rows"] == rec["device_cycles"] * Mn,
+                          f"{name} {variant}: fused overflow/push_rows {c}")
+                    check(launches[(name, variant, turn)]["dispatch_cond_obs"]
+                          == rec["device_cycles"],
+                          f"{name} {variant}: dispatch_cond_obs launches")
+                row["counters"] = c
+            if variant == "phaseprof":
+                ph = rec["obs"]["device_phases"]
+                check(sum(ph[s] for s in OP.CYCLE_SLOTS) == ph["total"] > 0
+                      and min(ph.values()) >= 0, f"{name}: phases {ph} do not telescope")
+                roof = rec["roofline_mem"]
+                check(all(r.get("pct_of_peak", 0.0) <= 100.0 for r in roof["phases"]),
+                      f"{name}: a roofline row above 100%: {roof}")
+                check(launches[(name, variant, turn)]["phase_mark"] > 0,
+                      f"{name}: no phase_mark launched")
+                row.update(decomp=OP.decomp(ph), roofline=roof,
+                           roofline_table=ORL.table(roof))
+            runs[(name, variant, turn)] = row
+            emit("obs", **row)
+    # The two kernels' device time a launch: the phase-profiled N = 15
+    # search under the profiler.
+    with telemetry("phaseprof"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_search(["nqueens", "--N", "15", "--tier", "device"], NQ_GOLDEN[15])
+            torch.cuda.synchronize()
+    prof_ms = {}
+    for kname in ("dispatch_cond_obs", "phase_mark"):
+        us = cnt = 0
+        for ev in prof.key_averages():
+            if kname in ev.key:
+                t = getattr(ev, "device_time_total", None)
+                us += ev.cuda_time_total if t is None else t
+                cnt += ev.count
+        prof_ms[kname] = (us / cnt / 1e3 if cnt else None, cnt)
+    # The plain versions' time a call (the host-driven arithmetic).
+    from tpu_tree_search_torch.ops import cycle as C
+
+    st = torch.zeros(C.ST_LEN, dtype=torch.int32, device=dev)
+    st[C.ST_SIZE], st[C.ST_CNT] = 100000, 49152
+    plain_cond_ms = median_ms(lambda: D.dispatch_cond_obs_plain(st, 20, 25, 983040,
+                                                                1 << 24, 4096), 20)
+    clk_cpu = D.new_clock("cpu")
+    t0 = time.perf_counter()
+    for _ in range(200):
+        D.phase_mark_plain(clk_cpu, 1)
+    plain_mark_ms = (time.perf_counter() - t0) / 200 * 1e3
+    # A traced CLI run: its trace reads in `report`, and its explored
+    # samples sum to its counts.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "t.json")
+        rec = run_search(PFSP_LB1 + ["--trace", path], GOLDEN)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["report", path, "--json"])
+        evts, warn = OE.load_trace_lenient(path)
+        tree = sum(e["args"]["tree"] for e in evts if e["name"] == "explored")
+        sol = sum(e["args"]["sol"] for e in evts if e["name"] == "explored")
+        summary = OR.summarize(evts)
+    check(rc == 0 and warn is None, "report on the --trace file failed")
+    check((tree, sol) == (rec["explored_tree"], rec["explored_sol"]),
+          f"trace explored ({tree}, {sol}) != the run's counts")
+    emit("obs_trace", events=len(evts), explored=[tree, sol],
+         device_counters=summary["device_counters"],
+         dispatches=sum(1 for e in evts if e["name"] == "dispatch"))
+    return dict(runs=runs, launches=launches, graphs=graphs, replay=replay, timer=timer,
+                prof_ms=prof_ms, plain_cond_ms=plain_cond_ms, plain_mark_ms=plain_mark_ms)
+
+
+# The telemetry phase's searches: (name, argv, golden, fused cycle).
+OBS_RUNS = [
+    ("ta014_lb1", PFSP_LB1, GOLDEN, True),
+    ("nqueens_N15", ["nqueens", "--N", "15", "--tier", "device"], NQ_GOLDEN[15], True),
+    ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, True),
+    ("nqueens_N15_mt80", ["nqueens", "--N", "15", "--tier", "device", "--mt", "80"],
+     NQ_GOLDEN[15], True),
+    ("nqueens_N14_unfused", ["nqueens", "--N", "14", "--tier", "device", "--unfused"],
+     NQ_GOLDEN[14], False),
+    ("ta014_lb2_staged_unfused", PFSP_LB2 + ["--unfused"], GOLDEN_LB2, False),
+]
+
+
 def main_cycles(dev, dev_info) -> int:
     """``--cycles``: only the fused cycles (kernels 2, 4 and 8) and the
     streamed ones (9a, 9b and 9c) against their plain versions, and the
@@ -1738,7 +2063,11 @@ def kernel_counters() -> dict:
         nqueens_kernel,
     )
     from tpu_tree_search_torch.ops import tiled as T
-    from tpu_tree_search_torch.ops.dispatch import DispatchGraph
+    from tpu_tree_search_torch.ops.dispatch import (
+        DispatchGraph,
+        dispatch_cond_obs,
+        phase_mark_cuda,
+    )
 
     return {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
             "cycle_lb1": C.cycle_lb1_cuda,
@@ -1751,7 +2080,9 @@ def kernel_counters() -> dict:
             "tiled_lb1": T.tiled_lb1_cuda,
             "tiled_nqueens": T.tiled_nqueens_cuda,
             "tiled_lb2": T.tiled_lb2_cuda,
-            "dispatch_graph": DispatchGraph}
+            "dispatch_graph": DispatchGraph,
+            "dispatch_cond_obs": dispatch_cond_obs,
+            "phase_mark": phase_mark_cuda}
 
 
 def main_host(dev_info) -> int:
@@ -1893,6 +2224,9 @@ def main() -> int:
             ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, "cycle_lb2", LB2_CYCLE_KERNELS, 3)]:
         pipe[name] = phase_pipeline(name, argv, golden, counters, kernel, names,
                                     per_call)
+    # Telemetry (obs/): the counter block and the phase clock on the main
+    # path's searches, each off, armed, armed, off.
+    obsp = phase_obs(dev, counters)
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -2068,6 +2402,40 @@ def main() -> int:
         "graph_build_s": g_main["graph_build_s"],
         "cond_ms_per_cycle": {n: profs[n]["cond_ms_per_cycle"] for n in profs},
         "pipeline": pipe})
+    # The telemetry kernels (not TPU kernels: the counterparts of the JAX
+    # while body's counter update and of the phase clock's boundary). Their
+    # launches are those of the main path's armed runs (phase obs): the
+    # counter node a cycle of ta014 lb1 with TTS_OBS=1, the marks of ta014
+    # lb1 with TTS_PHASEPROF=1 (four a cycle and a seed a dispatch).
+    cond_ms, cond_seen = obsp["prof_ms"]["dispatch_cond_obs"]
+    mark_ms, mark_seen = obsp["prof_ms"]["phase_mark"]
+    # Bytes a launch must move: the counter node reads and writes the block
+    # and its two last values and reads size, tree, sol, cnt, cycles (17
+    # int32 in, 11 out); a mark reads and writes three int64 slots.
+    cond_bms, cond_by = bound_ms(28 * 4, 0.0)
+    mark_bms, mark_by = bound_ms(6 * 8, 0.0)
+    kernels.append({
+        "name": "dispatch_cond_obs", "route": "cuda",
+        "source": "tpu_tree_search_torch/csrc/dispatch_graph.cu",
+        "replaces": "tpu_tree_search/engine/resident.py:284",
+        "launches": obsp["launches"][("ta014_lb1", "obs", 1)]["dispatch_cond_obs"],
+        "launches_path": "obs ta014_lb1 TTS_OBS=1",
+        "shape": "one thread, the (8,) int32 counter block in the loop state",
+        "max_abs_err": max(r["counters_max_abs_err"] for r in gd.values()),
+        "ms": cond_ms, "timing": f"profiler ({cond_seen} launches, N=15 phaseprof)",
+        "plain_ms": obsp["plain_cond_ms"], "bound_ms": cond_bms, "bound_by": cond_by,
+        "library_ms": None})
+    kernels.append({
+        "name": "phase_mark", "route": "cuda",
+        "source": "tpu_tree_search_torch/csrc/phase_clock.cuh",
+        "replaces": "tpu_tree_search/obs/phases.py:143",
+        "launches": obsp["launches"][("ta014_lb1", "phaseprof", 2)]["phase_mark"],
+        "launches_path": "obs ta014_lb1 TTS_PHASEPROF=1",
+        "shape": "one thread, the (10,) int64 phase block; %globaltimer",
+        "max_abs_err": obsp["replay"]["max_abs_err"],
+        "ms": mark_ms, "timing": f"profiler ({mark_seen} launches, N=15 phaseprof)",
+        "plain_ms": obsp["plain_mark_ms"], "bound_ms": mark_bms, "bound_by": mark_by,
+        "library_ms": None, "globaltimer_step_ns": obsp["timer"]["step_ns"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

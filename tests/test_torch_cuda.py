@@ -1226,3 +1226,122 @@ def test_committed_v1_fixture_resumes_on_the_card(cuda):
                            resume_from=str(path))
     assert done.complete and done.phases[0].tree == 734
     assert (done.explored_tree, done.explored_sol) == (8393, 352)
+
+
+# -- telemetry in the dispatch graph (obs/counters.py, obs/phases.py) ----------
+
+# The body's kernels a cycle, by (kind, streamed): the launches, then the
+# condition node; armed, the marks sit around and between the launches.
+_BODY = {("lb1", False): ["cycle_bounds", "cycle_count", "cycle_emit"],
+         ("lb2", False): ["lb2_cycle_bounds", "cycle_count", "cycle_emit"],
+         ("nqueens", False): ["nq_cycle_labels", "nq_cycle_emit"],
+         ("lb1", True): ["lb1_tiles_bounds", "pfsp_tiles_count",
+                         "pfsp_tiles_emit"],
+         ("lb2", True): ["lb2_tiles_bounds", "pfsp_tiles_count",
+                         "pfsp_tiles_emit"],
+         ("nqueens", True): ["nq_tiles_labels", "nq_tiles_emit"]}
+
+
+def _body_names(graph) -> list[str]:
+    """The body's kernels by short name, in graph order."""
+    shorts = {s for v in _BODY.values() for s in v} | {
+        "dispatch_cond_obs", "dispatch_cond", "phase_mark"}
+    out = []
+    for mangled in graph.kernels():
+        hits = [s for s in shorts if s in mangled]
+        out.append(max(hits, key=len) if hits else mangled)
+    return out
+
+
+@pytest.mark.parametrize("armed", ["off", "obs", "phaseprof"])
+@pytest.mark.parametrize("kind,mt", _GRAPH_CASES)
+def test_armed_graph_counts_as_the_plain_update(cuda, monkeypatch, kind, mt,
+                                                armed):
+    from tpu_tree_search_torch.obs import counters as OC
+    from tpu_tree_search_torch.obs import phases as OP
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    monkeypatch.delenv("TTS_OBS", raising=False)
+    monkeypatch.delenv("TTS_PHASEPROF", raising=False)
+    if armed == "obs":
+        monkeypatch.setenv("TTS_OBS", "1")
+    if armed == "phaseprof":
+        monkeypatch.setenv("TTS_PHASEPROF", "1")
+    K, M = 7, 256
+    prog, fr, best = _graph_program(cuda, kind, mt, K, M)
+    state = prog.init_state(fr, best)
+    ref = prog.init_state(fr, best)
+    prog.host_slots(1)
+    D.dispatch_cond_obs.launches = D.phase_mark_cuda.launches = 0
+    got = prog.enqueue(state)(full=True)
+    g = next(iter(prog._graphs.values()))
+    cycle = _BODY[kind, mt is not None]
+    marks = 0
+    if armed == "off":
+        assert _body_names(g) == cycle + ["dispatch_cond"]
+        assert got.ctr is None and got.ph is None
+    else:
+        n = prog.problem.child_slots
+        ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+        for _ in range(K):
+            if kind == "nqueens":
+                CN.cycle_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, 12,
+                                       1, M, 25, K)
+            else:
+                (C.cycle_lb1_plain if kind == "lb1" else C.cycle_lb2_plain)(
+                    ref.pool_vals, ref.pool_aux, ref.st, prog.tables, M, 25, K)
+            D.dispatch_cond_obs_plain(ref.st, n, 25, M * n, prog.capacity, K)
+        torch.cuda.synchronize()
+        assert got.ctr == ref.st[C.ST_CTR:C.ST_CTR + OC.NSLOTS].tolist()
+        assert got.ctr[OC.IDX["overflow"]] == 0
+        assert got.ctr[OC.IDX["push_rows"]] == K * M * n
+        assert D.dispatch_cond_obs.launches == K
+        names = _body_names(g)
+        if armed == "obs":
+            assert names == cycle + ["dispatch_cond_obs"]
+            assert got.ph is None
+        else:
+            marks = len(cycle) + 1
+            body = ["phase_mark"]
+            for launch in cycle:
+                body += [launch, "phase_mark"]
+            assert names == body + ["dispatch_cond_obs"]
+            ph = got.ph
+            assert sum(ph[OP.IDX[s]] for s in OP.CYCLE_SLOTS) == ph[
+                OP.IDX["total"]] > 0
+            charged = {s for s in OP.CYCLE_SLOTS if ph[OP.IDX[s]] > 0}
+            assert charged <= ({"eval", "push"} if kind == "nqueens"
+                               else {"eval", "compact", "push"})
+            assert ph[OP.IDX["pop"]] == ph[OP.IDX["overflow"]] == 0
+            # The seed node outside the body: init, seed, while.
+            assert len(g.kernels(body=False)) == 3
+    assert D.phase_mark_cuda.launches == marks * K + (marks > 0)
+    assert got[:5] == prog.read_scalars(state)
+    prog.close()
+
+
+def test_unfused_step_marks_and_counts_on_the_card(cuda, monkeypatch):
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    monkeypatch.setenv("TTS_PHASEPROF", "1")
+    D.phase_mark_cuda.launches = 0
+    res = resident_search(NQueensProblem(10), m=8, M=64, K=16, device=cuda,
+                          fused=False)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    ph = res.phase_profile
+    assert sum(ph[s] for s in ("pop", "eval", "compact", "push",
+                               "overflow")) == ph["total"] > 0
+    c = res.obs["device_counters"]
+    assert c["pushed"] == res.phases[1].tree
+    # Five marks a cycle (loop, pop, eval, compact, push) and a seed a
+    # dispatch.
+    cycles = res.diagnostics.kernel_launches
+    assert D.phase_mark_cuda.launches == 5 * cycles + res.dispatches
+    assert all(r.get("pct_of_peak", 0) <= 100 for r in res.roofline["phases"])
+
+
+def test_globaltimer_steps(cuda):
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    step = D.globaltimer_step_ns(cuda)
+    assert step["step_ns"] is not None and 0 < step["step_ns"] <= 1000

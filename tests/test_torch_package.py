@@ -55,6 +55,13 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 15 and (ROOT / "chip_smoke.py").exists()
+    # The telemetry package and the optima table keep their own copies of
+    # the JAX package's modules (none of them imports JAX).
+    obs_modules = {"__init__", "costmodel", "counters", "events", "export",
+                   "flightrec", "live", "phases", "quality", "report",
+                   "roofline"}
+    assert {p.stem for p in files if p.parent == PKG / "obs"} == obs_modules
+    assert PKG / "problems" / "taillard_optima.py" in files
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files
@@ -176,6 +183,19 @@ def test_fused_cycle_sources_mirror_the_python_layout():
     common = (_build.CSRC / "cycle_common.cuh").read_text()
     assert "#define TTS_CYCLE_PARENTS 32" in common
     assert f"ST_BASE = {C.ST_BASE}," in common
+    # The counter block's slots in the state, and the phase clock's block
+    # (csrc/phase_clock.cuh), mirror obs/counters.py and obs/phases.py.
+    from tpu_tree_search_torch.obs import phases as P
+
+    for name in ("ST_CTR", "ST_CTR_TREE", "ST_CTR_SOL", "ST_LEN"):
+        assert f"{name} = {getattr(C, name)}," in common
+    clock = (_build.CSRC / "phase_clock.cuh").read_text()
+    for slot in P.SLOTS:
+        assert f"PH_{slot.upper()} = {P.IDX[slot]}," in clock
+    assert f"PH_TPREV = {P.TPREV}," in clock and f"PH_T0 = {P.T0}," in clock
+    assert f"PH_LEN = {P.BLOCK_LEN}," in clock
+    assert (f"PH_OPEN = {P.OPEN}, PH_CLOSE = {P.CLOSE}, PH_SEED = {P.SEED}"
+            in clock)
     assert "return (bytes + 15) / 16 * 16 + 16;" in common
     assert 'extern "C" int tts_cycle_parents_per_block()' in common
     for src in ("cycle_lb1.cu", "cycle_lb2.cu", "cycle_nqueens.cu",

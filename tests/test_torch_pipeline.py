@@ -132,7 +132,12 @@ def test_dispatch_queue_matches_jax():
                                       jax_pipeline.MESH_TARGET)
 
 
-def test_target_band_default_and_costmodel_refusal(monkeypatch):
+def test_target_band_default_and_costmodel_refusal(monkeypatch, tmp_path):
+    # TTS_COSTMODEL resolves the band as the JAX function does: unset, "0",
+    # a missing or a corrupt profile give the default band; a profile with
+    # a matching entry gives JAX's band (the CPU's key is "cpu").
+    from tpu_tree_search_torch.obs import costmodel
+
     monkeypatch.delenv("TTS_COSTMODEL", raising=False)
     band = pipeline.resolve_target_band("resident", pipeline.RESIDENT_TARGET)
     assert band == jax_pipeline.resolve_target_band(
@@ -141,9 +146,29 @@ def test_target_band_default_and_costmodel_refusal(monkeypatch):
     monkeypatch.setenv("TTS_COSTMODEL", "0")
     assert pipeline.resolve_target_band("resident", (1.0, 2.0)) == (
         (1.0, 2.0), None)
-    monkeypatch.setenv("TTS_COSTMODEL", "profile.json")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pipeline.resolve_target_band("resident", pipeline.RESIDENT_TARGET)
+    (tmp_path / "corrupt.json").write_text("{not json")
+    for path in ("profile.json", str(tmp_path / "corrupt.json")):
+        monkeypatch.setenv("TTS_COSTMODEL", path)
+        assert pipeline.resolve_target_band(
+            "resident", pipeline.RESIDENT_TARGET, device="cpu") == \
+            jax_pipeline.resolve_target_band(
+                "resident", jax_pipeline.RESIDENT_TARGET) == (
+            pipeline.RESIDENT_TARGET, None)
+    prof = str(tmp_path / "COSTMODEL.json")
+    evts = [{"name": "dispatch", "ph": "X", "ts": float(i),
+             "dur": 20_000.0 + 5.0 * c, "args": {"cycles": c}}
+            for i, c in enumerate((2, 4, 8, 16, 32))]
+    costmodel.save(prof, costmodel.build_profile(evts, "cpu", "device-D1",
+                                                 "nqueens_n10"))
+    monkeypatch.setenv("TTS_COSTMODEL", prof)
+    got = pipeline.resolve_target_band(
+        "resident", pipeline.RESIDENT_TARGET, NQueensProblem(10),
+        topology="device-D1", device="cpu")
+    assert got == jax_pipeline.resolve_target_band(
+        "resident", jax_pipeline.RESIDENT_TARGET, JaxNQueens(10),
+        topology="device-D1")
+    assert got[1] == "cpu|device-D1|nqueens_n10" and got[0] != (
+        pipeline.RESIDENT_TARGET)
 
 
 # -- the searches --------------------------------------------------------------
@@ -237,7 +262,7 @@ def test_cli_reports_the_pipeline(capsys, monkeypatch):
 @pytest.mark.parametrize("argv,env", [
     (["--K", "banana"], {}),
     (["--K", "0"], {}),
-    ([], {"TTS_COSTMODEL": "profile.json"}),
+    ([], {"TTS_HBM_GBPS": "-1"}),
     ([], {"TTS_PIPELINE": "9"}),
     ([], {"TTS_K": "bogus"}),
     (["--N", "300"], {}),
@@ -245,7 +270,7 @@ def test_cli_reports_the_pipeline(capsys, monkeypatch):
 ])
 def test_cli_refusals_exit_2_without_traceback(capsys, monkeypatch, argv,
                                                env):
-    for k in ("TTS_COSTMODEL", "TTS_PIPELINE", "TTS_K"):
+    for k in ("TTS_COSTMODEL", "TTS_PIPELINE", "TTS_K", "TTS_HBM_GBPS"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -254,6 +279,19 @@ def test_cli_refusals_exit_2_without_traceback(capsys, monkeypatch, argv,
     assert rc == 2
     assert cap.err.startswith("Error: ") and "Traceback" not in cap.err
     assert cap.out == ""  # refused before the search: no banner
+
+
+def test_cli_runs_on_the_default_band_with_an_unreadable_costmodel(
+        capsys, monkeypatch):
+    # TTS_COSTMODEL naming no profile: the run takes the fixed band and
+    # exits 0 (the JAX CLI's behaviour), where it was refused before.
+    monkeypatch.setenv("TTS_COSTMODEL", "profile.json")
+    monkeypatch.delenv("TTS_PIPELINE", raising=False)
+    monkeypatch.delenv("TTS_K", raising=False)
+    assert cli.main(["nqueens", "--N", "8", "--device", "cpu", "--M", "64",
+                     "--K", "auto", "--json"]) == 0
+    rec = __import__("json").loads(capsys.readouterr().out.splitlines()[-1])
+    assert (rec["explored_tree"], rec["explored_sol"]) == NQ_GOLDEN[8]
 
 
 def test_cli_lets_errors_inside_the_search_propagate(monkeypatch):

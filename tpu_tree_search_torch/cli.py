@@ -8,6 +8,10 @@
     python -m tpu_tree_search_torch nqueens --N 14 --engine offload    # per-chunk round trip
     python -m tpu_tree_search_torch pfsp --inst 14 --K 4 --max-steps 2 --checkpoint f.npz
     python -m tpu_tree_search_torch pfsp --inst 14 --resume f.npz
+    python -m tpu_tree_search_torch pfsp --inst 14 --trace t.json [--metrics-file m.jsonl]
+    python -m tpu_tree_search_torch report t.json [--json] [--roofline]
+    python -m tpu_tree_search_torch profile pfsp --inst 14 [--torch-trace DIR]
+    python -m tpu_tree_search_torch nqueens --N 15 --obs-serve 8642   # then: watch --port 8642
 
 The banner and the report follow the reference's format (`print_settings` /
 `print_results`). Tiers: ``--tier device`` (the default: the port's entry
@@ -20,17 +24,36 @@ pipelined (``TTS_PIPELINE``) and ``--K auto`` adapts K
 ``--mt`` (the JAX ``TTS_MEGAKERNEL_MT``) streams the fused cycle in tiles of
 that many parents. ``--checkpoint``, ``--checkpoint-interval``, ``--resume``
 and ``--max-steps`` cut and resume the resident engine
-(`engine/checkpoint.py`). The other tiers exit 2 naming the ROADMAP.md queue
-that ports them, and so does any shape or option the port refuses, or a
-flag the chosen tier or engine would ignore (``Error: ...`` on stderr, no
-traceback).
+(`engine/checkpoint.py`).
+
+Telemetry (`obs/`, the JAX CLI's flags and knobs): ``--trace`` writes a
+Chrome trace of the run's events, ``--metrics-file`` appends its counter
+samples as JSON lines, ``--costmodel`` fits the run's link profile into a
+``COSTMODEL.json`` (``TTS_COSTMODEL`` then resolves AdaptiveK's band from
+it), ``--obs-serve PORT`` serves live snapshots on localhost (each of these
+implies ``TTS_OBS=1`` unless ``TTS_OBS`` is set: the counter block rides
+the dispatch), ``--phase-profile`` arms the device phase clock
+(``TTS_PHASEPROF=1``) and ``--torch-trace DIR`` a steady-state
+``torch.profiler`` window (resident engine). Subcommands beside ``pfsp`` and
+``nqueens``: ``report FILE... [--json] [--roofline] [--costmodel PATH]``
+summarizes traces and metrics files (either package's), ``watch`` follows an
+``--obs-serve`` run, ``profile <run command>`` runs with the phase clock
+armed. ``TTS_QUALITY=1`` prints the incumbent trajectory.
+
+The other tiers exit 2 naming the ROADMAP.md queue that ports them (A.9:
+the multi-device and multi-host tiers; A.8: the batched engine and
+serving; A.10: the guard and the contracts), and so does any shape or
+option the port refuses, or a flag the chosen tier or engine would ignore
+(``Error: ...`` on stderr, no traceback).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+from contextlib import contextmanager
 
 TIERS = ("seq", "device", "mesh", "multi", "dist", "dist_mesh")
 ENGINES = ("resident", "offload")
@@ -53,6 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m tpu_tree_search_torch",
         description="Device-resident tree search (PFSP Branch-and-Bound, "
                     "N-Queens backtracking) on PyTorch/CUDA",
+        epilog="other commands: `report FILE... [--json] [--roofline]` "
+               "(summarize traces), `profile <run command>` (the run with "
+               "the phase clock armed), `watch [--port P]` (follow an "
+               "--obs-serve run)",
     )
     p.add_argument("problem", choices=("pfsp", "nqueens"))
     p.add_argument("--N", type=int, default=14,
@@ -115,6 +142,71 @@ def build_parser() -> argparse.ArgumentParser:
                         "(a checkpoint cut; the result is marked incomplete)")
     p.add_argument("--json", action="store_true",
                    help="print one JSON result line after the report")
+    p.add_argument("--trace", type=str, default=None,
+                   help="write a Chrome-trace-event JSON of the run's "
+                        "telemetry to this file (Perfetto; summarize with "
+                        "`report`); implies TTS_OBS=1 unless TTS_OBS is set")
+    p.add_argument("--metrics-file", type=str, default=None,
+                   help="append one JSON line per telemetry counter sample "
+                        "to this file; implies TTS_OBS=1 unless TTS_OBS is "
+                        "set")
+    p.add_argument("--obs-serve", type=int, default=None, metavar="PORT",
+                   help="serve live run snapshots on 127.0.0.1:PORT over "
+                        "HTTP/SSE (follow with `watch --port PORT`); implies "
+                        "TTS_OBS=1 unless TTS_OBS is set")
+    p.add_argument("--costmodel", type=str, default=None, metavar="PATH",
+                   help="after the run, fit its per-link latency+bandwidth "
+                        "profile from the recorded spans and merge it into "
+                        "this COSTMODEL.json; TTS_COSTMODEL=PATH makes later "
+                        "runs resolve their K band from it; implies "
+                        "TTS_OBS=1 unless TTS_OBS is set")
+    p.add_argument("--phase-profile", action="store_true",
+                   help="resident engine: arm the device phase clock "
+                        "(pop/eval/compact/push/overflow on %%globaltimer, "
+                        "obs/phases.py; TTS_PHASEPROF=1) and the counter "
+                        "block — separate dispatch graphs, the same counts; "
+                        "the decomposition and the roofline print with the "
+                        "results. Not for headline measurements")
+    p.add_argument("--torch-trace", type=str, default=None, metavar="DIR",
+                   help="resident engine: a torch.profiler trace of the "
+                        "steady-state dispatch window (after the first "
+                        "dispatch) into DIR/torch_trace.json "
+                        "(TTS_TORCH_TRACE=DIR)")
+    return p
+
+
+def report_parser() -> argparse.ArgumentParser:
+    """``report FILE... [--json] [--roofline] [--costmodel PATH]``."""
+    p = argparse.ArgumentParser(
+        prog="python -m tpu_tree_search_torch report",
+        description="summarize --trace / --metrics-file / flight-recorder "
+                    "files (either package's; merged into one report)")
+    p.add_argument("trace", nargs="+")
+    p.add_argument("--json", action="store_true",
+                   help="emit the summary as one JSON object")
+    p.add_argument("--roofline", action="store_true",
+                   help="require the memory-roofline section (exit 2 when "
+                        "the trace was not phase-profiled)")
+    p.add_argument("--costmodel", type=str, default=None, metavar="PATH",
+                   help="COSTMODEL.json whose measured `hbm` link supplies "
+                        "the roofline's peak (else TTS_HBM_GBPS, else the "
+                        "nominal table)")
+    return p
+
+
+def watch_parser() -> argparse.ArgumentParser:
+    """``watch [--port P] [--host H] [--interval S] [--once] [--json]``."""
+    p = argparse.ArgumentParser(
+        prog="python -m tpu_tree_search_torch watch",
+        description="live view of a run started with --obs-serve PORT")
+    p.add_argument("--port", type=int, default=8642)
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="polling fallback interval in seconds")
+    p.add_argument("--once", action="store_true",
+                   help="print the current snapshot and exit")
+    p.add_argument("--json", action="store_true",
+                   help="emit raw snapshot JSON lines")
     return p
 
 
@@ -126,6 +218,10 @@ def check_supported(args) -> None:
             f"tier {args.tier!r} is not ported yet (ROADMAP.md queue A, "
             "A.9: the multi-device and multi-host tiers); the port runs "
             "--tier device and --tier seq")
+    resident = args.tier == "device" and args.engine == "resident"
+    if not resident and (args.phase_profile or args.torch_trace is not None):
+        raise ValueError("--phase-profile/--torch-trace apply to the "
+                         "resident engine's dispatches")
     resident_flags = [name for name, value in (
         ("--checkpoint", args.checkpoint), ("--resume", args.resume),
         ("--max-steps", args.max_steps), ("--K", args.K)) if value is not None]
@@ -205,6 +301,12 @@ def print_settings(args, device) -> None:
         print("Branching rule: fwd")
     if device is not None:
         print(f"Device: {device}")
+    if os.environ.get("TTS_PHASEPROF") == "1":
+        print("Phase profiler (TTS_PHASEPROF): armed — separate dispatch "
+              "graphs, NOT a headline measurement")
+    if args.torch_trace is not None:
+        print(f"torch.profiler window (TTS_TORCH_TRACE): {args.torch_trace} "
+              "(steady-state dispatches)")
     print("=================================================")
 
 
@@ -262,7 +364,43 @@ def print_results(problem, res, checkpoint: str | None = None) -> None:
         print(f"Device diagnostics: cycles={d.kernel_launches} "
               f"host_to_device={d.host_to_device} "
               f"device_to_host={d.device_to_host}")
+    print_telemetry(res)
     print("=================================================\n")
+
+
+def print_telemetry(res) -> None:
+    """The telemetry lines of the report (`tpu_tree_search/cli.py:857-895`):
+    the counter totals, the phase decomposition and its roofline, and the
+    incumbent trajectory with its primal gap and integral."""
+    from .obs import phases as obs_phases
+    from .obs import quality as obs_quality
+    from .obs import roofline as obs_roofline
+    from .obs.report import phase_table
+
+    ctr = (res.obs or {}).get("device_counters")
+    if ctr:
+        print("Device counters: "
+              + "  ".join(f"{k}={v}" for k, v in ctr.items()))
+    if res.phase_profile:
+        for line in phase_table(obs_phases.decomp(res.phase_profile)):
+            print(line)
+    if res.roofline:
+        for line in obs_roofline.table(res.roofline):
+            print(line)
+    q = res.quality
+    if q and q.get("points"):
+        opt = q.get("optimum")
+        print(f"Quality trajectory ({len(q['points'])} incumbent(s)"
+              + (f", optimum {opt}" if opt is not None else "") + "):")
+        for p in q["points"]:
+            g = obs_quality.primal_gap(p.get("best"), opt)
+            print(f"  t={p['t_s']:.3f}s  step={p['step']}  "
+                  f"best={p['best']}  nodes={p['nodes']}"
+                  + (f"  gap={100.0 * g:.2f}%" if g is not None else ""))
+        pi = obs_quality.primal_integral(q["points"], opt,
+                                         max(res.elapsed, 1e-9))
+        if pi is not None:
+            print(f"  primal integral: {pi:.4f}")
 
 
 def result_record(args, res, device) -> dict:
@@ -282,6 +420,15 @@ def result_record(args, res, device) -> dict:
     }
     if not res.complete:
         rec["complete"] = False
+    if res.obs:
+        # The counter and phase totals (TTS_OBS=1, TTS_PHASEPROF=1).
+        rec["obs"] = res.obs
+    if res.quality and res.quality.get("points"):
+        # TTS_QUALITY=1: the incumbent trajectory (obs/quality.py).
+        rec["quality"] = res.quality
+    if res.roofline is not None:
+        # Phase-profiled runs: the memory-roofline audit (obs/roofline.py).
+        rec["roofline_mem"] = res.roofline
     if args.problem == "pfsp":
         rec.update(inst=args.inst, lb=args.lb, ub=args.ub, optimum=res.best)
         if args.lb == "lb2":
@@ -326,8 +473,76 @@ def result_record(args, res, device) -> dict:
     return rec
 
 
+@contextmanager
+def pinned_env(pins: dict):
+    """Set ``pins`` in the environment for the block, then restore what was
+    there (a second ``main`` in one process does not inherit them)."""
+    prev = {k: os.environ.get(k) for k in pins}
+    os.environ.update(pins)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def telemetry_pins(args) -> dict:
+    """The knobs the telemetry flags set for the run (`tpu_tree_search/
+    cli.py:627-636`): ``TTS_PHASEPROF``, ``TTS_TORCH_TRACE`` and, for
+    ``--trace``/``--metrics-file``/``--obs-serve``/``--costmodel``,
+    ``TTS_OBS=1`` unless ``TTS_OBS`` is set (``=host`` keeps the graphs)."""
+    pins = {}
+    if args.phase_profile:
+        pins["TTS_PHASEPROF"] = "1"
+    if args.torch_trace is not None:
+        pins["TTS_TORCH_TRACE"] = args.torch_trace
+    wants = (args.trace is not None or args.metrics_file is not None
+             or args.obs_serve is not None or args.costmodel is not None)
+    if wants and "TTS_OBS" not in os.environ:
+        pins["TTS_OBS"] = "1"
+    return pins
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "report":
+        # Summarizes files: no search, no torch.
+        from .obs.report import report_main
+
+        rargs = report_parser().parse_args(argv[1:])
+        return report_main(rargs.trace, as_json=rargs.json,
+                           roofline=rargs.roofline,
+                           costmodel=rargs.costmodel)
+    if argv and argv[0] == "watch":
+        from .obs.live import watch_main
+
+        wargs = watch_parser().parse_args(argv[1:])
+        return watch_main(wargs.port, host=wargs.host,
+                          interval=wargs.interval, once=wargs.once,
+                          as_json=wargs.json)
+    parser = build_parser()
+    if argv and argv[0] == "profile":
+        # `profile <run command>`: the same run with the phase clock armed.
+        if len(argv) < 2 or argv[1] not in ("pfsp", "nqueens"):
+            parser.error("profile wraps a search run, e.g. `profile pfsp "
+                         "--inst 14`")
+        argv = argv[1:] + ["--phase-profile"]
+    args = parser.parse_args(argv)
+    with pinned_env(telemetry_pins(args)):
+        return run(args)
+
+
+def run(args) -> int:
+    """One search of ``args`` with its telemetry: the refusals, the
+    banner, the run (with the flight recorder armed and the live monitor
+    serving when asked), the report, then the trace, metrics and
+    cost-model files."""
+    from .obs import events as obs_events
+    from .obs import flightrec
+
     try:
         K, device, problem, M = prepare(args)
     except (NotImplementedError, ValueError, TypeError) as e:
@@ -335,34 +550,78 @@ def main(argv=None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 2
     print_settings(args, device)
-    if args.tier == "seq":
-        from .engine.sequential import sequential_search
+    if obs_events.enabled():
+        # A run-scoped trace: a prior run's events in this process stay out.
+        obs_events.reset()
+        flightrec.reset()
+        flightrec.recorder().install()
+    live_server = None
+    if args.obs_serve is not None:
+        from .obs import live as obs_live
 
-        res = sequential_search(problem)
-    elif args.engine == "offload":
-        from .engine.device import device_search
+        live_server = obs_live.serve(args.obs_serve)
+        print(f"Live monitor: {live_server.url} "
+              f"(watch --port {live_server.port})")
+    try:
+        if args.tier == "seq":
+            from .engine.sequential import sequential_search
 
-        res = device_search(problem, m=args.m, M=M, device=device)
-    else:
-        from .engine.resident import resident_search
+            res = sequential_search(problem)
+        elif args.engine == "offload":
+            from .engine.device import device_search
 
-        res = resident_search(
-            problem, m=args.m, M=M, K=K, device=device,
-            fused=not args.unfused, mt=args.mt, max_steps=args.max_steps,
-            checkpoint_path=args.checkpoint,
-            checkpoint_interval_s=args.checkpoint_interval,
-            resume_from=args.resume)
+            res = device_search(problem, m=args.m, M=M, device=device)
+        else:
+            from .engine.resident import resident_search
+
+            res = resident_search(
+                problem, m=args.m, M=M, K=K, device=device,
+                fused=not args.unfused, mt=args.mt, max_steps=args.max_steps,
+                checkpoint_path=args.checkpoint,
+                checkpoint_interval_s=args.checkpoint_interval,
+                resume_from=args.resume)
+    finally:
+        if live_server is not None:
+            live_server.close()
     print_results(problem, res, checkpoint=args.checkpoint)
+    if args.trace or args.metrics_file or args.costmodel:
+        write_telemetry(args, problem, device, obs_events.drain())
     if args.json:
         print(json.dumps(result_record(args, res, device)))
     return 0
 
 
+def write_telemetry(args, problem, device, evts: list) -> None:
+    """The run's ``--trace``, ``--metrics-file`` and ``--costmodel`` files
+    from its drained events."""
+    from .obs import export as obs_export
+
+    if args.trace:
+        n = obs_export.write_chrome_trace(evts, args.trace)
+        print(f"Trace written: {args.trace} ({n} events; open in Perfetto "
+              "or `report`)")
+    if args.metrics_file:
+        obs_export.write_metrics_jsonl(evts, args.metrics_file)
+    if args.costmodel:
+        from .engine.pipeline import profile_backend
+        from .obs import costmodel as cm
+
+        # The topology the resident engine passes to resolve_target_band,
+        # so a capture matches a later run of the same tier.
+        profile = cm.build_profile(evts, profile_backend(device),
+                                   "device-D1", cm.shape_class(problem))
+        cm.save(args.costmodel, profile)
+        key = next(iter(profile))
+        links = ", ".join(sorted(profile[key]["links"])) or "none"
+        print(f"Cost model written: {args.costmodel} [{key}] (links: "
+              f"{links}; arm with TTS_COSTMODEL={args.costmodel})")
+
+
 def prepare(args):
     """``(K, device, problem, M)`` of the search of ``args``, after every
     check of what the port refuses, before the search starts: the tier and
-    the flags it would ignore, ``--K``, ``TTS_K``, ``TTS_PIPELINE`` and
-    ``TTS_COSTMODEL`` (resident engine), the problem's shape, the tile
+    the flags it would ignore, ``--K``, ``TTS_K`` and ``TTS_PIPELINE``
+    (resident engine), ``TTS_HBM_GBPS``, the problem's shape, the tile
     width, under lb2 on the card the lb2 kernels' table routes, and the
     header of a ``--resume`` file. The sequential tier has no K, device or
     M (None). Raises ``NotImplementedError``, ``ValueError`` or
@@ -370,10 +629,12 @@ def prepare(args):
     and propagate from ``main``."""
     check_supported(args)
     problem = make_problem(args)
+    from .obs.roofline import hbm_gbps_override
+
+    hbm_gbps_override()
     if args.tier == "seq":
         return None, None, problem, None
-    from .engine.pipeline import (RESIDENT_TARGET, resolve_k,
-                                  resolve_pipeline_depth, resolve_target_band)
+    from .engine.pipeline import resolve_k, resolve_pipeline_depth
     from .ops.backend import resolve_device
     from .ops.lb2_kernel import johnson_operands
     from .ops.tiled import check_tile
@@ -384,8 +645,6 @@ def prepare(args):
         K = parse_k(args.K)
         resolve_k(K, default_max=4096)
         resolve_pipeline_depth()
-        resolve_target_band("resident", RESIDENT_TARGET, problem,
-                            topology="device-D1")
     device = resolve_device(args.device)
     M = args.M if args.M is not None else default_M(
         args.problem, device.type, args.tier, args.engine)

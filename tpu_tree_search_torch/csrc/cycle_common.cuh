@@ -22,6 +22,13 @@ enum {
   ST_START2 = 7,
   ST_BASE = 8,
   ST_RUNS = 9,  // the dispatch graph's body runs (dispatch_graph.cu)
+  // The counter block (TTS_OBS=1, dispatch_cond_obs in dispatch_graph.cu):
+  // eight slots in obs/counters.py SLOTS order, then the tree and sol it
+  // last saw (st[2], st[3] accumulate over a dispatch).
+  ST_CTR = 16,
+  ST_CTR_TREE = 24,
+  ST_CTR_SOL = 25,
+  ST_LEN = 32,
 };
 
 // Parents of one block of the counting and emit launches (one warp scans

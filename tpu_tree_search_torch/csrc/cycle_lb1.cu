@@ -81,11 +81,12 @@
                       void* chunk_vals, void* chunk_aux, void* lb,          \
                       void* blkcnt, const void* ptm_t,                      \
                       const void* heads, const void* tails, int n, int m,   \
-                      int M, int C, int mterm, int K, void* stream) {       \
+                      int M, int C, int mterm, int K, void* clk,            \
+                      void* stream) {                                        \
     return launch_lb1_cycle<T, false>(pool_vals, pool_aux, st, chunk_vals,  \
                                       chunk_aux, lb, blkcnt, nullptr, ptm_t, \
                                       heads, tails, n, m, M, M, C, mterm, K, \
-                                      stream);                               \
+                                      clk, stream);                          \
   }
 
 TTS_CYCLE_ENTRY(cycle_lb1_i8, int8_t)

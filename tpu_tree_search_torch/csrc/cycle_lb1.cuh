@@ -138,14 +138,15 @@ __global__ void lb1_tiles_bounds(TTS_LB1_BOUNDS_PARAMS) {
 
 // One cycle on the stream: launch 1, then the count and emit launches of
 // cycle_pfsp.cuh. TILES: kernel 9b's kernels, with the boundary row bnd of
-// tiles of mt parents.
+// tiles of mt parents. With a phase clock `clk`, a mark opens the cycle
+// (`loop`) and one after launch 1 charges `eval` (the pop is inside it).
 template <typename T, bool TILES>
 static int launch_lb1_cycle(void* pool_vals, void* pool_aux, void* st,
                             void* chunk_vals, void* chunk_aux, void* lb,
                             void* blkcnt, void* bnd, const void* ptm_t,
                             const void* heads, const void* tails, int n,
                             int m, int M, int mt, int C, int mterm, int K,
-                            void* stream) {
+                            void* clk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto bounds = [] {
     if constexpr (TILES) return lb1_tiles_bounds<T>;
@@ -161,6 +162,8 @@ static int launch_lb1_cycle(void* pool_vals, void* pool_aux, void* st,
                                      2 * PB * (m | 1) + m);
   int err = tts_smem_optin(bounds, smem);
   if (err) return err;
+  err = tts_phase_mark(clk, PH_LOOP, PH_OPEN, s);
+  if (err) return err;
   int* st_i = static_cast<int*>(st);
   bounds<<<nblk, threads, smem, s>>>(
       static_cast<const T*>(pool_vals), static_cast<const T*>(pool_aux), st_i,
@@ -170,7 +173,9 @@ static int launch_lb1_cycle(void* pool_vals, void* pool_aux, void* st,
       C, mterm, K, threads < tts_threads_for(PB * n));
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
+  err = tts_phase_mark(clk, PH_EVAL, 0, s);
+  if (err) return err;
   return launch_pfsp_cycle_tail<T, TILES>(
       pool_vals, pool_aux, st_i, chunk_vals, chunk_aux, static_cast<int*>(lb),
-      blkcnt, n, M, s, static_cast<int*>(bnd), mt);
+      blkcnt, n, M, s, static_cast<int*>(bnd), mt, clk);
 }

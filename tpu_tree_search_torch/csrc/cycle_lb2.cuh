@@ -78,7 +78,8 @@ __global__ void lb2_tiles_bounds(TTS_LB2_BOUNDS_PARAMS) {
 // picks (kept in *last), then the count and emit launches. TILES: kernel
 // 9c's kernels, with the boundary row bnd of tiles of mt parents. GT: the
 // GLOBAL table route (tab the int32 table, inv its inverse). WIDE: past 128
-// jobs (lb2_common.cuh `lb2p_pairs`).
+// jobs (lb2_common.cuh `lb2p_pairs`). With a phase clock `clk`, the marks
+// of kernel 2's cycle (cycle_lb1.cuh).
 template <typename T, bool TILES, bool GT, bool WIDE>
 static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
                                   void* chunk_vals, void* chunk_aux, void* lb,
@@ -86,8 +87,8 @@ static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
                                   const void* heads, const void* pairinfo,
                                   const void* tab, const void* inv, int n,
                                   int m, int P, int M, int mt, int C,
-                                  int mterm, int K, void* stream,
-                                  Lb2Shape* last) {
+                                  int mterm, int K, void* clk,
+                                  void* stream, Lb2Shape* last) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto bounds = [] {
     if constexpr (TILES) return lb2_tiles_bounds<T, GT, WIDE>;
@@ -98,6 +99,8 @@ static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
   if (err) return err;
   *last = sh;
   const int nblk = (M + sh.parents - 1) / sh.parents;
+  err = tts_phase_mark(clk, PH_LOOP, PH_OPEN, s);
+  if (err) return err;
   int* st_i = static_cast<int*>(st);
   bounds<<<nblk, sh.threads, sh.smem, s>>>(
       static_cast<const T*>(pool_vals), static_cast<const T*>(pool_aux), st_i,
@@ -109,9 +112,11 @@ static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
       mterm, K, sh.parents);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
+  err = tts_phase_mark(clk, PH_EVAL, 0, s);
+  if (err) return err;
   return launch_pfsp_cycle_tail<T, TILES>(
       pool_vals, pool_aux, st_i, chunk_vals, chunk_aux, static_cast<int*>(lb),
-      blkcnt, n, M, s, static_cast<int*>(bnd), mt);
+      blkcnt, n, M, s, static_cast<int*>(bnd), mt, clk);
 }
 
 // The cycle on the table route `route` (0 SMEM, 1 GLOBAL).
@@ -122,12 +127,12 @@ static int launch_lb2_cycle(void* pool_vals, void* pool_aux, void* st,
                             const void* heads, const void* pairinfo,
                             const void* tab, const void* inv, int n, int m,
                             int P, int route, int M, int mt, int C, int mterm,
-                            int K, void* stream, Lb2Shape* last) {
+                            int K, void* clk, void* stream, Lb2Shape* last) {
 #define TTS_LB2_CYCLE_ROUTE(GT, WIDE)                                       \
   launch_lb2_cycle_route<T, TILES, GT, WIDE>(                               \
       pool_vals, pool_aux, st, chunk_vals, chunk_aux, lb, blkcnt, bnd,      \
-      ptm_t, heads, pairinfo, tab, inv, n, m, P, M, mt, C, mterm, K, stream, \
-      last)
+      ptm_t, heads, pairinfo, tab, inv, n, m, P, M, mt, C, mterm, K, clk,   \
+      stream, last)
   const bool wide = tts_lb2p_wide(n);
   if (route == 1)
     return wide ? TTS_LB2_CYCLE_ROUTE(true, true)

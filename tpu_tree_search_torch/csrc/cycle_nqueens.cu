@@ -97,12 +97,12 @@ __global__ void nq_cycle_emit(uint8_t* __restrict__ pool_vals,
 #define TTS_NQ_CYCLE_LAUNCH(W, A)                                          \
   launch_nq_cycle<W, A>(nq_cycle_labels<W, A>, nq_cycle_emit<W, A>, pool_vals,     \
                         pool_aux, st, chunk_vals, chunk_aux, keep, blkcnt, \
-                        nullptr, N, g, M, M, C, mterm, K, stream)
+                        nullptr, N, g, M, M, C, mterm, K, clk, stream)
 #define TTS_NQ_CYCLE_ENTRY(NAME, AUX32)                                    \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,          \
                       void* chunk_vals, void* chunk_aux, void* keep,      \
                       void* blkcnt, int N, int g, int M, int C, int mterm, \
-                      int K, void* stream) {                              \
+                      int K, void* clk, void* stream) {                   \
     TTS_NQ_DISPATCH(N, AUX32, TTS_NQ_CYCLE_LAUNCH);                        \
   }
 

@@ -16,6 +16,7 @@
 #pragma once
 
 #include "cycle_common.cuh"
+#include "phase_clock.cuh"
 #include "nqueens_common.cuh"
 
 static_assert(TTS_NQ_PARENTS_PER_BLOCK == TTS_CYCLE_PARENTS,
@@ -217,31 +218,41 @@ __device__ __forceinline__ void nq_emit_body(
 
 // One cycle on the stream: the labels kernel, then the emit kernel (the
 // bodies above, in the caller's `__global__` kernels), which takes the
-// boundary row and the tile width (unused by the single-tile cycle).
+// boundary row and the tile width (unused by the single-tile cycle). With a
+// phase clock `clk` (phase_clock.cuh): a mark opens the cycle (`loop`), one
+// after the labels charges `eval` (the labels launch also pops and
+// publishes the block counts), one after the emit `push`, which closes it.
 template <int W, typename A, typename L, typename E>
 static int launch_nq_cycle(L labels, E emit, void* pool_vals, void* pool_aux,
                            void* st, void* stash, void* chunk_aux, void* mask,
                            void* blkcnt, void* bnd, int N, int g, int M,
-                           int mt, int C, int mterm, int K, void* stream) {
+                           int mt, int C, int mterm, int K, void* clk,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int PB = TTS_NQ_PARENTS_PER_BLOCK;
   const int nblk = (M + PB - 1) / PB;
   const int threads = tts_cycle_threads(nblk, PB * N, TTS_CYCLE_LOOP_THREADS);
   const int span = nq_span_rows(N, sizeof(A));
   int* st_i = static_cast<int*>(st);
+  int err = tts_phase_mark(clk, PH_LOOP, PH_OPEN, s);
+  if (err) return err;
   labels<<<nblk, threads, 0, s>>>(
       static_cast<const uint8_t*>(pool_vals), static_cast<const A*>(pool_aux),
       st_i, static_cast<uint8_t*>(stash), static_cast<A*>(chunk_aux),
       static_cast<uint32_t*>(mask), static_cast<int*>(blkcnt), N, g, M, C,
       mterm, K);
-  int err = static_cast<int>(cudaGetLastError());
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  err = tts_phase_mark(clk, PH_EVAL, 0, s);
   if (err) return err;
   emit<<<nblk, threads, nq_emit_smem(N, span, sizeof(A)), s>>>(
       static_cast<uint8_t*>(pool_vals), static_cast<A*>(pool_aux), st_i,
       static_cast<const uint8_t*>(stash), static_cast<const A*>(chunk_aux),
       static_cast<const uint32_t*>(mask), static_cast<const int*>(blkcnt), N,
       M, static_cast<int*>(bnd), mt);
-  return static_cast<int>(cudaGetLastError());
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return tts_phase_mark(clk, PH_PUSH, PH_CLOSE, s);
 }
 
 // The cycle at N's mask words and the depth type A: W = 1 and 2 take an

@@ -12,6 +12,7 @@
 #pragma once
 
 #include "cycle_common.cuh"
+#include "phase_clock.cuh"
 #include "lb1_common.cuh"
 
 // Launch 1's head: evaluate the loop condition of `resident.py:421-423`
@@ -301,13 +302,15 @@ static inline int pfsp_span_rows(int n) {
 // Launches 2-3 on the stream, after a launch 1 that filled the plane `lb`
 // ((M*n) int32, followed by the M*W mask words) and the stash. TILES: the
 // streamed cycle's kernels, which also write the boundary row bnd of tiles
-// of mt parents (blkcnt then holds a pair a block).
+// of mt parents (blkcnt then holds a pair a block). With a phase clock
+// `clk` (phase_clock.cuh), a mark after each: `compact`, then `push`, which
+// closes the cycle; null enqueues the two launches alone.
 template <typename T, bool TILES = false>
 static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
                                   const void* stash, const void* chunk_aux,
                                   int* lb, void* blkcnt, int n, int M,
-                                  cudaStream_t s, int* bnd = nullptr,
-                                  int mt = 0) {
+                                  cudaStream_t s, int* bnd, int mt,
+                                  void* clk) {
   const int PB = TTS_CYCLE_PARENTS;
   const int nblk = (M + PB - 1) / PB;
   const int threads = tts_cycle_threads(nblk, PB * n, TTS_CYCLE_LOOP_THREADS);
@@ -330,6 +333,8 @@ static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
       static_cast<int*>(blkcnt), n, M);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
+  err = tts_phase_mark(clk, PH_COMPACT, 0, s);
+  if (err) return err;
   const int span_rows = pfsp_span_rows<T>(n);
   const size_t emit_smem =
       pfsp_stash_block_bytes<T>(n) +
@@ -341,5 +346,7 @@ static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
       static_cast<T*>(pool_vals), static_cast<T*>(pool_aux), st,
       static_cast<const uint8_t*>(stash), static_cast<const T*>(chunk_aux),
       mask, static_cast<const int*>(blkcnt), n, M, span_rows, bnd, mt);
-  return static_cast<int>(cudaGetLastError());
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return tts_phase_mark(clk, PH_PUSH, PH_CLOSE, s);
 }

@@ -28,9 +28,26 @@
 // tables must keep their addresses for the graph's life (the engine
 // copies a re-uploaded frontier into its existing tensors).
 //
+// Telemetry (obs/counters.py, obs/phases.py) builds its own graphs; off,
+// the graph is the one above, node for node:
+//   - counters (TTS_OBS=1): `dispatch_init` also zeroes the counter block
+//     st[ST_CTR..ST_CTR_SOL], and the body's last node is
+//     `dispatch_cond_obs`, which folds the cycle into the block before it
+//     does what `dispatch_cond` does: the counterpart of
+//     `obs_counters.update` in the JAX `lax.while_loop` body
+//     (tpu_tree_search/engine/resident.py:284-292). Not a TPU kernel.
+//   - the phase clock (TTS_PHASEPROF=1, phase_clock.cuh): a seed
+//     `phase_mark` between the init node and the while node, and the
+//     cycle's marks inside the body, enqueued by the cycle entry itself
+//     (its `clk` argument).
+// Both blocks ride the state the host reads once a dispatch.
+//
 // Conditional nodes need CUDA 12.4 or later; where the installation is
 // older, dispatch_graph_create returns the error.
+#include <cuda.h>
+
 #include "cycle_common.cuh"
+#include "phase_clock.cuh"
 
 __device__ __forceinline__ unsigned dispatch_active(const int* st, int m,
                                                     long long Mn, int C,
@@ -41,11 +58,13 @@ __device__ __forceinline__ unsigned dispatch_active(const int* st, int m,
 }
 
 __global__ void dispatch_init(int* st, cudaGraphConditionalHandle h, int m,
-                              long long Mn, int C, int K) {
+                              long long Mn, int C, int K, int obs) {
   st[ST_TREE] = 0;
   st[ST_SOL] = 0;
   st[ST_CYCLES] = 0;
   st[ST_RUNS] = 0;
+  if (obs)
+    for (int i = ST_CTR; i <= ST_CTR_SOL; ++i) st[i] = 0;
   cudaGraphSetConditional(h, dispatch_active(st, m, Mn, C, K));
 }
 
@@ -57,11 +76,46 @@ __global__ void dispatch_cond(int* st, cudaGraphConditionalHandle h, int m,
   cudaGraphSetConditional(h, dispatch_active(st, m, Mn, C, K));
 }
 
-// A new graph: the init node, then the while node with an empty body.
-// Returns the graph, the body graph to capture the cycle into, and the
-// condition's handle. Returns the CUDA error, 0 on success.
+// The counter block's update after one cycle of the body (the plain
+// version: `ops/dispatch.py` `dispatch_cond_obs_plain`), in obs/counters.py
+// SLOTS order: popped += cnt; pushed and leaves += the cycle's tree and sol
+// increments (st[2], st[3] less the values the block last saw); pruned +=
+// cnt*n - both; overflow += 0 (the fused cycle has no overflow branch: the
+// loop condition reserves M*n rows); pool_hwm = max(size); surv_hwm =
+// max(tree increment); push_rows += M*n, as the JAX one-kernel cycle
+// reports it. A dispatch's counts fit int32 (the K clamp: K*M*n < 2**31).
+// One thread: a cache line of loads and stores, its cost a graph node.
+__device__ __forceinline__ void obs_count_cycle(int* st, int n, long long Mn) {
+  const int tree = st[ST_TREE], sol = st[ST_SOL], cnt = st[ST_CNT];
+  const int tree_inc = tree - st[ST_CTR_TREE];
+  const int sol_inc = sol - st[ST_CTR_SOL];
+  int* c = st + ST_CTR;
+  c[0] += cnt;
+  c[1] += tree_inc;
+  c[2] += sol_inc;
+  c[3] += cnt * n - tree_inc - sol_inc;
+  c[5] = max(c[5], st[ST_SIZE]);
+  c[6] = max(c[6], tree_inc);
+  c[7] += static_cast<int>(Mn);
+  st[ST_CTR_TREE] = tree;
+  st[ST_CTR_SOL] = sol;
+}
+
+// `dispatch_cond` with the counter block (TTS_OBS=1): the body's last node.
+__global__ void dispatch_cond_obs(int* st, cudaGraphConditionalHandle h,
+                                  int m, long long Mn, int C, int K, int n) {
+  obs_count_cycle(st, n, Mn);
+  st[ST_RUNS] += 1;
+  cudaGraphSetConditional(h, dispatch_active(st, m, Mn, C, K));
+}
+
+// A new graph: the init node (`obs`: zeroing the counter block too), with a
+// clock `clk` a seed mark, then the while node with an empty body. Returns
+// the graph, the body graph to capture the cycle into, and the condition's
+// handle. Returns the CUDA error, 0 on success.
 extern "C" int dispatch_graph_create(void* st, int m, long long Mn, int C,
-                                     int K, void** graph_out, void** body_out,
+                                     int K, int obs, void* clk,
+                                     void** graph_out, void** body_out,
                                      unsigned long long* handle_out) {
   cudaGraph_t g = nullptr;
   cudaError_t err = cudaGraphCreate(&g, 0);
@@ -70,13 +124,25 @@ extern "C" int dispatch_graph_create(void* st, int m, long long Mn, int C,
   err = cudaGraphConditionalHandleCreate(&h, g, 0, cudaGraphCondAssignDefault);
   cudaGraphNode_t init = nullptr, loop = nullptr;
   if (!err) {
-    void* args[] = {&st, &h, &m, &Mn, &C, &K};
+    void* args[] = {&st, &h, &m, &Mn, &C, &K, &obs};
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(dispatch_init);
     kp.gridDim = dim3(1);
     kp.blockDim = dim3(1);
     kp.kernelParams = args;
     err = cudaGraphAddKernelNode(&init, g, nullptr, 0, &kp);
+  }
+  if (!err && clk) {
+    int slot = 0, flags = PH_SEED;
+    void* args[] = {&clk, &slot, &flags};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(phase_mark);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = args;
+    cudaGraphNode_t seed = nullptr;
+    err = cudaGraphAddKernelNode(&seed, g, &init, 1, &kp);
+    init = seed;
   }
   cudaGraphNodeParams cp = {};
   if (!err) {
@@ -107,14 +173,20 @@ extern "C" int dispatch_graph_begin_body(void* body, void* stream) {
       nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed));
 }
 
-// End the body: with `ok`, enqueue `dispatch_cond` after the captured cycle
-// first; without (the cycle's capture failed), only end the capture.
+// End the body: with `ok`, enqueue `dispatch_cond` (with `obs` > 0,
+// `dispatch_cond_obs` of a cycle of `obs` child slots a parent) after the
+// captured cycle first; without (the cycle's capture failed), only end the
+// capture.
 extern "C" int dispatch_graph_end_body(void* stream, int ok, void* st,
                                        unsigned long long h, int m,
-                                       long long Mn, int C, int K) {
+                                       long long Mn, int C, int K, int obs) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (ok) {
+  if (ok && obs) {
+    dispatch_cond_obs<<<1, 1, 0, s>>>(static_cast<int*>(st), h, m, Mn, C, K,
+                                      obs);
+    err = cudaGetLastError();
+  } else if (ok) {
     dispatch_cond<<<1, 1, 0, s>>>(static_cast<int*>(st), h, m, Mn, C, K);
     err = cudaGetLastError();
   }
@@ -145,4 +217,107 @@ extern "C" int dispatch_graph_destroy(void* graph, void* exec) {
     if (!err) err = e2;
   }
   return static_cast<int>(err);
+}
+
+// One phase mark on `stream` (the unfused cycle's marks, from Python).
+extern "C" int phase_mark_enqueue(void* clk, int slot, int flags,
+                                  void* stream) {
+  return tts_phase_mark(clk, slot, flags, static_cast<cudaStream_t>(stream));
+}
+
+// The clock's step: one thread reads %globaltimer `reads` times back to
+// back and writes each difference from the read before to out[0..reads-1].
+__global__ void globaltimer_probe(long long* out, int reads) {
+  long long prev = tts_globaltimer();
+  for (int i = 0; i < reads; ++i) {
+    const long long now = tts_globaltimer();
+    out[i] = now - prev;
+    prev = now;
+  }
+}
+
+extern "C" int globaltimer_probe_enqueue(void* out, int reads, void* stream) {
+  globaltimer_probe<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(out), reads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The name of a kernel node's function: through this library's runtime
+// when it registered the kernel, else through the driver (a captured
+// cycle's kernels are registered by the runtime of their own library),
+// "?" when neither knows it.
+typedef CUresult (*tts_cuFuncGetName_t)(const char**, CUfunction);
+typedef CUresult (*tts_cuKernelGetName_t)(const char**, CUkernel);
+typedef CUresult (*tts_cuGraphKernelNodeGetParams_t)(
+    CUgraphNode, CUDA_KERNEL_NODE_PARAMS*);
+
+static void* tts_driver_entry(const char* symbol) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  cudaGetDriverEntryPointByVersion(symbol, &fn, 12030, cudaEnableDefault, &q);
+#else
+  cudaGetDriverEntryPoint(symbol, &fn, cudaEnableDefault, &q);
+#endif
+  return q == cudaDriverEntryPointSuccess ? fn : nullptr;
+}
+
+static const char* tts_kernel_node_name(cudaGraphNode_t node) {
+  const char* name = nullptr;
+  cudaKernelNodeParams kp = {};
+  if (cudaGraphKernelNodeGetParams(node, &kp) == cudaSuccess &&
+      cudaFuncGetName(&name, kp.func) == cudaSuccess && name)
+    return name;
+  cudaGetLastError();  // clear the runtime's miss
+  static auto get_params = reinterpret_cast<tts_cuGraphKernelNodeGetParams_t>(
+      tts_driver_entry("cuGraphKernelNodeGetParams"));
+  static auto func_name = reinterpret_cast<tts_cuFuncGetName_t>(
+      tts_driver_entry("cuFuncGetName"));
+  static auto kernel_name = reinterpret_cast<tts_cuKernelGetName_t>(
+      tts_driver_entry("cuKernelGetName"));
+  CUDA_KERNEL_NODE_PARAMS p = {};
+  if (get_params && get_params(reinterpret_cast<CUgraphNode>(node), &p) ==
+                        CUDA_SUCCESS) {
+    if (p.func && func_name && func_name(&name, p.func) == CUDA_SUCCESS &&
+        name)
+      return name;
+    if (p.kern && kernel_name &&
+        kernel_name(&name, p.kern) == CUDA_SUCCESS && name)
+      return name;
+  }
+  return "?";
+}
+
+// The kernels of a graph's nodes (the dispatch graph or its body), in the
+// order cudaGraphGetNodes gives: each kernel node's name (mangled) in `len`
+// bytes of `names`, "-" for a node of another type (the while node), at
+// most `cap` of them; *count is the graph's node count. Lets tests and
+// chip_smoke.py hold each graph to the nodes it should have.
+extern "C" int dispatch_graph_kernels(void* graph, int cap, char* names,
+                                      int len, int* count) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err) return static_cast<int>(err);
+  *count = static_cast<int>(n);
+  cudaGraphNode_t nodes[256];
+  if (n > 256) n = 256;
+  err = cudaGraphGetNodes(g, nodes, &n);
+  if (err) return static_cast<int>(err);
+  for (size_t i = 0; i < n && static_cast<int>(i) < cap; ++i) {
+    // This runtime may not know a newer driver's node types (the while
+    // node): those read as "-".
+    cudaGraphNodeType type = cudaGraphNodeTypeEmpty;
+    if (cudaGraphNodeGetType(nodes[i], &type) != cudaSuccess) {
+      cudaGetLastError();
+      type = cudaGraphNodeTypeEmpty;
+    }
+    const char* name =
+        type == cudaGraphNodeTypeKernel ? tts_kernel_node_name(nodes[i]) : "-";
+    char* out = names + i * len;
+    int j = 0;
+    for (; j < len - 1 && name[j]; ++j) out[j] = name[j];
+    out[j] = 0;
+  }
+  return 0;
 }

@@ -76,12 +76,12 @@ __global__ void nq_tiles_emit(uint8_t* __restrict__ pool_vals,
 #define TTS_NQ_TILED_LAUNCH(W, A)                                         \
   launch_nq_cycle<W, A>(nq_tiles_labels<W, A>, nq_tiles_emit<W, A>, pool_vals,    \
                         pool_aux, st, stash, chunk_aux, mask, blkcnt, bnd, \
-                        N, g, M, mt, C, mterm, K, stream)
+                        N, g, M, mt, C, mterm, K, clk, stream)
 #define TTS_NQ_TILED_ENTRY(NAME, AUX32)                                    \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,          \
                       void* stash, void* chunk_aux, void* mask,           \
                       void* blkcnt, void* bnd, int N, int g, int M, int mt, \
-                      int C, int mterm, int K, void* stream) {            \
+                      int C, int mterm, int K, void* clk, void* stream) { \
     TTS_NQ_DISPATCH(N, AUX32, TTS_NQ_TILED_LAUNCH);                        \
   }
 

@@ -24,6 +24,10 @@ count for count, because the order is the same.
 The JAX module's shape bucketing (``bucket_size``/``pad_chunk``) has no
 counterpart: PyTorch runs eagerly and compiles nothing per chunk shape, so
 a chunk is evaluated at its own size.
+
+Telemetry (`obs/`): the offload search emits one ``explored`` sample a
+phase and a flight-recorder heartbeat a consumed chunk (the JAX
+`engine/device.py:227-260`; the JAX search emits no ``explored`` samples).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import time
 import numpy as np
 import torch
 
+from ..obs import events as ev
+from ..obs import flightrec as fr
 from ..ops.backend import resolve_device
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, batch_length, index_batch
@@ -238,6 +244,7 @@ def device_search(
     pool.push_back(index_batch(problem.root(), 0))
     off = DeviceOffloader(problem, dev, staged=staged)
     problem._native()  # a first call builds it: outside the timed phases
+    fr.arm("offload")
     phases: list[PhaseStats] = []
     t0 = time.perf_counter()
 
@@ -245,14 +252,16 @@ def device_search(
     tree1, sol1, best = warmup(problem, pool, best, m)
     t1 = time.perf_counter()
     phases.append(PhaseStats(t1 - t0, tree1, sol1))
+    ev.counter("explored", tree=tree1, sol=sol1, phase=1)
 
     # -- step 2: chunked offload loop --------------------------------------
     tree2 = sol2 = 0
     chunk_buf = problem.empty_batch(M)
     pending = None  # (staged parents, count, handle)
+    n_chunk = 0  # consumed chunks (the flight recorder's sequence)
 
     def consume(p) -> None:
-        nonlocal tree2, sol2, best
+        nonlocal tree2, sol2, best, n_chunk
         parents, count, handle = p
         res = problem.generate_children(parents, count, off.collect(handle),
                                         best)
@@ -260,6 +269,9 @@ def device_search(
         sol2 += res.sol_inc
         best = res.best
         pool.push_back_bulk(res.children)
+        n_chunk += 1
+        fr.heartbeat("offload", seq=n_chunk, size=pool.size, best=best,
+                     tree=tree2, sol=sol2)
 
     try:
         while True:
@@ -285,11 +297,13 @@ def device_search(
             torch.cuda.current_stream(dev).synchronize()
     t2 = time.perf_counter()
     phases.append(PhaseStats(t2 - t1, tree2, sol2))
+    ev.counter("explored", tree=tree2, sol=sol2, phase=2)
 
     # -- step 3: drain ------------------------------------------------------
     tree3, sol3, best = drain(problem, pool, best)
     t3 = time.perf_counter()
     phases.append(PhaseStats(t3 - t2, tree3, sol3))
+    ev.counter("explored", tree=tree3, sol=sol3, phase=3)
 
     return SearchResult(
         explored_tree=tree1 + tree2 + tree3,

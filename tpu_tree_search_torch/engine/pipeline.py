@@ -21,9 +21,12 @@ dispatch and moves K along a geometric ladder toward a target period, so
 the engine builds at most ``len(ladder)`` dispatch programs (on the card,
 one CUDA graph a rung, `ops/dispatch.py`).
 
+``TTS_COSTMODEL``: a measured cost-model profile (``obs/costmodel.py``)
+whose per-dispatch latency fit sets the AdaptiveK band
+(``resolve_target_band``).
+
 Not ported: the JAX module's ``@contract`` (``analysis.contracts``, the
-program-audit registry; `ROADMAP.md` A.10), and the measured cost-model
-band of ``resolve_target_band`` (``obs/costmodel.py``, A.7).
+program-audit registry; `ROADMAP.md` A.10).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ MAX_DEPTH = 3
 #: detection and checkpoint cadence.
 RESIDENT_TARGET = (0.100, 0.250)
 
-#: Tighter band for the mesh and dist tiers (not ported yet): incumbent
+#: Tighter band for the mesh and dist tiers (ROADMAP A.9): incumbent
 #: folds, balancing and exchange happen at dispatch boundaries.
 MESH_TARGET = (0.050, 0.150)
 
@@ -52,21 +55,48 @@ def resolve_target_band(
     default: tuple[float, float],
     problem=None,
     topology: str = "",
+    device=None,
 ) -> tuple[tuple[float, float], str | None]:
-    """The AdaptiveK target band for one run: ``(band, source)``.
+    """The AdaptiveK target band for one run: ``(band, source)`` — the JAX
+    function (`tpu_tree_search/engine/pipeline.py:67-110`).
 
-    Returns ``(default, None)``. ``TTS_COSTMODEL`` (a measured profile
-    whose per-dispatch latency fit sets the band) needs ``obs/costmodel.py``,
-    which is not ported: with the variable set (other than ``0``) this
-    raises ``NotImplementedError`` rather than ignore it."""
-    del tier, problem, topology
+    With ``TTS_COSTMODEL=<profile>`` set and a usable entry in it, the band
+    derives from the profile's MEASURED per-dispatch latency fit
+    (``obs/costmodel.py``) and the source is the entry's key; otherwise
+    ``default`` with source None (a missing or corrupt profile too, as the
+    JAX ``costmodel.load`` returns None). The profile's backend key is
+    ``gpu`` for a run on the card, ``cpu`` for one on the CPU
+    (``device``; None: the card when there is one). A band only moves K
+    along the ladder: the search's counts do not depend on it."""
     path_env = os.environ.get("TTS_COSTMODEL", "") or ""
     if path_env in ("", "0"):
         return default, None
-    raise NotImplementedError(
-        f"TTS_COSTMODEL={path_env!r}: the cost-model band needs "
-        "obs/costmodel.py, which is not ported yet (ROADMAP.md A.7); unset "
-        "it to run on the fixed band")
+    from ..obs import costmodel as cm
+
+    profile = cm.load(path_env)
+    if not profile:
+        return default, None
+    hit = cm.lookup(profile, profile_backend(device), topology,
+                    cm.shape_class(problem))
+    if hit is None:
+        return default, None
+    key, entry = hit
+    band = cm.resolve_band(entry, tier)
+    if band is None:
+        return default, None
+    return band, key
+
+
+def profile_backend(device=None) -> str:
+    """The cost-model profile key's backend of a run on ``device``: ``gpu``
+    on the card, ``cpu`` on the CPU."""
+    if device is None:
+        import torch
+
+        return "gpu" if torch.cuda.is_available() else "cpu"
+    import torch
+
+    return "gpu" if torch.device(device).type == "cuda" else "cpu"
 
 
 def pipeline_mode() -> str:

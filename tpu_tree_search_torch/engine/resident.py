@@ -61,22 +61,44 @@ without phase 3; ``resume_from`` replaces phase 1 by the saved frontier and
 keeps counting. The file format is the JAX package's, so a cut taken by
 either package resumes in the other.
 
-Not ported yet (ROADMAP): the steady-state guard and the telemetry blocks.
+Telemetry (`obs/`, the JAX engine's): with ``TTS_OBS=1`` the counter block
+(`obs/counters.py`) is folded after every cycle on the device — on the
+graph by its last body node, ``dispatch_cond_obs`` — and read with the
+dispatch's scalars; with ``TTS_PHASEPROF=1`` (which arms the counters too)
+the phase clock (`obs/phases.py`) is marked between the cycle's launches
+on ``%globaltimer``. Each armed combination builds its own graphs (keyed
+on the two flags); off, the graphs are the untelemetered ones. The host
+side emits the JAX engine's events: ``dispatch`` spans, per-phase
+``explored`` samples (phase 2's from the counter block when it ran),
+``incumbent``, ``pipeline``, ``roofline_meta``, ``k_resize``,
+``overflow_fallback``, ``checkpoint``, and feeds the flight recorder and
+the quality tracker at every consumed dispatch.
+
+Not ported yet (ROADMAP A.10): the steady-state guard.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..obs import counters as obs_counters
+from ..obs import events as ev
+from ..obs import flightrec as fr
+from ..obs import phases as obs_phases
+from ..obs import quality as obs_quality
+from ..obs import roofline as obs_roofline
 from ..ops.backend import resolve_device
 from ..ops.compaction import compact_ids, resolve_compact_mode, shift_compact, survivor_ranks
 from ..ops.cycle import (
     ST_ACTIVE,
     ST_BEST,
+    ST_CTR,
+    ST_CTR_SOL,
     ST_CYCLES,
     ST_RUNS,
     ST_SIZE,
@@ -101,7 +123,12 @@ from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 from ..problems.nqueens import NQueensProblem
 from ..problems.pfsp.problem import PFSPProblem
-from ..ops.dispatch import DispatchGraph
+from ..ops.dispatch import (
+    DispatchGraph,
+    dispatch_cond_obs_plain,
+    new_clock,
+    phase_mark,
+)
 from . import checkpoint as ckpt
 from .device import DeviceOffloader, drain, pool_dtype, pool_dtypes, warmup
 from .pipeline import (
@@ -123,6 +150,21 @@ class ResidentState:
     pool_vals: torch.Tensor  # (C, width)
     pool_aux: torch.Tensor  # (C,) PFSP limit1 / N-Queens depth
     st: torch.Tensor  # (ST_LEN,) int32
+
+
+class DispatchRead(NamedTuple):
+    """One dispatch's read: the scalars, the counter block and the phase
+    block (lists of ints, or None when not armed) and the dispatch's
+    device ms (CUDA events around the graph launch; None off the graph)."""
+
+    tree: int
+    sol: int
+    cycles: int
+    size: int
+    best: int
+    ctr: list | None
+    ph: list | None
+    device_ms: float | None
 
 
 def pool_from_numpy(vals, aux, size: int, best: int, capacity: int,
@@ -169,7 +211,9 @@ class _ResidentProgram:
     Pool layout (both problems): ``vals`` (C, width) rows of
     ``vals_dtype`` plus one scalar ``aux`` column (C,) of ``aux_dtype``.
     Subclasses provide the storage types, the evaluator, the swap position
-    and the fused cycle.
+    and the fused cycle. The telemetry flags are read when the program is
+    made: ``obs`` (the counter block, `obs/counters.py`) and ``phaseprof``
+    (the phase clock ``clk``, `obs/phases.py`).
     """
 
     survivor_budget_div: int
@@ -212,6 +256,13 @@ class _ResidentProgram:
         # done) of the in-flight dispatches' scalars (``host_slots``).
         self._slots: list[tuple] = []
         self._next_slot = 0
+        # Telemetry, baked into the graphs (keys of their cache).
+        self.obs = obs_counters.device_counters_enabled()
+        self.phaseprof = obs_phases.phase_profiling_enabled()
+        self.clk = new_clock(self.device) if self.phaseprof else None
+        # The state words a dispatch's read copies: through the body's runs,
+        # or through the counter block.
+        self._nread = ST_CTR_SOL + 1 if self.obs else ST_RUNS + 1
 
     def use_k(self, K: int) -> None:
         """Cycles a dispatch: K, clamped so that one dispatch accumulates at
@@ -247,9 +298,11 @@ class _ResidentProgram:
         dispatches in flight (the graph dispatch's lagged reads)."""
         if self.graphed:
             self._slots = [
-                (torch.empty(ST_RUNS + 1, dtype=torch.int32, pin_memory=True),
+                (torch.empty(self._nread, dtype=torch.int32, pin_memory=True),
                  torch.cuda.Event(enable_timing=True),
-                 torch.cuda.Event(enable_timing=True), torch.cuda.Event())
+                 torch.cuda.Event(enable_timing=True), torch.cuda.Event(),
+                 None if self.clk is None else torch.empty(
+                     self.clk.numel(), dtype=torch.int64, pin_memory=True))
                 for _ in range(max(1, depth))]
             self._next_slot = 0
 
@@ -261,43 +314,64 @@ class _ResidentProgram:
             self._graph(state).launch()
             return
         state.st[ST_TREE:ST_CYCLES + 1] = 0  # tree, sol, cycles
+        if self.obs:
+            state.st[ST_CTR:ST_CTR_SOL + 1] = 0
+        if self.clk is not None:
+            phase_mark(self.clk, 0, obs_phases.SEED)
         if self.fused:
+            n = self.problem.child_slots
             for _ in range(self.K):
                 self._fused_cycle(state)
                 if not int(state.st[ST_ACTIVE]):
                     break
+                if self.obs:
+                    dispatch_cond_obs_plain(state.st, n, self.m, self.M * n,
+                                            self.capacity, self.K)
         else:
             self._unfused_step(state)
 
     def enqueue(self, state: ResidentState):
-        """``step``, and a function that returns its scalars ``(tree, sol,
-        cycles, size, best)``. On the card's fused cycle the graph launch
-        sits between two timing events, the scalars are copied without
-        blocking into the next pinned slot behind a third, and the function
-        waits for that event, adds the dispatch's device time and counts
-        the body's runs as the cycle's launches (``DispatchGraph.count``);
-        elsewhere the step has run on the host's clock and the function
-        returns what it read."""
+        """``step``, and a function ``read(full=False)`` that returns its
+        scalars ``(tree, sol, cycles, size, best)``, or with ``full`` a
+        ``DispatchRead`` (the scalars, the counter block, the phase block,
+        the dispatch's device ms). On the card's fused cycle the graph
+        launch sits between two timing events, the state (and the clock)
+        are copied without blocking into the next pinned slot behind a
+        third, and the function waits for that event, adds the dispatch's
+        device time and counts the body's runs as the cycle's launches
+        (``DispatchGraph.count``); elsewhere the step has run on the host's
+        clock and the function returns what it read."""
         if not self.graphed:
             self.step(state)
             scalars = self.read_scalars(state)
-            return lambda: scalars
-        buf, start, end, done = self._slots[self._next_slot]
+            blocks = self.read_blocks(state)
+
+            def read_host(full: bool = False):
+                return DispatchRead(*scalars, *blocks, None) if full else scalars
+            return read_host
+        buf, start, end, done, clkbuf = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
         g = self._graph(state)
         start.record()
         g.launch()
         end.record()
-        buf.copy_(state.st[:ST_RUNS + 1], non_blocking=True)
+        buf.copy_(state.st[:self._nread], non_blocking=True)
+        if clkbuf is not None:
+            clkbuf.copy_(self.clk, non_blocking=True)
         done.record()
 
-        def read():
+        def read(full: bool = False):
             done.synchronize()
-            self.dispatch_device_s += start.elapsed_time(end) / 1e3
-            scalars = buf.tolist()
-            size, best, tree, sol, cycles = scalars[:ST_CYCLES + 1]
-            g.count(scalars[ST_RUNS])
-            return tree, sol, cycles, size, best
+            ms = start.elapsed_time(end)
+            self.dispatch_device_s += ms / 1e3
+            v = buf.tolist()
+            size, best, tree, sol, cycles = v[:ST_CYCLES + 1]
+            g.count(v[ST_RUNS])
+            if not full:
+                return tree, sol, cycles, size, best
+            ctr = v[ST_CTR:ST_CTR + obs_counters.NSLOTS] if self.obs else None
+            ph = clkbuf.tolist() if clkbuf is not None else None
+            return DispatchRead(tree, sol, cycles, size, best, ctr, ph, ms)
         return read
 
     def read_scalars(self, state: ResidentState):
@@ -305,16 +379,25 @@ class _ResidentProgram:
         size, best, tree, sol, cycles = state.st[:ST_CYCLES + 1].tolist()
         return tree, sol, cycles, size, best
 
+    def read_blocks(self, state: ResidentState):
+        """The dispatch's telemetry: ``(counter block, phase block)``, each
+        a list of ints, or None when not armed."""
+        ctr = (state.st[ST_CTR:ST_CTR + obs_counters.NSLOTS].tolist()
+               if self.obs else None)
+        ph = self.clk.tolist() if self.clk is not None else None
+        return ctr, ph
+
     def _graph(self, state: ResidentState) -> DispatchGraph:
-        """The dispatch graph of the current K over ``state``'s tensors,
-        built at first use."""
+        """The dispatch graph of the current K over ``state``'s tensors and
+        the telemetry flags, built at first use."""
         key = (self.K, state.st.data_ptr(), state.pool_vals.data_ptr(),
-               state.pool_aux.data_ptr())
+               state.pool_aux.data_ptr(), self.obs, self.phaseprof)
         g = self._graphs.get(key)
         if g is None:
+            n = self.problem.child_slots
             g = DispatchGraph(lambda: self._fused_cycle(state), state.st,
-                              self.m, self.M * self.problem.child_slots,
-                              self.capacity, self.K)
+                              self.m, self.M * n, self.capacity, self.K,
+                              obs=n if self.obs else 0, clk=self.clk)
             self.graph_build_s += g.build_s
             self._graphs[key] = g
         return g
@@ -368,14 +451,24 @@ class _ResidentProgram:
     # -- the unfused cycle ---------------------------------------------------
 
     def _unfused_step(self, state: ResidentState) -> None:
-        """Up to K unfused cycles; synchronises once per cycle."""
+        """Up to K unfused cycles; synchronises once per cycle. Armed, each
+        cycle is folded into the counter block (JAX's non-megakernel
+        slots: an overflow cycle counts one ``overflow`` and M*n
+        ``push_rows``, a fitting one S) and the phase clock is marked
+        after the pop, the evaluation, the compaction and the push or
+        overflow (``phase_mark`` on the stream)."""
         n, m, M, C, S = self.problem.child_slots, self.m, self.M, self.capacity, self.S
         Mn = M * n
         dev = self.device
         pool_vals, pool_aux = state.pool_vals, state.pool_aux
         size, best = (int(v) for v in state.st[:ST_BEST + 1].tolist())
         tree = sol = cycles = 0
+        clk = self.clk
+        ctr = [0] * obs_counters.NSLOTS if self.obs else None
+        P = obs_phases.IDX
         while size >= m and size + Mn <= C and cycles < self.K:
+            if clk is not None:
+                phase_mark(clk, P["loop"], obs_phases.OPEN)
             cnt = min(size, M)
             start = size - cnt
             start2 = min(max(start, 0), C - M)
@@ -384,20 +477,36 @@ class _ResidentProgram:
             vals_c = pool_vals[start2:start2 + M].clone()
             aux_c = pool_aux[start2:start2 + M].to(torch.int32)
             size = start
+            if clk is not None:
+                phase_mark(clk, P["pop"])
             keep, sol_inc, best_t = self._evaluate(vals_c, aux_c, valid, best)
+            if clk is not None:
+                phase_mark(clk, P["eval"])
             ids, tree_inc = compact_ids(keep, S, self.compact)
+            if clk is not None:
+                phase_mark(clk, P["compact"])
             tree_inc, sol_inc, best = torch.stack(
                 [tree_inc, sol_inc, best_t.to(torch.int32)]).tolist()
-            if tree_inc <= S:
+            fits = tree_inc <= S
+            if fits:
                 self._push_small(pool_vals, pool_aux, vals_c, aux_c, ids, size)
             else:
                 self._push_big(pool_vals, pool_aux, vals_c, aux_c, keep, size)
+            if clk is not None:
+                phase_mark(clk, P["push"] if fits else P["overflow"],
+                           obs_phases.CLOSE)
             size += tree_inc
             tree += tree_inc
             sol += sol_inc
             cycles += 1
+            if ctr is not None:
+                ctr = obs_counters.update(ctr, cnt, n, tree_inc, sol_inc,
+                                          not fits, size, S if fits else Mn)
         state.st[:ST_CYCLES + 1] = torch.tensor(
             [size, best, tree, sol, cycles], dtype=torch.int32)
+        if ctr is not None:
+            state.st[ST_CTR:ST_CTR + obs_counters.NSLOTS] = torch.tensor(
+                ctr, dtype=torch.int32)
 
     def _push_small(self, pool_vals, pool_aux, vals_c, aux_c, ids, size):
         """Fused prune+push (`resident.py:311-352`): ONE gather of the
@@ -492,11 +601,11 @@ class PFSPResident(_ResidentProgram):
         if self.tiled:
             (tiled_lb2 if lb2 else tiled_lb1)(
                 state.pool_vals, state.pool_aux, state.st, self._scratch,
-                self.tables, self.M, self.mt, self.m, self.K)
+                self.tables, self.M, self.mt, self.m, self.K, self.clk)
             return
         (cycle_lb2 if lb2 else cycle_lb1)(
             state.pool_vals, state.pool_aux, state.st, self._scratch,
-            self.tables, self.M, self.m, self.K)
+            self.tables, self.M, self.m, self.K, self.clk)
 
     def _swap_pos(self, aux):
         return aux + 1  # parent depth = limit1 + 1
@@ -547,11 +656,11 @@ class NQueensResident(_ResidentProgram):
         if self.tiled:
             tiled_nqueens(state.pool_vals, state.pool_aux, state.st,
                           self._scratch, self.problem, self.M, self.mt,
-                          self.m, self.K)
+                          self.m, self.K, self.clk)
             return
         cycle_nqueens(state.pool_vals, state.pool_aux, state.st,
                       self._scratch, self.problem.N, self.problem.g, self.M,
-                      self.m, self.K)
+                      self.m, self.K, self.clk)
 
     def _swap_pos(self, aux):
         return aux  # swap position is the parent depth itself
@@ -609,6 +718,25 @@ def resolve_capacity(problem: Problem, M: int, capacity: int | None) -> tuple[in
     return capacity, M
 
 
+def _emit_device_explored(ctr_total: dict | None, tree2: int, sol2: int,
+                          fb_tree: int, fb_sol: int) -> None:
+    """Phase 2's ``explored`` samples. When the counter block ran, the
+    device part comes from its totals (so the obs totals exercise the
+    counter path, not the engine's own sums — tests pin exact parity) and
+    the stall fallback's host part is a sample of its own; otherwise one
+    sample carries the engine's counts (`tpu_tree_search/engine/resident.py`
+    ``_emit_device_explored``)."""
+    if not ev.enabled():
+        return
+    if ctr_total is not None:
+        ev.counter("explored", tree=ctr_total["pushed"],
+                   sol=ctr_total["leaves"], phase=2)
+        if fb_tree or fb_sol:
+            ev.counter("explored", tree=fb_tree, sol=fb_sol, phase=2)
+    else:
+        ev.counter("explored", tree=tree2, sol=sol2, phase=2)
+
+
 def resident_search(
     problem: Problem,
     m: int = 25,
@@ -656,15 +784,23 @@ def resident_search(
     and no phase 3. ``resume_from`` loads a saved file in place of phase 1:
     its counters are phase 1's, the incumbent is the lower of ``best`` and
     the saved one, and the pool grows to hold the frontier and one
-    fan-out."""
+    fan-out.
+
+    Telemetry (`obs/`): under ``TTS_OBS=1`` the result's ``obs`` holds the
+    counter totals, under ``TTS_PHASEPROF=1`` also the per-phase ns
+    (``phase_profile``) and the memory-roofline audit (``roofline``);
+    ``TTS_QUALITY=1`` records the incumbent trajectory (``quality``);
+    with event tracing on (``TTS_OBS`` 1 or host) the run emits the JAX
+    engine's events."""
     dev = resolve_device(device)
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
     n = problem.child_slots
     capacity, M = resolve_capacity(problem, M, capacity)
     k_auto, k_value = resolve_k(K, default_max=4096)
-    band, _ = resolve_target_band("resident", RESIDENT_TARGET, problem,
-                                  topology="device-D1")
+    # TTS_COSTMODEL: a measured-profile band replaces the fixed target.
+    band, band_src = resolve_target_band("resident", RESIDENT_TARGET, problem,
+                                         topology="device-D1", device=dev)
     depth = resolve_pipeline_depth()
     ctl = AdaptiveK(k_value, target=band) if k_auto else None
     pool = SoAPool(problem.node_fields())
@@ -687,6 +823,7 @@ def resident_search(
         tree1, sol1, best = warmup(problem, pool, best, target)
     t1 = time.perf_counter()
     phases.append(PhaseStats(t1 - t0, tree1, sol1))
+    ev.counter("explored", tree=tree1, sol=sol1, phase=1)
 
     # -- phase 2: device-resident loop ----------------------------------------
     program = make_program(problem, m, M, ctl.K if ctl else k_value,
@@ -700,20 +837,73 @@ def resident_search(
     size = m
     offloader = None
     queue = DispatchQueue(depth)
+    ctr_total: dict | None = None  # counter totals (TTS_OBS=1)
+    ph_total: dict | None = None  # per-phase ns totals (TTS_PHASEPROF=1)
+    cycles_total = 0  # device cycles consumed (the roofline's cycles)
+    fb_tree = fb_sol = 0  # the stall fallback's host increments
+    prev_best = best
+    # Anytime quality: None off; else the incumbent trajectory from the
+    # scalars consume() already reads.
+    qt = obs_quality.tracker(problem)
+    # The steady-state torch.profiler window (--torch-trace): opens after
+    # the first consumed dispatch (the graph build excluded).
+    twin = obs_phases.TorchTraceWindow("resident")
+
+    def obs_result() -> dict | None:
+        parts = {}
+        if ctr_total is not None:
+            parts["device_counters"] = ctr_total
+        if ph_total is not None:
+            parts["device_phases"] = ph_total
+        return parts or None
 
     def enqueue() -> None:
         # Speculative dispatch: the state chains on the device from one
         # dispatch into the next, so up to `depth` K-cycle blocks ride the
         # stream while the host reads lagged scalars.
-        queue.push(program.enqueue(state), time.perf_counter())
+        queue.push(program.enqueue(state), ev.now_us())
 
-    def consume(read) -> int:
-        nonlocal tree2, sol2, size, best, dispatches
-        tree_inc, sol_inc, cycles, size, best = read()
+    def consume(read, t_enq: float) -> int:
+        nonlocal tree2, sol2, size, best, dispatches, ctr_total, ph_total
+        nonlocal cycles_total, prev_best
+        t_wait = ev.now_us()
+        r = read(full=True)
+        tree_inc, sol_inc, cycles, size, best = r[:5]
         tree2 += tree_inc
         sol2 += sol_inc
         dispatches += 1
+        cycles_total += cycles
         diagnostics.kernel_launches += cycles
+        if r.ctr is not None:
+            ctr_total = obs_counters.merge_host(ctr_total, r.ctr)
+        if r.ph is not None:
+            ph_total = obs_phases.merge_host(ph_total, r.ph)
+        twin.on_dispatch(dispatches)
+        fr.heartbeat("resident", seq=dispatches, cycles=cycles, size=size,
+                     best=best, tree=tree2, sol=sol2, depth=depth,
+                     K=program.K, inflight=len(queue), phases=ph_total)
+        if qt is not None:
+            qt.observe(best, dispatches, tree1 + tree2)
+        if ev.enabled():
+            now = ev.now_us()
+            # The span covers enqueue -> scalars read (spans overlap at
+            # depth > 1; `report` merges overlaps for the busy fraction);
+            # read_wait_us is the blocked part, device_ms the graph's
+            # device time (CUDA events; None off the graph).
+            ev.emit("dispatch", ph="X", ts=t_enq,
+                    dur=max(0.0, now - t_enq), args={
+                        "cycles": cycles, "tree": tree_inc, "sol": sol_inc,
+                        "size": size, "best": best,
+                        "enqueue_us": t_enq, "read_wait_us": now - t_wait,
+                        "pipeline_depth": depth, "device_ms": r.device_ms,
+                    })
+            if r.ctr is not None:
+                ev.counter("device_counters", **obs_counters.as_args(r.ctr))
+            if r.ph is not None:
+                ev.counter("device_phases", **obs_phases.as_args(r.ph))
+            if best < prev_best:
+                ev.emit("incumbent", args={"best": best})
+        prev_best = best
         return cycles
 
     def drain_queue() -> tuple[int, int]:
@@ -722,8 +912,8 @@ def resident_search(
         # K resizes, the capacity-stall fallback): zeros for speculative
         # no-ops. Returns the (tree, sol) the drained dispatches added.
         tree0, sol0 = tree2, sol2
-        for read, _ in queue.drain():
-            consume(read)
+        for read, t_enq in queue.drain():
+            consume(read, t_enq)
         return tree2 - tree0, sol2 - sol0
 
     def snapshot_fn():
@@ -736,13 +926,26 @@ def resident_search(
         snapshot_fn, drain_fn=drain_queue, yield_fn=yield_fn)
     complete = True
 
+    fr.arm("resident")
+    ev.emit("pipeline", args={
+        "depth": depth, "K": program.K, "k_auto": k_auto, "tier": "resident",
+    })
+    if ev.enabled():
+        # The static shape facts `report --roofline` rebuilds the floors
+        # from, with the device_counters and device_phases samples.
+        ev.emit("roofline_meta", args=obs_roofline.meta_args(program))
+    if band_src is not None:
+        ev.emit("costmodel", args={
+            "source": band_src, "lo_ms": round(1e3 * band[0], 1),
+            "hi_ms": round(1e3 * band[1], 1), "tier": "resident",
+        })
     try:
         last_ready = time.monotonic()
         while True:
             while not queue.full:
                 enqueue()
-            read, _ = queue.pop()
-            cycles = consume(read)
+            read, t_enq = queue.pop()
+            cycles = consume(read, t_enq)
             now = time.monotonic()
             period, last_ready = now - last_ready, now
             if size < m:
@@ -751,12 +954,14 @@ def resident_search(
             if controller.after_step(tree1 + tree2, sol1 + sol2):
                 drain_queue()  # a no-op when the cut's save drained it
                 complete = False
+                ev.emit("checkpoint", args={"cutoff": True})
                 break
             if ctl is not None and cycles > 0 and ctl.observe(period, cycles):
                 # Geometric-ladder K resize: drain, then switch to the
                 # rung's graph (built once a rung, on the same state).
                 drain_queue()
                 program.use_k(ctl.K)
+                ev.emit("k_resize", args={"K": program.K})
                 last_ready = time.monotonic()
                 if size < m:
                     break  # the drained dispatches finished the search
@@ -767,6 +972,8 @@ def resident_search(
                 # headroom again (rare; guarantees progress at any
                 # capacity).
                 drain_queue()  # stalled speculative dispatches are no-ops
+                t_fb = ev.now_us()
+                fb_tree0, fb_sol0 = tree2, sol2
                 stalls += 1
                 batch, size, best = program.residual(state)
                 diagnostics.device_to_host += 1
@@ -788,12 +995,19 @@ def resident_search(
                 pool.clear()
                 diagnostics.host_to_device += 1
                 last_ready = time.monotonic()
+                fb_tree += tree2 - fb_tree0
+                fb_sol += sol2 - fb_sol0
+                ev.complete("overflow_fallback", t_fb, args={
+                    "tree": tree2 - fb_tree0, "sol": sol2 - fb_sol0,
+                })
+        twin.close()
         if complete:
             batch, size, best = program.residual(state)
             diagnostics.device_to_host += 1
     finally:
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
+        twin.close()
         program.close()
     if offloader is not None:
         diagnostics.kernel_launches += offloader.diagnostics.kernel_launches
@@ -801,6 +1015,7 @@ def resident_search(
         diagnostics.device_to_host += offloader.diagnostics.device_to_host
     t2 = time.perf_counter()
     phases.append(PhaseStats(t2 - t1, tree2, sol2))
+    _emit_device_explored(ctr_total, tree2, sol2, fb_tree, fb_sol)
 
     # -- phase 3: host drain (none after a cut) --------------------------------
     tree3 = sol3 = 0
@@ -808,6 +1023,10 @@ def resident_search(
         pool.reset_from(batch)
         tree3, sol3, best = drain(problem, pool, best)
         phases.append(PhaseStats(time.perf_counter() - t2, tree3, sol3))
+        ev.counter("explored", tree=tree3, sol=sol3, phase=3)
+        if qt is not None:
+            # The host drain can improve the incumbent one last time.
+            qt.observe(best, dispatches, tree1 + tree2 + tree3)
 
     return SearchResult(
         explored_tree=tree1 + tree2 + tree3,
@@ -831,4 +1050,9 @@ def resident_search(
         k_auto=k_auto,
         graph_build_s=program.graph_build_s,
         dispatch_device_s=program.dispatch_device_s,
+        obs=obs_result(),
+        phase_profile=ph_total,
+        roofline=obs_roofline.result_audit(program, ph_total, ctr_total,
+                                           cycles_total),
+        quality=qt.result() if qt is not None else None,
     )

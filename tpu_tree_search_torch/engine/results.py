@@ -87,3 +87,14 @@ class SearchResult:
     # CUDA events around each graph launch (the graph's nodes and the
     # latency between them), summed; None off the graph.
     dispatch_device_s: float | None = None
+    # Telemetry (`obs/`; `tpu_tree_search/engine/results.py:96-129`):
+    # ``obs`` — the counter totals (``device_counters``, TTS_OBS=1) and the
+    # per-phase ns totals (``device_phases``); ``phase_profile`` — the
+    # per-phase ns totals alone (TTS_PHASEPROF=1); ``roofline`` — the
+    # memory-roofline audit of a phase-profiled run (`obs/roofline.py`);
+    # ``quality`` — the incumbent trajectory (TTS_QUALITY=1,
+    # `obs/quality.py`). None when not armed.
+    obs: dict | None = None
+    phase_profile: dict | None = None
+    roofline: dict | None = None
+    quality: dict | None = None

@@ -36,9 +36,10 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..obs.phases import CLOSE, IDX, OPEN
 from ..problems.base import INF_BOUND
 from . import _build
-from .dispatch import count_launch
+from .dispatch import clock_pointer, count_launch, count_marks, phase_mark
 from .lb2_kernel import johnson_operands
 from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 
@@ -46,7 +47,10 @@ from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 ST_SIZE, ST_BEST, ST_TREE, ST_SOL, ST_CYCLES = 0, 1, 2, 3, 4
 ST_ACTIVE, ST_CNT, ST_START2, ST_BASE = 5, 6, 7, 8
 ST_RUNS = 9  # the dispatch graph's body runs (`ops/dispatch.py`)
-ST_LEN = 16
+# The counter block (TTS_OBS=1, `obs/counters.py`): its eight slots, then the
+# tree and sol the block last saw.
+ST_CTR, ST_CTR_TREE, ST_CTR_SOL = 16, 24, 25
+ST_LEN = 32
 
 
 def new_state(size: int, best: int, device) -> torch.Tensor:
@@ -58,7 +62,7 @@ def new_state(size: int, best: int, device) -> torch.Tensor:
 
 def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
                       valid: torch.Tensor, best: torch.Tensor,
-                      tables: PFSPDeviceTables, bound=lb1_chunk):
+                      tables: PFSPDeviceTables, bound=lb1_chunk, mark=None):
     """One cycle on a popped chunk — the JAX ``make_cycle`` PFSP contract
     under ``bound`` (``lb1_chunk`` or ``lb2_chunk``; the keep test is the
     unstaged one, as in the JAX megakernel).
@@ -68,7 +72,9 @@ def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
     best)`` (0-d int32 tensors): the survivors in (parent, slot) order, each
     its parent with positions limit1+1 and k swapped, with caux = limit1+1;
     rows past tree_inc are zero. Leaves fold into best before the keep test
-    (`pfsp_chpl.chpl:100-111`).
+    (`pfsp_chpl.chpl:100-111`). ``mark(slot)``, when given, is called after
+    the bounds (``eval``) and after the keep ranks (``compact``): the
+    boundaries of the CUDA cycle's phase marks.
     """
     M, n = vals_c.shape
     dev = vals_c.device
@@ -81,9 +87,13 @@ def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
     sol_inc = torch.sum(leaf, dtype=torch.int32)
     inf = torch.full_like(lb, INF_BOUND)
     best = torch.minimum(best.to(torch.int32), torch.where(leaf, lb, inf).min())
+    if mark is not None:
+        mark(IDX["eval"])
     keep = open_ & ~leaf & (lb < best)
     pi, kj = keep.nonzero(as_tuple=True)
     tree_inc = pi.numel()
+    if mark is not None:
+        mark(IDX["compact"])
     parent = vals_c[pi].to(torch.int32)
     d = pdepth[pi].long()
     ar = torch.arange(tree_inc, device=dev)
@@ -100,19 +110,31 @@ def cycle_chunk_plain(vals_c: torch.Tensor, aux_c: torch.Tensor,
             sol_inc, best)
 
 
+def plain_marker(clk: torch.Tensor | None):
+    """``mark(slot, flags=0)`` on a CPU phase clock (``phase_mark``), or
+    None without one: the plain cycles' phase marks."""
+    if clk is None:
+        return None
+    return lambda slot, flags=0: phase_mark(clk, slot, flags)
+
+
 def plain_pool_cycle(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                      st: torch.Tensor, M: int, m: int, K: int,
-                     chunk_cycle) -> None:
+                     chunk_cycle, mark=None) -> None:
     """One cycle on the pool, in place, around ``chunk_cycle(vals_c, aux_c,
     valid, best) -> (rows, caux, tree_inc, sol_inc, best)`` (a problem's
     chunk contract): the loop condition, the pop, the push of the survivors
     at the pool's size and the state update — what one fused CUDA cycle
-    computes (reads the state on the host: plain, not the hot path)."""
+    computes (reads the state on the host: plain, not the hot path).
+    ``mark`` (``plain_marker``) opens an active cycle (``loop``) and closes
+    it after the push (``push``); ``chunk_cycle`` marks in between."""
     C, n = pool_vals.shape
     size, _, _, _, cycles = (int(v) for v in st[:ST_ACTIVE].tolist())
     if not (size >= m and size + M * n <= C and cycles < K):
         st[ST_ACTIVE] = 0
         return
+    if mark is not None:
+        mark(IDX["loop"], OPEN)
     cnt = min(size, M)
     start = size - cnt
     start2 = min(max(start, 0), C - M)
@@ -133,34 +155,38 @@ def plain_pool_cycle(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     st[ST_CNT] = cnt
     st[ST_START2] = start2
     st[ST_BASE] = start
+    if mark is not None:
+        mark(IDX["push"], CLOSE)
 
 
 def cycle_pfsp_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                      st: torch.Tensor, tables: PFSPDeviceTables, M: int,
-                     m: int, K: int, bound) -> None:
+                     m: int, K: int, bound, clk=None) -> None:
     """The whole PFSP cycle under ``bound`` on the pool, in place:
     condition, pop, bounds, prune, compaction and push, and the state
-    update."""
+    update; with a CPU phase clock ``clk``, the CUDA cycle's marks
+    (``loop``, ``eval``, ``compact``, ``push``) on the host's clock."""
+    mark = plain_marker(clk)
     plain_pool_cycle(
         pool_vals, pool_aux, st, M, m, K,
         lambda v, a, valid, best: cycle_chunk_plain(v, a, valid, best, tables,
-                                                    bound))
+                                                    bound, mark), mark)
 
 
 def cycle_lb1_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                     st: torch.Tensor, tables: PFSPDeviceTables, M: int,
-                    m: int, K: int) -> None:
+                    m: int, K: int, clk=None) -> None:
     """What one ``cycle_lb1_cuda`` call computes (kernel 2's plain
     version)."""
-    cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb1_chunk)
+    cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb1_chunk, clk)
 
 
 def cycle_lb2_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                     st: torch.Tensor, tables: PFSPDeviceTables, M: int,
-                    m: int, K: int) -> None:
+                    m: int, K: int, clk=None) -> None:
     """What one ``cycle_lb2_cuda`` call computes (kernel 8's plain
     version)."""
-    cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb2_chunk)
+    cycle_pfsp_plain(pool_vals, pool_aux, st, tables, M, m, K, lb2_chunk, clk)
 
 
 def mask_words(n: int) -> int:
@@ -264,20 +290,24 @@ _ENTRIES = {
 }
 _ARGTYPES = {
     "cycle_lb1": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
-    + (ctypes.c_void_p,),
+    + (ctypes.c_void_p,) * 2,
     "cycle_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
-    + (ctypes.c_void_p,),
+    + (ctypes.c_void_p,) * 2,
 }
+#: Phase marks a PFSP cycle enqueues with a clock (loop, eval, compact,
+#: push), and an N-Queens cycle (loop, eval, push).
+PFSP_MARKS, NQ_MARKS = 4, 3
 
 
 def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
                        pool_aux: torch.Tensor, st: torch.Tensor,
                        scratch: CycleScratch, tables: PFSPDeviceTables,
                        M: int, m: int, K: int, table_args: tuple,
-                       table_sizes: tuple) -> None:
+                       table_sizes: tuple, clk=None) -> None:
     """Check the operands of a PFSP cycle and enqueue the entry of
     ``csrc/<source>.cu``: the pool, state and scratch pointers, then
-    ``table_args`` (tensors) and ``table_sizes`` (ints), then M, C, m, K."""
+    ``table_args`` (tensors) and ``table_sizes`` (ints), then M, C, m, K,
+    and the phase clock (None: no marks)."""
     if not pool_vals.is_cuda:
         raise ValueError(f"{source} takes CUDA tensors")
     entries = _ENTRIES[source]
@@ -297,24 +327,29 @@ def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
                                  parents_per_block(source)):
         raise ValueError("scratch must be cycle_scratch(M, n) of the pool "
                          "dtype, and the pool hold at least M rows")
+    clk_ptr = clock_pointer(clk)
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
              *(t.data_ptr() for t in table_args),
-             *table_sizes, M, C, m, K, stream)
+             *table_sizes, M, C, m, K, clk_ptr, stream)
     _build.check(lib, err, source)
+    count_marks(clk, PFSP_MARKS)
 
 
 def cycle_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                    st: torch.Tensor, scratch: CycleScratch,
-                   tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
-    """Enqueue one lb1 cycle (three launches) on the current stream; updates
-    the pool and ``st`` in place on the device, never synchronises."""
+                   tables: PFSPDeviceTables, M: int, m: int, K: int,
+                   clk: torch.Tensor | None = None) -> None:
+    """Enqueue one lb1 cycle (three launches; with a phase clock ``clk``
+    four ``phase_mark`` launches between them) on the current stream;
+    updates the pool and ``st`` in place on the device, never
+    synchronises."""
     _launch_pfsp_cycle(
         "cycle_lb1", pool_vals, pool_aux, st, scratch, tables, M, m, K,
         (tables.ptm_t, tables.min_heads, tables.min_tails),
-        (tables.jobs, tables.machines))
+        (tables.jobs, tables.machines), clk)
     count_launch(cycle_lb1_cuda)
 
 
@@ -324,16 +359,18 @@ cycle_lb1_cuda.captures = 0  # type: ignore[attr-defined]
 
 def cycle_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                    st: torch.Tensor, scratch: CycleScratch,
-                   tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
-    """Enqueue one lb2 cycle (three launches) on the current stream; updates
-    the pool and ``st`` in place on the device, never synchronises."""
+                   tables: PFSPDeviceTables, M: int, m: int, K: int,
+                   clk: torch.Tensor | None = None) -> None:
+    """Enqueue one lb2 cycle (three launches, and the marks of a phase
+    clock ``clk``) on the current stream; updates the pool and ``st`` in
+    place on the device, never synchronises."""
     if not pool_vals.is_cuda:
         raise ValueError("cycle_lb2 takes CUDA tensors")
     J = johnson_operands("cycle_lb2", tables)
     _launch_pfsp_cycle(
         "cycle_lb2", pool_vals, pool_aux, st, scratch, tables, M, m, K,
         (tables.ptm_t, tables.min_heads, J.pairinfo, J.tab, J.inv),
-        (tables.jobs, tables.machines, J.pair_count, J.route))
+        (tables.jobs, tables.machines, J.pair_count, J.route), clk)
     count_launch(cycle_lb2_cuda)
 
 
@@ -342,27 +379,30 @@ cycle_lb2_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, tables,
-           M, m, K) -> None:
+           M, m, K, clk) -> None:
     if pool_vals.is_cuda:
         if scratch is None:
             raise ValueError("the CUDA cycle needs its cycle_scratch buffers")
-        cuda_cycle(pool_vals, pool_aux, st, scratch, tables, M, m, K)
+        cuda_cycle(pool_vals, pool_aux, st, scratch, tables, M, m, K, clk)
     else:
-        plain_cycle(pool_vals, pool_aux, st, tables, M, m, K)
+        plain_cycle(pool_vals, pool_aux, st, tables, M, m, K, clk)
 
 
 def cycle_lb1(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
               st: torch.Tensor, scratch: CycleScratch | None,
-              tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
+              tables: PFSPDeviceTables, M: int, m: int, K: int,
+              clk: torch.Tensor | None = None) -> None:
     """One lb1 cycle routed by device: the CUDA kernel for a CUDA pool
-    (which launches or raises), the plain version for a CPU pool."""
+    (which launches or raises), the plain version for a CPU pool; ``clk``
+    (on the pool's device) arms the phase marks."""
     _route(cycle_lb1_cuda, cycle_lb1_plain, pool_vals, pool_aux, st, scratch,
-           tables, M, m, K)
+           tables, M, m, K, clk)
 
 
 def cycle_lb2(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
               st: torch.Tensor, scratch: CycleScratch | None,
-              tables: PFSPDeviceTables, M: int, m: int, K: int) -> None:
+              tables: PFSPDeviceTables, M: int, m: int, K: int,
+              clk: torch.Tensor | None = None) -> None:
     """One lb2 cycle routed like ``cycle_lb1``."""
     _route(cycle_lb2_cuda, cycle_lb2_plain, pool_vals, pool_aux, st, scratch,
-           tables, M, m, K)
+           tables, M, m, K, clk)

@@ -28,16 +28,18 @@ import ctypes
 
 import torch
 
+from ..obs.phases import IDX
 from . import _build
-from .cycle import ST_LEN, CycleScratch, parents_per_block, plain_pool_cycle
-from .dispatch import count_launch
+from .cycle import (NQ_MARKS, ST_LEN, CycleScratch, parents_per_block,
+                    plain_marker, plain_pool_cycle)
+from .dispatch import clock_pointer, count_launch, count_marks
 from .nqueens_device import labels_chunk
 from .nqueens_kernel import MAX_N
 
 
 def cycle_nqueens_chunk_plain(board_c: torch.Tensor, depth_c: torch.Tensor,
                               valid: torch.Tensor, best: torch.Tensor,
-                              N: int, g: int):
+                              N: int, g: int, mark=None):
     """One cycle on a popped chunk — the JAX ``make_cycle`` N-Queens
     contract.
 
@@ -47,11 +49,14 @@ def cycle_nqueens_chunk_plain(board_c: torch.Tensor, depth_c: torch.Tensor,
     solution; the survivors ``label & valid & depth < N`` in (parent, slot)
     order, each its parent with positions depth and k swapped, with
     caux = depth + 1; rows past tree_inc are zero. ``best`` passes through.
+    ``mark(slot)``, when given, is called after the labels (``eval``).
     """
     M = board_c.shape[0]
     dev = board_c.device
     depth = depth_c.to(torch.int32)
     labels = labels_chunk(board_c, depth, N, g).bool()
+    if mark is not None:
+        mark(IDX["eval"])
     keep = labels & valid[:, None] & (depth < N)[:, None]
     sol_inc = torch.sum(valid & (depth == N), dtype=torch.int32)
     pi, kj = keep.nonzero(as_tuple=True)
@@ -74,14 +79,17 @@ def cycle_nqueens_chunk_plain(board_c: torch.Tensor, depth_c: torch.Tensor,
 
 def cycle_nqueens_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                         st: torch.Tensor, N: int, g: int, M: int, m: int,
-                        K: int) -> None:
+                        K: int, clk=None) -> None:
     """The whole N-Queens cycle on the pool, in place: condition, pop,
     labels, solution count, compaction and push, and the state update —
-    what one ``cycle_nqueens_cuda`` call computes."""
+    what one ``cycle_nqueens_cuda`` call computes; with a CPU phase clock
+    ``clk``, its marks (``loop``, ``eval``, ``push``) on the host's
+    clock."""
+    mark = plain_marker(clk)
     plain_pool_cycle(
         pool_vals, pool_aux, st, M, m, K,
         lambda v, a, valid, best: cycle_nqueens_chunk_plain(v, a, valid, best,
-                                                            N, g))
+                                                            N, g, mark), mark)
 
 
 def depth_dtype(N: int) -> torch.dtype:
@@ -129,13 +137,15 @@ def check_nqueens_pool(source: str, pool_vals: torch.Tensor,
     return source if N <= 127 else f"{source}_i32"
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 2
 
 
 def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                        st: torch.Tensor, scratch: CycleScratch, N: int,
-                       g: int, M: int, m: int, K: int) -> None:
-    """Enqueue one cycle (two launches) on the current stream; updates
+                       g: int, M: int, m: int, K: int,
+                       clk: torch.Tensor | None = None) -> None:
+    """Enqueue one cycle (two launches; with a phase clock ``clk`` three
+    ``phase_mark`` launches around them) on the current stream; updates
     the pool and ``st`` in place on the device, never synchronises."""
     entry = check_nqueens_pool("cycle_nqueens", pool_vals, pool_aux, st, N, g)
     C = pool_vals.shape[0]
@@ -145,12 +155,14 @@ def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                                  parents_per_block("cycle_nqueens")):
         raise ValueError("scratch must be nqueens_scratch(M, N), and the "
                          "pool hold at least M rows")
+    clk_ptr = clock_pointer(clk)
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(), N, g, M, C,
-             m, K, stream)
+             m, K, clk_ptr, stream)
     _build.check(lib, err, "cycle_nqueens")
+    count_marks(clk, NQ_MARKS)
     count_launch(cycle_nqueens_cuda)
 
 
@@ -160,12 +172,15 @@ cycle_nqueens_cuda.captures = 0  # type: ignore[attr-defined]
 
 def cycle_nqueens(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                   st: torch.Tensor, scratch: CycleScratch | None, N: int,
-                  g: int, M: int, m: int, K: int) -> None:
+                  g: int, M: int, m: int, K: int,
+                  clk: torch.Tensor | None = None) -> None:
     """One cycle routed by device: the CUDA kernel for a CUDA pool (which
-    launches or raises), the plain version for a CPU pool."""
+    launches or raises), the plain version for a CPU pool; ``clk`` arms
+    the phase marks."""
     if pool_vals.is_cuda:
         if scratch is None:
             raise ValueError("the CUDA cycle needs its nqueens_scratch buffers")
-        cycle_nqueens_cuda(pool_vals, pool_aux, st, scratch, N, g, M, m, K)
+        cycle_nqueens_cuda(pool_vals, pool_aux, st, scratch, N, g, M, m, K,
+                           clk)
     else:
-        cycle_nqueens_plain(pool_vals, pool_aux, st, N, g, M, m, K)
+        cycle_nqueens_plain(pool_vals, pool_aux, st, N, g, M, m, K, clk)

@@ -25,6 +25,26 @@ the tables; the engine keeps them for the graph's life (a re-uploaded
 frontier is copied into the existing tensors) and keys its graphs on them.
 The build time is ``build_s``. CUDA only: the CPU path runs the plain
 cycles in a Python loop that stops when the condition is false.
+
+Telemetry builds graphs of its own (the engine keys its graph cache on the
+two flags); off, the graph is the one above, node for node:
+
+  * the counter block (``TTS_OBS=1``, `obs/counters.py`): ``obs`` (the
+    cycle's child slots a parent) makes the body's last node
+    ``dispatch_cond_obs``, which folds each cycle into the block in
+    ``st[ST_CTR:]`` before it sets the condition (the plain version:
+    ``dispatch_cond_obs_plain``), and the init node zeroes the block;
+  * the phase clock (``TTS_PHASEPROF=1``, `obs/phases.py`): ``clk`` (an
+    int64 block of ``phases.BLOCK_LEN``) adds a seed ``phase_mark`` before
+    the while node; the cycle entry, given the clock, enqueues its marks
+    between its launches. ``phase_mark`` is also enqueued from Python by
+    the unfused cycle; on a CPU tensor ``phase_mark_plain`` reads
+    ``time.perf_counter_ns`` at the same boundaries.
+
+Both kernels are in `csrc/dispatch_graph.cu` (``phase_mark`` in
+`csrc/phase_clock.cuh`); neither replaces a TPU kernel. Their launches are
+counted as the cycles' are: a body's captured marks and its
+``dispatch_cond_obs`` by the body's runs, the seed by graph launches.
 """
 
 from __future__ import annotations
@@ -34,6 +54,8 @@ import time
 
 import torch
 
+from ..obs import counters as obs_counters
+from ..obs import phases as obs_phases
 from . import _build
 
 _VP = ctypes.c_void_p
@@ -50,15 +72,21 @@ def count_launch(wrapper) -> None:
     else:
         wrapper.captures += 1
         _capturing.append(wrapper)
+
+
 _ENTRY_ARGS = {
     "dispatch_graph_create": (_VP, ctypes.c_int, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
                               ctypes.POINTER(_VP), ctypes.POINTER(_VP),
                               ctypes.POINTER(ctypes.c_ulonglong)),
     "dispatch_graph_begin_body": (_VP, _VP),
     "dispatch_graph_end_body": (_VP, ctypes.c_int, _VP, ctypes.c_ulonglong,
                                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int),
+                                ctypes.c_int, ctypes.c_int),
+    "phase_mark_enqueue": (_VP, ctypes.c_int, ctypes.c_int, _VP),
+    "dispatch_graph_kernels": (_VP, ctypes.c_int, ctypes.c_char_p,
+                               ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
+    "globaltimer_probe_enqueue": (_VP, ctypes.c_int, _VP),
     "dispatch_graph_instantiate": (_VP, ctypes.POINTER(_VP)),
     "dispatch_graph_launch": (_VP, _VP),
     "dispatch_graph_destroy": (_VP, _VP),
@@ -75,27 +103,33 @@ class DispatchGraph:
     ``cycle()`` enqueues one cycle of the program (its wrapper, at this K)
     on the current stream; it is called once, under capture. ``m``, ``Mn``
     (M times the child slots), ``C`` and ``K`` are the loop condition's.
+    ``obs`` (the child slots a parent; 0 off) arms the counter block,
+    ``clk`` (the phase clock, or None) the seed mark; ``cycle()`` passes
+    the clock to its entry itself.
     """
 
     def __init__(self, cycle, st: torch.Tensor, m: int, Mn: int, C: int,
-                 K: int):
+                 K: int, obs: int = 0, clk: torch.Tensor | None = None):
         if not st.is_cuda:
             raise ValueError("DispatchGraph takes a CUDA state tensor")
         t0 = time.perf_counter()
         self.K = K
         self.st = st
-        self.wrappers: list = []
+        self.clk = clk
+        self.wrappers: list = [dispatch_cond_obs] if obs else []
         self._graph = _VP()
         self._exec = _VP()
         body = _VP()
         handle = ctypes.c_ulonglong()
         lib, create = _fn("dispatch_graph_create")
-        _build.check(lib, create(st.data_ptr(), m, Mn, C, K,
+        _build.check(lib, create(st.data_ptr(), m, Mn, C, K, obs,
+                                 clock_pointer(clk),
                                  ctypes.byref(self._graph), ctypes.byref(body),
                                  ctypes.byref(handle)),
                      "dispatch_graph_create")
+        self._body = body
         try:
-            self._capture(lib, cycle, body, handle.value, m, Mn, C, K)
+            self._capture(lib, cycle, body, handle.value, m, Mn, C, K, obs)
             _, inst = _fn("dispatch_graph_instantiate")
             _build.check(lib, inst(self._graph, ctypes.byref(self._exec)),
                          "dispatch_graph_instantiate")
@@ -105,7 +139,7 @@ class DispatchGraph:
         self.build_s = time.perf_counter() - t0
 
     def _capture(self, lib, cycle, body, handle: int, m: int, Mn: int,
-                 C: int, K: int) -> None:
+                 C: int, K: int, obs: int) -> None:
         """The while node's body: ``cycle()`` on a side stream captured
         into ``body``, then the condition kernel."""
         side = torch.cuda.Stream(self.st.device)
@@ -123,7 +157,7 @@ class DispatchGraph:
         finally:
             _capturing = None
             err = end(side.cuda_stream, ok, self.st.data_ptr(), handle, m,
-                      Mn, C, K)
+                      Mn, C, K, obs)
         _build.check(lib, err, "dispatch_graph_end_body")
 
     def launch(self) -> None:
@@ -132,12 +166,29 @@ class DispatchGraph:
         stream = torch.cuda.current_stream(self.st.device).cuda_stream
         _build.check(lib, fn(self._exec, stream), "dispatch_graph_launch")
         DispatchGraph.launches += 1
+        if self.clk is not None:
+            phase_mark_cuda.launches += 1  # the seed node
 
     def count(self, runs: int) -> None:
         """Count a dispatch's ``runs`` of the body (``st[ST_RUNS]`` after
         it) as launches of each wrapper the body captured."""
         for w in self.wrappers:
             w.launches += runs
+
+    def kernels(self, body: bool = True) -> list[str]:
+        """The (mangled) kernel names of the body's nodes, or with
+        ``body=False`` of the graph's own nodes ("-": the while node): the
+        nodes this graph runs a cycle, or a dispatch."""
+        lib, fn = _fn("dispatch_graph_kernels")
+        cap, width = 64, 256
+        names = ctypes.create_string_buffer(cap * width)
+        count = ctypes.c_int()
+        _build.check(lib, fn(self._body if body else self._graph, cap, names,
+                             width, ctypes.byref(count)),
+                     "dispatch_graph_kernels")
+        raw = names.raw
+        return [raw[i * width:(i + 1) * width].split(b"\0", 1)[0].decode()
+                for i in range(min(count.value, cap))]
 
     def close(self) -> None:
         """Free the graph (after the work it launched has finished)."""
@@ -151,3 +202,137 @@ class DispatchGraph:
 
 #: Graph launches in this process (all programs).
 DispatchGraph.launches = 0
+
+
+# -- the counter block (TTS_OBS=1) ---------------------------------------------
+
+
+def dispatch_cond_obs_plain(st: torch.Tensor, n: int, m: int, Mn: int,
+                            C: int, K: int) -> bool:
+    """What one ``dispatch_cond_obs`` node computes, on ``st`` in place:
+    the cycle just run folded into the counter block (`obs/counters.py`
+    ``update``: ``cnt`` from ``st[ST_CNT]``, the tree and sol increments
+    from ``st[ST_TREE]``/``st[ST_SOL]`` less the values the block last
+    saw, no overflow, ``Mn`` push rows), the body's run counted, and the
+    loop condition returned."""
+    from .cycle import (ST_CNT, ST_CTR, ST_CTR_SOL, ST_CTR_TREE, ST_CYCLES,
+                        ST_RUNS, ST_SIZE, ST_SOL, ST_TREE)
+
+    v = st.tolist()
+    tree_inc = v[ST_TREE] - v[ST_CTR_TREE]
+    sol_inc = v[ST_SOL] - v[ST_CTR_SOL]
+    block = obs_counters.update(v[ST_CTR:ST_CTR + obs_counters.NSLOTS],
+                                v[ST_CNT], n, tree_inc, sol_inc, False,
+                                v[ST_SIZE], Mn)
+    v[ST_CTR:ST_CTR + obs_counters.NSLOTS] = block
+    v[ST_CTR_TREE], v[ST_CTR_SOL] = v[ST_TREE], v[ST_SOL]
+    v[ST_RUNS] += 1
+    st.copy_(torch.tensor(v, dtype=st.dtype))
+    size = v[ST_SIZE]
+    return size >= m and size + Mn <= C and v[ST_CYCLES] < K
+
+
+class _GraphKernel:
+    """The launch count of a kernel that runs only as a node of a dispatch
+    graph (``dispatch_cond_obs``: it sets the while node's condition)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+        self.captures = 0
+
+
+dispatch_cond_obs = _GraphKernel("dispatch_cond_obs")
+
+
+# -- the phase clock (TTS_PHASEPROF=1) -------------------------------------------
+
+
+def new_clock(device) -> torch.Tensor:
+    """A zeroed phase-clock block (``phases.BLOCK_LEN`` int64)."""
+    return torch.zeros(obs_phases.BLOCK_LEN, dtype=torch.int64, device=device)
+
+
+def clock_pointer(clk: torch.Tensor | None):
+    """The clock's address for a cycle entry (None: no marks), after the
+    checks the kernel needs."""
+    if clk is None:
+        return None
+    if not (clk.is_cuda and clk.dtype == torch.int64 and clk.is_contiguous()
+            and clk.numel() >= obs_phases.BLOCK_LEN):
+        raise ValueError("the phase clock is a contiguous CUDA int64 block "
+                         f"of {obs_phases.BLOCK_LEN}")
+    return clk.data_ptr()
+
+
+def phase_mark_at(block: list, slot: int, flags: int, now: int) -> list:
+    """One mark's arithmetic on a block (a list of ``BLOCK_LEN`` ints) at
+    the reading ``now``: charge ``now - block[TPREV]`` to ``slot``; ``OPEN``
+    also sets ``T0``, ``CLOSE`` adds ``now - block[T0]`` to ``total``;
+    ``SEED`` zeroes the block. ``TPREV`` becomes ``now``."""
+    P = obs_phases
+    if flags & P.SEED:
+        v = [0] * P.BLOCK_LEN
+    else:
+        v = list(block)
+        v[slot] += now - v[P.TPREV]
+        if flags & P.OPEN:
+            v[P.T0] = now
+        if flags & P.CLOSE:
+            v[P.IDX["total"]] += now - v[P.T0]
+    v[P.TPREV] = now
+    return v
+
+
+def phase_mark_plain(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
+    """What one ``phase_mark`` computes, on the host's clock
+    (``time.perf_counter_ns``): ``phase_mark_at`` on ``clk``."""
+    v = phase_mark_at(clk.tolist(), slot, flags, time.perf_counter_ns())
+    clk.copy_(torch.tensor(v, dtype=torch.int64))
+
+
+def phase_mark_cuda(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
+    """Enqueue one ``phase_mark`` on the current stream."""
+    ptr = clock_pointer(clk)
+    if not 0 <= slot < obs_phases.NSLOTS:
+        raise ValueError(f"phase slot {slot} out of range")
+    lib, fn = _fn("phase_mark_enqueue")
+    stream = torch.cuda.current_stream(clk.device).cuda_stream
+    _build.check(lib, fn(ptr, slot, flags, stream), "phase_mark")
+    count_launch(phase_mark_cuda)
+
+
+phase_mark_cuda.launches = 0  # type: ignore[attr-defined]
+phase_mark_cuda.captures = 0  # type: ignore[attr-defined]
+
+
+def phase_mark(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
+    """One mark routed by device: the kernel on a CUDA block (which
+    launches or raises), the host clock on a CPU one."""
+    if clk.is_cuda:
+        phase_mark_cuda(clk, slot, flags)
+    else:
+        phase_mark_plain(clk, slot, flags)
+
+
+def count_marks(clk: torch.Tensor | None, marks: int) -> None:
+    """Count the ``marks`` a cycle entry enqueued with ``clk`` (none
+    without a clock) as ``phase_mark`` launches (``count_launch``)."""
+    if clk is not None:
+        for _ in range(marks):
+            count_launch(phase_mark_cuda)
+
+
+def globaltimer_step_ns(device, reads: int = 4096) -> dict:
+    """The step of ``%globaltimer`` on the card: one thread's ``reads``
+    back-to-back reads; the smallest non-zero difference, the share of
+    zero differences and the largest difference."""
+    out = torch.zeros(reads, dtype=torch.int64, device=device)
+    lib, fn = _fn("globaltimer_probe_enqueue")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    _build.check(lib, fn(out.data_ptr(), reads, stream), "globaltimer_probe")
+    d = out.cpu().tolist()
+    nz = [x for x in d if x > 0]
+    return {"step_ns": min(nz) if nz else None,
+            "zero_share": 1 - len(nz) / len(d), "max_ns": max(d),
+            "reads": reads}

@@ -52,12 +52,16 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from ..obs.phases import IDX
 from .cycle import (
+    NQ_MARKS,
+    PFSP_MARKS,
     ST_LEN,
     CycleScratch,
     cycle_chunk_plain,
     parents_per_block,
     pfsp_plane_words,
+    plain_marker,
     plain_pool_cycle,
 )
 from .cycle_nqueens import (
@@ -66,7 +70,7 @@ from .cycle_nqueens import (
     depth_dtype,
     nq_mask_words,
 )
-from .dispatch import count_launch
+from .dispatch import clock_pointer, count_launch, count_marks
 from .lb1_kernel import lb1_bounds_cuda
 from .lb2_kernel import johnson_operands, lb2_bounds_cuda
 from .nqueens_device import labels_chunk
@@ -205,52 +209,61 @@ def tiled_chunk_plain(spec, vals_c: torch.Tensor, aux_c: torch.Tensor,
 
 def tiled_cycle_plain(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                       st: torch.Tensor, spec, M: int, mt: int, m: int, K: int,
-                      bound=lb1_chunk) -> torch.Tensor | None:
+                      bound=lb1_chunk, clk=None) -> torch.Tensor | None:
     """The whole streamed cycle on the pool, in place: condition, pop,
     ``tiled_chunk_plain``, the stitch of `engine/resident.py:257-270` (tile
     t's block written at the pool's size + offs[t], in tile order, so each
     block's zero tail is overwritten by the next tile's rows) and the state
     update. The pool and state end as after the single-tile cycle. Returns
-    the (G, 4) per-tile scalars, or None when the cycle is a no-op."""
+    the (G, 4) per-tile scalars, or None when the cycle is a no-op. With a
+    CPU phase clock ``clk``, the streamed CUDA cycle's marks: ``eval``
+    after the tiles, for PFSP ``compact`` after their stitch, ``push``."""
     n = pool_vals.shape[1]
     Mtn = mt * n
     out = {}
+    mark = plain_marker(clk)
+    pfsp = isinstance(spec, PFSPDeviceTables)
 
     def chunk_cycle(vals_c, aux_c, valid, best):
         rows, caux, offs, tree_inc, sol_inc, best, scal = tiled_chunk_plain(
             spec, vals_c, aux_c, valid, best, mt, bound)
+        if mark is not None:
+            mark(IDX["eval"])
         out["scal"] = scal
         stitched_rows, stitched_aux = torch.zeros_like(rows), torch.zeros_like(caux)
         for t, o in enumerate(offs.tolist()):
             stitched_rows[o:o + Mtn] = rows[t * Mtn:(t + 1) * Mtn]
             stitched_aux[o:o + Mtn] = caux[t * Mtn:(t + 1) * Mtn]
+        if mark is not None and pfsp:
+            mark(IDX["compact"])
         return stitched_rows, stitched_aux, tree_inc, sol_inc, best
 
-    plain_pool_cycle(pool_vals, pool_aux, st, M, m, K, chunk_cycle)
+    plain_pool_cycle(pool_vals, pool_aux, st, M, m, K, chunk_cycle, mark)
     return out.get("scal")
 
 
 def tiled_lb1_plain(pool_vals, pool_aux, st, tables: PFSPDeviceTables,
-                    M: int, mt: int, m: int, K: int):
+                    M: int, mt: int, m: int, K: int, clk=None):
     """What one ``tiled_lb1_cuda`` call computes (kernel 9b's plain
     version); returns the (G, 4) per-tile scalars or None."""
     return tiled_cycle_plain(pool_vals, pool_aux, st, tables, M, mt, m, K,
-                             lb1_chunk)
+                             lb1_chunk, clk)
 
 
 def tiled_lb2_plain(pool_vals, pool_aux, st, tables: PFSPDeviceTables,
-                    M: int, mt: int, m: int, K: int):
+                    M: int, mt: int, m: int, K: int, clk=None):
     """What one ``tiled_lb2_cuda`` call computes (kernel 9c's plain
     version)."""
     return tiled_cycle_plain(pool_vals, pool_aux, st, tables, M, mt, m, K,
-                             lb2_chunk)
+                             lb2_chunk, clk)
 
 
 def tiled_nqueens_plain(pool_vals, pool_aux, st, problem, M: int, mt: int,
-                        m: int, K: int):
+                        m: int, K: int, clk=None):
     """What one ``tiled_nqueens_cuda`` call computes (kernel 9a's plain
     version); ``problem`` is the ``NQueensProblem`` (N and g)."""
-    return tiled_cycle_plain(pool_vals, pool_aux, st, problem, M, mt, m, K)
+    return tiled_cycle_plain(pool_vals, pool_aux, st, problem, M, mt, m, K,
+                             clk=clk)
 
 
 # -- the CUDA cycles ---------------------------------------------------------
@@ -263,24 +276,25 @@ _ENTRIES = {
 }
 _ARGTYPES = {
     "tiled_lb1": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
-    + (ctypes.c_void_p,),
+    + (ctypes.c_void_p,) * 2,
     "tiled_lb2": (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9
-    + (ctypes.c_void_p,),
+    + (ctypes.c_void_p,) * 2,
     "tiled_nqueens": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
-    + (ctypes.c_void_p,),
+    + (ctypes.c_void_p,) * 2,
 }
 
 
 def _launch_tiled(source: str, pool_vals: torch.Tensor,
                   pool_aux: torch.Tensor, st: torch.Tensor, scratch, n: int,
                   M: int, mt: int, m: int, K: int, operands,
-                  scratch_fits) -> None:
+                  scratch_fits, clk=None, marks: int = 0) -> None:
     """Check the operands of a streamed cycle and enqueue the entry of
     ``csrc/<source>.cu``: the pool, state and scratch pointers, then the
     table tensors and the sizes (ints: the width and the tables' sizes) that
     ``operands()`` returns once the pool is checked, then M, mt, C, m, K.
     ``scratch_fits()``, called once the library is loaded, says whether
-    ``scratch`` is the one the entry takes."""
+    ``scratch`` is the one the entry takes. ``clk`` (None: no marks) is the
+    phase clock, whose ``marks`` launches the entry then enqueues."""
     if not pool_vals.is_cuda:
         raise ValueError(f"{source} takes CUDA tensors")
     check_tile(M, mt)
@@ -303,11 +317,13 @@ def _launch_tiled(source: str, pool_vals: torch.Tensor,
     if C < M or not scratch_fits():
         raise ValueError(f"scratch must be the {source} scratch of (M, mt), "
                          "and the pool hold at least M rows")
+    clk_ptr = clock_pointer(clk)
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              *scratch.pointers(), *(t.data_ptr() for t in table_args),
-             *sizes, M, mt, C, m, K, stream)
+             *sizes, M, mt, C, m, K, clk_ptr, stream)
     _build.check(lib, err, source)
+    count_marks(clk, marks)
 
 
 def _bounds_fits(source: str, scratch, M: int, n: int, mt: int,
@@ -324,7 +340,7 @@ def _bounds_fits(source: str, scratch, M: int, n: int, mt: int,
 def tiled_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                    st: torch.Tensor, scratch: TileBoundsScratch,
                    tables: PFSPDeviceTables, M: int, mt: int, m: int,
-                   K: int) -> None:
+                   K: int, clk: torch.Tensor | None = None) -> None:
     """Enqueue one streamed lb1 cycle (kernel 2's three launches, with the
     boundary row) on the current stream; updates the pool, ``st`` and
     ``scratch.bounds`` in place on the device, never synchronises."""
@@ -335,7 +351,7 @@ def tiled_lb1_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                  (tables.jobs, tables.machines)),
         lambda: _bounds_fits("tiled_lb1", scratch, M, n, mt,
                              pool_vals.element_size(), pool_vals.dtype,
-                             pfsp_plane_words(M, n)))
+                             pfsp_plane_words(M, n)), clk, PFSP_MARKS)
     count_launch(tiled_lb1_cuda)
 
 
@@ -346,7 +362,7 @@ tiled_lb1_cuda.captures = 0  # type: ignore[attr-defined]
 def tiled_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                    st: torch.Tensor, scratch: TileBoundsScratch,
                    tables: PFSPDeviceTables, M: int, mt: int, m: int,
-                   K: int) -> None:
+                   K: int, clk: torch.Tensor | None = None) -> None:
     """Enqueue one streamed lb2 cycle (kernel 8's three launches, with the
     boundary row) on the current stream; updates the pool, ``st`` and
     ``scratch.bounds`` in place on the device, never synchronises. Raises
@@ -363,7 +379,7 @@ def tiled_lb2_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
         operands,
         lambda: _bounds_fits("tiled_lb2", scratch, M, n, mt,
                              pool_vals.element_size(), pool_vals.dtype,
-                             pfsp_plane_words(M, n)))
+                             pfsp_plane_words(M, n)), clk, PFSP_MARKS)
     count_launch(tiled_lb2_cuda)
 
 
@@ -373,7 +389,8 @@ tiled_lb2_cuda.captures = 0  # type: ignore[attr-defined]
 
 def tiled_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
                        st: torch.Tensor, scratch: TileBoundsScratch, problem,
-                       M: int, mt: int, m: int, K: int) -> None:
+                       M: int, mt: int, m: int, K: int,
+                       clk: torch.Tensor | None = None) -> None:
     """Enqueue one streamed N-Queens cycle (kernel 4's two launches, with
     the boundary row) on the current stream; ``problem`` gives N (<= 256)
     and g."""
@@ -383,7 +400,8 @@ def tiled_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
         "tiled_nqueens", pool_vals, pool_aux, st, scratch, N, M, mt, m, K,
         lambda: ((), (N, g)),
         lambda: _bounds_fits("tiled_nqueens", scratch, M, N, mt, 1,
-                             depth_dtype(N), M * nq_mask_words(N)))
+                             depth_dtype(N), M * nq_mask_words(N)), clk,
+        NQ_MARKS)
     count_launch(tiled_nqueens_cuda)
 
 
@@ -392,35 +410,39 @@ tiled_nqueens_cuda.captures = 0  # type: ignore[attr-defined]
 
 
 def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, spec,
-           M, mt, m, K) -> None:
+           M, mt, m, K, clk) -> None:
     if pool_vals.is_cuda:
         if scratch is None:
             raise ValueError("the CUDA streamed cycle needs its scratch buffers")
-        cuda_cycle(pool_vals, pool_aux, st, scratch, spec, M, mt, m, K)
+        cuda_cycle(pool_vals, pool_aux, st, scratch, spec, M, mt, m, K, clk)
     else:
-        plain_cycle(pool_vals, pool_aux, st, spec, M, mt, m, K)
+        plain_cycle(pool_vals, pool_aux, st, spec, M, mt, m, K, clk)
 
 
 def tiled_lb1(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,
-              tables: PFSPDeviceTables, M: int, mt: int, m: int, K: int):
+              tables: PFSPDeviceTables, M: int, mt: int, m: int, K: int,
+              clk: torch.Tensor | None = None):
     """One streamed lb1 cycle routed by device: the CUDA kernel for a CUDA
-    pool (which launches or raises), the plain version for a CPU pool."""
+    pool (which launches or raises), the plain version for a CPU pool;
+    ``clk`` arms the phase marks."""
     _route(tiled_lb1_cuda, tiled_lb1_plain, pool_vals, pool_aux, st, scratch,
-           tables, M, mt, m, K)
+           tables, M, mt, m, K, clk)
 
 
 def tiled_lb2(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,
-              tables: PFSPDeviceTables, M: int, mt: int, m: int, K: int):
+              tables: PFSPDeviceTables, M: int, mt: int, m: int, K: int,
+              clk: torch.Tensor | None = None):
     """One streamed lb2 cycle routed like ``tiled_lb1``."""
     _route(tiled_lb2_cuda, tiled_lb2_plain, pool_vals, pool_aux, st, scratch,
-           tables, M, mt, m, K)
+           tables, M, mt, m, K, clk)
 
 
 def tiled_nqueens(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,
-                  problem, M: int, mt: int, m: int, K: int):
+                  problem, M: int, mt: int, m: int, K: int,
+                  clk: torch.Tensor | None = None):
     """One streamed N-Queens cycle routed like ``tiled_lb1``."""
     _route(tiled_nqueens_cuda, tiled_nqueens_plain, pool_vals, pool_aux, st,
-           scratch, problem, M, mt, m, K)
+           scratch, problem, M, mt, m, K, clk)
 
 
 # -- the eval-only pass ------------------------------------------------------
