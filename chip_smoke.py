@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and six profiles
     python3 chip_smoke.py --host     # phases 1, 2 and 18c (offload cold and warm, profiled)
+    python3 chip_smoke.py --serve    # phases 1, 2, 16d and 18e (the batched graph, serving)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -95,6 +96,14 @@ ends the script with a non-zero exit before the final line:
      ``phase_mark`` before and after each launch), and the counter block
      against ``dispatch_cond_obs_plain`` after the same plain cycles,
      slot for slot (``graph_variants``);
+ 16d. ``batch_graph``: the batched graph's own kernels (``batch_init``,
+     ``batch_cond``, ``batch_cond_obs``; csrc/dispatch_graph.cu) at ta014
+     lb1, M = 49152, K = 4, B = 4 (two frontiers, an empty slot, a slot
+     below m): one batched dispatch, telemetry off and with the counter
+     block, against the same batch through the plain versions on the
+     card's tensors and against B solo K = 4 graph dispatches; max
+     difference 0; the nodes' device time a launch, the dispatch's time
+     beside the solo dispatches', and a frozen slot's cost a cycle;
  17. ta014 lb2 ub=1 (tree 144,639, sol 0, makespan 1377) through the CLI on
      the fused path at M = 49152 and M = 1024 (counting kernel 8), with
      ``--unfused`` (the staged evaluator: kernels 1 and 7), and through
@@ -125,6 +134,17 @@ ends the script with a non-zero exit before the final line:
      profiler (N = 15 phase-profiled); and a ``--trace`` run of ta014 lb1
      whose ``report`` exits 0 and whose ``explored`` samples sum to its
      counts;
+ 18e. ``serve``: the port's ``ServeDaemon`` in-process on a free localhost
+     port with ``--batch-slots 4``: four ta014 lb1 jobs through one batch
+     (kernel 2), two N = 15 jobs (kernel 4) and two ta014 lb2 jobs (kernel
+     8), each to its goldens, the counts set to 0 before each batch: each
+     cycle kernel's launches equal the jobs' summed device cycles,
+     ``batch_init`` and ``batch_cond`` launched, graphs built only on the
+     first admission; a solo ta014 lb1 job preempted by a waiter (quantum
+     0) and resumed to its goldens; a second job of its class with zero new
+     programs and graphs; per job its wall and queue wait; and the four
+     lb1 jobs as four solo searches in turn (dispatches, device ms,
+     graph build seconds cold and warm);
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -177,7 +197,10 @@ ends the script with a non-zero exit before the final line:
      its condition kernel's time a cycle and the pipeline runs; rows 1, 3,
      5, 6 and 7 carry the offload runs' launches (``offload_launches``);
      ``dispatch_cond_obs`` (the counter node) and ``phase_mark`` (the
-     clock) carry the launches of the armed ta014 lb1 runs of phase 18d.
+     clock) carry the launches of the armed ta014 lb1 runs of phase 18d;
+     ``batch_init`` and ``batch_cond`` (the batched graph's nodes) the
+     launches of phase 18e's batched ta014 lb1 run, their phase 16d times
+     and a frozen slot's cost a cycle.
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -2050,6 +2073,414 @@ def main_cycles(dev, dev_info) -> int:
     return 0
 
 
+# -- the batched engine and the serve daemon -----------------------------------
+
+
+def _frontier(prob, target: int) -> dict:
+    """A host frontier of ``prob`` warmed up to at least ``target`` nodes."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, getattr(prob, "initial_ub", INF), target)
+    return pool.as_batch()
+
+
+def _maxdiff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest absolute difference of two integer tensors (0 when
+    empty)."""
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+
+def phase_batch_graph(dev) -> dict:
+    """The batched graph's own kernels (csrc/dispatch_graph.cu: batch_init,
+    batch_cond, batch_cond_obs) at ta014 lb1, M = 49152, K = 4, B = 4: slot
+    0 a frontier of M + 517 nodes, slot 1 one of 2M + 1000, slot 2 empty,
+    slot 3 ten nodes (below m: retired). One batched dispatch, telemetry
+    off and with the counter block, against (a) the same batch through the
+    plain versions on the card's tensors (batch_init_plain, the plain
+    cycles, batch_cond_plain): every word of every slot and the live rows;
+    (b) B solo K = 4 dispatches of the program's graph: the counts, every
+    word but ST_ACTIVE (the cycle's own flag: a frozen slot's cycle clears
+    it, a solo graph never launches one) and the live rows. Max difference
+    0. Times: the batched dispatch (CUDA events), the live slots' solo
+    dispatches, the plain versions; the nodes' device time a launch
+    (profiler); and a frozen slot's cost a cycle: the batch with only slot
+    0 live against slot 0's solo dispatch, over K cycles of 3 frozen
+    slots."""
+    from tpu_tree_search_torch.engine.batched import make_batched_program
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import dispatch as D
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    K, M, B, n, m = 4, 49152, 4, 20, 25
+    prob = PFSPProblem(inst=14, lb="lb1", ub=1)
+    best = prob.initial_ub
+    fr = _frontier(prob, M + 517)
+    fr2 = _frontier(prob, 2 * M + 1000)
+    low = {k: v[:10] for k, v in fr.items()}
+    fronts = [fr, fr2, None, low]
+    cap = 2 * fr2["prmu"].shape[0] + 2 * M * n
+    rows = {}
+    for variant in ("off", "obs"):
+        obs = variant == "obs"
+        with telemetry(variant):
+            bp = make_batched_program(prob, B, m, M, K, cap, dev)
+            solo = make_program(prob, m, M, K, cap, dev)
+
+            def load(fs=fronts):
+                for i, f in enumerate(fs):
+                    bp.make_slot(i, f, best if f is not None else 0)
+
+            load()
+            torch.cuda.synchronize()
+            ref_st = bp.st.clone()
+            ref_pools = [(s.pool_vals.clone(), s.pool_aux.clone()) for s in bp.states]
+            cond = D.batch_cond_obs if obs else D.batch_cond
+            for w in (C.cycle_lb1_cuda, D.batch_init, cond):
+                w.launches = 0
+            reads = bp.step()
+            cycles = [r[2] for r in reads]
+            check(C.cycle_lb1_cuda.launches == sum(cycles) and cycles[0] == K
+                  and cycles[2:] == [0, 0],
+                  f"batched launches {C.cycle_lb1_cuda.launches} != cycles {cycles}")
+            check(D.batch_init.launches == 1 and cond.launches == max(cycles),
+                  "batch_init/batch_cond launches != 1 / the rounds")
+            # (a) the plain versions on the card's tensors.
+            t0 = time.perf_counter()
+            live = D.batch_init_plain(ref_st, m, M * n, cap, K, obs)
+            rounds = 0
+            while live and rounds < K:
+                for i, (pv, pa) in enumerate(ref_pools):
+                    C.cycle_lb1_plain(pv, pa, ref_st[i], bp.inner.tables, M, m, K)
+                live = D.batch_cond_plain(ref_st, n if obs else 0, m, M * n, cap, K)
+                rounds += 1
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err_plain = _maxdiff(bp.st, ref_st)
+            for i, (pv, pa) in enumerate(ref_pools):
+                size = reads[i][3]
+                err_plain = max(err_plain, _maxdiff(bp.states[i].pool_vals[:size], pv[:size]),
+                                _maxdiff(bp.states[i].pool_aux[:size], pa[:size]))
+            # (b) B solo dispatches of the program's graph.
+            solo.host_slots(1)
+            words = [w for w in range(C.ST_LEN) if w != C.ST_ACTIVE]
+            err_solo = 0
+            solo_states = []
+            for i, f in enumerate(fronts):
+                if f is None:
+                    err_solo = max(err_solo, reads[i][3])
+                    continue
+                state = solo.init_state(f, best)
+                got = solo.enqueue(state)()
+                solo_states.append(state)
+                size = reads[i][3]
+                err_solo = max(err_solo, max(abs(a - b) for a, b in zip(got, reads[i][:5])),
+                               _maxdiff(bp.st[i, words], state.st[words]),
+                               _maxdiff(bp.states[i].pool_vals[:size],
+                                        state.pool_vals[:size]),
+                               _maxdiff(bp.states[i].pool_aux[:size], state.pool_aux[:size]))
+            check(err_plain == 0 and err_solo == 0,
+                  f"batched dispatch ({variant}) differs: plain {err_plain}, solo {err_solo}")
+            g = bp.graph()
+            body = g.kernels()
+            batch_ms = median_ms(g.launch, 5, setup=load)
+
+            def reload_solo():
+                for st_, f in zip(solo_states, (fr, fr2)):
+                    solo.load_state(st_, f, best)
+
+            solo_ms = median_ms(lambda: [solo._graph(st_).launch() for st_ in solo_states],
+                                5, setup=reload_solo)
+            node_ms, timing = kernel_device_ms(
+                g.launch, 5, ("batch_init", cond.__name__), setup=load)
+            node_ms_each = dict(LAST_LAUNCH_MS)
+            # A frozen slot's cost: only slot 0 live.
+            lone = [fr, None, None, None]
+            batch1_ms = median_ms(g.launch, 5, setup=lambda: load(lone))
+            solo1_ms = median_ms(lambda: solo._graph(solo_states[0]).launch(), 5,
+                                 setup=lambda: solo.load_state(solo_states[0], fr, best))
+            frozen_us = (batch1_ms - solo1_ms) * 1e3 / (K * (B - 1))
+            # The plain nodes alone on the card's states.
+            st_p = bp.st.clone()
+            init_plain_ms = median_ms(lambda: D.batch_init_plain(st_p, m, M * n, cap, K, obs), 5)
+            cond_plain_ms = median_ms(
+                lambda: D.batch_cond_plain(st_p, n if obs else 0, m, M * n, cap, K), 5)
+            bp.close()
+            solo.close()
+        rows[variant] = dict(
+            variant=variant, B=B, K=K, M=M, cycles=cycles, rounds=max(cycles),
+            max_abs_err=max(err_plain, err_solo), err_plain=err_plain, err_solo=err_solo,
+            body_nodes=len(body), graph_build_s=bp.graph_build_s,
+            batch_dispatch_ms=batch_ms, solo_dispatches_ms=solo_ms, plain_ms=plain_ms,
+            node_ms=node_ms_each, node_timing=timing,
+            init_plain_ms=init_plain_ms, cond_plain_ms=cond_plain_ms,
+            frozen_slot_us_per_cycle=frozen_us, lone_batch_ms=batch1_ms,
+            lone_solo_ms=solo1_ms)
+        emit("batch_graph", **rows[variant])
+    return rows
+
+
+def _serve_call(base: str, path: str, payload=None, timeout: float = 60.0):
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def _serve_wait(base: str, ids: list, timeout_s: float = 300.0) -> list:
+    deadline = time.monotonic() + timeout_s
+    recs = []
+    for jid in ids:
+        while True:
+            _, rec = _serve_call(base, f"/job/{jid}")
+            if rec["state"] in ("done", "failed", "cancelled"):
+                break
+            check(time.monotonic() < deadline, f"serve job {jid} did not finish")
+            time.sleep(0.02)
+        check(rec["state"] == "done", f"serve job {jid}: {rec['state']} {rec.get('error')}")
+        recs.append(rec)
+    return recs
+
+
+def _submit_together(d, specs: list) -> list:
+    """Admit ``specs`` through the daemon's own admission path (what POST
+    /submit calls) while the scheduler's queue lock is held, so that a
+    worker sees them all queued at once (a batch forms; a waiter exists
+    before the first job's first dispatch)."""
+    ids = []
+    with d.scheduler._cv:
+        for spec in specs:
+            payload, code = d.submit(dict(spec))
+            check(code == 201, f"submit {spec}: {code} {payload}")
+            ids.append(payload["id"])
+    return ids
+
+
+SERVE_LB1 = {"problem": "pfsp", "inst": 14, "lb": "lb1", "ub": 1}
+SERVE_LB2 = {"problem": "pfsp", "inst": 14, "lb": "lb2", "ub": 1}
+SERVE_NQ15 = {"problem": "nqueens", "N": 15}
+
+
+def phase_serve(dev, counters: dict) -> dict:
+    """The port's serve daemon on the card, in-process on a free localhost
+    port with ``--batch-slots 4`` (``ServeDaemon``), every job at full
+    width and default M: four ta014 lb1 ub=1 jobs through one batch (kernel
+    2 captured a slot), two N = 15 jobs (kernel 4) and two ta014 lb2 jobs
+    (kernel 8), each to its goldens; the counts set to 0 just before each
+    batch and read just after: each cycle kernel's launches equal the
+    jobs' summed device cycles, ``batch_init`` and ``batch_cond`` launched;
+    graph builds on the first admission and 0 on the later ones. Then a
+    solo ta014 lb1 job at K = 4 that a quantum of 0 s and a waiting job
+    preempt at least once, resumed to its goldens, and a second job of its
+    class: zero new programs and graphs. Per job: wall and queue wait.
+    Beside the batch: the same four jobs as four solo searches in turn
+    (``resident_search``; dispatches, device ms by CUDA events, graph
+    build seconds cold and warm)."""
+    import tempfile
+    import threading
+
+    from tpu_tree_search_torch.engine.resident import release_programs, resident_search
+    from tpu_tree_search_torch.problems import PFSPProblem
+    from tpu_tree_search_torch.serve.pool import identity_key
+    from tpu_tree_search_torch.serve.server import ServeDaemon, wait_ready
+
+    golden = {"lb1": (2573652, 2648, 1377), "lb2": (144639, 0, 1377),
+              "nq15": (171129071, 2279184, None)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = ServeDaemon(port=0, state_dir=tmp, batch_slots=4, quantum_s=5.0)
+        d._http_thread = threading.Thread(target=d._httpd.serve_forever,
+                                          kwargs={"poll_interval": 0.2}, daemon=True)
+        d._http_thread.start()
+        base = d.url
+        check(wait_ready(base, 30) is not None, "serve daemon did not answer")
+        started = False
+        try:
+            for name, spec, jobs, kernel in (("lb1", SERVE_LB1, 4, "cycle_lb1"),
+                                             ("nq15", SERVE_NQ15, 2, "cycle_nqueens"),
+                                             ("lb2", SERVE_LB2, 2, "cycle_lb2")):
+                zero_counts(counters)
+                t0 = time.perf_counter()
+                if not started:
+                    # Over HTTP; the queue holds the batch before the worker
+                    # starts.
+                    ids = []
+                    for _ in range(jobs):
+                        code, sub = _serve_call(base, "/submit", spec)
+                        check(code == 201, f"submit {spec}: {code} {sub}")
+                        ids.append(sub["id"])
+                    d.scheduler.start()
+                    started = True
+                else:
+                    ids = _submit_together(d, [spec] * jobs)
+                recs = _serve_wait(base, ids)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                launches = {k: fn.launches for k, fn in counters.items()}
+                cycles = [r["result"]["device_cycles"] for r in recs]
+                for r in recs:
+                    res = r["result"]
+                    got = (res["explored_tree"], res["explored_sol"],
+                           res["best"] if golden[name][2] is not None else None)
+                    check(got == golden[name], f"serve {name}: {got} != {golden[name]}")
+                check(launches[kernel] == sum(cycles) and launches[kernel] > 0,
+                      f"serve {name}: {kernel} launches {launches[kernel]} != cycles {cycles}")
+                check(launches["batch_init"] > 0 and launches["batch_cond"] > 0,
+                      f"serve {name}: the batched graph's nodes not launched")
+                check(recs[0]["new_step_compiles"] >= 1
+                      and all(r["new_step_compiles"] == 0 and r["new_programs"] == 0
+                              for r in recs[1:]),
+                      f"serve {name}: graphs built on a later admission")
+                problem = d.pool._problems[identity_key(recs[0]["spec"])]
+                (bp,) = problem._batched_programs.values()
+                out[name] = dict(
+                    jobs=jobs, wall_s=wall, device_cycles=cycles,
+                    launches={k: launches[k] for k in (kernel, "batch_init", "batch_cond")},
+                    batched_dispatches=launches["batch_init"],
+                    batch_device_ms=bp.dispatch_device_s * 1e3,
+                    batch_graph_build_s=bp.graph_build_s,
+                    graphs_built=[r["new_step_compiles"] for r in recs],
+                    new_programs=[r["new_programs"] for r in recs],
+                    job_wall_s=[r["result"]["elapsed_s"] for r in recs],
+                    queue_wait_s=[r["started"] - r["submitted"] for r in recs])
+                emit("serve", phase_of="batch", run=name, **out[name])
+            # A solo job preempted by a waiter (quantum 0), then a second job
+            # of its class.
+            d.scheduler.quantum_s = 0.0
+            pre = dict(SERVE_LB1, K=4)
+            waiter = dict(SERVE_LB1, M=1024)
+            zero_counts(counters)
+            ids = _submit_together(d, [pre, waiter])
+            recs = _serve_wait(base, ids)
+            for r in recs:
+                res = r["result"]
+                check((res["explored_tree"], res["explored_sol"], res["best"])
+                      == golden["lb1"], f"preempted serve job: {res}")
+            check(recs[0]["preemptions"] >= 1, "the quantum-0 job was not preempted")
+            d.scheduler.quantum_s = 5.0
+            _, again = _serve_call(base, "/submit", pre)
+            (rec2,) = _serve_wait(base, [again["id"]])
+            check(again["warm"] and rec2["new_programs"] == 0
+                  and rec2["new_step_compiles"] == 0,
+                  f"second same-class job built {rec2['new_programs']} programs, "
+                  f"{rec2['new_step_compiles']} graphs")
+            res = rec2["result"]
+            check((res["explored_tree"], res["explored_sol"], res["best"]) == golden["lb1"],
+                  "second same-class job missed its goldens")
+            out["preempt"] = dict(
+                preemptions=recs[0]["preemptions"], slices=recs[0]["slices"],
+                waiter_preemptions=recs[1]["preemptions"],
+                job_wall_s=[r["result"]["elapsed_s"] for r in recs],
+                second_job=dict(new_programs=rec2["new_programs"],
+                                graphs_built=rec2["new_step_compiles"],
+                                wall_s=res["elapsed_s"],
+                                queue_wait_s=rec2["started"] - rec2["submitted"]))
+            emit("serve", phase_of="preempt", **out["preempt"])
+            _, classes = _serve_call(base, "/classes")
+            out["metrics_lines"] = len(metrics_text(base).splitlines())
+        finally:
+            d.scheduler.drain(timeout_s=60.0)
+            d.close()
+    # The four ta014 lb1 jobs as four solo searches in turn, on one problem:
+    # the first builds its graph (cold), the others reuse it (warm).
+    prob = PFSPProblem(inst=14, lb="lb1", ub=1)
+    solo = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        res = resident_search(prob, m=25, M=49152, device=dev)
+        solo.append(dict(wall_s=time.perf_counter() - t0, dispatches=res.dispatches,
+                         device_ms=res.dispatch_device_s * 1e3,
+                         graph_build_s=res.graph_build_s,
+                         device_cycles=res.diagnostics.kernel_launches))
+        check((res.explored_tree, res.explored_sol, res.best) == golden["lb1"],
+              "solo ta014 lb1 missed its goldens")
+    check(solo[0]["graph_build_s"] > 0 and all(r["graph_build_s"] == 0 for r in solo[1:]),
+          "a warm solo search built a graph")
+    release_programs(prob)
+    out["solo_lb1"] = dict(
+        runs=solo, dispatches=sum(r["dispatches"] for r in solo),
+        device_ms=sum(r["device_ms"] for r in solo), wall_s=sum(r["wall_s"] for r in solo),
+        graph_build_s_cold=solo[0]["graph_build_s"],
+        graph_build_s_warm=[r["graph_build_s"] for r in solo[1:]])
+    emit("serve", phase_of="solo_in_turn", **out["solo_lb1"],
+         batch_dispatches=out["lb1"]["batched_dispatches"],
+         batch_device_ms=out["lb1"]["batch_device_ms"], batch_wall_s=out["lb1"]["wall_s"])
+    out["classes"] = classes
+    out["launches"] = out["lb1"]["launches"]
+    return out
+
+
+def metrics_text(base: str) -> str:
+    """The daemon's /metrics text, checked by its own parser (which raises
+    on a malformed line)."""
+    import urllib.request
+
+    from tpu_tree_search_torch.serve.metrics import parse_text
+
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    parse_text(text)
+    return text
+
+
+def batch_kernel_rows(bg: dict, serve: dict) -> list[dict]:
+    """The kernels line's rows of the batched graph's nodes (not TPU
+    kernels: the counterparts of the JAX batched while loop's init and
+    OR-of-conds), shaped like the dispatch_cond_obs row; their launches are
+    the serve phase's batched ta014 lb1 run's."""
+    B = bg["off"]["B"]
+    # Bytes a launch must move, a slot: batch_init reads size and cycles and
+    # writes tree, sol, cycles and runs (the counter block's 10 words too
+    # with TTS_OBS=1); batch_cond reads active, size and cycles and
+    # writes runs.
+    init_bms, init_by = bound_ms(B * 6 * 4, 0.0)
+    cond_bms, cond_by = bound_ms(B * 4 * 4, 0.0)
+    rows = []
+    for name, replaces, bms, by, plain_key in (
+            ("batch_init", "tpu_tree_search/engine/batched.py:135", init_bms, init_by,
+             "init_plain_ms"),
+            ("batch_cond", "tpu_tree_search/engine/batched.py:120", cond_bms, cond_by,
+             "cond_plain_ms")):
+        off = bg["off"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_tree_search_torch/csrc/dispatch_graph.cu",
+            "replaces": replaces,
+            "launches": serve["launches"][name],
+            "launches_path": "serve batched ta014 lb1 (4 jobs, B=4)",
+            "shape": f"one block of {B} threads, the ({B}, 32) int32 slot states",
+            "max_abs_err": max(r["max_abs_err"] for r in bg.values()),
+            "ms": off["node_ms"].get(name), "timing": off["node_timing"],
+            "plain_ms": off[plain_key], "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "obs_ms": bg["obs"]["node_ms"].get("batch_cond_obs" if name == "batch_cond"
+                                               else name),
+            "frozen_slot_us_per_cycle": off["frozen_slot_us_per_cycle"]})
+    return rows
+
+
+def main_serve(dev, dev_info) -> int:
+    """``--serve``: only this slice's path (the batched graph's kernels and
+    the serve phase) after the build."""
+    counters = kernel_counters()
+    bg = phase_batch_graph(dev)
+    serve = phase_serve(dev, counters)
+    print(json.dumps({"kernels": batch_kernel_rows(bg, serve)}), flush=True)
+    print(json.dumps({"ok": True, "phases": "serve", "device": dev_info}), flush=True)
+    return 0
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper (and the graph dispatch) by name: each counts
     its launches in ``launches``."""
@@ -2064,7 +2495,11 @@ def kernel_counters() -> dict:
     )
     from tpu_tree_search_torch.ops import tiled as T
     from tpu_tree_search_torch.ops.dispatch import (
+        BatchGraph,
         DispatchGraph,
+        batch_cond,
+        batch_cond_obs,
+        batch_init,
         dispatch_cond_obs,
         phase_mark_cuda,
     )
@@ -2082,7 +2517,11 @@ def kernel_counters() -> dict:
             "tiled_lb2": T.tiled_lb2_cuda,
             "dispatch_graph": DispatchGraph,
             "dispatch_cond_obs": dispatch_cond_obs,
-            "phase_mark": phase_mark_cuda}
+            "phase_mark": phase_mark_cuda,
+            "batch_graph": BatchGraph,
+            "batch_init": batch_init,
+            "batch_cond": batch_cond,
+            "batch_cond_obs": batch_cond_obs}
 
 
 def main_host(dev_info) -> int:
@@ -2105,10 +2544,12 @@ def main_host(dev_info) -> int:
 
 def main() -> int:
     dev_info = phase_device()
-    if sys.argv[1:] in (["--cycles"], ["--host"]):
+    if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"]):
         phase_build()
         if sys.argv[1] == "--host":
             return main_host(dev_info)
+        if sys.argv[1] == "--serve":
+            return main_serve(torch.device("cuda", 0), dev_info)
         return main_cycles(torch.device("cuda", 0), dev_info)
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
@@ -2152,6 +2593,7 @@ def main() -> int:
     k4_48 = phase_kernel4(dev, N=48, shapes=[(50000, 80, 1)])
     k10_48 = phase_kernel4(dev, "kernel10", tiled=True, N=48, shapes=[(50000, 80, 1)])
     gd = phase_graph_dispatch(dev)
+    bg = phase_batch_graph(dev)
     eval_probs = {"lb1": PFSPProblem(inst=14, lb="lb1", ub=1),
                   "lb2": PFSPProblem(inst=14, lb="lb2", ub=1),
                   "nqueens": NQueensProblem(15)}
@@ -2227,6 +2669,8 @@ def main() -> int:
     # Telemetry (obs/): the counter block and the phase clock on the main
     # path's searches, each off, armed, armed, off.
     obsp = phase_obs(dev, counters)
+    # The batched engine and the serve daemon (this slice's path).
+    serve = phase_serve(dev, counters)
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -2436,6 +2880,9 @@ def main() -> int:
         "ms": mark_ms, "timing": f"profiler ({mark_seen} launches, N=15 phaseprof)",
         "plain_ms": obsp["plain_mark_ms"], "bound_ms": mark_bms, "bound_by": mark_by,
         "library_ms": None, "globaltimer_step_ns": obsp["timer"]["step_ns"]})
+    # The batched graph's nodes (not TPU kernels: the JAX batched while
+    # loop's init and OR of the slots' conditions).
+    kernels += batch_kernel_rows(bg, serve)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

@@ -1345,3 +1345,141 @@ def test_globaltimer_steps(cuda):
 
     step = D.globaltimer_step_ns(cuda)
     assert step["step_ns"] is not None and 0 < step["step_ns"] <= 1000
+
+
+# -- the program cache and the batched graph (engine/batched.py) ----------------
+
+
+def test_second_search_builds_no_dispatch_graph(cuda):
+    """The program (and its state) is cached on the problem: a second
+    same-class search reuses its graphs."""
+    from tpu_tree_search_torch.engine.resident import release_programs
+
+    prob = NQueensProblem(10)
+    first = resident_search(prob, m=25, M=1024, K=64, device=cuda)
+    (prog,) = prob._resident_programs.values()
+    graphs = dict(prog._graphs)
+    second = resident_search(prob, m=25, M=1024, K=64, device=cuda)
+    assert first.graph_build_s > 0 and second.graph_build_s == 0
+    assert prog._graphs == graphs and len(graphs) == 1
+    for res in (first, second):
+        assert (res.explored_tree, res.explored_sol) == (NQ10["tree"],
+                                                         NQ10["sol"])
+    assert release_programs(prob) == 1 and not prog._graphs
+
+
+def _batch_case(cuda, kind, B=4, K=4, M=256, C_=1 << 16):
+    """A B-slot program of ``kind`` and one frontier a slot: a full one, a
+    smaller one, an empty slot and one below m (retired)."""
+    from tpu_tree_search_torch.engine.batched import make_batched_program
+
+    prog, fr, best = _graph_program(cuda, kind, None, K, M)
+    prog.close()
+    prob = prog.problem
+    cut = {k: v[:300] for k, v in fr.items()}
+    low = {k: v[:10] for k, v in fr.items()}
+    fronts = [fr, cut, None, low][:B]
+    bp = make_batched_program(prob, B, 25, M, K, C_, cuda)
+    for i, f in enumerate(fronts):
+        bp.make_slot(i, f, best if f is not None else 0)
+    return bp, fronts, best
+
+
+@pytest.mark.parametrize("kind", ["lb1", "lb2", "nqueens"])
+def test_batched_graph_matches_b_solo_graphs(cuda, kind):
+    """One batched K = 4 dispatch (kernels 2, 8 or 4 captured a slot) against
+    each slot's solo graph dispatch: equal counts, state words (all but
+    ST_ACTIVE, the cycle's own flag) and live pool rows; each wrapper's
+    launches are the slots' summed cycles, batch_cond's the rounds."""
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    K, M = 4, 256
+    bp, fronts, best = _batch_case(cuda, kind, K=K, M=M)
+    wrapper = _graph_wrapper(kind, None)
+    D.batch_cond.launches = D.batch_init.launches = 0
+    reads = bp.step()
+    launches = wrapper.launches
+    assert bp.graph_build_s > 0 and len(bp._graphs) == 1
+    assert wrapper.captures == 4  # one a slot
+    cycles = [r[2] for r in reads]
+    assert cycles[0] == K and cycles[1] >= 1 and cycles[2:] == [0, 0]
+    assert launches == sum(cycles)
+    assert (D.batch_init.launches, D.batch_cond.launches) == (1, max(cycles))
+    solo = make_program(bp.problem, 25, M, K, 1 << 16, cuda)
+    solo.host_slots(1)
+    words = [i for i in range(C.ST_LEN) if i != C.ST_ACTIVE]
+    for i, f in enumerate(fronts):
+        if f is None:
+            assert reads[i][3] == 0
+            continue
+        state = solo.init_state(f, best)
+        assert solo.enqueue(state)() == reads[i][:5]
+        size = reads[i][3]
+        assert torch.equal(bp.st[i, words], state.st[words])
+        assert torch.equal(bp.states[i].pool_vals[:size],
+                           state.pool_vals[:size])
+        assert torch.equal(bp.states[i].pool_aux[:size],
+                           state.pool_aux[:size])
+    solo.close()
+    bp.close()
+
+
+@pytest.mark.parametrize("obs", ["0", "1"])
+def test_batch_cond_kernels_match_their_plain_versions(cuda, monkeypatch, obs):
+    """The batched graph on the card (batch_init, the slots' cycles,
+    batch_cond or with TTS_OBS=1 batch_cond_obs) against the same batch on
+    the CPU (the plain cycles, batch_init_plain, batch_cond_plain): every
+    slot's words, the counter block included, and its live rows."""
+    from tpu_tree_search_torch.engine.batched import make_batched_program
+
+    monkeypatch.setenv("TTS_OBS", obs)
+    bp, fronts, best = _batch_case(cuda, "lb1")
+    ref = make_batched_program(bp.problem, 4, 25, 256, 4, 1 << 16, "cpu")
+    for i, f in enumerate(fronts):
+        ref.make_slot(i, f, best if f is not None else 0)
+    for _ in range(2):
+        got, want = bp.step(), ref.step()
+        assert got == want
+    words = [i for i in range(C.ST_LEN) if i != C.ST_ACTIVE]
+    assert torch.equal(bp.st[:, words].cpu(), ref.st[:, words])
+    for i, r in enumerate(want):
+        assert torch.equal(bp.states[i].pool_vals[:r[3]].cpu(),
+                           ref.states[i].pool_vals[:r[3]])
+    if obs == "1":
+        assert bp.obs and got[0][5][0] > 0
+        assert bp._graphs and "batch_cond_obs" in "".join(
+            next(iter(bp._graphs.values())).kernels())
+    bp.close()
+    ref.close()
+
+
+def test_admission_builds_no_graph(cuda):
+    """Splicing new frontiers into the slots copies into their tensors: the
+    next dispatch runs the same graph."""
+    bp, fronts, best = _batch_case(cuda, "nqueens")
+    bp.step()
+    graphs, build_s = dict(bp._graphs), bp.graph_build_s
+    for i in range(4):
+        bp.make_slot(i, fronts[0], best)
+    reads = bp.step()
+    assert bp._graphs == graphs and bp.graph_build_s == build_s
+    assert [r[:4] for r in reads] == [reads[0][:4]] * 4
+    bp.close()
+
+
+def test_batched_search_goldens_and_summed_runs(cuda):
+    """batched_search on the card: every job at the N=10 goldens, and kernel
+    4's launches are the jobs' summed device cycles (a solo run's times
+    three)."""
+    from tpu_tree_search_torch.engine.batched import batched_search
+
+    solo = resident_search(NQueensProblem(10), m=25, M=1024, K=16,
+                           device=cuda)
+    CN.cycle_nqueens_cuda.launches = 0
+    got = batched_search(NQueensProblem(10), 3, 2, m=25, M=1024, K=16,
+                         device=cuda)
+    assert [(r.explored_tree, r.explored_sol) for r in got] == \
+        [(NQ10["tree"], NQ10["sol"])] * 3
+    assert CN.cycle_nqueens_cuda.launches == \
+        3 * solo.diagnostics.kernel_launches

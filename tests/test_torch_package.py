@@ -62,6 +62,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "roofline"}
     assert {p.stem for p in files if p.parent == PKG / "obs"} == obs_modules
     assert PKG / "problems" / "taillard_optima.py" in files
+    # The batched engine and the serve daemon (and its clients) are scanned
+    # with the rest.
+    assert PKG / "engine" / "batched.py" in files
+    assert {p.stem for p in files if p.parent == PKG / "serve"} == {
+        "__init__", "batch", "client", "jobs", "metrics", "pool",
+        "scheduler", "server", "warmup"}
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files
@@ -125,8 +131,12 @@ def test_kernel_sources_export_the_bound_entries():
     # The graph dispatch's source (not a TPU kernel: the host loop's half).
     for entry in ("dispatch_graph_create", "dispatch_graph_begin_body",
                   "dispatch_graph_end_body", "dispatch_graph_instantiate",
-                  "dispatch_graph_launch", "dispatch_graph_destroy"):
+                  "dispatch_graph_launch", "dispatch_graph_destroy",
+                  "batch_graph_create", "batch_graph_end_body"):
         assert f'extern "C" int {entry}(' in text["dispatch_graph"]
+    # The batched graph's nodes (the OR of the slots' conditions, the mask).
+    for kernel in ("batch_init", "batch_cond", "batch_cond_obs"):
+        assert f"__global__ void {kernel}(" in text["dispatch_graph"]
     assert "cudaGraphCondTypeWhile" in text["dispatch_graph"]
     for src, entries in [("lb1_bounds", ("lb1_bounds_i8", "lb1_bounds_i32")),
                          ("lb1_d_bounds", ("lb1_d_bounds_i8", "lb1_d_bounds_i32")),

@@ -12,6 +12,8 @@
     python -m tpu_tree_search_torch report t.json [--json] [--roofline]
     python -m tpu_tree_search_torch profile pfsp --inst 14 [--torch-trace DIR]
     python -m tpu_tree_search_torch nqueens --N 15 --obs-serve 8642   # then: watch --port 8642
+    python -m tpu_tree_search_torch serve --batch-slots 4 [--device cpu]   # the daemon
+    python -m tpu_tree_search_torch submit --wait -- pfsp --inst 14        # then: watch --job ID
 
 The banner and the report follow the reference's format (`print_settings` /
 `print_results`). Tiers: ``--tier device`` (the default: the port's entry
@@ -40,11 +42,20 @@ summarizes traces and metrics files (either package's), ``watch`` follows an
 ``--obs-serve`` run, ``profile <run command>`` runs with the phase clock
 armed. ``TTS_QUALITY=1`` prints the incumbent trajectory.
 
+Serving (`serve/`, the JAX package's daemon and clients): ``serve``
+starts the daemon (``--port``, ``--state-dir``, ``--workers``,
+``--quantum``, ``--max-queue``, ``--warm``, ``--batch-slots``,
+``--ckpt-every``, ``--device``), ``submit [--wait] -- <run command>``
+posts a job, ``watch --job ID`` follows one, ``top`` is the operator
+console, ``migrate ID --to URL`` moves a job between daemons over its
+checkpoint, and ``warmup`` runs the warm matrix with hit/miss on the
+build directory.
+
 The other tiers exit 2 naming the ROADMAP.md queue that ports them (A.9:
-the multi-device and multi-host tiers; A.8: the batched engine and
-serving; A.10: the guard and the contracts), and so does any shape or
-option the port refuses, or a flag the chosen tier or engine would ignore
-(``Error: ...`` on stderr, no traceback).
+the multi-device and multi-host tiers; A.8's fleet step: ``fleet`` and the
+``--router`` flags; A.10: the guard and the contracts), and so does any
+shape or option the port refuses, or a flag the chosen tier or engine
+would ignore (``Error: ...`` on stderr, no traceback).
 """
 
 from __future__ import annotations
@@ -78,8 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "N-Queens backtracking) on PyTorch/CUDA",
         epilog="other commands: `report FILE... [--json] [--roofline]` "
                "(summarize traces), `profile <run command>` (the run with "
-               "the phase clock armed), `watch [--port P]` (follow an "
-               "--obs-serve run)",
+               "the phase clock armed), `watch [--port P] [--job ID]` "
+               "(follow an --obs-serve run or a serve job), `serve`, "
+               "`submit`, `top`, `migrate`, `warmup` (the serve daemon "
+               "and its clients)",
     )
     p.add_argument("problem", choices=("pfsp", "nqueens"))
     p.add_argument("--N", type=int, default=14,
@@ -195,11 +208,17 @@ def report_parser() -> argparse.ArgumentParser:
 
 
 def watch_parser() -> argparse.ArgumentParser:
-    """``watch [--port P] [--host H] [--interval S] [--once] [--json]``."""
+    """``watch [--port P] [--host H] [--interval S] [--once] [--json]
+    [--job ID]``."""
     p = argparse.ArgumentParser(
         prog="python -m tpu_tree_search_torch watch",
-        description="live view of a run started with --obs-serve PORT")
-    p.add_argument("--port", type=int, default=8642)
+        description="live view of a run started with --obs-serve PORT, or "
+                    "with --job of one serve-daemon job")
+    p.add_argument("--port", type=int, default=None,
+                   help="the --obs-serve port (default 8642), or with --job "
+                        "the serve daemon's port (default 8643)")
+    p.add_argument("--job", type=str, default=None, metavar="ID",
+                   help="follow one serve-daemon job's stream")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--interval", type=float, default=1.0,
                    help="polling fallback interval in seconds")
@@ -208,6 +227,171 @@ def watch_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="emit raw snapshot JSON lines")
     return p
+
+
+#: The fleet step of A.8, which the serve subcommands' router flags need.
+FLEET_QUEUE = ("the fleet router is not ported yet (ROADMAP.md queue A, "
+               "A.8's fleet step: placement, health, router, loadgen)")
+
+
+def serve_parsers() -> dict:
+    """The serving subcommands' parsers (`tpu_tree_search/cli.py:279-436`):
+    ``serve``, ``submit``, ``top``, ``migrate``, ``warmup``. The fleet's
+    ``--router`` flags are parsed so that they are refused, not ignored."""
+    from .serve import DEFAULT_PORT
+
+    prog = "python -m tpu_tree_search_torch"
+    srv = argparse.ArgumentParser(
+        prog=f"{prog} serve",
+        description="persistent multi-tenant search daemon: admit jobs over "
+                    "a localhost HTTP/JSON API, keep each shape class's "
+                    "programs and dispatch graphs between jobs, preempt "
+                    "through bit-identical checkpoint cuts")
+    srv.add_argument("--port", type=int, default=DEFAULT_PORT,
+                     help=f"listen port on 127.0.0.1 (default {DEFAULT_PORT}; "
+                          "0 = OS-assigned, printed at startup)")
+    srv.add_argument("--host", type=str, default="127.0.0.1")
+    srv.add_argument("--state-dir", type=str, default=None,
+                     help="durable job records + checkpoints (default "
+                          "TTS_SERVE_STATE or "
+                          "~/.cache/tpu_tree_search_torch/serve)")
+    srv.add_argument("--workers", type=int, default=1,
+                     help="concurrent job slices (default 1)")
+    srv.add_argument("--quantum", type=float, default=5.0,
+                     help="seconds a job runs before it must yield to "
+                          "waiting work (checkpoint cut + requeue)")
+    srv.add_argument("--max-queue", type=int, default=64,
+                     help="admission control: reject submits (503) beyond "
+                          "this queue depth")
+    srv.add_argument("--warm", type=str, nargs="?", const="serve",
+                     default=None, metavar="NAMES",
+                     help="pre-warm the program pool at startup: 'serve', "
+                          "'all', or a comma-separated config list "
+                          "(`warmup` names)")
+    srv.add_argument("--batch-slots", type=int, default=None, metavar="B",
+                     help="instance-axis batch slots a batched program: "
+                          "with >= 2 same-class jobs queued, one dispatch "
+                          "(one CUDA graph) advances up to B of them "
+                          "(default TTS_BATCH_SLOTS or 1)")
+    srv.add_argument("--ckpt-every", type=float, default=None, metavar="S",
+                     help="cut a recoverable checkpoint every S seconds "
+                          "(default TTS_CKPT_EVERY or off)")
+    srv.add_argument("--device", default=None,
+                     help="cuda (default; raises when absent) or cpu")
+    srv.add_argument("--router", type=str, default=None, metavar="URL",
+                     help="refused: " + FLEET_QUEUE)
+    smt = argparse.ArgumentParser(
+        prog=f"{prog} submit",
+        description="submit a run to a serve daemon: `submit [--wait] -- "
+                    "pfsp --inst 14` (the run args are a normal run "
+                    "command; --wait streams to completion)")
+    smt.add_argument("--port", type=int, default=DEFAULT_PORT)
+    smt.add_argument("--host", type=str, default="127.0.0.1")
+    smt.add_argument("--router", type=str, default=None, metavar="URL",
+                     help="refused: " + FLEET_QUEUE)
+    smt.add_argument("--wait", action="store_true",
+                     help="follow the job's stream and print the final "
+                          "result (exit 1 unless it completes)")
+    smt.add_argument("--json", action="store_true",
+                     help="emit the submit response (or with --wait the "
+                          "final job record) as one JSON line")
+    smt.add_argument("rest", nargs=argparse.REMAINDER,
+                     help="a full run command (problem + flags)")
+    top = argparse.ArgumentParser(
+        prog=f"{prog} top",
+        description="live per-job / per-class table for a serve daemon")
+    top.add_argument("--port", type=int, default=DEFAULT_PORT)
+    top.add_argument("--host", type=str, default="127.0.0.1")
+    top.add_argument("--router", type=str, default=None, metavar="URL",
+                     help="refused: " + FLEET_QUEUE)
+    top.add_argument("--fleet", action="store_true",
+                     help="refused: " + FLEET_QUEUE)
+    top.add_argument("--interval", type=float, default=2.0)
+    top.add_argument("--once", action="store_true",
+                     help="print one frame and exit")
+    top.add_argument("--json", action="store_true")
+    mig = argparse.ArgumentParser(
+        prog=f"{prog} migrate",
+        description="move a job between serve daemons over its portable "
+                    "checkpoint (either package's daemons)")
+    mig.add_argument("job", type=str, help="job id on the source daemon")
+    mig.add_argument("--to", type=str, required=True, metavar="URL")
+    mig.add_argument("--port", type=int, default=DEFAULT_PORT)
+    mig.add_argument("--host", type=str, default="127.0.0.1")
+    mig.add_argument("--json", action="store_true")
+    wrm = argparse.ArgumentParser(
+        prog=f"{prog} warmup",
+        description="run the warm matrix, a subprocess a config, with "
+                    "per-config hit/miss on the build directory")
+    wrm.add_argument("--configs", type=str, default=None, metavar="NAMES",
+                     help="'all' (default), 'serve', or a comma-separated "
+                          "config name list")
+    wrm.add_argument("--timeout", type=float, default=None,
+                     help="per-config subprocess timeout in seconds "
+                          "(default TTS_WARM_TIMEOUT or 420)")
+    wrm.add_argument("--device", default="cuda",
+                     help="cuda (default) or cpu")
+    return {"serve": srv, "submit": smt, "top": top, "migrate": mig,
+            "warmup": wrm}
+
+
+def serve_main(argv: list[str]) -> int:
+    """The serving subcommands (``argv[0]`` names one), and the fleet's,
+    which exit 2 naming its queue."""
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "fleet":
+        print(f"Error: {FLEET_QUEUE}", file=sys.stderr)
+        return 2
+    args = serve_parsers()[cmd].parse_args(rest)
+    if getattr(args, "router", None) or getattr(args, "fleet", False):
+        print(f"Error: {FLEET_QUEUE}", file=sys.stderr)
+        return 2
+    if cmd == "serve":
+        from .serve.server import serve_main as daemon_main
+
+        try:
+            return daemon_main(port=args.port, host=args.host,
+                               state_dir=args.state_dir, workers=args.workers,
+                               quantum_s=args.quantum,
+                               max_queue=args.max_queue, warm=args.warm,
+                               batch_slots=args.batch_slots,
+                               ckpt_every_s=args.ckpt_every,
+                               device=args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 2
+    if cmd == "submit":
+        rest = [a for a in args.rest if a != "--"]
+        parser = build_parser()
+        if not rest or rest[0] not in ("pfsp", "nqueens"):
+            parser.error("submit wraps a search run, e.g. `submit -- pfsp "
+                         "--inst 14`")
+        run_args = parser.parse_args(rest)
+        try:
+            check_supported(run_args)
+            parse_k(run_args.K)
+        except (NotImplementedError, ValueError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 2
+        from .serve.client import spec_from_args, submit_main
+
+        return submit_main(spec_from_args(run_args), port=args.port,
+                           host=args.host, wait=args.wait, as_json=args.json)
+    if cmd == "top":
+        from .serve.client import top_main
+
+        return top_main(port=args.port, host=args.host,
+                        interval=args.interval, once=args.once,
+                        as_json=args.json)
+    if cmd == "migrate":
+        from .serve.client import migrate_main
+
+        return migrate_main(args.job, args.to, port=args.port,
+                            host=args.host, as_json=args.json)
+    from .serve.warmup import warmup_main
+
+    return warmup_main(args.configs, timeout_s=args.timeout,
+                       device=args.device)
 
 
 def check_supported(args) -> None:
@@ -517,12 +701,23 @@ def main(argv=None) -> int:
                            roofline=rargs.roofline,
                            costmodel=rargs.costmodel)
     if argv and argv[0] == "watch":
+        wargs = watch_parser().parse_args(argv[1:])
+        if wargs.job is not None:
+            # A serve daemon's job: a pure HTTP client.
+            from .serve import DEFAULT_PORT
+            from .serve.client import watch_job_main
+
+            return watch_job_main(wargs.job, port=wargs.port or DEFAULT_PORT,
+                                  host=wargs.host, once=wargs.once,
+                                  as_json=wargs.json)
         from .obs.live import watch_main
 
-        wargs = watch_parser().parse_args(argv[1:])
-        return watch_main(wargs.port, host=wargs.host,
+        return watch_main(wargs.port or 8642, host=wargs.host,
                           interval=wargs.interval, once=wargs.once,
                           as_json=wargs.json)
+    if argv and argv[0] in ("serve", "submit", "top", "migrate", "warmup",
+                            "fleet"):
+        return serve_main(argv)
     parser = build_parser()
     if argv and argv[0] == "profile":
         # `profile <run command>`: the same run with the phase clock armed.

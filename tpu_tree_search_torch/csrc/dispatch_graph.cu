@@ -42,6 +42,10 @@
 //     (its `clk` argument).
 // Both blocks ride the state the host reads once a dispatch.
 //
+// The batched dispatch (`batch_init`, a body of B captured cycles,
+// `batch_cond`) is built by batch_graph_create and batch_graph_end_body,
+// below.
+//
 // Conditional nodes need CUDA 12.4 or later; where the installation is
 // older, dispatch_graph_create returns the error.
 #include <cuda.h>
@@ -109,21 +113,101 @@ __global__ void dispatch_cond_obs(int* st, cudaGraphConditionalHandle h,
   cudaGraphSetConditional(h, dispatch_active(st, m, Mn, C, K));
 }
 
+// The batched dispatch: B loop states in one (B, ST_LEN) int32 tensor, a
+// row a slot, and one graph for the batch (`ops/dispatch.py` BatchGraph),
+// the counterpart of the JAX batched `lax.while_loop`
+// (tpu_tree_search/engine/batched.py:112-144), whose condition is the OR of
+// the slots' conditions and whose body masks each slot's update with its
+// own condition. Here the body is each slot's cycle, captured in slot
+// order, then one `batch_cond` node; a slot whose condition is false runs
+// an exact no-op (launch 1 of its cycle clears st[ST_ACTIVE], the later
+// launches return at once). Thread i of the one block handles slot i.
+__device__ __forceinline__ int* batch_row(int* st, int i) {
+  return st + static_cast<long long>(i) * ST_LEN;
+}
+
+// `dispatch_init` for B slots: each slot's tree, sol, cycles and runs (and
+// with `obs` its counter block) zeroed; the condition is the OR.
+__global__ void batch_init(int* st, int B, cudaGraphConditionalHandle h,
+                           int m, long long Mn, int C, int K, int obs) {
+  const int i = threadIdx.x;
+  int live = 0;
+  if (i < B) {
+    int* s = batch_row(st, i);
+    s[ST_TREE] = 0;
+    s[ST_SOL] = 0;
+    s[ST_CYCLES] = 0;
+    s[ST_RUNS] = 0;
+    if (obs)
+      for (int j = ST_CTR; j <= ST_CTR_SOL; ++j) s[j] = 0;
+    live = dispatch_active(s, m, Mn, C, K);
+  }
+  const int any = __syncthreads_or(live);
+  if (i == 0) cudaGraphSetConditional(h, any);
+}
+
+// The batched body's last node: only a slot whose cycle ran this round
+// (st[ST_ACTIVE], set by the cycle's launch 1) counts the run and, with
+// counters (n > 0, the child slots a parent), folds the cycle into its
+// block; a frozen slot's block is left as it is, so each slot's runs are
+// its cycles. The condition is the OR of the slots'.
+template <bool OBS>
+__device__ __forceinline__ void batch_cond_body(int* st, int B,
+                                                cudaGraphConditionalHandle h,
+                                                int m, long long Mn, int C,
+                                                int K, int n) {
+  const int i = threadIdx.x;
+  int live = 0;
+  if (i < B) {
+    int* s = batch_row(st, i);
+    if (s[ST_ACTIVE]) {
+      if (OBS) obs_count_cycle(s, n, Mn);
+      s[ST_RUNS] += 1;
+    }
+    live = dispatch_active(s, m, Mn, C, K);
+  }
+  const int any = __syncthreads_or(live);
+  if (i == 0) cudaGraphSetConditional(h, any);
+}
+
+__global__ void batch_cond(int* st, int B, cudaGraphConditionalHandle h,
+                           int m, long long Mn, int C, int K) {
+  batch_cond_body<false>(st, B, h, m, Mn, C, K, 0);
+}
+
+// `batch_cond` with the counter block (TTS_OBS=1): one block a slot.
+__global__ void batch_cond_obs(int* st, int B, cudaGraphConditionalHandle h,
+                               int m, long long Mn, int C, int K, int n) {
+  batch_cond_body<true>(st, B, h, m, Mn, C, K, n);
+}
+
+// Threads of the batch nodes' one block: B rounded up to a warp.
+static dim3 batch_block(int B) { return dim3((B + 31) / 32 * 32); }
+
 // A new graph: the init node (`obs`: zeroing the counter block too), with a
-// clock `clk` a seed mark, then the while node with an empty body. Returns
-// the graph, the body graph to capture the cycle into, and the condition's
-// handle. Returns the CUDA error, 0 on success.
-extern "C" int dispatch_graph_create(void* st, int m, long long Mn, int C,
-                                     int K, int obs, void* clk,
-                                     void** graph_out, void** body_out,
-                                     unsigned long long* handle_out) {
+// clock `clk` a seed mark, then the while node with an empty body. With
+// B > 0 the graph is a batch's: `st` holds B rows and the init node is
+// `batch_init`. Returns the graph, the body graph to capture the cycle (or
+// the B cycles) into, and the condition's handle. Returns the CUDA error,
+// 0 on success.
+static int graph_create(void* st, int B, int m, long long Mn, int C, int K,
+                        int obs, void* clk, void** graph_out, void** body_out,
+                        unsigned long long* handle_out) {
   cudaGraph_t g = nullptr;
   cudaError_t err = cudaGraphCreate(&g, 0);
   if (err) return static_cast<int>(err);
   cudaGraphConditionalHandle h = 0;
   err = cudaGraphConditionalHandleCreate(&h, g, 0, cudaGraphCondAssignDefault);
   cudaGraphNode_t init = nullptr, loop = nullptr;
-  if (!err) {
+  if (!err && B > 0) {
+    void* args[] = {&st, &B, &h, &m, &Mn, &C, &K, &obs};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(batch_init);
+    kp.gridDim = dim3(1);
+    kp.blockDim = batch_block(B);
+    kp.kernelParams = args;
+    err = cudaGraphAddKernelNode(&init, g, nullptr, 0, &kp);
+  } else if (!err) {
     void* args[] = {&st, &h, &m, &Mn, &C, &K, &obs};
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(dispatch_init);
@@ -166,6 +250,24 @@ extern "C" int dispatch_graph_create(void* st, int m, long long Mn, int C,
   return 0;
 }
 
+extern "C" int dispatch_graph_create(void* st, int m, long long Mn, int C,
+                                     int K, int obs, void* clk,
+                                     void** graph_out, void** body_out,
+                                     unsigned long long* handle_out) {
+  return graph_create(st, 0, m, Mn, C, K, obs, clk, graph_out, body_out,
+                      handle_out);
+}
+
+// A batch's graph over the (B, ST_LEN) states `st` (1 <= B <= 1024).
+extern "C" int batch_graph_create(void* st, int B, int m, long long Mn, int C,
+                                  int K, int obs, void** graph_out,
+                                  void** body_out,
+                                  unsigned long long* handle_out) {
+  if (B < 1 || B > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  return graph_create(st, B, m, Mn, C, K, obs, nullptr, graph_out, body_out,
+                      handle_out);
+}
+
 // Start capturing `stream`'s work into the while node's body.
 extern "C" int dispatch_graph_begin_body(void* body, void* stream) {
   return static_cast<int>(cudaStreamBeginCaptureToGraph(
@@ -188,6 +290,28 @@ extern "C" int dispatch_graph_end_body(void* stream, int ok, void* st,
     err = cudaGetLastError();
   } else if (ok) {
     dispatch_cond<<<1, 1, 0, s>>>(static_cast<int*>(st), h, m, Mn, C, K);
+    err = cudaGetLastError();
+  }
+  cudaGraph_t out = nullptr;
+  const cudaError_t end = cudaStreamEndCapture(s, &out);
+  return static_cast<int>(err ? err : end);
+}
+
+// End a batch's body: with `ok`, enqueue `batch_cond` (with `obs` > 0,
+// `batch_cond_obs` of cycles of `obs` child slots a parent) after the B
+// captured cycles; without, only end the capture.
+extern "C" int batch_graph_end_body(void* stream, int ok, void* st, int B,
+                                    unsigned long long h, int m, long long Mn,
+                                    int C, int K, int obs) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (ok && obs) {
+    batch_cond_obs<<<1, batch_block(B), 0, s>>>(static_cast<int*>(st), B, h,
+                                                m, Mn, C, K, obs);
+    err = cudaGetLastError();
+  } else if (ok) {
+    batch_cond<<<1, batch_block(B), 0, s>>>(static_cast<int*>(st), B, h, m,
+                                            Mn, C, K);
     err = cudaGetLastError();
   }
   cudaGraph_t out = nullptr;

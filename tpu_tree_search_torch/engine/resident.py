@@ -74,11 +74,21 @@ side emits the JAX engine's events: ``dispatch`` spans, per-phase
 ``overflow_fallback``, ``checkpoint``, and feeds the flight recorder and
 the quality tracker at every consumed dispatch.
 
+Programs are cached on the problem (``problem._resident_programs``, keyed
+as the JAX engine keys its compiled programs, `resident.py:682-702`): each
+owns one ``ResidentState`` of its capacity, into which a search copies its
+frontier (``load_state``), so the dispatch graphs that bake in the state's
+addresses are built once a program and K rung, not once a search. A search
+takes the cached program for its whole length; a second search that finds
+it taken builds a program of its own, uncached, freed when it ends.
+``release_programs(problem)`` frees the cached ones.
+
 Not ported yet (ROADMAP A.10): the steady-state guard.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -205,7 +215,66 @@ def _swap_children(vals: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
                        torch.where(iota == kcol, val_at_d, vals[:, None, :]))
 
 
-class _ResidentProgram:
+#: Guards the program caches on problems and the programs' ``busy`` flags
+#: (two serve workers may start searches of one problem at once).
+_CACHE_LOCK = threading.Lock()
+
+
+class CachedProgram:
+    """A program cached on its problem (``take_cached``): the attribute of
+    the problem's cache, the key it is cached under (None: uncached) and
+    whether a search holds it. ``close`` frees a program; subclasses free
+    their graphs and tensors in ``_free``."""
+
+    cache_attr = "_resident_programs"
+    cache_key: tuple | None = None
+    busy = False
+
+    def release(self) -> None:
+        """End a search's hold (after its work has finished): a cached
+        program goes back to its cache, an uncached one is closed."""
+        with _CACHE_LOCK:
+            self.busy = False
+            cached = self.cache_key is not None
+        if not cached:
+            self.close()
+
+    def close(self) -> None:
+        """Free the program (after its work has finished) and take it out
+        of its problem's cache."""
+        with _CACHE_LOCK:
+            cache = getattr(self.problem, self.cache_attr, None)
+            if cache is not None and cache.get(self.cache_key) is self:
+                del cache[self.cache_key]
+            self.cache_key = None
+        self._free()
+
+    def _free(self) -> None:
+        raise NotImplementedError
+
+
+def take_cached(problem: Problem, attr: str, key: tuple, build):
+    """The program cached on ``problem.<attr>`` under ``key`` when no search
+    holds it; else ``build()``, cached when the key has none yet and
+    uncached (closed at ``release``) when another search holds the cached
+    one. The caller holds it until ``release()``: two searches never share
+    a program or a state."""
+    with _CACHE_LOCK:
+        cache = problem.__dict__.setdefault(attr, {})
+        prog = cache.get(key)
+        if prog is not None and not prog.busy:
+            prog.busy = True
+            return prog
+    prog = build()
+    with _CACHE_LOCK:
+        prog.busy = True
+        if key not in cache:
+            prog.cache_key = key
+            cache[key] = prog
+    return prog
+
+
+class _ResidentProgram(CachedProgram):
     """The resident program for one (problem, m, M, K, capacity, device).
 
     Pool layout (both problems): ``vals`` (C, width) rows of
@@ -263,6 +332,9 @@ class _ResidentProgram:
         # The state words a dispatch's read copies: through the body's runs,
         # or through the counter block.
         self._nread = ST_CTR_SOL + 1 if self.obs else ST_RUNS + 1
+        # The state the program owns, which every search of it reuses
+        # (``own_state``).
+        self.state: ResidentState | None = None
 
     def use_k(self, K: int) -> None:
         """Cycles a dispatch: K, clamped so that one dispatch accumulates at
@@ -276,6 +348,16 @@ class _ResidentProgram:
         return pool_from_numpy(frontier[p.vals_field], frontier[p.aux_field],
                                k, best, self.capacity, self.device,
                                self.vals_dtype, self.aux_dtype)
+
+    def own_state(self, frontier: dict, best: int) -> ResidentState:
+        """The program's own state, holding ``frontier`` and ``best``:
+        allocated at the first search, copied into at every later one (the
+        graphs built on it stay valid)."""
+        if self.state is None:
+            self.state = self.init_state(frontier, best)
+        else:
+            self.load_state(self.state, frontier, best)
+        return self.state
 
     def load_state(self, state: ResidentState, frontier: dict,
                    best: int) -> None:
@@ -295,8 +377,9 @@ class _ResidentProgram:
 
     def host_slots(self, depth: int) -> None:
         """One pinned scalar buffer and its events for each of ``depth``
-        dispatches in flight (the graph dispatch's lagged reads)."""
-        if self.graphed:
+        dispatches in flight (the graph dispatch's lagged reads); kept
+        across the searches of a cached program while the depth holds."""
+        if self.graphed and len(self._slots) != max(1, depth):
             self._slots = [
                 (torch.empty(self._nread, dtype=torch.int32, pin_memory=True),
                  torch.cuda.Event(enable_timing=True),
@@ -402,11 +485,12 @@ class _ResidentProgram:
             self._graphs[key] = g
         return g
 
-    def close(self) -> None:
-        """Free the dispatch graphs (after their work has finished)."""
+    def _free(self) -> None:
+        """The dispatch graphs and the state."""
         for g in self._graphs.values():
             g.close()
         self._graphs.clear()
+        self.state = None
 
     def residual(self, state: ResidentState) -> tuple[dict, int, int]:
         """Downloads the live pool -> (host NodeBatch, size, best). The
@@ -451,22 +535,30 @@ class _ResidentProgram:
     # -- the unfused cycle ---------------------------------------------------
 
     def _unfused_step(self, state: ResidentState) -> None:
-        """Up to K unfused cycles; synchronises once per cycle. Armed, each
-        cycle is folded into the counter block (JAX's non-megakernel
-        slots: an overflow cycle counts one ``overflow`` and M*n
-        ``push_rows``, a fitting one S) and the phase clock is marked
-        after the pop, the evaluation, the compaction and the push or
-        overflow (``phase_mark`` on the stream)."""
+        """Up to K unfused cycles (``step`` has zeroed the counts)."""
+        self._unfused_cycles(state, self.K)
+
+    def _unfused_cycles(self, state: ResidentState, limit: int) -> None:
+        """Up to ``limit`` more unfused cycles of the dispatch in progress,
+        counted on from the state's tree, sol, cycles and counter block;
+        synchronises once per cycle. Armed, each cycle is folded into the
+        counter block (JAX's non-megakernel slots: an overflow cycle counts
+        one ``overflow`` and M*n ``push_rows``, a fitting one S) and the
+        phase clock is marked after the pop, the evaluation, the compaction
+        and the push or overflow (``phase_mark`` on the stream)."""
         n, m, M, C, S = self.problem.child_slots, self.m, self.M, self.capacity, self.S
         Mn = M * n
         dev = self.device
         pool_vals, pool_aux = state.pool_vals, state.pool_aux
-        size, best = (int(v) for v in state.st[:ST_BEST + 1].tolist())
-        tree = sol = cycles = 0
+        v = state.st.tolist()
+        size, best, tree, sol, cycles = v[:ST_CYCLES + 1]
         clk = self.clk
-        ctr = [0] * obs_counters.NSLOTS if self.obs else None
+        ctr = v[ST_CTR:ST_CTR + obs_counters.NSLOTS] if self.obs else None
         P = obs_phases.IDX
-        while size >= m and size + Mn <= C and cycles < self.K:
+        ran = 0
+        while (ran < limit and size >= m and size + Mn <= C
+               and cycles < self.K):
+            ran += 1
             if clk is not None:
                 phase_mark(clk, P["loop"], obs_phases.OPEN)
             cnt = min(size, M)
@@ -674,11 +766,23 @@ class NQueensResident(_ResidentProgram):
         return keep, sol_inc, torch.tensor(best, device=vals_c.device)
 
 
-def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
-                 device, fused: bool = True, staged: bool = True,
-                 mt: int | None = None) -> _ResidentProgram:
-    """The resident program of ``problem`` (`resident.py:674-711`);
-    ``staged`` reaches the PFSP lb2 program only, ``mt`` the fused cycle."""
+def program_key(m: int, M: int, K: int, capacity: int, device, fused: bool,
+                staged: bool, mt: int | None) -> tuple:
+    """The cache key of a resident program (`resident.py:682-702`, with the
+    port's routing inputs): what selects its cycle, its graphs and its
+    state, and the telemetry flags its graphs bake in. K is the K asked
+    for: the program's K moves along AdaptiveK's ladder and is set back
+    when a search takes it."""
+    return (m, M, K, capacity, str(resolve_device(device)), fused, staged, mt,
+            obs_counters.device_counters_enabled(),
+            obs_phases.phase_profiling_enabled())
+
+
+def new_program(problem: Problem, m: int, M: int, K: int, capacity: int,
+                device, fused: bool = True, staged: bool = True,
+                mt: int | None = None) -> _ResidentProgram:
+    """A new, uncached resident program of ``problem``; ``staged`` reaches
+    the PFSP lb2 program only, ``mt`` the fused cycle."""
     if isinstance(problem, PFSPProblem):
         return PFSPResident(problem, m, M, K, capacity, device, fused=fused,
                             staged=staged, mt=mt)
@@ -686,6 +790,35 @@ def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
         return NQueensResident(problem, m, M, K, capacity, device, fused=fused,
                                mt=mt)
     raise TypeError(f"no resident program for {type(problem).__name__}")
+
+
+def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
+                 device, fused: bool = True, staged: bool = True,
+                 mt: int | None = None) -> _ResidentProgram:
+    """The resident program of ``problem`` for a search (`resident.py:
+    674-711`), held by the caller until ``release()``: cached on the
+    problem under ``program_key`` (``take_cached``), its K set back to
+    ``K``."""
+    if not isinstance(problem, (PFSPProblem, NQueensProblem)):
+        raise TypeError(f"no resident program for {type(problem).__name__}")
+    prog = take_cached(
+        problem, "_resident_programs",
+        program_key(m, M, K, capacity, device, fused, staged, mt),
+        lambda: new_program(problem, m, M, K, capacity, device, fused=fused,
+                            staged=staged, mt=mt))
+    prog.use_k(K)
+    return prog
+
+
+def release_programs(problem: Problem) -> int:
+    """Close every program cached on ``problem`` (resident and batched):
+    their graphs and device memory go (after their work has finished).
+    Returns how many were closed."""
+    progs = [p for attr in ("_resident_programs", "_batched_programs")
+             for p in list((getattr(problem, attr, None) or {}).values())]
+    for prog in progs:
+        prog.close()
+    return len(progs)
 
 
 def default_capacity(M: int, child_slots: int, node_bytes: int) -> int:
@@ -828,8 +961,12 @@ def resident_search(
     # -- phase 2: device-resident loop ----------------------------------------
     program = make_program(problem, m, M, ctl.K if ctl else k_value,
                            capacity, dev, fused=fused, staged=staged, mt=mt)
+    # The program's counters run across its searches: this one's are the
+    # differences.
+    build0 = program.graph_build_s
+    device0 = program.dispatch_device_s
     program.host_slots(depth)
-    state = program.init_state(pool.as_batch(), best)
+    state = program.own_state(pool.as_batch(), best)
     pool.clear()
     diagnostics.host_to_device += 1
     tree2 = sol2 = 0
@@ -1008,7 +1145,7 @@ def resident_search(
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         twin.close()
-        program.close()
+        program.release()
     if offloader is not None:
         diagnostics.kernel_launches += offloader.diagnostics.kernel_launches
         diagnostics.host_to_device += offloader.diagnostics.host_to_device
@@ -1048,8 +1185,9 @@ def resident_search(
         stall_fallbacks=stalls,
         pipeline_depth=depth,
         k_auto=k_auto,
-        graph_build_s=program.graph_build_s,
-        dispatch_device_s=program.dispatch_device_s,
+        graph_build_s=program.graph_build_s - build0,
+        dispatch_device_s=(None if device0 is None
+                           else program.dispatch_device_s - device0),
         obs=obs_result(),
         phase_profile=ph_total,
         roofline=obs_roofline.result_audit(program, ph_total, ctr_total,

@@ -29,7 +29,8 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tts_native.cpp"
-BUILD = _PKG / "_build"
+# TTS_BUILD_DIR moves the build directory (the kernels' too, `ops/_build.py`).
+BUILD = Path(os.environ.get("TTS_BUILD_DIR") or _PKG / "_build")
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()

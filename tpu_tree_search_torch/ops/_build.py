@@ -4,7 +4,8 @@ Every ``tpu_tree_search_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which is loaded
 with ``ctypes`` — no PyTorch headers, so a source builds in seconds. The
 build happens at first use, on the machine with the card, into
-``tpu_tree_search_torch/_build/`` (not committed). Each library is cached
+``tpu_tree_search_torch/_build/`` (not committed; ``TTS_BUILD_DIR`` moves
+it). Each library is cached
 under a hash of its source, the shared headers and the flags, so an edit
 rebuilds and an unchanged tree reuses the build. All sources are compiled at
 once, one ``nvcc`` process each, so the wall time is that of the slowest.
@@ -30,7 +31,8 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-BUILD = PKG / "_build"
+# TTS_BUILD_DIR moves the build directory (the native runtime's too).
+BUILD = Path(os.environ.get("TTS_BUILD_DIR") or PKG / "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")

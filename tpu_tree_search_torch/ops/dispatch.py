@@ -45,6 +45,20 @@ Both kernels are in `csrc/dispatch_graph.cu` (``phase_mark`` in
 `csrc/phase_clock.cuh`); neither replaces a TPU kernel. Their launches are
 counted as the cycles' are: a body's captured marks and its
 ``dispatch_cond_obs`` by the body's runs, the seed by graph launches.
+
+``BatchGraph`` is the batched engine's dispatch (`engine/batched.py`, the
+counterpart of the JAX batched ``lax.while_loop``): B loop states in one
+(B, ST_LEN) tensor, a row a slot; an init node ``batch_init`` (each slot's
+counts zeroed, the condition the OR of the slots'), and a ``while`` node
+whose body is each slot's cycle, captured in slot order, then one
+``batch_cond`` (``batch_cond_obs`` with the counter block). A slot whose
+condition is false runs an exact no-op: its cycle's launch 1 clears
+``st[ST_ACTIVE]`` and the later launches return at once; ``batch_cond``
+counts a run, and folds the counter block, only for a slot whose cycle ran.
+So one batched dispatch is one ``cudaGraphLaunch``, and a wrapper's
+launches are the sum of its slots' runs (``BatchGraph.count``). The plain
+versions ``batch_init_plain`` and ``batch_cond_plain`` run the same
+arithmetic on the host.
 """
 
 from __future__ import annotations
@@ -79,6 +93,14 @@ _ENTRY_ARGS = {
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
                               ctypes.POINTER(_VP), ctypes.POINTER(_VP),
                               ctypes.POINTER(ctypes.c_ulonglong)),
+    "batch_graph_create": (_VP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(_VP), ctypes.POINTER(_VP),
+                           ctypes.POINTER(ctypes.c_ulonglong)),
+    "batch_graph_end_body": (_VP, ctypes.c_int, _VP, ctypes.c_int,
+                             ctypes.c_ulonglong, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int),
     "dispatch_graph_begin_body": (_VP, _VP),
     "dispatch_graph_end_body": (_VP, ctypes.c_int, _VP, ctypes.c_ulonglong,
                                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -204,6 +226,140 @@ class DispatchGraph:
 DispatchGraph.launches = 0
 
 
+class BatchGraph(DispatchGraph):
+    """One K-cycle dispatch of a batch of B slots as a CUDA graph over the
+    (B, ST_LEN) states ``st``. ``cycles[i]()`` enqueues one cycle of slot i
+    on the current stream; each is called once, under capture, in slot
+    order. ``m``, ``Mn``, ``C``, ``K`` and ``obs`` as ``DispatchGraph``'s
+    (no phase clock: the batched engine refuses it)."""
+
+    def __init__(self, cycles: list, st: torch.Tensor, m: int, Mn: int,
+                 C: int, K: int, obs: int = 0):
+        if not st.is_cuda or st.dim() != 2 or len(cycles) != st.shape[0]:
+            raise ValueError("BatchGraph takes a CUDA (B, ST_LEN) state "
+                             "tensor and one cycle a row")
+        t0 = time.perf_counter()
+        self.K = K
+        self.st = st
+        self.clk = None
+        self.B = len(cycles)
+        # The wrappers each slot's capture recorded, and the condition node.
+        self.slot_wrappers: list[list] = [[] for _ in cycles]
+        self.cond = batch_cond_obs if obs else batch_cond
+        self.wrappers = []
+        self._graph = _VP()
+        self._exec = _VP()
+        body = _VP()
+        handle = ctypes.c_ulonglong()
+        lib, create = _fn("batch_graph_create")
+        _build.check(lib, create(st.data_ptr(), self.B, m, Mn, C, K, obs,
+                                 ctypes.byref(self._graph), ctypes.byref(body),
+                                 ctypes.byref(handle)),
+                     "batch_graph_create")
+        self._body = body
+        try:
+            self._capture_batch(lib, cycles, body, handle.value, m, Mn, C, K,
+                                obs)
+            _, inst = _fn("dispatch_graph_instantiate")
+            _build.check(lib, inst(self._graph, ctypes.byref(self._exec)),
+                         "dispatch_graph_instantiate")
+        except BaseException:
+            self.close()
+            raise
+        self.build_s = time.perf_counter() - t0
+
+    def _capture_batch(self, lib, cycles: list, body, handle: int, m: int,
+                       Mn: int, C: int, K: int, obs: int) -> None:
+        """The while node's body: each slot's cycle on one side stream, in
+        slot order, captured into ``body``, then the condition kernel."""
+        side = torch.cuda.Stream(self.st.device)
+        _, begin = _fn("dispatch_graph_begin_body")
+        _, end = _fn("batch_graph_end_body")
+        _build.check(lib, begin(body, side.cuda_stream),
+                     "dispatch_graph_begin_body")
+        global _capturing
+        ok = 0
+        try:
+            with torch.cuda.stream(side):
+                for cycle, wrappers in zip(cycles, self.slot_wrappers):
+                    _capturing = wrappers
+                    cycle()
+            ok = 1
+        finally:
+            _capturing = None
+            err = end(side.cuda_stream, ok, self.st.data_ptr(), self.B,
+                      handle, m, Mn, C, K, obs)
+        _build.check(lib, err, "batch_graph_end_body")
+
+    def launch(self) -> None:
+        """Enqueue one batched dispatch on the current stream."""
+        lib, fn = _fn("dispatch_graph_launch")
+        stream = torch.cuda.current_stream(self.st.device).cuda_stream
+        _build.check(lib, fn(self._exec, stream), "dispatch_graph_launch")
+        BatchGraph.launches += 1
+        batch_init.launches += 1
+
+    def count(self, runs: list[int]) -> None:
+        """Count a dispatch's ``runs`` (each slot's ``st[ST_RUNS]`` after
+        it): each wrapper slot i's capture recorded launched ``runs[i]``
+        times; the condition node ran once a round, ``max(runs)`` times (a
+        round runs while any slot is live, and a slot is live in the
+        dispatch's first rounds only)."""
+        for wrappers, r in zip(self.slot_wrappers, runs):
+            for w in wrappers:
+                w.launches += r
+        self.cond.launches += max(runs, default=0)
+
+
+#: Batched graph launches in this process (all batched programs).
+BatchGraph.launches = 0
+
+
+def batch_init_plain(st: torch.Tensor, m: int, Mn: int, C: int, K: int,
+                     obs: bool = False) -> bool:
+    """What one ``batch_init`` node computes, on the (B, ST_LEN) states in
+    place: each slot's tree, sol, cycles and runs (with ``obs`` its counter
+    block and the values it last saw) zeroed; returns the OR of the
+    slots' loop conditions."""
+    from .cycle import ST_CTR, ST_CTR_SOL, ST_CYCLES, ST_RUNS, ST_TREE
+
+    st[:, ST_TREE:ST_CYCLES + 1] = 0
+    st[:, ST_RUNS] = 0
+    if obs:
+        st[:, ST_CTR:ST_CTR_SOL + 1] = 0
+    return any(loop_active(v, m, Mn, C, K) for v in st.tolist())
+
+
+def batch_cond_plain(st: torch.Tensor, n: int, m: int, Mn: int, C: int,
+                     K: int) -> bool:
+    """What one ``batch_cond`` node (``n`` > 0: ``batch_cond_obs`` of
+    cycles of ``n`` child slots a parent) computes, on the (B, ST_LEN)
+    states in place: each slot whose cycle ran this round
+    (``st[ST_ACTIVE]``) counts the run and, with ``n``, folds the cycle
+    into its counter block (``dispatch_cond_obs_plain``'s update); a frozen
+    slot is left as it is. Returns the OR of the slots' loop conditions."""
+    from .cycle import ST_ACTIVE, ST_RUNS
+
+    live = False
+    for i, v in enumerate(st.tolist()):
+        if v[ST_ACTIVE]:
+            if n:
+                dispatch_cond_obs_plain(st[i], n, m, Mn, C, K)
+            else:
+                st[i, ST_RUNS] += 1
+        live |= loop_active(st[i].tolist(), m, Mn, C, K)
+    return live
+
+
+def loop_active(v: list, m: int, Mn: int, C: int, K: int) -> bool:
+    """The loop condition on one state's words (``st.tolist()``):
+    ``size >= m``, ``size + Mn <= C``, ``cycles < K``."""
+    from .cycle import ST_CYCLES, ST_SIZE
+
+    size = v[ST_SIZE]
+    return size >= m and size + Mn <= C and v[ST_CYCLES] < K
+
+
 # -- the counter block (TTS_OBS=1) ---------------------------------------------
 
 
@@ -243,6 +399,11 @@ class _GraphKernel:
 
 
 dispatch_cond_obs = _GraphKernel("dispatch_cond_obs")
+#: The batched graph's nodes (``BatchGraph``): the init node once a
+#: dispatch, the condition node once a round.
+batch_init = _GraphKernel("batch_init")
+batch_cond = _GraphKernel("batch_cond")
+batch_cond_obs = _GraphKernel("batch_cond_obs")
 
 
 # -- the phase clock (TTS_PHASEPROF=1) -------------------------------------------
