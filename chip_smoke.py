@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and six profiles
     python3 chip_smoke.py --host     # phases 1, 2 and 18c (offload cold and warm, profiled)
     python3 chip_smoke.py --serve    # phases 1, 2, 16d and 18e (the batched graph, serving)
+    python3 chip_smoke.py --parallel # phases 1, 2 and 18f (the multi-device tiers)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -145,6 +146,22 @@ ends the script with a non-zero exit before the final line:
      programs and graphs; per job its wall and queue wait; and the four
      lb1 jobs as four solo searches in turn (dispatches, device ms,
      graph build seconds cold and warm);
+ 18f. the multi-device tiers (``parallel/``): ``mesh_balance``, the mesh's
+     balance step (csrc/mesh_balance.cu), against its plain version on
+     seeded states, every word and live row (D = 1, 2 and 4, a gift of T
+     whose kept rows overlap their destination, no gift), timed at ta014's
+     mesh shape (D = 4, C = 2,097,152) with and without a gift of T rows;
+     ``mesh_dispatch``, one mesh dispatch (the graph: rounds of
+     ``batch_init``, the shards' cycles, the balance) against the plain
+     one on the card's tensors at D = 4 for ta014 lb1 and N = 15, max
+     difference 0; ``multi_*``, ``--tier multi`` at D = 1 (ta014 lb1), 2
+     and 4 (ta014 lb1 and lb2, N = 15) to the goldens, each bound wrapper
+     launched once a chunk, with per-worker trees, steals and phase
+     seconds; ``mesh_*``, ``--tier mesh`` at D = 2 and 4 on the same runs
+     to the goldens, the cycle wrapper launched once a cycle and the
+     balance twice a dispatch, with device time (events), dispatches, graph
+     build seconds and per-shard trees; and ``mesh_warm``, a second ta014
+     lb1 mesh search of one problem object that builds no graph;
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -200,7 +217,9 @@ ends the script with a non-zero exit before the final line:
      clock) carry the launches of the armed ta014 lb1 runs of phase 18d;
      ``batch_init`` and ``batch_cond`` (the batched graph's nodes) the
      launches of phase 18e's batched ta014 lb1 run, their phase 16d times
-     and a frozen slot's cost a cycle.
+     and a frozen slot's cost a cycle; ``mesh_balance`` the launches of the
+     mesh D = 4 ta014 lb1 run and its phase 18f times; rows 1, 3, 7 and the
+     cycles carry the multi and mesh runs' launches (``parallel_launches``).
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -2481,6 +2500,344 @@ def main_serve(dev, dev_info) -> int:
     return 0
 
 
+# -- the multi-device tiers (parallel/) -------------------------------------------
+
+# The multi and mesh runs: (name, argv, golden, the kernels of the multi
+# tier's offload, the mesh's cycle wrapper).
+NQ15 = ["nqueens", "--N", "15", "--tier", "device"]
+PARALLEL_RUNS = [
+    ("ta014_lb1", PFSP_LB1, GOLDEN, ("lb1_bounds",), "cycle_lb1"),
+    ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, ("lb1_bounds", "lb2_self_bounds"),
+     "cycle_lb2"),
+    ("nqueens_N15", NQ15, NQ_GOLDEN[15], ("nqueens_labels",), "cycle_nqueens"),
+]
+
+
+def _mesh_balance_state(dev, D: int, C: int, n: int, sizes: list[int],
+                        seed: int):
+    """Seeded (D, ST_LEN) states with ``sizes``, random incumbents and
+    counts, and random (D, C, n) int8 rows and (D, C) int8 column."""
+    from tpu_tree_search_torch.ops.cycle import ST_LEN
+
+    g = torch.Generator().manual_seed(seed)
+    st = torch.randint(0, 1000, (D, ST_LEN), generator=g, dtype=torch.int32)
+    st[:, 0] = torch.tensor(sizes, dtype=torch.int32)
+    st[:, 1] = torch.randint(1000, 2000, (D,), generator=g, dtype=torch.int32)
+    vals = torch.randint(0, n, (D, C, n), generator=g, dtype=torch.int8)
+    aux = torch.randint(-1, n - 1, (D, C), generator=g, dtype=torch.int8)
+    return st.to(dev), vals.to(dev), aux.to(dev)
+
+
+def phase_mesh_balance(dev) -> dict:
+    """``mesh_balance`` (csrc/mesh_balance.cu: the plan, the move and the
+    shed) against ``mesh_balance_plain`` on the same seeded states, every
+    word of every shard and every live row: D = 1 (the fold alone), D = 2
+    with a gift, D = 2 where the gift is T and the donor's kept rows
+    overlap the rows they move to (the staging copy), D = 4 with two gifts,
+    D = 4 with none, first and last rounds; and the main path's shape, ta014
+    at the mesh's defaults (D = 4, C = 2,097,152, M = 50,000, T = 8,192):
+    a gift of T rows from a shard of 300,000 to a starving one. Times at that
+    shape, with and without the gift: the three launches' device time
+    (profiler), the call (events), the plain version; the bound by bytes
+    (the states read and written, the gift's rows read and written, the
+    donor's kept rows read and written once)."""
+    from tpu_tree_search_torch.ops import mesh as MS
+    from tpu_tree_search_torch.ops.cycle import ST_LEN
+
+    cases = [
+        ("d1_fold", 1, 4096, 20, 25, 1024, 2000, [3000], True, True),
+        ("d2_gift", 2, 10000, 20, 25, 1024, 2000, [5000, 3], True, False),
+        ("d2_T_overlap", 2, 10000, 15, 25, 1024, 2000, [3000, 0], False, True),
+        ("d4_two_gifts", 4, 20000, 20, 25, 4096, 5000, [9000, 10, 80, 0], False,
+         False),
+        ("d4_no_gift", 4, 20000, 20, 25, 4096, 5000, [900, 100, 60, 50], True,
+         True),
+        ("d8_four_gifts", 8, 20000, 15, 25, 4096, 5000,
+         [9000, 0, 3000, 5, 900, 0, 1500, 1], True, False),
+        ("ta014_gift", 4, 2097152, 20, 25, 8192, 50000 * 20,
+         [300000, 10, 200000, 150000], True, False),
+        ("ta014_no_gift", 4, 2097152, 20, 25, 8192, 50000 * 20,
+         [300000, 100000, 200000, 150000], True, False),
+    ]
+    rows = {}
+    for i, (name, D, C, n, m, T, Mn, sizes, first, last) in enumerate(cases):
+        st, vals, aux = _mesh_balance_state(dev, D, C, n, sizes, 15 + i)
+        scratch = MS.MeshScratch.make(vals, aux)
+        st0, vals0, aux0 = st.clone(), vals.clone(), aux.clone()
+        give, take = MS.balance_plan(sizes, m, T, Mn, C)
+        MS.mesh_balance_cuda(st, vals, aux, scratch, m, T, Mn, first, last)
+        torch.cuda.synchronize()
+        pst, pvals, paux = st0.clone(), vals0.clone(), aux0.clone()
+        t0 = time.perf_counter()
+        MS.mesh_balance_plain(pst, pvals, paux, m, T, Mn, first, last)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _maxdiff(st, pst)
+        for d in range(D):
+            size = int(pst[d, 0])
+            err = max(err, _maxdiff(vals[d, :size], pvals[d, :size]),
+                      _maxdiff(aux[d, :size], paux[d, :size]))
+        check(err == 0, f"mesh_balance {name} differs from its plain version: {err}")
+        row = dict(D=D, C=C, n=n, sizes=sizes, give=give, take=take,
+                   new_sizes=pst[:, 0].tolist(), first=first, last=last,
+                   max_abs_err=err, plain_ms=plain_ms)
+        if name.startswith("ta014"):
+            def reload(st0=st0, vals0=vals0, aux0=aux0, st=st, vals=vals, aux=aux):
+                st.copy_(st0)
+                vals.copy_(vals0)
+                aux.copy_(aux0)
+
+            def call(st=st, vals=vals, aux=aux, scratch=scratch, m=m, T=T, Mn=Mn):
+                MS.mesh_balance_cuda(st, vals, aux, scratch, m, T, Mn, True, False)
+
+            names = ("mesh_plan",) if D == 1 else ("mesh_plan", "mesh_move", "mesh_shed")
+            ms, timing = kernel_device_ms(call, 5, names, setup=reload)
+            row.update(ms=ms, timing=timing, launch_ms=dict(LAST_LAUNCH_MS),
+                       call_ms=median_ms(call, 5, setup=reload))
+            rowb = n + 1  # an int8 row and its int8 column
+            # The least traffic: a donor's kept rows read and written once,
+            # the gift read and written once (counted at its receiver).
+            moved = sum(2 * (s - g) * rowb for g, s in zip(give, sizes) if g)
+            moved += sum(2 * t * rowb for t in take)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2 * D * ST_LEN * 4 + moved, 0.0)
+            row["bytes"] = 2 * D * ST_LEN * 4 + moved
+        del st, vals, aux, scratch, st0, vals0, aux0, pst, pvals, paux
+        torch.cuda.empty_cache()
+        rows[name] = row
+        emit("mesh_balance", case=name, **row)
+    return rows
+
+
+def _plain_mesh_dispatch(prog, st, vals, aux, cycle_plain) -> None:
+    """One mesh dispatch of ``prog``'s configuration through the plain
+    versions on the given tensors: per round ``batch_init_plain``, the
+    shards' plain cycles until no shard is live, ``mesh_balance_plain``."""
+    from tpu_tree_search_torch.ops import dispatch as Dp
+    from tpu_tree_search_torch.ops import mesh as MS
+
+    m, Mn, C, K = prog.m, prog.Mn, prog.capacity, prog.K
+    for r in range(prog.rounds):
+        live = Dp.batch_init_plain(st, m, Mn, C, K, False)
+        for _ in range(K):
+            if not live:
+                break
+            for d in range(prog.D):
+                cycle_plain(vals[d], aux[d], st[d])
+            live = Dp.batch_cond_plain(st, 0, m, Mn, C, K)
+        MS.mesh_balance_plain(st, vals, aux, m, prog.T, Mn, r == 0,
+                              r == prog.rounds - 1)
+
+
+def phase_mesh_dispatch(dev) -> dict:
+    """One mesh dispatch (``MeshGraph``: rounds of ``batch_init``, the
+    shards' cycles under a while node, ``mesh_balance``) against the same
+    dispatch through the plain versions on the card's tensors, at D = 4,
+    K = 4, 2 rounds: ta014 lb1 (kernel 2, M = 49152) and N-Queens N = 15
+    (kernel 4, M = 50000), the shards loaded with a frontier of 2M + 1000
+    nodes, one of 10 (below m: it starves, and takes a gift), one of
+    M + 517 and an empty one. Every word of every shard and every live row;
+    the dispatch's counts and launches; its time (events), the plain
+    version's, and the graph's build seconds and nodes."""
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import mesh as MS
+    from tpu_tree_search_torch.ops.cycle import new_state
+    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+
+    D, K, rounds, m = 4, 4, 2, 25
+    rows = {}
+    for name, prob, M in (("ta014_lb1", PFSPProblem(inst=14, lb="lb1", ub=1), 49152),
+                          ("nqueens_N15", NQueensProblem(15), 50000)):
+        n = prob.child_slots
+        best = getattr(prob, "initial_ub", INF)
+        fr = _frontier(prob, 2 * M + 1000)
+        fronts = [fr, {k: v[:10] for k, v in fr.items()},
+                  {k: v[:M + 517] for k, v in fr.items()}, None]
+        cap = 2 * fr[prob.vals_field].shape[0] + 2 * M * n
+        T = max(2 * m, min(M, 8192))
+        prog = MeshProgram(prob, D, m, M, K, rounds, T, cap, dev)
+        if name == "ta014_lb1":
+            tables = prog.inner.tables
+
+            def cycle_plain(v, a, s, M=M):
+                C.cycle_lb1_plain(v, a, s, tables, M, m, prog.K)
+            wrapper = C.cycle_lb1_cuda
+        else:
+            def cycle_plain(v, a, s, M=M, N=prob.N):
+                CN.cycle_nqueens_plain(v, a, s, N, 1, M, m, prog.K)
+            wrapper = CN.cycle_nqueens_cuda
+
+        def load():
+            for d, f in enumerate(fronts):
+                if f is None:
+                    prog.st[d].copy_(new_state(0, best, dev))
+                else:
+                    prog.inner.load_state(prog.states[d], f, best)
+
+        load()
+        torch.cuda.synchronize()
+        ref = (prog.st.clone(), prog.pool_vals.clone(), prog.pool_aux.clone())
+        prog.host_slots(1)
+        for w in (wrapper, MS.mesh_balance_cuda):
+            w.launches = 0
+        graphs0 = MS.MeshGraph.launches
+        rows_read, _, dispatch_ms = prog.enqueue()()
+        cycles = [r[C.ST_CYCLES] for r in rows_read]
+        check(wrapper.launches == sum(cycles) > 0
+              and MS.mesh_balance_cuda.launches == rounds
+              and MS.MeshGraph.launches == graphs0 + 1,
+              f"mesh dispatch {name}: launches {wrapper.launches} for cycles "
+              f"{cycles}, balance {MS.mesh_balance_cuda.launches}")
+        t0 = time.perf_counter()
+        _plain_mesh_dispatch(prog, *ref, cycle_plain)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _maxdiff(prog.st, ref[0])
+        for d in range(D):
+            size = int(ref[0][d, 0])
+            err = max(err, _maxdiff(prog.pool_vals[d, :size], ref[1][d, :size]),
+                      _maxdiff(prog.pool_aux[d, :size], ref[2][d, :size]))
+        check(err == 0, f"mesh dispatch {name} differs from the plain one: {err}")
+        g = prog.graph()
+        call_ms = median_ms(g.launch, 3, setup=load)
+        rows[name] = dict(D=D, K=prog.K, rounds=rounds, M=M, T=T, capacity=cap,
+                          cycles=cycles, sizes=[r[0] for r in rows_read],
+                          tree=[r[2] for r in rows_read], max_abs_err=err,
+                          dispatch_ms=dispatch_ms, call_ms=call_ms,
+                          plain_ms=plain_ms, graph_build_s=prog.graph_build_s,
+                          body_nodes=len(g.kernels()), graph_nodes=len(g.kernels(False)))
+        emit("mesh_dispatch", case=name, **rows[name])
+        prog.close()
+        del ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_multi(counters: dict, Ds=(2, 4)) -> dict:
+    """The multi tier (``--tier multi --D D``: D worker threads on the one
+    card, each on its own stream) on ta014 lb1 and lb2 ub=1 and N-Queens
+    N = 15 to their goldens, and ta014 lb1 at D = 1 too (the offload tier's
+    structure in one worker). Every count set to 0 just before each search
+    and read just after: each bound wrapper of the path launched once a
+    chunk, every other kernel never. Each line: the per-worker trees and
+    shares, steals, chunks, copies, phase seconds."""
+    rows = {}
+    runs = [(1, PARALLEL_RUNS[0])] + [(D, r) for D in Ds for r in PARALLEL_RUNS]
+    for D, (name, argv, golden, launched, _) in runs:
+        zero_counts(counters)
+        rec = run_search(argv + ["--tier", "multi", "--D", str(D)], golden)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        chunks = rec["chunks"]
+        check(launches == {k: chunks if k in launched else 0 for k in launches},
+              f"multi {name} D={D}: launches {launches} for {chunks} chunks")
+        check(len(rec["per_worker_tree"]) == D, f"multi {name}: workers")
+        rows[(name, D)] = dict(
+            D=D, chunks=chunks, launches={k: launches[k] for k in launched},
+            per_worker_tree=rec["per_worker_tree"],
+            workload_shares=rec["workload_shares"], steals=rec.get("steals", 0),
+            host_to_device=rec["host_to_device"],
+            double_buffered=rec["double_buffered"], phases=rec["phases"],
+            phase2_s=rec["phases"][1][2], elapsed_s=rec["elapsed_s"],
+            nodes_per_s=rec["explored_tree"] / rec["elapsed_s"])
+        emit(f"multi_{name}_D{D}", **rows[(name, D)])
+    return rows
+
+
+def phase_mesh(counters: dict, Ds=(2, 4)) -> dict:
+    """The mesh tier (``--tier mesh --D D``: D shards on the one card, one
+    CUDA graph a dispatch) on ta014 lb1 and lb2 ub=1 and N-Queens N = 15 to
+    their goldens, the counts set to 0 just before each search: the cycle
+    wrapper launched once a cycle (the shards' summed cycles), the balance
+    step twice a dispatch (two rounds), one graph a dispatch. Each line:
+    device time (events), dispatches, graph build seconds, per-shard trees.
+    Then a second ta014 lb1 D = 4 search of the same problem object builds
+    no graph (the program cache)."""
+    from tpu_tree_search_torch.parallel.resident_mesh import mesh_resident_search
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    rows = {}
+    for D in Ds:
+        for name, argv, golden, _, cycle in PARALLEL_RUNS:
+            zero_counts(counters)
+            rec = run_search(argv + ["--tier", "mesh", "--D", str(D)], golden)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            disp = rec["dispatches"]
+            check(launches[cycle] == rec["device_cycles"] > 0
+                  and launches["mesh_balance"] == 2 * disp
+                  and launches["mesh_graph"] == disp,
+                  f"mesh {name} D={D}: launches {launches}, dispatches {disp}, "
+                  f"cycles {rec['device_cycles']}")
+            check(len(rec["per_worker_tree"]) == D, f"mesh {name}: shards")
+            rows[(name, D)] = dict(
+                D=D, dispatches=disp, device_cycles=rec["device_cycles"], K=rec["K"],
+                launches={k: v for k, v in launches.items() if v},
+                dispatch_device_ms=1e3 * rec["dispatch_device_s"],
+                graph_build_s=rec["graph_build_s"],
+                per_worker_tree=rec["per_worker_tree"],
+                workload_shares=rec["workload_shares"],
+                stall_fallbacks=rec["stall_fallbacks"], phases=rec["phases"],
+                phase2_s=rec["phases"][1][2], elapsed_s=rec["elapsed_s"])
+            emit(f"mesh_{name}_D{D}", **rows[(name, D)])
+    prob = PFSPProblem(inst=14, lb="lb1", ub=1)
+    dev = torch.device("cuda", 0)
+    first = mesh_resident_search(prob, M=50000, D=4, device=dev)
+    second = mesh_resident_search(prob, M=50000, D=4, device=dev)
+    for res in (first, second):
+        got = {"explored_tree": res.explored_tree, "explored_sol": res.explored_sol,
+               "optimum": res.best}
+        check(got == GOLDEN, f"mesh warm search counts {got}")
+    (prog,) = prob._mesh_programs.values()
+    check(first.graph_build_s > 0 and second.graph_build_s == 0
+          and len(prog._graphs) == 1,
+          f"a second mesh search built graphs: {second.graph_build_s} s, "
+          f"{len(prog._graphs)} graphs")
+    rows["warm"] = dict(first_graph_build_s=first.graph_build_s,
+                        second_graph_build_s=second.graph_build_s,
+                        graphs=len(prog._graphs),
+                        first_device_ms=1e3 * first.dispatch_device_s,
+                        second_device_ms=1e3 * second.dispatch_device_s)
+    emit("mesh_warm", **rows["warm"])
+    return rows
+
+
+def mesh_kernel_row(bal: dict, disp: dict, mesh: dict) -> dict:
+    """The kernels line's row of the balance step (not a TPU kernel: the
+    JAX ``pmin`` and ring diffusion, XLA collectives); its launches are
+    the mesh D = 4 ta014 lb1 search's."""
+    main = bal["ta014_gift"]
+    return {
+        "name": "mesh_balance", "route": "cuda",
+        "source": "tpu_tree_search_torch/csrc/mesh_balance.cu",
+        "replaces": "tpu_tree_search/parallel/resident_mesh.py:200",
+        "launches": mesh[("ta014_lb1", 4)]["launches"]["mesh_balance"],
+        "launches_path": "mesh ta014_lb1 D=4",
+        "shape": "ta014 D=4 C=2097152 M=50000 T=8192, a gift of T rows",
+        "max_abs_err": max([r["max_abs_err"] for r in bal.values()]
+                           + [r["max_abs_err"] for r in disp.values()]),
+        "ms": main["ms"], "timing": main["timing"], "call_ms": main["call_ms"],
+        "launch_ms": main["launch_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "no_gift_ms": bal["ta014_no_gift"]["ms"],
+        "no_gift_bound_ms": bal["ta014_no_gift"]["bound_ms"],
+        "dispatch": disp}
+
+
+def main_parallel(dev, dev_info) -> int:
+    """``--parallel``: only this slice's path (the balance step, one mesh
+    dispatch against the plain one, the multi and mesh tiers) after the
+    build."""
+    counters = kernel_counters()
+    bal = phase_mesh_balance(dev)
+    disp = phase_mesh_dispatch(dev)
+    phase_multi(counters)
+    mesh = phase_mesh(counters)
+    print(json.dumps({"kernels": [mesh_kernel_row(bal, disp, mesh)]}), flush=True)
+    print(json.dumps({"ok": True, "phases": "parallel", "device": dev_info}), flush=True)
+    return 0
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper (and the graph dispatch) by name: each counts
     its launches in ``launches``."""
@@ -2503,6 +2860,7 @@ def kernel_counters() -> dict:
         dispatch_cond_obs,
         phase_mark_cuda,
     )
+    from tpu_tree_search_torch.ops.mesh import MeshGraph, mesh_balance_cuda
 
     return {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
             "cycle_lb1": C.cycle_lb1_cuda,
@@ -2521,7 +2879,9 @@ def kernel_counters() -> dict:
             "batch_graph": BatchGraph,
             "batch_init": batch_init,
             "batch_cond": batch_cond,
-            "batch_cond_obs": batch_cond_obs}
+            "batch_cond_obs": batch_cond_obs,
+            "mesh_balance": mesh_balance_cuda,
+            "mesh_graph": MeshGraph}
 
 
 def main_host(dev_info) -> int:
@@ -2544,12 +2904,14 @@ def main_host(dev_info) -> int:
 
 def main() -> int:
     dev_info = phase_device()
-    if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"]):
+    if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"]):
         phase_build()
         if sys.argv[1] == "--host":
             return main_host(dev_info)
         if sys.argv[1] == "--serve":
             return main_serve(torch.device("cuda", 0), dev_info)
+        if sys.argv[1] == "--parallel":
+            return main_parallel(torch.device("cuda", 0), dev_info)
         return main_cycles(torch.device("cuda", 0), dev_info)
     from tpu_tree_search_torch.ops import cycle as C
     from tpu_tree_search_torch.ops import cycle_nqueens as CN
@@ -2669,8 +3031,15 @@ def main() -> int:
     # Telemetry (obs/): the counter block and the phase clock on the main
     # path's searches, each off, armed, armed, off.
     obsp = phase_obs(dev, counters)
-    # The batched engine and the serve daemon (this slice's path).
+    # The batched engine and the serve daemon.
     serve = phase_serve(dev, counters)
+    # The multi-device tiers: the balance step against its plain version,
+    # one mesh dispatch against the plain one, then the multi and mesh
+    # tiers at D = 2 and 4 on the card.
+    bal = phase_mesh_balance(dev)
+    mdisp = phase_mesh_dispatch(dev)
+    multi = phase_multi(counters)
+    mesh = phase_mesh(counters)
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -2828,6 +3197,14 @@ def main() -> int:
                 if k["name"] in row["launches"]}
         if runs:
             k["offload_launches"] = runs
+        # The multi tier's launches of the bound kernels (one a chunk) and
+        # the mesh's of the cycles, by run and D.
+        runs = {f"{tier}_{key[0]}_D{key[1]}": row["launches"][k["name"]]
+                for tier, rows in (("multi", multi), ("mesh", mesh))
+                for key, row in rows.items()
+                if key != "warm" and k["name"] in row["launches"]}
+        if runs:
+            k["parallel_launches"] = runs
     # The graph dispatch (not a TPU kernel: the host loop's counterpart of the
     # JAX engine's lax.while_loop): one K = 4 dispatch against 4 plain cycles
     # at ta014 lb1 M = 49152, and its condition kernel's time a cycle on the
@@ -2883,6 +3260,9 @@ def main() -> int:
     # The batched graph's nodes (not TPU kernels: the JAX batched while
     # loop's init and OR of the slots' conditions).
     kernels += batch_kernel_rows(bg, serve)
+    # The mesh's balance step (not a TPU kernel: the JAX pmin and ring
+    # diffusion).
+    kernels.append(mesh_kernel_row(bal, mdisp, mesh))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

@@ -1483,3 +1483,149 @@ def test_batched_search_goldens_and_summed_runs(cuda):
         [(NQ10["tree"], NQ10["sol"])] * 3
     assert CN.cycle_nqueens_cuda.launches == \
         3 * solo.diagnostics.kernel_launches
+
+
+# -- the multi-device tiers (parallel/) and the thread-safe build ----------------
+
+
+def _mesh_state(dev, D, n, sizes, seed):
+    g = torch.Generator().manual_seed(seed)
+    st = torch.randint(0, 1000, (D, C.ST_LEN), generator=g, dtype=torch.int32)
+    st[:, 0] = torch.tensor(sizes, dtype=torch.int32)
+    vals = torch.randint(0, n, (D, 5000, n), generator=g, dtype=torch.int8)
+    aux = torch.randint(-1, n - 1, (D, 5000), generator=g, dtype=torch.int8)
+    return st.to(dev), vals.to(dev), aux.to(dev)
+
+
+@pytest.mark.parametrize("sizes,first,last", [
+    ([3000], True, True),
+    ([2000, 0], True, False),           # a gift of T; kept rows overlap
+    ([2500, 10, 90, 0], False, True),   # two gifts
+    ([900, 100, 60, 50], False, False),  # none
+    ([2000, 0, 3000, 5, 900, 0, 1500, 1], True, False),  # D / 2 staging slots
+])
+def test_mesh_balance_matches_plain(cuda, sizes, first, last):
+    """The balance step's three launches against ``mesh_balance_plain``:
+    every word of every shard and every live row."""
+    from tpu_tree_search_torch.ops import mesh as MS
+
+    D, n, m, T, Mn = len(sizes), 15, 25, 1024, 1000
+    st, vals, aux = _mesh_state(cuda, D, n, sizes, len(sizes))
+    ref = [t.clone() for t in (st, vals, aux)]
+    MS.mesh_balance_cuda(st, vals, aux, MS.MeshScratch.make(vals, aux), m, T,
+                         Mn, first, last)
+    MS.mesh_balance_plain(*ref, m, T, Mn, first, last)
+    torch.cuda.synchronize()
+    assert torch.equal(st, ref[0])
+    for d in range(D):
+        s = int(ref[0][d, 0])
+        assert torch.equal(vals[d, :s], ref[1][d, :s])
+        assert torch.equal(aux[d, :s], ref[2][d, :s])
+
+
+@pytest.mark.parametrize("kind", ["nqueens", "lb1", "lb2"])
+def test_mesh_graph_dispatch_matches_the_plain_program(cuda, kind):
+    """One mesh dispatch on the card (the graph: rounds of batch_init, the
+    shards' cycles, mesh_balance) against the same program on the CPU (the
+    plain cycles and balance): a full shard, a starving one (it takes a
+    gift), a partial one and an empty one."""
+    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+
+    prog, fr, best = _graph_program(cuda, kind, None, 4, 256)
+    prog.close()
+    prob = prog.problem
+    fronts = [fr, {k: v[:10] for k, v in fr.items()},
+              {k: v[:300] for k, v in fr.items()}, None]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mp = MeshProgram(prob, 4, 25, 256, 4, 2, 64, 1 << 15, dev)
+        for d, f in enumerate(fronts):
+            if f is None:
+                mp.st[d].copy_(C.new_state(0, best, dev))
+            else:
+                mp.inner.load_state(mp.states[d], f, best)
+        mp.host_slots(1)
+        rows, _, ms = mp.enqueue()()
+        out.append((mp, rows, ms))
+    (g, grows, gms), (p, prows, pms) = out
+    assert grows == prows and gms is not None and pms is None
+    assert sum(r[C.ST_CYCLES] for r in grows) > 0
+    for d in range(4):
+        s = grows[d][0]
+        assert torch.equal(g.pool_vals[d, :s].cpu(), p.pool_vals[d, :s])
+        assert torch.equal(g.pool_aux[d, :s].cpu(), p.pool_aux[d, :s])
+    g.close()
+    p.close()
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_multi_tier_on_one_card_hits_goldens(cuda, D):
+    """D worker threads on the one card, each on its own stream."""
+    from tpu_tree_search_torch.parallel.multidevice import multidevice_search
+
+    nq = multidevice_search(NQueensProblem(10), m=25, M=1024, D=D, device=cuda)
+    assert (nq.explored_tree, nq.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert len(nq.per_worker_tree) == D
+    ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+    for lb in ("lb1", "lb2"):
+        want = REDUCED if lb == "lb1" else REDUCED_LB2
+        res = multidevice_search(PFSPProblem(lb=lb, ub=0, p_times=ptm), m=25,
+                                 M=256, D=D, device=cuda,
+                                 initial_best=want["best"])
+        assert (res.explored_tree, res.explored_sol, res.best) == (
+            want["tree"], want["sol"], want["best"])
+
+
+def test_mesh_tier_hits_goldens_and_second_search_builds_no_graph(cuda):
+    from tpu_tree_search_torch.engine.resident import release_programs
+    from tpu_tree_search_torch.parallel.resident_mesh import (
+        mesh_resident_search)
+
+    prob = NQueensProblem(10)
+    first = mesh_resident_search(prob, m=25, M=1024, D=4, device=cuda)
+    (prog,) = prob._mesh_programs.values()
+    graphs = dict(prog._graphs)
+    second = mesh_resident_search(prob, m=25, M=1024, D=4, device=cuda)
+    assert first.graph_build_s > 0 and second.graph_build_s == 0
+    assert prog._graphs == graphs and len(graphs) == 1
+    for res in (first, second):
+        assert (res.explored_tree, res.explored_sol) == (NQ10["tree"],
+                                                         NQ10["sol"])
+        assert len(res.per_worker_tree) == 4 and res.dispatch_device_s > 0
+    assert release_programs(prob) == 1
+
+
+def test_eight_threads_cold_load_one_library(cuda, monkeypatch, tmp_path):
+    """A cold build directory and eight threads asking for one library at
+    once: nvcc runs once, every thread gets the same loaded library."""
+    import threading
+
+    from tpu_tree_search_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_CALL_LOCKS", {})
+    monkeypatch.setattr(_build, "sources",
+                        lambda: [_build.CSRC / "mesh_balance.cu"])
+    real, calls = _build.build_all, []
+
+    def counted():
+        calls.append(1)
+        return real()
+
+    monkeypatch.setattr(_build, "build_all", counted)
+    barrier = threading.Barrier(8)
+    libs = []
+
+    def load():
+        barrier.wait()
+        libs.append(_build.library("mesh_balance"))
+
+    threads = [threading.Thread(target=load) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 1 and len(libs) == 8
+    assert all(lib is libs[0] for lib in libs)
+    assert not list(tmp_path.glob("*.tmp.so"))

@@ -4,7 +4,8 @@
     JAX or anything of the JAX package (an AST scan of every import).
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
-  * The CLI refuses what is not ported with the ROADMAP queue, runs
+  * The CLI refuses what is not ported (``dist``, ``dist_mesh``, ``--mp``)
+    with the ROADMAP queue, runs
     N-Queens and PFSP lb1/lb1_d/lb2 on the device tier (resident and
     offload engines) and the sequential tier, and ``chip_smoke.py`` fails
     (prints no result) without a card.
@@ -68,6 +69,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {p.stem for p in files if p.parent == PKG / "serve"} == {
         "__init__", "batch", "client", "jobs", "metrics", "pool",
         "scheduler", "server", "warmup"}
+    # The multi-device tiers and their own copy of the termination scan.
+    assert {p.stem for p in files if p.parent == PKG / "parallel"} == {
+        "__init__", "multidevice", "resident_mesh"}
+    assert {p.stem for p in files if p.parent == PKG / "utils"} == {
+        "__init__", "termination"}
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files
@@ -96,14 +102,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("argv", [
-    ["pfsp", "--tier", "multi"],
+    ["pfsp", "--tier", "multi", "--mp", "2"],
     ["nqueens", "--tier", "dist"],
     ["pfsp", "--tier", "dist_mesh"],
-    ["nqueens", "--tier", "mesh"],
+    ["nqueens", "--tier", "mesh", "--mp", "2"],
+    ["nqueens", "--tier", "multi", "--K", "4"],
+    ["nqueens", "--tier", "multi", "--perc", "0"],
+    ["nqueens", "--tier", "mesh", "--engine", "offload"],
+    ["nqueens", "--tier", "device", "--D", "2"],
 ])
 def test_cli_refuses_unported_paths(argv, capsys):
+    # The unported paths name their ROADMAP.md queue; the rest are the
+    # refusals the JAX CLI makes. Each is an Error: line and exit 2.
     assert cli.main(argv + ["--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert err.startswith("Error:")
+    if "--mp" in argv or "dist" in argv[2]:
+        assert "ROADMAP" in err and "A.9's second half" in err
 
 
 def test_cli_report_and_record_on_cpu(capsys):
@@ -126,7 +141,8 @@ def test_kernel_sources_export_the_bound_entries():
     assert names == {"lb1_bounds", "cycle_lb1", "nqueens_labels",
                      "cycle_nqueens", "lb1_d_bounds", "lb2_bounds",
                      "lb2_self_bounds", "cycle_lb2", "tiled_lb1",
-                     "tiled_nqueens", "tiled_lb2", "dispatch_graph"}
+                     "tiled_nqueens", "tiled_lb2", "dispatch_graph",
+                     "mesh_balance"}
     text = {p.stem: p.read_text() for p in _build.sources()}
     # The graph dispatch's source (not a TPU kernel: the host loop's half).
     for entry in ("dispatch_graph_create", "dispatch_graph_begin_body",

@@ -324,11 +324,8 @@ def test_count_launch_counts_launches_not_captures():
     assert (wrapper.launches, wrapper.captures) == (1, 0)
     graph = object.__new__(dispatch.DispatchGraph)
     graph.wrappers = []
-    dispatch._capturing = graph.wrappers
-    try:
+    with dispatch.recording(graph.wrappers):
         wrapper()
-    finally:
-        dispatch._capturing = None
     assert (wrapper.launches, wrapper.captures) == (1, 1)
     graph.count(65)
     graph.count(0)  # a speculative dispatch past termination

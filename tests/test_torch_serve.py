@@ -2,7 +2,7 @@
 held to the JAX package's (`tpu_tree_search/serve/`).
 
   * ``validate_spec`` and ``class_key`` against the JAX functions on the
-    shared fields, and the port's refusals (``tier: "mesh"``, ``compact``,
+    shared fields, and the port's refusals (``mp`` past 1, ``compact``,
     ``lb2_pairblock``);
   * registry durability, and a registry written by the JAX ``JobRegistry``
     loaded by the port's (and back);
@@ -146,7 +146,7 @@ def test_default_m_is_the_port_cli_default():
 
 
 @pytest.mark.parametrize("bad,queue", [
-    ({"problem": "nqueens", "tier": "mesh"}, "A.9"),
+    ({"problem": "nqueens", "tier": "mesh", "mp": 2}, "A.9"),
     ({"problem": "pfsp", "compact": "sort"}, "ROADMAP.md C"),
     ({"problem": "pfsp", "lb": "lb2", "lb2_pairblock": 4}, "ROADMAP.md C"),
     ({"problem": "pfsp", "lb": "lb2", "lb2_pairblock": "auto"},
@@ -240,7 +240,7 @@ def test_submit_stream_result_equal_the_jax_cli(daemon, capsys):
     assert entry["programs"] == 1 and entry["jobs_admitted"] == 2
     assert entry["pool_bytes"] > 0
     code, err = _post(base, "/submit", {"problem": "nqueens",
-                                        "tier": "mesh"})
+                                        "tier": "mesh", "mp": 2})
     assert code == 400 and "A.9" in err["error"]
     from tpu_tree_search_torch.serve.metrics import parse_text
 

@@ -1,4 +1,4 @@
-"""Command line of the port: the single-device subset of `tpu_tree_search/cli.py`.
+"""Command line of the port: the single-host subset of `tpu_tree_search/cli.py`.
 
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --ub 1 --tier device [--json]
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb2 [--lb2-variant nabeshima] [--unfused]
@@ -6,6 +6,8 @@
     python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1 --mt 64   # streamed cycle
     python -m tpu_tree_search_torch pfsp --inst 14 --tier seq          # host, native runtime
     python -m tpu_tree_search_torch nqueens --N 14 --engine offload    # per-chunk round trip
+    python -m tpu_tree_search_torch pfsp --inst 14 --tier multi --D 4  # threaded workers, stealing
+    python -m tpu_tree_search_torch nqueens --N 15 --tier mesh --D 4   # D shards, one graph a dispatch
     python -m tpu_tree_search_torch pfsp --inst 14 --K 4 --max-steps 2 --checkpoint f.npz
     python -m tpu_tree_search_torch pfsp --inst 14 --resume f.npz
     python -m tpu_tree_search_torch pfsp --inst 14 --trace t.json [--metrics-file m.jsonl]
@@ -20,7 +22,12 @@ The banner and the report follow the reference's format (`print_settings` /
 points run on the card unless asked otherwise) with ``--engine resident``
 (the device-resident engine, the default) or ``--engine offload`` (the
 reference's per-chunk host round trip, `engine/device.py`), and ``--tier
-seq`` (the host's sequential search, `engine/sequential.py`). Dispatch is
+seq`` (the host's sequential search, `engine/sequential.py`), and the
+multi-device tiers (`parallel/`): ``--tier multi`` (``--D`` worker threads,
+each offloading chunks on its own stream, with work stealing of ``--perc``
+of a victim's front) and ``--tier mesh`` (``--D`` pool shards on one card,
+one CUDA graph a dispatch with the incumbent fold and the ring diffusion;
+M is a shard's, K defaults to 16). Dispatch is
 pipelined (``TTS_PIPELINE``) and ``--K auto`` adapts K
 (`engine/pipeline.py`); under lb2, ``--unfused`` runs the staged evaluator;
 ``--mt`` (the JAX ``TTS_MEGAKERNEL_MT``) streams the fused cycle in tiles of
@@ -51,9 +58,10 @@ console, ``migrate ID --to URL`` moves a job between daemons over its
 checkpoint, and ``warmup`` runs the warm matrix with hit/miss on the
 build directory.
 
-The other tiers exit 2 naming the ROADMAP.md queue that ports them (A.9:
-the multi-device and multi-host tiers; A.8's fleet step: ``fleet`` and the
-``--router`` flags; A.10: the guard and the contracts), and so does any
+The other tiers exit 2 naming the ROADMAP.md queue that ports them (A.9's
+second half: ``--tier dist``, ``--tier dist_mesh`` and ``--mp``; A.8's
+fleet step: ``fleet`` and the ``--router`` flags; A.10: the guard and the
+contracts), and so does any
 shape or option the port refuses, or a flag the chosen tier or engine
 would ignore (``Error: ...`` on stderr, no traceback).
 """
@@ -68,6 +76,14 @@ from contextlib import contextmanager
 
 TIERS = ("seq", "device", "mesh", "multi", "dist", "dist_mesh")
 ENGINES = ("resident", "offload")
+#: The tiers the port runs; dist and dist_mesh (and --mp) are A.9's second
+#: half.
+PORTED_TIERS = ("seq", "device", "mesh", "multi")
+A9_SECOND_HALF = ("ROADMAP.md queue A, A.9's second half: the multi-host "
+                  "tiers dist and dist_mesh, and the mesh's --mp pair axis")
+#: The banners' tier names (`tpu_tree_search/cli.py:738-746`).
+TIER_NAMES = {"seq": "Sequential", "device": "Single-device",
+              "mesh": "SPMD device-mesh", "multi": "Multi-device"}
 
 
 def default_M(problem: str, device_type: str, tier: str = "device",
@@ -112,9 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "m(m-1)/2 pairs; nabeshima = (i, i+1); lageweg = "
                         "(i, m-1)")
     p.add_argument("--tier", default="device", choices=TIERS,
-                   help="device (the default; the card unless --device cpu) "
-                        "or seq (the host's sequential search); the other "
-                        "tiers are not ported yet")
+                   help="device (the default; the card unless --device cpu), "
+                        "seq (the host's sequential search), multi (--D "
+                        "worker threads with work stealing) or mesh (--D "
+                        "pool shards on one card); dist and dist_mesh are "
+                        "not ported yet")
     p.add_argument("--engine", default="resident", choices=ENGINES,
                    help="device tier engine: resident = pool in device "
                         "memory, K chunk cycles a dispatch; offload = a "
@@ -132,6 +150,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "int32 counters' headroom")
     p.add_argument("--device", default=None,
                    help="cuda (default; raises when absent) or cpu")
+    p.add_argument("--D", type=int, default=None,
+                   help="multi and mesh tiers: worker threads (placed round "
+                        "robin on the cards) or pool shards (all on one "
+                        "card); default: the number of cards (1 on the CPU)")
+    p.add_argument("--mp", type=int, default=1,
+                   help="mesh tier, PFSP lb2: the pair axis; refused (not "
+                        "ported yet)")
+    p.add_argument("--perc", type=float, default=0.5,
+                   help="multi tier: fraction of a victim's pool front taken "
+                        "a steal (0.5 = the steal-half rule)")
     p.add_argument("--unfused", action="store_true",
                    help="run the unfused cycle (evaluator kernel + torch "
                         "compaction; staged under lb2) instead of the fused "
@@ -397,11 +425,29 @@ def serve_main(argv: list[str]) -> int:
 def check_supported(args) -> None:
     """Refuse a tier the port lacks, and a flag the chosen tier or engine
     would ignore (`tpu_tree_search/cli.py` `_dispatch_tier`, `validate_args`)."""
-    if args.tier not in ("seq", "device"):
+    if args.tier not in PORTED_TIERS:
         raise NotImplementedError(
-            f"tier {args.tier!r} is not ported yet (ROADMAP.md queue A, "
-            "A.9: the multi-device and multi-host tiers); the port runs "
-            "--tier device and --tier seq")
+            f"tier {args.tier!r} is not ported yet ({A9_SECOND_HALF}); the "
+            "port runs --tier seq, device, multi and mesh")
+    if args.mp != 1:
+        if args.mp < 1:
+            raise ValueError("--mp must be >= 1")
+        raise NotImplementedError(f"--mp is not ported yet ({A9_SECOND_HALF})")
+    if args.D is not None:
+        if args.tier not in ("multi", "mesh"):
+            raise ValueError("--D applies to the multi and mesh tiers")
+        if args.D < 1:
+            raise ValueError(f"--D must be >= 1, got {args.D}")
+    if args.perc != 0.5 and args.tier != "multi":
+        raise ValueError("--perc only applies to the work-stealing tier "
+                         "(multi)")
+    if not 0.0 < args.perc <= 1.0:
+        raise ValueError("--perc must be in (0, 1]: the fraction of the "
+                         "victim's front taken per steal")
+    if args.tier in ("multi", "mesh"):
+        check_parallel(args)
+        check_limits(args)
+        return
     resident = args.tier == "device" and args.engine == "resident"
     if not resident and (args.phase_profile or args.torch_trace is not None):
         raise ValueError("--phase-profile/--torch-trace apply to the "
@@ -428,11 +474,47 @@ def check_supported(args) -> None:
         if cycle_flags:
             raise ValueError(f"{'/'.join(cycle_flags)} apply to the resident "
                              "engine's device cycle")
+    check_limits(args)
+
+
+def check_limits(args) -> None:
+    """``--max-steps`` >= 1 and ``--checkpoint-interval`` >= 0."""
     if args.max_steps is not None and args.max_steps < 1:
         raise ValueError(f"--max-steps must be >= 1, got {args.max_steps}")
     if args.checkpoint_interval < 0:
         raise ValueError("--checkpoint-interval must be >= 0, got "
                          f"{args.checkpoint_interval}")
+
+
+def check_parallel(args) -> None:
+    """The refusals of the multi and mesh tiers (`tpu_tree_search/cli.py:
+    452-522,668-676`): the mesh is resident-only and takes no tile width or
+    torch.profiler window; the multi tier's workers offload, so they take
+    no --K, --max-steps, cycle flags or phase clock."""
+    if args.engine != "resident":
+        raise ValueError(
+            "--engine offload is not available for this tier (mesh is "
+            "resident-only; use --tier multi for host-orchestrated offload "
+            "across devices)" if args.tier == "mesh" else
+            "--engine applies to --tier device (the multi tier's workers "
+            "always offload)")
+    if args.torch_trace is not None:
+        raise ValueError("--torch-trace applies to --tier device's resident "
+                         "engine")
+    if args.mt is not None:
+        raise ValueError(f"--mt applies to --tier device's resident engine; "
+                         f"--tier {args.tier} takes no tile width")
+    if args.tier == "multi":
+        if args.max_steps is not None or args.K is not None:
+            raise ValueError("--max-steps/--K need the device or mesh tier")
+        if args.unfused:
+            raise ValueError("--unfused applies to the resident device "
+                             "cycles; the multi tier's workers offload")
+        if args.phase_profile:
+            raise ValueError(
+                "--phase-profile arms the resident loops' device phase clock "
+                "(--tier device with the resident engine, mesh); the multi "
+                "tier's workers have no device cycle to decompose")
 
 
 def parse_k(knob: str | None) -> int | str:
@@ -465,6 +547,9 @@ def print_settings(args, device) -> None:
     print("\n=================================================")
     if args.tier == "seq":
         print("Sequential tree search (host CPU)\n")
+    elif args.tier in ("multi", "mesh"):
+        print(f"{TIER_NAMES[args.tier]} GPU tree search (PyTorch/CUDA, "
+              f"D = {args.D})\n")
     else:
         engine = "offload" if args.engine == "offload" else "device-resident"
         print(f"Single-device GPU tree search (PyTorch/CUDA, {engine})\n")
@@ -525,15 +610,20 @@ def print_results(problem, res, checkpoint: str | None = None) -> None:
         tag = " (improved)" if res.best < problem.initial_ub else " (not improved)"
         print(f"Optimal makespan: {res.best}{tag}")
     print(f"Elapsed time: {res.elapsed:.6f} [s]")
+    if res.per_worker_tree:
+        shares = ", ".join(f"{s:.2f}" for s in res.workload_shares())
+        print(f"Workload per device (%): [{shares}]")
+    if res.steals:
+        print(f"Work steals (intra-host): {res.steals}")
     d = res.diagnostics
-    if res.engine == "offload":
+    if res.engine in ("offload", "multi"):
         staged = ", staged lb2" if res.staged else ""
         print(f"Offload: M={res.M}, chunks={d.kernel_launches}{staged}")
         print(f"Device diagnostics: kernel_launch={d.kernel_launches} "
               f"host_to_device={d.host_to_device} "
               f"device_to_host={d.device_to_host} "
               f"double_buffered={d.double_buffered}")
-    elif res.engine == "resident":
+    elif res.engine in ("resident", "mesh"):
         cycle = "fused CUDA cycle" if res.fused else f"unfused ({res.compact})"
         if res.megakernel_mt:
             form = "tiled" if megakernel_tiled(res) else "single-tile"
@@ -624,8 +714,17 @@ def result_record(args, res, device) -> dict:
     rec.update(device=str(device), engine=res.engine, M=res.M)
     if args.problem == "pfsp" and args.lb == "lb2":
         rec["staged"] = res.staged
+    if res.per_worker_tree:
+        # The multi and mesh tiers: each worker's or shard's explored nodes
+        # and their shares (`SearchResult.workload_shares`), and the steals
+        # under the JAX record's key (`tpu_tree_search/cli.py:927-928`).
+        rec.update(D=len(res.per_worker_tree),
+                   per_worker_tree=res.per_worker_tree,
+                   workload_shares=res.workload_shares())
+    if res.steals:
+        rec["steals"] = res.steals
     d = res.diagnostics
-    if res.engine == "offload":
+    if res.engine in ("offload", "multi"):
         # The per-chunk round trip's diagnostics: one evaluation, H2D and
         # D2H a chunk, and the dispatches that overlapped an in-flight one.
         rec.update(chunks=d.kernel_launches, host_to_device=d.host_to_device,
@@ -762,6 +861,23 @@ def run(args) -> int:
             from .engine.sequential import sequential_search
 
             res = sequential_search(problem)
+        elif args.tier == "multi":
+            from .parallel.multidevice import multidevice_search
+
+            res = multidevice_search(
+                problem, m=args.m, M=M, D=args.D, device=args.device,
+                perc=args.perc, checkpoint_path=args.checkpoint,
+                checkpoint_interval_s=args.checkpoint_interval,
+                resume_from=args.resume)
+        elif args.tier == "mesh":
+            from .parallel.resident_mesh import mesh_resident_search
+
+            res = mesh_resident_search(
+                problem, m=args.m, M=M, K=K, D=args.D, device=device,
+                fused=not args.unfused, max_steps=args.max_steps,
+                checkpoint_path=args.checkpoint,
+                checkpoint_interval_s=args.checkpoint_interval,
+                resume_from=args.resume)
         elif args.engine == "offload":
             from .engine.device import device_search
 
@@ -834,13 +950,18 @@ def prepare(args):
     from .ops.lb2_kernel import johnson_operands
     from .ops.tiled import check_tile
 
-    resident = args.engine == "resident"
+    resident = args.engine == "resident" and args.tier != "multi"
     K = None
     if resident:
-        K = parse_k(args.K)
-        resolve_k(K, default_max=4096)
+        # The mesh's default K is 16 (`tpu_tree_search/cli.py:57-58`).
+        K = 16 if args.tier == "mesh" and args.K is None else parse_k(args.K)
+        resolve_k(K, default_max=16 if args.tier == "mesh" else 4096)
         resolve_pipeline_depth()
     device = resolve_device(args.device)
+    if args.tier in ("multi", "mesh") and args.D is None:
+        from .parallel.multidevice import default_devices
+
+        args.D = len(default_devices(args.device))
     M = args.M if args.M is not None else default_M(
         args.problem, device.type, args.tier, args.engine)
     # The tile width of the fused cycle; lb1_d has no fused cycle, and

@@ -44,7 +44,9 @@
 //
 // The batched dispatch (`batch_init`, a body of B captured cycles,
 // `batch_cond`) is built by batch_graph_create and batch_graph_end_body,
-// below.
+// below; the mesh dispatch (rounds of the batched init and while node, each
+// followed by a captured balance step) by mesh_graph_create,
+// mesh_graph_add_round and mesh_graph_end_child.
 //
 // Conditional nodes need CUDA 12.4 or later; where the installation is
 // older, dispatch_graph_create returns the error.
@@ -266,6 +268,108 @@ extern "C" int batch_graph_create(void* st, int B, int m, long long Mn, int C,
   if (B < 1 || B > 1024) return static_cast<int>(cudaErrorInvalidValue);
   return graph_create(st, B, m, Mn, C, K, obs, nullptr, graph_out, body_out,
                       handle_out);
+}
+
+// The mesh-resident tier's dispatch (`ops/mesh.py` MeshGraph, the
+// counterpart of the JAX `shard_step`, tpu_tree_search/parallel/
+// resident_mesh.py:157-285): D shards' (D, ST_LEN) states, and for each of
+// its rounds a `batch_init` node, a while node whose body is the D shards'
+// cycles and `batch_cond`, and a child graph captured from the balance
+// step (mesh_balance.cu, with the phase clock's `loop` and `balance` marks
+// around it). Inside a JAX round the shards do not interact, so running
+// their cycles in lockstep, a finished shard frozen, gives each shard the
+// cycles of its own `lax.while_loop`.
+extern "C" int mesh_graph_create(void** graph_out) {
+  cudaGraph_t g = nullptr;
+  const cudaError_t err = cudaGraphCreate(&g, 0);
+  *graph_out = g;
+  return static_cast<int>(err);
+}
+
+// One round appended after node `dep` (null: the graph's first): its
+// `batch_init` over the B states (`zero_block`: the counter block zeroed
+// too, the dispatch's first round), with a clock `clk` a seed mark after
+// it, and a while node with an empty body. Returns the body to capture
+// the cycles into, the condition's handle and the while node (the balance
+// step's dependency).
+extern "C" int mesh_graph_add_round(void* graph, void* dep, void* st, int B,
+                                    int m, long long Mn, int C, int K,
+                                    int zero_block, void* clk,
+                                    void** body_out,
+                                    unsigned long long* handle_out,
+                                    void** node_out) {
+  if (B < 1 || B > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaGraphConditionalHandle h = 0;
+  cudaError_t err =
+      cudaGraphConditionalHandleCreate(&h, g, 0, cudaGraphCondAssignDefault);
+  cudaGraphNode_t prev = static_cast<cudaGraphNode_t>(dep);
+  cudaGraphNode_t init = nullptr, loop = nullptr;
+  if (!err) {
+    void* args[] = {&st, &B, &h, &m, &Mn, &C, &K, &zero_block};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(batch_init);
+    kp.gridDim = dim3(1);
+    kp.blockDim = batch_block(B);
+    kp.kernelParams = args;
+    err = cudaGraphAddKernelNode(&init, g, prev ? &prev : nullptr,
+                                 prev ? 1 : 0, &kp);
+  }
+  if (!err && clk) {
+    int slot = 0, flags = PH_SEED;
+    void* args[] = {&clk, &slot, &flags};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(phase_mark);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = args;
+    cudaGraphNode_t seed = nullptr;
+    err = cudaGraphAddKernelNode(&seed, g, &init, 1, &kp);
+    init = seed;
+  }
+  cudaGraphNodeParams cp = {};
+  if (!err) {
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = h;
+    cp.conditional.type = cudaGraphCondTypeWhile;
+    cp.conditional.size = 1;
+#if CUDART_VERSION >= 13000
+    err = cudaGraphAddNode(&loop, g, &init, nullptr, 1, &cp);
+#else
+    err = cudaGraphAddNode(&loop, g, &init, 1, &cp);
+#endif
+  }
+  if (err) return static_cast<int>(err);
+  *body_out = cp.conditional.phGraph_out[0];
+  *handle_out = h;
+  *node_out = loop;
+  return 0;
+}
+
+// Start capturing `stream`'s work into a graph of its own (a round's
+// balance step).
+extern "C" int mesh_graph_begin_child(void* stream) {
+  return static_cast<int>(cudaStreamBeginCapture(
+      static_cast<cudaStream_t>(stream), cudaStreamCaptureModeRelaxed));
+}
+
+// End that capture and, with `ok`, add what it captured to `graph` as a
+// child graph node after `dep`; returns the node (the next round's
+// dependency).
+extern "C" int mesh_graph_end_child(void* stream, int ok, void* graph,
+                                    void* dep, void** node_out) {
+  cudaGraph_t child = nullptr;
+  cudaError_t err =
+      cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &child);
+  if (!err && ok) {
+    cudaGraphNode_t prev = static_cast<cudaGraphNode_t>(dep);
+    cudaGraphNode_t node = nullptr;
+    err = cudaGraphAddChildGraphNode(&node, static_cast<cudaGraph_t>(graph),
+                                     &prev, 1, child);
+    *node_out = node;
+  }
+  if (child) cudaGraphDestroy(child);
+  return static_cast<int>(err);
 }
 
 // Start capturing `stream`'s work into the while node's body.

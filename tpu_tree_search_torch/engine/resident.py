@@ -811,10 +811,11 @@ def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
 
 
 def release_programs(problem: Problem) -> int:
-    """Close every program cached on ``problem`` (resident and batched):
-    their graphs and device memory go (after their work has finished).
-    Returns how many were closed."""
-    progs = [p for attr in ("_resident_programs", "_batched_programs")
+    """Close every program cached on ``problem`` (resident, batched and
+    mesh): their graphs and device memory go (after their work has
+    finished). Returns how many were closed."""
+    progs = [p for attr in ("_resident_programs", "_batched_programs",
+                            "_mesh_programs")
              for p in list((getattr(problem, attr, None) or {}).values())]
     for prog in progs:
         prog.close()

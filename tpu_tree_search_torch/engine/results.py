@@ -98,3 +98,17 @@ class SearchResult:
     phase_profile: dict | None = None
     roofline: dict | None = None
     quality: dict | None = None
+    # Multi-device tiers (`tpu_tree_search/engine/results.py:47,59`): each
+    # worker's (multi) or shard's (mesh) explored nodes
+    # (`pfsp_multigpu_chpl.chpl:518-522`), and the multi tier's successful
+    # work steals (declared by the reference, never reported).
+    per_worker_tree: list[int] = field(default_factory=list)
+    steals: int = 0
+
+    def workload_shares(self) -> list[float]:
+        """Per-worker share of explored nodes in percent (the load-balance
+        report, `nqueens_multigpu_chpl.chpl:337`)."""
+        total = sum(self.per_worker_tree)
+        if not total:
+            return []
+        return [100.0 * t / total for t in self.per_worker_tree]

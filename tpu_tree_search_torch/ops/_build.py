@@ -16,6 +16,15 @@ Calling convention of every C entry: pointers and the stream are
 ``cudaGetLastError()`` after the entry's launches; ``check`` raises when it
 is not 0. A kernel launches on the caller's stream, never synchronises and
 allocates nothing: its wrapper allocates with ``torch.empty``.
+
+Threads: the multi-device tier and the serve daemon launch kernels from
+several host threads. ``library`` builds and loads under one lock, so the
+first caller builds and the others wait for it, and the compiler writes
+to a temporary name of its own thread. The C entries keep a few host-side
+statics (the last launch shape a kernel asked the occupancy for, the
+shared-memory size it set last), so ``entry`` returns the C function
+behind a lock of its library: two threads never run one library's entries
+at once. The entries only enqueue, so the lock is held for microseconds.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,6 +53,18 @@ EXTRA_FLAGS = {"dispatch_graph": ("-rdc=true", "-lcudadevrt")}
 
 # Loaded libraries by source stem: loaded once per process, never mutated.
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Guards the build and the loading of ``_LIBS`` (``library``).
+_LOCK = threading.Lock()
+# One lock a library: its entries' host-side statics (``entry``).
+_CALL_LOCKS: dict[str, threading.Lock] = {}
+# Guards the wrappers' launch counts (``+=`` is not atomic across threads).
+_COUNT_LOCK = threading.Lock()
+
+
+def add_launches(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches`` (any thread may launch)."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
 
 
 def _nvcc() -> str:
@@ -89,7 +111,8 @@ def build_all() -> dict[str, float]:
         so = _target(src)
         if so.exists():
             continue
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        tmp = so.with_name(
+            f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         proc = subprocess.Popen(
             [nvcc, *ARCH, *FLAGS, *EXTRA_FLAGS.get(src.stem, ()), "-o",
              str(tmp), str(src)],
@@ -113,28 +136,42 @@ def build_all() -> dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, building first if needed:
+    under ``_LOCK``, so concurrent first calls build once."""
     lib = _LIBS.get(name)
-    if lib is None:
-        so = _target(CSRC / f"{name}.cu")
-        if not so.exists():
-            build_all()
-        lib = ctypes.CDLL(str(so))
-        lib.tts_error_string.argtypes = [ctypes.c_int]
-        lib.tts_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            so = _target(CSRC / f"{name}.cu")
+            if not so.exists():
+                build_all()
+            lib = ctypes.CDLL(str(so))
+            lib.tts_error_string.argtypes = [ctypes.c_int]
+            lib.tts_error_string.restype = ctypes.c_char_p
+            _CALL_LOCKS[name] = threading.Lock()
+            _LIBS[name] = lib
     return lib
 
 
 @functools.cache
 def entry(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
     """The loaded library of ``csrc/<name>.cu`` and its C function
-    ``symbol``, with ``argtypes`` and ``restype`` declared (bound once)."""
+    ``symbol``, with ``argtypes`` and ``restype`` declared (bound once),
+    called under its library's lock."""
     lib = library(name)
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = restype
-    return lib, fn
+    lock = _CALL_LOCKS[name]
+
+    def call(*args):
+        with lock:
+            return fn(*args)
+
+    call.__name__ = symbol
+    return lib, call
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -64,7 +64,9 @@ arithmetic on the host.
 from __future__ import annotations
 
 import ctypes
+import threading
 import time
+from contextlib import contextmanager
 
 import torch
 
@@ -73,19 +75,36 @@ from ..obs import phases as obs_phases
 from . import _build
 
 _VP = ctypes.c_void_p
-#: The wrappers called under the capture in progress (None: no capture).
-_capturing: list | None = None
+#: ``_TLS.wrappers``: the wrappers called under this thread's capture in
+#: progress (absent or None: no capture). A capture records the launches
+#: of its own thread only: other threads may launch kernels meanwhile (the
+#: multi-device tier's workers, the serve daemon's).
+_TLS = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` where it launches its kernels; under
-    a ``DispatchGraph`` capture, add one to ``wrapper.captures`` and record
-    the wrapper for the graph, which counts its launches (``count``)."""
-    if _capturing is None:
-        wrapper.launches += 1
+    a ``DispatchGraph`` capture on this thread, add one to
+    ``wrapper.captures`` and record the wrapper for the graph, which counts
+    its launches (``count``)."""
+    wrappers = getattr(_TLS, "wrappers", None)
+    if wrappers is None:
+        _build.add_launches(wrapper)
     else:
         wrapper.captures += 1
-        _capturing.append(wrapper)
+        wrappers.append(wrapper)
+
+
+@contextmanager
+def recording(wrappers: list):
+    """Record into ``wrappers`` the wrappers this thread calls in the block
+    (a capture's), in place of counting their launches."""
+    prev = getattr(_TLS, "wrappers", None)
+    _TLS.wrappers = wrappers
+    try:
+        yield
+    finally:
+        _TLS.wrappers = prev
 
 
 _ENTRY_ARGS = {
@@ -169,15 +188,12 @@ class DispatchGraph:
         _, end = _fn("dispatch_graph_end_body")
         _build.check(lib, begin(body, side.cuda_stream),
                      "dispatch_graph_begin_body")
-        global _capturing
         ok = 0
-        _capturing = self.wrappers
         try:
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), recording(self.wrappers):
                 cycle()
             ok = 1
         finally:
-            _capturing = None
             err = end(side.cuda_stream, ok, self.st.data_ptr(), handle, m,
                       Mn, C, K, obs)
         _build.check(lib, err, "dispatch_graph_end_body")
@@ -187,15 +203,15 @@ class DispatchGraph:
         lib, fn = _fn("dispatch_graph_launch")
         stream = torch.cuda.current_stream(self.st.device).cuda_stream
         _build.check(lib, fn(self._exec, stream), "dispatch_graph_launch")
-        DispatchGraph.launches += 1
+        _build.add_launches(DispatchGraph)
         if self.clk is not None:
-            phase_mark_cuda.launches += 1  # the seed node
+            _build.add_launches(phase_mark_cuda)  # the seed node
 
     def count(self, runs: int) -> None:
         """Count a dispatch's ``runs`` of the body (``st[ST_RUNS]`` after
         it) as launches of each wrapper the body captured."""
         for w in self.wrappers:
-            w.launches += runs
+            _build.add_launches(w, runs)
 
     def kernels(self, body: bool = True) -> list[str]:
         """The (mangled) kernel names of the body's nodes, or with
@@ -277,16 +293,14 @@ class BatchGraph(DispatchGraph):
         _, end = _fn("batch_graph_end_body")
         _build.check(lib, begin(body, side.cuda_stream),
                      "dispatch_graph_begin_body")
-        global _capturing
         ok = 0
         try:
             with torch.cuda.stream(side):
                 for cycle, wrappers in zip(cycles, self.slot_wrappers):
-                    _capturing = wrappers
-                    cycle()
+                    with recording(wrappers):
+                        cycle()
             ok = 1
         finally:
-            _capturing = None
             err = end(side.cuda_stream, ok, self.st.data_ptr(), self.B,
                       handle, m, Mn, C, K, obs)
         _build.check(lib, err, "batch_graph_end_body")
@@ -296,8 +310,8 @@ class BatchGraph(DispatchGraph):
         lib, fn = _fn("dispatch_graph_launch")
         stream = torch.cuda.current_stream(self.st.device).cuda_stream
         _build.check(lib, fn(self._exec, stream), "dispatch_graph_launch")
-        BatchGraph.launches += 1
-        batch_init.launches += 1
+        _build.add_launches(BatchGraph)
+        _build.add_launches(batch_init)
 
     def count(self, runs: list[int]) -> None:
         """Count a dispatch's ``runs`` (each slot's ``st[ST_RUNS]`` after
@@ -307,8 +321,8 @@ class BatchGraph(DispatchGraph):
         dispatch's first rounds only)."""
         for wrappers, r in zip(self.slot_wrappers, runs):
             for w in wrappers:
-                w.launches += r
-        self.cond.launches += max(runs, default=0)
+                _build.add_launches(w, r)
+        _build.add_launches(self.cond, max(runs, default=0))
 
 
 #: Batched graph launches in this process (all batched programs).

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .lb1_kernel import launch_lb1_family
 from .pfsp_device import PFSPDeviceTables, lb1_d_chunk
 
@@ -30,7 +31,7 @@ def lb1_d_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
     """(B, n) int32 lb1_d child bounds of ``prmu`` (B, n) / ``limit1``
     (B,), computed by the CUDA kernel on the current stream."""
     out = launch_lb1_family("lb1_d_bounds", _ENTRIES, prmu, limit1, tables)
-    lb1_d_bounds_cuda.launches += 1  # type: ignore[attr-defined]
+    _build.add_launches(lb1_d_bounds_cuda)
     return out
 
 

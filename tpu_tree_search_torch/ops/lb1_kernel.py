@@ -90,7 +90,7 @@ def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
     """(B, n) int32 lb1 child bounds of ``prmu`` (B, n) / ``limit1`` (B,),
     computed by the CUDA kernel on the current stream."""
     out = launch_lb1_family("lb1_bounds", _ENTRIES, prmu, limit1, tables)
-    lb1_bounds_cuda.launches += 1  # type: ignore[attr-defined]
+    _build.add_launches(lb1_bounds_cuda)
     return out
 
 

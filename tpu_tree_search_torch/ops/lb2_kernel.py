@@ -160,7 +160,7 @@ def lb2_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
              J.tab.data_ptr(), J.inv.data_ptr(), out.data_ptr(), B, n,
              tables.machines, J.pair_count, J.route, stream)
     _build.check(lib, err, "lb2_bounds")
-    lb2_bounds_cuda.launches += 1  # type: ignore[attr-defined]
+    _build.add_launches(lb2_bounds_cuda)
     return out
 
 

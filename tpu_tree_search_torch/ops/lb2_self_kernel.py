@@ -144,7 +144,7 @@ def lb2_self_bounds_cuda(rows: torch.Tensor, limit1: torch.Tensor, n_active,
              J.pairinfo.data_ptr(), J.tab.data_ptr(), out.data_ptr(), R, n,
              tables.machines, J.pair_count, J.route, stream)
     _build.check(lib, err, "lb2_self_bounds")
-    lb2_self_bounds_cuda.launches += 1  # type: ignore[attr-defined]
+    _build.add_launches(lb2_self_bounds_cuda)
     return out
 
 

@@ -70,7 +70,7 @@ def nqueens_labels_cuda(board: torch.Tensor, depth: torch.Tensor, N: int,
     err = fn(board.data_ptr(), depth.data_ptr(), out.data_ptr(), B, N, g,
              stream)
     _build.check(lib, err, "nqueens_labels")
-    nqueens_labels_cuda.launches += 1  # type: ignore[attr-defined]
+    _build.add_launches(nqueens_labels_cuda)
     return out
 
 

@@ -1,5 +1,5 @@
-"""Host-side work pool (SoA deque)."""
+"""Host-side work pools (SoA deques)."""
 
-from .pool import SoAPool
+from .pool import ParallelSoAPool, SoAPool
 
-__all__ = ["SoAPool"]
+__all__ = ["ParallelSoAPool", "SoAPool"]

@@ -21,6 +21,7 @@ takes the Python path, which stays the semantic oracle.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import Any, Mapping
 
@@ -45,6 +46,10 @@ def narrow_mode() -> str:
 def narrow_enabled() -> bool:
     return narrow_mode() != "0"
 
+
+# Guards the first build of a problem's native runtime (``Problem._native``):
+# the multi-device tier's workers may ask for it at once.
+_NATIVE_LOCK = threading.Lock()
 
 # Sentinel "no incumbent" upper bound (C uses INT_MAX, `pfsp_c.c`; Chapel
 # max(int)). Kept within int32 so device kernels can carry it.
@@ -120,8 +125,11 @@ class Problem:
         if not hasattr(self, "_native_rt"):
             from .. import native
 
-            lib = native.load()
-            self._native_rt = self._make_native(lib) if lib is not None else None
+            with _NATIVE_LOCK:
+                if not hasattr(self, "_native_rt"):
+                    lib = native.load()
+                    self._native_rt = (self._make_native(lib)
+                                       if lib is not None else None)
         return self._native_rt
 
     def native_sequential(self, best: int):

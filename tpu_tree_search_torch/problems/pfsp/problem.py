@@ -17,6 +17,8 @@ parity):
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 from ..base import INF_BOUND, DecomposeResult, NodeBatch, Problem
@@ -75,6 +77,7 @@ class PFSPProblem(Problem):
         self.lb1_data = B.make_lb1(p_times)
         self.lb2_data = B.make_lb2(self.lb1_data, lb2_variant)
         self._device_tables: dict = {}
+        self._tables_lock = threading.Lock()
 
     def field_specs(self):
         # prmu holds job indices < jobs (int8 through 127 jobs, int16
@@ -193,16 +196,32 @@ class PFSPProblem(Problem):
         """The instance tables on ``device`` (a ``torch.device``), built
         once per device and shared by every program of this problem; under
         lb2 with the Johnson tables of ``lb2_variant`` (an lb1 or lb1_d
-        problem does not build them)."""
+        problem does not build them).
+
+        Built under a lock by the first thread that asks, on its current
+        stream; on the card that stream is synchronised before the tables
+        are published, so a kernel that reads them on any other stream
+        (the multi-device tier gives each worker its own) comes after the
+        copy."""
+        key = str(device)
+        tables = self._device_tables.get(key)
+        if tables is not None:
+            return tables
         from ...ops.pfsp_device import PFSPDeviceTables
 
-        key = str(device)
-        if key not in self._device_tables:
-            self._device_tables[key] = PFSPDeviceTables.from_lb1(
-                self.lb1_data, device,
-                self.lb2_data if self.lb == "lb2" else None,
-            )
-        return self._device_tables[key]
+        with self._tables_lock:
+            tables = self._device_tables.get(key)
+            if tables is None:
+                tables = PFSPDeviceTables.from_lb1(
+                    self.lb1_data, device,
+                    self.lb2_data if self.lb == "lb2" else None,
+                )
+                if tables.device.type == "cuda":
+                    import torch
+
+                    torch.cuda.current_stream(tables.device).synchronize()
+                self._device_tables[key] = tables
+        return tables
 
     def device_bounds(self, prmu, limit1):
         """(B, n) int32 child bounds of a device chunk under ``self.lb``

@@ -110,9 +110,11 @@ def fetch_checkpoint(base: str, jid: str, timeout: float = 30.0,
 def spec_from_args(args) -> dict:
     """A job spec from parsed CLI run arguments (the submit path re-parses
     ``<run args>`` through ``cli.build_parser`` first, so every CLI-side
-    validation already ran). The port's parser has no mesh, compaction or
+    validation already ran). The port's parser has no compaction or
     pair-block flags, so none reaches the spec."""
     spec = {"problem": args.problem, "tier": args.tier, "m": args.m}
+    if args.tier == "mesh" and args.D is not None:
+        spec["D"] = args.D
     if args.M is not None:
         spec["M"] = args.M
     if args.K is not None:

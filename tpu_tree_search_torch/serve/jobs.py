@@ -1,15 +1,16 @@
 """Job specs + the durable job registry (`tpu_tree_search/serve/jobs.py`).
 
 A job spec is the JSON body of ``POST /submit`` — the serve-side mirror of
-the CLI's run arguments (``cli.build_parser``), restricted to the tier a
-resident daemon can preempt (``device``: it rides ``RunController.
-yield_fn``). ``validate_spec`` normalizes and defaults it without touching
+the CLI's run arguments (``cli.build_parser``), restricted to the tiers a
+resident daemon can preempt (``device`` and ``mesh``: both ride
+``RunController.yield_fn``). ``validate_spec`` normalizes and defaults it without touching
 torch, so admission control runs entirely in the HTTP thread;
 ``build_problem`` is the constructor the scheduler calls.
 
-The port refuses (``ValueError``, HTTP 400) what it does not run:
-``tier: "mesh"`` (ROADMAP.md A.9), and the JAX knobs it has no counterpart
-for, ``compact`` other than ``"auto"`` and ``lb2_pairblock`` (ROADMAP.md C).
+The port refuses (``ValueError``, HTTP 400) what it does not run: ``mp``
+other than 1 (ROADMAP.md A.9's second half), and the JAX knobs it has no
+counterpart for, ``compact`` other than ``"auto"`` and ``lb2_pairblock``
+(ROADMAP.md C).
 The default M is the port's CLI default for the daemon's device
 (``cli.default_M``).
 
@@ -31,7 +32,7 @@ import time
 #: queued/running -> requeued (daemon drained; a restart re-admits).
 STATES = ("queued", "running", "done", "failed", "cancelled", "requeued")
 
-_TIERS = ("device",)
+_TIERS = ("device", "mesh")
 _LBS = ("lb1", "lb1_d", "lb2")
 _LB2_VARIANTS = ("full", "nabeshima", "lageweg")
 
@@ -67,10 +68,6 @@ def validate_spec(spec, device_type: str = "cuda") -> dict:
     if problem not in ("nqueens", "pfsp"):
         raise ValueError("spec.problem must be 'nqueens' or 'pfsp'")
     tier = spec.get("tier", "device")
-    if tier == "mesh":
-        raise ValueError(
-            "spec.tier 'mesh' is not ported yet (ROADMAP.md queue A, A.9: "
-            "the multi-device tiers); the port's daemon runs tier 'device'")
     if tier not in _TIERS:
         raise ValueError(
             f"spec.tier must be one of {_TIERS} (the preemptible resident "
@@ -112,7 +109,15 @@ def validate_spec(spec, device_type: str = "cuda") -> dict:
         ):
             raise ValueError("spec.K must be 'auto' or an integer >= 1")
         out["K"] = K
-    if spec.get("D") is not None or spec.get("mp", 1) != 1:
+    if tier == "mesh":
+        D = _as_int(spec, "D", 1, 1024)
+        if D is not None:
+            out["D"] = D
+        if _as_int(spec, "mp", 1, 4096, default=1) != 1:
+            raise ValueError(
+                "spec.mp is not ported yet (ROADMAP.md queue A, A.9's second "
+                "half: the mesh's pair axis)")
+    elif spec.get("D") is not None or spec.get("mp", 1) != 1:
         raise ValueError("spec.D/spec.mp only apply to tier='mesh'")
     compact = spec.get("compact")
     if compact is not None and compact != "auto":

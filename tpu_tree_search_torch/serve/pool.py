@@ -2,13 +2,14 @@
 (`tpu_tree_search/serve/pool.py`).
 
 The resident engines cache their programs on the problem instance
-(``problem._resident_programs``, ``problem._batched_programs``, keyed by
+(``problem._resident_programs``, ``problem._batched_programs``,
+``problem._mesh_programs``, keyed by
 (m, M, K, capacity, device, cycle, telemetry flags)), each with the CUDA
 graphs built on its own state. What a one-shot CLI cannot do is reuse them
 across runs: every process rebuilds its problem and its graphs. The pool
 closes that gap by making the problem instance the shared resource:
 requests map to a **shape class** — (problem family, identity, bound
-variant, the resolved compaction mode, tier, m/M/K) — and every job of a
+variant, the resolved compaction mode, tier, m/M/K/D) — and every job of a
 class runs against the same problem object, so the second same-class job
 finds its program and graphs already built (zero new programs, zero new
 graphs).
@@ -86,11 +87,13 @@ def class_key(spec: dict) -> str:
              f"m{spec['m']}", f"M{spec['M']}"]
     if spec.get("K") is not None:
         parts.append(f"K{spec['K']}")
+    if spec["tier"] == "mesh":
+        parts.append(f"D{spec.get('D', 1)}")
     parts.append(f"compact={knobs['compact']}")
     return "-".join(parts)
 
 
-_CACHES = ("_resident_programs", "_batched_programs")
+_CACHES = ("_resident_programs", "_batched_programs", "_mesh_programs")
 
 
 def _programs(problem) -> list:
@@ -102,7 +105,7 @@ def _programs(problem) -> list:
 
 
 def compile_stats(problem) -> tuple[int, int]:
-    """(programs cached on a problem instance, resident and batched;
+    """(programs cached on a problem instance, resident, batched and mesh;
     dispatch graphs built on them) — the pool's rebuild accounting unit.
     Measured around each job slice: a warm-class admission must leave both
     deltas at zero (the number ``warmup`` and the job records report)."""
@@ -113,14 +116,21 @@ def compile_stats(problem) -> tuple[int, int]:
 def resident_pool_bytes(problem) -> int:
     """Device-resident pool bytes across every program cached on a problem
     instance: capacity x the pool's bytes a node (rows and the scalar
-    column), times B for a batched program. Read at scrape time for the
-    ``tts_serve_pool_bytes{cls}`` gauge (Python attributes only)."""
+    column), times B for a batched program and D for a mesh one
+    (`tpu_tree_search/serve/pool.py:140-172`), and a mesh program's balance
+    scratch on the card (its staging copy of D // 2 shards). Read at scrape
+    time for the ``tts_serve_pool_bytes{cls}`` gauge (Python attributes
+    only)."""
     total = 0
     for prog in _programs(problem):
         inner = getattr(prog, "inner", prog)
         per_node = (problem.child_slots * inner.vals_dtype.itemsize
                     + inner.aux_dtype.itemsize)
-        total += int(getattr(prog, "B", 1)) * int(inner.capacity) * per_node
+        copies = int(getattr(prog, "B", 0) or getattr(prog, "D", 0) or 1)
+        total += copies * int(inner.capacity) * per_node
+        scratch = getattr(prog, "scratch", None)
+        if scratch is not None:
+            total += scratch.nbytes
     return total
 
 

@@ -412,9 +412,15 @@ class Scheduler:
             with flightrec.bound(job.recorder), \
                     obs_quality.bound(job.quality), \
                     obs_events.job_context(job.id):
-                from ..engine.resident import resident_search
+                if job.spec["tier"] == "mesh":
+                    from ..parallel.resident_mesh import mesh_resident_search
 
-                res = resident_search(problem, **kw)
+                    res = mesh_resident_search(problem, D=job.spec.get("D"),
+                                               **kw)
+                else:
+                    from ..engine.resident import resident_search
+
+                    res = resident_search(problem, **kw)
         except Exception as e:  # noqa: BLE001 — a job must not kill its worker
             self.registry.transition(job, "failed", error=f"{type(e).__name__}: {e}")
             return
