@@ -5,7 +5,8 @@
     python3 chip_smoke.py --cycles   # phases 1, 2, 4, 8, 15, 16 and six profiles
     python3 chip_smoke.py --host     # phases 1, 2 and 18c (offload cold and warm, profiled)
     python3 chip_smoke.py --serve    # phases 1, 2, 16d and 18e (the batched graph, serving)
-    python3 chip_smoke.py --parallel # phases 1, 2 and 18f (the multi-device tiers)
+    python3 chip_smoke.py --parallel # phases 1, 2, 18f and 18g (the multi-device and multi-host tiers)
+    python3 chip_smoke.py --dist     # phases 1, 2 and 18g (the multi-host tiers)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -162,6 +163,19 @@ ends the script with a non-zero exit before the final line:
      balance twice a dispatch, with device time (events), dispatches, graph
      build seconds and per-shard trees; and ``mesh_warm``, a second ta014
      lb1 mesh search of one problem object that builds no graph;
+ 18g. the multi-host tiers (``parallel/dist.py``, ``parallel/dist_mesh.py``):
+     ``dist_*``, ``--tier dist --hosts 2 --D 2`` (virtual hosts) on ta014
+     lb1 and lb2 ub=1 and N-Queens N = 14 to the goldens and ta014 lb1
+     ``--no-steal``, each bound wrapper launched once a chunk;
+     ``dist_mesh_*``, ``--tier dist_mesh --hosts 2 --D 2`` on ta014 lb1 and
+     lb2 and N = 15, the cycle wrapper once a cycle and the balance twice a
+     dispatch; ``dist_mesh_cut_resume``, a lockstep ``--max-steps`` cut of
+     ta014 lb1 (one cut tag in both per-host files) resumed to the goldens;
+     and ``dist_procs_*``/``dist_mesh_procs_*``, two processes a tier
+     (``--distributed`` on a ``TCPStore``) on ta014 lb1, each rank to the
+     goldens. Each line: phase 2 seconds, exchange rounds, blocks and nodes
+     sent, the mean ms of an exchange allgather round, and (dist_mesh)
+     device ms by CUDA events;
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -219,7 +233,8 @@ ends the script with a non-zero exit before the final line:
      launches of phase 18e's batched ta014 lb1 run, their phase 16d times
      and a frozen slot's cost a cycle; ``mesh_balance`` the launches of the
      mesh D = 4 ta014 lb1 run and its phase 18f times; rows 1, 3, 7 and the
-     cycles carry the multi and mesh runs' launches (``parallel_launches``).
+     cycles carry the multi, mesh, dist and dist_mesh runs' launches
+     (``parallel_launches``).
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -2802,6 +2817,187 @@ def phase_mesh(counters: dict, Ds=(2, 4)) -> dict:
     return rows
 
 
+# The multi-host tiers' virtual hosts: two hosts of two workers or shards.
+HOSTS = ["--hosts", "2", "--D", "2"]
+NQ14 = ["nqueens", "--N", "14", "--tier", "device"]
+# The dist runs: (name, argv, golden, bound wrappers launched, --no-steal).
+DIST_RUNS = [
+    ("ta014_lb1", PFSP_LB1, GOLDEN, ("lb1_bounds",), False),
+    ("ta014_lb2", PFSP_LB2, GOLDEN_LB2, ("lb1_bounds", "lb2_self_bounds"), False),
+    ("nqueens_N14", NQ14, NQ_GOLDEN[14], ("nqueens_labels",), False),
+    ("ta014_lb1_nosteal", PFSP_LB1, GOLDEN, ("lb1_bounds",), True),
+]
+
+
+def comm_stats(rec: dict) -> dict:
+    """A multi-host record's communicator totals (summed over the hosts)
+    and the mean ms of one exchange allgather round."""
+    c = rec.get("comm")
+    if not c:
+        return {"comm": None}
+    return {"exchange_rounds": c["rounds"], "blocks_sent": c["blocks_sent"],
+            "nodes_sent": c["nodes_sent"],
+            "blocks_received": c["blocks_received"],
+            "nodes_received": c["nodes_received"],
+            "allgather_ms_mean": (1e3 * c["exchange_s"] / c["rounds"]
+                                  if c["rounds"] else None)}
+
+
+def phase_dist(counters: dict) -> dict:
+    """``--tier dist --hosts 2 --D 2`` (two virtual hosts, threads on
+    ``ThreadCollectives``, of two offload workers each, all on the one card)
+    on ta014 lb1 and lb2 ub=1 and N-Queens N = 14 to their goldens, and ta014
+    lb1 with ``--no-steal``. The counts set to 0 just before each search and
+    read just after: each bound wrapper of the path launched once a chunk
+    (the chunks of both hosts), every other kernel never. Each line: phase 2
+    seconds, the exchange rounds, blocks and nodes sent, the mean ms of an
+    exchange allgather, per-worker trees."""
+    rows = {}
+    for name, argv, golden, launched, nosteal in DIST_RUNS:
+        zero_counts(counters)
+        rec = run_search(argv + ["--tier", "dist"] + HOSTS
+                         + (["--no-steal"] if nosteal else []), golden)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        chunks = rec["chunks"]
+        check(launches == {k: chunks if k in launched else 0 for k in launches},
+              f"dist {name}: launches {launches} for {chunks} chunks")
+        check(rec["hosts"] == 2 and len(rec["per_worker_tree"]) == 4
+              and (rec.get("comm") is None) == nosteal,
+              f"dist {name}: hosts {rec['hosts']}, comm {rec.get('comm')}")
+        rows[(name, 2)] = dict(
+            hosts=2, D=2, chunks=chunks,
+            launches={k: launches[k] for k in launched},
+            per_worker_tree=rec["per_worker_tree"], steals=rec.get("steals", 0),
+            phases=rec["phases"], phase2_s=rec["phases"][1][2],
+            elapsed_s=rec["elapsed_s"], **comm_stats(rec))
+        emit(f"dist_{name}_H2D2", **rows[(name, 2)])
+    return rows
+
+
+def phase_dist_mesh(counters: dict) -> dict:
+    """``--tier dist_mesh --hosts 2 --D 2`` (two virtual hosts, a mesh of two
+    shards each on the one card, a stream and a program each) on ta014 lb1
+    and lb2 ub=1 and N-Queens N = 15 to their goldens, the counts set to 0
+    just before each search: the cycle wrapper launched once a cycle (both
+    hosts' shards' cycles), the balance step twice a dispatch, one graph a
+    dispatch. Each line: device ms (CUDA events around each graph launch,
+    summed over the hosts), dispatches, exchange rounds, donations, the mean
+    ms of an exchange allgather. Then a lockstep cut (``--K 4 --max-steps 2
+    --checkpoint``) of ta014 lb1 and its resume to the goldens."""
+    import tempfile
+    from pathlib import Path
+
+    rows = {}
+    for name, argv, golden, _, cycle in PARALLEL_RUNS:
+        zero_counts(counters)
+        rec = run_search(argv + ["--tier", "dist_mesh"] + HOSTS, golden)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        disp = rec["dispatches"]
+        check(launches[cycle] == rec["device_cycles"] > 0
+              and launches["mesh_balance"] == 2 * disp
+              and launches["mesh_graph"] == disp,
+              f"dist_mesh {name}: launches {launches}, dispatches {disp}, "
+              f"cycles {rec['device_cycles']}")
+        check(rec["hosts"] == 2 and len(rec["per_worker_tree"]) == 4,
+              f"dist_mesh {name}: {rec['hosts']} hosts")
+        rows[(name, 2)] = dict(
+            hosts=2, D=2, dispatches=disp, device_cycles=rec["device_cycles"],
+            K=rec["K"], launches={k: v for k, v in launches.items() if v},
+            dispatch_device_ms=1e3 * rec["dispatch_device_s"],
+            graph_build_s=rec["graph_build_s"],
+            per_worker_tree=rec["per_worker_tree"],
+            stall_fallbacks=rec["stall_fallbacks"], phases=rec["phases"],
+            phase2_s=rec["phases"][1][2], elapsed_s=rec["elapsed_s"],
+            **comm_stats(rec))
+        emit(f"dist_mesh_{name}_H2D2", **rows[(name, 2)])
+    root = Path(__file__).resolve().parent
+    scratch = root / "tpu_tree_search_torch" / "_build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = str(Path(tmp) / "dmesh.npz")
+        argv = PFSP_LB1 + ["--tier", "dist_mesh"] + HOSTS
+        zero_counts(counters)
+        cut = run_search(argv + ["--K", "4", "--max-steps", "2",
+                                 "--checkpoint", path], None)
+        tags = []
+        for h in (0, 1):
+            with np.load(f"{path}.h{h}") as data:
+                tags.append(json.loads(bytes(data["header"]).decode())["cut_tag"])
+        check(cut.get("complete") is False and tags[0] == tags[1] is not None
+              and counters["cycle_lb1"].launches > 0,
+              f"dist_mesh cut: complete {cut.get('complete')}, tags {tags}")
+        zero_counts(counters)
+        done = run_search(argv + ["--resume", path], GOLDEN)
+        check(counters["cycle_lb1"].launches == done["device_cycles"] > 0,
+              "dist_mesh resume: cycles not launched")
+        rows["cut"] = dict(cut_tree=cut["explored_tree"], cut_sol=cut["explored_sol"],
+                           cut_dispatches=cut["dispatches"], cut_tag=tags[0],
+                           resumed_tree=done["explored_tree"],
+                           resumed_sol=done["explored_sol"],
+                           resumed_dispatches=done["dispatches"])
+        emit("dist_mesh_cut_resume", **rows["cut"])
+    return rows
+
+
+def phase_dist_procs() -> dict:
+    """Process mode: for ``--tier dist`` and ``--tier dist_mesh``, two
+    processes of ``python -m tpu_tree_search_torch pfsp --inst 14 --lb lb1
+    --ub 1 --tier T --distributed --coordinator 127.0.0.1:<free port>
+    --num-hosts 2 --host-id h --D 1 --json`` (a ``TCPStore`` on loopback,
+    rank 0 hosting it; both on the one card, each its own CUDA context).
+    Each rank's record hits the goldens. Each line: each rank's phase 2
+    seconds, chunks or device cycles, and (dist_mesh) device ms, and the
+    exchange rounds, donations and the mean ms of a ``TorchCollectives``
+    allgather round."""
+    import os
+    import socket
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    rows = {}
+    for tier in ("dist", "dist_mesh"):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        argv = [sys.executable, "-m", "tpu_tree_search_torch", "pfsp", "--inst", "14",
+                "--lb", "lb1", "--ub", "1", "--tier", tier, "--distributed",
+                "--coordinator", f"127.0.0.1:{port}", "--num-hosts", "2",
+                "--D", "1", "--json"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(argv + ["--host-id", str(h)], cwd=root, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for h in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        recs = []
+        for h, (rc, out, err) in enumerate(outs):
+            check(rc == 0, f"{tier} rank {h} exited {rc}: {err[-1500:]}")
+            rec = json.loads(out.strip().splitlines()[-1])
+            got = {k: rec[k] for k in GOLDEN}
+            check(got == GOLDEN and rec["host_id"] == h,
+                  f"{tier} rank {h} counts {got} != golden {GOLDEN}")
+            recs.append(rec)
+        work = "chunks" if tier == "dist" else "device_cycles"
+        rows[tier] = dict(
+            wall_s=time.perf_counter() - t0,
+            phase2_s=[r["phases"][1][2] for r in recs],
+            elapsed_s=recs[0]["elapsed_s"], **{work: recs[0][work]},
+            per_worker_tree=recs[0]["per_worker_tree"], **comm_stats(recs[0]))
+        if tier == "dist_mesh":
+            rows[tier]["dispatch_device_ms"] = 1e3 * recs[0]["dispatch_device_s"]
+        emit(f"{tier}_procs_ta014_lb1", **rows[tier])
+    return rows
+
+
 def mesh_kernel_row(bal: dict, disp: dict, mesh: dict) -> dict:
     """The kernels line's row of the balance step (not a TPU kernel: the
     JAX ``pmin`` and ring diffusion, XLA collectives); its launches are
@@ -2833,8 +3029,22 @@ def main_parallel(dev, dev_info) -> int:
     disp = phase_mesh_dispatch(dev)
     phase_multi(counters)
     mesh = phase_mesh(counters)
+    phase_dist(counters)
+    phase_dist_mesh(counters)
+    phase_dist_procs()
     print(json.dumps({"kernels": [mesh_kernel_row(bal, disp, mesh)]}), flush=True)
     print(json.dumps({"ok": True, "phases": "parallel", "device": dev_info}), flush=True)
+    return 0
+
+
+def main_dist(dev_info) -> int:
+    """``--dist``: only the multi-host tiers after the build (virtual hosts
+    of both tiers, the cut and its resume, then two processes of each)."""
+    counters = kernel_counters()
+    phase_dist(counters)
+    phase_dist_mesh(counters)
+    phase_dist_procs()
+    print(json.dumps({"ok": True, "phases": "dist", "device": dev_info}), flush=True)
     return 0
 
 
@@ -2904,10 +3114,13 @@ def main_host(dev_info) -> int:
 
 def main() -> int:
     dev_info = phase_device()
-    if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"]):
+    if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"],
+                        ["--dist"]):
         phase_build()
         if sys.argv[1] == "--host":
             return main_host(dev_info)
+        if sys.argv[1] == "--dist":
+            return main_dist(dev_info)
         if sys.argv[1] == "--serve":
             return main_serve(torch.device("cuda", 0), dev_info)
         if sys.argv[1] == "--parallel":
@@ -3040,6 +3253,11 @@ def main() -> int:
     mdisp = phase_mesh_dispatch(dev)
     multi = phase_multi(counters)
     mesh = phase_mesh(counters)
+    # The multi-host tiers: virtual hosts of both (and a lockstep cut and
+    # its resume), then a process a host.
+    dist = phase_dist(counters)
+    dmesh = phase_dist_mesh(counters)
+    phase_dist_procs()
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -3197,12 +3415,14 @@ def main() -> int:
                 if k["name"] in row["launches"]}
         if runs:
             k["offload_launches"] = runs
-        # The multi tier's launches of the bound kernels (one a chunk) and
-        # the mesh's of the cycles, by run and D.
+        # The multi and dist tiers' launches of the bound kernels (one a
+        # chunk) and the mesh tiers' of the cycles, by run and D (the dist
+        # tiers: two hosts of D each).
         runs = {f"{tier}_{key[0]}_D{key[1]}": row["launches"][k["name"]]
-                for tier, rows in (("multi", multi), ("mesh", mesh))
+                for tier, rows in (("multi", multi), ("mesh", mesh),
+                                   ("dist_H2", dist), ("dist_mesh_H2", dmesh))
                 for key, row in rows.items()
-                if key != "warm" and k["name"] in row["launches"]}
+                if key not in ("warm", "cut") and k["name"] in row["launches"]}
         if runs:
             k["parallel_launches"] = runs
     # The graph dispatch (not a TPU kernel: the host loop's counterpart of the

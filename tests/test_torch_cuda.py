@@ -1629,3 +1629,69 @@ def test_eight_threads_cold_load_one_library(cuda, monkeypatch, tmp_path):
     assert len(calls) == 1 and len(libs) == 8
     assert all(lib is libs[0] for lib in libs)
     assert not list(tmp_path.glob("*.tmp.so"))
+
+
+def _skew(warm, host_id, num_hosts):
+    return {k: (v if host_id == 0 else v[:0]) for k, v in warm.items()}
+
+
+@pytest.mark.parametrize("partition", [None, _skew])
+def test_dist_virtual_hosts_on_one_card_hit_goldens(cuda, partition):
+    """Two virtual hosts of two offload workers each on the one card (a
+    stream a worker); the skewed start feeds host 1 by donations."""
+    from tpu_tree_search_torch.parallel.dist import dist_search
+
+    res = dist_search(NQueensProblem(10), m=25, M=1024, D=2, num_hosts=2,
+                      device=cuda, steal_interval_s=0.005,
+                      partition_fn=partition)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert len(res.per_worker_tree) == 4 and res.diagnostics.kernel_launches > 0
+    if partition is not None:
+        assert res.comm["blocks_received"] > 0
+
+
+def test_dist_pfsp_fixed_incumbent_on_the_card(cuda):
+    from tpu_tree_search_torch.parallel.dist import dist_search
+
+    ptm = taillard.reduced_instance(14, jobs=10, machines=5)
+    for lb, want in (("lb1", REDUCED), ("lb2", REDUCED_LB2)):
+        res = dist_search(PFSPProblem(lb=lb, ub=0, p_times=ptm), m=25, M=256,
+                          D=2, num_hosts=2, device=cuda,
+                          initial_best=want["best"])
+        assert (res.explored_tree, res.explored_sol, res.best) == (
+            want["tree"], want["sol"], want["best"])
+
+
+def test_dist_mesh_on_one_card_hits_goldens_under_the_steal_knobs(cuda,
+                                                                  monkeypatch):
+    """Two virtual hosts of two shards each: the counts, host 0 on the
+    program (and the one dispatch graph) a plain mesh search cached, with
+    TTS_STEAL, TTS_PODS and TTS_SIM_LAT_* set: the knobs reach no graph."""
+    from tpu_tree_search_torch.parallel.dist_mesh import dist_mesh_search
+    from tpu_tree_search_torch.parallel.resident_mesh import (
+        mesh_resident_search)
+
+    prob = NQueensProblem(10)
+    mesh_resident_search(prob, m=25, M=1024, D=2, device=cuda)
+    (prog,) = prob._mesh_programs.values()
+    graphs = dict(prog._graphs)
+    monkeypatch.setenv("TTS_STEAL", "hier")
+    monkeypatch.setenv("TTS_PODS", "0,1")
+    monkeypatch.setenv("TTS_SIM_LAT_DCN", "0.0001")
+    res = dist_mesh_search(prob, m=25, M=1024, D=2, num_hosts=2, device=cuda)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert list(prob._mesh_programs.values()) == [prog]
+    assert prog._graphs == graphs and len(graphs) == 1
+    assert res.dispatch_device_s > 0 and res.steal_policy["mode"] == "hier"
+
+
+def test_dist_mesh_lockstep_cut_resumes_on_the_card(cuda, tmp_path):
+    from tpu_tree_search_torch.parallel.dist_mesh import dist_mesh_search
+
+    path = str(tmp_path / "dm.npz")
+    kw = dict(m=25, M=256, K=2, rounds=1, D=2, num_hosts=2, device=cuda)
+    part = dist_mesh_search(NQueensProblem(10), max_steps=2,
+                            checkpoint_path=path, **kw)
+    assert not part.complete
+    res = dist_mesh_search(NQueensProblem(10), resume_from=path, **kw)
+    assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])

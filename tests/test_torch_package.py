@@ -4,8 +4,9 @@
     JAX or anything of the JAX package (an AST scan of every import).
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
-  * The CLI refuses what is not ported (``dist``, ``dist_mesh``, ``--mp``)
-    with the ROADMAP queue, runs
+  * The CLI refuses what is not ported (``--mp``, a search on several
+    cards, ``lint``, ``check``, ``--guard``) with the ROADMAP queue, and the
+    multi-host flags where the JAX CLI does, runs
     N-Queens and PFSP lb1/lb1_d/lb2 on the device tier (resident and
     offload engines) and the sequential tier, and ``chip_smoke.py`` fails
     (prints no result) without a card.
@@ -69,9 +70,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {p.stem for p in files if p.parent == PKG / "serve"} == {
         "__init__", "batch", "client", "jobs", "metrics", "pool",
         "scheduler", "server", "warmup"}
-    # The multi-device tiers and their own copy of the termination scan.
+    # The multi-device and multi-host tiers and their own copy of the
+    # termination scan.
     assert {p.stem for p in files if p.parent == PKG / "parallel"} == {
-        "__init__", "multidevice", "resident_mesh"}
+        "__init__", "dist", "dist_mesh", "multidevice", "resident_mesh",
+        "topology"}
     assert {p.stem for p in files if p.parent == PKG / "utils"} == {
         "__init__", "termination"}
     bad = {
@@ -101,24 +104,42 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("argv", [
-    ["pfsp", "--tier", "multi", "--mp", "2"],
-    ["nqueens", "--tier", "dist"],
-    ["pfsp", "--tier", "dist_mesh"],
-    ["nqueens", "--tier", "mesh", "--mp", "2"],
-    ["nqueens", "--tier", "multi", "--K", "4"],
-    ["nqueens", "--tier", "multi", "--perc", "0"],
-    ["nqueens", "--tier", "mesh", "--engine", "offload"],
-    ["nqueens", "--tier", "device", "--D", "2"],
+A9 = "A.9's second half"
+
+
+@pytest.mark.parametrize("argv,names", [
+    (["pfsp", "--tier", "multi", "--mp", "2"], A9),
+    (["nqueens", "--tier", "mesh", "--mp", "2"], A9),
+    (["pfsp", "--tier", "dist_mesh", "--lb", "lb2", "--mp", "2"], A9),
+    (["nqueens", "--tier", "mesh", "--device", "cuda:0,cuda:1"], A9),
+    (["nqueens", "--tier", "multi", "--K", "4"], None),
+    (["nqueens", "--tier", "multi", "--perc", "0"], None),
+    (["nqueens", "--tier", "mesh", "--engine", "offload"], None),
+    (["nqueens", "--tier", "device", "--D", "2"], None),
+    (["nqueens", "--tier", "multi", "--hosts", "2"], "--hosts/--distributed"),
+    (["nqueens", "--tier", "dist_mesh", "--no-steal"], "--no-steal"),
+    (["nqueens", "--tier", "dist", "--distributed", "--hosts", "2"],
+     "mutually exclusive"),
+    (["nqueens", "--tier", "dist", "--coordinator", "127.0.0.1:1"],
+     "require --distributed"),
+    (["nqueens", "--tier", "dist_mesh", "--steal-interval", "0.1"],
+     "--steal-interval"),
+    (["lint", "tpu_tree_search_torch"], "A.10"),
+    (["check"], "A.10"),
+    (["pfsp", "--tier", "device", "--guard"], "A.10"),
 ])
-def test_cli_refuses_unported_paths(argv, capsys):
+def test_cli_refuses_unported_paths(argv, names, capsys):
     # The unported paths name their ROADMAP.md queue; the rest are the
     # refusals the JAX CLI makes. Each is an Error: line and exit 2.
-    assert cli.main(argv + ["--device", "cpu"]) == 2
+    extra = [] if "--device" in argv or argv[0] in ("lint", "check") else [
+        "--device", "cpu"]
+    assert cli.main(argv + extra) == 2
     err = capsys.readouterr().err
     assert err.startswith("Error:")
-    if "--mp" in argv or "dist" in argv[2]:
-        assert "ROADMAP" in err and "A.9's second half" in err
+    if names is not None:
+        assert names in err
+    if names in (A9, "A.10"):
+        assert "ROADMAP" in err
 
 
 def test_cli_report_and_record_on_cpu(capsys):

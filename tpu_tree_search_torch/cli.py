@@ -8,6 +8,10 @@
     python -m tpu_tree_search_torch nqueens --N 14 --engine offload    # per-chunk round trip
     python -m tpu_tree_search_torch pfsp --inst 14 --tier multi --D 4  # threaded workers, stealing
     python -m tpu_tree_search_torch nqueens --N 15 --tier mesh --D 4   # D shards, one graph a dispatch
+    python -m tpu_tree_search_torch pfsp --inst 14 --tier dist --hosts 2 --D 2      # virtual hosts
+    python -m tpu_tree_search_torch nqueens --N 15 --tier dist_mesh --hosts 2 --D 2
+    python -m tpu_tree_search_torch pfsp --inst 14 --tier dist --distributed \
+        --coordinator 127.0.0.1:29500 --num-hosts 2 --host-id 0   # one process a host
     python -m tpu_tree_search_torch pfsp --inst 14 --K 4 --max-steps 2 --checkpoint f.npz
     python -m tpu_tree_search_torch pfsp --inst 14 --resume f.npz
     python -m tpu_tree_search_torch pfsp --inst 14 --trace t.json [--metrics-file m.jsonl]
@@ -27,7 +31,15 @@ multi-device tiers (`parallel/`): ``--tier multi`` (``--D`` worker threads,
 each offloading chunks on its own stream, with work stealing of ``--perc``
 of a victim's front) and ``--tier mesh`` (``--D`` pool shards on one card,
 one CUDA graph a dispatch with the incumbent fold and the ring diffusion;
-M is a shard's, K defaults to 16). Dispatch is
+M is a shard's, K defaults to 16), and the multi-host tiers: ``--tier
+dist`` (each host the multi tier's workers with an inter-host
+communicator: incumbent exchange, donations of pool rows, two-level
+termination) and ``--tier dist_mesh`` (each host a mesh, exchanging at
+dispatch boundaries), as ``--hosts H`` virtual hosts in threads or, with
+``--distributed``, as one process a host on a ``TCPStore`` at
+``--coordinator`` (else the launcher's ``MASTER_ADDR``/``MASTER_PORT``/
+``WORLD_SIZE``/``RANK``); rank 0 prints the banner and the report, every
+rank its ``--json`` record. Dispatch is
 pipelined (``TTS_PIPELINE``) and ``--K auto`` adapts K
 (`engine/pipeline.py`); under lb2, ``--unfused`` runs the staged evaluator;
 ``--mt`` (the JAX ``TTS_MEGAKERNEL_MT``) streams the fused cycle in tiles of
@@ -58,12 +70,12 @@ console, ``migrate ID --to URL`` moves a job between daemons over its
 checkpoint, and ``warmup`` runs the warm matrix with hit/miss on the
 build directory.
 
-The other tiers exit 2 naming the ROADMAP.md queue that ports them (A.9's
-second half: ``--tier dist``, ``--tier dist_mesh`` and ``--mp``; A.8's
-fleet step: ``fleet`` and the ``--router`` flags; A.10: the guard and the
-contracts), and so does any
-shape or option the port refuses, or a flag the chosen tier or engine
-would ignore (``Error: ...`` on stderr, no traceback).
+What is not ported exits 2 naming the ROADMAP.md queue that ports it
+(A.9's second half, steps 3-4: ``--mp`` and a mesh on more than one card,
+``--device`` with a comma; A.8's fleet step: ``fleet`` and the ``--router``
+flags; A.10: ``lint``, ``check`` and ``--guard``), and so does any shape or
+option the port refuses, or a flag the chosen tier or engine would ignore
+(``Error: ...`` on stderr, no traceback).
 """
 
 from __future__ import annotations
@@ -76,14 +88,17 @@ from contextlib import contextmanager
 
 TIERS = ("seq", "device", "mesh", "multi", "dist", "dist_mesh")
 ENGINES = ("resident", "offload")
-#: The tiers the port runs; dist and dist_mesh (and --mp) are A.9's second
-#: half.
-PORTED_TIERS = ("seq", "device", "mesh", "multi")
-A9_SECOND_HALF = ("ROADMAP.md queue A, A.9's second half: the multi-host "
-                  "tiers dist and dist_mesh, and the mesh's --mp pair axis")
+DIST_TIERS = ("dist", "dist_mesh")
+A9_STEPS_3_4 = ("ROADMAP.md queue A, A.9's second half, steps 3-4: the "
+                "mesh's --mp pair axis, and mesh shards on more than one card")
+A10 = ("ROADMAP.md queue A, A.10: the guards (the steady-state guard "
+       "--guard, and the lock rules of `lint`); `check` audits JAX "
+       "programs and has no counterpart")
 #: The banners' tier names (`tpu_tree_search/cli.py:738-746`).
 TIER_NAMES = {"seq": "Sequential", "device": "Single-device",
-              "mesh": "SPMD device-mesh", "multi": "Multi-device"}
+              "mesh": "SPMD device-mesh", "multi": "Multi-device",
+              "dist": "Distributed multi-device",
+              "dist_mesh": "Distributed mesh-resident"}
 
 
 def default_M(problem: str, device_type: str, tier: str = "device",
@@ -130,9 +145,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tier", default="device", choices=TIERS,
                    help="device (the default; the card unless --device cpu), "
                         "seq (the host's sequential search), multi (--D "
-                        "worker threads with work stealing) or mesh (--D "
-                        "pool shards on one card); dist and dist_mesh are "
-                        "not ported yet")
+                        "worker threads with work stealing), mesh (--D "
+                        "pool shards on one card), dist (hosts of multi "
+                        "workers with inter-host stealing) or dist_mesh "
+                        "(hosts of meshes exchanging at dispatch "
+                        "boundaries)")
     p.add_argument("--engine", default="resident", choices=ENGINES,
                    help="device tier engine: resident = pool in device "
                         "memory, K chunk cycles a dispatch; offload = a "
@@ -149,17 +166,49 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine/pipeline.py); default 4096, clamped to the "
                         "int32 counters' headroom")
     p.add_argument("--device", default=None,
-                   help="cuda (default; raises when absent) or cpu")
+                   help="cuda (default; raises when absent) or cpu; a comma "
+                        "list (a mesh on several cards) is refused (not "
+                        "ported yet)")
     p.add_argument("--D", type=int, default=None,
-                   help="multi and mesh tiers: worker threads (placed round "
-                        "robin on the cards) or pool shards (all on one "
-                        "card); default: the number of cards (1 on the CPU)")
+                   help="multi, mesh and dist tiers: worker threads (placed "
+                        "round robin on the cards) or pool shards (all on "
+                        "one card), a host's under dist/dist_mesh; default: "
+                        "the number of cards over the hosts (1 on the CPU)")
     p.add_argument("--mp", type=int, default=1,
-                   help="mesh tier, PFSP lb2: the pair axis; refused (not "
+                   help="mesh tiers, PFSP lb2: the pair axis; refused (not "
                         "ported yet)")
     p.add_argument("--perc", type=float, default=0.5,
-                   help="multi tier: fraction of a victim's pool front taken "
-                        "a steal (0.5 = the steal-half rule)")
+                   help="multi and dist tiers: fraction of a victim's pool "
+                        "front taken a steal (0.5 = the steal-half rule)")
+    p.add_argument("--hosts", type=int, default=None,
+                   help="dist tiers: number of virtual hosts, threads of "
+                        "this process (--distributed runs a process a host)")
+    p.add_argument("--no-steal", action="store_true",
+                   help="dist tier: no inter-host stealing and no incumbent "
+                        "exchange (the MPI baseline's join-point-only "
+                        "semantics)")
+    p.add_argument("--distributed", action="store_true",
+                   help="dist tiers: this process is one host of a "
+                        "multi-process run on a TCPStore control plane "
+                        "(rank 0 hosts it); the coordinator, the host count "
+                        "and the rank come from --coordinator/--num-hosts/"
+                        "--host-id, else MASTER_ADDR, MASTER_PORT, "
+                        "WORLD_SIZE and RANK")
+    p.add_argument("--coordinator", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="with --distributed: the store's address (rank 0 "
+                        "listens there)")
+    p.add_argument("--num-hosts", type=int, default=None,
+                   help="with --distributed: the number of processes")
+    p.add_argument("--host-id", type=int, default=None,
+                   help="with --distributed: this process's rank")
+    p.add_argument("--steal-interval", type=float, default=None,
+                   help="dist tier: the communicator's cadence floor in "
+                        "seconds (default 0.02; backs off while every host "
+                        "is busy)")
+    p.add_argument("--guard", action="store_true",
+                   help="refused: the steady-state guard is not ported yet "
+                        "(ROADMAP.md A.10)")
     p.add_argument("--unfused", action="store_true",
                    help="run the unfused cycle (evaluator kernel + torch "
                         "compaction; staged under lb2) instead of the fused "
@@ -170,8 +219,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "M/mt tiles; a multiple of 8 that divides M. Inert "
                         "with --unfused and under lb1_d")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="resident engine: save the search frontier to this "
-                        "file periodically and at a --max-steps cut")
+                   help="resident engine and the parallel tiers: save the "
+                        "search frontier to this file periodically and at a "
+                        "--max-steps cut (the dist tiers: one file a host, "
+                        "FILE.h<rank>, cut in lockstep)")
     p.add_argument("--checkpoint-interval", type=float, default=60.0,
                    help="seconds between checkpoint snapshots (0: after "
                         "every dispatch)")
@@ -423,28 +474,31 @@ def serve_main(argv: list[str]) -> int:
 
 
 def check_supported(args) -> None:
-    """Refuse a tier the port lacks, and a flag the chosen tier or engine
-    would ignore (`tpu_tree_search/cli.py` `_dispatch_tier`, `validate_args`)."""
-    if args.tier not in PORTED_TIERS:
+    """Refuse what the port lacks, and a flag the chosen tier or engine would
+    ignore (`tpu_tree_search/cli.py` `_dispatch_tier`, `validate_args`)."""
+    if args.guard:
+        raise NotImplementedError(f"--guard is not ported yet ({A10})")
+    if args.device is not None and "," in args.device:
         raise NotImplementedError(
-            f"tier {args.tier!r} is not ported yet ({A9_SECOND_HALF}); the "
-            "port runs --tier seq, device, multi and mesh")
+            f"--device {args.device}: one search on several cards is not "
+            f"ported yet ({A9_STEPS_3_4})")
     if args.mp != 1:
         if args.mp < 1:
             raise ValueError("--mp must be >= 1")
-        raise NotImplementedError(f"--mp is not ported yet ({A9_SECOND_HALF})")
+        raise NotImplementedError(f"--mp is not ported yet ({A9_STEPS_3_4})")
     if args.D is not None:
-        if args.tier not in ("multi", "mesh"):
-            raise ValueError("--D applies to the multi and mesh tiers")
+        if args.tier not in ("multi", "mesh") + DIST_TIERS:
+            raise ValueError("--D applies to the multi, mesh and dist tiers")
         if args.D < 1:
             raise ValueError(f"--D must be >= 1, got {args.D}")
-    if args.perc != 0.5 and args.tier != "multi":
-        raise ValueError("--perc only applies to the work-stealing tier "
-                         "(multi)")
+    if args.perc != 0.5 and args.tier not in ("multi", "dist"):
+        raise ValueError("--perc only applies to the work-stealing tiers "
+                         "(multi, dist)")
     if not 0.0 < args.perc <= 1.0:
         raise ValueError("--perc must be in (0, 1]: the fraction of the "
                          "victim's front taken per steal")
-    if args.tier in ("multi", "mesh"):
+    check_dist(args)
+    if args.tier in ("multi", "mesh") + DIST_TIERS:
         check_parallel(args)
         check_limits(args)
         return
@@ -477,6 +531,30 @@ def check_supported(args) -> None:
     check_limits(args)
 
 
+def check_dist(args) -> None:
+    """The JAX CLI's checks of the multi-host flags (`tpu_tree_search/
+    cli.py:495-519`)."""
+    if (args.hosts is not None or args.distributed) and args.tier not in DIST_TIERS:
+        raise ValueError("--hosts/--distributed only apply to --tier "
+                         "dist/dist_mesh")
+    if args.no_steal and args.tier != "dist":
+        raise ValueError("--no-steal only applies to --tier dist")
+    if args.distributed and args.hosts is not None:
+        raise ValueError("--distributed (a process a host) and --hosts "
+                         "(virtual hosts) are mutually exclusive")
+    if ((args.coordinator is not None or args.num_hosts is not None
+         or args.host_id is not None) and not args.distributed):
+        raise ValueError("--coordinator/--num-hosts/--host-id require "
+                         "--distributed")
+    if args.steal_interval is not None:
+        if args.tier != "dist":
+            raise ValueError("--steal-interval only applies to --tier dist")
+        if args.steal_interval <= 0:
+            raise ValueError("--steal-interval must be > 0")
+    if args.hosts is not None and args.hosts < 1:
+        raise ValueError("--hosts must be >= 1")
+
+
 def check_limits(args) -> None:
     """``--max-steps`` >= 1 and ``--checkpoint-interval`` >= 0."""
     if args.max_steps is not None and args.max_steps < 1:
@@ -487,34 +565,38 @@ def check_limits(args) -> None:
 
 
 def check_parallel(args) -> None:
-    """The refusals of the multi and mesh tiers (`tpu_tree_search/cli.py:
-    452-522,668-676`): the mesh is resident-only and takes no tile width or
-    torch.profiler window; the multi tier's workers offload, so they take
-    no --K, --max-steps, cycle flags or phase clock."""
+    """The refusals of the multi, mesh and dist tiers (`tpu_tree_search/
+    cli.py:452-522,668-676`): the mesh tiers are resident-only and take no
+    tile width or torch.profiler window; the multi and dist tiers' workers
+    offload, so they take no --K, --max-steps, cycle flags or phase
+    clock."""
     if args.engine != "resident":
         raise ValueError(
-            "--engine offload is not available for this tier (mesh is "
-            "resident-only; use --tier multi for host-orchestrated offload "
-            "across devices)" if args.tier == "mesh" else
-            "--engine applies to --tier device (the multi tier's workers "
-            "always offload)")
+            "--engine offload is not available for this tier (mesh/"
+            "dist_mesh are resident-only; use --tier multi for "
+            "host-orchestrated offload across devices)"
+            if args.tier in ("mesh", "dist_mesh") else
+            f"--engine applies to --tier device (the {args.tier} tier's "
+            "workers always offload)")
     if args.torch_trace is not None:
         raise ValueError("--torch-trace applies to --tier device's resident "
                          "engine")
     if args.mt is not None:
         raise ValueError(f"--mt applies to --tier device's resident engine; "
                          f"--tier {args.tier} takes no tile width")
-    if args.tier == "multi":
+    if args.tier in ("multi", "dist"):
         if args.max_steps is not None or args.K is not None:
-            raise ValueError("--max-steps/--K need the device or mesh tier")
+            raise ValueError("--max-steps/--K need the device, mesh, or "
+                             "dist_mesh tier")
         if args.unfused:
             raise ValueError("--unfused applies to the resident device "
-                             "cycles; the multi tier's workers offload")
+                             f"cycles; the {args.tier} tier's workers offload")
         if args.phase_profile:
             raise ValueError(
                 "--phase-profile arms the resident loops' device phase clock "
-                "(--tier device with the resident engine, mesh); the multi "
-                "tier's workers have no device cycle to decompose")
+                "(--tier device with the resident engine, mesh, dist_mesh); "
+                f"the {args.tier} tier's workers have no device cycle to "
+                "decompose")
 
 
 def parse_k(knob: str | None) -> int | str:
@@ -550,6 +632,11 @@ def print_settings(args, device) -> None:
     elif args.tier in ("multi", "mesh"):
         print(f"{TIER_NAMES[args.tier]} GPU tree search (PyTorch/CUDA, "
               f"D = {args.D})\n")
+    elif args.tier in DIST_TIERS:
+        hosts = (f"{args.num_hosts} processes" if args.distributed
+                 else f"{args.hosts or 1} virtual host(s)")
+        print(f"{TIER_NAMES[args.tier]} GPU tree search (PyTorch/CUDA, "
+              f"{hosts} x D = {args.D})\n")
     else:
         engine = "offload" if args.engine == "offload" else "device-resident"
         print(f"Single-device GPU tree search (PyTorch/CUDA, {engine})\n")
@@ -576,6 +663,13 @@ def print_settings(args, device) -> None:
     if args.torch_trace is not None:
         print(f"torch.profiler window (TTS_TORCH_TRACE): {args.torch_trace} "
               "(steady-state dispatches)")
+    if args.tier in DIST_TIERS:
+        # The raw knobs; the resolved policy prints with the results.
+        from .parallel.topology import steal_mode
+
+        pods = os.environ.get("TTS_PODS")
+        print(f"Inter-host stealing (TTS_STEAL): {steal_mode()}"
+              + (f"; pod map (TTS_PODS): {pods}" if pods else ""))
     print("=================================================")
 
 
@@ -615,15 +709,28 @@ def print_results(problem, res, checkpoint: str | None = None) -> None:
         print(f"Workload per device (%): [{shares}]")
     if res.steals:
         print(f"Work steals (intra-host): {res.steals}")
+    if res.comm:
+        c = res.comm
+        print(f"Inter-host comm: exchange_rounds={c['rounds']} "
+              f"stolen_blocks={c['blocks_received']} "
+              f"stolen_nodes={c['nodes_received']}")
+    if res.steal_policy:
+        # The resolved steal hierarchy: a line a link class.
+        sp = res.steal_policy
+        print(f"Steal policy: {sp['mode']} pods={sp['pods']}")
+        for link, lv in sp.get("levels", {}).items():
+            print(f"  {link}: level={lv['level']} every={lv['every']} "
+                  f"period={lv['period_s']}s quantum={lv['quantum']} "
+                  f"({lv['source']})")
     d = res.diagnostics
-    if res.engine in ("offload", "multi"):
+    if res.engine in ("offload", "multi", "dist"):
         staged = ", staged lb2" if res.staged else ""
         print(f"Offload: M={res.M}, chunks={d.kernel_launches}{staged}")
         print(f"Device diagnostics: kernel_launch={d.kernel_launches} "
               f"host_to_device={d.host_to_device} "
               f"device_to_host={d.device_to_host} "
               f"double_buffered={d.double_buffered}")
-    elif res.engine in ("resident", "mesh"):
+    elif res.engine in ("resident", "mesh", "dist_mesh"):
         cycle = "fused CUDA cycle" if res.fused else f"unfused ({res.compact})"
         if res.megakernel_mt:
             form = "tiled" if megakernel_tiled(res) else "single-tile"
@@ -721,10 +828,19 @@ def result_record(args, res, device) -> dict:
         rec.update(D=len(res.per_worker_tree),
                    per_worker_tree=res.per_worker_tree,
                    workload_shares=res.workload_shares())
+        if args.tier in DIST_TIERS:
+            # A host's workers or shards, and the hosts.
+            rec.update(D=args.D, hosts=len(res.per_worker_tree) // args.D)
     if res.steals:
         rec["steals"] = res.steals
+    if res.comm:
+        # The multi-host tiers' communicator, summed over the hosts, and
+        # the resolved steal policy (the JAX record's keys).
+        rec["comm"] = res.comm
+    if res.steal_policy:
+        rec["steal_policy"] = res.steal_policy
     d = res.diagnostics
-    if res.engine in ("offload", "multi"):
+    if res.engine in ("offload", "multi", "dist"):
         # The per-chunk round trip's diagnostics: one evaluation, H2D and
         # D2H a chunk, and the dispatches that overlapped an in-flight one.
         rec.update(chunks=d.kernel_launches, host_to_device=d.host_to_device,
@@ -817,6 +933,9 @@ def main(argv=None) -> int:
     if argv and argv[0] in ("serve", "submit", "top", "migrate", "warmup",
                             "fleet"):
         return serve_main(argv)
+    if argv and argv[0] in ("lint", "check"):
+        print(f"Error: `{argv[0]}` is not ported yet ({A10})", file=sys.stderr)
+        return 2
     parser = build_parser()
     if argv and argv[0] == "profile":
         # `profile <run command>`: the same run with the phase clock armed.
@@ -833,17 +952,46 @@ def run(args) -> int:
     """One search of ``args`` with its telemetry: the refusals, the
     banner, the run (with the flight recorder armed and the live monitor
     serving when asked), the report, then the trace, metrics and
-    cost-model files."""
-    from .obs import events as obs_events
-    from .obs import flightrec
-
+    cost-model files; under ``--distributed`` this process is one host of
+    the run, on a ``TorchCollectives``."""
     try:
         K, device, problem, M = prepare(args)
     except (NotImplementedError, ValueError, TypeError) as e:
         # A shape or option the port refuses: exit 2, as an unported tier.
         print(f"Error: {e}", file=sys.stderr)
         return 2
-    print_settings(args, device)
+    coll = None
+    if args.distributed:
+        from .parallel.dist import collectives_from_env
+
+        try:
+            coll = collectives_from_env(args.coordinator, args.num_hosts,
+                                        args.host_id)
+        except (ConnectionError, ValueError) as e:
+            # No store, no peers: the run never goes on as one host.
+            print(f"Error: {e}", file=sys.stderr)
+            return 2
+    if coll is None:
+        return run_search(args, K, device, problem, M, coll)
+    try:
+        rc = run_search(args, K, device, problem, M, coll)
+    except BaseException:
+        coll.close(wait=False)  # the peers hear of it by the abort key
+        raise
+    coll.close()
+    return rc
+
+
+def run_search(args, K, device, problem, M, coll) -> int:
+    """The search of ``run``: the banner, the run, the report and the
+    telemetry files on rank 0 (every rank with ``coll`` None), the record
+    on every rank."""
+    from .obs import events as obs_events
+    from .obs import flightrec
+
+    primary = coll is None or coll.is_master
+    if primary:
+        print_settings(args, device)
     if obs_events.enabled():
         # A run-scoped trace: a prior run's events in this process stay out.
         obs_events.reset()
@@ -869,6 +1017,26 @@ def run(args) -> int:
                 perc=args.perc, checkpoint_path=args.checkpoint,
                 checkpoint_interval_s=args.checkpoint_interval,
                 resume_from=args.resume)
+        elif args.tier == "dist":
+            from .parallel.dist import dist_search
+
+            kw = {} if args.steal_interval is None else {
+                "steal_interval_s": args.steal_interval}
+            res = dist_search(
+                problem, m=args.m, M=M, D=args.D, num_hosts=args.hosts,
+                device=args.device, perc=args.perc,
+                steal=not args.no_steal, checkpoint_path=args.checkpoint,
+                checkpoint_interval_s=args.checkpoint_interval,
+                resume_from=args.resume, collectives=coll, **kw)
+        elif args.tier == "dist_mesh":
+            from .parallel.dist_mesh import dist_mesh_search
+
+            res = dist_mesh_search(
+                problem, m=args.m, M=M, K=K, D=args.D, num_hosts=args.hosts,
+                device=args.device, fused=not args.unfused,
+                max_steps=args.max_steps, checkpoint_path=args.checkpoint,
+                checkpoint_interval_s=args.checkpoint_interval,
+                resume_from=args.resume, collectives=coll)
         elif args.tier == "mesh":
             from .parallel.resident_mesh import mesh_resident_search
 
@@ -894,11 +1062,15 @@ def run(args) -> int:
     finally:
         if live_server is not None:
             live_server.close()
-    print_results(problem, res, checkpoint=args.checkpoint)
-    if args.trace or args.metrics_file or args.costmodel:
-        write_telemetry(args, problem, device, obs_events.drain())
+    if primary:
+        print_results(problem, res, checkpoint=args.checkpoint)
+        if args.trace or args.metrics_file or args.costmodel:
+            write_telemetry(args, problem, device, obs_events.drain())
     if args.json:
-        print(json.dumps(result_record(args, res, device)))
+        rec = result_record(args, res, device)
+        if coll is not None:
+            rec.update(host_id=coll.host_id, num_hosts=coll.num_hosts)
+        print(json.dumps(rec), flush=True)
     return 0
 
 
@@ -950,18 +1122,20 @@ def prepare(args):
     from .ops.lb2_kernel import johnson_operands
     from .ops.tiled import check_tile
 
-    resident = args.engine == "resident" and args.tier != "multi"
+    resident = args.engine == "resident" and args.tier not in ("multi", "dist")
     K = None
     if resident:
-        # The mesh's default K is 16 (`tpu_tree_search/cli.py:57-58`).
-        K = 16 if args.tier == "mesh" and args.K is None else parse_k(args.K)
-        resolve_k(K, default_max=16 if args.tier == "mesh" else 4096)
+        # The meshes' default K is 16 (`tpu_tree_search/cli.py:57-58`).
+        mesh = args.tier in ("mesh", "dist_mesh")
+        K = 16 if mesh and args.K is None else parse_k(args.K)
+        resolve_k(K, default_max=16 if mesh else 4096)
         resolve_pipeline_depth()
     device = resolve_device(args.device)
-    if args.tier in ("multi", "mesh") and args.D is None:
+    hosts, ranks = host_ranks(args)
+    if args.tier in ("multi", "mesh") + DIST_TIERS and args.D is None:
         from .parallel.multidevice import default_devices
 
-        args.D = len(default_devices(args.device))
+        args.D = max(1, len(default_devices(args.device)) // hosts)
     M = args.M if args.M is not None else default_M(
         args.problem, device.type, args.tier, args.engine)
     # The tile width of the fused cycle; lb1_d has no fused cycle, and
@@ -978,12 +1152,32 @@ def prepare(args):
 
         from .engine import checkpoint as ckpt
 
-        try:
-            ckpt.load(args.resume, problem)
-        except (OSError, KeyError, zipfile.BadZipFile) as e:
-            raise ValueError(f"cannot read checkpoint {args.resume!r}: "
-                             f"{e}") from None
+        paths = ([f"{args.resume}.h{r}" for r in ranks] if hosts > 1
+                 else [args.resume])
+        for path in paths:
+            try:
+                ckpt.load(path, problem, expect_hosts=hosts)
+            except (OSError, KeyError, zipfile.BadZipFile) as e:
+                raise ValueError(f"cannot read checkpoint {path!r}: "
+                                 f"{e}") from None
     return K, device, problem, M
+
+
+def host_ranks(args) -> tuple[int, list[int]]:
+    """The host count of the run and the ranks this process runs: H
+    virtual hosts (``--hosts``), or under ``--distributed`` this process's
+    rank of ``--num-hosts`` (else ``RANK`` of ``WORLD_SIZE``; none known:
+    no rank, and the collectives' construction refuses the run)."""
+    if args.tier not in DIST_TIERS:
+        return 1, [0]
+    if not args.distributed:
+        H = args.hosts or 1
+        return H, list(range(H))
+    H = args.num_hosts or int(os.environ.get("WORLD_SIZE") or 1)
+    rank = args.host_id
+    if rank is None and os.environ.get("RANK"):
+        rank = int(os.environ["RANK"])
+    return H, [] if rank is None else [rank]
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Checkpoint / resume — the port's copy of `tpu_tree_search/engine/checkpoint.py`
 (the same file format, so a cut taken by either package resumes in the
-other; the multi-host ``lockstep_commit`` waits for the multi-host tiers).
+other, the multi-host tiers' per-host files ``path.h<rank>`` too, and the
+same ``lockstep_commit`` of such a set).
 
 The reference has no checkpointing (SURVEY.md §5: a crashed run loses the
 search). But the pool *is* the complete search state — the frontier plus the
@@ -110,6 +111,28 @@ class RunController:
             self._save(tree, sol)
             self._last = self._clock()
         return False
+
+
+def lockstep_commit(ok: bool, staging: str, final: str, vote=None) -> bool:
+    """The two-phase commit of a staged per-host file (`tpu_tree_search/
+    engine/checkpoint.py:113-136`), shared by the dist and dist_mesh tiers:
+    with ``vote`` (an allgather, ``vote(bool) -> list[bool]``) every host
+    votes, and the rename commits only if every host staged its file; else
+    the staging file goes and the set stays on the previous coherent cut,
+    with a warning on stderr (a stale file behind a "resume with --resume"
+    would lose the budgeted work)."""
+    import sys
+
+    if vote is not None:
+        ok = all(vote(bool(ok)))
+    if ok:
+        os.replace(staging, final)
+    else:
+        if os.path.exists(staging):
+            os.remove(staging)
+        print(f"[checkpoint] lockstep cut NOT committed ({final}); the "
+              "previous coherent cut (if any) is retained", file=sys.stderr)
+    return ok
 
 
 @dataclass

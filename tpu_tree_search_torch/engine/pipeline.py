@@ -34,6 +34,8 @@ from __future__ import annotations
 import os
 from collections import deque
 
+from ..ops.backend import profile_backend
+
 #: Hard cap on the in-flight dispatch queue: beyond 3 the lagged scalars
 #: stop informing anything (termination is seen `depth` dispatches late,
 #: each a no-op after the fact but still enqueue latency at shutdown).
@@ -85,18 +87,6 @@ def resolve_target_band(
     if band is None:
         return default, None
     return band, key
-
-
-def profile_backend(device=None) -> str:
-    """The cost-model profile key's backend of a run on ``device``: ``gpu``
-    on the card, ``cpu`` on the CPU."""
-    if device is None:
-        import torch
-
-        return "gpu" if torch.cuda.is_available() else "cpu"
-    import torch
-
-    return "gpu" if torch.device(device).type == "cuda" else "cpu"
 
 
 def pipeline_mode() -> str:

@@ -853,7 +853,7 @@ def resolve_capacity(problem: Problem, M: int, capacity: int | None) -> tuple[in
 
 
 def _emit_device_explored(ctr_total: dict | None, tree2: int, sol2: int,
-                          fb_tree: int, fb_sol: int) -> None:
+                          fb_tree: int, fb_sol: int, host: int = 0) -> None:
     """Phase 2's ``explored`` samples. When the counter block ran, the
     device part comes from its totals (so the obs totals exercise the
     counter path, not the engine's own sums — tests pin exact parity) and
@@ -863,12 +863,13 @@ def _emit_device_explored(ctr_total: dict | None, tree2: int, sol2: int,
     if not ev.enabled():
         return
     if ctr_total is not None:
-        ev.counter("explored", tree=ctr_total["pushed"],
+        ev.counter("explored", host=host, tree=ctr_total["pushed"],
                    sol=ctr_total["leaves"], phase=2)
         if fb_tree or fb_sol:
-            ev.counter("explored", tree=fb_tree, sol=fb_sol, phase=2)
+            ev.counter("explored", host=host, tree=fb_tree, sol=fb_sol,
+                       phase=2)
     else:
-        ev.counter("explored", tree=tree2, sol=sol2, phase=2)
+        ev.counter("explored", host=host, tree=tree2, sol=sol2, phase=2)
 
 
 def resident_search(

@@ -104,6 +104,13 @@ class SearchResult:
     # work steals (declared by the reference, never reported).
     per_worker_tree: list[int] = field(default_factory=list)
     steals: int = 0
+    # Multi-host tiers (`tpu_tree_search/engine/results.py:60-69`): the
+    # inter-host communicator's totals summed over the hosts (exchange
+    # rounds, donation blocks and nodes sent and received, and the seconds
+    # its exchange allgathers took), and the resolved steal policy
+    # (`parallel/topology.py` ``StealPolicy.describe``).
+    comm: dict | None = None
+    steal_policy: dict | None = None
 
     def workload_shares(self) -> list[float]:
         """Per-worker share of explored nodes in percent (the load-balance

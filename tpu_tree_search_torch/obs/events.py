@@ -133,9 +133,7 @@ class EventRecorder:
             else self._lock.acquire(timeout=timeout)
         )
         try:
-            # Lock-timeout fallback for signal-handler drains: iterating a
-            # list() copy of a deque is safe against concurrent appends; a
-            # buffer registered this instant may be missed.
+            # tts-lint: waive guarded-by -- lock-timeout fallback for signal-handler drains: deque iteration over a list() copy is safe vs concurrent appends; a just-registered buffer may be missed
             merged = [e for buf in list(self._buffers) for e in list(buf)]
         finally:
             if locked:

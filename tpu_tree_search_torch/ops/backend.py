@@ -30,3 +30,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
+
+
+def profile_backend(device=None) -> str:
+    """The cost-model profile key's backend of a run on ``device`` (the JAX
+    ``profile_backend``): ``gpu`` on the card, ``cpu`` on the CPU; None
+    means the card when there is one."""
+    if device is None:
+        return "gpu" if torch.cuda.is_available() else "cpu"
+    return "gpu" if torch.device(device).type == "cuda" else "cpu"

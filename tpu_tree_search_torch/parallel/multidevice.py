@@ -39,6 +39,17 @@ Checkpoints (``checkpoint_path``) pause every worker at a chunk boundary
 and save the union of their pools in the tier-agnostic format
 (`engine/checkpoint.py`): a multi cut resumes on the device tier and the
 other way round.
+
+The multi-host hooks (`multidevice.py:241-628`) serve the dist tier
+(`parallel/dist.py`): ``host_pipeline`` with ``num_hosts`` H > 1 runs the
+same deterministic warm-up to ``H*D*m`` on every host and keeps the
+stride-H share of ``host_id`` (or ``partition_fn``'s), and writes and
+reads the per-host files ``path.h<host_id>``; ``run_workers`` with a host
+communicator ``comm`` runs its loop in a thread beside the workers, which
+then leave when it sets ``stop_event`` (global termination, or its
+failure: unlike the JAX workers they do not run their pools out first),
+not on local all-idle; the communicator cuts checkpoints in its exchange
+rounds.
 """
 
 from __future__ import annotations
@@ -146,7 +157,8 @@ class CheckpointManager:
 
     def __init__(self, problem: Problem, path: str, gate: PauseGate,
                  pools: list[ParallelSoAPool], workers, shared,
-                 base_tree: int, base_sol: int, interval_s: float = 60.0):
+                 base_tree: int, base_sol: int, interval_s: float = 60.0,
+                 hosts: int = 1):
         self.problem = problem
         self.path = path
         self.gate = gate
@@ -156,6 +168,7 @@ class CheckpointManager:
         self.base_tree = base_tree
         self.base_sol = base_sol
         self.interval_s = interval_s
+        self.hosts = hosts  # per-host files of an H-host set (format v4)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -163,7 +176,8 @@ class CheckpointManager:
                       cut_tag: int | str | None = None) -> bool:
         """Pause, snapshot, save. Returns False, and writes nothing, when a
         worker has died: its popped chunk is gone from the pools, and a cut
-        would lose a subtree."""
+        would lose a subtree. ``to_path`` is the dist tier's staging file of
+        its two-phase commit, ``cut_tag`` the lockstep cut's identity."""
         from ..engine import checkpoint as ckpt
 
         t_cut = ev.now_us()
@@ -185,13 +199,15 @@ class CheckpointManager:
                 [self.shared.read() if self.shared is not None else INF_BOUND]
                 + [w.best for w in self.workers])
             ckpt.save(to_path or self.path, self.problem, batch, best, tree,
-                      sol, cut_tag=cut_tag)
+                      sol, hosts=self.hosts, cut_tag=cut_tag)
             ev.complete("checkpoint", t_cut, wid=ev.COMM_TID,
                         args={"nodes": int(batch_length(batch))})
             return True
         finally:
             self.gate.resume()
 
+    # -- timer mode (the multi tier; the dist tier cuts from its
+    # communicator's rounds, so that every host cuts in the same one) ------
     def _timer_loop(self) -> None:
         while not self._stop.wait(self.interval_s):
             if self.gate.all_left():
@@ -221,6 +237,12 @@ class _Worker:
         self.best = INF_BOUND
         self.steals = 0
         self.chunks = 0  # consumed chunks (the flight recorder's sequence)
+        # The last steal's link class and hierarchy level (a worker's own
+        # steals are local/0; `parallel/topology.py`), carried on the
+        # heartbeats so that the flight recorder and `watch` name the steal
+        # level a worker lives off.
+        self.steal_link: str | None = None
+        self.steal_level: int | None = None
         self.diagnostics = Diagnostics()
         self.error: BaseException | None = None
 
@@ -237,7 +259,7 @@ def _partition(problem: Problem, pool: SoAPool, D: int) -> list[ParallelSoAPool]
     return pools
 
 
-def _worker_streams(device: torch.device) -> ExitStack:
+def worker_streams(device: torch.device) -> ExitStack:
     """The context a worker's loop runs in: on the card, its device and a
     stream of its own (synchronised when the loop leaves)."""
     stack = ExitStack()
@@ -252,15 +274,17 @@ def _worker_streams(device: torch.device) -> ExitStack:
 def _worker_loop(w: _Worker, pools: list[ParallelSoAPool], states: TaskStates,
                  m: int, M: int, shared: _SharedBest | None,
                  rng: np.random.Generator, perc: float = 0.5,
-                 gate: PauseGate | None = None) -> None:
+                 stop_event: threading.Event | None = None,
+                 gate: PauseGate | None = None, host_id: int = 0) -> None:
     """One worker (`multidevice.py:241-397`): pop a chunk of its pool,
     dispatch it with the previous chunk in flight, steal when dry, and
-    leave when every worker is idle."""
+    leave when every worker is idle — or, under a host communicator
+    (``stop_event``), when it declares global termination."""
     problem = w.problem
     idle_t0: float | None = None  # open idle span (tracing)
     pending = None  # (staged parents, count, handle, t_chunk) in flight
     try:
-        with _worker_streams(w.device):
+        with worker_streams(w.device):
             off = DeviceOffloader(problem, w.device)
             w.diagnostics = off.diagnostics
             D = len(pools)
@@ -283,29 +307,38 @@ def _worker_loop(w: _Worker, pools: list[ParallelSoAPool], states: TaskStates,
                     w.best = res.best
                     if shared is not None:
                         w.best = shared.publish(w.best)
-                    ev.emit("incumbent", wid=w.wid, args={"best": w.best})
+                    ev.emit("incumbent", wid=w.wid, host=host_id,
+                            args={"best": w.best})
                 w.pool.locked_push_back_bulk(res.children)
                 w.chunks += 1
-                ev.complete("chunk", t_chunk, wid=w.wid, args={"count": count, "tree": res.tree_inc,
+                ev.complete("chunk", t_chunk, wid=w.wid, host=host_id,
+                            args={"count": count, "tree": res.tree_inc,
                                   "sol": res.sol_inc})
-                fr.heartbeat("multi", host=0, wid=w.wid, seq=w.chunks,
+                fr.heartbeat("multi", host=host_id, wid=w.wid, seq=w.chunks,
                              best=w.best, tree=w.tree, sol=w.sol,
-                             steals=w.steals,
-                             steal_link="local" if w.steals else None,
-                             steal_level=0 if w.steals else None)
+                             steals=w.steals, steal_link=w.steal_link,
+                             steal_level=w.steal_level)
 
             while True:
+                if stop_event is not None and stop_event.is_set():
+                    # The communicator ended the search: at global
+                    # termination every pool is below m (the drain takes
+                    # it); after a failure (a dead peer, a dead worker)
+                    # no worker runs its pool out first.
+                    consume_pending()
+                    return
                 if gate is not None:
                     gate.poll(flush=consume_pending)
-                # BUSY before the pop: an outside idle sampler must never
-                # see a worker that holds a chunk as idle.
+                # BUSY before the pop: an outside idle sampler (the dist
+                # tier's communicator) must never see a worker that holds a
+                # chunk as idle.
                 states.set_busy(w.wid)
                 count = w.pool.locked_pop_back_bulk(m, M, chunk_buf)
                 if count > 0:
                     if idle_t0 is not None:
-                        ev.complete("idle", idle_t0, wid=w.wid)
+                        ev.complete("idle", idle_t0, wid=w.wid, host=host_id)
                         idle_t0 = None
-                        fr.set_idle(0, w.wid, False)
+                        fr.set_idle(host_id, w.wid, False)
                     t_chunk = ev.now_us()
                     if shared is not None:
                         w.best = min(w.best, shared.read())
@@ -337,9 +370,10 @@ def _worker_loop(w: _Worker, pools: list[ParallelSoAPool], states: TaskStates,
                             if batch is not None:
                                 w.pool.locked_push_back_bulk(batch)
                                 w.steals += 1
+                                w.steal_link, w.steal_level = "local", 0
                                 stolen = True
                                 ev.complete("steal", t_steal, wid=w.wid,
-                                            args={
+                                            host=host_id, args={
                                                 "victim": int(victim_id),
                                                 "nodes": batch_length(batch),
                                                 "bytes": sum(
@@ -357,9 +391,19 @@ def _worker_loop(w: _Worker, pools: list[ParallelSoAPool], states: TaskStates,
                 states.set_idle(w.wid)
                 if idle_t0 is None:
                     # One miss a busy -> idle transition, not one a scan.
-                    ev.emit("steal_miss", wid=w.wid, args={"link": "local", "level": 0})
+                    ev.emit("steal_miss", wid=w.wid, host=host_id,
+                            args={"link": "local", "level": 0})
                     idle_t0 = ev.now_us()
-                    fr.set_idle(0, w.wid, True)
+                    fr.set_idle(host_id, w.wid, True)
+                if stop_event is not None:
+                    # Under a host communicator local all-idle is not the
+                    # end: a donation from another host may still come. Poll
+                    # until it declares global termination (the two-level
+                    # scheme, `pfsp_dist_multigpu_chpl.chpl:569-587`).
+                    if stop_event.is_set():
+                        return
+                    time.sleep(0.0005)
+                    continue
                 if states.all_idle():
                     return
                 time.sleep(0)
@@ -369,8 +413,8 @@ def _worker_loop(w: _Worker, pools: list[ParallelSoAPool], states: TaskStates,
         states.flag.set()  # every worker leaves; the search aborts
     finally:
         if idle_t0 is not None:
-            ev.complete("idle", idle_t0, wid=w.wid)
-        ev.counter("explored", wid=w.wid, tree=w.tree,
+            ev.complete("idle", idle_t0, wid=w.wid, host=host_id)
+        ev.counter("explored", wid=w.wid, host=host_id, tree=w.tree,
                    sol=w.sol, phase=2)
         if gate is not None:
             gate.leave()
@@ -378,47 +422,69 @@ def _worker_loop(w: _Worker, pools: list[ParallelSoAPool], states: TaskStates,
 
 def run_workers(problem: Problem, pool: SoAPool, D: int, assigned, m: int,
                 M: int, best: int, share_bound: bool = True,
-                seed: int = 0xB0B, perc: float = 0.5,
+                seed: int = 0xB0B, perc: float = 0.5, comm=None,
                 ckpt_path: str | None = None, ckpt_interval_s: float = 60.0,
-                ckpt_base: tuple[int, int] = (0, 0)):
+                ckpt_base: tuple[int, int] = (0, 0), ckpt_hosts: int = 1,
+                host_id: int = 0):
     """Phase 2 (`multidevice.py:400-492`): partition ``pool`` over D worker
     threads (worker w on ``assigned[w]``), run them, join, and merge their
     leftovers into a new pool. Returns ``(leftover pool, tree, sol, best,
-    workers)``. Re-raises the first worker error."""
+    workers)``. Re-raises the first worker error, then the communicator's.
+
+    ``comm`` (the dist tier): a host communicator with a ``run(pools,
+    states, shared, stop_event)`` method, run in a thread of its own beside
+    the workers. It owns global termination and the checkpoints' timing
+    (``ckpt_mgr``); the incumbent is then always shared."""
     fr.arm("multi")
     pools = _partition(problem, pool, D)
     leftover = SoAPool(problem.node_fields())
     states = TaskStates(D)
-    shared = _SharedBest(best) if share_bound else None
+    shared = _SharedBest(best) if share_bound or comm is not None else None
     workers = [_Worker(w, problem, pools[w], assigned[w]) for w in range(D)]
     for w in workers:
         w.best = best
+    stop_event = threading.Event() if comm is not None else None
     gate = mgr = None
     if ckpt_path is not None:
         gate = PauseGate(D)
         mgr = CheckpointManager(problem, ckpt_path, gate, pools, workers,
                                 shared, base_tree=ckpt_base[0],
                                 base_sol=ckpt_base[1],
-                                interval_s=ckpt_interval_s)
-        mgr.start_timer()
+                                interval_s=ckpt_interval_s, hosts=ckpt_hosts)
+        if comm is not None:
+            # Every host cuts in the same exchange round, so no donation
+            # straddles the snapshot.
+            comm.ckpt_mgr = mgr
+        else:
+            mgr.start_timer()
     seeds = np.random.SeedSequence(seed)
     threads = [
         threading.Thread(
             target=_worker_loop,
             args=(w, pools, states, m, M, shared, np.random.default_rng(s),
-                  perc, gate),
-            name=f"tts-worker-{w.wid}")
+                  perc, stop_event, gate, host_id),
+            name=f"tts-worker-{host_id}.{w.wid}")
         for w, s in zip(workers, seeds.spawn(D))
     ]
+    comm_thread = None
+    if comm is not None:
+        comm_thread = threading.Thread(
+            target=comm.run, args=(pools, states, shared, stop_event),
+            name=f"tts-host-comm-{host_id}")
+        comm_thread.start()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    if mgr is not None:
+    if comm_thread is not None:
+        comm_thread.join()
+    elif mgr is not None:
         mgr.stop_timer()
     for w in workers:
         if w.error is not None:
             raise w.error
+    if comm is not None and comm.error is not None:
+        raise comm.error
     for p in pools:  # the threads are joined: no lock needed
         leftover.push_back_bulk(p.as_batch())
     tree2 = sum(w.tree for w in workers)
@@ -427,18 +493,59 @@ def run_workers(problem: Problem, pool: SoAPool, D: int, assigned, m: int,
     return leftover, tree2, sol2, best, workers
 
 
+def host_share(problem: Problem, warm: SoAPool, host_id: int, num_hosts: int,
+               partition_fn=None) -> SoAPool:
+    """Host ``host_id``'s share of the warm pool every host built alike:
+    its stride-H slice, or what ``partition_fn(batch, host_id, H)`` returns
+    (skewed partitions, to drive inter-host stealing in tests)."""
+    batch = warm.as_batch()
+    pool = SoAPool(problem.node_fields())
+    if partition_fn is None:
+        pool.push_back_bulk({k: v[host_id::num_hosts] for k, v in batch.items()})
+    else:
+        pool.push_back_bulk(partition_fn(batch, host_id, num_hosts))
+    return pool
+
+
+def check_same_cut(coll, cut_tag) -> None:
+    """Refuse a multi-host resume whose per-host files come from different
+    lockstep cuts (a host that crashed between the commit's vote and its
+    rename, or stale files of an earlier run with the same host count):
+    their union is no frontier, and nodes donated between the cuts would be
+    lost or explored twice. Every host calls it (an allgather)."""
+    tags = coll.allgather_obj(cut_tag)
+    if len(set(tags)) != 1:
+        raise ValueError(
+            "incoherent multi-host resume: per-host checkpoint files come "
+            f"from different cuts ({tags}); restore a matching set (same "
+            "run, same communicator round) before resuming")
+
+
 def host_pipeline(problem: Problem, m: int, M: int, D: int, devices,
                   initial_best: int | None = None, share_bound: bool = True,
-                  seed: int = 0xB0B, perc: float = 0.5,
+                  num_hosts: int = 1, host_id: int = 0,
+                  seed: int = 0xB0B, perc: float = 0.5, comm=None,
+                  partition_fn=None,
                   checkpoint_path: str | None = None,
                   checkpoint_interval_s: float = 60.0,
                   resume_from: str | None = None) -> dict:
-    """The three phases of the multi-device tier (`multidevice.py:495-626`,
-    one host): warm-up to ``D*m``, the partitioned parallel offload, the
-    drain. Returns the stats."""
+    """The three phases one host runs (`multidevice.py:495-626`): warm-up,
+    the partitioned parallel offload, the drain. Returns its stats.
+
+    With one host this is the whole multi tier (warm-up to ``D*m``). With
+    H = ``num_hosts`` hosts every host runs the same deterministic warm-up
+    to ``H*D*m`` and keeps the stride-H share of ``host_id`` (or what
+    ``partition_fn(warm, host_id, H)`` returns): the dist tier's
+    replicate-and-slice partition (`pfsp_dist_multigpu_chpl.chpl:339-374`)
+    without communication; host 0 alone counts the warm-up. Checkpoints
+    then are per-host files ``path.h<host_id>``, and a resume under a
+    communicator checks that every host's file is of the same cut."""
     assigned = [devices[w % len(devices)] for w in range(D)]
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
+    suffix = f".h{host_id}" if num_hosts > 1 else ""
+    eff_ckpt = None if checkpoint_path is None else checkpoint_path + suffix
+    eff_resume = None if resume_from is None else resume_from + suffix
 
     pool = SoAPool(problem.node_fields())
     problem._native()  # a first call builds it: outside the timed phases
@@ -448,12 +555,14 @@ def host_pipeline(problem: Problem, m: int, M: int, D: int, devices,
             # synchronises its copy).
             problem.device_tables(dev)
     t0 = time.perf_counter()
-    if resume_from is not None:
+    if eff_resume is not None:
         # The loaded frontier replaces the warm-up (the tier-agnostic
-        # format of every tier).
+        # format of every tier): this host's share.
         from ..engine import checkpoint as ckpt_mod
 
-        loaded = ckpt_mod.load(resume_from, problem)
+        loaded = ckpt_mod.load(eff_resume, problem, expect_hosts=num_hosts)
+        if comm is not None:
+            check_same_cut(comm.coll, loaded.cut_tag)
         pool.push_back_bulk(loaded.batch)
         tree1 = sol1 = 0
         base_tree, base_sol = loaded.tree, loaded.sol
@@ -461,24 +570,30 @@ def host_pipeline(problem: Problem, m: int, M: int, D: int, devices,
     else:
         base_tree = base_sol = 0
         pool.push_back(index_batch(problem.root(), 0))
-        # -- step 1: warm-up to D*m (`nqueens_multigpu_chpl.chpl:173`) ----
-        tree1, sol1, best = warmup(problem, pool, best, D * m)
+        # -- step 1: warm-up to H*D*m (`nqueens_multigpu_chpl.chpl:173`,
+        # the dist target `pfsp_dist_multigpu_chpl.chpl:339-345`) ----------
+        tree1, sol1, best = warmup(problem, pool, best, num_hosts * D * m)
+        if num_hosts > 1:
+            pool = host_share(problem, pool, host_id, num_hosts, partition_fn)
+            if host_id != 0:
+                tree1 = sol1 = 0
     t1 = time.perf_counter()
-    ev.counter("explored", tree=base_tree + tree1, sol=base_sol + sol1,
-               phase=1)
+    ev.counter("explored", host=host_id, tree=base_tree + tree1,
+               sol=base_sol + sol1, phase=1)
 
     # -- step 2: the partitioned parallel offload ---------------------------
     pool, tree2, sol2, best, workers = run_workers(
         problem, pool, D, assigned, m, M, best, share_bound, seed=seed,
-        perc=perc, ckpt_path=checkpoint_path,
+        perc=perc, comm=comm, ckpt_path=eff_ckpt,
         ckpt_interval_s=checkpoint_interval_s,
-        ckpt_base=(base_tree + tree1, base_sol + sol1))
+        ckpt_base=(base_tree + tree1, base_sol + sol1),
+        ckpt_hosts=num_hosts, host_id=host_id)
     t2 = time.perf_counter()
 
     # -- step 3: drain (`pfsp_multigpu_chpl.chpl:529-535`) --------------------
     tree3, sol3, best = drain(problem, pool, best)
     t3 = time.perf_counter()
-    ev.counter("explored", tree=tree3, sol=sol3, phase=3)
+    ev.counter("explored", host=host_id, tree=tree3, sol=sol3, phase=3)
     diag = Diagnostics(
         kernel_launches=sum(w.diagnostics.kernel_launches for w in workers),
         host_to_device=sum(w.diagnostics.host_to_device for w in workers),

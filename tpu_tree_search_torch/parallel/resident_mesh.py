@@ -286,6 +286,37 @@ class MeshProgram(R.CachedProgram):
         self.states = []
 
 
+def offload_until_fits(program: MeshProgram, pool: SoAPool, offloader,
+                       best: int, diagnostics: Diagnostics):
+    """The saturation fallback (no shard ran a cycle and balancing moved
+    nothing): download the shards' frontier into ``pool``, run host offload
+    cycles (``offloader``, made at first use) until it fits the shards'
+    headroom, and upload it again. Returns ``(tree, sol, best,
+    offloader)``."""
+    problem, D, m, M = program.problem, program.D, program.m, program.M
+    pool.reset_from(program.full_batch())
+    diagnostics.device_to_host += 1
+    if offloader is None:
+        offloader = DeviceOffloader(problem, program.device)
+    chunk_buf = problem.empty_batch(M)
+    fits = D * max(0, program.capacity - 2 * M * problem.child_slots)
+    tree = sol = 0
+    while pool.size >= m and pool.size > fits:
+        count = pool.pop_back_bulk(m, M, chunk_buf)
+        if count == 0:
+            break
+        parents, bounds = offloader.evaluate(chunk_buf, count, best)
+        res = problem.generate_children(parents, count, bounds, best)
+        tree += res.tree_inc
+        sol += res.sol_inc
+        best = res.best
+        pool.push_back_bulk(res.children)
+    program.upload(pool.as_batch(), best)
+    pool.clear()
+    diagnostics.host_to_device += 1
+    return tree, sol, best, offloader
+
+
 def mesh_key(D: int, m: int, M: int, K: int, rounds: int, T: int,
              capacity: int, device, fused: bool, staged: bool) -> tuple:
     """The cache key of a mesh program (`resident_mesh.py:479-485`, with the
@@ -529,34 +560,16 @@ def mesh_resident_search(
                 # nothing. Host offload cycles until the frontier fits.
                 drain_queue()  # saturated speculative dispatches: no-ops
                 t_fb = ev.now_us()
-                fb_tree0, fb_sol0 = tree2, sol2
                 stalls += 1
-                pool.reset_from(program.full_batch())
-                diagnostics.device_to_host += 1
-                if offloader is None:
-                    offloader = DeviceOffloader(problem, dev)
-                chunk_buf = problem.empty_batch(M)
-                fits = D * max(0, capacity - 2 * M * n)
-                while pool.size >= m and pool.size > fits:
-                    count = pool.pop_back_bulk(m, M, chunk_buf)
-                    if count == 0:
-                        break
-                    parents, bounds = offloader.evaluate(chunk_buf, count,
-                                                         best)
-                    res = problem.generate_children(parents, count, bounds,
-                                                    best)
-                    tree2 += res.tree_inc
-                    sol2 += res.sol_inc
-                    best = res.best
-                    pool.push_back_bulk(res.children)
-                program.upload(pool.as_batch(), best)
-                pool.clear()
-                diagnostics.host_to_device += 1
+                ti, si, best, offloader = offload_until_fits(
+                    program, pool, offloader, best, diagnostics)
+                tree2 += ti
+                sol2 += si
                 last_ready = time.monotonic()
-                fb_tree += tree2 - fb_tree0
-                fb_sol += sol2 - fb_sol0
-                ev.complete("overflow_fallback", t_fb, args={
-                    "tree": tree2 - fb_tree0, "sol": sol2 - fb_sol0})
+                fb_tree += ti
+                fb_sol += si
+                ev.complete("overflow_fallback", t_fb,
+                            args={"tree": ti, "sol": si})
                 prev_sizes = None
                 continue
             prev_sizes = sizes

@@ -411,12 +411,13 @@ class BatchExecutor:
             job.quality.observe(best, sl.n_disp, sl.tree)
         res = self._result(sl, best, True, prog)
         self._release_slot(i, ctx, job, problem)
-        sched.registry.transition(job, "done", result=result_record(res))
         ckpt = sched._checkpoint_path(job)
         for p in (ckpt, job.checkpoint):
             if p and os.path.exists(p):
                 os.remove(p)
-        sched.registry.update(job, checkpoint=None)
+        # One update: a reader never sees "done" beside a removed cut.
+        sched.registry.transition(job, "done", result=result_record(res),
+                                  checkpoint=None)
         # The retired slot stays frozen (size < m fails its condition)
         # until the next splice loads it.
 
@@ -430,12 +431,13 @@ class BatchExecutor:
         job = sl.job
         res = self._result(sl, best, False, prog)
         self._release_slot(i, ctx, job, problem)
-        sched.registry.transition(job, "done", result=result_record(res))
         ckpt = sched._checkpoint_path(job)
         for p in (ckpt, job.checkpoint):
             if p and os.path.exists(p):
                 os.remove(p)
-        sched.registry.update(job, checkpoint=None)
+        # One update: a reader never sees "done" beside a removed cut.
+        sched.registry.transition(job, "done", result=result_record(res),
+                                  checkpoint=None)
         prog.empty_slot(i)  # still live: must freeze
 
     def _cut(self, i: int, ctx, best: int, kind: str) -> None:

@@ -445,11 +445,12 @@ class Scheduler:
             # always leaves the budget unexhausted (the max_steps cutoff
             # wins the same dispatch boundary), so it can never be
             # mistaken for the cutoff and silently truncate a result.
-            self.registry.transition(job, "done", result=result_record(res))
             for p in (ckpt, job.checkpoint):
                 if p and os.path.exists(p):
                     os.remove(p)
-            self.registry.update(job, checkpoint=None)
+            # One update: a reader never sees "done" beside a removed cut.
+            self.registry.transition(job, "done", result=result_record(res),
+                                     checkpoint=None)
             return
         has_ckpt = os.path.exists(ckpt)
         if job.cancel_requested:
