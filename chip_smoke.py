@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve    # phases 1, 2, 16d and 18e (the batched graph, serving)
     python3 chip_smoke.py --parallel # phases 1, 2, 18f and 18g (the multi-device and multi-host tiers)
     python3 chip_smoke.py --dist     # phases 1, 2 and 18g (the multi-host tiers)
+    python3 chip_smoke.py --fleet    # phases 1, 2, 18h and 18i (the guard, the fleet)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -176,6 +177,21 @@ ends the script with a non-zero exit before the final line:
      goldens. Each line: phase 2 seconds, exchange rounds, blocks and nodes
      sent, the mean ms of an exchange allgather round, and (dist_mesh)
      device ms by CUDA events;
+ 18h. ``guard_*``: the steady-state guard (``--guard``) on ta014 lb1 at
+     K = 4, N = 15, ta014 lb2 at K = 4 and the mesh at D = 2 on ta014 lb1,
+     each unguarded then guarded to its goldens with more than one checked
+     dispatch (phase 2 of both); two tampers that must raise
+     ``GuardViolation`` naming the dispatch (a ``.item()`` slipped into
+     the enqueue, a graph rebuilt in steady state); and a guarded unfused
+     N = 14 search whose outcome is printed, not checked;
+ 18i. ``fleet_*``: two ``ServeDaemon``s on the card behind an in-process
+     ``FleetRouter``, under ``TTS_GUARD=1``: ta014 lb1 cold then warm (no
+     new program, no new graph), N = 15 cold on the other daemon, ta014
+     lb2, each to its goldens; N-Queens N = 17 (K = 256) moved live off a
+     draining daemon, then recovered from a pulled cut after a SIGKILL of a
+     subprocess daemon, both equal to an uninterrupted solo run; per job
+     the routed wall, the daemon's, the router hop and the queue wait (ms),
+     and kernels 2, 4 and 8's launches around the phase;
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -234,7 +250,8 @@ ends the script with a non-zero exit before the final line:
      and a frozen slot's cost a cycle; ``mesh_balance`` the launches of the
      mesh D = 4 ta014 lb1 run and its phase 18f times; rows 1, 3, 7 and the
      cycles carry the multi, mesh, dist and dist_mesh runs' launches
-     (``parallel_launches``).
+     (``parallel_launches``), and the cycles 2, 4 and 8 the fleet phase's
+     (``fleet_launches``).
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -3048,6 +3065,396 @@ def main_dist(dev_info) -> int:
     return 0
 
 
+# The guarded runs (phase 18h): (name, argv, golden). The K values give
+# each run several steady-state dispatches (ta014 lb1 at the default K is
+# two dispatches).
+GUARD_RUNS = [
+    ("ta014_lb1_K4", PFSP_LB1 + ["--K", "4"], GOLDEN),
+    ("nqueens_N15", NQ15 + ["--K", "512"], NQ_GOLDEN[15]),
+    ("ta014_lb2_K4", PFSP_LB2 + ["--K", "4"], GOLDEN_LB2),
+    ("mesh_D2_ta014_lb1", PFSP_LB1 + ["--tier", "mesh", "--D", "2", "--K", "4"],
+     GOLDEN),
+]
+
+
+@contextlib.contextmanager
+def _patched(cls, name: str, fn):
+    """``cls.name`` replaced by ``fn(original)`` for the block."""
+    orig = getattr(cls, name)
+    setattr(cls, name, fn(orig))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def _tamper_raises(what: str, run) -> str:
+    """``run()`` must raise ``GuardViolation``; returns its message."""
+    from tpu_tree_search_torch.analysis.guard import GuardViolation
+
+    try:
+        run()
+    except GuardViolation as e:
+        torch.cuda.synchronize()
+        return str(e)
+    raise RuntimeError(f"chip_smoke check failed: {what} raised no GuardViolation")
+
+
+def _guard_row(name: str, runs: dict, median) -> dict:
+    """One guard_* line from a configuration's unguarded ("off") and
+    guarded ("on") runs, in run order, after checking that every guarded
+    run checked more than one dispatch with the sync check armed."""
+    for on in runs["on"]:
+        g = on.get("guard") or {}
+        check(g.get("checked_dispatches", 0) > 1 and "sync" in g.get("checks", ()),
+              f"guard {name}: {g}")
+    check(all(off.get("guard") is None for off in runs["off"]),
+          f"guard {name}: an unguarded run guarded")
+    on = runs["on"][0]
+    row = dict(guard=on["guard"], dispatches=on["dispatches"],
+               launches=on["launches"])
+    for mode, sfx in (("on", ""), ("off", "_unguarded")):
+        phase2 = [r["phases"][1][2] for r in runs[mode]]
+        row["phase2_s" + sfx] = phase2
+        row["phase2_median_s" + sfx] = median(phase2)
+        row["dispatch_device_ms" + sfx] = [1e3 * r["dispatch_device_s"]
+                                           for r in runs[mode]]
+        row["gc_ms" + sfx] = [r["gc_ms"] for r in runs[mode]]
+    return row
+
+
+def phase_guard(counters: dict) -> dict:
+    """The steady-state guard (``--guard``, ``analysis/guard.py``) on the
+    card: ta014 lb1 at K = 4, N = 15, ta014 lb2 at K = 4 and the mesh at
+    D = 2 on ta014 lb1, each at full width and default M: a first run
+    builds the program, then unguarded and guarded twice over (A B B A A B
+    B A), each to its goldens, the guarded ones with more than one checked
+    steady-state dispatch (the sync check armed); phase 2, the device ms
+    and the garbage collector's pauses (ms) of each, and each mode's
+    median phase 2. Two tampers must raise ``GuardViolation`` naming the dispatch: a
+    ``.item()`` on a CUDA tensor slipped into each enqueue (a hook around
+    the program's ``enqueue``), and a steady-state dispatch that builds a
+    new graph (the program's graph cache emptied at the second dispatch).
+    Then a guarded unfused N = 14 search, whose cycle reads its survivor
+    count once a cycle: its outcome is printed, not checked (the unfused
+    path is not steady-state pure on the card; ROADMAP.md C)."""
+    from tpu_tree_search_torch.engine import resident as R
+    from tpu_tree_search_torch.engine.resident import resident_search
+    from tpu_tree_search_torch.problems import NQueensProblem
+
+    import gc
+    import statistics
+
+    gc_s = [0.0, None]  # the pauses' sum, the open pause's start
+
+    def gc_clock(stage, _info):
+        if stage == "start":
+            gc_s[1] = time.perf_counter()
+        elif gc_s[1] is not None:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+            gc_s[1] = None
+
+    rows = {}
+    gc.callbacks.append(gc_clock)
+    try:
+        for name, argv, golden in GUARD_RUNS:
+            run_search(argv, golden)  # builds the program and its graph
+            runs = {"off": [], "on": []}
+            for mode in ("off", "on", "on", "off") * 2:  # A B B A A B B A, warm
+                zero_counts(counters)
+                gc_s[0] = 0.0
+                rec = run_search(argv + (["--guard"] if mode == "on" else []),
+                                 golden)
+                rec["gc_ms"] = 1e3 * gc_s[0]
+                rec["launches"] = {k: fn.launches for k, fn in counters.items()
+                                   if fn.launches}
+                runs[mode].append(rec)
+            rows[name] = _guard_row(name, runs, statistics.median)
+            emit(f"guard_{name}", **rows[name])
+    finally:
+        gc.callbacks.remove(gc_clock)
+    dev = torch.device("cuda", 0)
+
+    def sync_hook(orig):
+        def enqueue(self, state):
+            read = orig(self, state)
+            state.st[0].item()  # the tamper: a synchronising call
+            return read
+        return enqueue
+
+    with _patched(R._ResidentProgram, "enqueue", sync_hook):
+        msg = _tamper_raises("a .item() in the enqueue", lambda: resident_search(
+            NQueensProblem(12), M=50000, K=1, device=dev, guard=True))
+    check("synchronising call in steady-state dispatch 2" in msg, msg)
+    rows["tamper_sync"] = msg
+    calls = [0]
+
+    def rebuild_hook(orig):
+        def graph(self, state):
+            calls[0] += 1
+            if calls[0] == 2:  # the tamper: the graph rebuilt in steady state
+                self._stale = list(self._graphs.values())
+                self._graphs.clear()
+            return orig(self, state)
+        return graph
+
+    with _patched(R._ResidentProgram, "_graph", rebuild_hook):
+        msg = _tamper_raises("a graph rebuilt in steady state", lambda: resident_search(
+            NQueensProblem(12), M=50000, K=1, device=dev, guard=True))
+    check("steady-state dispatch 2 built something (graphs" in msg, msg)
+    rows["tamper_rebuild"] = msg
+    try:
+        rec = run_search(NQ14 + ["--unfused", "--guard"], NQ_GOLDEN[14])
+        rows["unfused_N14"] = dict(outcome="completed", guard=rec.get("guard"))
+    except Exception as e:  # noqa: BLE001 — printed: the expected outcome
+        torch.cuda.synchronize()
+        rows["unfused_N14"] = dict(outcome=f"{type(e).__name__}: {e}")
+    emit("guard_tampers", tamper_sync=rows["tamper_sync"],
+         tamper_rebuild=rows["tamper_rebuild"], unfused_N14=rows["unfused_N14"])
+    return rows
+
+
+FLEET_N17 = {"problem": "nqueens", "N": 17, "M": 50000, "K": 256}
+# The placement jobs (spec, golden counts), by name.
+FLEET_JOBS = {"lb1": (SERVE_LB1, (2573652, 2648, 1377)),
+              "nq15": (SERVE_NQ15, (171129071, 2279184)),
+              "lb2": (SERVE_LB2, (144639, 0, 1377))}
+N17_SOL = 95815104  # the classical solution count of 17 queens
+
+
+def _fleet_submit(base: str, spec: dict) -> tuple[dict, float]:
+    t0 = time.perf_counter()
+    code, sub = _serve_call(base, "/submit", spec)
+    check(code == 201, f"fleet submit {spec}: {code} {sub}")
+    return sub, t0
+
+
+def _fleet_wait(base: str, subs: list, timeout_s: float = 300.0,
+                poll_s: float = 0.005) -> list:
+    """The fresh final records of the fleet jobs ``subs`` ((submit reply,
+    submit time) pairs), polled together, each with its routed wall (its
+    submit to the router's first final answer), the final daemon's wall
+    (its record's finished - submitted), the queue wait, and the router hop:
+    the routed wall less the daemon's, for a job that ran on one daemon
+    only. A resubmitted job's routed wall also holds its earlier daemons'
+    runs and the recovery wait, so its hop is null."""
+    deadline = time.monotonic() + timeout_s
+    done: dict = {}
+    while len(done) < len(subs):
+        for sub, t0 in subs:
+            if sub["id"] in done:
+                continue
+            code, rec = _serve_call(base, f"/job/{sub['id']}")
+            if code == 200 and rec["state"] in ("done", "failed", "cancelled") \
+                    and not rec.get("stale"):
+                done[sub["id"]] = (rec, time.perf_counter() - t0)
+        check(time.monotonic() < deadline, f"fleet jobs not final: {len(done)}")
+        time.sleep(poll_s)
+    out = []
+    for sub, _ in subs:
+        rec, routed = done[sub["id"]]
+        check(rec["state"] == "done",
+              f"fleet job {sub['id']}: {rec['state']} {rec.get('error')}")
+        daemon_wall = rec["finished"] - rec["submitted"]
+        hop = None if rec.get("resubmits") else 1e3 * (routed - daemon_wall)
+        out.append(dict(rec, routed_wall_ms=1e3 * routed,
+                        daemon_wall_ms=1e3 * daemon_wall, router_hop_ms=hop,
+                        queue_wait_ms=1e3 * (rec["started"] - rec["submitted"])))
+    return out
+
+
+def _poll_until(what: str, fn, timeout_s: float = 120.0):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = fn()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"fleet: {what} not seen")
+        time.sleep(0.02)
+
+
+def phase_fleet(counters: dict) -> dict:
+    """The fleet router (``fleet/``) over daemons on the card, all jobs
+    under ``TTS_GUARD=1``: two ``ServeDaemon``s in-process on free
+    localhost ports (``--ckpt-every 0.3``) behind an in-process
+    ``FleetRouter``. Placement: ta014 lb1 ub=1 cold, then the same class
+    warm on the same daemon with no new program and no new graph; N = 15
+    cold on the other daemon; ta014 lb2 ub=1; each to its goldens. Drain
+    migration: N-Queens N = 17 at K = 256, cut every 0.3 s, moved live off
+    its draining daemon. SIGKILL recovery: the same job on a subprocess
+    daemon (``serve --port 0 --ckpt-every 0.3``), killed after the router
+    pulled a cut, resubmitted to a daemon registered afterwards. Both long
+    jobs equal an uninterrupted solo ``resident_search`` of the spec, count
+    for count. Per job: the routed wall, the daemon's, the router hop and
+    the queue wait (ms); the resubmits; kernels 2, 4 and 8's launches in
+    this process around the phase (the subprocess's are its own)."""
+    import os
+    import re
+    import signal
+    import tempfile
+
+    from tpu_tree_search_torch.engine.resident import resident_search
+    from tpu_tree_search_torch.fleet.router import FleetRouter
+    from tpu_tree_search_torch.problems import NQueensProblem
+    from tpu_tree_search_torch.serve.server import ServeDaemon
+
+    dev = torch.device("cuda", 0)
+    t_ref = time.perf_counter()
+    ref = resident_search(NQueensProblem(FLEET_N17["N"]), M=FLEET_N17["M"],
+                          K=FLEET_N17["K"], device=dev)
+    ref_counts = (ref.explored_tree, ref.explored_sol)
+    check(ref.explored_sol == N17_SOL, f"N=17 solo run: {ref_counts}")
+    emit("fleet_reference", **FLEET_N17, explored_tree=ref.explored_tree,
+         explored_sol=ref.explored_sol, wall_s=time.perf_counter() - t_ref,
+         dispatches=ref.dispatches,
+         device_ms=ref.dispatch_device_s and 1e3 * ref.dispatch_device_s)
+    golden = {k: g for k, (_, g) in FLEET_JOBS.items()}
+    prev_guard = os.environ.get("TTS_GUARD")
+    os.environ["TTS_GUARD"] = "1"
+    out = {}
+    daemons = []
+    router = proc = None
+    zero_counts(counters)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for name in ("a", "b"):
+                d = ServeDaemon(port=0, state_dir=f"{tmp}/{name}", ckpt_every_s=0.3,
+                                device=dev)
+                d.start()
+                daemons.append(d)
+            router = FleetRouter(port=0, state_dir=f"{tmp}/fleet",
+                                 daemons=[d.url for d in daemons],
+                                 scrape_interval_s=0.2, pull_interval_s=0.3,
+                                 max_misses=2)
+            router.start()
+            base = router.url
+            # -- placement --------------------------------------------------
+            sub1, t1 = _fleet_submit(base, FLEET_JOBS["lb1"][0])
+            check(sub1["placement"] == "cold", f"first lb1 job: {sub1}")
+            (rec1,) = _fleet_wait(base, [(sub1, t1)])
+
+            def warm_on(url):
+                _, fl = _serve_call(base, "/fleet")
+                return any(d["url"] == url and any(c.get("warm") for c in d["classes"])
+                           for d in fl["daemons"])
+            _poll_until("the lb1 class warm", lambda: warm_on(sub1["daemon"]))
+            sub2, t2 = _fleet_submit(base, FLEET_JOBS["lb1"][0])
+            sub3, t3 = _fleet_submit(base, FLEET_JOBS["nq15"][0])
+            sub4, t4 = _fleet_submit(base, FLEET_JOBS["lb2"][0])
+            check(sub2["placement"] == "warm" and sub2["daemon"] == sub1["daemon"],
+                  f"warm lb1 job: {sub2}")
+            check(sub3["placement"] == "cold" and sub3["daemon"] != sub1["daemon"],
+                  f"N=15 job: {sub3}")
+            rec2, rec3, rec4 = _fleet_wait(base, [(sub2, t2), (sub3, t3),
+                                                  (sub4, t4)])
+            check(rec2["new_programs"] == 0 and rec2["new_step_compiles"] == 0,
+                  f"warm job built {rec2['new_programs']} programs, "
+                  f"{rec2['new_step_compiles']} graphs")
+            for rec, want in ((rec1, golden["lb1"]), (rec2, golden["lb1"]),
+                              (rec3, golden["nq15"]), (rec4, golden["lb2"])):
+                res = rec["result"]
+                got = (res["explored_tree"], res["explored_sol"], res["best"])[:len(want)]
+                check(got == want, f"fleet job {rec['id']}: {got} != {want}")
+            for key, rec, sub in (("lb1_cold", rec1, sub1), ("lb1_warm", rec2, sub2),
+                                  ("nq15_cold", rec3, sub3), ("lb2", rec4, sub4)):
+                out[key] = {k: rec.get(k) for k in (
+                    "routed_wall_ms", "daemon_wall_ms", "router_hop_ms",
+                    "queue_wait_ms", "new_programs", "new_step_compiles", "daemon",
+                    "slices")}
+                out[key].update(placement=sub["placement"],
+                                guard=rec["result"].get("guard"))
+                emit("fleet_placement", job=key, **out[key])
+            # -- drain migration ---------------------------------------------
+            sub5, t5 = _fleet_submit(base, FLEET_N17)
+            src = next(d for d in daemons if d.url == sub5["daemon"])
+            dst = next(d for d in daemons if d is not src)
+            _poll_until("the N=17 job cut once", lambda: (lambda r: r.get("state") == "running"
+                        and int(r.get("steps") or 0) > 0)(_serve_call(base, f"/job/{sub5['id']}")[1]))
+            t_drain = time.perf_counter()
+            src.scheduler.drain(timeout_s=0.0)
+            (rec5,) = _fleet_wait(base, [(sub5, t5)], timeout_s=600.0)
+            res = rec5["result"]
+            check((res["explored_tree"], res["explored_sol"]) == ref_counts
+                  and rec5["daemon"] == dst.url and rec5["resubmits"] >= 1,
+                  f"drain migration: {res['explored_tree']}, {res['explored_sol']}, "
+                  f"{rec5['daemon']}, {rec5['resubmits']}")
+            out["drain"] = {k: rec5.get(k) for k in (
+                "routed_wall_ms", "daemon_wall_ms", "router_hop_ms", "queue_wait_ms",
+                "resubmits", "slices", "steps")}
+            out["drain"].update(drain_to_done_s=time.perf_counter() - t_drain,
+                                counts=[res["explored_tree"], res["explored_sol"]])
+            emit("fleet_drain_migration", **out["drain"])
+            # -- SIGKILL recovery ---------------------------------------------
+            dst.scheduler.drain(timeout_s=60.0)  # only the subprocess places
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu_tree_search_torch", "serve", "--port", "0",
+                 "--state-dir", f"{tmp}/p", "--ckpt-every", "0.3"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            url_p = None
+            for line in proc.stdout:
+                m = re.search(r"(http://127\.0\.0\.1:\d+)", line)
+                if m:
+                    url_p = m.group(1)
+                    break
+            check(url_p is not None, "the subprocess daemon printed no banner")
+            router.register(url_p)
+            sub6, t6 = _fleet_submit(base, FLEET_N17)
+            check(sub6["daemon"] == url_p, f"SIGKILL job placed on {sub6['daemon']}")
+            _poll_until("a pulled cut", lambda: (lambda j: j.ckpt and j.ckpt_steps > 0)(
+                router.jobs.get(sub6["id"])), timeout_s=300.0)
+            steps_at_kill = router.jobs.get(sub6["id"]).ckpt_steps
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+            _poll_until("the job flagged for recovery",
+                        lambda: router.jobs.get(sub6["id"]).needs_recovery)
+            d3 = ServeDaemon(port=0, state_dir=f"{tmp}/c", ckpt_every_s=0.3, device=dev)
+            d3.start()
+            daemons.append(d3)
+            router.register(d3.url)
+            (rec6,) = _fleet_wait(base, [(sub6, t6)], timeout_s=600.0)
+            res = rec6["result"]
+            check((res["explored_tree"], res["explored_sol"]) == ref_counts
+                  and rec6["daemon"] == d3.url and rec6["resubmits"] >= 1,
+                  f"SIGKILL recovery: {res['explored_tree']}, {res['explored_sol']}, "
+                  f"{rec6['daemon']}, {rec6['resubmits']}")
+            out["sigkill"] = {k: rec6.get(k) for k in (
+                "routed_wall_ms", "daemon_wall_ms", "router_hop_ms", "queue_wait_ms",
+                "resubmits", "slices", "steps")}
+            out["sigkill"].update(steps_at_kill=steps_at_kill,
+                                  counts=[res["explored_tree"], res["explored_sol"]])
+            emit("fleet_sigkill_recovery", **out["sigkill"])
+        finally:
+            if prev_guard is None:
+                os.environ.pop("TTS_GUARD", None)
+            else:
+                os.environ["TTS_GUARD"] = prev_guard
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            if router is not None:
+                router.close()
+            for d in daemons:
+                d.scheduler.drain(timeout_s=60.0)
+                d.close()
+    torch.cuda.synchronize()
+    out["launches"] = {k: counters[k].launches
+                       for k in ("cycle_lb1", "cycle_nqueens", "cycle_lb2")}
+    check(all(out["launches"].values()), f"fleet: a cycle kernel not launched "
+          f"{out['launches']}")
+    emit("fleet_launches", **out["launches"])
+    return out
+
+
+def main_fleet(dev_info) -> int:
+    """``--fleet``: only the guard and the fleet phases after the build."""
+    counters = kernel_counters()
+    phase_guard(counters)
+    phase_fleet(counters)
+    print(json.dumps({"ok": True, "phases": "fleet", "device": dev_info}), flush=True)
+    return 0
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper (and the graph dispatch) by name: each counts
     its launches in ``launches``."""
@@ -3115,10 +3522,12 @@ def main_host(dev_info) -> int:
 def main() -> int:
     dev_info = phase_device()
     if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"],
-                        ["--dist"]):
+                        ["--dist"], ["--fleet"]):
         phase_build()
         if sys.argv[1] == "--host":
             return main_host(dev_info)
+        if sys.argv[1] == "--fleet":
+            return main_fleet(dev_info)
         if sys.argv[1] == "--dist":
             return main_dist(dev_info)
         if sys.argv[1] == "--serve":
@@ -3258,6 +3667,10 @@ def main() -> int:
     dist = phase_dist(counters)
     dmesh = phase_dist_mesh(counters)
     phase_dist_procs()
+    # The guards and the fleet: the steady-state guard on the resident
+    # loops (and its two tampers), then the router over daemons on the card.
+    phase_guard(counters)
+    fleet = phase_fleet(counters)
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -3425,6 +3838,9 @@ def main() -> int:
                 if key not in ("warm", "cut") and k["name"] in row["launches"]}
         if runs:
             k["parallel_launches"] = runs
+        # The fleet phase's launches of the fused cycles (this process's).
+        if k["name"] in fleet["launches"]:
+            k["fleet_launches"] = fleet["launches"][k["name"]]
     # The graph dispatch (not a TPU kernel: the host loop's counterpart of the
     # JAX engine's lax.while_loop): one K = 4 dispatch against 4 plain cycles
     # at ta014 lb1 M = 49152, and its condition kernel's time a cycle on the

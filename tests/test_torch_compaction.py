@@ -16,6 +16,7 @@ import torch
 
 from tpu_tree_search.ops import compaction as jc
 from tpu_tree_search_torch.ops import compaction as tc
+from tpu_tree_search_torch.ops.compact_policy import resolve_compact_mode
 from tpu_tree_search_torch.problems import NQueensProblem
 from tpu_tree_search_torch.problems import PFSPProblem as TorchPFSP
 
@@ -68,10 +69,10 @@ def test_modes_and_policy():
     nq = NQueensProblem(N=15)
     for prob, M, n in [(pfsp, 1024, 20), (pfsp, 49152, 20), (nq, 1024, 15),
                        (nq, 50000, 15)]:
-        assert tc.resolve_compact_mode(prob, M, n) == jc._auto_compact(
+        assert resolve_compact_mode(prob, M, n) == jc._auto_compact(
             prob, M, n, "gpu")
-    assert tc.resolve_compact_mode(pfsp, 1024, 20) == "dense"
-    assert tc.resolve_compact_mode(pfsp, 49152, 20) == "scatter"
-    assert tc.resolve_compact_mode(nq, 50000, 15) == "dense"
+    assert resolve_compact_mode(pfsp, 1024, 20) == "dense"
+    assert resolve_compact_mode(pfsp, 49152, 20) == "scatter"
+    assert resolve_compact_mode(nq, 50000, 15) == "dense"
     with pytest.raises(ValueError):
         tc.compact_ids(torch.zeros((2, 3), dtype=torch.bool), 6, "sort")

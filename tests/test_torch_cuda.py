@@ -1695,3 +1695,71 @@ def test_dist_mesh_lockstep_cut_resumes_on_the_card(cuda, tmp_path):
     assert not part.complete
     res = dist_mesh_search(NQueensProblem(10), resume_from=path, **kw)
     assert (res.explored_tree, res.explored_sol) == (NQ10["tree"], NQ10["sol"])
+
+
+# -- the steady-state guard on the card (analysis/guard.py) ----------------------
+
+
+def test_guard_sync_tamper_raises_and_a_clean_steady_dispatch_passes(cuda):
+    """A steady-state graph enqueue passes the guard's sync check; a
+    ``.item()`` slipped into one raises ``GuardViolation`` naming the
+    dispatch, and the sync debug mode is off again after it."""
+    from tpu_tree_search_torch.analysis.guard import (
+        GuardViolation,
+        SteadyStateGuard,
+    )
+
+    prog, fr, best = _graph_program(cuda, "nqueens", None, K=3)
+    state = prog.init_state(fr, best)
+    prog.host_slots(2)
+    g = SteadyStateGuard(prog, "resident step")
+    assert g.sync_check
+    with g.step():  # warm: builds the graph
+        read = prog.enqueue(state)
+    read()
+    with g.step():
+        read = prog.enqueue(state)
+    assert read()[2] == 3
+    with pytest.raises(GuardViolation, match="synchronising call in "
+                       "steady-state dispatch 3"):
+        with g.step():
+            read = prog.enqueue(state)
+            state.st[0].item()
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert g.checked == 2
+    prog.close()
+
+
+def test_guarded_searches_from_two_threads_do_not_raise(cuda):
+    """Two guarded resident searches at once, a thread and a stream each:
+    one thread's sanctioned reads (the residual download, the final
+    synchronize) while the other's guarded enqueue is open raise nothing,
+    and both reach the N = 10 counts with checked dispatches."""
+    import threading
+
+    results, errors = {}, []
+
+    def run(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(3):
+                    res = resident_search(NQueensProblem(10), m=25, M=256, K=2,
+                                          device=cuda, guard=True)
+                    results.setdefault(i, []).append(res)
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    for runs in results.values():
+        for res in runs:
+            assert (res.explored_tree, res.explored_sol) == (NQ10["tree"],
+                                                             NQ10["sol"])
+            assert res.guard["checked_dispatches"] >= 1
+            assert res.guard["checks"] == ["builds", "sync"]
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -5,8 +5,9 @@
   * Entry points run on ``cuda`` unless asked for the CPU: on a machine
     without CUDA they raise instead of falling back.
   * The CLI refuses what is not ported (``--mp``, a search on several
-    cards, ``lint``, ``check``, ``--guard``) with the ROADMAP queue, and the
-    multi-host flags where the JAX CLI does, runs
+    cards) with the ROADMAP queue, ``check`` (no counterpart), ``--guard``
+    off the resident loops and the multi-host flags where the JAX CLI
+    does, runs
     N-Queens and PFSP lb1/lb1_d/lb2 on the device tier (resident and
     offload engines) and the sequential tier, and ``chip_smoke.py`` fails
     (prints no result) without a card.
@@ -77,6 +78,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "topology"}
     assert {p.stem for p in files if p.parent == PKG / "utils"} == {
         "__init__", "termination"}
+    # The fleet router and the guards (the lint's rules, the steady-state
+    # guard).
+    assert {p.stem for p in files if p.parent == PKG / "fleet"} == {
+        "__init__", "health", "loadgen", "placement", "router"}
+    assert {p.stem for p in files if p.parent == PKG / "analysis"} == {
+        "__init__", "__main__", "baseline", "core", "guard", "lockorder",
+        "locks"}
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files
@@ -105,6 +113,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 A9 = "A.9's second half"
+GUARD = "--guard asserts steady-state purity of the resident device loops"
 
 
 @pytest.mark.parametrize("argv,names", [
@@ -124,22 +133,24 @@ A9 = "A.9's second half"
      "require --distributed"),
     (["nqueens", "--tier", "dist_mesh", "--steal-interval", "0.1"],
      "--steal-interval"),
-    (["lint", "tpu_tree_search_torch"], "A.10"),
-    (["check"], "A.10"),
-    (["pfsp", "--tier", "device", "--guard"], "A.10"),
+    (["check"], "no counterpart"),
+    (["pfsp", "--tier", "multi", "--guard"], GUARD),
+    (["nqueens", "--engine", "offload", "--guard"], GUARD),
 ])
 def test_cli_refuses_unported_paths(argv, names, capsys):
     # The unported paths name their ROADMAP.md queue; the rest are the
     # refusals the JAX CLI makes. Each is an Error: line and exit 2.
-    extra = [] if "--device" in argv or argv[0] in ("lint", "check") else [
+    extra = [] if "--device" in argv or argv[0] == "check" else [
         "--device", "cpu"]
     assert cli.main(argv + extra) == 2
     err = capsys.readouterr().err
     assert err.startswith("Error:")
     if names is not None:
         assert names in err
-    if names in (A9, "A.10"):
+    if names == A9:
         assert "ROADMAP" in err
+    if argv[0] == "check":
+        assert "ROADMAP" not in err and "A.10" not in err
 
 
 def test_cli_report_and_record_on_cpu(capsys):

@@ -12,8 +12,8 @@ held to the JAX package's (`tpu_tree_search/serve/`).
     bit-identical; cancel; drain to ``requeued``; a 2-slot batch
     bit-identical to solo with a zero-new-program splice;
   * ``warmup``'s selection and its hit/miss on the build directory;
-  * the CLI: ``submit``, ``watch --job``, ``top``, and exit 2 for ``fleet``
-    and the router flags.
+  * the CLI: ``submit``, ``watch --job``, ``top``, and exit 2 for a router
+    that does not answer (``top --router``, ``submit --router``).
 
 Every wait on a daemon has its own timeout.
 """
@@ -404,12 +404,12 @@ def test_cli_submit_watch_and_top(daemon, capsys):
 
 
 def test_cli_refusals_and_unreachable(capsys):
-    for argv in (["fleet"], ["top", "--fleet"], ["top", "--router", "x"],
-                 ["submit", "--router", "x", "--", "nqueens"],
-                 ["serve", "--router", "x"]):
+    for argv in (["top", "--router", "http://127.0.0.1:1", "--once"],
+                 ["submit", "--router", "http://127.0.0.1:1", "--",
+                  "nqueens"]):
         assert cli.main(argv) == 2
-        assert "Error: the fleet router is not ported yet" in \
-            capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert err.startswith("Error: no fleet router at http://127.0.0.1:1")
     assert cli.main(["watch", "--job", "job-000001", "--port", "1"]) == 2
     with pytest.raises(SystemExit):
         cli.main(["submit"])

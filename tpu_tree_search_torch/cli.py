@@ -20,6 +20,10 @@
     python -m tpu_tree_search_torch nqueens --N 15 --obs-serve 8642   # then: watch --port 8642
     python -m tpu_tree_search_torch serve --batch-slots 4 [--device cpu]   # the daemon
     python -m tpu_tree_search_torch submit --wait -- pfsp --inst 14        # then: watch --job ID
+    python -m tpu_tree_search_torch fleet --daemon URL --daemon URL        # the router
+    python -m tpu_tree_search_torch submit --router URL --wait -- nqueens --N 12
+    python -m tpu_tree_search_torch pfsp --inst 14 --guard                 # steady-state guard
+    python -m tpu_tree_search_torch lint [paths] [--rule guarded-by]      # the lock rules
 
 The banner and the report follow the reference's format (`print_settings` /
 `print_results`). Tiers: ``--tier device`` (the default: the port's entry
@@ -68,14 +72,23 @@ starts the daemon (``--port``, ``--state-dir``, ``--workers``,
 posts a job, ``watch --job ID`` follows one, ``top`` is the operator
 console, ``migrate ID --to URL`` moves a job between daemons over its
 checkpoint, and ``warmup`` runs the warm matrix with hit/miss on the
-build directory.
+build directory. The fleet (`fleet/`, host-only): ``fleet`` starts the
+router over serve daemons (``--daemon`` a daemon's URL, repeatable;
+``serve --router URL`` registers a daemon itself), ``submit --router`` and
+``top --router`` (or ``--fleet``: ``TTS_ROUTER``, else the default router
+port) go through it.
+
+The guards (`analysis/`): ``--guard`` arms the steady-state guard of the
+resident loops (``TTS_GUARD=1`` for the run: the resident engine, mesh,
+dist_mesh), and ``lint`` runs the lock rules (``guarded-by``,
+``lock-order``) over the port. ``check`` audits JAX programs and has no
+counterpart.
 
 What is not ported exits 2 naming the ROADMAP.md queue that ports it
 (A.9's second half, steps 3-4: ``--mp`` and a mesh on more than one card,
-``--device`` with a comma; A.8's fleet step: ``fleet`` and the ``--router``
-flags; A.10: ``lint``, ``check`` and ``--guard``), and so does any shape or
-option the port refuses, or a flag the chosen tier or engine would ignore
-(``Error: ...`` on stderr, no traceback).
+``--device`` with a comma), and so does any shape or option the port
+refuses, or a flag the chosen tier or engine would ignore (``Error: ...``
+on stderr, no traceback).
 """
 
 from __future__ import annotations
@@ -91,9 +104,12 @@ ENGINES = ("resident", "offload")
 DIST_TIERS = ("dist", "dist_mesh")
 A9_STEPS_3_4 = ("ROADMAP.md queue A, A.9's second half, steps 3-4: the "
                 "mesh's --mp pair axis, and mesh shards on more than one card")
-A10 = ("ROADMAP.md queue A, A.10: the guards (the steady-state guard "
-       "--guard, and the lock rules of `lint`); `check` audits JAX "
-       "programs and has no counterpart")
+#: The JAX CLI's reason for refusing ``--guard`` off the resident loops
+#: (`tpu_tree_search/cli.py:451-460`).
+GUARD_TIERS = ("--guard asserts steady-state purity of the resident device "
+               "loops (--tier device with the resident engine, mesh, "
+               "dist_mesh); the offload/multi/dist workers round-trip every "
+               "chunk by design")
 #: The banners' tier names (`tpu_tree_search/cli.py:738-746`).
 TIER_NAMES = {"seq": "Sequential", "device": "Single-device",
               "mesh": "SPMD device-mesh", "multi": "Multi-device",
@@ -123,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                "the phase clock armed), `watch [--port P] [--job ID]` "
                "(follow an --obs-serve run or a serve job), `serve`, "
                "`submit`, `top`, `migrate`, `warmup` (the serve daemon "
-               "and its clients)",
+               "and its clients), `fleet` (the router over daemons), "
+               "`lint` (the lock rules)",
     )
     p.add_argument("problem", choices=("pfsp", "nqueens"))
     p.add_argument("--N", type=int, default=14,
@@ -207,8 +224,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "seconds (default 0.02; backs off while every host "
                         "is busy)")
     p.add_argument("--guard", action="store_true",
-                   help="refused: the steady-state guard is not ported yet "
-                        "(ROADMAP.md A.10)")
+                   help="resident loops (--tier device with the resident "
+                        "engine, mesh, dist_mesh): the steady-state guard "
+                        "(TTS_GUARD=1 for the run): after a dispatch "
+                        "graph's first dispatch, every dispatch must build "
+                        "nothing and, on the card, make no synchronising "
+                        "call (else GuardViolation)")
     p.add_argument("--unfused", action="store_true",
                    help="run the unfused cycle (evaluator kernel + torch "
                         "compaction; staged under lb2) instead of the fused "
@@ -308,15 +329,10 @@ def watch_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: The fleet step of A.8, which the serve subcommands' router flags need.
-FLEET_QUEUE = ("the fleet router is not ported yet (ROADMAP.md queue A, "
-               "A.8's fleet step: placement, health, router, loadgen)")
-
-
 def serve_parsers() -> dict:
     """The serving subcommands' parsers (`tpu_tree_search/cli.py:279-436`):
-    ``serve``, ``submit``, ``top``, ``migrate``, ``warmup``. The fleet's
-    ``--router`` flags are parsed so that they are refused, not ignored."""
+    ``serve``, ``fleet``, ``submit``, ``top``, ``migrate``, ``warmup``."""
+    from .fleet import DEFAULT_ROUTER_PORT
     from .serve import DEFAULT_PORT
 
     prog = "python -m tpu_tree_search_torch"
@@ -354,11 +370,48 @@ def serve_parsers() -> dict:
                           "(default TTS_BATCH_SLOTS or 1)")
     srv.add_argument("--ckpt-every", type=float, default=None, metavar="S",
                      help="cut a recoverable checkpoint every S seconds "
-                          "(default TTS_CKPT_EVERY or off)")
+                          "(default TTS_CKPT_EVERY or off); the fleet "
+                          "router pulls these to survive a killed daemon")
     srv.add_argument("--device", default=None,
                      help="cuda (default; raises when absent) or cpu")
     srv.add_argument("--router", type=str, default=None, metavar="URL",
-                     help="refused: " + FLEET_QUEUE)
+                     help="self-register with a `fleet` router at startup "
+                          "(default TTS_ROUTER; failure is non-fatal)")
+    flt = argparse.ArgumentParser(
+        prog=f"{prog} fleet",
+        description="class-aware router over serve daemons: one URL places "
+                    "each job where its shape class is already warm, "
+                    "proxies the job's lifecycle, and recovers in-flight "
+                    "jobs off dead or draining daemons by checkpoint "
+                    "resubmission (host-only: no torch)")
+    flt.add_argument("--port", type=int, default=DEFAULT_ROUTER_PORT,
+                     help=f"router port on 127.0.0.1 (default "
+                          f"{DEFAULT_ROUTER_PORT}; 0 = OS-assigned, printed "
+                          "at startup)")
+    flt.add_argument("--host", type=str, default="127.0.0.1")
+    flt.add_argument("--state-dir", type=str, default=None,
+                     help="durable fleet job map + pulled checkpoints "
+                          "(default TTS_FLEET_STATE or "
+                          "~/.cache/tpu_tree_search_torch/fleet)")
+    flt.add_argument("--daemon", action="append", default=None,
+                     metavar="URL", dest="daemons",
+                     help="register a serve daemon (repeatable; daemons can "
+                          "also self-register with `serve --router` or POST "
+                          "/register)")
+    flt.add_argument("--scrape-interval", type=float, default=1.0,
+                     help="seconds between the keeper's scrapes of each "
+                          "daemon's /healthz, /classes, /metrics, /jobs")
+    flt.add_argument("--health-misses", type=int, default=3,
+                     help="consecutive failed probes before a daemon is "
+                          "declared dead and its jobs recovered (default 3)")
+    flt.add_argument("--pull-interval", type=float, default=2.0,
+                     help="seconds between checkpoint pulls of in-flight "
+                          "jobs (the SIGKILL recovery's fuel; default 2)")
+    flt.add_argument("--no-rebalance", action="store_true",
+                     help="disable hot->idle migration of long-runners")
+    flt.add_argument("--rebalance-depth", type=int, default=2,
+                     help="queue depth on the hot daemon before a rebalance "
+                          "move is considered (default 2)")
     smt = argparse.ArgumentParser(
         prog=f"{prog} submit",
         description="submit a run to a serve daemon: `submit [--wait] -- "
@@ -367,7 +420,9 @@ def serve_parsers() -> dict:
     smt.add_argument("--port", type=int, default=DEFAULT_PORT)
     smt.add_argument("--host", type=str, default="127.0.0.1")
     smt.add_argument("--router", type=str, default=None, metavar="URL",
-                     help="refused: " + FLEET_QUEUE)
+                     help="submit through a `fleet` router instead of one "
+                          "daemon (default TTS_ROUTER): the job lands on the "
+                          "daemon whose shape class is already warm")
     smt.add_argument("--wait", action="store_true",
                      help="follow the job's stream and print the final "
                           "result (exit 1 unless it completes)")
@@ -378,13 +433,17 @@ def serve_parsers() -> dict:
                      help="a full run command (problem + flags)")
     top = argparse.ArgumentParser(
         prog=f"{prog} top",
-        description="live per-job / per-class table for a serve daemon")
+        description="live per-job / per-class table for a serve daemon, or "
+                    "with --router the fleet's")
     top.add_argument("--port", type=int, default=DEFAULT_PORT)
     top.add_argument("--host", type=str, default="127.0.0.1")
     top.add_argument("--router", type=str, default=None, metavar="URL",
-                     help="refused: " + FLEET_QUEUE)
+                     help="aggregate a whole fleet instead of one daemon "
+                          "(default TTS_ROUTER): per-daemon rows + fleet "
+                          "totals from the router's /fleet endpoint")
     top.add_argument("--fleet", action="store_true",
-                     help="refused: " + FLEET_QUEUE)
+                     help="the fleet's view at TTS_ROUTER, else at the "
+                          f"default router port ({DEFAULT_ROUTER_PORT})")
     top.add_argument("--interval", type=float, default=2.0)
     top.add_argument("--once", action="store_true",
                      help="print one frame and exit")
@@ -410,21 +469,15 @@ def serve_parsers() -> dict:
                           "(default TTS_WARM_TIMEOUT or 420)")
     wrm.add_argument("--device", default="cuda",
                      help="cuda (default) or cpu")
-    return {"serve": srv, "submit": smt, "top": top, "migrate": mig,
-            "warmup": wrm}
+    return {"serve": srv, "fleet": flt, "submit": smt, "top": top,
+            "migrate": mig, "warmup": wrm}
 
 
 def serve_main(argv: list[str]) -> int:
-    """The serving subcommands (``argv[0]`` names one), and the fleet's,
-    which exit 2 naming its queue."""
+    """The serving subcommands (``argv[0]`` names one) and the fleet's."""
     cmd, rest = argv[0], argv[1:]
-    if cmd == "fleet":
-        print(f"Error: {FLEET_QUEUE}", file=sys.stderr)
-        return 2
     args = serve_parsers()[cmd].parse_args(rest)
-    if getattr(args, "router", None) or getattr(args, "fleet", False):
-        print(f"Error: {FLEET_QUEUE}", file=sys.stderr)
-        return 2
+    router = getattr(args, "router", None) or os.environ.get("TTS_ROUTER")
     if cmd == "serve":
         from .serve.server import serve_main as daemon_main
 
@@ -435,10 +488,21 @@ def serve_main(argv: list[str]) -> int:
                                max_queue=args.max_queue, warm=args.warm,
                                batch_slots=args.batch_slots,
                                ckpt_every_s=args.ckpt_every,
-                               device=args.device)
+                               device=args.device, router=router)
         except (RuntimeError, ValueError) as e:
             print(f"Error: {e}", file=sys.stderr)
             return 2
+    if cmd == "fleet":
+        # Host-only: no torch anywhere in fleet/.
+        from .fleet.router import router_main
+
+        return router_main(port=args.port, host=args.host,
+                           state_dir=args.state_dir, daemons=args.daemons,
+                           scrape_interval_s=args.scrape_interval,
+                           max_misses=args.health_misses,
+                           pull_interval_s=args.pull_interval,
+                           rebalance=not args.no_rebalance,
+                           rebalance_min_depth=args.rebalance_depth)
     if cmd == "submit":
         rest = [a for a in args.rest if a != "--"]
         parser = build_parser()
@@ -455,8 +519,18 @@ def serve_main(argv: list[str]) -> int:
         from .serve.client import spec_from_args, submit_main
 
         return submit_main(spec_from_args(run_args), port=args.port,
-                           host=args.host, wait=args.wait, as_json=args.json)
+                           host=args.host, wait=args.wait, as_json=args.json,
+                           router=router)
     if cmd == "top":
+        if args.fleet and not router:
+            from .fleet import DEFAULT_ROUTER_PORT
+
+            router = f"http://127.0.0.1:{DEFAULT_ROUTER_PORT}"
+        if router:
+            from .serve.client import fleet_top_main
+
+            return fleet_top_main(router, interval=args.interval,
+                                  once=args.once, as_json=args.json)
         from .serve.client import top_main
 
         return top_main(port=args.port, host=args.host,
@@ -476,8 +550,9 @@ def serve_main(argv: list[str]) -> int:
 def check_supported(args) -> None:
     """Refuse what the port lacks, and a flag the chosen tier or engine would
     ignore (`tpu_tree_search/cli.py` `_dispatch_tier`, `validate_args`)."""
-    if args.guard:
-        raise NotImplementedError(f"--guard is not ported yet ({A10})")
+    if args.guard and not (args.tier in ("mesh", "dist_mesh") or (
+            args.tier == "device" and args.engine == "resident")):
+        raise ValueError(GUARD_TIERS)
     if args.device is not None and "," in args.device:
         raise NotImplementedError(
             f"--device {args.device}: one search on several cards is not "
@@ -745,6 +820,13 @@ def print_results(problem, res, checkpoint: str | None = None) -> None:
         print(f"Device diagnostics: cycles={d.kernel_launches} "
               f"host_to_device={d.host_to_device} "
               f"device_to_host={d.device_to_host}")
+    if res.guard:
+        g = res.guard
+        print(f"Steady-state guard: {g['checked_dispatches']} dispatch(es) "
+              f"checked after {g['warm_dispatches']} warm; checks: "
+              + ", ".join(g["checks"])
+              + (f" (not checked: {g['not_checked']})"
+                 if g.get("not_checked") else ""))
     print_telemetry(res)
     print("=================================================\n")
 
@@ -810,6 +892,9 @@ def result_record(args, res, device) -> dict:
     if res.roofline is not None:
         # Phase-profiled runs: the memory-roofline audit (obs/roofline.py).
         rec["roofline_mem"] = res.roofline
+    if res.guard:
+        # --guard: the dispatches the steady-state guard checked.
+        rec["guard"] = res.guard
     if args.problem == "pfsp":
         rec.update(inst=args.inst, lb=args.lb, ub=args.ub, optimum=res.best)
         if args.lb == "lb2":
@@ -888,12 +973,15 @@ def pinned_env(pins: dict):
                 os.environ[k] = v
 
 
-def telemetry_pins(args) -> dict:
-    """The knobs the telemetry flags set for the run (`tpu_tree_search/
-    cli.py:627-636`): ``TTS_PHASEPROF``, ``TTS_TORCH_TRACE`` and, for
-    ``--trace``/``--metrics-file``/``--obs-serve``/``--costmodel``,
-    ``TTS_OBS=1`` unless ``TTS_OBS`` is set (``=host`` keeps the graphs)."""
+def run_pins(args) -> dict:
+    """The knobs the run's flags set for it (`tpu_tree_search/
+    cli.py:619-636`): ``TTS_GUARD=1`` for ``--guard``, ``TTS_PHASEPROF``,
+    ``TTS_TORCH_TRACE`` and, for ``--trace``/``--metrics-file``/
+    ``--obs-serve``/``--costmodel``, ``TTS_OBS=1`` unless ``TTS_OBS`` is
+    set (``=host`` keeps the graphs)."""
     pins = {}
+    if args.guard:
+        pins["TTS_GUARD"] = "1"
     if args.phase_profile:
         pins["TTS_PHASEPROF"] = "1"
     if args.torch_trace is not None:
@@ -933,8 +1021,16 @@ def main(argv=None) -> int:
     if argv and argv[0] in ("serve", "submit", "top", "migrate", "warmup",
                             "fleet"):
         return serve_main(argv)
-    if argv and argv[0] in ("lint", "check"):
-        print(f"Error: `{argv[0]}` is not ported yet ({A10})", file=sys.stderr)
+    if argv and argv[0] == "lint":
+        # The lock rules: stdlib AST passes, no torch.
+        from .analysis import lint_main
+
+        return lint_main(argv[1:], prog="python -m tpu_tree_search_torch lint")
+    if argv and argv[0] == "check":
+        print("Error: `check` audits the JAX package's compiled programs "
+              "(its contracts and program audit) and has no counterpart in "
+              "the port; `lint` runs the lock rules and `--guard` the "
+              "steady-state guard", file=sys.stderr)
         return 2
     parser = build_parser()
     if argv and argv[0] == "profile":
@@ -944,7 +1040,7 @@ def main(argv=None) -> int:
                          "--inst 14`")
         argv = argv[1:] + ["--phase-profile"]
     args = parser.parse_args(argv)
-    with pinned_env(telemetry_pins(args)):
+    with pinned_env(run_pins(args)):
         return run(args)
 
 

@@ -142,25 +142,24 @@ class BatchedProgram(R.CachedProgram):
     # -- dispatch ------------------------------------------------------------
 
     def step(self) -> list[tuple]:
-        """One K-cycle dispatch over all B slots; returns each slot's
-        ``(tree_inc, sol_inc, cycles, size, best, ctr)`` (``ctr`` the
-        counter block, or None when not armed)."""
-        if self.graphed:
-            rows, ms = self._graph_step()
-            self.dispatch_device_s += ms / 1e3
-        else:
-            rows = self._host_step()
-        out = []
-        for v in rows:
-            size, best, tree, sol, cycles = v[:ST_CYCLES + 1]
-            ctr = v[ST_CTR:ST_CTR + obs_counters.NSLOTS] if self.obs else None
-            out.append((tree, sol, cycles, size, best, ctr))
-        return out
+        """One K-cycle dispatch over all B slots (``enqueue`` and its
+        read); returns each slot's ``(tree_inc, sol_inc, cycles, size,
+        best, ctr)`` (``ctr`` the counter block, or None when not
+        armed)."""
+        return self.enqueue()()
 
-    def _graph_step(self) -> tuple[list, float]:
-        """The batch's graph launched between two timing events, the B rows
-        copied without blocking into the pinned buffer behind a third; the
-        slots' runs counted as their wrappers' launches."""
+    def enqueue(self):
+        """Start one dispatch and return a function ``read()`` that waits
+        for it and returns ``step``'s rows. On the card the batch's graph
+        is launched between two timing events and the B rows are copied
+        without blocking into the pinned buffer behind a third (the part
+        the steady-state guard wraps); ``read`` waits for that event, adds
+        the device time and counts the slots' runs as their wrappers'
+        launches. One buffer: read a dispatch before the next enqueue.
+        Elsewhere the host rounds run here and ``read`` returns them."""
+        if not self.graphed:
+            rows = self._host_step()
+            return lambda: self._slot_reads(rows)
         g = self.graph()
         start, end, done = self._events
         start.record()
@@ -168,10 +167,22 @@ class BatchedProgram(R.CachedProgram):
         end.record()
         self._buf.copy_(self.st, non_blocking=True)
         done.record()
-        done.synchronize()
-        rows = self._buf.tolist()
-        g.count([v[ST_RUNS] for v in rows])
-        return rows, start.elapsed_time(end)
+
+        def read() -> list[tuple]:
+            done.synchronize()
+            self.dispatch_device_s += start.elapsed_time(end) / 1e3
+            rows = self._buf.tolist()
+            g.count([v[ST_RUNS] for v in rows])
+            return self._slot_reads(rows)
+        return read
+
+    def _slot_reads(self, rows: list) -> list[tuple]:
+        out = []
+        for v in rows:
+            size, best, tree, sol, cycles = v[:ST_CYCLES + 1]
+            ctr = v[ST_CTR:ST_CTR + obs_counters.NSLOTS] if self.obs else None
+            out.append((tree, sol, cycles, size, best, ctr))
+        return out
 
     def graph(self) -> BatchGraph:
         """The batch's dispatch graph at the current K, over the slots'

@@ -26,7 +26,7 @@ whose per-dispatch latency fit sets the AdaptiveK band
 (``resolve_target_band``).
 
 Not ported: the JAX module's ``@contract`` (``analysis.contracts``, the
-program-audit registry; `ROADMAP.md` A.10).
+program audit of ``tts check``, which has no counterpart in the port).
 """
 
 from __future__ import annotations

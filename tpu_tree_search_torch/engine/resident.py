@@ -83,7 +83,15 @@ takes the cached program for its whole length; a second search that finds
 it taken builds a program of its own, uncached, freed when it ends.
 ``release_programs(problem)`` frees the cached ones.
 
-Not ported yet (ROADMAP A.10): the steady-state guard.
+The steady-state guard (``guard=True`` or ``TTS_GUARD=1``, `analysis/
+guard.py`, the JAX engine's): one guard a program and K rung wraps each
+dispatch's enqueue (the graph launch and the non-blocking copies, not the
+read): the rung's first dispatch is its warm one, and every later one must
+build nothing and, on the card, make no synchronising call. The stall
+fallback's re-upload re-arms it. The unfused cycle reads its survivor
+count once a cycle, so on the card a guarded unfused search raises at its
+second dispatch: that is the guard working (its repair is a CUDA
+compaction). The result's ``guard`` records the dispatches it checked.
 """
 
 from __future__ import annotations
@@ -96,14 +104,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis.guard import RungGuards
 from ..obs import counters as obs_counters
 from ..obs import events as ev
 from ..obs import flightrec as fr
 from ..obs import phases as obs_phases
 from ..obs import quality as obs_quality
 from ..obs import roofline as obs_roofline
+from ..ops._build import count_build
 from ..ops.backend import resolve_device
-from ..ops.compaction import compact_ids, resolve_compact_mode, shift_compact, survivor_ranks
+from ..ops.compact_policy import resolve_compact_mode
+from ..ops.compaction import compact_ids, shift_compact, survivor_ranks
 from ..ops.cycle import (
     ST_ACTIVE,
     ST_BEST,
@@ -783,6 +794,7 @@ def new_program(problem: Problem, m: int, M: int, K: int, capacity: int,
                 mt: int | None = None) -> _ResidentProgram:
     """A new, uncached resident program of ``problem``; ``staged`` reaches
     the PFSP lb2 program only, ``mt`` the fused cycle."""
+    count_build("programs")
     if isinstance(problem, PFSPProblem):
         return PFSPResident(problem, m, M, K, capacity, device, fused=fused,
                             staged=staged, mt=mt)
@@ -889,6 +901,7 @@ def resident_search(
     checkpoint_interval_s: float = 60.0,
     resume_from: str | None = None,
     yield_fn=None,
+    guard: bool | None = None,
 ) -> SearchResult:
     """3-phase search with a device-resident hot loop: host warm-up to
     ``warmup_target`` (default m) nodes, then dispatches of up to K device
@@ -926,7 +939,13 @@ def resident_search(
     (``phase_profile``) and the memory-roofline audit (``roofline``);
     ``TTS_QUALITY=1`` records the incumbent trajectory (``quality``);
     with event tracing on (``TTS_OBS`` 1 or host) the run emits the JAX
-    engine's events."""
+    engine's events.
+
+    Guard mode (``guard=True``, else ``TTS_GUARD=1``; `analysis/guard.py`):
+    after each program and K rung's first (warm) dispatch, every dispatch's
+    enqueue must build no graph, library or program and, on the card, make
+    no synchronising call, else ``GuardViolation``; the result's ``guard``
+    counts the dispatches checked."""
     dev = resolve_device(device)
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
@@ -987,6 +1006,7 @@ def resident_search(
     # The steady-state torch.profiler window (--torch-trace): opens after
     # the first consumed dispatch (the graph build excluded).
     twin = obs_phases.TorchTraceWindow("resident")
+    guards = RungGuards(program, "resident step", guard)
 
     def obs_result() -> dict | None:
         parts = {}
@@ -999,8 +1019,11 @@ def resident_search(
     def enqueue() -> None:
         # Speculative dispatch: the state chains on the device from one
         # dispatch into the next, so up to `depth` K-cycle blocks ride the
-        # stream while the host reads lagged scalars.
-        queue.push(program.enqueue(state), ev.now_us())
+        # stream while the host reads lagged scalars. The guard wraps the
+        # enqueue only; the read waits outside it.
+        with guards.of().step():
+            read = program.enqueue(state)
+        queue.push(read, ev.now_us())
 
     def consume(read, t_enq: float) -> int:
         nonlocal tree2, sol2, size, best, dispatches, ctr_total, ph_total
@@ -1133,6 +1156,9 @@ def resident_search(
                 program.load_state(state, pool.as_batch(), best)
                 pool.clear()
                 diagnostics.host_to_device += 1
+                # The re-upload is a sanctioned host round trip: the next
+                # dispatch is a warm one for the guard.
+                guards.of().rearm()
                 last_ready = time.monotonic()
                 fb_tree += tree2 - fb_tree0
                 fb_sol += sol2 - fb_sol0
@@ -1195,4 +1221,5 @@ def resident_search(
         roofline=obs_roofline.result_audit(program, ph_total, ctr_total,
                                            cycles_total),
         quality=qt.result() if qt is not None else None,
+        guard=guards.record(),
     )

@@ -111,6 +111,10 @@ class SearchResult:
     # (`parallel/topology.py` ``StealPolicy.describe``).
     comm: dict | None = None
     steal_policy: dict | None = None
+    # Resident loops under the steady-state guard (TTS_GUARD=1, `analysis/
+    # guard.py` ``guard_record``): the warm and the checked dispatches and
+    # the checks that ran (with what was not checked); None when off.
+    guard: dict | None = None
 
     def workload_shares(self) -> list[float]:
         """Per-worker share of explored nodes in percent (the load-balance

@@ -1,7 +1,7 @@
 """Anytime search-quality telemetry (``TTS_QUALITY``): the incumbent
 trajectory, recorded host-side at dispatch boundaries — the port of
-`tpu_tree_search/obs/quality.py` (its ``@contract`` belongs to the
-program-audit registry, ROADMAP A.10).
+`tpu_tree_search/obs/quality.py` (its ``@contract`` belongs to the JAX
+program audit, ``tts check``, which has no counterpart in the port).
 
 Large-scale B&B work reports *solution quality over time*, not just
 nodes/s (Helbecque et al., arXiv:2012.09511 §5 plot exactly this curve);

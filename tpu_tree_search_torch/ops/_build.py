@@ -25,6 +25,13 @@ statics (the last launch shape a kernel asked the occupancy for, the
 shared-memory size it set last), so ``entry`` returns the C function
 behind a lock of its library: two threads never run one library's entries
 at once. The entries only enqueue, so the lock is held for microseconds.
+
+Build counts: ``count_build`` adds one to what the calling thread built
+(dispatch graphs, kernel libraries loaded, resident programs made), and
+``build_counts`` reads them. The steady-state guard
+(`analysis/guard.py`) reads them around a guarded dispatch; they are per
+thread, so another thread's build (a serve worker warming its class) is
+not charged to the dispatch.
 """
 
 from __future__ import annotations
@@ -51,20 +58,41 @@ FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # device code, linked with the device runtime).
 EXTRA_FLAGS = {"dispatch_graph": ("-rdc=true", "-lcudadevrt")}
 
-# Loaded libraries by source stem: loaded once per process, never mutated.
-_LIBS: dict[str, ctypes.CDLL] = {}
 # Guards the build and the loading of ``_LIBS`` (``library``).
 _LOCK = threading.Lock()
+# Loaded libraries by source stem: loaded once per process, never removed.
+# guarded-by: _LOCK -- written under it; ``library`` reads a present key
+# without it (a dict lookup is atomic, and an entry is never replaced).
+_LIBS: dict[str, ctypes.CDLL] = {}
 # One lock a library: its entries' host-side statics (``entry``).
+# guarded-by: _LOCK -- written with ``_LIBS``, read after it.
 _CALL_LOCKS: dict[str, threading.Lock] = {}
-# Guards the wrappers' launch counts (``+=`` is not atomic across threads).
+# Guards the wrappers' launch and capture counts (``+=`` is not atomic
+# across threads): ``add_launches``.
 _COUNT_LOCK = threading.Lock()
+# The calling thread's build counts (``count_build``): a dict by kind.
+_BUILDS = threading.local()
 
 
-def add_launches(wrapper, n: int = 1) -> None:
-    """Add ``n`` to ``wrapper.launches`` (any thread may launch)."""
+def count_build(kind: str) -> None:
+    """One more ``kind`` ("graphs", "libraries" or "programs") built by the
+    calling thread."""
+    counts = getattr(_BUILDS, "counts", None)
+    if counts is None:
+        counts = _BUILDS.counts = {}
+    counts[kind] = counts.get(kind, 0) + 1
+
+
+def build_counts() -> dict:
+    """What the calling thread has built so far, by kind (a copy)."""
+    return dict(getattr(_BUILDS, "counts", None) or {})
+
+
+def add_launches(wrapper, n: int = 1, field: str = "launches") -> None:
+    """Add ``n`` to ``wrapper.launches`` (or another count ``field``, e.g.
+    ``captures``) under ``_COUNT_LOCK``: any thread may launch."""
     with _COUNT_LOCK:
-        wrapper.launches += n
+        setattr(wrapper, field, getattr(wrapper, field) + n)
 
 
 def _nvcc() -> str:
@@ -152,6 +180,7 @@ def library(name: str) -> ctypes.CDLL:
             lib.tts_error_string.restype = ctypes.c_char_p
             _CALL_LOCKS[name] = threading.Lock()
             _LIBS[name] = lib
+            count_build("libraries")
     return lib
 
 

@@ -14,7 +14,9 @@ ids:
     bit b of the remaining distance, b ascending, never collides (see
     ``shift_compact``).
 
-``resolve_compact_mode`` keeps the JAX auto policy's rows that apply here:
+``resolve_compact_mode`` (`ops/compact_policy.py`, which imports no torch:
+the serve pool and the fleet router compute class keys with it) keeps the
+JAX auto policy's rows that apply here:
 N-Queens always ``dense``; otherwise the GPU row, ``dense`` for grids of at
 most 2^16 slots and ``scatter`` above. The fused cycles (`ops/cycle.py`,
 `ops/cycle_nqueens.py`) compact inside their kernels and use none of this.
@@ -23,16 +25,6 @@ most 2^16 slots and ``scatter`` above. The fused cycles (`ops/cycle.py`,
 from __future__ import annotations
 
 import torch
-
-MODES = ("scatter", "dense")
-
-
-def resolve_compact_mode(problem, M: int, n: int) -> str:
-    """The unfused cycle's compaction mode (`compaction.py` ``_auto_compact``
-    of the JAX package, its N-Queens and gpu rows)."""
-    if getattr(problem, "name", None) == "nqueens":
-        return "dense"
-    return "dense" if M * n <= (1 << 16) else "scatter"
 
 
 def _shift_left(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -91,7 +91,7 @@ def count_launch(wrapper) -> None:
     if wrappers is None:
         _build.add_launches(wrapper)
     else:
-        wrapper.captures += 1
+        _build.add_launches(wrapper, field="captures")
         wrappers.append(wrapper)
 
 
@@ -178,6 +178,7 @@ class DispatchGraph:
             self.close()
             raise
         self.build_s = time.perf_counter() - t0
+        _build.count_build("graphs")
 
     def _capture(self, lib, cycle, body, handle: int, m: int, Mn: int,
                  C: int, K: int, obs: int) -> None:
@@ -239,6 +240,8 @@ class DispatchGraph:
 
 
 #: Graph launches in this process (all programs).
+# guarded-by: _COUNT_LOCK -- of ops/_build.py, as every wrapper's launches
+# and captures: written through ``_build.add_launches`` only.
 DispatchGraph.launches = 0
 
 
@@ -283,6 +286,7 @@ class BatchGraph(DispatchGraph):
             self.close()
             raise
         self.build_s = time.perf_counter() - t0
+        _build.count_build("graphs")
 
     def _capture_batch(self, lib, cycles: list, body, handle: int, m: int,
                        Mn: int, C: int, K: int, obs: int) -> None:
@@ -326,6 +330,7 @@ class BatchGraph(DispatchGraph):
 
 
 #: Batched graph launches in this process (all batched programs).
+# guarded-by: _COUNT_LOCK -- of ops/_build.py (``_build.add_launches``).
 BatchGraph.launches = 0
 
 

@@ -250,6 +250,7 @@ class MeshGraph(DispatchGraph):
             self.close()
             raise
         self.build_s = time.perf_counter() - t0
+        _build.count_build("graphs")
 
     def _build_rounds(self, lib, cycles, balance, m, Mn, C, K, obs) -> None:
         _, add_round = _mesh_fn("mesh_graph_add_round")

@@ -26,9 +26,13 @@ sequential tier's. A host's stream is its own (virtual hosts share the
 card), and its program is the problem's cached one or, when another host
 holds that, a new one.
 
-Differences from the JAX module: the steady-state guard (``guard_of``,
-`dist_mesh.py:204`) is ROADMAP.md A.10's and not ported; a ``max_steps``
-cut ends the run without the host drain (the file holds the frontier), as
+The steady-state guard (``guard``, else ``TTS_GUARD=1``; `analysis/
+guard.py`) wraps each host's dispatch enqueues as the mesh tier's, and a
+donation's re-upload re-arms it; the result's ``guard`` is this process's
+first host's.
+
+Differences from the JAX module: a ``max_steps`` cut ends the run without
+the host drain (the file holds the frontier), as
 the port's mesh tier does; and a saturated mesh (no shard ran a cycle,
 balancing moved nothing) falls back to host offload cycles, as
 ``mesh_resident_search`` does.
@@ -44,6 +48,7 @@ import uuid
 import numpy as np
 import torch
 
+from ..analysis.guard import RungGuards
 from ..engine import checkpoint as ckpt
 from ..engine import resident as R
 from ..engine.device import drain, warmup
@@ -86,7 +91,8 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
                max_steps: int | None = None,
                checkpoint_path: str | None = None,
                checkpoint_interval_s: float = 60.0,
-               resume_from: str | None = None) -> dict:
+               resume_from: str | None = None,
+               guard: bool | None = None) -> dict:
     """One host (`dist_mesh.py:60-636`): the warm-up and its share (or its
     per-host file), the mesh loop with an exchange at every dispatch
     boundary, the drain; returns its stats for the reduction."""
@@ -185,8 +191,13 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
             pool.clear()
             diagnostics.host_to_device += 1
 
+            guards = RungGuards(program, f"dist-mesh step (host {me})",
+                                guard)
+
             def enqueue() -> None:
-                queue.push(program.enqueue(), ev.now_us())
+                with guards.of().step():
+                    read = program.enqueue()
+                queue.push(read, ev.now_us())
 
             def consume(read, t_enq: float) -> int:
                 nonlocal tree2, sol2, sizes, best, ctr_total, ph_total
@@ -254,6 +265,9 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
                 program.upload(p.as_batch(), best)
                 diagnostics.host_to_device += 1
                 prev_sizes = None
+                # A donation's re-upload is a sanctioned host round trip:
+                # the next dispatch is a warm one for the guard.
+                guards.of().rearm()
 
             def do_lockstep_cut(tag) -> None:
                 # After the round's allgather (a barrier: every earlier
@@ -309,6 +323,7 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
                     stalls += 1
                     ti, si, best, offloader = offload_until_fits(
                         program, pool, offloader, best, diagnostics)
+                    guards.of().rearm()
                     tree2 += ti
                     sol2 += si
                     fb_tree += ti
@@ -490,6 +505,7 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
                                   else program.dispatch_device_s - device0),
         },
         "graphed": device0 is not None,
+        "guard": guards.record(),
     }
 
 
@@ -511,7 +527,7 @@ def _result(local: dict, red: dict) -> SearchResult:
         obs=local["obs"], phase_profile=local["phase_profile"],
         quality=local["quality"], per_worker_tree=red["per_worker_tree"],
         steals=red["steals"], comm=red["comm"],
-        steal_policy=local["steal_policy"])
+        steal_policy=local["steal_policy"], guard=local["guard"])
 
 
 def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
@@ -524,7 +540,8 @@ def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
                      checkpoint_path: str | None = None,
                      checkpoint_interval_s: float = 60.0,
                      resume_from: str | None = None,
-                     collectives=None) -> SearchResult:
+                     collectives=None,
+                     guard: bool | None = None) -> SearchResult:
     """The distributed mesh-resident tier (``--tier dist_mesh``; the JAX
     signature less ``mp``), three ways as ``dist_search``: this process as
     host ``collectives.host_id`` (``collectives`` given), ``num_hosts`` H > 1
@@ -534,7 +551,8 @@ def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
     device)``: ``cuda`` unless ``device="cpu"``). ``fused=False`` (and
     lb1_d) runs the unfused cycles. Per-host checkpoints ``path.h<rank>``
     are cut in lockstep; ``max_steps`` dispatches end the run with a final
-    cut."""
+    cut. ``guard`` (else ``TTS_GUARD=1``) arms each host's steady-state
+    guard."""
     if devices is None:
         devices = default_devices(device)
     devices = [resolve_device(d) for d in devices]
@@ -542,7 +560,7 @@ def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
     kw = dict(fused=fused, staged=staged, partition_fn=partition_fn,
               max_steps=max_steps, checkpoint_path=checkpoint_path,
               checkpoint_interval_s=checkpoint_interval_s,
-              resume_from=resume_from)
+              resume_from=resume_from, guard=guard)
 
     if collectives is not None:
         dev = host_devices(devices, collectives.host_id)[0]

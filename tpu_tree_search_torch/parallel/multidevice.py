@@ -187,8 +187,7 @@ class CheckpointManager:
                 return False
             merged = {k: [] for k in self.problem.empty_batch(0)}
             for p in self.pools:
-                # The workers are parked at the gate: nothing touches the
-                # pools until resume().
+                # tts-lint: waive guarded-by -- workers are quiesced at the PauseGate rendezvous; no thread can mutate pools until resume()
                 b = p.as_batch()
                 for k in merged:
                     merged[k].append(b[k])
@@ -254,6 +253,7 @@ def _partition(problem: Problem, pool: SoAPool, D: int) -> list[ParallelSoAPool]
     pools = []
     for w in range(D):
         p = ParallelSoAPool(problem.node_fields())
+        # tts-lint: waive guarded-by -- pool is thread-local until run_workers hands it to a worker thread
         p.push_back_bulk({k: v[w::D] for k, v in batch.items()})
         pools.append(p)
     return pools
@@ -485,7 +485,8 @@ def run_workers(problem: Problem, pool: SoAPool, D: int, assigned, m: int,
             raise w.error
     if comm is not None and comm.error is not None:
         raise comm.error
-    for p in pools:  # the threads are joined: no lock needed
+    for p in pools:
+        # tts-lint: waive guarded-by -- worker and communicator threads are joined; no concurrent access remains
         leftover.push_back_bulk(p.as_batch())
     tree2 = sum(w.tree for w in workers)
     sol2 = sum(w.sol for w in workers)

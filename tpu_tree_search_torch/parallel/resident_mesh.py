@@ -33,7 +33,9 @@ makes or drops one. The three phases, the pipelined dispatch
 and the saturation fallback (no shard ran a cycle and nothing moved: host
 offload cycles through ``DeviceOffloader`` until the frontier fits) are
 the JAX function's. Programs are cached on ``problem._mesh_programs`` and
-held for a search, as the resident engine's (`engine/resident.py`).
+held for a search, as the resident engine's (`engine/resident.py`), and
+the steady-state guard (``guard``, ``TTS_GUARD=1``) wraps each dispatch's
+enqueue as there.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from ..analysis.guard import RungGuards
 from ..engine import checkpoint as ckpt
 from ..engine import resident as R
 from ..engine.device import DeviceOffloader, drain, warmup
@@ -377,15 +380,18 @@ def mesh_resident_search(
     checkpoint_interval_s: float = 60.0,
     resume_from: str | None = None,
     yield_fn=None,
+    guard: bool | None = None,
 ) -> SearchResult:
     """The mesh-resident tier (``--tier mesh``; the JAX signature less the
-    mesh object, ``mp`` and the guard): D shards (default: the number of
+    mesh object and ``mp``): D shards (default: the number of
     ``devices``, else 1) of a pool of ``capacity`` rows each on ``device``
     (``cuda`` by default; ``"cpu"`` for the plain path), chunks of up to M
     parents a shard cycle, up to K cycles a shard and round, ``rounds``
     balance rounds a dispatch with gifts of up to T nodes (default
     ``max(2m, min(M, 8192))``). ``fused=False`` (and lb1_d) runs the
-    unfused cycles, staged under lb2 unless ``staged=False``."""
+    unfused cycles, staged under lb2 unless ``staged=False``. ``guard``
+    (else ``TTS_GUARD=1``) arms the steady-state guard (`analysis/
+    guard.py`) on each K rung's dispatches after its first."""
     dev = _shard_device(devices, device)
     if D is None:
         D = len(devices) if devices is not None else 1
@@ -460,8 +466,12 @@ def mesh_resident_search(
             parts["device_phases"] = ph_total
         return parts or None
 
+    guards = RungGuards(program, "mesh step", guard)
+
     def enqueue() -> None:
-        queue.push(program.enqueue(), ev.now_us())
+        with guards.of().step():
+            read = program.enqueue()
+        queue.push(read, ev.now_us())
 
     def consume(read, t_enq: float) -> int:
         nonlocal tree2, sol2, sizes, best, ctr_total, ph_total, prev_best
@@ -563,6 +573,7 @@ def mesh_resident_search(
                 stalls += 1
                 ti, si, best, offloader = offload_until_fits(
                     program, pool, offloader, best, diagnostics)
+                guards.of().rearm()  # the re-upload: a warm dispatch next
                 tree2 += ti
                 sol2 += si
                 last_ready = time.monotonic()
@@ -626,4 +637,5 @@ def mesh_resident_search(
         phase_profile=ph_total,
         quality=qt.result() if qt is not None else None,
         per_worker_tree=per_worker.tolist(),
+        guard=guards.record(),
     )

@@ -174,8 +174,15 @@ class ParallelSoAPool(SoAPool):
     Once shared with worker threads, the pool's state is touched only with
     ``lock`` held: through the ``locked_*`` methods, ``with pool.lock:``,
     or the taken branch of ``if pool.try_lock():``. The inherited methods
-    leave the lock to the caller.
+    leave the lock to the caller (``lint``, rule ``guarded-by``, checks
+    the notes below).
     """
+
+    # guarded-by: lock -- front, size, capacity, data
+    # requires-lock: lock -- push_back, pop_back, pop_front, push_back_bulk
+    # requires-lock: lock -- pop_back_bulk, pop_back_bulk_all
+    # requires-lock: lock -- pop_front_bulk_half, as_batch, reset_from, clear
+    # requires-lock: lock -- _ensure
 
     def __init__(self, fields, capacity: int = INITIAL_CAPACITY):
         super().__init__(fields, capacity)

@@ -76,8 +76,8 @@ class PFSPProblem(Problem):
         self.child_slots = self.jobs
         self.lb1_data = B.make_lb1(p_times)
         self.lb2_data = B.make_lb2(self.lb1_data, lb2_variant)
-        self._device_tables: dict = {}
         self._tables_lock = threading.Lock()
+        self._device_tables: dict = {}  # guarded-by: _tables_lock
 
     def field_specs(self):
         # prmu holds job indices < jobs (int8 through 127 jobs, int16
@@ -202,11 +202,8 @@ class PFSPProblem(Problem):
         stream; on the card that stream is synchronised before the tables
         are published, so a kernel that reads them on any other stream
         (the multi-device tier gives each worker its own) comes after the
-        copy."""
+        copy. Every lookup takes the lock."""
         key = str(device)
-        tables = self._device_tables.get(key)
-        if tables is not None:
-            return tables
         from ...ops.pfsp_device import PFSPDeviceTables
 
         with self._tables_lock:

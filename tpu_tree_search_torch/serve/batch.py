@@ -29,6 +29,11 @@ engine's host-offload fallback needs a growable pool), and a resumed
 job whose saved frontier no longer fits a fixed slot falls back to solo
 the same way.
 
+Under ``TTS_GUARD=1`` each dispatch's enqueue runs under the batched
+program's steady-state guard (`analysis/guard.py`), one a program, kept
+across sessions: a warm class's second session builds nothing, so its
+first dispatch is checked too.
+
 Threading: the executor runs entirely on one worker thread and takes NO
 locks of its own — `occupied` is a plain int published for metrics, and
 all queue/registry access goes through the scheduler's existing methods.
@@ -41,7 +46,9 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 
+from ..analysis.guard import SteadyStateGuard, guard_enabled, guard_record
 from ..engine import checkpoint as ckpt_mod
 from ..engine.results import Diagnostics, SearchResult
 from ..obs import counters as obs_counters
@@ -83,6 +90,9 @@ class BatchExecutor:
         self.pins = dict(pins)
         self.B = int(B)
         self.occupied = 0  # published for batch_stats; GIL-atomic int
+        # The steady-state guard of each batched program (warm once).
+        self._guards: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        self._guard: SteadyStateGuard | None = None  # the session's
 
     # -- metrics shorthands -------------------------------------------
 
@@ -139,6 +149,11 @@ class BatchExecutor:
         capacity, M = resolve_capacity(problem, spec["M"], None)
         prog = make_batched_program(problem, B, spec["m"], M, k_value,
                                     capacity, dev)
+        guard = self._guards.get(prog)
+        if guard is None:
+            guard = self._guards[prog] = SteadyStateGuard(
+                prog, f"batched[{self.class_key}]", enabled=guard_enabled())
+        self._guard = guard
         try:
             slots: list[_Slot | None] = [None] * B
             for i in range(B):
@@ -184,7 +199,9 @@ class BatchExecutor:
             self._observe("tts_serve_batch_efficiency",
                           len(occupied) / B, {"cls": self.class_key})
             t_enq = ev.now_us()
-            out = prog.step()
+            with self._guard.step():
+                read = prog.enqueue()
+            out = read()
             if first:
                 # The first dispatch builds the batched program's graph
                 # (cold pool): that cost belongs to the job that triggered
@@ -374,6 +391,7 @@ class BatchExecutor:
             quality=(job.quality.result()
                      if job.quality is not None and job.quality.points()
                      else None),
+            guard=guard_record([self._guard]),
         )
 
     def _release_slot(self, i: int, ctx, job, problem) -> None:

@@ -7,10 +7,10 @@ converts CLI run arguments into a job spec (reusing the main parser's
 validation via ``submit -- <run args>``), posts it, and either returns
 the id immediately or follows the job's SSE stream to completion.
 ``top`` is the operator console: a periodically refreshed per-job /
-per-class table assembled from ``/healthz`` + ``/jobs`` + ``/classes``.
-``base_url`` and ``submit_main`` keep the JAX package's ``router``
-argument (a fleet router proxies every endpoint the clients use); the
-port's CLI refuses it until the fleet router is ported (ROADMAP.md A.8).
+per-class table assembled from ``/healthz`` + ``/jobs`` + ``/classes``,
+and ``top --router`` its fleet-wide view from a router's ``/fleet``.
+``submit`` takes a ``router`` (a fleet router proxies every endpoint the
+clients use).
 """
 
 from __future__ import annotations
@@ -154,7 +154,8 @@ def submit_main(spec: dict, port: int = DEFAULT_PORT,
     try:
         code, payload = _post(base + "/submit", spec, retry_s=retry_s)
     except (URLError, OSError) as e:
-        print(f"Error: no serve daemon at {base}: {e}", file=sys.stderr)
+        what = "fleet router" if router else "serve daemon"
+        print(f"Error: no {what} at {base}: {e}", file=sys.stderr)
         return 2
     if code != 201:
         print(f"Error: submit rejected ({code}): "
@@ -432,6 +433,100 @@ def top_main(port: int = DEFAULT_PORT, host: str = "127.0.0.1",
                 if not once and sys.stdout.isatty():
                     print("\x1b[2J\x1b[H", end="")
                 print(_render_top(health, jobs, classes), flush=True)
+            if once:
+                return 0
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+# -- `top --router`: the fleet-wide operator console ----------------------
+
+
+def _render_fleet_top(fleet: dict) -> str:
+    """Per-daemon rows + fleet totals from the router's ``/fleet``
+    aggregate (its keeper's last ``/healthz`` + ``/classes`` scrape of
+    every registered daemon)."""
+    router = fleet.get("router") or {}
+    daemons = fleet.get("daemons") or []
+    jobs = fleet.get("jobs") or []
+    lines = [
+        f"fleet v{router.get('version', '?')}"
+        f"  up {router.get('uptime_s', 0):.0f}s"
+        f"  daemons={router.get('daemons_healthy', 0)}"
+        f"/{router.get('daemons', 0)} healthy"
+        f"  jobs={router.get('jobs', 0)}"
+        + ("" if router.get("ok") else "  [DEGRADED: no healthy daemon]")
+    ]
+    lines.append("")
+    lines.append(f"{'daemon':<28} {'state':<8} {'queue':>5} {'work':>6} "
+                 f"{'warm':>4} {'cls':>3} {'pool':>8} {'jobs':<24}")
+    tot_queue = tot_warm = tot_cls = tot_pool = 0
+    for d in daemons:
+        h = d.get("health") or {}
+        classes = d.get("classes") or []
+        warm = sum(1 for c in classes if c.get("warm"))
+        pool = sum(int(c.get("pool_bytes", 0) or 0) for c in classes)
+        state = ("drain" if d.get("draining")
+                 else "ok" if d.get("healthy")
+                 else f"dead({d.get('misses', 0)})")
+        by_state = d.get("jobs_by_state") or {}
+        tot_queue += int(h.get("queue_depth", 0) or 0)
+        tot_warm += warm
+        tot_cls += len(classes)
+        tot_pool += pool
+        lines.append(
+            f"{d.get('url', '?')[:28]:<28} {state:<8} "
+            f"{h.get('queue_depth', 0):>5} "
+            f"{h.get('workers_alive', '?')}/{h.get('workers', '?'):>4} "
+            f"{warm:>4} {len(classes):>3} {_fmt_bytes(pool):>8} "
+            + (" ".join(f"{s}={n}" for s, n in sorted(by_state.items()))
+               or "-"))
+    lines.append(
+        f"{'TOTAL':<28} {'':<8} {tot_queue:>5} {'':>6} "
+        f"{tot_warm:>4} {tot_cls:>3} {_fmt_bytes(tot_pool):>8}")
+    active = [j for j in jobs
+              if j.get("state") not in _FINAL]
+    finished = [j for j in jobs if j not in active]
+    rows = active + finished[-5:]
+    if rows:
+        lines.append("")
+        lines.append(f"{'fleet job':<12} {'state':<9} {'daemon':<24} "
+                     f"{'class':<30} {'steps':>8} {'moves':>5}")
+        for j in rows:
+            lines.append(
+                f"{j.get('id', '?'):<12} {j.get('state') or '?':<9} "
+                f"{(j.get('daemon') or '?')[:24]:<24} "
+                f"{(j.get('class') or '?')[:30]:<30} "
+                f"{j.get('steps', 0):>8} {j.get('resubmits', 0):>5}")
+    return "\n".join(lines)
+
+
+def fleet_top_main(router: str, interval: float = 2.0, once: bool = False,
+                   as_json: bool = False) -> int:
+    """``top --router URL``: the fleet-wide console — per-daemon
+    rows aggregated from the router keeper's scrapes plus fleet totals.
+    ``--once``/``--json`` mirror the single-daemon ``top``."""
+    base = base_url(router=router)
+    try:
+        while True:
+            try:
+                code, fleet = _get(base + "/fleet", timeout=5.0,
+                                   retry_s=5.0)
+            except (URLError, OSError) as e:
+                print(f"Error: no fleet router at {base}: {e}",
+                      file=sys.stderr)
+                return 2
+            if code != 200:
+                print(f"Error: /fleet failed ({code}): {fleet}",
+                      file=sys.stderr)
+                return 2
+            if as_json:
+                print(json.dumps(fleet), flush=True)
+            else:
+                if not once and sys.stdout.isatty():
+                    print("\x1b[2J\x1b[H", end="")
+                print(_render_fleet_top(fleet), flush=True)
             if once:
                 return 0
             time.sleep(interval)

@@ -186,6 +186,9 @@ def result_record(res) -> dict:
         rec["obs"] = res.obs
     if res.quality and res.quality.get("points"):
         rec["quality"] = res.quality
+    if res.guard:
+        # TTS_GUARD=1: the dispatches the steady-state guard checked.
+        rec["guard"] = res.guard
     return rec
 
 

@@ -67,7 +67,7 @@ def resolved_knobs(spec: dict) -> dict:
     env mutation: ``{"compact": mode, "lb2_pairblock": None}`` — the
     unfused cycle's compaction mode (``resolve_compact_mode``) and no pair
     block (the port has none)."""
-    from ..ops.compaction import resolve_compact_mode
+    from ..ops.compact_policy import resolve_compact_mode
 
     n, _machines = _problem_shape(spec)
     # resolve_compact_mode only reads problem.name; a shim spares building

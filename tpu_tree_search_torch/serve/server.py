@@ -424,11 +424,15 @@ def serve_main(port: int = DEFAULT_PORT, host: str = "127.0.0.1",
                quantum_s: float = 5.0, max_queue: int = 64,
                warm: str | None = None,
                batch_slots: int | None = None,
-               ckpt_every_s: float | None = None, device=None) -> int:
+               ckpt_every_s: float | None = None, device=None,
+               router: str | None = None) -> int:
     """The ``serve`` entry point: start, optionally pre-warm the pool,
-    then wait for SIGTERM/SIGINT (or POST /shutdown) and drain. (The JAX
-    daemon's ``--router`` registration waits for the fleet router,
-    ROADMAP.md A.8.)
+    then wait for SIGTERM/SIGINT (or POST /shutdown) and drain.
+
+    ``router`` (``--router`` / ``TTS_ROUTER``): self-register with a
+    ``fleet`` router (`fleet/router.py`) once the HTTP surface is up;
+    failure is reported, not fatal — the daemon serves standalone and the
+    router can still be pointed at it later with POST /register.
 
     Signal composition: the daemon's handler is installed FIRST, so a
     later ``flightrec.install()`` (TTS_FLIGHTREC=1 operators) dumps its
@@ -458,6 +462,21 @@ def serve_main(port: int = DEFAULT_PORT, host: str = "127.0.0.1",
           f"batch-slots: {daemon.scheduler.batch_slots}"
           + (f", reloaded {daemon.loaded} job record(s)" if daemon.loaded
              else "") + ")", flush=True)
+    if router:
+        from .client import _post, base_url
+
+        try:
+            code, resp = _post(base_url(router=router) + "/register",
+                               {"url": daemon.url}, timeout=5.0,
+                               retry_s=5.0)
+            print(f"Registered with fleet router {router} "
+                  f"({resp.get('daemons', '?')} daemon(s) in fleet)"
+                  if code == 200 else
+                  f"Fleet registration rejected ({code}): {resp}",
+                  flush=True)
+        except (OSError, ValueError) as e:
+            print(f"Fleet registration with {router} failed ({e}); "
+                  "serving standalone.", flush=True)
     if warm is not None:
         from .warmup import warm_pool
 
