@@ -8,6 +8,7 @@
     python3 chip_smoke.py --parallel # phases 1, 2, 18f and 18g (the multi-device and multi-host tiers)
     python3 chip_smoke.py --dist     # phases 1, 2 and 18g (the multi-host tiers)
     python3 chip_smoke.py --fleet    # phases 1, 2, 18h and 18i (the guard, the fleet)
+    python3 chip_smoke.py --mp       # phases 1, 2 and 18j-18m (the pair axis, device positions)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -183,7 +184,8 @@ ends the script with a non-zero exit before the final line:
      dispatch (phase 2 of both); two tampers that must raise
      ``GuardViolation`` naming the dispatch (a ``.item()`` slipped into
      the enqueue, a graph rebuilt in steady state); and a guarded unfused
-     N = 14 search whose outcome is printed, not checked;
+     N = 14 search to its goldens (its cycle of fixed shapes is one graph
+     launch a dispatch, so the guard checks it);
  18i. ``fleet_*``: two ``ServeDaemon``s on the card behind an in-process
      ``FleetRouter``, under ``TTS_GUARD=1``: ta014 lb1 cold then warm (no
      new program, no new graph), N = 15 cold on the other daemon, ta014
@@ -192,6 +194,33 @@ ends the script with a non-zero exit before the final line:
      subprocess daemon, both equal to an uninterrupted solo run; per job
      the routed wall, the daemon's, the router hop and the queue wait (ms),
      and kernels 2, 4 and 8's launches around the phase;
+ 18j. ``mesh_mp_*``: ta014 lb2 ub=1 at ``--tier mesh --D 2 --mp 2`` and
+     ``--mp 4`` (the lb2 pair loop in mp pair blocks, the unfused cycle),
+     staged (kernels 1 and 7 on pair blocks) and single-pass
+     (``mesh_resident_search(staged=False)``: kernel 6 on pair blocks), the
+     mp = 2 run once guarded (K = 4), beside the mp = 1 unfused mesh, and
+     ``--tier dist_mesh --hosts 2 --D 1`` at mp 2 and 1, each to its
+     goldens, the counts set to 0 before each: a pair-block wrapper
+     launched mp times a cycle, the full-pair one never; each line's device
+     ms (events) beside mp = 1's;
+ 18k. ``kernel6_mp``, ``kernel7_mp``: kernels 6 and 7 on the pair blocks
+     of ta014 (P = 45) and ta021 (P = 190) at mp = 2 and 4, B = 49152
+     seeded rows: each block against its plain version (the plain lb2 over
+     the block's pairs), and the max of the blocks against the full-pair
+     launch, max difference 0 (kernel 6 on the open slots, kernel 7 on
+     every row); each block's time, the plain time, the bound at P_local
+     and the whole mp call's time beside the full launch's;
+ 18l. ``mesh_eval``: ``parallel/mesh.py``'s ``MeshEvaluator`` on the card
+     over four positions of cuda:0 (dp 4, or 2 x 2 and 1 x 4 under mp) on
+     ta014 lb1, lb1_d, lb2 at mp 1, 2, 4 and N = 15, against the unsharded
+     bounds (open slots) and the leaf fold against the plain minimum;
+ 18m. ``mesh_cards``: the device count; the mesh over ``--device
+     cuda:0,cuda:0`` (two groups on the card: a graph a group and round,
+     the cross-group balance) at D = 4 on ta014 lb1 and N = 15 to the
+     goldens, equal to the one-group program's state rows and live rows
+     after each of three dispatches; ``--tier multi --device
+     cuda:0,cuda:0``; and, with more than one card, the same over
+     cuda:0,cuda:1;
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -251,7 +280,10 @@ ends the script with a non-zero exit before the final line:
      mesh D = 4 ta014 lb1 run and its phase 18f times; rows 1, 3, 7 and the
      cycles carry the multi, mesh, dist and dist_mesh runs' launches
      (``parallel_launches``), and the cycles 2, 4 and 8 the fleet phase's
-     (``fleet_launches``).
+     (``fleet_launches``); kernels 6 and 7 on pair blocks get rows of their
+     own (``lb2_bounds_pair_block``, ``lb2_self_bounds_pair_block``) with
+     the launches of the mp = 2 mesh runs of phase 18j and the times of
+     phase 18k.
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -524,12 +556,32 @@ def random_nodes(rng, n: int, B: int, deep_share: float = 0.25):
 K7_SEARCH_LAUNCHES = {0: 185, 4: 9372, 8: 74171}
 
 
+@contextlib.contextmanager
+def eager_cycles():
+    """The resident programs made in the block launch their cycles from the
+    host's loop, not through a dispatch graph (``graphed`` off): the same
+    kernels, one wrapper call a cycle."""
+    from tpu_tree_search_torch.engine import resident as R
+
+    def eager(orig):
+        def init(self, *args, **kwargs):
+            orig(self, *args, **kwargs)
+            self.graphed = False
+            self.dispatch_device_s = None
+        return init
+
+    with _patched(R._ResidentProgram, "__init__", eager):
+        yield
+
+
 def capture_self_launches(run, keep=None) -> list[dict]:
     """Kernel 7's inputs as a search hands them over: ``run()`` runs a
     staged lb2 search with ``pfsp_device.lb2_self_bounds`` wrapped so that
     each call's rows and limit1 are copied before the call (the calls whose
-    index is in ``keep``; every call when it is None). One dict a call:
-    ``index``, ``n_active`` (read after the search), ``rows`` and
+    index is in ``keep``; every call when it is None). The search's
+    programs run their cycles eagerly (``eager_cycles``), so that the hook
+    sees each cycle's call, not the one call of a graph's capture. One dict
+    a call: ``index``, ``n_active`` (read after the search), ``rows`` and
     ``limit1`` (the copies, or None)."""
     from tpu_tree_search_torch.ops import pfsp_device
 
@@ -547,7 +599,8 @@ def capture_self_launches(run, keep=None) -> list[dict]:
 
     pfsp_device.lb2_self_bounds = hook
     try:
-        run()
+        with eager_cycles():
+            run()
     finally:
         pfsp_device.lb2_self_bounds = real
     for c in calls:
@@ -1676,16 +1729,18 @@ def phase_search(name: str, argv: list[str], counters: dict,
     else:
         rec = run_search(argv, golden)
     launches = {k: fn.launches for k, fn in counters.items()}
-    captures = {k: fn.captures for k, fn in counters.items() if hasattr(fn, "captures")}
-    if rec["fused"] and captures:
-        # The cycle wrappers' launches are the graph bodies' runs, read from
-        # the device after each dispatch: each run is one real cycle, so
-        # they equal the device cycles (plus none past termination). A
-        # stall fallback adds its offload cycles to device_cycles.
-        runs = sum(launches[k] for k in captures)
+    captures = {k: fn.captures for k, fn in counters.items()
+                if getattr(fn, "captures", 0)}
+    for k in captures:
+        # The captured wrappers' launches are the graph bodies' runs, read
+        # from the device after each dispatch: each run is one real cycle
+        # (fused, or unfused: each wrapper of its body once), so they equal
+        # the device cycles (plus none past termination). A stall fallback
+        # adds its offload cycles to device_cycles.
+        runs = launches[k]
         check(runs == rec["device_cycles"] if rec["stall_fallbacks"] == 0
               else runs <= rec["device_cycles"],
-              f"{name}: {runs} cycle launches for {rec['device_cycles']} device cycles")
+              f"{name}: {runs} {k} launches for {rec['device_cycles']} device cycles")
     dev_tree, _, dev_s = rec["phases"][1]
     out = dict(rec, launches=launches, captures=captures,
                nodes_per_s=rec["explored_tree"] / rec["elapsed_s"],
@@ -1697,7 +1752,8 @@ def phase_search(name: str, argv: list[str], counters: dict,
 
 def phase_profile(name: str, argv: list[str], golden: dict,
                   cycle: tuple | None = None, kernels: tuple[str, ...] = (),
-                  host: bool = True, **library_kwargs) -> dict:
+                  host: bool = True, eager: bool = False,
+                  **library_kwargs) -> dict:
     """One search again under ``torch.profiler``: the device time of every
     kernel and copy in the run, summed by name (the top five are printed),
     against the wall time of the device phase (phase 2). Their ratio is the
@@ -1709,15 +1765,26 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     kernel names: each one's device time in the run and its launches there
     (``kernel_device_ms``, ``kernel_launches``, by name).
     ``host=False`` traces the device alone (the unfused searches' host
-    trace, hundreds of thousands of events, takes minutes to read)."""
+    trace, hundreds of thousands of events, takes minutes to read).
+    ``eager`` launches the cycles from the host's loop (``eager_cycles``):
+    a CUPTI trace of an unfused dispatch graph of some 2,500 body runs (the
+    unfused ta014 lb1 and lb1_d searches at M = 1024) ends in an illegal
+    address on the H100, with kernel 1 or its plain version in the body
+    alike, where the same graphs untraced, and traces of up to about 840
+    body runs, run clean."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     counters = {} if cycle is None else {"cycle": cycle[0]}
     activities = [ProfilerActivity.CPU] if host else []
     t0 = time.perf_counter()
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
-        rec = phase_search(f"{name}_profiled", argv, counters, golden, **library_kwargs)
+    with contextlib.ExitStack() as stack:
+        if eager:
+            stack.enter_context(eager_cycles())
+        prof = stack.enter_context(
+            profile(activities=activities + [ProfilerActivity.CUDA]))
+        rec = phase_search(f"{name}_profiled", argv, counters, golden,
+                           **library_kwargs)
         torch.cuda.synchronize()
     by_name, counts = {}, {}
     for ev in prof.key_averages():
@@ -1730,7 +1797,8 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     phase2_ms = rec["phases"][1][2] * 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
     check(busy_ms > 0, f"{name}: the trace holds no device time")
-    out = dict(search=name, device_busy_ms=busy_ms, phase2_ms=phase2_ms,
+    out = dict(search=name, eager_cycles=eager, device_busy_ms=busy_ms,
+               phase2_ms=phase2_ms,
                busy_share=busy_ms / phase2_ms, top_device_ms=top, host_traced=host,
                seconds=time.perf_counter() - t0)
     if kernels:
@@ -3135,9 +3203,9 @@ def phase_guard(counters: dict) -> dict:
     ``.item()`` on a CUDA tensor slipped into each enqueue (a hook around
     the program's ``enqueue``), and a steady-state dispatch that builds a
     new graph (the program's graph cache emptied at the second dispatch).
-    Then a guarded unfused N = 14 search, whose cycle reads its survivor
-    count once a cycle: its outcome is printed, not checked (the unfused
-    path is not steady-state pure on the card; ROADMAP.md C)."""
+    Then a guarded unfused N = 14 search to its goldens: its cycle of fixed
+    shapes reads nothing back, its dispatch is one graph launch, and the
+    guard checks every dispatch after the first."""
     from tpu_tree_search_torch.engine import resident as R
     from tpu_tree_search_torch.engine.resident import resident_search
     from tpu_tree_search_torch.problems import NQueensProblem
@@ -3203,12 +3271,20 @@ def phase_guard(counters: dict) -> dict:
             NQueensProblem(12), M=50000, K=1, device=dev, guard=True))
     check("steady-state dispatch 2 built something (graphs" in msg, msg)
     rows["tamper_rebuild"] = msg
-    try:
-        rec = run_search(NQ14 + ["--unfused", "--guard"], NQ_GOLDEN[14])
-        rows["unfused_N14"] = dict(outcome="completed", guard=rec.get("guard"))
-    except Exception as e:  # noqa: BLE001 — printed: the expected outcome
-        torch.cuda.synchronize()
-        rows["unfused_N14"] = dict(outcome=f"{type(e).__name__}: {e}")
+    zero_counts(counters)
+    rec = run_search(NQ14 + ["--unfused", "--guard", "--K", "64"], NQ_GOLDEN[14])
+    g = rec.get("guard") or {}
+    check(g.get("checked_dispatches", 0) > 1 and "sync" in g.get("checks", ())
+          and counters["dispatch_graph"].launches == rec["dispatches"]
+          and counters["nqueens_labels"].launches == rec["device_cycles"],
+          f"guarded unfused N=14: guard {g}, {counters['dispatch_graph'].launches} "
+          f"graph launches for {rec['dispatches']} dispatches")
+    rows["unfused_N14"] = dict(outcome="completed", guard=g,
+                               dispatches=rec["dispatches"],
+                               graph_launches=counters["dispatch_graph"].launches,
+                               device_cycles=rec["device_cycles"],
+                               dispatch_device_ms=1e3 * rec["dispatch_device_s"],
+                               phase2_s=rec["phases"][1][2])
     emit("guard_tampers", tamper_sync=rows["tamper_sync"],
          tamper_rebuild=rows["tamper_rebuild"], unfused_N14=rows["unfused_N14"])
     return rows
@@ -3455,6 +3531,355 @@ def main_fleet(dev_info) -> int:
     return 0
 
 
+# -- the lb2 pair axis (--mp) and device positions -------------------------------
+
+# ta014 lb2 on the mesh at D = 2 (PFSP_LB2 with the tier replaced).
+LB2_MESH = PFSP_LB2[:-1] + ["mesh", "--D", "2"]
+# The mesh_mp runs: (name, argv, mp, staged, library); a library run goes
+# through mesh_resident_search (single-pass lb2 has no CLI flag).
+MP_RUNS = [
+    ("mp1_staged", LB2_MESH + ["--unfused"], 1, True, False),
+    ("mp1_single", LB2_MESH, 1, False, True),
+    ("mp2_staged", LB2_MESH + ["--mp", "2"], 2, True, False),
+    ("mp2_single", LB2_MESH + ["--mp", "2"], 2, False, True),
+    ("mp4_staged", LB2_MESH + ["--mp", "4"], 4, True, False),
+    ("mp4_single", LB2_MESH + ["--mp", "4"], 4, False, True),
+    ("mp2_guard", LB2_MESH + ["--mp", "2", "--guard", "--K", "4"], 2, True, False),
+    ("dist_mesh_mp2", PFSP_LB2[:-1] + ["dist_mesh", "--hosts", "2", "--D", "1",
+                                       "--mp", "2"], 2, True, False),
+    ("dist_mesh_mp1", PFSP_LB2[:-1] + ["dist_mesh", "--hosts", "2", "--D", "1",
+                                       "--unfused"], 1, True, False),
+]
+
+
+def _library_mesh(argv: list[str], golden: dict, **kwargs) -> dict:
+    """``argv``'s mesh search through ``mesh_resident_search`` with the
+    CLI's problem and defaults and ``kwargs``; its CLI record."""
+    from tpu_tree_search_torch import cli
+    from tpu_tree_search_torch.parallel.resident_mesh import mesh_resident_search
+
+    args = cli.build_parser().parse_args(argv)
+    dev = torch.device("cuda", 0)
+    res = mesh_resident_search(cli.make_problem(args), m=args.m,
+                               M=cli.default_M(args.problem, dev.type, "mesh"),
+                               K=16, D=args.D, mp=args.mp, device=dev, **kwargs)
+    rec = dict(cli.result_record(args, res, dev), entry="mesh_resident_search",
+               **kwargs)
+    got = {k: rec[k] for k in golden}
+    check(got == golden, f"mesh_resident_search {argv} {kwargs} counts {got}")
+    return rec
+
+
+def phase_mesh_mp(counters: dict) -> dict:
+    """Phase 18j (see the module note): the mesh and dist_mesh tiers under
+    the lb2 pair axis, each run's counts set to 0 just before it."""
+    rows = {}
+    for name, argv, mp, staged, library in MP_RUNS:
+        zero_counts(counters)
+        rec = (_library_mesh(argv, GOLDEN_LB2, fused=False, staged=staged)
+               if library else run_search(argv, GOLDEN_LB2))
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        cycles = rec["device_cycles"]
+        bound = ("lb2_self_block" if staged else "lb2_block") if mp > 1 else (
+            "lb2_self_bounds" if staged else "lb2_bounds")
+        other = {"lb2_bounds", "lb2_self_bounds", "lb2_block",
+                 "lb2_self_block", "cycle_lb2"} - {bound}
+        check(rec["mp"] == mp and not rec["fused"] and rec["staged"] == staged,
+              f"mesh_mp {name}: mp {rec['mp']}, fused {rec['fused']}, "
+              f"staged {rec['staged']}")
+        check(launches.get(bound, 0) == mp * cycles > 0
+              and launches.get("lb1_bounds", 0) == (cycles if staged else 0)
+              and not any(launches.get(k) for k in other),
+              f"mesh_mp {name}: launches {launches} for {cycles} cycles at mp {mp}")
+        if "--guard" in argv:
+            g = rec.get("guard") or {}
+            check(g.get("checked_dispatches", 0) > 1 and "sync" in g.get("checks", ()),
+                  f"mesh_mp {name}: guard {g}")
+        rows[name] = dict(mp=mp, staged=staged, entry=rec.get("entry", "cli"),
+                          tier=rec["tier"], dispatches=rec["dispatches"],
+                          device_cycles=cycles, launches=launches,
+                          dispatch_device_ms=(1e3 * rec["dispatch_device_s"]
+                                              if rec.get("dispatch_device_s") is not None
+                                              else None),
+                          graph_build_s=rec["graph_build_s"], guard=rec.get("guard"),
+                          per_worker_tree=rec["per_worker_tree"],
+                          phase2_s=rec["phases"][1][2], elapsed_s=rec["elapsed_s"])
+    for name, row in rows.items():
+        base = rows[("dist_mesh_mp1" if name.startswith("dist") else
+                     f"mp1_{'staged' if row['staged'] else 'single'}")]
+        if row["dispatch_device_ms"] and base["dispatch_device_ms"]:
+            row["device_ms_over_mp1"] = row["dispatch_device_ms"] / base["dispatch_device_ms"]
+        emit(f"mesh_mp_{name}", **row)
+    return rows
+
+
+def phase_pair_blocks(dev, lb2_tables: dict) -> dict:
+    """Phase 18k: kernels 6 and 7 on the mp pair blocks (see the module
+    note). Returns the rows by (kernel, inst, mp)."""
+    from tpu_tree_search_torch.ops import lb2_kernel, lb2_self_kernel
+    from tpu_tree_search_torch.ops import pfsp_device as PD
+
+    rng = np.random.default_rng(18)
+    rows = {}
+    B = 49152
+    for inst in ("ta014", "ta021"):
+        tables = lb2_tables[inst]
+        n, m, P = tables.jobs, tables.machines, tables.johnson.pair_count
+        prmu, limit1 = random_nodes(rng, n, B)
+        p = torch.from_numpy(prmu).to(dev).to(torch.int8)
+        lim = torch.from_numpy(limit1).to(dev).to(torch.int8)
+        na = torch.tensor(B, dtype=torch.int32, device=dev)
+        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(dev)
+        full6 = lb2_kernel.lb2_bounds_cuda(p, lim, tables)
+        full7 = lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, tables)
+        full6_ms, _ = kernel_device_ms(
+            lambda: lb2_kernel.lb2_bounds_cuda(p, lim, tables), 20, ("lb2_bounds_kernel",))
+        full7_ms, _ = kernel_device_ms(
+            lambda: lb2_self_kernel.lb2_self_bounds_cuda(p, lim, na, tables), 20,
+            ("lb2_self_bounds_kernel",))
+        for mp in (2, 4):
+            blocks = tables.pair_blocks(mp)
+            P_local = blocks[0].johnson.pair_count
+            err6 = err7 = 0
+            max6 = max7 = None
+            for blk in blocks:
+                got6 = lb2_kernel.lb2_block_cuda(p, lim, blk)
+                want6 = lb2_kernel.plain(p, lim, blk)
+                got7 = lb2_self_kernel.lb2_self_block_cuda(p, lim, na, blk)
+                want7 = lb2_self_kernel.plain(p, lim, na, blk)
+                torch.cuda.synchronize()
+                err6 = max(err6, int((got6[open_].long() - want6[open_].long()).abs().max()))
+                err7 = max(err7, int((got7.long() - want7.long()).abs().max()))
+                max6 = got6 if max6 is None else torch.maximum(max6, got6)
+                max7 = got7 if max7 is None else torch.maximum(max7, got7)
+            d6 = int((max6[open_].long() - full6[open_].long()).abs().max())
+            d7 = int((max7.long() - full7.long()).abs().max())
+            check(err6 == err7 == d6 == d7 == 0,
+                  f"pair blocks {inst} mp={mp}: block vs plain {err6}, {err7}; "
+                  f"max vs full {d6}, {d7}")
+            blk = blocks[0]
+            for kname, wrapper, args, plain, kernel, nbytes, ops, full_ms, whole in [
+                    ("kernel6_mp", lb2_kernel.lb2_block_cuda, (p, lim, blk),
+                     lambda: lb2_kernel.plain(p, lim, blk), "lb2_bounds_kernel",
+                     B * n + B + B * n * 4 + johnson_bytes(blk),
+                     lb2_scan_ops(limit1, n, m, P_local), full6_ms,
+                     lambda: PD.lb2_bounds_mp(p, lim, tables, mp)),
+                    ("kernel7_mp", lb2_self_kernel.lb2_self_block_cuda,
+                     (p, lim, na, blk), lambda: lb2_self_kernel.plain(p, lim, na, blk),
+                     "lb2_self_bounds_kernel",
+                     B * (n + 1 + 4) + johnson_bytes(blk, "lb2_self_bounds"),
+                     lb2_self_ops(limit1, n, m, P_local), full7_ms,
+                     lambda: PD.lb2_self_bounds_mp(p, lim, na, tables, mp))]:
+                call = lambda: wrapper(*args)  # noqa: E731
+                ms, timing = kernel_device_ms(call, 20, (kernel,))
+                bms, by = bound_ms(nbytes, ops)
+                row = dict(inst=inst, n=n, m=m, P=P, mp=mp, P_local=P_local, B=B,
+                           dtype="torch.int8", max_abs_err=max(err6 if kname == "kernel6_mp"
+                                                               else err7, 0),
+                           max_of_blocks_vs_full=d6 if kname == "kernel6_mp" else d7,
+                           ms=ms, timing=timing, call_ms=median_ms(call, 20),
+                           plain_ms=median_ms(plain, 1), bound_ms=bms, bound_by=by,
+                           library_ms=None, full_pairs_ms=full_ms,
+                           mp_call_ms=median_ms(whole, 10))
+                if kname == "kernel6_mp":
+                    row["block"] = lb2_kernel.last_shape("lb2_bounds")
+                else:
+                    row["block"] = lb2_self_kernel.last_shape()
+                rows[(kname, inst, mp)] = row
+                emit(kname, **row)
+    return rows
+
+
+def phase_mesh_eval(dev) -> dict:
+    """Phase 18l: ``MeshEvaluator`` on the card against the unsharded
+    bounds and the plain leaf fold."""
+    from tpu_tree_search_torch.parallel import mesh as PM
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+
+    rng = np.random.default_rng(19)
+    rows = {}
+    B = 4096
+    for lb, mp in (("lb1", 1), ("lb1_d", 1), ("lb2", 1), ("lb2", 2), ("lb2", 4),
+                   ("nqueens", 1)):
+        if lb == "nqueens":
+            prob = NQueensProblem(15)
+            board, depth = random_boards(rng, 15, B)
+            par = {"board": board, "depth": depth.astype(np.int8)}
+        else:
+            prob = PFSPProblem(inst=14, lb=lb, ub=1)
+            prmu, limit1 = random_nodes(rng, 20, B)
+            par = {"prmu": prmu.astype(np.int8), "limit1": limit1.astype(np.int8),
+                   "depth": (limit1 + 1).astype(np.int8)}
+        ev = PM.MeshEvaluator(prob, PM.make_mesh(4, mp=mp, devices=["cuda:0"] * 4))
+        count = B - 7
+        t0 = time.perf_counter()
+        got, best = ev(par, count, 10**9)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        if lb == "nqueens":
+            want = prob.device_bounds(torch.from_numpy(board).to(dev),
+                                      torch.from_numpy(depth).to(dev))
+            err = int((got.long() - want.long()).abs().max())
+            want_best = 2**31 - 1
+        else:
+            p = torch.from_numpy(par["prmu"]).to(dev)
+            lim = torch.from_numpy(par["limit1"]).to(dev)
+            want = prob.device_bounds(p, lim)
+            open_ = torch.from_numpy(np.arange(20)[None, :] > limit1[:, None]).to(dev)
+            err = int((got[open_].long() - want[open_].long()).abs().max())
+            leaf = open_.clone()
+            leaf[count:] = False
+            leaf &= torch.from_numpy(limit1 + 2 == 20).to(dev)[:, None]
+            want_best = min(10**9, int(torch.where(leaf, want, 2**31 - 1).min()))
+        check(err == 0 and best == want_best,
+              f"mesh_eval {lb} mp={mp}: max diff {err}, best {best} != {want_best}")
+        rows[(lb, mp)] = dict(problem=prob.name, lb=lb, dp=ev.dp, mp=ev.mp, B=B,
+                              count=count, max_abs_err=err, best=best, call_s=call_s)
+        emit("mesh_eval", **rows[(lb, mp)])
+    return rows
+
+
+def phase_mesh_cards(counters: dict) -> dict:
+    """Phase 18m: the mesh and the multi tier over device positions (see
+    the module note)."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.parallel.resident_mesh import get_mesh_program
+    from tpu_tree_search_torch.pool.pool import SoAPool
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    count = torch.cuda.device_count()
+    peer = (torch.cuda.can_device_access_peer(0, 1) if count > 1 else None)
+    emit("cards", device_count=count, peer_0_1=peer,
+         names=[torch.cuda.get_device_name(i) for i in range(count)])
+    lists = ["cuda:0,cuda:0"] + (["cuda:0,cuda:1"] if count > 1 else [])
+    rows = {}
+    dev = torch.device("cuda", 0)
+    for positions in lists:
+        for name, argv, golden, cycle in (
+                ("ta014_lb1", PFSP_LB1, GOLDEN, "cycle_lb1"),
+                ("nqueens_N15", NQ15, NQ_GOLDEN[15], "cycle_nqueens")):
+            for devs in (positions, "cuda:0"):
+                zero_counts(counters)
+                rec = run_search(argv + ["--tier", "mesh", "--D", "4", "--device", devs],
+                                 golden)
+                launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+                disp = rec["dispatches"]
+                groups = 2 if "," in devs else 1
+                check(launches.get(cycle) == rec["device_cycles"] > 0
+                      and launches.get("mesh_graph") == disp * (2 * groups if groups > 1
+                                                                else 1)
+                      and launches.get("mesh_balance") == 2 * disp,
+                      f"mesh_cards {name} {devs}: launches {launches}, {disp} dispatches")
+                rows[(positions, name, devs)] = dict(
+                    positions=devs, groups=groups, dispatches=disp,
+                    device_cycles=rec["device_cycles"], launches=launches,
+                    dispatch_device_ms=1e3 * rec["dispatch_device_s"],
+                    per_worker_tree=rec["per_worker_tree"],
+                    phase2_s=rec["phases"][1][2])
+                emit(f"mesh_cards_{name}", **rows[(positions, name, devs)])
+            one = rows[(positions, name, "cuda:0")]
+            two = rows[(positions, name, positions)]
+            check(one["per_worker_tree"] == two["per_worker_tree"]
+                  and one["dispatches"] == two["dispatches"],
+                  f"mesh_cards {name}: {positions} shard trees {two['per_worker_tree']} "
+                  f"!= one group's {one['per_worker_tree']}")
+        # Dispatch by dispatch: every state row and live row equal.
+        for name, prob, M in (("ta014_lb1", PFSPProblem(inst=14, lb="lb1", ub=1), 16384),
+                              ("nqueens_N15", NQueensProblem(15), 16384)):
+            pool = SoAPool(prob.node_fields())
+            pool.push_back(index_batch(prob.root(), 0))
+            _, _, best = warmup(prob, pool, getattr(prob, "initial_ub", INF), 400)
+            frontier = pool.as_batch()
+            C = 2 * M * prob.child_slots
+            a = get_mesh_program(prob, 4, 25, M, 4, 2, 8192, C, dev)
+            b = get_mesh_program(prob, 4, 25, M, 4, 2, 8192, C,
+                                 devices=positions.split(","))
+            sizes = []
+            try:
+                for prog in (a, b):
+                    prog.host_slots(1)
+                    prog.upload(frontier, best)
+                for _ in range(3):
+                    ra = a.enqueue()()[0]
+                    rb = b.enqueue()()[0]
+                    check(ra == rb, f"mesh_cards {name}: state rows differ")
+                    for d in range(4):
+                        s = ra[d][0]
+                        check(torch.equal(a.states[d].pool_vals[:s], b.states[d].pool_vals[:s])
+                              and torch.equal(a.states[d].pool_aux[:s],
+                                              b.states[d].pool_aux[:s]),
+                              f"mesh_cards {name}: shard {d}'s live rows differ")
+                    sizes.append([r[0] for r in ra])
+            finally:
+                a.release()
+                b.release()
+            emit("mesh_cards_rows", positions=positions, search=name, shard_sizes=sizes,
+                 groups=[g.shards for g in b.groups], equal=True)
+        zero_counts(counters)
+        rec = run_search(PFSP_LB1 + ["--tier", "multi", "--device", positions], GOLDEN)
+        rows[(positions, "multi")] = dict(
+            positions=positions, per_worker_tree=rec["per_worker_tree"],
+            chunks=rec["chunks"], launches={k: fn.launches for k, fn in counters.items()
+                                            if fn.launches},
+            phase2_s=rec["phases"][1][2])
+        check(rows[(positions, "multi")]["launches"] == {"lb1_bounds": rec["chunks"]},
+              f"multi {positions}: launches {rows[(positions, 'multi')]['launches']}")
+        emit("mesh_cards_multi", **rows[(positions, "multi")])
+    return rows
+
+
+def pair_block_rows(mp_runs: dict, blocks: dict) -> list[dict]:
+    """The kernels line's rows of kernels 6 and 7 on pair blocks: the
+    launches of the mp = 2 mesh runs of phase 18j, the times of phase 18k
+    (ta014 mp = 2 the main row; every row in ``pair_blocks``)."""
+    out = []
+    for name, source, replaces, kname, run, wrapper in [
+            ("lb2_bounds_pair_block", "lb2_bounds.cu", "pallas_kernels.py:746",
+             "kernel6_mp", "mp2_single", "lb2_block"),
+            ("lb2_self_bounds_pair_block", "lb2_self_bounds.cu", "pallas_kernels.py:909",
+             "kernel7_mp", "mp2_staged", "lb2_self_block")]:
+        main_row = blocks[(kname, "ta014", 2)]
+        mine = {k: r for k, r in blocks.items() if k[0] == kname}
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"tpu_tree_search_torch/csrc/{source}",
+            "replaces": f"tpu_tree_search/ops/{replaces}",
+            "launches": mp_runs[run]["launches"][wrapper],
+            "launches_path": f"mesh_mp {run}",
+            "shape": "ta014 B=49152 int8, mp=2 (P_local 23 of 45)",
+            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            "ms": main_row["ms"], "timing": main_row["timing"],
+            "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None, "block": main_row["block"],
+            "pair_blocks": {f"{k[1]}/mp{k[2]}": {
+                f: r[f] for f in ("P_local", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "max_of_blocks_vs_full", "full_pairs_ms", "mp_call_ms")}
+                for k, r in mine.items()},
+            "mp_launches": {f"{run_name}": row["launches"].get(wrapper, 0)
+                            for run_name, row in mp_runs.items()}})
+    return out
+
+
+def main_mp(dev_info) -> int:
+    """``--mp``: only the pair axis and the device positions (phases 18j to
+    18m) after the build."""
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    dev = torch.device("cuda", 0)
+    counters = kernel_counters()
+    lb2_tables = {f"ta{i:03d}": PFSPProblem(inst=i, lb="lb2", ub=1).device_tables(dev)
+                  for i in (14, 21)}
+    blocks = phase_pair_blocks(dev, lb2_tables)
+    mp_runs = phase_mesh_mp(counters)
+    phase_mesh_eval(dev)
+    phase_mesh_cards(counters)
+    print(json.dumps({"kernels": pair_block_rows(mp_runs, blocks)}), flush=True)
+    print(json.dumps({"ok": True, "phases": "mp", "device": dev_info}), flush=True)
+    return 0
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper (and the graph dispatch) by name: each counts
     its launches in ``launches``."""
@@ -3486,6 +3911,8 @@ def kernel_counters() -> dict:
             "lb1_d_bounds": lb1_d_kernel.lb1_d_bounds_cuda,
             "lb2_bounds": lb2_kernel.lb2_bounds_cuda,
             "lb2_self_bounds": lb2_self_kernel.lb2_self_bounds_cuda,
+            "lb2_block": lb2_kernel.lb2_block_cuda,
+            "lb2_self_block": lb2_self_kernel.lb2_self_block_cuda,
             "cycle_lb2": C.cycle_lb2_cuda,
             "tiled_lb1": T.tiled_lb1_cuda,
             "tiled_nqueens": T.tiled_nqueens_cuda,
@@ -3522,8 +3949,10 @@ def main_host(dev_info) -> int:
 def main() -> int:
     dev_info = phase_device()
     if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"],
-                        ["--dist"], ["--fleet"]):
+                        ["--dist"], ["--fleet"], ["--mp"]):
         phase_build()
+        if sys.argv[1] == "--mp":
+            return main_mp(dev_info)
         if sys.argv[1] == "--host":
             return main_host(dev_info)
         if sys.argv[1] == "--fleet":
@@ -3671,6 +4100,12 @@ def main() -> int:
     # loops (and its two tampers), then the router over daemons on the card.
     phase_guard(counters)
     fleet = phase_fleet(counters)
+    # The lb2 pair axis (kernels 6 and 7 on pair blocks, the mesh tiers
+    # under --mp), parallel/mesh.py's evaluator, and device positions.
+    blocks = phase_pair_blocks(dev, lb2_tables)
+    mp_runs = phase_mesh_mp(counters)
+    phase_mesh_eval(dev)
+    phase_mesh_cards(counters)
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,
@@ -3696,7 +4131,7 @@ def main() -> int:
     # Kernels 1 and 5 on their search paths: their device time a search
     # (the unfused search's 2,519 cycles traced on the device alone).
     phase_profile("search_unfused_M1024", PFSP_LB1 + ["--M", "1024", "--unfused"], GOLDEN,
-                  kernels=("lb1_bounds_kernel",), host=False)
+                  kernels=("lb1_bounds_kernel",), host=False, eager=True)
     phase_profile("search_lb1_d", PFSP_LB1D, GOLDEN, kernels=("lb1_d_bounds_kernel",))
     # Kernel 3 on its search path: its device time over the unfused N=14
     # search's 555 cycles (the device alone, as the unfused lb1 search).
@@ -3899,6 +4334,7 @@ def main() -> int:
     # The mesh's balance step (not a TPU kernel: the JAX pmin and ring
     # diffusion).
     kernels.append(mesh_kernel_row(bal, mdisp, mesh))
+    kernels += pair_block_rows(mp_runs, blocks)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

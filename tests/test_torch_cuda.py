@@ -1763,3 +1763,94 @@ def test_guarded_searches_from_two_threads_do_not_raise(cuda):
             assert res.guard["checked_dispatches"] >= 1
             assert res.guard["checks"] == ["builds", "sync"]
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# -- the unfused graph, the pair blocks and device positions ---------------------
+
+
+def test_guarded_unfused_search_is_one_graph_launch_a_dispatch(cuda):
+    """The unfused cycle of fixed shapes reads nothing back: a guarded
+    N = 12 search checks its steady-state dispatches, each one graph
+    launch, and kernel 3 runs once a cycle."""
+    from tpu_tree_search_torch.ops.dispatch import DispatchGraph
+
+    nqueens_kernel.nqueens_labels_cuda.launches = 0
+    g0 = DispatchGraph.launches
+    res = resident_search(NQueensProblem(12), m=25, M=4096, K=8, device=cuda,
+                          fused=False, guard=True)
+    assert (res.explored_tree, res.explored_sol) == (856188, 14200)
+    assert res.guard["checked_dispatches"] > 1
+    assert res.guard["checks"] == ["builds", "sync"]
+    assert DispatchGraph.launches - g0 == res.dispatches
+    assert (nqueens_kernel.nqueens_labels_cuda.launches
+            == res.diagnostics.kernel_launches)
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+def test_pair_blocks_equal_their_plain_versions(cuda, mp):
+    """Kernels 6 and 7 on each mp pair block against the plain lb2 over the
+    block's pairs, and the max of the blocks against the full-pair launch
+    (kernel 6 on the open slots), ta014 and ta021."""
+    rng = np.random.default_rng(mp)
+    for inst in (14, 21):
+        tables = PFSPProblem(inst=inst, lb="lb2", ub=1).device_tables(cuda)
+        n, B = tables.jobs, 512
+        prmu, limit1 = _nodes(rng, n, B)
+        p = torch.from_numpy(prmu).to(cuda).to(torch.int8)
+        lim = torch.from_numpy(limit1).to(cuda).to(torch.int8)
+        open_ = torch.from_numpy(np.arange(n)[None, :] > limit1[:, None]).to(cuda)
+        m6 = m7 = None
+        for blk in tables.pair_blocks(mp):
+            g6 = lb2_kernel.lb2_block_cuda(p, lim, blk)
+            assert torch.equal(g6[open_], lb2_chunk(p, lim, blk)[open_])
+            g7 = lb2_self_kernel.lb2_self_block_cuda(p, lim, B, blk)
+            assert torch.equal(g7, lb2_self_kernel.plain(p, lim, B, blk))
+            m6 = g6 if m6 is None else torch.maximum(m6, g6)
+            m7 = g7 if m7 is None else torch.maximum(m7, g7)
+        assert torch.equal(m6[open_],
+                           lb2_kernel.lb2_bounds_cuda(p, lim, tables)[open_])
+        assert torch.equal(m7, lb2_self_kernel.lb2_self_bounds_cuda(
+            p, lim, B, tables))
+
+
+def test_two_groups_on_one_card_equal_one_group(cuda):
+    """The mesh over the positions cuda:0, cuda:0 (two groups: a graph a
+    group and round, the cross-group balance) leaves every shard's state
+    row and live rows of the one-group program after each dispatch, and a
+    whole search the same counts and shard trees."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.parallel.resident_mesh import (
+        get_mesh_program, mesh_resident_search)
+    from tpu_tree_search_torch.pool.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    prob = NQueensProblem(10)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    _, _, best = warmup(prob, pool, INF, 300)
+    a = get_mesh_program(prob, 4, 25, 256, 4, 2, 64, 1 << 15, cuda)
+    b = get_mesh_program(prob, 4, 25, 256, 4, 2, 64, 1 << 15,
+                         devices=["cuda:0", "cuda:0"])
+    try:
+        for prog in (a, b):
+            prog.host_slots(1)
+            prog.upload(pool.as_batch(), best)
+        assert [g.shards for g in b.groups] == [[0, 2], [1, 3]]
+        for _ in range(3):
+            ra, rb = a.enqueue()()[0], b.enqueue()()[0]
+            assert ra == rb
+            for d in range(4):
+                s = ra[d][0]
+                assert torch.equal(a.states[d].pool_vals[:s],
+                                   b.states[d].pool_vals[:s])
+                assert torch.equal(a.states[d].pool_aux[:s],
+                                   b.states[d].pool_aux[:s])
+    finally:
+        a.release()
+        b.release()
+    one = mesh_resident_search(NQueensProblem(10), m=25, M=256, D=4,
+                               device=cuda)
+    two = mesh_resident_search(NQueensProblem(10), m=25, M=256, D=4,
+                               devices=["cuda:0", "cuda:0"], guard=True)
+    assert (two.explored_tree, two.explored_sol) == (NQ10["tree"], NQ10["sol"])
+    assert two.per_worker_tree == one.per_worker_tree

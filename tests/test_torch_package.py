@@ -18,6 +18,7 @@ from __future__ import annotations
 import ast
 import json
 import shutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -71,11 +72,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {p.stem for p in files if p.parent == PKG / "serve"} == {
         "__init__", "batch", "client", "jobs", "metrics", "pool",
         "scheduler", "server", "warmup"}
-    # The multi-device and multi-host tiers and their own copy of the
-    # termination scan.
+    # The multi-device and multi-host tiers, their own copy of the
+    # termination scan, and the mesh chunk evaluator.
     assert {p.stem for p in files if p.parent == PKG / "parallel"} == {
-        "__init__", "dist", "dist_mesh", "multidevice", "resident_mesh",
-        "topology"}
+        "__init__", "dist", "dist_mesh", "mesh", "multidevice",
+        "resident_mesh", "topology"}
     assert {p.stem for p in files if p.parent == PKG / "utils"} == {
         "__init__", "termination"}
     # The fleet router and the guards (the lint's rules, the steady-state
@@ -112,15 +113,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-A9 = "A.9's second half"
 GUARD = "--guard asserts steady-state purity of the resident device loops"
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["pfsp", "--tier", "multi", "--mp", "2"], A9),
-    (["nqueens", "--tier", "mesh", "--mp", "2"], A9),
-    (["pfsp", "--tier", "dist_mesh", "--lb", "lb2", "--mp", "2"], A9),
-    (["nqueens", "--tier", "mesh", "--device", "cuda:0,cuda:1"], A9),
+    # The --mp refusals are the JAX CLI's (`tpu_tree_search/cli.py:520-527`).
+    (["pfsp", "--tier", "multi", "--mp", "2"],
+     "--mp only applies to --tier mesh/dist_mesh"),
+    (["nqueens", "--tier", "mesh", "--mp", "2"],
+     "--mp shards the lb2 Johnson pair loop (pfsp --lb lb2 only)"),
     (["nqueens", "--tier", "multi", "--K", "4"], None),
     (["nqueens", "--tier", "multi", "--perc", "0"], None),
     (["nqueens", "--tier", "mesh", "--engine", "offload"], None),
@@ -138,8 +139,8 @@ GUARD = "--guard asserts steady-state purity of the resident device loops"
     (["nqueens", "--engine", "offload", "--guard"], GUARD),
 ])
 def test_cli_refuses_unported_paths(argv, names, capsys):
-    # The unported paths name their ROADMAP.md queue; the rest are the
-    # refusals the JAX CLI makes. Each is an Error: line and exit 2.
+    # The refusals the JAX CLI makes, and ``check``, which has no
+    # counterpart. Each is an Error: line and exit 2.
     extra = [] if "--device" in argv or argv[0] == "check" else [
         "--device", "cpu"]
     assert cli.main(argv + extra) == 2
@@ -147,10 +148,33 @@ def test_cli_refuses_unported_paths(argv, names, capsys):
     assert err.startswith("Error:")
     if names is not None:
         assert names in err
-    if names == A9:
-        assert "ROADMAP" in err
     if argv[0] == "check":
         assert "ROADMAP" not in err and "A.10" not in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["pfsp", "--inst", "14", "--tier", "dist_mesh", "--lb", "lb2", "--mp",
+     "2", "--device", "cpu", "--M", "64", "--K", "1", "--max-steps", "1"],
+    ["nqueens", "--tier", "mesh", "--device", "cuda:0,cuda:1"],
+])
+def test_cli_runs_the_pair_axis_and_device_lists(argv, tmp_path, capsys):
+    # Once refused as unported (queue A's last item): a dist_mesh run at
+    # mp = 2 on the CPU (cut after one dispatch), and a mesh on two cards,
+    # which only the want of a card refuses here. No message of the port
+    # names that queue item or says "not ported" any more.
+    if "cuda:0,cuda:1" in argv and torch.cuda.device_count() < 2:
+        with pytest.raises((RuntimeError, ValueError), match="CUDA|no card"):
+            cli.main(argv)
+    else:
+        ckpt = str(tmp_path / "cut.npz")
+        assert cli.main(argv + ["--checkpoint", ckpt, "--json"]) == 0
+        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rec["mp"] == 2 and rec["complete"] is False
+    root = Path(cli.__file__).parent
+    said = [f"{p.relative_to(root)}:{i}" for p in sorted(root.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if re.search(r"A\.9|A9_|not ported", line)]
+    assert said == []
 
 
 def test_cli_report_and_record_on_cpu(capsys):

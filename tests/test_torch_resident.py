@@ -140,21 +140,24 @@ def test_capacity_stall_fallback_keeps_counts(seq_fixed, fused):
 def test_unfused_overflow_branch_matches_jax_resident(monkeypatch, mode):
     # Under ub=inf a 300-node warm frontier keeps more than the survivor
     # budget S = 64*n of a 128-parent chunk, which takes the overflow push.
+    # The branch is chosen on the device: the counter block counts it.
     calls = []
-    push_big = PFSPResident._push_big
+    compact = resident_mod.compact_ids
 
-    def spy(self, *args):
-        calls.append(self.compact)
-        return push_big(self, *args)
+    def spy(keep, S, m):
+        calls.append(m)
+        return compact(keep, S, m)
 
-    monkeypatch.setattr(PFSPResident, "_push_big", spy)
+    monkeypatch.setattr(resident_mod, "compact_ids", spy)
     monkeypatch.setattr(resident_mod, "resolve_compact_mode",
                         lambda problem, M, n: mode)
     want = jax_resident_search(PFSPProblem(lb="lb1", ub=0, p_times=PTM), m=8,
                                M=128, K=16, warmup_target=300)
+    monkeypatch.setenv("TTS_OBS", "1")
     res = resident_search(TorchPFSP(lb="lb1", ub=0, p_times=PTM), m=8, M=128,
                           K=16, warmup_target=300, device="cpu", fused=False)
     assert calls and set(calls) == {mode}
+    assert res.obs["device_counters"]["overflow"] > 0
     assert _counts(res) == _counts(want)
 
 

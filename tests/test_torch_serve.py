@@ -146,7 +146,8 @@ def test_default_m_is_the_port_cli_default():
 
 
 @pytest.mark.parametrize("bad,queue", [
-    ({"problem": "nqueens", "tier": "mesh", "mp": 2}, "A.9"),
+    # mp is taken on pfsp lb2 meshes; elsewhere the JAX daemon's refusal.
+    ({"problem": "nqueens", "tier": "mesh", "mp": 2}, "pfsp lb='lb2' only"),
     ({"problem": "pfsp", "compact": "sort"}, "ROADMAP.md C"),
     ({"problem": "pfsp", "lb": "lb2", "lb2_pairblock": 4}, "ROADMAP.md C"),
     ({"problem": "pfsp", "lb": "lb2", "lb2_pairblock": "auto"},
@@ -239,9 +240,11 @@ def test_submit_stream_result_equal_the_jax_cli(daemon, capsys):
     (entry,) = classes
     assert entry["programs"] == 1 and entry["jobs_admitted"] == 2
     assert entry["pool_bytes"] > 0
+    # A mesh job's mp splits the lb2 pair loop: refused off pfsp lb2 with
+    # the JAX daemon's message (an invalid admission).
     code, err = _post(base, "/submit", {"problem": "nqueens",
                                         "tier": "mesh", "mp": 2})
-    assert code == 400 and "A.9" in err["error"]
+    assert code == 400 and "pfsp lb='lb2' only" in err["error"]
     from tpu_tree_search_torch.serve.metrics import parse_text
 
     with urllib.request.urlopen(base + "/metrics", timeout=30) as r:

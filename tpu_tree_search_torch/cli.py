@@ -84,11 +84,14 @@ dist_mesh), and ``lint`` runs the lock rules (``guarded-by``,
 ``lock-order``) over the port. ``check`` audits JAX programs and has no
 counterpart.
 
-What is not ported exits 2 naming the ROADMAP.md queue that ports it
-(A.9's second half, steps 3-4: ``--mp`` and a mesh on more than one card,
-``--device`` with a comma), and so does any shape or option the port
-refuses, or a flag the chosen tier or engine would ignore (``Error: ...``
-on stderr, no traceback).
+``--mp`` splits the lb2 Johnson pair loop of the mesh tiers in pair blocks
+(pfsp --lb lb2, ``--tier mesh``/``dist_mesh``), refused elsewhere with the
+JAX CLI's messages. ``--device`` takes a comma list of device positions
+(``cuda:0,cuda:1``; a card may repeat) for the multi, mesh and dist tiers:
+worker or shard d on position d mod the list's length (under ``--mp``,
+shard d on position d*mp); the single-device and sequential tiers take one
+device. A shape or option the port refuses, or a flag the chosen tier or
+engine would ignore, exits 2 (``Error: ...`` on stderr, no traceback).
 """
 
 from __future__ import annotations
@@ -102,8 +105,6 @@ from contextlib import contextmanager
 TIERS = ("seq", "device", "mesh", "multi", "dist", "dist_mesh")
 ENGINES = ("resident", "offload")
 DIST_TIERS = ("dist", "dist_mesh")
-A9_STEPS_3_4 = ("ROADMAP.md queue A, A.9's second half, steps 3-4: the "
-                "mesh's --mp pair axis, and mesh shards on more than one card")
 #: The JAX CLI's reason for refusing ``--guard`` off the resident loops
 #: (`tpu_tree_search/cli.py:451-460`).
 GUARD_TIERS = ("--guard asserts steady-state purity of the resident device "
@@ -183,17 +184,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine/pipeline.py); default 4096, clamped to the "
                         "int32 counters' headroom")
     p.add_argument("--device", default=None,
-                   help="cuda (default; raises when absent) or cpu; a comma "
-                        "list (a mesh on several cards) is refused (not "
-                        "ported yet)")
+                   help="cuda (default; raises when absent) or cpu; for the "
+                        "multi, mesh and dist tiers a comma list of device "
+                        "positions (cuda:0,cuda:1; a card may repeat: two "
+                        "groups on one card), worker or shard d on position "
+                        "d mod the list's length")
     p.add_argument("--D", type=int, default=None,
-                   help="multi, mesh and dist tiers: worker threads (placed "
-                        "round robin on the cards) or pool shards (all on "
-                        "one card), a host's under dist/dist_mesh; default: "
-                        "the number of cards over the hosts (1 on the CPU)")
+                   help="multi, mesh and dist tiers: worker threads or pool "
+                        "shards (placed round robin on the device "
+                        "positions), a host's under dist/dist_mesh; default: "
+                        "the positions (the cards) over the hosts, over --mp "
+                        "on the mesh tiers (1 on the CPU)")
     p.add_argument("--mp", type=int, default=1,
-                   help="mesh tiers, PFSP lb2: the pair axis; refused (not "
-                        "ported yet)")
+                   help="mesh tiers, PFSP lb2 only: split the Johnson "
+                        "machine-pair loop in this many pair blocks (the JAX "
+                        "mp mesh axis), their planes maxed; runs the unfused "
+                        "cycle")
     p.add_argument("--perc", type=float, default=0.5,
                    help="multi and dist tiers: fraction of a victim's pool "
                         "front taken a steal (0.5 = the steal-half rule)")
@@ -553,14 +559,20 @@ def check_supported(args) -> None:
     if args.guard and not (args.tier in ("mesh", "dist_mesh") or (
             args.tier == "device" and args.engine == "resident")):
         raise ValueError(GUARD_TIERS)
-    if args.device is not None and "," in args.device:
-        raise NotImplementedError(
-            f"--device {args.device}: one search on several cards is not "
-            f"ported yet ({A9_STEPS_3_4})")
+    if device_list(args) is not None and args.tier not in (
+            "multi", "mesh") + DIST_TIERS:
+        raise ValueError(f"--device {args.device}: the {args.tier} tier runs "
+                         "on one device; a comma list of device positions "
+                         "applies to the multi, mesh and dist tiers")
     if args.mp != 1:
+        # The JAX CLI's refusals (`tpu_tree_search/cli.py:520-527`).
+        if args.tier not in ("mesh", "dist_mesh"):
+            raise ValueError("--mp only applies to --tier mesh/dist_mesh")
         if args.mp < 1:
             raise ValueError("--mp must be >= 1")
-        raise NotImplementedError(f"--mp is not ported yet ({A9_STEPS_3_4})")
+        if args.problem != "pfsp" or args.lb != "lb2":
+            raise ValueError("--mp shards the lb2 Johnson pair loop "
+                             "(pfsp --lb lb2 only)")
     if args.D is not None:
         if args.tier not in ("multi", "mesh") + DIST_TIERS:
             raise ValueError("--D applies to the multi, mesh and dist tiers")
@@ -637,6 +649,14 @@ def check_limits(args) -> None:
     if args.checkpoint_interval < 0:
         raise ValueError("--checkpoint-interval must be >= 0, got "
                          f"{args.checkpoint_interval}")
+
+
+def device_list(args) -> list[str] | None:
+    """``--device``'s comma list of device positions, or None for one
+    device."""
+    if args.device is None or "," not in args.device:
+        return None
+    return [d.strip() for d in args.device.split(",")]
 
 
 def check_parallel(args) -> None:
@@ -906,6 +926,8 @@ def result_record(args, res, device) -> dict:
     rec.update(device=str(device), engine=res.engine, M=res.M)
     if args.problem == "pfsp" and args.lb == "lb2":
         rec["staged"] = res.staged
+    if args.tier in ("mesh", "dist_mesh"):
+        rec["mp"] = res.mp
     if res.per_worker_tree:
         # The multi and mesh tiers: each worker's or shard's explored nodes
         # and their shares (`SearchResult.workload_shares`), and the steals
@@ -1100,6 +1122,7 @@ def run_search(args, K, device, problem, M, coll) -> int:
         live_server = obs_live.serve(args.obs_serve)
         print(f"Live monitor: {live_server.url} "
               f"(watch --port {live_server.port})")
+    devices = device_list(args)
     try:
         if args.tier == "seq":
             from .engine.sequential import sequential_search
@@ -1109,7 +1132,8 @@ def run_search(args, K, device, problem, M, coll) -> int:
             from .parallel.multidevice import multidevice_search
 
             res = multidevice_search(
-                problem, m=args.m, M=M, D=args.D, device=args.device,
+                problem, m=args.m, M=M, D=args.D, devices=devices,
+                device=args.device if devices is None else None,
                 perc=args.perc, checkpoint_path=args.checkpoint,
                 checkpoint_interval_s=args.checkpoint_interval,
                 resume_from=args.resume)
@@ -1120,7 +1144,9 @@ def run_search(args, K, device, problem, M, coll) -> int:
                 "steal_interval_s": args.steal_interval}
             res = dist_search(
                 problem, m=args.m, M=M, D=args.D, num_hosts=args.hosts,
-                device=args.device, perc=args.perc,
+                devices=devices,
+                device=args.device if devices is None else None,
+                perc=args.perc,
                 steal=not args.no_steal, checkpoint_path=args.checkpoint,
                 checkpoint_interval_s=args.checkpoint_interval,
                 resume_from=args.resume, collectives=coll, **kw)
@@ -1128,8 +1154,10 @@ def run_search(args, K, device, problem, M, coll) -> int:
             from .parallel.dist_mesh import dist_mesh_search
 
             res = dist_mesh_search(
-                problem, m=args.m, M=M, K=K, D=args.D, num_hosts=args.hosts,
-                device=args.device, fused=not args.unfused,
+                problem, m=args.m, M=M, K=K, D=args.D, mp=args.mp,
+                num_hosts=args.hosts, devices=devices,
+                device=args.device if devices is None else None,
+                fused=not args.unfused,
                 max_steps=args.max_steps, checkpoint_path=args.checkpoint,
                 checkpoint_interval_s=args.checkpoint_interval,
                 resume_from=args.resume, collectives=coll)
@@ -1137,7 +1165,8 @@ def run_search(args, K, device, problem, M, coll) -> int:
             from .parallel.resident_mesh import mesh_resident_search
 
             res = mesh_resident_search(
-                problem, m=args.m, M=M, K=K, D=args.D, device=device,
+                problem, m=args.m, M=M, K=K, D=args.D, mp=args.mp,
+                devices=devices, device=device,
                 fused=not args.unfused, max_steps=args.max_steps,
                 checkpoint_path=args.checkpoint,
                 checkpoint_interval_s=args.checkpoint_interval,
@@ -1214,7 +1243,7 @@ def prepare(args):
     if args.tier == "seq":
         return None, None, problem, None
     from .engine.pipeline import resolve_k, resolve_pipeline_depth
-    from .ops.backend import resolve_device
+    from .ops.backend import resolve_device, resolve_devices
     from .ops.lb2_kernel import johnson_operands
     from .ops.tiled import check_tile
 
@@ -1226,12 +1255,18 @@ def prepare(args):
         K = 16 if mesh and args.K is None else parse_k(args.K)
         resolve_k(K, default_max=16 if mesh else 4096)
         resolve_pipeline_depth()
-    device = resolve_device(args.device)
+    devices = device_list(args)
+    if devices is not None:
+        devices = [str(d) for d in resolve_devices(devices)]
+    device = resolve_device(args.device if devices is None else devices[0])
     hosts, ranks = host_ranks(args)
     if args.tier in ("multi", "mesh") + DIST_TIERS and args.D is None:
         from .parallel.multidevice import default_devices
 
-        args.D = max(1, len(default_devices(args.device)) // hosts)
+        count = (len(devices) if devices is not None
+                 else len(default_devices(args.device)))
+        per = args.mp if args.tier in ("mesh", "dist_mesh") else 1
+        args.D = max(1, count // hosts // per)
     M = args.M if args.M is not None else default_M(
         args.problem, device.type, args.tier, args.engine)
     # The tile width of the fused cycle; lb1_d has no fused cycle, and

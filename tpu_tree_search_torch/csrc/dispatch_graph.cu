@@ -453,6 +453,27 @@ extern "C" int phase_mark_enqueue(void* clk, int slot, int flags,
   return tts_phase_mark(clk, slot, flags, static_cast<cudaStream_t>(stream));
 }
 
+// One mark whose slot is chosen on the device: `alt` where the word `*sel`
+// is nonzero, else `slot` (the unfused cycle's push or overflow branch).
+__global__ void phase_mark_if(long long* clk, int slot, int alt, int flags,
+                              const int* sel) {
+  const long long now = tts_globaltimer();
+  const int at = *sel ? alt : slot;
+  clk[at] += now - clk[PH_TPREV];
+  clk[PH_TPREV] = now;
+  if (flags & PH_OPEN) clk[PH_T0] = now;
+  if (flags & PH_CLOSE) clk[PH_TOTAL] += now - clk[PH_T0];
+}
+
+extern "C" int phase_mark_if_enqueue(void* clk, int slot, int alt, int flags,
+                                     void* sel, void* stream) {
+  if (!clk) return 0;
+  phase_mark_if<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(clk), slot, alt, flags,
+      static_cast<const int*>(sel));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The clock's step: one thread reads %globaltimer `reads` times back to
 // back and writes each difference from the read before to out[0..reads-1].
 __global__ void globaltimer_probe(long long* out, int reads) {

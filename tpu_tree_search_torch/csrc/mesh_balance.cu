@@ -241,6 +241,20 @@ __global__ void mesh_shed(uint8_t* vals, uint8_t* aux,
   mesh_copy(aux + d * shard_a, stage_aux + slot * shard_a, rows * auxb);
 }
 
+// The plan alone on `stream` (the mesh over several device groups: the
+// states of all D shards gathered on one card, the moves made on each
+// group's card). Returns the CUDA error, 0 on success.
+extern "C" int mesh_plan_enqueue(void* st, int D, void* plan, int C, int m,
+                                 int T, long long Mn, int first, int last,
+                                 void* stream) {
+  if (D < 1 || D > TTS_MESH_MAX_SHARDS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  mesh_plan<<<1, tts_threads_for(D), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(st), D, m, T, Mn, C, first, last,
+      static_cast<int*>(plan));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One balance step on `stream`: `mesh_plan`, then with D > 1 `mesh_move`
 // and `mesh_shed`. `first`/`last`: whether this is the dispatch's first or
 // last round. Returns the CUDA error, 0 on success.

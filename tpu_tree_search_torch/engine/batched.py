@@ -12,14 +12,15 @@ Two rules keep every slot bit-identical to a solo run:
   * **Each slot runs its own solo cycles, masked by its own condition.**
     The B slots' scalar blocks are the rows of one (B, ST_LEN) int32
     tensor; each slot owns a pool of the program's capacity. On the card
-    a fused program's dispatch is one CUDA graph (`ops/dispatch.py`
-    ``BatchGraph``): ``batch_init``, then a ``while`` node whose body is
-    each slot's cycle in slot order (the resident program's own
-    ``_fused_cycle`` on that slot's state: kernels 2, 4, 8 or 9a-c) and
-    one ``batch_cond``; a slot whose condition is false runs an exact
-    no-op, the counterpart of the JAX ``jnp.where(live, new, old)``. On
-    the CPU, and for unfused programs, a dispatch runs rounds on the host:
-    in each, every live slot runs one cycle and a frozen slot nothing. The
+    a dispatch is one CUDA graph (`ops/dispatch.py` ``BatchGraph``):
+    ``batch_init``, then a ``while`` node whose body is each slot's cycle
+    in slot order (the resident program's own cycle on that slot's state:
+    the fused one, kernels 2, 4, 8 or 9a-c, or the unfused one of fixed
+    shapes) and one ``batch_cond``; a slot whose condition is false runs
+    an exact no-op, the counterpart of the JAX ``jnp.where(live, new,
+    old)``. On the CPU a dispatch runs rounds on the host
+    (``host_rounds``): in each, every live slot runs one cycle and a
+    frozen slot nothing. The
     B slots share one cycle scratch: their cycles run one after another on
     one stream.
   * **Admission is a copy, never an allocation.** ``make_slot`` copies a
@@ -47,19 +48,12 @@ from ..obs import phases as obs_phases
 from ..ops.backend import resolve_device
 from ..ops.cycle import (
     ST_CTR,
-    ST_CTR_SOL,
     ST_CYCLES,
     ST_LEN,
     ST_RUNS,
-    ST_TREE,
     new_state,
 )
-from ..ops.dispatch import (
-    BatchGraph,
-    batch_cond_plain,
-    batch_init_plain,
-    loop_active,
-)
+from ..ops.dispatch import BatchGraph
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 from . import resident as R
@@ -194,10 +188,9 @@ class BatchedProgram(R.CachedProgram):
         if g is None:
             n = self.problem.child_slots
             inner = self.inner
-            g = BatchGraph([lambda s=s: inner._fused_cycle(s)
-                            for s in self.states], self.st, self.m,
-                           self.M * n, self.capacity, self.K,
-                           obs=n if self.obs else 0)
+            g = BatchGraph([inner.slot_cycle(s) for s in self.states],
+                           self.st, self.m, self.M * n, self.capacity, self.K,
+                           obs=n if self.obs else 0, fold=inner.fused)
             self.graph_build_s += g.build_s
             self._graphs[key] = g
         return g
@@ -205,36 +198,8 @@ class BatchedProgram(R.CachedProgram):
     def _host_step(self) -> list:
         """Up to K rounds on the host: in each, every live slot runs one
         cycle (the plain or unfused one) and a frozen slot runs nothing."""
-        inner = self.inner
-        n = self.problem.child_slots
-        Mn = self.M * n
-        if inner.fused:
-            live = batch_init_plain(self.st, self.m, Mn, self.capacity,
-                                    self.K, self.obs)
-            for _ in range(self.K):
-                if not live:
-                    break
-                for s in self.states:
-                    inner._fused_cycle(s)
-                live = batch_cond_plain(self.st, n if self.obs else 0,
-                                        self.m, Mn, self.capacity, self.K)
-            return self.st.tolist()
-        # The unfused cycle synchronises once a cycle: the round reads each
-        # slot's condition from its words.
-        self.st[:, ST_TREE:ST_CYCLES + 1] = 0
-        self.st[:, ST_RUNS] = 0
-        if self.obs:
-            self.st[:, ST_CTR:ST_CTR_SOL + 1] = 0
-        rows = self.st.tolist()
-        while True:
-            live = [i for i, v in enumerate(rows)
-                    if loop_active(v, self.m, Mn, self.capacity, self.K)]
-            if not live:
-                return rows
-            for i in live:
-                inner._unfused_cycles(self.states[i], 1)
-                self.st[i, ST_RUNS] += 1
-            rows = self.st.tolist()
+        self.inner.host_rounds(self.states, self.st, True)
+        return self.st.tolist()
 
     def _free(self) -> None:
         """The graphs, the inner program and the slots' tensors."""

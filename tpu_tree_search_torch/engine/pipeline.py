@@ -47,7 +47,7 @@ MAX_DEPTH = 3
 #: detection and checkpoint cadence.
 RESIDENT_TARGET = (0.100, 0.250)
 
-#: Tighter band for the mesh and dist tiers (ROADMAP A.9): incumbent
+#: Tighter band for the mesh and dist tiers: incumbent
 #: folds, balancing and exchange happen at dispatch boundaries.
 MESH_TARGET = (0.050, 0.150)
 

@@ -32,8 +32,10 @@ Two cycles compute this and leave identical live pools:
     unfused;
   * unfused (``fused=False``): pop, the problem's device evaluator (the
     lb1, lb1_d, lb2 or labels kernel), torch `compact_ids` and the
-    one-gather push of `resident.py:311-352`, with the overflow branch. It
-    synchronises once per cycle to read the survivor count. Under lb2 the
+    one-gather push of `resident.py:311-352`, with the overflow branch.
+    Its shapes are fixed and its scalars stay on the device, so on the
+    card its K cycles are one graph too (the while body: the kernel, the
+    torch compaction and push). Under lb2 the
     evaluator is staged by default (``staged=True``, `resident.py:598-614`):
     the lb1 kernel, the leaf fold, the candidates ``open & ~leaf & lb1 <
     best``, lb2 of the compacted candidates only (the self kernel), and
@@ -88,10 +90,9 @@ guard.py`, the JAX engine's): one guard a program and K rung wraps each
 dispatch's enqueue (the graph launch and the non-blocking copies, not the
 read): the rung's first dispatch is its warm one, and every later one must
 build nothing and, on the card, make no synchronising call. The stall
-fallback's re-upload re-arms it. The unfused cycle reads its survivor
-count once a cycle, so on the card a guarded unfused search raises at its
-second dispatch: that is the guard working (its repair is a CUDA
-compaction). The result's ``guard`` records the dispatches it checked.
+fallback's re-upload re-arms it. Both cycles' dispatches are one graph
+launch on the card, so a guarded search of either runs through. The
+result's ``guard`` records the dispatches it checked.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ from ..obs import roofline as obs_roofline
 from ..ops._build import count_build
 from ..ops.backend import resolve_device
 from ..ops.compact_policy import resolve_compact_mode
-from ..ops.compaction import compact_ids, shift_compact, survivor_ranks
+from ..ops.compaction import compact_ids
 from ..ops.cycle import (
     ST_ACTIVE,
     ST_BEST,
@@ -130,7 +131,7 @@ from ..ops.cycle import (
     new_state,
 )
 from ..ops.cycle_nqueens import cycle_nqueens, nqueens_scratch
-from ..ops.pfsp_device import lb1_bounds, lb2_bounds_staged
+from ..ops.pfsp_device import lb1_bounds, lb2_bounds_mp, lb2_bounds_staged
 from ..ops.tiled import (
     check_tile,
     tiled_lb1,
@@ -146,9 +147,13 @@ from ..problems.nqueens import NQueensProblem
 from ..problems.pfsp.problem import PFSPProblem
 from ..ops.dispatch import (
     DispatchGraph,
+    batch_cond_plain,
+    batch_init_plain,
     dispatch_cond_obs_plain,
+    loop_active,
     new_clock,
     phase_mark,
+    phase_mark_if,
 )
 from . import checkpoint as ckpt
 from .device import DeviceOffloader, drain, pool_dtype, pool_dtypes, warmup
@@ -213,17 +218,10 @@ def pool_from_numpy(vals, aux, size: int, best: int, capacity: int,
     return ResidentState(pool_vals, pool_aux, new_state(size, best, dev))
 
 
-def _swap_children(vals: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
-    """(M, n, n): row (i, k) = parent i with positions depth_i and k swapped
-    (identity when k == depth_i) — `resident.py:_swap_children`."""
-    n = vals.shape[1]
-    iota = torch.arange(n, device=vals.device)[None, None, :]
-    kcol = iota.transpose(1, 2)
-    d = depth.long()[:, None, None]
-    val_at_k = vals[:, :, None]
-    val_at_d = vals.gather(1, depth.long()[:, None])[:, :, None]
-    return torch.where(iota == d, val_at_k,
-                       torch.where(iota == kcol, val_at_d, vals[:, None, :]))
+#: The JAX mesh tier's refusal of the mp axis off lb2
+#: (`tpu_tree_search/parallel/resident_mesh.py:96-100`).
+MP_LB2_ONLY = ("mp-axis sharding splits the lb2 Johnson pair loop; use a "
+               "single-axis mesh for other problems/bounds")
 
 
 #: Guards the program caches on problems and the programs' ``busy`` flags
@@ -301,6 +299,8 @@ class _ResidentProgram(CachedProgram):
     aux_dtype: torch.dtype
     # Whether the unfused cycle runs a staged evaluator (PFSP lb2 only).
     staged = False
+    # The lb2 pair blocks an evaluation splits into (PFSP lb2 only).
+    mp = 1
 
     def __init__(self, problem: Problem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
@@ -324,9 +324,9 @@ class _ResidentProgram(CachedProgram):
         self.compact = None if fused else resolve_compact_mode(problem, M, n)
         cuda = self.device.type == "cuda"
         self._scratch = self._make_scratch() if fused and cuda else None
-        # The fused cycle on the card dispatches through CUDA graphs, one a
-        # K rung, keyed on the state tensors' addresses that they bake in.
-        self.graphed = fused and cuda
+        # On the card both cycles dispatch through CUDA graphs, one a K
+        # rung, keyed on the state tensors' addresses that they bake in.
+        self.graphed = cuda
         self._graphs: dict[tuple, DispatchGraph] = {}
         self.graph_build_s = 0.0
         # The graph dispatches' device time: CUDA events around each graph
@@ -402,8 +402,8 @@ class _ResidentProgram(CachedProgram):
 
     def step(self, state: ResidentState) -> None:
         """One dispatch: up to K cycles, in place on ``state``. On the card
-        the fused cycle's dispatch is one graph launch; on the CPU the plain
-        cycles run until the loop condition is false."""
+        a dispatch is one graph launch; on the CPU the plain cycles run
+        until the loop condition is false."""
         if self.graphed:
             self._graph(state).launch()
             return
@@ -428,7 +428,7 @@ class _ResidentProgram(CachedProgram):
         """``step``, and a function ``read(full=False)`` that returns its
         scalars ``(tree, sol, cycles, size, best)``, or with ``full`` a
         ``DispatchRead`` (the scalars, the counter block, the phase block,
-        the dispatch's device ms). On the card's fused cycle the graph
+        the dispatch's device ms). On the card the graph
         launch sits between two timing events, the state (and the clock)
         are copied without blocking into the next pinned slot behind a
         third, and the function waits for that event, adds the dispatch's
@@ -489,9 +489,11 @@ class _ResidentProgram(CachedProgram):
         g = self._graphs.get(key)
         if g is None:
             n = self.problem.child_slots
-            g = DispatchGraph(lambda: self._fused_cycle(state), state.st,
-                              self.m, self.M * n, self.capacity, self.K,
-                              obs=n if self.obs else 0, clk=self.clk)
+            cycle = self._fused_cycle if self.fused else self._unfused_cycle
+            g = DispatchGraph(lambda: cycle(state), state.st, self.m,
+                              self.M * n, self.capacity, self.K,
+                              obs=n if self.obs else 0, clk=self.clk,
+                              fold=self.fused)
             self.graph_build_s += g.build_s
             self._graphs[key] = g
         return g
@@ -538,127 +540,149 @@ class _ResidentProgram(CachedProgram):
         """The branching swap position of each parent, from its aux."""
         raise NotImplementedError
 
-    def _evaluate(self, vals_c, aux_c, valid, best: int):
+    def _evaluate(self, vals_c, aux_c, valid, best: torch.Tensor):
         """``(keep (M, width) bool, sol_inc, best)`` of a popped chunk
-        (0-d tensors): the `_make_eval` fold of the JAX programs."""
+        (0-d tensors; ``best`` a 0-d int32 tensor on the chunk's device):
+        the `_make_eval` fold of the JAX programs."""
         raise NotImplementedError
 
     # -- the unfused cycle ---------------------------------------------------
 
     def _unfused_step(self, state: ResidentState) -> None:
-        """Up to K unfused cycles (``step`` has zeroed the counts)."""
-        self._unfused_cycles(state, self.K)
+        """Up to K unfused cycles on the host's loop (``step`` has zeroed
+        the counts): the cycle while the loop condition holds."""
+        n = self.problem.child_slots
+        for _ in range(self.K):
+            if not loop_active(state.st.tolist(), self.m, self.M * n,
+                               self.capacity, self.K):
+                break
+            self._unfused_cycle(state)
 
-    def _unfused_cycles(self, state: ResidentState, limit: int) -> None:
-        """Up to ``limit`` more unfused cycles of the dispatch in progress,
-        counted on from the state's tree, sol, cycles and counter block;
-        synchronises once per cycle. Armed, each cycle is folded into the
-        counter block (JAX's non-megakernel slots: an overflow cycle counts
-        one ``overflow`` and M*n ``push_rows``, a fitting one S) and the
-        phase clock is marked after the pop, the evaluation, the compaction
-        and the push or overflow (``phase_mark`` on the stream)."""
-        n, m, M, C, S = self.problem.child_slots, self.m, self.M, self.capacity, self.S
+    def slot_cycle(self, state: ResidentState):
+        """The cycle a batch or mesh graph captures for one slot's state
+        (a slot whose condition fails runs an exact no-op that clears
+        ``st[ST_ACTIVE]``): a callable of no arguments."""
+        cycle = self._fused_cycle if self.fused else self._unfused_cycle
+        return lambda: cycle(state)
+
+    def host_rounds(self, states: list, st: torch.Tensor,
+                    zero_block: bool) -> None:
+        """Up to K rounds of the batch of ``states`` (rows of ``st``) on the
+        host, the plain counterpart of a batch or mesh graph's ``while``
+        node: ``batch_init`` (``zero_block``: the counter block zeroed
+        too), then each round every live slot's cycle and ``batch_cond``
+        (the fused cycle's counter fold: the unfused cycle folds its own).
+        A frozen slot runs nothing."""
+        n = self.problem.child_slots
+        Mn = self.M * n
+        live = batch_init_plain(st, self.m, Mn, self.capacity, self.K,
+                                self.obs and zero_block)
+        for _ in range(self.K):
+            if not live:
+                break
+            for s in states:
+                if self.fused:
+                    self._fused_cycle(s)
+                elif loop_active(s.st.tolist(), self.m, Mn, self.capacity,
+                                 self.K):
+                    self._unfused_cycle(s)
+                else:
+                    s.st[ST_ACTIVE] = 0
+            live = batch_cond_plain(st, n if self.obs and self.fused else 0,
+                                    self.m, Mn, self.capacity, self.K)
+
+    def _unfused_cycle(self, state: ResidentState) -> None:
+        """One unfused cycle on ``state``, in place, of fixed shapes with
+        its scalars on the device, so that it reads nothing back and a
+        graph captures it (`ops/dispatch.py`): an exact no-op where the
+        loop condition fails (a frozen mesh or batch shard).
+
+        The pop gathers the window ``[start2, start2 + M)``, ``start2 =
+        clamp(size - cnt, 0, C - M)``, with ``cnt = min(size, M)``; the
+        evaluator keeps the children; ``compact_ids`` ranks every survivor
+        in (parent, slot) order; the push rebuilds each child from its
+        parent (one gather of the parent row and aux, then selects: a
+        child differs from its parent at the two swapped positions) and
+        writes the survivors to rows ``[size, size + tree_inc)`` of a
+        window of M*n rows whose other rows keep their values. The
+        overflow branch of the JAX cycle (more than the budget S of
+        survivors) places the same rows; it is chosen on the device and
+        kept for the counter block and the phase clock. Armed, the cycle
+        folds into the counter block (`obs_counters.update`: an overflow
+        cycle counts one ``overflow`` and M*n ``push_rows``, a fitting one
+        S) and marks the phase clock after the pop, the evaluation, the
+        compaction and the push or overflow (``phase_mark_if``)."""
+        n, m, M, C, S = (self.problem.child_slots, self.m, self.M,
+                         self.capacity, self.S)
         Mn = M * n
-        dev = self.device
-        pool_vals, pool_aux = state.pool_vals, state.pool_aux
-        v = state.st.tolist()
-        size, best, tree, sol, cycles = v[:ST_CYCLES + 1]
+        st, pool_vals, pool_aux = state.st, state.pool_vals, state.pool_aux
+        dev = pool_vals.device
+        i32 = torch.int32
         clk = self.clk
-        ctr = v[ST_CTR:ST_CTR + obs_counters.NSLOTS] if self.obs else None
         P = obs_phases.IDX
-        ran = 0
-        while (ran < limit and size >= m and size + Mn <= C
-               and cycles < self.K):
-            ran += 1
-            if clk is not None:
-                phase_mark(clk, P["loop"], obs_phases.OPEN)
-            cnt = min(size, M)
-            start = size - cnt
-            start2 = min(max(start, 0), C - M)
-            idx = start2 + torch.arange(M, device=dev)
-            valid = (idx >= start) & (idx < size)
-            vals_c = pool_vals[start2:start2 + M].clone()
-            aux_c = pool_aux[start2:start2 + M].to(torch.int32)
-            size = start
-            if clk is not None:
-                phase_mark(clk, P["pop"])
-            keep, sol_inc, best_t = self._evaluate(vals_c, aux_c, valid, best)
-            if clk is not None:
-                phase_mark(clk, P["eval"])
-            ids, tree_inc = compact_ids(keep, S, self.compact)
-            if clk is not None:
-                phase_mark(clk, P["compact"])
-            tree_inc, sol_inc, best = torch.stack(
-                [tree_inc, sol_inc, best_t.to(torch.int32)]).tolist()
-            fits = tree_inc <= S
-            if fits:
-                self._push_small(pool_vals, pool_aux, vals_c, aux_c, ids, size)
-            else:
-                self._push_big(pool_vals, pool_aux, vals_c, aux_c, keep, size)
-            if clk is not None:
-                phase_mark(clk, P["push"] if fits else P["overflow"],
-                           obs_phases.CLOSE)
-            size += tree_inc
-            tree += tree_inc
-            sol += sol_inc
-            cycles += 1
-            if ctr is not None:
-                ctr = obs_counters.update(ctr, cnt, n, tree_inc, sol_inc,
-                                          not fits, size, S if fits else Mn)
-        state.st[:ST_CYCLES + 1] = torch.tensor(
-            [size, best, tree, sol, cycles], dtype=torch.int32)
-        if ctr is not None:
-            state.st[ST_CTR:ST_CTR + obs_counters.NSLOTS] = torch.tensor(
-                ctr, dtype=torch.int32)
-
-    def _push_small(self, pool_vals, pool_aux, vals_c, aux_c, ids, size):
-        """Fused prune+push (`resident.py:311-352`): ONE gather of the
-        survivor budget — parent row and parent aux ride the same augmented
-        (S, n+1) gather (aux fits the row dtype: limit1 in [-1, n) and depth
-        in [0, N]) — and each child row is rebuilt at its destination by
-        selects (a child differs from its parent at exactly the two swapped
-        positions). Rows past tree_inc are garbage past the new size."""
-        n = vals_c.shape[1]
+        if clk is not None:
+            phase_mark(clk, P["loop"], obs_phases.OPEN)
+        words = st[:ST_CYCLES + 1].clone()
+        size, best, tree, sol, cycles = words.unbind()
+        act = ((size >= m) & (size.long() + Mn <= C) & (cycles < self.K))
+        cnt = torch.where(act, torch.clamp(size, max=M), 0)
+        start = size - cnt
+        idx = torch.clamp(start, 0, C - M).long() + torch.arange(M, device=dev)
+        valid = (idx >= start) & (idx < size)
+        vals_c = pool_vals.index_select(0, idx)
+        aux_c = pool_aux.index_select(0, idx).to(i32)
+        if clk is not None:
+            phase_mark(clk, P["pop"])
+        keep, sol_inc, best_t = self._evaluate(vals_c, aux_c, valid, best)
+        if clk is not None:
+            phase_mark(clk, P["eval"])
+        ids, tree_inc = compact_ids(keep, Mn, self.compact)
+        if clk is not None:
+            phase_mark(clk, P["compact"])
+        # The push: the survivors' rows at [start, start + tree_inc) of the
+        # window at clamp(start, 0, C - Mn) (= start when the cycle runs;
+        # a cycle that does not run keeps none and rewrites the window).
         pi = (ids // n).long()
         kj = ids % n
         aug = torch.cat([vals_c, aux_c.to(vals_c.dtype)[:, None]], dim=1)
-        g = aug[pi]  # (S, n+1): the cycle's one child-value gather
+        g = aug[pi]  # (Mn, n+1): the cycle's one child-value gather
         rows = g[:, :n]
-        pa = g[:, n].to(torch.int32)
-        iota = torch.arange(n, dtype=torch.int32, device=vals_c.device)[None, :]
+        pa = g[:, n].to(i32)
+        iota = torch.arange(n, dtype=i32, device=dev)[None, :]
         ohd = iota == self._swap_pos(pa)[:, None]
         ohk = iota == kj[:, None]
         zero = torch.zeros_like(rows)
-        v_k = torch.where(ohk, rows, zero).sum(1, dtype=torch.int32)
-        v_d = torch.where(ohd, rows, zero).sum(1, dtype=torch.int32)
+        v_k = torch.where(ohk, rows, zero).sum(1, dtype=i32)
+        v_d = torch.where(ohd, rows, zero).sum(1, dtype=i32)
         crows = torch.where(ohd, v_k[:, None].to(rows.dtype),
                             torch.where(ohk, v_d[:, None].to(rows.dtype), rows))
-        S = ids.shape[0]
-        pool_vals[size:size + S] = crows
-        pool_aux[size:size + S] = (pa + 1).to(pool_aux.dtype)
-
-    def _push_big(self, pool_vals, pool_aux, vals_c, aux_c, keep, size):
-        """Overflow branch (a chunk keeps more than S children): build the
-        child cube and place every survivor at once."""
-        M, n = vals_c.shape
-        Mn = M * n
-        child = _swap_children(vals_c, self._swap_pos(aux_c)).reshape(Mn, n)
-        ranks, _ = survivor_ranks(keep)
-        caux = torch.repeat_interleave(aux_c + 1, n).to(pool_aux.dtype)
-        flat = keep.reshape(Mn)
-        if self.compact == "dense":
-            # Scatter-free: shift-compact the child rows themselves, then
-            # one contiguous write of the reserved M*n headroom.
-            flat_idx = torch.arange(Mn, dtype=torch.int32, device=keep.device)
-            dist = torch.where(flat, flat_idx - ranks.reshape(Mn),
-                               torch.zeros_like(flat_idx))
-            rowsc, auxc = shift_compact(dist, (child, caux))
-            pool_vals[size:size + Mn] = rowsc
-            pool_aux[size:size + Mn] = auxc
-            return
-        dest = (size + ranks.reshape(Mn))[flat].long()
-        pool_vals[dest] = child[flat]
-        pool_aux[dest] = caux[flat]
+        dest = (torch.clamp(start, 0, C - Mn).long()
+                + torch.arange(Mn, device=dev))
+        live = (torch.arange(Mn, device=dev) < tree_inc)
+        pool_vals.index_copy_(0, dest, torch.where(
+            live[:, None], crows, pool_vals.index_select(0, dest)))
+        pool_aux.index_copy_(0, dest, torch.where(
+            live, (pa + 1).to(pool_aux.dtype), pool_aux.index_select(0, dest)))
+        over = (tree_inc > S) & act
+        if clk is not None:
+            phase_mark_if(clk, P["push"], P["overflow"], over.to(i32),
+                          obs_phases.CLOSE)
+        new_size = start + tree_inc
+        st[:ST_CYCLES + 1] = torch.stack([
+            new_size, best_t.to(i32), tree + tree_inc, sol + sol_inc,
+            cycles + act.to(i32)])
+        st[ST_ACTIVE] = act.to(i32)
+        if self.obs:
+            on = act.to(i32)
+            ctr = st[ST_CTR:ST_CTR + obs_counters.NSLOTS]
+            push_rows = torch.where(over, Mn, S).to(i32)
+            inc = torch.stack([cnt, tree_inc, sol_inc,
+                               cnt * n - tree_inc - sol_inc, over.to(i32),
+                               on * 0, on * 0, push_rows]) * on
+            hwm = torch.stack([on * 0] * 5 + [new_size * on, tree_inc * on,
+                                              on * 0])
+            st[ST_CTR:ST_CTR + obs_counters.NSLOTS] = torch.maximum(
+                ctr + inc, hwm)
 
 
 class PFSPResident(_ResidentProgram):
@@ -667,7 +691,11 @@ class PFSPResident(_ResidentProgram):
     ``staged`` (lb2, unfused cycle only; the counterpart of the JAX
     ``allow_staged``) picks the staged evaluator over the single-pass lb2
     kernel. The fused lb2 cycle always folds the unstaged keep, as the JAX
-    megakernel does (`megakernel.py:1007-1012`)."""
+    megakernel does (`megakernel.py:1007-1012`). ``mp`` > 1 (lb2 only, the
+    mesh tier's pair axis) splits the lb2 Johnson pair loop in mp pair
+    blocks (`ops/pfsp_device.py` ``lb2_bounds_mp``, ``lb2_self_bounds_mp``)
+    and runs the unfused cycle: the JAX megakernel refuses "mp pair-axis
+    sharding (the fused cycle is single-shard)" (`megakernel.py:355-358`)."""
 
     # Deep PFSP chunks prune heavily; the unfused push's gather budget is
     # a quarter of the slot grid (the JAX engine's choice).
@@ -675,14 +703,21 @@ class PFSPResident(_ResidentProgram):
 
     def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
-                 staged: bool = True, mt: int | None = None):
+                 staged: bool = True, mt: int | None = None, mp: int = 1):
+        if mp > 1 and problem.lb != "lb2":
+            raise ValueError(MP_LB2_ONLY)
         self.vals_dtype, self.aux_dtype = pool_dtypes(problem)
+        self.mp = int(mp)
         # lb1_d has no fused cycle (the JAX megakernel refuses it,
-        # `megakernel.py:351-354`): it runs the unfused cycle with its kernel.
+        # `megakernel.py:351-354`), nor has the mp pair axis (`:355-358`):
+        # they run the unfused cycle with their kernels.
         super().__init__(problem, m, M, K, capacity, device,
-                         fused=fused and problem.lb != "lb1_d", mt=mt)
+                         fused=fused and problem.lb != "lb1_d" and mp == 1,
+                         mt=mt)
         self.tables = problem.device_tables(self.device)
         self.staged = staged and problem.lb == "lb2" and not self.fused
+        if self.mp > 1:
+            self.tables.pair_blocks(self.mp)  # built before any capture
 
     def derive_fields(self, batch: dict) -> dict:
         # depth == limit1 + 1 for every node the engine pushes.
@@ -717,8 +752,12 @@ class PFSPResident(_ResidentProgram):
         n = self.problem.jobs
         # Staged lb2: the lb1 kernel decides the leaves (at a leaf lb1 and
         # lb2 are both the makespan) and the candidates.
-        bounds = (lb1_bounds(vals_c, aux_c, self.tables) if self.staged
-                  else self.problem.device_bounds(vals_c, aux_c))
+        if self.staged:
+            bounds = lb1_bounds(vals_c, aux_c, self.tables)
+        elif self.mp > 1:
+            bounds = lb2_bounds_mp(vals_c, aux_c, self.tables, self.mp)
+        else:
+            bounds = self.problem.device_bounds(vals_c, aux_c)
         pdepth = aux_c + 1
         kk = torch.arange(n, dtype=torch.int32, device=vals_c.device)
         open_ = (kk[None, :] >= pdepth[:, None]) & valid[:, None]
@@ -730,7 +769,8 @@ class PFSPResident(_ResidentProgram):
             .min(), max=best)
         keep = open_ & ~leaf & (bounds < best_t)
         if self.staged:
-            keep &= lb2_bounds_staged(vals_c, aux_c, keep, self.tables) < best_t
+            keep &= lb2_bounds_staged(vals_c, aux_c, keep, self.tables,
+                                      self.mp) < best_t
         return keep, torch.sum(leaf, dtype=torch.int32), best_t
 
 
@@ -774,11 +814,11 @@ class NQueensResident(_ResidentProgram):
         sol_inc = torch.sum(valid & (aux_c == N), dtype=torch.int32)
         labels = self.problem.device_bounds(vals_c, aux_c).bool()
         keep = labels & valid[:, None] & (aux_c < N)[:, None]
-        return keep, sol_inc, torch.tensor(best, device=vals_c.device)
+        return keep, sol_inc, best
 
 
 def program_key(m: int, M: int, K: int, capacity: int, device, fused: bool,
-                staged: bool, mt: int | None) -> tuple:
+                staged: bool, mt: int | None, mp: int = 1) -> tuple:
     """The cache key of a resident program (`resident.py:682-702`, with the
     port's routing inputs): what selects its cycle, its graphs and its
     state, and the telemetry flags its graphs bake in. K is the K asked
@@ -786,18 +826,21 @@ def program_key(m: int, M: int, K: int, capacity: int, device, fused: bool,
     when a search takes it."""
     return (m, M, K, capacity, str(resolve_device(device)), fused, staged, mt,
             obs_counters.device_counters_enabled(),
-            obs_phases.phase_profiling_enabled())
+            obs_phases.phase_profiling_enabled()) + ((mp,) if mp > 1 else ())
 
 
 def new_program(problem: Problem, m: int, M: int, K: int, capacity: int,
                 device, fused: bool = True, staged: bool = True,
-                mt: int | None = None) -> _ResidentProgram:
-    """A new, uncached resident program of ``problem``; ``staged`` reaches
-    the PFSP lb2 program only, ``mt`` the fused cycle."""
+                mt: int | None = None, mp: int = 1) -> _ResidentProgram:
+    """A new, uncached resident program of ``problem``; ``staged`` and
+    ``mp`` reach the PFSP program only (``mp`` > 1: PFSP lb2), ``mt`` the
+    fused cycle."""
     count_build("programs")
     if isinstance(problem, PFSPProblem):
         return PFSPResident(problem, m, M, K, capacity, device, fused=fused,
-                            staged=staged, mt=mt)
+                            staged=staged, mt=mt, mp=mp)
+    if mp > 1:
+        raise ValueError(MP_LB2_ONLY)
     if isinstance(problem, NQueensProblem):
         return NQueensResident(problem, m, M, K, capacity, device, fused=fused,
                                mt=mt)

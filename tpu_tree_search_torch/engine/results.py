@@ -66,6 +66,9 @@ class SearchResult:
     # Resident tier, PFSP lb2: whether the unfused cycle ran the staged
     # evaluator (lb1 prefilter, then lb2 of the compacted candidates).
     staged: bool = False
+    # The mesh tiers: the lb2 pair blocks a shard's evaluation splits into
+    # (``mp``; 1 without the pair axis).
+    mp: int = 1
     # Resident tier, fused cycle: the tile width Mt of the cycle; below M the
     # chunk was streamed in M // Mt tiles, at M it was the single-tile cycle.
     # None on the unfused cycle, which has no tiles.

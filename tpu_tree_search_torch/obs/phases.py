@@ -60,7 +60,7 @@ SLOTS = (
     "compact",   # survivor ranks (compact_ids; the fused count launch)
     "push",      # survivor push (fits == True cycles; the fused emit)
     "overflow",  # overflow-branch push (fits == False unfused cycles)
-    "balance",   # mesh tiers (ROADMAP A.9)
+    "balance",   # mesh tiers (the balance step)
     "loop",      # between cycles: the condition node, the host loop
     "total",     # per-cycle end - start (== pop+eval+compact+push+overflow)
 )

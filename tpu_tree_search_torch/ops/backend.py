@@ -32,6 +32,24 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def resolve_devices(devices) -> list[torch.device]:
+    """A list of device positions (``resolve_device`` each; entries may
+    repeat a card), all cards or all the CPU. A card that is not there
+    raises."""
+    out = [resolve_device(d) for d in devices]
+    if not out:
+        raise ValueError("the device list is empty")
+    if len({d.type for d in out}) > 1:
+        raise ValueError("a device list holds cards or the CPU, not both: "
+                         f"{[str(d) for d in out]}")
+    missing = [str(d) for d in out
+               if d.type == "cuda" and d.index >= torch.cuda.device_count()]
+    if missing:
+        raise ValueError(f"no card {', '.join(missing)}: this machine has "
+                         f"{torch.cuda.device_count()}")
+    return out
+
+
 def profile_backend(device=None) -> str:
     """The cost-model profile key's backend of a run on ``device`` (the JAX
     ``profile_backend``): ``gpu`` on the card, ``cpu`` on the CPU; None

@@ -5,12 +5,18 @@ that stops at termination — the port's counterpart of the JAX engine's
 ``DispatchGraph`` builds, once a (program, K rung), a graph of three parts
 (`csrc/dispatch_graph.cu`): a kernel that zeroes tree, sol and cycles in
 the loop state and sets the condition; a ``while`` node whose body is one
-cycle, captured by calling the cycle's wrapper (kernels 2, 4, 8, 9a, 9b or
-9c) on a side stream in capture mode; and a last body kernel that sets the
-condition ``size >= m and size + M*n <= C and cycles < K`` from the state
-and counts the body's runs in ``st[ST_RUNS]``. ``launch`` enqueues one
-dispatch on the current stream: one ``cudaGraphLaunch``, no host
-synchronisation, and no cycle launched past termination.
+cycle, captured by calling the cycle on a side stream in capture mode (a
+fused cycle's wrapper, kernels 2, 4, 8, 9a, 9b or 9c, or the unfused
+cycle of `engine/resident.py`: kernel 1, 3, 5, 6 or 7 and the torch
+compaction and push, of fixed shapes, its scalars on the device); and a
+last body kernel that sets the condition ``size >= m and size + M*n <= C
+and cycles < K`` from the state and counts the body's runs in
+``st[ST_RUNS]``. ``launch`` enqueues one dispatch on the current stream:
+one ``cudaGraphLaunch``, no host synchronisation, and no cycle launched
+past termination. What torch allocates while a body is captured comes
+from a memory pool of the graph's own (``torch.cuda.MemPool``), kept for
+the graph's life, so no later allocation outside the graph is handed the
+blocks its nodes write.
 
 Launch counts: ``DispatchGraph.launches`` counts graph launches. A cycle
 wrapper counts its launches through ``count_launch``: one where it launches
@@ -33,13 +39,18 @@ two flags); off, the graph is the one above, node for node:
     cycle's child slots a parent) makes the body's last node
     ``dispatch_cond_obs``, which folds each cycle into the block in
     ``st[ST_CTR:]`` before it sets the condition (the plain version:
-    ``dispatch_cond_obs_plain``), and the init node zeroes the block;
+    ``dispatch_cond_obs_plain``), and the init node zeroes the block. The
+    unfused cycle folds its own block (it has an overflow branch), so its
+    graph is built with ``fold=False``: the init node zeroes the block and
+    the last node is ``dispatch_cond``;
   * the phase clock (``TTS_PHASEPROF=1``, `obs/phases.py`): ``clk`` (an
     int64 block of ``phases.BLOCK_LEN``) adds a seed ``phase_mark`` before
     the while node; the cycle entry, given the clock, enqueues its marks
     between its launches. ``phase_mark`` is also enqueued from Python by
-    the unfused cycle; on a CPU tensor ``phase_mark_plain`` reads
-    ``time.perf_counter_ns`` at the same boundaries.
+    the unfused cycle (``phase_mark_if`` where the slot it charges, push or
+    overflow, is a word on the device); on a CPU tensor
+    ``phase_mark_plain`` reads ``time.perf_counter_ns`` at the same
+    boundaries.
 
 Both kernels are in `csrc/dispatch_graph.cu` (``phase_mark`` in
 `csrc/phase_clock.cuh`); neither replaces a TPU kernel. Their launches are
@@ -66,6 +77,7 @@ from __future__ import annotations
 import ctypes
 import threading
 import time
+import weakref
 from contextlib import contextmanager
 
 import torch
@@ -125,6 +137,8 @@ _ENTRY_ARGS = {
                                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int),
     "phase_mark_enqueue": (_VP, ctypes.c_int, ctypes.c_int, _VP),
+    "phase_mark_if_enqueue": (_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              _VP, _VP),
     "dispatch_graph_kernels": (_VP, ctypes.c_int, ctypes.c_char_p,
                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
     "globaltimer_probe_enqueue": (_VP, ctypes.c_int, _VP),
@@ -146,20 +160,25 @@ class DispatchGraph:
     (M times the child slots), ``C`` and ``K`` are the loop condition's.
     ``obs`` (the child slots a parent; 0 off) arms the counter block,
     ``clk`` (the phase clock, or None) the seed mark; ``cycle()`` passes
-    the clock to its entry itself.
+    the clock to its entry itself. ``fold`` False (the unfused cycle,
+    which folds its own block) keeps the last node ``dispatch_cond`` with
+    the block armed.
     """
 
     def __init__(self, cycle, st: torch.Tensor, m: int, Mn: int, C: int,
-                 K: int, obs: int = 0, clk: torch.Tensor | None = None):
+                 K: int, obs: int = 0, clk: torch.Tensor | None = None,
+                 fold: bool = True):
         if not st.is_cuda:
             raise ValueError("DispatchGraph takes a CUDA state tensor")
         t0 = time.perf_counter()
         self.K = K
         self.st = st
         self.clk = clk
-        self.wrappers: list = [dispatch_cond_obs] if obs else []
+        cond_obs = obs if fold else 0
+        self.wrappers: list = [dispatch_cond_obs] if cond_obs else []
         self._graph = _VP()
         self._exec = _VP()
+        self.pool = capture_pool(self, st.device)
         body = _VP()
         handle = ctypes.c_ulonglong()
         lib, create = _fn("dispatch_graph_create")
@@ -170,7 +189,8 @@ class DispatchGraph:
                      "dispatch_graph_create")
         self._body = body
         try:
-            self._capture(lib, cycle, body, handle.value, m, Mn, C, K, obs)
+            self._capture(lib, cycle, body, handle.value, m, Mn, C, K,
+                          cond_obs)
             _, inst = _fn("dispatch_graph_instantiate")
             _build.check(lib, inst(self._graph, ctypes.byref(self._exec)),
                          "dispatch_graph_instantiate")
@@ -191,7 +211,8 @@ class DispatchGraph:
                      "dispatch_graph_begin_body")
         ok = 0
         try:
-            with torch.cuda.stream(side), recording(self.wrappers):
+            with torch.cuda.stream(side), recording(self.wrappers), \
+                    pooled(self.pool, side.device):
                 cycle()
             ok = 1
         finally:
@@ -230,13 +251,53 @@ class DispatchGraph:
                 for i in range(min(count.value, cap))]
 
     def close(self) -> None:
-        """Free the graph (after the work it launched has finished)."""
+        """Free the graph and its memory pool (after the work it launched
+        has finished)."""
         if self._graph or self._exec:
             lib, fn = _fn("dispatch_graph_destroy")
             _build.check(lib, fn(self._graph, self._exec),
                          "dispatch_graph_destroy")
             self._graph = _VP()
             self._exec = _VP()
+        if self.pool is not None:
+            self.pool = None
+            self._retire()
+
+
+#: Serialises the captures that allocate from a graph's pool and the
+#: destruction of retired pools: torch refuses to free a pool while any
+#: thread routes its allocations to one.
+# guarded-by: _POOL_LOCK -- _RETIRED is emptied (its pools destroyed) under
+# it; appends (a graph closed, or collected) are single list operations.
+_POOL_LOCK = threading.RLock()
+_RETIRED: list = []
+
+
+def capture_pool(owner, device: torch.device):
+    """A memory pool for what torch allocates while ``owner``'s (a
+    graph's) bodies are captured (``torch.cuda.MemPool``): its blocks stay
+    the graph's, whose nodes keep their addresses. When the graph is closed
+    or collected the pool is retired, and retired pools are destroyed when
+    the next one is made (never during a capture, which torch refuses)."""
+    if device.type != "cuda":
+        return None
+    with _POOL_LOCK:
+        _RETIRED.clear()
+        with torch.cuda.device(device):  # the pool is held on the graph's card
+            pool = torch.cuda.MemPool()
+    owner._retire = weakref.finalize(owner, _RETIRED.append, pool)
+    return pool
+
+
+@contextmanager
+def pooled(pool, device: torch.device):
+    """Route this thread's torch allocations on ``device`` to ``pool`` for
+    the block (nothing without a pool)."""
+    if pool is None:
+        yield
+        return
+    with _POOL_LOCK, torch.cuda.use_mem_pool(pool, device):
+        yield
 
 
 #: Graph launches in this process (all programs).
@@ -253,7 +314,7 @@ class BatchGraph(DispatchGraph):
     (no phase clock: the batched engine refuses it)."""
 
     def __init__(self, cycles: list, st: torch.Tensor, m: int, Mn: int,
-                 C: int, K: int, obs: int = 0):
+                 C: int, K: int, obs: int = 0, fold: bool = True):
         if not st.is_cuda or st.dim() != 2 or len(cycles) != st.shape[0]:
             raise ValueError("BatchGraph takes a CUDA (B, ST_LEN) state "
                              "tensor and one cycle a row")
@@ -262,12 +323,15 @@ class BatchGraph(DispatchGraph):
         self.st = st
         self.clk = None
         self.B = len(cycles)
-        # The wrappers each slot's capture recorded, and the condition node.
+        # The wrappers each slot's capture recorded, and the condition node
+        # (the unfused cycles fold their own blocks: ``fold`` False).
         self.slot_wrappers: list[list] = [[] for _ in cycles]
-        self.cond = batch_cond_obs if obs else batch_cond
+        cond_obs = obs if fold else 0
+        self.cond = batch_cond_obs if cond_obs else batch_cond
         self.wrappers = []
         self._graph = _VP()
         self._exec = _VP()
+        self.pool = capture_pool(self, st.device)
         body = _VP()
         handle = ctypes.c_ulonglong()
         lib, create = _fn("batch_graph_create")
@@ -278,7 +342,7 @@ class BatchGraph(DispatchGraph):
         self._body = body
         try:
             self._capture_batch(lib, cycles, body, handle.value, m, Mn, C, K,
-                                obs)
+                                cond_obs)
             _, inst = _fn("dispatch_graph_instantiate")
             _build.check(lib, inst(self._graph, ctypes.byref(self._exec)),
                          "dispatch_graph_instantiate")
@@ -299,7 +363,7 @@ class BatchGraph(DispatchGraph):
                      "dispatch_graph_begin_body")
         ok = 0
         try:
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), pooled(self.pool, side.device):
                 for cycle, wrappers in zip(cycles, self.slot_wrappers):
                     with recording(wrappers):
                         cycle()
@@ -493,6 +557,28 @@ def phase_mark(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
         phase_mark_cuda(clk, slot, flags)
     else:
         phase_mark_plain(clk, slot, flags)
+
+
+def phase_mark_if(clk: torch.Tensor, slot: int, alt: int, sel: torch.Tensor,
+                  flags: int = 0) -> None:
+    """One mark that charges ``alt`` where the 0-d int32 device word
+    ``sel`` is nonzero and ``slot`` where it is zero (the unfused cycle's
+    push or overflow, chosen on the device): the kernel on a CUDA block,
+    ``phase_mark_plain`` on a CPU one (which reads ``sel``)."""
+    if not clk.is_cuda:
+        phase_mark_plain(clk, alt if int(sel) else slot, flags)
+        return
+    ptr = clock_pointer(clk)
+    if not (0 <= slot < obs_phases.NSLOTS and 0 <= alt < obs_phases.NSLOTS):
+        raise ValueError(f"phase slots {slot}, {alt} out of range")
+    if not (sel.is_cuda and sel.dtype == torch.int32 and sel.numel() == 1
+            and sel.device == clk.device):
+        raise ValueError("sel is one int32 word on the clock's device")
+    lib, fn = _fn("phase_mark_if_enqueue")
+    stream = torch.cuda.current_stream(clk.device).cuda_stream
+    _build.check(lib, fn(ptr, slot, alt, flags, sel.data_ptr(), stream),
+                 "phase_mark_if")
+    count_launch(phase_mark_cuda)
 
 
 def count_marks(clk: torch.Tensor | None, marks: int) -> None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .dispatch import count_launch
 from .lb1_kernel import launch_lb1_family
 from .pfsp_device import PFSPDeviceTables, lb1_d_chunk
 
@@ -31,8 +32,9 @@ def lb1_d_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
     """(B, n) int32 lb1_d child bounds of ``prmu`` (B, n) / ``limit1``
     (B,), computed by the CUDA kernel on the current stream."""
     out = launch_lb1_family("lb1_d_bounds", _ENTRIES, prmu, limit1, tables)
-    _build.add_launches(lb1_d_bounds_cuda)
+    count_launch(lb1_d_bounds_cuda)
     return out
 
 
 lb1_d_bounds_cuda.launches = 0  # type: ignore[attr-defined]
+lb1_d_bounds_cuda.captures = 0  # type: ignore[attr-defined]

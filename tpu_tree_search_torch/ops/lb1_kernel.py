@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from .dispatch import count_launch
 from .pfsp_device import PFSPDeviceTables, lb1_chunk
 
 #: The plain PyTorch version of the kernel.
@@ -90,8 +91,9 @@ def lb1_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
     """(B, n) int32 lb1 child bounds of ``prmu`` (B, n) / ``limit1`` (B,),
     computed by the CUDA kernel on the current stream."""
     out = launch_lb1_family("lb1_bounds", _ENTRIES, prmu, limit1, tables)
-    _build.add_launches(lb1_bounds_cuda)
+    count_launch(lb1_bounds_cuda)
     return out
 
 
 lb1_bounds_cuda.launches = 0  # type: ignore[attr-defined]
+lb1_bounds_cuda.captures = 0  # type: ignore[attr-defined]

@@ -7,7 +7,10 @@ says what bounds it on the card and how the design answers that.
 ``lb2_bounds_cuda`` launches the kernel on CUDA tensors (int8 or int32
 prmu/limit1, as kernel 1) and raises on anything it does not take; ``plain``
 is its plain PyTorch version (`ops/pfsp_device.lb2_chunk`).
-``lb2_bounds_cuda.launches`` counts the launches.
+``lb2_bounds_cuda.launches`` counts the launches. ``lb2_block_cuda`` is
+the same kernel on one mp pair block (`pfsp_device.lb2_bounds_mp`, the
+``--mp`` path): the block's own tables, so the launch takes its P_local
+pairs and the route is chosen at P_local; its launches are counted apart.
 
 The lb2 kernels (6, 7, 8 and 9c) take two table routes
 (`csrc/lb2_common.cuh`), chosen from the shape before the launch:
@@ -32,6 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .dispatch import count_launch
 from .lb1_kernel import chunk_operands
 from .pfsp_device import PFSPDeviceTables, lb2_chunk
 
@@ -149,6 +153,25 @@ def lb2_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
                     tables: PFSPDeviceTables) -> torch.Tensor:
     """(B, n) int32 lb2 child bounds of ``prmu`` (B, n) / ``limit1`` (B,),
     computed by the CUDA kernel on the current stream."""
+    out = _launch(prmu, limit1, tables)
+    count_launch(lb2_bounds_cuda)
+    return out
+
+
+def lb2_block_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
+                   block: PFSPDeviceTables) -> torch.Tensor:
+    """Kernel 6 on one mp pair block (``PFSPDeviceTables.pair_blocks``):
+    the (B, n) int32 max over the block's pairs only, on the route the
+    block's pair count takes. Its launches are counted apart from
+    ``lb2_bounds_cuda``'s (the mp path's pair-block row)."""
+    out = _launch(prmu, limit1, block)
+    count_launch(lb2_block_cuda)
+    return out
+
+
+def _launch(prmu: torch.Tensor, limit1: torch.Tensor,
+            tables: PFSPDeviceTables) -> torch.Tensor:
+    """One launch of kernel 6 over the pairs of ``tables``."""
     prmu, limit1 = chunk_operands("lb2_bounds", _ENTRIES, prmu, limit1, tables)
     J = johnson_operands("lb2_bounds", tables)
     B, n = prmu.shape
@@ -160,8 +183,10 @@ def lb2_bounds_cuda(prmu: torch.Tensor, limit1: torch.Tensor,
              J.tab.data_ptr(), J.inv.data_ptr(), out.data_ptr(), B, n,
              tables.machines, J.pair_count, J.route, stream)
     _build.check(lib, err, "lb2_bounds")
-    _build.add_launches(lb2_bounds_cuda)
     return out
 
 
 lb2_bounds_cuda.launches = 0  # type: ignore[attr-defined]
+lb2_bounds_cuda.captures = 0  # type: ignore[attr-defined]
+lb2_block_cuda.launches = 0  # type: ignore[attr-defined]
+lb2_block_cuda.captures = 0  # type: ignore[attr-defined]

@@ -10,6 +10,8 @@ card and how the design answers that.
 ``lb2_self_bounds_cuda`` launches the kernel on CUDA tensors (rows (R, n)
 and limit1 (R,) int8 or int32) and raises on anything it does not take;
 ``plain`` is its plain PyTorch version (`ops/pfsp_device.lb2_self_chunk`).
+``lb2_self_block_cuda`` is the same kernel on one mp pair block
+(`pfsp_device.lb2_self_bounds_mp`), its launches counted apart.
 ``n_active`` — the rows to bound — is read by the kernel from device
 memory: give it as a CUDA int32 tensor (the staged evaluator's candidate
 count) so that the host never waits for it, or as an int. The grid is one
@@ -33,6 +35,7 @@ import ctypes
 import torch
 
 from . import _build
+from .dispatch import count_launch
 from .lb1_kernel import chunk_operands
 from .lb2_kernel import ROUTES, SMEM_LIMIT, johnson_operands
 from .pfsp_device import PFSPDeviceTables, lb2_self_chunk
@@ -129,6 +132,25 @@ def lb2_self_bounds_cuda(rows: torch.Tensor, limit1: torch.Tensor, n_active,
     """(R,) int32 self lb2 of the first ``n_active`` of ``rows`` (R, n) /
     ``limit1`` (R,), computed by the CUDA kernel on the current stream;
     the other entries are left unwritten."""
+    out = _launch(rows, limit1, n_active, tables)
+    count_launch(lb2_self_bounds_cuda)
+    return out
+
+
+def lb2_self_block_cuda(rows: torch.Tensor, limit1: torch.Tensor, n_active,
+                        block: PFSPDeviceTables) -> torch.Tensor:
+    """Kernel 7 on one mp pair block (``PFSPDeviceTables.pair_blocks``):
+    the max over the block's pairs only, on the block shape and route of
+    its pair count; launches counted apart from
+    ``lb2_self_bounds_cuda``'s."""
+    out = _launch(rows, limit1, n_active, block)
+    count_launch(lb2_self_block_cuda)
+    return out
+
+
+def _launch(rows: torch.Tensor, limit1: torch.Tensor, n_active,
+            tables: PFSPDeviceTables) -> torch.Tensor:
+    """One launch of kernel 7 over the pairs of ``tables``."""
     rows, limit1 = chunk_operands("lb2_self_bounds", _ENTRIES, rows, limit1,
                                   tables)
     J = johnson_operands("lb2_self_bounds", tables)
@@ -144,8 +166,10 @@ def lb2_self_bounds_cuda(rows: torch.Tensor, limit1: torch.Tensor, n_active,
              J.pairinfo.data_ptr(), J.tab.data_ptr(), out.data_ptr(), R, n,
              tables.machines, J.pair_count, J.route, stream)
     _build.check(lib, err, "lb2_self_bounds")
-    _build.add_launches(lb2_self_bounds_cuda)
     return out
 
 
 lb2_self_bounds_cuda.launches = 0  # type: ignore[attr-defined]
+lb2_self_bounds_cuda.captures = 0  # type: ignore[attr-defined]
+lb2_self_block_cuda.launches = 0  # type: ignore[attr-defined]
+lb2_self_block_cuda.captures = 0  # type: ignore[attr-defined]

@@ -39,8 +39,8 @@ from . import _build
 from .cycle import (ST_BEST, ST_CTR_SOL, ST_CTR_TREE, ST_CYCLES, ST_LEN,
                     ST_RUNS, ST_SIZE, ST_SOL, ST_TREE)
 from .dispatch import (DispatchGraph, _fn, batch_cond, batch_cond_obs,
-                       batch_init, clock_pointer, count_launch,
-                       phase_mark_cuda, recording)
+                       batch_init, capture_pool, clock_pointer, count_launch,
+                       phase_mark_cuda, pooled, recording)
 
 # The dispatch's sums over its rounds (csrc/mesh_balance.cu); row 0's
 # ST_MESH_COND counts the condition node's runs.
@@ -52,6 +52,9 @@ _VP = ctypes.c_void_p
 # first, last; the stream.
 _ARGTYPES = (_VP, ctypes.c_int, _VP, _VP, _VP, _VP, _VP) + (ctypes.c_int,) * 5 \
     + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP)
+# st, D, plan, C, m, T, Mn, first, last, the stream.
+_PLAN_ARGS = (_VP, ctypes.c_int, _VP) + (ctypes.c_int,) * 3 + (
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP)
 
 
 def balance_plan(sizes: list[int], m: int, T: int, Mn: int,
@@ -85,11 +88,9 @@ def mesh_balance_plain(st: torch.Tensor, pool_vals: torch.Tensor,
     counts added to the dispatch's sums (``first``: the first round;
     ``last``: written back where the counts are read)."""
     D, C = pool_aux.shape
-    v = st.tolist()
-    sizes = [r[ST_SIZE] for r in v]
-    best = min(r[ST_BEST] for r in v)
-    runs = max(r[ST_RUNS] for r in v)
-    give, take = balance_plan(sizes, m, T, Mn, C)
+    sizes = st[:, ST_SIZE].tolist()
+    plan = mesh_plan_plain(st, m, T, Mn, C, first, last)
+    give, take = [p[1] for p in plan], [p[2] for p in plan]
     for d in range(D):
         if take[d]:
             left, sz, k = (d - 1) % D, sizes[d], take[d]
@@ -100,6 +101,25 @@ def mesh_balance_plain(st: torch.Tensor, pool_vals: torch.Tensor,
             g, sz = give[d], sizes[d]
             pool_vals[d, :sz - g] = pool_vals[d, g:sz].clone()
             pool_aux[d, :sz - g] = pool_aux[d, g:sz].clone()
+
+
+def mesh_plan_plain(st: torch.Tensor, m: int, T: int, Mn: int, C: int,
+                    first: bool, last: bool) -> list[list[int]]:
+    """The balance step's plan in plain PyTorch, on the (D, ST_LEN) states
+    in place: what the ``mesh_plan`` launch of ``csrc/mesh_balance.cu``
+    computes (the incumbent fold, the sizes after the gifts, the round's
+    counts added to the dispatch's sums). Returns each shard's ``[size
+    before, gift, intake, donor slot]``."""
+    D = st.shape[0]
+    v = st.tolist()
+    sizes = [r[ST_SIZE] for r in v]
+    best = min(r[ST_BEST] for r in v)
+    runs = max(r[ST_RUNS] for r in v)
+    give, take = balance_plan(sizes, m, T, Mn, C)
+    plan, slots = [], 0
+    for d in range(D):
+        plan.append([sizes[d], give[d], take[d], slots if give[d] else -1])
+        slots += bool(give[d])
     for d, r in enumerate(v):
         r[ST_SIZE] = sizes[d] - give[d] + take[d]
         r[ST_BEST] = best
@@ -113,6 +133,80 @@ def mesh_balance_plain(st: torch.Tensor, pool_vals: torch.Tensor,
             r[ST_CYCLES], r[ST_RUNS] = r[ST_MESH_CYCLES], r[ST_MESH_RUNS]
     v[0][ST_MESH_COND] = (0 if first else v[0][ST_MESH_COND]) + runs
     st.copy_(torch.tensor(v, dtype=torch.int32))
+    return plan
+
+
+def mesh_plan_cuda(st: torch.Tensor, plan: torch.Tensor, m: int, T: int,
+                   Mn: int, C: int, first: bool, last: bool) -> None:
+    """Enqueue the balance step's plan alone (``mesh_plan`` of
+    ``csrc/mesh_balance.cu``) over the (D, ST_LEN) states into the (D, 4)
+    ``plan`` on the current stream (the mesh over several device groups:
+    the moves are ``shard_moves`` on each group's card)."""
+    D = st.shape[0]
+    if not (st.is_cuda and plan.is_cuda and st.dtype == torch.int32
+            and plan.dtype == torch.int32 and st.shape == (D, ST_LEN)
+            and plan.shape == (D, 4) and st.is_contiguous()
+            and plan.is_contiguous() and plan.device == st.device):
+        raise ValueError("mesh_plan_cuda takes a contiguous CUDA (D, ST_LEN) "
+                         "int32 state and (D, 4) int32 plan")
+    if not 1 <= D <= 1024:
+        raise ValueError(f"1 <= D <= 1024 shards, got {D}")
+    lib, fn = _build.entry("mesh_balance", "mesh_plan_enqueue", _PLAN_ARGS)
+    stream = torch.cuda.current_stream(st.device).cuda_stream
+    _build.check(lib, fn(st.data_ptr(), D, plan.data_ptr(), C, m, T, Mn,
+                         int(first), int(last), stream), "mesh_plan")
+    count_launch(mesh_balance_cuda)
+
+
+def mesh_plan(st: torch.Tensor, plan: torch.Tensor, m: int, T: int, Mn: int,
+              C: int, first: bool, last: bool) -> None:
+    """The plan routed by device: the plan launch for CUDA tensors, else
+    ``mesh_plan_plain`` written into ``plan``."""
+    if st.is_cuda:
+        mesh_plan_cuda(st, plan, m, T, Mn, C, first, last)
+    else:
+        plan.copy_(torch.tensor(mesh_plan_plain(st, m, T, Mn, C, first, last),
+                                dtype=torch.int32))
+
+
+def shard_moves(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
+                plan: torch.Tensor, left_vals: torch.Tensor,
+                left_aux: torch.Tensor) -> None:
+    """A group's part of a balance step across device groups, in place on
+    its (Dg, C, n) pool and (Dg, C) column, with fixed shapes and nothing
+    read on the host: from its shards' plan rows (Dg, 4) and their left
+    neighbours' first T rows (``left_vals`` (Dg, T, n), ``left_aux``
+    (Dg, T); gathered before any shed), each receiver appends ``intake``
+    rows at its size and each donor drops its first ``gift`` rows, the
+    live rows keeping their order (the JAX ``dynamic_update_slice`` append
+    and ``jnp.roll`` shed of `resident_mesh.py:240-263`, rows past the
+    live prefix left or garbage). Torch operations on either device, not a
+    TPU kernel: the JAX step is XLA collectives."""
+    Dg, C = pool_aux.shape
+    T = left_aux.shape[1]
+    dev = pool_aux.device
+    sz, give, take = plan[:, 0], plan[:, 1], plan[:, 2]
+    # The intake: rows [w, w + T) of each shard, w = clamp(size, 0, C - T)
+    # (= size wherever the plan has an intake).
+    t = torch.arange(T, device=dev)
+    dest = ((torch.arange(Dg, device=dev) * C)[:, None]
+            + torch.clamp(sz, 0, C - T).long()[:, None] + t).reshape(-1)
+    inc = (t[None, :] < take[:, None]).reshape(-1)
+    flat_v = pool_vals.view(Dg * C, -1)
+    flat_a = pool_aux.view(Dg * C)
+    flat_v.index_copy_(0, dest, torch.where(
+        inc[:, None], left_vals.reshape(Dg * T, -1), flat_v.index_select(0, dest)))
+    flat_a.index_copy_(0, dest, torch.where(
+        inc, left_aux.reshape(Dg * T), flat_a.index_select(0, dest)))
+    # The shed: row i takes row i + gift for i < size - gift.
+    c = torch.arange(C, device=dev)
+    src = ((torch.arange(Dg, device=dev) * C)[:, None]
+           + torch.clamp(c[None, :] + give.long()[:, None], max=C - 1))
+    keep = (c[None, :] < (sz - give)[:, None]) & (give > 0)[:, None]
+    src = torch.where(keep, src, (torch.arange(Dg, device=dev) * C)[:, None]
+                      + c[None, :]).reshape(-1)
+    flat_v.copy_(flat_v.index_select(0, src))
+    flat_a.copy_(flat_a.index_select(0, src))
 
 
 @dataclass
@@ -221,7 +315,8 @@ class MeshGraph(DispatchGraph):
 
     def __init__(self, cycles: list, balance, st: torch.Tensor, m: int,
                  Mn: int, C: int, K: int, rounds: int, obs: int = 0,
-                 clk: torch.Tensor | None = None):
+                 clk: torch.Tensor | None = None, fold: bool = True,
+                 zero_block: bool = True):
         if not st.is_cuda or st.dim() != 2 or len(cycles) != st.shape[0]:
             raise ValueError("MeshGraph takes a CUDA (D, ST_LEN) state "
                              "tensor and one cycle a row")
@@ -230,19 +325,24 @@ class MeshGraph(DispatchGraph):
         self.st = st
         self.clk = clk
         self.rounds = rounds
+        self.balanced = balance is not None
         # The wrappers each shard's cycle records (round 0's capture; every
-        # round runs the same ones) and the condition node.
+        # round runs the same ones) and the condition node (the unfused
+        # cycles fold their own blocks: ``fold`` False).
         self.slot_wrappers: list[list] = [[] for _ in cycles]
-        self.cond = batch_cond_obs if obs else batch_cond
+        cond_obs = obs if fold else 0
+        self.cond = batch_cond_obs if cond_obs else batch_cond
         self.wrappers = []
         self._graph = _VP()
         self._exec = _VP()
         self._body = _VP()
+        self.pool = capture_pool(self, st.device)
         lib, create = _mesh_fn("mesh_graph_create")
         _build.check(lib, create(ctypes.byref(self._graph)),
                      "mesh_graph_create")
         try:
-            self._build_rounds(lib, cycles, balance, m, Mn, C, K, obs)
+            self._build_rounds(lib, cycles, balance, m, Mn, C, K, obs,
+                               cond_obs, zero_block)
             _, inst = _fn("dispatch_graph_instantiate")
             _build.check(lib, inst(self._graph, ctypes.byref(self._exec)),
                          "dispatch_graph_instantiate")
@@ -252,7 +352,8 @@ class MeshGraph(DispatchGraph):
         self.build_s = time.perf_counter() - t0
         _build.count_build("graphs")
 
-    def _build_rounds(self, lib, cycles, balance, m, Mn, C, K, obs) -> None:
+    def _build_rounds(self, lib, cycles, balance, m, Mn, C, K, obs, cond_obs,
+                      zero_block) -> None:
         _, add_round = _mesh_fn("mesh_graph_add_round")
         _, begin = _fn("dispatch_graph_begin_body")
         _, end = _fn("batch_graph_end_body")
@@ -267,7 +368,8 @@ class MeshGraph(DispatchGraph):
             seed = clock_pointer(self.clk) if r == 0 else None
             _build.check(lib, add_round(
                 self._graph, dep, self.st.data_ptr(), B, m, Mn, C, K,
-                int(bool(obs) and r == 0), seed, ctypes.byref(body),
+                int(bool(obs) and zero_block and r == 0), seed,
+                ctypes.byref(body),
                 ctypes.byref(handle), ctypes.byref(loop)),
                 "mesh_graph_add_round")
             if r == 0:
@@ -276,15 +378,18 @@ class MeshGraph(DispatchGraph):
                          "dispatch_graph_begin_body")
             ok = 0
             try:
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), pooled(self.pool, side.device):
                     for cycle, wrappers in zip(cycles, self.slot_wrappers):
                         with recording(wrappers if r == 0 else []):
                             cycle()
                 ok = 1
             finally:
                 err = end(side.cuda_stream, ok, self.st.data_ptr(), B,
-                          handle.value, m, Mn, C, K, obs)
+                          handle.value, m, Mn, C, K, cond_obs)
             _build.check(lib, err, "batch_graph_end_body")
+            if balance is None:
+                dep = loop
+                continue
             _build.check(lib, begin_child(side.cuda_stream),
                          "mesh_graph_begin_child")
             ok = 0
@@ -310,9 +415,11 @@ class MeshGraph(DispatchGraph):
         _build.check(lib, fn(self._exec, stream), "dispatch_graph_launch")
         _build.add_launches(MeshGraph)
         _build.add_launches(batch_init, self.rounds)
-        _build.add_launches(mesh_balance_cuda, self.rounds)
+        if self.balanced:
+            _build.add_launches(mesh_balance_cuda, self.rounds)
         if self.clk is not None:
-            _build.add_launches(phase_mark_cuda, 1 + 2 * self.rounds)
+            _build.add_launches(phase_mark_cuda,
+                                1 + (2 * self.rounds if self.balanced else 0))
 
     def count(self, rows: list[list[int]]) -> None:
         """Count a dispatch from its states read after it: each shard's

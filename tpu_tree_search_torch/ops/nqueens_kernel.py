@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from . import _build
+from .dispatch import count_launch
 from .nqueens_device import labels_chunk
 
 #: The plain PyTorch version of the kernel.
@@ -70,8 +71,9 @@ def nqueens_labels_cuda(board: torch.Tensor, depth: torch.Tensor, N: int,
     err = fn(board.data_ptr(), depth.data_ptr(), out.data_ptr(), B, N, g,
              stream)
     _build.check(lib, err, "nqueens_labels")
-    _build.add_launches(nqueens_labels_cuda)
+    count_launch(nqueens_labels_cuda)
     return out
 
 
 nqueens_labels_cuda.launches = 0  # type: ignore[attr-defined]
+nqueens_labels_cuda.captures = 0  # type: ignore[attr-defined]

@@ -25,6 +25,8 @@ arithmetic is int32 (bounds fit comfortably: makespans < 2^31).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -57,6 +59,10 @@ class JohnsonTables:
         sched = np.asarray(johnson_schedules, dtype=np.int64)
         lags = np.asarray(lags, dtype=np.int64)
         tails = np.asarray(min_tails, dtype=np.int64)
+        # The arrays the tables were built from (the JAX tables' fields):
+        # a pair block's tables are built from slices of them.
+        self.source = {"ptm_t": ptm.T, "min_tails": tails, "pairs": pairs,
+                       "lags": lags, "johnson_schedules": sched}
         rows = np.arange(pairs.shape[0])[:, None]
         host = {
             "p0_o": ptm[pairs[:, 0][:, None], sched],
@@ -84,6 +90,14 @@ class JohnsonTables:
         self.pairinfo = torch.from_numpy(np.stack(
             [pairs[:, 0], pairs[:, 1], host["tails0"], host["tails1"]], -1)
             .astype(np.int32)).to(device).contiguous()
+
+        # The mp-padded arrays and pair blocks, built at first use
+        # (``PFSPDeviceTables.mp_padded``, ``pair_blocks``).
+        # guarded-by: lock -- threads of the multi-device tiers share one
+        # problem's tables.
+        self.lock = threading.Lock()
+        self.padded: dict = {}
+        self.blocks: dict = {}
 
     @property
     def pair_count(self) -> int:
@@ -120,6 +134,58 @@ class PFSPDeviceTables:
             np.ascontiguousarray(lb1_data.p_times.T),
             lb1_data.min_heads, lb1_data.min_tails, device, **lb2,
         )
+
+    def mp_padded(self, mp: int):
+        """``(pairs, lags, johnson_schedules)`` (numpy) with the pair axis
+        padded to a multiple of ``mp`` with copies of pair 0 — the JAX
+        tables' ``mp_padded`` (`tpu_tree_search/ops/pfsp_device.py:
+        332-360`; max over pairs is idempotent, so a copy only re-maxes a
+        value). Cached per mp."""
+        J = self.johnson
+        if J is None:
+            raise ValueError("these tables have no lb2 part: the mp pair "
+                             "axis splits the lb2 Johnson pair loop")
+        with J.lock:
+            got = J.padded.get(mp)
+            if got is None:
+                src = J.source
+                pairs, lags, scheds = (src["pairs"], src["lags"],
+                                       src["johnson_schedules"])
+                P = pairs.shape[0]
+                reps = -(-P // mp) * mp - P
+                if reps:
+                    pairs, lags, scheds = (
+                        np.concatenate([a, np.repeat(a[:1], reps, 0)])
+                        for a in (pairs, lags, scheds))
+                got = J.padded[mp] = (pairs, lags, scheds)
+        return got
+
+    def pair_blocks(self, mp: int) -> list["PFSPDeviceTables"]:
+        """The ``mp`` pair blocks of these tables: block i holds pairs
+        ``[i * P_local, (i + 1) * P_local)`` of ``mp_padded(mp)``, the
+        rows the JAX mp shard i slices (``start = i * P_local``), as
+        tables of their own (the same ``ptm_t``, heads and tails; the
+        block's Johnson tables and the kernels' packed copies of them), on
+        which the lb2 bounds and their kernels take the block's pairs
+        only. Cached per mp; ``mp = 1`` is these tables."""
+        if mp == 1:
+            return [self]
+        pairs, lags, scheds = self.mp_padded(mp)
+        J = self.johnson
+        with J.lock:
+            got = J.blocks.get(mp)
+            if got is None:
+                P_local = pairs.shape[0] // mp
+                src = J.source
+                got = J.blocks[mp] = [
+                    PFSPDeviceTables(self.ptm_t, self.min_heads,
+                                     self.min_tails, JohnsonTables(
+                                         src["ptm_t"], src["min_tails"],
+                                         pairs[sl], lags[sl], scheds[sl],
+                                         self.device))
+                    for sl in (slice(i * P_local, (i + 1) * P_local)
+                               for i in range(mp))]
+        return got
 
     @property
     def device(self) -> torch.device:
@@ -308,8 +374,8 @@ def lb2_self_chunk(rows: torch.Tensor, limit1: torch.Tensor, n_active,
 
 
 def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
-                      cand: torch.Tensor,
-                      tables: PFSPDeviceTables) -> torch.Tensor:
+                      cand: torch.Tensor, tables: PFSPDeviceTables,
+                      mp: int = 1) -> torch.Tensor:
     """lb2 child bounds of the candidate slots only
     (`pfsp_device.lb2_bounds_staged`).
 
@@ -321,8 +387,9 @@ def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
     limit1+1 and k swapped, the self bound runs on the first ``count``
     rows, and the results are gathered back. The count stays a device
     tensor: the self kernel reads it from device memory, so staging adds no
-    host synchronisation. Returns (B, n) int32; slots outside ``cand`` are
-    garbage."""
+    host synchronisation. Under ``mp`` > 1 the self bound runs on the mp
+    pair blocks (``lb2_self_bounds_mp``). Returns (B, n) int32; slots
+    outside ``cand`` are garbage."""
     B, n = prmu.shape
     R = B * n
     dev = prmu.device
@@ -341,8 +408,76 @@ def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
     vd = parent.gather(1, d)
     vk = parent.gather(1, k_idx)
     child = parent.scatter(1, d, vk).scatter_(1, k_idx, vd)
-    out = lb2_self_bounds(child, d[:, 0].to(prmu.dtype), count, tables)
+    out = lb2_self_bounds_mp(child, d[:, 0].to(prmu.dtype), count, tables,
+                             mp)
     return out[torch.where(flat, pos, 0).long()].reshape(B, n)
+
+
+def lb2_chunk_mp(prmu: torch.Tensor, limit1: torch.Tensor,
+                 tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
+    """The plain version of ``lb2_bounds_mp``: ``lb2_chunk`` over each pair
+    block, the planes combined by an elementwise max."""
+    out = None
+    for blk in tables.pair_blocks(mp):
+        local = lb2_chunk(prmu, limit1, blk)
+        out = local if out is None else torch.maximum(out, local)
+    return out
+
+
+def lb2_self_chunk_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
+                      tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
+    """The plain version of ``lb2_self_bounds_mp``: ``lb2_self_chunk`` over
+    each pair block, combined by an elementwise max."""
+    out = None
+    for blk in tables.pair_blocks(mp):
+        local = lb2_self_chunk(rows, limit1, n_active, blk)
+        out = local if out is None else torch.maximum(out, local)
+    return out
+
+
+def lb2_bounds_mp(prmu: torch.Tensor, limit1: torch.Tensor,
+                  tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
+    """lb2 child bounds with the Johnson pair loop split in ``mp`` pair
+    blocks (`tpu_tree_search/ops/pfsp_device.py` ``lb2_bounds_mp``): each
+    block (``pair_blocks``) is bounded on its own — kernel 6 on a pair
+    block for a CUDA tensor (``lb2_kernel.lb2_block_cuda``), ``lb2_chunk``
+    for a CPU one — and the planes are combined by an elementwise max, the
+    counterpart of the JAX ``lax.pmax`` over the mp axis. Exact: the max
+    over the blocks is the max over the pairs. ``mp = 1`` is
+    ``lb2_bounds``."""
+    if mp == 1:
+        return lb2_bounds(prmu, limit1, tables)
+    if not prmu.is_cuda:
+        return lb2_chunk_mp(prmu, limit1, tables, mp)
+    from .lb2_kernel import lb2_block_cuda
+
+    out = None
+    for blk in tables.pair_blocks(mp):
+        local = lb2_block_cuda(prmu, limit1, blk)
+        out = local if out is None else torch.maximum(out, local)
+    return out
+
+
+def lb2_self_bounds_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
+                       tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
+    """Self lb2 with the pair loop split in ``mp`` pair blocks
+    (`tpu_tree_search/ops/pfsp_device.py` ``lb2_self_bounds_mp``, the
+    staged evaluator's second stage under mp): kernel 7 on each block for
+    a CUDA tensor (``lb2_self_kernel.lb2_self_block_cuda``),
+    ``lb2_self_chunk`` for a CPU one, combined by an elementwise max.
+    Only the first ``n_active`` entries are meant to be read. ``mp = 1``
+    is ``lb2_self_bounds``."""
+    if mp == 1:
+        return lb2_self_bounds(rows, limit1, n_active, tables)
+    if not rows.is_cuda:
+        return lb2_self_chunk_mp(rows, limit1, n_active, tables, mp)
+    from .lb2_self_kernel import lb2_self_block_cuda
+
+    out = None
+    for blk in tables.pair_blocks(mp):
+        local = lb2_self_block_cuda(rows, limit1, n_active, blk)
+        out = local if out is None else torch.maximum(out, local)
+    return out
 
 
 def lb2_bounds(prmu: torch.Tensor, limit1: torch.Tensor,

@@ -6,10 +6,13 @@ chunk a host round trip. This tier composes the mesh-resident engine with
 the same inter-host exchange instead:
 
   * **inside a host**: a mesh program (`parallel/resident_mesh.py`
-    ``get_mesh_program``): D pool shards on the host's card, one CUDA graph
-    a dispatch holding the shards' fused cycles (kernels 2, 4, 8; 9a-9c
-    under a tile width), the incumbent fold and the ring diffusion
-    (``mesh_balance``);
+    ``get_mesh_program``): D pool shards on the host's share of the device
+    positions (one, by default), one CUDA graph a dispatch and group
+    holding the shards' cycles (kernels 2, 4, 8; 9a-9c under a tile width;
+    the unfused cycle under lb1_d, ``fused=False`` or ``mp`` > 1), the
+    incumbent fold and the ring diffusion (``mesh_balance``); ``mp`` > 1
+    (PFSP lb2) splits each shard's lb2 pair loop in mp pair blocks, as
+    the JAX host's dp x mp mesh does (`dist_mesh.py:637-690`);
   * **between hosts**: a bulk-synchronous exchange at dispatch boundaries
     over the dist tier's collectives (threads for virtual hosts, the
     ``TCPStore`` of ``TorchCollectives`` for processes): the incumbent
@@ -66,13 +69,12 @@ from ..obs import events as ev
 from ..obs import flightrec as fr
 from ..obs import phases as obs_phases
 from ..obs import quality as obs_quality
-from ..ops.backend import profile_backend, resolve_device
+from ..ops.backend import profile_backend, resolve_devices
 from ..ops.cycle import ST_BEST, ST_CTR, ST_CYCLES
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, batch_length, index_batch
 from .dist import (
     LocalCollectives,
-    host_devices,
     reduce_hosts,
     run_virtual_hosts,
 )
@@ -86,8 +88,9 @@ from .resident_mesh import get_mesh_program, offload_until_fits
 
 
 def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
-               dev: torch.device, coll, initial_best: int | None, *,
-               fused: bool = True, staged: bool = True, partition_fn=None,
+               devs: list, coll, initial_best: int | None, *,
+               mp: int = 1, fused: bool = True, staged: bool = True,
+               partition_fn=None,
                max_steps: int | None = None,
                checkpoint_path: str | None = None,
                checkpoint_interval_s: float = 60.0,
@@ -97,6 +100,7 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
     per-host file), the mesh loop with an exchange at every dispatch
     boundary, the drain; returns its stats for the reduction."""
     H, me = coll.num_hosts, coll.host_id
+    dev = devs[0]
     best = (initial_best if initial_best is not None
             else getattr(problem, "initial_ub", INF_BOUND))
     suffix = f".h{me}" if H > 1 else ""
@@ -182,7 +186,8 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
     with worker_streams(dev):
         program = get_mesh_program(problem, D, m, M,
                                    ctl.K if ctl else k_value, rounds, T,
-                                   capacity, dev, fused=fused, staged=staged)
+                                   capacity, dev, fused=fused, staged=staged,
+                                   mp=mp, devices=devs)
         build0 = program.graph_build_s
         device0 = program.dispatch_device_s
         try:
@@ -453,6 +458,9 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
                 diagnostics.device_to_host += 1
         finally:
             if dev.type == "cuda":
+                for g in program.groups:
+                    if g.stream is not None:
+                        g.stream.synchronize()
                 torch.cuda.current_stream(dev).synchronize()
             program.release()
     if offloader is not None:
@@ -494,6 +502,7 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
         # Host-local (the same on every host but K under --K auto).
         "compact": inner.compact, "fused": inner.fused,
         "staged": inner.staged, "megakernel_mt": inner.mt, "M": M,
+        "mp": program.mp,
         "k_resolved": program.K, "k_auto": k_auto, "pipeline_depth": depth,
         "obs": obs or None, "phase_profile": ph_total,
         "quality": qt.result() if qt is not None else None,
@@ -516,7 +525,7 @@ def _result(local: dict, red: dict) -> SearchResult:
         elapsed=red["elapsed"], phases=local["phases"],
         diagnostics=red["diag"], complete=red["complete"],
         steps=local["steps"], engine="dist_mesh", compact=local["compact"],
-        fused=local["fused"], staged=local["staged"],
+        fused=local["fused"], staged=local["staged"], mp=local["mp"],
         megakernel_mt=local["megakernel_mt"], M=local["M"],
         k_resolved=local["k_resolved"], dispatches=extra["dispatches"],
         stall_fallbacks=extra["stall_fallbacks"],
@@ -530,9 +539,18 @@ def _result(local: dict, red: dict) -> SearchResult:
         steal_policy=local["steal_policy"], guard=local["guard"])
 
 
+def host_positions(devices: list, h: int, H: int) -> list:
+    """Host h's share of the device positions (`dist_mesh.py`'s
+    ``all_devices[h::H]``): every H-th from h, or, with fewer positions
+    than hosts, position h mod their count."""
+    share = devices[h::H]
+    return share if share else [devices[h % len(devices)]]
+
+
 def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
                      K: int | str = 16, rounds: int = 2,
-                     D: int | None = None, num_hosts: int | None = None,
+                     D: int | None = None, mp: int = 1,
+                     num_hosts: int | None = None,
                      devices=None, device=None,
                      initial_best: int | None = None, fused: bool = True,
                      staged: bool = True, partition_fn=None,
@@ -543,29 +561,37 @@ def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
                      collectives=None,
                      guard: bool | None = None) -> SearchResult:
     """The distributed mesh-resident tier (``--tier dist_mesh``; the JAX
-    signature less ``mp``), three ways as ``dist_search``: this process as
-    host ``collectives.host_id`` (``collectives`` given), ``num_hosts`` H > 1
+    signature), three ways as ``dist_search``: this process as host
+    ``collectives.host_id`` (``collectives`` given), ``num_hosts`` H > 1
     virtual hosts in threads, or one host (the mesh tier's semantics with
-    the exchange's bookkeeping). A host's D shards (default 1) sit on one
-    card, host h's on ``devices[h % count]`` (default ``default_devices(
-    device)``: ``cuda`` unless ``device="cpu"``). ``fused=False`` (and
-    lb1_d) runs the unfused cycles. Per-host checkpoints ``path.h<rank>``
-    are cut in lockstep; ``max_steps`` dispatches end the run with a final
-    cut. ``guard`` (else ``TTS_GUARD=1``) arms each host's steady-state
+    the exchange's bookkeeping). Host h's D shards (default 1) sit on its
+    share of the device positions ``devices`` (default ``default_devices(
+    device)``: ``cuda`` unless ``device="cpu"``), ``host_positions``, placed
+    there as the mesh tier places them. ``mp`` > 1 (PFSP lb2 only) splits
+    each shard's lb2 pair loop in mp pair blocks (the JAX host's dp x mp
+    mesh, `dist_mesh.py:637-690`). ``fused=False`` (and lb1_d, and mp > 1)
+    runs the unfused cycles. Per-host checkpoints ``path.h<rank>`` are cut
+    in lockstep; ``max_steps`` dispatches end the run with a final cut.
+    ``guard`` (else ``TTS_GUARD=1``) arms each host's steady-state
     guard."""
     if devices is None:
         devices = default_devices(device)
-    devices = [resolve_device(d) for d in devices]
+    devices = resolve_devices(devices)
+    if mp < 1:
+        raise ValueError(f"mp must be >= 1, got {mp}")
+    if mp > 1 and getattr(problem, "lb", None) != "lb2":
+        raise ValueError(R.MP_LB2_ONLY)
     D = D or 1
-    kw = dict(fused=fused, staged=staged, partition_fn=partition_fn,
+    kw = dict(mp=mp, fused=fused, staged=staged, partition_fn=partition_fn,
               max_steps=max_steps, checkpoint_path=checkpoint_path,
               checkpoint_interval_s=checkpoint_interval_s,
               resume_from=resume_from, guard=guard)
 
     if collectives is not None:
-        dev = host_devices(devices, collectives.host_id)[0]
+        devs = host_positions(devices, collectives.host_id,
+                              collectives.num_hosts)
         try:
-            local = _host_loop(problem, m, M, K, rounds, D, dev, collectives,
+            local = _host_loop(problem, m, M, K, rounds, D, devs, collectives,
                                initial_best, **kw)
             red = reduce_hosts(local, collectives)
         except BaseException as e:
@@ -578,13 +604,13 @@ def dist_mesh_search(problem: Problem, m: int = 25, M: int = 16384,
     H = num_hosts or 1
     if H == 1:
         coll = LocalCollectives()
-        local = _host_loop(problem, m, M, K, rounds, D, devices[0], coll,
+        local = _host_loop(problem, m, M, K, rounds, D, devices, coll,
                            initial_best, **kw)
         return _result(local, reduce_hosts(local, coll))
 
     def host_main(coll, h):
         local = _host_loop(problem, m, M, K, rounds, D,
-                           host_devices(devices, h)[0], coll, initial_best,
+                           host_positions(devices, h, H), coll, initial_best,
                            **kw)
         return local, reduce_hosts(local, coll)
 

@@ -65,7 +65,7 @@ from ..engine.device import DeviceOffloader, drain, warmup
 from ..engine.results import Diagnostics, PhaseStats, SearchResult
 from ..obs import events as ev
 from ..obs import flightrec as fr
-from ..ops.backend import resolve_device
+from ..ops.backend import resolve_device, resolve_devices
 from ..pool.pool import ParallelSoAPool, SoAPool
 from ..problems.base import INF_BOUND, Problem, batch_length, index_batch
 from ..utils import TaskStates
@@ -641,7 +641,7 @@ def multidevice_search(problem: Problem, m: int = 25, M: int = 50000,
     docstring says."""
     if devices is None:
         devices = default_devices(device)
-    devices = [resolve_device(d) for d in devices]
+    devices = resolve_devices(devices)
     if D is None:
         D = len(devices)
     if D < 1:

@@ -9,20 +9,23 @@ nodes (>= 2m) to a starving right neighbour (< m), from an ``all_gather``
 of the sizes. The host stops when every shard holds fewer than m nodes
 and drains the residual, as the single-device tier's phase 3.
 
-Here the D shards sit on one card (the port's counterpart of the JAX
-tests' eight virtual CPU devices; `ROADMAP.md` C), as one program
-(``MeshProgram``): one (D, ST_LEN) state tensor, a (D, C, n) pool and a
-(D, C) column, and one CUDA graph a dispatch (`ops/mesh.py` ``MeshGraph``):
-for each of ``rounds`` rounds, ``batch_init``, a ``while`` node over the
-shards' fused cycles (kernels 2, 4 or 8; a shard whose condition fails is
-frozen) and the balance step (``mesh_balance``, `csrc/mesh_balance.cu`).
-Inside a JAX round the shards do not interact, so each shard runs the
-cycles of its own ``lax.while_loop``, and the counts, the incumbent and
-every shard's live rows are the JAX program's. Under lb1_d or
-``fused=False`` the cycles are the unfused ones, driven from the host,
-then the same balance kernel. Off the card (``device="cpu"``) the same
-program runs the plain cycles shard by shard and ``mesh_balance_plain``:
-the oracle of the tests.
+Here the D shards sit on a list of device positions, by default one card
+(the port's counterpart of the JAX tests' eight virtual CPU devices;
+`ROADMAP.md` C), as one program (``MeshProgram``). On one position: one
+(D, ST_LEN) state tensor, a (D, C, n) pool and a (D, C) column, and one
+CUDA graph a dispatch (`ops/mesh.py` ``MeshGraph``): for each of
+``rounds`` rounds, ``batch_init``, a ``while`` node over the shards'
+cycles (a shard whose condition fails is frozen) and the balance step
+(``mesh_balance``, `csrc/mesh_balance.cu`). Inside a JAX round the shards
+do not interact, so each shard runs the cycles of its own
+``lax.while_loop``, and the counts, the incumbent and every shard's live
+rows are the JAX program's. The cycles are the fused ones (kernels 2, 4 or
+8), or under lb1_d, ``fused=False`` or the lb2 pair axis ``mp`` > 1 the
+unfused ones of fixed shapes, graphed alike. Several positions (cards, or
+one card repeated) hold a group of shards each, with a graph a group and
+round and a balance across the groups (``MeshProgram``). Off the card
+(``device="cpu"``) the same program runs the plain cycles shard by shard
+and ``mesh_balance_plain``: the oracle of the tests.
 
 With a fixed incumbent (N-Queens; PFSP ub=1) the tree and solutions equal
 the sequential tier's: balancing moves nodes between shards and never
@@ -41,6 +44,7 @@ enqueue as there.
 from __future__ import annotations
 
 import time
+from contextlib import ExitStack, contextmanager
 
 import numpy as np
 import torch
@@ -63,62 +67,156 @@ from ..obs import events as ev
 from ..obs import flightrec as fr
 from ..obs import phases as obs_phases
 from ..obs import quality as obs_quality
-from ..ops.backend import resolve_device
-from ..ops.cycle import ST_CTR, ST_CYCLES, ST_LEN, ST_RUNS
-from ..ops.dispatch import (
-    batch_cond_plain,
-    batch_init_plain,
-    loop_active,
-    phase_mark,
+from ..ops.backend import resolve_device, resolve_devices
+from ..ops.cycle import ST_CTR, ST_CYCLES, ST_LEN
+from ..ops.dispatch import phase_mark
+from ..ops.mesh import (
+    MeshGraph,
+    MeshScratch,
+    mesh_balance,
+    mesh_plan,
+    shard_moves,
 )
-from ..ops.mesh import MeshGraph, MeshScratch, mesh_balance
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 
 
+class _Group:
+    """The shards of one device position (``MeshProgram``): their (Dg,
+    ST_LEN) states, (Dg, C, n) pool and (Dg, C) column on the position's
+    device, an uncached resident program of the mesh's configuration on
+    that device (its cycle and scratch serve the group's shards, which run
+    one after another on the group's stream), the balance scratch (one
+    group) and, with more than one group, a stream of its own and the
+    balance's buffers (the left neighbours' first T rows, the plan)."""
+
+    def __init__(self, prog: "MeshProgram", device, shards: list[int],
+                 T: int, grouped: bool):
+        problem, C = prog.problem, prog.capacity
+        self.device = device
+        self.shards = shards
+        self.inner = R.new_program(problem, prog.m, prog.M, prog.K, C, device,
+                                   fused=prog.fused, staged=prog.staged,
+                                   mp=prog.mp)
+        inner = self.inner
+        Dg, width = len(shards), problem.child_slots
+        self.st = torch.zeros((Dg, ST_LEN), dtype=torch.int32, device=device)
+        self.pool_vals = torch.zeros((Dg, C, width), dtype=inner.vals_dtype,
+                                     device=device)
+        self.pool_aux = torch.zeros((Dg, C), dtype=inner.aux_dtype,
+                                    device=device)
+        self.states = [R.ResidentState(self.pool_vals[j], self.pool_aux[j],
+                                       self.st[j]) for j in range(Dg)]
+        cuda = device.type == "cuda"
+        self.scratch = (MeshScratch.make(self.pool_vals, self.pool_aux)
+                        if cuda and not grouped else None)
+        self.stream = torch.cuda.Stream(device) if cuda and grouped else None
+        if grouped:
+            self.left_vals = self.pool_vals.new_zeros((Dg, T, width))
+            self.left_aux = self.pool_aux.new_zeros((Dg, T))
+            self.plan = torch.zeros((Dg, 4), dtype=torch.int32, device=device)
+
+    def context(self):
+        """The group's device and stream as the current ones (the card)."""
+        stack = ExitStack()
+        if self.stream is not None:
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
+
+
 class MeshProgram(R.CachedProgram):
     """D shards of one resident program (`resident_mesh.py`
-    ``_MeshResidentProgram``): ``inner`` is an uncached resident program of
-    the same configuration, whose cycle, scratch and field layout serve
-    every shard (their cycles run one after another on one stream). K is
+    ``_MeshResidentProgram``), placed on a list of device positions
+    (``devices``; default one, ``device``): shard d on ``devices[(d * mp)
+    % G]``, the card of its replica (d, 0) in the JAX ``make_dp_mp_mesh``
+    layout, G the list's length. The shards of one position form a group
+    (``_Group``; a position may repeat a card: two groups on one card). K is
     capped so that a dispatch's ``rounds * K`` cycles keep the int32
-    counters in range (`resident_mesh.py:110`)."""
+    counters in range (`resident_mesh.py:110`). ``mp`` > 1 (PFSP lb2)
+    splits each shard's lb2 pair loop in mp pair blocks, evaluated on the
+    shard's card one after another, and runs the unfused cycle.
+
+    One group is the tier as before: one CUDA graph a dispatch (``graph``)
+    whose rounds run the shards' cycles and the balance kernel. Several
+    groups dispatch one graph a group and round (a graph does not span
+    cards), each on its group's stream, and between the rounds the
+    cross-group balance (``_balance_groups``): the shards' state rows and
+    first T rows gathered onto the first group's card by device-to-device
+    copies, the plan of all D rows there (``mesh_plan``: the balance
+    kernel's plan launch), the rows and plans copied back, and each group's
+    gifts and sheds made on its own card (``shard_moves``). CUDA events
+    (``wait_stream``) order the streams; nothing is read on the host. The
+    plan depends only on the shards' sizes and incumbents, so every shard
+    holds the live rows of the one-group run with the same D."""
 
     cache_attr = "_mesh_programs"
 
     def __init__(self, problem: Problem, D: int, m: int, M: int, K: int,
-                 rounds: int, T: int, capacity: int, device,
-                 fused: bool = True, staged: bool = True):
+                 rounds: int, T: int, capacity: int, device=None,
+                 fused: bool = True, staged: bool = True, mp: int = 1,
+                 devices=None):
         if D < 1:
             raise ValueError(f"D must be >= 1, got {D}")
+        if mp < 1:
+            raise ValueError(f"mp must be >= 1, got {mp}")
         self.problem = problem
         self.D = int(D)
+        self.mp = int(mp)
         self.m = m
         self.M = M
+        self.K = K
         self.rounds = max(1, int(rounds))
         self.T = int(T)
         self.capacity = capacity
-        self.inner = R.new_program(problem, m, M, K, capacity, device,
-                                   fused=fused, staged=staged)
+        self.fused, self.staged = fused, staged
+        positions = mesh_devices(devices, device)
+        self.devices = positions
+        G = len(positions)
+        where = [(d * self.mp) % G for d in range(self.D)]
+        order = sorted(set(where))
+        grouped = len(order) > 1
+        self.groups = [_Group(self, positions[p],
+                              [d for d in range(self.D) if where[d] == p],
+                              self.T, grouped) for p in order]
+        g0 = self.groups[0]
+        self.inner = g0.inner
         inner = self.inner
-        self.device = inner.device
+        self.device = g0.device
         self.obs = inner.obs
         self.clk = inner.clk
+        if grouped and self.clk is not None:
+            raise ValueError("the phase clock (TTS_PHASEPROF=1) times one "
+                             "device group: give the mesh one device")
         self.graphed = inner.graphed
         self.use_k(K)
-        width = problem.child_slots
-        self.st = torch.zeros((self.D, ST_LEN), dtype=torch.int32,
-                              device=self.device)
-        self.pool_vals = torch.zeros((self.D, capacity, width),
-                                     dtype=inner.vals_dtype,
-                                     device=self.device)
-        self.pool_aux = torch.zeros((self.D, capacity), dtype=inner.aux_dtype,
+        # One group: its tensors are the program's (a row a shard).
+        # Several: ``st`` gathers every shard's row on the first group's
+        # card at each balance (the dispatch's read), with the shards'
+        # first T rows and the plan.
+        if grouped:
+            width = problem.child_slots
+            self.st = torch.zeros((self.D, ST_LEN), dtype=torch.int32,
+                                  device=self.device)
+            self.fronts_vals = g0.pool_vals.new_zeros((self.D, self.T, width))
+            self.fronts_aux = g0.pool_aux.new_zeros((self.D, self.T))
+            self.plan = torch.zeros((self.D, 4), dtype=torch.int32,
                                     device=self.device)
-        self.states = [R.ResidentState(self.pool_vals[d], self.pool_aux[d],
-                                       self.st[d]) for d in range(self.D)]
-        cuda = self.device.type == "cuda"
-        self.scratch = (MeshScratch.make(self.pool_vals, self.pool_aux)
-                        if cuda else None)
+            self.pool_vals = self.pool_aux = None
+            self.scratch = None
+            self._rows = [torch.tensor(g.shards, device=self.device)
+                          for g in self.groups]
+            self._lefts = [torch.tensor([(d - 1) % self.D for d in g.shards],
+                                        device=self.device)
+                           for g in self.groups]
+        else:
+            self.st, self.pool_vals, self.pool_aux = g0.st, g0.pool_vals, \
+                g0.pool_aux
+            self.scratch = g0.scratch
+        self.states = [None] * self.D
+        for g in self.groups:
+            for j, d in enumerate(g.shards):
+                self.states[d] = g.states[j]
         self._graphs: dict[tuple, MeshGraph] = {}
         self.graph_build_s = 0.0
         self.dispatch_device_s = 0.0 if self.graphed else None
@@ -126,14 +224,19 @@ class MeshProgram(R.CachedProgram):
         self._next_slot = 0
 
     @property
+    def grouped(self) -> bool:
+        return len(self.groups) > 1
+
+    @property
     def Mn(self) -> int:
         return self.M * self.problem.child_slots
 
     def use_k(self, K: int) -> None:
         """K clamped so that rounds * K cycles of M*n children fit int32;
-        the inner program's cycles take the same K."""
+        the groups' programs take the same K."""
         self.K = max(1, min(K, (2**31 - 1) // max(1, self.Mn * self.rounds)))
-        self.inner.K = self.K
+        for g in self.groups:
+            g.inner.K = self.K
 
     # -- the shards' frontiers ----------------------------------------------
 
@@ -152,14 +255,20 @@ class MeshProgram(R.CachedProgram):
         ordered after the dispatches enqueued on the current stream."""
         p = self.problem
         fields = p.node_fields()
-        sizes = self.st[:, 0].tolist()
-        parts_v = [self.pool_vals[d, :sizes[d]] for d in range(self.D)]
-        parts_a = [self.pool_aux[d, :sizes[d]] for d in range(self.D)]
+        if self.grouped and self.graphed:
+            for g in self.groups:
+                torch.cuda.current_stream(g.device).wait_stream(g.stream)
+        sizes = [0] * self.D
+        for g in self.groups:
+            for d, size in zip(g.shards, g.st[:, 0].tolist()):
+                sizes[d] = size
+        parts = [(s.pool_vals[:z], s.pool_aux[:z])
+                 for s, z in zip(self.states, sizes)]
         batch = {
-            p.vals_field: torch.cat(parts_v).cpu().numpy().astype(
-                fields[p.vals_field][1]),
-            p.aux_field: torch.cat(parts_a).cpu().numpy().astype(
-                fields[p.aux_field][1]),
+            p.vals_field: torch.cat([v.cpu() for v, _ in parts]).numpy()
+            .astype(fields[p.vals_field][1]),
+            p.aux_field: torch.cat([a.cpu() for _, a in parts]).numpy()
+            .astype(fields[p.aux_field][1]),
         }
         return self.inner.derive_fields(batch)
 
@@ -180,81 +289,87 @@ class MeshProgram(R.CachedProgram):
             self._next_slot = 0
 
     def balance(self, r: int) -> None:
-        """Round r's balance step (the kernel on the card)."""
+        """Round r's balance step (one group: the kernel on the card)."""
         mesh_balance(self.st, self.pool_vals, self.pool_aux, self.scratch,
                      self.m, self.T, self.Mn, r == 0, r == self.rounds - 1)
 
-    def graph(self) -> MeshGraph:
-        """The mesh dispatch graph at the current K over the program's
-        tensors (which it keeps for its life), built at first use."""
-        key = (self.K, self.st.data_ptr(), self.pool_vals.data_ptr(),
-               self.pool_aux.data_ptr())
-        g = self._graphs.get(key)
-        if g is None:
+    def graph(self, group: int = 0, r: int | None = None) -> MeshGraph:
+        """A mesh dispatch graph at the current K over the program's
+        tensors (which it keeps for its life), built at first use: one
+        group's whole dispatch (``r`` None), or with several groups group
+        ``group``'s round ``r`` (its cycles; round 0 zeroes the counter
+        block)."""
+        g = self.groups[group]
+        key = (self.K, group, None if r is None else r == 0,
+               g.st.data_ptr(), g.pool_vals.data_ptr(),
+               g.pool_aux.data_ptr())
+        graph = self._graphs.get(key)
+        if graph is None:
             n = self.problem.child_slots
-            inner = self.inner
-            g = MeshGraph([lambda s=s: inner._fused_cycle(s)
-                           for s in self.states], self.balance, self.st,
-                          self.m, self.Mn, self.capacity, self.K,
-                          self.rounds, obs=n if self.obs else 0,
-                          clk=self.clk)
-            self.graph_build_s += g.build_s
-            self._graphs[key] = g
-        return g
+            inner = g.inner
+            with g.context():
+                graph = MeshGraph(
+                    [inner.slot_cycle(s) for s in g.states],
+                    self.balance if r is None else None, g.st, self.m,
+                    self.Mn, self.capacity, self.K,
+                    self.rounds if r is None else 1,
+                    obs=n if self.obs else 0, clk=self.clk,
+                    fold=inner.fused, zero_block=r is None or r == 0)
+            self.graph_build_s += graph.build_s
+            self._graphs[key] = graph
+        return graph
 
     def step(self) -> None:
-        """One dispatch on the host's loop: ``rounds`` times, the shards'
-        cycles until every shard's condition fails, then the balance step.
-        The fused cycles are the plain ones (CPU); the unfused ones run on
-        either device, the balance then on the kernel on the card."""
-        inner = self.inner
-        n = self.problem.child_slots
-        Mn, C, K, m = self.Mn, self.capacity, self.K, self.m
+        """One dispatch on the host's loop (the CPU): ``rounds`` times, the
+        shards' cycles until every shard's condition fails
+        (``host_rounds``), then the balance step."""
         P = obs_phases.IDX
         if self.clk is not None:
             phase_mark(self.clk, 0, obs_phases.SEED)
         for r in range(self.rounds):
-            live = batch_init_plain(self.st, m, Mn, C, K, self.obs and r == 0)
-            if inner.fused:
-                for _ in range(K):
-                    if not live:
-                        break
-                    for s in self.states:
-                        inner._fused_cycle(s)
-                    live = batch_cond_plain(self.st, n if self.obs else 0, m,
-                                            Mn, C, K)
-            else:
-                self._unfused_round()
+            for g in self.groups:
+                g.inner.host_rounds(g.states, g.st, r == 0)
             if self.clk is not None:
                 phase_mark(self.clk, P["loop"])
-            self.balance(r)
+            if self.grouped:
+                self._balance_groups(r)
+            else:
+                self.balance(r)
             if self.clk is not None:
                 phase_mark(self.clk, P["balance"])
 
-    def _unfused_round(self) -> None:
-        """One round of unfused cycles (the batched engine's host rounds):
-        each live shard one cycle at a time until none is live; the
-        condition node's runs counted in row 0's cond word by the balance
-        step from the shards' runs."""
-        Mn, C, K, m = self.Mn, self.capacity, self.K, self.m
-        rows = self.st.tolist()
-        while True:
-            live = [i for i, v in enumerate(rows)
-                    if loop_active(v, m, Mn, C, K)]
-            if not live:
-                return
-            for i in live:
-                self.inner._unfused_cycles(self.states[i], 1)
-                self.st[i, ST_RUNS] += 1
-            rows = self.st.tolist()
+    def _balance_groups(self, r: int) -> None:
+        """Round r's balance across the groups (see the class note): on
+        the card each step on its stream, ordered by ``wait_stream``."""
+        main = (torch.cuda.current_stream(self.device) if self.graphed
+                else None)
+        T = self.T
+        for g, rows in zip(self.groups, self._rows):
+            with _streams(main, g):
+                self.st.index_copy_(0, rows, g.st.to(self.device))
+                self.fronts_vals.index_copy_(
+                    0, rows, g.pool_vals[:, :T].to(self.device))
+                self.fronts_aux.index_copy_(
+                    0, rows, g.pool_aux[:, :T].to(self.device))
+        mesh_plan(self.st, self.plan, self.m, T, self.Mn, self.capacity,
+                  r == 0, r == self.rounds - 1)
+        for g, rows, lefts in zip(self.groups, self._rows, self._lefts):
+            with _streams(main, g):
+                g.st.copy_(self.st.index_select(0, rows))
+                g.plan.copy_(self.plan.index_select(0, rows))
+                g.left_vals.copy_(self.fronts_vals.index_select(0, lefts))
+                g.left_aux.copy_(self.fronts_aux.index_select(0, lefts))
+                shard_moves(g.pool_vals, g.pool_aux, g.plan, g.left_vals,
+                            g.left_aux)
 
     def enqueue(self):
         """``step``, and a function ``read()`` that returns the dispatch's
         (D, ST_LEN) rows (lists), its phase block (or None) and its device
         ms (None off the graph). On the graph: the launch between two
-        timing events, the rows copied without blocking into the next
-        pinned slot behind a third; ``read`` waits for it and counts the
-        shards' runs as their cycles' launches."""
+        timing events (several groups: each group's graph a round, on its
+        stream, and the cross-group balance), the rows copied without
+        blocking into the next pinned slot behind a third; ``read`` waits
+        for it and counts the shards' runs as their cycles' launches."""
         if not self.graphed:
             self.step()
             rows = self.st.tolist()
@@ -262,9 +377,25 @@ class MeshProgram(R.CachedProgram):
             return lambda: (rows, ph, None)
         buf, start, end, done, clkbuf = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
-        g = self.graph()
+        # The graphs (built at first use) before the timed launches. Each
+        # group's graphs run the same cycles: its round-0 graph counts the
+        # runs of all rounds (the rows' sums).
+        if self.grouped:
+            rounds = [[self.graph(i, r) for i in range(len(self.groups))]
+                      for r in range(self.rounds)]
+            graphs = list(zip(rounds[0], self.groups))
+        else:
+            graphs = [(self.graph(), self.groups[0])]
         start.record()
-        g.launch()
+        if self.grouped:
+            main = torch.cuda.current_stream(self.device)
+            for r, launches in enumerate(rounds):
+                for graph, g in zip(launches, self.groups):
+                    with _streams(main, g):
+                        graph.launch()
+                self._balance_groups(r)
+        else:
+            graphs[0][0].launch()
         end.record()
         buf.copy_(self.st, non_blocking=True)
         if clkbuf is not None:
@@ -276,17 +407,42 @@ class MeshProgram(R.CachedProgram):
             ms = start.elapsed_time(end)
             self.dispatch_device_s += ms / 1e3
             rows = buf.tolist()
-            g.count(rows)
+            for graph, g in graphs:
+                graph.count([rows[d] for d in g.shards])
             return rows, (clkbuf.tolist() if clkbuf is not None else None), ms
         return read
 
     def _free(self) -> None:
-        """The graphs, the inner program and the shards' tensors."""
+        """The graphs, the groups' programs and the shards' tensors."""
         for g in self._graphs.values():
             g.close()
         self._graphs.clear()
-        self.inner.close()
+        for g in self.groups:
+            g.inner.close()
         self.states = []
+
+
+@contextmanager
+def _streams(main, g: _Group):
+    """On the card, group ``g``'s stream current on its device after it
+    waits for ``main`` (a cross-group step's stream), and ``main`` waiting
+    for it at the end (none off the card)."""
+    if main is None:
+        yield
+        return
+    g.stream.wait_stream(main)
+    with torch.cuda.stream(main), g.context():
+        yield
+    main.wait_stream(g.stream)
+
+
+def mesh_devices(devices, device) -> list[torch.device]:
+    """The device positions of a mesh: ``devices`` (a list, whose entries
+    may repeat a card: one group of shards each), else ``[device]``. A
+    position naming a card that is not there raises."""
+    if devices is None:
+        return [resolve_device(device)]
+    return resolve_devices(devices)
 
 
 def offload_until_fits(program: MeshProgram, pool: SoAPool, offloader,
@@ -321,43 +477,33 @@ def offload_until_fits(program: MeshProgram, pool: SoAPool, offloader,
 
 
 def mesh_key(D: int, m: int, M: int, K: int, rounds: int, T: int,
-             capacity: int, device, fused: bool, staged: bool) -> tuple:
+             capacity: int, device, fused: bool, staged: bool, mp: int = 1,
+             devices=None) -> tuple:
     """The cache key of a mesh program (`resident_mesh.py:479-485`, with the
-    port's routing inputs): D and the device in place of the mesh's device
-    ids, then the resident program's key."""
-    return (D, rounds, T) + R.program_key(m, M, K, capacity, device, fused,
-                                          staged, None)
+    port's routing inputs): D, mp and the device positions in place of the
+    mesh's device ids, then the resident program's key."""
+    positions = tuple(str(d) for d in mesh_devices(devices, device))
+    return (D, rounds, T, mp, positions) + R.program_key(
+        m, M, K, capacity, positions[0], fused, staged, None)
 
 
 def get_mesh_program(problem: Problem, D: int, m: int, M: int, K: int,
                      rounds: int, T: int, capacity: int, device=None,
-                     fused: bool = True, staged: bool = True) -> MeshProgram:
+                     fused: bool = True, staged: bool = True, mp: int = 1,
+                     devices=None) -> MeshProgram:
     """The mesh program of ``problem`` for a search, held by the caller
     until ``release()``: cached on ``problem._mesh_programs`` under
     ``mesh_key`` (an uncached one when another search holds it), its K set
     back to ``K``."""
-    dev = resolve_device(device)
     prog = R.take_cached(
         problem, "_mesh_programs",
-        mesh_key(D, m, M, K, rounds, T, capacity, dev, fused, staged),
-        lambda: MeshProgram(problem, D, m, M, K, rounds, T, capacity, dev,
-                            fused=fused, staged=staged))
+        mesh_key(D, m, M, K, rounds, T, capacity, device, fused, staged, mp,
+                 devices),
+        lambda: MeshProgram(problem, D, m, M, K, rounds, T, capacity, device,
+                            fused=fused, staged=staged, mp=mp,
+                            devices=devices))
     prog.use_k(K)
     return prog
-
-
-def _shard_device(devices, device) -> torch.device:
-    """The one device the D shards sit on. Shards across cards (``devices``
-    naming more than one) are ROADMAP.md A.9's second half."""
-    if devices is not None:
-        devs = {resolve_device(d) for d in devices}
-        if len(devs) > 1:
-            raise NotImplementedError(
-                "mesh shards on more than one card are not ported yet "
-                "(ROADMAP.md queue A, A.9's second half); the port places "
-                "every shard on one device")
-        return devs.pop()
-    return resolve_device(device)
 
 
 def mesh_resident_search(
@@ -371,6 +517,7 @@ def mesh_resident_search(
     devices=None,
     device=None,
     D: int | None = None,
+    mp: int = 1,
     initial_best: int | None = None,
     warmup_target: int | None = None,
     fused: bool = True,
@@ -383,18 +530,27 @@ def mesh_resident_search(
     guard: bool | None = None,
 ) -> SearchResult:
     """The mesh-resident tier (``--tier mesh``; the JAX signature less the
-    mesh object and ``mp``): D shards (default: the number of
-    ``devices``, else 1) of a pool of ``capacity`` rows each on ``device``
-    (``cuda`` by default; ``"cpu"`` for the plain path), chunks of up to M
-    parents a shard cycle, up to K cycles a shard and round, ``rounds``
-    balance rounds a dispatch with gifts of up to T nodes (default
-    ``max(2m, min(M, 8192))``). ``fused=False`` (and lb1_d) runs the
-    unfused cycles, staged under lb2 unless ``staged=False``. ``guard``
-    (else ``TTS_GUARD=1``) arms the steady-state guard (`analysis/
-    guard.py`) on each K rung's dispatches after its first."""
-    dev = _shard_device(devices, device)
+    mesh object, which the port has not): D
+    shards (default: the number of ``devices`` over mp, else 1) of a pool
+    of ``capacity`` rows each, placed on the positions of ``devices`` (a
+    list whose entries may repeat a card; default ``[device]``, ``cuda``
+    by default, ``"cpu"`` for the plain path) as ``MeshProgram`` says,
+    chunks of up to M parents a shard cycle, up to K cycles a shard and
+    round, ``rounds`` balance rounds a dispatch with gifts of up to T nodes
+    (default ``max(2m, min(M, 8192))``). ``mp`` > 1 (PFSP lb2 only) splits
+    the lb2 Johnson pair loop in mp pair blocks and runs the unfused cycle
+    (`resident_mesh.py:90-131`). ``fused=False`` (and lb1_d, and mp > 1) runs the unfused cycles,
+    staged under lb2 unless ``staged=False``. ``guard`` (else
+    ``TTS_GUARD=1``) arms the steady-state guard (`analysis/guard.py`) on
+    each K rung's dispatches after its first."""
+    if mp < 1:
+        raise ValueError(f"mp must be >= 1, got {mp}")
+    if mp > 1 and getattr(problem, "lb", None) != "lb2":
+        raise ValueError(R.MP_LB2_ONLY)
+    positions = mesh_devices(devices, device)
+    dev = positions[0]
     if D is None:
-        D = len(devices) if devices is not None else 1
+        D = max(1, len(devices) // mp) if devices is not None else 1
     if D < 1:
         raise ValueError(f"D must be >= 1, got {D}")
     n = problem.child_slots
@@ -436,7 +592,7 @@ def mesh_resident_search(
     depth = resolve_pipeline_depth()
     program = get_mesh_program(problem, D, m, M, ctl.K if ctl else k_value,
                                rounds, T, capacity, dev, fused=fused,
-                               staged=staged)
+                               staged=staged, mp=mp, devices=positions)
     build0 = program.graph_build_s
     device0 = program.dispatch_device_s
     program.host_slots(depth)
@@ -589,6 +745,9 @@ def mesh_resident_search(
             diagnostics.device_to_host += 1
     finally:
         if dev.type == "cuda":
+            for g in program.groups:
+                if g.stream is not None:
+                    g.stream.synchronize()
             torch.cuda.current_stream(dev).synchronize()
         program.release()
     if offloader is not None:
@@ -638,4 +797,5 @@ def mesh_resident_search(
         quality=qt.result() if qt is not None else None,
         per_worker_tree=per_worker.tolist(),
         guard=guards.record(),
+        mp=program.mp,
     )

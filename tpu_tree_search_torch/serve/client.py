@@ -115,6 +115,8 @@ def spec_from_args(args) -> dict:
     spec = {"problem": args.problem, "tier": args.tier, "m": args.m}
     if args.tier == "mesh" and args.D is not None:
         spec["D"] = args.D
+    if args.tier == "mesh" and args.mp != 1:
+        spec["mp"] = args.mp
     if args.M is not None:
         spec["M"] = args.M
     if args.K is not None:

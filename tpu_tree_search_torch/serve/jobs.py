@@ -7,10 +7,10 @@ resident daemon can preempt (``device`` and ``mesh``: both ride
 torch, so admission control runs entirely in the HTTP thread;
 ``build_problem`` is the constructor the scheduler calls.
 
-The port refuses (``ValueError``, HTTP 400) what it does not run: ``mp``
-other than 1 (ROADMAP.md A.9's second half), and the JAX knobs it has no
-counterpart for, ``compact`` other than ``"auto"`` and ``lb2_pairblock``
-(ROADMAP.md C).
+A mesh job takes ``mp`` (PFSP lb2 only: the lb2 pair loop in mp pair
+blocks), as the JAX daemon does. The port refuses (``ValueError``, HTTP
+400) the JAX knobs it has no counterpart for, ``compact`` other than
+``"auto"`` and ``lb2_pairblock`` (ROADMAP.md C).
 The default M is the port's CLI default for the daemon's device
 (``cli.default_M``).
 
@@ -113,10 +113,12 @@ def validate_spec(spec, device_type: str = "cuda") -> dict:
         D = _as_int(spec, "D", 1, 1024)
         if D is not None:
             out["D"] = D
-        if _as_int(spec, "mp", 1, 4096, default=1) != 1:
-            raise ValueError(
-                "spec.mp is not ported yet (ROADMAP.md queue A, A.9's second "
-                "half: the mesh's pair axis)")
+        mp = _as_int(spec, "mp", 1, 4096, default=1)
+        if mp != 1:
+            if problem != "pfsp" or out.get("lb") != "lb2":
+                raise ValueError("spec.mp shards the lb2 Johnson pair loop "
+                                 "(pfsp lb='lb2' only)")
+            out["mp"] = mp
     elif spec.get("D") is not None or spec.get("mp", 1) != 1:
         raise ValueError("spec.D/spec.mp only apply to tier='mesh'")
     compact = spec.get("compact")

@@ -89,6 +89,8 @@ def class_key(spec: dict) -> str:
         parts.append(f"K{spec['K']}")
     if spec["tier"] == "mesh":
         parts.append(f"D{spec.get('D', 1)}")
+        if spec.get("mp", 1) != 1:
+            parts.append(f"mp{spec['mp']}")
     parts.append(f"compact={knobs['compact']}")
     return "-".join(parts)
 

@@ -416,6 +416,7 @@ class Scheduler:
                     from ..parallel.resident_mesh import mesh_resident_search
 
                     res = mesh_resident_search(problem, D=job.spec.get("D"),
+                                               mp=job.spec.get("mp", 1),
                                                **kw)
                 else:
                     from ..engine.resident import resident_search
