@@ -4,6 +4,7 @@
     python3 chip_ab.py OTHER_ROOT [--out DIR]
     python3 chip_ab.py OTHER_ROOT --rows       # the kernel rows only
     python3 chip_ab.py OTHER_ROOT --searches   # the fused searches' phase 2 only
+    python3 chip_ab.py OTHER_ROOT --searches --unfused   # the unfused ones
 
 Runs each checkout's own ``chip_smoke.py`` from its root, one process a
 run, in turns A, B, B, A: A is OTHER_ROOT (for example a parent commit
@@ -34,7 +35,11 @@ the CLI's defaults, one process a run, each search once to build its
 kernels and graphs and then ``SEARCH_REPS`` times (``--searches-of ROOT``,
 one JSON line: per search the phase 2 seconds and the dispatches' device
 ms by CUDA events of each timed run), then the medians side by side with
-``outside`` as above. Telemetry off in both (the knobs unset).
+``outside`` as above. Telemetry off in both (the knobs unset). With
+``--unfused`` the searches are the unfused cycle's: ta014 lb1_d, ta014
+lb2 staged and single-pass (``fused=False``, ``staged=False``), ta014 lb1
+at M = 1024 and N-Queens N = 14 (a checkout whose unfused dispatches are
+no graph reports no device ms: null).
 """
 
 from __future__ import annotations
@@ -140,11 +145,24 @@ SEARCHES = (("ta014_lb1", ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1"]),
             ("nqueens_N15", ["nqueens", "--N", "15"]),
             ("ta014_lb2", ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1"]))
 SEARCH_REPS = 5
+# The --searches --unfused runs: (name, CLI argv, M or None for the CLI's
+# default, resident_search's keywords).
+UNFUSED_SEARCHES = (
+    ("ta014_lb1_d", ["pfsp", "--inst", "14", "--lb", "lb1_d", "--ub", "1"], None,
+     {}),
+    ("ta014_lb2_staged", ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1"], None,
+     {"fused": False}),
+    ("ta014_lb2_single", ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1"], None,
+     {"fused": False, "staged": False}),
+    ("ta014_lb1_M1024", ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1"], 1024,
+     {"fused": False}),
+    ("nqueens_N14", ["nqueens", "--N", "14"], None, {"fused": False}))
 
 
-def searches_of(root: Path) -> dict:
-    """The fused searches of ``SEARCHES`` through the checkout at ``root``
-    (the current directory): ``{name: [[phase2_s, device_ms], ...]}``."""
+def searches_of(root: Path, unfused: bool = False) -> dict:
+    """The fused searches of ``SEARCHES`` (``unfused``: of
+    ``UNFUSED_SEARCHES``) through the checkout at ``root`` (the current
+    directory): ``{name: [[phase2_s, device_ms, tree], ...]}``."""
     import contextlib
     import io
     import os
@@ -161,17 +179,21 @@ def searches_of(root: Path) -> dict:
     _build.build_all()
     dev = torch.device("cuda", 0)
     out = {}
-    for name, argv in SEARCHES:
+    runs_of = (UNFUSED_SEARCHES if unfused
+               else tuple((name, argv, None, {}) for name, argv in SEARCHES))
+    for name, argv, M, kwargs in runs_of:
         args = cli.build_parser().parse_args(argv)
         prob = cli.make_problem(args)
         runs = []
         for rep in range(SEARCH_REPS + 1):
             with contextlib.redirect_stdout(io.StringIO()):
                 res = resident_search(prob, m=args.m,
-                                      M=cli.default_M(args.problem, "cuda"),
-                                      K=4096, device=dev)
+                                      M=M or cli.default_M(args.problem, "cuda"),
+                                      K=4096, device=dev, **kwargs)
             if rep:
-                runs.append([res.phases[1].seconds, res.dispatch_device_s * 1e3,
+                dev_s = res.dispatch_device_s
+                runs.append([res.phases[1].seconds,
+                             None if dev_s is None else dev_s * 1e3,
                              res.explored_tree])
         out[name] = runs
     return out
@@ -187,13 +209,16 @@ def main() -> int:
     ap.add_argument("--searches", action="store_true",
                     help="the fused searches' phase 2 only")
     ap.add_argument("--searches-of", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--unfused", action="store_true",
+                    help="with --searches: the unfused cycle's searches")
     args = ap.parse_args()
     if args.rows_of is not None:
         print(json.dumps({"root": str(args.rows_of), "rows": rows_of(args.rows_of)}))
         return 0
     if args.searches_of is not None:
         print(json.dumps({"root": str(args.searches_of),
-                          "searches": searches_of(args.searches_of)}))
+                          "searches": searches_of(args.searches_of,
+                                                  args.unfused)}))
         return 0
     if args.other is None:
         ap.error("OTHER_ROOT is required")
@@ -202,7 +227,7 @@ def main() -> int:
     if args.rows:
         return main_rows(roots, args.out)
     if args.searches:
-        return main_searches(roots, args.out)
+        return main_searches(roots, args.out, args.unfused)
     runs, failed = [], False
     for i, tag in enumerate("ABBA"):
         t0 = time.perf_counter()
@@ -247,14 +272,17 @@ def main_rows(roots: dict, out: Path) -> int:
     return 0
 
 
-def main_searches(roots: dict, out: Path) -> int:
-    """``--searches``: A B B A of the fused searches, one process a run."""
+def main_searches(roots: dict, out: Path, unfused: bool = False) -> int:
+    """``--searches``: A B B A of the fused (``unfused``: the unfused)
+    searches, one process a run."""
     import statistics
 
     runs = []
+    names = [r[0] for r in (UNFUSED_SEARCHES if unfused else SEARCHES)]
     for i, tag in enumerate("ABBA"):
         p = subprocess.run([sys.executable, str(HERE / "chip_ab.py"), "--searches-of",
-                            str(roots[tag])], cwd=roots[tag], capture_output=True,
+                            str(roots[tag])] + (["--unfused"] if unfused else []),
+                           cwd=roots[tag], capture_output=True,
                            text=True, timeout=900)
         (out / f"searches_{i}_{tag}.log").write_text(p.stdout + "\n--- stderr\n" + p.stderr)
         if p.returncode != 0:
@@ -263,10 +291,11 @@ def main_searches(roots: dict, out: Path) -> int:
         runs.append(json.loads(p.stdout.strip().splitlines()[-1])["searches"])
         print(json.dumps({"run": i, "tree": tag, "rc": 0, "searches": runs[-1]}), flush=True)
     rows = {}
-    for name, _ in SEARCHES:
+    for name in names:
         for j, field in enumerate(("phase2_s", "device_ms")):
-            rows[f"{name}/{field}"] = [statistics.median(r[j] for r in run[name])
-                                       for run in runs]
+            rows[f"{name}/{field}"] = [
+                None if any(r[j] is None for r in run[name])
+                else statistics.median(r[j] for r in run[name]) for run in runs]
     print(json.dumps({"order": "ABBA", "median": rows, "outside": outside(rows)}),
           flush=True)
     return 0

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --dist     # phases 1, 2 and 18g (the multi-host tiers)
     python3 chip_smoke.py --fleet    # phases 1, 2, 18h and 18i (the guard, the fleet)
     python3 chip_smoke.py --mp       # phases 1, 2 and 18j-18m (the pair axis, device positions)
+    python3 chip_smoke.py --cupti [DIR]  # phases 1, 2 and the traced unfused graph's probes
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -202,7 +203,16 @@ ends the script with a non-zero exit before the final line:
      ``--tier dist_mesh --hosts 2 --D 1`` at mp 2 and 1, each to its
      goldens, the counts set to 0 before each: a pair-block wrapper
      launched mp times a cycle, the full-pair one never; each line's device
-     ms (events) beside mp = 1's;
+     ms (events) beside mp = 1's; the mp = 2 mesh runs again under
+     ``torch.profiler``, where the trace's launches of kernels 1, 6 and 7
+     and of the shards' ``slot_gate`` are at most the wrappers' counts
+     (CUPTI loses records in conditional bodies, never adds one); then
+     ``slot_gate``: one unfused mesh dispatch (N=12, D = 4 with a frozen
+     shard) on the card against the same program on the CPU, max
+     difference 0, its while body a gate and an ``if`` node a shard and
+     ``batch_cond`` (no cycle node outside an ``if`` node: a frozen shard
+     launches nothing), and the gate's device time a launch (profiler)
+     beside its plain version;
  18k. ``kernel6_mp``, ``kernel7_mp``: kernels 6 and 7 on the pair blocks
      of ta014 (P = 45) and ta021 (P = 190) at mp = 2 and 4, B = 49152
      seeded rows: each block against its plain version (the plain lb2 over
@@ -1767,11 +1777,10 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     ``host=False`` traces the device alone (the unfused searches' host
     trace, hundreds of thousands of events, takes minutes to read).
     ``eager`` launches the cycles from the host's loop (``eager_cycles``):
-    a CUPTI trace of an unfused dispatch graph of some 2,500 body runs (the
-    unfused ta014 lb1 and lb1_d searches at M = 1024) ends in an illegal
-    address on the H100, with kernel 1 or its plain version in the body
-    alike, where the same graphs untraced, and traces of up to about 840
-    body runs, run clean."""
+    a CUPTI trace of the unfused ta014 lb1 dispatch graph at M = 1024 ends
+    in an illegal address on the H100, with kernel 1 or its plain version
+    in the body alike, where the same graph untraced runs clean (the
+    ``--cupti`` probes; ROADMAP C)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3570,14 +3579,51 @@ def _library_mesh(argv: list[str], golden: dict, **kwargs) -> dict:
     return rec
 
 
+# The mesh_mp runs traced again under torch.profiler, and the kernels whose
+# launches the trace counts: (kernel name in the trace, the wrappers that
+# launch it).
+MP_TRACED = ("mp2_staged", "mp2_single")
+MP_TRACE_KERNELS = (("lb2_bounds_kernel", ("lb2_bounds", "lb2_block")),
+                    ("lb2_self_bounds_kernel", ("lb2_self_bounds", "lb2_self_block")),
+                    ("lb1_bounds_kernel", ("lb1_bounds",)),
+                    ("slot_gate", ("slot_gate",)))
+
+
+def traced_launches(go, counters: dict) -> tuple[dict, dict, dict]:
+    """``go()`` under ``torch.profiler`` (the device alone), its counts set
+    to 0 just before: ``(its result, the wrappers' launches, the trace's
+    launches of each kernel of MP_TRACE_KERNELS)``, which the wrappers'
+    counts must equal (a launch the wrappers do not count shows here)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    zero_counts(counters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = go()
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    traced = {kn: 0 for kn, _ in MP_TRACE_KERNELS}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for kn, _ in MP_TRACE_KERNELS:
+            if kn in ev.key:
+                traced[kn] += ev.count
+    return rec, launches, traced
+
+
 def phase_mesh_mp(counters: dict) -> dict:
     """Phase 18j (see the module note): the mesh and dist_mesh tiers under
-    the lb2 pair axis, each run's counts set to 0 just before it."""
+    the lb2 pair axis, each run's counts set to 0 just before it; the runs
+    of MP_TRACED again under ``torch.profiler``, the trace's kernel
+    launches against the wrappers' counts."""
     rows = {}
     for name, argv, mp, staged, library in MP_RUNS:
+        def go(argv=argv, staged=staged, library=library):
+            return (_library_mesh(argv, GOLDEN_LB2, fused=False, staged=staged)
+                    if library else run_search(argv, GOLDEN_LB2))
         zero_counts(counters)
-        rec = (_library_mesh(argv, GOLDEN_LB2, fused=False, staged=staged)
-               if library else run_search(argv, GOLDEN_LB2))
+        rec = go()
         launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
         cycles = rec["device_cycles"]
         bound = ("lb2_self_block" if staged else "lb2_block") if mp > 1 else (
@@ -3604,6 +3650,16 @@ def phase_mesh_mp(counters: dict) -> dict:
                           graph_build_s=rec["graph_build_s"], guard=rec.get("guard"),
                           per_worker_tree=rec["per_worker_tree"],
                           phase2_s=rec["phases"][1][2], elapsed_s=rec["elapsed_s"])
+        if name in MP_TRACED:
+            _, by_wrapper, traced = traced_launches(go, counters)
+            want = {kn: sum(by_wrapper.get(w, 0) for w in ws)
+                    for kn, ws in MP_TRACE_KERNELS}
+            # CUPTI loses records of a conditional body's nodes (some runs
+            # lose most), never adds one: a trace holding more launches
+            # than a wrapper counted would be a launch it did not count.
+            check(all(traced[k] <= want[k] for k in want) and traced["slot_gate"] > 0,
+                  f"mesh_mp {name}: traced launches {traced} against the wrappers' {want}")
+            rows[name]["traced_launches"] = traced
     for name, row in rows.items():
         base = rows[("dist_mesh_mp1" if name.startswith("dist") else
                      f"mp1_{'staged' if row['staged'] else 'single'}")]
@@ -3829,6 +3885,102 @@ def phase_mesh_cards(counters: dict) -> dict:
     return rows
 
 
+def phase_slot_gate(dev) -> dict:
+    """``slot_gate`` (csrc/dispatch_graph.cu: an unfused slot's gate and the
+    condition of its ``if`` node) on the card: one unfused mesh dispatch
+    (N-Queens N=12, D = 4: a full shard, a starving one, a partial one
+    and an empty one; K = 4, 2 rounds) against the same program on the
+    CPU, every word of every shard and every live row (max difference);
+    the gate's device ms a launch from a ``torch.profiler`` trace of a
+    second dispatch on the same frontiers, its launches there; the plain
+    version (``loop_active`` on each shard's row, ``st[ST_ACTIVE]`` set on
+    the card's tensor) timed by events; the bound: the three words the
+    gate reads and the one it writes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import dispatch as D
+    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+    from tpu_tree_search_torch.problems import NQueensProblem
+
+    prob, M, K, m, cap, Dn = NQueensProblem(12), 256, 4, 25, 1 << 15, 4
+    fr = _frontier(prob, 600)
+    fronts = [fr, {k: v[:10] for k, v in fr.items()},
+              {k: v[:300] for k, v in fr.items()}, None]
+
+    def program(where):
+        prog = MeshProgram(prob, Dn, m, M, K, 2, 64, cap, where, fused=False)
+        prog.host_slots(1)
+        return prog
+
+    def load(prog):
+        for d, f in enumerate(fronts):
+            if f is None:
+                prog.st[d].copy_(C.new_state(0, INF, prog.device))
+            else:
+                prog.inner.load_state(prog.states[d], f, INF)
+
+    out = []
+    for where in (dev, torch.device("cpu")):
+        prog = program(where)
+        load(prog)
+        out.append((prog, prog.enqueue()()[0]))
+    (g, grows), (p, prows) = out
+    err = max(abs(a - b) for ra, rb in zip(grows, prows) for a, b in zip(ra, rb))
+    for d in range(Dn):
+        s = prows[d][0]
+        err = max(err, _maxdiff(g.pool_vals[d, :s].cpu(), p.pool_vals[d, :s]),
+                  _maxdiff(g.pool_aux[d, :s].cpu(), p.pool_aux[d, :s]))
+    p.close()
+    body = g.graph().kernels()
+    check(len(body) == 2 * Dn + 1 and body.count("-") == Dn
+          and sum("slot_gate" in k for k in body) == Dn
+          and sum("batch_cond" in k for k in body) == 1,
+          f"slot_gate: the unfused mesh body's nodes {body}")
+    load(g)
+    D.slot_gate.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.enqueue()()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "slot_gate" in e.key]
+    traced = sum(e.count for e in evs)
+    ms = sum(e.self_device_time_total for e in evs) / 1e3 / max(1, traced)
+    launches = D.slot_gate.launches
+    g.close()
+    st = torch.stack([C.new_state(s, INF, dev) for s in (600, 10, 300, 0)])
+
+    def plain():
+        for i, row in enumerate(st.tolist()):
+            st[i, C.ST_ACTIVE] = int(D.loop_active(row, m, M * prob.child_slots, cap, K))
+
+    plain_ms = median_ms(plain, 5) / Dn
+    bms, by = bound_ms(4 * 4, 0)
+    check(err == 0 and 0 < traced <= launches,
+          f"slot_gate: max diff {err}, traced {traced} of {launches} launches")
+    row = dict(max_abs_err=err, ms=ms, traced_launches=traced, launches=launches,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, shards=Dn,
+               cycles=sum(r[C.ST_CYCLES] for r in grows))
+    emit("slot_gate", **row)
+    return row
+
+
+def slot_gate_row(gate: dict, mp_runs: dict) -> dict:
+    """The kernels line's row of ``slot_gate`` (phase 18j's mp = 2 staged
+    mesh its launches, ``phase_slot_gate`` its times)."""
+    return {"name": "slot_gate", "route": "cuda",
+            "source": "tpu_tree_search_torch/csrc/dispatch_graph.cu",
+            "replaces": "tpu_tree_search/engine/batched.py:120",
+            "launches": mp_runs["mp2_staged"]["launches"]["slot_gate"],
+            "launches_path": "mesh_mp mp2_staged",
+            "shape": "one shard's state row, D = 4 a round",
+            "max_abs_err": gate["max_abs_err"], "ms": gate["ms"],
+            "timing": "profiler, a launch", "plain_ms": gate["plain_ms"],
+            "bound_ms": gate["bound_ms"], "bound_by": gate["bound_by"],
+            "library_ms": None}
+
+
 def pair_block_rows(mp_runs: dict, blocks: dict) -> list[dict]:
     """The kernels line's rows of kernels 6 and 7 on pair blocks: the
     launches of the mp = 2 mesh runs of phase 18j, the times of phase 18k
@@ -3873,9 +4025,11 @@ def main_mp(dev_info) -> int:
                   for i in (14, 21)}
     blocks = phase_pair_blocks(dev, lb2_tables)
     mp_runs = phase_mesh_mp(counters)
+    gate = phase_slot_gate(dev)
     phase_mesh_eval(dev)
     phase_mesh_cards(counters)
-    print(json.dumps({"kernels": pair_block_rows(mp_runs, blocks)}), flush=True)
+    print(json.dumps({"kernels": pair_block_rows(mp_runs, blocks)
+                      + [slot_gate_row(gate, mp_runs)]}), flush=True)
     print(json.dumps({"ok": True, "phases": "mp", "device": dev_info}), flush=True)
     return 0
 
@@ -3901,6 +4055,7 @@ def kernel_counters() -> dict:
         batch_init,
         dispatch_cond_obs,
         phase_mark_cuda,
+        slot_gate,
     )
     from tpu_tree_search_torch.ops.mesh import MeshGraph, mesh_balance_cuda
 
@@ -3924,6 +4079,7 @@ def kernel_counters() -> dict:
             "batch_init": batch_init,
             "batch_cond": batch_cond,
             "batch_cond_obs": batch_cond_obs,
+            "slot_gate": slot_gate,
             "mesh_balance": mesh_balance_cuda,
             "mesh_graph": MeshGraph}
 
@@ -3946,11 +4102,120 @@ def main_host(dev_info) -> int:
     return 0
 
 
+# The --cupti probes of the unfused ta014 lb1 graph at M = 1024 (2,519
+# cycles, two dispatches at the CLI's K): (name, extra argv, traced, the
+# capture pools kept for the process's life, under compute-sanitizer); a
+# run cut by --max-steps is checked against no golden.
+CUPTI_UNFUSED = PFSP_LB1 + ["--M", "1024", "--unfused"]
+CUPTI_PROBES = (("untraced", [], False, False, False),
+                ("memcheck", [], False, False, True),
+                ("traced", [], True, False, False),
+                ("traced_pools_kept", [], True, True, False),
+                ("traced_K512", ["--K", "512"], True, False, False),
+                ("traced_cut_1x1000", ["--K", "1000", "--max-steps", "1"], True, False,
+                 False),
+                ("traced_cut_4x250", ["--K", "250", "--max-steps", "4"], True, False,
+                 False),
+                ("traced_cut_1x2000", ["--K", "2000", "--max-steps", "1"], True, False,
+                 False),
+                ("traced_cut_8x250", ["--K", "250", "--max-steps", "8"], True, False,
+                 False),
+                ("traced_eager", ["--eager"], True, False, False))
+
+
+def cupti_run(name: str) -> int:
+    """One probe of CUPTI_PROBES in this process: the search, traced on
+    the device alone or not; one JSON line (its counts against the
+    goldens, dispatches, body runs a dispatch, the trace's kernel launches
+    and device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    _, extra, traced, keep, _ = next(p for p in CUPTI_PROBES if p[0] == name)
+    if keep:
+        class _KeepAll(list):
+            def clear(self):  # the retired pools are never destroyed
+                pass
+        D._RETIRED = _KeepAll()
+    t0 = time.perf_counter()
+    argv = CUPTI_UNFUSED + [a for a in extra if a != "--eager"]
+    with contextlib.ExitStack() as stack:
+        if "--eager" in extra:
+            stack.enter_context(eager_cycles())
+        prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+                if traced else None)
+        rec = run_search(argv, None if "--max-steps" in extra else GOLDEN)
+        torch.cuda.synchronize()
+    out = dict(probe=name, dispatches=rec["dispatches"], K=rec["K"],
+               complete=rec.get("complete"),
+               device_cycles=rec["device_cycles"],
+               cycles_per_dispatch=rec["device_cycles"] / max(1, rec["dispatches"]),
+               phase2_s=rec["phases"][1][2], seconds=time.perf_counter() - t0)
+    if prof is not None:
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        out.update(trace_launches=sum(e.count for e in evs),
+                   trace_device_ms=sum(e.self_device_time_total for e in evs) / 1e3)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main_cupti(dev_info) -> int:
+    """``--cupti [DIR]``: the probes of CUPTI_PROBES, a process each (a
+    fault ends its process, not the script): each one's exit code, its
+    line, and the tail of its errors; each one's whole output in DIR
+    (default ``_checkout/cupti`` beside this script). Fails only where the
+    untraced search fails."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = sys.argv[2] if len(sys.argv) > 2 else os.path.join(here, "_checkout", "cupti")
+    os.makedirs(logs, exist_ok=True)
+    rows = {}
+    for name, _, _, _, sanitize in CUPTI_PROBES:
+        cmd = [sys.executable, os.path.abspath(__file__), "--cupti-run", name]
+        if sanitize:
+            tool = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+            cmd = [tool, "--tool", "memcheck", "--print-limit", "20"] + cmd
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=480 if sanitize else 300)
+            rc, out, err = p.returncode, p.stdout, p.stderr
+        except subprocess.TimeoutExpired as e:
+            rc = "timeout"
+            out = e.stdout.decode(errors="replace") if isinstance(e.stdout, bytes) else (e.stdout or "")
+            err = e.stderr.decode(errors="replace") if isinstance(e.stderr, bytes) else (e.stderr or "")
+        except OSError as e:
+            rc, out, err = "not run", "", repr(e)
+        with open(os.path.join(logs, f"{name}.log"), "w") as f:
+            f.write(f"{cmd}\nrc {rc}\n--- stdout\n{out}\n--- stderr\n{err}")
+        line = next((ln for ln in reversed(out.splitlines()) if ln.startswith('{"probe"')),
+                    None)
+        marks = [ln.strip() for ln in err.splitlines()
+                 if "rror" in ln or "illegal" in ln or "terminate" in ln][:6]
+        rows[name] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                          result=json.loads(line) if line else None,
+                          stdout_tail=out.splitlines()[-12:] if sanitize else None,
+                          stderr_errors=marks)
+        emit(f"cupti_{name}", **rows[name])
+    check(rows["untraced"]["rc"] == 0, "the untraced unfused search failed")
+    print(json.dumps({"ok": True, "phases": "cupti", "device": dev_info}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--cupti-run"]:
+        return cupti_run(sys.argv[2])
     dev_info = phase_device()
     if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"],
-                        ["--dist"], ["--fleet"], ["--mp"]):
+                        ["--dist"], ["--fleet"], ["--mp"], ["--cupti"]) or (
+            sys.argv[1:2] == ["--cupti"] and len(sys.argv) == 3):
         phase_build()
+        if sys.argv[1] == "--cupti":
+            return main_cupti(dev_info)
         if sys.argv[1] == "--mp":
             return main_mp(dev_info)
         if sys.argv[1] == "--host":
@@ -4104,6 +4369,7 @@ def main() -> int:
     # under --mp), parallel/mesh.py's evaluator, and device positions.
     blocks = phase_pair_blocks(dev, lb2_tables)
     mp_runs = phase_mesh_mp(counters)
+    gate = phase_slot_gate(dev)
     phase_mesh_eval(dev)
     phase_mesh_cards(counters)
     evp = phase_eval_pass(dev, eval_probs, counters)
@@ -4334,7 +4600,7 @@ def main() -> int:
     # The mesh's balance step (not a TPU kernel: the JAX pmin and ring
     # diffusion).
     kernels.append(mesh_kernel_row(bal, mdisp, mesh))
-    kernels += pair_block_rows(mp_runs, blocks)
+    kernels += pair_block_rows(mp_runs, blocks) + [slot_gate_row(gate, mp_runs)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

@@ -13,19 +13,31 @@ own device).
   * ``shard_moves`` against ``mesh_balance_plain``'s gifts;
   * the CLI: ``--tier mesh`` and ``--tier multi`` over ``--device
     cpu,cpu``, and the refusals (one device for the single-device tier, a
-    card that is not there).
+    card that is not there);
+  * the (dp, mp) grid of device positions against the JAX
+    ``make_dp_mp_mesh`` layout.
 
-Tolerance: exact equality (counts, node values).
+Each whole search is held against the JAX package on the same inputs: the
+JAX ``mesh_resident_search`` (counts and shard trees) on the suite's
+virtual CPU devices, the JAX ``multidevice_search`` and the JAX sequential
+tier (counts). Tolerance: exact equality (counts, node values).
 """
 
 from __future__ import annotations
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from tpu_tree_search.engine.sequential import sequential_search as jax_seq
+from tpu_tree_search.parallel import resident_mesh as JM
+from tpu_tree_search.parallel.multidevice import (
+    multidevice_search as jax_multidevice,
+)
+from tpu_tree_search.problems import NQueensProblem as JaxNQueens
 from tpu_tree_search_torch import cli
 from tpu_tree_search_torch.engine.device import warmup
 from tpu_tree_search_torch.ops import mesh as MS
@@ -34,6 +46,7 @@ from tpu_tree_search_torch.parallel.multidevice import multidevice_search
 from tpu_tree_search_torch.parallel.resident_mesh import (
     get_mesh_program,
     mesh_resident_search,
+    mp_grid,
 )
 from tpu_tree_search_torch.pool.pool import SoAPool
 from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
@@ -90,7 +103,10 @@ def test_two_groups_equal_one_whole_search(kw):
                                device="cpu", **kw)
     two = mesh_resident_search(NQueensProblem(9), m=8, M=128, K=8, D=4,
                                devices=["cpu", "cpu"], **kw)
-    assert (two.explored_tree, two.explored_sol) == (8393, 352)
+    want = JM.mesh_resident_search(JaxNQueens(9), m=8, M=128, K=8, D=4)
+    assert (two.explored_tree, two.explored_sol) == (
+        want.explored_tree, want.explored_sol)
+    assert two.per_worker_tree == list(want.per_worker_tree)
     assert two.per_worker_tree == one.per_worker_tree
     assert two.dispatches == one.dispatches
 
@@ -121,8 +137,10 @@ def test_shard_moves_equal_the_plain_balance():
 def test_multi_workers_on_two_positions():
     res = multidevice_search(NQueensProblem(10), m=8, M=128,
                              devices=["cpu", "cpu"])
-    assert (res.explored_tree, res.explored_sol) == (35538, 724)
-    assert len(res.per_worker_tree) == 2
+    want = jax_multidevice(JaxNQueens(10), m=8, M=128, D=2)
+    assert (res.explored_tree, res.explored_sol) == (
+        want.explored_tree, want.explored_sol)
+    assert len(res.per_worker_tree) == len(want.per_worker_tree) == 2
 
 
 @pytest.mark.parametrize("tier", ["mesh", "multi"])
@@ -130,7 +148,9 @@ def test_cli_takes_a_device_list(tier, capsys):
     assert cli.main(["nqueens", "--N", "9", "--tier", tier, "--device",
                      "cpu,cpu", "--M", "64", "--json"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert (rec["explored_tree"], rec["explored_sol"]) == (8393, 352)
+    want = jax_seq(JaxNQueens(9))
+    assert (rec["explored_tree"], rec["explored_sol"]) == (
+        want.explored_tree, want.explored_sol)
     assert rec["D"] == 2 and rec["device"] == "cpu"
 
 
@@ -147,3 +167,15 @@ def test_device_list_refusals(capsys):
         with pytest.raises(RuntimeError, match="CUDA"):
             mesh_resident_search(NQueensProblem(8), D=2,
                                  devices=["cuda:0", "cuda:1"])
+
+
+@pytest.mark.parametrize("D,mp,G", [(4, 2, 8), (2, 4, 8), (4, 1, 4),
+                                    (2, 2, 4)])
+def test_mp_grid_is_the_jax_layout(D, mp, G):
+    # The port places replica (d, i) on position (d*mp + i) % G; where the
+    # JAX package has D*mp devices it is its make_dp_mp_mesh grid.
+    devs = jax.devices()[:G]
+    mesh = JM.make_dp_mp_mesh(devs, D, mp)
+    ids = {dev.id: k for k, dev in enumerate(devs)}
+    want = np.vectorize(lambda dev: ids[dev.id])(mesh.devices).reshape(D, mp)
+    assert mp_grid(D, mp, G) == want.tolist()

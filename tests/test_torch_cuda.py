@@ -1854,3 +1854,132 @@ def test_two_groups_on_one_card_equal_one_group(cuda):
                                devices=["cuda:0", "cuda:0"], guard=True)
     assert (two.explored_tree, two.explored_sol) == (NQ10["tree"], NQ10["sol"])
     assert two.per_worker_tree == one.per_worker_tree
+
+
+@pytest.mark.parametrize("mp", [1, 2])
+def test_unfused_mesh_gates_frozen_shards(cuda, mp):
+    """The unfused mesh dispatch (each shard's cycle under its own ``if``
+    node after a ``slot_gate``) against the same program on the CPU, a
+    full shard, a starving one, a partial one and an empty one: equal
+    rows; the body holds a gate and an ``if`` node a shard and no cycle
+    node outside one, so a frozen shard launches nothing; the wrapper's
+    count of the bound kernel (kernel 3; kernel 6 on pair blocks under mp)
+    is the shards' runs and the gate's D a round, and a ``torch.profiler``
+    trace holds at most as many launches of either."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.ops import dispatch as Dp
+    from tpu_tree_search_torch.ops.mesh import ST_MESH_COND
+    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+    from tpu_tree_search_torch.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    if mp == 1:
+        prob, best, M, kernel, fn = (NQueensProblem(12), INF, 256,
+                                     "nqueens_labels_kernel",
+                                     nqueens_kernel.nqueens_labels_cuda)
+    else:
+        prob = PFSPProblem(inst=14, lb="lb2", ub=1)
+        best, M, kernel, fn = (prob.initial_ub, 64, "lb2_bounds_kernel",
+                               lb2_kernel.lb2_block_cuda)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, best, 600)
+    fr = pool.as_batch()
+    fronts = [fr, {k: v[:10] for k, v in fr.items()},
+              {k: v[:300] for k, v in fr.items()}, None]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        prog = MeshProgram(prob, 4, 25, M, 4, 2, 64, 1 << 15, dev,
+                           fused=False, staged=False, mp=mp)
+        for d, f in enumerate(fronts):
+            if f is None:
+                prog.st[d].copy_(C.new_state(0, best, dev))
+            else:
+                prog.inner.load_state(prog.states[d], f, best)
+        prog.host_slots(1)
+        if dev.type == "cuda":
+            # The graph is built inside the trace (CUPTI misses node
+            # launches of a graph built before the trace began).
+            fn.launches = Dp.slot_gate.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                rows = prog.enqueue()()[0]
+                torch.cuda.synchronize()
+            traced = {k: sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA and k in e.key)
+                      for k in (kernel, "slot_gate")}
+            # Each round's while body: a gate and an if node a shard, then
+            # batch_cond; no cycle node outside an if node.
+            body = prog.graph().kernels()
+            assert body.count("-") == 4 and sum(
+                "slot_gate" in k for k in body) == 4 and len(body) == 9
+        else:
+            rows = prog.enqueue()()[0]
+        out.append((prog, rows))
+    (g, grows), (p, prows) = out
+    try:
+        assert grows == prows
+        runs = sum(r[C.ST_RUNS] for r in grows)
+        assert 0 < runs < 4 * grows[0][ST_MESH_COND]  # some shard froze
+        # CUPTI loses records of a conditional body's nodes (PERF.md §7),
+        # never adds one.
+        assert traced[kernel] <= fn.launches == mp * runs
+        assert 0 < traced["slot_gate"] <= Dp.slot_gate.launches == (
+            4 * grows[0][ST_MESH_COND])
+        for d in range(4):
+            s = grows[d][0]
+            assert torch.equal(g.pool_vals[d, :s].cpu(), p.pool_vals[d, :s])
+            assert torch.equal(g.pool_aux[d, :s].cpu(), p.pool_aux[d, :s])
+    finally:
+        g.close()
+        p.close()
+
+
+def test_unfused_batched_graph_gates_frozen_slots(cuda):
+    """A batched lb1_d dispatch (the unfused cycle, each slot's under its
+    own ``if`` node, no cycle node outside one): kernel 5's count is the
+    slots' summed cycles and ``slot_gate``'s B a round, and a
+    ``torch.profiler`` trace holds at most as many launches of either;
+    each slot equals its solo dispatch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    K, M = 4, 256
+    bp, fronts, best = _batch_case(cuda, "lb1_d", K=K, M=M)
+    assert not bp.inner.fused
+    fn = lb1_d_kernel.lb1_d_bounds_cuda
+    fn.launches = D.slot_gate.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reads = bp.step()
+        torch.cuda.synchronize()
+    traced = {k: sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and k in e.key)
+              for k in ("lb1_d_bounds_kernel", "slot_gate")}
+    cycles = [r[2] for r in reads]
+    assert cycles[0] == K and cycles[1] >= 1 and cycles[2:] == [0, 0]
+    # CUPTI loses records of a conditional body's nodes, never adds one.
+    assert traced["lb1_d_bounds_kernel"] <= fn.launches == sum(cycles)
+    assert 0 < traced["slot_gate"] <= D.slot_gate.launches == 4 * max(cycles)
+    body = bp.graph().kernels()
+    assert body.count("-") == 4 and len(body) == 9
+    solo = make_program(bp.problem, 25, M, K, 1 << 16, cuda)
+    solo.host_slots(1)
+    words = [i for i in range(C.ST_LEN) if i != C.ST_ACTIVE]
+    try:
+        for i, f in enumerate(fronts):
+            if f is None:
+                continue
+            state = solo.init_state(f, best)
+            assert solo.enqueue(state)() == reads[i][:5]
+            size = reads[i][3]
+            assert torch.equal(bp.st[i, words], state.st[words])
+            assert torch.equal(bp.states[i].pool_vals[:size],
+                               state.pool_vals[:size])
+    finally:
+        solo.close()
+        bp.close()

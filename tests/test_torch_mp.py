@@ -370,13 +370,14 @@ def test_fixed_shape_cycle_equals_the_old_loop(monkeypatch, M_, overflow):
     assert ctr[7] == (prog.M * 8 if overflow else prog.S)
     assert torch.equal(state.pool_vals[:want[0]], vals[:want[0]])
     assert torch.equal(state.pool_aux[:want[0]], aux[:want[0]])
-    # The rows of the window the survivors do not reach keep their values.
-    end = min(size0 - min(size0, M_) + M_ * 8, prog.capacity)
-    assert torch.equal(state.pool_vals[want[0]:end], vals[want[0]:end])
-    # A cycle whose condition fails is an exact no-op.
+    # The push writes nothing outside its window [start, start + M*n).
+    end = size0 - min(size0, M_) + M_ * 8
+    assert torch.equal(state.pool_vals[end:], vals[end:])
+    # A slot whose condition fails runs no cycle (the host rounds' test,
+    # the graphs' while and if nodes): its state and pool stay as they are.
+    state.st[0] = prog.m - 1  # size < m
     before = (state.st.clone(), state.pool_vals.clone())
-    state.st[4] = prog.K  # cycles == K
-    prog._unfused_cycle(state)
+    prog.host_rounds([state], state.st[None], False)
     assert torch.equal(state.pool_vals, before[1])
-    assert state.st[0] == before[0][0] and state.st[5] == 0
+    assert state.st[0] == before[0][0] and state.st[4] == 0
     prog.close()

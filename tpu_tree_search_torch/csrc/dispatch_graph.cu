@@ -44,7 +44,8 @@
 //
 // The batched dispatch (`batch_init`, a body of B captured cycles,
 // `batch_cond`) is built by batch_graph_create and batch_graph_end_body,
-// below; the mesh dispatch (rounds of the batched init and while node, each
+// below, an unfused slot's cycle under an `if` node of its own after a
+// `slot_gate` (slot_gate_begin, slot_gate_end); the mesh dispatch (rounds of the batched init and while node, each
 // followed by a captured balance step) by mesh_graph_create,
 // mesh_graph_add_round and mesh_graph_end_child.
 //
@@ -181,6 +182,18 @@ __global__ void batch_cond(int* st, int B, cudaGraphConditionalHandle h,
 __global__ void batch_cond_obs(int* st, int B, cudaGraphConditionalHandle h,
                                int m, long long Mn, int C, int K, int n) {
   batch_cond_body<true>(st, B, h, m, Mn, C, K, n);
+}
+
+// A batch or mesh slot's gate, ahead of its unfused cycle (`ops/dispatch.py`
+// `gated`): st[ST_ACTIVE] and the condition of the slot's `if` node set
+// from the slot's loop condition. The unfused cycle is torch work of fixed
+// shapes that would run in full on a frozen slot; under its `if` node a
+// frozen slot launches nothing, and its runs are its cycles' launches.
+__global__ void slot_gate(int* st, cudaGraphConditionalHandle h, int m,
+                          long long Mn, int C, int K) {
+  const unsigned live = dispatch_active(st, m, Mn, C, K);
+  st[ST_ACTIVE] = static_cast<int>(live);
+  cudaGraphSetConditional(h, live);
 }
 
 // Threads of the batch nodes' one block: B rounded up to a warp.
@@ -421,6 +434,77 @@ extern "C" int batch_graph_end_body(void* stream, int ok, void* st, int B,
   cudaGraph_t out = nullptr;
   const cudaError_t end = cudaStreamEndCapture(s, &out);
   return static_cast<int>(err ? err : end);
+}
+
+// Inside a body's capture on `stream`: the slot gate over the slot's state
+// row `st`, an `if` node after it (added to the graph being captured, which
+// then depends on it), and `body_stream` capturing into the `if` node's
+// body. The caller enqueues the slot's cycle on `body_stream`, then calls
+// slot_gate_end. The handle is created in the graph that holds the node.
+extern "C" int slot_gate_begin(void* stream, void* body_stream, void* st,
+                               int m, long long Mn, int C, int K) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  cudaGraph_t g = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t err =
+      cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, nullptr, &ndeps);
+#else
+  cudaError_t err =
+      cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, &ndeps);
+#endif
+  if (!err && status != cudaStreamCaptureStatusActive)
+    err = cudaErrorStreamCaptureUnmatched;
+  cudaGraphConditionalHandle h = 0;
+  if (!err)
+    err = cudaGraphConditionalHandleCreate(&h, g, 0,
+                                           cudaGraphCondAssignDefault);
+  if (!err) {
+    slot_gate<<<1, 1, 0, s>>>(static_cast<int*>(st), h, m, Mn, C, K);
+    err = cudaGetLastError();
+  }
+  if (!err)
+#if CUDART_VERSION >= 13000
+    err = cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, nullptr,
+                                   &ndeps);
+#else
+    err = cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, &ndeps);
+#endif
+  cudaGraphNodeParams cp = {};
+  cudaGraphNode_t node = nullptr;
+  if (!err) {
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = h;
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
+#if CUDART_VERSION >= 13000
+    err = cudaGraphAddNode(&node, g, deps, nullptr, ndeps, &cp);
+#else
+    err = cudaGraphAddNode(&node, g, deps, ndeps, &cp);
+#endif
+  }
+  if (!err)
+#if CUDART_VERSION >= 13000
+    err = cudaStreamUpdateCaptureDependencies(s, &node, nullptr, 1,
+                                              cudaStreamSetCaptureDependencies);
+#else
+    err = cudaStreamUpdateCaptureDependencies(s, &node, 1,
+                                              cudaStreamSetCaptureDependencies);
+#endif
+  if (!err)
+    err = cudaStreamBeginCaptureToGraph(
+        static_cast<cudaStream_t>(body_stream), cp.conditional.phGraph_out[0],
+        nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
+  return static_cast<int>(err);
+}
+
+// End the capture of an `if` node's body (slot_gate_begin).
+extern "C" int slot_gate_end(void* body_stream) {
+  cudaGraph_t out = nullptr;
+  return static_cast<int>(
+      cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &out));
 }
 
 extern "C" int dispatch_graph_instantiate(void* graph, void** exec_out) {

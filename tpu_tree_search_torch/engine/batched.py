@@ -16,9 +16,10 @@ Two rules keep every slot bit-identical to a solo run:
     ``batch_init``, then a ``while`` node whose body is each slot's cycle
     in slot order (the resident program's own cycle on that slot's state:
     the fused one, kernels 2, 4, 8 or 9a-c, or the unfused one of fixed
-    shapes) and one ``batch_cond``; a slot whose condition is false runs
-    an exact no-op, the counterpart of the JAX ``jnp.where(live, new,
-    old)``. On the CPU a dispatch runs rounds on the host
+    shapes, under an ``if`` node of the slot's own) and one
+    ``batch_cond``; a slot whose condition is false runs an exact no-op
+    (the unfused cycle: nothing), the counterpart of the JAX
+    ``jnp.where(live, new, old)``. On the CPU a dispatch runs rounds on the host
     (``host_rounds``): in each, every live slot runs one cycle and a
     frozen slot nothing. The
     B slots share one cycle scratch: their cycles run one after another on

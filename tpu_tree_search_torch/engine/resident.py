@@ -115,7 +115,7 @@ from ..obs import roofline as obs_roofline
 from ..ops._build import count_build
 from ..ops.backend import resolve_device
 from ..ops.compact_policy import resolve_compact_mode
-from ..ops.compaction import compact_ids
+from ..ops.compaction import compact_ids, swap_children
 from ..ops.cycle import (
     ST_ACTIVE,
     ST_BEST,
@@ -559,9 +559,10 @@ class _ResidentProgram(CachedProgram):
             self._unfused_cycle(state)
 
     def slot_cycle(self, state: ResidentState):
-        """The cycle a batch or mesh graph captures for one slot's state
-        (a slot whose condition fails runs an exact no-op that clears
-        ``st[ST_ACTIVE]``): a callable of no arguments."""
+        """The cycle a batch or mesh graph captures for one slot's state: a
+        callable of no arguments. Where the slot's condition fails, a fused
+        cycle runs an exact no-op that clears ``st[ST_ACTIVE]``; an unfused
+        one sits under the slot's ``if`` node and runs nothing."""
         cycle = self._fused_cycle if self.fused else self._unfused_cycle
         return lambda: cycle(state)
 
@@ -594,93 +595,76 @@ class _ResidentProgram(CachedProgram):
     def _unfused_cycle(self, state: ResidentState) -> None:
         """One unfused cycle on ``state``, in place, of fixed shapes with
         its scalars on the device, so that it reads nothing back and a
-        graph captures it (`ops/dispatch.py`): an exact no-op where the
-        loop condition fails (a frozen mesh or batch shard).
+        graph captures it (`ops/dispatch.py`). It runs only where the loop
+        condition holds: the dispatch graph's ``while`` node, a batch or
+        mesh slot's ``if`` node (``slot_gate``) and the host loops test it
+        first.
 
-        The pop gathers the window ``[start2, start2 + M)``, ``start2 =
-        clamp(size - cnt, 0, C - M)``, with ``cnt = min(size, M)``; the
+        The pop gathers the window ``[start, start + M)``, ``start = size -
+        cnt`` with ``cnt = min(size, M)`` (rows past ``size`` masked); the
         evaluator keeps the children; ``compact_ids`` ranks every survivor
-        in (parent, slot) order; the push rebuilds each child from its
-        parent (one gather of the parent row and aux, then selects: a
-        child differs from its parent at the two swapped positions) and
-        writes the survivors to rows ``[size, size + tree_inc)`` of a
-        window of M*n rows whose other rows keep their values. The
-        overflow branch of the JAX cycle (more than the budget S of
-        survivors) places the same rows; it is chosen on the device and
-        kept for the counter block and the phase clock. Armed, the cycle
-        folds into the counter block (`obs_counters.update`: an overflow
-        cycle counts one ``overflow`` and M*n ``push_rows``, a fitting one
-        S) and marks the phase clock after the pop, the evaluation, the
-        compaction and the push or overflow (``phase_mark_if``)."""
-        n, m, M, C, S = (self.problem.child_slots, self.m, self.M,
-                         self.capacity, self.S)
+        in (parent, slot) order; the push makes the child of each of the
+        M*n ranked slots from its parent's row (``swap_children``) and
+        writes all M*n rows at ``[start, start + M*n)`` with one
+        ``index_copy_``: the survivors land at ``[start, start +
+        tree_inc)``, the rest past the new size, dead rows (the JAX fitting
+        branch writes its S rows so too); the condition's ``size + M*n <=
+        C`` keeps the window in the pool. The overflow branch of the JAX
+        cycle (more than the budget S of survivors) places the same rows;
+        it is chosen on the device and kept for the counter block and the
+        phase clock. Armed, the cycle folds into the counter block
+        (`obs_counters.update`: an overflow cycle counts one ``overflow``
+        and M*n ``push_rows``, a fitting one S) and marks the phase clock
+        after the pop, the evaluation, the compaction and the push or
+        overflow (``phase_mark_if``)."""
+        n, M, S = self.problem.child_slots, self.M, self.S
         Mn = M * n
         st, pool_vals, pool_aux = state.st, state.pool_vals, state.pool_aux
-        dev = pool_vals.device
         i32 = torch.int32
         clk = self.clk
         P = obs_phases.IDX
         if clk is not None:
             phase_mark(clk, P["loop"], obs_phases.OPEN)
-        words = st[:ST_CYCLES + 1].clone()
-        size, best, tree, sol, cycles = words.unbind()
-        act = ((size >= m) & (size.long() + Mn <= C) & (cycles < self.K))
-        cnt = torch.where(act, torch.clamp(size, max=M), 0)
-        start = size - cnt
-        idx = torch.clamp(start, 0, C - M).long() + torch.arange(M, device=dev)
-        valid = (idx >= start) & (idx < size)
-        vals_c = pool_vals.index_select(0, idx)
-        aux_c = pool_aux.index_select(0, idx).to(i32)
+        size, best, tree, sol, cycles = st[:ST_CYCLES + 1].clone().unbind()
+        cnt = torch.clamp(size, max=M)
+        start = (size - cnt).long()
+        ar = torch.arange(Mn, device=pool_vals.device)
+        vals_c = pool_vals.index_select(0, start + ar[:M])
+        aux_c = pool_aux.index_select(0, start + ar[:M]).to(i32)
         if clk is not None:
             phase_mark(clk, P["pop"])
-        keep, sol_inc, best_t = self._evaluate(vals_c, aux_c, valid, best)
+        keep, sol_inc, best_t = self._evaluate(vals_c, aux_c, ar[:M] < cnt,
+                                               best)
         if clk is not None:
             phase_mark(clk, P["eval"])
         ids, tree_inc = compact_ids(keep, Mn, self.compact)
         if clk is not None:
             phase_mark(clk, P["compact"])
-        # The push: the survivors' rows at [start, start + tree_inc) of the
-        # window at clamp(start, 0, C - Mn) (= start when the cycle runs;
-        # a cycle that does not run keeps none and rewrites the window).
         pi = (ids // n).long()
-        kj = ids % n
-        aug = torch.cat([vals_c, aux_c.to(vals_c.dtype)[:, None]], dim=1)
-        g = aug[pi]  # (Mn, n+1): the cycle's one child-value gather
-        rows = g[:, :n]
-        pa = g[:, n].to(i32)
-        iota = torch.arange(n, dtype=i32, device=dev)[None, :]
-        ohd = iota == self._swap_pos(pa)[:, None]
-        ohk = iota == kj[:, None]
-        zero = torch.zeros_like(rows)
-        v_k = torch.where(ohk, rows, zero).sum(1, dtype=i32)
-        v_d = torch.where(ohd, rows, zero).sum(1, dtype=i32)
-        crows = torch.where(ohd, v_k[:, None].to(rows.dtype),
-                            torch.where(ohk, v_d[:, None].to(rows.dtype), rows))
-        dest = (torch.clamp(start, 0, C - Mn).long()
-                + torch.arange(Mn, device=dev))
-        live = (torch.arange(Mn, device=dev) < tree_inc)
-        pool_vals.index_copy_(0, dest, torch.where(
-            live[:, None], crows, pool_vals.index_select(0, dest)))
-        pool_aux.index_copy_(0, dest, torch.where(
-            live, (pa + 1).to(pool_aux.dtype), pool_aux.index_select(0, dest)))
-        over = (tree_inc > S) & act
+        pa = aux_c[pi]
+        # The swap position, clamped only for the garbage slots past
+        # tree_inc (an N-Queens parent at depth N).
+        d = self._swap_pos(pa).long().clamp(0, n - 1)[:, None]
+        pool_vals.index_copy_(0, start + ar, swap_children(
+            vals_c[pi], d, (ids % n).long()[:, None]))
+        pool_aux.index_copy_(0, start + ar, (pa + 1).to(pool_aux.dtype))
+        over = tree_inc > S
         if clk is not None:
             phase_mark_if(clk, P["push"], P["overflow"], over.to(i32),
                           obs_phases.CLOSE)
-        new_size = start + tree_inc
+        new_size = start.to(i32) + tree_inc
         st[:ST_CYCLES + 1] = torch.stack([
             new_size, best_t.to(i32), tree + tree_inc, sol + sol_inc,
-            cycles + act.to(i32)])
-        st[ST_ACTIVE] = act.to(i32)
+            cycles + 1])
+        st[ST_ACTIVE:ST_ACTIVE + 1].fill_(1)
         if self.obs:
-            on = act.to(i32)
+            zero = torch.zeros((), dtype=i32, device=st.device)
             ctr = st[ST_CTR:ST_CTR + obs_counters.NSLOTS]
-            push_rows = torch.where(over, Mn, S).to(i32)
             inc = torch.stack([cnt, tree_inc, sol_inc,
                                cnt * n - tree_inc - sol_inc, over.to(i32),
-                               on * 0, on * 0, push_rows]) * on
-            hwm = torch.stack([on * 0] * 5 + [new_size * on, tree_inc * on,
-                                              on * 0])
+                               zero, zero,
+                               torch.where(over, Mn, S).to(i32)])
+            hwm = torch.stack([zero] * 5 + [new_size, tree_inc, zero])
             st[ST_CTR:ST_CTR + obs_counters.NSLOTS] = torch.maximum(
                 ctr + inc, hwm)
 

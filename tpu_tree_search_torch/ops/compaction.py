@@ -99,3 +99,14 @@ def compact_ids(keep: torch.Tensor, S: int, mode: str):
     buf = torch.zeros(S + Mn, dtype=torch.int32, device=keep.device)
     buf[dst.long()] = flat_idx
     return buf[:S], tree_inc
+
+
+def swap_children(parent: torch.Tensor, d: torch.Tensor,
+                  k: torch.Tensor) -> torch.Tensor:
+    """Children materialised from their parents' rows: ``parent`` (R, n)
+    with positions ``d`` and ``k`` (each (R, 1) int64) swapped, by two
+    gathers and two scatters (the branching of both problems: a child
+    differs from its parent at the swap position and at its slot)."""
+    vd = parent.gather(1, d)
+    vk = parent.gather(1, k)
+    return parent.scatter(1, d, vk).scatter_(1, k, vd)

@@ -14,9 +14,10 @@ and cycles < K`` from the state and counts the body's runs in
 ``st[ST_RUNS]``. ``launch`` enqueues one dispatch on the current stream:
 one ``cudaGraphLaunch``, no host synchronisation, and no cycle launched
 past termination. What torch allocates while a body is captured comes
-from a memory pool of the graph's own (``torch.cuda.MemPool``), kept for
-the graph's life, so no later allocation outside the graph is handed the
-blocks its nodes write.
+from a memory pool of the graph's own (``torch.cuda.MemPool``, held by
+this module under a lock; the graph keeps its key), kept for the graph's
+life, so no later allocation outside the graph is handed the blocks its
+nodes write.
 
 Launch counts: ``DispatchGraph.launches`` counts graph launches. A cycle
 wrapper counts its launches through ``count_launch``: one where it launches
@@ -63,9 +64,12 @@ counterpart of the JAX batched ``lax.while_loop``): B loop states in one
 counts zeroed, the condition the OR of the slots'), and a ``while`` node
 whose body is each slot's cycle, captured in slot order, then one
 ``batch_cond`` (``batch_cond_obs`` with the counter block). A slot whose
-condition is false runs an exact no-op: its cycle's launch 1 clears
-``st[ST_ACTIVE]`` and the later launches return at once; ``batch_cond``
-counts a run, and folds the counter block, only for a slot whose cycle ran.
+condition is false runs an exact no-op: a fused cycle's launch 1 clears
+``st[ST_ACTIVE]`` and the later launches return at once; an unfused cycle
+(torch work of fixed shapes) sits under an ``if`` node of the slot's own,
+after a ``slot_gate`` that sets ``st[ST_ACTIVE]`` and the node's condition
+(``gated``), and launches nothing. ``batch_cond`` counts a run, and folds
+the counter block, only for a slot whose cycle ran.
 So one batched dispatch is one ``cudaGraphLaunch``, and a wrapper's
 launches are the sum of its slots' runs (``BatchGraph.count``). The plain
 versions ``batch_init_plain`` and ``batch_cond_plain`` run the same
@@ -75,6 +79,7 @@ arithmetic on the host.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
 import time
 import weakref
@@ -142,6 +147,9 @@ _ENTRY_ARGS = {
     "dispatch_graph_kernels": (_VP, ctypes.c_int, ctypes.c_char_p,
                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
     "globaltimer_probe_enqueue": (_VP, ctypes.c_int, _VP),
+    "slot_gate_begin": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int),
+    "slot_gate_end": (_VP,),
     "dispatch_graph_instantiate": (_VP, ctypes.POINTER(_VP)),
     "dispatch_graph_launch": (_VP, _VP),
     "dispatch_graph_destroy": (_VP, _VP),
@@ -251,8 +259,8 @@ class DispatchGraph:
                 for i in range(min(count.value, cap))]
 
     def close(self) -> None:
-        """Free the graph and its memory pool (after the work it launched
-        has finished)."""
+        """Free the graph and retire its memory pool (after the work it
+        launched has finished)."""
         if self._graph or self._exec:
             lib, fn = _fn("dispatch_graph_destroy")
             _build.check(lib, fn(self._graph, self._exec),
@@ -266,38 +274,78 @@ class DispatchGraph:
 
 #: Serialises the captures that allocate from a graph's pool and the
 #: destruction of retired pools: torch refuses to free a pool while any
-#: thread routes its allocations to one.
-# guarded-by: _POOL_LOCK -- _RETIRED is emptied (its pools destroyed) under
-# it; appends (a graph closed, or collected) are single list operations.
+#: thread routes its allocations to one. The pools are held here alone (a
+#: graph holds its pool's key), so a pool is destroyed only where
+#: ``_RETIRED`` is emptied, under the lock: a graph collected in one thread
+#: while another captures drops no pool.
+# guarded-by: _POOL_LOCK -- _POOLS and _RETIRED are read and written under
+# it, and _RETIRED is emptied (its pools destroyed) under it.
 _POOL_LOCK = threading.RLock()
+_POOLS: dict = {}
 _RETIRED: list = []
+_POOL_KEYS = itertools.count()
 
 
 def capture_pool(owner, device: torch.device):
-    """A memory pool for what torch allocates while ``owner``'s (a
-    graph's) bodies are captured (``torch.cuda.MemPool``): its blocks stay
-    the graph's, whose nodes keep their addresses. When the graph is closed
-    or collected the pool is retired, and retired pools are destroyed when
-    the next one is made (never during a capture, which torch refuses)."""
+    """The key of a memory pool for what torch allocates while
+    ``owner``'s (a graph's) bodies are captured (``torch.cuda.MemPool``):
+    its blocks stay the graph's, whose nodes keep their addresses. When the
+    graph is closed or collected the pool is retired (``_retire_pool``),
+    and retired pools are destroyed when the next one is made (never during
+    a capture, which torch refuses)."""
     if device.type != "cuda":
         return None
     with _POOL_LOCK:
         _RETIRED.clear()
+        key = next(_POOL_KEYS)
         with torch.cuda.device(device):  # the pool is held on the graph's card
-            pool = torch.cuda.MemPool()
-    owner._retire = weakref.finalize(owner, _RETIRED.append, pool)
-    return pool
+            _POOLS[key] = torch.cuda.MemPool()
+    owner._retire = weakref.finalize(owner, _retire_pool, key)
+    return key
+
+
+def _retire_pool(key: int) -> None:
+    """Move pool ``key`` to the retired pools (its graph closed or
+    collected), under the lock, holding no reference past it."""
+    with _POOL_LOCK:
+        if key in _POOLS:
+            _RETIRED.append(_POOLS.pop(key))
 
 
 @contextmanager
-def pooled(pool, device: torch.device):
-    """Route this thread's torch allocations on ``device`` to ``pool`` for
-    the block (nothing without a pool)."""
-    if pool is None:
+def pooled(key, device: torch.device):
+    """Route this thread's torch allocations on ``device`` to pool ``key``
+    (``capture_pool``) for the block (nothing without a pool)."""
+    if key is None:
         yield
         return
-    with _POOL_LOCK, torch.cuda.use_mem_pool(pool, device):
+    with _POOL_LOCK, torch.cuda.use_mem_pool(_POOLS[key], device):
         yield
+
+
+@contextmanager
+def gated(lib, side, inner, st_row: torch.Tensor, m: int, Mn: int, C: int,
+          K: int):
+    """Under a body's capture on ``side``: with a stream ``inner``, the
+    slot's ``slot_gate`` on its state row ``st_row`` and an ``if`` node
+    after it, whose body captures the block's work on ``inner``
+    (`csrc/dispatch_graph.cu` ``slot_gate_begin``); a frozen slot then
+    launches nothing of it. Without ``inner``, the block is captured on
+    ``side`` as it is."""
+    if inner is None:
+        yield
+        return
+    _, begin = _fn("slot_gate_begin")
+    _, end = _fn("slot_gate_end")
+    _build.check(lib, begin(side.cuda_stream, inner.cuda_stream,
+                            st_row.data_ptr(), m, Mn, C, K),
+                 "slot_gate_begin")
+    try:
+        with torch.cuda.stream(inner):
+            yield
+    finally:
+        err = end(inner.cuda_stream)
+    _build.check(lib, err, "slot_gate_end")
 
 
 #: Graph launches in this process (all programs).
@@ -328,6 +376,8 @@ class BatchGraph(DispatchGraph):
         self.slot_wrappers: list[list] = [[] for _ in cycles]
         cond_obs = obs if fold else 0
         self.cond = batch_cond_obs if cond_obs else batch_cond
+        # The unfused cycles (``fold`` False) run under each slot's gate.
+        self.gated = not fold
         self.wrappers = []
         self._graph = _VP()
         self._exec = _VP()
@@ -361,11 +411,14 @@ class BatchGraph(DispatchGraph):
         _, end = _fn("batch_graph_end_body")
         _build.check(lib, begin(body, side.cuda_stream),
                      "dispatch_graph_begin_body")
+        inner = torch.cuda.Stream(self.st.device) if self.gated else None
         ok = 0
         try:
             with torch.cuda.stream(side), pooled(self.pool, side.device):
-                for cycle, wrappers in zip(cycles, self.slot_wrappers):
-                    with recording(wrappers):
+                for i, (cycle, wrappers) in enumerate(
+                        zip(cycles, self.slot_wrappers)):
+                    with gated(lib, side, inner, self.st[i], m, Mn, C, K), \
+                            recording(wrappers):
                         cycle()
             ok = 1
         finally:
@@ -386,11 +439,15 @@ class BatchGraph(DispatchGraph):
         it): each wrapper slot i's capture recorded launched ``runs[i]``
         times; the condition node ran once a round, ``max(runs)`` times (a
         round runs while any slot is live, and a slot is live in the
-        dispatch's first rounds only)."""
+        dispatch's first rounds only), and with the gates each slot's
+        ``slot_gate`` once a round."""
         for wrappers, r in zip(self.slot_wrappers, runs):
             for w in wrappers:
                 _build.add_launches(w, r)
-        _build.add_launches(self.cond, max(runs, default=0))
+        rounds = max(runs, default=0)
+        _build.add_launches(self.cond, rounds)
+        if self.gated:
+            _build.add_launches(slot_gate, rounds * self.B)
 
 
 #: Batched graph launches in this process (all batched programs).
@@ -487,6 +544,8 @@ dispatch_cond_obs = _GraphKernel("dispatch_cond_obs")
 batch_init = _GraphKernel("batch_init")
 batch_cond = _GraphKernel("batch_cond")
 batch_cond_obs = _GraphKernel("batch_cond_obs")
+#: An unfused slot's gate (``gated``): once a round for every slot.
+slot_gate = _GraphKernel("slot_gate")
 
 
 # -- the phase clock (TTS_PHASEPROF=1) -------------------------------------------

@@ -15,8 +15,9 @@ collectives (``pmin``, ``all_gather``, ``ppermute``).
 ``MeshGraph`` is one mesh dispatch as one CUDA graph (the builders in
 `csrc/dispatch_graph.cu`): for each round, the batched engine's
 ``batch_init``, a ``while`` node over the D shards' cycles (captured in
-shard order, then ``batch_cond``: a shard whose condition fails is frozen,
-as a batch slot is) and the balance step captured as a child graph, with
+shard order, each unfused one under its shard's ``if`` node, then
+``batch_cond``: a shard whose condition fails is frozen, as a batch slot
+is) and the balance step captured as a child graph, with
 the phase clock's ``loop`` and ``balance`` marks around it when armed.
 
 Layout: the states are one (D, ST_LEN) int32 tensor, a row a shard; the
@@ -40,7 +41,7 @@ from .cycle import (ST_BEST, ST_CTR_SOL, ST_CTR_TREE, ST_CYCLES, ST_LEN,
                     ST_RUNS, ST_SIZE, ST_SOL, ST_TREE)
 from .dispatch import (DispatchGraph, _fn, batch_cond, batch_cond_obs,
                        batch_init, capture_pool, clock_pointer, count_launch,
-                       phase_mark_cuda, pooled, recording)
+                       gated, phase_mark_cuda, pooled, recording, slot_gate)
 
 # The dispatch's sums over its rounds (csrc/mesh_balance.cu); row 0's
 # ST_MESH_COND counts the condition node's runs.
@@ -332,6 +333,8 @@ class MeshGraph(DispatchGraph):
         self.slot_wrappers: list[list] = [[] for _ in cycles]
         cond_obs = obs if fold else 0
         self.cond = batch_cond_obs if cond_obs else batch_cond
+        # The unfused cycles (``fold`` False) run under each shard's gate.
+        self.gated = not fold
         self.wrappers = []
         self._graph = _VP()
         self._exec = _VP()
@@ -360,6 +363,7 @@ class MeshGraph(DispatchGraph):
         _, begin_child = _mesh_fn("mesh_graph_begin_child")
         _, end_child = _mesh_fn("mesh_graph_end_child")
         side = torch.cuda.Stream(self.st.device)
+        inner = torch.cuda.Stream(self.st.device) if self.gated else None
         B = self.st.shape[0]
         dep = _VP()
         for r in range(self.rounds):
@@ -379,8 +383,10 @@ class MeshGraph(DispatchGraph):
             ok = 0
             try:
                 with torch.cuda.stream(side), pooled(self.pool, side.device):
-                    for cycle, wrappers in zip(cycles, self.slot_wrappers):
-                        with recording(wrappers if r == 0 else []):
+                    for i, (cycle, wrappers) in enumerate(
+                            zip(cycles, self.slot_wrappers)):
+                        with gated(lib, side, inner, self.st[i], m, Mn, C,
+                                   K), recording(wrappers if r == 0 else []):
                             cycle()
                 ok = 1
             finally:
@@ -425,11 +431,14 @@ class MeshGraph(DispatchGraph):
         """Count a dispatch from its states read after it: each shard's
         body runs (``st[ST_RUNS]``, the sum over the rounds) as launches of
         the wrappers its capture recorded, and row 0's ``ST_MESH_COND`` as
-        the condition node's."""
+        the condition node's (and, gated, each shard's ``slot_gate``'s)."""
         for wrappers, row in zip(self.slot_wrappers, rows):
             for w in wrappers:
                 _build.add_launches(w, row[ST_RUNS])
         _build.add_launches(self.cond, rows[0][ST_MESH_COND])
+        if self.gated:
+            _build.add_launches(slot_gate,
+                                rows[0][ST_MESH_COND] * len(rows))
 
 
 #: Mesh graph launches in this process (all mesh programs).

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+from .compaction import swap_children
 
 #: Below any bound: the value of a slot that is not free in the closed form
 #: (the JAX module's ``NEG_INF``).
@@ -402,12 +403,9 @@ def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
     src = src[:R]
     b_idx = src // n
     k_idx = (src % n)[:, None]
-    parent = prmu[b_idx]
     # The child's limit1; clamped only for the garbage rows past count.
     d = (limit1[b_idx].long() + 1).clamp(max=n - 1)[:, None]
-    vd = parent.gather(1, d)
-    vk = parent.gather(1, k_idx)
-    child = parent.scatter(1, d, vk).scatter_(1, k_idx, vd)
+    child = swap_children(prmu[b_idx], d, k_idx)
     out = lb2_self_bounds_mp(child, d[:, 0].to(prmu.dtype), count, tables,
                              mp)
     return out[torch.where(flat, pos, 0).long()].reshape(B, n)
@@ -436,24 +434,33 @@ def lb2_self_chunk_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
 
 
 def lb2_bounds_mp(prmu: torch.Tensor, limit1: torch.Tensor,
-                  tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
+                  tables: PFSPDeviceTables, mp: int,
+                  placed: list | None = None) -> torch.Tensor:
     """lb2 child bounds with the Johnson pair loop split in ``mp`` pair
     blocks (`tpu_tree_search/ops/pfsp_device.py` ``lb2_bounds_mp``): each
     block (``pair_blocks``) is bounded on its own — kernel 6 on a pair
     block for a CUDA tensor (``lb2_kernel.lb2_block_cuda``), ``lb2_chunk``
     for a CPU one — and the planes are combined by an elementwise max, the
     counterpart of the JAX ``lax.pmax`` over the mp axis. Exact: the max
-    over the blocks is the max over the pairs. ``mp = 1`` is
+    over the blocks is the max over the pairs. ``placed`` (one tables
+    object a block, default ``tables`` for each) places block i on the
+    device of ``placed[i]``, the replica (d, i) of the JAX (dp, mp) mesh:
+    the chunk is copied there and the block's plane back. ``mp = 1`` is
     ``lb2_bounds``."""
-    if mp == 1:
+    if mp == 1 and placed is None:
         return lb2_bounds(prmu, limit1, tables)
-    if not prmu.is_cuda:
-        return lb2_chunk_mp(prmu, limit1, tables, mp)
-    from .lb2_kernel import lb2_block_cuda
-
     out = None
-    for blk in tables.pair_blocks(mp):
-        local = lb2_block_cuda(prmu, limit1, blk)
+    for i, where in enumerate(placed or [tables] * mp):
+        blk = where.pair_blocks(mp)[i]
+        dev = blk.device
+        a, b = prmu.to(dev), limit1.to(dev)
+        if a.is_cuda:
+            from .lb2_kernel import lb2_block_cuda
+
+            local = lb2_block_cuda(a, b, blk)
+        else:
+            local = lb2_chunk(a, b, blk)
+        local = local.to(prmu.device)
         out = local if out is None else torch.maximum(out, local)
     return out
 

@@ -13,9 +13,10 @@ The JAX module builds one sharded step over a (dp, mp) device mesh:
 Here a mesh is a (dp, mp) grid of device positions (``Mesh``; a position
 may repeat a card, and on one card every block runs there in turn). Row
 block i is evaluated on the card of position (i, 0): N-Queens labels on
-kernel 3, PFSP lb1 and lb1_d on kernels 1 and 5, lb2 on kernel 6 — on its
-mp pair blocks (`ops/pfsp_device.py` ``lb2_bounds_mp``) under mp > 1, the
-planes combined by an elementwise max. A CPU position takes the plain
+kernel 3, PFSP lb1 and lb1_d on kernels 1 and 5, lb2 on kernel 6 — under
+mp > 1 on its mp pair blocks (`ops/pfsp_device.py` ``lb2_bounds_mp``),
+pair block j on the card of position (i, j), the planes copied back to
+(i, 0) and combined by an elementwise max. A CPU position takes the plain
 versions. The planes come back to the first position's device; the leaf
 fold is taken there. A library class, as in JAX: no CLI flag uses it.
 """
@@ -90,11 +91,12 @@ class MeshEvaluator:
                              "problems/bounds")
         t_build = ev.now_us()
         # Each row block's device (its position's pair block 0) and, for
-        # PFSP, the tables there (with the mp pair blocks built).
+        # PFSP, the tables of every position (with the mp pair blocks
+        # built): pair block j of row block i runs on position (i, j).
         self._devices = [row[0] for row in mesh.devices]
         self._tables = {}
         if problem.name == "pfsp":
-            for dev in self._devices:
+            for dev in (d for row in mesh.devices for d in row):
                 t = self._tables.setdefault(str(dev),
                                             problem.device_tables(dev))
                 if self.mp > 1:
@@ -127,7 +129,7 @@ class MeshEvaluator:
                 v[i * local:(i + 1) * local])).to(dev)
                 for k, v in parents.items()}
             if p.name == "pfsp":
-                plane = self._bounds(blk, dev)
+                plane = self._bounds(blk, i)
                 leaf_mins.append(_leaf_min(blk, plane, p.jobs, count,
                                            i * local).to(dev0))
             else:
@@ -139,11 +141,13 @@ class MeshEvaluator:
             return results, INF_BOUND
         return results, min(int(best), int(torch.stack(leaf_mins).min()))
 
-    def _bounds(self, blk: dict, dev) -> torch.Tensor:
-        tables = self._tables[str(dev)]
+    def _bounds(self, blk: dict, i: int) -> torch.Tensor:
+        """Row block i's child bounds on its device; under mp > 1 pair
+        block j on position (i, j), the planes maxed on the first."""
         prmu, limit1 = blk["prmu"], blk["limit1"]
-        if self.problem.lb == "lb2":
-            return lb2_bounds_mp(prmu, limit1, tables, self.mp)
+        if self.problem.lb == "lb2" and self.mp > 1:
+            placed = [self._tables[str(d)] for d in self.mesh.devices[i]]
+            return lb2_bounds_mp(prmu, limit1, placed[0], self.mp, placed)
         return self.problem.device_bounds(prmu, limit1)
 
 

@@ -128,14 +128,18 @@ class _Group:
 class MeshProgram(R.CachedProgram):
     """D shards of one resident program (`resident_mesh.py`
     ``_MeshResidentProgram``), placed on a list of device positions
-    (``devices``; default one, ``device``): shard d on ``devices[(d * mp)
-    % G]``, the card of its replica (d, 0) in the JAX ``make_dp_mp_mesh``
-    layout, G the list's length. The shards of one position form a group
-    (``_Group``; a position may repeat a card: two groups on one card). K is
-    capped so that a dispatch's ``rounds * K`` cycles keep the int32
-    counters in range (`resident_mesh.py:110`). ``mp`` > 1 (PFSP lb2)
-    splits each shard's lb2 pair loop in mp pair blocks, evaluated on the
-    shard's card one after another, and runs the unfused cycle.
+    (``devices``; default one, ``device``) by the (dp, mp) grid
+    ``mp_grid``: shard d on the position of its replica (d, 0). The shards
+    of one position form a group (``_Group``; a position may repeat a
+    card: two groups on one card). K is capped so that a dispatch's
+    ``rounds * K`` cycles keep the int32 counters in range
+    (`resident_mesh.py:110`). ``mp`` > 1 (PFSP lb2) splits each shard's lb2
+    pair loop in mp pair blocks and runs the unfused cycle. The blocks run
+    on the shard's card, one after another: there they sit at their grid
+    positions wherever the list names one card (repeated or not), and a
+    block whose position is another card runs on the shard's card too,
+    since the cycle is the body of the group's graph, and a conditional
+    node's body runs on one device (ROADMAP A.11, open).
 
     One group is the tier as before: one CUDA graph a dispatch (``graph``)
     whose rounds run the shards' cycles and the balance kernel. Several
@@ -172,8 +176,8 @@ class MeshProgram(R.CachedProgram):
         self.fused, self.staged = fused, staged
         positions = mesh_devices(devices, device)
         self.devices = positions
-        G = len(positions)
-        where = [(d * self.mp) % G for d in range(self.D)]
+        self.grid = mp_grid(self.D, self.mp, len(positions))
+        where = [row[0] for row in self.grid]
         order = sorted(set(where))
         grouped = len(order) > 1
         self.groups = [_Group(self, positions[p],
@@ -434,6 +438,15 @@ def _streams(main, g: _Group):
     with torch.cuda.stream(main), g.context():
         yield
     main.wait_stream(g.stream)
+
+
+def mp_grid(D: int, mp: int, G: int) -> list[list[int]]:
+    """The (dp, mp) grid of a mesh over G device positions: replica (d, i)
+    (shard d's pair block i) at position ``(d * mp + i) % G``, the JAX
+    ``make_dp_mp_mesh`` layout (`resident_mesh.py:57-72`: ``devices[:D *
+    mp].reshape(D, mp)``) where G >= D * mp, wrapped round a shorter list
+    (the JAX tier refuses one)."""
+    return [[(d * mp + i) % G for i in range(mp)] for d in range(D)]
 
 
 def mesh_devices(devices, device) -> list[torch.device]:
