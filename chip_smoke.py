@@ -10,6 +10,8 @@
     python3 chip_smoke.py --fleet    # phases 1, 2, 18h and 18i (the guard, the fleet)
     python3 chip_smoke.py --mp       # phases 1, 2 and 18j-18m (the pair axis, device positions)
     python3 chip_smoke.py --cupti [DIR]  # phases 1, 2 and the traced unfused graph's probes
+    python3 chip_smoke.py --cupti-modes [DIR]  # the same probe traced under each --compact mode
+    python3 chip_smoke.py --check    # phases 1, 2 and 18n (the program contracts, the compaction modes)
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and ``nvcc``. Phases, each printed as one JSON line; any failure raises and
@@ -231,6 +233,13 @@ ends the script with a non-zero exit before the final line:
      after each of three dispatches; ``--tier multi --device
      cuda:0,cuda:0``; and, with more than one card, the same over
      cuda:0,cuda:1;
+ 18n. ``compact_*``: the unfused ta014 lb1 M = 1024, N-Queens N = 14 and
+     ta014 lb2 staged under ``--compact`` scatter, sort and search to the
+     goldens, each with its counts set to 0 just before it and the body's
+     kernel launched; a guarded unfused N = 14 under sort and under search;
+     ``check``: ``check --device cuda`` (`analysis/program_audit.py`) over
+     every matrix cell's dispatch graph, the node names and types held to
+     the contracts, 0 findings;
  18c. the single-device tiers beside the resident engine: ``seq``, the
      sequential tier (``--tier seq``, the native host runtime) on ta014 lb1
      and lb2 ub=1 and N-Queens N = 14 to their goldens with no kernel
@@ -4106,6 +4115,97 @@ def main_host(dev_info) -> int:
 # cycles, two dispatches at the CLI's K): (name, extra argv, traced, the
 # capture pools kept for the process's life, under compute-sanitizer); a
 # run cut by --max-steps is checked against no golden.
+# The explicit survivor-path modes beside the auto one (dense at M = 1024 and
+# on N-Queens): the unfused searches of each, and a guarded N = 14 under
+# sort and search.
+COMPACT_MODES = ("scatter", "sort", "search")
+COMPACT_RUNS = [
+    ("ta014_lb1_M1024", PFSP_LB1 + ["--M", "1024", "--unfused"], GOLDEN,
+     "lb1_bounds"),
+    ("nqueens_N14", NQ14 + ["--unfused"], NQ_GOLDEN[14], "nqueens_labels"),
+    ("ta014_lb2_staged", PFSP_LB2 + ["--unfused"], GOLDEN_LB2,
+     "lb2_self_bounds"),
+]
+
+
+def phase_compact(counters: dict) -> dict:
+    """The unfused searches under each explicit ``--compact`` mode (the JAX
+    ``TTS_COMPACT``), each to its goldens with every count set to 0 just
+    before it: the record names the mode, the body's kernel ran once a
+    cycle; then a guarded unfused N = 14 under sort and under search, every
+    dispatch after the first checked (no host read: a stable sort's and a
+    searchsorted's scratch come from the graph's pool)."""
+    rows = {}
+    for mode in COMPACT_MODES:
+        for name, argv, golden, kernel in COMPACT_RUNS:
+            rec = phase_search(f"compact_{mode}_{name}", argv + ["--compact", mode],
+                               counters, golden)
+            check(rec["compact"] == mode and not rec["fused"]
+                  and rec["launches"][kernel] > 0,
+                  f"compact {mode} {name}: compact {rec['compact']}, fused "
+                  f"{rec['fused']}, {rec['launches'][kernel]} {kernel} launches")
+            rows[f"{mode}/{name}"] = dict(
+                phase2_s=rec["phases"][1][2], dispatches=rec["dispatches"],
+                device_cycles=rec["device_cycles"],
+                dispatch_device_ms=1e3 * (rec.get("dispatch_device_s") or 0.0))
+    for mode in ("sort", "search"):
+        zero_counts(counters)
+        rec = run_search(NQ14 + ["--unfused", "--guard", "--K", "64", "--compact", mode],
+                         NQ_GOLDEN[14])
+        g = rec.get("guard") or {}
+        check(rec["compact"] == mode and g.get("checked_dispatches", 0) > 1
+              and "sync" in g.get("checks", ())
+              and counters["dispatch_graph"].launches == rec["dispatches"],
+              f"guarded unfused N=14 under {mode}: guard {g}, "
+              f"{counters['dispatch_graph'].launches} graph launches for "
+              f"{rec['dispatches']} dispatches")
+        rows[f"guard/{mode}"] = dict(outcome="completed", guard=g,
+                                     dispatches=rec["dispatches"],
+                                     phase2_s=rec["phases"][1][2])
+    emit("compact_modes", **{k.replace("/", "_"): v for k, v in rows.items()})
+    return rows
+
+
+def phase_check() -> dict:
+    """``check --device cuda`` (`analysis/program_audit.py`): every matrix
+    cell's program built on the card and its cycle captured into its
+    dispatch graph under the recorder, the graph's node lists (names and
+    types, outer and body) held to the contracts, beside the variants, the
+    cache keys, the bare compactions, the pair blocks, the batches and the
+    mesh graphs (every graph nested in a body too); the findings on a
+    line, which must be none. Node kinds ride along: two cells' (the
+    unfused dense lb1 body, the fused one), an unfused batch's and an
+    unfused mesh's, each nested graph apart."""
+    from collections import Counter
+
+    from tpu_tree_search_torch.analysis import program_audit as PA
+
+    t0 = time.perf_counter()
+    res = PA.run_check(device="cuda")
+    kinds = {}
+    for cell in (PA.Cell("pfsp-lb1", compact="dense"),
+                 PA.Cell("pfsp-lb1", cycle="fused", obs="1")):
+        art = PA.record_cell(cell, device="cuda")
+        kinds[cell.key] = {part: dict(Counter(k for _, k in art.nodes[part]))
+                           for part in ("outer", "body")}
+    # The graphs nested in a body: the batch slots' and mesh shards' gated
+    # bodies, a mesh round's body and balance step.
+    for key, nodes in (
+            ("batched|nqueens|B2|unfused",
+             PA.batched_artifact(2, False, "cuda")["record"].nodes),
+            ("mesh|nqueens|D2|unfused", PA.mesh_record(False, "cuda").nodes)):
+        kinds[key] = {part: dict(Counter(k for _, k in got))
+                      for part, got in nodes.items()}
+    out = dict(cells=res.cells, contracts=res.contracts,
+               findings=[f.render() for f in res.findings],
+               warnings=res.warnings, node_kinds=kinds,
+               seconds=time.perf_counter() - t0)
+    emit("check", **out)
+    check(not res.findings, f"check --device cuda: {len(res.findings)} finding(s): "
+          + "; ".join(out["findings"][:8]))
+    return out
+
+
 CUPTI_UNFUSED = PFSP_LB1 + ["--M", "1024", "--unfused"]
 CUPTI_PROBES = (("untraced", [], False, False, False),
                 ("memcheck", [], False, False, True),
@@ -4121,6 +4221,15 @@ CUPTI_PROBES = (("untraced", [], False, False, False),
                 ("traced_cut_8x250", ["--K", "250", "--max-steps", "8"], True, False,
                  False),
                 ("traced_eager", ["--eager"], True, False, False))
+#: The faulting probe (traced at the CLI's K) under each explicit survivor-path
+#: mode (``--cupti-modes``): whether the fault follows the compaction it swaps;
+#: and the clean modes' search run twice in one traced process (``--twice``),
+#: past the kernel records of the dense one's single run.
+CUPTI_MODE_PROBES = (("untraced", [], False, False, False),) + tuple(
+    (f"traced_{mode}", ["--compact", mode], True, False, False)
+    for mode in ("scatter", "sort", "search", "dense")) + tuple(
+    (f"traced_{mode}_twice", ["--compact", mode, "--twice"], True, False, False)
+    for mode in ("scatter", "search"))
 
 
 def cupti_run(name: str) -> int:
@@ -4133,21 +4242,23 @@ def cupti_run(name: str) -> int:
 
     from tpu_tree_search_torch.ops import dispatch as D
 
-    _, extra, traced, keep, _ = next(p for p in CUPTI_PROBES if p[0] == name)
+    _, extra, traced, keep, _ = next(p for p in CUPTI_PROBES + CUPTI_MODE_PROBES
+                                     if p[0] == name)
     if keep:
         class _KeepAll(list):
             def clear(self):  # the retired pools are never destroyed
                 pass
         D._RETIRED = _KeepAll()
     t0 = time.perf_counter()
-    argv = CUPTI_UNFUSED + [a for a in extra if a != "--eager"]
+    argv = CUPTI_UNFUSED + [a for a in extra if a not in ("--eager", "--twice")]
     with contextlib.ExitStack() as stack:
         if "--eager" in extra:
             stack.enter_context(eager_cycles())
         prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
                 if traced else None)
-        rec = run_search(argv, None if "--max-steps" in extra else GOLDEN)
-        torch.cuda.synchronize()
+        for _ in range(2 if "--twice" in extra else 1):
+            rec = run_search(argv, None if "--max-steps" in extra else GOLDEN)
+            torch.cuda.synchronize()
     out = dict(probe=name, dispatches=rec["dispatches"], K=rec["K"],
                complete=rec.get("complete"),
                device_cycles=rec["device_cycles"],
@@ -4161,12 +4272,12 @@ def cupti_run(name: str) -> int:
     return 0
 
 
-def main_cupti(dev_info) -> int:
-    """``--cupti [DIR]``: the probes of CUPTI_PROBES, a process each (a
-    fault ends its process, not the script): each one's exit code, its
-    line, and the tail of its errors; each one's whole output in DIR
-    (default ``_checkout/cupti`` beside this script). Fails only where the
-    untraced search fails."""
+def main_cupti(dev_info, probes=CUPTI_PROBES) -> int:
+    """``--cupti [DIR]``: the probes of CUPTI_PROBES (``--cupti-modes [DIR]``:
+    of CUPTI_MODE_PROBES), a process each (a fault ends its process, not
+    the script): each one's exit code, its line, and the tail of its
+    errors; each one's whole output in DIR (default ``_checkout/cupti``
+    beside this script). Fails only where the untraced search fails."""
     import os
     import shutil
 
@@ -4174,7 +4285,7 @@ def main_cupti(dev_info) -> int:
     logs = sys.argv[2] if len(sys.argv) > 2 else os.path.join(here, "_checkout", "cupti")
     os.makedirs(logs, exist_ok=True)
     rows = {}
-    for name, _, _, _, sanitize in CUPTI_PROBES:
+    for name, _, _, _, sanitize in probes:
         cmd = [sys.executable, os.path.abspath(__file__), "--cupti-run", name]
         if sanitize:
             tool = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
@@ -4206,16 +4317,31 @@ def main_cupti(dev_info) -> int:
     return 0
 
 
+def main_check(dev_info) -> int:
+    """``--check``: only the program contracts on the card (phase check) and
+    the unfused searches under each explicit survivor-path mode (phase
+    compact_modes, guarded N = 14 included)."""
+    phase_check()
+    phase_compact(kernel_counters())
+    print(json.dumps({"ok": True, "phases": "check", "device": dev_info}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cupti-run"]:
         return cupti_run(sys.argv[2])
     dev_info = phase_device()
     if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"],
-                        ["--dist"], ["--fleet"], ["--mp"], ["--cupti"]) or (
-            sys.argv[1:2] == ["--cupti"] and len(sys.argv) == 3):
+                        ["--dist"], ["--fleet"], ["--mp"], ["--cupti"],
+                        ["--cupti-modes"], ["--check"]) or (
+            sys.argv[1:2] in (["--cupti"], ["--cupti-modes"]) and len(sys.argv) == 3):
         phase_build()
         if sys.argv[1] == "--cupti":
             return main_cupti(dev_info)
+        if sys.argv[1] == "--cupti-modes":
+            return main_cupti(dev_info, CUPTI_MODE_PROBES)
+        if sys.argv[1] == "--check":
+            return main_check(dev_info)
         if sys.argv[1] == "--mp":
             return main_mp(dev_info)
         if sys.argv[1] == "--host":
@@ -4372,6 +4498,10 @@ def main() -> int:
     gate = phase_slot_gate(dev)
     phase_mesh_eval(dev)
     phase_mesh_cards(counters)
+    # The survivor-path modes (--compact) on the unfused searches, and the
+    # program contracts over every cell's dispatch graph.
+    phase_compact(counters)
+    phase_check()
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,

@@ -1983,3 +1983,53 @@ def test_unfused_batched_graph_gates_frozen_slots(cuda):
     finally:
         solo.close()
         bp.close()
+
+
+# -- the survivor-path modes and the program contracts on the card -------------
+
+
+@pytest.mark.parametrize("mode", ["scatter", "sort", "search", "dense"])
+def test_guarded_unfused_search_under_each_mode(cuda, monkeypatch, mode):
+    """Each survivor-path mode keeps the unfused cycle free of host reads:
+    a guarded N = 12 search under it checks its steady-state dispatches
+    and hits the counts."""
+    monkeypatch.setenv("TTS_COMPACT", mode)
+    res = resident_search(NQueensProblem(12), m=25, M=4096, K=8, device=cuda,
+                          fused=False, guard=True)
+    assert (res.explored_tree, res.explored_sol) == (856188, 14200)
+    assert (res.compact, res.compact_auto) == (mode, False)
+    assert res.guard["checked_dispatches"] > 1
+
+
+def test_check_on_the_card_finds_nothing(cuda):
+    """`check --device cuda` on the N-Queens cells: each dispatch graph's
+    nodes, names and types, held to the contracts."""
+    from tpu_tree_search_torch.analysis import program_audit as PA
+
+    res = PA.run_check(families=["nqueens"], device=cuda, with_locks=False)
+    assert res.findings == [], [f.render() for f in res.findings]
+    art = PA.record_cell(PA.Cell("nqueens", compact="sort"), device=cuda)
+    kinds = {k for _, k in art.nodes["body"]}
+    assert "kernel" in kinds and not kinds & {"host", "memcpy_host"}
+    outer = [k for _, k in art.nodes["outer"]]
+    assert len(outer) == 2 and outer.count("kernel") == 1  # init, while
+
+
+def test_nested_graph_bodies_are_read_on_the_card(cuda):
+    """The graphs nested in a dispatch graph's body (a batch slot's gated
+    body, a mesh round's body, its shards' gated bodies and its balance
+    step) are in the node lists the audit reads: kernels, and no host node
+    or memcpy with a host end."""
+    from tpu_tree_search_torch.analysis import program_audit as PA
+
+    host = {"host", "memcpy_host"}
+    nodes = PA.batched_artifact(2, False, cuda)["record"].nodes
+    for part in ("gate0", "gate1"):
+        kinds = {k for _, k in nodes[part]}
+        assert "kernel" in kinds and not kinds & host, part
+    rec = PA.mesh_record(False, cuda)
+    assert {"round1", "round0.gate0", "round1.gate1", "round0.balance",
+            "round1.balance"} <= set(rec.nodes)
+    for part, got in rec.nodes.items():
+        assert not {k for _, k in got} & host, part
+    assert any(k == "kernel" for _, k in rec.nodes["round0.gate1"])

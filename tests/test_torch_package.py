@@ -79,13 +79,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "resident_mesh", "topology"}
     assert {p.stem for p in files if p.parent == PKG / "utils"} == {
         "__init__", "termination"}
-    # The fleet router and the guards (the lint's rules, the steady-state
-    # guard).
+    # The fleet router and the analysis package (the lint's rules, the
+    # steady-state guard, the program contracts and their auditor).
     assert {p.stem for p in files if p.parent == PKG / "fleet"} == {
         "__init__", "health", "loadgen", "placement", "router"}
     assert {p.stem for p in files if p.parent == PKG / "analysis"} == {
-        "__init__", "__main__", "baseline", "core", "guard", "lockorder",
-        "locks"}
+        "__init__", "__main__", "baseline", "contracts", "core", "guard",
+        "lockorder", "locks", "program_audit"}
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files
@@ -134,22 +134,22 @@ GUARD = "--guard asserts steady-state purity of the resident device loops"
      "require --distributed"),
     (["nqueens", "--tier", "dist_mesh", "--steal-interval", "0.1"],
      "--steal-interval"),
-    (["check"], "no counterpart"),
+    (["nqueens", "--tier", "seq", "--compact", "sort"],
+     "--compact only applies to runs with device-side compaction"),
+    (["pfsp", "--tier", "multi", "--compact", "dense"],
+     "the offload/multi/dist workers prune on host"),
     (["pfsp", "--tier", "multi", "--guard"], GUARD),
     (["nqueens", "--engine", "offload", "--guard"], GUARD),
 ])
 def test_cli_refuses_unported_paths(argv, names, capsys):
-    # The refusals the JAX CLI makes, and ``check``, which has no
-    # counterpart. Each is an Error: line and exit 2.
-    extra = [] if "--device" in argv or argv[0] == "check" else [
+    # The refusals the JAX CLI makes. Each is an Error: line and exit 2.
+    extra = [] if "--device" in argv or "seq" in argv else [
         "--device", "cpu"]
     assert cli.main(argv + extra) == 2
     err = capsys.readouterr().err
     assert err.startswith("Error:")
     if names is not None:
         assert names in err
-    if argv[0] == "check":
-        assert "ROADMAP" not in err and "A.10" not in err
 
 
 @pytest.mark.parametrize("argv", [

@@ -31,12 +31,13 @@ import pytest
 
 from tpu_tree_search.serve import jobs as jax_jobs
 from tpu_tree_search.serve import pool as jax_pool
+from tpu_tree_search.serve import warmup as jax_warmup
 from tpu_tree_search_torch import cli
 from tpu_tree_search_torch.engine.resident import resident_search
 from tpu_tree_search_torch.problems import NQueensProblem
 from tpu_tree_search_torch.serve import pool as serve_pool
 from tpu_tree_search_torch.serve import warmup
-from tpu_tree_search_torch.serve.jobs import JobRegistry, validate_spec
+from tpu_tree_search_torch.serve.jobs import JobRegistry, job_pins, validate_spec
 from tpu_tree_search_torch.serve.server import ServeDaemon
 
 _FINAL = ("done", "failed", "cancelled")
@@ -124,11 +125,30 @@ SHARED = [
 ]
 
 
+@pytest.mark.parametrize("mode", ["scatter", "sort", "search", "dense"])
+@pytest.mark.parametrize("base", [{"problem": "nqueens", "M": 1024},
+                                  {"problem": "pfsp", "M": 4096}])
+def test_explicit_compact_specs_match_jax(base, mode):
+    # An explicit compaction mode is taken, keyed and pinned as the JAX
+    # daemon does: the same normalized spec, class key and job pins.
+    spec = {**base, "compact": mode}
+    mine = validate_spec(dict(spec), "cpu")
+    theirs = jax_jobs.validate_spec(dict(spec))
+    assert mine == theirs and mine["compact"] == mode
+    assert serve_pool.class_key(mine) == jax_pool.class_key(theirs)
+    assert job_pins(mine) == jax_jobs.job_pins(theirs) == {
+        "TTS_COMPACT": mode}
+    with pytest.raises(ValueError) as err:
+        validate_spec({**base, "compact": "bogus"}, "cpu")
+    with pytest.raises(ValueError) as jerr:
+        jax_jobs.validate_spec({**base, "compact": "bogus"})
+    assert str(err.value) == str(jerr.value)
+
+
 @pytest.mark.parametrize("spec", SHARED)
 def test_validate_spec_and_class_key_match_jax(spec):
     mine = validate_spec(dict(spec), "cpu")
     theirs = jax_jobs.validate_spec(dict(spec))
-    theirs.pop("compact", None)  # the port takes 'auto' only and keeps none
     assert mine == theirs
     key, jkey = serve_pool.class_key(mine), jax_pool.class_key(theirs)
     # The compaction mode is each engine's own policy (the port's is the
@@ -148,7 +168,6 @@ def test_default_m_is_the_port_cli_default():
 @pytest.mark.parametrize("bad,queue", [
     # mp is taken on pfsp lb2 meshes; elsewhere the JAX daemon's refusal.
     ({"problem": "nqueens", "tier": "mesh", "mp": 2}, "pfsp lb='lb2' only"),
-    ({"problem": "pfsp", "compact": "sort"}, "ROADMAP.md C"),
     ({"problem": "pfsp", "lb": "lb2", "lb2_pairblock": 4}, "ROADMAP.md C"),
     ({"problem": "pfsp", "lb": "lb2", "lb2_pairblock": "auto"},
      "ROADMAP.md C"),
@@ -351,7 +370,15 @@ def test_batch_bit_identical_with_a_zero_program_splice(tmp_path):
 def test_warmup_selection_leaves_out_the_knobs_the_port_lacks():
     names = {c.name for c in warmup.CONFIGS}
     assert not any(k in c.env for c in warmup.CONFIGS
-                   for k in ("TTS_PALLAS", "TTS_LB2_PAIRBLOCK", "TTS_COMPACT"))
+                   for k in ("TTS_PALLAS", "TTS_LB2_PAIRBLOCK"))
+    # The JAX TTS_COMPACT rows are back, their specs pinning compact.
+    theirs = {c.name: c for c in jax_warmup.CONFIGS
+              if "TTS_COMPACT" in c.env}
+    mine = {c.name: c for c in warmup.CONFIGS if "TTS_COMPACT" in c.env}
+    assert set(mine) == set(theirs) and mine
+    for name, cfg in mine.items():
+        assert cfg.env == theirs[name].env
+        assert cfg.spec()["compact"] == theirs[name].spec()["compact"]
     assert "ta014-lb1" in names and "ta014-lb1-jnp" not in names
     serveable = warmup.select_configs("serve")
     assert serveable and all(c.servable for c in serveable)

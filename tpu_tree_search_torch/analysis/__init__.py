@@ -1,13 +1,15 @@
-"""``tpu_tree_search_torch.analysis`` — the port's ``lint`` (the lock rules)
-and the steady-state guard of its resident loops (the JAX package's
-``analysis/``, less what audits JAX programs).
+"""``tpu_tree_search_torch.analysis`` — the port's ``lint`` (the lock rules),
+its program contracts (``check``) and the steady-state guard of its
+resident loops (the JAX package's ``analysis/``).
 
 Static side: the AST-pass framework (``core``), two rules — ``guarded-by``
 (``locks``) and ``lock-order`` (``lockorder``) — inline waivers and a
 count-ratchet baseline (``baseline``), all stdlib. The JAX package's
-``host-sync-in-jit``, ``tracer-branch``, ``static-arg-hygiene`` and its
-compiled-program contracts (``check``) have no counterpart. Runtime side:
-the ``TTS_GUARD=1`` steady-state guard (``guard``).
+``host-sync-in-jit``, ``tracer-branch`` and ``static-arg-hygiene`` read
+JAX programs and have no counterpart. Program side: the contract registry
+(``contracts``) and its auditor over the cycles and their dispatch graphs
+(``program_audit``, ``check``). Runtime side: the ``TTS_GUARD=1``
+steady-state guard (``guard``).
 """
 
 from __future__ import annotations

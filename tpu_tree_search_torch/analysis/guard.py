@@ -257,3 +257,23 @@ def guard_record(guards) -> dict | None:
         rec["not_checked"] = ("synchronising calls: the sync debug mode is "
                               "CUDA's, and this run's tensors are not")
     return rec
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from .contracts import contract  # noqa: E402
+
+
+@contract(
+    "guard-knob-inert",
+    claim="TTS_GUARD=1 never changes a program — the guard watches "
+          "dispatches; an instrument that perturbed what it measures would "
+          "make every guarded run unrepresentative",
+    artifact="variants",
+)
+def _contract_guard_inert(art, cell):
+    if not art.has("off", "guard1"):
+        return []
+    if art.text("off") == art.text("guard1"):
+        return []
+    return ["TTS_GUARD leaked into the recorded program"]

@@ -414,3 +414,32 @@ def lock_order(module: Module, project: Project) -> list[Finding]:
             "with try_lock()",
         ))
     return findings
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from .contracts import contract  # noqa: E402
+
+
+@contract(
+    "lock-order-acyclic",
+    claim="the static lock-acquisition graph across the port (pool/, "
+          "parallel/, serve/, fleet/, ops/) has no cycle among blocking "
+          "edges and no blocking same-class re-acquisition (deadlock "
+          "freedom of the steal, exchange and checkpoint paths, up to the "
+          "analysis's visibility)",
+    artifact="lock-graph",
+)
+def check_lock_order(graph: LockGraph, cell=None) -> list[str]:
+    out = []
+    for e in graph.edges:
+        if e.blocking and e.held == e.acquired:
+            out.append(f"{e.path}:{e.line}: blocking same-class "
+                       f"re-acquisition of {e.acquired}")
+    for cyc in graph.cycles():
+        if cyc[-1].held == cyc[-1].acquired:
+            continue
+        chain = " -> ".join([e.held for e in cyc] + [cyc[-1].acquired])
+        where = ", ".join(f"{e.path}:{e.line}" for e in cyc)
+        out.append(f"cycle {chain} (edges at {where})")
+    return out

@@ -24,6 +24,8 @@
     python -m tpu_tree_search_torch submit --router URL --wait -- nqueens --N 12
     python -m tpu_tree_search_torch pfsp --inst 14 --guard                 # steady-state guard
     python -m tpu_tree_search_torch lint [paths] [--rule guarded-by]      # the lock rules
+    python -m tpu_tree_search_torch check [--family nqueens] [--device cuda]  # the contracts
+    python -m tpu_tree_search_torch pfsp --inst 14 --unfused --compact sort
 
 The banner and the report follow the reference's format (`print_settings` /
 `print_results`). Tiers: ``--tier device`` (the default: the port's entry
@@ -80,9 +82,12 @@ port) go through it.
 
 The guards (`analysis/`): ``--guard`` arms the steady-state guard of the
 resident loops (``TTS_GUARD=1`` for the run: the resident engine, mesh,
-dist_mesh), and ``lint`` runs the lock rules (``guarded-by``,
-``lock-order``) over the port. ``check`` audits JAX programs and has no
-counterpart.
+dist_mesh), ``lint`` runs the lock rules (``guarded-by``,
+``lock-order``) over the port, and ``check`` audits the port's programs
+against their contracts (`analysis/program_audit.py`: ``--list``,
+``--family``, ``--update``, ``--baseline``, ``--no-locks``, ``--json``,
+``--device``). ``--compact`` (``TTS_COMPACT``) picks the unfused cycle's
+survivor compaction.
 
 ``--mp`` splits the lb2 Johnson pair loop of the mesh tiers in pair blocks
 (pfsp --lb lb2, ``--tier mesh``/``dist_mesh``), refused elsewhere with the
@@ -141,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
                "(follow an --obs-serve run or a serve job), `serve`, "
                "`submit`, `top`, `migrate`, `warmup` (the serve daemon "
                "and its clients), `fleet` (the router over daemons), "
-               "`lint` (the lock rules)",
+               "`lint` (the lock rules), `check` (the program contracts)",
     )
     p.add_argument("problem", choices=("pfsp", "nqueens"))
     p.add_argument("--N", type=int, default=14,
@@ -240,6 +245,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the unfused cycle (evaluator kernel + torch "
                         "compaction; staged under lb2) instead of the fused "
                         "CUDA cycle")
+    p.add_argument("--compact",
+                   choices=["auto", "scatter", "sort", "search", "dense"],
+                   default=None,
+                   help="survivor-path compaction for the device tiers "
+                        "(default: TTS_COMPACT env or 'auto' — picks per "
+                        "problem shape, ops/compact_policy.py; the explicit "
+                        "modes are bit-identical — pick by measurement; "
+                        "'dense' is the shift-based fast path, free of sort/"
+                        "scatter/searchsorted). The unfused cycle's; the "
+                        "fused cycle compacts in its kernel and takes it "
+                        "with no effect")
     p.add_argument("--mt", type=int, default=None,
                    help="tile width of the fused cycle (the JAX "
                         "TTS_MEGAKERNEL_MT): below M the chunk is streamed in "
@@ -553,11 +569,24 @@ def serve_main(argv: list[str]) -> int:
                        device=args.device)
 
 
+def uses_compaction(args) -> bool:
+    """True for runs whose engine performs device-side stream compaction
+    (`tpu_tree_search/cli.py:602-609`): the resident device engine and the
+    mesh-resident tiers. The offload, multi and dist workers prune and
+    branch on the host and never consult TTS_COMPACT."""
+    return (args.tier in ("mesh", "dist_mesh")
+            or (args.tier == "device" and args.engine == "resident"))
+
+
 def check_supported(args) -> None:
     """Refuse what the port lacks, and a flag the chosen tier or engine would
     ignore (`tpu_tree_search/cli.py` `_dispatch_tier`, `validate_args`)."""
-    if args.guard and not (args.tier in ("mesh", "dist_mesh") or (
-            args.tier == "device" and args.engine == "resident")):
+    if args.compact is not None and not uses_compaction(args):
+        raise ValueError(
+            "--compact only applies to runs with device-side compaction "
+            "(--tier device with the resident engine, mesh, dist_mesh); "
+            "the offload/multi/dist workers prune on host")
+    if args.guard and not uses_compaction(args):  # the resident loops
         raise ValueError(GUARD_TIERS)
     if device_list(args) is not None and args.tier not in (
             "multi", "mesh") + DIST_TIERS:
@@ -758,6 +787,10 @@ def print_settings(args, device) -> None:
     if args.torch_trace is not None:
         print(f"torch.profiler window (TTS_TORCH_TRACE): {args.torch_trace} "
               "(steady-state dispatches)")
+    if uses_compaction(args):
+        # The raw knob; the resolved mode prints with the results.
+        knob = args.compact or os.environ.get("TTS_COMPACT", "auto")
+        print(f"Survivor path (TTS_COMPACT): {knob}")
     if args.tier in DIST_TIERS:
         # The raw knobs; the resolved policy prints with the results.
         from .parallel.topology import steal_mode
@@ -802,6 +835,9 @@ def print_results(problem, res, checkpoint: str | None = None) -> None:
     if res.per_worker_tree:
         shares = ", ".join(f"{s:.2f}" for s in res.workload_shares())
         print(f"Workload per device (%): [{shares}]")
+    if res.compact:
+        tag = " (auto)" if res.compact_auto else ""
+        print(f"Survivor path: {res.compact}{tag}")
     if res.steals:
         print(f"Work steals (intra-host): {res.steals}")
     if res.comm:
@@ -954,6 +990,25 @@ def result_record(args, res, device) -> dict:
                    device_to_host=d.device_to_host,
                    double_buffered=d.double_buffered)
         return rec
+    if uses_compaction(args):
+        # The resolved survivor path (`tpu_tree_search/cli.py:958-972`): the
+        # unfused cycle's mode; under the fused cycle, which takes the knob
+        # with no effect, the mode it resolves to for this run, as the JAX
+        # record has it under an armed megakernel.
+        from .ops.compact_policy import compact_mode, resolve_compact_mode
+
+        compact, auto = res.compact, res.compact_auto
+        if compact is None:
+            from .problems.pfsp import taillard
+
+            n = (args.N if args.problem == "nqueens"
+                 else taillard.nb_jobs(args.inst))
+            compact = resolve_compact_mode(
+                argparse.Namespace(name=args.problem), res.M, n)
+            auto = compact_mode() == "auto"
+        rec["compact"] = compact
+        if auto:
+            rec["compact_auto"] = True
     rec.update({
         "fused": res.fused,
         "K": res.k_resolved,
@@ -998,10 +1053,13 @@ def pinned_env(pins: dict):
 def run_pins(args) -> dict:
     """The knobs the run's flags set for it (`tpu_tree_search/
     cli.py:619-636`): ``TTS_GUARD=1`` for ``--guard``, ``TTS_PHASEPROF``,
-    ``TTS_TORCH_TRACE`` and, for ``--trace``/``--metrics-file``/
-    ``--obs-serve``/``--costmodel``, ``TTS_OBS=1`` unless ``TTS_OBS`` is
-    set (``=host`` keeps the graphs)."""
+    ``TTS_TORCH_TRACE``, ``TTS_COMPACT`` for ``--compact`` and, for
+    ``--trace``/``--metrics-file``/``--obs-serve``/``--costmodel``,
+    ``TTS_OBS=1`` unless ``TTS_OBS`` is set (``=host`` keeps the
+    graphs)."""
     pins = {}
+    if args.compact is not None:
+        pins["TTS_COMPACT"] = args.compact
     if args.guard:
         pins["TTS_GUARD"] = "1"
     if args.phase_profile:
@@ -1049,11 +1107,16 @@ def main(argv=None) -> int:
 
         return lint_main(argv[1:], prog="python -m tpu_tree_search_torch lint")
     if argv and argv[0] == "check":
-        print("Error: `check` audits the JAX package's compiled programs "
-              "(its contracts and program audit) and has no counterpart in "
-              "the port; `lint` runs the lock rules and `--guard` the "
-              "steady-state guard", file=sys.stderr)
-        return 2
+        # The program contract auditor (`analysis/program_audit.py`).
+        from .analysis.program_audit import add_check_args, run_check_cli
+
+        cparser = argparse.ArgumentParser(
+            prog="python -m tpu_tree_search_torch check",
+            description="audit the port's programs (the cycles and their "
+                        "dispatch graphs) against the contracts declared "
+                        "next to the code they pin")
+        add_check_args(cparser)
+        return run_check_cli(cparser.parse_args(argv[1:]))
     parser = build_parser()
     if argv and argv[0] == "profile":
         # `profile <run command>`: the same run with the phase clock armed.
@@ -1244,6 +1307,7 @@ def prepare(args):
         return None, None, problem, None
     from .engine.pipeline import resolve_k, resolve_pipeline_depth
     from .ops.backend import resolve_device, resolve_devices
+    from .ops.compact_policy import compact_mode
     from .ops.lb2_kernel import johnson_operands
     from .ops.tiled import check_tile
 
@@ -1255,6 +1319,7 @@ def prepare(args):
         K = 16 if mesh and args.K is None else parse_k(args.K)
         resolve_k(K, default_max=16 if mesh else 4096)
         resolve_pipeline_depth()
+        compact_mode()  # a TTS_COMPACT outside the modes is refused here
     devices = device_list(args)
     if devices is not None:
         devices = [str(d) for d in resolve_devices(devices)]

@@ -53,6 +53,8 @@
 // older, dispatch_graph_create returns the error.
 #include <cuda.h>
 
+#include <vector>
+
 #include "cycle_common.cuh"
 #include "phase_clock.cuh"
 
@@ -441,8 +443,11 @@ extern "C" int batch_graph_end_body(void* stream, int ok, void* st, int B,
 // then depends on it), and `body_stream` capturing into the `if` node's
 // body. The caller enqueues the slot's cycle on `body_stream`, then calls
 // slot_gate_end. The handle is created in the graph that holds the node.
+// Returns the body in `body_out` (the audit reads its nodes: this runtime
+// may not read a conditional node's type, let alone its body).
 extern "C" int slot_gate_begin(void* stream, void* body_stream, void* st,
-                               int m, long long Mn, int C, int K) {
+                               int m, long long Mn, int C, int K,
+                               void** body_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
   cudaGraph_t g = nullptr;
@@ -493,10 +498,12 @@ extern "C" int slot_gate_begin(void* stream, void* body_stream, void* st,
     err = cudaStreamUpdateCaptureDependencies(s, &node, 1,
                                               cudaStreamSetCaptureDependencies);
 #endif
-  if (!err)
+  if (!err) {
+    *body_out = cp.conditional.phGraph_out[0];
     err = cudaStreamBeginCaptureToGraph(
         static_cast<cudaStream_t>(body_stream), cp.conditional.phGraph_out[0],
         nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
+  }
   return static_cast<int>(err);
 }
 
@@ -621,30 +628,75 @@ static const char* tts_kernel_node_name(cudaGraphNode_t node) {
   return "?";
 }
 
+// Whether a memcpy node has a host end (a pageable, pinned or mapped host
+// buffer on either side): its direction, else (cudaMemcpyDefault) the
+// pointers' memory types.
+static bool tts_memcpy_host_end(cudaGraphNode_t node) {
+  cudaMemcpy3DParms p = {};
+  if (cudaGraphMemcpyNodeGetParams(node, &p) != cudaSuccess) {
+    cudaGetLastError();
+    return true;  // unreadable: assume the worst
+  }
+  if (p.kind == cudaMemcpyHostToDevice || p.kind == cudaMemcpyDeviceToHost ||
+      p.kind == cudaMemcpyHostToHost)
+    return true;
+  if (p.kind == cudaMemcpyDeviceToDevice) return false;
+  for (const void* ptr : {p.srcPtr.ptr, p.dstPtr.ptr}) {
+    if (!ptr) continue;  // an array end: device memory
+    cudaPointerAttributes a = {};
+    if (cudaPointerGetAttributes(&a, ptr) != cudaSuccess) {
+      cudaGetLastError();
+      return true;
+    }
+    if (a.type != cudaMemoryTypeDevice && a.type != cudaMemoryTypeManaged)
+      return true;
+  }
+  return false;
+}
+
+// The graph a child graph node holds (a mesh round's balance step), owned
+// by the node's graph.
+extern "C" int graph_child_graph(void* node, void** graph_out) {
+  cudaGraph_t g = nullptr;
+  const cudaError_t err =
+      cudaGraphChildGraphNodeGetGraph(static_cast<cudaGraphNode_t>(node), &g);
+  *graph_out = g;
+  return static_cast<int>(err);
+}
+
 // The kernels of a graph's nodes (the dispatch graph or its body), in the
 // order cudaGraphGetNodes gives: each kernel node's name (mangled) in `len`
 // bytes of `names`, "-" for a node of another type (the while node), at
-// most `cap` of them; *count is the graph's node count. Lets tests and
-// chip_smoke.py hold each graph to the nodes it should have.
+// most `cap` of them; *count is the graph's node count. With `types` (or
+// NULL), each node's cudaGraphNodeType, -1 where this runtime cannot read
+// it, with 0x100 added to a memcpy node that has a host end. Lets tests,
+// chip_smoke.py and `check --device cuda` hold each graph to the nodes it
+// should have.
 extern "C" int dispatch_graph_kernels(void* graph, int cap, char* names,
-                                      int len, int* count) {
+                                      int len, int* types, int* count) {
   cudaGraph_t g = static_cast<cudaGraph_t>(graph);
   size_t n = 0;
   cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
   if (err) return static_cast<int>(err);
   *count = static_cast<int>(n);
-  cudaGraphNode_t nodes[256];
-  if (n > 256) n = 256;
-  err = cudaGraphGetNodes(g, nodes, &n);
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(g, nodes.data(), &n);
   if (err) return static_cast<int>(err);
   for (size_t i = 0; i < n && static_cast<int>(i) < cap; ++i) {
     // This runtime may not know a newer driver's node types (the while
     // node): those read as "-".
     cudaGraphNodeType type = cudaGraphNodeTypeEmpty;
+    int code = 0;
     if (cudaGraphNodeGetType(nodes[i], &type) != cudaSuccess) {
       cudaGetLastError();
       type = cudaGraphNodeTypeEmpty;
+      code = -1;
+    } else {
+      code = static_cast<int>(type);
+      if (type == cudaGraphNodeTypeMemcpy && tts_memcpy_host_end(nodes[i]))
+        code |= 0x100;
     }
+    if (types) types[i] = code;
     const char* name =
         type == cudaGraphNodeTypeKernel ? tts_kernel_node_name(nodes[i]) : "-";
     char* out = names + i * len;

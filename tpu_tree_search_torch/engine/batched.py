@@ -47,6 +47,7 @@ import torch
 from ..obs import counters as obs_counters
 from ..obs import phases as obs_phases
 from ..ops.backend import resolve_device
+from ..ops.compact_policy import auto_chosen
 from ..ops.cycle import (
     ST_CTR,
     ST_CYCLES,
@@ -221,7 +222,8 @@ def make_batched_program(problem: Problem, B: int, m: int, M: int, K: int,
     uncached one when another session holds it)."""
     return R.take_cached(
         problem, "_batched_programs",
-        (B,) + R.program_key(m, M, K, capacity, device, fused, staged, mt),
+        (B,) + R.program_key(m, M, K, capacity, device, fused, staged, mt,
+                             compact=R.program_compact(problem, M, fused)),
         lambda: BatchedProgram(problem, B, m, M, K, capacity, device,
                                fused=fused, staged=staged, mt=mt))
 
@@ -321,6 +323,7 @@ def batched_search(
                         complete=True,
                         engine="batched",
                         compact=prog.inner.compact,
+                        compact_auto=auto_chosen(prog.inner.compact),
                         fused=prog.inner.fused,
                         staged=prog.inner.staged,
                         megakernel_mt=prog.inner.mt,
@@ -345,3 +348,43 @@ def batched_search(
             torch.cuda.current_stream(dev).synchronize()
         prog.release()
     return [r for r in results if r is not None]
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+@contract(
+    "batch-b1-identity",
+    claim="a B=1 batch runs the solo cycle's entries in the same order "
+          "(the slot axis adds only the graph's own batch_init, slot_gate "
+          "and batch_cond nodes), and a B=2 batch runs them once a slot, in "
+          "slot order — --batch-slots 1 is the solo path with no drift",
+    artifact="batched",
+)
+def _contract_b1_identity(art, cell):
+    solo = [e.text for e in art["solo"].cycle_entries()]
+    got = [e.text for e in art["record"].cycle_entries()]
+    if got == solo * art["B"]:
+        return []
+    return [f"B={art['B']} batch records {len(got)} cycle entries, the solo "
+            f"cycle {len(solo)} a slot (or in another order)"]
+
+
+@contract(
+    "batch-splice-no-recompile",
+    claim="admitting a slot is a copy into the slot's existing tensors, "
+          "never a new program: make_slot and empty_slot on a built batch "
+          "build no graph, library or program (ops/_build.py build_counts) "
+          "and move no tensor the batch's graph bakes in",
+    artifact="batched",
+)
+def _contract_splice_no_recompile(art, cell):
+    (b0, st0, p0), (b1, st1, p1) = art["before"], art["after"]
+    out = []
+    if b0 != b1:
+        out.append(f"slot admission built something: {b0} -> {b1}")
+    if st0 != st1 or p0 != p1:
+        out.append("slot admission moved the batch's tensors")
+    return out

@@ -240,3 +240,25 @@ class DispatchQueue:
         capacity-stall fallback."""
         while self._q:
             yield self._q.popleft()
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+@contract(
+    "pipeline-knob-inert",
+    claim="TTS_PIPELINE never reaches a program: depth-0 and depth-2 builds "
+          "record the same dispatch as the unset build — speculation is "
+          "host-side queueing only, exact by the no-op dispatch of a "
+          "terminated or stalled pool, not a program variant",
+    artifact="variants",
+)
+def _contract_pipeline_inert(art, cell):
+    if not art.has("off", "pipe0", "pipe2"):
+        return []
+    if art.text("off") == art.text("pipe0") == art.text("pipe2"):
+        return []
+    return ["TTS_PIPELINE leaked into the recorded program (host-side "
+            "queueing must not fork programs)"]

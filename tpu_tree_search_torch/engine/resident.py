@@ -114,8 +114,8 @@ from ..obs import quality as obs_quality
 from ..obs import roofline as obs_roofline
 from ..ops._build import count_build
 from ..ops.backend import resolve_device
-from ..ops.compact_policy import resolve_compact_mode
-from ..ops.compaction import compact_ids, swap_children
+from ..ops.compact_policy import auto_chosen, resolve_compact_mode
+from ..ops.compaction import children_of, compact_ids
 from ..ops.cycle import (
     ST_ACTIVE,
     ST_BEST,
@@ -301,6 +301,9 @@ class _ResidentProgram(CachedProgram):
     staged = False
     # The lb2 pair blocks an evaluation splits into (PFSP lb2 only).
     mp = 1
+    # Why a program asked for the fused cycle runs the unfused one (None:
+    # it was not asked, or it runs it).
+    unfused_reason: str | None = None
 
     def __init__(self, problem: Problem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
@@ -604,7 +607,7 @@ class _ResidentProgram(CachedProgram):
         cnt`` with ``cnt = min(size, M)`` (rows past ``size`` masked); the
         evaluator keeps the children; ``compact_ids`` ranks every survivor
         in (parent, slot) order; the push makes the child of each of the
-        M*n ranked slots from its parent's row (``swap_children``) and
+        M*n ranked slots from its parent's row (``children_of``) and
         writes all M*n rows at ``[start, start + M*n)`` with one
         ``index_copy_``: the survivors land at ``[start, start +
         tree_inc)``, the rest past the new size, dead rows (the JAX fitting
@@ -640,14 +643,14 @@ class _ResidentProgram(CachedProgram):
         ids, tree_inc = compact_ids(keep, Mn, self.compact)
         if clk is not None:
             phase_mark(clk, P["compact"])
-        pi = (ids // n).long()
-        pa = aux_c[pi]
-        # The swap position, clamped only for the garbage slots past
-        # tree_inc (an N-Queens parent at depth N).
-        d = self._swap_pos(pa).long().clamp(0, n - 1)[:, None]
-        pool_vals.index_copy_(0, start + ar, swap_children(
-            vals_c[pi], d, (ids % n).long()[:, None]))
-        pool_aux.index_copy_(0, start + ar, (pa + 1).to(pool_aux.dtype))
+        ids = ids.long()
+        # Each parent's swap position, clamped only for a parent whose
+        # children are all pruned (an N-Queens parent at depth N): the
+        # garbage slots past tree_inc take its children.
+        d = self._swap_pos(aux_c).long().clamp(0, n - 1)[:, None]
+        pool_vals.index_copy_(0, start + ar, children_of(vals_c, d)[ids])
+        pool_aux.index_copy_(0, start + ar,
+                             (aux_c[ids // n] + 1).to(pool_aux.dtype))
         over = tree_inc > S
         if clk is not None:
             phase_mark_if(clk, P["push"], P["overflow"], over.to(i32),
@@ -698,6 +701,12 @@ class PFSPResident(_ResidentProgram):
         super().__init__(problem, m, M, K, capacity, device,
                          fused=fused and problem.lb != "lb1_d" and mp == 1,
                          mt=mt)
+        if fused and not self.fused:
+            self.unfused_reason = (
+                "lb1_d has no fused cycle (the JAX megakernel refuses it, "
+                "megakernel.py:351-354)" if problem.lb == "lb1_d" else
+                "mp pair-axis sharding (the fused cycle is single-shard, "
+                "megakernel.py:355-358)")
         self.tables = problem.device_tables(self.device)
         self.staged = staged and problem.lb == "lb2" and not self.fused
         if self.mp > 1:
@@ -801,16 +810,32 @@ class NQueensResident(_ResidentProgram):
         return keep, sol_inc, best
 
 
+def program_compact(problem: Problem, M: int, fused: bool,
+                    mp: int = 1) -> str | None:
+    """The compaction mode a resident program of these arguments bakes in
+    (``resolve_compact_mode``, ``TTS_COMPACT`` first), or None where it runs
+    the fused cycle, which compacts inside its kernel (PFSP lb1_d and the
+    mp pair axis always run the unfused one)."""
+    unfused = (not fused or mp > 1
+               or getattr(problem, "lb", None) == "lb1_d")
+    return (resolve_compact_mode(problem, M, problem.child_slots)
+            if unfused else None)
+
+
 def program_key(m: int, M: int, K: int, capacity: int, device, fused: bool,
-                staged: bool, mt: int | None, mp: int = 1) -> tuple:
+                staged: bool, mt: int | None, mp: int = 1,
+                compact: str | None = None) -> tuple:
     """The cache key of a resident program (`resident.py:682-702`, with the
     port's routing inputs): what selects its cycle, its graphs and its
-    state, and the telemetry flags its graphs bake in. K is the K asked
-    for: the program's K moves along AdaptiveK's ladder and is set back
-    when a search takes it."""
+    state, the telemetry flags its graphs bake in and the unfused cycle's
+    resolved compaction mode (``program_compact``: a cached ``scatter``
+    program never serves a ``sort`` search). K is the K asked for: the
+    program's K moves along AdaptiveK's ladder and is set back when a
+    search takes it."""
     return (m, M, K, capacity, str(resolve_device(device)), fused, staged, mt,
             obs_counters.device_counters_enabled(),
-            obs_phases.phase_profiling_enabled()) + ((mp,) if mp > 1 else ())
+            obs_phases.phase_profiling_enabled(), compact) + (
+                (mp,) if mp > 1 else ())
 
 
 def new_program(problem: Problem, m: int, M: int, K: int, capacity: int,
@@ -842,7 +867,8 @@ def make_program(problem: Problem, m: int, M: int, K: int, capacity: int,
         raise TypeError(f"no resident program for {type(problem).__name__}")
     prog = take_cached(
         problem, "_resident_programs",
-        program_key(m, M, K, capacity, device, fused, staged, mt),
+        program_key(m, M, K, capacity, device, fused, staged, mt,
+                    compact=program_compact(problem, M, fused)),
         lambda: new_program(problem, m, M, K, capacity, device, fused=fused,
                             staged=staged, mt=mt))
     prog.use_k(K)
@@ -1231,6 +1257,7 @@ def resident_search(
         steps=controller.steps,
         engine="resident",
         compact=program.compact,
+        compact_auto=auto_chosen(program.compact),
         fused=program.fused,
         staged=program.staged,
         megakernel_mt=program.mt,
@@ -1250,3 +1277,148 @@ def resident_search(
         quality=qt.result() if qt is not None else None,
         guard=guards.record(),
     )
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+# The push, pool and steady-state claims of this engine, declared here and
+# checked for every knob-matrix cell by analysis/program_audit.py.
+
+from ..analysis.contracts import (  # noqa: E402
+    child_value_gathers,
+    contract,
+    host_reads,
+)
+
+#: Graph node kinds a steady-state dispatch may not hold: a host function
+#: and a copy with a host end.
+HOST_NODES = ("host", "memcpy_host")
+
+
+@contract(
+    "fused-push-single-gather",
+    claim="in every survivor-path mode the cycle holds at most ONE gather "
+          "big enough to move child values (>= S rows of n lanes in the "
+          "pool's value dtype) beyond the bare evaluator's own (the staged "
+          "lb2 evaluator materialises its candidates): the push's gather of "
+          "the parents' rows; the children are then built by selects, and "
+          "mask and index gathers move no node data",
+    artifact="cycle",
+)
+def _contract_single_gather(art, cell):
+    prog = art.prog
+    n = prog.problem.child_slots
+    dt = str(prog.vals_dtype).replace("torch.", "")
+    big = child_value_gathers(art.record.body, prog.S, n, dt)
+    budget = 1 + len(child_value_gathers(art.eval_entries, prog.S, n, dt))
+    if len(big) <= budget:
+        return []
+    return [f"{len(big)} child-value-sized gathers in the cycle (budget "
+            f"{budget}, the evaluator's included): "
+            + "; ".join(e.text[:100] for e in big)]
+
+
+@contract(
+    "pool-in-place",
+    claim="the dispatch works on the pool in place: the pool and state "
+          "tensors keep their addresses across a cycle (the dispatch graph "
+          "bakes them in, ops/dispatch.py:30-32), and the cycle allocates "
+          "no tensor of pool-capacity rows — the counterpart of the JAX "
+          "step's donated pool buffers",
+    artifact="cycle",
+)
+def _contract_pool_in_place(art, cell):
+    out = []
+    if not art.in_place:
+        out.append("the pool or the state moved during the dispatch (the "
+                   "graph's baked addresses would go stale)")
+    big = [e for e in art.record.entries
+           if e.get("alloc_rows", 0) >= art.capacity]
+    if big:
+        out.append(f"{len(big)} allocation(s) of pool-capacity rows in the "
+                   "dispatch: " + "; ".join(e.text[:80] for e in big))
+    return out
+
+
+@contract(
+    "step-callback-armed-only",
+    claim="the steady-state dispatch reads nothing back: no "
+          "_local_scalar_dense (.item(), int(), bool()), no tolist or "
+          "numpy, no copy from the card to the host and no operation whose "
+          "shape depends on the data (nonzero, masked_select) in any cycle "
+          "(the solo cells, the batched programs' slots); on the card no "
+          "host node and no memcpy with a host end in any graph: the "
+          "dispatch graph, its while body and the graphs nested in them "
+          "(a batch slot's or mesh shard's gated body, a mesh round's body "
+          "and balance step; program_audit.audit_mesh records the mesh "
+          "graphs on the card). The phase clock (phase_mark, on "
+          "%globaltimer) is the armed instrument: present where "
+          "TTS_PHASEPROF=1 (the seed mark, and the unfused cycle's marks) "
+          "and only there",
+    artifact="cycle",
+)
+def _contract_callbacks(art, cell):
+    rec = art.record
+    out = []
+    reads = host_reads(rec.entries)
+    if reads:
+        out.append("host reads in the steady-state dispatch: "
+                   + ", ".join(sorted({e.name for e in reads})))
+    marks = [e for e in rec.entries if e.name == "phase_mark_cuda"]
+    armed = cell is not None and cell.phaseprof == "1"
+    if armed and not marks:
+        out.append("armed cell without its phase_mark entries (the "
+                   "instrument is silently gone)")
+    if not armed and marks:
+        out.append(f"{len(marks)} phase_mark (clock) entries in an unarmed "
+                   "dispatch")
+    if rec.nodes is not None:
+        for part, nodes in rec.nodes.items():
+            bad = [k for _, k in nodes if k in HOST_NODES]
+            if bad:
+                out.append(f"{part} graph holds {bad} nodes")
+        clock = [nm for nodes in rec.nodes.values() for nm, _ in nodes
+                 if "phase_mark" in nm]
+        if armed != bool(clock):
+            out.append(f"graph clock nodes {len(clock)} where the cell is "
+                       f"{'armed' if armed else 'unarmed'}")
+    return out
+
+
+@contract(
+    "program-cache-key-sound",
+    claim="what a program bakes in keys the program cache: a flip of "
+          "TTS_COMPACT (the unfused cycle's resolved mode), TTS_OBS, "
+          "TTS_PHASEPROF, the cycle (fused=, the JAX TTS_MEGAKERNEL) or "
+          "its tile width (mt=, TTS_MEGAKERNEL_MT) takes a new program; "
+          "TTS_PIPELINE, TTS_GUARD, TTS_STEAL, TTS_NARROW (the port's host "
+          "layout does not read it), TTS_MEGAKERNEL as an env knob and a "
+          "plain rebuild take the same cached one",
+    artifact="cache-key",
+)
+def _contract_cache_key(art, cell):
+    out = []
+    for knob, (a, b) in art.distinct.items():
+        if a is b:
+            out.append(f"{knob} flip reused the same cached program (stale "
+                       "structure would run)")
+    for knob, (a, b) in art.shared.items():
+        if a is not b:
+            out.append(f"{knob} flip rebuilt the program (a knob the "
+                       "program does not see leaks into the cache key)")
+    return out
+
+
+@contract(
+    "narrow-knob-inert",
+    claim="TTS_NARROW never changes a program: the port's device pools "
+          "are narrow by their dtypes (engine/device.py pool_dtypes) and "
+          "it has no host-layout knob, so the =0 build records the same "
+          "program as the unset build",
+    artifact="variants",
+)
+def _contract_narrow_inert(art, cell):
+    if not art.has("off", "narrow0"):
+        return []
+    if art.text("off") != art.text("narrow0"):
+        return ["TTS_NARROW=0 build differs from the unset build"]
+    return []

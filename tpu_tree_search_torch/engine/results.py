@@ -54,9 +54,12 @@ class SearchResult:
     # None on the sequential tier.
     engine: str | None = None
     # Resident tier: the survivor-path compaction mode of the unfused
-    # cycle ("dense"/"scatter"); None on the fused cycle, which compacts
-    # inside its kernel.
+    # cycle ("scatter"/"sort"/"search"/"dense", `ops/compaction.py`), with
+    # compact_auto True when the TTS_COMPACT=auto policy chose it
+    # (`tpu_tree_search/engine/results.py:70-75`); None and False on the
+    # fused cycle, which compacts inside its kernel.
     compact: str | None = None
+    compact_auto: bool = False
     # Resident tier: which cycle ran (the fused CUDA cycle or the unfused
     # bound-kernel + torch compaction cycle), the chunk size M and cycles
     # per dispatch K it ran with, the K-cycle dispatches it made, and how

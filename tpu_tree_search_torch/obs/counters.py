@@ -107,3 +107,71 @@ def as_args(block) -> dict:
     """A harvested block as a {slot: int} dict for counter events and
     metrics lines."""
     return merge_host(None, block)
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+def _cond(record) -> str:
+    """The dispatch's loop-condition entry (the body's last)."""
+    return record.body[-1].name if record.body else ""
+
+
+@contract(
+    "obs-off-identity",
+    claim="TTS_OBS unset, =0 and =host record the same dispatch and, on "
+          "the card, the same graph, with no counter block: the program's "
+          "counters are off and its condition node is dispatch_cond — the "
+          "block is built out when off, never branched (host mode touches "
+          "no device program)",
+    artifact="variants",
+)
+def _contract_obs_off_identity(art, cell):
+    if not art.has("off", "obs0", "obs-host"):
+        return []
+    out = []
+    if not (art.text("off") == art.text("obs0") == art.text("obs-host")):
+        out.append("TTS_OBS unset/0/host record different programs (the "
+                   "off path must be one program)")
+    off = art.variants["off"]
+    if off.meta.get("obs") or _cond(off) != "dispatch_cond":
+        out.append("the off build carries the counter block (armed "
+                   f"{off.meta.get('obs')}, condition {_cond(off)}): the "
+                   "off graph must be the untelemetered one")
+    return out
+
+
+@contract(
+    "obs-counter-block",
+    claim="TTS_OBS=1 builds a distinct program: on the fused cycle the same "
+          "cycle entries with dispatch_cond_obs as the body's last node in "
+          "place of dispatch_cond; the unfused cycle folds its own block "
+          "(fold=False: its ops grow, the last node stays dispatch_cond)",
+    artifact="variants",
+)
+def _contract_obs_counter_block(art, cell):
+    if not art.has("off", "obs1"):
+        return []
+    off, on = art.variants["off"], art.variants["obs1"]
+    out = []
+    if art.text("off") == art.text("obs1") or not on.meta.get("obs"):
+        out.append("TTS_OBS=1 recorded the off program (the counter block "
+                   "is not armed)")
+    want = "dispatch_cond_obs" if art.fused else "dispatch_cond"
+    if _cond(on) != want:
+        out.append(f"armed condition {_cond(on)}, expected {want}")
+    if art.fused and ([e.text for e in on.cycle_entries()]
+                      != [e.text for e in off.cycle_entries()]):
+        out.append("the fused cycle's entries changed under TTS_OBS=1 (only "
+                   "the condition node may)")
+    if not art.fused and len(on.body) <= len(off.body):
+        out.append("the unfused cycle folds no counter block under "
+                   "TTS_OBS=1")
+    if on.nodes is not None and on.nodes["body"]:
+        last = on.nodes["body"][-1][0]
+        if want not in last or (not art.fused and "obs" in last):
+            out.append(f"armed graph's last body node {last}, expected "
+                       f"{want}")
+    return out

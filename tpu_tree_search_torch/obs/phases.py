@@ -210,3 +210,73 @@ class TorchTraceWindow:
                 if TorchTraceWindow._active is self:
                     TorchTraceWindow._active = None
             self._owner = False
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+def _marks(entries) -> int:
+    return sum(1 for e in entries if e.name == "phase_mark_cuda")
+
+
+@contract(
+    "phaseprof-off-identity",
+    claim="TTS_PHASEPROF unset and =0 record the same dispatch with no "
+          "clock: the phase-clock marks are built out when off, never "
+          "branched (as the counter block)",
+    artifact="variants",
+)
+def _contract_phaseprof_off_identity(art, cell):
+    if not art.has("off", "phase0"):
+        return []
+    out = []
+    if art.text("off") != art.text("phase0"):
+        out.append("TTS_PHASEPROF=0 build differs from the unset build")
+    if art.variants["off"].meta.get("phaseprof") or _marks(
+            art.variants["off"].entries):
+        out.append("the off build carries phase marks")
+    return out
+
+
+@contract(
+    "phaseprof-block-leaf",
+    claim="the armed phase clock adds the seed mark before the while node "
+          "and the marks between the cycle's launches (`chip_smoke.py` "
+          "want_body: the fused cycle's marks ride inside its wrapper, one "
+          "more than its launches; the unfused cycle marks loop, pop, eval, "
+          "compact and push-or-overflow) — a distinct program, with the "
+          "counter block armed beside it",
+    artifact="variants",
+)
+def _contract_phaseprof_block(art, cell):
+    if not art.has("off", "phase1", "phase1-obs1"):
+        return []
+    off, on = art.variants["off"], art.variants["phase1"]
+    out = []
+    if art.text("off") == art.text("phase1"):
+        out.append("TTS_PHASEPROF=1 recorded the off program")
+    if _marks(on.outer) != 1:
+        out.append(f"{_marks(on.outer)} seed marks before the while node "
+                   "(expected 1)")
+    want = 0 if art.fused else 5
+    if _marks(on.body) != want:
+        out.append(f"{_marks(on.body)} marks in the recorded cycle "
+                   f"(expected {want})")
+    if not on.meta.get("obs"):
+        out.append("the armed clock runs without its counter block")
+    if art.text("phase1") != art.text("phase1-obs1"):
+        out.append("TTS_PHASEPROF=1 with and without TTS_OBS=1 differ (the "
+                   "clock arms the counters)")
+    if on.nodes is not None:
+        body = [nm for nm, _ in on.nodes["body"]]
+        clock = sum("phase_mark" in nm for nm in body)
+        launches = sum(1 for nm in body if "phase_mark" not in nm
+                       and "dispatch_cond" not in nm)
+        if art.fused and clock != launches + 1:
+            out.append(f"fused body of {launches} launches holds {clock} "
+                       "marks (want one more than its launches)")
+        if not art.fused and clock != 5:
+            out.append(f"unfused body holds {clock} marks (want 5)")
+    return out

@@ -183,3 +183,25 @@ def primal_integral(points: list[dict], optimum, horizon_s: float,
         t_prev = t
     total += g_prev * (float(horizon_s) - t_prev)
     return total / float(horizon_s)
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+@contract(
+    "quality-off-identity",
+    claim="quality telemetry is host-side only: it reads the scalars the "
+          "dispatch boundary already reads, and the TTS_QUALITY=1 build "
+          "records the same program as the off build — the knob never "
+          "forks a program",
+    artifact="variants",
+)
+def _contract_quality_off_identity(art, cell):
+    if not art.has("off", "quality1"):
+        return []
+    if art.text("off") != art.text("quality1"):
+        return ["TTS_QUALITY=1 build differs from the off build (host-side "
+                "telemetry leaked into the program)"]
+    return []

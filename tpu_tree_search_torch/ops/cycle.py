@@ -39,7 +39,8 @@ import torch
 from ..obs.phases import CLOSE, IDX, OPEN
 from ..problems.base import INF_BOUND
 from . import _build
-from .dispatch import clock_pointer, count_launch, count_marks, phase_mark
+from .dispatch import (clock_pointer, count_launch, count_marks, phase_mark,
+                       route)
 from .lb2_kernel import johnson_operands
 from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 
@@ -380,12 +381,15 @@ cycle_lb2_cuda.captures = 0  # type: ignore[attr-defined]
 
 def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, tables,
            M, m, K, clk) -> None:
-    if pool_vals.is_cuda:
-        if scratch is None:
-            raise ValueError("the CUDA cycle needs its cycle_scratch buffers")
-        cuda_cycle(pool_vals, pool_aux, st, scratch, tables, M, m, K, clk)
-    else:
-        plain_cycle(pool_vals, pool_aux, st, tables, M, m, K, clk)
+    with route(cuda_cycle.__name__):
+        if pool_vals.is_cuda:
+            if scratch is None:
+                raise ValueError("the CUDA cycle needs its cycle_scratch "
+                                 "buffers")
+            cuda_cycle(pool_vals, pool_aux, st, scratch, tables, M, m, K,
+                       clk)
+        else:
+            plain_cycle(pool_vals, pool_aux, st, tables, M, m, K, clk)
 
 
 def cycle_lb1(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
@@ -406,3 +410,67 @@ def cycle_lb2(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     """One lb2 cycle routed like ``cycle_lb1``."""
     _route(cycle_lb2_cuda, cycle_lb2_plain, pool_vals, pool_aux, st, scratch,
            tables, M, m, K, clk)
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+# The fused cycle's claims (the JAX megakernel's, `megakernel.py:1295-1370`):
+# here for the single-tile cycles, `ops/tiled.py` for the streamed ones.
+
+from ..analysis.contracts import contract  # noqa: E402
+
+#: Node kinds of a fused body besides its kernels: none.
+_COPY_NODES = ("memcpy", "memcpy_host", "memset", "host")
+
+
+@contract(
+    "megakernel-knobs-inert",
+    claim="the port chooses the cycle by its arguments (fused=, mt=): "
+          "TTS_MEGAKERNEL and TTS_MEGAKERNEL_MT set in the environment "
+          "record the unset program, and a tile width passed to the "
+          "unfused cycle has no effect on it (the JAX Mt knob is inert "
+          "with the kernel off)",
+    artifact="variants",
+)
+def _contract_megakernel_knobs(art, cell):
+    out = []
+    if art.has("off", "mk-env") and art.text("off") != art.text("mk-env"):
+        out.append("TTS_MEGAKERNEL/TTS_MEGAKERNEL_MT leaked into the "
+                   "recorded program")
+    if art.has("off", "mt") and art.text("off") != art.text("mt"):
+        out.append("a tile width changed the unfused cycle")
+    return out
+
+
+@contract(
+    "fused-single-launch",
+    claim="the fused body (single-tile and streamed alike) is its cycle "
+          "wrapper's launches plus the condition node: one route entry "
+          "(cycle_* or tiled_*), no torch operation between, and on the "
+          "card no torch kernel, copy or memset node in the body; a build "
+          "asked for the fused cycle that runs unfused (lb1_d, the mp pair "
+          "axis) recorded why",
+    artifact="cycle",
+    applies=lambda cell: cell is not None and cell.fused,
+)
+def _contract_fused_single_launch(art, cell):
+    prog, rec = art.prog, art.record
+    if not prog.fused:
+        if not getattr(prog, "unfused_reason", None):
+            return ["a fused build runs the unfused cycle and recorded no "
+                    "reason"]
+        return []
+    out = []
+    cycle = rec.cycle_entries()
+    routes = [e.name for e in cycle if e.kind == "route"]
+    ops = [e.name for e in cycle if e.kind != "route"]
+    want = "tiled_" if prog.tiled else "cycle_"
+    if len(routes) != 1 or not routes[0].startswith(want):
+        out.append(f"fused body routes {routes} (want one {want}* wrapper)")
+    if ops:
+        out.append(f"torch operations in the fused body: {sorted(set(ops))}")
+    if rec.nodes is not None:
+        bad = [nm for nm, k in rec.nodes["body"]
+               if k in _COPY_NODES or "at6native" in nm]
+        if bad:
+            out.append(f"fused graph body holds {bad}")
+    return out

@@ -32,7 +32,7 @@ from ..obs.phases import IDX
 from . import _build
 from .cycle import (NQ_MARKS, ST_LEN, CycleScratch, parents_per_block,
                     plain_marker, plain_pool_cycle)
-from .dispatch import clock_pointer, count_launch, count_marks
+from .dispatch import clock_pointer, count_launch, count_marks, route
 from .nqueens_device import labels_chunk
 from .nqueens_kernel import MAX_N
 
@@ -177,10 +177,12 @@ def cycle_nqueens(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     """One cycle routed by device: the CUDA kernel for a CUDA pool (which
     launches or raises), the plain version for a CPU pool; ``clk`` arms
     the phase marks."""
-    if pool_vals.is_cuda:
-        if scratch is None:
-            raise ValueError("the CUDA cycle needs its nqueens_scratch buffers")
-        cycle_nqueens_cuda(pool_vals, pool_aux, st, scratch, N, g, M, m, K,
-                           clk)
-    else:
-        cycle_nqueens_plain(pool_vals, pool_aux, st, N, g, M, m, K, clk)
+    with route("cycle_nqueens_cuda"):
+        if pool_vals.is_cuda:
+            if scratch is None:
+                raise ValueError("the CUDA cycle needs its nqueens_scratch "
+                                 "buffers")
+            cycle_nqueens_cuda(pool_vals, pool_aux, st, scratch, N, g, M, m,
+                               K, clk)
+        else:
+            cycle_nqueens_plain(pool_vals, pool_aux, st, N, g, M, m, K, clk)

@@ -103,7 +103,11 @@ def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` where it launches its kernels; under
     a ``DispatchGraph`` capture on this thread, add one to
     ``wrapper.captures`` and record the wrapper for the graph, which counts
-    its launches (``count``)."""
+    its launches (``count``). A program recorder (``route``) notes the
+    launch as one entry."""
+    rec = getattr(_TLS, "record", None)
+    if rec is not None:
+        rec.note_route(wrapper.__name__)
     wrappers = getattr(_TLS, "wrappers", None)
     if wrappers is None:
         _build.add_launches(wrapper)
@@ -122,6 +126,25 @@ def recording(wrappers: list):
         yield
     finally:
         _TLS.wrappers = prev
+
+
+@contextmanager
+def route(name: str):
+    """A kernel route: the block launches the CUDA wrapper ``name`` on a
+    CUDA tensor or runs its plain version on a CPU one. Under this
+    thread's program recorder (``_TLS.record``, `analysis/contracts.py`
+    ``Recorder``) the block is one opaque entry named after the wrapper,
+    on either device, and the torch operations inside it (the plain
+    version's, a wrapper's operand set-up) stay out of the record."""
+    rec = getattr(_TLS, "record", None)
+    if rec is None:
+        yield
+        return
+    rec.enter_route(name)
+    try:
+        yield
+    finally:
+        rec.exit_route()
 
 
 _ENTRY_ARGS = {
@@ -145,10 +168,12 @@ _ENTRY_ARGS = {
     "phase_mark_if_enqueue": (_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               _VP, _VP),
     "dispatch_graph_kernels": (_VP, ctypes.c_int, ctypes.c_char_p,
-                               ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
+                               ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_int)),
     "globaltimer_probe_enqueue": (_VP, ctypes.c_int, _VP),
     "slot_gate_begin": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_int),
+                        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_VP)),
+    "graph_child_graph": (_VP, ctypes.POINTER(_VP)),
     "slot_gate_end": (_VP,),
     "dispatch_graph_instantiate": (_VP, ctypes.POINTER(_VP)),
     "dispatch_graph_launch": (_VP, _VP),
@@ -158,6 +183,20 @@ _ENTRY_ARGS = {
 
 def _fn(name: str):
     return _build.entry("dispatch_graph", name, _ENTRY_ARGS[name])
+
+
+#: ``cudaGraphNodeType`` values by name (the runtime's enum).
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "event_wait", 7: "event_record",
+              8: "semaphore_signal", 9: "semaphore_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def node_kind(code: int) -> str:
+    """A node's kind from ``dispatch_graph_kernels``' type code."""
+    if code >= 0 and code & 0x100:
+        return "memcpy_host"
+    return NODE_KINDS.get(code, "unknown")
 
 
 class DispatchGraph:
@@ -185,6 +224,7 @@ class DispatchGraph:
         cond_obs = obs if fold else 0
         self.wrappers: list = [dispatch_cond_obs] if cond_obs else []
         self._graph = _VP()
+        self._subgraphs: list[tuple[str, _VP]] = []
         self._exec = _VP()
         self.pool = capture_pool(self, st.device)
         body = _VP()
@@ -247,16 +287,40 @@ class DispatchGraph:
         """The (mangled) kernel names of the body's nodes, or with
         ``body=False`` of the graph's own nodes ("-": the while node): the
         nodes this graph runs a cycle, or a dispatch."""
+        return [name for name, _ in
+                self._nodes(self._body if body else self._graph)]
+
+    def nodes(self, body: bool = True) -> list[tuple[str, str]]:
+        """``(name, kind)`` of each of the body's nodes (``body=False``: the
+        graph's own), in graph order: a kernel node's mangled name and
+        ``kernel``; any other node's kind as its name too (``NODE_KINDS``;
+        ``memcpy_host`` a copy with a host end)."""
+        return _named(self._nodes(self._body if body else self._graph))
+
+    def graph_nodes(self) -> dict[str, list[tuple[str, str]]]:
+        """``nodes`` of every graph this one runs: ``outer`` (its own),
+        ``body`` (the while node's), then each graph nested in those by
+        its label, which neither list reaches: a batch slot's gated body
+        ``gate<i>``; a mesh round's body ``round<r>`` (r > 0), its shards'
+        gated bodies ``round<r>.gate<i>`` and its balance step
+        ``round<r>.balance``."""
+        out = {"outer": self.nodes(body=False), "body": self.nodes()}
+        for label, handle in self._subgraphs:
+            out[label] = _named(self._nodes(handle))
+        return out
+
+    def _nodes(self, graph) -> list[tuple[str, str]]:
         lib, fn = _fn("dispatch_graph_kernels")
-        cap, width = 64, 256
+        cap, width = 1024, 256
         names = ctypes.create_string_buffer(cap * width)
+        types = (ctypes.c_int * cap)()
         count = ctypes.c_int()
-        _build.check(lib, fn(self._body if body else self._graph, cap, names,
-                             width, ctypes.byref(count)),
+        _build.check(lib, fn(graph, cap, names, width, types,
+                             ctypes.byref(count)),
                      "dispatch_graph_kernels")
         raw = names.raw
-        return [raw[i * width:(i + 1) * width].split(b"\0", 1)[0].decode()
-                for i in range(min(count.value, cap))]
+        return [(raw[i * width:(i + 1) * width].split(b"\0", 1)[0].decode(),
+                 node_kind(types[i])) for i in range(min(count.value, cap))]
 
     def close(self) -> None:
         """Free the graph and retire its memory pool (after the work it
@@ -323,23 +387,38 @@ def pooled(key, device: torch.device):
         yield
 
 
+def _named(nodes: list[tuple[str, str]]) -> list[tuple[str, str]]:
+    return [(name if kind == "kernel" else kind, kind)
+            for name, kind in nodes]
+
+
+def row_pointer(st: torch.Tensor, i: int) -> int:
+    """The address of row ``i`` of the (B, ST_LEN) states, computed on the
+    host: a capture takes it with no indexing operation of its own."""
+    return st.data_ptr() + i * st.stride(0) * st.element_size()
+
+
 @contextmanager
-def gated(lib, side, inner, st_row: torch.Tensor, m: int, Mn: int, C: int,
-          K: int):
+def gated(lib, side, inner, st_row: int, m: int, Mn: int, C: int, K: int,
+          bodies: list, label: str):
     """Under a body's capture on ``side``: with a stream ``inner``, the
-    slot's ``slot_gate`` on its state row ``st_row`` and an ``if`` node
+    slot's ``slot_gate`` on its state row (``st_row``, its address:
+    ``row_pointer``, no tensor operation in the body) and an ``if`` node
     after it, whose body captures the block's work on ``inner``
-    (`csrc/dispatch_graph.cu` ``slot_gate_begin``); a frozen slot then
-    launches nothing of it. Without ``inner``, the block is captured on
-    ``side`` as it is."""
+    (`csrc/dispatch_graph.cu` ``slot_gate_begin``) and is appended to
+    ``bodies`` as ``(label, graph)``; a frozen slot then launches nothing
+    of it. Without ``inner``, the block is captured on ``side`` as it
+    is."""
     if inner is None:
         yield
         return
     _, begin = _fn("slot_gate_begin")
     _, end = _fn("slot_gate_end")
-    _build.check(lib, begin(side.cuda_stream, inner.cuda_stream,
-                            st_row.data_ptr(), m, Mn, C, K),
+    body = _VP()
+    _build.check(lib, begin(side.cuda_stream, inner.cuda_stream, st_row, m,
+                            Mn, C, K, ctypes.byref(body)),
                  "slot_gate_begin")
+    bodies.append((label, body))
     try:
         with torch.cuda.stream(inner):
             yield
@@ -381,6 +460,7 @@ class BatchGraph(DispatchGraph):
         self.wrappers = []
         self._graph = _VP()
         self._exec = _VP()
+        self._subgraphs = []
         self.pool = capture_pool(self, st.device)
         body = _VP()
         handle = ctypes.c_ulonglong()
@@ -417,7 +497,8 @@ class BatchGraph(DispatchGraph):
             with torch.cuda.stream(side), pooled(self.pool, side.device):
                 for i, (cycle, wrappers) in enumerate(
                         zip(cycles, self.slot_wrappers)):
-                    with gated(lib, side, inner, self.st[i], m, Mn, C, K), \
+                    with gated(lib, side, inner, row_pointer(self.st, i), m,
+                               Mn, C, K, self._subgraphs, f"gate{i}"), \
                             recording(wrappers):
                         cycle()
             ok = 1
@@ -612,10 +693,11 @@ phase_mark_cuda.captures = 0  # type: ignore[attr-defined]
 def phase_mark(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
     """One mark routed by device: the kernel on a CUDA block (which
     launches or raises), the host clock on a CPU one."""
-    if clk.is_cuda:
-        phase_mark_cuda(clk, slot, flags)
-    else:
-        phase_mark_plain(clk, slot, flags)
+    with route("phase_mark_cuda"):
+        if clk.is_cuda:
+            phase_mark_cuda(clk, slot, flags)
+        else:
+            phase_mark_plain(clk, slot, flags)
 
 
 def phase_mark_if(clk: torch.Tensor, slot: int, alt: int, sel: torch.Tensor,
@@ -624,6 +706,12 @@ def phase_mark_if(clk: torch.Tensor, slot: int, alt: int, sel: torch.Tensor,
     ``sel`` is nonzero and ``slot`` where it is zero (the unfused cycle's
     push or overflow, chosen on the device): the kernel on a CUDA block,
     ``phase_mark_plain`` on a CPU one (which reads ``sel``)."""
+    with route("phase_mark_cuda"):
+        _phase_mark_if(clk, slot, alt, sel, flags)
+
+
+def _phase_mark_if(clk: torch.Tensor, slot: int, alt: int,
+                   sel: torch.Tensor, flags: int) -> None:
     if not clk.is_cuda:
         phase_mark_plain(clk, alt if int(sel) else slot, flags)
         return

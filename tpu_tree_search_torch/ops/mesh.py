@@ -41,7 +41,8 @@ from .cycle import (ST_BEST, ST_CTR_SOL, ST_CTR_TREE, ST_CYCLES, ST_LEN,
                     ST_RUNS, ST_SIZE, ST_SOL, ST_TREE)
 from .dispatch import (DispatchGraph, _fn, batch_cond, batch_cond_obs,
                        batch_init, capture_pool, clock_pointer, count_launch,
-                       gated, phase_mark_cuda, pooled, recording, slot_gate)
+                       gated, phase_mark_cuda, pooled, recording, row_pointer,
+                       slot_gate)
 
 # The dispatch's sums over its rounds (csrc/mesh_balance.cu); row 0's
 # ST_MESH_COND counts the condition node's runs.
@@ -339,6 +340,7 @@ class MeshGraph(DispatchGraph):
         self._graph = _VP()
         self._exec = _VP()
         self._body = _VP()
+        self._subgraphs = []
         self.pool = capture_pool(self, st.device)
         lib, create = _mesh_fn("mesh_graph_create")
         _build.check(lib, create(ctypes.byref(self._graph)),
@@ -378,6 +380,8 @@ class MeshGraph(DispatchGraph):
                 "mesh_graph_add_round")
             if r == 0:
                 self._body = body
+            else:
+                self._subgraphs.append((f"round{r}", body))
             _build.check(lib, begin(body, side.cuda_stream),
                          "dispatch_graph_begin_body")
             ok = 0
@@ -385,8 +389,10 @@ class MeshGraph(DispatchGraph):
                 with torch.cuda.stream(side), pooled(self.pool, side.device):
                     for i, (cycle, wrappers) in enumerate(
                             zip(cycles, self.slot_wrappers)):
-                        with gated(lib, side, inner, self.st[i], m, Mn, C,
-                                   K), recording(wrappers if r == 0 else []):
+                        with gated(lib, side, inner, row_pointer(self.st, i),
+                                   m, Mn, C, K, self._subgraphs,
+                                   f"round{r}.gate{i}"), \
+                                recording(wrappers if r == 0 else []):
                             cycle()
                 ok = 1
             finally:
@@ -412,6 +418,11 @@ class MeshGraph(DispatchGraph):
                 err = end_child(side.cuda_stream, ok, self._graph, loop,
                                 ctypes.byref(node))
             _build.check(lib, err, "mesh_graph_end_child")
+            child = _VP()
+            _, get_child = _fn("graph_child_graph")
+            _build.check(lib, get_child(node, ctypes.byref(child)),
+                         "graph_child_graph")
+            self._subgraphs.append((f"round{r}.balance", child))
             dep = node
 
     def launch(self) -> None:

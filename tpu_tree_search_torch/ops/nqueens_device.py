@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .dispatch import route
+
 
 def labels_chunk(board: torch.Tensor, depth: torch.Tensor, N: int,
                  g: int = 1) -> torch.Tensor:
@@ -43,8 +45,9 @@ def nqueens_labels(board: torch.Tensor, depth: torch.Tensor, N: int,
                    g: int = 1) -> torch.Tensor:
     """Safety labels routed by device: the CUDA kernel for a CUDA tensor,
     ``labels_chunk`` for a CPU tensor. Same contract as ``labels_chunk``."""
-    if board.is_cuda:
-        from .nqueens_kernel import nqueens_labels_cuda
+    with route("nqueens_labels_cuda"):
+        if board.is_cuda:
+            from .nqueens_kernel import nqueens_labels_cuda
 
-        return nqueens_labels_cuda(board, depth, N, g)
-    return labels_chunk(board, depth, N, g)
+            return nqueens_labels_cuda(board, depth, N, g)
+        return labels_chunk(board, depth, N, g)

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
-from .compaction import swap_children
+from .compaction import children_of
+from .dispatch import route
 
 #: Below any bound: the value of a slot that is not free in the closed form
 #: (the JAX module's ``NEG_INF``).
@@ -401,13 +402,12 @@ def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
     src = torch.zeros(R + 1, dtype=torch.long, device=dev)
     src[tgt] = torch.arange(R, device=dev)
     src = src[:R]
-    b_idx = src // n
-    k_idx = (src % n)[:, None]
-    # The child's limit1; clamped only for the garbage rows past count.
-    d = (limit1[b_idx].long() + 1).clamp(max=n - 1)[:, None]
-    child = swap_children(prmu[b_idx], d, k_idx)
-    out = lb2_self_bounds_mp(child, d[:, 0].to(prmu.dtype), count, tables,
-                             mp)
+    # Each parent's swap position, its children's limit1; clamped only for
+    # a leaf parent, none of whose children is a candidate.
+    d = (limit1.long() + 1).clamp(max=n - 1)[:, None]
+    child = children_of(prmu, d)[src]
+    out = lb2_self_bounds_mp(child, d[src // n, 0].to(prmu.dtype), count,
+                             tables, mp)
     return out[torch.where(flat, pos, 0).long()].reshape(B, n)
 
 
@@ -418,17 +418,6 @@ def lb2_chunk_mp(prmu: torch.Tensor, limit1: torch.Tensor,
     out = None
     for blk in tables.pair_blocks(mp):
         local = lb2_chunk(prmu, limit1, blk)
-        out = local if out is None else torch.maximum(out, local)
-    return out
-
-
-def lb2_self_chunk_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
-                      tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
-    """The plain version of ``lb2_self_bounds_mp``: ``lb2_self_chunk`` over
-    each pair block, combined by an elementwise max."""
-    out = None
-    for blk in tables.pair_blocks(mp):
-        local = lb2_self_chunk(rows, limit1, n_active, blk)
         out = local if out is None else torch.maximum(out, local)
     return out
 
@@ -454,12 +443,13 @@ def lb2_bounds_mp(prmu: torch.Tensor, limit1: torch.Tensor,
         blk = where.pair_blocks(mp)[i]
         dev = blk.device
         a, b = prmu.to(dev), limit1.to(dev)
-        if a.is_cuda:
-            from .lb2_kernel import lb2_block_cuda
+        with route("lb2_block_cuda"):
+            if a.is_cuda:
+                from .lb2_kernel import lb2_block_cuda
 
-            local = lb2_block_cuda(a, b, blk)
-        else:
-            local = lb2_chunk(a, b, blk)
+                local = lb2_block_cuda(a, b, blk)
+            else:
+                local = lb2_chunk(a, b, blk)
         local = local.to(prmu.device)
         out = local if out is None else torch.maximum(out, local)
     return out
@@ -476,13 +466,15 @@ def lb2_self_bounds_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
     is ``lb2_self_bounds``."""
     if mp == 1:
         return lb2_self_bounds(rows, limit1, n_active, tables)
-    if not rows.is_cuda:
-        return lb2_self_chunk_mp(rows, limit1, n_active, tables, mp)
-    from .lb2_self_kernel import lb2_self_block_cuda
-
     out = None
     for blk in tables.pair_blocks(mp):
-        local = lb2_self_block_cuda(rows, limit1, n_active, blk)
+        with route("lb2_self_block_cuda"):
+            if rows.is_cuda:
+                from .lb2_self_kernel import lb2_self_block_cuda
+
+                local = lb2_self_block_cuda(rows, limit1, n_active, blk)
+            else:
+                local = lb2_self_chunk(rows, limit1, n_active, blk)
         out = local if out is None else torch.maximum(out, local)
     return out
 
@@ -492,11 +484,12 @@ def lb2_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
     """lb2 child bounds routed like ``lb1_bounds``: the CUDA kernel
     (`ops/lb2_kernel.py`) for a CUDA tensor, ``lb2_chunk`` for a CPU
     tensor."""
-    if prmu.is_cuda:
-        from .lb2_kernel import lb2_bounds_cuda
+    with route("lb2_bounds_cuda"):
+        if prmu.is_cuda:
+            from .lb2_kernel import lb2_bounds_cuda
 
-        return lb2_bounds_cuda(prmu, limit1, tables)
-    return lb2_chunk(prmu, limit1, tables)
+            return lb2_bounds_cuda(prmu, limit1, tables)
+        return lb2_chunk(prmu, limit1, tables)
 
 
 def lb2_self_bounds(rows: torch.Tensor, limit1: torch.Tensor, n_active,
@@ -505,11 +498,12 @@ def lb2_self_bounds(rows: torch.Tensor, limit1: torch.Tensor, n_active,
     a 0-d int32 tensor on the rows' device) are read: the CUDA kernel
     (`ops/lb2_self_kernel.py`) for a CUDA tensor, ``lb2_self_chunk`` for a
     CPU tensor."""
-    if rows.is_cuda:
-        from .lb2_self_kernel import lb2_self_bounds_cuda
+    with route("lb2_self_bounds_cuda"):
+        if rows.is_cuda:
+            from .lb2_self_kernel import lb2_self_bounds_cuda
 
-        return lb2_self_bounds_cuda(rows, limit1, n_active, tables)
-    return lb2_self_chunk(rows, limit1, n_active, tables)
+            return lb2_self_bounds_cuda(rows, limit1, n_active, tables)
+        return lb2_self_chunk(rows, limit1, n_active, tables)
 
 
 def lb1_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
@@ -517,11 +511,12 @@ def lb1_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
     """lb1 child bounds routed by device: a CUDA tensor goes to the CUDA
     kernel (`ops/lb1_kernel.py`, which launches or raises), a CPU tensor to
     the plain ``lb1_chunk``."""
-    if prmu.is_cuda:
-        from .lb1_kernel import lb1_bounds_cuda
+    with route("lb1_bounds_cuda"):
+        if prmu.is_cuda:
+            from .lb1_kernel import lb1_bounds_cuda
 
-        return lb1_bounds_cuda(prmu, limit1, tables)
-    return lb1_chunk(prmu, limit1, tables)
+            return lb1_bounds_cuda(prmu, limit1, tables)
+        return lb1_chunk(prmu, limit1, tables)
 
 
 def lb1_d_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
@@ -529,8 +524,43 @@ def lb1_d_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
     """lb1_d child bounds routed like ``lb1_bounds``: the CUDA kernel
     (`ops/lb1_d_kernel.py`) for a CUDA tensor, ``lb1_d_chunk`` for a CPU
     tensor."""
-    if prmu.is_cuda:
-        from .lb1_d_kernel import lb1_d_bounds_cuda
+    with route("lb1_d_bounds_cuda"):
+        if prmu.is_cuda:
+            from .lb1_d_kernel import lb1_d_bounds_cuda
 
-        return lb1_d_bounds_cuda(prmu, limit1, tables)
-    return lb1_d_chunk(prmu, limit1, tables)
+            return lb1_d_bounds_cuda(prmu, limit1, tables)
+        return lb1_d_chunk(prmu, limit1, tables)
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+@contract(
+    "lb2-pair-blocks-one-launch",
+    claim="under --mp the lb2 child and self evaluators run each pair block "
+          "as ONE launch of kernel 6 (lb2_block_cuda) or kernel 7 "
+          "(lb2_self_block_cuda), the planes maxed, with no loop over the "
+          "machine pairs in the glue: the record's launches are mp and its "
+          "operations do not grow with the pair count (mp = 1 is one "
+          "lb2_bounds_cuda or lb2_self_bounds_cuda launch)",
+    artifact="pair-blocks",
+)
+def _contract_pair_blocks(art, cell):
+    mp = art["mp"]
+    out = []
+    for kind, one, block in (("child", "lb2_bounds_cuda", "lb2_block_cuda"),
+                             ("self", "lb2_self_bounds_cuda",
+                              "lb2_self_block_cuda")):
+        entries = art[kind]
+        routes = [e.name for e in entries if e.kind == "route"]
+        want = [one] if mp == 1 else [block] * mp
+        if routes != want:
+            out.append(f"{kind} at mp={mp}: launches {routes}, want {want}")
+        ops = [e for e in entries if e.kind != "route"]
+        if len(ops) > 4 * mp:
+            out.append(f"{kind} at mp={mp}: {len(ops)} operations around "
+                       f"the launches over {art['pairs']} pairs (a per-pair "
+                       "loop?)")
+    return out

@@ -70,7 +70,7 @@ from .cycle_nqueens import (
     depth_dtype,
     nq_mask_words,
 )
-from .dispatch import clock_pointer, count_launch, count_marks
+from .dispatch import clock_pointer, count_launch, count_marks, route
 from .lb1_kernel import lb1_bounds_cuda
 from .lb2_kernel import johnson_operands, lb2_bounds_cuda
 from .nqueens_device import labels_chunk
@@ -411,12 +411,15 @@ tiled_nqueens_cuda.captures = 0  # type: ignore[attr-defined]
 
 def _route(cuda_cycle, plain_cycle, pool_vals, pool_aux, st, scratch, spec,
            M, mt, m, K, clk) -> None:
-    if pool_vals.is_cuda:
-        if scratch is None:
-            raise ValueError("the CUDA streamed cycle needs its scratch buffers")
-        cuda_cycle(pool_vals, pool_aux, st, scratch, spec, M, mt, m, K, clk)
-    else:
-        plain_cycle(pool_vals, pool_aux, st, spec, M, mt, m, K, clk)
+    with route(cuda_cycle.__name__):
+        if pool_vals.is_cuda:
+            if scratch is None:
+                raise ValueError("the CUDA streamed cycle needs its scratch "
+                                 "buffers")
+            cuda_cycle(pool_vals, pool_aux, st, scratch, spec, M, mt, m, K,
+                       clk)
+        else:
+            plain_cycle(pool_vals, pool_aux, st, spec, M, mt, m, K, clk)
 
 
 def tiled_lb1(pool_vals, pool_aux, st, scratch: TileBoundsScratch | None,

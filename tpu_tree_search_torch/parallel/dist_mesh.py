@@ -70,6 +70,7 @@ from ..obs import flightrec as fr
 from ..obs import phases as obs_phases
 from ..obs import quality as obs_quality
 from ..ops.backend import profile_backend, resolve_devices
+from ..ops.compact_policy import auto_chosen
 from ..ops.cycle import ST_BEST, ST_CTR, ST_CYCLES
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, batch_length, index_batch
@@ -500,7 +501,8 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
         "complete": completed,
         "steps": steps,
         # Host-local (the same on every host but K under --K auto).
-        "compact": inner.compact, "fused": inner.fused,
+        "compact": inner.compact,
+        "compact_auto": auto_chosen(inner.compact), "fused": inner.fused,
         "staged": inner.staged, "megakernel_mt": inner.mt, "M": M,
         "mp": program.mp,
         "k_resolved": program.K, "k_auto": k_auto, "pipeline_depth": depth,
@@ -525,6 +527,7 @@ def _result(local: dict, red: dict) -> SearchResult:
         elapsed=red["elapsed"], phases=local["phases"],
         diagnostics=red["diag"], complete=red["complete"],
         steps=local["steps"], engine="dist_mesh", compact=local["compact"],
+        compact_auto=local["compact_auto"],
         fused=local["fused"], staged=local["staged"], mp=local["mp"],
         megakernel_mt=local["megakernel_mt"], M=local["M"],
         k_resolved=local["k_resolved"], dispatches=extra["dispatches"],

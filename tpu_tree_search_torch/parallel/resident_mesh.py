@@ -68,6 +68,7 @@ from ..obs import flightrec as fr
 from ..obs import phases as obs_phases
 from ..obs import quality as obs_quality
 from ..ops.backend import resolve_device, resolve_devices
+from ..ops.compact_policy import auto_chosen
 from ..ops.cycle import ST_CTR, ST_CYCLES, ST_LEN
 from ..ops.dispatch import phase_mark
 from ..ops.mesh import (
@@ -491,13 +492,15 @@ def offload_until_fits(program: MeshProgram, pool: SoAPool, offloader,
 
 def mesh_key(D: int, m: int, M: int, K: int, rounds: int, T: int,
              capacity: int, device, fused: bool, staged: bool, mp: int = 1,
-             devices=None) -> tuple:
+             devices=None, compact: str | None = None) -> tuple:
     """The cache key of a mesh program (`resident_mesh.py:479-485`, with the
     port's routing inputs): D, mp and the device positions in place of the
-    mesh's device ids, then the resident program's key."""
+    mesh's device ids, then the resident program's key (``compact``: its
+    shards' compaction mode, ``R.program_compact``)."""
     positions = tuple(str(d) for d in mesh_devices(devices, device))
     return (D, rounds, T, mp, positions) + R.program_key(
-        m, M, K, capacity, positions[0], fused, staged, None)
+        m, M, K, capacity, positions[0], fused, staged, None,
+        compact=compact)
 
 
 def get_mesh_program(problem: Problem, D: int, m: int, M: int, K: int,
@@ -511,7 +514,7 @@ def get_mesh_program(problem: Problem, D: int, m: int, M: int, K: int,
     prog = R.take_cached(
         problem, "_mesh_programs",
         mesh_key(D, m, M, K, rounds, T, capacity, device, fused, staged, mp,
-                 devices),
+                 devices, compact=R.program_compact(problem, M, fused, mp)),
         lambda: MeshProgram(problem, D, m, M, K, rounds, T, capacity, device,
                             fused=fused, staged=staged, mp=mp,
                             devices=devices))
@@ -793,6 +796,7 @@ def mesh_resident_search(
         steps=controller.steps,
         engine="mesh",
         compact=inner.compact,
+        compact_auto=auto_chosen(inner.compact),
         fused=inner.fused,
         staged=inner.staged,
         megakernel_mt=inner.mt,

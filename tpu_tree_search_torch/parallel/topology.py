@@ -298,3 +298,23 @@ def resolve_policy(problem, topology: Topology, *, m: int, cap: int,
                             interval_s * far_every, far_src),
     }
     return policy
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+
+@contract(
+    "steal-knob-inert",
+    claim="TTS_STEAL never reaches a program: flat and hier (with a pod "
+          "map) record the same dispatch as the unset build",
+    artifact="variants",
+)
+def _contract_steal_inert(art, cell):
+    if not art.has("off", "steal-flat", "steal-hier"):
+        return []
+    if art.text("off") == art.text("steal-flat") == art.text("steal-hier"):
+        return []
+    return ["TTS_STEAL leaked into the recorded program (host-side "
+            "scheduling must not fork programs)"]

@@ -55,6 +55,7 @@ from ..obs import counters as obs_counters
 from ..obs import events as ev
 from ..obs import flightrec
 from ..obs import quality as obs_quality
+from ..ops.compact_policy import auto_chosen
 from ..pool import SoAPool
 from ..problems.base import INF_BOUND, index_batch
 from . import pool as pool_mod
@@ -384,6 +385,7 @@ class BatchExecutor:
             steps=sl.slice_steps,
             diagnostics=Diagnostics(kernel_launches=sl.cycles),
             compact=prog.inner.compact,
+            compact_auto=auto_chosen(prog.inner.compact),
             pipeline_depth=1,
             k_resolved=prog.K,
             k_auto=False,

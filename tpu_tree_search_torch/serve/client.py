@@ -110,8 +110,8 @@ def fetch_checkpoint(base: str, jid: str, timeout: float = 30.0,
 def spec_from_args(args) -> dict:
     """A job spec from parsed CLI run arguments (the submit path re-parses
     ``<run args>`` through ``cli.build_parser`` first, so every CLI-side
-    validation already ran). The port's parser has no compaction or
-    pair-block flags, so none reaches the spec."""
+    validation already ran). The port's parser has no pair-block flag, so
+    none reaches the spec."""
     spec = {"problem": args.problem, "tier": args.tier, "m": args.m}
     if args.tier == "mesh" and args.D is not None:
         spec["D"] = args.D
@@ -129,6 +129,8 @@ def spec_from_args(args) -> dict:
             spec["lb2_variant"] = args.lb2_variant
     if args.max_steps is not None:
         spec["max_steps"] = args.max_steps
+    if args.compact is not None:
+        spec["compact"] = args.compact
     return spec
 
 

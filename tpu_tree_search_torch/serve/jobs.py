@@ -8,9 +8,10 @@ torch, so admission control runs entirely in the HTTP thread;
 ``build_problem`` is the constructor the scheduler calls.
 
 A mesh job takes ``mp`` (PFSP lb2 only: the lb2 pair loop in mp pair
-blocks), as the JAX daemon does. The port refuses (``ValueError``, HTTP
-400) the JAX knobs it has no counterpart for, ``compact`` other than
-``"auto"`` and ``lb2_pairblock`` (ROADMAP.md C).
+blocks), and any job ``compact`` (the unfused cycle's compaction mode,
+pinned as ``TTS_COMPACT`` for the job's slices), as the JAX daemon does.
+The port refuses (``ValueError``, HTTP 400) the JAX knob it has no
+counterpart for, ``lb2_pairblock`` (ROADMAP.md C).
 The default M is the port's CLI default for the daemon's device
 (``cli.default_M``).
 
@@ -35,6 +36,7 @@ STATES = ("queued", "running", "done", "failed", "cancelled", "requeued")
 _TIERS = ("device", "mesh")
 _LBS = ("lb1", "lb1_d", "lb2")
 _LB2_VARIANTS = ("full", "nabeshima", "lageweg")
+_COMPACTS = ("auto", "scatter", "sort", "search", "dense")
 
 
 def _as_int(spec: dict, key: str, lo: int, hi: int, default=None):
@@ -122,11 +124,10 @@ def validate_spec(spec, device_type: str = "cuda") -> dict:
     elif spec.get("D") is not None or spec.get("mp", 1) != 1:
         raise ValueError("spec.D/spec.mp only apply to tier='mesh'")
     compact = spec.get("compact")
-    if compact is not None and compact != "auto":
-        raise ValueError(
-            "spec.compact has no counterpart in the port: its fused cycle "
-            "compacts inside the kernel and the unfused one picks its mode "
-            "from the shape (ROADMAP.md C); only 'auto' is taken")
+    if compact is not None:
+        if compact not in _COMPACTS:
+            raise ValueError(f"spec.compact must be one of {_COMPACTS}")
+        out["compact"] = compact
     ms = _as_int(spec, "max_steps", 1, 1 << 31)
     if ms is not None:
         out["max_steps"] = ms
@@ -153,11 +154,14 @@ def build_problem(spec: dict):
 
 def job_pins(spec: dict) -> dict:
     """The process-env knobs a job pins for its slices (under the
-    scheduler's ``EnvLease``). The JAX package pins ``TTS_COMPACT`` and
-    ``TTS_LB2_PAIRBLOCK``; the port has neither knob and refuses both
-    fields, so a port job pins nothing. Server-wide knobs are fixed at
-    daemon start and part of the pool's server token."""
-    return {}
+    scheduler's ``EnvLease``): ``TTS_COMPACT`` from ``compact``, as the JAX
+    package does; its ``TTS_LB2_PAIRBLOCK`` has no counterpart (the field
+    is refused). Server-wide knobs are fixed at daemon start and part of
+    the pool's server token."""
+    pins = {}
+    if spec.get("compact") is not None:
+        pins["TTS_COMPACT"] = spec["compact"]
+    return pins
 
 
 def result_record(res) -> dict:
@@ -178,6 +182,8 @@ def result_record(res) -> dict:
     rec["device_cycles"] = res.diagnostics.kernel_launches
     if res.compact:
         rec["compact"] = res.compact
+        if res.compact_auto:
+            rec["compact_auto"] = True
     if res.pipeline_depth:
         rec["pipeline_depth"] = res.pipeline_depth
     if res.k_resolved is not None:

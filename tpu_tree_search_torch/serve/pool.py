@@ -65,16 +65,21 @@ def _problem_shape(spec: dict) -> tuple:
 def resolved_knobs(spec: dict) -> dict:
     """The per-class routing knobs as the engine resolves them, without
     env mutation: ``{"compact": mode, "lb2_pairblock": None}`` — the
-    unfused cycle's compaction mode (``resolve_compact_mode``) and no pair
-    block (the port has none)."""
-    from ..ops.compact_policy import resolve_compact_mode
+    unfused cycle's compaction mode (the job's ``compact``, else
+    ``TTS_COMPACT``, an explicit mode as it is and ``auto`` through the
+    engine's policy) and no pair block (the port has none)."""
+    import os
+
+    from ..ops.compact_policy import auto_compact
 
     n, _machines = _problem_shape(spec)
-    # resolve_compact_mode only reads problem.name; a shim spares building
-    # the real problem in the admission path.
-    shim = type("S", (), {"name": spec["problem"]})()
-    return {"compact": resolve_compact_mode(shim, spec["M"], n),
-            "lb2_pairblock": None}
+    knob = spec.get("compact") or os.environ.get("TTS_COMPACT", "auto")
+    if knob == "auto":
+        # The policy only reads problem.name; a shim spares building the
+        # real problem in the admission path.
+        shim = type("S", (), {"name": spec["problem"]})()
+        knob = auto_compact(shim, spec["M"], n)
+    return {"compact": knob, "lb2_pairblock": None}
 
 
 def class_key(spec: dict) -> str:

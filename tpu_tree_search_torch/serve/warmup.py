@@ -17,10 +17,12 @@ Two consumers share the one config table:
 
 Each config is one ``resident_search(..., max_steps=1)``: the program, its
 kernels and its dispatch graph, built and run for one dispatch. The JAX
-rows whose knob the port lacks (``TTS_PALLAS``, ``TTS_LB2_PAIRBLOCK``,
-``TTS_COMPACT``; ROADMAP.md C) are left out; ``TTS_LB2_STAGED`` maps to the
-port's cycles (1: the staged unfused evaluator, 0: the fused lb2 cycle,
-which folds the unstaged keep). Each subprocess has its own timeout.
+rows whose knob the port lacks (``TTS_PALLAS``, ``TTS_LB2_PAIRBLOCK``;
+ROADMAP.md C) are left out; ``TTS_LB2_STAGED`` maps to the port's cycles
+(1: the staged unfused evaluator, 0: the fused lb2 cycle, which folds the
+unstaged keep), and a ``TTS_COMPACT`` row runs the unfused cycle under
+that compaction mode (its spec pins ``compact``, as the JAX row's does).
+Each subprocess has its own timeout.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ else:
     prob = PFSPProblem(inst=int(sys.argv[3]), lb=sys.argv[4], ub=1)
     M, staged = int(sys.argv[6]), os.environ.get("TTS_LB2_STAGED")
 K = int(os.environ.get("TTS_K") or 4096)
+fused = staged != "1" and not os.environ.get("TTS_COMPACT")
 res = resident_search(prob, m=25, M=M, K=K, max_steps=1, device=device,
-                      fused=staged != "1")
+                      fused=fused)
 print(f"WARM_OK tree={res.explored_tree} wall={time.time() - t0:.1f}s")
 """
 
@@ -87,8 +90,9 @@ class WarmConfig:
 
     def spec(self) -> dict | None:
         """The serve-side job spec for this config (``max_steps=1``), or
-        None for kernel-only rows. ``TTS_K`` maps to the spec's K; the
-        staged rows have no spec field and warm the daemon's own cycle."""
+        None for kernel-only rows. ``TTS_K`` maps to the spec's K and
+        ``TTS_COMPACT`` to its ``compact``; the staged rows have no spec
+        field and warm the daemon's own cycle."""
         if not self.servable:
             return None
         kind = self.argv[0]
@@ -102,11 +106,13 @@ class WarmConfig:
                         lb=self.argv[2], ub=1, M=int(self.argv[4]))
         if "TTS_K" in self.env:
             spec["K"] = int(self.env["TTS_K"])
+        if "TTS_COMPACT" in self.env:
+            spec["compact"] = self.env["TTS_COMPACT"]
         return spec
 
 
 # The JAX package's matrix, most valuable first, without the rows of knobs
-# the port lacks (TTS_PALLAS, TTS_LB2_PAIRBLOCK, TTS_COMPACT).
+# the port lacks (TTS_PALLAS, TTS_LB2_PAIRBLOCK).
 CONFIGS: list[WarmConfig] = [
     WarmConfig("ta014-lb2-staged", "ta014 lb2 staged M=1024",
                ["pfsp", "14", "lb2", "-", "1024"], {"TTS_LB2_STAGED": "1"}),
@@ -146,6 +152,24 @@ CONFIGS: list[WarmConfig] = [
                ["nqueens", "16", "262144"]),
     WarmConfig("nqueens-17-M128k", "nqueens N=17 M=131072",
                ["nqueens", "17", "131072"]),
+    WarmConfig("ta014-lb1-scatter", "ta014 lb1 M=1024 compact=scatter",
+               ["pfsp", "14", "lb1", "-", "1024"],
+               {"TTS_COMPACT": "scatter"}),
+    WarmConfig("ta014-lb1-sort", "ta014 lb1 M=1024 compact=sort",
+               ["pfsp", "14", "lb1", "-", "1024"], {"TTS_COMPACT": "sort"}),
+    WarmConfig("ta014-lb1-search", "ta014 lb1 M=1024 compact=search",
+               ["pfsp", "14", "lb1", "-", "1024"],
+               {"TTS_COMPACT": "search"}),
+    WarmConfig("ta014-lb2-scatter", "ta014 lb2 M=1024 compact=scatter",
+               ["pfsp", "14", "lb2", "-", "1024"],
+               {"TTS_COMPACT": "scatter"}),
+    WarmConfig("ta014-lb2-sort", "ta014 lb2 M=1024 compact=sort",
+               ["pfsp", "14", "lb2", "-", "1024"], {"TTS_COMPACT": "sort"}),
+    WarmConfig("ta014-lb2-search", "ta014 lb2 M=1024 compact=search",
+               ["pfsp", "14", "lb2", "-", "1024"],
+               {"TTS_COMPACT": "search"}),
+    WarmConfig("nqueens-15-scatter", "nqueens N=15 M=65536 compact=scatter",
+               ["nqueens", "15", "65536"], {"TTS_COMPACT": "scatter"}),
     WarmConfig("ta031-lb1-kernel", "ta031 lb1 kernel B=64",
                ["kernel", "31", "lb1", "64"]),
     WarmConfig("ta056-lb1-kernel", "ta056 lb1 kernel B=32",
