@@ -9,6 +9,7 @@
     python3 chip_smoke.py --dist     # phases 1, 2 and 18g (the multi-host tiers)
     python3 chip_smoke.py --fleet    # phases 1, 2, 18h and 18i (the guard, the fleet)
     python3 chip_smoke.py --mp       # phases 1, 2 and 18j-18m (the pair axis, device positions)
+    python3 chip_smoke.py --copies   # phases 1, 2, 18j and 18o-18r (the shard copies, --profile)
     python3 chip_smoke.py --cupti [DIR]  # phases 1, 2 and the traced unfused graph's probes
     python3 chip_smoke.py --cupti-modes [DIR]  # the same probe traced under each --compact mode
     python3 chip_smoke.py --check    # phases 1, 2 and 18n (the program contracts, the compaction modes)
@@ -233,6 +234,25 @@ ends the script with a non-zero exit before the final line:
      after each of three dispatches; ``--tier multi --device
      cuda:0,cuda:0``; and, with more than one card, the same over
      cuda:0,cuda:1;
+ 18o. ``pair_exchange`` (``csrc/pair_exchange.cu``, the JAX ``lax.pmax``
+     over the mp axis): two copies on two positions of the card, each on
+     a stream of its own, at M = 49152 and n = 20, five exchanges in a row
+     against the plain version (max difference 0), the pair's time and
+     each kernel's, the plain version's, the bound; a copy whose peer never
+     posts raising within the 0.5 s timeout;
+ 18p. ``mesh_mp_copies_*``: ta014 lb2 ``--tier mesh --D 2 --mp 2`` staged
+     and single-pass over ``cuda:0,cuda:0`` and four positions of
+     ``cuda:0`` (each shard a copy at each position of its grid row) to
+     the goldens, each copy's pair block and exchange launched once a
+     cycle, the device ms beside phase 18j's in-turn layout and mp = 1;
+     three dispatches of each against the one-position program, every
+     state row and live row equal, the copies' rows their primaries',
+     error words 0 (with two cards the same over cuda:0,cuda:1);
+ 18q. ``whole_profile``: ``--profile`` on the fused ta014 lb1 search, its
+     trace naming kernel 2's launches;
+ 18r. ``copies_traced``: one dispatch of the copies over two and four
+     positions untraced, then under ``torch.profiler``, whether the
+     traced exchanges completed or timed out (recorded, not a failure);
  18n. ``compact_*``: the unfused ta014 lb1 M = 1024, N-Queens N = 14 and
      ta014 lb2 staged under ``--compact`` scatter, sort and search to the
      goldens, each with its counts set to 0 just before it and the body's
@@ -302,7 +322,8 @@ ends the script with a non-zero exit before the final line:
      (``fleet_launches``); kernels 6 and 7 on pair blocks get rows of their
      own (``lb2_bounds_pair_block``, ``lb2_self_bounds_pair_block``) with
      the launches of the mp = 2 mesh runs of phase 18j and the times of
-     phase 18k.
+     phase 18k; ``pair_exchange`` the launches of phase 18p's staged run
+     over two positions and phase 18o's times.
 
 Every phase line carries ``t_s``, the script's seconds so far.
 Kernel times (``ms``) are the profiler's device time a call (``timing``
@@ -4023,6 +4044,337 @@ def pair_block_rows(mp_runs: dict, blocks: dict) -> list[dict]:
     return out
 
 
+def _in_threads(fns: list) -> list:
+    """Each of ``fns`` in a host thread of its own (the plain exchange's
+    copies wait for each other at a barrier): their results, in order."""
+    import threading
+
+    out, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase_pair_exchange(dev) -> dict:
+    """Phase 18o: the pair exchange (``csrc/pair_exchange.cu``: post, a
+    one-block wait, max) between two copies on two positions of the card,
+    each on a stream of its own, at the mesh's plane (M = 49152, n = 20:
+    983,040 int32 words): five exchanges in a row (both parity slots,
+    twice; the whole plane, a quarter and 7 live words) against the plain
+    version (the copies in host threads, a barrier, ``torch.maximum``) on
+    the same planes, max difference 0; the pair's time (CUDA events around
+    both copies' launches, and each kernel's device time under the
+    profiler) against its bound; the plain version's time; and a copy
+    whose peer never posts raising within the timeout (0.5 s), a later
+    exchange on it returning at once."""
+    from tpu_tree_search_torch.ops import pair_exchange as PX
+
+    rng = np.random.default_rng(20)
+    n = 49152 * 20
+    x = PX.PairExchange([dev, dev], n)
+    ends = [x.endpoint(i) for i in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    plain = PX.PairExchange(["cpu", "cpu"], n)
+    pends = [plain.endpoint(i) for i in range(2)]
+    cur = torch.cuda.current_stream(dev)
+
+    def both(planes, cnt=None):
+        for st in streams:
+            st.wait_stream(cur)
+        for e, st, pl in zip(ends, streams, planes):
+            with torch.cuda.stream(st):
+                e(pl, cnt)
+        for st in streams:
+            cur.wait_stream(st)
+
+    err = 0
+    for count in (None, None, n // 4, 7, None):
+        planes = [torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(np.int32))
+                  for _ in range(2)]
+        got = [p.to(dev) for p in planes]
+        both(got, None if count is None else torch.tensor(count, dtype=torch.int32,
+                                                          device=dev))
+        torch.cuda.synchronize(dev)
+        for e in ends:
+            e.check()
+        want = _in_threads([lambda i=i: pends[i](planes[i], count) for i in range(2)])
+        err = max(err, *(_maxdiff(g.cpu(), w) for g, w in zip(got, want)))
+    check(err == 0, f"pair_exchange: max difference {err} from the plain version")
+    work = [torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(np.int32)).to(dev)
+            for _ in range(2)]
+    ms = median_ms(lambda: both(work), 20)
+    kms, timing = kernel_device_ms(lambda: both(work), 20,
+                                   ("xchg_post", "xchg_wait", "xchg_max"))
+    split = dict(LAST_LAUNCH_MS)
+    plain_planes = [w.clone() for w in work]
+
+    def plain_call():
+        _in_threads([lambda i=i: PX.pair_exchange_plain(plain_planes[i], None, pends[i])
+                     for i in range(2)])
+        torch.cuda.synchronize(dev)
+
+    plain_ms = float(np.median([_wall_ms(plain_call) for _ in range(5)]))
+    # Bytes a call must move: each of the two copies writes its plane to
+    # its peer and reads the mp = 2 planes for the max.
+    nbytes = 2 * (1 + 2) * n * 4
+    bms, by = bound_ms(nbytes, 0.0)
+    # A copy whose peer is never launched: the wait gives up at the
+    # timeout, the error word is set, a later exchange returns at once.
+    xm = PX.PairExchange([dev, dev], 1024, timeout_s=0.5)
+    lone = xm.endpoint(0)
+    plane = torch.zeros(1024, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    with torch.cuda.stream(streams[0]):
+        lone(plane)
+    torch.cuda.synchronize(dev)
+    waited = time.perf_counter() - t0
+    raised = False
+    try:
+        lone.check()
+    except RuntimeError:
+        raised = True
+    t0 = time.perf_counter()
+    with torch.cuda.stream(streams[0]):
+        lone(plane)
+    torch.cuda.synchronize(dev)
+    again = time.perf_counter() - t0
+    check(raised and waited < 3.0 and again < 0.25,
+          f"pair_exchange: a missing peer raised {raised} after {waited} s, "
+          f"the next exchange took {again} s")
+    row = dict(words=n, max_abs_err=err, ms=ms, timing="events, both copies",
+               kernel_ms=kms, kernel_timing=timing, kernel_split=split,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+               buffer_bytes=x.nbytes, missing_peer_raised=raised,
+               missing_peer_wait_s=waited, after_error_s=again)
+    emit("pair_exchange", **row)
+    return row
+
+
+def _wall_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+# The copies' runs of phase 18p: (name, device positions, staged); with
+# two cards the same over cuda:0,cuda:1.
+COPY_RUNS = [("copies2_staged", "cuda:0,cuda:0", True),
+             ("copies2_single", "cuda:0,cuda:0", False),
+             ("copies4_staged", "cuda:0,cuda:0,cuda:0,cuda:0", True),
+             ("copies4_single", "cuda:0,cuda:0,cuda:0,cuda:0", False)]
+
+
+def phase_mesh_mp_copies(counters: dict, mp_runs: dict, xchg: dict) -> dict:
+    """Phase 18p: the mesh at D = 2, mp = 2 with each shard copied on the
+    positions of its grid row (``parallel/resident_mesh.py``): ta014 lb2
+    staged (the CLI) and single-pass (``mesh_resident_search``) over two
+    and four positions of the card to the goldens, each run's counts set
+    to 0 just before it (each copy launches its pair block and one
+    exchange a cycle); each run's device ms beside phase 18j's in-turn
+    layout on one position (mp = 2) and mp = 1, and the exchange's share
+    of it (its launches a copy times phase 18o's time of a pair's
+    exchange); then, dispatch by dispatch, three dispatches of each
+    layout against the one-position program: every state row (but the
+    loop's ``ST_ACTIVE``, ``loop_rows``) and live row equal, every copy's
+    rows its primary's and its error word 0."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.parallel.resident_mesh import (get_mesh_program,
+                                                              loop_rows)
+    from tpu_tree_search_torch.pool.pool import SoAPool
+    from tpu_tree_search_torch.problems import PFSPProblem
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    dev = torch.device("cuda", 0)
+    runs = list(COPY_RUNS)
+    if torch.cuda.device_count() > 1:
+        runs += [("cards2_staged", "cuda:0,cuda:1", True),
+                 ("cards2_single", "cuda:0,cuda:1", False)]
+    rows = {}
+    for name, devs, staged in runs:
+        argv = LB2_MESH + ["--mp", "2", "--device", devs]
+        zero_counts(counters)
+        rec = (run_search(argv, GOLDEN_LB2) if staged else
+               _library_mesh(LB2_MESH + ["--mp", "2"], GOLDEN_LB2, fused=False,
+                             staged=False, devices=devs.split(",")))
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        cycles = rec["device_cycles"]
+        bound = "lb2_self_block" if staged else "lb2_block"
+        check(rec["mp"] == 2 and not rec["fused"] and rec["staged"] == staged
+              and launches.get(bound, 0) == 2 * cycles > 0
+              and launches.get("pair_exchange", 0) == 2 * cycles
+              and launches.get("lb1_bounds", 0) == (2 * cycles if staged else 0)
+              and not launches.get("lb2_bounds") and not launches.get("lb2_self_bounds"),
+              f"mesh_mp_copies {name}: launches {launches} for {cycles} cycles")
+        ms = 1e3 * rec["dispatch_device_s"]
+        base = mp_runs[f"mp2_{'staged' if staged else 'single'}"]
+        mp1 = mp_runs[f"mp1_{'staged' if staged else 'single'}"]
+        rows[name] = dict(positions=devs, staged=staged, dispatches=rec["dispatches"],
+                          device_cycles=cycles, launches=launches,
+                          dispatch_device_ms=ms,
+                          device_ms_over_inturn=ms / base["dispatch_device_ms"],
+                          device_ms_over_mp1=ms / mp1["dispatch_device_ms"],
+                          exchange_share=(launches["pair_exchange"] / 2 * xchg["ms"]
+                                          / ms),
+                          per_worker_tree=rec["per_worker_tree"],
+                          graph_build_s=rec["graph_build_s"],
+                          phase2_s=rec["phases"][1][2], elapsed_s=rec["elapsed_s"])
+        check(rec["per_worker_tree"] == base["per_worker_tree"],
+              f"mesh_mp_copies {name}: shard trees {rec['per_worker_tree']} != "
+              f"the in-turn layout's {base['per_worker_tree']}")
+        emit(f"mesh_mp_copies_{name}", **rows[name])
+    prob = PFSPProblem(inst=14, lb="lb2", ub=1)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    _, _, best = warmup(prob, pool, prob.initial_ub, 400)
+    frontier = pool.as_batch()
+    M = 49152
+    C = 2 * M * prob.child_slots
+    for name, devs, staged in runs:
+        a = get_mesh_program(prob, 2, 25, M, 4, 2, 8192, C, dev, fused=False,
+                             staged=staged, mp=2)
+        b = get_mesh_program(prob, 2, 25, M, 4, 2, 8192, C, fused=False,
+                             staged=staged, mp=2, devices=devs.split(","))
+        sizes = []
+        try:
+            check(b.copied and len(b.groups) == len(devs.split(",")),
+                  f"mesh_mp_copies {name}: groups {[g.shards for g in b.groups]}")
+            for prog in (a, b):
+                prog.host_slots(1)
+                prog.upload(frontier, best)
+            for _ in range(3):
+                ra = a.enqueue()()[0]
+                rb = b.enqueue()()[0]  # the read holds every copy to its primary
+                check(loop_rows(ra) == loop_rows(rb),
+                      f"mesh_mp_copies {name}: state rows differ")
+                for d, _, state in b.copy_states():
+                    s = ra[d][0]
+                    check(torch.equal(a.states[d].pool_vals[:s], state.pool_vals[:s])
+                          and torch.equal(a.states[d].pool_aux[:s], state.pool_aux[:s]),
+                          f"mesh_mp_copies {name}: a copy of shard {d}'s live rows differ")
+                sizes.append([r[0] for r in ra])
+            errs = [int(g.st[j, 15]) for g in b.groups for j in range(len(g.copies))]
+            check(not any(errs), f"mesh_mp_copies {name}: error words {errs}")
+        finally:
+            a.release()
+            b.release()
+        emit("mesh_mp_copies_rows", run=name, positions=devs, shard_sizes=sizes,
+             groups=[g.shards for g in b.groups], error_words=errs, equal=True)
+    return rows
+
+
+def phase_copies_traced() -> dict:
+    """Phase 18r: one dispatch of the copies' mesh (ta014 lb2 D = 2,
+    mp = 2 staged, M = 49152, K = 16) over two and four positions of the
+    card, untraced and then under ``torch.profiler``: whether the traced
+    dispatch's exchanges completed or their waits gave up (the error
+    word: the read raises, and the program is closed). The copies need
+    the card to run the groups' graphs at once, which CUDA does not
+    promise. Fails where an untraced dispatch fails, not on the traced
+    outcome."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+    from tpu_tree_search_torch.pool.pool import SoAPool
+    from tpu_tree_search_torch.problems import PFSPProblem
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    prob = PFSPProblem(inst=14, lb="lb2", ub=1)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    _, _, best = warmup(prob, pool, prob.initial_ub, 2000)
+    frontier = pool.as_batch()
+    M = 49152
+    out = {}
+    for G in (2, 4):
+        prog = MeshProgram(prob, 2, 25, M, 16, 2, 8192, 2 * M * prob.child_slots,
+                           fused=False, staged=True, mp=2, devices=["cuda:0"] * G)
+        try:
+            prog.host_slots(1)
+            prog.upload(frontier, best)
+            _, _, ms = prog.enqueue()()
+            prog.upload(frontier, best)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]):
+                try:
+                    _, _, tms = prog.enqueue()()
+                    row = dict(completed=True, traced_ms=tms)
+                except RuntimeError as e:
+                    row = dict(completed=False, error=str(e)[:120])
+                torch.cuda.synchronize()
+            row.update(untraced_ms=ms, wall_s=time.perf_counter() - t0)
+        finally:
+            prog.close()
+        out[f"positions{G}"] = row
+    emit("copies_traced", **out)
+    return out
+
+
+def pair_exchange_row(xchg: dict, copies: dict) -> dict:
+    """The kernels line's row of the pair exchange (not a TPU kernel: the
+    JAX ``lax.pmax`` over the mp axis): the launches of phase 18p's staged
+    run over two positions, phase 18o's times."""
+    return {"name": "pair_exchange", "route": "cuda",
+            "source": "tpu_tree_search_torch/csrc/pair_exchange.cu",
+            "replaces": "tpu_tree_search/ops/pfsp_device.py:893",
+            "launches": copies["copies2_staged"]["launches"]["pair_exchange"],
+            "launches_path": "mesh_mp_copies copies2_staged",
+            "shape": "two copies on one card, 983040 int32 words (M=49152, n=20)",
+            "max_abs_err": xchg["max_abs_err"], "ms": xchg["ms"],
+            "timing": xchg["timing"], "kernel_ms": xchg["kernel_ms"],
+            "kernel_split": xchg["kernel_split"], "plain_ms": xchg["plain_ms"],
+            "bound_ms": xchg["bound_ms"], "bound_by": xchg["bound_by"],
+            "library_ms": None,
+            "copies_launches": {k: r["launches"].get("pair_exchange", 0)
+                                for k, r in copies.items()}}
+
+
+def phase_whole_profile() -> dict:
+    """Phase 18q: ``--profile DIR`` on the fused ta014 lb1 search: the
+    goldens, and the Chrome trace written to DIR naming kernel 2's
+    launches (``cycle_bounds``, ``cycle_count``, ``cycle_emit``)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        rec = run_search(PFSP_LB1 + ["--profile", out], GOLDEN)
+        path = os.path.join(out, "torch_profile.json")
+        text = open(path).read()
+        size = os.path.getsize(path)
+    named = {k: text.count(k) for k in CYCLE_KERNELS}
+    check(all(named.values()), f"--profile: the trace names kernel 2's launches {named}")
+    row = dict(trace_bytes=size, kernel2_names=named, dispatches=rec["dispatches"],
+               device_cycles=rec["device_cycles"], elapsed_s=rec["elapsed_s"])
+    emit("whole_profile", **row)
+    return row
+
+
+def main_copies(dev_info) -> int:
+    """``--copies``: only the mesh's shard copies under mp (phases 18j,
+    18o, 18p, 18r) and ``--profile`` (18q) after the build."""
+    counters = kernel_counters()
+    xchg = phase_pair_exchange(torch.device("cuda", 0))
+    mp_runs = phase_mesh_mp(counters)
+    copies = phase_mesh_mp_copies(counters, mp_runs, xchg)
+    phase_copies_traced()
+    phase_whole_profile()
+    print(json.dumps({"kernels": [pair_exchange_row(xchg, copies)]}), flush=True)
+    print(json.dumps({"ok": True, "phases": "copies", "device": dev_info}), flush=True)
+    return 0
+
+
 def main_mp(dev_info) -> int:
     """``--mp``: only the pair axis and the device positions (phases 18j to
     18m) after the build."""
@@ -4067,6 +4419,7 @@ def kernel_counters() -> dict:
         slot_gate,
     )
     from tpu_tree_search_torch.ops.mesh import MeshGraph, mesh_balance_cuda
+    from tpu_tree_search_torch.ops.pair_exchange import pair_exchange_cuda
 
     return {"lb1_bounds": lb1_kernel.lb1_bounds_cuda,
             "cycle_lb1": C.cycle_lb1_cuda,
@@ -4090,7 +4443,8 @@ def kernel_counters() -> dict:
             "batch_cond_obs": batch_cond_obs,
             "slot_gate": slot_gate,
             "mesh_balance": mesh_balance_cuda,
-            "mesh_graph": MeshGraph}
+            "mesh_graph": MeshGraph,
+            "pair_exchange": pair_exchange_cuda}
 
 
 def main_host(dev_info) -> int:
@@ -4229,7 +4583,15 @@ CUPTI_MODE_PROBES = (("untraced", [], False, False, False),) + tuple(
     (f"traced_{mode}", ["--compact", mode], True, False, False)
     for mode in ("scatter", "sort", "search", "dense")) + tuple(
     (f"traced_{mode}_twice", ["--compact", mode, "--twice"], True, False, False)
-    for mode in ("scatter", "search"))
+    for mode in ("scatter", "search")) + (
+    # Dispatches of 250 cycles, one in flight (TTS_PIPELINE=1): traced
+    # whole (11 dispatches, about 560,000 kernel records of the dense
+    # body), and under a torch.profiler schedule that stops recording once
+    # the fourth dispatch is read (about 223,000), the rest run untraced.
+    ("traced_dense_k250", ["--compact", "dense", "--K", "250", "--pipe1"], True,
+     False, False),
+    ("traced_dense_k250_sched", ["--compact", "dense", "--K", "250", "--pipe1",
+                                 "--sched"], True, False, False))
 
 
 def cupti_run(name: str) -> int:
@@ -4249,13 +4611,40 @@ def cupti_run(name: str) -> int:
             def clear(self):  # the retired pools are never destroyed
                 pass
         D._RETIRED = _KeepAll()
+    if "--pipe1" in extra:
+        import os
+
+        os.environ["TTS_PIPELINE"] = "1"
     t0 = time.perf_counter()
-    argv = CUPTI_UNFUSED + [a for a in extra if a not in ("--eager", "--twice")]
+    argv = CUPTI_UNFUSED + [a for a in extra
+                            if a not in ("--eager", "--twice", "--pipe1", "--sched")]
+    window: dict = {}
+
+    def ready(p):
+        evs = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+        window.update(trace_launches=sum(e.count for e in evs),
+                      trace_device_ms=sum(e.self_device_time_total for e in evs) / 1e3)
+
     with contextlib.ExitStack() as stack:
         if "--eager" in extra:
             stack.enter_context(eager_cycles())
-        prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+        sched = {}
+        if "--sched" in extra:
+            from torch.profiler import schedule
+
+            sched = dict(schedule=schedule(wait=0, warmup=0, active=4, repeat=1),
+                         on_trace_ready=ready)
+        prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA], **sched))
                 if traced else None)
+        if sched:
+            # A profiler step at each dispatch's read: the window closes
+            # once the fourth dispatch has run.
+            count = D.DispatchGraph.count
+
+            def stepped(self, runs, _count=count):
+                _count(self, runs)
+                prof.step()
+            D.DispatchGraph.count = stepped
         for _ in range(2 if "--twice" in extra else 1):
             rec = run_search(argv, None if "--max-steps" in extra else GOLDEN)
             torch.cuda.synchronize()
@@ -4264,10 +4653,11 @@ def cupti_run(name: str) -> int:
                device_cycles=rec["device_cycles"],
                cycles_per_dispatch=rec["device_cycles"] / max(1, rec["dispatches"]),
                phase2_s=rec["phases"][1][2], seconds=time.perf_counter() - t0)
-    if prof is not None:
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        out.update(trace_launches=sum(e.count for e in evs),
-                   trace_device_ms=sum(e.self_device_time_total for e in evs) / 1e3)
+    if window:
+        out.update(window, scheduled=True)
+    elif prof is not None:
+        ready(prof)
+        out.update(window)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -4332,7 +4722,7 @@ def main() -> int:
         return cupti_run(sys.argv[2])
     dev_info = phase_device()
     if sys.argv[1:] in (["--cycles"], ["--host"], ["--serve"], ["--parallel"],
-                        ["--dist"], ["--fleet"], ["--mp"], ["--cupti"],
+                        ["--dist"], ["--fleet"], ["--mp"], ["--copies"], ["--cupti"],
                         ["--cupti-modes"], ["--check"]) or (
             sys.argv[1:2] in (["--cupti"], ["--cupti-modes"]) and len(sys.argv) == 3):
         phase_build()
@@ -4344,6 +4734,8 @@ def main() -> int:
             return main_check(dev_info)
         if sys.argv[1] == "--mp":
             return main_mp(dev_info)
+        if sys.argv[1] == "--copies":
+            return main_copies(dev_info)
         if sys.argv[1] == "--host":
             return main_host(dev_info)
         if sys.argv[1] == "--fleet":
@@ -4498,6 +4890,13 @@ def main() -> int:
     gate = phase_slot_gate(dev)
     phase_mesh_eval(dev)
     phase_mesh_cards(counters)
+    # The shard copies under mp: the pair exchange against its plain
+    # version, the mesh over two and four positions of the card; and the
+    # whole-session profile.
+    xchg = phase_pair_exchange(dev)
+    copies = phase_mesh_mp_copies(counters, mp_runs, xchg)
+    phase_copies_traced()
+    phase_whole_profile()
     # The survivor-path modes (--compact) on the unfused searches, and the
     # program contracts over every cell's dispatch graph.
     phase_compact(counters)
@@ -4731,6 +5130,7 @@ def main() -> int:
     # diffusion).
     kernels.append(mesh_kernel_row(bal, mdisp, mesh))
     kernels += pair_block_rows(mp_runs, blocks) + [slot_gate_row(gate, mp_runs)]
+    kernels.append(pair_exchange_row(xchg, copies))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

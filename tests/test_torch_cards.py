@@ -79,8 +79,11 @@ def test_two_groups_equal_one_dispatch_by_dispatch(kind):
                            devices=["cpu", "cpu"])
     try:
         assert len(one.groups) == 1
+        # mp = 2 over two positions: each shard has a copy at each, which
+        # bounds the pair block placed there (the copies of one position
+        # form a group).
         assert [g.shards for g in two.groups] == (
-            [[0, 2], [1, 3]] if mp == 1 else [[0, 1, 2, 3]])
+            [[0, 2], [1, 3]] if mp == 1 else [[0, 1, 2, 3]] * 2)
         one.upload(frontier, best)
         two.upload(frontier, best)
         for _ in range(3):

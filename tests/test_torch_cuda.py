@@ -2033,3 +2033,116 @@ def test_nested_graph_bodies_are_read_on_the_card(cuda):
     for part, got in rec.nodes.items():
         assert not {k for _, k in got} & host, part
     assert any(k == "kernel" for _, k in rec.nodes["round0.gate1"])
+
+
+# -- the pair exchange of the mesh's shard copies (csrc/pair_exchange.cu) ------
+
+
+def _exchange_pair(cuda, words, timeout_s=5.0):
+    from tpu_tree_search_torch.ops.pair_exchange import PairExchange
+
+    x = PairExchange([cuda, cuda], words, timeout_s=timeout_s)
+    return x, [x.endpoint(i) for i in range(2)], [torch.cuda.Stream(cuda)
+                                                  for _ in range(2)]
+
+
+def test_pair_exchange_parity_slots_match_plain(cuda):
+    # Seven exchanges in a row: both parity slots, several times over, the
+    # whole plane and a live count; each copy on a stream of its own.
+    x, ends, streams = _exchange_pair(cuda, 4099)
+    rng = np.random.default_rng(20)
+    cur = torch.cuda.current_stream(cuda)
+    for step in range(7):
+        a, b = (torch.from_numpy(rng.integers(-2**30, 2**30, 4099)
+                                 .astype(np.int32)).to(cuda) for _ in range(2))
+        want = torch.maximum(a, b)
+        count = None if step % 3 else torch.tensor(1000 + step, dtype=torch.int32,
+                                                   device=cuda)
+        got = [a.clone(), b.clone()]
+        for st in streams:
+            st.wait_stream(cur)
+        for e, st, plane in zip(ends, streams, got):
+            with torch.cuda.stream(st):
+                e(plane, count)
+        torch.cuda.synchronize()
+        for e in ends:
+            e.check()
+        n = 4099 if count is None else int(count)
+        for plane, own in zip(got, (a, b)):
+            assert torch.equal(plane[:n], want[:n])
+            assert torch.equal(plane[n:], own[n:])
+
+
+def test_pair_exchange_missing_peer_times_out(cuda):
+    import time
+
+    x, ends, streams = _exchange_pair(cuda, 256, timeout_s=0.3)
+    plane = torch.zeros(256, dtype=torch.int32, device=cuda)
+    t0 = time.perf_counter()
+    with torch.cuda.stream(streams[0]):
+        ends[0](plane)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 3.0
+    with pytest.raises(RuntimeError, match="never posted"):
+        ends[0].check()
+
+
+def test_pair_exchange_across_two_cards(cuda):
+    from tpu_tree_search_torch.ops.pair_exchange import PairExchange
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: peer access between cards")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    if not torch.cuda.can_device_access_peer(0, 1):
+        with pytest.raises(RuntimeError, match="no peer access"):
+            PairExchange(devs, 64)
+        return
+    x = PairExchange(devs, 64)
+    ends = [x.endpoint(i) for i in range(2)]
+    planes = [torch.arange(64, dtype=torch.int32, device=d) * (1 if i else -1)
+              for i, d in enumerate(devs)]
+    for e, d, p in zip(ends, devs, planes):
+        with torch.cuda.device(d), torch.cuda.stream(torch.cuda.Stream(d)):
+            e(p)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    for e in ends:
+        e.check()
+    want = torch.arange(64, dtype=torch.int32)
+    assert all(torch.equal(p.cpu(), want) for p in planes)
+
+
+def test_mesh_copies_equal_one_position_on_the_card(cuda):
+    # ta014's reduced corner under lb2, D = 2, mp = 2: each shard copied
+    # on two positions of the card, dispatch by dispatch against the
+    # one-position program.
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.parallel.resident_mesh import (get_mesh_program,
+                                                              loop_rows)
+    from tpu_tree_search_torch.pool.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    prob = PFSPProblem(lb="lb2", ub=0,
+                       p_times=taillard.reduced_instance(14, jobs=10, machines=5))
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    _, _, best = warmup(prob, pool, INF, 200)
+    for staged in (True, False):
+        a = get_mesh_program(prob, 2, 4, 32, 2, 2, 8, 4 * 32 * 10, cuda,
+                             fused=False, staged=staged, mp=2)
+        b = get_mesh_program(prob, 2, 4, 32, 2, 2, 8, 4 * 32 * 10, fused=False,
+                             staged=staged, mp=2, devices=["cuda:0"] * 2)
+        try:
+            assert b.copied and len(b.groups) == 2
+            for prog in (a, b):
+                prog.host_slots(1)
+                prog.upload(pool.as_batch(), best)
+            for _ in range(3):
+                ra, rb = a.enqueue()()[0], b.enqueue()()[0]
+                assert loop_rows(ra) == loop_rows(rb)
+                for d, _, state in b.copy_states():
+                    s = ra[d][0]
+                    assert torch.equal(a.states[d].pool_vals[:s], state.pool_vals[:s])
+        finally:
+            a.release()
+            b.release()

@@ -198,8 +198,12 @@ def test_kernel_sources_export_the_bound_entries():
                      "cycle_nqueens", "lb1_d_bounds", "lb2_bounds",
                      "lb2_self_bounds", "cycle_lb2", "tiled_lb1",
                      "tiled_nqueens", "tiled_lb2", "dispatch_graph",
-                     "mesh_balance"}
+                     "mesh_balance", "pair_exchange"}
     text = {p.stem: p.read_text() for p in _build.sources()}
+    # The mesh copies' pair exchange (not a TPU kernel: the JAX lax.pmax).
+    for entry in ("pair_exchange_enqueue", "pair_exchange_load",
+                  "pair_exchange_peers"):
+        assert f'extern "C" int {entry}(' in text["pair_exchange"]
     # The graph dispatch's source (not a TPU kernel: the host loop's half).
     for entry in ("dispatch_graph_create", "dispatch_graph_begin_body",
                   "dispatch_graph_end_body", "dispatch_graph_instantiate",

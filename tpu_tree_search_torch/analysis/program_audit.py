@@ -77,7 +77,8 @@ JAX_COUNTERPARTS = {
     "compact-auto-identity": ("compact-auto-identity",),
     "fused-push-single-gather": ("fused-push-single-gather",),
     "pool-donation": ("pool-in-place",),
-    "step-callback-armed-only": ("step-callback-armed-only",),
+    "step-callback-armed-only": ("step-callback-armed-only",
+                                 "mesh-copies-device-only"),
     "obs-off-identity": ("obs-off-identity",),
     "obs-counter-block": ("obs-counter-block",),
     "phaseprof-off-identity": ("phaseprof-off-identity",),
@@ -113,7 +114,7 @@ def load_contracts() -> dict:
     from ..engine import batched, pipeline, resident  # noqa: F401
     from ..obs import counters, phases, quality  # noqa: F401
     from ..ops import compaction, cycle, pfsp_device  # noqa: F401
-    from ..parallel import topology  # noqa: F401
+    from ..parallel import resident_mesh, topology  # noqa: F401
 
     return CONTRACTS
 
@@ -392,13 +393,22 @@ def audit_compact_ids(fingerprints: dict | None = None,
     return findings
 
 
-def pair_blocks_artifact(mp: int, device="cpu") -> dict:
+def pair_blocks_artifact(mp: int, device="cpu",
+                         copy: int | None = None) -> dict:
     """The records of the lb2 child and self evaluators over ``mp`` pair
     blocks (`ops/pfsp_device.py` ``lb2_bounds_mp``, ``lb2_self_bounds_mp``)
-    on ta021, 190 machine pairs (the JAX audit's shape), 8 rows."""
+    on ta021, 190 machine pairs (the JAX audit's shape), 8 rows. With
+    ``copy``: that copy's of a shard copied on two positions of ``device``
+    (`parallel/resident_mesh.py` ``copy_layout``): its blocks and its
+    exchange, the other copy run beside it in a thread of its own,
+    unrecorded (on the card each on a stream of its own)."""
+    import threading
+
     import torch
 
     from ..ops import pfsp_device as P
+    from ..ops.pair_exchange import PairExchange
+    from ..parallel.resident_mesh import copy_layout, mp_grid
     from ..problems import PFSPProblem
 
     prob = PFSPProblem(inst=21, lb="lb2", ub=1)
@@ -409,23 +419,63 @@ def pair_blocks_artifact(mp: int, device="cpu") -> dict:
     count = torch.tensor(8, dtype=torch.int32, device=device)
     t.pair_blocks(mp)  # the blocks' tables are built before the record
     out = {"mp": mp, "pairs": t.johnson.pair_count}
-    for kind, run in (
-            ("child", lambda: P.lb2_bounds_mp(prmu, limit1, t, mp)),
-            ("self", lambda: P.lb2_self_bounds_mp(prmu, limit1, count, t,
-                                                  mp))):
+    runs = {"child": lambda blocks=None, x=None: P.lb2_bounds_mp(
+                prmu, limit1, t, mp, blocks=blocks, exchange=x),
+            "self": lambda blocks=None, x=None: P.lb2_self_bounds_mp(
+                prmu, limit1, count, t, mp, blocks, x)}
+    if copy is None:
+        for kind, run in runs.items():
+            rec = Recorder()
+            with _pin({}), rec:
+                run()
+            out[kind] = rec.entries
+        return out
+    layout = [blocks for _, blocks in copy_layout(mp_grid(1, mp, 2))[0]]
+    x = PairExchange([device, device], 8 * n)
+    ends = [x.endpoint(i) for i in range(2)]
+    out.update(blocks=layout[copy], exchange=True, copy=copy)
+    cuda = torch.device(device).type == "cuda"
+
+    def on_stream(fn):
+        if not cuda:
+            return fn()
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            return fn()
+
+    # Each copy's launches once without the exchange, so that no kernel of
+    # theirs is first loaded (lazily, waiting for the card) while a
+    # copy's exchange spins.
+    for kind, run in runs.items():
+        for blocks in layout:
+            on_stream(lambda: run(blocks))
+    for kind, run in runs.items():
+        other = 1 - copy
+        peer = threading.Thread(target=lambda: on_stream(
+            lambda: run(layout[other], ends[other])), daemon=True)
+        peer.start()
         rec = Recorder()
         with _pin({}), rec:
-            run()
+            on_stream(lambda: run(layout[copy], ends[copy]))
+        peer.join()
         out[kind] = rec.entries
+    if cuda:
+        torch.cuda.synchronize(device)
+        for end in ends:
+            end.check()
     return out
 
 
 def audit_pair_blocks(fingerprints: dict | None = None, device="cpu",
-                      mps=(1, 2, 4)) -> list[Finding]:
+                      mps=(1, 2, 4), copies=(2, 4)) -> list[Finding]:
+    """The pair-block contract at each of ``mps``, and for each of
+    ``copies`` (an mp) on each copy of a shard copied on two positions."""
     findings: list[Finding] = []
-    for mp in mps:
-        art = pair_blocks_artifact(mp, device)
-        key = f"lb2-pair-blocks|mp={mp}"
+    cells = [(mp, None) for mp in mps] + [(mp, i) for mp in copies
+                                          for i in (0, 1)]
+    for mp, copy in cells:
+        art = pair_blocks_artifact(mp, device, copy)
+        key = f"lb2-pair-blocks|mp={mp}" + (
+            "" if copy is None else f"|copy={copy}of2")
         for c in _contracts_for("pair-blocks"):
             findings.extend(_violations(c.name, key, c.run(art, None)))
         if fingerprints is not None:
@@ -554,10 +604,39 @@ def mesh_record(fused: bool, device) -> Record:
         prog.close()
 
 
+def mesh_copies_artifact(staged: bool, device) -> dict:
+    """A D=2, mp=2 lb2 mesh over two positions of the card (each shard a
+    copy at each, `parallel/resident_mesh.py`): every group's round graphs
+    built, and their node lists by ``group<i>.round<r>.<label>``."""
+    from ..parallel.resident_mesh import MeshProgram
+
+    factory, p = family_factory("pfsp-lb2")
+    problem = factory()
+    batch, best = _frontier(problem, 2 * p["M"])
+    with _pin({}):
+        prog = MeshProgram(problem, 2, p["m"], p["M"], p["K"], 2, 2 * p["m"],
+                           _capacity(problem, p["M"]), devices=[device] * 2,
+                           fused=False, staged=staged, mp=2)
+    try:
+        prog.upload(batch, best)
+        nodes = {}
+        for i in range(len(prog.groups)):
+            for r in range(prog.rounds):
+                for label, ns in prog.graph(i, r).graph_nodes().items():
+                    nodes[f"group{i}.round{r}.{label}"] = ns
+        return {"staged": staged, "copies": [
+            [c.shard for c in g.copies] for g in prog.groups],
+            "nodes": nodes}
+    finally:
+        prog.close()
+
+
 def audit_mesh(device="cpu") -> list[Finding]:
-    """``step-callback-armed-only`` over the mesh graphs, both cycles. A
-    mesh dispatch is a graph only on the card: on the CPU the shards run
-    the solo cycles the matrix records, so there is nothing more to read."""
+    """``step-callback-armed-only`` over the mesh graphs, both cycles, and
+    ``mesh-copies-device-only`` over the copies' graphs under mp (staged
+    and single-pass). A mesh dispatch is a graph only on the card: on the
+    CPU the shards run the solo cycles the matrix records, so there is
+    nothing more to read."""
     import torch
 
     if torch.device(device).type != "cuda":
@@ -568,6 +647,11 @@ def audit_mesh(device="cpu") -> list[Finding]:
         key = f"mesh|nqueens|D2|{'fused' if fused else 'unfused'}"
         findings.extend(_violations(reads.name, key, reads.check(
             SimpleNamespace(record=mesh_record(fused, device)), None)))
+    for c in _contracts_for("mesh-copies"):
+        for staged in (True, False):
+            key = f"mesh|pfsp-lb2|D2|mp2|copies|{'staged' if staged else 'single'}"
+            findings.extend(_violations(c.name, key, c.run(
+                mesh_copies_artifact(staged, device), None)))
     return findings
 
 

@@ -61,7 +61,10 @@ it), ``--obs-serve PORT`` serves live snapshots on localhost (each of these
 implies ``TTS_OBS=1`` unless ``TTS_OBS`` is set: the counter block rides
 the dispatch), ``--phase-profile`` arms the device phase clock
 (``TTS_PHASEPROF=1``) and ``--torch-trace DIR`` a steady-state
-``torch.profiler`` window (resident engine). Subcommands beside ``pfsp`` and
+``torch.profiler`` window (resident engine); ``--profile DIR`` traces the
+whole search under ``torch.profiler`` (refused with ``--torch-trace``, as
+the JAX CLI refuses ``--xla-trace``), and ``--stats-file PATH`` appends the
+``--json`` record to a file (rank 0). Subcommands beside ``pfsp`` and
 ``nqueens``: ``report FILE... [--json] [--roofline] [--costmodel PATH]``
 summarizes traces and metrics files (either package's), ``watch`` follows an
 ``--obs-serve`` run, ``profile <run command>`` runs with the phase clock
@@ -94,8 +97,9 @@ survivor compaction.
 JAX CLI's messages. ``--device`` takes a comma list of device positions
 (``cuda:0,cuda:1``; a card may repeat) for the multi, mesh and dist tiers:
 worker or shard d on position d mod the list's length (under ``--mp``,
-shard d on position d*mp); the single-device and sequential tiers take one
-device. A shape or option the port refuses, or a flag the chosen tier or
+shard d's pair block i on position (d*mp + i) mod the length: a copy of
+the shard at each distinct position, joined by the pair exchange); the
+single-device and sequential tiers take one device. A shape or option the port refuses, or a flag the chosen tier or
 engine would ignore, exits 2 (``Error: ...`` on stderr, no traceback).
 """
 
@@ -277,6 +281,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(a checkpoint cut; the result is marked incomplete)")
     p.add_argument("--json", action="store_true",
                    help="print one JSON result line after the report")
+    p.add_argument("--stats-file", type=str, default=None, metavar="PATH",
+                   help="append the run's JSON result line (the --json "
+                        "record) to this file")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="trace the whole search with torch.profiler (the "
+                        "host and, on the card, the device) into "
+                        "DIR/torch_profile.json (Chrome trace: Perfetto, "
+                        "chrome://tracing)")
     p.add_argument("--trace", type=str, default=None,
                    help="write a Chrome-trace-event JSON of the run's "
                         "telemetry to this file (Perfetto; summarize with "
@@ -581,6 +593,11 @@ def uses_compaction(args) -> bool:
 def check_supported(args) -> None:
     """Refuse what the port lacks, and a flag the chosen tier or engine would
     ignore (`tpu_tree_search/cli.py` `_dispatch_tier`, `validate_args`)."""
+    if args.torch_trace is not None and args.profile is not None:
+        # The JAX CLI's refusal (`tpu_tree_search/cli.py:474-478`).
+        raise ValueError(
+            "--torch-trace (steady-state dispatch window) and --profile "
+            "(whole session) are both torch.profiler captures — pick one")
     if args.compact is not None and not uses_compaction(args):
         raise ValueError(
             "--compact only applies to runs with device-side compaction "
@@ -1187,66 +1204,8 @@ def run_search(args, K, device, problem, M, coll) -> int:
               f"(watch --port {live_server.port})")
     devices = device_list(args)
     try:
-        if args.tier == "seq":
-            from .engine.sequential import sequential_search
-
-            res = sequential_search(problem)
-        elif args.tier == "multi":
-            from .parallel.multidevice import multidevice_search
-
-            res = multidevice_search(
-                problem, m=args.m, M=M, D=args.D, devices=devices,
-                device=args.device if devices is None else None,
-                perc=args.perc, checkpoint_path=args.checkpoint,
-                checkpoint_interval_s=args.checkpoint_interval,
-                resume_from=args.resume)
-        elif args.tier == "dist":
-            from .parallel.dist import dist_search
-
-            kw = {} if args.steal_interval is None else {
-                "steal_interval_s": args.steal_interval}
-            res = dist_search(
-                problem, m=args.m, M=M, D=args.D, num_hosts=args.hosts,
-                devices=devices,
-                device=args.device if devices is None else None,
-                perc=args.perc,
-                steal=not args.no_steal, checkpoint_path=args.checkpoint,
-                checkpoint_interval_s=args.checkpoint_interval,
-                resume_from=args.resume, collectives=coll, **kw)
-        elif args.tier == "dist_mesh":
-            from .parallel.dist_mesh import dist_mesh_search
-
-            res = dist_mesh_search(
-                problem, m=args.m, M=M, K=K, D=args.D, mp=args.mp,
-                num_hosts=args.hosts, devices=devices,
-                device=args.device if devices is None else None,
-                fused=not args.unfused,
-                max_steps=args.max_steps, checkpoint_path=args.checkpoint,
-                checkpoint_interval_s=args.checkpoint_interval,
-                resume_from=args.resume, collectives=coll)
-        elif args.tier == "mesh":
-            from .parallel.resident_mesh import mesh_resident_search
-
-            res = mesh_resident_search(
-                problem, m=args.m, M=M, K=K, D=args.D, mp=args.mp,
-                devices=devices, device=device,
-                fused=not args.unfused, max_steps=args.max_steps,
-                checkpoint_path=args.checkpoint,
-                checkpoint_interval_s=args.checkpoint_interval,
-                resume_from=args.resume)
-        elif args.engine == "offload":
-            from .engine.device import device_search
-
-            res = device_search(problem, m=args.m, M=M, device=device)
-        else:
-            from .engine.resident import resident_search
-
-            res = resident_search(
-                problem, m=args.m, M=M, K=K, device=device,
-                fused=not args.unfused, mt=args.mt, max_steps=args.max_steps,
-                checkpoint_path=args.checkpoint,
-                checkpoint_interval_s=args.checkpoint_interval,
-                resume_from=args.resume)
+        with whole_session_trace(args.profile, device):
+            res = run_tier(args, K, device, problem, M, coll, devices)
     finally:
         if live_server is not None:
             live_server.close()
@@ -1254,12 +1213,107 @@ def run_search(args, K, device, problem, M, coll) -> int:
         print_results(problem, res, checkpoint=args.checkpoint)
         if args.trace or args.metrics_file or args.costmodel:
             write_telemetry(args, problem, device, obs_events.drain())
-    if args.json:
+    rec = None
+    if args.json or (args.stats_file and primary):
         rec = result_record(args, res, device)
         if coll is not None:
             rec.update(host_id=coll.host_id, num_hosts=coll.num_hosts)
+    if args.json:
         print(json.dumps(rec), flush=True)
+    if args.stats_file and primary:
+        # The append-only stats line of the JAX CLI (`tpu_tree_search/
+        # cli.py:1343-1347`, after `stats_pfsp_gpu_cuda.dat`).
+        with open(args.stats_file, "a") as f:
+            f.write(json.dumps(rec) + "\n")
     return 0
+
+
+@contextmanager
+def whole_session_trace(out_dir: str | None, device):
+    """``--profile DIR``: the block under ``torch.profiler`` (the host, and
+    the card when the run is on one), its Chrome trace written to
+    ``DIR/torch_profile.json`` when the block ends (the JAX CLI's
+    ``jax.profiler.trace``, `tpu_tree_search/cli.py:1300-1306`). Nothing
+    without a directory."""
+    if out_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device is not None and str(device).startswith("cuda"):
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(out_dir, "torch_profile.json")
+    prof.export_chrome_trace(path)
+    print(f"Profile written: {path}")
+
+
+def run_tier(args, K, device, problem, M, coll, devices):
+    """The search of ``args`` on its tier: its ``SearchResult``."""
+    if args.tier == "seq":
+        from .engine.sequential import sequential_search
+
+        res = sequential_search(problem)
+    elif args.tier == "multi":
+        from .parallel.multidevice import multidevice_search
+
+        res = multidevice_search(
+            problem, m=args.m, M=M, D=args.D, devices=devices,
+            device=args.device if devices is None else None,
+            perc=args.perc, checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            resume_from=args.resume)
+    elif args.tier == "dist":
+        from .parallel.dist import dist_search
+
+        kw = {} if args.steal_interval is None else {
+            "steal_interval_s": args.steal_interval}
+        res = dist_search(
+            problem, m=args.m, M=M, D=args.D, num_hosts=args.hosts,
+            devices=devices,
+            device=args.device if devices is None else None,
+            perc=args.perc,
+            steal=not args.no_steal, checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            resume_from=args.resume, collectives=coll, **kw)
+    elif args.tier == "dist_mesh":
+        from .parallel.dist_mesh import dist_mesh_search
+
+        res = dist_mesh_search(
+            problem, m=args.m, M=M, K=K, D=args.D, mp=args.mp,
+            num_hosts=args.hosts, devices=devices,
+            device=args.device if devices is None else None,
+            fused=not args.unfused,
+            max_steps=args.max_steps, checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            resume_from=args.resume, collectives=coll)
+    elif args.tier == "mesh":
+        from .parallel.resident_mesh import mesh_resident_search
+
+        res = mesh_resident_search(
+            problem, m=args.m, M=M, K=K, D=args.D, mp=args.mp,
+            devices=devices, device=device,
+            fused=not args.unfused, max_steps=args.max_steps,
+            checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            resume_from=args.resume)
+    elif args.engine == "offload":
+        from .engine.device import device_search
+
+        res = device_search(problem, m=args.m, M=M, device=device)
+    else:
+        from .engine.resident import resident_search
+
+        res = resident_search(
+            problem, m=args.m, M=M, K=K, device=device,
+            fused=not args.unfused, mt=args.mt, max_steps=args.max_steps,
+            checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            resume_from=args.resume)
+    return res
 
 
 def write_telemetry(args, problem, device, evts: list) -> None:

@@ -570,26 +570,28 @@ class _ResidentProgram(CachedProgram):
         return lambda: cycle(state)
 
     def host_rounds(self, states: list, st: torch.Tensor,
-                    zero_block: bool) -> None:
+                    zero_block: bool, cycles: list | None = None) -> None:
         """Up to K rounds of the batch of ``states`` (rows of ``st``) on the
         host, the plain counterpart of a batch or mesh graph's ``while``
         node: ``batch_init`` (``zero_block``: the counter block zeroed
         too), then each round every live slot's cycle and ``batch_cond``
         (the fused cycle's counter fold: the unfused cycle folds its own).
-        A frozen slot runs nothing."""
+        A frozen slot runs nothing. ``cycles`` (one a state, default this
+        program's ``slot_cycle``) runs each slot's own program's cycle:
+        the mesh's copies each have one."""
         n = self.problem.child_slots
         Mn = self.M * n
+        if cycles is None:
+            cycles = [self.slot_cycle(s) for s in states]
         live = batch_init_plain(st, self.m, Mn, self.capacity, self.K,
                                 self.obs and zero_block)
         for _ in range(self.K):
             if not live:
                 break
-            for s in states:
-                if self.fused:
-                    self._fused_cycle(s)
-                elif loop_active(s.st.tolist(), self.m, Mn, self.capacity,
-                                 self.K):
-                    self._unfused_cycle(s)
+            for s, cycle in zip(states, cycles):
+                if self.fused or loop_active(s.st.tolist(), self.m, Mn,
+                                             self.capacity, self.K):
+                    cycle()
                 else:
                     s.st[ST_ACTIVE] = 0
             live = batch_cond_plain(st, n if self.obs and self.fused else 0,
@@ -682,7 +684,11 @@ class PFSPResident(_ResidentProgram):
     mesh tier's pair axis) splits the lb2 Johnson pair loop in mp pair
     blocks (`ops/pfsp_device.py` ``lb2_bounds_mp``, ``lb2_self_bounds_mp``)
     and runs the unfused cycle: the JAX megakernel refuses "mp pair-axis
-    sharding (the fused cycle is single-shard)" (`megakernel.py:355-358`)."""
+    sharding (the fused cycle is single-shard)" (`megakernel.py:355-358`).
+    A mesh copy (`parallel/resident_mesh.py`) bounds only its ``blocks``
+    of the mp (indices, on its own device's tables) and joins its peers'
+    planes through its ``exchange`` endpoint (`ops/pair_exchange.py`);
+    None for both is every block on this device, no exchange."""
 
     # Deep PFSP chunks prune heavily; the unfused push's gather budget is
     # a quarter of the slot grid (the JAX engine's choice).
@@ -690,11 +696,14 @@ class PFSPResident(_ResidentProgram):
 
     def __init__(self, problem: PFSPProblem, m: int, M: int, K: int,
                  capacity: int, device, fused: bool = True,
-                 staged: bool = True, mt: int | None = None, mp: int = 1):
+                 staged: bool = True, mt: int | None = None, mp: int = 1,
+                 blocks=None, exchange=None):
         if mp > 1 and problem.lb != "lb2":
             raise ValueError(MP_LB2_ONLY)
         self.vals_dtype, self.aux_dtype = pool_dtypes(problem)
         self.mp = int(mp)
+        self.blocks = None if blocks is None else tuple(blocks)
+        self.exchange = exchange
         # lb1_d has no fused cycle (the JAX megakernel refuses it,
         # `megakernel.py:351-354`), nor has the mp pair axis (`:355-358`):
         # they run the unfused cycle with their kernels.
@@ -748,7 +757,9 @@ class PFSPResident(_ResidentProgram):
         if self.staged:
             bounds = lb1_bounds(vals_c, aux_c, self.tables)
         elif self.mp > 1:
-            bounds = lb2_bounds_mp(vals_c, aux_c, self.tables, self.mp)
+            bounds = lb2_bounds_mp(vals_c, aux_c, self.tables, self.mp,
+                                   blocks=self.blocks,
+                                   exchange=self.exchange)
         else:
             bounds = self.problem.device_bounds(vals_c, aux_c)
         pdepth = aux_c + 1
@@ -763,7 +774,8 @@ class PFSPResident(_ResidentProgram):
         keep = open_ & ~leaf & (bounds < best_t)
         if self.staged:
             keep &= lb2_bounds_staged(vals_c, aux_c, keep, self.tables,
-                                      self.mp) < best_t
+                                      self.mp, self.blocks,
+                                      self.exchange) < best_t
         return keep, torch.sum(leaf, dtype=torch.int32), best_t
 
 
@@ -824,30 +836,39 @@ def program_compact(problem: Problem, M: int, fused: bool,
 
 def program_key(m: int, M: int, K: int, capacity: int, device, fused: bool,
                 staged: bool, mt: int | None, mp: int = 1,
-                compact: str | None = None) -> tuple:
+                compact: str | None = None, blocks=None,
+                exchange=None) -> tuple:
     """The cache key of a resident program (`resident.py:682-702`, with the
     port's routing inputs): what selects its cycle, its graphs and its
     state, the telemetry flags its graphs bake in and the unfused cycle's
     resolved compaction mode (``program_compact``: a cached ``scatter``
-    program never serves a ``sort`` search). K is the K asked for: the
-    program's K moves along AdaptiveK's ladder and is set back when a
-    search takes it."""
+    program never serves a ``sort`` search). A mesh copy's pair
+    ``blocks`` and ``exchange`` (its ``key``: its exchange group, the
+    copies' positions and this copy's index) close it, so a copy program
+    never serves another placement; a program without them keeps the key
+    it had. K is the K
+    asked for: the program's K moves along AdaptiveK's ladder and is set
+    back when a search takes it."""
     return (m, M, K, capacity, str(resolve_device(device)), fused, staged, mt,
             obs_counters.device_counters_enabled(),
             obs_phases.phase_profiling_enabled(), compact) + (
-                (mp,) if mp > 1 else ())
+                (mp,) if mp > 1 else ()) + (
+                (tuple(blocks or ()), exchange.key)
+                if exchange is not None else ())
 
 
 def new_program(problem: Problem, m: int, M: int, K: int, capacity: int,
                 device, fused: bool = True, staged: bool = True,
-                mt: int | None = None, mp: int = 1) -> _ResidentProgram:
-    """A new, uncached resident program of ``problem``; ``staged`` and
-    ``mp`` reach the PFSP program only (``mp`` > 1: PFSP lb2), ``mt`` the
-    fused cycle."""
+                mt: int | None = None, mp: int = 1, blocks=None,
+                exchange=None) -> _ResidentProgram:
+    """A new, uncached resident program of ``problem``; ``staged``,
+    ``mp`` and a mesh copy's ``blocks`` and ``exchange`` reach the PFSP
+    program only (``mp`` > 1: PFSP lb2), ``mt`` the fused cycle."""
     count_build("programs")
     if isinstance(problem, PFSPProblem):
         return PFSPResident(problem, m, M, K, capacity, device, fused=fused,
-                            staged=staged, mt=mt, mp=mp)
+                            staged=staged, mt=mt, mp=mp, blocks=blocks,
+                            exchange=exchange)
     if mp > 1:
         raise ValueError(MP_LB2_ONLY)
     if isinstance(problem, NQueensProblem):

@@ -377,7 +377,7 @@ def lb2_self_chunk(rows: torch.Tensor, limit1: torch.Tensor, n_active,
 
 def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
                       cand: torch.Tensor, tables: PFSPDeviceTables,
-                      mp: int = 1) -> torch.Tensor:
+                      mp: int = 1, blocks=None, exchange=None) -> torch.Tensor:
     """lb2 child bounds of the candidate slots only
     (`pfsp_device.lb2_bounds_staged`).
 
@@ -390,8 +390,10 @@ def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
     rows, and the results are gathered back. The count stays a device
     tensor: the self kernel reads it from device memory, so staging adds no
     host synchronisation. Under ``mp`` > 1 the self bound runs on the mp
-    pair blocks (``lb2_self_bounds_mp``). Returns (B, n) int32; slots
-    outside ``cand`` are garbage."""
+    pair blocks (``lb2_self_bounds_mp``; a mesh copy's ``blocks`` and
+    ``exchange``: each copy compacts on its own, and only the self bounds
+    of the first ``count`` rows are exchanged). Returns (B, n) int32;
+    slots outside ``cand`` are garbage."""
     B, n = prmu.shape
     R = B * n
     dev = prmu.device
@@ -407,7 +409,7 @@ def lb2_bounds_staged(prmu: torch.Tensor, limit1: torch.Tensor,
     d = (limit1.long() + 1).clamp(max=n - 1)[:, None]
     child = children_of(prmu, d)[src]
     out = lb2_self_bounds_mp(child, d[src // n, 0].to(prmu.dtype), count,
-                             tables, mp)
+                             tables, mp, blocks, exchange)
     return out[torch.where(flat, pos, 0).long()].reshape(B, n)
 
 
@@ -424,7 +426,8 @@ def lb2_chunk_mp(prmu: torch.Tensor, limit1: torch.Tensor,
 
 def lb2_bounds_mp(prmu: torch.Tensor, limit1: torch.Tensor,
                   tables: PFSPDeviceTables, mp: int,
-                  placed: list | None = None) -> torch.Tensor:
+                  placed: list | None = None, blocks=None,
+                  exchange=None) -> torch.Tensor:
     """lb2 child bounds with the Johnson pair loop split in ``mp`` pair
     blocks (`tpu_tree_search/ops/pfsp_device.py` ``lb2_bounds_mp``): each
     block (``pair_blocks``) is bounded on its own — kernel 6 on a pair
@@ -434,13 +437,17 @@ def lb2_bounds_mp(prmu: torch.Tensor, limit1: torch.Tensor,
     over the blocks is the max over the pairs. ``placed`` (one tables
     object a block, default ``tables`` for each) places block i on the
     device of ``placed[i]``, the replica (d, i) of the JAX (dp, mp) mesh:
-    the chunk is copied there and the block's plane back. ``mp = 1`` is
+    the chunk is copied there and the block's plane back. A mesh copy
+    (`parallel/resident_mesh.py`) bounds only its ``blocks`` (indices; on
+    its own device's tables) and joins the other copies' planes through
+    its ``exchange`` endpoint (`ops/pair_exchange.py`). ``mp = 1`` is
     ``lb2_bounds``."""
-    if mp == 1 and placed is None:
+    if mp == 1 and placed is None and exchange is None:
         return lb2_bounds(prmu, limit1, tables)
     out = None
-    for i, where in enumerate(placed or [tables] * mp):
-        blk = where.pair_blocks(mp)[i]
+    where = placed or [tables] * mp
+    for i in (range(mp) if blocks is None else blocks):
+        blk = where[i].pair_blocks(mp)[i]
         dev = blk.device
         a, b = prmu.to(dev), limit1.to(dev)
         with route("lb2_block_cuda"):
@@ -452,22 +459,26 @@ def lb2_bounds_mp(prmu: torch.Tensor, limit1: torch.Tensor,
                 local = lb2_chunk(a, b, blk)
         local = local.to(prmu.device)
         out = local if out is None else torch.maximum(out, local)
-    return out
+    return out if exchange is None else exchange(out)
 
 
 def lb2_self_bounds_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
-                       tables: PFSPDeviceTables, mp: int) -> torch.Tensor:
+                       tables: PFSPDeviceTables, mp: int, blocks=None,
+                       exchange=None) -> torch.Tensor:
     """Self lb2 with the pair loop split in ``mp`` pair blocks
     (`tpu_tree_search/ops/pfsp_device.py` ``lb2_self_bounds_mp``, the
     staged evaluator's second stage under mp): kernel 7 on each block for
     a CUDA tensor (``lb2_self_kernel.lb2_self_block_cuda``),
-    ``lb2_self_chunk`` for a CPU one, combined by an elementwise max.
-    Only the first ``n_active`` entries are meant to be read. ``mp = 1``
-    is ``lb2_self_bounds``."""
-    if mp == 1:
+    ``lb2_self_chunk`` for a CPU one, combined by an elementwise max; a
+    mesh copy's ``blocks`` and ``exchange`` as ``lb2_bounds_mp``'s (the
+    first ``n_active`` words exchanged). Only the first ``n_active``
+    entries are meant to be read. ``mp = 1`` is ``lb2_self_bounds``."""
+    if mp == 1 and exchange is None:
         return lb2_self_bounds(rows, limit1, n_active, tables)
     out = None
-    for blk in tables.pair_blocks(mp):
+    pair_blocks = tables.pair_blocks(mp)
+    for i in (range(mp) if blocks is None else blocks):
+        blk = pair_blocks[i]
         with route("lb2_self_block_cuda"):
             if rows.is_cuda:
                 from .lb2_self_kernel import lb2_self_block_cuda
@@ -476,7 +487,7 @@ def lb2_self_bounds_mp(rows: torch.Tensor, limit1: torch.Tensor, n_active,
             else:
                 local = lb2_self_chunk(rows, limit1, n_active, blk)
         out = local if out is None else torch.maximum(out, local)
-    return out
+    return out if exchange is None else exchange(out, n_active)
 
 
 def lb2_bounds(prmu: torch.Tensor, limit1: torch.Tensor,
@@ -544,18 +555,24 @@ from ..analysis.contracts import contract  # noqa: E402
           "(lb2_self_block_cuda), the planes maxed, with no loop over the "
           "machine pairs in the glue: the record's launches are mp and its "
           "operations do not grow with the pair count (mp = 1 is one "
-          "lb2_bounds_cuda or lb2_self_bounds_cuda launch)",
+          "lb2_bounds_cuda or lb2_self_bounds_cuda launch); a mesh copy "
+          "launches its own blocks only, then ONE pair exchange "
+          "(pair_exchange_cuda) with its peers",
     artifact="pair-blocks",
 )
 def _contract_pair_blocks(art, cell):
     mp = art["mp"]
+    blocks = art.get("blocks")
+    launches = mp if blocks is None else len(blocks)
     out = []
     for kind, one, block in (("child", "lb2_bounds_cuda", "lb2_block_cuda"),
                              ("self", "lb2_self_bounds_cuda",
                               "lb2_self_block_cuda")):
         entries = art[kind]
         routes = [e.name for e in entries if e.kind == "route"]
-        want = [one] if mp == 1 else [block] * mp
+        want = [one] if mp == 1 else [block] * launches
+        if art.get("exchange"):
+            want = want + ["pair_exchange_cuda"]
         if routes != want:
             out.append(f"{kind} at mp={mp}: launches {routes}, want {want}")
         ops = [e for e in entries if e.kind != "route"]

@@ -377,7 +377,7 @@ def _host_loop(problem: Problem, m: int, M: int, K, rounds: int, D: int,
                 if gbest < best:
                     # The global incumbent into every shard's state, behind
                     # the dispatches in flight on this host's stream.
-                    program.st[:, ST_BEST].clamp_(max=int(gbest))
+                    program.clamp_best(int(gbest))
                     best = int(gbest)
                 if eff_ckpt is not None and rows[0][3]:
                     do_lockstep_cut(rows[0][4])

@@ -23,7 +23,9 @@ rows are the JAX program's. The cycles are the fused ones (kernels 2, 4 or
 8), or under lb1_d, ``fused=False`` or the lb2 pair axis ``mp`` > 1 the
 unfused ones of fixed shapes, graphed alike. Several positions (cards, or
 one card repeated) hold a group of shards each, with a graph a group and
-round and a balance across the groups (``MeshProgram``). Off the card
+round and a balance across the groups (``MeshProgram``); under ``mp`` a
+shard has a copy at each position of its (dp, mp) grid row, the copies
+joined by the pair exchange (`ops/pair_exchange.py`). Off the card
 (``device="cpu"``) the same program runs the plain cycles shard by shard
 and ``mesh_balance_plain``: the oracle of the tests.
 
@@ -43,6 +45,7 @@ enqueue as there.
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import ExitStack, contextmanager
 
@@ -69,7 +72,7 @@ from ..obs import phases as obs_phases
 from ..obs import quality as obs_quality
 from ..ops.backend import resolve_device, resolve_devices
 from ..ops.compact_policy import auto_chosen
-from ..ops.cycle import ST_CTR, ST_CYCLES, ST_LEN
+from ..ops.cycle import ST_ACTIVE, ST_BEST, ST_CTR, ST_CYCLES, ST_LEN
 from ..ops.dispatch import phase_mark
 from ..ops.mesh import (
     MeshGraph,
@@ -78,36 +81,67 @@ from ..ops.mesh import (
     mesh_plan,
     shard_moves,
 )
+from ..ops.pair_exchange import ST_XERR, PairExchange, raise_on_error
 from ..pool.pool import SoAPool
 from ..problems.base import INF_BOUND, Problem, index_batch
 
 
-class _Group:
-    """The shards of one device position (``MeshProgram``): their (Dg,
-    ST_LEN) states, (Dg, C, n) pool and (Dg, C) column on the position's
-    device, an uncached resident program of the mesh's configuration on
-    that device (its cycle and scratch serve the group's shards, which run
-    one after another on the group's stream), the balance scratch (one
-    group) and, with more than one group, a stream of its own and the
-    balance's buffers (the left neighbours' first T rows, the plan)."""
+class _Copy:
+    """One copy of a shard (``MeshProgram``): its shard, its place among
+    the shard's copies (0: the primary, which the host reads), the pair
+    blocks it bounds (None: all of the mp, the shard's only copy) and its
+    exchange end (None without peers)."""
 
-    def __init__(self, prog: "MeshProgram", device, shards: list[int],
+    def __init__(self, shard: int, index: int, blocks, endpoint=None):
+        self.shard = shard
+        self.index = index
+        self.blocks = blocks
+        self.endpoint = endpoint
+
+
+class _Group:
+    """The copies of one device position (``MeshProgram``): their (Dg,
+    ST_LEN) states, (Dg, C, n) pool and (Dg, C) column on the position's
+    device, uncached resident programs of the mesh's configuration on that
+    device (one a copy's blocks and exchange, keyed by ``program_key``:
+    copies without peers share one, whose cycle serves them all), run one
+    after another on the group's stream, the balance scratch (one group)
+    and, with more than one group, a stream of its own and the balance's
+    buffers (the left neighbours' first T rows, the plan)."""
+
+    def __init__(self, prog: "MeshProgram", device, copies: list[_Copy],
                  T: int, grouped: bool):
         problem, C = prog.problem, prog.capacity
         self.device = device
-        self.shards = shards
-        self.inner = R.new_program(problem, prog.m, prog.M, prog.K, C, device,
-                                   fused=prog.fused, staged=prog.staged,
-                                   mp=prog.mp)
-        inner = self.inner
-        Dg, width = len(shards), problem.child_slots
+        self.copies = copies
+        self.shards = [c.shard for c in copies]
+        Dg, width = len(copies), problem.child_slots
         self.st = torch.zeros((Dg, ST_LEN), dtype=torch.int32, device=device)
+        for j, c in enumerate(copies):
+            x = prog.exchanges[c.shard]
+            if x is not None:  # its error word: a word of its state row
+                c.endpoint = x.endpoint(c.index,
+                                        self.st[j, ST_XERR:ST_XERR + 1])
+        programs: dict = {}
+        self.programs = []
+        for c in copies:
+            args = (prog.m, prog.M, prog.K, C, device)
+            key = R.program_key(*args, prog.fused, prog.staged, None, prog.mp,
+                                blocks=c.blocks, exchange=c.endpoint)
+            if key not in programs:
+                programs[key] = R.new_program(
+                    problem, *args, fused=prog.fused, staged=prog.staged,
+                    mp=prog.mp, blocks=c.blocks, exchange=c.endpoint)
+            self.programs.append(programs[key])
+        self.inner = inner = self.programs[0]
         self.pool_vals = torch.zeros((Dg, C, width), dtype=inner.vals_dtype,
                                      device=device)
         self.pool_aux = torch.zeros((Dg, C), dtype=inner.aux_dtype,
                                     device=device)
         self.states = [R.ResidentState(self.pool_vals[j], self.pool_aux[j],
                                        self.st[j]) for j in range(Dg)]
+        self.cycles = [p.slot_cycle(s)
+                       for p, s in zip(self.programs, self.states)]
         cuda = device.type == "cuda"
         self.scratch = (MeshScratch.make(self.pool_vals, self.pool_aux)
                         if cuda and not grouped else None)
@@ -116,6 +150,10 @@ class _Group:
             self.left_vals = self.pool_vals.new_zeros((Dg, T, width))
             self.left_aux = self.pool_aux.new_zeros((Dg, T))
             self.plan = torch.zeros((Dg, 4), dtype=torch.int32, device=device)
+
+    def host_rounds(self, first: bool) -> None:
+        """One round of the group's copies on the host (the CPU)."""
+        self.inner.host_rounds(self.states, self.st, first, self.cycles)
 
     def context(self):
         """The group's device and stream as the current ones (the card)."""
@@ -130,30 +168,47 @@ class MeshProgram(R.CachedProgram):
     """D shards of one resident program (`resident_mesh.py`
     ``_MeshResidentProgram``), placed on a list of device positions
     (``devices``; default one, ``device``) by the (dp, mp) grid
-    ``mp_grid``: shard d on the position of its replica (d, 0). The shards
-    of one position form a group (``_Group``; a position may repeat a
-    card: two groups on one card). K is capped so that a dispatch's
-    ``rounds * K`` cycles keep the int32 counters in range
-    (`resident_mesh.py:110`). ``mp`` > 1 (PFSP lb2) splits each shard's lb2
-    pair loop in mp pair blocks and runs the unfused cycle. The blocks run
-    on the shard's card, one after another: there they sit at their grid
-    positions wherever the list names one card (repeated or not), and a
-    block whose position is another card runs on the shard's card too,
-    since the cycle is the body of the group's graph, and a conditional
-    node's body runs on one device (ROADMAP A.11, open).
+    ``mp_grid``. K is capped so that a dispatch's ``rounds * K`` cycles
+    keep the int32 counters in range (`resident_mesh.py:110`). ``mp`` > 1
+    (PFSP lb2) splits each shard's lb2 pair loop in mp pair blocks and runs
+    the unfused cycle.
+
+    Shard d has one copy at each distinct position of its grid row (the
+    JAX replicas (d, i), which redundantly own the same pool block,
+    `resident_mesh.py:118-121`; ``copy_layout``): the copy at a position
+    bounds the pair blocks placed there, in turn, and joins its peers'
+    planes through the shard's ``PairExchange`` (`ops/pair_exchange.py`,
+    the JAX ``lax.pmax``) once each evaluation, so every copy keeps the
+    same rows and meets the same loop condition on the same cycle, with
+    no other collective. A position repeating a card is a position of its
+    own (its own group, stream and graph). A shard whose row names one
+    position has one copy, which bounds every block: with mp = 1, or every
+    row on one position, the program is the one-copy tier as before. The
+    copies of one position form a group (``_Group``).
+
+    Every write from outside the cycles goes to every copy (``upload``,
+    the balance, ``clamp_best``); ``full_batch`` and the checkpoint read
+    the primaries (copy 0); each dispatch's read holds every copy's state
+    rows, round by round, to its primary's and raises on a difference or
+    on an exchange's error word (``ST_XERR``).
 
     One group is the tier as before: one CUDA graph a dispatch (``graph``)
     whose rounds run the shards' cycles and the balance kernel. Several
     groups dispatch one graph a group and round (a graph does not span
-    cards), each on its group's stream, and between the rounds the
-    cross-group balance (``_balance_groups``): the shards' state rows and
-    first T rows gathered onto the first group's card by device-to-device
-    copies, the plan of all D rows there (``mesh_plan``: the balance
-    kernel's plan launch), the rows and plans copied back, and each group's
-    gifts and sheds made on its own card (``shard_moves``). CUDA events
-    (``wait_stream``) order the streams; nothing is read on the host. The
-    plan depends only on the shards' sizes and incumbents, so every shard
-    holds the live rows of the one-group run with the same D."""
+    cards): each round's graphs are all launched, each on its group's
+    stream after the main stream, before the main stream waits for any of
+    them (copies that exchange inside their graphs would deadlock if one
+    waited for another's launch), then the cross-group balance
+    (``_balance_groups``): the primaries' state rows and first T rows
+    gathered onto the first group's card by device-to-device copies, the
+    plan of all D rows there (``mesh_plan``: the balance kernel's plan
+    launch), the rows and plans copied back to every copy, and each
+    group's gifts and sheds made on its own card (``shard_moves``). CUDA
+    events (``wait_stream``) order the streams; nothing is read on the
+    host. The plan depends only on the shards' sizes and incumbents, so
+    every shard holds the live rows of the one-group run with the same D.
+    Off the card the copies of several groups run their rounds in host
+    threads, one a group (the plain exchange waits at a barrier)."""
 
     cache_attr = "_mesh_programs"
 
@@ -178,12 +233,22 @@ class MeshProgram(R.CachedProgram):
         positions = mesh_devices(devices, device)
         self.devices = positions
         self.grid = mp_grid(self.D, self.mp, len(positions))
-        where = [row[0] for row in self.grid]
-        order = sorted(set(where))
+        self.layout = copy_layout(self.grid)
+        order = sorted({p for row in self.layout for p, _ in row})
         grouped = len(order) > 1
-        self.groups = [_Group(self, positions[p],
-                              [d for d in range(self.D) if where[d] == p],
-                              self.T, grouped) for p in order]
+        # One exchange a shard with several copies, over M*n words (the
+        # child plane; the staged self plane has as many rows).
+        self.exchanges = [
+            PairExchange([positions[p] for p, _ in row],
+                         M * problem.child_slots) if len(row) > 1 else None
+            for row in self.layout]
+        self.copied = any(x is not None for x in self.exchanges)
+        copies = {p: [] for p in order}
+        for d, row in enumerate(self.layout):
+            for i, (p, blocks) in enumerate(row):
+                copies[p].append(_Copy(d, i, blocks if len(row) > 1 else None))
+        self.groups = [_Group(self, positions[p], copies[p], self.T, grouped)
+                       for p in order]
         g0 = self.groups[0]
         self.inner = g0.inner
         inner = self.inner
@@ -198,35 +263,63 @@ class MeshProgram(R.CachedProgram):
         # One group: its tensors are the program's (a row a shard).
         # Several: ``st`` gathers every shard's row on the first group's
         # card at each balance (the dispatch's read), with the shards'
-        # first T rows and the plan.
+        # first T rows and the plan; with copies ``copy_st`` gathers every
+        # copy's row of each round before its balance.
         if grouped:
             width = problem.child_slots
+            dev = self.device
             self.st = torch.zeros((self.D, ST_LEN), dtype=torch.int32,
-                                  device=self.device)
+                                  device=dev)
             self.fronts_vals = g0.pool_vals.new_zeros((self.D, self.T, width))
             self.fronts_aux = g0.pool_aux.new_zeros((self.D, self.T))
             self.plan = torch.zeros((self.D, 4), dtype=torch.int32,
-                                    device=self.device)
+                                    device=dev)
             self.pool_vals = self.pool_aux = None
             self.scratch = None
-            self._rows = [torch.tensor(g.shards, device=self.device)
-                          for g in self.groups]
-            self._lefts = [torch.tensor([(d - 1) % self.D for d in g.shards],
-                                        device=self.device)
-                           for g in self.groups]
+            ids = iter(range(sum(len(g.copies) for g in self.groups)))
+            self._gather = []
+            for g in self.groups:
+                prim = [j for j, c in enumerate(g.copies) if c.index == 0]
+                self._gather.append((
+                    None if len(prim) == len(g.copies)
+                    else torch.tensor(prim, device=g.device),
+                    torch.tensor([g.shards[j] for j in prim], device=dev),
+                    torch.tensor(g.shards, device=dev),
+                    torch.tensor([(d - 1) % self.D for d in g.shards],
+                                 device=dev),
+                    torch.tensor([next(ids) for _ in g.copies], device=dev)))
+            self._copy_ids = [(g, j) for g in self.groups
+                              for j in range(len(g.copies))]
+            self.copy_st = (torch.zeros((self.rounds, len(self._copy_ids),
+                                         ST_LEN), dtype=torch.int32,
+                                        device=dev)
+                            if self.copied else None)
         else:
             self.st, self.pool_vals, self.pool_aux = g0.st, g0.pool_vals, \
                 g0.pool_aux
             self.scratch = g0.scratch
+            self.copy_st = None
         self.states = [None] * self.D
         for g in self.groups:
-            for j, d in enumerate(g.shards):
-                self.states[d] = g.states[j]
+            for j, c in enumerate(g.copies):
+                if c.index == 0:
+                    self.states[c.shard] = g.states[j]
         self._graphs: dict[tuple, MeshGraph] = {}
         self.graph_build_s = 0.0
         self.dispatch_device_s = 0.0 if self.graphed else None
         self._slots: list[tuple] = []
         self._next_slot = 0
+        # Set when a read found the copies apart: their exchanges' numbers
+        # may be too, so ``release`` closes the program.
+        self.failed = False
+
+    def release(self) -> None:
+        """``CachedProgram.release``, but a program whose copies failed is
+        closed, never served again."""
+        if self.failed:
+            self.close()
+        else:
+            super().release()
 
     @property
     def grouped(self) -> bool:
@@ -241,23 +334,39 @@ class MeshProgram(R.CachedProgram):
         the groups' programs take the same K."""
         self.K = max(1, min(K, (2**31 - 1) // max(1, self.Mn * self.rounds)))
         for g in self.groups:
-            g.inner.K = self.K
+            for p in g.programs:
+                p.K = self.K
+
+    def copy_states(self):
+        """``(shard, copy index, state)`` of every copy."""
+        for g in self.groups:
+            for c, s in zip(g.copies, g.states):
+                yield c.shard, c.index, s
 
     # -- the shards' frontiers ----------------------------------------------
 
     def upload(self, frontier: dict, best: int) -> None:
         """The static stride-D partition of ``frontier``
         (`nqueens_multigpu_chpl.chpl:221-225`): shard d gets nodes d::D,
-        copied into its existing tensors (the graphs stay valid), with
-        incumbent ``best`` and zeroed counts."""
-        for d, state in enumerate(self.states):
+        copied into every copy's existing tensors (the graphs stay valid),
+        with incumbent ``best`` and zeroed counts."""
+        for d, _, state in self.copy_states():
             self.inner.load_state(
                 state, {k: v[d::self.D] for k, v in frontier.items()}, best)
 
+    def clamp_best(self, best: int) -> None:
+        """Every copy's incumbent clamped to ``best`` (a global incumbent
+        from outside the mesh), behind the dispatches enqueued on each
+        group's stream."""
+        for g in self.groups:
+            with g.context():
+                g.st[:, ST_BEST].clamp_(max=int(best))
+
     def full_batch(self) -> dict:
-        """Every live node of every shard, shard by shard (the residual,
-        the checkpoint snapshot and the saturation fallback's download),
-        ordered after the dispatches enqueued on the current stream."""
+        """Every live node of every shard, shard by shard, from the
+        primaries (the residual, the checkpoint snapshot and the saturation
+        fallback's download), ordered after the dispatches enqueued on the
+        current stream."""
         p = self.problem
         fields = p.node_fields()
         if self.grouped and self.graphed:
@@ -265,8 +374,9 @@ class MeshProgram(R.CachedProgram):
                 torch.cuda.current_stream(g.device).wait_stream(g.stream)
         sizes = [0] * self.D
         for g in self.groups:
-            for d, size in zip(g.shards, g.st[:, 0].tolist()):
-                sizes[d] = size
+            for c, size in zip(g.copies, g.st[:, 0].tolist()):
+                if c.index == 0:
+                    sizes[c.shard] = size
         parts = [(s.pool_vals[:z], s.pool_aux[:z])
                  for s, z in zip(self.states, sizes)]
         batch = {
@@ -280,8 +390,9 @@ class MeshProgram(R.CachedProgram):
     # -- dispatch -----------------------------------------------------------
 
     def host_slots(self, depth: int) -> None:
-        """One pinned (D, ST_LEN) buffer and its events for each of
-        ``depth`` dispatches in flight (the graph's lagged reads)."""
+        """One pinned (D, ST_LEN) buffer (and with copies one for the
+        copies' rows) and its events for each of ``depth`` dispatches in
+        flight (the graph's lagged reads)."""
         if self.graphed and len(self._slots) != max(1, depth):
             self._slots = [
                 (torch.empty((self.D, ST_LEN), dtype=torch.int32,
@@ -289,7 +400,9 @@ class MeshProgram(R.CachedProgram):
                  torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True), torch.cuda.Event(),
                  None if self.clk is None else torch.empty(
-                     self.clk.numel(), dtype=torch.int64, pin_memory=True))
+                     self.clk.numel(), dtype=torch.int64, pin_memory=True),
+                 None if self.copy_st is None else torch.empty(
+                     self.copy_st.shape, dtype=torch.int32, pin_memory=True))
                 for _ in range(max(1, depth))]
             self._next_slot = 0
 
@@ -314,9 +427,8 @@ class MeshProgram(R.CachedProgram):
             inner = g.inner
             with g.context():
                 graph = MeshGraph(
-                    [inner.slot_cycle(s) for s in g.states],
-                    self.balance if r is None else None, g.st, self.m,
-                    self.Mn, self.capacity, self.K,
+                    g.cycles, self.balance if r is None else None, g.st,
+                    self.m, self.Mn, self.capacity, self.K,
                     self.rounds if r is None else 1,
                     obs=n if self.obs else 0, clk=self.clk,
                     fold=inner.fused, zero_block=r is None or r == 0)
@@ -327,13 +439,18 @@ class MeshProgram(R.CachedProgram):
     def step(self) -> None:
         """One dispatch on the host's loop (the CPU): ``rounds`` times, the
         shards' cycles until every shard's condition fails
-        (``host_rounds``), then the balance step."""
+        (``host_rounds``; the groups in threads where copies exchange),
+        then the balance step."""
         P = obs_phases.IDX
         if self.clk is not None:
             phase_mark(self.clk, 0, obs_phases.SEED)
         for r in range(self.rounds):
-            for g in self.groups:
-                g.inner.host_rounds(g.states, g.st, r == 0)
+            if self.copied:
+                _in_threads([lambda g=g: g.host_rounds(r == 0)
+                             for g in self.groups])
+            else:
+                for g in self.groups:
+                    g.host_rounds(r == 0)
             if self.clk is not None:
                 phase_mark(self.clk, P["loop"])
             if self.grouped:
@@ -349,16 +466,22 @@ class MeshProgram(R.CachedProgram):
         main = (torch.cuda.current_stream(self.device) if self.graphed
                 else None)
         T = self.T
-        for g, rows in zip(self.groups, self._rows):
+        for g, (prim, shards, _, _, ids) in zip(self.groups, self._gather):
             with _streams(main, g):
-                self.st.index_copy_(0, rows, g.st.to(self.device))
-                self.fronts_vals.index_copy_(
-                    0, rows, g.pool_vals[:, :T].to(self.device))
-                self.fronts_aux.index_copy_(
-                    0, rows, g.pool_aux[:, :T].to(self.device))
+                if self.copy_st is not None:
+                    self.copy_st[r].index_copy_(0, ids, g.st.to(self.device))
+                if not len(shards):
+                    continue
+                st, vals, aux = g.st, g.pool_vals[:, :T], g.pool_aux[:, :T]
+                if prim is not None:
+                    st, vals, aux = (t.index_select(0, prim)
+                                     for t in (st, vals, aux))
+                self.st.index_copy_(0, shards, st.to(self.device))
+                self.fronts_vals.index_copy_(0, shards, vals.to(self.device))
+                self.fronts_aux.index_copy_(0, shards, aux.to(self.device))
         mesh_plan(self.st, self.plan, self.m, T, self.Mn, self.capacity,
                   r == 0, r == self.rounds - 1)
-        for g, rows, lefts in zip(self.groups, self._rows, self._lefts):
+        for g, (_, _, rows, lefts, _) in zip(self.groups, self._gather):
             with _streams(main, g):
                 g.st.copy_(self.st.index_select(0, rows))
                 g.plan.copy_(self.plan.index_select(0, rows))
@@ -367,20 +490,53 @@ class MeshProgram(R.CachedProgram):
                 shard_moves(g.pool_vals, g.pool_aux, g.plan, g.left_vals,
                             g.left_aux)
 
+    def check_copies(self, copy_rows: list | None) -> None:
+        """Raise where a copy's exchange gave up (its error word) or a
+        copy's state row differs from its primary's in any round of the
+        dispatch (``copy_rows``: ``copy_st`` read after it; None without
+        copies), the loop's ``ST_ACTIVE`` aside (``loop_rows``)."""
+        if copy_rows is None:
+            return
+        for r, rows in enumerate(copy_rows):
+            primary = {}
+            for (g, j), row in zip(self._copy_ids, rows):
+                c = g.copies[j]
+                if row[ST_XERR]:
+                    self.failed = True
+                    raise_on_error(row[ST_XERR], c.index)
+                if c.index == 0:
+                    primary[c.shard] = row
+            for (g, j), row in zip(self._copy_ids, rows):
+                c = g.copies[j]
+                if loop_rows([row]) != loop_rows([primary[c.shard]]):
+                    self.failed = True
+                    raise RuntimeError(
+                        f"mesh copies diverged: shard {c.shard}'s copy "
+                        f"{c.index} on {g.device} left round {r} with state "
+                        f"{row}, its primary {primary[c.shard]}")
+
     def enqueue(self):
         """``step``, and a function ``read()`` that returns the dispatch's
         (D, ST_LEN) rows (lists), its phase block (or None) and its device
-        ms (None off the graph). On the graph: the launch between two
-        timing events (several groups: each group's graph a round, on its
-        stream, and the cross-group balance), the rows copied without
-        blocking into the next pinned slot behind a third; ``read`` waits
-        for it and counts the shards' runs as their cycles' launches."""
+        ms (None off the graph), after it checks the copies
+        (``check_copies``). On the graph: the launch between two timing
+        events (several groups: each group's graph a round, on its stream,
+        launched together, and the cross-group balance), the rows copied
+        without blocking into the next pinned slot behind a third; ``read``
+        waits for it and counts the shards' runs as their cycles'
+        launches."""
         if not self.graphed:
             self.step()
             rows = self.st.tolist()
+            copy_rows = (None if self.copy_st is None
+                         else self.copy_st.tolist())
             ph = self.clk.tolist() if self.clk is not None else None
-            return lambda: (rows, ph, None)
-        buf, start, end, done, clkbuf = self._slots[self._next_slot]
+
+            def read_host():
+                self.check_copies(copy_rows)
+                return rows, ph, None
+            return read_host
+        buf, start, end, done, clkbuf, copybuf = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
         # The graphs (built at first use) before the timed launches. Each
         # group's graphs run the same cycles: its round-0 graph counts the
@@ -395,9 +551,13 @@ class MeshProgram(R.CachedProgram):
         if self.grouped:
             main = torch.cuda.current_stream(self.device)
             for r, launches in enumerate(rounds):
+                for g in self.groups:
+                    g.stream.wait_stream(main)
                 for graph, g in zip(launches, self.groups):
-                    with _streams(main, g):
+                    with torch.cuda.stream(main), g.context():
                         graph.launch()
+                for g in self.groups:
+                    main.wait_stream(g.stream)
                 self._balance_groups(r)
         else:
             graphs[0][0].launch()
@@ -405,6 +565,8 @@ class MeshProgram(R.CachedProgram):
         buf.copy_(self.st, non_blocking=True)
         if clkbuf is not None:
             clkbuf.copy_(self.clk, non_blocking=True)
+        if copybuf is not None:
+            copybuf.copy_(self.copy_st, non_blocking=True)
         done.record()
 
         def read():
@@ -412,6 +574,8 @@ class MeshProgram(R.CachedProgram):
             ms = start.elapsed_time(end)
             self.dispatch_device_s += ms / 1e3
             rows = buf.tolist()
+            self.check_copies(copybuf.tolist() if copybuf is not None
+                              else None)
             for graph, g in graphs:
                 graph.count([rows[d] for d in g.shards])
             return rows, (clkbuf.tolist() if clkbuf is not None else None), ms
@@ -423,8 +587,43 @@ class MeshProgram(R.CachedProgram):
             g.close()
         self._graphs.clear()
         for g in self.groups:
-            g.inner.close()
+            for p in {id(p): p for p in g.programs}.values():
+                p.close()
         self.states = []
+
+
+def loop_rows(rows: list) -> list:
+    """State rows (lists) without the word ``ST_ACTIVE``: whether a
+    shard's cycle ran in the last iteration of its group's ``while`` loop,
+    which ends when the group's last shard stops, so two groups holding
+    other shards beside a shard's copies may leave it apart (a gate sets
+    it again before any cycle reads it). Every other word of a copy's row
+    is its primary's and, at one copy a shard, the one-position
+    program's."""
+    return [row[:ST_ACTIVE] + row[ST_ACTIVE + 1:] for row in rows]
+
+
+def _in_threads(fns: list) -> None:
+    """Run each of ``fns`` in a host thread of its own and wait for all;
+    raise the first error any of them raised (the copies of several groups
+    on the CPU, whose plain exchanges wait for each other)."""
+    errors: list = []  # list.append is atomic: the threads' only shared state
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,), daemon=True,
+                                name=f"mesh-copies-{i}")
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 @contextmanager
@@ -448,6 +647,20 @@ def mp_grid(D: int, mp: int, G: int) -> list[list[int]]:
     mp].reshape(D, mp)``) where G >= D * mp, wrapped round a shorter list
     (the JAX tier refuses one)."""
     return [[(d * mp + i) % G for i in range(mp)] for d in range(D)]
+
+
+def copy_layout(grid: list[list[int]]) -> list[list[tuple[int, list[int]]]]:
+    """Each shard's copies from its ``mp_grid`` row: one ``(position,
+    pair blocks)`` a distinct position of the row, in the order of their
+    first block (copy 0, the primary, at replica (d, 0)'s position), each
+    with the blocks i whose replica (d, i) sits there."""
+    out = []
+    for row in grid:
+        where: dict[int, list[int]] = {}
+        for i, p in enumerate(row):
+            where.setdefault(p, []).append(i)
+        out.append(list(where.items()))
+    return out
 
 
 def mesh_devices(devices, device) -> list[torch.device]:
@@ -816,3 +1029,35 @@ def mesh_resident_search(
         guard=guards.record(),
         mp=program.mp,
     )
+
+
+# -- program contracts (`check`, analysis/contracts.py) ------------------------
+
+from ..analysis.contracts import contract  # noqa: E402
+
+#: The exchange's kernels, once each in a copy's gated body.
+_XCHG_KERNELS = ("xchg_post", "xchg_wait", "xchg_max")
+
+
+@contract(
+    "mesh-copies-device-only",
+    claim="under --mp over several positions the copies' dispatch graphs "
+          "hold no host node and no memcpy with a host end, in any body "
+          "they nest (a copy waits for its peers on the device only), and "
+          "each copy's gated cycle body runs the pair exchange's post, wait "
+          "and max once each",
+    artifact="mesh-copies",
+)
+def _contract_mesh_copies(art, cell):
+    out = []
+    for label, nodes in art["nodes"].items():
+        host = [name for name, kind in nodes
+                if kind in ("host", "memcpy_host")]
+        if host:
+            out.append(f"{label}: host nodes {host}")
+        if ".gate" in label:
+            got = [sum(k in name for name, _ in nodes) for k in _XCHG_KERNELS]
+            if got != [1, 1, 1]:
+                out.append(f"{label}: exchange kernels {dict(zip(_XCHG_KERNELS, got))}"
+                           ", want one each")
+    return out
