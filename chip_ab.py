@@ -30,12 +30,18 @@ the four runs side by side, with ``outside``: the rows whose two B times
 both fall outside the two A times, and B's mean over A's less one.
 
 ``--searches`` runs, in the same turns, the fused ta014 lb1, N-Queens N=15
-and ta014 lb2 searches through each checkout's own ``resident_search`` at
+and ta014 lb2 searches and the streamed N=15 (``--mt 80``) through each
+checkout's own ``resident_search`` at
 the CLI's defaults, one process a run, each search once to build its
 kernels and graphs and then ``SEARCH_REPS`` times (``--searches-of ROOT``,
 one JSON line: per search the phase 2 seconds and the dispatches' device
 ms by CUDA events of each timed run), then the medians side by side with
-``outside`` as above. Telemetry off in both (the knobs unset). With
+``outside`` as above. Telemetry off in both (the knobs unset), but for
+``PHASE_REPS`` more runs of each fused search with the phase clock armed
+(``TTS_PHASEPROF=1``, which arms the counters: their graph ends with
+``dispatch_cond_obs``), whose ``loop`` phase (the time between one
+cycle's last mark and the next one's first) goes beside the rest as
+``loop_ms``. With
 ``--unfused`` the searches are the unfused cycle's: ta014 lb1_d, ta014
 lb2 staged and single-pass (``fused=False``, ``staged=False``), ta014 lb1
 at M = 1024 and N-Queens N = 14 (a checkout whose unfused dispatches are
@@ -143,8 +149,10 @@ def rows_of(root: Path) -> dict:
 # The --searches runs: (name, CLI argv), and the timed runs of each.
 SEARCHES = (("ta014_lb1", ["pfsp", "--inst", "14", "--lb", "lb1", "--ub", "1"]),
             ("nqueens_N15", ["nqueens", "--N", "15"]),
-            ("ta014_lb2", ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1"]))
+            ("ta014_lb2", ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1"]),
+            ("nqueens_N15_mt80", ["nqueens", "--N", "15", "--mt", "80"]))
 SEARCH_REPS = 5
+PHASE_REPS = 2
 # The --searches --unfused runs: (name, CLI argv, M or None for the CLI's
 # default, resident_search's keywords).
 UNFUSED_SEARCHES = (
@@ -162,7 +170,9 @@ UNFUSED_SEARCHES = (
 def searches_of(root: Path, unfused: bool = False) -> dict:
     """The fused searches of ``SEARCHES`` (``unfused``: of
     ``UNFUSED_SEARCHES``) through the checkout at ``root`` (the current
-    directory): ``{name: [[phase2_s, device_ms, tree], ...]}``."""
+    directory): ``{name: [[phase2_s, device_ms, tree], ...]}``, and for the
+    fused searches ``{"loop": {name: [loop_ms, ...]}}``, the phase clock's
+    ``loop`` of each armed run after the first."""
     import contextlib
     import io
     import os
@@ -189,13 +199,27 @@ def searches_of(root: Path, unfused: bool = False) -> dict:
             with contextlib.redirect_stdout(io.StringIO()):
                 res = resident_search(prob, m=args.m,
                                       M=M or cli.default_M(args.problem, "cuda"),
-                                      K=4096, device=dev, **kwargs)
+                                      K=4096, device=dev, mt=args.mt, **kwargs)
             if rep:
                 dev_s = res.dispatch_device_s
                 runs.append([res.phases[1].seconds,
                              None if dev_s is None else dev_s * 1e3,
                              res.explored_tree])
         out[name] = runs
+        if unfused:
+            continue
+        os.environ["TTS_PHASEPROF"] = "1"
+        try:
+            for rep in range(PHASE_REPS + 1):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = resident_search(prob, m=args.m,
+                                          M=cli.default_M(args.problem, "cuda"),
+                                          K=4096, device=dev, mt=args.mt)
+                if rep:
+                    out.setdefault("loop", {}).setdefault(name, []).append(
+                        res.phase_profile["loop"] / 1e6)
+        finally:
+            os.environ.pop("TTS_PHASEPROF", None)
     return out
 
 
@@ -296,6 +320,9 @@ def main_searches(roots: dict, out: Path, unfused: bool = False) -> int:
             rows[f"{name}/{field}"] = [
                 None if any(r[j] is None for r in run[name])
                 else statistics.median(r[j] for r in run[name]) for run in runs]
+        loops = [run.get("loop", {}).get(name) for run in runs]
+        if all(loops):
+            rows[f"{name}/loop_ms"] = [statistics.median(v) for v in loops]
     print(json.dumps({"order": "ABBA", "median": rows, "outside": outside(rows)}),
           flush=True)
     return 0

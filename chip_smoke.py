@@ -94,12 +94,17 @@ ends the script with a non-zero exit before the final line:
      with its route (``tables``) or ``mask_words``, time, plain time and
      bound;
  16c. ``graph_dispatch``: one graph dispatch of K = 4 cycles (the program's
-     CUDA graph, csrc/dispatch_graph.cu) against 4 plain cycles on a ta014
-     lb1 frontier at M = 49152 and an N-Queens N = 15 one at M = 50000:
-     equal counts, state and live rows, with the graph's build seconds;
-     then the same dispatch with telemetry off, with the counter block
+     CUDA graph, csrc/dispatch_graph.cu) of each fused and streamed cycle
+     (kernels 2, 4, 8, 9a, 9b, 9c; ta014 lb1, lb2 with no incumbent at
+     M = 49152, N-Queens N = 15 at M = 50000) against the plain dispatch
+     loop (the plain cycles and ``cycle_cond_plain``): every state word
+     through ``st[ST_RUNS]`` and every live row equal, the body the
+     cycle's launches alone (the cycle sets the while node's condition),
+     and an N = 10 dispatch that ends before its K = 64 running no extra
+     body, with the graph's build seconds; then, on ta014 lb1 and N = 15,
+     the same dispatch with telemetry off, with the counter block
      (``TTS_OBS=1``) and with the phase clock (``TTS_PHASEPROF=1``):
-     the body's kernels (off: the cycle's launches and ``dispatch_cond``;
+     the body's kernels (off: the cycle's launches alone;
      armed: ``dispatch_cond_obs`` in its place; the clock: a
      ``phase_mark`` before and after each launch), and the counter block
      against ``dispatch_cond_obs_plain`` after the same plain cycles,
@@ -249,15 +254,18 @@ ends the script with a non-zero exit before the final line:
      state row and live row equal, the copies' rows their primaries',
      error words 0 (with two cards the same over cuda:0,cuda:1);
  18q. ``whole_profile``: ``--profile`` on the fused ta014 lb1 search, its
-     trace naming kernel 2's launches;
- 18r. ``copies_traced``: one dispatch of the copies over two and four
-     positions untraced, then under ``torch.profiler``, whether the
-     traced exchanges completed or timed out (recorded, not a failure);
+     trace naming kernel 2's launches, and, in a process of its own, on
+     the unfused ta014 lb1 M = 1024 search: the goldens and the window the
+     CLI prints (K capped, dispatches 1..i of N traced within the budget);
+ 18r. ``copies_traced``: the CLI refuses ``--profile`` of the copies over
+     ``cuda:0,cuda:0`` (exit 2) and runs the line untraced to the goldens;
+     one dispatch of the copies over two and four positions untraced,
+     then under ``torch.profiler``, where ``MeshProgram`` refuses it;
  18n. ``compact_*``: the unfused ta014 lb1 M = 1024, N-Queens N = 14 and
      ta014 lb2 staged under ``--compact`` scatter, sort and search to the
      goldens, each with its counts set to 0 just before it and the body's
      kernel launched; a guarded unfused N = 14 under sort and under search;
-     ``check``: ``check --device cuda`` (`analysis/program_audit.py`) over
+     ``check``: ``check`` with no ``--device``, the card (`analysis/program_audit.py`), over
      every matrix cell's dispatch graph, the node names and types held to
      the contracts, 0 findings;
  18c. the single-device tiers beside the resident engine: ``seq``, the
@@ -309,7 +317,10 @@ ends the script with a non-zero exit before the final line:
      the launches of phase 19; the lb2 and N-Queens rows carry ``wide``
      (phase 16b), and ``dispatch_graph`` (the graph dispatch, the host
      loop's counterpart of the JAX ``lax.while_loop``) its phase 16c time,
-     its condition kernel's time a cycle and the pipeline runs; rows 1, 3,
+     its condition kernel's time a cycle and the pipeline runs;
+     ``dispatch_init`` and ``dispatch_cond`` (the graph's own nodes) their
+     launches (none of ``dispatch_cond`` on a fused search: the cycle sets
+     the condition) and profiled times; rows 1, 3,
      5, 6 and 7 carry the offload runs' launches (``offload_launches``);
      ``dispatch_cond_obs`` (the counter node) and ``phase_mark`` (the
      clock) carry the launches of the armed ta014 lb1 runs of phase 18d;
@@ -1256,60 +1267,122 @@ def phase_lb2_wide(dev) -> dict:
     return rows
 
 
+#: The graph dispatch's cases: (name, problem, M, mt, the body's source
+#: ("unfused": the unfused cycle, whose body ends with dispatch_cond), K,
+#: whether the dispatch runs all K cycles: True, or False (the search ends
+#: before its K-th cycle, so the body must run no more than the real
+#: cycles)).
+def graph_cases():
+    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
+
+    lb1 = PFSPProblem(inst=14, lb="lb1", ub=1)
+    # No incumbent: ta014 lb2's tree at the optimum is smaller than a chunk.
+    lb2 = PFSPProblem(inst=14, lb="lb2", ub=0)
+    nq = NQueensProblem(15)
+    return (("ta014_lb1", lb1, 49152, None, "cycle_lb1", 4, True),
+            ("nqueens_N15", nq, 50000, None, "cycle_nqueens", 4, True),
+            ("ta014_lb2", lb2, 49152, None, "cycle_lb2", 4, True),
+            ("nqueens_N15_mt80", nq, 50000, 80, "tiled_nqueens", 4, True),
+            ("ta014_lb1_mt64", lb1, 49152, 64, "tiled_lb1", 4, True),
+            ("ta014_lb2_mt64", lb2, 49152, 64, "tiled_lb2", 4, True),
+            ("nqueens_N10_ends", NQueensProblem(10), 1024, None, "cycle_nqueens", 64,
+             False),
+            ("ta014_lb1_unfused", lb1, 1024, None, "unfused", 4, True))
+
+
+def plain_cycle(source: str, prob, prog, ref, M: int, mt, K: int) -> None:
+    """One plain cycle of the body ``source`` on the state ``ref``."""
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import tiled as T
+
+    v, a, st = ref.pool_vals, ref.pool_aux, ref.st
+    if source == "unfused":
+        prog._unfused_cycle(ref)
+    elif source == "cycle_nqueens":
+        CN.cycle_nqueens_plain(v, a, st, prob.N, prob.g, M, 25, K)
+    elif source == "tiled_nqueens":
+        T.tiled_nqueens_plain(v, a, st, prob, M, mt, 25, K)
+    elif source.startswith("tiled_"):
+        (T.tiled_lb1_plain if source == "tiled_lb1" else T.tiled_lb2_plain)(
+            v, a, st, prog.tables, M, mt, 25, K)
+    else:
+        (C.cycle_lb1_plain if source == "cycle_lb1" else C.cycle_lb2_plain)(
+            v, a, st, prog.tables, M, 25, K)
+
+
 def phase_graph_dispatch(dev) -> dict:
-    """The graph dispatch (csrc/dispatch_graph.cu) against K plain cycles
-    on a seeded ta014 lb1 frontier at M = 49152 and an N-Queens N = 15 one
-    at M = 50000: one dispatch of K = 4 cycles through the program's graph,
-    the same K cycles through the plain versions; equal counts, state and
-    live rows. The graph's build seconds and its dispatch's CUDA-event
-    time beside the K plain cycles' time. Then the same dispatch in each
-    telemetry variant (``graph_variants``): the body's kernels, and armed,
-    the counter block against the plain update over the same K plain
-    cycles, slot for slot."""
+    """The graph dispatch (csrc/dispatch_graph.cu) against the plain
+    dispatch loop on seeded frontiers, one case a fused and streamed cycle
+    (kernels 2, 4, 8, 9a, 9b, 9c; ``graph_cases``): one dispatch of K = 4
+    cycles through the program's graph, whose body is the cycle's launches
+    alone (the cycle sets the while node's condition itself: no
+    dispatch_cond), and the same dispatch through the plain cycles and
+    ``cycle_cond_plain``; every state word through st[ST_RUNS] and every
+    live row equal, the runs equal to the cycles. One case ends its
+    search before its K: its body runs no more than the cycles; one is the
+    unfused cycle (M = 1024), whose body ends with dispatch_cond, against
+    its cycles launched eagerly and ``cycle_cond_plain``. The
+    graph's build seconds and its dispatch's CUDA-event time beside the
+    plain loop's time. Then, on ta014 lb1 and N = 15, the same dispatch in
+    each telemetry variant (``graph_variants``): the body's kernels, and
+    armed, the counter block against the plain update over the same K
+    plain cycles, slot for slot."""
     from tpu_tree_search_torch.engine.device import warmup
     from tpu_tree_search_torch.engine.resident import make_program
     from tpu_tree_search_torch.ops import cycle as C
-    from tpu_tree_search_torch.ops import cycle_nqueens as CN
+    from tpu_tree_search_torch.ops import dispatch as D
     from tpu_tree_search_torch.pool import SoAPool
-    from tpu_tree_search_torch.problems import NQueensProblem, PFSPProblem
     from tpu_tree_search_torch.problems.base import index_batch
 
     rows = {}
-    K = 4
-    for name, prob, M in (("ta014_lb1", PFSPProblem(inst=14, lb="lb1", ub=1), 49152),
-                          ("nqueens_N15", NQueensProblem(15), 50000)):
+    for name, prob, M, mt, source, K, full in graph_cases():
         best = getattr(prob, "initial_ub", INF)
         pool = SoAPool(prob.node_fields())
         pool.push_back(index_batch(prob.root(), 0))
         warmup(prob, pool, best, M + 517)
         fr = pool.as_batch()
         n = prob.child_slots
-        prog = make_program(prob, 25, M, K, 2 * fr[prob.vals_field].shape[0] + 2 * M * n,
-                            dev)
+        # Room for K full fan-outs (ta014 lb2 with no incumbent prunes little).
+        cap = 2 * fr[prob.vals_field].shape[0] + (K + 1) * M * n
+        fused = source != "unfused"
+        prog = make_program(prob, 25, M, K, cap, dev, mt=mt, fused=fused)
         prog.host_slots(1)
         state = prog.init_state(fr, best)
         ref = prog.init_state(fr, best)
-        got = prog.enqueue(state)()
-        ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
-        if name.startswith("nq"):
-            def plain():
-                CN.cycle_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, 15, 1, M, 25, K)
+        prog.enqueue(state)()
+        g = next(iter(prog._graphs.values()))
+        if fused:
+            names = body_names(g)
+            check(g.own_cond and names == list(GRAPH_BODY[source]),
+                  f"{name}: body {names} (own condition {g.own_cond}) != the cycle's "
+                  f"launches {list(GRAPH_BODY[source])}")
         else:
-            def plain():
-                C.cycle_lb1_plain(ref.pool_vals, ref.pool_aux, ref.st, prog.tables, M, 25, K)
+            names = g.kernels()[-1:]
+            check(not g.own_cond and "dispatch_cond" in names[0],
+                  f"{name}: the unfused body ends with {names}, not dispatch_cond")
+        # The plain dispatch loop: the init node's zeroes, then the cycle
+        # and the body's end while the condition holds.
+        ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+        ref.st[C.ST_RUNS] = 0
         popped = 0
         t0 = time.perf_counter()
-        for _ in range(K):
+        live = D.loop_active(ref.st.tolist(), 25, M * n, prog.capacity, K)
+        while live:
             popped += min(int(ref.st[C.ST_SIZE]), M)
-            plain()
+            plain_cycle(source, prob, prog, ref, M, mt, K)
+            live = D.cycle_cond_plain(ref.st, 25, M * n, prog.capacity, K)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        size, bst, tree, sol, cycles = ref.st[:C.ST_CYCLES + 1].tolist()
-        err = max(abs(a - b) for a, b in zip(got, (tree, sol, cycles, size, bst)))
-        err = max(err, int((state.pool_vals[:size].int() - ref.pool_vals[:size].int())
-                           .abs().max()),
-                  int((state.pool_aux[:size].int() - ref.pool_aux[:size].int()).abs().max()))
-        check(err == 0 and cycles == K, f"graph dispatch differs from {K} plain cycles ({name})")
+        words = state.st[:C.ST_RUNS + 1].tolist()
+        want = ref.st[:C.ST_RUNS + 1].tolist()
+        size, _, tree, _, cycles = want[:C.ST_CYCLES + 1]
+        err = max(max(abs(a - b) for a, b in zip(words, want)),
+                  _maxdiff(state.pool_vals[:size], ref.pool_vals[:size]),
+                  _maxdiff(state.pool_aux[:size], ref.pool_aux[:size]))
+        check(err == 0 and words[C.ST_RUNS] == cycles and cycles > 0
+              and (cycles == K if full else cycles < K),
+              f"graph dispatch {words} differs from the plain loop {want} ({name}, K={K})")
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         times = []
         for _ in range(5):
@@ -1325,16 +1398,17 @@ def phase_graph_dispatch(dev) -> dict:
         # survivor row written once (rows and their scalar), the state.
         isz = state.pool_vals.element_size()
         bms, by = bound_ms((popped + tree) * (n + 1) * isz + 64, 0.0)
-        variants = graph_variants(dev, name, prob, M, None,
-                                  "cycle_nqueens" if name.startswith("nq") else "cycle_lb1", K)
-        rows[name] = dict(search=name, M=M, K=K, cycles=cycles, popped=popped,
-                          tree_inc=tree, max_abs_err=err,
-                          graph_build_s=prog.graph_build_s,
+        rows[name] = dict(search=name, M=M, mt=mt, K=K, cycles=cycles, runs=words[C.ST_RUNS],
+                          popped=popped, tree_inc=tree, max_abs_err=err,
+                          body=names, graph_build_s=prog.graph_build_s,
                           dispatch_ms=float(np.median(times)), plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by,
-                          counters_max_abs_err=max(v.get("counters_max_abs_err", 0)
-                                                   for v in variants.values()),
-                          variants=variants)
+                          bound_ms=bms, bound_by=by)
+        if name in ("ta014_lb1", "nqueens_N15"):
+            variants = graph_variants(dev, name, prob, M, None, source, K)
+            rows[name].update(
+                counters_max_abs_err=max(v.get("counters_max_abs_err", 0)
+                                         for v in variants.values()),
+                variants=variants)
         emit("graph_dispatch", **rows[name])
     return rows
 
@@ -1814,7 +1888,13 @@ def phase_profile(name: str, argv: list[str], golden: dict,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    counters = {} if cycle is None else {"cycle": cycle[0]}
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    # dispatch_cond's launches: the body runs of the graphs it ends (none
+    # where the cycle sets the condition itself).
+    counters = {"dispatch_cond": D.dispatch_cond, "dispatch_init": D.dispatch_init}
+    if cycle is not None:
+        counters["cycle"] = cycle[0]
     activities = [ProfilerActivity.CPU] if host else []
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -1846,7 +1926,8 @@ def phase_profile(name: str, argv: list[str], golden: dict,
                    kernel_launches={kn: sum(c for k, c in counts.items() if kn in k)
                                     for kn in kernels})
     # The graph dispatch's own kernels (csrc/dispatch_graph.cu): one
-    # dispatch_init a dispatch, one dispatch_cond a cycle run. Their device
+    # dispatch_init a dispatch, one dispatch_cond a run of an unfused
+    # body (a fused cycle sets the condition itself). Their device
     # time by the CUDA events around each graph launch (``dispatch_device_s``,
     # complete where the trace may not be, §3 of PERF.md) beside the trace's.
     graph = {g: (sum(v for k, v in by_name.items() if g in k),
@@ -1860,8 +1941,11 @@ def phase_profile(name: str, argv: list[str], golden: dict,
                event_busy_share=None if event_ms is None else event_ms / phase2_ms,
                graph_kernel_ms={g: ms for g, (ms, _) in graph.items()},
                graph_kernel_launches={g: c for g, (_, c) in graph.items()},
+               graph_kernel_runs={g: rec["launches"][g] for g in graph},
                cond_ms_per_cycle=graph["dispatch_cond"][0]
-               / max(graph["dispatch_cond"][1], 1))
+               / max(graph["dispatch_cond"][1], 1),
+               init_ms_per_dispatch=graph["dispatch_init"][0]
+               / max(graph["dispatch_init"][1], 1))
     if cycle is not None:
         _, names, per_call = cycle
         # The wrapper's launches: the graph bodies' runs, equal to the real
@@ -1872,10 +1956,14 @@ def phase_profile(name: str, argv: list[str], golden: dict,
         # The trace may drop events of a graph body, never add any. It is
         # complete when it holds every dispatch_init and dispatch_cond that
         # ran; then it must hold per_call launches a cycle run, exactly.
+        # Where the cycle sets the condition itself, no node beside it
+        # counts the body's runs: the trace's completeness is not known.
+        conds = rec["launches"]["dispatch_cond"]
         lost = {"cycle": per_call * calls - launches,
-                "dispatch_cond": calls - graph["dispatch_cond"][1],
+                "dispatch_cond": conds - graph["dispatch_cond"][1],
                 "dispatch_init": rec["dispatches"] - graph["dispatch_init"][1]}
-        complete = lost["dispatch_cond"] == 0 and lost["dispatch_init"] == 0
+        complete = (conds > 0 and lost["dispatch_cond"] == 0
+                    and lost["dispatch_init"] == 0)
         out.update(cycle_calls=calls, cycle_captures=rec["captures"]["cycle"],
                    real_cycles=real, cycle_kernel_launches=launches,
                    launches_per_cycle=launches / max(calls, 1),
@@ -1899,12 +1987,14 @@ def phase_profile(name: str, argv: list[str], golden: dict,
 
 # The telemetry variants, by the knobs each sets.
 OBS_VARIANTS = {"off": {}, "obs": {"TTS_OBS": "1"}, "phaseprof": {"TTS_PHASEPROF": "1"}}
-# The body's launches a cycle, by graph (the off body ends with
-# dispatch_cond, the armed ones with dispatch_cond_obs; with the clock a
-# phase_mark opens the cycle and follows each launch).
+# The body's launches a cycle, by graph (the off body is the cycle's
+# launches alone, its emit setting the loop condition; the armed ones end
+# with dispatch_cond_obs; with the clock a phase_mark opens the cycle and
+# follows each launch).
 GRAPH_BODY = {"cycle_lb1": CYCLE_KERNELS, "cycle_lb2": LB2_CYCLE_KERNELS,
               "cycle_nqueens": NQ_CYCLE_KERNELS,
-              "tiled_nqueens": TILED_KERNELS["nqueens"]}
+              "tiled_nqueens": TILED_KERNELS["nqueens"],
+              "tiled_lb1": TILED_KERNELS["lb1"], "tiled_lb2": TILED_KERNELS["lb2"]}
 
 
 @contextlib.contextmanager
@@ -1938,7 +2028,7 @@ def body_names(graph) -> list[str]:
 def want_body(source: str, variant: str) -> list[str]:
     cycle = list(GRAPH_BODY[source])
     if variant == "off":
-        return cycle + ["dispatch_cond"]
+        return cycle
     if variant == "obs":
         return cycle + ["dispatch_cond_obs"]
     body = ["phase_mark"]
@@ -2590,6 +2680,62 @@ def metrics_text(base: str) -> str:
         text = r.read().decode()
     parse_text(text)
     return text
+
+
+def graph_node_rows(dev, gd: dict, fused: dict, nq15: dict, unfused: dict,
+                    profs: dict, prof_nq14: dict) -> list[dict]:
+    """The kernels line's rows of the dispatch graph's own nodes (not TPU
+    kernels: the JAX ``lax.while_loop``'s init and ``cond``). ``dispatch_init``
+    once a dispatch on the fused ta014 lb1 search; ``dispatch_cond`` once a
+    cycle of an unfused body (the fused cycles set the condition
+    themselves: no launch on their searches), its time on the unfused N=14
+    search. Plain versions on the card's state; max diff: the K = 4 graph
+    dispatches' state words against the plain dispatch loop (phase
+    graph_dispatch; ``dispatch_cond``: its unfused case)."""
+    from tpu_tree_search_torch.ops import cycle as C
+    from tpu_tree_search_torch.ops import dispatch as D
+
+    st = C.new_state(60000, INF, dev)
+    Mn, cap = 49152 * 20, 1 << 22
+
+    def init_plain():
+        st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+        st[C.ST_RUNS] = 0
+        D.loop_active(st.tolist(), 25, Mn, cap, 4)
+
+    init_ms = median_ms(init_plain, 20)
+    cond_ms = median_ms(lambda: D.cycle_cond_plain(st, 25, Mn, cap, 1 << 30), 20)
+    err = {"dispatch_init": max(r["max_abs_err"] for r in gd.values()),
+           "dispatch_cond": gd["ta014_lb1_unfused"]["max_abs_err"]}
+    fprof = profs["search_fused_M49152"]
+    rows = []
+    for name, launches, path, ms, timing, nbytes, replaces, extra in [
+            ("dispatch_init", fused["launches"]["dispatch_init"], "search_fused_M49152",
+             fprof["init_ms_per_dispatch"],
+             f"profiler ({fprof['graph_kernel_launches']['dispatch_init']} launches, "
+             "search_fused_M49152)",
+             # Reads size and cycles, writes tree, sol, cycles and runs.
+             6 * 4, "tpu_tree_search/engine/resident.py:438", {}),
+            ("dispatch_cond", unfused["launches"]["dispatch_cond"], "search_unfused_M1024",
+             prof_nq14["cond_ms_per_cycle"],
+             f"profiler ({prof_nq14['graph_kernel_launches']['dispatch_cond']} launches, "
+             "search_nqueens_N14_unfused)",
+             # Reads size, cycles and runs, writes runs.
+             4 * 4, "tpu_tree_search/engine/resident.py:421",
+             {"fused_launches": {"search_fused_M49152": fused["launches"]["dispatch_cond"],
+                                 "search_nqueens_N15_fused":
+                                     nq15["launches"]["dispatch_cond"]},
+              "fused_traced_launches": {n: r["graph_kernel_launches"]["dispatch_cond"]
+                                        for n, r in profs.items()}})]:
+        bms, by = bound_ms(nbytes, 0.0)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "tpu_tree_search_torch/csrc/dispatch_graph.cu",
+                     "replaces": replaces, "launches": launches, "launches_path": path,
+                     "shape": "one thread, the loop state's int32 words",
+                     "max_abs_err": err[name], "ms": ms, "timing": timing,
+                     "plain_ms": init_ms if name == "dispatch_init" else cond_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None, **extra})
+    return rows
 
 
 def batch_kernel_rows(bg: dict, serve: dict) -> list[dict]:
@@ -4274,30 +4420,50 @@ def phase_mesh_mp_copies(counters: dict, mp_runs: dict, xchg: dict) -> dict:
     return rows
 
 
+#: The copies' CLI line of phase 18r (ta014 lb2, two copies of each of two
+#: shards over two positions of the card).
+COPIES_CLI = ["pfsp", "--inst", "14", "--lb", "lb2", "--ub", "1", "--tier", "mesh",
+              "--D", "2", "--mp", "2", "--device", "cuda:0,cuda:0"]
+
+
 def phase_copies_traced() -> dict:
-    """Phase 18r: one dispatch of the copies' mesh (ta014 lb2 D = 2,
-    mp = 2 staged, M = 49152, K = 16) over two and four positions of the
-    card, untraced and then under ``torch.profiler``: whether the traced
-    dispatch's exchanges completed or their waits gave up (the error
-    word: the read raises, and the program is closed). The copies need
-    the card to run the groups' graphs at once, which CUDA does not
-    promise. Fails where an untraced dispatch fails, not on the traced
-    outcome."""
+    """Phase 18r: copies of one shard on one card under a trace, refused.
+    The CLI exits 2 on ``COPIES_CLI`` with ``--profile`` (the reason on
+    stderr, nothing run) and runs the same line untraced to the goldens.
+    Then one dispatch of the copies' mesh (ta014 lb2 D = 2, mp = 2 staged,
+    M = 49152, K = 16) over two and four positions of the card, untraced
+    and then under ``torch.profiler``: ``MeshProgram`` raises the reason
+    before it launches anything (where before the copies' waits timed out
+    after 20 s), and an untraced dispatch after it still runs."""
+    import os
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_tree_search_torch import cli
     from tpu_tree_search_torch.engine.device import warmup
-    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+    from tpu_tree_search_torch.parallel.resident_mesh import COPIES_TRACED, MeshProgram
     from tpu_tree_search_torch.pool.pool import SoAPool
     from tpu_tree_search_torch.problems import PFSPProblem
     from tpu_tree_search_torch.problems.base import index_batch
 
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(COPIES_CLI + ["--profile", d])
+        wrote = os.listdir(d)
+    check(rc == 2 and COPIES_TRACED in err.getvalue() and not wrote,
+          f"--profile of copies on one card: rc {rc}, {err.getvalue()[-200:]!r}, {wrote}")
+    rec = run_search(COPIES_CLI, GOLDEN_LB2)
+    out = {"cli": dict(rc=rc, reason=err.getvalue().strip()[-160:],
+                       untraced_dispatches=rec["dispatches"],
+                       untraced_elapsed_s=rec["elapsed_s"])}
     prob = PFSPProblem(inst=14, lb="lb2", ub=1)
     pool = SoAPool(prob.node_fields())
     pool.push_back(index_batch(prob.root(), 0))
     _, _, best = warmup(prob, pool, prob.initial_ub, 2000)
     frontier = pool.as_batch()
     M = 49152
-    out = {}
     for G in (2, 4):
         prog = MeshProgram(prob, 2, 25, M, 16, 2, 8192, 2 * M * prob.child_slots,
                            fused=False, staged=True, mp=2, devices=["cuda:0"] * G)
@@ -4309,14 +4475,17 @@ def phase_copies_traced() -> dict:
             t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CUDA]):
                 try:
-                    _, _, tms = prog.enqueue()()
-                    row = dict(completed=True, traced_ms=tms)
+                    prog.enqueue()
+                    row = dict(refused=False)
                 except RuntimeError as e:
-                    row = dict(completed=False, error=str(e)[:120])
+                    row = dict(refused=COPIES_TRACED in str(e), error=str(e)[:120])
                 torch.cuda.synchronize()
-            row.update(untraced_ms=ms, wall_s=time.perf_counter() - t0)
+            row.update(refuse_wall_s=time.perf_counter() - t0, untraced_ms=ms)
+            _, _, ms2 = prog.enqueue()()
+            row.update(untraced_after_ms=ms2)
         finally:
             prog.close()
+        check(row["refused"], f"copies over {G} positions dispatched under a trace: {row}")
         out[f"positions{G}"] = row
     emit("copies_traced", **out)
     return out
@@ -4342,10 +4511,15 @@ def pair_exchange_row(xchg: dict, copies: dict) -> dict:
 
 
 def phase_whole_profile() -> dict:
-    """Phase 18q: ``--profile DIR`` on the fused ta014 lb1 search: the
-    goldens, and the Chrome trace written to DIR naming kernel 2's
-    launches (``cycle_bounds``, ``cycle_count``, ``cycle_emit``)."""
+    """Phase 18q: ``--profile DIR`` on the fused ta014 lb1 search (the
+    goldens, and the Chrome trace naming kernel 2's launches), then, in a
+    process of its own (a CUPTI fault would end it), on the unfused ta014
+    lb1 M = 1024 search, whose whole trace faulted (ROADMAP C): the
+    goldens, the window the CLI prints (K capped, the dispatches traced of
+    all, their graph-body launches within the budget) and the trace
+    written."""
     import os
+    import re
     import tempfile
 
     with tempfile.TemporaryDirectory() as out:
@@ -4357,6 +4531,32 @@ def phase_whole_profile() -> dict:
     check(all(named.values()), f"--profile: the trace names kernel 2's launches {named}")
     row = dict(trace_bytes=size, kernel2_names=named, dispatches=rec["dispatches"],
                device_cycles=rec["device_cycles"], elapsed_s=rec["elapsed_s"])
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "tpu_tree_search_torch", *PFSP_LB1,
+                            "--M", "1024", "--unfused", "--profile", out, "--json"],
+                           cwd=here, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        path = os.path.join(out, "torch_profile.json")
+        tsize = os.path.getsize(path) if os.path.exists(path) else 0
+    lines = p.stdout.strip().splitlines()
+    check(p.returncode == 0 and lines, f"--profile of the unfused M=1024 search: rc "
+          f"{p.returncode}, {p.stderr[-400:]!r}")
+    urec = json.loads(lines[-1])
+    got = {k: urec[k] for k in GOLDEN}
+    check(got == GOLDEN, f"--profile unfused M=1024 counts {got} != golden {GOLDEN}")
+    window = next((ln for ln in lines if ln.startswith("Profile window:")), "")
+    m = re.search(r"dispatches 1\.\.(\d+) of (\d+) traced, (\d+) graph-body launches, "
+                  r"budget (\d+)", window)
+    check(m is not None and tsize > 0, f"--profile unfused: window {window!r}, trace {tsize} B")
+    i, n, launches, budget = (int(v) for v in m.groups())
+    check(1 <= i <= n == urec["dispatches"] and launches <= budget,
+          f"--profile unfused: {window!r} for {urec['dispatches']} dispatches")
+    row["unfused_M1024"] = dict(window=window, traced_dispatches=i, dispatches=n,
+                                traced_launches=launches, budget=budget, K=urec["K"],
+                                device_cycles=urec["device_cycles"], trace_bytes=tsize,
+                                phase2_s=urec["phases"][1][2], wall_s=wall)
     emit("whole_profile", **row)
     return row
 
@@ -4414,7 +4614,9 @@ def kernel_counters() -> dict:
         batch_cond,
         batch_cond_obs,
         batch_init,
+        dispatch_cond,
         dispatch_cond_obs,
+        dispatch_init,
         phase_mark_cuda,
         slot_gate,
     )
@@ -4435,6 +4637,8 @@ def kernel_counters() -> dict:
             "tiled_nqueens": T.tiled_nqueens_cuda,
             "tiled_lb2": T.tiled_lb2_cuda,
             "dispatch_graph": DispatchGraph,
+            "dispatch_init": dispatch_init,
+            "dispatch_cond": dispatch_cond,
             "dispatch_cond_obs": dispatch_cond_obs,
             "phase_mark": phase_mark_cuda,
             "batch_graph": BatchGraph,
@@ -4521,7 +4725,8 @@ def phase_compact(counters: dict) -> dict:
 
 
 def phase_check() -> dict:
-    """``check --device cuda`` (`analysis/program_audit.py`): every matrix
+    """``check`` through the CLI with no ``--device``, which is the card
+    (`analysis/program_audit.py`): every matrix
     cell's program built on the card and its cycle captured into its
     dispatch graph under the recorder, the graph's node lists (names and
     types, outer and body) held to the contracts, beside the variants, the
@@ -4532,10 +4737,14 @@ def phase_check() -> dict:
     unfused mesh's, each nested graph apart."""
     from collections import Counter
 
+    from tpu_tree_search_torch import cli
     from tpu_tree_search_torch.analysis import program_audit as PA
 
     t0 = time.perf_counter()
-    res = PA.run_check(device="cuda")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["check", "--json"])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
     kinds = {}
     for cell in (PA.Cell("pfsp-lb1", compact="dense"),
                  PA.Cell("pfsp-lb1", cycle="fused", obs="1")):
@@ -4550,13 +4759,12 @@ def phase_check() -> dict:
             ("mesh|nqueens|D2|unfused", PA.mesh_record(False, "cuda").nodes)):
         kinds[key] = {part: dict(Counter(k for _, k in got))
                       for part, got in nodes.items()}
-    out = dict(cells=res.cells, contracts=res.contracts,
-               findings=[f.render() for f in res.findings],
-               warnings=res.warnings, node_kinds=kinds,
-               seconds=time.perf_counter() - t0)
+    out = dict(rc=rc, cells=res["cells"], contracts=res["contracts"],
+               findings=res["findings"], warnings=res["warnings"],
+               node_kinds=kinds, seconds=time.perf_counter() - t0)
     emit("check", **out)
-    check(not res.findings, f"check --device cuda: {len(res.findings)} finding(s): "
-          + "; ".join(out["findings"][:8]))
+    check(rc == 0 and not res["findings"], f"check on the card: rc {rc}, "
+          f"{len(res['findings'])} finding(s): {res['findings'][:8]}")
     return out
 
 
@@ -4807,6 +5015,11 @@ def main() -> int:
                         NQ_GOLDEN[15])
     check(nq15["fused"] and nq15["launches"]["cycle_nqueens"] > 0,
           "kernel 4 not launched on the fused N-Queens path")
+    # The fused cycles set the loop condition themselves; the unfused body
+    # ends with dispatch_cond, once a cycle.
+    check(fused["launches"]["dispatch_cond"] == nq15["launches"]["dispatch_cond"] == 0
+          and unfused["launches"]["dispatch_cond"] == unfused["device_cycles"] > 0,
+          "dispatch_cond launched on a fused path, or not once a cycle on the unfused one")
     nq14 = phase_search("search_nqueens_N14_unfused",
                         ["nqueens", "--N", "14", "--tier", "device", "--unfused"],
                         counters, NQ_GOLDEN[14])
@@ -4930,9 +5143,9 @@ def main() -> int:
     phase_profile("search_lb1_d", PFSP_LB1D, GOLDEN, kernels=("lb1_d_bounds_kernel",))
     # Kernel 3 on its search path: its device time over the unfused N=14
     # search's 555 cycles (the device alone, as the unfused lb1 search).
-    phase_profile("search_nqueens_N14_unfused",
-                  ["nqueens", "--N", "14", "--tier", "device", "--unfused"], NQ_GOLDEN[14],
-                  kernels=("nqueens_labels_kernel",), host=False)
+    prof_nq14 = phase_profile("search_nqueens_N14_unfused",
+                              ["nqueens", "--N", "14", "--tier", "device", "--unfused"],
+                              NQ_GOLDEN[14], kernels=("nqueens_labels_kernel",), host=False)
     # The streamed searches beside the single-tile ones, in the same run;
     # the single-tile ones count kernel 2's and kernel 4's launches a cycle.
     for name, argv, golden, cycle in [
@@ -5089,6 +5302,7 @@ def main() -> int:
         "graph_build_s": g_main["graph_build_s"],
         "cond_ms_per_cycle": {n: profs[n]["cond_ms_per_cycle"] for n in profs},
         "pipeline": pipe})
+    kernels += graph_node_rows(dev, gd, fused, nq15, unfused, profs, prof_nq14)
     # The telemetry kernels (not TPU kernels: the counterparts of the JAX
     # while body's counter update and of the phase clock's boundary). Their
     # launches are those of the main path's armed runs (phase obs): the
@@ -5108,7 +5322,7 @@ def main() -> int:
         "launches": obsp["launches"][("ta014_lb1", "obs", 1)]["dispatch_cond_obs"],
         "launches_path": "obs ta014_lb1 TTS_OBS=1",
         "shape": "one thread, the (8,) int32 counter block in the loop state",
-        "max_abs_err": max(r["counters_max_abs_err"] for r in gd.values()),
+        "max_abs_err": max(r.get("counters_max_abs_err", 0) for r in gd.values()),
         "ms": cond_ms, "timing": f"profiler ({cond_seen} launches, N=15 phaseprof)",
         "plain_ms": obsp["plain_cond_ms"], "bound_ms": cond_bms, "bound_by": cond_by,
         "library_ms": None})

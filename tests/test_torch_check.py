@@ -40,8 +40,10 @@ program_audit.load_contracts()
 
 
 def _check_family(capsys) -> tuple[int, str]:
-    """``check --family nqueens --no-locks``: its exit code and output."""
-    rc = cli.main(["check", "--family", "nqueens", "--no-locks"])
+    """``check --family nqueens --no-locks --device cpu``: its exit code
+    and output."""
+    rc = cli.main(["check", "--family", "nqueens", "--no-locks", "--device",
+                   "cpu"])
     return rc, capsys.readouterr().out
 
 
@@ -112,14 +114,13 @@ def test_a_route_is_one_entry_named_after_its_wrapper():
     assert [e.name for e in art.record.outer] == ["dispatch_init", "while"]
     # The plain lb1 bound's own operations stay inside its entry.
     assert "lb1_bounds_cuda" in art.eval_counts
+    # A fused cycle sets the loop condition itself: its body is its route.
     fused = program_audit.record_cell(program_audit.Cell(
         "pfsp-lb1", cycle="fused"))
-    assert [e.name for e in fused.record.body] == ["cycle_lb1_cuda",
-                                                   "dispatch_cond"]
+    assert [e.name for e in fused.record.body] == ["cycle_lb1_cuda"]
     tiled = program_audit.record_cell(program_audit.Cell(
         "nqueens", cycle="fused", mt=program_audit.TILE_MT))
-    assert [e.name for e in tiled.record.body] == ["tiled_nqueens_cuda",
-                                                   "dispatch_cond"]
+    assert [e.name for e in tiled.record.body] == ["tiled_nqueens_cuda"]
 
 
 # -- tamper tests: each contract class catches its injected violation ------
@@ -241,10 +242,12 @@ def test_tamper_fingerprint_drift(tmp_path, capsys):
     doc["cells"][key]["ops"]["sort"] = 1
     bad = tmp_path / "drift.json"
     bad.write_text(__import__("json").dumps(doc))
-    res = program_audit.run_check(baseline_path=str(bad), with_locks=False)
+    res = program_audit.run_check(baseline_path=str(bad), with_locks=False,
+                                  device="cpu")
     drift = [f for f in res.findings if f.rule == "contract:op-fingerprint"]
     assert [f.message for f in drift] == [f"{key}: op drift — sort: 1 -> 0"]
-    assert cli.main(["check", "--no-locks", "--baseline", str(bad)]) == 1
+    assert cli.main(["check", "--no-locks", "--baseline", str(bad),
+                     "--device", "cpu"]) == 1
     assert "op drift" in capsys.readouterr().out
 
 
@@ -261,7 +264,7 @@ def test_tamper_lock_cycle_detected(monkeypatch, capsys):
     real = program_audit.audit_locks
     monkeypatch.setattr(program_audit, "audit_locks", lambda paths=None: real(
         [str(FIXTURES / "bad_lock_order.py")]))
-    assert cli.main(["check", "--family", "nqueens"]) == 1
+    assert cli.main(["check", "--family", "nqueens", "--device", "cpu"]) == 1
     assert "contract:lock-order-acyclic" in capsys.readouterr().out
 
 
@@ -380,7 +383,8 @@ def test_cli_check_update_roundtrip(tmp_path, capsys):
     (family-scoped, into a temp file), and the JSON report reads it."""
     bl = tmp_path / "contracts.json"
     res = program_audit.run_check(families=["nqueens"], update=True,
-                                  baseline_path=str(bl), with_locks=False)
+                                  baseline_path=str(bl), with_locks=False,
+                                  device="cpu")
     assert res.findings == [], [f.render() for f in res.findings]
     doc = program_audit.load_baseline(str(bl))
     assert doc is not None and res.updated == str(bl)
@@ -392,7 +396,7 @@ def test_cli_check_update_roundtrip(tmp_path, capsys):
 def test_cli_check_whole_matrix_is_clean(capsys):
     """The acceptance bar: `check` exits 0 on the CPU with no findings over
     every cell, the committed fingerprint included."""
-    assert cli.main(["check", "--json"]) == 0
+    assert cli.main(["check", "--json", "--device", "cpu"]) == 0
     rep = __import__("json").loads(capsys.readouterr().out.strip())
     assert rep["findings"] == [] and rep["warnings"] == []
     assert rep["cells"] == len(program_audit.matrix_cells())

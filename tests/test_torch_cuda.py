@@ -992,9 +992,50 @@ def test_graph_dispatch_matches_k_plain_cycles(cuda, kind, mt):
     size, bst, tree, sol, cycles = ref.st[:C.ST_CYCLES + 1].tolist()
     assert got == (tree, sol, cycles, size, bst)
     assert cycles == K and prog.graph_build_s > 0
-    assert torch.equal(state.st[:C.ST_CYCLES + 1], ref.st[:C.ST_CYCLES + 1])
+    # Every state word through the body's runs: the cycle counts its run
+    # and sets the condition itself, so the body is its launches alone.
+    g = next(iter(prog._graphs.values()))
+    assert g.own_cond and _body_names(g) == _BODY[kind, mt is not None]
+    assert state.st[:C.ST_RUNS].tolist() == ref.st[:C.ST_RUNS].tolist()
     assert torch.equal(state.pool_vals[:size], ref.pool_vals[:size])
     assert torch.equal(state.pool_aux[:size], ref.pool_aux[:size])
+    prog.close()
+
+
+@pytest.mark.parametrize("kind,mt", [("nqueens", None), ("nqueens", 32)])
+def test_graph_dispatch_ending_before_k_runs_no_extra_body(cuda, kind, mt):
+    """N = 8 from a small frontier at K = 64: the loop condition fails
+    before the K-th cycle, and the body, whose cycle set the condition, ran
+    once a cycle: the state equals the plain dispatch loop's."""
+    from tpu_tree_search_torch.engine.device import warmup
+    from tpu_tree_search_torch.engine.resident import make_program
+    from tpu_tree_search_torch.ops import dispatch as D
+    from tpu_tree_search_torch.pool import SoAPool
+    from tpu_tree_search_torch.problems.base import index_batch
+
+    K, M, m = 64, 64, 5
+    prob = NQueensProblem(8)
+    pool = SoAPool(prob.node_fields())
+    pool.push_back(index_batch(prob.root(), 0))
+    warmup(prob, pool, INF, 40)
+    fr = pool.as_batch()
+    prog = make_program(prob, m, M, K, 1 << 12, cuda, mt=mt)
+    state = prog.init_state(fr, INF)
+    ref = prog.init_state(fr, INF)
+    prog.host_slots(1)
+    wrapper = _graph_wrapper(kind, mt)
+    got = prog.enqueue(state)()
+    ref.st[C.ST_TREE:C.ST_CYCLES + 1] = 0
+    ref.st[C.ST_RUNS] = 0
+    live = D.loop_active(ref.st.tolist(), m, M * 8, prog.capacity, K)
+    while live:
+        CN.cycle_nqueens_plain(ref.pool_vals, ref.pool_aux, ref.st, 8, 1, M, m,
+                               K)
+        live = D.cycle_cond_plain(ref.st, m, M * 8, prog.capacity, K)
+    cycles = int(ref.st[C.ST_CYCLES])
+    assert 0 < cycles < K and got[2] == cycles
+    assert state.st[:C.ST_RUNS + 1].tolist() == ref.st[:C.ST_RUNS + 1].tolist()
+    assert wrapper.launches == cycles == int(state.st[C.ST_RUNS])
     prog.close()
 
 
@@ -1278,7 +1319,8 @@ def test_armed_graph_counts_as_the_plain_update(cuda, monkeypatch, kind, mt,
     cycle = _BODY[kind, mt is not None]
     marks = 0
     if armed == "off":
-        assert _body_names(g) == cycle + ["dispatch_cond"]
+        # The cycle sets the loop condition itself: no condition node.
+        assert g.own_cond and _body_names(g) == cycle
         assert got.ctr is None and got.ph is None
     else:
         n = prog.problem.child_slots

@@ -34,6 +34,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import sys
 from types import SimpleNamespace
 
 from .contracts import (
@@ -235,9 +236,11 @@ def _capacity(problem, M: int) -> int:
 def record_dispatch(prog, state) -> Record:
     """The record of one dispatch of ``prog`` on ``state``: on the CPU the
     init (``dispatch_init``), the seed mark when the clock is armed, the
-    ``while``, one cycle and the loop condition, run under a recorder; on
-    the card the cycle captured into the dispatch graph under it, the
-    graph's own nodes as entries, and the graph's node lists."""
+    ``while``, one cycle and the loop condition's node, run under a
+    recorder; on the card the cycle captured into the dispatch graph under
+    it, the graph's own nodes as entries, and the graph's node lists. A
+    fused cycle with the counters off sets the condition itself: its body
+    is the cycle alone."""
     from ..obs import phases as obs_phases
     from ..ops import dispatch as D
     from ..ops.cycle import ST_CTR, ST_CTR_SOL, ST_CYCLES, ST_TREE
@@ -254,8 +257,9 @@ def record_dispatch(prog, state) -> Record:
         outer = [Entry("route", "dispatch_init")] + (
             [Entry("route", "phase_mark_cuda")] if prog.clk is not None
             else []) + [Entry("route", "while")]
-        return Record(outer, rec.entries + [Entry("route", cond)], meta,
-                      g.graph_nodes())
+        tail = [] if g.own_cond else [Entry("route", cond)]
+        return Record(outer, rec.entries + tail, meta, g.graph_nodes())
+    own = prog.fused and not prog.obs
     cycle = prog.slot_cycle(state)
     st = state.st
     with rec:
@@ -268,12 +272,13 @@ def record_dispatch(prog, state) -> Record:
         rec.note_route("while")
         mark = len(rec.entries)
         cycle()
-        with D.route(cond):
-            if prog.obs and prog.fused:
-                D.dispatch_cond_obs_plain(st, n, prog.m, Mn, prog.capacity,
-                                          prog.K)
-            else:
-                D.loop_active(st.tolist(), prog.m, Mn, prog.capacity, prog.K)
+        if not own:
+            with D.route(cond):
+                if prog.obs and prog.fused:
+                    D.dispatch_cond_obs_plain(st, n, prog.m, Mn,
+                                              prog.capacity, prog.K)
+                else:
+                    D.cycle_cond_plain(st, prog.m, Mn, prog.capacity, prog.K)
     return Record(rec.entries[:mark], rec.entries[mark:], meta)
 
 
@@ -902,14 +907,22 @@ class CheckResult:
 def run_check(families=None, update: bool = False,
               baseline_path: str | None = None, lock_paths=None,
               with_locks: bool = True, with_fingerprint: bool = True,
-              device="cpu") -> CheckResult:
-    """The full audit (the ``check`` entry point). ``device="cuda"``
-    records the cells on the card, with the graphs' node lists; the
-    fingerprint is the CPU's and is neither compared nor written there."""
+              device=None) -> CheckResult:
+    """The full audit (the ``check`` entry point), on the card unless
+    ``device`` is ``"cpu"`` (``ops/backend.py`` ``resolve_device``: None is
+    the card, and raises where there is none). On the card it records the
+    cells with the graphs' node lists; the fingerprint is the CPU's
+    (``device="cpu"``), neither compared nor written on the card, where
+    ``update`` raises."""
     import torch
 
+    from ..ops.backend import resolve_device
+
     load_contracts()
-    on_card = torch.device(device).type == "cuda"
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    if update and on_card:
+        raise ValueError(UPDATE_ON_CARD)
     baseline_path = baseline_path or DEFAULT_BASELINE
     findings: list[Finding] = []
     fingerprints: dict = {}
@@ -926,7 +939,7 @@ def run_check(families=None, update: bool = False,
     if with_locks:
         findings += audit_locks(lock_paths)
     updated = None
-    if update and not on_card:
+    if update:
         save_baseline(baseline_path, fingerprints)
         updated = baseline_path
     elif with_fingerprint and families is None and not on_card:
@@ -951,6 +964,11 @@ def run_check(families=None, update: bool = False,
 # -- CLI -------------------------------------------------------------------
 
 
+#: Why ``--update`` needs the CPU.
+UPDATE_ON_CARD = ("--update writes the fingerprint baseline, which is the "
+                  "CPU's (the plain versions' operations): pass --device cpu")
+
+
 def add_check_args(p) -> None:
     p.add_argument("--update", action="store_true",
                    help="regenerate the fingerprint baseline "
@@ -968,10 +986,10 @@ def add_check_args(p) -> None:
                    help="print the contract catalogue and exit")
     p.add_argument("--json", action="store_true", dest="check_json",
                    help="emit one JSON object instead of text")
-    p.add_argument("--device", default="cpu",
-                   help="cpu (default: the plain versions, fingerprinted) or "
-                        "cuda (the card: each cell's dispatch graph, its "
-                        "node names and types)")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default: the card, each cell's dispatch "
+                        "graph, its node names and types) or cpu (the plain "
+                        "versions, fingerprinted; --update needs it)")
 
 
 def run_check_cli(args) -> int:
@@ -984,9 +1002,20 @@ def run_check_cli(args) -> int:
         print("check: --update regenerates the WHOLE-matrix baseline; it "
               "cannot be combined with --family")
         return 2
+    from ..ops.backend import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"check: {e}; pass --device cpu to audit the plain versions",
+              file=sys.stderr)
+        return 2
+    if args.update and device.type != "cpu":
+        print(f"check: {UPDATE_ON_CARD}", file=sys.stderr)
+        return 2
     res = run_check(families=args.families, update=args.update,
                     baseline_path=args.baseline,
-                    with_locks=not args.no_locks, device=args.device)
+                    with_locks=not args.no_locks, device=device)
     if args.check_json:
         print(json.dumps({
             "findings": [vars(f) for f in res.findings],

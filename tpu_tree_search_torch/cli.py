@@ -619,6 +619,7 @@ def check_supported(args) -> None:
         if args.problem != "pfsp" or args.lb != "lb2":
             raise ValueError("--mp shards the lb2 Johnson pair loop "
                              "(pfsp --lb lb2 only)")
+        check_traced_copies(args)
     if args.D is not None:
         if args.tier not in ("multi", "mesh") + DIST_TIERS:
             raise ValueError("--D applies to the multi, mesh and dist tiers")
@@ -662,6 +663,25 @@ def check_supported(args) -> None:
             raise ValueError(f"{'/'.join(cycle_flags)} apply to the resident "
                              "engine's device cycle")
     check_limits(args)
+
+
+def check_traced_copies(args) -> None:
+    """``--profile`` of a ``--tier mesh`` run whose device list puts two
+    copies of one shard on one card (`parallel/resident_mesh.py`
+    ``shared_card_copies``, from the position strings: nothing is
+    resolved, so the refusal shows without a card)."""
+    devices = device_list(args)
+    if args.profile is None or args.tier != "mesh" or devices is None:
+        return
+    from .parallel.resident_mesh import COPIES_TRACED, shared_card_copies
+
+    D = args.D if args.D is not None else max(1, len(devices) // args.mp)
+    shared = shared_card_copies(devices, D, args.mp)
+    if shared:
+        d, card = shared[0]
+        raise ValueError(f"--profile with --mp {args.mp} over --device "
+                         f"{args.device}: shard {d} has two copies on {card}; "
+                         f"{COPIES_TRACED}")
 
 
 def check_dist(args) -> None:
@@ -1233,22 +1253,22 @@ def whole_session_trace(out_dir: str | None, device):
     """``--profile DIR``: the block under ``torch.profiler`` (the host, and
     the card when the run is on one), its Chrome trace written to
     ``DIR/torch_profile.json`` when the block ends (the JAX CLI's
-    ``jax.profiler.trace``, `tpu_tree_search/cli.py:1300-1306`). Nothing
+    ``jax.profiler.trace``, `tpu_tree_search/cli.py:1300-1306`), on the
+    resident tier's dispatches bounded to a budget of graph-body launches
+    (`obs/phases.py` ``SessionTrace``), then the cut printed. Nothing
     without a directory."""
     if out_dir is None:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile
+    from .obs.phases import SessionTrace
 
-    acts = [ProfilerActivity.CPU]
-    if device is not None and str(device).startswith("cuda"):
-        acts.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    cuda = device is not None and str(device).startswith("cuda")
+    with SessionTrace(out_dir, cuda) as trace:
         yield
-    path = os.path.join(out_dir, "torch_profile.json")
-    prof.export_chrome_trace(path)
-    print(f"Profile written: {path}")
+    print(f"Profile written: {trace.path}")
+    if trace.dispatches:
+        print(f"Profile window: {trace.summary()}")
 
 
 def run_tier(args, K, device, problem, M, coll, devices):

@@ -31,6 +31,54 @@ enum {
   ST_LEN = 32,
 };
 
+// The loop condition of a K-cycle dispatch (`resident.py:421-423`) on a
+// state's size and cycles: size >= m, size + M*n <= C (the headroom of one
+// fan-out) and cycles < K. The dispatch graph's own nodes
+// (dispatch_graph.cu) and a cycle that sets its while node's condition
+// itself evaluate this one function.
+__device__ __forceinline__ bool tts_loop_active(int size, int cycles, int m,
+                                                long long Mn, int C, int K) {
+  return size >= m && static_cast<long long>(size) + Mn <= C && cycles < K;
+}
+
+// A cycle's hold on the while node of the dispatch graph it runs in
+// (`ops/dispatch.py` DispatchGraph): with `on`, the cycle is the node's
+// whole body, and its emit (the last launch) counts the body's run in
+// st[ST_RUNS] and sets the node's condition `h`: the last block from the
+// state it has just written, block 0 of a no-op cycle to 0. So no
+// condition node follows the cycle. The emit, not launch 1, does both: a
+// store to st in launch 1 made the PFSP bounds launch a third slower on
+// the H100 (PERF.md §6). cudaGraphSetConditional is legal only inside
+// a graph launch: an eager cycle, and a cycle in a batched or mesh graph
+// (whose own node sets the condition), pass `on` 0, and the flag, never
+// the handle's value, gates the call. m, C and K are the loop
+// condition's (the cycle's own arguments).
+struct TtsCond {
+  unsigned long long h;  // cudaGraphConditionalHandle
+  int on;
+  int m;
+  int C;
+  int K;
+};
+
+// The end of a body's run, by one thread of the emit: the run counted (a
+// run past termination would show as more runs than cycles) and the
+// node's condition set to `live`.
+__device__ __forceinline__ void tts_cond_end(int* st, const TtsCond& c,
+                                             bool live) {
+  if (c.on) {
+    st[ST_RUNS] += 1;
+    cudaGraphSetConditional(c.h, live ? 1u : 0u);
+  }
+}
+
+// The emit's early return on a no-op cycle (launch 1 found the loop
+// condition false): block 0 ends the run with the condition cleared, so
+// every path through the body sets it.
+__device__ __forceinline__ void tts_cond_idle(int* st, const TtsCond& c) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) tts_cond_end(st, c, false);
+}
+
 // Parents of one block of the counting and emit launches (one warp scans
 // their survivor counts, so at most 32).
 #define TTS_CYCLE_PARENTS 32
@@ -217,14 +265,18 @@ __device__ __forceinline__ void emit_sum_counts(const int* __restrict__ blkcnt,
 // warp_parent_offsets, the block's total in *s_total and its first pool
 // row in *s_dst0 (base + the survivors of the blocks before it). The last
 // block writes the rest of the cycle's state update: size = base +
-// tree_inc, tree += tree_inc, cycles += 1.
+// tree_inc, tree += tree_inc, cycles += 1; under a graph's while node
+// (`cond`) it then ends the body's run with the node's condition set from
+// that state (Mn: the chunk's child slots, M*n).
 __device__ __forceinline__ void emit_block_offsets(int* st,
                                                    const uint32_t* s_mask,
                                                    int W, int rows,
                                                    int* s_off,
                                                    const int* s_red, int base,
                                                    int* s_dst0,
-                                                   int* s_total) {
+                                                   int* s_total,
+                                                   const TtsCond& cond,
+                                                   long long Mn) {
   const int lane = threadIdx.x & 31;
   const int total = warp_parent_offsets(s_mask, W, rows, s_off);
   const int pre = warp_sum(lane < static_cast<int>(blockDim.x >> 5)
@@ -233,9 +285,13 @@ __device__ __forceinline__ void emit_block_offsets(int* st,
     *s_total = total;
     *s_dst0 = base + pre;
     if (blockIdx.x == gridDim.x - 1) {
-      st[ST_SIZE] = base + pre + total;
+      const int size = base + pre + total;
+      const int cycles = st[ST_CYCLES] + 1;
+      st[ST_SIZE] = size;
       st[ST_TREE] += pre + total;
-      st[ST_CYCLES] += 1;
+      st[ST_CYCLES] = cycles;
+      tts_cond_end(st, cond, tts_loop_active(size, cycles, cond.m, Mn,
+                                             cond.C, cond.K));
     }
   }
 }

@@ -34,7 +34,11 @@
 // When the condition is false, launch 1 clears st[5] and every launch of the
 // cycle returns at once: an exact no-op. So the host can enqueue K cycles
 // with no synchronisation and read st once (the `lax.while_loop`
-// counterpart).
+// counterpart). In the dispatch graph (dispatch_graph.cu) the cycle is the
+// while node's whole body: the emit's last block counts the body's run in
+// st[9] and sets the node's condition from the size and cycles it has just
+// written (cycle_common.cuh TtsCond), so no condition kernel runs between
+// two cycles. The N-Queens and streamed cycles do the same.
 //
 // Why not one launch, as on the TPU: the TPU ran the cycle as grid=(1,) (or a
 // sequential grid with an SMEM carry). Hopper blocks run in no order, so
@@ -81,12 +85,13 @@
                       void* chunk_vals, void* chunk_aux, void* lb,          \
                       void* blkcnt, const void* ptm_t,                      \
                       const void* heads, const void* tails, int n, int m,   \
-                      int M, int C, int mterm, int K, void* clk,            \
+                      int M, int C, int mterm, int K,                       \
+                      unsigned long long cond, int in_graph, void* clk,     \
                       void* stream) {                                        \
     return launch_lb1_cycle<T, false>(pool_vals, pool_aux, st, chunk_vals,  \
                                       chunk_aux, lb, blkcnt, nullptr, ptm_t, \
                                       heads, tails, n, m, M, M, C, mterm, K, \
-                                      clk, stream);                          \
+                                      cond, in_graph, clk, stream);          \
   }
 
 TTS_CYCLE_ENTRY(cycle_lb1_i8, int8_t)

@@ -140,14 +140,18 @@ __global__ void lb1_tiles_bounds(TTS_LB1_BOUNDS_PARAMS) {
 // cycle_pfsp.cuh. TILES: kernel 9b's kernels, with the boundary row bnd of
 // tiles of mt parents. With a phase clock `clk`, a mark opens the cycle
 // (`loop`) and one after launch 1 charges `eval` (the pop is inside it).
+// With `in_graph`, the cycle is the whole body of the while node whose
+// condition is `cond` (cycle_common.cuh TtsCond).
 template <typename T, bool TILES>
 static int launch_lb1_cycle(void* pool_vals, void* pool_aux, void* st,
                             void* chunk_vals, void* chunk_aux, void* lb,
                             void* blkcnt, void* bnd, const void* ptm_t,
                             const void* heads, const void* tails, int n,
                             int m, int M, int mt, int C, int mterm, int K,
-                            void* clk, void* stream) {
+                            unsigned long long cond, int in_graph, void* clk,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TtsCond tc = {cond, in_graph, mterm, C, K};
   auto bounds = [] {
     if constexpr (TILES) return lb1_tiles_bounds<T>;
     else return cycle_bounds<T>;
@@ -177,5 +181,5 @@ static int launch_lb1_cycle(void* pool_vals, void* pool_aux, void* st,
   if (err) return err;
   return launch_pfsp_cycle_tail<T, TILES>(
       pool_vals, pool_aux, st_i, chunk_vals, chunk_aux, static_cast<int*>(lb),
-      blkcnt, n, M, s, static_cast<int*>(bnd), mt, clk);
+      blkcnt, n, M, s, static_cast<int*>(bnd), mt, clk, tc);
 }

@@ -57,11 +57,12 @@ extern "C" void cycle_lb2_last_shape(int* out) {
                       void* blkcnt, const void* ptm_t, const void* heads,    \
                       const void* pairinfo, const void* tab, const void* inv, \
                       int n, int m, int P, int route, int M, int C,          \
-                      int mterm, int K, void* clk, void* stream) {           \
+                      int mterm, int K, unsigned long long cond,             \
+                      int in_graph, void* clk, void* stream) {               \
     return launch_lb2_cycle<T, false>(                                       \
         pool_vals, pool_aux, st, chunk_vals, chunk_aux, lb, blkcnt, nullptr, \
         ptm_t, heads, pairinfo, tab, inv, n, m, P, route, M, M, C, mterm, K, \
-        clk, stream, &cycle_lb2_last);                                       \
+        cond, in_graph, clk, stream, &cycle_lb2_last);                       \
   }
 
 TTS_CYCLE_LB2_ENTRY(cycle_lb2_i8, int8_t)

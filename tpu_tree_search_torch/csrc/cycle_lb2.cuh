@@ -79,7 +79,7 @@ __global__ void lb2_tiles_bounds(TTS_LB2_BOUNDS_PARAMS) {
 // 9c's kernels, with the boundary row bnd of tiles of mt parents. GT: the
 // GLOBAL table route (tab the int32 table, inv its inverse). WIDE: past 128
 // jobs (lb2_common.cuh `lb2p_pairs`). With a phase clock `clk`, the marks
-// of kernel 2's cycle (cycle_lb1.cuh).
+// of kernel 2's cycle (cycle_lb1.cuh); `cond` and `in_graph` as kernel 2's.
 template <typename T, bool TILES, bool GT, bool WIDE>
 static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
                                   void* chunk_vals, void* chunk_aux, void* lb,
@@ -87,9 +87,11 @@ static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
                                   const void* heads, const void* pairinfo,
                                   const void* tab, const void* inv, int n,
                                   int m, int P, int M, int mt, int C,
-                                  int mterm, int K, void* clk,
-                                  void* stream, Lb2Shape* last) {
+                                  int mterm, int K, unsigned long long cond,
+                                  int in_graph, void* clk, void* stream,
+                                  Lb2Shape* last) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TtsCond tc = {cond, in_graph, mterm, C, K};
   auto bounds = [] {
     if constexpr (TILES) return lb2_tiles_bounds<T, GT, WIDE>;
     else return lb2_cycle_bounds<T, GT, WIDE>;
@@ -116,7 +118,7 @@ static int launch_lb2_cycle_route(void* pool_vals, void* pool_aux, void* st,
   if (err) return err;
   return launch_pfsp_cycle_tail<T, TILES>(
       pool_vals, pool_aux, st_i, chunk_vals, chunk_aux, static_cast<int*>(lb),
-      blkcnt, n, M, s, static_cast<int*>(bnd), mt, clk);
+      blkcnt, n, M, s, static_cast<int*>(bnd), mt, clk, tc);
 }
 
 // The cycle on the table route `route` (0 SMEM, 1 GLOBAL).
@@ -127,12 +129,13 @@ static int launch_lb2_cycle(void* pool_vals, void* pool_aux, void* st,
                             const void* heads, const void* pairinfo,
                             const void* tab, const void* inv, int n, int m,
                             int P, int route, int M, int mt, int C, int mterm,
-                            int K, void* clk, void* stream, Lb2Shape* last) {
+                            int K, unsigned long long cond, int in_graph,
+                            void* clk, void* stream, Lb2Shape* last) {
 #define TTS_LB2_CYCLE_ROUTE(GT, WIDE)                                       \
   launch_lb2_cycle_route<T, TILES, GT, WIDE>(                               \
       pool_vals, pool_aux, st, chunk_vals, chunk_aux, lb, blkcnt, bnd,      \
-      ptm_t, heads, pairinfo, tab, inv, n, m, P, M, mt, C, mterm, K, clk,   \
-      stream, last)
+      ptm_t, heads, pairinfo, tab, inv, n, m, P, M, mt, C, mterm, K, cond,  \
+      in_graph, clk, stream, last)
   const bool wide = tts_lb2p_wide(n);
   if (route == 1)
     return wide ? TTS_LB2_CYCLE_ROUTE(true, true)

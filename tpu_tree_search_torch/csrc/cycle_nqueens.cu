@@ -87,9 +87,9 @@ __global__ void nq_cycle_emit(uint8_t* __restrict__ pool_vals,
                               const A* __restrict__ chunk_aux,
                               const uint32_t* __restrict__ mask,
                               const int* __restrict__ blkcnt, int N, int M,
-                              int* __restrict__ bnd, int mt) {
+                              int* __restrict__ bnd, int mt, TtsCond cond) {
   nq_emit_body<false, W, A>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
-                             blkcnt, N, M, bnd, mt);
+                             blkcnt, N, M, bnd, mt, cond);
 }
 
 // The entries: `cycle_nqueens` takes an int8 depth (N <= 127),
@@ -97,12 +97,14 @@ __global__ void nq_cycle_emit(uint8_t* __restrict__ pool_vals,
 #define TTS_NQ_CYCLE_LAUNCH(W, A)                                          \
   launch_nq_cycle<W, A>(nq_cycle_labels<W, A>, nq_cycle_emit<W, A>, pool_vals,     \
                         pool_aux, st, chunk_vals, chunk_aux, keep, blkcnt, \
-                        nullptr, N, g, M, M, C, mterm, K, clk, stream)
+                        nullptr, N, g, M, M, C, mterm, K, cond, in_graph,  \
+                        clk, stream)
 #define TTS_NQ_CYCLE_ENTRY(NAME, AUX32)                                    \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,          \
                       void* chunk_vals, void* chunk_aux, void* keep,      \
                       void* blkcnt, int N, int g, int M, int C, int mterm, \
-                      int K, void* clk, void* stream) {                   \
+                      int K, unsigned long long cond, int in_graph,       \
+                      void* clk, void* stream) {                          \
     TTS_NQ_DISPATCH(N, AUX32, TTS_NQ_CYCLE_LAUNCH);                        \
   }
 

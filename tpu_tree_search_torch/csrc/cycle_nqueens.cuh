@@ -30,12 +30,8 @@ __device__ __forceinline__ void nq_labels_body(
     uint32_t* __restrict__ mask, int* __restrict__ blkcnt, int N, int g, int M,
     int C, int mterm, int K) {
   const int size = st[ST_SIZE];
-  const int cycles = st[ST_CYCLES];
-  const bool active = size >= mterm &&
-                      static_cast<long long>(size) +
-                              static_cast<long long>(M) * N <=
-                          C &&
-                      cycles < K;
+  const bool active = tts_loop_active(size, st[ST_CYCLES], mterm,
+                                      static_cast<long long>(M) * N, C, K);
   if (!active) {
     if (blockIdx.x == 0 && threadIdx.x == 0) st[ST_ACTIVE] = 0;
     return;
@@ -148,14 +144,18 @@ __host__ __device__ inline int nq_span_rows(int N, int aux_bytes) {
 
 // Launch 2: rank the block's survivors and store them as one span (in
 // waves of span_rows rows, `nq_span_rows`); TILES: and write the block's
-// rows of the boundary row bnd (tiles of mt).
+// rows of the boundary row bnd (tiles of mt). Under a graph's while node
+// (`cond`) it ends the body's run (cycle_common.cuh TtsCond).
 template <bool TILES, int W, typename A>
 __device__ __forceinline__ void nq_emit_body(
     uint8_t* __restrict__ pool_vals, A* __restrict__ pool_aux, int* st,
     const uint8_t* __restrict__ stash, const A* __restrict__ chunk_aux,
     const uint32_t* __restrict__ mask, const int* __restrict__ blkcnt, int N,
-    int M, int* __restrict__ bnd, int mt) {
-  if (!st[ST_ACTIVE]) return;
+    int M, int* __restrict__ bnd, int mt, const TtsCond& cond) {
+  if (!st[ST_ACTIVE]) {
+    tts_cond_idle(st, cond);
+    return;
+  }
   const int PB = TTS_NQ_PARENTS_PER_BLOCK;
   // Through N = 32 the span holds every slot of the block (PB * N rows,
   // the parent's code); past it, the waves of `nq_span_rows`.
@@ -203,7 +203,7 @@ __device__ __forceinline__ void nq_emit_body(
   __syncthreads();
   if (t < 32) {
     emit_block_offsets(st, s_mask, W, rows, s_off, s_red, base, &s_dst0,
-                       &s_total);
+                       &s_total, cond, static_cast<long long>(M) * N);
     if constexpr (TILES) {
       __syncwarp();
       emit_tile_bounds(st, bnd, mt, rows, s_off, s_red, s_dst0 - base,
@@ -222,13 +222,17 @@ __device__ __forceinline__ void nq_emit_body(
 // phase clock `clk` (phase_clock.cuh): a mark opens the cycle (`loop`), one
 // after the labels charges `eval` (the labels launch also pops and
 // publishes the block counts), one after the emit `push`, which closes it.
+// With `in_graph`, the cycle is the whole body of the while node whose
+// condition is `cond` (cycle_common.cuh TtsCond).
 template <int W, typename A, typename L, typename E>
 static int launch_nq_cycle(L labels, E emit, void* pool_vals, void* pool_aux,
                            void* st, void* stash, void* chunk_aux, void* mask,
                            void* blkcnt, void* bnd, int N, int g, int M,
-                           int mt, int C, int mterm, int K, void* clk,
+                           int mt, int C, int mterm, int K,
+                           unsigned long long cond, int in_graph, void* clk,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TtsCond tc = {cond, in_graph, mterm, C, K};
   const int PB = TTS_NQ_PARENTS_PER_BLOCK;
   const int nblk = (M + PB - 1) / PB;
   const int threads = tts_cycle_threads(nblk, PB * N, TTS_CYCLE_LOOP_THREADS);
@@ -249,7 +253,7 @@ static int launch_nq_cycle(L labels, E emit, void* pool_vals, void* pool_aux,
       static_cast<uint8_t*>(pool_vals), static_cast<A*>(pool_aux), st_i,
       static_cast<const uint8_t*>(stash), static_cast<const A*>(chunk_aux),
       static_cast<const uint32_t*>(mask), static_cast<const int*>(blkcnt), N,
-      M, static_cast<int*>(bnd), mt);
+      M, static_cast<int*>(bnd), mt, tc);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return tts_phase_mark(clk, PH_PUSH, PH_CLOSE, s);

@@ -27,12 +27,8 @@ __device__ __forceinline__ bool pfsp_cycle_begin(int* st, int n, int M,
                                                  int* start, int* size,
                                                  int* start2) {
   const int sz = st[ST_SIZE];
-  const int cycles = st[ST_CYCLES];
-  const bool active = sz >= mterm &&
-                      static_cast<long long>(sz) +
-                              static_cast<long long>(M) * n <=
-                          C &&
-                      cycles < K;
+  const bool active = tts_loop_active(sz, st[ST_CYCLES], mterm,
+                                      static_cast<long long>(M) * n, C, K);
   if (!active) {
     if (blockIdx.x == 0 && threadIdx.x == 0) st[ST_ACTIVE] = 0;
     return false;
@@ -202,8 +198,11 @@ __device__ __forceinline__ void cycle_emit_body(
     T* __restrict__ pool_vals, T* __restrict__ pool_aux, int* st,
     const uint8_t* __restrict__ stash, const T* __restrict__ chunk_aux,
     const uint32_t* __restrict__ mask, const int* __restrict__ blkcnt, int n,
-    int M, int span_rows, int* __restrict__ bnd, int mt) {
-  if (!st[ST_ACTIVE]) return;
+    int M, int span_rows, int* __restrict__ bnd, int mt, const TtsCond& cond) {
+  if (!st[ST_ACTIVE]) {
+    tts_cond_idle(st, cond);
+    return;
+  }
   extern __shared__ __align__(16) uint8_t s_emit[];
   __shared__ int s_d[TTS_CYCLE_PARENTS], s_off[32], s_red[TILES ? 64 : 32],
       s_total, s_dst0;
@@ -244,7 +243,7 @@ __device__ __forceinline__ void cycle_emit_body(
   __syncthreads();
   if (t < 32) {
     emit_block_offsets(st, s_mask, W, rows, s_off, s_red, base, &s_dst0,
-                       &s_total);
+                       &s_total, cond, static_cast<long long>(M) * n);
     if constexpr (TILES) {
       __syncwarp();
       emit_tile_bounds(st, bnd, mt, rows, s_off, s_red, s_dst0 - base,
@@ -270,9 +269,10 @@ __global__ void cycle_emit(T* __restrict__ pool_vals,
                            const T* __restrict__ chunk_aux,
                            const uint32_t* __restrict__ mask,
                            const int* __restrict__ blkcnt, int n, int M,
-                           int span_rows, int* __restrict__ bnd, int mt) {
+                           int span_rows, int* __restrict__ bnd, int mt,
+                           TtsCond cond) {
   cycle_emit_body<T, false>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
-                            blkcnt, n, M, span_rows, bnd, mt);
+                            blkcnt, n, M, span_rows, bnd, mt, cond);
 }
 
 // The streamed cycles' emit launch (kernels 9b and 9c).
@@ -284,9 +284,9 @@ __global__ void pfsp_tiles_emit(T* __restrict__ pool_vals,
                                 const uint32_t* __restrict__ mask,
                                 const int* __restrict__ blkcnt, int n, int M,
                                 int span_rows, int* __restrict__ bnd,
-                                int mt) {
+                                int mt, TtsCond cond) {
   cycle_emit_body<T, true>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
-                           blkcnt, n, M, span_rows, bnd, mt);
+                           blkcnt, n, M, span_rows, bnd, mt, cond);
 }
 
 // Rows of one emit wave: all of a block's slots when their rows fit
@@ -304,13 +304,14 @@ static inline int pfsp_span_rows(int n) {
 // streamed cycle's kernels, which also write the boundary row bnd of tiles
 // of mt parents (blkcnt then holds a pair a block). With a phase clock
 // `clk` (phase_clock.cuh), a mark after each: `compact`, then `push`, which
-// closes the cycle; null enqueues the two launches alone.
+// closes the cycle; null enqueues the two launches alone. `cond`: the
+// emit sets the while node's condition (cycle_common.cuh TtsCond).
 template <typename T, bool TILES = false>
 static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
                                   const void* stash, const void* chunk_aux,
                                   int* lb, void* blkcnt, int n, int M,
                                   cudaStream_t s, int* bnd, int mt,
-                                  void* clk) {
+                                  void* clk, const TtsCond& cond) {
   const int PB = TTS_CYCLE_PARENTS;
   const int nblk = (M + PB - 1) / PB;
   const int threads = tts_cycle_threads(nblk, PB * n, TTS_CYCLE_LOOP_THREADS);
@@ -345,7 +346,7 @@ static int launch_pfsp_cycle_tail(void* pool_vals, void* pool_aux, int* st,
   emit<<<nblk, threads, emit_smem, s>>>(
       static_cast<T*>(pool_vals), static_cast<T*>(pool_aux), st,
       static_cast<const uint8_t*>(stash), static_cast<const T*>(chunk_aux),
-      mask, static_cast<const int*>(blkcnt), n, M, span_rows, bnd, mt);
+      mask, static_cast<const int*>(blkcnt), n, M, span_rows, bnd, mt, cond);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return tts_phase_mark(clk, PH_PUSH, PH_CLOSE, s);

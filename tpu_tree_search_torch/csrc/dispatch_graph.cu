@@ -10,14 +10,20 @@
 //   2. a `while` conditional node whose body is one cycle: the launches
 //      of a fused or streamed cycle entry (cycle_lb1.cu, cycle_lb2.cu,
 //      cycle_nqueens.cu, tiled_*.cu), captured by calling that entry on a
-//      stream in cudaStreamBeginCaptureToGraph mode, then
-//      `dispatch_cond`, which counts the body's run in st[ST_RUNS] and
-//      sets the condition again from `st`. The host reads the runs as the
-//      cycle's launches; a run past termination would show as more runs
-//      than cycles.
+//      stream in cudaStreamBeginCaptureToGraph mode, and nothing else: the
+//      entry, given the node's handle (cycle_common.cuh TtsCond), has its
+//      emit's last block count the body's run in st[ST_RUNS] and set the
+//      condition from the state it has just written.
+//      A body the cycle does not end that way (the unfused cycle, torch
+//      operations of `engine/resident.py`) ends with `dispatch_cond`, a
+//      node that counts the run and sets the condition from `st`. The
+//      host reads the runs as the cycle's launches; a run past termination
+//      would show as more runs than cycles.
 // The condition is the engine's: size >= m, size + M*n <= C (the
-// headroom of one fan-out) and cycles < K. So one dispatch is one
-// cudaGraphLaunch, and a cycle past termination is never launched.
+// headroom of one fan-out) and cycles < K (cycle_common.cuh
+// tts_loop_active, one function for every node and cycle that sets it).
+// So one dispatch is one cudaGraphLaunch, and a cycle past termination is
+// never launched.
 //
 // The capture runs in relaxed mode: a cycle entry may set a kernel's
 // shared-memory attribute and query its occupancy the first time it sees
@@ -32,8 +38,9 @@
 // the graph is the one above, node for node:
 //   - counters (TTS_OBS=1): `dispatch_init` also zeroes the counter block
 //     st[ST_CTR..ST_CTR_SOL], and the body's last node is
-//     `dispatch_cond_obs`, which folds the cycle into the block before it
-//     does what `dispatch_cond` does: the counterpart of
+//     `dispatch_cond_obs` (after a fused cycle too, which then sets no
+//     condition), which folds the cycle into the block before it does what
+//     `dispatch_cond` does: the counterpart of
 //     `obs_counters.update` in the JAX `lax.while_loop` body
 //     (tpu_tree_search/engine/resident.py:284-292). Not a TPU kernel.
 //   - the phase clock (TTS_PHASEPROF=1, phase_clock.cuh): a seed
@@ -61,9 +68,7 @@
 __device__ __forceinline__ unsigned dispatch_active(const int* st, int m,
                                                     long long Mn, int C,
                                                     int K) {
-  const int size = st[ST_SIZE];
-  return size >= m && static_cast<long long>(size) + Mn <= C &&
-         st[ST_CYCLES] < K;
+  return tts_loop_active(st[ST_SIZE], st[ST_CYCLES], m, Mn, C, K);
 }
 
 __global__ void dispatch_init(int* st, cudaGraphConditionalHandle h, int m,
@@ -77,8 +82,9 @@ __global__ void dispatch_init(int* st, cudaGraphConditionalHandle h, int m,
   cudaGraphSetConditional(h, dispatch_active(st, m, Mn, C, K));
 }
 
-// The body's last node: counts the body's run (the cycle launched once)
-// and sets the condition.
+// The last node of a body whose cycle does not set the condition itself
+// (the unfused cycle): counts the body's run (the cycle launched once) and
+// sets the condition.
 __global__ void dispatch_cond(int* st, cudaGraphConditionalHandle h, int m,
                               long long Mn, int C, int K) {
   st[ST_RUNS] += 1;
@@ -394,20 +400,21 @@ extern "C" int dispatch_graph_begin_body(void* body, void* stream) {
       nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed));
 }
 
-// End the body: with `ok`, enqueue `dispatch_cond` (with `obs` > 0,
-// `dispatch_cond_obs` of a cycle of `obs` child slots a parent) after the
-// captured cycle first; without (the cycle's capture failed), only end the
-// capture.
+// End the body: with `ok`, enqueue `dispatch_cond_obs` (with `obs` > 0, a
+// cycle of `obs` child slots a parent), or `dispatch_cond` unless the
+// captured cycle sets the condition itself (`own`), after the captured
+// cycle first; without (the cycle's capture failed), only end the capture.
 extern "C" int dispatch_graph_end_body(void* stream, int ok, void* st,
                                        unsigned long long h, int m,
-                                       long long Mn, int C, int K, int obs) {
+                                       long long Mn, int C, int K, int obs,
+                                       int own) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (ok && obs) {
     dispatch_cond_obs<<<1, 1, 0, s>>>(static_cast<int*>(st), h, m, Mn, C, K,
                                       obs);
     err = cudaGetLastError();
-  } else if (ok) {
+  } else if (ok && !own) {
     dispatch_cond<<<1, 1, 0, s>>>(static_cast<int*>(st), h, m, Mn, C, K);
     err = cudaGetLastError();
   }

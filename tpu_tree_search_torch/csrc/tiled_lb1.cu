@@ -53,11 +53,12 @@
                       void* stash, void* chunk_aux, void* lb, void* blkcnt, \
                       void* bnd, const void* ptm_t, const void* heads,      \
                       const void* tails, int n, int m, int M, int mt, int C, \
-                      int mterm, int K, void* clk, void* stream) {          \
+                      int mterm, int K, unsigned long long cond,            \
+                      int in_graph, void* clk, void* stream) {              \
     return launch_lb1_cycle<T, true>(pool_vals, pool_aux, st, stash,        \
                                      chunk_aux, lb, blkcnt, bnd, ptm_t,     \
                                      heads, tails, n, m, M, mt, C, mterm, K, \
-                                     clk, stream);                          \
+                                     cond, in_graph, clk, stream);          \
   }
 
 TTS_TILED_LB1_ENTRY(tiled_lb1_i8, int8_t)

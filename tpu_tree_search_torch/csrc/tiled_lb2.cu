@@ -70,12 +70,14 @@ extern "C" void tiled_lb2_last_shape(int* out) {
                       const void* pairinfo, const void* tab,               \
                       const void* inv, int n, int m, int P, int route,     \
                       int M, int mt, int C, int mterm, int K,              \
-                      void* clk, void* stream) {                           \
+                      unsigned long long cond, int in_graph, void* clk,    \
+                      void* stream) {                                      \
     return launch_lb2_cycle<T, true>(pool_vals, pool_aux, st, stash,       \
                                      chunk_aux, lb, blkcnt, bnd, ptm_t,    \
                                      heads, pairinfo, tab, inv, n, m, P,   \
-                                     route, M, mt, C, mterm, K, clk,       \
-                                     stream, &tiled_lb2_last);             \
+                                     route, M, mt, C, mterm, K, cond,      \
+                                     in_graph, clk, stream,                \
+                                     &tiled_lb2_last);                     \
   }
 
 TTS_TILED_LB2_ENTRY(tiled_lb2_i8, int8_t)

@@ -66,9 +66,9 @@ __global__ void nq_tiles_emit(uint8_t* __restrict__ pool_vals,
                               const A* __restrict__ chunk_aux,
                               const uint32_t* __restrict__ mask,
                               const int* __restrict__ blkcnt, int N, int M,
-                              int* __restrict__ bnd, int mt) {
+                              int* __restrict__ bnd, int mt, TtsCond cond) {
   nq_emit_body<true, W, A>(pool_vals, pool_aux, st, stash, chunk_aux, mask,
-                             blkcnt, N, M, bnd, mt);
+                             blkcnt, N, M, bnd, mt, cond);
 }
 
 // The entries: `tiled_nqueens` takes an int8 depth (N <= 127),
@@ -76,12 +76,14 @@ __global__ void nq_tiles_emit(uint8_t* __restrict__ pool_vals,
 #define TTS_NQ_TILED_LAUNCH(W, A)                                         \
   launch_nq_cycle<W, A>(nq_tiles_labels<W, A>, nq_tiles_emit<W, A>, pool_vals,    \
                         pool_aux, st, stash, chunk_aux, mask, blkcnt, bnd, \
-                        N, g, M, mt, C, mterm, K, clk, stream)
+                        N, g, M, mt, C, mterm, K, cond, in_graph, clk,    \
+                        stream)
 #define TTS_NQ_TILED_ENTRY(NAME, AUX32)                                    \
   extern "C" int NAME(void* pool_vals, void* pool_aux, void* st,          \
                       void* stash, void* chunk_aux, void* mask,           \
                       void* blkcnt, void* bnd, int N, int g, int M, int mt, \
-                      int C, int mterm, int K, void* clk, void* stream) { \
+                      int C, int mterm, int K, unsigned long long cond,   \
+                      int in_graph, void* clk, void* stream) {            \
     TTS_NQ_DISPATCH(N, AUX32, TTS_NQ_TILED_LAUNCH);                        \
   }
 

@@ -149,6 +149,7 @@ from ..ops.dispatch import (
     DispatchGraph,
     batch_cond_plain,
     batch_init_plain,
+    cycle_cond_plain,
     dispatch_cond_obs_plain,
     loop_active,
     new_clock,
@@ -299,6 +300,8 @@ class _ResidentProgram(CachedProgram):
     aux_dtype: torch.dtype
     # Whether the unfused cycle runs a staged evaluator (PFSP lb2 only).
     staged = False
+    #: The K cap a search sets for its length (``--profile``'s window).
+    k_cap: int | None = None
     # The lb2 pair blocks an evaluation splits into (PFSP lb2 only).
     mp = 1
     # Why a program asked for the fused cycle runs the unfused one (None:
@@ -352,9 +355,28 @@ class _ResidentProgram(CachedProgram):
 
     def use_k(self, K: int) -> None:
         """Cycles a dispatch: K, clamped so that one dispatch accumulates at
-        most 2**31 - 1 (K*M*n) into the int32 tree and sol counters."""
+        most 2**31 - 1 (K*M*n) into the int32 tree and sol counters, and to
+        ``k_cap`` when a search sets one (``--profile``'s window)."""
         n = self.problem.child_slots
-        self.K = max(1, min(K, (2**31 - 1) // max(1, self.M * n)))
+        cap = self.k_cap or K
+        self.K = max(1, min(K, cap, (2**31 - 1) // max(1, self.M * n)))
+
+    def body_launches(self, state: ResidentState) -> int:
+        """The launches one run of a dispatch's body makes: on the card the
+        nodes of the body graph at the current K; on the CPU the entries of
+        one plain cycle recorded as `check` records it (its kernel routes
+        and torch operations, on a copy of ``state``) and the condition's
+        node where the cycle does not set the condition itself."""
+        if self.graphed:
+            return len(self._graph(state).nodes())
+        from ..analysis.contracts import Recorder
+
+        copy = ResidentState(state.pool_vals.clone(), state.pool_aux.clone(),
+                             state.st.clone())
+        rec = Recorder()
+        with rec:
+            self.slot_cycle(copy)()
+        return len(rec.entries) + (0 if self.fused and not self.obs else 1)
 
     def init_state(self, frontier: dict, best: int) -> ResidentState:
         p = self.problem
@@ -410,22 +432,28 @@ class _ResidentProgram(CachedProgram):
         if self.graphed:
             self._graph(state).launch()
             return
-        state.st[ST_TREE:ST_CYCLES + 1] = 0  # tree, sol, cycles
+        # The graph's init node: tree, sol, cycles and the body's runs.
+        state.st[ST_TREE:ST_CYCLES + 1] = 0
+        state.st[ST_RUNS] = 0
         if self.obs:
             state.st[ST_CTR:ST_CTR_SOL + 1] = 0
         if self.clk is not None:
             phase_mark(self.clk, 0, obs_phases.SEED)
-        if self.fused:
-            n = self.problem.child_slots
-            for _ in range(self.K):
+        n = self.problem.child_slots
+        cond = (self.m, self.M * n, self.capacity, self.K)
+        # The while node: a cycle, then what the body's end does to the
+        # state and the condition (the counter node's fold after a fused
+        # cycle under TTS_OBS=1, else the run counted).
+        live = loop_active(state.st.tolist(), *cond)
+        while live:
+            if self.fused:
                 self._fused_cycle(state)
-                if not int(state.st[ST_ACTIVE]):
-                    break
-                if self.obs:
-                    dispatch_cond_obs_plain(state.st, n, self.m, self.M * n,
-                                            self.capacity, self.K)
-        else:
-            self._unfused_step(state)
+            else:
+                self._unfused_cycle(state)
+            if self.fused and self.obs:
+                live = dispatch_cond_obs_plain(state.st, n, *cond)
+            else:
+                live = cycle_cond_plain(state.st, *cond)
 
     def enqueue(self, state: ResidentState):
         """``step``, and a function ``read(full=False)`` that returns its
@@ -550,16 +578,6 @@ class _ResidentProgram(CachedProgram):
         raise NotImplementedError
 
     # -- the unfused cycle ---------------------------------------------------
-
-    def _unfused_step(self, state: ResidentState) -> None:
-        """Up to K unfused cycles on the host's loop (``step`` has zeroed
-        the counts): the cycle while the loop condition holds."""
-        n = self.problem.child_slots
-        for _ in range(self.K):
-            if not loop_active(state.st.tolist(), self.m, self.M * n,
-                               self.capacity, self.K):
-                break
-            self._unfused_cycle(state)
 
     def slot_cycle(self, state: ResidentState):
         """The cycle a batch or mesh graph captures for one slot's state: a
@@ -1063,6 +1081,15 @@ def resident_search(
     program.host_slots(depth)
     state = program.own_state(pool.as_batch(), best)
     pool.clear()
+    # --profile's window (`obs/phases.py` SessionTrace): K capped so that
+    # the dispatches in flight before the first read stay in its budget;
+    # each read reports the body's launches (`twin.on_dispatch`).
+    session = obs_phases.SessionTrace.active()
+    body = 0
+    if session is not None:
+        body = program.body_launches(state)
+        program.k_cap = session.k_cap(body, depth)
+        program.use_k(program.K)
     diagnostics.host_to_device += 1
     tree2 = sol2 = 0
     dispatches = stalls = 0
@@ -1114,7 +1141,8 @@ def resident_search(
             ctr_total = obs_counters.merge_host(ctr_total, r.ctr)
         if r.ph is not None:
             ph_total = obs_phases.merge_host(ph_total, r.ph)
-        twin.on_dispatch(dispatches)
+        twin.on_dispatch(dispatches, cycles * body,
+                         (len(queue) + 1) * program.K * body)
         fr.heartbeat("resident", seq=dispatches, cycles=cycles, size=size,
                      best=best, tree=tree2, sol=sol2, depth=depth,
                      K=program.K, inflight=len(queue), phases=ph_total)
@@ -1247,6 +1275,7 @@ def resident_search(
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         twin.close()
+        program.k_cap = None
         program.release()
     if offloader is not None:
         diagnostics.kernel_launches += offloader.diagnostics.kernel_launches

@@ -115,17 +115,22 @@ from ..analysis.contracts import contract  # noqa: E402
 
 
 def _cond(record) -> str:
-    """The dispatch's loop-condition entry (the body's last)."""
-    return record.body[-1].name if record.body else ""
+    """The dispatch's loop-condition node (the body's last entry, where it
+    is a graph node; "" where the cycle sets the condition itself)."""
+    from ..analysis.contracts import GRAPH_NODES
+
+    last = record.body[-1].name if record.body else ""
+    return last if last in GRAPH_NODES else ""
 
 
 @contract(
     "obs-off-identity",
     claim="TTS_OBS unset, =0 and =host record the same dispatch and, on "
           "the card, the same graph, with no counter block: the program's "
-          "counters are off and its condition node is dispatch_cond — the "
-          "block is built out when off, never branched (host mode touches "
-          "no device program)",
+          "counters are off, the fused cycle sets the loop condition itself "
+          "(no condition node) and the unfused one is followed by "
+          "dispatch_cond — the block is built out when off, never branched "
+          "(host mode touches no device program)",
     artifact="variants",
 )
 def _contract_obs_off_identity(art, cell):
@@ -136,7 +141,8 @@ def _contract_obs_off_identity(art, cell):
         out.append("TTS_OBS unset/0/host record different programs (the "
                    "off path must be one program)")
     off = art.variants["off"]
-    if off.meta.get("obs") or _cond(off) != "dispatch_cond":
+    if off.meta.get("obs") or _cond(off) != ("" if art.fused
+                                             else "dispatch_cond"):
         out.append("the off build carries the counter block (armed "
                    f"{off.meta.get('obs')}, condition {_cond(off)}): the "
                    "off graph must be the untelemetered one")
@@ -146,9 +152,10 @@ def _contract_obs_off_identity(art, cell):
 @contract(
     "obs-counter-block",
     claim="TTS_OBS=1 builds a distinct program: on the fused cycle the same "
-          "cycle entries with dispatch_cond_obs as the body's last node in "
-          "place of dispatch_cond; the unfused cycle folds its own block "
-          "(fold=False: its ops grow, the last node stays dispatch_cond)",
+          "cycle entries with dispatch_cond_obs as the body's last node (the "
+          "off body has none: its cycle sets the condition); the unfused "
+          "cycle folds its own block (fold=False: its ops grow, the last "
+          "node stays dispatch_cond)",
     artifact="variants",
 )
 def _contract_obs_counter_block(art, cell):

@@ -174,7 +174,15 @@ class TorchTraceWindow:
                     TorchTraceWindow._active = self
                     self._owner = True
 
-    def on_dispatch(self, seq: int) -> None:
+    def on_dispatch(self, seq: int, launches: int = 0,
+                    ahead: int = 0) -> None:
+        """A consumed dispatch (``seq`` from 1): ``launches``, the graph-body
+        launches it ran, and ``ahead``, the most the dispatches in flight
+        and the next one can add, step the ``--profile`` trace
+        (``SessionTrace``) too."""
+        session = SessionTrace.active()
+        if session is not None:
+            session.on_dispatch(launches, ahead)
         if (not self._owner or self.started
                 or seq < TRACE_SKIP_DISPATCHES + 1):
             return
@@ -210,6 +218,114 @@ class TorchTraceWindow:
                 if TorchTraceWindow._active is self:
                     TorchTraceWindow._active = None
             self._owner = False
+
+
+# -- the whole-session torch.profiler capture (--profile) ----------------------
+
+#: The graph-body launches a ``--profile`` trace records at most: a traced
+#: process past about 300,000 such records ended in an illegal address on
+#: the H100, and one stopped at 267,020 ran clean (ROADMAP C). A bound on
+#: the tool, not a repair.
+PROFILE_BUDGET = 200_000
+
+
+def profile_k_cap(launches: int, depth: int, budget: int) -> int:
+    """The most cycles a dispatch may run under ``--profile``: the ``depth``
+    dispatches in flight before the first read, each of up to K runs of a
+    body of ``launches`` nodes, stay within ``budget``. At least 1."""
+    return max(1, budget // max(1, depth * launches))
+
+
+def profile_cut(traced: int, ahead: int, budget: int) -> bool:
+    """Whether a ``--profile`` trace stops at this dispatch boundary: the
+    ``traced`` graph-body launches of the dispatches read so far and the
+    ``ahead`` that the dispatches in flight and the next one can add pass
+    ``budget``."""
+    return traced + ahead > budget
+
+
+class SessionTrace:
+    """``--profile DIR``: ``torch.profiler`` over the whole session (the
+    host, and the card with ``cuda``), its Chrome trace written to
+    ``DIR/torch_profile.json`` when the block ends.
+
+    On the graph-dispatched resident tier the engine caps K (``k_cap``) and
+    steps the trace at each consumed dispatch (``TorchTraceWindow.
+    on_dispatch``): recording stops, after the card has finished what is in
+    flight, at the first boundary past which the traced graph-body launches
+    could pass the budget (``profile_cut``); the rest of the session runs
+    untraced. ``summary`` says which dispatches the trace holds. The
+    profiler is process-global: one session trace at a time."""
+
+    _active_lock = threading.Lock()
+    _active: "SessionTrace | None" = None
+
+    def __init__(self, out_dir: str, cuda: bool):
+        self.path = os.path.join(out_dir, "torch_profile.json")
+        self.cuda = cuda
+        self.budget = PROFILE_BUDGET
+        self.dispatches = 0  # consumed in the session
+        self.traced_dispatches = 0  # of them, read while recording
+        self.traced = 0  # their graph-body launches
+        self.recording = False
+        self._prof = None
+
+    @classmethod
+    def active(cls) -> "SessionTrace | None":
+        return cls._active
+
+    def __enter__(self) -> "SessionTrace":
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.cuda:
+            acts.append(ProfilerActivity.CUDA)
+        with SessionTrace._active_lock:
+            if SessionTrace._active is not None:
+                raise RuntimeError("a --profile trace is already recording")
+            SessionTrace._active = self
+        self._prof = profile(activities=acts)
+        self._prof.start()
+        self.recording = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        try:
+            self.stop()
+            self._prof.export_chrome_trace(self.path)
+        finally:
+            with SessionTrace._active_lock:
+                SessionTrace._active = None
+
+    def k_cap(self, launches: int, depth: int) -> int:
+        """The K cap of a search whose body runs ``launches`` nodes with
+        ``depth`` dispatches in flight."""
+        return profile_k_cap(launches, depth, self.budget)
+
+    def on_dispatch(self, launches: int, ahead: int) -> None:
+        self.dispatches += 1
+        if not self.recording:
+            return
+        self.traced += launches
+        self.traced_dispatches = self.dispatches
+        if profile_cut(self.traced, ahead, self.budget):
+            self.stop()
+
+    def stop(self) -> None:
+        """Stop recording (the card's work in flight finished first)."""
+        if not self.recording:
+            return
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+        self._prof.stop()
+        self.recording = False
+
+    def summary(self) -> str:
+        return (f"dispatches 1..{self.traced_dispatches} of {self.dispatches} "
+                f"traced, {self.traced} graph-body launches, budget "
+                f"{self.budget}")
 
 
 # -- program contracts (`check`, analysis/contracts.py) ------------------------

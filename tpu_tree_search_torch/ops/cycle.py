@@ -39,8 +39,8 @@ import torch
 from ..obs.phases import CLOSE, IDX, OPEN
 from ..problems.base import INF_BOUND
 from . import _build
-from .dispatch import (clock_pointer, count_launch, count_marks, phase_mark,
-                       route)
+from .dispatch import (COND_ARGTYPES, clock_pointer, count_launch, count_marks,
+                       cycle_condition, phase_mark, route)
 from .lb2_kernel import johnson_operands
 from .pfsp_device import PFSPDeviceTables, lb1_chunk, lb2_chunk
 
@@ -291,9 +291,9 @@ _ENTRIES = {
 }
 _ARGTYPES = {
     "cycle_lb1": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
-    + (ctypes.c_void_p,) * 2,
+    + COND_ARGTYPES + (ctypes.c_void_p,) * 2,
     "cycle_lb2": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
-    + (ctypes.c_void_p,) * 2,
+    + COND_ARGTYPES + (ctypes.c_void_p,) * 2,
 }
 #: Phase marks a PFSP cycle enqueues with a clock (loop, eval, compact,
 #: push), and an N-Queens cycle (loop, eval, push).
@@ -308,7 +308,8 @@ def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
     """Check the operands of a PFSP cycle and enqueue the entry of
     ``csrc/<source>.cu``: the pool, state and scratch pointers, then
     ``table_args`` (tensors) and ``table_sizes`` (ints), then M, C, m, K,
-    and the phase clock (None: no marks)."""
+    the graph's while node when the cycle is its body
+    (``cycle_condition``), and the phase clock (None: no marks)."""
     if not pool_vals.is_cuda:
         raise ValueError(f"{source} takes CUDA tensors")
     entries = _ENTRIES[source]
@@ -334,7 +335,8 @@ def _launch_pfsp_cycle(source: str, pool_vals: torch.Tensor,
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(),
              *(t.data_ptr() for t in table_args),
-             *table_sizes, M, C, m, K, clk_ptr, stream)
+             *table_sizes, M, C, m, K, *cycle_condition(source), clk_ptr,
+             stream)
     _build.check(lib, err, source)
     count_marks(clk, PFSP_MARKS)
 
@@ -444,11 +446,12 @@ def _contract_megakernel_knobs(art, cell):
 @contract(
     "fused-single-launch",
     claim="the fused body (single-tile and streamed alike) is its cycle "
-          "wrapper's launches plus the condition node: one route entry "
-          "(cycle_* or tiled_*), no torch operation between, and on the "
-          "card no torch kernel, copy or memset node in the body; a build "
-          "asked for the fused cycle that runs unfused (lb1_d, the mp pair "
-          "axis) recorded why",
+          "wrapper's launches alone, the cycle setting the loop condition "
+          "itself (under TTS_OBS=1 the counter node dispatch_cond_obs after "
+          "them): one route entry (cycle_* or tiled_*), no torch operation "
+          "between, no dispatch_cond, and on the card no torch kernel, copy "
+          "or memset node in the body; a build asked for the fused cycle "
+          "that runs unfused (lb1_d, the mp pair axis) recorded why",
     artifact="cycle",
     applies=lambda cell: cell is not None and cell.fused,
 )
@@ -468,9 +471,14 @@ def _contract_fused_single_launch(art, cell):
         out.append(f"fused body routes {routes} (want one {want}* wrapper)")
     if ops:
         out.append(f"torch operations in the fused body: {sorted(set(ops))}")
+    conds = [e.name for e in rec.body if e.name.startswith("dispatch_cond")]
+    if conds != (["dispatch_cond_obs"] if prog.obs else []):
+        out.append(f"fused body's condition nodes {conds} (want "
+                   f"{'dispatch_cond_obs' if prog.obs else 'none'})")
     if rec.nodes is not None:
         bad = [nm for nm, k in rec.nodes["body"]
-               if k in _COPY_NODES or "at6native" in nm]
+               if k in _COPY_NODES or "at6native" in nm
+               or (not prog.obs and "dispatch_cond" in nm)]
         if bad:
             out.append(f"fused graph body holds {bad}")
     return out

@@ -32,7 +32,8 @@ from ..obs.phases import IDX
 from . import _build
 from .cycle import (NQ_MARKS, ST_LEN, CycleScratch, parents_per_block,
                     plain_marker, plain_pool_cycle)
-from .dispatch import clock_pointer, count_launch, count_marks, route
+from .dispatch import (COND_ARGTYPES, clock_pointer, count_launch, count_marks,
+                       cycle_condition, route)
 from .nqueens_device import labels_chunk
 from .nqueens_kernel import MAX_N
 
@@ -137,7 +138,8 @@ def check_nqueens_pool(source: str, pool_vals: torch.Tensor,
     return source if N <= 127 else f"{source}_i32"
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 2
+_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + COND_ARGTYPES
+             + (ctypes.c_void_p,) * 2)
 
 
 def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
@@ -160,7 +162,7 @@ def cycle_nqueens_cuda(pool_vals: torch.Tensor, pool_aux: torch.Tensor,
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              scratch.chunk_vals.data_ptr(), scratch.chunk_aux.data_ptr(),
              scratch.plane.data_ptr(), scratch.blkcnt.data_ptr(), N, g, M, C,
-             m, K, clk_ptr, stream)
+             m, K, *cycle_condition("cycle_nqueens"), clk_ptr, stream)
     _build.check(lib, err, "cycle_nqueens")
     count_marks(clk, NQ_MARKS)
     count_launch(cycle_nqueens_cuda)

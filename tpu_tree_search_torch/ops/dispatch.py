@@ -2,22 +2,24 @@
 that stops at termination — the port's counterpart of the JAX engine's
 ``lax.while_loop`` (`tpu_tree_search/engine/resident.py`, ``loop_fns``).
 
-``DispatchGraph`` builds, once a (program, K rung), a graph of three parts
-(`csrc/dispatch_graph.cu`): a kernel that zeroes tree, sol and cycles in
-the loop state and sets the condition; a ``while`` node whose body is one
-cycle, captured by calling the cycle on a side stream in capture mode (a
-fused cycle's wrapper, kernels 2, 4, 8, 9a, 9b or 9c, or the unfused
-cycle of `engine/resident.py`: kernel 1, 3, 5, 6 or 7 and the torch
-compaction and push, of fixed shapes, its scalars on the device); and a
-last body kernel that sets the condition ``size >= m and size + M*n <= C
-and cycles < K`` from the state and counts the body's runs in
-``st[ST_RUNS]``. ``launch`` enqueues one dispatch on the current stream:
-one ``cudaGraphLaunch``, no host synchronisation, and no cycle launched
-past termination. What torch allocates while a body is captured comes
-from a memory pool of the graph's own (``torch.cuda.MemPool``, held by
-this module under a lock; the graph keeps its key), kept for the graph's
-life, so no later allocation outside the graph is handed the blocks its
-nodes write.
+``DispatchGraph`` builds, once a (program, K rung), a graph
+(`csrc/dispatch_graph.cu`) of a kernel that zeroes tree, sol and cycles in
+the loop state and sets the condition ``size >= m and size + M*n <= C and
+cycles < K``, and a ``while`` node whose body is one cycle, captured by
+calling the cycle on a side stream in capture mode. A fused cycle's wrapper
+(kernels 2, 4, 8, 9a, 9b or 9c) is the whole body: given the node's handle
+(``cycle_condition``), its emit counts the body's runs in ``st[ST_RUNS]``
+and sets the condition from the state it writes.
+The unfused cycle of `engine/resident.py` (kernel 1, 3, 5, 6 or 7 and the
+torch compaction and push, of fixed shapes, its scalars on the device) is
+followed by a last body kernel, ``dispatch_cond``, that does both from the
+state (the plain version of either: ``cycle_cond_plain``). ``launch``
+enqueues one dispatch on the current stream: one ``cudaGraphLaunch``, no
+host synchronisation, and no cycle launched past termination. What torch
+allocates while a body is captured comes from a memory pool of the
+graph's own (``torch.cuda.MemPool``, held by this module under a lock; the
+graph keeps its key), kept for the graph's life, so no later allocation
+outside the graph is handed the blocks its nodes write.
 
 Launch counts: ``DispatchGraph.launches`` counts graph launches. A cycle
 wrapper counts its launches through ``count_launch``: one where it launches
@@ -38,7 +40,8 @@ two flags); off, the graph is the one above, node for node:
 
   * the counter block (``TTS_OBS=1``, `obs/counters.py`): ``obs`` (the
     cycle's child slots a parent) makes the body's last node
-    ``dispatch_cond_obs``, which folds each cycle into the block in
+    ``dispatch_cond_obs`` (the fused cycle then sets no condition), which
+    folds each cycle into the block in
     ``st[ST_CTR:]`` before it sets the condition (the plain version:
     ``dispatch_cond_obs_plain``), and the init node zeroes the block. The
     unfused cycle folds its own block (it has an overflow branch), so its
@@ -97,6 +100,51 @@ _VP = ctypes.c_void_p
 #: of its own thread only: other threads may launch kernels meanwhile (the
 #: multi-device tier's workers, the serve daemon's).
 _TLS = threading.local()
+
+
+class _OwnCondition:
+    """The while node a ``DispatchGraph`` capture offers its cycle: the
+    handle, and the wrapper that took it (None until one does)."""
+
+    def __init__(self, handle: int):
+        self.handle = handle
+        self.taken: str | None = None
+
+
+#: The C arguments of a cycle entry's hold on its graph's while node
+#: (`csrc/cycle_common.cuh` ``TtsCond``): the handle and the flag.
+COND_ARGTYPES = (ctypes.c_ulonglong, ctypes.c_int)
+
+
+def cycle_condition(name: str) -> tuple[int, int]:
+    """A fused or streamed cycle entry's hold on the while node: ``(handle,
+    1)`` when this thread captures the body of a ``DispatchGraph`` that
+    lets its cycle set the node's condition (counters off), ``(0, 0)``
+    otherwise (an eager launch, a batched or mesh graph, whose own node
+    sets it, or the counter block's ``dispatch_cond_obs``). A body holds
+    one such cycle: a second entry (``name``) asking in one capture
+    raises."""
+    own = getattr(_TLS, "cond", None)
+    if own is None:
+        return 0, 0
+    if own.taken is not None:
+        raise RuntimeError(f"{name}: the body's condition is already set "
+                           f"by {own.taken}")
+    own.taken = name
+    return own.handle, 1
+
+
+@contextmanager
+def offering(handle: int | None):
+    """Offer the while node ``handle`` to the cycle captured in the block
+    (None: offer nothing); yields the offer (``taken``: who took it)."""
+    prev = getattr(_TLS, "cond", None)
+    own = None if handle is None else _OwnCondition(handle)
+    _TLS.cond = own
+    try:
+        yield own
+    finally:
+        _TLS.cond = prev
 
 
 def count_launch(wrapper) -> None:
@@ -163,7 +211,7 @@ _ENTRY_ARGS = {
     "dispatch_graph_begin_body": (_VP, _VP),
     "dispatch_graph_end_body": (_VP, ctypes.c_int, _VP, ctypes.c_ulonglong,
                                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int),
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int),
     "phase_mark_enqueue": (_VP, ctypes.c_int, ctypes.c_int, _VP),
     "phase_mark_if_enqueue": (_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               _VP, _VP),
@@ -209,7 +257,9 @@ class DispatchGraph:
     ``clk`` (the phase clock, or None) the seed mark; ``cycle()`` passes
     the clock to its entry itself. ``fold`` False (the unfused cycle,
     which folds its own block) keeps the last node ``dispatch_cond`` with
-    the block armed.
+    the block armed. With ``fold`` and the counters off, the body is
+    offered the while node (``cycle_condition``): a cycle that takes it
+    sets the condition itself and no node follows it (``own_cond``).
     """
 
     def __init__(self, cycle, st: torch.Tensor, m: int, Mn: int, C: int,
@@ -223,6 +273,7 @@ class DispatchGraph:
         self.clk = clk
         cond_obs = obs if fold else 0
         self.wrappers: list = [dispatch_cond_obs] if cond_obs else []
+        self.own_cond = False
         self._graph = _VP()
         self._subgraphs: list[tuple[str, _VP]] = []
         self._exec = _VP()
@@ -238,7 +289,7 @@ class DispatchGraph:
         self._body = body
         try:
             self._capture(lib, cycle, body, handle.value, m, Mn, C, K,
-                          cond_obs)
+                          cond_obs, fold and not obs)
             _, inst = _fn("dispatch_graph_instantiate")
             _build.check(lib, inst(self._graph, ctypes.byref(self._exec)),
                          "dispatch_graph_instantiate")
@@ -249,24 +300,30 @@ class DispatchGraph:
         _build.count_build("graphs")
 
     def _capture(self, lib, cycle, body, handle: int, m: int, Mn: int,
-                 C: int, K: int, obs: int) -> None:
+                 C: int, K: int, obs: int, offer: bool) -> None:
         """The while node's body: ``cycle()`` on a side stream captured
-        into ``body``, then the condition kernel."""
+        into ``body`` (``offer``: offered the node's handle), then the
+        condition kernel unless the cycle took the handle."""
         side = torch.cuda.Stream(self.st.device)
         _, begin = _fn("dispatch_graph_begin_body")
         _, end = _fn("dispatch_graph_end_body")
         _build.check(lib, begin(body, side.cuda_stream),
                      "dispatch_graph_begin_body")
         ok = 0
+        own = None
         try:
             with torch.cuda.stream(side), recording(self.wrappers), \
-                    pooled(self.pool, side.device):
+                    pooled(self.pool, side.device), \
+                    offering(handle if offer else None) as own:
                 cycle()
             ok = 1
         finally:
+            self.own_cond = own is not None and own.taken is not None
             err = end(side.cuda_stream, ok, self.st.data_ptr(), handle, m,
-                      Mn, C, K, obs)
+                      Mn, C, K, obs, int(self.own_cond))
         _build.check(lib, err, "dispatch_graph_end_body")
+        if not (obs or self.own_cond):
+            self.wrappers.append(dispatch_cond)
 
     def launch(self) -> None:
         """Enqueue one dispatch on the current stream."""
@@ -274,6 +331,7 @@ class DispatchGraph:
         stream = torch.cuda.current_stream(self.st.device).cuda_stream
         _build.check(lib, fn(self._exec, stream), "dispatch_graph_launch")
         _build.add_launches(DispatchGraph)
+        _build.add_launches(dispatch_init)
         if self.clk is not None:
             _build.add_launches(phase_mark_cuda)  # the seed node
 
@@ -581,6 +639,21 @@ def loop_active(v: list, m: int, Mn: int, C: int, K: int) -> bool:
     return size >= m and size + Mn <= C and v[ST_CYCLES] < K
 
 
+def cycle_cond_plain(st: torch.Tensor, m: int, Mn: int, C: int,
+                     K: int) -> bool:
+    """What a graph body does around its cycle to the state and the while
+    node, from the state after the cycle, in place: the body's run counted
+    in ``st[ST_RUNS]``, and the loop condition returned. On the card a
+    fused cycle does it itself (its emit's last block, `csrc/
+    cycle_common.cuh` ``TtsCond``), and after an
+    unfused one the ``dispatch_cond`` node does; the plain dispatch loop
+    runs this."""
+    from .cycle import ST_RUNS
+
+    st[ST_RUNS] += 1
+    return loop_active(st.tolist(), m, Mn, C, K)
+
+
 # -- the counter block (TTS_OBS=1) ---------------------------------------------
 
 
@@ -620,6 +693,11 @@ class _GraphKernel:
 
 
 dispatch_cond_obs = _GraphKernel("dispatch_cond_obs")
+#: The dispatch graph's init node (once a graph launch) and the condition
+#: node after an unfused cycle (once a body run; a fused cycle sets the
+#: condition itself).
+dispatch_init = _GraphKernel("dispatch_init")
+dispatch_cond = _GraphKernel("dispatch_cond")
 #: The batched graph's nodes (``BatchGraph``): the init node once a
 #: dispatch, the condition node once a round.
 batch_init = _GraphKernel("batch_init")

@@ -70,7 +70,8 @@ from .cycle_nqueens import (
     depth_dtype,
     nq_mask_words,
 )
-from .dispatch import clock_pointer, count_launch, count_marks, route
+from .dispatch import (COND_ARGTYPES, clock_pointer, count_launch, count_marks,
+                       cycle_condition, route)
 from .lb1_kernel import lb1_bounds_cuda
 from .lb2_kernel import johnson_operands, lb2_bounds_cuda
 from .nqueens_device import labels_chunk
@@ -276,11 +277,11 @@ _ENTRIES = {
 }
 _ARGTYPES = {
     "tiled_lb1": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
-    + (ctypes.c_void_p,) * 2,
+    + COND_ARGTYPES + (ctypes.c_void_p,) * 2,
     "tiled_lb2": (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9
-    + (ctypes.c_void_p,) * 2,
+    + COND_ARGTYPES + (ctypes.c_void_p,) * 2,
     "tiled_nqueens": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
-    + (ctypes.c_void_p,) * 2,
+    + COND_ARGTYPES + (ctypes.c_void_p,) * 2,
 }
 
 
@@ -321,7 +322,8 @@ def _launch_tiled(source: str, pool_vals: torch.Tensor,
     stream = torch.cuda.current_stream(pool_vals.device).cuda_stream
     err = fn(pool_vals.data_ptr(), pool_aux.data_ptr(), st.data_ptr(),
              *scratch.pointers(), *(t.data_ptr() for t in table_args),
-             *sizes, M, mt, C, m, K, clk_ptr, stream)
+             *sizes, M, mt, C, m, K, *cycle_condition(source), clk_ptr,
+             stream)
     _build.check(lib, err, source)
     count_marks(clk, marks)
 

@@ -243,6 +243,8 @@ class MeshProgram(R.CachedProgram):
                          M * problem.child_slots) if len(row) > 1 else None
             for row in self.layout]
         self.copied = any(x is not None for x in self.exchanges)
+        # Copies of one shard on one card (not traceable: COPIES_TRACED).
+        self.shared_cards = shared_card_copies(positions, self.D, self.mp)
         copies = {p: [] for p in order}
         for d, row in enumerate(self.layout):
             for i, (p, blocks) in enumerate(row):
@@ -536,6 +538,9 @@ class MeshProgram(R.CachedProgram):
                 self.check_copies(copy_rows)
                 return rows, ph, None
             return read_host
+        if self.shared_cards and torch.autograd._profiler_enabled():
+            raise RuntimeError(f"copies of shards {self.shared_cards} (shard, "
+                               f"card): {COPIES_TRACED}")
         buf, start, end, done, clkbuf, copybuf = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
         # The graphs (built at first use) before the timed launches. Each
@@ -660,6 +665,38 @@ def copy_layout(grid: list[list[int]]) -> list[list[tuple[int, list[int]]]]:
         for i, p in enumerate(row):
             where.setdefault(p, []).append(i)
         out.append(list(where.items()))
+    return out
+
+
+#: Why copies of one shard on one card are refused under a trace.
+COPIES_TRACED = (
+    "two copies of a shard on one card exchange planes inside their "
+    "groups' graphs, which needs the card to run those graphs at once: "
+    "CUDA does not promise it, and under a torch.profiler trace their "
+    "waits time out (ST_XERR); trace such a mesh with each shard's copies "
+    "on distinct cards, or run it untraced")
+
+
+def _card(position) -> str | None:
+    """The card a device position names ("cuda" is card 0, the current one
+    of a fresh process), None for the CPU; resolves nothing."""
+    dev = torch.device(position)
+    if dev.type != "cuda":
+        return None
+    return f"cuda:{dev.index or 0}"
+
+
+def shared_card_copies(positions, D: int, mp: int) -> list[tuple[int, str]]:
+    """The shards (and the card) two of whose copies land on one card, from
+    the ``mp_grid`` and ``copy_layout`` of ``D`` shards over the device
+    positions ``positions`` (strings or devices), resolving no device: the
+    layout ``COPIES_TRACED`` refuses under a trace."""
+    out = []
+    for d, row in enumerate(copy_layout(mp_grid(D, mp, len(positions)))):
+        cards = [_card(positions[p]) for p, _ in row]
+        for card in sorted({c for c in cards if c is not None}):
+            if cards.count(card) > 1:
+                out.append((d, card))
     return out
 
 
