@@ -355,6 +355,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4768,6 +4769,95 @@ def phase_check() -> dict:
     return out
 
 
+
+def capture_headline_graphs() -> dict:
+    """The headline programs' dispatch graphs captured at the CLI's shapes,
+    past check's small ones: the fused ta014 lb1 dispatch at M = 49152
+    (uncached, freed after), and the ta014 lb2 --mp 2 mesh of D = 2 shards
+    over two positions of the card (cuda:0, cuda:0: a copy of each shard at
+    each, joined by the pair exchange), every group's round graphs. Returns
+    each one's body node count."""
+    from tpu_tree_search_torch.engine import resident as R
+    from tpu_tree_search_torch.parallel.resident_mesh import MeshProgram
+    from tpu_tree_search_torch.problems import PFSPProblem
+
+    out = {}
+    prob = PFSPProblem(inst=14, lb="lb1", ub=1)
+    M, n = 49152, prob.child_slots
+    fr = _frontier(prob, M + M // 2)
+    prog = R.new_program(prob, 25, M, 4,
+                         2 * fr[prob.vals_field].shape[0] + 2 * M * n, "cuda")
+    try:
+        state = prog.own_state(fr, getattr(prob, "initial_ub", INF))
+        out["ta014_lb1_fused_M49152"] = len(prog._graph(state).nodes())
+    finally:
+        prog.close()
+    lb2 = PFSPProblem(inst=14, lb="lb2", ub=1)
+    M = 1024
+    fr = _frontier(lb2, 2 * M)
+    mesh = MeshProgram(lb2, 2, 25, M, 4, 2, 50, 4 * M * lb2.child_slots,
+                       devices=["cuda:0", "cuda:0"], fused=False, staged=True,
+                       mp=2)
+    try:
+        mesh.upload(fr, getattr(lb2, "initial_ub", INF))
+        out["ta014_lb2_mesh_D2_mp2_copies"] = {
+            f"group{i}.round{r}": len(mesh.graph(i, r).nodes())
+            for i in range(len(mesh.groups)) for r in range(mesh.rounds)}
+    finally:
+        mesh.close()
+    return out
+
+
+def phase_capture_lint() -> dict:
+    """The capture rules held to what the card's captures really enter
+    (`analysis/torch_rules.py`): phase check (every matrix cell's dispatch
+    graph, the variants, the batched graphs at B = 1, 2, the mesh graphs,
+    the --mp copies') and the headline graphs (``capture_headline_graphs``)
+    run under ``EnteredFunctions``, which records each function of the
+    port's package that starts or resumes, on any thread, while
+    ``torch.cuda.is_current_stream_capturing()`` is true (it reads code
+    objects only, no tensor). Every recorded function must be in the
+    lint's captured set (``captured_keys`` over the package), and the
+    capture rules must find nothing new in the package. The line: the
+    functions entered under capture, the captured set's size, the missing
+    ones (none), the findings, the seconds."""
+    import tpu_tree_search_torch as pkg
+    from tpu_tree_search_torch.analysis import lint
+    from tpu_tree_search_torch.analysis.torch_rules import (
+        JAX_COUNTERPART,
+        EnteredFunctions,
+        captured_keys,
+    )
+
+    root = os.path.dirname(os.path.abspath(pkg.__file__))
+    t0 = time.perf_counter()
+    with EnteredFunctions(root, torch.cuda.is_current_stream_capturing) as probe:
+        out = phase_check()
+        headline = capture_headline_graphs()
+    probe_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    captured = captured_keys([root])
+    missing = [(os.path.relpath(p, root), name, line)
+               for p, name, line in probe.missing(captured)]
+    res = lint([root], rules=sorted(JAX_COUNTERPART))
+    entered = sorted((os.path.relpath(p, root), name, line)
+                     for p, name, line in probe.seen)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "capture_lint_entered.json"), "w") as f:
+        json.dump({"entered": entered, "missing": missing}, f, indent=0)
+    line = dict(entered=len(entered), captured=len(captured), missing=missing,
+                new_findings=[x.render() for x in res["new"]],
+                waived=len(res["waived"]), headline=headline,
+                check_s=out["seconds"], probe_s=probe_s,
+                lint_s=time.perf_counter() - t1,
+                seconds=time.perf_counter() - t0)
+    emit("capture_lint", **line)
+    check(entered and not missing and not res["new"],
+          f"capture lint: {len(missing)} function(s) entered under capture "
+          f"outside the captured set {missing[:8]}, "
+          f"{len(res['new'])} new finding(s)")
+    return line
+
 CUPTI_UNFUSED = PFSP_LB1 + ["--M", "1024", "--unfused"]
 CUPTI_PROBES = (("untraced", [], False, False, False),
                 ("memcheck", [], False, False, True),
@@ -4918,8 +5008,15 @@ def main_cupti(dev_info, probes=CUPTI_PROBES) -> int:
 def main_check(dev_info) -> int:
     """``--check``: only the program contracts on the card (phase check) and
     the unfused searches under each explicit survivor-path mode (phase
-    compact_modes, guarded N = 14 included)."""
-    phase_check()
+    compact_modes, guarded N = 14 included), check under the capture
+    probe (phase capture_lint) between two runs of check without it (phase
+    probe_cost: the probe's cost, A B A)."""
+    before = phase_check()
+    probed = phase_capture_lint()
+    after = phase_check()
+    emit("probe_cost", check_s_unprobed_before=before["seconds"],
+         check_s_probed=probed["check_s"],
+         check_s_unprobed_after=after["seconds"])
     phase_compact(kernel_counters())
     print(json.dumps({"ok": True, "phases": "check", "device": dev_info}), flush=True)
     return 0
@@ -5113,7 +5210,7 @@ def main() -> int:
     # The survivor-path modes (--compact) on the unfused searches, and the
     # program contracts over every cell's dispatch graph.
     phase_compact(counters)
-    phase_check()
+    phase_capture_lint()
     evp = phase_eval_pass(dev, eval_probs, counters)
     check(evp["launches"]["lb1_bounds"] == 1 and evp["launches"]["nqueens_labels"] == 1
           and evp["launches"]["lb2_bounds"] == 2,

@@ -1,11 +1,12 @@
 """The port's ``lint`` (`tpu_tree_search_torch/analysis/`: the lock rules
-``guarded-by`` and ``lock-order``), held to the JAX package's
+``guarded-by`` and ``lock-order``, and the capture rules of
+tests/test_torch_capture_rules.py), held to the JAX package's
 (`tpu_tree_search/analysis/`, the lock-rule part of tests/test_lint.py).
 
-  * on every fixture of tests/data/lint/, the port's findings — new and
-    waived, ``(rule, file, line)`` — equal the JAX lint's run with the same
-    two rules; the baseline ratchet agrees, and either package's baseline
-    file loads in the other;
+  * on every fixture of tests/data/lint/, the port's lock-rule findings —
+    new and waived, ``(rule, file, line)`` — equal the JAX lint's run with
+    the same two rules; the baseline ratchet agrees, and either package's
+    baseline file loads in the other;
   * the rules' own cases: the bad fixtures' lines, a waiver honoured, a
     stale or reasonless waiver flagged, the good fixture clean;
   * the port lints clean with no baseline (the pool's lock contract
@@ -34,6 +35,7 @@ from tpu_tree_search_torch.analysis.baseline import (
     save_baseline,
 )
 from tpu_tree_search_torch.analysis.core import RULES
+from tpu_tree_search_torch.analysis.torch_rules import JAX_COUNTERPART
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "data" / "lint"
@@ -49,8 +51,11 @@ def findings_of(path, rule=None):
     return [f for f in out if rule is None or f.rule == rule]
 
 
-def test_only_the_lock_rules_are_registered():
-    assert set(RULES) == set(LOCK_RULES)
+def test_the_lock_and_capture_rules_are_registered():
+    """Five rules: the two lock rules and the three capture rules (the
+    counterparts of the JAX package's program rules)."""
+    assert set(RULES) == set(LOCK_RULES) | set(JAX_COUNTERPART)
+    assert len(RULES) == 5
     assert DEFAULT_BASELINE != ".tts-lint-baseline.json"
 
 
@@ -58,13 +63,14 @@ def test_only_the_lock_rules_are_registered():
                                            FIXTURES.glob("*.py")))
 def test_fixture_findings_equal_jax(fixture):
     path = str(FIXTURES / fixture)
-    mine, theirs = lint([path]), jax_lint([path], rules=LOCK_RULES)
+    mine = lint([path], rules=LOCK_RULES)
+    theirs = jax_lint([path], rules=LOCK_RULES)
     for part in ("new", "waived", "baselined"):
         assert _keys(mine[part]) == _keys(theirs[part]), part
 
 
 def test_fixture_directory_equals_jax():
-    mine = lint([str(FIXTURES)])
+    mine = lint([str(FIXTURES)], rules=LOCK_RULES)
     theirs = jax_lint([str(FIXTURES)], rules=LOCK_RULES)
     assert _keys(mine["new"]) == _keys(theirs["new"])
     assert _keys(mine["waived"]) == _keys(theirs["waived"])
@@ -97,12 +103,12 @@ def test_good_fixture_is_clean():
 
 def test_stale_waiver_is_a_finding(tmp_path):
     """A waiver whose rule ran and no longer fires is stale; one naming a
-    rule the port does not have (the JAX-only rules included) is always
-    stale."""
+    rule the port does not have (a JAX rule's name, whose port counterpart
+    has a name of its own) is always stale."""
     f = tmp_path / "s.py"
     f.write_text(
         "x = 1  # tts-lint: waive guarded-by -- long-fixed\n"
-        "y = 2  # tts-lint: waive tracer-branch -- a JAX-only rule\n"
+        "y = 2  # tts-lint: waive host-sync-in-jit -- a JAX-only rule\n"
     )
     stale = [x for x in lint([str(f)])["new"] if x.rule == "waiver-stale"]
     assert sorted(x.line for x in stale) == [1, 2]

@@ -79,13 +79,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "resident_mesh", "topology"}
     assert {p.stem for p in files if p.parent == PKG / "utils"} == {
         "__init__", "termination"}
-    # The fleet router and the analysis package (the lint's rules, the
-    # steady-state guard, the program contracts and their auditor).
+    # The fleet router and the analysis package (the lint's lock and
+    # capture rules, the steady-state guard, the program contracts and
+    # their auditor).
     assert {p.stem for p in files if p.parent == PKG / "fleet"} == {
         "__init__", "health", "loadgen", "placement", "router"}
     assert {p.stem for p in files if p.parent == PKG / "analysis"} == {
         "__init__", "__main__", "baseline", "contracts", "core", "guard",
-        "lockorder", "locks", "program_audit"}
+        "lockorder", "locks", "program_audit", "torch_rules"}
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files

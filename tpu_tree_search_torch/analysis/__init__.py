@@ -1,12 +1,14 @@
-"""``tpu_tree_search_torch.analysis`` — the port's ``lint`` (the lock rules),
-its program contracts (``check``) and the steady-state guard of its
-resident loops (the JAX package's ``analysis/``).
+"""``tpu_tree_search_torch.analysis`` — the port's ``lint`` (the lock rules
+and the capture rules), its program contracts (``check``) and the
+steady-state guard of its resident loops (the JAX package's ``analysis/``).
 
-Static side: the AST-pass framework (``core``), two rules — ``guarded-by``
-(``locks``) and ``lock-order`` (``lockorder``) — inline waivers and a
-count-ratchet baseline (``baseline``), all stdlib. The JAX package's
-``host-sync-in-jit``, ``tracer-branch`` and ``static-arg-hygiene`` read
-JAX programs and have no counterpart. Program side: the contract registry
+Static side: the AST-pass framework (``core``), five rules — ``guarded-by``
+(``locks``) and ``lock-order`` (``lockorder``), and the capture rules
+``host-sync-in-capture``, ``tensor-branch`` and ``program-key-hygiene``
+(``torch_rules``: the JAX package's ``host-sync-in-jit``,
+``tracer-branch`` and ``static-arg-hygiene`` over the code a dispatch
+graph captures) — inline waivers and a count-ratchet baseline
+(``baseline``), all stdlib. Program side: the contract registry
 (``contracts``) and its auditor over the cycles and their dispatch graphs
 (``program_audit``, ``check``). Runtime side: the ``TTS_GUARD=1``
 steady-state guard (``guard``).
@@ -30,6 +32,7 @@ from .guard import GuardViolation, SteadyStateGuard, guard_enabled
 # Rule modules register themselves into RULES at import time.
 from . import lockorder as _lockorder  # noqa: E402,F401  (registration)
 from . import locks as _locks  # noqa: E402,F401  (registration)
+from . import torch_rules as _torch_rules  # noqa: E402,F401  (registration)
 
 __all__ = [
     "Finding",
@@ -136,7 +139,10 @@ def lint_main(argv=None, prog: str = "python -m tpu_tree_search_torch.analysis"
     p = argparse.ArgumentParser(
         prog=prog,
         description="the lock rules (guarded-by, lock-order) over the "
-                    "port's host threads",
+                    "port's host threads and the capture rules "
+                    "(host-sync-in-capture, tensor-branch, "
+                    "program-key-hygiene) over the code its dispatch "
+                    "graphs capture",
     )
     add_lint_args(p)
     return run_lint_cli(p.parse_args(argv))

@@ -7,8 +7,10 @@ linter sees its ``guarded-by`` notes. Each rule is a function over a parsed
 ``Module`` (AST + comments + import aliases) registered under a stable
 name; ``lint`` parses every file once, runs all rules, then filters
 findings through inline waivers (baseline ratcheting lives in
-``baseline.py``). The two rules are ``guarded-by`` (``locks.py``) and
-``lock-order`` (``lockorder.py``).
+``baseline.py``). The rules are ``guarded-by`` (``locks.py``),
+``lock-order`` (``lockorder.py``) and the capture rules
+``host-sync-in-capture``, ``tensor-branch`` and ``program-key-hygiene``
+(``torch_rules.py``).
 
 Rules see a ``Project`` so cross-file facts (e.g. ``guarded-by`` annotations
 declared in ``pool/pool.py`` but enforced in ``parallel/dist.py``) are
@@ -198,7 +200,7 @@ def run_rules(modules: list[Module],
               only: Iterable[str] | None = None) -> list[Finding]:
     # Import for registration side effects (kept out of module import time
     # so `analysis.guard` stays importable alone).
-    from . import lockorder, locks  # noqa: F401
+    from . import lockorder, locks, torch_rules  # noqa: F401
 
     project = Project(modules)
     selected = set(only) if only is not None else set(RULES)

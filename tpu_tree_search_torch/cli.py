@@ -23,7 +23,7 @@
     python -m tpu_tree_search_torch fleet --daemon URL --daemon URL        # the router
     python -m tpu_tree_search_torch submit --router URL --wait -- nqueens --N 12
     python -m tpu_tree_search_torch pfsp --inst 14 --guard                 # steady-state guard
-    python -m tpu_tree_search_torch lint [paths] [--rule guarded-by]      # the lock rules
+    python -m tpu_tree_search_torch lint [paths] [--rule guarded-by]      # lock and capture rules
     python -m tpu_tree_search_torch check [--family nqueens] [--device cuda]  # the contracts
     python -m tpu_tree_search_torch pfsp --inst 14 --unfused --compact sort
 
@@ -86,7 +86,9 @@ port) go through it.
 The guards (`analysis/`): ``--guard`` arms the steady-state guard of the
 resident loops (``TTS_GUARD=1`` for the run: the resident engine, mesh,
 dist_mesh), ``lint`` runs the lock rules (``guarded-by``,
-``lock-order``) over the port, and ``check`` audits the port's programs
+``lock-order``) and the capture rules (``host-sync-in-capture``,
+``tensor-branch``, ``program-key-hygiene``: `analysis/torch_rules.py`)
+over the port, and ``check`` audits the port's programs
 against their contracts (`analysis/program_audit.py`: ``--list``,
 ``--family``, ``--update``, ``--baseline``, ``--no-locks``, ``--json``,
 ``--device``). ``--compact`` (``TTS_COMPACT``) picks the unfused cycle's
@@ -150,7 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                "(follow an --obs-serve run or a serve job), `serve`, "
                "`submit`, `top`, `migrate`, `warmup` (the serve daemon "
                "and its clients), `fleet` (the router over daemons), "
-               "`lint` (the lock rules), `check` (the program contracts)",
+               "`lint` (the lock and capture rules), `check` (the "
+               "program contracts)",
     )
     p.add_argument("problem", choices=("pfsp", "nqueens"))
     p.add_argument("--N", type=int, default=14,

@@ -564,6 +564,7 @@ class _ResidentProgram(CachedProgram):
     def _make_scratch(self):
         raise NotImplementedError
 
+    # tts-lint: traced (the cycle a dispatch, batch or mesh graph captures, picked at run time)
     def _fused_cycle(self, state: ResidentState) -> None:
         raise NotImplementedError
 
@@ -579,6 +580,7 @@ class _ResidentProgram(CachedProgram):
 
     # -- the unfused cycle ---------------------------------------------------
 
+    # tts-lint: traced (its lambda is the cycle a batch or mesh graph captures for a slot)
     def slot_cycle(self, state: ResidentState):
         """The cycle a batch or mesh graph captures for one slot's state: a
         callable of no arguments. Where the slot's condition fails, a fused
@@ -615,6 +617,7 @@ class _ResidentProgram(CachedProgram):
             live = batch_cond_plain(st, n if self.obs and self.fused else 0,
                                     self.m, Mn, self.capacity, self.K)
 
+    # tts-lint: traced (the cycle a dispatch, batch or mesh graph captures, picked at run time)
     def _unfused_cycle(self, state: ResidentState) -> None:
         """One unfused cycle on ``state``, in place, of fixed shapes with
         its scalars on the device, so that it reads nothing back and a
@@ -754,6 +757,7 @@ class PFSPResident(_ResidentProgram):
         return cycle_scratch(self.M, self.problem.jobs, self.vals_dtype,
                              self.device)
 
+    # tts-lint: traced (the cycle a dispatch, batch or mesh graph captures, picked at run time)
     def _fused_cycle(self, state: ResidentState) -> None:
         lb2 = self.problem.lb == "lb2"
         if self.tiled:
@@ -818,6 +822,7 @@ class NQueensResident(_ResidentProgram):
                                          self.device)
         return nqueens_scratch(self.M, self.problem.N, self.device)
 
+    # tts-lint: traced (the cycle a dispatch, batch or mesh graph captures, picked at run time)
     def _fused_cycle(self, state: ResidentState) -> None:
         if self.tiled:
             tiled_nqueens(state.pool_vals, state.pool_aux, state.st,

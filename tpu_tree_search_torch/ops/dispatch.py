@@ -134,6 +134,7 @@ def cycle_condition(name: str) -> tuple[int, int]:
     return own.handle, 1
 
 
+# tts-lint: traced (resumed on the capturing stream around the cycle it wraps)
 @contextmanager
 def offering(handle: int | None):
     """Offer the while node ``handle`` to the cycle captured in the block
@@ -164,6 +165,7 @@ def count_launch(wrapper) -> None:
         wrappers.append(wrapper)
 
 
+# tts-lint: traced (resumed on the capturing stream around the cycle it wraps)
 @contextmanager
 def recording(wrappers: list):
     """Record into ``wrappers`` the wrappers this thread calls in the block
@@ -434,6 +436,7 @@ def _retire_pool(key: int) -> None:
             _RETIRED.append(_POOLS.pop(key))
 
 
+# tts-lint: traced (resumed on the capturing stream around the cycle it wraps)
 @contextmanager
 def pooled(key, device: torch.device):
     """Route this thread's torch allocations on ``device`` to pool ``key``
@@ -450,12 +453,14 @@ def _named(nodes: list[tuple[str, str]]) -> list[tuple[str, str]]:
             for name, kind in nodes]
 
 
+# tts-lint: traced (called on the capturing stream while a batch or mesh body is captured)
 def row_pointer(st: torch.Tensor, i: int) -> int:
     """The address of row ``i`` of the (B, ST_LEN) states, computed on the
     host: a capture takes it with no indexing operation of its own."""
     return st.data_ptr() + i * st.stride(0) * st.element_size()
 
 
+# tts-lint: traced (resumed on the capturing stream around the cycle it wraps)
 @contextmanager
 def gated(lib, side, inner, st_row: int, m: int, Mn: int, C: int, K: int,
           bodies: list, label: str):
@@ -768,6 +773,7 @@ phase_mark_cuda.launches = 0  # type: ignore[attr-defined]
 phase_mark_cuda.captures = 0  # type: ignore[attr-defined]
 
 
+# tts-lint: traced (called from a captured cycle when the phase clock is armed)
 def phase_mark(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
     """One mark routed by device: the kernel on a CUDA block (which
     launches or raises), the host clock on a CPU one."""
@@ -778,6 +784,7 @@ def phase_mark(clk: torch.Tensor, slot: int, flags: int = 0) -> None:
             phase_mark_plain(clk, slot, flags)
 
 
+# tts-lint: traced (called from a captured cycle when the phase clock is armed)
 def phase_mark_if(clk: torch.Tensor, slot: int, alt: int, sel: torch.Tensor,
                   flags: int = 0) -> None:
     """One mark that charges ``alt`` where the 0-d int32 device word

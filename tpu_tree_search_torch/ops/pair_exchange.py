@@ -179,6 +179,7 @@ class PairEndpoint:
         # The plain version's exchange number (its parity slot).
         self.seq = 0
 
+    # tts-lint: traced (a mesh copy's captured cycle calls its endpoint)
     def __call__(self, plane: torch.Tensor, count=None) -> torch.Tensor:
         with route("pair_exchange_cuda"):
             if plane.is_cuda:
@@ -234,10 +235,12 @@ def pair_exchange_cuda(plane: torch.Tensor, count,
     plane) or a CUDA int32 word on the copy's card bounding the live words.
     Never synchronises; the host reads the error word later."""
     g = ep.group
+    # tts-lint: waive tensor-branch -- g is the endpoint's exchange group (host fields: whether it is on cards)
     if not (g.cuda and plane.is_cuda and plane.dtype == torch.int32
             and plane.is_contiguous() and plane.device == ep.device):
         raise ValueError("pair_exchange_cuda takes a contiguous int32 plane "
                          "on the endpoint's card")
+    # tts-lint: waive tensor-branch -- g.capacity is the exchange group's int capacity
     if plane.numel() > g.capacity:
         raise ValueError(f"a plane of {plane.numel()} words exceeds the "
                          f"exchange's capacity {g.capacity}")
@@ -252,6 +255,7 @@ def pair_exchange_cuda(plane: torch.Tensor, count,
     err = fn(plane.data_ptr(), None if count is None else count.data_ptr(),
              plane.numel(), g.links[i].data_ptr(), g.n - 1, g.L,
              g.recv[i].data_ptr(), g.flags[i].data_ptr(), g.ctl[i].data_ptr(),
+             # tts-lint: waive host-sync-in-capture -- g.timeout_s is the group's timeout, a Python float
              ep.err.data_ptr(), int(g.timeout_s * 1e9), stream)
     _build.check(lib, err, "pair_exchange")
     count_launch(pair_exchange_cuda)

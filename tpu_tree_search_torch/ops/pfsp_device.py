@@ -149,6 +149,7 @@ class PFSPDeviceTables:
                              "axis splits the lb2 Johnson pair loop")
         with J.lock:
             got = J.padded.get(mp)
+            # tts-lint: uncaptured (an mp program builds its pair blocks before it captures a cycle)
             if got is None:
                 src = J.source
                 pairs, lags, scheds = (src["pairs"], src["lags"],
@@ -176,6 +177,7 @@ class PFSPDeviceTables:
         J = self.johnson
         with J.lock:
             got = J.blocks.get(mp)
+            # tts-lint: uncaptured (an mp program builds its pair blocks before it captures a cycle)
             if got is None:
                 P_local = pairs.shape[0] // mp
                 src = J.source

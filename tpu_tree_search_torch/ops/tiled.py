@@ -47,6 +47,7 @@ bound or label plane of the chunk.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
@@ -286,9 +287,12 @@ _ARGTYPES = {
 
 
 def _launch_tiled(source: str, pool_vals: torch.Tensor,
-                  pool_aux: torch.Tensor, st: torch.Tensor, scratch, n: int,
-                  M: int, mt: int, m: int, K: int, operands,
-                  scratch_fits, clk=None, marks: int = 0) -> None:
+                  pool_aux: torch.Tensor, st: torch.Tensor,
+                  scratch: TileBoundsScratch, n: int,
+                  M: int, mt: int, m: int, K: int,
+                  operands: Callable[[], tuple],
+                  scratch_fits: Callable[[], bool], clk=None,
+                  marks: int = 0) -> None:
     """Check the operands of a streamed cycle and enqueue the entry of
     ``csrc/<source>.cu``: the pool, state and scratch pointers, then the
     table tensors and the sizes (ints: the width and the tables' sizes) that

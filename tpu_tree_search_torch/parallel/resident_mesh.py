@@ -408,6 +408,7 @@ class MeshProgram(R.CachedProgram):
                 for _ in range(max(1, depth))]
             self._next_slot = 0
 
+    # tts-lint: traced (the balance step a mesh graph captures after each round)
     def balance(self, r: int) -> None:
         """Round r's balance step (one group: the kernel on the card)."""
         mesh_balance(self.st, self.pool_vals, self.pool_aux, self.scratch,

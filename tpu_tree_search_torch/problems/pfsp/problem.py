@@ -208,6 +208,7 @@ class PFSPProblem(Problem):
 
         with self._tables_lock:
             tables = self._device_tables.get(key)
+            # tts-lint: uncaptured (a program builds its device's tables before it captures a cycle)
             if tables is None:
                 tables = PFSPDeviceTables.from_lb1(
                     self.lb1_data, device,
